@@ -1,0 +1,246 @@
+"""The PyTorch port's binary compute against the JAX package, bit for bit.
+
+Same numpy inputs, made from a seed, go through the JAX function and its
+counterpart in ``zookeeper_tpu_torch.ops.binary_compute``. The JAX side
+runs its Pallas kernels in interpret mode (as its own CPU tests do); the
+port runs on CPU tensors, where each kernel wrapper takes its plain
+version. Every result is an exact integer or one fp32 multiply of one,
+so the comparisons are ``np.array_equal``, not a tolerance.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from zookeeper_tpu.ops import binary_compute as jbc
+from zookeeper_tpu_torch.ops import binary_compute as tbc
+
+
+def _signs(rng, shape):
+    return np.where(rng.random(shape) < 0.5, -1.0, 1.0).astype(np.float32)
+
+
+def _np(x):
+    return np.asarray(x.float() if x.dtype == torch.bfloat16 else x)
+
+
+# -- wire format -------------------------------------------------------------
+
+
+@pytest.mark.parametrize("shape,axis", [((3, 64), -1), ((96, 5), 0), ((2, 3, 32, 4), 2)])
+def test_pack_unpack_bits_match_jax(shape, axis):
+    rng = np.random.default_rng(len(shape) * 10 + axis)
+    x = rng.normal(size=shape).astype(np.float32)
+    got = tbc.pack_bits(torch.from_numpy(x), axis=axis)
+    want = jbc.pack_bits(jnp.asarray(x), axis=axis)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(_np(got), np.asarray(want))
+    k = shape[axis] - 3
+    np.testing.assert_array_equal(
+        _np(tbc.unpack_bits(got, k, axis=axis)),
+        np.asarray(jbc.unpack_bits(want, k, axis=axis)),
+    )
+
+
+@pytest.mark.parametrize("ci", [3, 40])
+def test_pack_conv_and_dense_kernel_match_jax(ci):
+    rng = np.random.default_rng(ci)
+    scale = (np.abs(rng.normal(size=7)) + 0.1).astype(np.float32)
+    scale[2] = 0.0  # an all-zero channel takes the guarded scale path
+    q = _signs(rng, (3, 2, ci, 7)) * scale
+    got_p, got_s = tbc.pack_conv_kernel(torch.from_numpy(q))
+    want_p, want_s = jbc.pack_conv_kernel(jnp.asarray(q))
+    np.testing.assert_array_equal(_np(got_p), np.asarray(want_p))
+    np.testing.assert_array_equal(_np(got_s), np.asarray(want_s))
+    qd = q.reshape(-1, 7)
+    got_p, got_s = tbc.pack_dense_kernel(torch.from_numpy(qd))
+    want_p, want_s = jbc.pack_dense_kernel(jnp.asarray(qd))
+    np.testing.assert_array_equal(_np(got_p), np.asarray(want_p))
+    np.testing.assert_array_equal(_np(got_s), np.asarray(want_s))
+
+
+# -- K1: sign+pack rows ------------------------------------------------------
+
+
+@pytest.mark.parametrize("m,k,dtype", [(1, 32, "float32"), (37, 96, "float32"), (41, 64, "bfloat16")])
+def test_pack_rows_matches_pallas(m, k, dtype):
+    rng = np.random.default_rng(m * 1000 + k)
+    x = rng.normal(size=(m, k)).astype(np.float32)
+    xj = jnp.asarray(x, dtype)
+    xt = torch.from_numpy(x).to(getattr(torch, dtype))
+    got = tbc.pack_rows(xt)
+    want = jbc.pack_rows_packed(xj, interpret=True)
+    np.testing.assert_array_equal(_np(got), np.asarray(want))
+
+
+def test_pack_rows_sign_edge_semantics():
+    x = np.asarray(
+        [[0.0, -0.0, np.nan, -np.nan] * 8, [1.0, -1.0, np.inf, -np.inf] * 8],
+        np.float32,
+    )
+    got = _np(tbc.pack_rows(torch.from_numpy(x)))
+    want = np.asarray(jbc.pack_rows_packed(jnp.asarray(x), interpret=True))
+    np.testing.assert_array_equal(got, want)
+    assert got[0, 0] & 0xF == 0b0011  # ±0 -> 1, NaN -> 0
+
+
+def test_pack_rows_rejects_unaligned_k():
+    with pytest.raises(ValueError, match="32"):
+        tbc.pack_rows(torch.ones(4, 33))
+
+
+# -- K3: popcount conv -------------------------------------------------------
+
+
+def _conv_case(rng, b, h, w, ci, co, kh, kw):
+    x = _signs(rng, (b, h, w, ci))
+    # Scales over 16 decades: any epilogue reassociation shows bitwise.
+    s = np.abs(rng.normal(size=co)).astype(np.float32) + 0.1
+    s = (s * rng.choice([1e-8, 1.0, 1e8], size=co)).astype(np.float32)
+    q = _signs(rng, (kh, kw, ci, co)) * s
+    packed, scale = jbc.pack_conv_kernel(jnp.asarray(q))
+    return x, np.array(packed), np.array(scale)
+
+
+def _conv_popcount_pair(x, packed, scale, strides, padding, ci):
+    want = jax.jit(
+        lambda *a: jbc._conv_gemm_popcount(*a, strides, padding, ci=ci, interpret=True)
+    )(jnp.asarray(x), jnp.asarray(packed), jnp.asarray(scale))
+    got = tbc._conv_gemm_popcount(
+        torch.from_numpy(np.array(x, np.float32)).to(
+            torch.bfloat16 if x.dtype == jnp.bfloat16 else torch.float32
+        ),
+        torch.from_numpy(packed), torch.from_numpy(scale), strides, padding,
+        ci=ci,
+    )
+    np.testing.assert_array_equal(_np(got), np.asarray(want))
+    return _np(got)
+
+
+@pytest.mark.parametrize(
+    "strides,padding,dtype",
+    [((1, 1), "SAME", "float32"), ((2, 2), "SAME", "bfloat16"), ((2, 1), "VALID", "float32")],
+)
+def test_conv_gemm_popcount_strides_padding(strides, padding, dtype):
+    rng = np.random.default_rng(sum(strides) * 10 + len(padding))
+    x, packed, scale = _conv_case(rng, b=2, h=9, w=8, ci=17, co=33, kh=3, kw=3)
+    x = np.asarray(jnp.asarray(x, getattr(jnp, dtype)))  # ±1: exact in bf16
+    _conv_popcount_pair(x, packed, scale, strides, padding, ci=17)
+
+
+@pytest.mark.parametrize("ci,co,kh,kw", [(3, 8, 1, 1), (40, 130, 5, 3)])
+def test_conv_gemm_popcount_ragged_channels(ci, co, kh, kw):
+    rng = np.random.default_rng(ci * co)
+    x, packed, scale = _conv_case(rng, b=1, h=7, w=7, ci=ci, co=co, kh=kh, kw=kw)
+    _conv_popcount_pair(x, packed, scale, (1, 1), "SAME", ci=ci)
+
+
+def test_conv_gemm_popcount_validates_operands():
+    xq = torch.zeros(1, 5, 5, 2, dtype=torch.int32)
+    packed = torch.zeros(3, 3, 1, 4, dtype=torch.int32)
+    with pytest.raises(ValueError, match="words"):
+        tbc.conv_gemm_popcount(xq, packed, torch.ones(4), (1, 1), 27)
+    packed = torch.zeros(3, 3, 2, 4, dtype=torch.int32)
+    with pytest.raises(ValueError, match="scale"):
+        tbc.conv_gemm_popcount(xq, packed, torch.ones(3), (1, 1), 27)
+
+
+# -- K4: packed-weight GEMM --------------------------------------------------
+
+
+@pytest.mark.parametrize("m,k,n", [(1, 32, 1), (37, 70, 33), (130, 576, 64)])
+def test_packed_weight_matmul_matches_pallas(m, k, n):
+    rng = np.random.default_rng(m + k + n)
+    a = _signs(rng, (m, k))
+    a[rng.random((m, k)) < 0.2] = 0.0  # zeros from spatial padding
+    w = _signs(rng, (k, n))
+    bp = np.array(jbc.pack_dense_kernel(jnp.asarray(w))[0])
+    want = jbc.packed_weight_matmul(jnp.asarray(a), jnp.asarray(bp), interpret=True)
+    got = tbc.packed_weight_matmul(
+        torch.from_numpy(a).to(torch.int8), torch.from_numpy(bp)
+    )
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(_np(got), np.asarray(want))
+    np.testing.assert_array_equal(_np(got), (a @ w).astype(np.int32))
+
+
+def test_packed_weight_matmul_validates_operands():
+    a = torch.zeros(4, 64, dtype=torch.int8)
+    with pytest.raises(ValueError, match="K-words"):
+        tbc.packed_weight_matmul(a, torch.zeros(3, 8, dtype=torch.int32))
+    with pytest.raises(ValueError, match="int8"):
+        tbc.packed_weight_matmul(a.float(), torch.zeros(2, 8, dtype=torch.int32))
+
+
+# -- the schedules -----------------------------------------------------------
+
+
+@pytest.mark.parametrize(
+    "use_popcount,fuse_taps,padding,strides",
+    [
+        (True, True, "SAME", (1, 1)),
+        (True, False, "VALID", (2, 2)),
+        (False, True, "VALID", (2, 2)),
+        (False, False, "SAME", (1, 1)),
+    ],
+)
+def test_packed_conv_forward_schedules_match_jax(use_popcount, fuse_taps, padding, strides):
+    """Both schedules (one fused-tap GEMM, or one GEMM per tap) of the
+    reference composition, and the port's default flavor, against the
+    JAX reference flavor."""
+    rng = np.random.default_rng(int(use_popcount) * 2 + int(fuse_taps))
+    x, packed, scale = _conv_case(rng, b=2, h=7, w=6, ci=36, co=20, kh=3, kw=3)
+    args = (packed, scale, strides, padding)
+    kw = {"ci": 36, "use_popcount": use_popcount}
+    want = jax.jit(lambda *a: jbc._packed_conv_forward(
+        *a, strides, padding, interpret=True, fuse_taps=fuse_taps,
+        flavor="reference", **kw,
+    ))(jnp.asarray(x), *map(jnp.asarray, args[:2]))
+    xt = torch.from_numpy(x)
+    pt, st = torch.from_numpy(packed), torch.from_numpy(scale)
+    got = tbc._packed_conv_forward(
+        xt, pt, st, strides, padding, fuse_taps=fuse_taps,
+        flavor="reference", **kw,
+    )
+    np.testing.assert_array_equal(_np(got), np.asarray(want))
+    got_auto = tbc.packed_conv_infer(
+        xt, pt, st, strides, padding, use_popcount=use_popcount
+    )
+    np.testing.assert_array_equal(_np(got_auto), np.asarray(want))
+
+
+def test_flavor_seam():
+    assert tbc.resolve_binary_flavor("auto") == "pallas"
+    assert tbc.resolve_binary_flavor("reference") == "reference"
+    with pytest.raises(ValueError, match="flavor"):
+        tbc.resolve_binary_flavor("palas")
+
+
+def test_wrappers_off_the_cpu_launch_or_raise():
+    """A tensor that is not on the CPU never takes the plain version:
+    a device other than CUDA raises, and the unported K5 raises on any
+    non-CPU tensor instead of running plain PyTorch there."""
+    x = torch.empty(4, 64, device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        tbc.pack_rows(x)
+    with pytest.raises(ValueError, match="CUDA"):
+        tbc.packed_weight_matmul(
+            torch.empty(4, 64, dtype=torch.int8, device="meta"),
+            torch.empty(2, 8, dtype=torch.int32, device="meta"),
+        )
+    with pytest.raises(ValueError, match="CUDA"):
+        tbc.xnor_matmul_packed(
+            torch.empty(4, 2, dtype=torch.int32, device="meta"),
+            torch.empty(2, 8, dtype=torch.int32, device="meta"),
+            k_true=64,
+        )
+    assert tbc.LAUNCHES == {k: 0 for k in tbc.LAUNCHES}
+
+
+def test_packed_conv_infer_is_inference_only():
+    x = torch.ones(1, 4, 4, 32, requires_grad=True)
+    packed = torch.zeros(3, 3, 1, 4, dtype=torch.int32)
+    with pytest.raises(ValueError, match="inference-only"):
+        tbc.packed_conv_infer(x, packed, torch.ones(4), (1, 1), "SAME")

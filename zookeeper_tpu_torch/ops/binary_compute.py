@@ -1,0 +1,495 @@
+"""Binary compute on packed operands: bit packing, the packed conv
+schedules, and the three hand-written CUDA kernels they run.
+
+The PyTorch counterpart of ``zookeeper_tpu/ops/binary_compute.py`` for
+the packed inference path. Tensors keep the JAX package's layouts at
+every public function: NHWC activations, HWIO float kernels, packed conv
+kernels ``[kh, kw, ceil(ci/32), co]`` int32, and the little-endian wire
+format (bit b of word t is ``x[..., 32t + b] >= 0``).
+
+Kernels (sources in ``zookeeper_tpu_torch/csrc``), each with its plain
+PyTorch version beside it:
+
+- K1 :func:`pack_rows` — sign+pack of float rows into words;
+- K3 :func:`conv_gemm_popcount` — popcount conv with the scale epilogue;
+- K4 :func:`packed_weight_matmul` — int8 activations times packed
+  weights.
+
+A wrapper runs its plain version only when its tensors lie on the CPU.
+On a CUDA tensor it launches its kernel (counting the launch in
+:data:`LAUNCHES`) or raises; it never falls back. Every result is an
+exact integer or one fp32 multiply of one, so kernel and plain version
+agree bit for bit.
+"""
+
+from typing import Optional, Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from zookeeper_tpu_torch.ops import cuda_build
+
+#: Binary compute flavors (layer field ``binary_flavor``), as in the JAX
+#: package so configs carry over. "auto" and "pallas" run the CUDA
+#: kernels on CUDA tensors; "reference" runs the unfused composition,
+#: which on CUDA needs the unfused popcount GEMM (not ported yet).
+BINARY_FLAVORS = ("auto", "pallas", "reference")
+
+#: Fuse the kh*kw taps into one patch matrix when it stays under this many
+#: bytes (counted in the input's dtype, as the JAX package counts them);
+#: larger convs run one GEMM per tap to bound peak memory.
+_FUSE_TAPS_MAX_BYTES = 32 * 2**20
+
+#: Kernel launches since the last :func:`reset_launches`, by kernel.
+LAUNCHES = {"pack_rows": 0, "conv_gemm_popcount": 0, "packed_weight_matmul": 0}
+
+#: Dynamic shared memory one block may use on a Hopper card.
+_MAX_SMEM_BYTES = 232448
+
+_NOT_PORTED = (
+    "the unfused popcount GEMM (xnor_matmul_packed, K5) has no CUDA kernel "
+    "in the PyTorch port yet (queued in ROADMAP.md); use "
+    "binary_flavor='auto' or 'pallas' on the card"
+)
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def resolve_binary_flavor(flavor: str) -> str:
+    """Resolve a flavor to "pallas" (the fused kernels) or "reference";
+    anything else raises so a typo cannot change which kernels serve."""
+    if flavor not in BINARY_FLAVORS:
+        raise ValueError(
+            f"binary_flavor must be one of {BINARY_FLAVORS}, got {flavor!r}."
+        )
+    return "pallas" if flavor == "auto" else flavor
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+# -- bit packing ------------------------------------------------------------
+
+
+def _to_int32(words: torch.Tensor) -> torch.Tensor:
+    """int64 values in [0, 2^32) -> the int32 with the same bits."""
+    return (words - ((words >> 31) << 32)).to(torch.int32)
+
+
+def pack_bits(x: torch.Tensor, axis: int = -1) -> torch.Tensor:
+    """Pack the sign bits of ``x`` along ``axis`` into int32 words: bit=1
+    encodes x >= 0 (+1, also ±0), bit=0 encodes x < 0 or NaN;
+    little-endian within the word. The axis length must be a multiple of
+    32."""
+    x = torch.movedim(x, axis, -1)
+    k = x.shape[-1]
+    if k % 32 != 0:
+        raise ValueError(f"Packed axis must be a multiple of 32, got {k}.")
+    bits = (x >= 0).reshape(*x.shape[:-1], k // 32, 32).to(torch.int64)
+    shifts = torch.arange(32, dtype=torch.int64, device=x.device)
+    words = _to_int32((bits << shifts).sum(-1))
+    return torch.movedim(words, -1, axis).contiguous()
+
+
+def unpack_bits(packed: torch.Tensor, k: int, axis: int = -1) -> torch.Tensor:
+    """Inverse of :func:`pack_bits`: int32 words -> ±1.0 float32."""
+    words = torch.movedim(packed, axis, -1).to(torch.int64) & 0xFFFFFFFF
+    shifts = torch.arange(32, dtype=torch.int64, device=packed.device)
+    bits = (words[..., None] >> shifts) & 1
+    values = bits.to(torch.float32) * 2.0 - 1.0
+    values = values.reshape(*words.shape[:-1], words.shape[-1] * 32)[..., :k]
+    return torch.movedim(values, -1, axis)
+
+
+def _popcount(v: torch.Tensor) -> torch.Tensor:
+    """Bit count of int64 lanes holding 32-bit values (SWAR)."""
+    v = v - ((v >> 1) & 0x55555555)
+    v = (v & 0x33333333) + ((v >> 2) & 0x33333333)
+    v = (v + (v >> 4)) & 0x0F0F0F0F
+    return ((v * 0x01010101) & 0xFFFFFFFF) >> 24
+
+
+def _popcount_mismatches(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``sum_t popcount(a[m, t] ^ b[t, n])`` as [M, N] int32, for packed
+    [M, Kw] and [Kw, N] int32 operands; M is chunked so the [M, Kw, N]
+    intermediate stays bounded."""
+    m, kw = a.shape
+    n = b.shape[1]
+    a64 = a.to(torch.int64) & 0xFFFFFFFF
+    b64 = (b.to(torch.int64) & 0xFFFFFFFF)[None]
+    out = torch.empty((m, n), dtype=torch.int32, device=a.device)
+    step = max(1, 2**24 // max(1, kw * n))
+    for lo in range(0, m, step):
+        x = a64[lo : lo + step, :, None] ^ b64
+        out[lo : lo + step] = _popcount(x).sum(1).to(torch.int32)
+    return out
+
+
+# -- weight packing ---------------------------------------------------------
+
+
+def pack_conv_kernel(q_kernel: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Pack a quantized HWIO conv kernel (sign x per-output-channel
+    scale) into ``(packed [kh, kw, ceil(ci/32), co] int32, scale [co]
+    float32)``; padded input channels pack as +1 bits."""
+    kh, kw, ci, co = q_kernel.shape
+    scale = q_kernel.abs().amax(dim=(0, 1, 2)).to(torch.float32)
+    safe = torch.where(scale > 0, scale, torch.ones_like(scale))
+    signs = q_kernel / safe  # exactly ±1 by the quantizer contract
+    ci_pad = _round_up(ci, 32)
+    if ci_pad != ci:
+        signs = F.pad(signs, (0, 0, 0, ci_pad - ci), value=1.0)
+    return pack_bits(signs, axis=2), scale
+
+
+def pack_dense_kernel(q_kernel: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Pack a quantized dense kernel [K, N] into ``(packed [ceil(K/32),
+    N] int32, scale [N] float32)``."""
+    k, n = q_kernel.shape
+    scale = q_kernel.abs().amax(dim=0).to(torch.float32)
+    safe = torch.where(scale > 0, scale, torch.ones_like(scale))
+    signs = q_kernel / safe
+    k_pad = _round_up(k, 32)
+    if k_pad != k:
+        signs = F.pad(signs, (0, 0, 0, k_pad - k), value=1.0)
+    return pack_bits(signs, axis=0), scale
+
+
+# -- kernel wrappers --------------------------------------------------------
+
+
+def _cuda_device(what: str, *tensors: torch.Tensor) -> Optional[int]:
+    """None when every tensor lies on the CPU (run the plain version);
+    the CUDA device index when all lie on one card; raises otherwise."""
+    devices = {t.device for t in tensors}
+    if devices == {torch.device("cpu")}:
+        return None
+    if len(devices) != 1 or next(iter(devices)).type != "cuda":
+        raise ValueError(
+            f"{what}: tensors must all lie on the CPU or all on one CUDA "
+            f"card, got {sorted(str(d) for d in devices)}."
+        )
+    return next(iter(devices)).index
+
+
+def _require(cond: bool, what: str, msg: str) -> None:
+    if not cond:
+        raise ValueError(f"{what}: {msg}")
+
+
+def _stream(device: int) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def pack_rows_plain(x: torch.Tensor) -> torch.Tensor:
+    """Plain version of K1: a 32-way shift-or of ``x >= 0``."""
+    return pack_bits(x, axis=-1)
+
+
+def pack_rows(x: torch.Tensor) -> torch.Tensor:
+    """K1: [M, K] fp32/bf16 -> [M, K/32] int32 wire-format words
+    (bit-identical to :func:`pack_bits`, NaN -> 0, ±0 -> 1)."""
+    what = "pack_rows"
+    _require(x.dim() == 2, what, f"expected [M, K], got {tuple(x.shape)}")
+    m, k = x.shape
+    _require(k % 32 == 0, what, f"K must be a multiple of 32, got {k}")
+    device = _cuda_device(what, x)
+    if device is None:
+        return pack_rows_plain(x)
+    codes = {torch.float32: 0, torch.bfloat16: 1}
+    _require(x.dtype in codes, what, f"takes float32/bfloat16, got {x.dtype}")
+    _require(x.is_contiguous(), what, "input must be contiguous")
+    out = torch.empty((m, k // 32), dtype=torch.int32, device=x.device)
+    lib = cuda_build.library("pack_rows")
+    cuda_build.check(
+        lib.zk_pack_rows(
+            x.data_ptr(), codes[x.dtype], out.data_ptr(), m * (k // 32),
+            device, _stream(device),
+        ),
+        what,
+    )
+    LAUNCHES["pack_rows"] += 1
+    return out
+
+
+def _conv_out_size(xq, packed, strides) -> Tuple[int, int]:
+    _, hp, wp, _ = xq.shape
+    kh, kw = packed.shape[:2]
+    sh, sw = strides
+    return (hp - kh) // sh + 1, (wp - kw) // sw + 1
+
+
+def conv_gemm_popcount_plain(
+    xq: torch.Tensor,
+    packed: torch.Tensor,
+    scale: torch.Tensor,
+    strides: Sequence[int],
+    k_true: int,
+) -> torch.Tensor:
+    """Plain version of K3: unfold the taps of the packed input, XOR with
+    the packed weights, popcount in int64, then the kernel's epilogue."""
+    b = xq.shape[0]
+    kh, kw, ciw, co = packed.shape
+    sh, sw = strides
+    ho, wo = _conv_out_size(xq, packed, strides)
+    taps = [
+        xq[:, dy : dy + (ho - 1) * sh + 1 : sh, dx : dx + (wo - 1) * sw + 1 : sw]
+        for dy in range(kh)
+        for dx in range(kw)
+    ]
+    patches = torch.stack(taps, dim=3).reshape(b * ho * wo, kh * kw * ciw)
+    mism = _popcount_mismatches(patches, packed.reshape(kh * kw * ciw, co))
+    y = (k_true - (mism + mism)).to(torch.float32) * scale.to(torch.float32)
+    return y.reshape(b, ho, wo, co)
+
+
+def conv_gemm_popcount(
+    xq: torch.Tensor,
+    packed: torch.Tensor,
+    scale: torch.Tensor,
+    strides: Sequence[int],
+    k_true: int,
+) -> torch.Tensor:
+    """K3: popcount conv of the packed, already padded input ``xq``
+    [B, Hp, Wp, ciw] int32 against ``packed`` [kh, kw, ciw, co] int32,
+    VALID on ``xq``; returns ``(k_true - 2*mismatches) * scale`` as
+    [B, Ho, Wo, co] float32."""
+    what = "conv_gemm_popcount"
+    _require(xq.dim() == 4 and packed.dim() == 4, what,
+             "expected xq [B, Hp, Wp, ciw] and packed [kh, kw, ciw, co]")
+    b, hp, wp, ciw = xq.shape
+    kh, kw, ciw_w, co = packed.shape
+    _require(ciw == ciw_w, what, f"input words {ciw} != weight words {ciw_w}")
+    _require(tuple(scale.shape) == (co,), what,
+             f"scale must be [{co}], got {tuple(scale.shape)}")
+    sh, sw = (int(s) for s in strides)
+    _require(hp >= kh and wp >= kw and sh > 0 and sw > 0, what,
+             "padded input smaller than the kernel, or bad strides")
+    device = _cuda_device(what, xq, packed, scale)
+    if device is None:
+        return conv_gemm_popcount_plain(xq, packed, scale, (sh, sw), k_true)
+    _require(xq.dtype == torch.int32 and packed.dtype == torch.int32, what,
+             "xq and packed must be int32")
+    _require(scale.dtype == torch.float32, what, "scale must be float32")
+    _require(all(t.is_contiguous() for t in (xq, packed, scale)), what,
+             "operands must be contiguous")
+    lib = cuda_build.library("conv_gemm_popcount")
+    smem = lib.zk_conv_gemm_popcount_smem(wp, ciw, kh, kw)
+    _require(smem <= _MAX_SMEM_BYTES, what,
+             f"needs {smem} B of shared memory per block (> "
+             f"{_MAX_SMEM_BYTES}); row too wide for this kernel")
+    ho, wo = _conv_out_size(xq, packed, (sh, sw))
+    out = torch.empty((b, ho, wo, co), dtype=torch.float32, device=xq.device)
+    cuda_build.check(
+        lib.zk_conv_gemm_popcount(
+            xq.data_ptr(), packed.data_ptr(), scale.data_ptr(),
+            out.data_ptr(), b, hp, wp, ciw, kh, kw, co, sh, sw, ho, wo,
+            int(k_true), device, _stream(device),
+        ),
+        what,
+    )
+    LAUNCHES["conv_gemm_popcount"] += 1
+    return out
+
+
+def packed_weight_matmul_plain(
+    a: torch.Tensor, b_packed: torch.Tensor
+) -> torch.Tensor:
+    """Plain version of K4: decode the weights to ±1 and multiply in
+    float64 (exact for any K below 2^53), cast to int32."""
+    k = a.shape[1]
+    w = unpack_bits(b_packed, k, axis=0).to(torch.float64)
+    return (a.to(torch.float64) @ w).to(torch.int32)
+
+
+def packed_weight_matmul(a: torch.Tensor, b_packed: torch.Tensor) -> torch.Tensor:
+    """K4: ``a`` [M, K] int8 in {-1, 0, +1} times the bit-packed ±1
+    weights ``b_packed`` [ceil(K/32), N] int32; returns [M, N] int32."""
+    what = "packed_weight_matmul"
+    _require(a.dim() == 2 and b_packed.dim() == 2, what,
+             "expected a [M, K] and b_packed [Kw, N]")
+    m, k = a.shape
+    kw, n = b_packed.shape
+    _require(kw * 32 == _round_up(k, 32), what,
+             f"packed weight K-words {kw} inconsistent with A's K {k}")
+    _require(a.dtype == torch.int8, what, f"a must be int8, got {a.dtype}")
+    device = _cuda_device(what, a, b_packed)
+    if device is None:
+        return packed_weight_matmul_plain(a, b_packed)
+    _require(b_packed.dtype == torch.int32, what, "b_packed must be int32")
+    if k != kw * 32:
+        # Zeros on the A side contribute nothing against any weight bit.
+        a = F.pad(a, (0, kw * 32 - k))
+    _require(a.is_contiguous() and b_packed.is_contiguous(), what,
+             "operands must be contiguous")
+    _require(a.data_ptr() % 4 == 0, what, "a must be 4-byte aligned")
+    out = torch.empty((m, n), dtype=torch.int32, device=a.device)
+    lib = cuda_build.library("packed_weight_matmul")
+    cuda_build.check(
+        lib.zk_packed_weight_matmul(
+            a.data_ptr(), b_packed.data_ptr(), out.data_ptr(), m, n, kw,
+            device, _stream(device),
+        ),
+        what,
+    )
+    LAUNCHES["packed_weight_matmul"] += 1
+    return out
+
+
+def xnor_matmul_packed(
+    a_packed: torch.Tensor, b_packed: torch.Tensor, *, k_true: int
+) -> torch.Tensor:
+    """Unfused binary GEMM on packed operands ([M, Kw] and [Kw, N]
+    int32): ``k_true - 2*mismatches`` as [M, N] int32. CPU only until its
+    CUDA kernel is ported."""
+    if _cuda_device("xnor_matmul_packed", a_packed, b_packed) is not None:
+        raise NotImplementedError(_NOT_PORTED)
+    if a_packed.shape[1] != b_packed.shape[0]:
+        raise ValueError(
+            f"Packed K mismatch: {a_packed.shape[1]} vs {b_packed.shape[0]}."
+        )
+    mism = _popcount_mismatches(a_packed, b_packed)
+    return k_true - (mism + mism)
+
+
+# -- packed conv schedules --------------------------------------------------
+
+
+def _spatial_pad(
+    x: torch.Tensor, kh: int, kw: int, strides: Sequence[int], padding: str,
+    pad_value: float,
+) -> Tuple[torch.Tensor, int, int]:
+    """Pad NHWC input per XLA SAME/VALID semantics; returns (padded, Ho,
+    Wo). SAME puts the odd pixel after, as XLA does."""
+    _, h, w, _ = x.shape
+    sh, sw = strides
+    if padding == "VALID":
+        return x, (h - kh) // sh + 1, (w - kw) // sw + 1
+    if padding != "SAME":
+        raise ValueError(f"Unsupported padding {padding!r} (SAME/VALID).")
+    ho, wo = -(-h // sh), -(-w // sw)
+    pad_h = max((ho - 1) * sh + kh - h, 0)
+    pad_w = max((wo - 1) * sw + kw - w, 0)
+    if pad_h or pad_w:
+        x = F.pad(
+            x,
+            (0, 0, pad_w // 2, pad_w - pad_w // 2, pad_h // 2, pad_h - pad_h // 2),
+            value=pad_value,
+        )
+    return x, ho, wo
+
+
+def _conv_gemm_popcount(
+    x: torch.Tensor,
+    packed: torch.Tensor,
+    scale: torch.Tensor,
+    strides: Sequence[int],
+    padding: str,
+    *,
+    ci: int,
+) -> torch.Tensor:
+    """Fused popcount conv: ones-pad the ±1 input, sign+pack it once (K1),
+    then the conv-as-GEMM kernel (K3). SAME pads with ONES, the
+    documented popcount deviation; padded channels match the weights'
+    +1 pad bits, so ``k_true = kh*kw*ci`` is exact."""
+    kh, kw, ciw, co = packed.shape
+    xp, _, _ = _spatial_pad(x, kh, kw, strides, padding, 1.0)
+    b, hp, wp, _ = xp.shape
+    ci_pad = ciw * 32
+    if ci_pad != ci:
+        xp = F.pad(xp, (0, ci_pad - ci), value=1.0)
+    xq = pack_rows(xp.reshape(-1, ci_pad)).reshape(b, hp, wp, ciw)
+    return conv_gemm_popcount(xq, packed, scale, strides, kh * kw * ci)
+
+
+def _packed_conv_forward(
+    x: torch.Tensor,
+    packed: torch.Tensor,
+    scale: torch.Tensor,
+    strides: Sequence[int],
+    padding: str,
+    *,
+    ci: int,
+    use_popcount: bool,
+    fuse_taps: Optional[bool] = None,
+    flavor: str = "auto",
+) -> torch.Tensor:
+    """Conv of NHWC ``x`` (±1, or 0 from padding) against pre-packed
+    weights; returns [B, Ho, Wo, co] float32.
+
+    ``use_popcount`` with the "auto"/"pallas" flavor runs K1 + K3.
+    Otherwise the conv decomposes into ``sum over (dy, dx) of shifted_x @
+    W[dy, dx]``, either as ONE GEMM over a tap-major patch matrix
+    (``fuse_taps``; default when it fits in ``_FUSE_TAPS_MAX_BYTES``) or
+    as one GEMM per tap; both are bit-identical. The GEMM is K4 on int8
+    activations (``use_popcount=False``, zero padding, exact against the
+    float conv) or the unfused popcount GEMM (ones padding)."""
+    strides = tuple(int(s) for s in strides)
+    if use_popcount and resolve_binary_flavor(flavor) == "pallas":
+        return _conv_gemm_popcount(x, packed, scale, strides, padding, ci=ci)
+    kh, kw, ciw, co = packed.shape
+    b = x.shape[0]
+    pad_value = 1.0 if use_popcount else 0.0
+    xp, ho, wo = _spatial_pad(x, kh, kw, strides, padding, pad_value)
+    sh, sw = strides
+    m = b * ho * wo
+    ci_pad = ciw * 32
+    if fuse_taps is None:
+        # Counted in x's dtype, as the JAX package decides it.
+        fuse_taps = m * kh * kw * ci_pad * x.element_size() <= _FUSE_TAPS_MAX_BYTES
+    if ci_pad != ci:
+        xp = F.pad(xp, (0, ci_pad - ci), value=pad_value)
+    if not use_popcount:
+        xp = xp.to(torch.int8)  # exact: the values are -1, 0 and +1
+
+    def tap(dy: int, dx: int) -> torch.Tensor:
+        return xp[:, dy : dy + (ho - 1) * sh + 1 : sh,
+                  dx : dx + (wo - 1) * sw + 1 : sw]
+
+    def gemm(a: torch.Tensor, w: torch.Tensor, k_true: int) -> torch.Tensor:
+        if use_popcount:
+            return xnor_matmul_packed(pack_bits(a, axis=-1), w, k_true=k_true)
+        return packed_weight_matmul(a, w)
+
+    if fuse_taps:
+        taps = [tap(dy, dx) for dy in range(kh) for dx in range(kw)]
+        patches = torch.stack(taps, dim=3).reshape(m, kh * kw * ci_pad)
+        acc = gemm(patches, packed.reshape(kh * kw * ciw, co), kh * kw * ci)
+    else:
+        acc = None
+        for dy in range(kh):
+            for dx in range(kw):
+                a = tap(dy, dx).reshape(m, ci_pad)
+                out = gemm(a, packed[dy, dx], ci)
+                acc = out if acc is None else acc + out
+    y = acc.to(torch.float32) * scale[None, :].to(torch.float32)
+    return y.reshape(b, ho, wo, co)
+
+
+def packed_conv_infer(
+    x: torch.Tensor,
+    packed: torch.Tensor,
+    scale: torch.Tensor,
+    strides: Sequence[int],
+    padding: str,
+    *,
+    use_popcount: bool = False,
+    flavor: str = "auto",
+) -> torch.Tensor:
+    """Inference conv from PRE-PACKED weights (the deployment path: the
+    weights never exist unpacked on the card). Inference only: packed
+    weights carry no latent parameters to train, so an input that
+    requires grad raises."""
+    if x.requires_grad and torch.is_grad_enabled():
+        raise ValueError(
+            "packed_conv_infer is inference-only: packed weights carry no "
+            "latent parameters to train."
+        )
+    return _packed_conv_forward(
+        x, packed, scale, strides, padding,
+        ci=x.shape[-1], use_popcount=use_popcount, flavor=flavor,
+    )
