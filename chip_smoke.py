@@ -7,6 +7,11 @@ Run from the root of a checkout, with no arguments, on a machine with a
 CUDA card and ``nvcc``. In order:
 
 1. Device: the card's name and power limit (``nvidia-smi``), CUDA version.
+   Deterministic algorithms (cuDNN's deterministic mode and
+   ``torch.use_deterministic_algorithms``, with ``CUBLAS_WORKSPACE_CONFIG``
+   set before CUDA starts) are on only around the calls held to bit
+   equality; everything timed runs in PyTorch's default settings, as the
+   entry points do.
 2. Build: compiles every kernel of ``zookeeper_tpu_torch/csrc`` with
    ``nvcc`` for ``sm_90a``, one process per source, in parallel.
 3. Kernels: K1 ``pack_rows``, K3 ``conv_gemm_popcount`` and K4
@@ -15,19 +20,37 @@ CUDA card and ``nvcc``. In order:
    PyTorch version on the card (exact integers, or one fp32 multiply of
    one), and each is timed beside its plain version and, where one
    PyTorch call computes the same function, that call.
-4. Slice A: ``ServingConfig`` serves seeded requests with QuickNet-Large,
+4. Residual kernels: K6 ``pack_resid`` (sign and mask mode), K7
+   ``unpack_resid_pm1`` and K8 ``mask_mul_resid`` at the four
+   QuickNet-Large section shapes of a batch-128 bf16 training step, and
+   at ragged and edge cases (batch 37, a 2-D fp32 residual, a 5-D one,
+   values mixing +-0, +-inf, NaN, +-1 and +-1e-40): each must equal its
+   plain version bit for bit, and is timed beside it.
+5. The int8 conv's forward at the four section shapes must give the
+   exact integer sums (against a float64 conv, exact for these sums).
+6. Slice A: ``ServingConfig`` serves seeded requests with QuickNet-Large,
    224x224x3, 1000 classes, bf16, ``binary_compute="xnor_popcount"``,
    packed and BN-folded weights; K1 and K3 must launch 32 times per
    forward, and one batch's logits must equal the plain path's bit for
    bit.
-5. Slice B: the same with ``binary_compute="xnor"`` on K4.
-6. One JSON line of the kernels, then the result line.
-
-Any failure exits non-zero before the result line is printed. There is
-no CPU fallback: without a card, or outside a checkout, the script fails.
+7. Slice B: the same with ``binary_compute="xnor"`` on K4.
+8. Training: ``TrainImageNet`` with QuickNet-Large, 224x224x3, 1000
+   classes, bf16, batch 128, ``binary_compute="int8"`` and
+   ``pack_residuals=True``. One step from a fixed state (Adam's count at
+   1, where the schedule's rate is not 0) must launch K6, K7 and K8 64,
+   32 and 32 times, give a finite loss, move the parameters, and give
+   the same loss, gradients, parameters, BatchNorm statistics and Adam
+   moments bit for bit as the step with the three wrappers swapped for
+   their plain versions and as the step with ``pack_residuals=False``.
+   Prints the
+   step's device time, peak memory with the residuals packed and not,
+   the profiler's top device items, and images/s through ``run()``.
+9. One JSON line of the kernels, then the result line.
 """
 
+import contextlib
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -45,17 +68,38 @@ HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
 FP32_OPS_PER_S = 67e12
 
-#: The rate each kernel's operations are counted at.
+#: The rate each kernel's operations are counted at (the residual
+#: kernels: one fp32 compare or multiply per value).
 OPS_RATE = {
     "pack_rows": FP32_OPS_PER_S,
     "conv_gemm_popcount": INT8_OPS_PER_S,
     "packed_weight_matmul": INT8_OPS_PER_S,
+    "pack_resid": FP32_OPS_PER_S,
+    "unpack_resid_pm1": FP32_OPS_PER_S,
+    "mask_mul_resid": FP32_OPS_PER_S,
 }
+
+#: Each kernel's source and the TPU kernel it replaces.
+KERNELS = {
+    "pack_rows": ("pack_rows.cu", "zookeeper_tpu/ops/binary_compute.py:527"),
+    "conv_gemm_popcount": ("conv_gemm_popcount.cu", "zookeeper_tpu/ops/binary_compute.py:938"),
+    "packed_weight_matmul": ("packed_weight_matmul.cu", "zookeeper_tpu/ops/binary_compute.py:745"),
+    "pack_resid": ("resid_pack.cu", "zookeeper_tpu/ops/binary_compute.py:204"),
+    "unpack_resid_pm1": ("resid_pack.cu", "zookeeper_tpu/ops/binary_compute.py:236"),
+    "mask_mul_resid": ("resid_pack.cu", "zookeeper_tpu/ops/binary_compute.py:264"),
+}
+RESID_KERNELS = ("pack_resid", "unpack_resid_pm1", "mask_mul_resid")
 
 #: QuickNet-Large at batch 8, 224x224: per section (binary convs, spatial
 #: size, channels).
 SECTIONS = ((6, 56, 64), (8, 28, 128), (12, 14, 256), (6, 7, 512))
 BATCH = 8
+#: The training step's batch, and K6, K7, K8 launches per binary conv.
+TRAIN_BATCH = 128
+RESID_PER_CONV = {"pack_resid": 2, "unpack_resid_pm1": 1, "mask_mul_resid": 1}
+#: Synthetic ImageNet examples generated for the training phase: three
+#: batches (the model is not cut; only the dataset is).
+TRAIN_EXAMPLES = 3 * TRAIN_BATCH
 
 
 def fail(msg: str) -> None:
@@ -66,6 +110,23 @@ def fail(msg: str) -> None:
 def check(cond: bool, msg: str) -> None:
     if not cond:
         fail(msg)
+
+
+@contextlib.contextmanager
+def deterministic(torch):
+    """Deterministic algorithms for the calls inside, so that two runs of
+    the same work can be held to bit equality; the settings before are
+    restored after."""
+    cudnn = torch.backends.cudnn
+    saved = (torch.are_deterministic_algorithms_enabled(), cudnn.deterministic,
+             cudnn.benchmark)
+    torch.use_deterministic_algorithms(True)
+    cudnn.deterministic, cudnn.benchmark = True, False
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(saved[0])
+        cudnn.deterministic, cudnn.benchmark = saved[1], saved[2]
 
 
 def bound_ms(name: str, nbytes: float, ops: float):
@@ -116,8 +177,9 @@ def kernel_phase(torch, bc):
     totals["pack_rows"]["library_ms"] = None
 
     def record(name, count, kernel, plain, library, nbytes, ops, shape):
-        got, want = kernel(), plain()
-        torch.cuda.synchronize()
+        with deterministic(torch):
+            got, want = kernel(), plain()
+            torch.cuda.synchronize()
         err = (got.double() - want.double()).abs().max().item() if got.numel() else 0.0
         check(torch.equal(got, want),
               f"{name} at {shape} disagrees with its plain version (max err {err})")
@@ -199,6 +261,136 @@ def kernel_phase(torch, bc):
     return totals
 
 
+def _same_bits(torch, a, b) -> bool:
+    """Equal dtype, shape and bits: a float's bit pattern tells -0 from
+    +0 and compares a NaN by its bits (``torch.equal`` calls no NaN
+    equal)."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.is_floating_point():
+        view = torch.int16 if a.element_size() == 2 else torch.int32
+        a, b = a.view(view), b.view(view)
+    return torch.equal(a, b)
+
+
+def _max_abs_err(torch, got, want) -> float:
+    """Largest finite difference (0 for tensors with equal bits)."""
+    if not got.is_floating_point():
+        got, want = got.to(torch.int64), want.to(torch.int64)
+    d = (got.double() - want.double()).abs()
+    d = d[torch.isfinite(d)]
+    return d.max().item() if d.numel() else 0.0
+
+
+def resid_kernel_phase(torch, bc):
+    """Check and time K6 (sign and mask mode), K7 and K8 at the four
+    section shapes of the batch-128 bf16 training step, and at ragged and
+    edge cases off the main path. Returns per-kernel totals over one
+    training step's launches, as :func:`kernel_phase` does."""
+    dev = torch.device("cuda")
+    g = torch.Generator().manual_seed(1)
+    totals = {
+        name: {"ms": 0.0, "plain_ms": 0.0, "library_ms": None, "bytes": 0.0,
+               "ops": 0.0, "max_abs_err": 0.0}
+        for name in RESID_KERNELS
+    }
+
+    def record(name, count, kernel, plain, nbytes, ops, label):
+        with deterministic(torch):
+            got, want = kernel(), plain()
+            torch.cuda.synchronize()
+        err = _max_abs_err(torch, got, want)
+        check(_same_bits(torch, got, want),
+              f"{name} at {label} disagrees with its plain version (max err {err})")
+        k_ms, p_ms = time_ms(torch, kernel), time_ms(torch, plain, reps=21, inner=2)
+        b_ms, b_by = bound_ms(name, nbytes, ops)
+        print(f"kernel {name} {label}: equal bits, kernel {k_ms:.6f} ms, plain "
+              f"{p_ms:.6f} ms, library none, bound {b_ms:.6f} ms by {b_by} "
+              f"({nbytes} B, {ops} ops), launches/step {count}", flush=True)
+        t = totals[name]
+        t["max_abs_err"] = max(t["max_abs_err"], err)
+        t["ms"] += count * k_ms
+        t["plain_ms"] += count * p_ms
+        t["bytes"] += count * nbytes
+        t["ops"] += count * ops
+
+    edges = torch.tensor([0.0, -0.0, float("inf"), float("-inf"), float("nan"),
+                          1.0, -1.0, 1e-40, -1e-40])
+
+    def values(shape, dtype, with_edges):
+        v = torch.randn(*shape, generator=g) * 1.5
+        if with_edges:
+            pick = torch.rand(*shape, generator=g) < 0.25
+            v[pick] = edges[torch.randint(len(edges), (int(pick.sum()),), generator=g)]
+        return v.to(dtype).to(dev)
+
+    def run_cases(count, shape, dtype, with_edges):
+        b, h, w, c = bc._to_4d_shape(shape)
+        n, groups, esize = h * w * c, -(-b // 32), torch.tensor([], dtype=dtype).element_size()
+        label = f"{tuple(shape)} {str(dtype).split('.')[-1]}"
+        x = values(shape, dtype, with_edges)  # the block input (mask mode)
+        if with_edges:
+            x_sign = values(shape, dtype, True)  # sign mode beyond +-1
+        else:
+            x_sign = torch.where(torch.rand(*shape, generator=g) < 0.5, -1.0, 1.0).to(dtype).to(dev)
+        io = b * n * esize + groups * n * 4
+        record("pack_resid", count, lambda: bc.pack_resid(x_sign),
+               lambda: bc.pack_resid_plain(x_sign), io, b * n, f"{label} sign")
+        record("pack_resid", count, lambda: bc.pack_resid(x, mask_mode=True),
+               lambda: bc.pack_resid_plain(x, mask_mode=True), io, b * n, f"{label} mask")
+        words = bc.pack_resid_plain(x_sign)
+        if with_edges:  # every bit random, the batch pad's included
+            words = (torch.randint(0, 2**32, words.shape, generator=g) - 2**31).to(torch.int32).to(dev)
+        record("unpack_resid_pm1", count, lambda: bc.unpack_resid_pm1(words, shape, dtype),
+               lambda: bc.unpack_resid_pm1_plain(words, shape, dtype), io, b * n, label)
+        cot = values(shape, dtype, with_edges)
+        mask = bc.pack_resid_plain(x, mask_mode=True)
+        record("mask_mul_resid", count, lambda: bc.mask_mul_resid(cot, mask),
+               lambda: bc.mask_mul_resid_plain(cot, mask), io + b * n * esize, b * n, label)
+
+    for convs, h, c in SECTIONS:
+        run_cases(convs, (TRAIN_BATCH, h, h, c), torch.bfloat16, False)
+    for shape, dtype in (((37, 5, 7, 24), torch.bfloat16), ((37, 96), torch.float32),
+                         ((33, 2, 3, 5, 7), torch.bfloat16)):
+        run_cases(0, shape, dtype, True)
+    for name in RESID_KERNELS:
+        print(f"kernel {name}: {RESID_PER_CONV[name] * sum(s[0] for s in SECTIONS)} "
+              f"launches per training step", flush=True)
+    return totals
+
+
+def int8_exact_phase(torch, bc):
+    """The int8 conv's forward on the card (a float32 conv of the +-1
+    operands, TF32 allowed, then one fp32 scale multiply) must give the
+    exact integer sums at every section shape of the batch-128 step:
+    held bit for bit against a float64 conv, exact for |sums| <= 9 * 512,
+    times the same scale."""
+    import torch.nn.functional as F
+
+    dev = torch.device("cuda")
+    g = torch.Generator().manual_seed(2)
+    print(f"int8 conv: cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}", flush=True)
+    for _, h, c in SECTIONS:
+        x = torch.where(torch.rand(TRAIN_BATCH, h, h, c, generator=g) < 0.5, -1.0, 1.0)
+        x = x.to(torch.bfloat16).to(dev)
+        sign = torch.where(torch.rand(3, 3, c, c, generator=g) < 0.5, -1.0, 1.0)
+        scale = torch.rand(c, generator=g) + 0.1
+        k = (sign * scale).to(dev)
+        got = bc._int8_conv_forward(x, k, (1, 1), "SAME", 1, True)
+        with deterministic(torch):
+            sums = F.conv2d(x.double().permute(0, 3, 1, 2),
+                            sign.double().permute(3, 2, 0, 1).to(dev), padding=1)
+            want = sums.permute(0, 2, 3, 1).float() * k.abs().amax(dim=(0, 1, 2))
+            torch.cuda.synchronize()
+        check(_same_bits(torch, got, want),
+              f"int8 conv at {tuple(x.shape)}: not the exact integer sums "
+              f"(max err {_max_abs_err(torch, got, want)})")
+        ms = time_ms(torch, lambda: bc._int8_conv_forward(x, k, (1, 1), "SAME", 1, True),
+                     reps=5, inner=3)
+        print(f"int8 conv {tuple(x.shape)}: exact integer sums "
+              f"(max |sum| {sums.abs().max().item():.0f}), {ms:.6f} ms", flush=True)
+
+
 def slice_phase(torch, bc, label: str, binary_compute: str, kernels):
     """Serve seeded requests through the port's ServingConfig; check the
     launches, the logits, and that they equal the plain path's. Returns
@@ -237,18 +429,19 @@ def slice_phase(torch, bc, label: str, binary_compute: str, kernels):
 
     engine = cfg.engine
     x = np.random.default_rng(1).normal(size=(BATCH, 224, 224, 3)).astype(np.float32)
-    logits = engine.infer(x)
-    torch.cuda.synchronize()
-    check(tuple(logits.shape) == (BATCH, 1000), f"slice {label}: logits {tuple(logits.shape)}")
-    check(bool(torch.isfinite(logits).all()), f"slice {label}: non-finite logits")
-    before = dict(bc.LAUNCHES)
-    with mock.patch.multiple(
-        bc, pack_rows=bc.pack_rows_plain,
-        conv_gemm_popcount=bc.conv_gemm_popcount_plain,
-        packed_weight_matmul=bc.packed_weight_matmul_plain,
-    ):
-        plain = engine.infer(x)
-    torch.cuda.synchronize()
+    with deterministic(torch):
+        logits = engine.infer(x)
+        torch.cuda.synchronize()
+        check(tuple(logits.shape) == (BATCH, 1000), f"slice {label}: logits {tuple(logits.shape)}")
+        check(bool(torch.isfinite(logits).all()), f"slice {label}: non-finite logits")
+        before = dict(bc.LAUNCHES)
+        with mock.patch.multiple(
+            bc, pack_rows=bc.pack_rows_plain,
+            conv_gemm_popcount=bc.conv_gemm_popcount_plain,
+            packed_weight_matmul=bc.packed_weight_matmul_plain,
+        ):
+            plain = engine.infer(x)
+        torch.cuda.synchronize()
     check(bc.LAUNCHES == before,
           f"slice {label}: the plain-path forward launched kernels "
           f"({before} -> {bc.LAUNCHES}), so it is no plain reference")
@@ -276,10 +469,247 @@ def slice_phase(torch, bc, label: str, binary_compute: str, kernels):
     return launches, stats
 
 
+def _snapshot(state):
+    """Copies of everything a train step changes."""
+    clone = lambda d: {k: v.detach().clone() for k, v in d.items()}  # noqa: E731
+    opt = state.opt_state
+    return (clone(state.module.state_dict()), clone(opt["mu"]), clone(opt["nu"]),
+            opt["count"], state.step)
+
+
+def _restore(state, snap) -> None:
+    module_state, mu, nu, count, step = snap
+    state.module.load_state_dict(module_state)
+    for key, saved in (("mu", mu), ("nu", nu)):
+        for name, t in state.opt_state[key].items():
+            t.copy_(saved[name])
+    state.opt_state["count"], state.step = count, step
+
+
+def training_phase(torch, bc, smi):
+    """TrainImageNet's QuickNet-Large int8 step with 1-bit residuals:
+    launches, finiteness and bit equality against the plain-kernel step
+    and the unpacked step from one fixed state; then device time, peak
+    memory, the profiler's top items and images/s through ``run()``.
+    Returns (launches per step, stats)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from zookeeper_tpu_torch.core import configure
+    from zookeeper_tpu_torch.training.imagenet import TrainImageNet
+
+    dev = torch.device("cuda")
+
+    def experiment(pack: bool, epochs: int = 1):
+        exp = TrainImageNet()
+        configure(exp, {
+            "model": "QuickNetLarge",
+            "model.compute_dtype": "bfloat16",
+            "model.binary_compute": "int8",
+            "model.pack_residuals": pack,
+            "loader.dataset.num_train_examples": TRAIN_EXAMPLES,
+            "batch_size": TRAIN_BATCH, "epochs": epochs, "steps_per_epoch": 3,
+            "validate": False, "seed": 0, "device": "cuda", "verbose": False,
+        }, name="experiment")
+        return exp
+
+    t0 = time.perf_counter()
+    exp = experiment(True, epochs=2)
+    state = exp.build_state(dev)
+    batches = exp.loader.batches("train", device=dev, epoch=0, max_batches=1)
+    batch = next(batches)
+    batches.close()
+    step = exp._train_step_fn()
+    # The fixed state takes Adam's count at 1: the warmup schedule's rate
+    # is 0 at count 0, and the parameters would not move.
+    state.opt_state["count"] = 1
+    init = _snapshot(state)
+    param_names = [name for name, _ in state.module.named_parameters()]
+    n_params = sum(p.numel() for p in state.module.parameters())
+    print(f"training: QuickNet-Large ({n_params} parameters) built, "
+          f"{TRAIN_EXAMPLES} synthetic ImageNet examples made and one batch "
+          f"{tuple(batch['input'].shape)} staged in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+    def traced_step(st):
+        """One step from ``st``; returns its loss, gradients, module state
+        (parameters and BatchNorm statistics) and Adam moments."""
+        grads = {}
+        real = st.tx.update
+
+        def spy(g, opt_state, params):
+            grads.update({k: v.detach().clone() for k, v in g.items()})
+            real(g, opt_state, params)
+
+        st.tx.update = spy
+        try:
+            _, metrics = step(st, batch)
+        finally:
+            del st.tx.update
+        torch.cuda.synchronize()
+        out = {"loss": metrics["loss"].clone()}
+        out.update({f"grad {k}": v for k, v in grads.items()})
+        out.update({f"state {k}": v.detach().clone() for k, v in st.module.state_dict().items()})
+        for key in ("mu", "nu"):
+            out.update({f"{key} {k}": v.clone() for k, v in st.opt_state[key].items()})
+        return out
+
+    def same(a, b, label):
+        bad = [k for k in a if not _same_bits(torch, a[k], b[k])]
+        check(set(a) == set(b) and not bad,
+              f"training: {label} differs from the kernel step in {len(bad)} of "
+              f"{len(a)} tensors, e.g. {bad[:4]}")
+        print(f"training: {label} equals the kernel step bit for bit "
+              f"({len(a)} tensors: loss, gradients, parameters, BN statistics, "
+              f"Adam moments)", flush=True)
+
+    exp_off = experiment(False)
+    state_off = exp_off.build_state(dev)
+    with deterministic(torch):
+        # (a) the kernel path, from the fixed state.
+        _restore(state, init)
+        bc.reset_launches()
+        res_a = traced_step(state)
+        launches = {name: bc.LAUNCHES[name] for name in RESID_KERNELS}
+        copies = dict(bc.COPIES)
+        for name in bc.LAUNCHES:
+            want = RESID_PER_CONV.get(name, 0) * sum(s[0] for s in SECTIONS)
+            check(bc.LAUNCHES[name] == want,
+                  f"training: {name} launched {bc.LAUNCHES[name]} times in one step, want {want}")
+        loss = res_a["loss"].item()
+        check(math.isfinite(loss), f"training: loss {loss} is not finite")
+        moved = sum(not _same_bits(torch, res_a[f"state {n}"], init[0][n]) for n in param_names)
+        check(moved > 0, "training: the step moved no parameter")
+        print(f"training: one step, loss {loss:.6f}, launches {launches}, "
+              f"strided inputs copied {copies}, {moved} of {len(param_names)} "
+              f"parameter tensors moved", flush=True)
+
+        # (b) the three wrappers swapped for their plain versions.
+        _restore(state, init)
+        before = dict(bc.LAUNCHES)
+        with mock.patch.multiple(
+            bc, pack_resid=bc.pack_resid_plain,
+            unpack_resid_pm1=bc.unpack_resid_pm1_plain,
+            mask_mul_resid=bc.mask_mul_resid_plain,
+        ):
+            res_b = traced_step(state)
+        check(bc.LAUNCHES == before,
+              f"training: the plain-kernel step launched kernels ({before} -> {bc.LAUNCHES})")
+        same(res_a, res_b, "the plain-kernel step")
+        del res_b
+
+        # (c) pack_residuals=False, from the same state.
+        _restore(state_off, init)
+        bc.reset_launches()
+        res_c = traced_step(state_off)
+        check(all(bc.LAUNCHES[n] == 0 for n in RESID_KERNELS),
+              f"training: the unpacked step launched residual kernels {bc.LAUNCHES}")
+        same(res_a, res_c, "the pack_residuals=False step")
+        del res_a, res_c
+
+    # Peak memory of one step from the fixed state, pack on and off, in
+    # the default settings.
+    peaks = {}
+    for pack, st in ((True, state), (False, state_off)):
+        _restore(st, init)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        step(st, batch)
+        torch.cuda.synchronize()
+        peaks[pack] = (base, torch.cuda.max_memory_allocated())
+    (base_on, peak_on), (base_off, peak_off) = peaks[True], peaks[False]
+    gib = 2.0**30
+    memory = {
+        "peak_gib_pack_on": peak_on / gib, "peak_gib_pack_off": peak_off / gib,
+        "step_gib_pack_on": (peak_on - base_on) / gib,
+        "step_gib_pack_off": (peak_off - base_off) / gib,
+    }
+    # The step's own memory (peak over what was allocated before it) is
+    # compared: both peaks also hold the two train states and the
+    # snapshot.
+    check(peak_on - base_on < peak_off - base_off,
+          f"training: the step's peak memory with packed residuals "
+          f"{peak_on - base_on} B is not below the unpacked step's "
+          f"{peak_off - base_off} B")
+    print(f"training: peak memory {json.dumps(memory)}", flush=True)
+
+    # Device time of one step on a device-resident batch, pack on and off
+    # in turns (on, off, off, on), three steps each after a warm step;
+    # the host clock around step + synchronize beside it.
+    times = {True: [], False: []}
+    walls = {True: [], False: []}
+    for pack in (True, False, False, True):
+        st = state if pack else state_off
+        step(st, batch)
+        torch.cuda.synchronize()
+        for _ in range(3):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            t1 = time.perf_counter()
+            start.record()
+            step(st, batch)
+            end.record()
+            end.synchronize()
+            walls[pack].append((time.perf_counter() - t1) * 1e3)
+            times[pack].append(start.elapsed_time(end))
+    step_ms = {"step_ms_pack_on": statistics.median(times[True]),
+               "step_ms_pack_off": statistics.median(times[False]),
+               "step_wall_ms_pack_on": statistics.median(walls[True]),
+               "step_wall_ms_pack_off": statistics.median(walls[False])}
+    print(f"training: time per step {json.dumps(step_ms)} (device, all: "
+          f"{json.dumps({str(k): v for k, v in times.items()})})", flush=True)
+    del state_off, exp_off
+    torch.cuda.empty_cache()
+
+    # The profiler's kernels for one step (pack on): their summed device
+    # time against the step's device time gives the busy share.
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step(state, batch)
+        torch.cuda.synchronize()
+    attr = ("self_device_time_total" if hasattr(prof.key_averages()[0], "self_device_time_total")
+            else "self_cuda_time_total")
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(getattr(e, attr) for e in kernels) / 1e3
+    launched = sum(e.count for e in kernels)
+    busy_share = busy_ms / step_ms["step_ms_pack_on"]
+    print(f"training profile: {launched} device activities, {busy_ms:.3f} ms "
+          f"busy, {100 * busy_share:.1f}% of the {step_ms['step_ms_pack_on']:.3f} "
+          f"ms step; top items:", flush=True)
+    for e in sorted(kernels, key=lambda e: getattr(e, attr), reverse=True)[:15]:
+        t = getattr(e, attr) / 1e3
+        print(f"  {t:9.3f} ms {100 * t / busy_ms:5.1f}% x{e.count:<5d} {e.key[:110]}",
+              flush=True)
+
+    # images/s through run(): two epochs of three steps, host pipeline
+    # (RandomResizedCrop on 8 worker threads, pinned prefetch) included.
+    bc.reset_launches()
+    history = exp.run()
+    torch.cuda.synchronize()
+    steps = 2 * 3
+    for name in RESID_KERNELS:
+        want = RESID_PER_CONV[name] * sum(s[0] for s in SECTIONS) * steps
+        check(bc.LAUNCHES[name] == want,
+              f"training run(): {name} launched {bc.LAUNCHES[name]} times, want {want}")
+    losses = [e["loss"] for e in history["train"]]
+    check(all(math.isfinite(v) for v in losses), f"training run(): losses {losses}")
+    run_stats = {f"images_per_s_epoch{i + 1}": e["examples_per_sec"]
+                 for i, e in enumerate(history["train"])}
+    print(f"training run(): losses {losses}, {json.dumps(run_stats)}", flush=True)
+    stats = {**step_ms, **memory, **run_stats, "device_busy_ms": busy_ms,
+             "device_busy_share": busy_share, "device_activities_per_step": launched}
+    print(f"training on {smi}: {json.dumps(stats)}", flush=True)
+    del exp, state
+    torch.cuda.empty_cache()
+    return launches, stats
+
+
 def main() -> None:
     if not os.path.isdir(os.path.join(ROOT, "zookeeper_tpu_torch", "csrc")):
         fail("run from a checkout: zookeeper_tpu_torch/ is not beside this script")
     sys.path.insert(0, ROOT)
+    # cuBLAS reads this when CUDA starts: deterministic workspaces.
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
 
     if not torch.cuda.is_available():
@@ -291,8 +721,10 @@ def main() -> None:
     print(smi, flush=True)
     print(f"device: {torch.cuda.get_device_name(0)}, torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}", flush=True)
-    torch.backends.cudnn.deterministic = True
-    torch.backends.cudnn.benchmark = False
+    # Deterministic mode (see ``deterministic``) would also fill every new
+    # tensor with NaN, a debugging aid that adds a fill launch per
+    # allocation; the results do not depend on it.
+    torch.utils.deterministic.fill_uninitialized_memory = False
 
     from zookeeper_tpu_torch.ops import binary_compute as bc
     from zookeeper_tpu_torch.ops import cuda_build
@@ -304,25 +736,25 @@ def main() -> None:
           flush=True)
 
     totals = kernel_phase(torch, bc)
+    totals.update(resid_kernel_phase(torch, bc))
+    int8_exact_phase(torch, bc)
     launches_a, stats_a = slice_phase(torch, bc, "A", "xnor_popcount",
                                       ("pack_rows", "conv_gemm_popcount"))
     launches_b, stats_b = slice_phase(torch, bc, "B", "xnor",
                                       ("packed_weight_matmul",))
     print(f"slices on {smi}: A {json.dumps(stats_a)} B {json.dumps(stats_b)}", flush=True)
+    launches_t, _ = training_phase(torch, bc, smi)
 
-    meta = {
-        "pack_rows": ("zookeeper_tpu/ops/binary_compute.py:527", launches_a),
-        "conv_gemm_popcount": ("zookeeper_tpu/ops/binary_compute.py:938", launches_a),
-        "packed_weight_matmul": ("zookeeper_tpu/ops/binary_compute.py:745", launches_b),
-    }
+    launches = {**{n: launches_a[n] for n in ("pack_rows", "conv_gemm_popcount")},
+                "packed_weight_matmul": launches_b["packed_weight_matmul"], **launches_t}
     rows = []
     for name, t in totals.items():
-        replaces, launches = meta[name]
+        source, replaces = KERNELS[name]
         least_ms, bound_by = bound_ms(name, t["bytes"], t["ops"])
         rows.append({
             "name": name,
             "route": "cuda",
-            "source": f"zookeeper_tpu_torch/csrc/{name}.cu",
+            "source": f"zookeeper_tpu_torch/csrc/{source}",
             "replaces": replaces,
             "launches": launches[name],
             "ok": True,

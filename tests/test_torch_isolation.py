@@ -40,6 +40,8 @@ def test_importing_the_port_loads_no_jax():
         "import sys\n"
         "import zookeeper_tpu_torch.serving, zookeeper_tpu_torch.models\n"
         "import zookeeper_tpu_torch.ops.packed, zookeeper_tpu_torch.models.convert\n"
+        "import zookeeper_tpu_torch.training, zookeeper_tpu_torch.data\n"
+        "import zookeeper_tpu_torch.training.imagenet\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
         "assert not bad, bad\n"
     )

@@ -13,8 +13,9 @@ class Model:
     """A component that builds a ``torch.nn.Module``.
 
     Modules built here take batched NHWC input (as in the JAX package)
-    and return float32 outputs; the port serves, so they run in eval
-    mode only.
+    and return float32 outputs. ``module.train()`` runs them as flax's
+    ``training=True`` does (batch-statistics BatchNorms that update their
+    running statistics); ``module.eval()`` serves.
     """
 
     #: Compute dtype for activations. Parameters stay float32.

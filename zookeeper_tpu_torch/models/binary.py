@@ -1,8 +1,11 @@
-"""The QuickNet family on the packed binary paths.
+"""The QuickNet family, for training and serving.
 
 Counterparts of ``zookeeper_tpu/models/binary.py``'s ``QuickNet``,
 ``QuickNetSmall`` and ``QuickNetLarge``: fp stem, sections of residual
 binary 3x3 convs, fp 1x1 transitions with blurpool downsampling, fp head.
+A built module starts in eval mode, as flax's ``training`` flag
+defaults to False; ``module.train()`` trains it (batch-statistics
+BatchNorms), as ``training=True`` does.
 Submodules carry the flax auto-numbered names (``Conv_0``,
 ``BatchNorm_3``, ``QuantConv_7``, ``Dense_0``) in flax creation order, so
 a JAX checkpoint maps across by name (``models/convert.py``) and the BN
@@ -19,6 +22,28 @@ from zookeeper_tpu_torch.core import Field, component
 from zookeeper_tpu_torch.models.base import Model
 from zookeeper_tpu_torch.ops.binary_compute import _spatial_pad
 from zookeeper_tpu_torch.ops.layers import BatchNorm, Conv, Dense, QuantConv
+
+_FOLD_BN_TRAINING_ERROR = (
+    "fold_bn=True is a DEPLOYMENT mode: the binary-conv BatchNorms are "
+    "folded into conv params at convert time and skipped here, so a "
+    "training forward would run un-normalized with batch stats silently "
+    "missing. Train with fold_bn=False and convert with "
+    "pack_quantconv_params(fold_bn=True)."
+)
+
+
+def _packed_any(packed_weights) -> bool:
+    if isinstance(packed_weights, (tuple, list)):
+        return any(packed_weights)
+    return bool(packed_weights)
+
+
+def _check_fold_training(fold_bn, packed_weights, training: bool) -> None:
+    """Raise on a training forward of a build that actually folds (the
+    fold applies only where a section is packed, so an unpacked build
+    with an inherited fold_bn=True trains normally)."""
+    if fold_bn and _packed_any(packed_weights) and training:
+        raise ValueError(_FOLD_BN_TRAINING_ERROR)
 
 
 def _section_opt(value, s: int):
@@ -42,6 +67,8 @@ class _QuickNetModule(nn.Module):
     """QuickNet over NHWC input; returns float32 logits.
 
     ``binary_compute``/``packed_weights`` may be per-section tuples.
+    ``pack_residuals`` stores the binary convs' training residuals at 1
+    bit per value (int8 path; see ``QuantConv``).
     ``fold_bn`` (deployment only) skips the BN after each packed binary
     conv: its eval-mode affine was folded into the conv's
     ``kernel_scale``/``bias`` by ``ops.packed.pack_quantconv_params``. The
@@ -58,6 +85,7 @@ class _QuickNetModule(nn.Module):
         dtype: torch.dtype,
         binary_compute: Any = "xnor_popcount",
         packed_weights: Any = False,
+        pack_residuals: bool = False,
         fold_bn: bool = False,
         binary_flavor: str = "auto",
     ):
@@ -70,6 +98,7 @@ class _QuickNetModule(nn.Module):
             dtype=dtype,
             binary_compute=binary_compute,
             packed_weights=packed_weights,
+            pack_residuals=pack_residuals,
             fold_bn=fold_bn,
             binary_flavor=binary_flavor,
         )
@@ -110,6 +139,7 @@ class _QuickNetModule(nn.Module):
                     feat, feat, (3, 3), dtype=d,
                     binary_compute=_section_opt(binary_compute, s),
                     packed_weights=packed,
+                    pack_residuals=pack_residuals,
                     use_bias=fold_here,  # carries the folded BN shift
                     binary_flavor=binary_flavor,
                 ))
@@ -117,6 +147,7 @@ class _QuickNetModule(nn.Module):
                 blocks.append((conv, bn))
             self._sections.append((transition, blocks))
         self._head = add("Dense", Dense(width, num_classes, dtype=d))
+        self.eval()  # flax's training=False default
 
     def float_twin(self) -> "_QuickNetModule":
         """The same architecture holding latent float kernels and every BN:
@@ -127,10 +158,12 @@ class _QuickNetModule(nn.Module):
 
     @property
     def packed_any(self) -> bool:
-        packed = self.config["packed_weights"]
-        return any(packed) if isinstance(packed, (tuple, list)) else bool(packed)
+        return _packed_any(self.config["packed_weights"])
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        _check_fold_training(
+            self.config["fold_bn"], self.config["packed_weights"], self.training
+        )
         layer = self.get_submodule
         conv0, bn0, conv1, bn1 = self._stem
         x = x.to(self.dtype)
@@ -152,13 +185,15 @@ class _QuickNetModule(nn.Module):
 @component
 class QuickNet(Model):
     """QuickNet. ``binary_compute``/``packed_weights`` accept one value or
-    a per-section tuple; the port runs the packed modes "xnor_popcount"
-    and "xnor" (the others raise, see ROADMAP.md)."""
+    a per-section tuple (mixed deployment, e.g. ("int8", "int8", "xnor",
+    "xnor") with packed_weights (False, False, True, True))."""
 
     blocks_per_section: Sequence[int] = Field((2, 3, 4, 4))
     section_features: Sequence[int] = Field((64, 128, 256, 512))
     binary_compute: Union[str, Sequence[str]] = Field("mxu")
     packed_weights: Union[bool, Sequence[bool]] = Field(False)
+    #: 1-bit residual storage on the binary convs (int8 path only).
+    pack_residuals: bool = Field(False)
     #: Deployment-only: binary-conv BNs folded into the conv epilogue
     #: (pair with ops.packed.pack_quantconv_params fold_bn=True).
     fold_bn: bool = Field(False)
@@ -186,6 +221,7 @@ class QuickNet(Model):
             dtype=self.dtype(),
             binary_compute=norm(self.binary_compute),
             packed_weights=norm(self.packed_weights),
+            pack_residuals=self.pack_residuals,
             fold_bn=self.fold_bn,
             binary_flavor=self.binary_flavor,
         )

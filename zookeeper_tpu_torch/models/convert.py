@@ -11,6 +11,12 @@ in]. BN ``scale``/``bias`` become ``weight``/``bias`` and ``batch_stats``
 leaves (``kernel``, ``kernel_packed``, ``kernel_scale``, ``bias``) keep
 the JAX layout. A folded BN (deployment with ``fold_bn``) has no
 parameters and maps to nothing. Conversion is in memory only.
+
+A training state carries across too: :func:`flax_train_state` and
+:func:`load_flax_train_state` move the step, params, ``batch_stats`` and
+optax Adam's ``count``/``mu``/``nu`` (whose trees have the params'
+structure, so they convert leaf for leaf like the params) between the
+port's ``TrainState`` and numpy trees.
 """
 
 import re
@@ -65,23 +71,83 @@ def from_flax_variables(
     return out
 
 
+def _flax_param_leaves(scope: str, leaves: Mapping[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    """One scope's parameter leaves (state_dict names, numpy) in flax's
+    names and layouts."""
+    if _CONV.match(scope):
+        return {"kernel": leaves["weight"].transpose(2, 3, 1, 0)}
+    if _DENSE.match(scope):
+        return {"kernel": leaves["weight"].T, "bias": leaves["bias"]}
+    if _BN.match(scope):
+        return {k: leaves[v] for k, v in _BN_PARAMS.items() if v in leaves}
+    if _QUANT.match(scope):
+        return dict(leaves)
+    raise ValueError(f"to_flax_variables: unknown scope {scope!r}.")
+
+
+def _by_scope(named: Mapping[str, Any]) -> Dict[str, Dict[str, np.ndarray]]:
+    """``{"Scope.leaf": tensor}`` -> ``{scope: {leaf: numpy}}``, in order."""
+    out: Dict[str, Dict[str, np.ndarray]] = {}
+    for name, value in named.items():
+        scope, leaf = name.split(".", 1)
+        out.setdefault(scope, {})[leaf] = _tensor(value).numpy()
+    return out
+
+
 def to_flax_variables(module: nn.Module) -> Tuple[Dict[str, Any], Dict[str, Any]]:
     """The port module's weights as flax ``(params, {"batch_stats":
     ...})`` nested dicts of numpy arrays, scopes in module creation
     order (the inverse of :func:`from_flax_variables`)."""
     params: Dict[str, Dict[str, np.ndarray]] = {}
     stats: Dict[str, Dict[str, np.ndarray]] = {}
-    for scope, child in module.named_children():
-        leaves = {k: v.detach().cpu().numpy() for k, v in child.state_dict().items()}
-        if _CONV.match(scope):
-            params[scope] = {"kernel": leaves["weight"].transpose(2, 3, 1, 0)}
-        elif _DENSE.match(scope):
-            params[scope] = {"kernel": leaves["weight"].T, "bias": leaves["bias"]}
-        elif _BN.match(scope):
-            params[scope] = {k: leaves[v] for k, v in _BN_PARAMS.items()}
+    for scope, leaves in _by_scope(module.state_dict()).items():
+        params[scope] = _flax_param_leaves(scope, leaves)
+        if _BN.match(scope):
             stats[scope] = {k: leaves[v] for k, v in _BN_STATS.items()}
-        elif _QUANT.match(scope):
-            params[scope] = leaves
-        else:
-            raise ValueError(f"to_flax_variables: unknown scope {scope!r}.")
     return params, {"batch_stats": stats}
+
+
+def flax_train_state(state: Any) -> Dict[str, Any]:
+    """A port ``TrainState`` as numpy trees in the JAX package's layout:
+    ``{"step", "params", "model_state": {"batch_stats"}, "adam": {"count",
+    "mu", "nu"}}`` (the Adam moments as params-shaped trees)."""
+    params, model_state = to_flax_variables(state.module)
+    opt = state.opt_state
+    return {
+        "step": np.int32(state.step),
+        "params": params,
+        "model_state": model_state,
+        "adam": {
+            "count": np.int32(opt["count"]),
+            "mu": {s: _flax_param_leaves(s, v) for s, v in _by_scope(opt["mu"]).items()},
+            "nu": {s: _flax_param_leaves(s, v) for s, v in _by_scope(opt["nu"]).items()},
+        },
+    }
+
+
+def load_flax_train_state(
+    state: Any,
+    *,
+    step: Any,
+    params: Mapping[str, Any],
+    model_state: Mapping[str, Any],
+    adam: Mapping[str, Any],
+) -> Any:
+    """Load a JAX train state (numpy trees, as :func:`flax_train_state`
+    returns them; ``adam`` holds optax's ``ScaleByAdamState`` leaves) into
+    the port's ``TrainState`` in place, on the devices its tensors lie
+    on. Returns ``state``."""
+    state.module.load_state_dict(from_flax_variables(params, model_state))
+    state.step = int(step)
+    opt = state.opt_state
+    opt["count"] = int(adam["count"])
+    for key in ("mu", "nu"):
+        moments = from_flax_variables(adam[key])
+        if set(moments) != set(opt[key]):
+            raise ValueError(
+                f"load_flax_train_state: Adam {key} leaves {sorted(moments)} "
+                f"do not match the model's parameters {sorted(opt[key])}."
+            )
+        for name, value in moments.items():
+            opt[key][name].copy_(value)
+    return state

@@ -1,2 +1,3 @@
-"""Ops of the packed inference path: quantizers, binary compute (with
-the CUDA kernel wrappers), layers and the deployment converter."""
+"""Ops of the QuickNet paths: quantizers, binary compute (with the CUDA
+kernel wrappers), layers, the deployment converter and the device
+check the entry points share."""

@@ -1,11 +1,13 @@
-"""Binary compute on packed operands: bit packing, the packed conv
-schedules, and the three hand-written CUDA kernels they run.
+"""Binary compute: bit packing, the packed conv schedules, the int8
+training conv with its 1-bit residuals, and the hand-written CUDA
+kernels they run.
 
-The PyTorch counterpart of ``zookeeper_tpu/ops/binary_compute.py`` for
-the packed inference path. Tensors keep the JAX package's layouts at
-every public function: NHWC activations, HWIO float kernels, packed conv
-kernels ``[kh, kw, ceil(ci/32), co]`` int32, and the little-endian wire
-format (bit b of word t is ``x[..., 32t + b] >= 0``).
+The PyTorch counterpart of ``zookeeper_tpu/ops/binary_compute.py``.
+Tensors keep the JAX package's layouts at every public function: NHWC
+activations, HWIO float kernels, packed conv kernels ``[kh, kw,
+ceil(ci/32), co]`` int32, the little-endian wire format (bit b of word t
+is ``x[..., 32t + b] >= 0``) and the batch-packed residual format (bit b
+of word ``[g, h, w, c]`` comes from ``x[32g + b, h, w, c]``).
 
 Kernels (sources in ``zookeeper_tpu_torch/csrc``), each with its plain
 PyTorch version beside it:
@@ -13,13 +15,17 @@ PyTorch version beside it:
 - K1 :func:`pack_rows` — sign+pack of float rows into words;
 - K3 :func:`conv_gemm_popcount` — popcount conv with the scale epilogue;
 - K4 :func:`packed_weight_matmul` — int8 activations times packed
-  weights.
+  weights;
+- K6 :func:`pack_resid` — 1-bit pack along the batch of the sign bit or
+  the STE mask;
+- K7 :func:`unpack_resid_pm1` — the sign-mode inverse of K6, to ±1;
+- K8 :func:`mask_mul_resid` — ``g * mask`` from K6's mask words.
 
 A wrapper runs its plain version only when its tensors lie on the CPU.
 On a CUDA tensor it launches its kernel (counting the launch in
 :data:`LAUNCHES`) or raises; it never falls back. Every result is an
-exact integer or one fp32 multiply of one, so kernel and plain version
-agree bit for bit.
+exact integer, one fp32 multiply of one, a bit, or a value times 0 or 1,
+so kernel and plain version agree bit for bit.
 """
 
 from typing import Optional, Sequence, Tuple
@@ -41,7 +47,14 @@ BINARY_FLAVORS = ("auto", "pallas", "reference")
 _FUSE_TAPS_MAX_BYTES = 32 * 2**20
 
 #: Kernel launches since the last :func:`reset_launches`, by kernel.
-LAUNCHES = {"pack_rows": 0, "conv_gemm_popcount": 0, "packed_weight_matmul": 0}
+LAUNCHES = {
+    "pack_rows": 0, "conv_gemm_popcount": 0, "packed_weight_matmul": 0,
+    "pack_resid": 0, "unpack_resid_pm1": 0, "mask_mul_resid": 0,
+}
+
+#: Copies the residual kernels' wrappers made of a strided input to hand
+#: their kernel a dense one, since the last :func:`reset_launches`.
+COPIES = {"pack_resid": 0, "mask_mul_resid": 0}
 
 #: Dynamic shared memory one block may use on a Hopper card.
 _MAX_SMEM_BYTES = 232448
@@ -54,8 +67,9 @@ _NOT_PORTED = (
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, COPIES):
+        for name in counts:
+            counts[name] = 0
 
 
 def resolve_binary_flavor(flavor: str) -> str:
@@ -340,6 +354,188 @@ def packed_weight_matmul(a: torch.Tensor, b_packed: torch.Tensor) -> torch.Tenso
     return out
 
 
+# -- batch-packed 1-bit residuals (K6, K7, K8) -------------------------------
+#
+# The training residuals of the int8 binary conv: the ±1 conv input and
+# the ste_sign pass-through mask are stored at 1 bit per value between
+# forward and backward. Bits pack along the BATCH axis of the 4-D
+# normalised shape, so no relayout of the NHWC residual is needed; the
+# batch pads to a multiple of 32 (1.0 for a pack, 0.0 for a cotangent).
+
+
+def _to_4d_shape(shape: Sequence[int]) -> Tuple[int, int, int, int]:
+    """A residual shape as [B, H, W, C]: [B, K] -> [B, 1, 1, K], [B, W,
+    C] -> [B, 1, W, C], and [B, *spatial, C] merges the leading spatial
+    dims. Pack and unpack recompute it from the original shape."""
+    shape = tuple(int(s) for s in shape)
+    if len(shape) == 4:
+        return shape
+    if len(shape) == 2:
+        return (shape[0], 1, 1, shape[1])
+    if len(shape) == 3:
+        return (shape[0], 1, shape[1], shape[2])
+    if len(shape) > 4:
+        inner = 1
+        for s in shape[1:-2]:
+            inner *= s
+        return (shape[0], inner, shape[-2], shape[-1])
+    raise ValueError(
+        f"1-bit residual packing needs a batched tensor, got shape {shape}."
+    )
+
+
+def _pad_batch(x4: torch.Tensor, pad_value: float) -> torch.Tensor:
+    b = x4.shape[0]
+    bp = _round_up(b, 32)
+    if bp == b:
+        return x4
+    return F.pad(x4, (0, 0, 0, 0, 0, 0, 0, bp - b), value=pad_value)
+
+
+def _bit_shifts(device: torch.device) -> torch.Tensor:
+    return torch.arange(32, dtype=torch.int64, device=device).reshape(1, 32, 1, 1, 1)
+
+
+def _unpack_resid_bits(words: torch.Tensor) -> torch.Tensor:
+    """[G, H, W, C] words -> [32G, H, W, C] int64 bits in batch order."""
+    g, h, w, c = words.shape
+    bits = ((words.to(torch.int64)[:, None] & 0xFFFFFFFF) >> _bit_shifts(words.device)) & 1
+    return bits.reshape(g * 32, h, w, c)
+
+
+def _resid_dtype_code(what: str, dtype: torch.dtype) -> int:
+    codes = {torch.float32: 0, torch.bfloat16: 1}
+    _require(dtype in codes, what, f"takes float32/bfloat16, got {dtype}")
+    return codes[dtype]
+
+
+def _dense(t: torch.Tensor, what: str) -> torch.Tensor:
+    """``t`` as a contiguous tensor for a kernel that reads flat rows;
+    a strided ``t`` is copied once, counted in :data:`COPIES`."""
+    if t.is_contiguous():
+        return t
+    COPIES[what] += 1
+    return t.contiguous()
+
+
+def pack_resid_plain(x: torch.Tensor, mask_mode: bool = False) -> torch.Tensor:
+    """Plain version of K6: pad the batch with 1.0, compare in fp32, and
+    shift-or 32 batch rows into each word."""
+    x4 = _pad_batch(x.reshape(_to_4d_shape(x.shape)), 1.0)
+    bp, h, w, c = x4.shape
+    v = x4.to(torch.float32)
+    bits = (v.abs() <= 1.0) if mask_mode else (v >= 0)
+    bits = bits.reshape(bp // 32, 32, h, w, c).to(torch.int64)
+    return _to_int32((bits << _bit_shifts(x.device)).sum(1))
+
+
+def pack_resid(x: torch.Tensor, mask_mode: bool = False) -> torch.Tensor:
+    """K6: pack ``x`` (fp32/bf16, batch first) to 1 bit per value along
+    the batch: ``x >= 0`` (sign mode, exact for ±1 tensors; NaN -> 0,
+    -0 -> 1) or ``|x| <= 1`` (``mask_mode``, the ste_sign pass-through;
+    NaN -> 0). Returns [ceil(B/32), H, W, C] int32 words of the
+    :func:`_to_4d_shape` normalisation."""
+    what = "pack_resid"
+    b, h, w, c = _to_4d_shape(x.shape)
+    code = _resid_dtype_code(what, x.dtype)
+    device = _cuda_device(what, x)
+    if device is None:
+        return pack_resid_plain(x, mask_mode)
+    x = _dense(x, what)
+    out = torch.empty((-(-b // 32), h, w, c), dtype=torch.int32, device=x.device)
+    lib = cuda_build.library("resid_pack")
+    cuda_build.check(
+        lib.zk_pack_resid(
+            x.data_ptr(), code, int(mask_mode), out.data_ptr(), b, h * w * c,
+            device, _stream(device),
+        ),
+        what,
+    )
+    LAUNCHES["pack_resid"] += 1
+    return out
+
+
+def unpack_resid_pm1_plain(
+    words: torch.Tensor, shape: Sequence[int], dtype: torch.dtype
+) -> torch.Tensor:
+    """Plain version of K7: ``bit + bit - 1`` for every batch row, the
+    pad rows sliced off."""
+    b4 = _to_4d_shape(shape)[0]
+    bits = _unpack_resid_bits(words)
+    return (bits + bits - 1).to(dtype)[:b4].reshape(tuple(shape))
+
+
+def _check_words(what: str, words: torch.Tensor, shape: Sequence[int]) -> None:
+    b, h, w, c = _to_4d_shape(shape)
+    want = (-(-b // 32), h, w, c)
+    _require(tuple(words.shape) == want, what,
+             f"words {tuple(words.shape)} do not pack a residual of shape "
+             f"{tuple(shape)} (want {want})")
+    _require(words.dtype == torch.int32, what, f"words must be int32, got {words.dtype}")
+
+
+def unpack_resid_pm1(
+    words: torch.Tensor, shape: Sequence[int], dtype: torch.dtype
+) -> torch.Tensor:
+    """K7: the inverse of sign-mode :func:`pack_resid` — ±1 values of
+    ``shape`` in ``dtype`` (exact: ±1 is representable in every float
+    type)."""
+    what = "unpack_resid_pm1"
+    shape = tuple(int(s) for s in shape)
+    _check_words(what, words, shape)
+    code = _resid_dtype_code(what, dtype)
+    device = _cuda_device(what, words)
+    if device is None:
+        return unpack_resid_pm1_plain(words, shape, dtype)
+    b, h, w, c = _to_4d_shape(shape)
+    words = words.contiguous()
+    out = torch.empty(shape, dtype=dtype, device=words.device)
+    lib = cuda_build.library("resid_pack")
+    cuda_build.check(
+        lib.zk_unpack_resid_pm1(
+            words.data_ptr(), out.data_ptr(), code, b, h * w * c,
+            device, _stream(device),
+        ),
+        what,
+    )
+    LAUNCHES["unpack_resid_pm1"] += 1
+    return out
+
+
+def mask_mul_resid_plain(g: torch.Tensor, words: torch.Tensor) -> torch.Tensor:
+    """Plain version of K8: pad ``g``'s batch with 0.0, multiply by the
+    unpacked mask in ``g``'s dtype, slice the pad rows off."""
+    g4 = _pad_batch(g.reshape(_to_4d_shape(g.shape)), 0.0)
+    mask = _unpack_resid_bits(words).to(g.dtype)
+    return (g4 * mask)[: g.shape[0]].reshape(g.shape)
+
+
+def mask_mul_resid(g: torch.Tensor, words: torch.Tensor) -> torch.Tensor:
+    """K8: ``g * mask`` where ``words`` is a mask-mode :func:`pack_resid`
+    of a tensor shaped like ``g`` — the ste_sign backward from the packed
+    mask (one read of ``g`` and 1/16 of its bytes in words)."""
+    what = "mask_mul_resid"
+    _check_words(what, words, g.shape)
+    code = _resid_dtype_code(what, g.dtype)
+    device = _cuda_device(what, g, words)
+    if device is None:
+        return mask_mul_resid_plain(g, words)
+    b, h, w, c = _to_4d_shape(g.shape)
+    g = _dense(g, what)
+    words = words.contiguous()
+    out = torch.empty_like(g)
+    lib = cuda_build.library("resid_pack")
+    cuda_build.check(
+        lib.zk_mask_mul_resid(
+            g.data_ptr(), words.data_ptr(), out.data_ptr(), code, b, h * w * c,
+            device, _stream(device),
+        ),
+        what,
+    )
+    LAUNCHES["mask_mul_resid"] += 1
+    return out
+
+
 def xnor_matmul_packed(
     a_packed: torch.Tensor, b_packed: torch.Tensor, *, k_true: int
 ) -> torch.Tensor:
@@ -367,20 +563,25 @@ def _spatial_pad(
     Wo). SAME puts the odd pixel after, as XLA does."""
     _, h, w, _ = x.shape
     sh, sw = strides
+    top, bottom, left, right = _pads(h, w, kh, kw, strides, padding)
+    if top or bottom or left or right:
+        x = F.pad(x, (0, 0, left, right, top, bottom), value=pad_value)
+    return x, (h + top + bottom - kh) // sh + 1, (w + left + right - kw) // sw + 1
+
+
+def _pads(
+    h: int, w: int, kh: int, kw: int, strides: Sequence[int], padding: str
+) -> Tuple[int, int, int, int]:
+    """(top, bottom, left, right) of XLA's SAME (odd pixel after) or
+    VALID padding."""
     if padding == "VALID":
-        return x, (h - kh) // sh + 1, (w - kw) // sw + 1
+        return (0, 0, 0, 0)
     if padding != "SAME":
         raise ValueError(f"Unsupported padding {padding!r} (SAME/VALID).")
-    ho, wo = -(-h // sh), -(-w // sw)
-    pad_h = max((ho - 1) * sh + kh - h, 0)
-    pad_w = max((wo - 1) * sw + kw - w, 0)
-    if pad_h or pad_w:
-        x = F.pad(
-            x,
-            (0, 0, pad_w // 2, pad_w - pad_w // 2, pad_h // 2, pad_h - pad_h // 2),
-            value=pad_value,
-        )
-    return x, ho, wo
+    sh, sw = strides
+    pad_h = max((-(-h // sh) - 1) * sh + kh - h, 0)
+    pad_w = max((-(-w // sw) - 1) * sw + kw - w, 0)
+    return pad_h // 2, pad_h - pad_h // 2, pad_w // 2, pad_w - pad_w // 2
 
 
 def _conv_gemm_popcount(
@@ -493,3 +694,153 @@ def packed_conv_infer(
         x, packed, scale, strides, padding,
         ci=x.shape[-1], use_popcount=use_popcount, flavor=flavor,
     )
+
+
+# -- the int8 training conv --------------------------------------------------
+
+
+def _conv_operands(
+    x: torch.Tensor, kh: int, kw: int, strides: Sequence[int], padding: str
+) -> Tuple[torch.Tensor, Tuple[int, int], Optional[Tuple[int, int]]]:
+    """``(input, conv padding, offset)`` for a conv of NHWC ``x``:
+    symmetric SAME padding is left to the conv; an asymmetric one (the
+    odd pixel after) is applied with zeros here, and ``offset`` (top,
+    left) locates ``x`` inside the padded input."""
+    top, bottom, left, right = _pads(x.shape[1], x.shape[2], kh, kw, strides, padding)
+    if top == bottom and left == right:
+        return x, (top, left), None
+    return F.pad(x, (0, 0, left, right, top, bottom)), (0, 0), (top, left)
+
+
+def _oihw(k: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """An HWIO kernel as the OIHW weight of ``F.conv2d`` in ``dtype``,
+    stored channels-last like the NHWC activations it meets."""
+    return k.to(dtype).permute(3, 0, 1, 2).contiguous().permute(0, 3, 1, 2)
+
+
+def float_conv(
+    x: torch.Tensor, k: torch.Tensor, strides: Sequence[int], padding: str,
+    groups: int = 1,
+) -> torch.Tensor:
+    """Conv of NHWC ``x`` with the HWIO kernel ``k`` cast to ``x``'s dtype
+    (the JAX package's ``_float_conv``): the compute dtype follows the
+    activations, as the gradient convs of the binary paths do. XLA
+    SAME/VALID padding; differentiable by autograd."""
+    xp, pad, _ = _conv_operands(x, k.shape[0], k.shape[1], strides, padding)
+    y = F.conv2d(
+        xp.permute(0, 3, 1, 2), _oihw(k, x.dtype), stride=tuple(strides),
+        padding=pad, groups=groups,
+    )
+    return y.permute(0, 2, 3, 1)
+
+
+def _float_conv_vjp(
+    x: torch.Tensor, k: torch.Tensor, g: torch.Tensor, strides: Sequence[int],
+    padding: str, groups: int, needs: Sequence[bool],
+) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
+    """``(dx, dk)`` of :func:`float_conv` at ``(x, k)`` for the cotangent
+    ``g`` (in ``x``'s dtype; dk in it too, HWIO), straight from the conv
+    backward, without recomputing the forward. ``needs`` masks them."""
+    xp, pad, offset = _conv_operands(x, k.shape[0], k.shape[1], strides, padding)
+    dx, dw, _ = torch.ops.aten.convolution_backward(
+        g.permute(0, 3, 1, 2), xp.permute(0, 3, 1, 2), _oihw(k, x.dtype), None,
+        list(strides), list(pad), [1, 1], False, [0, 0], groups,
+        [bool(needs[0]), bool(needs[1]), False],
+    )
+    if dx is not None:
+        dx = dx.permute(0, 2, 3, 1)
+        if offset is not None:
+            top, left = offset
+            dx = dx[:, top : top + x.shape[1], left : left + x.shape[2]]
+    if dw is not None:
+        dw = dw.permute(2, 3, 1, 0)
+    return dx, dw
+
+
+def _int8_conv_forward(x_sign, k_sign, strides, padding, groups, scaled):
+    """Exact integer sums of the rounded operands, then the optional
+    per-output-channel scale, as float32. The sums run in a float conv:
+    the operands are in {-1, 0, +1} and ``|sum| <= kh*kw*ci``, far below
+    2^24, so float32 accumulation is exact on the card (also in TF32,
+    where ±1 is exact); the CPU sums in float64."""
+    if scaled:
+        # Kernel contract: sign x per-output-channel scale. Dividing by
+        # the channel max recovers exact {-1, 0, +1}; the scale re-applies
+        # to the integer sums with one rounding.
+        kscale = k_sign.abs().amax(dim=tuple(range(k_sign.dim() - 1)))
+        safe = torch.where(kscale > 0, kscale, torch.ones_like(kscale))
+        k8 = torch.round(k_sign / safe)
+    else:
+        k8 = torch.round(k_sign)
+    # round, not sign: a literal 0 (SAME padding) stays 0.
+    x8 = torch.round(x_sign)
+    acc = torch.float64 if x_sign.device.type == "cpu" else torch.float32
+    out = float_conv(x8.to(acc), k8, strides, padding, groups).to(torch.float32)
+    return out * safe.to(torch.float32) if scaled else out
+
+
+class _Int8Conv(torch.autograd.Function):
+    """:func:`int8_conv` on the differentiated path: the float conv's
+    VJP in ``x_sign``'s dtype. With ``pack_residuals`` the context keeps
+    only K6's sign words, the input's trailing shape and dtype, and
+    ``k_sign``; the backward rebuilds ``x_sign`` with K7."""
+
+    @staticmethod
+    def forward(ctx, x_sign, k_sign, strides, padding, groups, scaled, pack_residuals):
+        y = _int8_conv_forward(x_sign, k_sign, strides, padding, groups, scaled)
+        if pack_residuals:
+            ctx.save_for_backward(pack_resid(x_sign), k_sign)
+            ctx.x_meta = (tuple(x_sign.shape[1:]), x_sign.dtype)
+        else:
+            ctx.save_for_backward(x_sign, k_sign)
+        ctx.conf = (strides, padding, groups, pack_residuals)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        strides, padding, groups, pack_residuals = ctx.conf
+        if pack_residuals:
+            words, k_sign = ctx.saved_tensors
+            tail, dtype = ctx.x_meta
+            x_sign = unpack_resid_pm1(words, (g.shape[0], *tail), dtype)
+        else:
+            x_sign, k_sign = ctx.saved_tensors
+        dx, dk = _float_conv_vjp(
+            x_sign, k_sign, g.to(x_sign.dtype), strides, padding, groups,
+            ctx.needs_input_grad[:2],
+        )
+        return (
+            None if dx is None else dx.to(x_sign.dtype),
+            None if dk is None else dk.to(k_sign.dtype),
+            None, None, None, None, None,
+        )
+
+
+def int8_conv(
+    x_sign: torch.Tensor,
+    k_sign: torch.Tensor,
+    strides: Sequence[int],
+    padding: str,
+    groups: int = 1,
+    scaled: bool = True,
+    pack_residuals: bool = False,
+) -> torch.Tensor:
+    """NHWC conv of quantized operands with exact integer accumulation,
+    returned as float32 (the JAX package's ``int8_conv``).
+
+    ``x_sign`` holds exact small integers ({-1, 0, +1}); ``k_sign`` (HWIO)
+    is sign x per-output-channel scale (``scaled``) or pure {-1, 0, +1}
+    (``scaled=False`` skips the scale extraction). ``groups`` gives a
+    grouped conv. The gradients are the float conv's, in ``x_sign``'s
+    dtype. ``pack_residuals=True`` stores the activation residual at 1 bit
+    per value between forward and backward (K6, then K7 in the backward):
+    it needs strictly ±1 inputs, since a 0 would come back as +1.
+    Without a gradient to take, only the forward runs (nothing is
+    packed)."""
+    strides = tuple(int(s) for s in strides)
+    if torch.is_grad_enabled() and (x_sign.requires_grad or k_sign.requires_grad):
+        return _Int8Conv.apply(
+            x_sign, k_sign, strides, padding, int(groups), bool(scaled),
+            bool(pack_residuals),
+        )
+    return _int8_conv_forward(x_sign, k_sign, strides, padding, int(groups), bool(scaled))

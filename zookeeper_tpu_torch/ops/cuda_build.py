@@ -45,6 +45,11 @@ SIGNATURES = {
     "packed_weight_matmul": {
         "zk_packed_weight_matmul": (_I, [_P, _P, _P, _I, _I, _I, _I, _P]),
     },
+    "resid_pack": {
+        "zk_pack_resid": (_I, [_P, _I, _I, _P, _LL, _LL, _I, _P]),
+        "zk_unpack_resid_pm1": (_I, [_P, _P, _I, _LL, _LL, _I, _P]),
+        "zk_mask_mul_resid": (_I, [_P, _P, _P, _I, _LL, _LL, _I, _P]),
+    },
 }
 
 _lock = threading.Lock()

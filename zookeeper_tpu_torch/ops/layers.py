@@ -1,15 +1,15 @@
-"""Inference layers of the packed QuickNet path, as ``nn.Module``s.
+"""The QuickNet layers, as ``nn.Module``s, for training and serving.
 
 Counterparts of the flax layers the JAX QuickNet builds: ``Conv``
-(``flax.linen.Conv``), ``BatchNorm`` (eval mode of ``ops/layers.py``
-``BatchNorm``), ``Dense`` and ``QuantConv`` on its packed binary paths.
-Every layer takes and returns NHWC tensors, as in the JAX package. The
-fp convs run ``F.conv2d`` on the logical-NCHW view of the NHWC storage
-(a ``torch.channels_last`` tensor), so no layout copy is made; the
-packed kernels read the same storage directly. Parameter names and
-layouts follow the flax ones (see ``models/convert.py``), except that
+(``flax.linen.Conv``), ``BatchNorm`` (``ops/layers.py`` ``BatchNorm``,
+i.e. ``flax.linen.BatchNorm``), ``Dense`` and ``QuantConv`` on all four
+binary paths. Every layer takes and returns NHWC tensors, as in the JAX
+package. The fp convs run ``F.conv2d`` on the logical-NCHW view of the
+NHWC storage (a ``torch.channels_last`` tensor), so no layout copy is
+made; the packed kernels read the same storage directly. Parameter names
+and layouts follow the flax ones (see ``models/convert.py``), except that
 fp conv weights are OIHW and the dense weight is [out, in], as PyTorch
-holds them.
+holds them. ``module.train()`` is flax's ``training=True``.
 """
 
 import math
@@ -22,39 +22,82 @@ from torch import nn
 from zookeeper_tpu_torch.ops.binary_compute import (
     _packed_conv_forward,
     _spatial_pad,
+    float_conv,
+    int8_conv,
     pack_conv_kernel,
     packed_conv_infer,
     resolve_binary_flavor,
 )
-from zookeeper_tpu_torch.ops.quantizers import get_quantizer
+from zookeeper_tpu_torch.ops.quantizers import get_quantizer, ste_sign_packed
 
-#: Binary compute modes of the JAX package; the port runs the two packed
-#: ones so far.
+#: Binary compute modes of the JAX package; the port runs all four.
 BINARY_COMPUTE_MODES = ("mxu", "int8", "xnor", "xnor_popcount")
-PORTED_BINARY_COMPUTE = ("xnor", "xnor_popcount")
+
+#: Input quantizers that emit strictly ±1 (what 1-bit residual packing
+#: needs: a 0 would come back as +1).
+_PM1_INPUT_QUANTIZERS = frozenset({"ste_sign", "ste_sign_packed"})
 
 
 def check_binary_compute(mode: str, layer: str) -> None:
-    """Raise for an unknown mode, and loudly for a mode the port does not
-    run yet: a config asking for it must not quietly run another path."""
+    """Raise for an unknown mode: a typo must not quietly run another
+    path."""
     if mode not in BINARY_COMPUTE_MODES:
         raise ValueError(
             f"{layer}: unknown binary_compute {mode!r}; choose from "
             f"{BINARY_COMPUTE_MODES}."
         )
-    if mode not in PORTED_BINARY_COMPUTE:
-        raise NotImplementedError(
-            f"{layer}: binary_compute={mode!r} (the unpacked int8/mxu conv "
-            "paths and mixed per-section deployment) is not in the PyTorch "
-            "port yet; it is queued in ROADMAP.md. Use 'xnor' or "
-            "'xnor_popcount'."
+
+
+def check_pack_residuals(
+    mode: str, input_quantizer, packed_weights: bool, layer: str
+) -> None:
+    """Loud validation of ``pack_residuals=True`` (1-bit fwd->bwd
+    residuals): it needs the int8 path, which owns its backward
+    residuals, and a strictly ±1 input quantizer; packed weights are
+    inference-only. Callables are trusted to honour the ±1 contract."""
+    problems = []
+    if packed_weights:
+        problems.append(
+            "packed_weights=True is inference-only (no training residuals "
+            "to pack)"
+        )
+    if mode != "int8":
+        problems.append(
+            f"binary_compute={mode!r} does not own its backward residuals "
+            "(supported: 'int8')"
+        )
+    if input_quantizer is None:
+        problems.append("input_quantizer is None (unquantized inputs are not +-1)")
+    elif isinstance(input_quantizer, str) and input_quantizer not in _PM1_INPUT_QUANTIZERS:
+        problems.append(
+            f"input_quantizer {input_quantizer!r} can emit values other than "
+            "+-1, which 1-bit packing would corrupt (requires one of "
+            f"{sorted(_PM1_INPUT_QUANTIZERS)})"
+        )
+    if problems:
+        raise ValueError(
+            f"{layer}: pack_residuals=True requested but unusable: "
+            + "; ".join(problems)
+            + ". Fix the configuration or drop pack_residuals — this layer "
+            "never falls back silently."
         )
 
 
+def _int8_kernel_is_unscaled(kernel_quantizer) -> bool:
+    """True when the kernel is statically known to be pure {-1, 0, +1}
+    (skips the int8 path's runtime scale extraction). Callables are
+    assumed scaled, which stays exact either way."""
+    return isinstance(kernel_quantizer, str) and kernel_quantizer != "magnitude_aware_sign"
+
+
 def _apply_clip(kernel: torch.Tensor, clip: bool) -> torch.Tensor:
-    """Read-time weight clip (the forward of the JAX layer's straight-
-    through projection)."""
-    return kernel.clamp(-1.0, 1.0) if clip else kernel
+    """Read-time weight clip as a straight-through projection: the forward
+    sees ``clamp(kernel, -1, 1)``, the gradient passes to the latent
+    weight unclipped (larq's weight_clip semantics, as in the JAX
+    layer)."""
+    if not clip:
+        return kernel
+    return kernel + (kernel.clamp(-1.0, 1.0) - kernel).detach()
 
 
 def _normal_(t: torch.Tensor, std: float, generator: torch.Generator) -> None:
@@ -104,9 +147,19 @@ class Conv(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """Eval-mode batch norm over the trailing (channel) axis, in flax's
-    order: ``(x - mean) * (rsqrt(var + eps) * scale) + bias`` in float32,
-    cast to ``dtype``. Running statistics only: the port serves."""
+    """Batch norm over the trailing (channel) axis with flax
+    ``nn.BatchNorm`` semantics (momentum 0.9, eps 1e-5 as the QuickNet
+    family builds it). Statistics and the normalisation run in float32:
+    ``(x - mean) * (rsqrt(var + eps) * scale) + bias``, cast to ``dtype``.
+
+    In train mode (``module.train()``) it normalises with the batch mean
+    and flax's fast biased variance ``mean(x^2) - mean(x)^2`` clipped at
+    0, and updates ``ra = 0.9 * ra + 0.1 * batch`` for both statistics
+    (the biased variance, unlike ``nn.BatchNorm2d``). In eval mode it uses
+    the running statistics."""
+
+    #: flax's convention: the share of the running statistic kept.
+    MOMENTUM = 0.9
 
     def __init__(self, features: int, eps: float = 1e-5,
                  dtype: torch.dtype = torch.float32):
@@ -126,9 +179,19 @@ class BatchNorm(nn.Module):
             self.running_var.fill_(1.0)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
-        y = (x.to(torch.float32) - self.running_mean) * mul + self.bias
-        return y.to(self.dtype)
+        xf = x.to(torch.float32)
+        if self.training:
+            axes = tuple(range(x.dim() - 1))
+            mean = xf.mean(dim=axes)
+            var = torch.clamp((xf * xf).mean(dim=axes) - mean * mean, min=0.0)
+            with torch.no_grad():
+                keep, take = self.MOMENTUM, 1.0 - self.MOMENTUM
+                self.running_mean.copy_(keep * self.running_mean + take * mean)
+                self.running_var.copy_(keep * self.running_var + take * var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return ((xf - mean) * mul + self.bias).to(self.dtype)
 
 
 class Dense(nn.Module):
@@ -153,19 +216,29 @@ class Dense(nn.Module):
 
 
 class QuantConv(nn.Module):
-    """Binary 2-D conv (NHWC) on the packed paths of the JAX ``QuantConv``.
+    """Binary 2-D conv (NHWC): the JAX ``QuantConv`` on its four paths.
 
-    ``binary_compute`` is "xnor_popcount" (both operands packed: K1 + K3
-    under the default flavor; SAME pads with ones, the documented
-    popcount deviation) or "xnor" (int8 activations times packed weights:
-    K4; zero padding, exact against the float conv).
+    - "mxu": the float conv of the quantized operands in ``dtype`` (the
+      JAX package's default training path).
+    - "int8": :func:`~zookeeper_tpu_torch.ops.binary_compute.int8_conv`,
+      exact integer sums with the float conv's gradients.
+      ``pack_residuals=True`` stores its forward->backward residuals at 1
+      bit per value: the ±1 conv input (K6 in the forward, K7 in the
+      backward) and, when the input quantizer is "ste_sign", the STE mask
+      (the quantizer becomes "ste_sign_packed": K6, then K8). Numerics
+      are bit-identical either way.
+    - "xnor_popcount": both operands packed, K1 + K3 under the default
+      flavor (SAME pads with ones, the documented popcount deviation).
+    - "xnor": int8 activations times packed weights, K4 (zero padding,
+      exact against the float conv).
 
-    ``packed_weights=True`` holds only the deployed form: ``kernel_packed``
-    [kh, kw, ceil(ci/32), co] int32 and ``kernel_scale`` [co] float32 (plus
-    ``bias`` when ``use_bias``, which carries a folded BN's shift).
-    Otherwise the latent HWIO float ``kernel`` is held and packed at each
-    call, as the JAX ``xnor_conv`` forward does. Output is cast to
-    ``dtype`` and the bias added in ``dtype``.
+    The two packed paths are inference-only in the port (their training
+    VJP is queued in ROADMAP.md). ``packed_weights=True`` holds only the
+    deployed form: ``kernel_packed`` [kh, kw, ceil(ci/32), co] int32 and
+    ``kernel_scale`` [co] float32 (plus ``bias`` when ``use_bias``, which
+    carries a folded BN's shift). Otherwise the latent HWIO float
+    ``kernel`` is held, clipped straight-through and quantized at each
+    call. Output is cast to ``dtype`` and the bias added in ``dtype``.
     """
 
     def __init__(
@@ -180,8 +253,9 @@ class QuantConv(nn.Module):
         kernel_clip: bool = True,
         use_bias: bool = False,
         dtype: torch.dtype = torch.float32,
-        binary_compute: str = "xnor_popcount",
+        binary_compute: str = "mxu",
         packed_weights: bool = False,
+        pack_residuals: bool = False,
         binary_flavor: str = "auto",
     ):
         super().__init__()
@@ -192,20 +266,33 @@ class QuantConv(nn.Module):
             raise ValueError(f"{name}: padding {padding!r} is not SAME/VALID.")
         self.in_q = get_quantizer(input_quantizer)
         self.k_q = get_quantizer(kernel_quantizer)
-        if self.in_q is None or self.k_q is None:
+        if binary_compute != "mxu" and (self.in_q is None or self.k_q is None):
             raise ValueError(
                 f"{name}: binary_compute={binary_compute!r} needs both an "
                 "input and a kernel quantizer."
             )
+        if packed_weights and binary_compute not in ("xnor", "xnor_popcount"):
+            raise ValueError(
+                "packed_weights=True requires binary_compute='xnor' or "
+                f"'xnor_popcount', got {binary_compute!r}."
+            )
+        if pack_residuals:
+            check_pack_residuals(binary_compute, input_quantizer, packed_weights, name)
+            if input_quantizer == "ste_sign":
+                # Same values and gradients; the STE mask packs to 1 bit
+                # alongside the conv input.
+                self.in_q = ste_sign_packed
         kh, kw = kernel_size
         self.kernel_size = (kh, kw)
         self.strides = tuple(strides)
         self.padding = padding
         self.kernel_clip = kernel_clip
         self.dtype = dtype
-        self.use_popcount = binary_compute == "xnor_popcount"
+        self.binary_compute = binary_compute
         self.packed_weights = packed_weights
+        self.pack_residuals = pack_residuals
         self.binary_flavor = binary_flavor
+        self.scaled = not _int8_kernel_is_unscaled(kernel_quantizer)
         if packed_weights:
             ciw = -(-in_features // 32)
             self.register_buffer(
@@ -214,7 +301,9 @@ class QuantConv(nn.Module):
             )
             self.kernel_scale = nn.Parameter(torch.ones(features))
         else:
-            self.kernel = nn.Parameter(torch.zeros(kh, kw, in_features, features))
+            self.kernel = nn.Parameter(
+                torch.zeros(kh, kw, in_features, features)
+            )
         self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
 
     def reset_parameters(self, generator: torch.Generator) -> None:
@@ -230,22 +319,40 @@ class QuantConv(nn.Module):
                 self.bias.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.in_q(x)
+        mode = self.binary_compute
+        if self.in_q is not None:
+            x = self.in_q(x)
         if self.packed_weights:
             y = packed_conv_infer(
                 x, self.kernel_packed, self.kernel_scale, self.strides,
-                self.padding, use_popcount=self.use_popcount,
+                self.padding, use_popcount=mode == "xnor_popcount",
                 flavor=self.binary_flavor,
             )
         else:
-            packed, scale = pack_conv_kernel(
-                self.k_q(_apply_clip(self.kernel, self.kernel_clip))
-            )
-            y = _packed_conv_forward(
-                x, packed, scale, self.strides, self.padding,
-                ci=x.shape[-1], use_popcount=self.use_popcount,
-                flavor=self.binary_flavor,
-            )
+            kernel = _apply_clip(self.kernel, self.kernel_clip)
+            if self.k_q is not None:
+                kernel = self.k_q(kernel)
+            if mode == "int8":
+                y = int8_conv(
+                    x, kernel, self.strides, self.padding, 1,
+                    self.scaled, self.pack_residuals,
+                )
+            elif mode == "mxu":
+                y = float_conv(x.to(self.dtype), kernel, self.strides, self.padding)
+            else:
+                if torch.is_grad_enabled() and kernel.requires_grad:
+                    raise NotImplementedError(
+                        f"{type(self).__name__}: training through "
+                        f"binary_compute={mode!r} (the xnor_conv VJP) is not "
+                        "in the PyTorch port yet; it is queued in "
+                        "ROADMAP.md. Train with 'int8' or 'mxu'."
+                    )
+                packed, scale = pack_conv_kernel(kernel)
+                y = _packed_conv_forward(
+                    x, packed, scale, self.strides, self.padding,
+                    ci=x.shape[-1], use_popcount=mode == "xnor_popcount",
+                    flavor=self.binary_flavor,
+                )
         y = y.to(self.dtype)
         if self.bias is not None:
             y = y + self.bias.to(self.dtype)

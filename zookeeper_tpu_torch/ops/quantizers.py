@@ -1,27 +1,77 @@
-"""Sign quantizers for the packed inference path.
+"""Straight-through-estimator sign quantizers.
 
-The forward halves of the JAX package's straight-through quantizers that
-QuickNet uses. The packed path is inference-only, so no surrogate
-gradient is defined; the other quantizers of the JAX registry are not
-ported yet (see ROADMAP.md).
+The port of the part of ``zookeeper_tpu/ops/quantizers.py`` that
+QuickNet uses, as ``torch.autograd.Function``s:
+
+- ``ste_sign``: sign forward (sign(±0) = +1, sign(NaN) = -1), gradient
+  ``g * (|x| <= 1)`` (BinaryNet's clipped identity);
+- ``ste_sign_packed``: the same values and gradients, with the backward
+  residual stored at 1 bit per value — the pass-through mask is packed
+  along the batch in the forward (K6, mask mode) and applied in the
+  backward by K8.
+
+The other quantizers of the JAX registry (approx_sign, swish_sign,
+magnitude_aware_sign, ste_tern, ste_heaviside, dorefa) are not ported yet
+(see ROADMAP.md).
 """
 
 from typing import Callable, Dict, Optional, Union
 
 import torch
 
+from zookeeper_tpu_torch.ops import binary_compute
 
-def ste_sign(x: torch.Tensor) -> torch.Tensor:
-    """Sign with sign(±0) = +1 and sign(NaN) = -1, in ``x``'s dtype.
 
-    Binary networks need two-valued outputs, so zero maps to +1; NaN
-    fails the ``x >= 0`` compare and maps to -1, as in the JAX package."""
+def _sign_pm1(x: torch.Tensor) -> torch.Tensor:
+    """Sign with sign(±0) = +1 and sign(NaN) = -1, in ``x``'s dtype."""
     one = torch.ones((), dtype=x.dtype, device=x.device)
     return torch.where(x >= 0, one, -one)
 
 
+def _differentiated(x: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+class _SteSign(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return _sign_pm1(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        return g * (x.abs() <= 1.0).to(g.dtype)
+
+
+class _SteSignPacked(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(binary_compute.pack_resid(x, mask_mode=True))
+        return _sign_pm1(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        (words,) = ctx.saved_tensors
+        return binary_compute.mask_mul_resid(g, words)
+
+
+def ste_sign(x: torch.Tensor) -> torch.Tensor:
+    """Sign forward, clipped-identity (``|x| <= 1``) gradient."""
+    return _SteSign.apply(x) if _differentiated(x) else _sign_pm1(x)
+
+
+def ste_sign_packed(x: torch.Tensor) -> torch.Tensor:
+    """:func:`ste_sign` whose backward residual is the 1-bit packed
+    mask (K6 in the forward, K8 in the backward) instead of ``x``.
+    Identical values and gradients. Needs a batched input (batch first).
+    Without a gradient to take it is the plain sign (nothing packed)."""
+    return _SteSignPacked.apply(x) if _differentiated(x) else _sign_pm1(x)
+
+
 QUANTIZERS: Dict[str, Callable[[torch.Tensor], torch.Tensor]] = {
     "ste_sign": ste_sign,
+    "ste_sign_packed": ste_sign_packed,
 }
 
 

@@ -20,18 +20,7 @@ import torch
 from torch import nn
 
 from zookeeper_tpu_torch.core import Field, component
-
-
-def resolve_device(device: Any) -> torch.device:
-    """``device`` as a ``torch.device``; a CUDA device with no card
-    raises rather than running on the CPU."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"device={str(device)!r} requested but no CUDA card is "
-            "available; pass device='cpu' to run the plain PyTorch path."
-        )
-    return device
+from zookeeper_tpu_torch.ops.device import resolve_device
 
 
 @component

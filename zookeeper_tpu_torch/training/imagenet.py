@@ -1,0 +1,47 @@
+"""The ImageNet-scale training task, the port of
+``examples/imagenet_experiment.py``'s ``TrainImageNet``::
+
+    python -m zookeeper_tpu_torch.training TrainImageNet \\
+        model=QuickNetLarge model.binary_compute=int8 \\
+        model.pack_residuals=True batch_size=128
+
+QuickNet in bfloat16 on synthetic ImageNet-shaped data with the
+Inception RandomResizedCrop recipe, Adam under a warmup-cosine schedule
+and label smoothing 0.1. It trains on the card unless ``device=cpu`` is
+passed.
+"""
+
+from zookeeper_tpu_torch.core import ComponentField, Field, PartialComponent, task
+from zookeeper_tpu_torch.data import (
+    DataLoader,
+    ImageClassificationPreprocessing,
+    SyntheticImageNet,
+)
+from zookeeper_tpu_torch.models import Model, QuickNet
+from zookeeper_tpu_torch.training.experiment import TrainingExperiment
+from zookeeper_tpu_torch.training.optimizer import Adam, Optimizer
+from zookeeper_tpu_torch.training.schedule import WarmupCosine
+
+ImageNetPreprocessing = PartialComponent(
+    ImageClassificationPreprocessing,
+    height=224, width=224, channels=3, augment=True,
+    random_resized_crop=True,
+)
+
+
+@task
+class TrainImageNet(TrainingExperiment):
+    loader: DataLoader = ComponentField(
+        DataLoader,
+        dataset=SyntheticImageNet,
+        preprocessing=ImageNetPreprocessing,
+        num_workers=8,
+    )
+    model: Model = ComponentField(QuickNet, compute_dtype="bfloat16")
+    optimizer: Optimizer = ComponentField(
+        Adam, schedule=PartialComponent(WarmupCosine, base_lr=1e-2)
+    )
+    epochs: int = Field(120)
+    batch_size: int = Field(256)
+    label_smoothing: float = Field(0.1)
+    track_top5: bool = Field(True)
