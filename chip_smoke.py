@@ -45,7 +45,34 @@ CUDA card and ``nvcc``. In order:
    Prints the
    step's device time, peak memory with the residuals packed and not,
    the profiler's top device items, and images/s through ``run()``.
-9. One JSON line of the kernels, then the result line.
+9. LM kernels: K9 ``flash_attention`` (bf16 causal at the prefill
+   buckets [1, 512, 8, 64] and [1, 2048, 8, 64] and at the long-context
+   [4, 8192, 8, 64]; fp32 [1, 512, 8, 64]; ragged s=999; causal=False),
+   K12 ``paged_decode_attention`` ([8, 8192, 8, 64] slot caches, lengths
+   mixing 0, 1, 15, 16, 2047, 8191 and 9000, bf16 and fp32) and K13
+   ``pool_paged_decode_attention`` (a pool of 4096 pages of 16, shuffled
+   tables with -1 entries, bf16, fp32 and int8 rows), and K12/K13 again
+   at head_dims 20 and 100 (not multiples of 8), each against its plain
+   version (K9 in bf16 within 2^-6 of each output value plus 2e-3, and
+   3e-2 overall, 2e-5 in fp32; K12/K13 2e-6 in fp32 and one bf16
+   rounding step in bf16), timed beside it and beside SDPA where one
+   call computes the same function.
+10. LM serving: ``LMServingConfig.run()`` streams 32 requests (prompts
+   up to 2048 tokens, 64 new tokens each) through a TransformerLM of 4
+   layers, d_model 512, 8 heads, vocab 1024, seq_len 8192, bf16, on 8
+   slots, three times: the slot layout (K9 + K12), the paged layout
+   (K9 + K13) and the paged layout with int8 rows. Each run must launch
+   K9 4 times per prefill and K12 or K13 4 times per decode step;
+   prints its result line and one decode step's profiler breakdown,
+   and holds K12/K13 on a mid-run step's cache, lengths and table to
+   their plain versions (one bf16 rounding step).
+11. LM parity (deterministic mode): the same model in fp32 serves a
+   12-request stream with slot refills through the kernels and through
+   the plain functions, in both layouts: the tokens must be identical
+   to each other and to ``greedy_decode``. In bf16 the agreeing tokens
+   are counted, and a disagreement is allowed only where the plain
+   path's top-two logit gap is below 0.05.
+12. One JSON line of the kernels, then the result line.
 """
 
 import contextlib
@@ -67,6 +94,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
 FP32_OPS_PER_S = 67e12
+#: bf16 tensor-core products (the flash forward in bf16).
+BF16_OPS_PER_S = 989e12
 
 #: The rate each kernel's operations are counted at (the residual
 #: kernels: one fp32 compare or multiply per value).
@@ -77,6 +106,12 @@ OPS_RATE = {
     "pack_resid": FP32_OPS_PER_S,
     "unpack_resid_pm1": FP32_OPS_PER_S,
     "mask_mul_resid": FP32_OPS_PER_S,
+    # The decode kernels' vector products, and the flash forward in
+    # fp32, count at the fp32 rate; the flash forward in bf16 at the
+    # bf16 tensor-core rate (``bound_ms``'s ``rate`` argument).
+    "flash_forward": FP32_OPS_PER_S,
+    "paged_decode_attention": FP32_OPS_PER_S,
+    "pool_paged_decode_attention": FP32_OPS_PER_S,
 }
 
 #: Each kernel's source and the TPU kernel it replaces.
@@ -87,7 +122,11 @@ KERNELS = {
     "pack_resid": ("resid_pack.cu", "zookeeper_tpu/ops/binary_compute.py:204"),
     "unpack_resid_pm1": ("resid_pack.cu", "zookeeper_tpu/ops/binary_compute.py:236"),
     "mask_mul_resid": ("resid_pack.cu", "zookeeper_tpu/ops/binary_compute.py:264"),
+    "flash_forward": ("flash_forward.cu", "zookeeper_tpu/ops/attention.py:1163"),
+    "paged_decode_attention": ("decode_attention.cu", "zookeeper_tpu/ops/attention.py:222"),
+    "pool_paged_decode_attention": ("decode_attention.cu", "zookeeper_tpu/ops/attention.py:503"),
 }
+LM_KERNELS = ("flash_forward", "paged_decode_attention", "pool_paged_decode_attention")
 RESID_KERNELS = ("pack_resid", "unpack_resid_pm1", "mask_mul_resid")
 
 #: QuickNet-Large at batch 8, 224x224: per section (binary convs, spatial
@@ -129,10 +168,11 @@ def deterministic(torch):
         cudnn.deterministic, cudnn.benchmark = saved[1], saved[2]
 
 
-def bound_ms(name: str, nbytes: float, ops: float):
-    """(least time in ms, "bytes" or "operations") for the work."""
+def bound_ms(name: str, nbytes: float, ops: float, rate: float = None):
+    """(least time in ms, "bytes" or "operations") for the work, its
+    operations at ``rate`` (default: the kernel's ``OPS_RATE``)."""
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = ops / OPS_RATE[name] * 1e3
+    ops_ms = ops / (rate or OPS_RATE[name]) * 1e3
     return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
 
 
@@ -704,6 +744,480 @@ def training_phase(torch, bc, smi):
     return launches, stats
 
 
+#: The LM serving slice: the long-context TransformerLM of
+#: examples/lm_experiment.py served as examples/serve_lm.py serves it.
+LM_CONFIG = {
+    "model.num_layers": 4, "model.d_model": 512, "model.num_heads": 8,
+    "model.mlp_ratio": 4, "model.compute_dtype": "bfloat16",
+    "seq_len": 8192, "vocab_size": 1024,
+    "engine.slots": 8, "engine.seq_buckets": (512, 2048), "engine.prefill_buckets": (1,),
+    "engine.page_size": 16, "engine.decode_attention": "auto",
+    "requests": 32, "max_prompt": 2048, "new_tokens": 64, "seed": 0,
+    "device": "cuda", "verbose": False,
+}
+LM_LAYERS, LM_HEADS, LM_HEAD_DIM, LM_SLOTS, LM_CAP, LM_PAGE = 4, 8, 64, 8, 8192, 16
+PAGED = {"engine.kv_layout": "paged", "engine.prefix_cache": False}
+LM_RUNS = (("slots", {}), ("paged", PAGED), ("paged-int8", {**PAGED, "engine.kv_quant": "int8"}))
+#: Lengths of the K12/K13 checks: row-0-only, page edges, the capacity
+#: edge, and one past capacity (clamped).
+LM_CHECK_LENGTHS = (0, 1, 15, 16, 2047, 8191, 9000, 4000)
+
+
+def _bf16_step_ok(torch, got, want) -> bool:
+    """bf16 outputs of two fp32 computations that differ only in the
+    order of their sums: equal up to one bf16 rounding step of the
+    value (2^-7 relative), plus 1e-5 for values near 0."""
+    g, w = got.float(), want.float()
+    return bool(((g - w).abs() <= w.abs() * 2.0**-7 + 1e-5).all())
+
+
+def _bf16_flash_use(torch, got, want) -> float:
+    """How much of the bf16 K9 limit the worst element uses: max of
+    |got - want| / (2^-6 |want| + 2e-3). The limit scales with each
+    output value (a causal row over n keys of unit-variance values has
+    |o| near sqrt(e / n)), with 2e-3 for values that cancel to near 0;
+    ok when at most 1."""
+    g, w = got.float(), want.float()
+    return float(((g - w).abs() / (w.abs() * 2.0**-6 + 2e-3)).max())
+
+
+def lm_kernel_phase(torch, A):
+    """Check K9, K12 and K13 against their plain versions and time them
+    beside it and beside SDPA. Returns {label: per-launch record}."""
+    import torch.nn.functional as F
+
+    from zookeeper_tpu_torch.ops.quantizers import quantize_kv_rows
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(3)
+    records = {}
+    max_err = dict.fromkeys(LM_KERNELS, 0.0)
+
+    def record(name, label, kernel, plain, library, nbytes, ops, rate, dtype, heavy=False):
+        with deterministic(torch):
+            got, want = kernel(), plain()
+            torch.cuda.synchronize()
+        err = _max_abs_err(torch, got, want)
+        if dtype == torch.float32:
+            tol = 2e-5 if name == "flash_forward" else 2e-6
+            ok = err <= tol
+        elif name == "flash_forward":
+            use = _bf16_flash_use(torch, got, want)
+            tol, ok = f"2^-6|want| + 2e-3 per element (used {use:.3g})", use <= 1 and err <= 3e-2
+        else:
+            tol, ok = "one bf16 step", _bf16_step_ok(torch, got, want)
+        check(ok, f"{name} at {label} disagrees with its plain version (max err {err}, "
+                  f"tolerance {tol})")
+        reps, inner = (5, 3) if heavy else (21, 10)
+        k_ms = time_ms(torch, kernel, reps=reps, inner=inner)
+        p_ms = time_ms(torch, plain, reps=5, inner=2)
+        l_ms = time_ms(torch, library, reps=reps, inner=inner) if library is not None else None
+        b_ms, b_by = bound_ms(name, nbytes, ops, rate)
+        print(f"kernel {name} {label}: max err {err:.3g} (tol {tol}), kernel {k_ms:.6f} ms, "
+              f"plain {p_ms:.6f} ms, library {l_ms if l_ms is None else round(l_ms, 6)} ms, "
+              f"bound {b_ms:.6f} ms by {b_by} ({nbytes} B, {ops} ops)", flush=True)
+        max_err[name] = max(max_err[name], err)
+        records[(name, label)] = {"ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
+                                  "bound_ms": b_ms, "bound_by": b_by,
+                                  "bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                                  "ops_ms": ops / rate * 1e3}
+
+    # K9: (b, s, dtype, causal); the prefill buckets first.
+    for b, s, dtype, causal in ((1, 512, torch.bfloat16, True), (1, 2048, torch.bfloat16, True),
+                                (4, 8192, torch.bfloat16, True), (1, 512, torch.float32, True),
+                                (1, 999, torch.bfloat16, True), (1, 2048, torch.bfloat16, False)):
+        h, d = LM_HEADS, LM_HEAD_DIM
+        q, k, v = (torch.randn(b, s, h, d, generator=g, device=dev).to(dtype) for _ in range(3))
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        pairs = b * h * (s * (s + 1) // 2 if causal else s * s)
+        size = q.element_size()
+        record("flash_forward", f"[{b}, {s}, {h}, {d}] {str(dtype)[6:]} causal={causal}",
+               lambda: A.flash_attention(q, k, v, causal=causal),
+               lambda: A.flash_attention_plain(q, k, v, causal=causal),
+               lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal),
+               4 * b * s * h * d * size, 4 * d * pairs,
+               BF16_OPS_PER_S if dtype == torch.bfloat16 else FP32_OPS_PER_S, dtype,
+               heavy=s >= 8192)
+
+    # K12: slot caches [8, 8192, 8, 64], lengths at the edges.
+    lengths = torch.tensor(LM_CHECK_LENGTHS, dtype=torch.int32, device=dev)
+    live = int((lengths.clamp(0, LM_CAP - 1) + 1).sum())
+    for dtype in (torch.bfloat16, torch.float32):
+        shape = (LM_SLOTS, LM_CAP, LM_HEADS, LM_HEAD_DIM)
+        q = torch.randn(LM_SLOTS, 1, LM_HEADS, LM_HEAD_DIM, generator=g, device=dev).to(dtype)
+        kc = torch.randn(*shape, generator=g, device=dev).to(dtype)
+        vc = torch.randn(*shape, generator=g, device=dev).to(dtype)
+        record("paged_decode_attention", f"{list(shape)} {str(dtype)[6:]}",
+               lambda: A.paged_decode_attention(q, kc, vc, lengths),
+               lambda: A.cached_attention(q, kc, vc, lengths),
+               _sdpa_decode(torch, q, kc, vc, lengths),
+               *_decode_work(q, live, kc.element_size()), FP32_OPS_PER_S, dtype)
+        del kc, vc
+
+    # K13: a pool of 4096 pages of 16, shuffled tables with -1 entries.
+    pages, max_pages = 4096, LM_CAP // LM_PAGE
+    cpu_g = torch.Generator().manual_seed(3)
+    table = torch.randperm(pages, generator=cpu_g)[: LM_SLOTS * max_pages].reshape(LM_SLOTS, max_pages)
+    table[torch.rand(LM_SLOTS, max_pages, generator=cpu_g) < 0.1] = -1
+    table = table.to(torch.int32).to(dev)
+    for dtype, quant in ((torch.bfloat16, False), (torch.float32, False),
+                         (torch.bfloat16, True), (torch.float32, True)):
+        shape = (pages, LM_PAGE, LM_HEADS, LM_HEAD_DIM)
+        q = torch.randn(LM_SLOTS, 1, LM_HEADS, LM_HEAD_DIM, generator=g, device=dev).to(dtype)
+        kp = torch.randn(*shape, generator=g, device=dev).to(dtype)
+        vp = torch.randn(*shape, generator=g, device=dev).to(dtype)
+        kw = {}
+        if quant:
+            (kp, ks), (vp, vs) = quantize_kv_rows(kp), quantize_kv_rows(vp)
+            kw = {"k_scale": ks, "v_scale": vs}
+        nbytes, ops = _decode_work(q, live, kp.element_size(), scales=quant)
+        record("pool_paged_decode_attention",
+               f"{list(shape)} {'int8 rows, q ' if quant else ''}{str(dtype)[6:]}",
+               lambda: A.pool_paged_decode_attention(q, kp, vp, table, lengths, **kw),
+               lambda: A.pool_decode_attention(q, kp, vp, table, lengths, **kw),
+               None, nbytes + table.numel() * 4, ops, FP32_OPS_PER_S, dtype)
+        del kp, vp
+
+    # K12/K13 at head_dims that are not multiples of 8 (off the JAX
+    # kernel's geometry; the port's kernels serve any head_dim to 256, so
+    # the engine never leaves them): 8 slots, capacity 512, 4 heads.
+    cap, heads = 512, 4
+    odd_lengths = torch.tensor((0, 1, 15, 16, 100, 511, 600, 300), dtype=torch.int32, device=dev)
+    odd_live = int((odd_lengths.clamp(0, cap - 1) + 1).sum())
+    pages = 256
+    table = torch.randperm(pages, generator=cpu_g)[: LM_SLOTS * (cap // LM_PAGE)].reshape(
+        LM_SLOTS, cap // LM_PAGE)
+    table[torch.rand(table.shape, generator=cpu_g) < 0.1] = -1
+    table = table.to(torch.int32).to(dev)
+    for d in (20, 100):
+        for dtype in (torch.bfloat16, torch.float32):
+            q = torch.randn(LM_SLOTS, 1, heads, d, generator=g, device=dev).to(dtype)
+            kc, vc = (torch.randn(LM_SLOTS, cap, heads, d, generator=g, device=dev).to(dtype)
+                      for _ in range(2))
+            record("paged_decode_attention", f"[{LM_SLOTS}, {cap}, {heads}, {d}] {str(dtype)[6:]}",
+                   lambda: A.paged_decode_attention(q, kc, vc, odd_lengths),
+                   lambda: A.cached_attention(q, kc, vc, odd_lengths),
+                   _sdpa_decode(torch, q, kc, vc, odd_lengths),
+                   *_decode_work(q, odd_live, kc.element_size()), FP32_OPS_PER_S, dtype)
+            for quant in (False, True):
+                kp, vp = (torch.randn(pages, LM_PAGE, heads, d, generator=g, device=dev).to(dtype)
+                          for _ in range(2))
+                kw = {}
+                if quant:
+                    (kp, ks), (vp, vs) = quantize_kv_rows(kp), quantize_kv_rows(vp)
+                    kw = {"k_scale": ks, "v_scale": vs}
+                nbytes, ops = _decode_work(q, odd_live, kp.element_size(), scales=quant)
+                record("pool_paged_decode_attention",
+                       f"[{pages}, {LM_PAGE}, {heads}, {d}] "
+                       f"{'int8 rows, q ' if quant else ''}{str(dtype)[6:]}",
+                       lambda: A.pool_paged_decode_attention(q, kp, vp, table, odd_lengths, **kw),
+                       lambda: A.pool_decode_attention(q, kp, vp, table, odd_lengths, **kw),
+                       None, nbytes + table.numel() * 4, ops, FP32_OPS_PER_S, dtype)
+    torch.cuda.empty_cache()
+    return records, max_err
+
+
+def _decode_work(q, live_rows: int, kv_size: int, scales: bool = False):
+    """(bytes, ops) of one decode-attention call: q read and o written
+    once, each live K/V row (and its scales) read once, lengths; 4
+    flops per K/V value (a multiply-add each for q.k and p.v)."""
+    b, _, h, d = q.shape
+    per_row = 2 * h * (d * kv_size + (4 if scales else 0))
+    return 2 * b * h * d * q.element_size() + live_rows * per_row + 4 * b, 4 * live_rows * h * d
+
+
+def _sdpa_decode(torch, q, k_cache, v_cache, lengths):
+    """The library yardstick of K12: SDPA with a boolean mask over the
+    whole capacity (it reads every row)."""
+    import torch.nn.functional as F
+
+    cap = k_cache.shape[1]
+    mask = (torch.arange(cap, device=q.device)[None, :]
+            <= lengths.long()[:, None])[:, None, None, :]
+    qt, kt, vt = q.transpose(1, 2), k_cache.transpose(1, 2), v_cache.transpose(1, 2)
+    return lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+
+
+def _lm_config(overrides):
+    from zookeeper_tpu_torch.core import configure
+    from zookeeper_tpu_torch.serving.decode import LMServingConfig
+
+    cfg = LMServingConfig()
+    configure(cfg, {**LM_CONFIG, **overrides})
+    return cfg
+
+
+def _profile_step(torch, engine, tokens, lengths):
+    """One decode step under torch.profiler: (wall ms, device busy ms,
+    device activities, top items)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    engine.decode(tokens, lengths)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        engine.decode(tokens, lengths)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    attr = ("self_device_time_total" if hasattr(events[0], "self_device_time_total")
+            else "self_cuda_time_total")
+    kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(getattr(e, attr) for e in kernels) / 1e3
+    top = sorted(kernels, key=lambda e: getattr(e, attr), reverse=True)[:8]
+    return wall_ms, busy_ms, sum(e.count for e in kernels), [
+        (getattr(e, attr) / 1e3, e.count, e.key[:100]) for e in top]
+
+
+def lm_serving_phase(torch, A, smi):
+    """Drive LMServingConfig.run() in the three layouts; check launches
+    and outputs; profile one decode step; time K12/K13 at a mid-run
+    step's real cache, lengths and table. Returns (launches by kernel,
+    per-run stats, main-path records)."""
+    import numpy as np
+
+    from zookeeper_tpu_torch.serving.decode import DecodeEngine
+
+    launches = dict.fromkeys(LM_KERNELS, 0)
+    stats, main = {}, {}
+    for label, overrides in LM_RUNS:
+        cfg = _lm_config(overrides)
+        steps = []
+        real_decode = DecodeEngine.decode
+
+        def spy(engine, tokens, lengths, _real=real_decode):
+            pool = engine.page_pool
+            steps.append((np.array(tokens), np.array(lengths),
+                          None if pool is None else pool.table.copy()))
+            return _real(engine, tokens, lengths)
+
+        A.reset_launches()
+        t0 = time.perf_counter()
+        with mock.patch.object(DecodeEngine, "decode", spy):
+            result = cfg.run()
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        got = dict(A.LAUNCHES)
+        kernel = "paged_decode_attention" if label == "slots" else "pool_paged_decode_attention"
+        prefills = int(result["prefills_total"]) + 2  # + the warmup of both buckets
+        decodes = int(result["decode_steps_total"]) + 1  # + the warmup step
+        print(f"lm {label}: {json.dumps(result)}", flush=True)
+        print(f"lm {label}: launches {got}; per prefill dispatch "
+              f"{got['flash_forward'] / prefills}, per decode step {got[kernel] / decodes} "
+              f"({prefills} prefills, {decodes} decode steps with warmup; run {run_s:.1f} s "
+              f"with build and warmup)", flush=True)
+        check(result["decode_attention"] == "kernel",
+              f"lm {label}: decode attention resolved to {result['decode_attention']}")
+        for name in LM_KERNELS:
+            want = (LM_LAYERS * prefills if name == "flash_forward"
+                    else LM_LAYERS * decodes if name == kernel else 0)
+            check(got[name] == want, f"lm {label}: {name} launched {got[name]} times, want {want}")
+            launches[name] += got[name]
+        check(result["generated_tokens"] == LM_CONFIG["requests"] * LM_CONFIG["new_tokens"],
+              f"lm {label}: {result['generated_tokens']} tokens generated")
+        outputs = np.concatenate(cfg.outputs)
+        check(outputs.min() >= 0 and outputs.max() < LM_CONFIG["vocab_size"],
+              f"lm {label}: tokens outside the vocabulary")
+
+        engine = cfg.engine
+        tokens, lengths, table = steps[len(steps) // 2]
+        if table is not None:
+            engine.page_pool.table[:] = table
+        wall_ms, busy_ms, acts, top = _profile_step(torch, engine, tokens, lengths)
+        print(f"lm {label} decode step profile (lengths {lengths.tolist()}): wall "
+              f"{wall_ms:.3f} ms, device busy {busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f}%), "
+              f"{acts} device activities; top items:", flush=True)
+        for t, count, key in top:
+            print(f"  {t:9.4f} ms x{count:<4d} {key}", flush=True)
+        stats[label] = {
+            "tokens_per_sec": result["tokens_per_sec"], "ttft_p50_ms": result["ttft_p50_ms"],
+            "ttft_p99_ms": result["ttft_p99_ms"], "itl_p50_ms": result["itl_p50_ms"],
+            "itl_p99_ms": result["itl_p99_ms"], "token_p50_ms": result["token_p50_ms"],
+            "decode_mbu": result["decode_mbu"], "step_wall_ms": wall_ms,
+            "step_busy_ms": busy_ms, "step_busy_share": busy_ms / wall_ms,
+            "step_device_activities": acts,
+        }
+        if label != "paged-int8":
+            main[kernel] = _time_main_step(torch, A, engine, kernel, lengths, table)
+        if label == "slots":
+            buckets = [engine.seq_bucket_for(p.shape[0])
+                       for p in cfg.prompts(min(cfg.max_prompt, engine.max_prompt))]
+            main["buckets"] = {sb: buckets.count(sb) / len(buckets) for sb in set(buckets)}
+        del cfg, engine
+        torch.cuda.empty_cache()
+    print(f"lm serving on {smi}: {json.dumps(stats)}", flush=True)
+    return launches, stats, main
+
+
+def _time_main_step(torch, A, engine, kernel, lengths, table):
+    """K12 or K13 at one decode step of the run: layer 0's real cache,
+    the step's lengths (and table), a seeded q. Per launch."""
+    import numpy as np
+
+    dev = engine.device
+    layer = engine.cache[0]
+    q = torch.randn(LM_SLOTS, 1, LM_HEADS, LM_HEAD_DIM,
+                    generator=torch.Generator().manual_seed(4)).to(torch.bfloat16).to(dev)
+    lens = torch.from_numpy(lengths).to(dev)
+    live = int((np.clip(lengths, 0, engine.capacity - 1) + 1).sum())
+    if kernel == "paged_decode_attention":
+        fn = lambda: A.paged_decode_attention(q, layer["k"], layer["v"], lens)  # noqa: E731
+        plain = lambda: A.cached_attention(q, layer["k"], layer["v"], lens)  # noqa: E731
+        library = _sdpa_decode(torch, q, layer["k"], layer["v"], lens)
+        nbytes, ops = _decode_work(q, live, 2)
+    else:
+        tab = torch.from_numpy(table).to(dev)
+        fn = lambda: A.pool_paged_decode_attention(q, layer["k"], layer["v"], tab, lens)  # noqa: E731
+        plain = lambda: A.pool_decode_attention(q, layer["k"], layer["v"], tab, lens)  # noqa: E731
+        library = None
+        nbytes, ops = _decode_work(q, live, 2)
+        nbytes += tab.numel() * 4
+    with deterministic(torch):
+        got, want = fn(), plain()
+        err = _max_abs_err(torch, got, want)
+    check(_bf16_step_ok(torch, got, want),
+          f"{kernel} at a mid-run decode step disagrees with its plain version (max err "
+          f"{err}, tolerance one bf16 step)")
+    rec = {"ms": time_ms(torch, fn), "plain_ms": time_ms(torch, plain, reps=5, inner=2),
+           "library_ms": time_ms(torch, library) if library is not None else None}
+    rec["bound_ms"], rec["bound_by"] = bound_ms(kernel, nbytes, ops)
+    print(f"kernel {kernel} at a mid-run decode step ({live} live rows of {LM_SLOTS} slots): "
+          f"max err {err:.3g}, {json.dumps(rec)}", flush=True)
+    return rec
+
+
+def _serve_stream(engine_cls, sched_cls, configure, module, layout, prompts, budgets):
+    engine = engine_cls()
+    configure(engine, {"slots": LM_SLOTS, "seq_buckets": (512, 2048), "page_size": LM_PAGE,
+                       "decode_attention": "kernel", **layout}, name="engine")
+    engine.bind(module, device="cuda")
+    sched = sched_cls()
+    configure(sched, {}, name="sched")
+    sched.bind(engine)
+    streams = [sched.submit(p, max_new_tokens=b) for p, b in zip(prompts, budgets)]
+    sched.drain()
+    out = [s.result() for s in streams]
+    del engine, sched
+    return out
+
+
+def _plain_attention(A):
+    """The three kernel wrappers swapped for their plain versions."""
+    return mock.patch.multiple(A, flash_attention=A.flash_attention_plain,
+                               paged_decode_attention=A.cached_attention,
+                               pool_paged_decode_attention=A.pool_decode_attention)
+
+
+def lm_parity_phase(torch, A):
+    """fp32: kernel path == plain path == greedy_decode, both layouts,
+    with slot refills. bf16: count agreeing tokens; each disagreement
+    must sit where the plain path's top-two logit gap is below 0.05."""
+    import numpy as np
+
+    from zookeeper_tpu_torch.core import configure
+    from zookeeper_tpu_torch.models.transformer import TransformerLM, greedy_decode
+    from zookeeper_tpu_torch.serving.decode import DecodeEngine, DecodeScheduler
+
+    rng = np.random.default_rng(11)
+    prompts = [rng.integers(1, 1024, size=int(n)).astype(np.int32)
+               for n in rng.integers(1, 700, size=12)]
+    budgets = [int(b) for b in rng.integers(1, 17, size=12)]
+    summary = {}
+    for dtype in ("float32", "bfloat16"):
+        model = TransformerLM()
+        configure(model, {"num_layers": 4, "d_model": 512, "num_heads": 8, "mlp_ratio": 4,
+                          "compute_dtype": dtype}, name="model")
+        module = model.initialize(model.build((8192,), 1024), seed=0).cuda()
+        for label, layout in (("slots", {}), ("paged", {"kv_layout": "paged",
+                                                        "prefix_cache": False})):
+            with deterministic(torch):
+                A.reset_launches()
+                kern = _serve_stream(DecodeEngine, DecodeScheduler, configure, module, layout,
+                                     prompts, budgets)
+                decode = "pool_paged_decode_attention" if layout else "paged_decode_attention"
+                check(A.LAUNCHES["flash_forward"] > 0 and A.LAUNCHES[decode] > 0,
+                      f"lm parity {label}: the kernel path launched {A.LAUNCHES}")
+                before = dict(A.LAUNCHES)
+                with _plain_attention(A):
+                    plain = _serve_stream(DecodeEngine, DecodeScheduler, configure, module,
+                                          layout, prompts, budgets)
+                check(A.LAUNCHES == before,
+                      f"lm parity: the plain path launched kernels ({before} -> {A.LAUNCHES})")
+                torch.cuda.synchronize()
+            total = sum(budgets)
+            if dtype == "float32":
+                bad = [i for i, (a, b) in enumerate(zip(kern, plain)) if not np.array_equal(a, b)]
+                check(not bad, f"lm parity fp32 {label}: kernel and plain tokens differ in "
+                               f"streams {bad}")
+                # The oracle: full recompute with the dense attention.
+                with deterministic(torch), \
+                        mock.patch.object(A, "flash_attention", A.attention_reference):
+                    for i, (p, b) in enumerate(zip(prompts, budgets)):
+                        oracle = greedy_decode(module, torch.from_numpy(p)[None].cuda(), b)
+                        check(np.array_equal(oracle[0, p.shape[0]:].cpu().numpy(), kern[i]),
+                              f"lm parity fp32 {label}: stream {i} differs from greedy_decode")
+                summary[f"fp32 {label}"] = f"{total} of {total} tokens identical (kernel, plain, greedy_decode)"
+            else:
+                agree = sum(int(np.sum(a == b)) for a, b in zip(kern, plain))
+                gaps = []
+                for i, (a, b) in enumerate(zip(kern, plain)):
+                    diff = np.nonzero(a != b)[0]
+                    if diff.size:
+                        gaps.append(_plain_gap(torch, A, module, prompts[i], plain[i], int(diff[0])))
+                check(all(gap < 0.05 for gap in gaps),
+                      f"lm parity bf16 {label}: a disagreement where the plain top-two gap is "
+                      f"{max(gaps, default=0.0)} >= 0.05")
+                summary[f"bf16 {label}"] = (f"{agree} of {total} tokens agree; first-divergence "
+                                            f"top-two gaps {[round(x, 5) for x in gaps]}")
+            print(f"lm parity {dtype} {label}: {summary[next(reversed(summary))]}", flush=True)
+        del module
+        torch.cuda.empty_cache()
+    return summary
+
+
+def _plain_gap(torch, A, module, prompt, plain_tokens, t):
+    """Top-two logit gap of the plain path where it emitted token ``t``
+    of a stream: the plain decode path's logits, recomputed by feeding
+    the stream's own tokens to a fresh plain slot engine."""
+    import numpy as np
+
+    from zookeeper_tpu_torch.core import configure
+    from zookeeper_tpu_torch.serving.decode import DecodeEngine
+
+    engine = DecodeEngine()
+    configure(engine, {"slots": LM_SLOTS, "seq_buckets": (512, 2048), "page_size": LM_PAGE,
+                       "decode_attention": "kernel"}, name="engine")
+    engine.bind(module, device="cuda")
+    seen = []
+    real = module.decode_step
+
+    def spy(*args, **kwargs):
+        logits, cache = real(*args, **kwargs)
+        seen.append(logits[0].float())
+        return logits, cache
+
+    with torch.inference_mode(), _plain_attention(A):
+        if t == 0:  # the prefill's logits, at the engine's padded bucket
+            dev = engine.device
+            tokens = np.zeros((1, engine.seq_bucket_for(prompt.shape[0])), np.int32)
+            tokens[0, : prompt.shape[0]] = prompt
+            last, _ = module.prefill(torch.from_numpy(tokens).to(dev),
+                                     torch.tensor([prompt.shape[0]], device=dev))
+            logits = last[0].float()
+        else:
+            engine.prefill([prompt], [0])
+            tokens = np.zeros(LM_SLOTS, np.int32)
+            lengths = np.zeros(LM_SLOTS, np.int32)
+            with mock.patch.object(module, "decode_step", spy):
+                for j in range(t):
+                    tokens[0], lengths[0] = plain_tokens[j], prompt.shape[0] + j
+                    engine.decode(tokens, lengths)
+            logits = seen[-1]
+    top2 = torch.topk(logits, 2)
+    check(int(top2.indices[0]) == int(plain_tokens[t]),
+          f"lm parity: the recomputed plain logits do not give the plain token {t}")
+    return float(top2.values[0] - top2.values[1])
+
+
 def main() -> None:
     if not os.path.isdir(os.path.join(ROOT, "zookeeper_tpu_torch", "csrc")):
         fail("run from a checkout: zookeeper_tpu_torch/ is not beside this script")
@@ -745,6 +1259,13 @@ def main() -> None:
     print(f"slices on {smi}: A {json.dumps(stats_a)} B {json.dumps(stats_b)}", flush=True)
     launches_t, _ = training_phase(torch, bc, smi)
 
+    from zookeeper_tpu_torch.ops import attention as A
+
+    lm_records, lm_err = lm_kernel_phase(torch, A)
+    launches_lm, _, lm_main = lm_serving_phase(torch, A, smi)
+    parity = lm_parity_phase(torch, A)
+    print(f"lm parity: {json.dumps(parity)}", flush=True)
+
     launches = {**{n: launches_a[n] for n in ("pack_rows", "conv_gemm_popcount")},
                 "packed_weight_matmul": launches_b["packed_weight_matmul"], **launches_t}
     rows = []
@@ -766,6 +1287,34 @@ def main() -> None:
             "bound_by": bound_by,
             "library_ms": t["library_ms"],
         })
+    # LM kernels, per main-path unit: K9 per prefill dispatch (4 layers)
+    # over the slots run's bucket mix; K12 and K13 per decode step (4
+    # layers) at a mid-run step of the slots / paged run.
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bytes_ms", "ops_ms")
+    flash = dict.fromkeys(keys, 0.0)
+    for sb, frac in lm_main["buckets"].items():
+        rec = lm_records[("flash_forward",
+                          f"[1, {sb}, {LM_HEADS}, {LM_HEAD_DIM}] bfloat16 causal=True")]
+        for key in keys:
+            flash[key] += LM_LAYERS * frac * rec[key]
+    flash["bound_by"] = "operations" if flash["ops_ms"] >= flash["bytes_ms"] else "bytes"
+    per_unit = {"flash_forward": flash}
+    for name in ("paged_decode_attention", "pool_paged_decode_attention"):
+        rec = lm_main[name]
+        per_unit[name] = {key: (None if rec[key] is None else LM_LAYERS * rec[key])
+                          for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+        per_unit[name]["bound_by"] = rec["bound_by"]
+    for name in LM_KERNELS:
+        source, replaces = KERNELS[name]
+        t = per_unit[name]
+        rows.append({
+            "name": name, "route": "cuda", "source": f"zookeeper_tpu_torch/csrc/{source}",
+            "replaces": replaces, "launches": launches_lm[name], "ok": True,
+            "max_abs_err": lm_err[name], "ms": t["ms"], "kernel_ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"],
+        })
+    print(smi, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({
         "ok": True,

@@ -42,6 +42,7 @@ def test_importing_the_port_loads_no_jax():
         "import zookeeper_tpu_torch.ops.packed, zookeeper_tpu_torch.models.convert\n"
         "import zookeeper_tpu_torch.training, zookeeper_tpu_torch.data\n"
         "import zookeeper_tpu_torch.training.imagenet\n"
+        "import zookeeper_tpu_torch.serving.decode\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
         "assert not bad, bad\n"
     )
@@ -54,6 +55,20 @@ def test_cuda_entry_points_raise_without_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA card"):
         InferenceEngine().bind(torch.nn.Identity(), (4,), device="cuda")
+
+
+def test_lm_serving_raises_without_a_card(monkeypatch):
+    """LMServingConfig runs on the card unless asked for the CPU."""
+    from zookeeper_tpu_torch.core import configure
+    from zookeeper_tpu_torch.serving.decode import LMServingConfig
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = LMServingConfig()
+    configure(cfg, {"model.num_layers": 1, "model.d_model": 16, "model.num_heads": 2,
+                    "seq_len": 64, "vocab_size": 17, "verbose": False})
+    assert cfg.device == "cuda"
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        cfg.run()
 
 
 def test_chip_smoke_fails_without_the_package(tmp_path):

@@ -1,0 +1,361 @@
+// K12 and K13: single-position decode attention over a slot cache (K12)
+// or through per-slot page tables over a shared page pool (K13), one
+// device routine for both.
+//
+// Replaces zookeeper_tpu/ops/attention.py `paged_decode_attention` (K12)
+// and `pool_paged_decode_attention` (K13). q [slots, 1, h, d] fp32/bf16;
+// K12 caches [slots, cap, h, d] in q's dtype; K13 pools [pages,
+// page_size, h, d] in q's dtype, or int8 with fp32 scales [pages,
+// page_size, h]; lengths [slots] int32; K13 tables [slots, max_pages]
+// int32. Slot `s` attends its rows 0..len with len = clamp(lengths[s],
+// 0, cap - 1) (K13: cap = max_pages * page_size, and a row's page is
+// table[s, row / page_size] clipped to [0, pages - 1]). Output [slots,
+// 1, h, d] in q's dtype.
+//
+// Numerics, as the TPU kernels: q.k and p.v in exact fp32 on widened
+// values (an int8 value times its row's scale first), scores times
+// `scale`, online softmax in fp32 with the running max started at the
+// finite mask value, the accumulator divided by `l` once at the end. A
+// row past `len` has weight exactly 0 in the reference, so it is never
+// read: the live rows are the whole read.
+//
+// Bound on an H100: bytes. A step reads each slot's live K/V rows once
+// (2 * (len + 1) * d values per slot and head) and does 4 flops per
+// value read; decode is far below the card's flop:byte ratio.
+//
+// Design: one block per (slot, head), 256 threads. Eight lanes share a
+// row, each loading its d/8 contiguous values in one vector load (16 B
+// for a bf16 row of 64); the 32 lane groups of the block walk the rows
+// 0..len in a strided loop, four rows per group per iteration (fewer
+// past head_dim 64) with all their loads issued first and the rows kept
+// as raw words until the products widen them, so enough bytes are in
+// flight. A score is eight partial dot products summed by three
+// xor-shuffles inside the group. Each group keeps its own running max,
+// sum and accumulator (the TPU kernel's sequential kv grid axis becomes
+// this loop); at the end the 32 partial states are merged in shared
+// memory and lanes 0..d-1 write the output. Lengths and the page table
+// are read by the block itself, in place of the TPU's scalar prefetch.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <float.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int THREADS = 256;
+constexpr int LPR = 8;                 // lanes per row
+constexpr int GROUPS = THREADS / LPR;  // rows in flight per block step
+constexpr float MASK_VALUE = -0.5f * FLT_MAX;
+
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+__device__ __forceinline__ float to_float(int8_t x) {
+  return static_cast<float>(x);
+}
+
+__device__ __forceinline__ void store(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
+  *p = __float2bfloat16(x);
+}
+
+template <typename T>
+__device__ __forceinline__ T zero_value();
+template <>
+__device__ __forceinline__ float zero_value<float>() { return 0.0f; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 zero_value<__nv_bfloat16>() {
+  return __float2bfloat16(0.0f);
+}
+template <>
+__device__ __forceinline__ int8_t zero_value<int8_t>() { return 0; }
+
+// N consecutive values of a K or V row kept as raw 32-bit words. Rows
+// are widened to fp32 only where a product needs them, so the loads of
+// all rows of an iteration are in flight together (a widening right
+// after a load would wait for it).
+template <typename T, int N>
+struct RawRow {
+  static constexpr int BYTES = N * static_cast<int>(sizeof(T));
+  alignas(16) uint32_t w[(BYTES + 3) / 4];
+
+  __device__ __forceinline__ float get(int i) const {
+    return to_float(reinterpret_cast<const T*>(w)[i]);
+  }
+
+  // Load from p: vector loads when `full` (p aligned to BYTES), else
+  // one value at a time with values past `n_valid` read as 0.
+  __device__ __forceinline__ void load(const T* __restrict__ p, bool full,
+                                       int n_valid) {
+    if (full && BYTES % 16 == 0) {
+#pragma unroll
+      for (int i = 0; i < BYTES / 16; ++i) {
+        reinterpret_cast<uint4*>(w)[i] = reinterpret_cast<const uint4*>(p)[i];
+      }
+    } else if (full && BYTES % 8 == 0) {
+#pragma unroll
+      for (int i = 0; i < BYTES / 8; ++i) {
+        reinterpret_cast<uint2*>(w)[i] = reinterpret_cast<const uint2*>(p)[i];
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < N; ++i) {
+        reinterpret_cast<T*>(w)[i] = i < n_valid ? p[i] : zero_value<T>();
+      }
+    }
+  }
+
+  __device__ __forceinline__ void clear() {
+#pragma unroll
+    for (int i = 0; i < (BYTES + 3) / 4; ++i) w[i] = 0u;
+  }
+};
+
+struct Geometry {
+  int h, d;
+  // K12: rows of a slot are contiguous, `cap` of them.
+  int cap;
+  // K13: the pool and the slot's table row.
+  const int* table;
+  int max_pages, num_pages, page_size;
+};
+
+// Element offset of (slot, row, head)'s first value, and the index of
+// its (page, offset, head) scale for K13.
+template <bool PAGED>
+__device__ __forceinline__ long long row_offset(const Geometry& g, int slot,
+                                                int r, int hh,
+                                                long long* scale_idx) {
+  if (PAGED) {
+    int page = g.table[static_cast<long long>(slot) * g.max_pages + r / g.page_size];
+    page = min(max(page, 0), g.num_pages - 1);
+    const long long row = static_cast<long long>(page) * g.page_size + r % g.page_size;
+    *scale_idx = row * g.h + hh;
+    return (row * g.h + hh) * g.d;
+  }
+  *scale_idx = 0;
+  return ((static_cast<long long>(slot) * g.cap + r) * g.h + hh) * g.d;
+}
+
+// DL: dims per lane (head_dim padded up to 8 * DL). UNROLL: rows per
+// lane group per iteration, fewer for wide rows to stay in registers.
+template <typename QT, typename KT, bool PAGED, int DL,
+          int UNROLL = (DL >= 32 ? 1 : (DL >= 16 ? 2 : 4))>
+__global__ void __launch_bounds__(THREADS)
+decode_attention_kernel(const QT* __restrict__ q, long long q_sb,
+                        long long q_sh, const KT* __restrict__ kbuf,
+                        const KT* __restrict__ vbuf,
+                        const float* __restrict__ k_scale,
+                        const float* __restrict__ v_scale,
+                        const int* __restrict__ lengths, QT* __restrict__ out,
+                        Geometry g, float scale) {
+  __shared__ float s_m[GROUPS];
+  __shared__ float s_l[GROUPS];
+  __shared__ float s_acc[GROUPS][DL * LPR];
+
+  const int slot = blockIdx.x / g.h;
+  const int hh = blockIdx.x % g.h;
+  const int group = threadIdx.x / LPR;
+  const int sub = threadIdx.x % LPR;
+  const int d0 = sub * DL;                      // this lane's first dim
+  const int n_valid = min(DL, max(g.d - d0, 0));  // dims of this lane < d
+  const bool full = (g.d == DL * LPR);
+  const int cap_view = PAGED ? g.max_pages * g.page_size : g.cap;
+  const int len = min(max(lengths[slot], 0), cap_view - 1);
+
+  float qv[DL];
+  {
+    const QT* q_row = q + slot * q_sb + hh * q_sh + d0;
+#pragma unroll
+    for (int i = 0; i < DL; ++i) qv[i] = i < n_valid ? to_float(q_row[i]) : 0.0f;
+  }
+  float m = MASK_VALUE;
+  float l = 0.0f;
+  float acc[DL];
+#pragma unroll
+  for (int i = 0; i < DL; ++i) acc[i] = 0.0f;
+
+  // Every lane runs the same trip count (the bound is per block), so
+  // the full-mask shuffles below are always legal; dead rows are
+  // predicated off.
+  for (int r0 = 0; r0 <= len; r0 += GROUPS * UNROLL) {
+    RawRow<KT, DL> kv[UNROLL], vv[UNROLL];
+    float ksc[UNROLL], vsc[UNROLL];
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) {
+      const int r = r0 + u * GROUPS + group;
+      ksc[u] = 1.0f;
+      vsc[u] = 1.0f;
+      if (r <= len) {
+        long long sidx;
+        const long long off = row_offset<PAGED>(g, slot, r, hh, &sidx) + d0;
+        kv[u].load(kbuf + off, full, n_valid);
+        vv[u].load(vbuf + off, full, n_valid);
+        if (k_scale != nullptr) {
+          ksc[u] = k_scale[sidx];
+          vsc[u] = v_scale[sidx];
+        }
+      } else {
+        kv[u].clear();
+        vv[u].clear();
+      }
+    }
+    float sc[UNROLL];
+    float m_new = m;
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) {
+      float dot = 0.0f;
+#pragma unroll
+      for (int i = 0; i < DL; ++i) dot = fmaf(qv[i], kv[u].get(i) * ksc[u], dot);
+      dot += __shfl_xor_sync(0xffffffffu, dot, 1);
+      dot += __shfl_xor_sync(0xffffffffu, dot, 2);
+      dot += __shfl_xor_sync(0xffffffffu, dot, 4);
+      const int r = r0 + u * GROUPS + group;
+      // -inf, not the mask value: a dead row must weigh exactly 0 even
+      // before this group has seen a live row.
+      sc[u] = r <= len ? dot * scale : -INFINITY;
+      m_new = fmaxf(m_new, sc[u]);
+    }
+    const float corr = expf(m - m_new);
+    float p_sum = 0.0f;
+    float pv[DL];
+#pragma unroll
+    for (int i = 0; i < DL; ++i) pv[i] = 0.0f;
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) {
+      const float p = expf(sc[u] - m_new);
+      p_sum += p;
+#pragma unroll
+      for (int i = 0; i < DL; ++i) pv[i] = fmaf(p, vv[u].get(i) * vsc[u], pv[i]);
+    }
+    m = m_new;
+    l = l * corr + p_sum;
+#pragma unroll
+    for (int i = 0; i < DL; ++i) acc[i] = acc[i] * corr + pv[i];
+  }
+
+  // Merge the groups' partial softmax states.
+  if (sub == 0) {
+    s_m[group] = m;
+    s_l[group] = l;
+  }
+#pragma unroll
+  for (int i = 0; i < DL; ++i) s_acc[group][d0 + i] = acc[i];
+  __syncthreads();
+  if (threadIdx.x < g.d) {
+    float m_all = MASK_VALUE;
+    for (int j = 0; j < GROUPS; ++j) m_all = fmaxf(m_all, s_m[j]);
+    float l_all = 0.0f, o = 0.0f;
+    for (int j = 0; j < GROUPS; ++j) {
+      const float w = expf(s_m[j] - m_all);
+      l_all = fmaf(s_l[j], w, l_all);
+      o = fmaf(s_acc[j][threadIdx.x], w, o);
+    }
+    store(out + (static_cast<long long>(slot) * g.h + hh) * g.d + threadIdx.x, o / l_all);
+  }
+}
+
+template <typename QT, typename KT, bool PAGED>
+cudaError_t launch(const void* q, long long q_sb, long long q_sh,
+                   const void* k, const void* v, const float* k_scale,
+                   const float* v_scale, const int* lengths, void* out,
+                   int slots, const Geometry& g, float scale,
+                   cudaStream_t stream) {
+  const dim3 grid(slots * g.h);
+  const QT* qp = static_cast<const QT*>(q);
+  const KT* kp = static_cast<const KT*>(k);
+  const KT* vp = static_cast<const KT*>(v);
+  QT* op = static_cast<QT*>(out);
+#define ZK_DECODE_LAUNCH(DL)                                                \
+  decode_attention_kernel<QT, KT, PAGED, DL><<<grid, THREADS, 0, stream>>>( \
+      qp, q_sb, q_sh, kp, vp, k_scale, v_scale, lengths, op, g, scale)
+  if (g.d <= 32) {
+    ZK_DECODE_LAUNCH(4);
+  } else if (g.d <= 64) {
+    ZK_DECODE_LAUNCH(8);
+  } else if (g.d <= 128) {
+    ZK_DECODE_LAUNCH(16);
+  } else if (g.d <= 256) {
+    ZK_DECODE_LAUNCH(32);
+  } else {
+    return cudaErrorInvalidValue;
+  }
+#undef ZK_DECODE_LAUNCH
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// K12. dtype_code: 0 = float32, 1 = bfloat16 (q and the caches). q is
+// read through its slot and head strides (elements); the caches, the
+// lengths and the output are contiguous. Returns a cudaError_t.
+extern "C" int zk_paged_decode_attention(const void* q, long long q_sb,
+                                         long long q_sh, const void* k,
+                                         const void* v, const void* lengths,
+                                         void* out, int dtype_code, int slots,
+                                         int cap, int h, int d, float scale,
+                                         int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (slots <= 0 || h <= 0 || d <= 0) return 0;
+  if (cap <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const Geometry g{h, d, cap, nullptr, 0, 0, 0};
+  const int* lens = static_cast<const int*>(lengths);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype_code == 0) {
+    err = launch<float, float, false>(q, q_sb, q_sh, k, v, nullptr, nullptr,
+                                      lens, out, slots, g, scale, st);
+  } else if (dtype_code == 1) {
+    err = launch<__nv_bfloat16, __nv_bfloat16, false>(
+        q, q_sb, q_sh, k, v, nullptr, nullptr, lens, out, slots, g, scale, st);
+  } else {
+    err = cudaErrorInvalidValue;
+  }
+  return static_cast<int>(err);
+}
+
+// K13. q_dtype: 0 = float32, 1 = bfloat16; kv_dtype: the same codes, or
+// 2 = int8 with k_scale/v_scale [pages, page_size, h] float32 (null for
+// float pools). Returns a cudaError_t.
+extern "C" int zk_pool_paged_decode_attention(
+    const void* q, long long q_sb, long long q_sh, const void* k,
+    const void* v, const void* k_scale, const void* v_scale,
+    const void* table, const void* lengths, void* out, int q_dtype,
+    int kv_dtype, int slots, int max_pages, int num_pages, int page_size,
+    int h, int d, float scale, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (slots <= 0 || h <= 0 || d <= 0) return 0;
+  if (max_pages <= 0 || num_pages <= 0 || page_size <= 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const bool quant = kv_dtype == 2;
+  if (quant != (k_scale != nullptr && v_scale != nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const Geometry g{h, d, 0, static_cast<const int*>(table), max_pages,
+                   num_pages, page_size};
+  const float* ks = static_cast<const float*>(k_scale);
+  const float* vs = static_cast<const float*>(v_scale);
+  const int* lens = static_cast<const int*>(lengths);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (q_dtype == 0 && kv_dtype == 0) {
+    err = launch<float, float, true>(q, q_sb, q_sh, k, v, ks, vs, lens, out,
+                                     slots, g, scale, st);
+  } else if (q_dtype == 1 && kv_dtype == 1) {
+    err = launch<__nv_bfloat16, __nv_bfloat16, true>(
+        q, q_sb, q_sh, k, v, ks, vs, lens, out, slots, g, scale, st);
+  } else if (q_dtype == 0 && quant) {
+    err = launch<float, int8_t, true>(q, q_sb, q_sh, k, v, ks, vs, lens, out,
+                                      slots, g, scale, st);
+  } else if (q_dtype == 1 && quant) {
+    err = launch<__nv_bfloat16, int8_t, true>(q, q_sb, q_sh, k, v, ks, vs,
+                                              lens, out, slots, g, scale, st);
+  } else {
+    err = cudaErrorInvalidValue;
+  }
+  return static_cast<int>(err);
+}

@@ -12,6 +12,12 @@ leaves (``kernel``, ``kernel_packed``, ``kernel_scale``, ``bias``) keep
 the JAX layout. A folded BN (deployment with ``fold_bn``) has no
 parameters and maps to nothing. Conversion is in memory only.
 
+A TransformerLM tree maps with :func:`from_flax_lm_variables` and its
+inverse :func:`to_flax_lm_variables`: ``embed``, ``pos``, ``block{i}``
+scopes of ``RMSNorm_0``, ``qkv``, ``proj``, ``RMSNorm_1``, ``up`` and
+``down``, and the final ``RMSNorm_0``; each ``nn.Dense`` kernel ``[in,
+out]`` becomes a ``weight`` ``[out, in]``.
+
 A training state carries across too: :func:`flax_train_state` and
 :func:`load_flax_train_state` move the step, params, ``batch_stats`` and
 optax Adam's ``count``/``mu``/``nu`` (whose trees have the params'
@@ -69,6 +75,53 @@ def from_flax_variables(
         for flax_name, name in _BN_STATS.items():
             out[f"{scope}.{name}"] = _tensor(leaves[flax_name])
     return out
+
+
+_LM_BLOCK = re.compile(r"^block\d+$")
+_LM_NORMS = ("RMSNorm_0", "RMSNorm_1")
+_LM_DENSES = ("qkv", "proj", "up", "down")
+
+
+def from_flax_lm_variables(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """A flax ``TransformerLMModule`` params tree -> the port module's
+    ``state_dict`` (CPU tensors)."""
+    out: Dict[str, torch.Tensor] = {}
+    for scope, leaves in params.items():
+        if scope in ("embed", "pos"):
+            out[scope] = _tensor(leaves)
+        elif scope == "RMSNorm_0":
+            out["RMSNorm_0.scale"] = _tensor(leaves["scale"])
+        elif _LM_BLOCK.match(scope):
+            for name, sub in leaves.items():
+                if name in _LM_NORMS:
+                    out[f"{scope}.{name}.scale"] = _tensor(sub["scale"])
+                elif name in _LM_DENSES:
+                    out[f"{scope}.{name}.weight"] = _tensor(sub["kernel"]).t().contiguous()
+                else:
+                    raise ValueError(f"from_flax_lm_variables: unknown scope {scope}/{name!r}.")
+        else:
+            raise ValueError(f"from_flax_lm_variables: unknown scope {scope!r}.")
+    return out
+
+
+def to_flax_lm_variables(module: nn.Module) -> Dict[str, Any]:
+    """The port LM module's weights as a flax params tree of numpy arrays
+    (the inverse of :func:`from_flax_lm_variables`)."""
+    params: Dict[str, Any] = {}
+    for name, value in module.state_dict().items():
+        leaf = _tensor(value).numpy()
+        parts = name.split(".")
+        if parts[0] in ("embed", "pos"):
+            params[parts[0]] = leaf
+        elif parts == ["RMSNorm_0", "scale"]:
+            params["RMSNorm_0"] = {"scale": leaf}
+        elif _LM_BLOCK.match(parts[0]) and parts[1] in _LM_NORMS:
+            params.setdefault(parts[0], {})[parts[1]] = {"scale": leaf}
+        elif _LM_BLOCK.match(parts[0]) and parts[1] in _LM_DENSES:
+            params.setdefault(parts[0], {})[parts[1]] = {"kernel": leaf.T.copy()}
+        else:
+            raise ValueError(f"to_flax_lm_variables: unknown parameter {name!r}.")
+    return params
 
 
 def _flax_param_leaves(scope: str, leaves: Mapping[str, np.ndarray]) -> Dict[str, np.ndarray]:

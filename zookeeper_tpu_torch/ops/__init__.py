@@ -1,3 +1,3 @@
-"""Ops of the QuickNet paths: quantizers, binary compute (with the CUDA
-kernel wrappers), layers, the deployment converter and the device
-check the entry points share."""
+"""Ops of the QuickNet and TransformerLM paths: quantizers, binary
+compute and attention (with the CUDA kernel wrappers), layers, the
+deployment converter and the device check the entry points share."""

@@ -30,6 +30,7 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
+_F = ctypes.c_float
 
 #: C signature of every exported function: (restype, argtypes).
 SIGNATURES = {
@@ -49,6 +50,17 @@ SIGNATURES = {
         "zk_pack_resid": (_I, [_P, _I, _I, _P, _LL, _LL, _I, _P]),
         "zk_unpack_resid_pm1": (_I, [_P, _P, _I, _LL, _LL, _I, _P]),
         "zk_mask_mul_resid": (_I, [_P, _P, _P, _I, _LL, _LL, _I, _P]),
+    },
+    "flash_forward": {
+        "zk_flash_forward": (_I, [_P] * 4 + [_I] * 5 + [_LL] * 9 + [_F, _I, _I, _P]),
+    },
+    "decode_attention": {
+        "zk_paged_decode_attention": (
+            _I, [_P, _LL, _LL, _P, _P, _P, _P] + [_I] * 5 + [_F, _I, _P],
+        ),
+        "zk_pool_paged_decode_attention": (
+            _I, [_P, _LL, _LL] + [_P] * 7 + [_I] * 8 + [_F, _I, _P],
+        ),
     },
 }
 

@@ -10,12 +10,15 @@ QuickNet uses, as ``torch.autograd.Function``s:
   along the batch in the forward (K6, mask mode) and applied in the
   backward by K8.
 
+The int8 KV-row codec of the paged decode cache is here too:
+``quantize_kv_rows`` / ``dequantize_kv_rows``.
+
 The other quantizers of the JAX registry (approx_sign, swish_sign,
 magnitude_aware_sign, ste_tern, ste_heaviside, dorefa) are not ported yet
 (see ROADMAP.md).
 """
 
-from typing import Callable, Dict, Optional, Union
+from typing import Callable, Dict, Optional, Tuple, Union
 
 import torch
 
@@ -67,6 +70,30 @@ def ste_sign_packed(x: torch.Tensor) -> torch.Tensor:
     Identical values and gradients. Needs a batched input (batch first).
     Without a gradient to take it is the plain sign (nothing packed)."""
     return _SteSignPacked.apply(x) if _differentiated(x) else _sign_pm1(x)
+
+
+#: Symmetric int8 grid [-127, 127] of the KV-row codec: dequantization is
+#: one multiply, with no zero point.
+KV_INT8_QMAX = 127.0
+
+
+def quantize_kv_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Quantize KV rows ``x [..., heads, head_dim]`` to ``(q int8 [...,
+    heads, head_dim], scale float32 [..., heads])``: ``scale = max|x| /
+    127`` per (row, head), 1 for an all-zero row, ``q = round(x /
+    scale)`` clipped to the grid. The rounding is half to even, as the
+    JAX package's ``jnp.round`` (its docstring says half away from zero;
+    the code is what both packages match)."""
+    xf = x.float()
+    amax = xf.abs().amax(dim=-1)
+    scale = torch.where(amax > 0, amax / KV_INT8_QMAX, torch.ones_like(amax))
+    q = torch.round(xf / scale[..., None]).clamp(-KV_INT8_QMAX, KV_INT8_QMAX)
+    return q.to(torch.int8), scale
+
+
+def dequantize_kv_rows(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`quantize_kv_rows`: float32 rows ``q * scale``."""
+    return q.float() * scale.float()[..., None]
 
 
 QUANTIZERS: Dict[str, Callable[[torch.Tensor], torch.Tensor]] = {

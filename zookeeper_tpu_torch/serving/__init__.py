@@ -1,4 +1,5 @@
-"""Classifier serving: bucketed engine, micro-batcher, metrics, config."""
+"""Classifier serving: bucketed engine, micro-batcher, metrics, config.
+LM decode serving lives in ``zookeeper_tpu_torch.serving.decode``."""
 
 from zookeeper_tpu_torch.serving.batcher import (
     DeadlineExpiredError,

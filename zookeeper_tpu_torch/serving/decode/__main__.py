@@ -1,0 +1,8 @@
+"""``python -m zookeeper_tpu_torch.serving.decode LMServingConfig model.d_model=512 ...``"""
+
+import zookeeper_tpu_torch.models  # noqa: F401  (registers the models by name)
+from zookeeper_tpu_torch.core import cli
+from zookeeper_tpu_torch.serving.decode import LMServingConfig  # noqa: F401  (the task)
+
+if __name__ == "__main__":
+    cli()

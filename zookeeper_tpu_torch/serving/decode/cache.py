@@ -1,0 +1,67 @@
+"""KV-cache state of the slot layout.
+
+The port of ``zookeeper_tpu/serving/decode/cache.py``: per transformer
+layer one ``k`` and one ``v`` buffer ``[slots, capacity, heads,
+head_dim]`` in the model's compute dtype, held on the device by the
+decode engine and written in place by every prefill and decode step.
+``capacity`` is page-aligned; one slot's rows are contiguous.
+
+Validity invariant (the slot-refill contract): a slot's row ``j`` is
+meaningful iff ``j < length`` for its current occupant. Prefill writes
+rows ``[0, seq_bucket)`` (rows past the prompt hold padding garbage), a
+decode step writes row ``length`` and then advances ``length``, so
+garbage always sits at ``j >= length``, where decode attention masks it;
+refilling a slot needs no zeroing. The speculative ``append_kv_rows``
+is not ported yet (ROADMAP.md).
+"""
+
+import math
+from typing import Any, Dict, Iterable, Tuple
+
+import torch
+
+__all__ = ["allocate_kv_cache", "kv_cache_bytes", "pages_in_use"]
+
+
+def allocate_kv_cache(
+    num_layers: int,
+    slots: int,
+    capacity: int,
+    num_heads: int,
+    head_dim: int,
+    dtype: torch.dtype,
+    device: Any = "cpu",
+) -> Tuple[Dict[str, torch.Tensor], ...]:
+    """Zeroed KV cache: a per-layer tuple of ``{"k", "v"}`` buffers
+    ``[slots, capacity, heads, head_dim]`` on ``device``."""
+    if slots < 1 or capacity < 1:
+        raise ValueError(
+            f"KV cache needs slots >= 1 and capacity >= 1, got "
+            f"slots={slots}, capacity={capacity}."
+        )
+    shape = (slots, capacity, num_heads, head_dim)
+    return tuple(
+        {"k": torch.zeros(shape, dtype=dtype, device=device),
+         "v": torch.zeros(shape, dtype=dtype, device=device)}
+        for _ in range(num_layers)
+    )
+
+
+def kv_cache_bytes(
+    num_layers: int,
+    slots: int,
+    capacity: int,
+    num_heads: int,
+    head_dim: int,
+    itemsize: int,
+) -> int:
+    """Device memory the cache occupies (k + v, all layers)."""
+    return 2 * num_layers * slots * capacity * num_heads * head_dim * itemsize
+
+
+def pages_in_use(lengths: Iterable[int], page_size: int) -> int:
+    """KV pages holding live tokens: ``sum(ceil(len / page_size))`` over
+    the active slots' lengths (host-side accounting only)."""
+    if page_size < 1:
+        raise ValueError(f"page_size={page_size} must be >= 1.")
+    return int(sum(math.ceil(int(n) / page_size) for n in lengths if n > 0))

@@ -1,0 +1,515 @@
+"""The autoregressive decode engine: prefill and decode steps over
+device-resident KV-cache state.
+
+The port of ``zookeeper_tpu/serving/decode/engine.py``'s
+``DecodeEngine``. Two dispatch families serve all traffic:
+
+- **prefill**, bucketed (``prefill_buckets`` x ``seq_buckets``): the
+  full-context forward over a right-padded prompt group (K9 in every
+  layer), its K/V written into the group's slots (or pages), and each
+  request's first token;
+- **decode**: one token for every slot of the slot array (K12 over the
+  slot caches, or K13 through the page tables), inactive slots riding
+  along with their output ignored.
+
+PyTorch runs eagerly, so there is nothing to compile: ``warmup()`` runs
+each bucket and one decode step once, which builds the kernels and warms
+the allocator before the first request. The cache is written in place.
+Not ported yet (ROADMAP.md), each raising ``NotImplementedError``: the
+radix prefix cache (``prefix_cache=True`` with the paged layout),
+chunked prefill, warm-prefix and chunk prefill, speculative verify, page
+transfer, weight hot-swap, partitioners and the program ledger.
+"""
+
+import statistics
+import time
+from typing import Any, Optional, Sequence
+
+import numpy as np
+import torch
+
+from zookeeper_tpu_torch.core import Field, component
+from zookeeper_tpu_torch.models.transformer import _pool_write_rows
+from zookeeper_tpu_torch.ops.device import resolve_device
+from zookeeper_tpu_torch.serving.decode.cache import (
+    allocate_kv_cache,
+    kv_cache_bytes,
+    pages_in_use,
+)
+from zookeeper_tpu_torch.serving.decode.pages import (
+    PagePool,
+    allocate_page_pool,
+    page_pool_bytes,
+)
+
+__all__ = ["DecodeEngine"]
+
+#: HBM bandwidth of an H100 SXM (NVIDIA data sheet), the denominator of
+#: ``decode_mbu``.
+HBM_BYTES_PER_S = 3.35e12
+
+_NOT_PORTED = "is not ported to the PyTorch engine yet (queued in ROADMAP.md)"
+
+
+@component
+class DecodeEngine:
+    """KV-cache decode engine over a ``TransformerLMModule`` (``prefill``
+    / ``decode_step`` / ``decode_step_paged``). Configure the slot array
+    and buckets as Fields, then :meth:`bind` the module."""
+
+    #: Concurrent sequence slots: the decode step's fixed batch.
+    slots: int = Field(8)
+    #: Prompt-length buckets of the prefill (ascending); a prompt rides
+    #: the smallest that holds it, right-padded.
+    seq_buckets: Sequence[int] = Field((16, 64))
+    #: How many queued requests one prefill dispatch admits together.
+    prefill_buckets: Sequence[int] = Field((1,))
+    #: Per-slot KV capacity in tokens; -1 sizes it to the module's
+    #: positional table. Rounded up to a ``page_size`` multiple.
+    kv_capacity: int = Field(-1)
+    #: KV page granularity (tokens).
+    page_size: int = Field(16)
+    #: Decode attention: "auto" or "kernel" (alias "pallas"). Either way
+    #: a step calls the K12/K13 wrappers, which launch the kernel on a
+    #: CUDA device (or raise) and run the plain oracle on the CPU; the
+    #: resolved flavor reports "reference" for "auto" on the CPU.
+    decode_attention: str = Field("auto")
+    #: KV storage layout: "slots" (per-slot contiguous buffers) or "paged"
+    #: (a shared page pool with per-slot page tables).
+    kv_layout: str = Field("slots")
+    #: Pool pages per layer (paged only); -1 = slots x capacity/page_size.
+    pool_pages: int = Field(-1)
+    #: Paged-pool rows: "none" (the compute dtype) or "int8" (with fp32
+    #: per-(row, head) scales).
+    kv_quant: str = Field("none")
+    #: Radix prefix cache (paged only): not ported, so the paged layout
+    #: needs ``prefix_cache=False``.
+    prefix_cache: bool = Field(True)
+    #: Chunked prefill: not ported, must stay 0.
+    prefill_chunk_tokens: int = Field(0)
+
+    # -- binding ---------------------------------------------------------
+
+    def bind(self, module: Any, device: Any = "cuda") -> "DecodeEngine":
+        """Attach the LM module (moved to ``device``, eval mode) and
+        allocate the cache there."""
+        for method in ("prefill", "decode_step", "decode_step_paged"):
+            if not hasattr(module, method):
+                raise ValueError(
+                    f"DecodeEngine needs a module with a {method!r} method "
+                    f"(see TransformerLMModule); got {type(module).__name__}."
+                )
+        seq_buckets = tuple(int(s) for s in self.seq_buckets)
+        if not seq_buckets or any(s < 1 for s in seq_buckets) or list(
+            seq_buckets
+        ) != sorted(set(seq_buckets)):
+            raise ValueError(
+                f"seq_buckets={self.seq_buckets!r} must be a non-empty, "
+                "strictly-ascending tuple of positive lengths."
+            )
+        prefill_buckets = tuple(int(b) for b in self.prefill_buckets)
+        if not prefill_buckets or any(b < 1 for b in prefill_buckets) or list(
+            prefill_buckets
+        ) != sorted(set(prefill_buckets)):
+            raise ValueError(
+                f"prefill_buckets={self.prefill_buckets!r} must be a "
+                "non-empty, strictly-ascending tuple of positive sizes."
+            )
+        if self.slots < 1:
+            raise ValueError(f"slots={self.slots} must be >= 1.")
+        if max(prefill_buckets) > self.slots:
+            raise ValueError(
+                f"largest prefill bucket {max(prefill_buckets)} exceeds "
+                f"slots={self.slots}."
+            )
+        if self.page_size < 1:
+            raise ValueError(f"page_size={self.page_size} must be >= 1.")
+        position_cap = int(module.max_seq_len)
+        if self.kv_capacity == -1:
+            capacity = position_cap
+        elif self.kv_capacity > 0:
+            capacity = int(self.kv_capacity)
+        else:
+            raise ValueError(
+                f"kv_capacity={self.kv_capacity}: expected a positive token "
+                "capacity or -1 (size to the positional table)."
+            )
+        capacity = -(-capacity // self.page_size) * self.page_size
+        if max(seq_buckets) > capacity:
+            raise ValueError(
+                f"largest seq bucket {max(seq_buckets)} exceeds the KV "
+                f"capacity {capacity}; shrink the buckets or raise kv_capacity."
+            )
+        if max(seq_buckets) > position_cap:
+            raise ValueError(
+                f"largest seq bucket {max(seq_buckets)} exceeds the module's "
+                f"positional table ({position_cap})."
+            )
+        if str(self.decode_attention) not in ("auto", "kernel", "pallas"):
+            raise ValueError(
+                f"decode_attention={self.decode_attention!r}: expected 'auto' "
+                "or 'kernel' ('pallas')."
+            )
+        if str(self.kv_layout) not in ("slots", "paged"):
+            raise ValueError(f"kv_layout={self.kv_layout!r}: expected 'slots' or 'paged'.")
+        if str(self.kv_quant) not in ("none", "int8"):
+            raise ValueError(f"kv_quant={self.kv_quant!r}: expected 'none' or 'int8'.")
+        paged = str(self.kv_layout) == "paged"
+        if not paged and str(self.kv_quant) != "none":
+            raise ValueError(
+                "kv_quant='int8' requires kv_layout='paged' (quantization "
+                "lives with the page pool)."
+            )
+        if int(self.prefill_chunk_tokens) < 0:
+            raise ValueError(
+                f"prefill_chunk_tokens={self.prefill_chunk_tokens}: expected 0."
+            )
+        if int(self.prefill_chunk_tokens) > 0:
+            raise NotImplementedError(f"chunked prefill (prefill_chunk_tokens > 0) {_NOT_PORTED}")
+        if paged and self.prefix_cache:
+            raise NotImplementedError(
+                f"the radix prefix cache (prefix_cache=True with "
+                f"kv_layout='paged') {_NOT_PORTED}; set engine.prefix_cache=False"
+            )
+        max_pages = capacity // int(self.page_size)
+        if paged:
+            if self.pool_pages == -1:
+                num_pages = int(self.slots) * max_pages
+            elif self.pool_pages > 0:
+                num_pages = int(self.pool_pages)
+            else:
+                raise ValueError(
+                    f"pool_pages={self.pool_pages}: expected a positive page "
+                    "count or -1."
+                )
+            if num_pages < max_pages:
+                raise ValueError(
+                    f"pool_pages={num_pages} below capacity/page_size={max_pages}: "
+                    "one full-capacity sequence could never be served."
+                )
+        else:
+            num_pages = 0
+        device = resolve_device(device)
+        module = module.to(device).eval()
+        set_ = lambda name, value: object.__setattr__(self, name, value)  # noqa: E731
+        set_("_module", module)
+        set_("_device", device)
+        set_("_seq_buckets", seq_buckets)
+        set_("_prefill_buckets", prefill_buckets)
+        set_("_capacity", capacity)
+        set_("_position_cap", position_cap)
+        set_("_paged", paged)
+        set_("_num_pages", num_pages)
+        set_("_max_pages", max_pages)
+        set_("_pool", PagePool(num_pages=num_pages, page_size=int(self.page_size),
+                               slots=int(self.slots), max_pages_per_slot=max_pages)
+             if paged else None)
+        set_("_cache", self._allocate_cache())
+        itemsize = torch.empty((), dtype=module.dtype).element_size()
+        if paged:
+            nbytes = page_pool_bytes(int(module.num_layers), num_pages, int(self.page_size),
+                                     int(module.num_heads), module.head_dim, itemsize,
+                                     quant=str(self.kv_quant))
+        else:
+            nbytes = kv_cache_bytes(int(module.num_layers), int(self.slots), capacity,
+                                    int(module.num_heads), module.head_dim, itemsize)
+        set_("_cache_nbytes", nbytes)
+        # Parameters a decode step reads once (the positional table only
+        # at the slots' rows, counted with the K/V rows in _step_bytes).
+        set_("_weight_bytes", sum(p.numel() * p.element_size()
+                                  for name, p in module.named_parameters() if name != "pos"))
+        set_("_decode_records", [])
+        set_("_warmed", False)
+        set_("_decode_attention_flavor",
+             "reference" if str(self.decode_attention) == "auto" and device.type != "cuda"
+             else "kernel")
+        return self
+
+    def _require_bound(self) -> None:
+        if getattr(self, "_module", None) is None:
+            raise RuntimeError(
+                "DecodeEngine is not bound: call engine.bind(module) before "
+                "warmup()/prefill()/decode()."
+            )
+
+    def _allocate_cache(self):
+        module = self._module
+        if self._paged:
+            return allocate_page_pool(int(module.num_layers), self._num_pages,
+                                      int(self.page_size), int(module.num_heads),
+                                      module.head_dim, module.dtype,
+                                      quant=str(self.kv_quant), device=self._device)
+        return allocate_kv_cache(int(module.num_layers), int(self.slots), self._capacity,
+                                 int(module.num_heads), module.head_dim, module.dtype,
+                                 device=self._device)
+
+    # -- geometry and accounting ----------------------------------------
+
+    @property
+    def device(self) -> torch.device:
+        self._require_bound()
+        return self._device
+
+    @property
+    def cache(self):
+        """The per-layer KV cache (slot buffers or pool dicts)."""
+        self._require_bound()
+        return self._cache
+
+    @property
+    def capacity(self) -> int:
+        """Per-slot KV capacity in tokens (page-aligned)."""
+        self._require_bound()
+        return self._capacity
+
+    @property
+    def position_cap(self) -> int:
+        self._require_bound()
+        return self._position_cap
+
+    @property
+    def token_limit(self) -> int:
+        """Hard per-sequence total-token bound (prompt + generated)."""
+        return min(self.capacity, self.position_cap)
+
+    @property
+    def max_prompt(self) -> int:
+        """Longest admissible prompt (the largest seq bucket)."""
+        self._require_bound()
+        return max(self._seq_buckets)
+
+    @property
+    def kv_cache_nbytes(self) -> int:
+        self._require_bound()
+        return self._cache_nbytes
+
+    @property
+    def paged(self) -> bool:
+        self._require_bound()
+        return bool(self._paged)
+
+    @property
+    def page_pool(self) -> Optional[PagePool]:
+        """The host-side :class:`PagePool` (None in the slot layout)."""
+        self._require_bound()
+        return self._pool
+
+    @property
+    def decode_attention_flavor(self) -> str:
+        """The resolved decode-attention flavor: "kernel", or "reference"
+        for "auto" on the CPU."""
+        self._require_bound()
+        return self._decode_attention_flavor
+
+    @property
+    def decode_mbu(self) -> float:
+        """Memory-bandwidth utilization of the decode steps so far: the
+        median bytes a step must read (the weights once, plus every
+        slot's live K/V rows, scales and positional row) over the median
+        step wall time, over the card's 3.35 TB/s. The JAX engine takes
+        its bytes from XLA's cost analysis, which the port has no
+        counterpart of, so this counts them from the shapes. -1 when
+        nothing was decoded or the engine runs on the CPU."""
+        records = getattr(self, "_decode_records", [])
+        if not records or self._device.type != "cuda":
+            return -1.0
+        seconds = statistics.median(r[0] for r in records)
+        nbytes = statistics.median(r[1] for r in records)
+        return nbytes / seconds / HBM_BYTES_PER_S if seconds > 0 else -1.0
+
+    def _step_bytes(self, lengths: np.ndarray) -> int:
+        """Bytes one decode step must read: weights, and per slot its
+        ``clamp(length) + 1`` live K/V rows (int8 rows with their fp32
+        scales), and its positional row."""
+        module = self._module
+        heads = int(module.num_heads)
+        rows = int(np.sum(np.clip(lengths, 0, self._capacity - 1) + 1))
+        if self._paged and str(self.kv_quant) == "int8":
+            per_row = heads * (module.head_dim + 4)
+        else:
+            per_row = heads * module.head_dim * torch.empty((), dtype=module.dtype).element_size()
+        kv = 2 * int(module.num_layers) * rows * per_row
+        return self._weight_bytes + kv + len(lengths) * int(module.d_model) * 4
+
+    def kv_pages_in_use(self, lengths) -> int:
+        """Occupancy: the allocator's count (paged), or ``sum(ceil(len /
+        page_size))`` over the active slots' lengths (slots)."""
+        if self._paged:
+            return int(self._pool.used_pages)
+        return pages_in_use(lengths, int(self.page_size))
+
+    def seq_bucket_for(self, length: int) -> int:
+        for s in self._seq_buckets:
+            if s >= length:
+                return s
+        raise ValueError(
+            f"prompt of {length} tokens exceeds the largest seq bucket "
+            f"{max(self._seq_buckets)}; widen seq_buckets."
+        )
+
+    def prefill_bucket_for(self, n: int) -> int:
+        for b in self._prefill_buckets:
+            if b >= n:
+                return b
+        raise ValueError(
+            f"prefill group of {n} exceeds the largest prefill bucket "
+            f"{max(self._prefill_buckets)}."
+        )
+
+    # -- page lifecycle (every method answers in both layouts) -----------
+
+    def admit_slot(self, slot: int, prompt, *, copy: bool = True) -> Optional[dict]:
+        """Allocate ``slot``'s pages for ``prompt``: the plan
+        ``{"shared_tokens": 0, "cow": None}`` (the slot layout's is
+        trivial), or None when the pool is exhausted."""
+        if not self._paged:
+            return {"shared_tokens": 0, "cow": None}
+        return self._pool.assign_prompt(int(slot), prompt)
+
+    def ensure_rows(self, slot: int, rows: int) -> bool:
+        """Guarantee ``slot``'s pages cover ``rows`` KV rows before a
+        step writes them; False when the pool is exhausted."""
+        if not self._paged:
+            return True
+        return self._pool.ensure_rows(int(slot), int(rows))
+
+    def release_slot(self, slot: int) -> None:
+        """Stream finished or failed: return the slot's pages."""
+        if self._paged:
+            self._pool.release_slot(int(slot))
+
+    def pool_status(self) -> Optional[dict]:
+        return self._pool.status() if self._paged else None
+
+    def _not_ported(self, what: str):
+        raise NotImplementedError(f"{what} {_NOT_PORTED}")
+
+    def prefill_warm(self, *args, **kwargs):
+        self._not_ported("warm-prefix prefill (the radix prefix cache)")
+
+    def prefill_chunk(self, *args, **kwargs):
+        self._not_ported("chunked prefill")
+
+    def verify(self, *args, **kwargs):
+        self._not_ported("the speculative verify step")
+
+    def export_pages(self, *args, **kwargs):
+        self._not_ported("page transfer (disaggregated prefill/decode)")
+
+    def import_pages(self, *args, **kwargs):
+        self._not_ported("page transfer (disaggregated prefill/decode)")
+
+    def swap_weights(self, *args, **kwargs):
+        self._not_ported("weight hot-swap")
+
+    # -- dispatch --------------------------------------------------------
+
+    def warmup(self) -> int:
+        """Run every prefill bucket and one decode step once (writing no
+        live cache row: prefill outputs are discarded, the decode step
+        writes only rows that no stream owns). Returns the number of
+        dispatches run."""
+        self._require_bound()
+        runs = 0
+        with torch.inference_mode():
+            for pb in self._prefill_buckets:
+                for sb in self._seq_buckets:
+                    tokens = torch.zeros((pb, sb), dtype=torch.int32, device=self._device)
+                    lengths = torch.ones((pb,), dtype=torch.int32, device=self._device)
+                    last, _ = self._module.prefill(tokens, lengths)
+                    torch.argmax(last, dim=-1).cpu()
+                    runs += 1
+            n = int(self.slots)
+            self._decode_dispatch(np.zeros(n, np.int32), np.zeros(n, np.int32))
+            runs += 1
+        object.__setattr__(self, "_warmed", True)
+        return runs
+
+    def prefill(self, prompts: Sequence[np.ndarray], slot_ids: Sequence[int]) -> np.ndarray:
+        """Admit a group: write each prompt's K/V into its slot (or its
+        pages) and return each sequence's first token as a host ``[n]``
+        int32 array."""
+        self._require_bound()
+        n = len(prompts)
+        if n == 0:
+            return np.zeros((0,), np.int32)
+        if n != len(set(int(s) for s in slot_ids)) or n != len(slot_ids):
+            raise ValueError(
+                f"slot_ids {list(slot_ids)!r} must be unique and match the {n} prompts."
+            )
+        lens = [int(np.shape(p)[0]) for p in prompts]
+        if min(lens) < 1:
+            raise ValueError("empty prompt is not servable.")
+        pb = self.prefill_bucket_for(n)
+        sb = self.seq_bucket_for(max(lens))
+        tokens = np.zeros((pb, sb), np.int32)
+        lengths = np.ones((pb,), np.int32)  # padding rows: length 1, dropped
+        for i, p in enumerate(prompts):
+            tokens[i, : lens[i]] = np.asarray(p, np.int32)
+            lengths[i] = lens[i]
+        dev = self._device
+        with torch.inference_mode():
+            last, kv = self._module.prefill(torch.from_numpy(tokens).to(dev),
+                                            torch.from_numpy(lengths).to(dev))
+            if self._paged:
+                self._write_prefill_pages(kv, lengths, slot_ids, pb, sb)
+            else:
+                # Slots: rows [0, sb) of each real row's slot, padding
+                # included; padding rows of a partial group write nowhere.
+                ids = torch.as_tensor([int(s) for s in slot_ids], device=dev)
+                for layer, (k, v) in zip(self._cache, kv):
+                    layer["k"][ids, :sb] = k[:n]
+                    layer["v"][ids, :sb] = v[:n]
+            first = torch.argmax(last, dim=-1).to(torch.int32).cpu().numpy()
+        return first[:n].astype(np.int32)
+
+    def _write_prefill_pages(self, kv, lengths: np.ndarray, slot_ids, pb: int, sb: int) -> None:
+        """Scatter each prompt row through its slot's table row: position
+        ``j`` lands at ``(table[slot, j // page_size], j % page_size)``.
+        Rows past the true length, unallocated entries and padding rows
+        take the out-of-range page and write nowhere."""
+        ps = int(self.page_size)
+        table = np.full((pb, self._max_pages), -1, np.int32)
+        for i, s in enumerate(slot_ids):
+            table[i] = self._pool.table[int(s)]
+        j = np.arange(sb)
+        pages = table[:, np.clip(j // ps, 0, self._max_pages - 1)]  # [pb, sb]
+        dead = (j[None, :] >= lengths[:, None]) | (pages < 0)
+        pages = np.where(dead, self._num_pages, pages)
+        offsets = np.broadcast_to(j % ps, pages.shape)
+        pages_t = torch.from_numpy(pages.astype(np.int64)).to(self._device)
+        offsets_t = torch.from_numpy(np.array(offsets, np.int64)).to(self._device)
+        for layer, (k, v) in zip(self._cache, kv):
+            _pool_write_rows(layer, {"k": k, "v": v}, pages_t, offsets_t)
+
+    def decode(self, tokens: np.ndarray, lengths: np.ndarray) -> np.ndarray:
+        """One token for every slot: feed each slot's current token (at
+        position ``lengths[slot]``), write its K/V, and return the argmax
+        next token per slot as a host ``[slots]`` int32 array."""
+        self._require_bound()
+        tokens = np.asarray(tokens, np.int32)
+        lengths = np.asarray(lengths, np.int32)
+        n = int(self.slots)
+        if tokens.shape != (n,) or lengths.shape != (n,):
+            raise ValueError(
+                f"decode expects [slots]={n} token and length arrays, got "
+                f"{tokens.shape} / {lengths.shape}."
+            )
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            nxt = self._decode_dispatch(tokens, lengths)
+        # Readback-bounded wall time: the dispatch ends in a copy to the
+        # host, which waits for the card.
+        self._decode_records.append((time.perf_counter() - t0, self._step_bytes(lengths)))
+        return nxt
+
+    def _decode_dispatch(self, tokens: np.ndarray, lengths: np.ndarray) -> np.ndarray:
+        dev = self._device
+        tok_t = torch.from_numpy(tokens).to(dev)
+        len_t = torch.from_numpy(lengths).to(dev)
+        if self._paged:
+            table_t = torch.from_numpy(np.ascontiguousarray(self._pool.table)).to(dev)
+            logits, _ = self._module.decode_step_paged(tok_t, len_t, self._cache, table_t)
+        else:
+            logits, _ = self._module.decode_step(tok_t, len_t, self._cache)
+        return torch.argmax(logits, dim=-1).to(torch.int32).cpu().numpy()

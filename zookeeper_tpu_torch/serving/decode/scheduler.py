@@ -1,0 +1,683 @@
+"""Slot-refill continuous batching: the host loop over the decode engine.
+
+The port of ``zookeeper_tpu/serving/decode/scheduler.py``'s
+``DecodeScheduler`` and ``DecodeStream``. A sequence occupies a KV slot
+across many dispatches, so the scheduling unit is the slot:
+
+1. **Admit**: free slots are refilled from the FIFO queue; a group of
+   queued prompts rides one bucketed prefill, which writes their K/V and
+   emits each request's first token (TTFT). A finished sequence's slot
+   is refilled without draining anything.
+2. **Decode**: one decode step advances every active slot one token.
+3. **Finish**: EOS, the request's ``max_new_tokens``, the engine's
+   token limit, or a deadline ends a stream and frees its slot.
+
+``shed_above`` sheds with ``RejectedError`` before enqueueing; deadlines
+fail a stream with ``DeadlineExpiredError`` when queued, mid-stream or in
+``result()``; a crash of the loop fails every queued and in-flight
+stream with ``WorkerCrashedError`` and the next ``submit()`` restarts
+it. In the paged layout an admission the pool cannot serve waits at the
+queue head for pages, or is shed when nothing is in flight to free any.
+``synchronous=True`` (the default) is thread- and clock-free: the caller
+drives with ``drain()``/``result()``; otherwise one ``zk-decode-
+scheduler`` daemon thread runs the loop. Not ported yet (ROADMAP.md):
+speculative decoding, chunked prefill, staged weight swaps, the overload
+guard and brown-out, the RequestLog, tracing and fault injection.
+"""
+
+import threading
+import time
+from collections import deque
+from typing import Any, List, Optional
+
+import numpy as np
+
+from zookeeper_tpu_torch.core import Field, component
+from zookeeper_tpu_torch.serving.batcher import (
+    DeadlineExpiredError,
+    RejectedError,
+    WorkerCrashedError,
+)
+
+__all__ = ["DecodeScheduler", "DecodeStream"]
+
+
+class DecodeStream:
+    """Handle for one generation request: tokens stream in as the
+    scheduler produces them; ``result()`` gives the generated array.
+    Iterating yields tokens as they arrive (and, in synchronous mode,
+    drives the scheduler)."""
+
+    def __init__(self, scheduler: "DecodeScheduler", prompt: np.ndarray,
+                 max_new_tokens: int, deadline_at: Optional[float],
+                 eos_token: Optional[int]) -> None:
+        self._scheduler = scheduler
+        self.prompt = prompt
+        self._max_new = int(max_new_tokens)
+        self._deadline_at = deadline_at
+        self._eos = eos_token
+        self._tokens: List[int] = []
+        self._done = False
+        self._error: Optional[BaseException] = None
+        self._finish_reason: Optional[str] = None
+        self._t_submit = time.perf_counter()
+        #: Submit-to-first-token milliseconds (None until it lands).
+        self.ttft_ms: Optional[float] = None
+        self._slot: Optional[int] = None
+        self._cond = threading.Condition()
+
+    @property
+    def done(self) -> bool:
+        return self._done
+
+    @property
+    def error(self) -> Optional[BaseException]:
+        return self._error
+
+    @property
+    def finish_reason(self) -> Optional[str]:
+        """"eos", "length" (max_new_tokens) or "capacity" (the token
+        limit); None while streaming or on failure."""
+        return self._finish_reason
+
+    @property
+    def tokens_so_far(self) -> np.ndarray:
+        with self._cond:
+            return np.asarray(self._tokens, np.int32)
+
+    def expired(self, now: Optional[float] = None) -> bool:
+        if self._deadline_at is None:
+            return False
+        return (time.perf_counter() if now is None else now) >= self._deadline_at
+
+    def _deliver(self, token: int) -> None:
+        with self._cond:
+            if self._done:
+                return
+            self._tokens.append(int(token))
+            self._cond.notify_all()
+
+    def _finish(self, reason: str) -> None:
+        with self._cond:
+            if self._done:
+                return
+            self._done = True
+            self._finish_reason = reason
+            self._cond.notify_all()
+
+    def _fail(self, error: BaseException) -> bool:
+        with self._cond:
+            if self._done:
+                return False
+            self._done = True
+            self._error = error
+            self._cond.notify_all()
+        return True
+
+    def _expire(self) -> bool:
+        waited_ms = (time.perf_counter() - self._t_submit) * 1e3
+        return self._fail(DeadlineExpiredError(
+            f"generation deadline expired after {waited_ms:.1f}ms "
+            f"({len(self._tokens)} of {self._max_new} tokens generated; partial "
+            "output in tokens_so_far)"
+        ))
+
+    def result(self, timeout: Optional[float] = None) -> np.ndarray:
+        """The generated tokens. Synchronous mode drives the scheduler to
+        completion; async mode blocks, never past the deadline."""
+        if not self._done:
+            self._scheduler._drive(self, timeout)
+        if self._error is not None:
+            raise self._error
+        return np.asarray(self._tokens, np.int32)
+
+    def __iter__(self):
+        served = 0
+        while True:
+            with self._cond:
+                available = len(self._tokens)
+            while served < available:
+                yield self._tokens[served]
+                served += 1
+            if self._done:
+                if self._error is not None:
+                    raise self._error
+                with self._cond:
+                    remaining = self._tokens[served:]
+                yield from remaining
+                return
+            self._scheduler._advance(self)
+
+
+@component
+class DecodeScheduler:
+    """Continuous-batching scheduler over a ``DecodeEngine``."""
+
+    #: Default generation budget per request (``submit`` overrides).
+    max_new_tokens: int = Field(32)
+    #: Default per-request deadline in ms (0 = none).
+    default_deadline_ms: float = Field(0.0)
+    #: Load shedding past this many queued requests (0 = off).
+    shed_above: int = Field(0)
+    #: Backpressure bound on the wait queue (requests).
+    max_queue: int = Field(4096)
+    #: End-of-sequence token (-1 = none); generation stops with it
+    #: delivered.
+    eos_token: int = Field(-1)
+    #: Thread-free mode: the caller drives via drain()/result().
+    synchronous: bool = Field(True)
+
+    def bind(self, engine, metrics=None) -> "DecodeScheduler":
+        if self.max_new_tokens < 1:
+            raise ValueError(
+                f"max_new_tokens={self.max_new_tokens} must be >= 1 (prefill "
+                "always emits one token)."
+            )
+        if self.shed_above < 0 or self.default_deadline_ms < 0:
+            raise ValueError(
+                f"shed_above={self.shed_above} and default_deadline_ms="
+                f"{self.default_deadline_ms} must be >= 0 (0 disables)."
+            )
+        if self.max_queue < 1:
+            raise ValueError(f"max_queue={self.max_queue} must be >= 1.")
+        engine._require_bound()
+        n = int(engine.slots)
+        set_ = lambda name, value: object.__setattr__(self, name, value)  # noqa: E731
+        set_("_engine", engine)
+        set_("_metrics", metrics)
+        set_("_queue", deque())
+        set_("_slot_stream", [None] * n)
+        set_("_slot_lengths", np.zeros(n, np.int64))
+        set_("_slot_tokens", np.zeros(n, np.int32))
+        set_("_slot_last_emit", np.zeros(n, np.float64))
+        # _lock guards the bookkeeping; _step_lock serializes iterations
+        # so _lock is released across the device dispatches.
+        set_("_lock", threading.RLock())
+        set_("_step_lock", threading.Lock())
+        set_("_cv", threading.Condition())
+        set_("_worker", None)
+        set_("_stop", threading.Event())
+        return self
+
+    def _require_bound(self) -> None:
+        if getattr(self, "_engine", None) is None:
+            raise RuntimeError(
+                "DecodeScheduler is not bound: call scheduler.bind(engine) "
+                "before submit()."
+            )
+
+    # -- submission ------------------------------------------------------
+
+    def _deadline_at(self, deadline_ms: Optional[float]) -> Optional[float]:
+        if deadline_ms is None:
+            deadline_ms = self.default_deadline_ms or None
+        if deadline_ms is None:
+            return None
+        if deadline_ms < 0:
+            raise ValueError(f"deadline_ms={deadline_ms} must be >= 0.")
+        return time.perf_counter() + deadline_ms / 1e3
+
+    def submit(self, prompt: Any, *, max_new_tokens: Optional[int] = None,
+               deadline_ms: Optional[float] = None,
+               eos_token: Optional[int] = None) -> DecodeStream:
+        """Enqueue one prompt (1-D int tokens); returns its
+        :class:`DecodeStream`. An explicit ``deadline_ms=0`` is already
+        expired. Raises ``RejectedError`` past the shed threshold."""
+        self._require_bound()
+        prompt = np.asarray(prompt, np.int32)
+        if prompt.ndim != 1 or prompt.shape[0] < 1:
+            raise ValueError(
+                f"prompt must be a non-empty 1-D int token array, got shape "
+                f"{prompt.shape}."
+            )
+        engine = self._engine
+        if prompt.shape[0] > engine.max_prompt:
+            raise ValueError(
+                f"prompt of {prompt.shape[0]} tokens exceeds the largest seq "
+                f"bucket {engine.max_prompt}; widen engine.seq_buckets."
+            )
+        if prompt.shape[0] >= engine.token_limit:
+            raise ValueError(
+                f"prompt of {prompt.shape[0]} tokens leaves no room to generate "
+                f"within token_limit={engine.token_limit}."
+            )
+        new = int(max_new_tokens if max_new_tokens is not None else self.max_new_tokens)
+        if new < 1:
+            raise ValueError(f"max_new_tokens={new} must be >= 1.")
+        eos = eos_token if eos_token is not None else (
+            int(self.eos_token) if int(self.eos_token) >= 0 else None
+        )
+        stream = DecodeStream(self, prompt, new, self._deadline_at(deadline_ms), eos)
+        with self._lock:
+            if self.shed_above > 0 and self._queue and len(self._queue) + 1 > self.shed_above:
+                if self._metrics is not None:
+                    self._metrics.record_rejected()
+                raise RejectedError(
+                    f"decode queue at {len(self._queue)} requests; admitting one "
+                    f"more would exceed shed_above={self.shed_above} — request "
+                    "shed (service overloaded, retry with backoff)."
+                )
+            backpressure = len(self._queue) + 1 > self.max_queue
+            if not backpressure:
+                self._queue.append(stream)
+        if backpressure:
+            if self.synchronous:
+                self.drain()
+                with self._lock:
+                    self._queue.append(stream)
+            else:
+                while True:
+                    with self._lock:
+                        if len(self._queue) + 1 <= self.max_queue:
+                            self._queue.append(stream)
+                            break
+                    if self._stop.is_set():
+                        raise RuntimeError(
+                            "DecodeScheduler closed while submit was blocked on "
+                            "backpressure."
+                        )
+                    with self._cv:
+                        self._cv.wait(0.01)
+        if not self.synchronous:
+            self._ensure_worker()
+            with self._cv:
+                self._cv.notify_all()
+        return stream
+
+    def generate(self, prompt: Any, **kwargs) -> np.ndarray:
+        """Submit and block for the whole generation."""
+        return self.submit(prompt, **kwargs).result()
+
+    # -- the scheduling loop ---------------------------------------------
+
+    def _has_work(self) -> bool:
+        with self._lock:
+            return bool(self._queue) or any(s is not None for s in self._slot_stream)
+
+    def _free_slot(self, slot: int) -> None:
+        self._slot_stream[slot] = None
+        self._engine.release_slot(slot)
+
+    def _finish_or_continue(self, slot: int, token: int) -> None:
+        """Deliver ``token`` to the slot's stream; retire the slot when
+        the stream is complete. Caller holds the lock."""
+        stream = self._slot_stream[slot]
+        now = time.perf_counter()
+        last = float(self._slot_last_emit[slot])
+        if last > 0.0 and self._metrics is not None:
+            self._metrics.record_itl((now - last) * 1e3)
+        self._slot_last_emit[slot] = now
+        stream._deliver(token)
+        reason = None
+        if stream._eos is not None and token == stream._eos:
+            reason = "eos"
+        elif len(stream._tokens) >= stream._max_new:
+            reason = "length"
+        elif self._slot_lengths[slot] + 1 >= self._engine.token_limit:
+            # Cached lengths + the token just delivered total token_limit:
+            # feeding it back would write past the capacity or the table.
+            reason = "capacity"
+        if reason is not None:
+            stream._finish(reason)
+            self._free_slot(slot)
+
+    def _expire_queued(self) -> None:
+        now = time.perf_counter()
+        if not any(s.expired(now) for s in self._queue):
+            return
+        kept = deque()
+        for stream in self._queue:
+            if stream.expired(now):
+                if stream._expire() and self._metrics is not None:
+                    self._metrics.record_deadline_expired()
+            else:
+                kept.append(stream)
+        object.__setattr__(self, "_queue", kept)
+
+    def _expire_active(self) -> None:
+        now = time.perf_counter()
+        for slot, stream in enumerate(self._slot_stream):
+            if stream is not None and stream.expired(now):
+                if stream._expire() and self._metrics is not None:
+                    self._metrics.record_deadline_expired()
+                self._free_slot(slot)
+
+    def _admit(self) -> None:
+        """Refill free slots from the queue head, one prefill dispatch per
+        admitted group. Caller holds ``_step_lock``; the prefill runs
+        outside ``_lock`` (admitted streams are reserved into the slot
+        array first, so ``close()`` and a crash see them)."""
+        engine = self._engine
+        while True:
+            with self._lock:
+                if not self._queue:
+                    return
+                free = [i for i, s in enumerate(self._slot_stream) if s is None]
+                if not free:
+                    return
+                group: List[DecodeStream] = []
+                slots: List[int] = []
+                cap = min(len(free), max(engine._prefill_buckets))
+                while self._queue and len(group) < cap:
+                    stream = self._queue.popleft()
+                    if stream.expired():
+                        if stream._expire() and self._metrics is not None:
+                            self._metrics.record_deadline_expired()
+                        continue
+                    group.append(stream)
+                    slots.append(free[len(group) - 1])
+                if not group:
+                    continue
+                for stream, slot in zip(group, slots):
+                    self._slot_stream[slot] = stream
+                    self._slot_lengths[slot] = int(stream.prompt.shape[0])
+                    self._slot_last_emit[slot] = 0.0
+                    stream._slot = slot
+                # Page allocation (the slot layout's plans are trivial). A
+                # stream the pool cannot hold goes back to the queue head
+                # while other streams can free pages, else it is shed.
+                admitted, admitted_slots, overflow = [], [], []
+                for stream, slot in zip(group, slots):
+                    if engine.admit_slot(slot, stream.prompt) is None:
+                        overflow.append((stream, slot))
+                    else:
+                        admitted.append(stream)
+                        admitted_slots.append(slot)
+                overflow_slots = {slot for _, slot in overflow}
+                others_active = bool(admitted) or any(
+                    s is not None and i not in overflow_slots
+                    for i, s in enumerate(self._slot_stream)
+                )
+                for stream, slot in reversed(overflow):
+                    self._slot_stream[slot] = None
+                    if others_active:
+                        self._queue.appendleft(stream)
+                    else:
+                        if self._metrics is not None:
+                            self._metrics.record_rejected()
+                        stream._fail(RejectedError(
+                            "KV page pool exhausted with no active streams to "
+                            "wait for: the prompt needs more pages than "
+                            "pool_pages can ever free — raise engine.pool_pages "
+                            "or shorten the prompt."
+                        ))
+            if not admitted:
+                if overflow:
+                    return
+                continue
+            t0 = time.perf_counter()
+            first = engine.prefill([s.prompt for s in admitted], admitted_slots)
+            dt_ms = (time.perf_counter() - t0) * 1e3
+            with self._lock:
+                now = time.perf_counter()
+                delivered = 0
+                for stream, slot, token in zip(admitted, admitted_slots, first):
+                    if self._slot_stream[slot] is not stream:
+                        continue  # failed by close()/crash mid-dispatch
+                    stream.ttft_ms = (now - stream._t_submit) * 1e3
+                    if self._metrics is not None:
+                        self._metrics.record_ttft(stream.ttft_ms)
+                    self._slot_tokens[slot] = int(token)
+                    self._finish_or_continue(slot, int(token))
+                    delivered += 1
+                if self._metrics is not None:
+                    self._metrics.record_prefill(dt_ms, delivered)
+                    self._metrics.record_first_tokens(delivered)
+            if overflow:
+                return
+
+    def _ensure_active_rows(self) -> None:
+        """Every active slot must hold pages for its next row before the
+        decode step writes it; a slot the pool cannot grow fails its
+        stream with ``RejectedError``. Caller holds ``_lock``."""
+        for slot, stream in enumerate(self._slot_stream):
+            if stream is None:
+                continue
+            if self._engine.ensure_rows(slot, int(self._slot_lengths[slot]) + 1):
+                continue
+            if self._metrics is not None:
+                self._metrics.record_rejected()
+            stream._fail(RejectedError(
+                "KV page pool exhausted mid-generation: no free page for this "
+                "stream's next token (partial output in tokens_so_far; raise "
+                "engine.pool_pages or lower concurrency and resubmit)."
+            ))
+            self._free_slot(slot)
+
+    def _decode(self) -> None:
+        """One decode dispatch over the whole slot array; deliver each
+        active slot's token. The dispatch runs outside ``_lock`` over a
+        snapshot of the slot arrays."""
+        engine = self._engine
+        with self._lock:
+            self._ensure_active_rows()
+            snapshot = list(self._slot_stream)
+            active = [i for i, s in enumerate(snapshot) if s is not None]
+            if not active:
+                return
+            tokens = self._slot_tokens.astype(np.int32)
+            lengths = self._slot_lengths.astype(np.int32)
+        t0 = time.perf_counter()
+        nxt = engine.decode(tokens, lengths)
+        dt_ms = (time.perf_counter() - t0) * 1e3
+        with self._lock:
+            delivered = 0
+            for slot in active:
+                if self._slot_stream[slot] is not snapshot[slot]:
+                    continue  # failed by close()/crash mid-dispatch
+                self._slot_lengths[slot] += 1
+                token = int(nxt[slot])
+                self._slot_tokens[slot] = token
+                self._finish_or_continue(slot, token)
+                delivered += 1
+            if self._metrics is not None:
+                self._metrics.record_decode_step(dt_ms, delivered)
+
+    def _update_occupancy(self) -> None:
+        if self._metrics is None:
+            return
+        active_lengths = [int(self._slot_lengths[i])
+                          for i, s in enumerate(self._slot_stream) if s is not None]
+        self._metrics.record_occupancy(len(active_lengths), int(self._engine.slots),
+                                       len(self._queue),
+                                       self._engine.kv_pages_in_use(active_lengths))
+        pool = self._engine.page_pool
+        if pool is not None:
+            self._metrics.record_pool(pool.free_pages, pool.prefix_hit_rate)
+
+    def _step_once(self) -> bool:
+        """One iteration: deadline sweeps, admit (prefill), decode.
+        Returns whether work remains."""
+        with self._step_lock:
+            with self._lock:
+                self._expire_queued()
+                self._expire_active()
+            self._admit()
+            self._decode()
+            with self._lock:
+                self._update_occupancy()
+        with self._cv:
+            self._cv.notify_all()
+        return self._has_work()
+
+    def _pump(self) -> bool:
+        """``_step_once`` with the crash contract: any failure of the loop
+        fails every queued and in-flight stream, then re-raises."""
+        try:
+            return self._step_once()
+        except BaseException as e:
+            self._on_crash(e)
+            raise
+
+    def _on_crash(self, error: BaseException) -> None:
+        with self._lock:
+            streams = [s for s in self._slot_stream if s is not None] + list(self._queue)
+            self._queue.clear()
+            for i in range(len(self._slot_stream)):
+                self._slot_stream[i] = None
+                self._engine.release_slot(i)
+            object.__setattr__(self, "_worker", None)
+            if self._metrics is not None:
+                self._metrics.record_worker_restart()
+            wrapped = WorkerCrashedError(
+                f"DecodeScheduler crashed ({error!r}); this stream was failed "
+                "cleanly (partial tokens in tokens_so_far) — resubmit to run on "
+                "the restarted scheduler."
+            )
+            wrapped.__cause__ = error
+            for stream in streams:
+                stream._fail(wrapped)
+            self._update_occupancy()
+
+    # -- driving ---------------------------------------------------------
+
+    def drain(self) -> None:
+        """Serve everything: run the loop until the queue and the slot
+        array are empty (sync), or wait for the worker to (async)."""
+        self._require_bound()
+        if self.synchronous:
+            while self._has_work():
+                self._pump()
+            return
+        self._ensure_worker()
+        with self._cv:
+            self._cv.notify_all()
+        while self._has_work() and not self._stop.is_set():
+            worker = getattr(self, "_worker", None)
+            if worker is None or not worker.is_alive():
+                break  # the crash already failed the streams
+            with self._cv:
+                self._cv.wait(0.01)
+
+    def _expire_stream(self, stream: DecodeStream) -> None:
+        if stream._expire() and self._metrics is not None:
+            self._metrics.record_deadline_expired()
+
+    def _drive(self, stream: DecodeStream, timeout: Optional[float]) -> None:
+        """Block (or drive) until ``stream`` completes, never past its
+        deadline."""
+        if self.synchronous:
+            while not stream._done and self._has_work():
+                self._pump()
+            if not stream._done and stream.expired():
+                self._expire_stream(stream)
+            return
+        self._ensure_worker()
+        with self._cv:
+            self._cv.notify_all()
+        deadline = stream._deadline_at
+        t_end = time.perf_counter() + timeout if timeout is not None else None
+        with stream._cond:
+            while not stream._done:
+                now = time.perf_counter()
+                if deadline is not None and now >= deadline:
+                    break
+                if t_end is not None and now >= t_end:
+                    break
+                waits = [0.05] + [t - now for t in (deadline, t_end) if t is not None]
+                stream._cond.wait(max(0.0, min(waits)))
+        if not stream._done:
+            if stream.expired():
+                self._expire_stream(stream)
+            else:
+                raise TimeoutError(
+                    f"generation not complete within {timeout}s (worker stalled, "
+                    "or close() was called)."
+                )
+
+    def _advance(self, stream: DecodeStream) -> None:
+        """One increment of progress for an iterating consumer."""
+        if self.synchronous:
+            if not stream._done and self._has_work():
+                self._pump()
+            elif not stream._done and stream.expired():
+                self._expire_stream(stream)
+            return
+        with stream._cond:
+            if not stream._done:
+                stream._cond.wait(0.05)
+        if not stream._done and stream.expired():
+            self._expire_stream(stream)
+
+    def _ensure_worker(self) -> None:
+        with self._lock:
+            worker = getattr(self, "_worker", None)
+            if worker is None or not worker.is_alive():
+                thread = threading.Thread(target=self._worker_loop,
+                                          name="zk-decode-scheduler", daemon=True)
+                object.__setattr__(self, "_worker", thread)
+                thread.start()
+
+    def _worker_loop(self) -> None:
+        while not self._stop.is_set():
+            if not self._has_work():
+                with self._cv:
+                    self._cv.wait(0.05)
+                continue
+            try:
+                self._pump()
+            except BaseException:
+                return  # streams already failed; the next submit restarts
+
+    def close(self, drain: bool = False) -> None:
+        """Stop the scheduler. ``drain=True`` serves everything first;
+        otherwise pending streams fail, so no ``result()`` blocks
+        forever. Safe to call repeatedly, or unbound."""
+        if getattr(self, "_engine", None) is None:
+            return
+        if drain:
+            try:
+                self.drain()
+            except Exception:
+                pass  # per-stream errors are already delivered
+        self._stop.set()
+        worker = getattr(self, "_worker", None)
+        if worker is not None:
+            with self._cv:
+                self._cv.notify_all()
+            worker.join(timeout=5)
+            object.__setattr__(self, "_worker", None)
+        err = RuntimeError("DecodeScheduler closed with streams pending.")
+        with self._lock:
+            for stream in list(self._queue):
+                stream._fail(err)
+            self._queue.clear()
+            for i, stream in enumerate(self._slot_stream):
+                if stream is not None:
+                    stream._fail(err)
+                    self._free_slot(i)
+        self._stop.clear()
+
+    # -- introspection ---------------------------------------------------
+
+    @property
+    def queue_depth(self) -> int:
+        with self._lock:
+            return len(self._queue)
+
+    @property
+    def active_slots(self) -> int:
+        with self._lock:
+            return sum(1 for s in self._slot_stream if s is not None)
+
+    def status(self) -> dict:
+        """The numbers an operator checks before trusting the stream
+        metrics."""
+        engine = self._engine
+        with self._lock:
+            active_lengths = [int(self._slot_lengths[i])
+                              for i, s in enumerate(self._slot_stream) if s is not None]
+            out = {
+                "slots": int(engine.slots),
+                "active_slots": len(active_lengths),
+                "queue_depth": len(self._queue),
+                "kv_pages_in_use": engine.kv_pages_in_use(active_lengths),
+                "kv_capacity_tokens": engine.capacity,
+                "kv_cache_bytes": int(engine.kv_cache_nbytes),
+                "decode_attention": engine.decode_attention_flavor,
+                "kv_layout": str(engine.kv_layout),
+                "decode_mbu": round(engine.decode_mbu, 4),
+            }
+            if engine.paged:
+                out["kv_pool"] = engine.pool_status()
+            return out

@@ -1,0 +1,133 @@
+"""The LM decode service config: model -> warmed decode engine ->
+continuous-batching scheduler.
+
+The port of ``zookeeper_tpu/serving/decode/service.py``'s
+``LMServingConfig``, a ``@task`` driven by the port's ``key=value``
+CLI::
+
+    python -m zookeeper_tpu_torch.serving.decode LMServingConfig \\
+        model.num_layers=4 model.d_model=512 model.num_heads=8 \\
+        model.compute_dtype=bfloat16 seq_len=8192 vocab_size=1024 \\
+        engine.seq_buckets='(512,2048)' max_prompt=2048 new_tokens=64
+
+``build_service()`` builds the model with seeded random weights (loading
+checkpoints waits, ROADMAP.md), binds and warms the engine on ``device``
+and binds the scheduler. ``run()`` serves the JAX ``run()``'s seeded
+prompt stream and prints one JSON line: tokens/s, TTFT and inter-token
+percentiles, the resolved decode attention, the KV layout, the pool fill
+and ``decode_mbu`` (see ``DecodeEngine.decode_mbu``: counted from the
+shapes, where the JAX figure comes from XLA's cost analysis).
+"""
+
+import json
+import time
+from typing import Any, Dict, List
+
+import numpy as np
+import torch
+
+from zookeeper_tpu_torch.core import ComponentField, Field, pretty_print, task
+from zookeeper_tpu_torch.models.base import Model
+from zookeeper_tpu_torch.models.transformer import TransformerLM
+from zookeeper_tpu_torch.serving.decode.engine import DecodeEngine
+from zookeeper_tpu_torch.serving.decode.metrics import DecodeMetrics
+from zookeeper_tpu_torch.serving.decode.scheduler import DecodeScheduler
+
+__all__ = ["LMServingConfig"]
+
+
+@task
+class LMServingConfig:
+    """Stream tokens for a seeded synthetic prompt stream through the
+    decode engine and scheduler, and report tokens/s and latencies."""
+
+    model: Model = ComponentField(TransformerLM)
+    engine: DecodeEngine = ComponentField(DecodeEngine)
+    scheduler: DecodeScheduler = ComponentField(DecodeScheduler)
+    metrics: DecodeMetrics = ComponentField(DecodeMetrics)
+
+    #: The positional capacity the model is built with, and the vocab.
+    seq_len: int = Field(128)
+    vocab_size: int = Field(256)
+    #: Seeds the weights and the prompt stream.
+    seed: int = Field(0)
+    #: Run every prefill bucket and one decode step before serving.
+    warmup: bool = Field(True)
+    #: ``run()``'s stream: request count, longest prompt, tokens each.
+    requests: int = Field(32)
+    max_prompt: int = Field(12)
+    new_tokens: int = Field(16)
+    verbose: bool = Field(True)
+    #: Where the model runs: "cuda" (raises without a card) or "cpu".
+    device: str = Field("cuda")
+
+    def build_service(self):
+        """Build the model with weights from ``seed``, bind and warm the
+        engine, bind the scheduler. Returns ``(engine, scheduler)``."""
+        if self.requests < 0 or self.max_prompt < 1 or self.new_tokens < 1:
+            raise ValueError(
+                f"requests={self.requests} must be >= 0, max_prompt="
+                f"{self.max_prompt} and new_tokens={self.new_tokens} >= 1."
+            )
+        module = self.model.build((self.seq_len,), self.vocab_size)
+        self.model.initialize(module, seed=self.seed)
+        self.engine.bind(module, device=self.device)
+        if self.warmup:
+            self.engine.warmup()
+        self.scheduler.bind(self.engine, metrics=self.metrics)
+        return self.engine, self.scheduler
+
+    def prompts(self, max_prompt: int) -> List[np.ndarray]:
+        """The seeded stream ``run()`` serves (the JAX ``run()``'s):
+        ``requests`` prompts of 1..``max_prompt`` tokens in [1, vocab)."""
+        rng = np.random.default_rng(self.seed)
+        out = []
+        for _ in range(self.requests):
+            n = int(rng.integers(1, max_prompt + 1))
+            out.append(rng.integers(1, self.vocab_size, size=n).astype(np.int32))
+        return out
+
+    def run(self) -> Dict[str, Any]:
+        """Serve the stream, check every stream's output, print and return
+        one JSON-able result. The generated tokens stay in
+        ``self.outputs``."""
+        if self.verbose:
+            print(pretty_print(self), flush=True)
+        engine, scheduler = self.build_service()
+        try:
+            prompts = self.prompts(min(self.max_prompt, engine.max_prompt))
+            t0 = time.perf_counter()
+            streams = [scheduler.submit(p, max_new_tokens=self.new_tokens) for p in prompts]
+            scheduler.drain()
+            dt = time.perf_counter() - t0
+            outputs = [s.result() for s in streams]
+        finally:
+            scheduler.close()
+        for out in outputs:
+            if out.ndim != 1 or not 1 <= out.shape[0] <= self.new_tokens or (
+                out.size and (out.min() < 0 or out.max() >= self.vocab_size)
+            ):
+                raise RuntimeError(f"bad stream output: {out!r}")
+        object.__setattr__(self, "outputs", outputs)
+        tokens = sum(int(o.shape[0]) for o in outputs)
+        device = engine.device
+        result = {
+            **{k: round(float(v), 4) for k, v in self.metrics.snapshot().items()},
+            "model": type(self.model).__name__,
+            "device": (torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"),
+            "slots": int(engine.slots),
+            "seq_buckets": [int(s) for s in engine.seq_buckets],
+            "kv_capacity": engine.capacity,
+            "decode_attention": engine.decode_attention_flavor,
+            "decode_mbu": round(engine.decode_mbu, 4),
+            "kv_layout": str(engine.kv_layout),
+            **({"kv_pool_fill": round(engine.page_pool.used_pages
+                                      / engine.page_pool.num_pages, 4)}
+               if engine.paged else {}),
+            "requests": self.requests,
+            "generated_tokens": tokens,
+            "tokens_per_sec": round(tokens / dt, 1) if dt > 0 else 0.0,
+        }
+        if self.verbose:
+            print(json.dumps(result), flush=True)
+        return result
