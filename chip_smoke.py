@@ -72,7 +72,29 @@ CUDA card and ``nvcc``. In order:
    to each other and to ``greedy_decode``. In bf16 the agreeing tokens
    are counted, and a disagreement is allowed only where the plain
    path's top-two logit gap is below 0.05.
-12. One JSON line of the kernels, then the result line.
+12. LM training kernels: K9 with lse (``flash_forward_lse``), K10
+   ``flash_backward_dq`` and K11 ``flash_backward_dkv`` at the training
+   step's [4, 8192, 8, 64] bf16 causal, at [1, 2048, 8, 64] bf16 and fp32,
+   causal and full, at s=999, and at head_dims 128 and 32, each against
+   its plain version: K9's out equal bit for bit to the no-lse K9's, lse
+   within 1e-5, gradients per element (fp32: 5e-5 + 5e-5|want|, the JAX
+   package's flash-gradient tolerance; bf16: 2^-6|want| + 2^-7
+   max|want| per element and 2^-7 of |want| in norm, see ``_grad_use``);
+   the fp32 gradients of ``flash_attention`` under autograd
+   against the dense oracle's; each timed beside its plain version, its
+   bound and SDPA (K10 and K11 together beside SDPA's backward).
+13. LM training: ``TrainLM`` (the long-context line of
+   examples/lm_experiment.py: 4 layers, d_model 512, 8 heads of 64,
+   seq_len 8192, batch 4, vocab 1024, bf16) through ``run()`` for 8
+   steps and one validation batch. Each step must launch K9-lse, K10 and
+   K11 4 times and no other kernel, the eval only the no-lse K9; the
+   loss must be finite and fall from the first step to the last. Prints
+   the step's device and host time, tokens/s, busy share, peak memory
+   and profile. Before it, one fp32 step (2 layers, [2, 2048]) through
+   the kernels must match the same step through their plain versions
+   (loss within 1e-5 relative, each gradient within 1e-4 of its largest
+   magnitude).
+14. One JSON line of the kernels, then the result line.
 """
 
 import contextlib
@@ -112,6 +134,11 @@ OPS_RATE = {
     "flash_forward": FP32_OPS_PER_S,
     "paged_decode_attention": FP32_OPS_PER_S,
     "pool_paged_decode_attention": FP32_OPS_PER_S,
+    # The flash backward, like the forward: bf16 calls at the bf16
+    # tensor-core rate, fp32 calls at the fp32 rate.
+    "flash_forward_lse": FP32_OPS_PER_S,
+    "flash_backward_dq": FP32_OPS_PER_S,
+    "flash_backward_dkv": FP32_OPS_PER_S,
 }
 
 #: Each kernel's source and the TPU kernel it replaces.
@@ -125,8 +152,12 @@ KERNELS = {
     "flash_forward": ("flash_forward.cu", "zookeeper_tpu/ops/attention.py:1163"),
     "paged_decode_attention": ("decode_attention.cu", "zookeeper_tpu/ops/attention.py:222"),
     "pool_paged_decode_attention": ("decode_attention.cu", "zookeeper_tpu/ops/attention.py:503"),
+    "flash_forward_lse": ("flash_forward.cu", "zookeeper_tpu/ops/attention.py:1163"),
+    "flash_backward_dq": ("flash_backward.cu", "zookeeper_tpu/ops/attention.py:1474"),
+    "flash_backward_dkv": ("flash_backward.cu", "zookeeper_tpu/ops/attention.py:1492"),
 }
 LM_KERNELS = ("flash_forward", "paged_decode_attention", "pool_paged_decode_attention")
+LM_TRAIN_KERNELS = ("flash_forward_lse", "flash_backward_dq", "flash_backward_dkv")
 RESID_KERNELS = ("pack_resid", "unpack_resid_pm1", "mask_mul_resid")
 
 #: QuickNet-Large at batch 8, 224x224: per section (binary convs, spatial
@@ -1012,6 +1043,8 @@ def lm_serving_phase(torch, A, smi):
                     else LM_LAYERS * decodes if name == kernel else 0)
             check(got[name] == want, f"lm {label}: {name} launched {got[name]} times, want {want}")
             launches[name] += got[name]
+        check(all(got[name] == 0 for name in LM_TRAIN_KERNELS),
+              f"lm {label}: serving launched training kernels {got}")
         check(result["generated_tokens"] == LM_CONFIG["requests"] * LM_CONFIG["new_tokens"],
               f"lm {label}: {result['generated_tokens']} tokens generated")
         outputs = np.concatenate(cfg.outputs)
@@ -1218,6 +1251,358 @@ def _plain_gap(torch, A, module, prompt, plain_tokens, t):
     return float(top2.values[0] - top2.values[1])
 
 
+#: The LM training slice: the long-context line of examples/lm_experiment.py
+#: (TrainLM seq_len=8192 model.d_model=512 model.num_heads=8 batch_size=4
+#: model.compute_dtype=bfloat16 loader.dataset.vocab_size=1024), 4 layers.
+#: Only the dataset is cut: 8 steps of batch 4 and one validation batch.
+LM_TRAIN_CONFIG = {
+    "seq_len": 8192, "batch_size": 4,
+    "model.num_layers": 4, "model.d_model": 512, "model.num_heads": 8, "model.mlp_ratio": 4,
+    "model.compute_dtype": "bfloat16", "loader.dataset.vocab_size": 1024,
+    "loader.dataset.num_train_examples": 32, "loader.dataset.num_validation_examples": 4,
+    "epochs": 1, "steps_per_epoch": 8, "seed": 0, "device": "cuda", "verbose": False,
+}
+LM_TRAIN_STEPS = 8
+#: The attention shape of every layer of a training step.
+LM_TRAIN_SHAPE = (4, 8192, 8, 64)
+#: K9 with lse, K10 and K11 checks: (b, s, h, d, dtype name, causal); the
+#: main path's shape first, then the prefill-sized shapes in both dtypes
+#: and both masks, an awkward length and the other head_dims.
+LM_TRAIN_CHECKS = (
+    (*LM_TRAIN_SHAPE, "bfloat16", True),
+    (1, 2048, 8, 64, "bfloat16", True), (1, 2048, 8, 64, "bfloat16", False),
+    (1, 2048, 8, 64, "float32", True), (1, 2048, 8, 64, "float32", False),
+    (1, 999, 8, 64, "bfloat16", True), (1, 999, 8, 64, "float32", True),
+    (1, 1024, 4, 128, "bfloat16", True), (2, 300, 3, 32, "float32", False),
+)
+
+
+def _flash_work(name, b, s, h, d, size, causal):
+    """(bytes, ops) of one flash call: each input read once and each
+    output written once; 4d (K9: S and P V), 6d (K10: S, dO V^T, dS K) or
+    8d (K11: S, dO V^T, P^T dO, dS^T Q) flops per attended pair."""
+    pairs = b * h * (s * (s + 1) // 2 if causal else s * s)
+    x, stat = b * s * h * d * size, b * h * s * 4  # one [b, s, h, d]; lse or D
+    if name == "flash_forward_lse":
+        return 4 * x + stat, 4 * d * pairs
+    if name == "flash_backward_dq":
+        return 5 * x + 2 * stat, 6 * d * pairs
+    return 6 * x + 2 * stat, 8 * d * pairs
+
+
+def _grad_use(torch, got, want, dtype) -> float:
+    """How much of the gradient limit the worst element uses (ok when at
+    most 1). fp32: 5e-5 + 5e-5 |want| per element, the JAX package's
+    flash-gradient tolerance (fp32 sums in another order). bf16: kernel
+    and plain version round P and dS to bf16 at the same places, so they
+    differ by the fp32 sum order, the final bf16 rounding (up to 2^-7 of
+    the value) and, rarely, one P or dS that rounds to the other side
+    (moving the sum by one bf16 step, 2^-7, of that term, which may
+    dwarf a value that cancels to near 0). So each element within 2^-6
+    |want| + 2^-7 max|want|, and the whole within one bf16 step in norm:
+    |got - want|_2 <= 2^-7 |want|_2; the larger use of the two."""
+    g, w = got.float(), want.float()
+    if dtype == torch.float32:
+        return float(((g - w).abs() / (5e-5 + 5e-5 * w.abs())).max())
+    elem = ((g - w).abs() / (2.0**-6 * w.abs() + 2.0**-7 * w.abs().max())).max()
+    norm = torch.linalg.vector_norm(g - w) / (2.0**-7 * torch.linalg.vector_norm(w))
+    return float(torch.maximum(elem, norm))
+
+
+def _plain_flash_training(A):
+    """The training kernels' wrappers swapped for their plain versions."""
+    return mock.patch.multiple(
+        A,
+        flash_forward_lse=lambda q, k, v, causal, scale: A.flash_attention_plain(
+            q, k, v, causal=causal, scale=scale, want_lse=True),
+        flash_backward_dq=A.flash_backward_dq_plain,
+        flash_backward_dkv=A.flash_backward_dkv_plain,
+    )
+
+
+def lm_train_kernel_phase(torch, A):
+    """Check K9 with lse, K10 and K11 against their plain versions at the
+    shapes of ``LM_TRAIN_CHECKS`` (K9's out also against its no-lse out,
+    bit for bit), the autograd path against the dense oracle's gradients
+    in fp32, and time each kernel beside its plain version, its bound and
+    SDPA (K10 and K11 together beside SDPA's backward, read as forward +
+    backward minus forward). Returns ({(kernel, label): record},
+    {kernel: max abs err})."""
+    import torch.nn.functional as F
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(5)
+    records = {}
+    max_err = dict.fromkeys(LM_TRAIN_KERNELS, 0.0)
+
+    for b, s, h, d, dtype_name, causal in LM_TRAIN_CHECKS:
+        dtype = getattr(torch, dtype_name)
+        label = f"[{b}, {s}, {h}, {d}] {dtype_name} causal={causal}"
+        q, k, v, do = (torch.randn(b, s, h, d, generator=g, device=dev).to(dtype)
+                       for _ in range(4))
+        kw = {"causal": causal}
+        with deterministic(torch):
+            out0 = A.flash_attention(q, k, v, **kw)
+            out, lse = A.flash_forward_lse(q, k, v, **kw)
+            p_out, p_lse = A.flash_attention_plain(q, k, v, want_lse=True, **kw)
+            delta = A.flash_backward_delta(out, do)
+            ops = (q, k, v, do, lse, delta)
+            got = {"flash_backward_dq": (A.flash_backward_dq(*ops, **kw),),
+                   "flash_backward_dkv": A.flash_backward_dkv(*ops, **kw)}
+            want = {"flash_backward_dq": (A.flash_backward_dq_plain(*ops, **kw),),
+                    "flash_backward_dkv": A.flash_backward_dkv_plain(*ops, **kw)}
+            torch.cuda.synchronize()
+        check(_same_bits(torch, out, out0),
+              f"flash_forward_lse at {label}: out differs from the no-lse K9's")
+        notes = []
+        lse_err = _max_abs_err(torch, lse, p_lse)
+        # lse: an fp32 log of an fp32 sum on both sides (|lse| < 20 here).
+        check(lse_err <= 1e-5, f"flash_forward_lse at {label}: lse err {lse_err} > 1e-5")
+        out_err = _max_abs_err(torch, out, p_out)
+        if dtype == torch.float32:
+            ok, tol = out_err <= 2e-5, "2e-5"
+        else:
+            use = _bf16_flash_use(torch, out, p_out)
+            ok, tol = use <= 1 and out_err <= 3e-2, f"2^-6|want| + 2e-3 (used {use:.3g})"
+        check(ok, f"flash_forward_lse at {label}: out err {out_err} (tolerance {tol})")
+        max_err["flash_forward_lse"] = max(max_err["flash_forward_lse"], out_err, lse_err)
+        notes.append(f"K9-lse out err {out_err:.3g} (tol {tol}, equal to no-lse out), "
+                     f"lse err {lse_err:.3g} (tol 1e-5)")
+        for name in ("flash_backward_dq", "flash_backward_dkv"):
+            for which, a, w in zip(("dq",) if name == "flash_backward_dq" else ("dk", "dv"),
+                                   got[name], want[name]):
+                err, use = _max_abs_err(torch, a, w), _grad_use(torch, a, w, dtype)
+                check(use <= 1, f"{name} at {label}: {which} err {err}, limit used {use:.3g} > 1")
+                max_err[name] = max(max_err[name], err)
+                notes.append(f"{which} err {err:.3g} (limit used {use:.3g})")
+        del got, want, out0, p_out, p_lse
+
+        heavy = s >= 8192
+        reps, inner = (5, 3) if heavy else (11, 5)
+        kernels = {
+            "flash_forward_lse": lambda: A.flash_forward_lse(q, k, v, **kw),
+            "flash_backward_dq": lambda: A.flash_backward_dq(*ops, **kw),
+            "flash_backward_dkv": lambda: A.flash_backward_dkv(*ops, **kw),
+        }
+        plains = {
+            "flash_forward_lse": lambda: A.flash_attention_plain(q, k, v, want_lse=True, **kw),
+            "flash_backward_dq": lambda: A.flash_backward_dq_plain(*ops, **kw),
+            "flash_backward_dkv": lambda: A.flash_backward_dkv_plain(*ops, **kw),
+        }
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True) for x in (q, k, v))
+        dot = do.transpose(1, 2)
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
+
+        sdpa_fwd = time_ms(torch, sdpa, reps, inner)
+        sdpa_bwd = time_ms(torch, lambda: torch.autograd.grad(sdpa(), (qt, kt, vt), dot),
+                           reps, inner) - sdpa_fwd
+        rate = BF16_OPS_PER_S if dtype == torch.bfloat16 else FP32_OPS_PER_S
+        times = {}
+        for name in LM_TRAIN_KERNELS:
+            nbytes, n_ops = _flash_work(name, b, s, h, d, q.element_size(), causal)
+            b_ms, b_by = bound_ms(name, nbytes, n_ops, rate)
+            rec = {"ms": time_ms(torch, kernels[name], reps, inner),
+                   "plain_ms": time_ms(torch, plains[name], 3 if heavy else 5, 1 if heavy else 2),
+                   "library_ms": sdpa_fwd if name == "flash_forward_lse" else sdpa_bwd,
+                   "bound_ms": b_ms, "bound_by": b_by}
+            records[(name, label)] = rec
+            times[name] = rec
+            print(f"kernel {name} {label}: kernel {rec['ms']:.6f} ms, plain "
+                  f"{rec['plain_ms']:.6f} ms, bound {b_ms:.6f} ms by {b_by} ({nbytes} B, "
+                  f"{n_ops} ops)", flush=True)
+        bwd = times["flash_backward_dq"]["ms"] + times["flash_backward_dkv"]["ms"]
+        print(f"lm train kernels {label}: {'; '.join(notes)}; SDPA forward {sdpa_fwd:.6f} ms "
+              f"(K9-lse {times['flash_forward_lse']['ms']:.6f}), SDPA backward (fwd+bwd - fwd) "
+              f"{sdpa_bwd:.6f} ms (K10+K11 {bwd:.6f}, {bwd / sdpa_bwd:.1f}x)", flush=True)
+        del q, k, v, do, out, lse, delta, ops, qt, kt, vt, dot
+
+    # The autograd path in fp32 against the dense oracle's gradients.
+    b, s, h, d = 1, 2048, 8, 64
+    qkv = [torch.randn(b, s, h, d, generator=g, device=dev).requires_grad_(True)
+           for _ in range(3)]
+    do = torch.randn(b, s, h, d, generator=g, device=dev)
+    with deterministic(torch):
+        before = dict(A.LAUNCHES)
+        got = torch.autograd.grad(A.flash_attention(*qkv, causal=True), qkv, do)
+        launched = {name: A.LAUNCHES[name] - before[name] for name in A.LAUNCHES}
+        want = torch.autograd.grad(A.attention_reference(*qkv, causal=True), qkv, do)
+        torch.cuda.synchronize()
+    check(launched == {**dict.fromkeys(A.LAUNCHES, 0), **dict.fromkeys(LM_TRAIN_KERNELS, 1)},
+          f"flash_attention under autograd launched {launched}")
+    uses = [_grad_use(torch, a, w, torch.float32) for a, w in zip(got, want)]
+    check(max(uses) <= 1, f"flash gradients against the dense oracle: limit used {uses}")
+    print(f"lm train kernels: fp32 [{b}, {s}, {h}, {d}] causal gradients through "
+          f"flash_attention (one K9-lse, K10, K11 launch) against autograd of "
+          f"attention_reference: max err "
+          f"{[round(_max_abs_err(torch, a, w), 9) for a, w in zip(got, want)]}, "
+          f"limit 5e-5 + 5e-5|want| used {[round(u, 4) for u in uses]}", flush=True)
+    torch.cuda.empty_cache()
+    return records, max_err
+
+
+def lm_training_phase(torch, A, smi):
+    """TrainLM: one fp32 step at reduced depth and sequence through the
+    kernels against the same step through their plain versions; then the
+    full-width run() with its launches per step, its losses, the step's
+    time, busy share, peak memory and profile. Returns (launches over
+    run(), stats)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from zookeeper_tpu_torch.core import configure
+    from zookeeper_tpu_torch.training.lm import TrainLM
+    from zookeeper_tpu_torch.training.step import softmax_cross_entropy
+
+    dev = torch.device("cuda")
+
+    def experiment(**overrides):
+        exp = TrainLM()
+        configure(exp, {**LM_TRAIN_CONFIG, **overrides}, name="experiment")
+        return exp
+
+    # (1) fp32, 2 layers, seq 2048, batch 2: kernel step == plain step
+    # within the CPU tests' step tolerances (the loss within 1e-5
+    # relative, each gradient within 1e-4 of its tensor's largest
+    # magnitude): the attention sums run in another order.
+    exp = experiment(**{"model.num_layers": 2, "model.compute_dtype": "float32",
+                        "seq_len": 2048, "batch_size": 2})
+    state = exp.build_state(dev)
+    batch = next(iter(exp.loader.host_batches("train")))
+    tokens, target = (torch.from_numpy(batch[key]).to(dev) for key in ("input", "target"))
+    names, params = zip(*state.module.named_parameters())
+
+    def loss_and_grads():
+        loss = softmax_cross_entropy(state.module.train()(tokens), target)
+        return loss.detach(), torch.autograd.grad(loss, params)
+
+    with deterministic(torch):
+        A.reset_launches()
+        loss_k, grads_k = loss_and_grads()
+        launched = dict(A.LAUNCHES)
+        with _plain_flash_training(A):
+            loss_p, grads_p = loss_and_grads()
+        torch.cuda.synchronize()
+    check(launched == {**dict.fromkeys(A.LAUNCHES, 0), **dict.fromkeys(LM_TRAIN_KERNELS, 2)},
+          f"lm training fp32 check: the kernel step launched {launched}")
+    check(A.LAUNCHES == launched, f"lm training fp32 check: the plain step launched kernels "
+                                  f"({launched} -> {A.LAUNCHES})")
+    loss_rel = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
+    worst = max((float((a - w).abs().max() / w.abs().max().clamp_min(1e-30)), n)
+                for n, a, w in zip(names, grads_k, grads_p))
+    check(loss_rel <= 1e-5 and worst[0] <= 1e-4,
+          f"lm training fp32 check: loss {loss_k.item()} vs {loss_p.item()}, worst gradient "
+          f"{worst[1]} at {worst[0]} of its largest magnitude")
+    print(f"lm training: fp32 step (2 layers, [2, 2048], vocab 1024) through the kernels "
+          f"against their plain versions: loss {loss_k.item():.7f} vs {loss_p.item():.7f} "
+          f"(rel {loss_rel:.3g}, tol 1e-5), {len(names)} gradients, worst {worst[1]} at "
+          f"{worst[0]:.3g} of its largest magnitude (tol 1e-4)", flush=True)
+    del exp, state, grads_k, grads_p
+    torch.cuda.empty_cache()
+
+    # (2) run() at full width; each train step's launches and loss are
+    # read around the step, the eval's launches are what is left.
+    exp = experiment()
+    losses, per_step = [], []
+    real_step_fn = TrainLM._train_step_fn
+
+    def step_fn(self):
+        step = real_step_fn(self)
+
+        def counted(st, b):
+            before = dict(A.LAUNCHES)
+            st, metrics = step(st, b)
+            per_step.append({name: A.LAUNCHES[name] - before[name] for name in A.LAUNCHES})
+            losses.append(metrics["loss"])
+            return st, metrics
+
+        return counted
+
+    A.reset_launches()
+    t0 = time.perf_counter()
+    with mock.patch.object(TrainLM, "_train_step_fn", step_fn):
+        history = exp.run()
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = dict(A.LAUNCHES)
+    want_step = {**dict.fromkeys(A.LAUNCHES, 0), **dict.fromkeys(LM_TRAIN_KERNELS, LM_LAYERS)}
+    check(len(per_step) == LM_TRAIN_STEPS and all(p == want_step for p in per_step),
+          f"lm training run(): launches per step {per_step}, want {want_step} x {LM_TRAIN_STEPS}")
+    eval_batches = (LM_TRAIN_CONFIG["loader.dataset.num_validation_examples"]
+                    // LM_TRAIN_CONFIG["batch_size"])
+    want_run = {**dict.fromkeys(A.LAUNCHES, 0),
+                **dict.fromkeys(LM_TRAIN_KERNELS, LM_LAYERS * LM_TRAIN_STEPS),
+                "flash_forward": LM_LAYERS * eval_batches}
+    check(launches == want_run, f"lm training run(): launches {launches}, want {want_run}")
+    losses = [float(x) for x in losses]
+    check(all(math.isfinite(x) for x in losses), f"lm training run(): losses {losses}")
+    check(losses[-1] < losses[0], f"lm training run(): the loss did not fall: {losses}")
+    val = history["validation"][0]
+    check(math.isfinite(val["loss"]), f"lm training run(): validation {val}")
+    tokens_per_step = LM_TRAIN_CONFIG["batch_size"] * LM_TRAIN_CONFIG["seq_len"]
+    run_tokens_per_s = history["train"][0]["examples_per_sec"] * LM_TRAIN_CONFIG["seq_len"]
+    print(f"lm training run(): {LM_TRAIN_STEPS} steps, launches {launches} (per step "
+          f"{per_step[0]}; the eval's {eval_batches} batch ran {launches['flash_forward']} "
+          f"no-lse K9), losses {[round(x, 5) for x in losses]}, validation {val}, "
+          f"{run_tokens_per_s:.1f} tokens/s through run() (first epoch, first step included), "
+          f"run {run_s:.1f} s with build and eval", flush=True)
+
+    # (3) the step in the default settings on a device-resident batch:
+    # CUDA events and the host clock over three steps after a warm step.
+    state, step = exp.final_state, exp._train_step_fn()
+    batches = exp.loader.batches("train", device=dev, epoch=1, max_batches=1)
+    batch = next(batches)
+    batches.close()
+    step(state, batch)
+    torch.cuda.synchronize()
+    dev_ms, wall_ms = [], []
+    for _ in range(3):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t1 = time.perf_counter()
+        start.record()
+        step(state, batch)
+        end.record()
+        end.synchronize()
+        wall_ms.append((time.perf_counter() - t1) * 1e3)
+        dev_ms.append(start.elapsed_time(end))
+    step_ms, step_wall_ms = statistics.median(dev_ms), statistics.median(wall_ms)
+
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    step(state, batch)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step(state, batch)
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    attr = ("self_device_time_total" if hasattr(events[0], "self_device_time_total")
+            else "self_cuda_time_total")
+    kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(getattr(e, attr) for e in kernels) / 1e3
+    acts = sum(e.count for e in kernels)
+    print(f"lm training profile: {acts} device activities, {busy_ms:.3f} ms busy, "
+          f"{100 * busy_ms / step_ms:.1f}% of the {step_ms:.3f} ms step; top items:", flush=True)
+    for e in sorted(kernels, key=lambda e: getattr(e, attr), reverse=True)[:12]:
+        t = getattr(e, attr) / 1e3
+        print(f"  {t:9.3f} ms {100 * t / busy_ms:5.1f}% x{e.count:<5d} {e.key[:100]}", flush=True)
+    gib = 2.0**30
+    stats = {
+        "step_ms": step_ms, "step_wall_ms": step_wall_ms, "step_ms_all": dev_ms,
+        "tokens_per_s_step": tokens_per_step / (step_ms / 1e3),
+        "tokens_per_s_run": run_tokens_per_s, "device_busy_ms": busy_ms,
+        "device_busy_share": busy_ms / step_ms, "device_activities_per_step": acts,
+        "peak_gib": peak / gib, "step_gib": (peak - base) / gib,
+        "loss_first": losses[0], "loss_last": losses[-1],
+    }
+    print(f"lm training on {smi}: {json.dumps(stats)}", flush=True)
+    del exp, state, batch
+    torch.cuda.empty_cache()
+    return launches, stats
+
+
 def main() -> None:
     if not os.path.isdir(os.path.join(ROOT, "zookeeper_tpu_torch", "csrc")):
         fail("run from a checkout: zookeeper_tpu_torch/ is not beside this script")
@@ -1265,6 +1650,8 @@ def main() -> None:
     launches_lm, _, lm_main = lm_serving_phase(torch, A, smi)
     parity = lm_parity_phase(torch, A)
     print(f"lm parity: {json.dumps(parity)}", flush=True)
+    lm_train_records, lm_train_err = lm_train_kernel_phase(torch, A)
+    launches_lt, _ = lm_training_phase(torch, A, smi)
 
     launches = {**{n: launches_a[n] for n in ("pack_rows", "conv_gemm_popcount")},
                 "packed_weight_matmul": launches_b["packed_weight_matmul"], **launches_t}
@@ -1313,6 +1700,25 @@ def main() -> None:
             "max_abs_err": lm_err[name], "ms": t["ms"], "kernel_ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"],
+        })
+    # LM training kernels, per training step: 4 launches each (one per
+    # layer) at the full-width shape.
+    label = "[{}, {}, {}, {}] bfloat16 causal=True".format(*LM_TRAIN_SHAPE)
+    library_of = {
+        "flash_forward_lse": "SDPA forward",
+        "flash_backward_dq": "SDPA backward (fwd+bwd - fwd): dQ, dK, dV together, K10+K11's",
+        "flash_backward_dkv": "SDPA backward (fwd+bwd - fwd): dQ, dK, dV together, K10+K11's",
+    }
+    for name in LM_TRAIN_KERNELS:
+        source, replaces = KERNELS[name]
+        rec = lm_train_records[(name, label)]
+        rows.append({
+            "name": name, "route": "cuda", "source": f"zookeeper_tpu_torch/csrc/{source}",
+            "replaces": replaces, "launches": launches_lt[name], "ok": True,
+            "max_abs_err": lm_train_err[name], "ms": LM_LAYERS * rec["ms"],
+            "kernel_ms": LM_LAYERS * rec["ms"], "plain_ms": LM_LAYERS * rec["plain_ms"],
+            "bound_ms": LM_LAYERS * rec["bound_ms"], "bound_by": rec["bound_by"],
+            "library_ms": LM_LAYERS * rec["library_ms"], "library_of": library_of[name],
         })
     print(smi, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

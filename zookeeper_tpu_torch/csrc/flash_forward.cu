@@ -1,8 +1,11 @@
 // K9: flash attention forward, causal or full.
 //
 // Replaces zookeeper_tpu/ops/attention.py `_flash_forward` (Pallas body
-// `kernel`, want_lse=False): q, k, v [b, s, h, d] fp32/bf16 -> o [b, s,
-// h, d] in the input dtype. Scores `(q . k) * scale` in fp32 with exact
+// `kernel`, want_lse False or True): q, k, v [b, s, h, d] fp32/bf16 -> o
+// [b, s, h, d] in the input dtype and, when an lse pointer is given, each
+// row's log-sum-exp `m + log l` as fp32 [b*h, s] (JAX's [b*h, s_pad, 1]
+// without the padded rows), the one residual the backward (K10, K11)
+// needs beyond the primals. The output does not depend on the pointer. Scores `(q . k) * scale` in fp32 with exact
 // products; keys >= s and, when causal, keys > the query's row are set
 // to the finite mask value; online softmax with the running max started
 // at the mask value, sum and accumulator at 0; `p` rounded to the input
@@ -23,8 +26,9 @@
 // nothing to a dot product or an accumulator). A score is four partial
 // dot products summed by two xor-shuffles among the row's four lanes,
 // plain fp32 FMA (never TF32). Rows >= s are computed but never
-// written; no host-side padding is needed. q, k and v are read through
-// their strides, so the split of a fused qkv projection needs no copy.
+// written (nor is their lse); no host-side padding is needed. q, k and
+// v are read through their strides, so the split of a fused qkv
+// projection needs no copy.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -64,9 +68,10 @@ struct Strides {
 template <typename T, int DP>
 __global__ void __launch_bounds__(THREADS)
 flash_forward_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, T* __restrict__ o, int s,
-                     int h, int d, Strides qs, Strides ks, Strides vs,
-                     float scale, int causal) {
+                     const T* __restrict__ v, T* __restrict__ o,
+                     float* __restrict__ lse, int s, int h, int d,
+                     Strides qs, Strides ks, Strides vs, float scale,
+                     int causal) {
   constexpr int C4 = DP / 4 / TPR;  // float4 chunks per thread
   __shared__ float4 k_tile[BK][DP / 4];
   __shared__ float4 v_tile[BK][DP / 4];
@@ -170,13 +175,17 @@ flash_forward_kernel(const T* __restrict__ q, const T* __restrict__ k,
         if (dd < d) store(o_row + dd, acc[4 * i + j] / l);
       }
     }
+    if (lse != nullptr && part == 0) {
+      lse[static_cast<long long>(bh) * s + qi] = m + logf(l);
+    }
   }
 }
 
 template <typename T>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int b, int s, int h, int d, Strides qs, Strides ks,
-                   Strides vs, float scale, int causal, cudaStream_t stream) {
+                   float* lse, int b, int s, int h, int d, Strides qs,
+                   Strides ks, Strides vs, float scale, int causal,
+                   cudaStream_t stream) {
   const dim3 grid((s + BQ - 1) / BQ, b * h);
   const T* qp = static_cast<const T*>(q);
   const T* kp = static_cast<const T*>(k);
@@ -184,13 +193,13 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   T* op = static_cast<T*>(o);
   if (d <= 32) {
     flash_forward_kernel<T, 32><<<grid, THREADS, 0, stream>>>(
-        qp, kp, vp, op, s, h, d, qs, ks, vs, scale, causal);
+        qp, kp, vp, op, lse, s, h, d, qs, ks, vs, scale, causal);
   } else if (d <= 64) {
     flash_forward_kernel<T, 64><<<grid, THREADS, 0, stream>>>(
-        qp, kp, vp, op, s, h, d, qs, ks, vs, scale, causal);
+        qp, kp, vp, op, lse, s, h, d, qs, ks, vs, scale, causal);
   } else if (d <= 128) {
     flash_forward_kernel<T, 128><<<grid, THREADS, 0, stream>>>(
-        qp, kp, vp, op, s, h, d, qs, ks, vs, scale, causal);
+        qp, kp, vp, op, lse, s, h, d, qs, ks, vs, scale, causal);
   } else {
     return cudaErrorInvalidValue;
   }
@@ -201,9 +210,11 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 
 // dtype_code: 0 = float32, 1 = bfloat16. Strides are in elements, per
 // tensor (batch, seq, head); the head_dim axis is contiguous. The output
-// is a contiguous [b, s, h, d]. Returns a cudaError_t.
+// is a contiguous [b, s, h, d]; lse (may be null) a contiguous fp32
+// [b*h, s]. Returns a cudaError_t.
 extern "C" int zk_flash_forward(const void* q, const void* k, const void* v,
-                                void* o, int dtype_code, int b, int s, int h,
+                                void* o, void* lse, int dtype_code, int b,
+                                int s, int h,
                                 int d, long long q_sb, long long q_ss,
                                 long long q_sh, long long k_sb, long long k_ss,
                                 long long k_sh, long long v_sb, long long v_ss,
@@ -216,10 +227,11 @@ extern "C" int zk_flash_forward(const void* q, const void* k, const void* v,
   const Strides qs{q_sb, q_ss, q_sh}, ks{k_sb, k_ss, k_sh}, vs{v_sb, v_ss, v_sh};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype_code == 0) {
-    err = launch<float>(q, k, v, o, b, s, h, d, qs, ks, vs, scale, causal, st);
+    err = launch<float>(q, k, v, o, static_cast<float*>(lse), b, s, h, d, qs,
+                        ks, vs, scale, causal, st);
   } else if (dtype_code == 1) {
-    err = launch<__nv_bfloat16>(q, k, v, o, b, s, h, d, qs, ks, vs, scale,
-                                causal, st);
+    err = launch<__nv_bfloat16>(q, k, v, o, static_cast<float*>(lse), b, s, h,
+                                d, qs, ks, vs, scale, causal, st);
   } else {
     err = cudaErrorInvalidValue;
   }

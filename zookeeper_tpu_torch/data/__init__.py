@@ -9,11 +9,14 @@ from zookeeper_tpu_torch.data.dataset import (
     Dataset,
     SyntheticImageClassification,
     SyntheticImageNet,
+    SyntheticTokens,
 )
 from zookeeper_tpu_torch.data.pipeline import DataLoader, batch_iterator, prefetch_to_device
 from zookeeper_tpu_torch.data.preprocessing import (
     ImageClassificationPreprocessing,
+    PassThroughPreprocessing,
     Preprocessing,
+    TokenPreprocessing,
 )
 from zookeeper_tpu_torch.data.source import ArraySource, DataSource
 
@@ -24,9 +27,12 @@ __all__ = [
     "DataSource",
     "Dataset",
     "ImageClassificationPreprocessing",
+    "PassThroughPreprocessing",
     "Preprocessing",
     "SyntheticImageClassification",
     "SyntheticImageNet",
+    "SyntheticTokens",
+    "TokenPreprocessing",
     "batch_iterator",
     "prefetch_to_device",
 ]

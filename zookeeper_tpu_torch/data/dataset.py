@@ -1,11 +1,12 @@
 """Dataset components.
 
 The port's own copy of the part of ``zookeeper_tpu/data/dataset.py``
-that image-classification training needs: the abstract ``Dataset``
-(``train()``/``validation()`` sources and the class-count contract) and
-the always-available synthetic image datasets, which generate the same
-bytes as the JAX package's for the same seed. The TFDS-, store- and
-token-backed datasets are not ported yet (ROADMAP.md).
+that training needs: the abstract ``Dataset`` (``train()``/
+``validation()`` sources and the class-count contract), the
+always-available synthetic image datasets and the synthetic token corpus
+``SyntheticTokens``, each of which generates the same bytes as the JAX
+package's for the same seed. The TFDS- and store-backed datasets are not
+ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -117,3 +118,46 @@ class SyntheticImageNet(SyntheticImageClassification):
     num_classes: int = Field(1000)
     num_train_examples: int = Field(2048)
     num_validation_examples: int = Field(256)
+
+
+@component
+class SyntheticTokens(Dataset):
+    """Synthetic next-token corpus for language-model training: windows
+    of ``seq_len`` tokens over one seeded periodic stream (period
+    ``pattern_period``), as ``{"tokens", "next"}`` int32 examples, so a
+    model can memorize it and its loss falls. Pair with
+    ``TokenPreprocessing`` (both inherit ``seq_len`` from the task) and
+    ``TransformerLM``."""
+
+    num_train_examples: int = Field(1024)
+    num_validation_examples: int = Field(128)
+    seq_len: int = Field(64)
+    vocab_size: int = Field(256)
+    pattern_period: int = Field(17)
+    seed: int = Field(0)
+
+    def _windows(self, n: int, seed: int) -> Dict[str, np.ndarray]:
+        # The stream is fixed by ``seed``; each split's seed picks its windows.
+        base = np.random.default_rng(self.seed).integers(
+            0, self.vocab_size, self.pattern_period
+        )
+        stream = np.tile(base, -(-(4 * self.seq_len) // self.pattern_period) + 1)
+        starts = np.random.default_rng(seed).integers(
+            0, len(stream) - self.seq_len - 1, n
+        )
+        idx = starts[:, None] + np.arange(self.seq_len)
+        return {
+            "tokens": stream[idx].astype(np.int32),
+            "next": stream[idx + 1].astype(np.int32),
+        }
+
+    def train(self) -> DataSource:
+        return ArraySource(self._windows(self.num_train_examples, self.seed + 1))
+
+    def validation(self) -> Optional[DataSource]:
+        if self.num_validation_examples <= 0:
+            return None
+        return ArraySource(self._windows(self.num_validation_examples, self.seed + 2))
+
+    def infer_num_classes(self) -> int:
+        return self.vocab_size

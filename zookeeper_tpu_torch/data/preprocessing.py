@@ -1,9 +1,10 @@
 """Preprocessing components.
 
-The port's own copy of the image-classification part of
+The port's own copy of the image-classification and token parts of
 ``zookeeper_tpu/data/preprocessing.py``: a component that maps a raw
 example to ``{"input", "target"}`` on the host, in numpy, before
-batching. Augmentation (CIFAR-style pad+crop or Inception-style
+batching. ``TokenPreprocessing`` passes token windows through and takes
+its ``input_shape`` from ``seq_len``. Augmentation (CIFAR-style pad+crop or Inception-style
 RandomResizedCrop, then a horizontal flip) draws from the counter RNG of
 ``data/augrng.py`` keyed by (pipeline seed, example index, epoch), with
 the same draw order and arithmetic as the JAX package, so the same
@@ -13,7 +14,7 @@ example gives the same float32 bytes.
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 
@@ -38,11 +39,67 @@ class Preprocessing:
     def input_shape(self) -> Tuple[int, ...]:
         raise NotImplementedError
 
+    @property
+    def input_dtype(self) -> Optional[str]:
+        """Numpy dtype name of the model input, or None when unknown."""
+        return None
+
     def __call__(self, example: Example, training: bool) -> Example:
         return {
             "input": np.asarray(self.input(example, training)),
             "target": np.asarray(self.output(example, training)),
         }
+
+
+@component
+class PassThroughPreprocessing(Preprocessing):
+    """Forwards ``example[input_key]`` and ``example[target_key]``
+    unchanged. ``example_shape`` declares the per-example input shape for
+    an experiment that sizes its model from it; it raises when asked and
+    not set."""
+
+    input_key: str = Field("image")
+    target_key: str = Field("label")
+    example_shape: Optional[Tuple[int, ...]] = Field(None)
+
+    def input(self, example: Example, training: bool) -> np.ndarray:
+        return example[self.input_key]
+
+    def output(self, example: Example, training: bool) -> np.ndarray:
+        return example[self.target_key]
+
+    @property
+    def input_shape(self) -> Tuple[int, ...]:
+        if self.example_shape is None:
+            raise ValueError(
+                "PassThroughPreprocessing.input_shape was asked for but "
+                "example_shape is not configured: set e.g. "
+                "preprocessing.example_shape=(seq_len,) so the experiment "
+                "can size the model."
+            )
+        return tuple(self.example_shape)
+
+
+@component
+class TokenPreprocessing(PassThroughPreprocessing):
+    """Token windows through unchanged (``tokens`` in, ``next`` as the
+    target), int32 inputs, ``input_shape`` ``(seq_len,)`` unless
+    ``example_shape`` is set. ``seq_len`` is a field, so it is inherited
+    from the task like the dataset's."""
+
+    input_key: str = Field("tokens")
+    target_key: str = Field("next")
+    seq_len: int = Field(64)
+
+    @property
+    def input_dtype(self) -> str:
+        return "int32"
+
+    @property
+    def input_shape(self) -> Tuple[int, ...]:
+        if self.example_shape is not None:
+            return tuple(self.example_shape)
+        return (self.seq_len,)
 
 
 @component

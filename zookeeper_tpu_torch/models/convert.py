@@ -22,7 +22,8 @@ A training state carries across too: :func:`flax_train_state` and
 :func:`load_flax_train_state` move the step, params, ``batch_stats`` and
 optax Adam's ``count``/``mu``/``nu`` (whose trees have the params'
 structure, so they convert leaf for leaf like the params) between the
-port's ``TrainState`` and numpy trees.
+port's ``TrainState`` and numpy trees, for QuickNet and for
+TransformerLM states (an LM has no ``batch_stats``).
 """
 
 import re
@@ -31,6 +32,8 @@ from typing import Any, Dict, Mapping, Optional, Tuple
 import numpy as np
 import torch
 from torch import nn
+
+from zookeeper_tpu_torch.models.transformer import TransformerLMModule
 
 _CONV = re.compile(r"^Conv_\d+$")
 _BN = re.compile(r"^BatchNorm_\d+$")
@@ -107,8 +110,13 @@ def from_flax_lm_variables(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]
 def to_flax_lm_variables(module: nn.Module) -> Dict[str, Any]:
     """The port LM module's weights as a flax params tree of numpy arrays
     (the inverse of :func:`from_flax_lm_variables`)."""
+    return _flax_lm_tree(module.state_dict())
+
+
+def _flax_lm_tree(named: Mapping[str, Any]) -> Dict[str, Any]:
+    """``{state_dict name: tensor}`` of an LM -> a flax params tree."""
     params: Dict[str, Any] = {}
-    for name, value in module.state_dict().items():
+    for name, value in named.items():
         leaf = _tensor(value).numpy()
         parts = name.split(".")
         if parts[0] in ("embed", "pos"):
@@ -160,11 +168,23 @@ def to_flax_variables(module: nn.Module) -> Tuple[Dict[str, Any], Dict[str, Any]
     return params, {"batch_stats": stats}
 
 
+def _is_lm(module: nn.Module) -> bool:
+    return isinstance(module, TransformerLMModule)
+
+
+def _flax_cnn_tree(named: Mapping[str, Any]) -> Dict[str, Any]:
+    return {s: _flax_param_leaves(s, v) for s, v in _by_scope(named).items()}
+
+
 def flax_train_state(state: Any) -> Dict[str, Any]:
     """A port ``TrainState`` as numpy trees in the JAX package's layout:
-    ``{"step", "params", "model_state": {"batch_stats"}, "adam": {"count",
-    "mu", "nu"}}`` (the Adam moments as params-shaped trees)."""
-    params, model_state = to_flax_variables(state.module)
+    ``{"step", "params", "model_state", "adam": {"count", "mu", "nu"}}``
+    (the Adam moments as params-shaped trees; ``model_state`` holds the
+    ``batch_stats`` of a CNN and is empty for an LM)."""
+    if _is_lm(state.module):
+        params, model_state, tree = to_flax_lm_variables(state.module), {}, _flax_lm_tree
+    else:
+        (params, model_state), tree = to_flax_variables(state.module), _flax_cnn_tree
     opt = state.opt_state
     return {
         "step": np.int32(state.step),
@@ -172,8 +192,8 @@ def flax_train_state(state: Any) -> Dict[str, Any]:
         "model_state": model_state,
         "adam": {
             "count": np.int32(opt["count"]),
-            "mu": {s: _flax_param_leaves(s, v) for s, v in _by_scope(opt["mu"]).items()},
-            "nu": {s: _flax_param_leaves(s, v) for s, v in _by_scope(opt["nu"]).items()},
+            "mu": tree(opt["mu"]),
+            "nu": tree(opt["nu"]),
         },
     }
 
@@ -189,13 +209,23 @@ def load_flax_train_state(
     """Load a JAX train state (numpy trees, as :func:`flax_train_state`
     returns them; ``adam`` holds optax's ``ScaleByAdamState`` leaves) into
     the port's ``TrainState`` in place, on the devices its tensors lie
-    on. Returns ``state``."""
-    state.module.load_state_dict(from_flax_variables(params, model_state))
+    on; an LM state's trees go through :func:`from_flax_lm_variables`.
+    Returns ``state``."""
+    if _is_lm(state.module):
+        if model_state:
+            raise ValueError(
+                f"load_flax_train_state: an LM has no model state, got {sorted(model_state)}."
+            )
+        convert = from_flax_lm_variables
+        state.module.load_state_dict(convert(params))
+    else:
+        convert = from_flax_variables
+        state.module.load_state_dict(convert(params, model_state))
     state.step = int(step)
     opt = state.opt_state
     opt["count"] = int(adam["count"])
     for key in ("mu", "nu"):
-        moments = from_flax_variables(adam[key])
+        moments = convert(adam[key])
         if set(moments) != set(opt[key]):
             raise ValueError(
                 f"load_flax_train_state: Adam {key} leaves {sorted(moments)} "

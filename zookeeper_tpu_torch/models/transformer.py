@@ -1,4 +1,5 @@
-"""Causal transformer LM: the TransformerLM family, for decode serving.
+"""Causal transformer LM: the TransformerLM family, for training and
+decode serving.
 
 The PyTorch counterpart of ``zookeeper_tpu/models/transformer.py``:
 pre-RMSNorm blocks, a tanh-approximated GELU MLP (``jax.nn.gelu``'s
@@ -13,7 +14,8 @@ One weight set serves three paths, as in the JAX module:
 - ``forward`` / ``prefill``: the full-context forward (prefill also
   returns every layer's K/V heads and each sequence's last logits), its
   attention K9 (``attention="flash"``) or the dense oracle
-  (``"dense"``);
+  (``"dense"``). ``forward`` trains under autograd: flash attention
+  then runs K9 with lse forward and K10/K11 backward;
 - ``decode_step``: one token per sequence over caller-owned slot caches
   ``[slots, capacity, heads, head_dim]`` (K12);
 - ``decode_step_paged``: the same over a shared page pool through page
@@ -27,9 +29,7 @@ objects. Submodules carry the flax scope names (``embed``, ``pos``,
 ``models.convert.from_flax_lm_variables`` maps a JAX tree by name.
 Attention functions are looked up in ``ops.attention`` at call time;
 each kernel wrapper runs its plain version on CPU tensors.
-The speculative ``decode_verify`` paths and training are not ported yet
-(ROADMAP.md); the flash forward raises on a call that needs a gradient,
-so run these modules under ``torch.no_grad()``.
+The speculative ``decode_verify`` paths are not ported yet (ROADMAP.md).
 """
 
 import math

@@ -1,22 +1,37 @@
-"""Attention for the TransformerLM decode-serving path: the plain
-oracles and the hand-written CUDA kernels.
+"""Attention for the TransformerLM paths: the plain oracles and the
+hand-written CUDA kernels.
 
 The PyTorch counterpart of the part of ``zookeeper_tpu/ops/attention.py``
-that prefill and decode run. Public functions keep the JAX layout ``q/k/v
-[batch, seq, heads, head_dim]``. The oracles (``attention_reference``,
-``cached_attention``, ``pool_decode_attention``) compute in fp32 with
-exact products, as the JAX ones pin ``Precision.HIGHEST``.
+that training, prefill and decode run. Public functions keep the JAX
+layout ``q/k/v [batch, seq, heads, head_dim]``. The oracles
+(``attention_reference``, ``cached_attention``, ``pool_decode_attention``)
+compute in fp32 with exact products, as the JAX ones pin
+``Precision.HIGHEST``.
 
 Kernels (sources in ``zookeeper_tpu_torch/csrc``), each with its plain
 PyTorch version beside it:
 
-- K9 :func:`flash_attention` — the flash forward (``_flash_forward``
-  with ``want_lse=False``): causal or full, padded keys masked, ``p``
-  rounded to ``v``'s dtype before ``p @ v``. Its plain version
+- K9 :func:`flash_attention` — the flash forward (``_flash_forward``):
+  causal or full, padded keys masked, ``p`` rounded to ``v``'s dtype
+  before ``p @ v``. A call that needs no gradient (prefill, eval) runs
+  it without ``lse``, as JAX's primal does; a call under autograd runs
+  :func:`flash_forward_lse`, which also writes each row's log-sum-exp
+  ``lse = m + log l`` as ``[b*h, s]`` fp32 (JAX's ``[b*h, s_pad, 1]``
+  without the padded rows). Its plain version
   :func:`flash_attention_plain` is the same blocked online softmax with
   the JAX block choice, so on the CPU it tracks JAX's kernel, not only
-  the dense oracle. The backward (K10, K11) and the ``lse`` output come
-  with LM training (ROADMAP.md); a call that needs a gradient raises.
+  the dense oracle.
+- K10 :func:`flash_backward_dq` and K11 :func:`flash_backward_dkv` — the
+  recompute backward (``_flash_backward``): ``P = exp(S - lse)`` with a
+  hard 0 on masked entries, ``dS = P * (dO V^T - D)`` with ``D =
+  rowsum(dO * O)`` (:func:`flash_backward_delta`, torch ops, as XLA
+  computes it in JAX), ``dQ = scale dS K``, ``dK = scale dS^T Q``, ``dV
+  = P^T dO``; ``dS`` and ``P`` rounded to the input dtype before their
+  products. Plain versions :func:`flash_backward_dq_plain` and
+  :func:`flash_backward_dkv_plain`. :class:`_FlashAttention` ties K9
+  with lse, K10 and K11 into one autograd Function, so
+  :func:`flash_attention` trains. The ``lse`` cotangent of JAX's
+  ``_flash_attention_lse`` (only the ring merge uses it) is not ported.
 - K12 :func:`paged_decode_attention` — one-position decode over a slot
   cache ``[slots, capacity, heads, head_dim]``, reading only rows
   ``0..clamp(lengths, 0, capacity - 1)``. Plain version:
@@ -48,6 +63,9 @@ _MASK_VALUE = -0.5 * float(torch.finfo(torch.float32).max)
 #: Kernel launches since the last :func:`reset_launches`, by kernel.
 LAUNCHES = {
     "flash_forward": 0,
+    "flash_forward_lse": 0,
+    "flash_backward_dq": 0,
+    "flash_backward_dkv": 0,
     "paged_decode_attention": 0,
     "pool_paged_decode_attention": 0,
 }
@@ -58,14 +76,6 @@ FLASH_MAX_HEAD_DIM = 128
 DECODE_MAX_HEAD_DIM = 256
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
-
-_NO_BACKWARD = (
-    "flash_attention is forward-only in the PyTorch port: the flash "
-    "backward (K10, K11) and the lse output come with LM training "
-    "(queued in ROADMAP.md). Call it under torch.no_grad() or on "
-    "tensors that do not require grad."
-)
-
 
 def reset_launches() -> None:
     for name in LAUNCHES:
@@ -163,7 +173,7 @@ def pool_decode_attention(
     return cached_attention(q, kc, vc, lengths, scale=scale)
 
 
-# -- K9: flash attention forward --------------------------------------------
+# -- K9, K10, K11: flash attention forward and backward --------------------
 
 #: Budget the JAX block policy checks the flash backward's working set
 #: against (kept so the plain version picks the JAX kernel's blocks).
@@ -231,12 +241,14 @@ def flash_attention_plain(
     scale: Optional[float] = None,
     block_q: Optional[int] = None,
     block_k: Optional[int] = None,
-) -> torch.Tensor:
+    want_lse: bool = False,
+):
     """Plain version of K9: ``_flash_forward``'s blocked online softmax
     (running max from ``_MASK_VALUE``, sum and accumulator in fp32; k
     blocks above the causal diagonal skipped; keys past ``s`` masked;
     ``p`` cast to ``v``'s dtype before ``p @ v``) with the JAX block
-    choice, over ``[b, s, h, d]``."""
+    choice, over ``[b, s, h, d]``. ``want_lse`` also returns each row's
+    ``m + log l`` as ``[b*h, s]`` fp32."""
     b, s, h, d = q.shape
     if scale is None:
         scale = d ** -0.5
@@ -247,6 +259,7 @@ def flash_attention_plain(
     qb, kb, vb = (_to_bh(x, s_pad) for x in (q, k, v))
     nq, nk = s_pad // block_q, s_pad // block_k
     out = torch.empty((b * h, s_pad, d), dtype=torch.float32, device=q.device)
+    lse = torch.empty((b * h, s_pad), dtype=torch.float32, device=q.device)
     rows = torch.arange(block_q, device=q.device)[:, None]
     cols = torch.arange(block_k, device=q.device)[None, :]
     for iq in range(nq):
@@ -273,8 +286,134 @@ def flash_attention_plain(
             pv = torch.matmul(p.to(v.dtype).float(), v_blk.float())
             acc = acc * corr + pv
         out[:, iq * block_q : (iq + 1) * block_q] = acc / l
+        lse[:, iq * block_q : (iq + 1) * block_q] = (m + torch.log(l))[..., 0]
     out = out.to(q.dtype).reshape(b, h, s_pad, d).permute(0, 2, 1, 3)
-    return out[:, :s].contiguous()
+    out = out[:, :s].contiguous()
+    return (out, lse[:, :s].contiguous()) if want_lse else out
+
+
+def flash_backward_delta(out: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
+    """``D = rowsum(dO * O)`` in fp32 as ``[b*h, s]``: reduced over
+    head_dim first in the ``[b, s, h, d]`` layout (as JAX does, before
+    any padding or transpose), then laid out like ``lse``."""
+    b, s, h, _ = out.shape
+    d = (do.float() * out.float()).sum(dim=-1)  # [b, s, h]
+    return d.permute(0, 2, 1).reshape(b * h, s).contiguous()
+
+
+class _FlashTiles:
+    """The JAX backward's blocks and operands: q, k, v and dO (in q's
+    dtype; padded rows 0) as ``[b*h, s_pad, d]``, lse and D as ``[b*h,
+    s_pad, 1]``, cut into q-side tiles of ``block_q`` rows and k-side
+    tiles of ``block_k``; :meth:`p` recomputes one masked probability
+    tile."""
+
+    def __init__(self, q, k, v, do, lse, delta, causal, scale, block_q, block_k):
+        b, s, h, d = self.shape = q.shape
+        self.causal = causal
+        self.scale = float(d ** -0.5 if scale is None else scale)
+        block_q, block_k = _default_flash_blocks(
+            s, block_q, block_k, head_dim=d, itemsize=q.element_size()
+        )
+        self.block_q, self.block_k, self.s_pad = _flash_dims(s, block_q, block_k)
+        self.nq, self.nk = self.s_pad // self.block_q, self.s_pad // self.block_k
+        self.q, self.k, self.v = (_to_bh(x, self.s_pad) for x in (q, k, v))
+        self.do = _to_bh(do.to(q.dtype), self.s_pad)
+        pad = (0, self.s_pad - s)
+        self.lse = torch.nn.functional.pad(lse.float(), pad)[..., None]
+        self.delta = torch.nn.functional.pad(delta.float(), pad)[..., None]
+
+    def q_tile(self, x: torch.Tensor, iq: int) -> torch.Tensor:
+        return x[:, iq * self.block_q : (iq + 1) * self.block_q]
+
+    def k_tile(self, x: torch.Tensor, ik: int) -> torch.Tensor:
+        return x[:, ik * self.block_k : (ik + 1) * self.block_k]
+
+    def live(self, iq: int, ik: int) -> bool:
+        """False for a tile above the causal diagonal (skipped, as the
+        kernels skip it)."""
+        return not self.causal or ik * self.block_k <= (iq + 1) * self.block_q - 1
+
+    def p(self, iq: int, ik: int) -> torch.Tensor:
+        """``P = exp(S - lse)`` of one tile, a hard 0 on masked entries."""
+        s = self.shape[1]
+        sc = torch.matmul(self.q_tile(self.q, iq).float(),
+                          self.k_tile(self.k, ik).float().transpose(1, 2)) * self.scale
+        qi = iq * self.block_q + torch.arange(self.block_q, device=sc.device)[:, None]
+        ki = ik * self.block_k + torch.arange(self.block_k, device=sc.device)[None, :]
+        # Padded q rows carry dO = 0 and contribute nothing in JAX; here
+        # they are masked too, so their padded lse of 0 never overflows.
+        valid = (ki < s) & (qi < s)
+        if self.causal:
+            valid = valid & (ki <= qi)
+        p = torch.exp(torch.where(valid, sc, _MASK_VALUE) - self.q_tile(self.lse, iq))
+        return torch.where(valid, p, 0.0)
+
+
+def _from_bh(x: torch.Tensor, b: int, s: int, h: int, dtype: torch.dtype) -> torch.Tensor:
+    """[b*h, s_pad, d] -> [b, s, h, d] in ``dtype``, padded rows dropped."""
+    d = x.shape[-1]
+    return x.to(dtype).reshape(b, h, -1, d).permute(0, 2, 1, 3)[:, :s].contiguous()
+
+
+def flash_backward_dq_plain(q, k, v, do, lse, delta, *, causal=False, scale=None,
+                            block_q=None, block_k=None) -> torch.Tensor:
+    """Plain version of K10, the dQ kernel of ``_flash_backward``: per q
+    block, over its live k blocks, ``dQ += (P * (dO V^T - D)).to(k.dtype)
+    @ K`` in fp32; ``dQ * scale`` in q's dtype, ``[b, s, h, d]``."""
+    t = _FlashTiles(q, k, v, do, lse, delta, causal, scale, block_q, block_k)
+    b, s, h, d = t.shape
+    dq = torch.empty((b * h, t.s_pad, d), dtype=torch.float32, device=q.device)
+    for iq in range(t.nq):
+        acc = torch.zeros((b * h, t.block_q, d), device=q.device)
+        do_blk = t.q_tile(t.do, iq).float()
+        for ik in range(t.nk):
+            if not t.live(iq, ik):
+                continue
+            dp = torch.matmul(do_blk, t.k_tile(t.v, ik).float().transpose(1, 2))
+            ds = t.p(iq, ik) * (dp - t.q_tile(t.delta, iq))
+            acc = acc + torch.matmul(ds.to(k.dtype).float(), t.k_tile(t.k, ik).float())
+        t.q_tile(dq, iq)[:] = acc * t.scale
+    return _from_bh(dq, b, s, h, q.dtype)
+
+
+def flash_backward_dkv_plain(q, k, v, do, lse, delta, *, causal=False, scale=None,
+                             block_q=None, block_k=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of K11, the dK/dV kernel of ``_flash_backward``: per
+    k block, over the q blocks from the causal diagonal on, ``dV +=
+    P.to(dO.dtype)^T dO`` and ``dK += (P * (dO V^T - D)).to(q.dtype)^T Q``
+    in fp32; ``dK * scale`` and ``dV`` in k's and v's dtypes."""
+    t = _FlashTiles(q, k, v, do, lse, delta, causal, scale, block_q, block_k)
+    b, s, h, d = t.shape
+    dk = torch.empty((b * h, t.s_pad, d), dtype=torch.float32, device=q.device)
+    dv = torch.empty_like(dk)
+    for ik in range(t.nk):
+        dk_acc = torch.zeros((b * h, t.block_k, d), device=q.device)
+        dv_acc = torch.zeros_like(dk_acc)
+        v_blk = t.k_tile(t.v, ik).float()
+        for iq in range(t.nq):
+            if not t.live(iq, ik):
+                continue
+            p = t.p(iq, ik)
+            do_blk = t.q_tile(t.do, iq)
+            dv_acc = dv_acc + torch.matmul(p.to(do_blk.dtype).float().transpose(1, 2),
+                                           do_blk.float())
+            dp = torch.matmul(do_blk.float(), v_blk.transpose(1, 2))
+            ds = p * (dp - t.q_tile(t.delta, iq))
+            dk_acc = dk_acc + torch.matmul(ds.to(q.dtype).float().transpose(1, 2),
+                                           t.q_tile(t.q, iq).float())
+        t.k_tile(dk, ik)[:] = dk_acc * t.scale
+        t.k_tile(dv, ik)[:] = dv_acc
+    return _from_bh(dk, b, s, h, k.dtype), _from_bh(dv, b, s, h, v.dtype)
+
+
+def flash_backward_plain(q, k, v, out, lse, do, *, causal=False, scale=None,
+                         block_q=None, block_k=None):
+    """Plain version of the whole flash backward: ``(dq, dk, dv)``."""
+    delta = flash_backward_delta(out, do)
+    kw = dict(causal=causal, scale=scale, block_q=block_q, block_k=block_k)
+    dq = flash_backward_dq_plain(q, k, v, do, lse, delta, **kw)
+    return (dq, *flash_backward_dkv_plain(q, k, v, do, lse, delta, **kw))
 
 
 def _check_self_attention(what: str, q, k, v) -> Tuple[int, int, int, int]:
@@ -282,6 +421,158 @@ def _check_self_attention(what: str, q, k, v) -> Tuple[int, int, int, int]:
     _require(q.shape == k.shape == v.shape, what,
              f"q/k/v shapes differ: {tuple(q.shape)} {tuple(k.shape)} {tuple(v.shape)}")
     return tuple(q.shape)
+
+
+def _check_flash_operands(what: str, q, k, v) -> None:
+    """What the flash kernels take: fp32/bf16 q/k/v of one dtype, head_dim
+    to ``FLASH_MAX_HEAD_DIM``, the head_dim axis contiguous (other axes
+    may be strided, as the split of a fused qkv projection gives them)."""
+    _require(q.dtype in (torch.float32, torch.bfloat16), what,
+             f"takes float32/bfloat16, got {q.dtype}")
+    _require(q.dtype == k.dtype == v.dtype, what, "q/k/v dtypes differ")
+    _require(1 <= q.shape[3] <= FLASH_MAX_HEAD_DIM, what,
+             f"head_dim {q.shape[3]} is past the kernel's {FLASH_MAX_HEAD_DIM}")
+    _require(all(t.stride(3) == 1 for t in (q, k, v)), what,
+             "the head_dim axis must be contiguous")
+
+
+def _strides(*tensors):
+    return [t.stride(i) for t in tensors for i in range(3)]
+
+
+def _flash_forward_launch(what, q, k, v, causal, scale, device, want_lse):
+    """Launch K9 into a new ``[b, s, h, d]`` output (and ``[b*h, s]`` fp32
+    lse when ``want_lse``)."""
+    b, s, h, d = q.shape
+    _check_flash_operands(what, q, k, v)
+    out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b * h, s), dtype=torch.float32, device=q.device) if want_lse else None
+    if out.numel() == 0:
+        return out, lse
+    lib = cuda_build.library("flash_forward")
+    cuda_build.check(
+        lib.zk_flash_forward(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr() if want_lse else None,
+            _DTYPE_CODES[q.dtype], b, s, h, d, *_strides(q, k, v), float(scale),
+            int(bool(causal)), device, _stream(device),
+        ),
+        what,
+    )
+    LAUNCHES["flash_forward_lse" if want_lse else "flash_forward"] += 1
+    return out, lse
+
+
+def flash_forward_lse(q, k, v, *, causal=False, scale=None):
+    """K9 with lse: ``(out [b, s, h, d], lse [b*h, s] fp32)``, the forward
+    that autograd saves for the backward."""
+    what = "flash_forward_lse"
+    _check_self_attention(what, q, k, v)
+    if scale is None:
+        scale = q.shape[3] ** -0.5
+    device = _cuda_device(what, q, k, v)
+    if device is None:
+        return flash_attention_plain(q, k, v, causal=causal, scale=scale, want_lse=True)
+    return _flash_forward_launch(what, q, k, v, causal, scale, device, True)
+
+
+def _check_backward_operands(what, q, k, v, do, lse, delta):
+    b, s, h, _ = _check_self_attention(what, q, k, v)
+    _require(do.shape == q.shape, what, f"dO {tuple(do.shape)} does not match q {tuple(q.shape)}")
+    for name, t in (("lse", lse), ("D", delta)):
+        _require(t.shape == (b * h, s), what,
+                 f"{name} must be [b*h, s] = [{b * h}, {s}], got {tuple(t.shape)}")
+
+
+def _backward_kernel_operands(what, q, k, v, do, lse, delta):
+    """Checks for K10/K11; dO in q's dtype, dO/lse/D contiguous."""
+    _check_flash_operands(what, q, k, v)
+    for name, t in (("lse", lse), ("D", delta)):
+        _require(t.dtype == torch.float32 and t.is_contiguous(), what,
+                 f"{name} must be contiguous float32")
+    return do.to(q.dtype).contiguous()
+
+
+def flash_backward_dq(q, k, v, do, lse, delta, *, causal=False, scale=None) -> torch.Tensor:
+    """K10: dQ ``[b, s, h, d]`` in q's dtype from q/k/v, dO, lse and D
+    (``[b*h, s]`` fp32, :func:`flash_backward_delta`)."""
+    what = "flash_backward_dq"
+    _check_backward_operands(what, q, k, v, do, lse, delta)
+    b, s, h, d = q.shape
+    if scale is None:
+        scale = d ** -0.5
+    device = _cuda_device(what, q, k, v, do, lse, delta)
+    if device is None:
+        return flash_backward_dq_plain(q, k, v, do, lse, delta, causal=causal, scale=scale)
+    do = _backward_kernel_operands(what, q, k, v, do, lse, delta)
+    dq = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
+    if dq.numel() == 0:
+        return dq
+    lib = cuda_build.library("flash_backward")
+    cuda_build.check(
+        lib.zk_flash_backward_dq(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), dq.data_ptr(), _DTYPE_CODES[q.dtype], b, s, h, d,
+            *_strides(q, k, v), float(scale), int(bool(causal)), device, _stream(device),
+        ),
+        what,
+    )
+    LAUNCHES["flash_backward_dq"] += 1
+    return dq
+
+
+def flash_backward_dkv(q, k, v, do, lse, delta, *, causal=False,
+                       scale=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K11: ``(dK, dV)`` ``[b, s, h, d]`` in k's and v's dtypes, from the
+    operands of :func:`flash_backward_dq`."""
+    what = "flash_backward_dkv"
+    _check_backward_operands(what, q, k, v, do, lse, delta)
+    b, s, h, d = q.shape
+    if scale is None:
+        scale = d ** -0.5
+    device = _cuda_device(what, q, k, v, do, lse, delta)
+    if device is None:
+        return flash_backward_dkv_plain(q, k, v, do, lse, delta, causal=causal, scale=scale)
+    do = _backward_kernel_operands(what, q, k, v, do, lse, delta)
+    dk = torch.empty((b, s, h, d), dtype=k.dtype, device=q.device)
+    dv = torch.empty((b, s, h, d), dtype=v.dtype, device=q.device)
+    if dk.numel() == 0:
+        return dk, dv
+    lib = cuda_build.library("flash_backward")
+    cuda_build.check(
+        lib.zk_flash_backward_dkv(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), _DTYPE_CODES[q.dtype], b, s,
+            h, d, *_strides(q, k, v), float(scale), int(bool(causal)), device,
+            _stream(device),
+        ),
+        what,
+    )
+    LAUNCHES["flash_backward_dkv"] += 1
+    return dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Flash attention under autograd: K9 with lse forward (saving q, k,
+    v, out and lse), then D, K10 and K11 backward. On CPU tensors the
+    wrappers run their plain versions; on CUDA tensors they launch."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale):
+        out, lse = flash_forward_lse(q, k, v, causal=causal, scale=scale)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.scale = causal, scale
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        delta = flash_backward_delta(out, do)
+        kw = dict(causal=ctx.causal, scale=ctx.scale)
+        dq = flash_backward_dq(q, k, v, do, lse, delta, **kw)
+        dk, dv = flash_backward_dkv(q, k, v, do, lse, delta, **kw)
+        return dq, dk, dv, None, None
 
 
 def flash_attention(
@@ -292,41 +583,21 @@ def flash_attention(
     causal: bool = False,
     scale: Optional[float] = None,
 ) -> torch.Tensor:
-    """K9: flash attention forward over ``[b, s, h, d]`` (fp32 or bf16;
-    q/k/v may be strided views with a contiguous last axis, as the
-    split of a fused qkv projection gives them). Output ``[b, s, h, d]``
-    contiguous in the input dtype."""
+    """K9: flash attention over ``[b, s, h, d]`` (fp32 or bf16; q/k/v may
+    be strided views with a contiguous last axis, as the split of a fused
+    qkv projection gives them). Output ``[b, s, h, d]`` contiguous in the
+    input dtype. A call that needs a gradient goes through
+    :class:`_FlashAttention` (K9 with lse, then K10 and K11 backward)."""
     what = "flash_attention"
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        raise NotImplementedError(_NO_BACKWARD)
-    b, s, h, d = _check_self_attention(what, q, k, v)
+    _check_self_attention(what, q, k, v)
     if scale is None:
-        scale = d ** -0.5
+        scale = q.shape[3] ** -0.5
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return _FlashAttention.apply(q, k, v, bool(causal), float(scale))
     device = _cuda_device(what, q, k, v)
     if device is None:
         return flash_attention_plain(q, k, v, causal=causal, scale=scale)
-    _require(q.dtype in (torch.float32, torch.bfloat16), what,
-             f"takes float32/bfloat16, got {q.dtype}")
-    _require(q.dtype == k.dtype == v.dtype, what, "q/k/v dtypes differ")
-    _require(1 <= d <= FLASH_MAX_HEAD_DIM, what,
-             f"head_dim {d} is past the kernel's {FLASH_MAX_HEAD_DIM}")
-    _require(all(t.stride(3) == 1 for t in (q, k, v)), what,
-             "the head_dim axis must be contiguous")
-    out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
-    if out.numel() == 0:
-        return out
-    strides = [t.stride(i) for t in (q, k, v) for i in range(3)]
-    lib = cuda_build.library("flash_forward")
-    cuda_build.check(
-        lib.zk_flash_forward(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            _DTYPE_CODES[q.dtype], b, s, h, d, *strides, float(scale),
-            int(bool(causal)), device, _stream(device),
-        ),
-        what,
-    )
-    LAUNCHES["flash_forward"] += 1
-    return out
+    return _flash_forward_launch(what, q, k, v, causal, scale, device, False)[0]
 
 
 # -- K12 / K13: decode attention --------------------------------------------

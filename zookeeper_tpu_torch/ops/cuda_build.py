@@ -52,7 +52,11 @@ SIGNATURES = {
         "zk_mask_mul_resid": (_I, [_P, _P, _P, _I, _LL, _LL, _I, _P]),
     },
     "flash_forward": {
-        "zk_flash_forward": (_I, [_P] * 4 + [_I] * 5 + [_LL] * 9 + [_F, _I, _I, _P]),
+        "zk_flash_forward": (_I, [_P] * 5 + [_I] * 5 + [_LL] * 9 + [_F, _I, _I, _P]),
+    },
+    "flash_backward": {
+        "zk_flash_backward_dq": (_I, [_P] * 7 + [_I] * 5 + [_LL] * 9 + [_F, _I, _I, _P]),
+        "zk_flash_backward_dkv": (_I, [_P] * 8 + [_I] * 5 + [_LL] * 9 + [_F, _I, _I, _P]),
     },
     "decode_attention": {
         "zk_paged_decode_attention": (

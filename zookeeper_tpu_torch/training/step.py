@@ -22,8 +22,12 @@ Metrics = Dict[str, torch.Tensor]
 
 
 def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    """Mean softmax cross-entropy with integer labels, in float32."""
-    return F.cross_entropy(logits.to(torch.float32), labels.long())
+    """Mean softmax cross-entropy with integer labels, in float32, over
+    the last axis of ``logits`` and every leading position (an LM's
+    ``[b, s, vocab]`` against ``[b, s]`` targets), as optax's
+    ``softmax_cross_entropy_with_integer_labels(...).mean()``."""
+    logits = logits.to(torch.float32)
+    return F.cross_entropy(logits.reshape(-1, logits.shape[-1]), labels.long().reshape(-1))
 
 
 def smoothed_softmax_cross_entropy(smoothing: float):
