@@ -26,14 +26,30 @@ CUDA card and ``nvcc``. In order:
    at ragged and edge cases (batch 37, a 2-D fp32 residual, a 5-D one,
    values mixing +-0, +-inf, NaN, +-1 and +-1e-40): each must equal its
    plain version bit for bit, and is timed beside it.
-5. The int8 conv's forward at the four section shapes must give the
+5. Popcount GEMMs: K5 ``xnor_matmul_packed`` and K2
+   ``xnor_matmul_packed_scaled`` at BinaryAlexNet's dense shapes (M 1
+   and 8, K 9216 and 4096, N 4096), BinaryNet's batch-8 K5 shapes (the
+   per-tap and fused convs, the dense layers) and a ragged shape: each
+   must equal its plain version bit for bit, and K2 must equal K5's
+   output ``.float() * scale`` bit for bit; each is timed beside its
+   plain version and ``torch._int_mm`` on int8 +-1 operands (M padded
+   where ``_int_mm`` refuses a small M; the line says so).
+6. The int8 conv's forward at the four section shapes must give the
    exact integer sums (against a float64 conv, exact for these sums).
-6. Slice A: ``ServingConfig`` serves seeded requests with QuickNet-Large,
+7. Serving slices (``SLICES``), each ``ServingConfig.run()`` over 16
+   seeded requests at buckets (1, 8): every forward must launch its
+   slice's binary kernels (by its bucket) and no other, and one batch's
+   logits must equal the plain path's bit for bit. A: QuickNet-Large,
    224x224x3, 1000 classes, bf16, ``binary_compute="xnor_popcount"``,
-   packed and BN-folded weights; K1 and K3 must launch 32 times per
-   forward, and one batch's logits must equal the plain path's bit for
-   bit.
-7. Slice B: the same with ``binary_compute="xnor"`` on K4.
+   packed and BN-folded weights (K1, K3: 32 each). B: the same with
+   ``"xnor"`` (K4: 32). C: BinaryAlexNet, 224, bf16, ``"xnor_popcount"``
+   packed, no fold (K1 6, K3 4, K2 2). D: BinaryAlexNet with "mxu" convs
+   and the packed, BN-folded "xnor" dense stage (K4 2); without the fold
+   the same build converts exactly the two dense kernels. E: BinaryNet
+   (default widths), 32x32x3, 10 classes, fp32, ``"xnor_popcount"``
+   packed, ``binary_flavor="reference"`` (K5 15 per batch-8 forward, 7
+   at batch 1); its logits must also equal the same model's under
+   ``binary_flavor="auto"`` (K1 7, K3 5, K2 2) bit for bit.
 8. Training: ``TrainImageNet`` with QuickNet-Large, 224x224x3, 1000
    classes, bf16, batch 128, ``binary_compute="int8"`` and
    ``pack_residuals=True``. One step from a fixed state (Adam's count at
@@ -52,7 +68,8 @@ CUDA card and ``nvcc``. In order:
    mixing 0, 1, 15, 16, 2047, 8191 and 9000, bf16 and fp32) and K13
    ``pool_paged_decode_attention`` (a pool of 4096 pages of 16, shuffled
    tables with -1 entries, bf16, fp32 and int8 rows), and K12/K13 again
-   at head_dims 20 and 100 (not multiples of 8), each against its plain
+   at head_dims 20 and 100 (not multiples of 8) and 264 and 384 (past
+   256, in chunks), each against its plain
    version (K9 in bf16 within 2^-6 of each output value plus 2e-3, and
    3e-2 overall, 2e-5 in fp32; K12/K13 2e-6 in fp32 and one bf16
    rounding step in bf16), timed beside it and beside SDPA where one
@@ -75,7 +92,9 @@ CUDA card and ``nvcc``. In order:
 12. LM training kernels: K9 with lse (``flash_forward_lse``), K10
    ``flash_backward_dq`` and K11 ``flash_backward_dkv`` at the training
    step's [4, 8192, 8, 64] bf16 causal, at [1, 2048, 8, 64] bf16 and fp32,
-   causal and full, at s=999, and at head_dims 128 and 32, each against
+   causal and full, at s=999, at head_dims 128 and 32, and at [1, 1024,
+   4, 256] and [1, 512, 2, 320] in bf16 and fp32 (past 128, in chunks),
+   each against
    its plain version: K9's out equal bit for bit to the no-lse K9's, lse
    within 1e-5, gradients per element (fp32: 5e-5 + 5e-5|want|, the JAX
    package's flash-gradient tolerance; bf16: 2^-6|want| + 2^-7
@@ -94,7 +113,12 @@ CUDA card and ``nvcc``. In order:
    the kernels must match the same step through their plain versions
    (loss within 1e-5 relative, each gradient within 1e-4 of its largest
    magnitude).
-14. One JSON line of the kernels, then the result line.
+14. Head_dim 256: TransformerLM with d_model 1024 and 4 heads (2 layers,
+   seq_len 2048, bf16) serves 6 requests through
+   ``LMServingConfig.run()`` in the slot and paged layouts (2 K9 per
+   prefill, 2 K12/K13 per decode step) and takes one training step
+   (2 K9-lse, 2 K10, 2 K11).
+15. One JSON line of the kernels (13 rows), then the result line.
 """
 
 import contextlib
@@ -139,6 +163,9 @@ OPS_RATE = {
     "flash_forward_lse": FP32_OPS_PER_S,
     "flash_backward_dq": FP32_OPS_PER_S,
     "flash_backward_dkv": FP32_OPS_PER_S,
+    # The popcount GEMMs' +-1 products, like K3's, at the int8 rate.
+    "xnor_matmul_packed": INT8_OPS_PER_S,
+    "xnor_matmul_packed_scaled": INT8_OPS_PER_S,
 }
 
 #: Each kernel's source and the TPU kernel it replaces.
@@ -155,7 +182,10 @@ KERNELS = {
     "flash_forward_lse": ("flash_forward.cu", "zookeeper_tpu/ops/attention.py:1163"),
     "flash_backward_dq": ("flash_backward.cu", "zookeeper_tpu/ops/attention.py:1474"),
     "flash_backward_dkv": ("flash_backward.cu", "zookeeper_tpu/ops/attention.py:1492"),
+    "xnor_matmul_packed": ("xnor_gemm.cu", "zookeeper_tpu/ops/binary_compute.py:351"),
+    "xnor_matmul_packed_scaled": ("xnor_gemm.cu", "zookeeper_tpu/ops/binary_compute.py:600"),
 }
+XNOR_KERNELS = ("xnor_matmul_packed", "xnor_matmul_packed_scaled")
 LM_KERNELS = ("flash_forward", "paged_decode_attention", "pool_paged_decode_attention")
 LM_TRAIN_KERNELS = ("flash_forward_lse", "flash_backward_dq", "flash_backward_dkv")
 RESID_KERNELS = ("pack_resid", "unpack_resid_pm1", "mask_mul_resid")
@@ -170,6 +200,45 @@ RESID_PER_CONV = {"pack_resid": 2, "unpack_resid_pm1": 1, "mask_mul_resid": 1}
 #: Synthetic ImageNet examples generated for the training phase: three
 #: batches (the model is not cut; only the dataset is).
 TRAIN_EXAMPLES = 3 * TRAIN_BATCH
+
+#: The classifier-serving slices: ServingConfig settings, and the binary
+#: kernels each forward must launch, by batch bucket. A and B serve
+#: QuickNet-Large (32 binary convs); C serves BinaryAlexNet packed
+#: throughout (K1 before each of its 4 binary convs and 2 binary dense
+#: layers, K3 in each conv, K2 in each dense layer; no fold: its conv
+#: BNs follow a maxpool); D BASELINE's BinaryAlexNet deployment ("mxu"
+#: convs, the packed "xnor" dense stage with its BNs folded: K4 in each
+#: dense layer); E BinaryNet (default widths) on the "reference" flavor:
+#: one K5 per fused conv and dense layer, and 9 per-tap K5 for the first
+#: binary conv at batch 8, whose fused patch matrix (8192 x 9 x 128 x 4
+#: B = 37.7 MB) is over the 32 MiB fusion limit.
+IMAGENET = {"height": 224, "width": 224, "channels": 3, "num_classes": 1000}
+SLICES = {
+    "A": ({"model": "QuickNetLarge", "model.compute_dtype": "bfloat16",
+           "model.binary_compute": "xnor_popcount", "model.packed_weights": True,
+           "model.fold_bn": True, "model.binary_flavor": "auto", **IMAGENET},
+          lambda bucket: {"pack_rows": 32, "conv_gemm_popcount": 32}),
+    "B": ({"model": "QuickNetLarge", "model.compute_dtype": "bfloat16",
+           "model.binary_compute": "xnor", "model.packed_weights": True,
+           "model.fold_bn": True, "model.binary_flavor": "auto", **IMAGENET},
+          lambda bucket: {"packed_weight_matmul": 32}),
+    "C": ({"model": "BinaryAlexNet", "model.compute_dtype": "bfloat16",
+           "model.binary_compute": "xnor_popcount", "model.packed_weights": True, **IMAGENET},
+          lambda bucket: {"pack_rows": 6, "conv_gemm_popcount": 4,
+                          "xnor_matmul_packed_scaled": 2}),
+    "D": ({"model": "BinaryAlexNet", "model.compute_dtype": "bfloat16",
+           "model.binary_compute": "mxu", "model.dense_binary_compute": "xnor",
+           "model.dense_packed_weights": True, "model.fold_bn": True, **IMAGENET},
+          lambda bucket: {"packed_weight_matmul": 2}),
+    "E": ({"model": "BinaryNet", "model.compute_dtype": "float32",
+           "model.binary_compute": "xnor_popcount", "model.packed_weights": True,
+           "model.binary_flavor": "reference",
+           "height": 32, "width": 32, "channels": 3, "num_classes": 10},
+          lambda bucket: {"xnor_matmul_packed": 15 if bucket == BATCH else 7}),
+}
+#: Slice E's fused-flavor twin: K1 + K3 in its 5 binary convs, K1 + K2 in
+#: its 2 dense layers.
+E_AUTO = {"pack_rows": 7, "conv_gemm_popcount": 5, "xnor_matmul_packed_scaled": 2}
 
 
 def fail(msg: str) -> None:
@@ -332,6 +401,112 @@ def kernel_phase(torch, bc):
     return totals
 
 
+#: K2 and K5 checks: (M, Kw, N, launches per main-path forward). K2's
+#: main path is slice C's batch-8 forward (BinaryAlexNet's two dense
+#: layers, K 9216 and 4096, N 4096), K5's slice E's batch-8 forward
+#: (BinaryNet: 9 per-tap GEMMs of its first binary conv, one fused GEMM
+#: for each of the other four, the two dense layers). Then the dense
+#: shapes at batch 1 and a ragged shape, off the main path.
+K2_CASES = ((8, 288, 4096, 1), (8, 128, 4096, 1), (1, 288, 4096, 0), (1, 128, 4096, 0),
+            (37, 7, 130, 0))
+K5_CASES = ((8192, 4, 128, 9), (2048, 36, 256, 1), (2048, 72, 256, 1), (512, 72, 512, 1),
+            (512, 144, 512, 1), (8, 256, 1024, 1), (8, 32, 1024, 1),
+            (8, 288, 4096, 0), (8, 128, 4096, 0), (1, 288, 4096, 0), (1, 128, 4096, 0),
+            (37, 7, 130, 0))
+
+
+def _int_mm_yardstick(torch, m, k, n, dev, g):
+    """``torch._int_mm`` on int8 +-1 operands of the same product, with M
+    padded to the least size the installed ``_int_mm`` takes (it refuses
+    small M); returns (call, the M it ran at) or (None, None) where it
+    takes no such shape."""
+    if k % 8 or n % 8:
+        return None, None
+    b8 = torch.where(torch.rand(k, n, generator=g) < 0.5, -1, 1).to(torch.int8).to(dev)
+    b8 = b8.t().contiguous().t()  # column-major, as cuBLASLt's int8 path wants it
+    for rows in (m, 17, 24, 32):
+        if rows < m:
+            continue
+        a8 = torch.where(torch.rand(rows, k, generator=g) < 0.5, -1, 1).to(torch.int8).to(dev)
+        try:
+            torch._int_mm(a8, b8)
+            torch.cuda.synchronize()
+        except RuntimeError:
+            continue
+        return (lambda: torch._int_mm(a8, b8)), rows
+    return None, None
+
+
+def xnor_kernel_phase(torch, bc, smi):
+    """Check and time K5 and K2 against their plain versions (bit for bit)
+    at the shapes of ``K5_CASES``/``K2_CASES``, K2 also against K5's
+    output ``.float() * scale``; each beside ``torch._int_mm`` on int8
+    +-1 operands (for K2, ``_int_mm(...).float() * scale``). Returns
+    per-kernel totals over one main-path forward, as ``kernel_phase``."""
+    dev = torch.device("cuda")
+    g = torch.Generator().manual_seed(6)
+    totals = {name: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0.0,
+                     "ops": 0.0, "max_abs_err": 0.0} for name in XNOR_KERNELS}
+
+    def words(*shape):
+        return (torch.randint(0, 2**32, shape, generator=g) - 2**31).to(torch.int32).to(dev)
+
+    for name, cases in (("xnor_matmul_packed", K5_CASES), ("xnor_matmul_packed_scaled", K2_CASES)):
+        for m, kw, n, count in cases:
+            a, b = words(m, kw), words(kw, n)
+            scale = (torch.randn(n, generator=g) * 0.1).to(dev)
+            k_true = 32 * kw - 5
+            if name == "xnor_matmul_packed":
+                kernel = lambda: bc.xnor_matmul_packed(a, b, k_true=k_true)  # noqa: E731
+                plain = lambda: bc.xnor_matmul_packed_plain(a, b, k_true=k_true)  # noqa: E731
+            else:
+                kernel = lambda: bc.xnor_matmul_packed_scaled(a, b, scale, k_true=k_true)  # noqa: E731
+                plain = lambda: bc.xnor_matmul_packed_scaled_plain(  # noqa: E731
+                    a, b, scale, k_true=k_true)
+            with deterministic(torch):
+                got, want = kernel(), plain()
+                k5 = bc.xnor_matmul_packed(a, b, k_true=k_true)
+                torch.cuda.synchronize()
+            err = _max_abs_err(torch, got, want)
+            check(_same_bits(torch, got, want),
+                  f"{name} at {(m, kw, n)} disagrees with its plain version (max err {err})")
+            if name == "xnor_matmul_packed_scaled":
+                check(_same_bits(torch, got, k5.float() * scale[None, :]),
+                      f"K2 at {(m, kw, n)} is not K5 .float() * scale bit for bit")
+            mm, rows = _int_mm_yardstick(torch, m, 32 * kw, n, dev, g)
+            library = None
+            if mm is not None:
+                library = mm if name == "xnor_matmul_packed" else (
+                    lambda mm=mm: mm().float() * scale[None, :])
+            k_ms = time_ms(torch, kernel)
+            p_ms = time_ms(torch, plain, reps=5, inner=2)
+            l_ms = time_ms(torch, library) if library is not None else None
+            nbytes = m * kw * 4 + kw * n * 4 + m * n * 4 + (
+                n * 4 if name == "xnor_matmul_packed_scaled" else 0)
+            ops = 2 * m * n * 32 * kw
+            b_ms, b_by = bound_ms(name, nbytes, ops)
+            pad = "" if rows in (None, m) else f" (M padded {m} -> {rows}: _int_mm refuses M={m})"
+            print(f"kernel {name} M={m} Kw={kw} N={n} on {smi}: equal bits"
+                  f"{', = K5 .float() * scale' if name.endswith('scaled') else ''}, kernel "
+                  f"{k_ms:.6f} ms, plain {p_ms:.6f} ms, _int_mm "
+                  f"{None if l_ms is None else round(l_ms, 6)} ms{pad}, bound {b_ms:.6f} ms by "
+                  f"{b_by} ({nbytes} B, {ops} ops), launches/forward {count}", flush=True)
+            t = totals[name]
+            t["max_abs_err"] = max(t["max_abs_err"], err)
+            if count:
+                t["ms"] += count * k_ms
+                t["plain_ms"] += count * p_ms
+                t["bytes"] += count * nbytes
+                t["ops"] += count * ops
+                if l_ms is None or t["library_ms"] is None:
+                    t["library_ms"] = None
+                else:
+                    t["library_ms"] += count * l_ms
+            del a, b, got, want, k5
+    torch.cuda.empty_cache()
+    return totals
+
+
 def _same_bits(torch, a, b) -> bool:
     """Equal dtype, shape and bits: a float's bit pattern tells -0 from
     +0 and compares a NaN by its bits (``torch.equal`` calls no NaN
@@ -462,55 +637,65 @@ def int8_exact_phase(torch, bc):
               f"(max |sum| {sums.abs().max().item():.0f}), {ms:.6f} ms", flush=True)
 
 
-def slice_phase(torch, bc, label: str, binary_compute: str, kernels):
-    """Serve seeded requests through the port's ServingConfig; check the
-    launches, the logits, and that they equal the plain path's. Returns
-    (launches by kernel, timings)."""
+def _plain_binary(bc):
+    """The binary kernels' wrappers swapped for their plain versions."""
+    return mock.patch.multiple(
+        bc, pack_rows=bc.pack_rows_plain, conv_gemm_popcount=bc.conv_gemm_popcount_plain,
+        packed_weight_matmul=bc.packed_weight_matmul_plain,
+        xnor_matmul_packed=bc.xnor_matmul_packed_plain,
+        xnor_matmul_packed_scaled=bc.xnor_matmul_packed_scaled_plain,
+    )
+
+
+def slice_phase(torch, bc, label: str, smi: str):
+    """Serve seeded requests through the port's ServingConfig with slice
+    ``label``'s settings; check every forward's launches (by its batch
+    bucket), the logits, and that they equal the plain path's. Returns
+    (launches by kernel, timings, the config)."""
     import numpy as np
 
     from zookeeper_tpu_torch.core import configure
-    from zookeeper_tpu_torch.serving import ServingConfig
+    from zookeeper_tpu_torch.serving import InferenceEngine, ServingConfig
 
+    settings, per_forward = SLICES[label]
     cfg = ServingConfig()
     configure(cfg, {
-        "model": "QuickNetLarge",
-        "model.compute_dtype": "bfloat16",
-        "model.binary_compute": binary_compute,
-        "model.packed_weights": True,
-        "model.fold_bn": True,
-        "model.binary_flavor": "auto",
-        "engine.batch_buckets": (1, BATCH),
-        "height": 224, "width": 224, "channels": 3, "num_classes": 1000,
-        "requests": 16, "max_request": BATCH, "seed": 0,
-        "device": "cuda", "verbose": False,
+        "engine.batch_buckets": (1, BATCH), "requests": 16, "max_request": BATCH,
+        "seed": 0, "device": "cuda", "verbose": False, **settings,
     })
+    buckets = []
+    real_infer = InferenceEngine.infer
+
+    def spy(engine, x):
+        buckets.append(engine.bucket_for(len(x)))
+        return real_infer(engine, x)
+
     t0 = time.perf_counter()
     bc.reset_launches()
-    result = cfg.run()  # build, pack, warm both buckets, serve the stream
+    with mock.patch.object(InferenceEngine, "infer", spy):
+        result = cfg.run()  # build, pack, warm both buckets, serve the stream
     torch.cuda.synchronize()
     launches = dict(bc.LAUNCHES)
-    forwards = 2 + int(result["dispatches"])  # warmup of buckets 1 and 8
     print(f"slice {label}: served {result['requests']} requests in "
-          f"{int(result['dispatches'])} dispatches, {forwards} forwards, "
-          f"launches {launches}, run {time.perf_counter() - t0:.1f} s", flush=True)
+          f"{int(result['dispatches'])} dispatches, {len(buckets)} forwards (buckets "
+          f"{ {b: buckets.count(b) for b in sorted(set(buckets))} }), launches {launches}, "
+          f"run {time.perf_counter() - t0:.1f} s", flush=True)
     for name in bc.LAUNCHES:
-        want = 32 * forwards if name in kernels else 0
+        want = sum(per_forward(b).get(name, 0) for b in buckets)
         check(launches[name] == want,
               f"slice {label}: {name} launched {launches[name]} times, want {want}")
 
     engine = cfg.engine
-    x = np.random.default_rng(1).normal(size=(BATCH, 224, 224, 3)).astype(np.float32)
+    shape = (BATCH, *cfg.input_shape)
+    x = np.random.default_rng(1).normal(size=shape).astype(np.float32)
     with deterministic(torch):
         logits = engine.infer(x)
         torch.cuda.synchronize()
-        check(tuple(logits.shape) == (BATCH, 1000), f"slice {label}: logits {tuple(logits.shape)}")
+        check(tuple(logits.shape) == (BATCH, cfg.num_classes),
+              f"slice {label}: logits {tuple(logits.shape)}")
         check(bool(torch.isfinite(logits).all()), f"slice {label}: non-finite logits")
         before = dict(bc.LAUNCHES)
-        with mock.patch.multiple(
-            bc, pack_rows=bc.pack_rows_plain,
-            conv_gemm_popcount=bc.conv_gemm_popcount_plain,
-            packed_weight_matmul=bc.packed_weight_matmul_plain,
-        ):
+        with _plain_binary(bc):
             plain = engine.infer(x)
         torch.cuda.synchronize()
     check(bc.LAUNCHES == before,
@@ -519,6 +704,10 @@ def slice_phase(torch, bc, label: str, binary_compute: str, kernels):
     check(torch.equal(logits, plain),
           f"slice {label}: kernel-path logits differ from the plain path "
           f"(max {(logits - plain).abs().max().item()})")
+    if label == "E":
+        _e_flavor_check(torch, bc, engine, x, logits)
+    if label == "D":
+        _d_conversion_check(cfg)
 
     steps = 20
     engine.infer(x)
@@ -534,10 +723,58 @@ def slice_phase(torch, bc, label: str, binary_compute: str, kernels):
         "p50_ms": result["latency_p50_ms"],
         "p99_ms": result["latency_p99_ms"],
     }
-    print(f"slice {label}: logits equal to the plain path; " + json.dumps(stats), flush=True)
+    print(f"slice {label} on {smi}: logits equal to the plain path; " + json.dumps(stats),
+          flush=True)
     del cfg, engine
     torch.cuda.empty_cache()
     return launches, stats
+
+
+def _e_flavor_check(torch, bc, engine, x, logits):
+    """Slice E's model under binary_flavor="auto" (the same weights):
+    K1 + K3 convs and K1 + K2 dense instead of K5, and the same logits bit
+    for bit (the flavors share their integer sums and their one fp32
+    multiply)."""
+    layers = [m for m in engine._module.modules() if hasattr(m, "binary_flavor")]
+    for m in layers:
+        m.binary_flavor = "auto"
+    try:
+        with deterministic(torch):
+            bc.reset_launches()
+            auto = engine.infer(x)
+            torch.cuda.synchronize()
+        got = {k: v for k, v in bc.LAUNCHES.items() if v}
+    finally:
+        for m in layers:
+            m.binary_flavor = "reference"
+    check(got == E_AUTO, f"slice E under binary_flavor=auto launched {got}, want {E_AUTO}")
+    check(_same_bits(torch, auto, logits),
+          f"slice E: binary_flavor=auto logits differ from reference's "
+          f"(max {_max_abs_err(torch, auto, logits)})")
+    print(f"slice E: the same model under binary_flavor=auto launched {got} and gave the "
+          f"reference flavor's logits bit for bit", flush=True)
+
+
+def _d_conversion_check(cfg):
+    """Slice D's deployment without the fold converts exactly the two
+    dense kernels, as the JAX package's test asserts."""
+    from zookeeper_tpu_torch.core import configure
+    from zookeeper_tpu_torch.models import BinaryAlexNet
+    from zookeeper_tpu_torch.models.convert import to_flax_variables
+    from zookeeper_tpu_torch.ops.packed import pack_quantconv_params
+
+    model = BinaryAlexNet()
+    configure(model, {"compute_dtype": "bfloat16", "binary_compute": "mxu",
+                      "dense_binary_compute": "xnor", "dense_packed_weights": True},
+              name="model")
+    module = model.build(cfg.input_shape, cfg.num_classes)
+    params, _ = to_flax_variables(model.initialize(module.float_twin(), seed=0))
+    template, _ = to_flax_variables(module)
+    packed = pack_quantconv_params(params, template=template)
+    converted = sorted(k for k, v in packed.items() if "kernel_packed" in v)
+    check(converted == ["QuantDense_0", "QuantDense_1"],
+          f"slice D without the fold converted {converted}")
+    print(f"slice D: without the fold the template converts exactly {converted}", flush=True)
 
 
 def _snapshot(state):
@@ -910,8 +1147,10 @@ def lm_kernel_phase(torch, A):
         del kp, vp
 
     # K12/K13 at head_dims that are not multiples of 8 (off the JAX
-    # kernel's geometry; the port's kernels serve any head_dim to 256, so
-    # the engine never leaves them): 8 slots, capacity 512, 4 heads.
+    # kernel's geometry; the port's kernels serve any head_dim, so the
+    # engine never leaves them) and past 256 (264 and 384 run in 256-dim
+    # chunks; 264 int8 rows are not 16-byte multiples): 8 slots, capacity
+    # 512, 4 heads.
     cap, heads = 512, 4
     odd_lengths = torch.tensor((0, 1, 15, 16, 100, 511, 600, 300), dtype=torch.int32, device=dev)
     odd_live = int((odd_lengths.clamp(0, cap - 1) + 1).sum())
@@ -920,7 +1159,7 @@ def lm_kernel_phase(torch, A):
         LM_SLOTS, cap // LM_PAGE)
     table[torch.rand(table.shape, generator=cpu_g) < 0.1] = -1
     table = table.to(torch.int32).to(dev)
-    for d in (20, 100):
+    for d in (20, 100, 264, 384):
         for dtype in (torch.bfloat16, torch.float32):
             q = torch.randn(LM_SLOTS, 1, heads, d, generator=g, device=dev).to(dtype)
             kc, vc = (torch.randn(LM_SLOTS, cap, heads, d, generator=g, device=dev).to(dtype)
@@ -1274,6 +1513,9 @@ LM_TRAIN_CHECKS = (
     (1, 2048, 8, 64, "float32", True), (1, 2048, 8, 64, "float32", False),
     (1, 999, 8, 64, "bfloat16", True), (1, 999, 8, 64, "float32", True),
     (1, 1024, 4, 128, "bfloat16", True), (2, 300, 3, 32, "float32", False),
+    # Past one register tile: head_dims 256 and 320 run in 128-dim chunks.
+    (1, 1024, 4, 256, "bfloat16", True), (1, 1024, 4, 256, "float32", True),
+    (1, 512, 2, 320, "bfloat16", True), (1, 512, 2, 320, "float32", True),
 )
 
 
@@ -1603,6 +1845,76 @@ def lm_training_phase(torch, A, smi):
     return launches, stats
 
 
+#: TransformerLM at head_dim 256 (d_model 1024, 4 heads), 2 layers, seq_len
+#: 2048: the geometry the port's kernels refused before they took every
+#: head_dim. Served in both layouts, and one training step.
+LM_WIDE = {"model.num_layers": 2, "model.d_model": 1024, "model.num_heads": 4,
+           "model.mlp_ratio": 4, "model.compute_dtype": "bfloat16", "seq_len": 2048}
+
+
+def lm_wide_phase(torch, A, smi):
+    """Serve a few requests through LMServingConfig.run() at head_dim 256 in
+    the slot and paged layouts (2 K9 per prefill, 2 K12/K13 per decode
+    step), then take one training step through the train step (2 K9-lse,
+    2 K10, 2 K11). Returns the launches."""
+    import numpy as np
+
+    from zookeeper_tpu_torch.core import configure
+    from zookeeper_tpu_torch.training.lm import TrainLM
+
+    layers = LM_WIDE["model.num_layers"]
+    launches = {}
+    for label, overrides in (("slots", {}), ("paged", PAGED)):
+        cfg = _lm_config({**LM_WIDE, "requests": 6, "max_prompt": 1500, "new_tokens": 8,
+                          **overrides})
+        A.reset_launches()
+        t0 = time.perf_counter()
+        result = cfg.run()
+        torch.cuda.synchronize()
+        got = dict(A.LAUNCHES)
+        kernel = "paged_decode_attention" if label == "slots" else "pool_paged_decode_attention"
+        prefills = int(result["prefills_total"]) + 2  # + the warmup of both buckets
+        decodes = int(result["decode_steps_total"]) + 1  # + the warmup step
+        want = {**dict.fromkeys(A.LAUNCHES, 0), "flash_forward": layers * prefills,
+                kernel: layers * decodes}
+        check(got == want, f"lm head_dim 256 {label}: launches {got}, want {want}")
+        outputs = np.concatenate(cfg.outputs)
+        check(result["generated_tokens"] == 6 * 8 and outputs.min() >= 0
+              and outputs.max() < LM_CONFIG["vocab_size"],
+              f"lm head_dim 256 {label}: {result['generated_tokens']} tokens, range "
+              f"[{outputs.min()}, {outputs.max()}]")
+        launches[label] = got
+        print(f"lm head_dim 256 {label} on {smi}: launches {got} ({prefills} prefills, "
+              f"{decodes} decode steps with warmup), tokens/s {result['tokens_per_sec']:.1f}, "
+              f"run {time.perf_counter() - t0:.1f} s", flush=True)
+        del cfg
+        torch.cuda.empty_cache()
+
+    dev = torch.device("cuda")
+    exp = TrainLM()
+    configure(exp, {**LM_TRAIN_CONFIG, **LM_WIDE, "batch_size": 2}, name="experiment")
+    state, step = exp.build_state(dev), exp._train_step_fn()
+    batches = exp.loader.batches("train", device=dev, epoch=0, max_batches=1)
+    batch = next(batches)
+    batches.close()
+    A.reset_launches()
+    t0 = time.perf_counter()
+    state, metrics = step(state, batch)
+    loss = float(metrics["loss"])
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    got = dict(A.LAUNCHES)
+    want = {**dict.fromkeys(A.LAUNCHES, 0), **dict.fromkeys(LM_TRAIN_KERNELS, layers)}
+    check(got == want, f"lm head_dim 256 training step: launches {got}, want {want}")
+    check(math.isfinite(loss), f"lm head_dim 256 training step: loss {loss}")
+    launches["train"] = got
+    print(f"lm head_dim 256 training step on {smi} ([2, 2048], bf16): launches {got}, loss "
+          f"{loss:.5f}, first step {step_s * 1e3:.1f} ms with the kernels' first use", flush=True)
+    del exp, state, batch
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> None:
     if not os.path.isdir(os.path.join(ROOT, "zookeeper_tpu_torch", "csrc")):
         fail("run from a checkout: zookeeper_tpu_torch/ is not beside this script")
@@ -1636,12 +1948,12 @@ def main() -> None:
 
     totals = kernel_phase(torch, bc)
     totals.update(resid_kernel_phase(torch, bc))
+    totals.update(xnor_kernel_phase(torch, bc, smi))
     int8_exact_phase(torch, bc)
-    launches_a, stats_a = slice_phase(torch, bc, "A", "xnor_popcount",
-                                      ("pack_rows", "conv_gemm_popcount"))
-    launches_b, stats_b = slice_phase(torch, bc, "B", "xnor",
-                                      ("packed_weight_matmul",))
-    print(f"slices on {smi}: A {json.dumps(stats_a)} B {json.dumps(stats_b)}", flush=True)
+    slices = {label: slice_phase(torch, bc, label, smi) for label in SLICES}
+    print(f"slices on {smi}: "
+          + " ".join(f"{label} {json.dumps(stats)}" for label, (_, stats) in slices.items()),
+          flush=True)
     launches_t, _ = training_phase(torch, bc, smi)
 
     from zookeeper_tpu_torch.ops import attention as A
@@ -1652,9 +1964,14 @@ def main() -> None:
     print(f"lm parity: {json.dumps(parity)}", flush=True)
     lm_train_records, lm_train_err = lm_train_kernel_phase(torch, A)
     launches_lt, _ = lm_training_phase(torch, A, smi)
+    lm_wide_phase(torch, A, smi)
 
-    launches = {**{n: launches_a[n] for n in ("pack_rows", "conv_gemm_popcount")},
-                "packed_weight_matmul": launches_b["packed_weight_matmul"], **launches_t}
+    # Each kernel's launches on its main path: K1 and K3 serving slice A,
+    # K4 slice B, K2 slice C, K5 slice E, K6-K8 the training step.
+    main_slice = {"pack_rows": "A", "conv_gemm_popcount": "A", "packed_weight_matmul": "B",
+                  "xnor_matmul_packed_scaled": "C", "xnor_matmul_packed": "E"}
+    launches = {name: slices[label][0][name] for name, label in main_slice.items()}
+    launches.update(launches_t)
     rows = []
     for name, t in totals.items():
         source, replaces = KERNELS[name]

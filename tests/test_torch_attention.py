@@ -233,3 +233,50 @@ def test_quantize_kv_rows_bitwise():
     deq = dequantize_kv_rows(got_q, got_s)
     want_deq = np.array(jops.dequantize_kv_rows(_j(want_q), _j(want_s)))
     np.testing.assert_array_equal(deq.numpy(), want_deq)
+
+
+# -- head_dims past one register tile ----------------------------------------
+
+
+@pytest.mark.parametrize("head_dim", [256, 320])
+def test_kernel_operand_checks_take_wide_head_dims(head_dim):
+    """The flash and decode kernels serve any head_dim >= 1 (wide ones in
+    chunks), so their operand checks refuse none that JAX serves."""
+    q = torch.zeros(1, 16, 2, head_dim)
+    A._check_flash_operands("flash", q, q, q)
+    cache = torch.zeros(2, 8, 2, head_dim)
+    A._check_kernel_operands("decode", torch.zeros(2, 1, 2, head_dim), (cache, cache), head_dim,
+                             (cache, cache))
+    with pytest.raises(ValueError, match="head_dim must be >= 1"):
+        A._check_flash_operands("flash", *(torch.zeros(1, 16, 2, 0),) * 3)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_flash_matches_jax_flash_at_head_dim_256(causal, dtype):
+    rng = np.random.default_rng(21)
+    shape = (1, 40, 2, 256)
+    q, k, v = (_normal(rng, *shape) for _ in range(3))
+    want = jops.flash_attention(_j(q, dtype), _j(k, dtype), _j(v, dtype), causal=causal)
+    tdtype = getattr(torch, dtype)
+    got = A.flash_attention(*(_t(x).to(tdtype) for x in (q, k, v)), causal=causal)
+    assert got.dtype == tdtype and tuple(got.shape) == shape
+    _close(got.float(), np.asarray(want.astype(jnp.float32)),
+           F32_FLASH if dtype == "float32" else BF16_FLASH)
+
+
+@pytest.mark.parametrize("quant", [False, True])
+def test_plain_decode_matches_jax_kernels_at_head_dim_256(quant):
+    rng = np.random.default_rng(22)
+    b, cap, h, d = 3, 16, 2, 256
+    q = _normal(rng, b, 1, h, d)
+    k, v = _normal(rng, b, cap, h, d), _normal(rng, b, cap, h, d)
+    lengths = np.array([0, 9, cap + 2], np.int32)
+    want = jops.paged_decode_attention(_j(q), _j(k), _j(v), _j(lengths), page_size=4)
+    _close(A.paged_decode_attention(_t(q), _t(k), _t(v), _t(lengths)), want, F32_DECODE)
+    q, kp, vp, table, lengths, scales = _pool_case(np.random.default_rng(23), d, quant)
+    jkw = {} if scales is None else {"k_scale": _j(scales[0]), "v_scale": _j(scales[1])}
+    tkw = {} if scales is None else {"k_scale": _t(scales[0]), "v_scale": _t(scales[1])}
+    want = jops.pool_paged_decode_attention(_j(q), _j(kp), _j(vp), _j(table), _j(lengths), **jkw)
+    got = A.pool_paged_decode_attention(_t(q), _t(kp), _t(vp), _t(table), _t(lengths), **tkw)
+    _close(got, want, F32_DECODE)

@@ -220,8 +220,8 @@ def test_flavor_seam():
 
 def test_wrappers_off_the_cpu_launch_or_raise():
     """A tensor that is not on the CPU never takes the plain version:
-    a device other than CUDA raises, and the unported K5 raises on any
-    non-CPU tensor instead of running plain PyTorch there."""
+    on a device other than CUDA every wrapper raises, K5 included, and
+    nothing launches."""
     x = torch.empty(4, 64, device="meta")
     with pytest.raises(ValueError, match="CUDA"):
         tbc.pack_rows(x)

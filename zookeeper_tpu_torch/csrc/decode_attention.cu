@@ -35,6 +35,14 @@
 // this loop); at the end the 32 partial states are merged in shared
 // memory and lanes 0..d-1 write the output. Lengths and the page table
 // are read by the block itself, in place of the TPU's scalar prefetch.
+//
+// Head_dims above 256 (`decode_attention_wide_kernel`): the same block
+// and numerics over chunks of 256 dims (32 a lane), one row per lane
+// group per iteration. A score sums its partial products over every
+// chunk of q and the K row; the output is produced one 256-dim chunk per
+// pass over the rows, each pass recomputing the same scores and softmax
+// in the same order, then merged and written as above. Shared memory
+// stays the 256-dim kernel's; the price is ceil(d / 256) passes.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -258,6 +266,118 @@ decode_attention_kernel(const QT* __restrict__ q, long long q_sb,
   }
 }
 
+// Head_dim > 256: chunks of WDL * LPR dims; see the file comment.
+constexpr int WDL = 32;
+constexpr int WCH = WDL * LPR;  // 256
+
+template <typename QT, typename KT, bool PAGED>
+__global__ void __launch_bounds__(THREADS)
+decode_attention_wide_kernel(const QT* __restrict__ q, long long q_sb,
+                             long long q_sh, const KT* __restrict__ kbuf,
+                             const KT* __restrict__ vbuf,
+                             const float* __restrict__ k_scale,
+                             const float* __restrict__ v_scale,
+                             const int* __restrict__ lengths,
+                             QT* __restrict__ out, Geometry g, float scale) {
+  __shared__ float s_m[GROUPS];
+  __shared__ float s_l[GROUPS];
+  __shared__ float s_acc[GROUPS][WCH];
+
+  const int slot = blockIdx.x / g.h;
+  const int hh = blockIdx.x % g.h;
+  const int group = threadIdx.x / LPR;
+  const int sub = threadIdx.x % LPR;
+  const int cap_view = PAGED ? g.max_pages * g.page_size : g.cap;
+  const int len = min(max(lengths[slot], 0), cap_view - 1);
+  const int chunks = (g.d + WCH - 1) / WCH;
+  // Vector loads need every lane's 32 values 16-byte aligned: rows of d
+  // values keep that when d values fill a multiple of 16 bytes.
+  const bool aligned = (static_cast<long long>(g.d) * sizeof(KT)) % 16 == 0;
+  const QT* q_row = q + slot * q_sb + hh * q_sh;
+
+  for (int oc = 0; oc < chunks; ++oc) {
+    const int d0_out = oc * WCH + sub * WDL;
+    const int n_out = min(WDL, max(g.d - d0_out, 0));
+    float m = MASK_VALUE;
+    float l = 0.0f;
+    float acc[WDL];
+#pragma unroll
+    for (int i = 0; i < WDL; ++i) acc[i] = 0.0f;
+
+    // Every lane runs the same trip count, as in the narrow kernel.
+    for (int r0 = 0; r0 <= len; r0 += GROUPS) {
+      const int r = r0 + group;
+      const bool row_live = r <= len;
+      long long off = 0, sidx = 0;
+      float ksc = 1.0f, vsc = 1.0f;
+      if (row_live) {
+        off = row_offset<PAGED>(g, slot, r, hh, &sidx);
+        if (k_scale != nullptr) {
+          ksc = k_scale[sidx];
+          vsc = v_scale[sidx];
+        }
+      }
+      float dot = 0.0f;
+      for (int c = 0; c < chunks; ++c) {
+        const int d0 = c * WCH + sub * WDL;
+        const int n_valid = min(WDL, max(g.d - d0, 0));
+        RawRow<KT, WDL> kr;
+        if (row_live) {
+          kr.load(kbuf + off + d0, aligned && n_valid == WDL, n_valid);
+        } else {
+          kr.clear();
+        }
+#pragma unroll
+        for (int i = 0; i < WDL; ++i) {
+          const float qv = i < n_valid ? to_float(q_row[d0 + i]) : 0.0f;
+          dot = fmaf(qv, kr.get(i) * ksc, dot);
+        }
+      }
+      dot += __shfl_xor_sync(0xffffffffu, dot, 1);
+      dot += __shfl_xor_sync(0xffffffffu, dot, 2);
+      dot += __shfl_xor_sync(0xffffffffu, dot, 4);
+      // -inf, not the mask value: a dead row must weigh exactly 0 even
+      // before this group has seen a live row.
+      const float sc = row_live ? dot * scale : -INFINITY;
+      const float m_new = fmaxf(m, sc);
+      const float corr = expf(m - m_new);
+      const float p = expf(sc - m_new);
+      RawRow<KT, WDL> vr;
+      if (row_live) {
+        vr.load(vbuf + off + d0_out, aligned && n_out == WDL, n_out);
+      } else {
+        vr.clear();
+      }
+      m = m_new;
+      l = l * corr + p;
+#pragma unroll
+      for (int i = 0; i < WDL; ++i) acc[i] = acc[i] * corr + fmaf(p, vr.get(i) * vsc, 0.0f);
+    }
+
+    // Merge the groups' partial softmax states for this chunk.
+    __syncthreads();  // the previous chunk's merge is done
+    if (sub == 0) {
+      s_m[group] = m;
+      s_l[group] = l;
+    }
+#pragma unroll
+    for (int i = 0; i < WDL; ++i) s_acc[group][sub * WDL + i] = acc[i];
+    __syncthreads();
+    if (oc * WCH + threadIdx.x < g.d) {
+      float m_all = MASK_VALUE;
+      for (int j = 0; j < GROUPS; ++j) m_all = fmaxf(m_all, s_m[j]);
+      float l_all = 0.0f, o = 0.0f;
+      for (int j = 0; j < GROUPS; ++j) {
+        const float w = expf(s_m[j] - m_all);
+        l_all = fmaf(s_l[j], w, l_all);
+        o = fmaf(s_acc[j][threadIdx.x], w, o);
+      }
+      store(out + (static_cast<long long>(slot) * g.h + hh) * g.d + oc * WCH + threadIdx.x,
+            o / l_all);
+    }
+  }
+}
+
 template <typename QT, typename KT, bool PAGED>
 cudaError_t launch(const void* q, long long q_sb, long long q_sh,
                    const void* k, const void* v, const float* k_scale,
@@ -281,7 +401,8 @@ cudaError_t launch(const void* q, long long q_sb, long long q_sh,
   } else if (g.d <= 256) {
     ZK_DECODE_LAUNCH(32);
   } else {
-    return cudaErrorInvalidValue;
+    decode_attention_wide_kernel<QT, KT, PAGED><<<grid, THREADS, 0, stream>>>(
+        qp, q_sb, q_sh, kp, vp, k_scale, v_scale, lengths, op, g, scale);
   }
 #undef ZK_DECODE_LAUNCH
   return cudaGetLastError();

@@ -41,6 +41,16 @@
 // through their strides (the split of a fused qkv projection needs no
 // copy); dO is a contiguous [b, s, h, d]; lse and D contiguous fp32
 // [b*h, s]. Rows >= s are computed as masked and never written.
+//
+// Head_dims above 128 (`flash_dq_wide_kernel`, `flash_dkv_wide_kernel`):
+// the same blocks and numerics over chunks of 128 dims, with loop tiles
+// of 16 rows. Each row's S and dO . v sum their partial products over
+// every chunk (the register row's chunk read from global memory, the
+// tile's widened into shared memory one chunk at a time); the gradients
+// are produced one 128-dim chunk per pass over the loop tiles, each pass
+// recomputing the same P and dS in the same order. Shared memory stays
+// static (16 KiB) and registers near those of the 128-dim kernels
+// whatever the head_dim; the price is ceil(d / 128) passes.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -274,6 +284,185 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// Head_dim > 128: DC-dim chunks and WT-row loop tiles.
+constexpr int DC = 128;
+constexpr int WT = 16;
+constexpr int WC4 = DC / 4 / TPR;  // float4 chunks per thread per DC dims
+
+// Load WT rows r0.. of chunk c (DC dims) into a fp32 shared tile, zeros
+// past s and d.
+template <typename T>
+__device__ __forceinline__ void load_chunk(float4 (*tile)[DC / 4], const T* x,
+                                           long long base, long long row_stride,
+                                           int r0, int c, int s, int d) {
+  for (int e = threadIdx.x; e < WT * DC; e += THREADS) {
+    const int r = e / DC;
+    const int dd = c * DC + e % DC;
+    const int ri = r0 + r;
+    float val = 0.0f;
+    if (ri < s && dd < d) {
+      val = to_float(x[base + static_cast<long long>(ri) * row_stride + dd]);
+    }
+    reinterpret_cast<float*>(tile)[e] = val;
+  }
+}
+
+// K10 for head_dim > 128.
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+flash_dq_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                     const T* __restrict__ v, const T* __restrict__ dout,
+                     const float* __restrict__ lse, const float* __restrict__ delta,
+                     T* __restrict__ dq, int s, int h, int d, Strides qs, Strides ks,
+                     Strides vs, float scale, int causal) {
+  __shared__ float4 k_tile[WT][DC / 4];
+  __shared__ float4 v_tile[WT][DC / 4];
+
+  const int bh = blockIdx.y;
+  const int b = bh / h;
+  const int hh = bh % h;
+  const int q0 = blockIdx.x * ROWS;
+  const int row = threadIdx.x / TPR;
+  const int part = threadIdx.x % TPR;
+  const int qi = q0 + row;
+  const bool live = qi < s;
+  const int chunks = (d + DC - 1) / DC;
+
+  const long long out_row = (static_cast<long long>(b) * s + qi) * h + hh;
+  const T* q_row = q + b * qs.b + static_cast<long long>(qi) * qs.s + hh * qs.h;
+  const T* do_row = dout + out_row * d;
+  const long long stat = static_cast<long long>(bh) * s + qi;
+  const float lse_i = live ? lse[stat] : 0.0f;
+  const float d_i = live ? delta[stat] : 0.0f;
+  const long long k_base = b * ks.b + hh * ks.h;
+  const long long v_base = b * vs.b + hh * vs.h;
+  const int k_end = causal ? min(s, q0 + ROWS) : s;
+
+  for (int oc = 0; oc < chunks; ++oc) {
+    float acc[WC4 * 4];
+#pragma unroll
+    for (int i = 0; i < WC4 * 4; ++i) acc[i] = 0.0f;
+    for (int k0 = 0; k0 < k_end; k0 += WT) {
+      float dot[WT], dp[WT];
+#pragma unroll
+      for (int j = 0; j < WT; ++j) dot[j] = dp[j] = 0.0f;
+      for (int c = 0; c < chunks; ++c) {
+        __syncthreads();  // the previous tiles are consumed
+        load_chunk<T>(k_tile, k, k_base, ks.s, k0, c, s, d);
+        load_chunk<T>(v_tile, v, v_base, vs.s, k0, c, s, d);
+        __syncthreads();
+        float qv[WC4 * 4], dov[WC4 * 4];
+        load_row<T, WC4>(qv, q_row + c * DC, live, part, d - c * DC);
+        load_row<T, WC4>(dov, do_row + c * DC, live, part, d - c * DC);
+#pragma unroll
+        for (int j = 0; j < WT; ++j) {
+          dot[j] += partial_dot<WC4>(qv, k_tile[j], part);
+          dp[j] += partial_dot<WC4>(dov, v_tile[j], part);
+        }
+      }
+      __syncthreads();  // the last chunk is consumed
+      load_chunk<T>(k_tile, k, k_base, ks.s, k0, oc, s, d);
+      __syncthreads();
+#pragma unroll
+      for (int j = 0; j < WT; ++j) {
+        const float sdot = quad_sum(dot[j]);
+        const float sdp = quad_sum(dp[j]);
+        const int kj = k0 + j;
+        const bool valid = live && kj < s && (!causal || kj <= qi);
+        const float p = valid ? expf(__fmul_rn(sdot, scale) - lse_i) : 0.0f;
+        const float ds = round_to(p * (sdp - d_i), q);
+        axpy<WC4>(acc, ds, k_tile[j], part);
+      }
+    }
+    if (live) store_row<T, WC4>(dq + out_row * d + oc * DC, acc, scale, part, d - oc * DC);
+  }
+}
+
+// K11 for head_dim > 128.
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+flash_dkv_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                      const T* __restrict__ v, const T* __restrict__ dout,
+                      const float* __restrict__ lse, const float* __restrict__ delta,
+                      T* __restrict__ dk, T* __restrict__ dv, int s, int h, int d,
+                      Strides qs, Strides ks, Strides vs, float scale, int causal) {
+  __shared__ float4 q_tile[WT][DC / 4];
+  __shared__ float4 do_tile[WT][DC / 4];
+  __shared__ float lse_tile[WT];
+  __shared__ float d_tile[WT];
+
+  const int bh = blockIdx.y;
+  const int b = bh / h;
+  const int hh = bh % h;
+  const int k0 = blockIdx.x * ROWS;
+  const int row = threadIdx.x / TPR;
+  const int part = threadIdx.x % TPR;
+  const int kj = k0 + row;
+  const bool live = kj < s;
+  const int chunks = (d + DC - 1) / DC;
+
+  const T* k_row = k + b * ks.b + static_cast<long long>(kj) * ks.s + hh * ks.h;
+  const T* v_row = v + b * vs.b + static_cast<long long>(kj) * vs.s + hh * vs.h;
+  const long long stat0 = static_cast<long long>(bh) * s;
+  const long long q_base = b * qs.b + hh * qs.h;
+  const long long do_base = (static_cast<long long>(b) * s * h + hh) * d;
+  const long long do_stride = static_cast<long long>(h) * d;
+
+  for (int oc = 0; oc < chunks; ++oc) {
+    float dk_acc[WC4 * 4], dv_acc[WC4 * 4];
+#pragma unroll
+    for (int i = 0; i < WC4 * 4; ++i) {
+      dk_acc[i] = 0.0f;
+      dv_acc[i] = 0.0f;
+    }
+    // Causal: q rows above the tile's first key are masked for every key
+    // (k0 is a multiple of WT, so the loop starts on a tile boundary).
+    for (int q0 = causal ? k0 : 0; q0 < s; q0 += WT) {
+      float dot[WT], dp[WT];
+#pragma unroll
+      for (int i = 0; i < WT; ++i) dot[i] = dp[i] = 0.0f;
+      for (int c = 0; c < chunks; ++c) {
+        __syncthreads();  // the previous tiles are consumed
+        load_chunk<T>(q_tile, q, q_base, qs.s, q0, c, s, d);
+        load_chunk<T>(do_tile, dout, do_base, do_stride, q0, c, s, d);
+        if (c == 0 && threadIdx.x < WT) {
+          const int qi = q0 + threadIdx.x;
+          lse_tile[threadIdx.x] = qi < s ? lse[stat0 + qi] : 0.0f;
+          d_tile[threadIdx.x] = qi < s ? delta[stat0 + qi] : 0.0f;
+        }
+        __syncthreads();
+        float kv[WC4 * 4], vv[WC4 * 4];
+        load_row<T, WC4>(kv, k_row + c * DC, live, part, d - c * DC);
+        load_row<T, WC4>(vv, v_row + c * DC, live, part, d - c * DC);
+#pragma unroll
+        for (int i = 0; i < WT; ++i) {
+          dot[i] += partial_dot<WC4>(kv, q_tile[i], part);
+          dp[i] += partial_dot<WC4>(vv, do_tile[i], part);
+        }
+      }
+      __syncthreads();  // the last chunk is consumed
+      load_chunk<T>(q_tile, q, q_base, qs.s, q0, oc, s, d);
+      load_chunk<T>(do_tile, dout, do_base, do_stride, q0, oc, s, d);
+      __syncthreads();
+#pragma unroll
+      for (int i = 0; i < WT; ++i) {
+        const float sdot = quad_sum(dot[i]);
+        const float sdp = quad_sum(dp[i]);
+        const int qi = q0 + i;
+        const bool valid = live && qi < s && (!causal || kj <= qi);
+        const float p = valid ? expf(__fmul_rn(sdot, scale) - lse_tile[i]) : 0.0f;
+        axpy<WC4>(dv_acc, round_to(p, q), do_tile[i], part);
+        axpy<WC4>(dk_acc, round_to(p * (sdp - d_tile[i]), q), q_tile[i], part);
+      }
+    }
+    if (live) {
+      const long long out_row = (static_cast<long long>(b) * s + kj) * h + hh;
+      store_row<T, WC4>(dk + out_row * d + oc * DC, dk_acc, scale, part, d - oc * DC);
+      store_row<T, WC4>(dv + out_row * d + oc * DC, dv_acc, 1.0f, part, d - oc * DC);
+    }
+  }
+}
+
 struct Args {
   const void *q, *k, *v, *dout;
   const float *lse, *delta;
@@ -312,7 +501,21 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
   } else if (a.d <= 128) {
     launch_dp<T, 128>(a, stream);
   } else {
-    return cudaErrorInvalidValue;
+    const dim3 grid((a.s + ROWS - 1) / ROWS, a.b * a.h);
+    const T* q = static_cast<const T*>(a.q);
+    const T* k = static_cast<const T*>(a.k);
+    const T* v = static_cast<const T*>(a.v);
+    const T* dout = static_cast<const T*>(a.dout);
+    if (a.dq != nullptr) {
+      flash_dq_wide_kernel<T><<<grid, THREADS, 0, stream>>>(
+          q, k, v, dout, a.lse, a.delta, static_cast<T*>(a.dq), a.s, a.h, a.d,
+          a.qs, a.ks, a.vs, a.scale, a.causal);
+    } else {
+      flash_dkv_wide_kernel<T><<<grid, THREADS, 0, stream>>>(
+          q, k, v, dout, a.lse, a.delta, static_cast<T*>(a.dk),
+          static_cast<T*>(a.dv), a.s, a.h, a.d, a.qs, a.ks, a.vs, a.scale,
+          a.causal);
+    }
   }
   return cudaGetLastError();
 }

@@ -29,6 +29,16 @@
 // written (nor is their lse); no host-side padding is needed. q, k and
 // v are read through their strides, so the split of a fused qkv
 // projection needs no copy.
+//
+// Head_dims above 128 (`flash_forward_wide_kernel`): the same block,
+// tiles and numerics, over chunks of 128 dims. A score sums its partial
+// products over every chunk of q and K (q's chunk read into registers,
+// K's widened into the same 32 x 128 shared tile, one chunk at a time);
+// the output is produced one 128-dim chunk per pass over the keys, each
+// pass recomputing the same scores, softmax and `l` in the same order,
+// so every chunk sees identical weights. Shared memory stays 32 KiB
+// (static) and registers those of the 128-dim kernel whatever the
+// head_dim; the price is ceil(d / 128) score passes.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -181,6 +191,141 @@ flash_forward_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// Head_dim > 128: DC-dim chunks; see the file comment.
+constexpr int DC = 128;
+
+// Load chunk c (DC dims) of BK rows k0.. of one (batch, head) (element
+// offset `base`, `row_stride` between rows) into `tile`, widened, zeros
+// past s and d.
+template <typename T>
+__device__ __forceinline__ void load_chunk(float4 (*tile)[DC / 4], const T* x, long long base,
+                                           long long row_stride, int k0, int c, int s,
+                                           int d) {
+  for (int e = threadIdx.x; e < BK * DC; e += THREADS) {
+    const int kj = k0 + e / DC;
+    const int dd = c * DC + e % DC;
+    float val = 0.0f;
+    if (kj < s && dd < d) val = to_float(x[base + static_cast<long long>(kj) * row_stride + dd]);
+    reinterpret_cast<float*>(tile)[e] = val;
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+flash_forward_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                          const T* __restrict__ v, T* __restrict__ o,
+                          float* __restrict__ lse, int s, int h, int d,
+                          Strides qs, Strides ks, Strides vs, float scale,
+                          int causal) {
+  constexpr int C4 = DC / 4 / TPR;  // float4 chunks per thread per DC dims
+  __shared__ float4 tile[BK][DC / 4];  // K's chunk, then V's
+
+  const int bh = blockIdx.y;
+  const int b = bh / h;
+  const int hh = bh % h;
+  const int q0 = blockIdx.x * BQ;
+  const int tid = threadIdx.x;
+  const int row = tid / TPR;
+  const int part = tid % TPR;
+  const int qi = q0 + row;
+  const int chunks = (d + DC - 1) / DC;
+  const T* q_row = q + b * qs.b + static_cast<long long>(qi) * qs.s + hh * qs.h;
+  const int k_end = causal ? min(s, q0 + BQ) : s;
+
+  for (int oc = 0; oc < chunks; ++oc) {
+    float acc[C4 * 4];
+#pragma unroll
+    for (int i = 0; i < C4 * 4; ++i) acc[i] = 0.0f;
+    float m = MASK_VALUE;
+    float l = 0.0f;
+
+    for (int k0 = 0; k0 < k_end; k0 += BK) {
+      float sc[BK];
+#pragma unroll
+      for (int j = 0; j < BK; ++j) sc[j] = 0.0f;
+      for (int c = 0; c < chunks; ++c) {
+        __syncthreads();  // the previous tile is consumed
+        load_chunk<T>(tile, k, b * ks.b + hh * ks.h, ks.s, k0, c, s, d);
+        __syncthreads();
+        float qv[C4 * 4];
+#pragma unroll
+        for (int i = 0; i < C4; ++i) {
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int dd = c * DC + 4 * (part + TPR * i) + j;
+            qv[4 * i + j] = (qi < s && dd < d) ? to_float(q_row[dd]) : 0.0f;
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < BK; ++j) {
+          float dot = sc[j];
+#pragma unroll
+          for (int i = 0; i < C4; ++i) {
+            const float4 kk = tile[j][part + TPR * i];
+            dot = fmaf(qv[4 * i + 0], kk.x, dot);
+            dot = fmaf(qv[4 * i + 1], kk.y, dot);
+            dot = fmaf(qv[4 * i + 2], kk.z, dot);
+            dot = fmaf(qv[4 * i + 3], kk.w, dot);
+          }
+          sc[j] = dot;
+        }
+      }
+      float m_new = m;
+#pragma unroll
+      for (int j = 0; j < BK; ++j) {
+        float dot = sc[j];
+        dot += __shfl_xor_sync(0xffffffffu, dot, 1);
+        dot += __shfl_xor_sync(0xffffffffu, dot, 2);
+        const int kj = k0 + j;
+        const bool valid = kj < s && (!causal || kj <= qi);
+        sc[j] = valid ? dot * scale : MASK_VALUE;
+        m_new = fmaxf(m_new, sc[j]);
+      }
+      const float corr = expf(m - m_new);
+      __syncthreads();  // K's last chunk is consumed
+      load_chunk<T>(tile, v, b * vs.b + hh * vs.h, vs.s, k0, oc, s, d);
+      __syncthreads();
+      float p_sum = 0.0f;
+      float pv[C4 * 4];
+#pragma unroll
+      for (int i = 0; i < C4 * 4; ++i) pv[i] = 0.0f;
+#pragma unroll
+      for (int j = 0; j < BK; ++j) {
+        const float p = expf(sc[j] - m_new);
+        p_sum += p;
+        const float pr = round_p(p, q);
+#pragma unroll
+        for (int i = 0; i < C4; ++i) {
+          const float4 vv = tile[j][part + TPR * i];
+          pv[4 * i + 0] = fmaf(pr, vv.x, pv[4 * i + 0]);
+          pv[4 * i + 1] = fmaf(pr, vv.y, pv[4 * i + 1]);
+          pv[4 * i + 2] = fmaf(pr, vv.z, pv[4 * i + 2]);
+          pv[4 * i + 3] = fmaf(pr, vv.w, pv[4 * i + 3]);
+        }
+      }
+      m = m_new;
+      l = l * corr + p_sum;
+#pragma unroll
+      for (int i = 0; i < C4 * 4; ++i) acc[i] = acc[i] * corr + pv[i];
+    }
+
+    if (qi < s) {
+      T* o_row = o + ((static_cast<long long>(b) * s + qi) * h + hh) * d;
+#pragma unroll
+      for (int i = 0; i < C4; ++i) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int dd = oc * DC + 4 * (part + TPR * i) + j;
+          if (dd < d) store(o_row + dd, acc[4 * i + j] / l);
+        }
+      }
+      if (oc == 0 && lse != nullptr && part == 0) {
+        lse[static_cast<long long>(bh) * s + qi] = m + logf(l);
+      }
+    }
+  }
+}
+
 template <typename T>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    float* lse, int b, int s, int h, int d, Strides qs,
@@ -201,7 +346,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
     flash_forward_kernel<T, 128><<<grid, THREADS, 0, stream>>>(
         qp, kp, vp, op, lse, s, h, d, qs, ks, vs, scale, causal);
   } else {
-    return cudaErrorInvalidValue;
+    flash_forward_wide_kernel<T><<<grid, THREADS, 0, stream>>>(
+        qp, kp, vp, op, lse, s, h, d, qs, ks, vs, scale, causal);
   }
   return cudaGetLastError();
 }

@@ -1,15 +1,19 @@
-"""The QuickNet family, for training and serving.
+"""The binary model zoo the port serves and trains.
 
 Counterparts of ``zookeeper_tpu/models/binary.py``'s ``QuickNet``,
-``QuickNetSmall`` and ``QuickNetLarge``: fp stem, sections of residual
-binary 3x3 convs, fp 1x1 transitions with blurpool downsampling, fp head.
-A built module starts in eval mode, as flax's ``training`` flag
+``QuickNetSmall`` and ``QuickNetLarge`` (fp stem, sections of residual
+binary 3x3 convs, fp 1x1 transitions with blurpool downsampling, fp
+head), ``BinaryNet`` (VGG-style: binary 3x3 convs with a maxpool after
+every second one, binary dense layers, fp head) and ``BinaryAlexNet``
+(fp 11x11 stem, four binary convs, two binary dense layers of 4096, fp
+head). A built module starts in eval mode, as flax's ``training`` flag
 defaults to False; ``module.train()`` trains it (batch-statistics
 BatchNorms), as ``training=True`` does.
 Submodules carry the flax auto-numbered names (``Conv_0``,
-``BatchNorm_3``, ``QuantConv_7``, ``Dense_0``) in flax creation order, so
-a JAX checkpoint maps across by name (``models/convert.py``) and the BN
-fold pairs each binary conv with the BN created after it.
+``BatchNorm_3``, ``QuantConv_7``, ``QuantDense_1``, ``Dense_0``) in flax
+creation order, so a JAX checkpoint maps across by name
+(``models/convert.py``) and the BN fold pairs each packed binary layer
+with the BN created after it.
 """
 
 from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
@@ -21,7 +25,7 @@ from torch import nn
 from zookeeper_tpu_torch.core import Field, component
 from zookeeper_tpu_torch.models.base import Model
 from zookeeper_tpu_torch.ops.binary_compute import _spatial_pad
-from zookeeper_tpu_torch.ops.layers import BatchNorm, Conv, Dense, QuantConv
+from zookeeper_tpu_torch.ops.layers import BatchNorm, Conv, Dense, QuantConv, QuantDense
 
 _FOLD_BN_TRAINING_ERROR = (
     "fold_bn=True is a DEPLOYMENT mode: the binary-conv BatchNorms are "
@@ -44,6 +48,63 @@ def _check_fold_training(fold_bn, packed_weights, training: bool) -> None:
     with an inherited fold_bn=True trains normally)."""
     if fold_bn and _packed_any(packed_weights) and training:
         raise ValueError(_FOLD_BN_TRAINING_ERROR)
+
+
+def _dense_stage_fold(
+    fold_bn: bool, conv_packed: bool, dense_packed: bool, family: str, pooled_convs: str
+) -> bool:
+    """Whether the dense stage of a VGG-style family (BinaryNet,
+    BinaryAlexNet) folds its BNs. Their convs feed a maxpool BEFORE the
+    BatchNorm, and max commutes with the folded per-channel affine only
+    when the BN scale is positive, so a conv fold would be wrong for
+    learned negative scales: conv-packed + fold raises."""
+    if fold_bn and conv_packed:
+        raise ValueError(
+            f"{family} fold_bn supports the DENSE stage only: "
+            f"{pooled_convs} feed a maxpool before their BatchNorm, and "
+            "max only commutes with the folded affine when the BN scale "
+            "is positive. Pack/fold the dense stage "
+            "(dense_packed_weights=True) and keep packed_weights=False."
+        )
+    return fold_bn and dense_packed
+
+
+def max_pool(x: torch.Tensor, window: Tuple[int, int], strides: Tuple[int, int]) -> torch.Tensor:
+    """``flax.linen.max_pool`` over NHWC with VALID padding."""
+    return F.max_pool2d(x.permute(0, 3, 1, 2), window, strides).permute(0, 2, 3, 1)
+
+
+def _pooled(size: int, window: int, stride: int) -> int:
+    return (size - window) // stride + 1
+
+
+class _FlaxNames:
+    """Adds submodules to ``parent`` under flax's auto-numbered names
+    (``Conv_0``, ``BatchNorm_3``) in creation order. ``None`` takes a
+    number and adds nothing: a BN folded away at deployment still takes
+    its number, so the others keep the trained checkpoint's names."""
+
+    def __init__(self, parent: nn.Module):
+        self.parent = parent
+        self.counters: Dict[str, int] = {}
+
+    def __call__(self, kind: str, module: Optional[nn.Module]) -> Optional[str]:
+        n = self.counters.get(kind, 0)
+        self.counters[kind] = n + 1
+        if module is None:
+            return None
+        name = f"{kind}_{n}"
+        self.parent.add_module(name, module)
+        return name
+
+
+def _post_conv_bn(add: "_FlaxNames", features: int, dtype: torch.dtype,
+                  fold_here: bool) -> Optional[str]:
+    """The BN after a binary layer or, where the deployment folded it into
+    the layer's ``kernel_scale``/``bias``, its number alone: the folded BN
+    is skipped but still numbered, so the remaining BatchNorm names match
+    the trained checkpoint."""
+    return add("BatchNorm", None if fold_here else BatchNorm(features, dtype=dtype))
 
 
 def _section_opt(value, s: int):
@@ -103,16 +164,7 @@ class _QuickNetModule(nn.Module):
             binary_flavor=binary_flavor,
         )
         self.dtype = dtype
-        counters: Dict[str, int] = {}
-
-        def add(kind: str, module: Optional[nn.Module]) -> Optional[str]:
-            name = f"{kind}_{counters.get(kind, 0)}"
-            counters[kind] = counters.get(kind, 0) + 1
-            if module is None:
-                return None
-            self.add_module(name, module)
-            return name
-
+        add = _FlaxNames(self)
         d = dtype
         f0 = section_features[0]
         self._stem = [
@@ -143,7 +195,7 @@ class _QuickNetModule(nn.Module):
                     use_bias=fold_here,  # carries the folded BN shift
                     binary_flavor=binary_flavor,
                 ))
-                bn = add("BatchNorm", None if fold_here else BatchNorm(feat, dtype=d))
+                bn = _post_conv_bn(add, feat, d, fold_here)
                 blocks.append((conv, bn))
             self._sections.append((transition, blocks))
         self._head = add("Dense", Dense(width, num_classes, dtype=d))
@@ -159,6 +211,11 @@ class _QuickNetModule(nn.Module):
     @property
     def packed_any(self) -> bool:
         return _packed_any(self.config["packed_weights"])
+
+    @property
+    def folds(self) -> bool:
+        """Whether the packed layers' following BNs are folded away."""
+        return self.config["fold_bn"]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         _check_fold_training(
@@ -180,6 +237,34 @@ class _QuickNetModule(nn.Module):
                 x = x + y  # residual around every binary conv
         x = F.relu(x).mean(dim=(1, 2))
         return layer(self._head)(x).to(torch.float32)
+
+
+def _initialize_packed(model: Model, module: nn.Module, seed: int) -> nn.Module:
+    """A packed build gets the packed (and, where it folds, folded) form of
+    its float twin initialized from the same seed, through
+    ``pack_quantconv_params``: the deployment path a trained float model
+    takes. Other builds initialize in place."""
+    if not getattr(module, "packed_any", False):
+        return Model.initialize(model, module, seed)
+    from zookeeper_tpu_torch.models.convert import (
+        from_flax_variables,
+        to_flax_variables,
+    )
+    from zookeeper_tpu_torch.ops.packed import pack_quantconv_params
+
+    twin = Model.initialize(model, module.float_twin(), seed)
+    params, state = to_flax_variables(twin)
+    template, _ = to_flax_variables(module)
+    if module.folds:
+        params, stats = pack_quantconv_params(
+            params, template=template, fold_bn=True,
+            batch_stats=state["batch_stats"],
+        )
+        state = {"batch_stats": stats}
+    else:
+        params = pack_quantconv_params(params, template=template)
+    module.load_state_dict(from_flax_variables(params, state))
+    return module
 
 
 @component
@@ -227,31 +312,7 @@ class QuickNet(Model):
         )
 
     def initialize(self, module: nn.Module, seed: int = 0) -> nn.Module:
-        """A packed build gets the packed (and, with ``fold_bn``, folded)
-        form of its float twin initialized from the same seed, through
-        ``pack_quantconv_params`` — the deployment path a trained float
-        model takes. Other builds initialize in place."""
-        if not getattr(module, "packed_any", False):
-            return super().initialize(module, seed)
-        from zookeeper_tpu_torch.models.convert import (
-            from_flax_variables,
-            to_flax_variables,
-        )
-        from zookeeper_tpu_torch.ops.packed import pack_quantconv_params
-
-        twin = super().initialize(module.float_twin(), seed)
-        params, state = to_flax_variables(twin)
-        template, _ = to_flax_variables(module)
-        if module.config["fold_bn"]:
-            params, stats = pack_quantconv_params(
-                params, template=template, fold_bn=True,
-                batch_stats=state["batch_stats"],
-            )
-            state = {"batch_stats": stats}
-        else:
-            params = pack_quantconv_params(params, template=template)
-        module.load_state_dict(from_flax_variables(params, state))
-        return module
+        return _initialize_packed(self, module, seed)
 
 
 @component
@@ -264,3 +325,259 @@ class QuickNetLarge(QuickNet):
     """QuickNet-Large (the repo's north-star model)."""
 
     blocks_per_section: Sequence[int] = Field((6, 8, 12, 6))
+
+
+class _VggModule(nn.Module):
+    """What BinaryNet and BinaryAlexNet share: the dense-stage settings
+    (``dense_binary_compute``/``dense_packed_weights``, None = follow the
+    conv stage), the dense-stage BN fold, the binary dense layers with
+    their BNs, the fp head and the float twin."""
+
+    FAMILY = ""
+    POOLED_CONVS = ""
+
+    def _setup_dense_stage(self, add: _FlaxNames, width: int, dense_units, num_classes: int,
+                           fold_bn: bool, dtype: torch.dtype, flavor: str) -> None:
+        c = self.config
+        conv_packed = bool(c["packed_weights"])
+        dense_bc = c["binary_compute"] if c["dense_binary_compute"] is None else c["dense_binary_compute"]
+        dense_packed = bool(
+            c["packed_weights"] if c["dense_packed_weights"] is None else c["dense_packed_weights"]
+        )
+        self.dense_packed = dense_packed
+        self.dense_fold = _dense_stage_fold(
+            fold_bn, conv_packed, dense_packed, self.FAMILY, self.POOLED_CONVS
+        )
+        self._denses: List[Tuple[str, Optional[str]]] = []
+        for units in dense_units:
+            dense = add("QuantDense", QuantDense(
+                width, units, input_quantizer="ste_sign", kernel_quantizer="ste_sign",
+                use_bias=self.dense_fold,  # carries the folded BN shift
+                dtype=dtype, binary_compute=dense_bc, packed_weights=dense_packed,
+                binary_flavor=flavor,
+            ))
+            bn = _post_conv_bn(add, units, dtype, self.dense_fold)
+            self._denses.append((dense, bn))
+            width = units
+        self._head = add("Dense", Dense(width, num_classes, dtype=dtype))
+
+    def float_twin(self) -> "_VggModule":
+        """The same architecture holding latent float kernels and every BN:
+        the training-side model whose converted weights this one serves."""
+        return type(self)(**{**self.config, "packed_weights": False,
+                             "dense_packed_weights": False, "fold_bn": False})
+
+    @property
+    def packed_any(self) -> bool:
+        return bool(self.config["packed_weights"]) or self.dense_packed
+
+    @property
+    def folds(self) -> bool:
+        return self.dense_fold
+
+    def _dense_stage(self, x: torch.Tensor) -> torch.Tensor:
+        layer = self.get_submodule
+        x = x.reshape(x.shape[0], -1)
+        for dense, bn in self._denses:
+            x = layer(dense)(x)
+            if bn is not None:
+                x = layer(bn)(x)
+        return layer(self._head)(x).to(torch.float32)
+
+
+class _BinaryNetModule(_VggModule):
+    """VGG-style BinaryNet (Courbariaux et al. 2016) over NHWC input:
+    binary 3x3 SAME convs (the first one takes the fp input on "mxu"), a
+    2x2 maxpool after every second conv, a BN after each, then the binary
+    dense layers and the fp head; float32 logits. ``fold_bn`` folds the
+    dense stage only (see :func:`_dense_stage_fold`)."""
+
+    FAMILY = "BinaryNet"
+    POOLED_CONVS = "odd-indexed convs"
+
+    def __init__(
+        self,
+        *,
+        input_shape: Tuple[int, int, int],
+        features: Tuple[int, ...],
+        dense_units: Tuple[int, ...],
+        num_classes: int,
+        dtype: torch.dtype,
+        binary_compute: str = "mxu",
+        packed_weights: bool = False,
+        dense_binary_compute: Optional[str] = None,
+        dense_packed_weights: Optional[bool] = None,
+        fold_bn: bool = False,
+        binary_flavor: str = "auto",
+    ):
+        super().__init__()
+        self.config: Dict[str, Any] = dict(
+            input_shape=tuple(input_shape), features=tuple(features),
+            dense_units=tuple(dense_units), num_classes=num_classes, dtype=dtype,
+            binary_compute=binary_compute, packed_weights=packed_weights,
+            dense_binary_compute=dense_binary_compute,
+            dense_packed_weights=dense_packed_weights, fold_bn=fold_bn,
+            binary_flavor=binary_flavor,
+        )
+        self.dtype = dtype
+        add = _FlaxNames(self)
+        h, w, width = input_shape
+        self._convs: List[Tuple[str, str]] = []
+        for i, feat in enumerate(features):
+            conv = add("QuantConv", QuantConv(
+                width, feat, (3, 3), input_quantizer=None if i == 0 else "ste_sign",
+                kernel_quantizer="ste_sign", dtype=dtype,
+                binary_compute="mxu" if i == 0 else binary_compute,
+                packed_weights=False if i == 0 else packed_weights,
+                binary_flavor=binary_flavor,
+            ))
+            if i % 2 == 1:
+                h, w = _pooled(h, 2, 2), _pooled(w, 2, 2)
+            self._convs.append((conv, add("BatchNorm", BatchNorm(feat, dtype=dtype))))
+            width = feat
+        self._setup_dense_stage(add, h * w * width, dense_units, num_classes, fold_bn, dtype,
+                                binary_flavor)
+        self.eval()  # flax's training=False default
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        _check_fold_training(self.config["fold_bn"], self.dense_packed, self.training)
+        layer = self.get_submodule
+        x = x.to(self.dtype)
+        for i, (conv, bn) in enumerate(self._convs):
+            x = layer(conv)(x)
+            if i % 2 == 1:
+                x = max_pool(x, (2, 2), (2, 2))
+            x = layer(bn)(x)
+        return self._dense_stage(x)
+
+
+class _BinaryAlexNetModule(_VggModule):
+    """Binary AlexNet over NHWC input: fp 11x11/4 stem, 3x3/2 maxpool, BN;
+    binary convs of 192, 384, 384 and 256 channels (5x5, then 3x3), a
+    maxpool after the first and the last, a BN after each; two binary
+    dense layers of 4096 with BNs; the fp head; float32 logits.
+    ``fold_bn`` folds the dense stage only (see :func:`_dense_stage_fold`)."""
+
+    FAMILY = "BinaryAlexNet"
+    POOLED_CONVS = "two of the four binary convs"
+
+    def __init__(
+        self,
+        *,
+        input_shape: Tuple[int, int, int],
+        num_classes: int,
+        dtype: torch.dtype,
+        inflation: int = 1,
+        binary_compute: str = "mxu",
+        packed_weights: bool = False,
+        dense_binary_compute: Optional[str] = None,
+        dense_packed_weights: Optional[bool] = None,
+        fold_bn: bool = False,
+    ):
+        super().__init__()
+        self.config: Dict[str, Any] = dict(
+            input_shape=tuple(input_shape), num_classes=num_classes, dtype=dtype,
+            inflation=inflation, binary_compute=binary_compute,
+            packed_weights=packed_weights, dense_binary_compute=dense_binary_compute,
+            dense_packed_weights=dense_packed_weights, fold_bn=fold_bn,
+        )
+        self.dtype = dtype
+        f = inflation
+        add = _FlaxNames(self)
+        h, w, width = input_shape
+        self._stem = (add("Conv", Conv(width, 64 * f, (11, 11), (4, 4), dtype=dtype)),
+                      add("BatchNorm", BatchNorm(64 * f, dtype=dtype)))
+        h, w = _pooled(-(-h // 4), 3, 2), _pooled(-(-w // 4), 3, 2)
+        width = 64 * f
+        self._convs: List[Tuple[str, bool, str]] = []
+        for feat, k in ((192 * f, 5), (384 * f, 3), (384 * f, 3), (256 * f, 3)):
+            conv = add("QuantConv", QuantConv(
+                width, feat, (k, k), input_quantizer="ste_sign", kernel_quantizer="ste_sign",
+                dtype=dtype, binary_compute=binary_compute, packed_weights=packed_weights,
+            ))
+            pool = feat in (192 * f, 256 * f)
+            if pool:
+                h, w = _pooled(h, 3, 2), _pooled(w, 3, 2)
+            self._convs.append((conv, pool, add("BatchNorm", BatchNorm(feat, dtype=dtype))))
+            width = feat
+        self._setup_dense_stage(add, h * w * width, (4096, 4096), num_classes, fold_bn, dtype,
+                                "auto")
+        self.eval()  # flax's training=False default
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        _check_fold_training(self.config["fold_bn"], self.dense_packed, self.training)
+        layer = self.get_submodule
+        conv0, bn0 = self._stem
+        x = max_pool(layer(conv0)(x.to(self.dtype)), (3, 3), (2, 2))
+        x = layer(bn0)(x)
+        for conv, pool, bn in self._convs:
+            x = layer(conv)(x)
+            if pool:
+                x = max_pool(x, (3, 3), (2, 2))
+            x = layer(bn)(x)
+        return self._dense_stage(x)
+
+
+@component
+class BinaryNet(Model):
+    """BinaryNet VGG for CIFAR-scale inputs."""
+
+    features: Sequence[int] = Field((128, 128, 256, 256, 512, 512))
+    dense_units: Sequence[int] = Field((1024, 1024))
+    #: Binary conv path: "mxu", "int8", "xnor" or "xnor_popcount".
+    binary_compute: str = Field("mxu")
+    #: Inference-only: the bit-packed kernels (a seeded build holds the
+    #: packed form of its float twin, see ``initialize``).
+    packed_weights: bool = Field(False)
+    #: Dense-stage overrides; unset = follow the conv-stage settings.
+    dense_binary_compute: str = Field(allow_missing=True)
+    dense_packed_weights: bool = Field(allow_missing=True)
+    #: Deployment-only, DENSE stage only (see ``_dense_stage_fold``).
+    fold_bn: bool = Field(False)
+    #: Kernel flavor for the binary layers (see ops.binary_compute).
+    binary_flavor: str = Field("auto")
+
+    def build(self, input_shape: Sequence[int], num_classes: int) -> nn.Module:
+        # allow_missing fields raise AttributeError on read; getattr's
+        # default maps that to "follow the conv-stage settings".
+        return _BinaryNetModule(
+            input_shape=tuple(int(s) for s in input_shape),
+            features=tuple(self.features), dense_units=tuple(self.dense_units),
+            num_classes=num_classes, dtype=self.dtype(),
+            binary_compute=self.binary_compute, packed_weights=self.packed_weights,
+            dense_binary_compute=getattr(self, "dense_binary_compute", None),
+            dense_packed_weights=getattr(self, "dense_packed_weights", None),
+            fold_bn=self.fold_bn, binary_flavor=self.binary_flavor,
+        )
+
+    def initialize(self, module: nn.Module, seed: int = 0) -> nn.Module:
+        return _initialize_packed(self, module, seed)
+
+
+@component
+class BinaryAlexNet(Model):
+    """Binarized AlexNet for ImageNet (BASELINE config #2)."""
+
+    inflation: int = Field(1)
+    binary_compute: str = Field("mxu")
+    packed_weights: bool = Field(False)
+    #: Dense-stage overrides; unset = follow the conv-stage settings.
+    #: Dense-only packing ("xnor" + True here, mxu convs) is BASELINE's
+    #: deployment.
+    dense_binary_compute: str = Field(allow_missing=True)
+    dense_packed_weights: bool = Field(allow_missing=True)
+    #: Deployment-only, DENSE stage only (see ``_dense_stage_fold``).
+    fold_bn: bool = Field(False)
+
+    def build(self, input_shape: Sequence[int], num_classes: int) -> nn.Module:
+        return _BinaryAlexNetModule(
+            input_shape=tuple(int(s) for s in input_shape), num_classes=num_classes,
+            dtype=self.dtype(), inflation=self.inflation,
+            binary_compute=self.binary_compute, packed_weights=self.packed_weights,
+            dense_binary_compute=getattr(self, "dense_binary_compute", None),
+            dense_packed_weights=getattr(self, "dense_packed_weights", None),
+            fold_bn=self.fold_bn,
+        )
+
+    def initialize(self, module: nn.Module, seed: int = 0) -> nn.Module:
+        return _initialize_packed(self, module, seed)

@@ -1,15 +1,17 @@
 """Carry weights between a flax variables tree and the port's modules.
 
-A JAX/flax QuickNet tree — nested dicts of arrays under flax's
-auto-numbered scopes (``Conv_i``, ``BatchNorm_i``, ``QuantConv_i``,
-``Dense_0``) — maps to the port's ``state_dict`` by name, since the
-port's modules carry the same names in the same order. Layouts change
+A JAX/flax tree of the binary zoo (QuickNet, BinaryNet, BinaryAlexNet)
+— nested dicts of arrays under flax's auto-numbered scopes (``Conv_i``,
+``BatchNorm_i``, ``QuantConv_i``, ``QuantDense_i``, ``Dense_0``) — maps
+to the port's ``state_dict`` by name, since the port's modules carry the
+same names in the same order. Layouts change
 only where PyTorch holds a weight differently: fp conv kernels HWIO ->
 OIHW (grouped convs included) and the dense kernel [in, out] -> [out,
 in]. BN ``scale``/``bias`` become ``weight``/``bias`` and ``batch_stats``
 ``mean``/``var`` become ``running_mean``/``running_var``. QuantConv
 leaves (``kernel``, ``kernel_packed``, ``kernel_scale``, ``bias``) keep
-the JAX layout. A folded BN (deployment with ``fold_bn``) has no
+the JAX layout, and so do QuantDense leaves (``kernel`` [K, N],
+``kernel_packed``, ``kernel_scale``, ``bias``). A folded BN (deployment with ``fold_bn``) has no
 parameters and maps to nothing. Conversion is in memory only.
 
 A TransformerLM tree maps with :func:`from_flax_lm_variables` and its
@@ -38,7 +40,7 @@ from zookeeper_tpu_torch.models.transformer import TransformerLMModule
 _CONV = re.compile(r"^Conv_\d+$")
 _BN = re.compile(r"^BatchNorm_\d+$")
 _DENSE = re.compile(r"^Dense_\d+$")
-_QUANT = re.compile(r"^QuantConv_\d+$")
+_QUANT = re.compile(r"^Quant(Conv|Dense)_\d+$")
 
 _BN_PARAMS = {"scale": "weight", "bias": "bias"}
 _BN_STATS = {"mean": "running_mean", "var": "running_var"}

@@ -70,11 +70,6 @@ LAUNCHES = {
     "pool_paged_decode_attention": 0,
 }
 
-#: Largest head_dim each kernel serves (K9 pads its tiles to 32, 64 or
-#: 128 dims; K12/K13 to 32, 64, 128 or 256).
-FLASH_MAX_HEAD_DIM = 128
-DECODE_MAX_HEAD_DIM = 256
-
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
 def reset_launches() -> None:
@@ -424,14 +419,14 @@ def _check_self_attention(what: str, q, k, v) -> Tuple[int, int, int, int]:
 
 
 def _check_flash_operands(what: str, q, k, v) -> None:
-    """What the flash kernels take: fp32/bf16 q/k/v of one dtype, head_dim
-    to ``FLASH_MAX_HEAD_DIM``, the head_dim axis contiguous (other axes
-    may be strided, as the split of a fused qkv projection gives them)."""
+    """What the flash kernels take: fp32/bf16 q/k/v of one dtype, any
+    head_dim >= 1 (up to 128 in one register tile, above it in 128-dim
+    chunks), the head_dim axis contiguous (other axes may be strided, as
+    the split of a fused qkv projection gives them)."""
     _require(q.dtype in (torch.float32, torch.bfloat16), what,
              f"takes float32/bfloat16, got {q.dtype}")
     _require(q.dtype == k.dtype == v.dtype, what, "q/k/v dtypes differ")
-    _require(1 <= q.shape[3] <= FLASH_MAX_HEAD_DIM, what,
-             f"head_dim {q.shape[3]} is past the kernel's {FLASH_MAX_HEAD_DIM}")
+    _require(q.shape[3] >= 1, what, f"head_dim must be >= 1, got {q.shape[3]}")
     _require(all(t.stride(3) == 1 for t in (q, k, v)), what,
              "the head_dim axis must be contiguous")
 
@@ -613,8 +608,7 @@ def _check_decode_q(what: str, q: torch.Tensor) -> Tuple[int, int, int]:
 def _check_kernel_operands(what: str, q, kv, d, aligned) -> None:
     _require(q.dtype in (torch.float32, torch.bfloat16), what,
              f"q must be float32/bfloat16, got {q.dtype}")
-    _require(1 <= d <= DECODE_MAX_HEAD_DIM, what,
-             f"head_dim {d} is past the kernel's {DECODE_MAX_HEAD_DIM}")
+    _require(d >= 1, what, f"head_dim must be >= 1, got {d}")
     _require(q.stride(3) == 1, what, "q's head_dim axis must be contiguous")
     for t in kv:
         _require(t.is_contiguous(), what, "caches, pools and tables must be contiguous")

@@ -1,6 +1,6 @@
-"""Binary compute: bit packing, the packed conv schedules, the int8
-training conv with its 1-bit residuals, and the hand-written CUDA
-kernels they run.
+"""Binary compute: bit packing, the packed conv and dense schedules, the
+int8 training conv and dense (the conv with its 1-bit residuals), and
+the hand-written CUDA kernels they run.
 
 The PyTorch counterpart of ``zookeeper_tpu/ops/binary_compute.py``.
 Tensors keep the JAX package's layouts at every public function: NHWC
@@ -16,6 +16,10 @@ PyTorch version beside it:
 - K3 :func:`conv_gemm_popcount` — popcount conv with the scale epilogue;
 - K4 :func:`packed_weight_matmul` — int8 activations times packed
   weights;
+- K5 :func:`xnor_matmul_packed` — the unfused popcount GEMM on packed
+  operands (the "reference" flavor's conv and dense GEMM);
+- K2 :func:`xnor_matmul_packed_scaled` — K5 with the per-output-channel
+  scale epilogue (the packed dense layer's GEMM);
 - K6 :func:`pack_resid` — 1-bit pack along the batch of the sign bit or
   the STE mask;
 - K7 :func:`unpack_resid_pm1` — the sign-mode inverse of K6, to ±1;
@@ -36,9 +40,9 @@ import torch.nn.functional as F
 from zookeeper_tpu_torch.ops import cuda_build
 
 #: Binary compute flavors (layer field ``binary_flavor``), as in the JAX
-#: package so configs carry over. "auto" and "pallas" run the CUDA
-#: kernels on CUDA tensors; "reference" runs the unfused composition,
-#: which on CUDA needs the unfused popcount GEMM (not ported yet).
+#: package so configs carry over. "auto" and "pallas" run the fused
+#: kernels (K1 + K3 convs, K1 + K2 dense); "reference" runs the unfused
+#: composition (``pack_bits``, then K5, then the scale).
 BINARY_FLAVORS = ("auto", "pallas", "reference")
 
 #: Fuse the kh*kw taps into one patch matrix when it stays under this many
@@ -50,6 +54,7 @@ _FUSE_TAPS_MAX_BYTES = 32 * 2**20
 LAUNCHES = {
     "pack_rows": 0, "conv_gemm_popcount": 0, "packed_weight_matmul": 0,
     "pack_resid": 0, "unpack_resid_pm1": 0, "mask_mul_resid": 0,
+    "xnor_matmul_packed": 0, "xnor_matmul_packed_scaled": 0,
 }
 
 #: Copies the residual kernels' wrappers made of a strided input to hand
@@ -58,13 +63,6 @@ COPIES = {"pack_resid": 0, "mask_mul_resid": 0}
 
 #: Dynamic shared memory one block may use on a Hopper card.
 _MAX_SMEM_BYTES = 232448
-
-_NOT_PORTED = (
-    "the unfused popcount GEMM (xnor_matmul_packed, K5) has no CUDA kernel "
-    "in the PyTorch port yet (queued in ROADMAP.md); use "
-    "binary_flavor='auto' or 'pallas' on the card"
-)
-
 
 def reset_launches() -> None:
     for counts in (LAUNCHES, COPIES):
@@ -536,20 +534,99 @@ def mask_mul_resid(g: torch.Tensor, words: torch.Tensor) -> torch.Tensor:
     return out
 
 
+# -- K5, K2: the popcount GEMM on packed operands ----------------------------
+
+
+def xnor_matmul_packed_plain(
+    a_packed: torch.Tensor, b_packed: torch.Tensor, *, k_true: int
+) -> torch.Tensor:
+    """Plain version of K5: XOR the words, popcount in int64, then
+    ``k_true - 2*mismatches`` in int32."""
+    mism = _popcount_mismatches(a_packed, b_packed)
+    return k_true - (mism + mism)
+
+
+def xnor_matmul_packed_scaled_plain(
+    a_packed: torch.Tensor, b_packed: torch.Tensor, scale: torch.Tensor, *,
+    k_true: int,
+) -> torch.Tensor:
+    """Plain version of K2: the plain K5, cast to float32, times the
+    scale (the JAX reference epilogue)."""
+    acc = xnor_matmul_packed_plain(a_packed, b_packed, k_true=k_true)
+    return acc.to(torch.float32) * scale.to(torch.float32)[None, :]
+
+
+def _check_xnor_operands(what: str, a_packed, b_packed, scale=None) -> Tuple[int, int, int]:
+    _require(a_packed.dim() == 2 and b_packed.dim() == 2, what,
+             "expected a_packed [M, Kw] and b_packed [Kw, N]")
+    m, kw = a_packed.shape
+    kw2, n = b_packed.shape
+    _require(kw == kw2, what, f"Packed K mismatch: {kw} vs {kw2}")
+    if scale is not None:
+        _require(tuple(scale.shape) == (n,), what,
+                 f"scale must be [{n}] (per output channel), got {tuple(scale.shape)}")
+    return m, kw, n
+
+
+def _xnor_kernel_operands(what: str, *tensors: torch.Tensor) -> None:
+    a_packed, b_packed = tensors[:2]
+    _require(a_packed.dtype == torch.int32 and b_packed.dtype == torch.int32, what,
+             "a_packed and b_packed must be int32")
+    _require(all(t.is_contiguous() for t in tensors), what, "operands must be contiguous")
+
+
 def xnor_matmul_packed(
     a_packed: torch.Tensor, b_packed: torch.Tensor, *, k_true: int
 ) -> torch.Tensor:
-    """Unfused binary GEMM on packed operands ([M, Kw] and [Kw, N]
-    int32): ``k_true - 2*mismatches`` as [M, N] int32. CPU only until its
-    CUDA kernel is ported."""
-    if _cuda_device("xnor_matmul_packed", a_packed, b_packed) is not None:
-        raise NotImplementedError(_NOT_PORTED)
-    if a_packed.shape[1] != b_packed.shape[0]:
-        raise ValueError(
-            f"Packed K mismatch: {a_packed.shape[1]} vs {b_packed.shape[0]}."
-        )
-    mism = _popcount_mismatches(a_packed, b_packed)
-    return k_true - (mism + mism)
+    """K5: binary GEMM on packed operands (``a_packed`` [M, Kw] and
+    ``b_packed`` [Kw, N] int32, packed along K; equal-bit K padding
+    cancels): ``k_true - 2*mismatches`` as [M, N] int32, i.e. ``sign(A) @
+    sign(B)`` over ``k_true`` terms."""
+    what = "xnor_matmul_packed"
+    m, kw, n = _check_xnor_operands(what, a_packed, b_packed)
+    device = _cuda_device(what, a_packed, b_packed)
+    if device is None:
+        return xnor_matmul_packed_plain(a_packed, b_packed, k_true=k_true)
+    _xnor_kernel_operands(what, a_packed, b_packed)
+    out = torch.empty((m, n), dtype=torch.int32, device=a_packed.device)
+    lib = cuda_build.library("xnor_gemm")
+    cuda_build.check(
+        lib.zk_xnor_matmul_packed(
+            a_packed.data_ptr(), b_packed.data_ptr(), out.data_ptr(), m, n, kw,
+            int(k_true), device, _stream(device),
+        ),
+        what,
+    )
+    LAUNCHES["xnor_matmul_packed"] += 1
+    return out
+
+
+def xnor_matmul_packed_scaled(
+    a_packed: torch.Tensor, b_packed: torch.Tensor, scale: torch.Tensor, *,
+    k_true: int,
+) -> torch.Tensor:
+    """K2: :func:`xnor_matmul_packed` with the per-output-channel
+    ``scale`` [N] float32 applied in the epilogue; [M, N] float32, bit
+    for bit ``xnor_matmul_packed(...).float() * scale`` (an exact integer
+    cast and one fp32 multiply)."""
+    what = "xnor_matmul_packed_scaled"
+    m, kw, n = _check_xnor_operands(what, a_packed, b_packed, scale)
+    device = _cuda_device(what, a_packed, b_packed, scale)
+    if device is None:
+        return xnor_matmul_packed_scaled_plain(a_packed, b_packed, scale, k_true=k_true)
+    _require(scale.dtype == torch.float32, what, "scale must be float32")
+    _xnor_kernel_operands(what, a_packed, b_packed, scale)
+    out = torch.empty((m, n), dtype=torch.float32, device=a_packed.device)
+    lib = cuda_build.library("xnor_gemm")
+    cuda_build.check(
+        lib.zk_xnor_matmul_packed_scaled(
+            a_packed.data_ptr(), b_packed.data_ptr(), scale.data_ptr(),
+            out.data_ptr(), m, n, kw, int(k_true), device, _stream(device),
+        ),
+        what,
+    )
+    LAUNCHES["xnor_matmul_packed_scaled"] += 1
+    return out
 
 
 # -- packed conv schedules --------------------------------------------------
@@ -693,6 +770,94 @@ def packed_conv_infer(
     return _packed_conv_forward(
         x, packed, scale, strides, padding,
         ci=x.shape[-1], use_popcount=use_popcount, flavor=flavor,
+    )
+
+
+# -- dense binary paths ------------------------------------------------------
+
+
+def _flatten_leading(x: torch.Tensor) -> Tuple[torch.Tensor, Tuple[int, ...]]:
+    """[..., K] -> ([M, K], leading shape) for the 2-D GEMM kernels."""
+    return x.reshape(-1, x.shape[-1]), tuple(x.shape[:-1])
+
+
+def _packed_dense_forward(
+    x: torch.Tensor,
+    packed: torch.Tensor,
+    scale: torch.Tensor,
+    *,
+    k_true: int,
+    use_popcount: bool,
+    flavor: str = "auto",
+) -> torch.Tensor:
+    """Dense ``[..., K]`` against pre-packed weights ``[ceil(K/32), N]``;
+    returns ``[..., N]`` float32.
+
+    ``use_popcount``: both operands packed; K pads with +1 on both sides
+    (equal bits, no mismatch; the inputs must be ±1). The "auto"/"pallas"
+    flavor runs K1 then K2 (the scale in the GEMM's epilogue); "reference"
+    runs ``pack_bits``, K5 and the scale as a separate multiply, bit for
+    bit the same. Otherwise the activations go to int8 (exact on -1, 0,
+    +1; K pads with zeros, which add nothing) through K4, then the scale."""
+    x2, lead = _flatten_leading(x)
+    if use_popcount:
+        k_pad = _round_up(k_true, 32)
+        if k_pad != k_true:
+            x2 = F.pad(x2, (0, k_pad - k_true), value=1.0)
+        if resolve_binary_flavor(flavor) == "pallas":
+            y = xnor_matmul_packed_scaled(
+                pack_rows(x2.contiguous()), packed, scale, k_true=k_true
+            )
+            return y.reshape(*lead, -1)
+        acc = xnor_matmul_packed(pack_bits(x2, axis=-1), packed, k_true=k_true)
+    else:
+        acc = packed_weight_matmul(x2.to(torch.int8).contiguous(), packed)
+    y = acc.to(torch.float32) * scale[None, :].to(torch.float32)
+    return y.reshape(*lead, -1)
+
+
+def xnor_dense(
+    x: torch.Tensor,
+    q_kernel: torch.Tensor,
+    use_popcount: bool = False,
+    flavor: str = "auto",
+) -> torch.Tensor:
+    """Binary dense ``[..., K] @ [K, N]`` through the packed kernels,
+    packing the quantized kernel (sign x per-output-channel scale) on the
+    fly. Inference only in the port: its training VJP (the float
+    matmul's, on the saved quantized operands) is queued in ROADMAP.md,
+    so a call that would need a gradient raises."""
+    if torch.is_grad_enabled() and (x.requires_grad or q_kernel.requires_grad):
+        raise NotImplementedError(
+            "xnor_dense: training through the packed dense paths (the "
+            "xnor_dense VJP) is not in the PyTorch port yet; it is queued in "
+            "ROADMAP.md. Train with 'int8' or 'mxu'."
+        )
+    packed, scale = pack_dense_kernel(q_kernel)
+    return _packed_dense_forward(
+        x, packed, scale, k_true=q_kernel.shape[0], use_popcount=use_popcount,
+        flavor=flavor,
+    )
+
+
+def packed_dense_infer(
+    x: torch.Tensor,
+    packed: torch.Tensor,
+    scale: torch.Tensor,
+    k_true: int,
+    *,
+    use_popcount: bool = False,
+    flavor: str = "auto",
+) -> torch.Tensor:
+    """Inference dense from PRE-PACKED weights (the dense deployment
+    path). Inference only: an input that requires grad raises."""
+    if x.requires_grad and torch.is_grad_enabled():
+        raise ValueError(
+            "packed_dense_infer is inference-only: packed weights carry no "
+            "latent parameters to train."
+        )
+    return _packed_dense_forward(
+        x, packed, scale, k_true=k_true, use_popcount=use_popcount, flavor=flavor,
     )
 
 
@@ -844,3 +1009,57 @@ def int8_conv(
             bool(pack_residuals),
         )
     return _int8_conv_forward(x_sign, k_sign, strides, padding, int(groups), bool(scaled))
+
+
+# -- the int8 training dense --------------------------------------------------
+
+
+def _int8_dense_forward(x_sign, k_sign, scaled):
+    """Exact integer sums of the rounded operands ``[..., K] @ [K, N]``,
+    then the optional per-output-channel scale, as float32: the float
+    matmul is exact for operands in {-1, 0, +1} and |sums| <= K, far
+    below 2^24 (float32 on the card, float64 on the CPU)."""
+    if scaled:
+        kscale = k_sign.abs().amax(dim=0)
+        safe = torch.where(kscale > 0, kscale, torch.ones_like(kscale))
+        k8 = torch.round(k_sign / safe)
+    else:
+        k8 = torch.round(k_sign)
+    x2, lead = _flatten_leading(torch.round(x_sign))
+    acc = torch.float64 if x_sign.device.type == "cpu" else torch.float32
+    out = torch.matmul(x2.to(acc), k8.to(acc)).to(torch.float32).reshape(*lead, -1)
+    return out * safe.to(torch.float32) if scaled else out
+
+
+class _Int8Dense(torch.autograd.Function):
+    """:func:`int8_dense` on the differentiated path: the float matmul's
+    VJP in ``x_sign``'s dtype (dk cast back to ``k_sign``'s)."""
+
+    @staticmethod
+    def forward(ctx, x_sign, k_sign, scaled):
+        ctx.save_for_backward(x_sign, k_sign)
+        return _int8_dense_forward(x_sign, k_sign, scaled)
+
+    @staticmethod
+    def backward(ctx, g):
+        x_sign, k_sign = ctx.saved_tensors
+        dtype = x_sign.dtype
+        g2, _ = _flatten_leading(g.to(dtype))
+        dx = dk = None
+        if ctx.needs_input_grad[0]:
+            dx = (g2 @ k_sign.to(dtype).t()).reshape(x_sign.shape)
+        if ctx.needs_input_grad[1]:
+            x2, _ = _flatten_leading(x_sign)
+            dk = (x2.t() @ g2).to(k_sign.dtype)
+        return dx, dk, None
+
+
+def int8_dense(x_sign: torch.Tensor, k_sign: torch.Tensor, scaled: bool = True) -> torch.Tensor:
+    """Dense layer of quantized operands with exact integer accumulation,
+    float32 out (the JAX package's ``int8_dense``): ``x_sign`` in {-1, 0,
+    +1}, ``k_sign`` [K, N] sign x per-output-channel scale (``scaled``) or
+    pure {-1, 0, +1}. The gradients are the float matmul's, in
+    ``x_sign``'s dtype."""
+    if torch.is_grad_enabled() and (x_sign.requires_grad or k_sign.requires_grad):
+        return _Int8Dense.apply(x_sign, k_sign, bool(scaled))
+    return _int8_dense_forward(x_sign, k_sign, bool(scaled))

@@ -58,6 +58,10 @@ SIGNATURES = {
         "zk_flash_backward_dq": (_I, [_P] * 7 + [_I] * 5 + [_LL] * 9 + [_F, _I, _I, _P]),
         "zk_flash_backward_dkv": (_I, [_P] * 8 + [_I] * 5 + [_LL] * 9 + [_F, _I, _I, _P]),
     },
+    "xnor_gemm": {
+        "zk_xnor_matmul_packed": (_I, [_P, _P, _P] + [_I] * 5 + [_P]),
+        "zk_xnor_matmul_packed_scaled": (_I, [_P] * 4 + [_I] * 5 + [_P]),
+    },
     "decode_attention": {
         "zk_paged_decode_attention": (
             _I, [_P, _LL, _LL, _P, _P, _P, _P] + [_I] * 5 + [_F, _I, _P],

@@ -1,9 +1,9 @@
-"""The QuickNet layers, as ``nn.Module``s, for training and serving.
+"""The binary models' layers, as ``nn.Module``s, for training and serving.
 
-Counterparts of the flax layers the JAX QuickNet builds: ``Conv``
+Counterparts of the flax layers the JAX zoo builds: ``Conv``
 (``flax.linen.Conv``), ``BatchNorm`` (``ops/layers.py`` ``BatchNorm``,
-i.e. ``flax.linen.BatchNorm``), ``Dense`` and ``QuantConv`` on all four
-binary paths. Every layer takes and returns NHWC tensors, as in the JAX
+i.e. ``flax.linen.BatchNorm``), ``Dense``, and ``QuantConv`` and
+``QuantDense`` on all four binary paths. Every layer takes and returns NHWC tensors, as in the JAX
 package. The fp convs run ``F.conv2d`` on the logical-NCHW view of the
 NHWC storage (a ``torch.channels_last`` tensor), so no layout copy is
 made; the packed kernels read the same storage directly. Parameter names
@@ -24,14 +24,22 @@ from zookeeper_tpu_torch.ops.binary_compute import (
     _spatial_pad,
     float_conv,
     int8_conv,
+    int8_dense,
     pack_conv_kernel,
     packed_conv_infer,
+    packed_dense_infer,
     resolve_binary_flavor,
+    xnor_dense,
 )
 from zookeeper_tpu_torch.ops.quantizers import get_quantizer, ste_sign_packed
 
 #: Binary compute modes of the JAX package; the port runs all four.
 BINARY_COMPUTE_MODES = ("mxu", "int8", "xnor", "xnor_popcount")
+
+#: Flat param-path regex (flax names: "QuantDense_1/kernel") matching the
+#: latent sign-read kernels of the Quant* layers: the JAX package's
+#: ``BINARY_KERNEL_PATTERN``, kept here so the port reads no JAX module.
+BINARY_KERNEL_PATTERN = r"Quant[A-Za-z0-9]*_\d+/kernel$"
 
 #: Input quantizers that emit strictly ±1 (what 1-bit residual packing
 #: needs: a 0 would come back as +1).
@@ -215,6 +223,122 @@ class Dense(nn.Module):
         return F.linear(x.to(d), self.weight.to(d), self.bias.to(d))
 
 
+def _check_quant_layer(layer: str, binary_compute: str, binary_flavor: str,
+                       in_q, k_q, packed_weights: bool) -> None:
+    """The validation both Quant layers share: a known mode and flavor, both
+    quantizers on a binary path, packed weights only on the packed paths."""
+    check_binary_compute(binary_compute, layer)
+    resolve_binary_flavor(binary_flavor)  # loud typo check
+    if binary_compute != "mxu" and (in_q is None or k_q is None):
+        raise ValueError(
+            f"{layer}: binary_compute={binary_compute!r} needs both an "
+            "input and a kernel quantizer."
+        )
+    if packed_weights and binary_compute not in ("xnor", "xnor_popcount"):
+        raise ValueError(
+            "packed_weights=True requires binary_compute='xnor' or "
+            f"'xnor_popcount', got {binary_compute!r}."
+        )
+
+
+class QuantDense(nn.Module):
+    """Binary dense layer over the last axis: the JAX ``QuantDense`` on its
+    four paths.
+
+    - "mxu": the float matmul of the quantized operands in ``dtype``.
+    - "int8": :func:`~zookeeper_tpu_torch.ops.binary_compute.int8_dense`,
+      exact integer sums with the float matmul's gradients.
+    - "xnor_popcount": both operands packed; K1 + K2 under the default
+      flavor, ``pack_bits`` + K5 + the scale under "reference".
+    - "xnor": int8 activations times packed weights, K4.
+
+    The two packed paths are inference-only in the port (their training
+    VJP is queued in ROADMAP.md). ``packed_weights=True`` holds only the
+    deployed form: ``kernel_packed`` [ceil(K/32), N] int32 and
+    ``kernel_scale`` [N] float32 (plus ``bias`` when ``use_bias``, which
+    carries a folded BN's shift). Otherwise the latent float ``kernel``
+    [K, N] (the flax layout) is held, clipped straight-through and
+    quantized at each call. Output is cast to ``dtype`` and the bias added
+    in ``dtype``. ``in_features`` (K) is given at construction.
+    """
+
+    def __init__(
+        self,
+        in_features: int,
+        features: int,
+        input_quantizer: Optional[str] = None,
+        kernel_quantizer: Optional[str] = None,
+        kernel_clip: bool = True,
+        use_bias: bool = True,
+        dtype: torch.dtype = torch.float32,
+        binary_compute: str = "mxu",
+        packed_weights: bool = False,
+        binary_flavor: str = "auto",
+    ):
+        super().__init__()
+        self.in_q = get_quantizer(input_quantizer)
+        self.k_q = get_quantizer(kernel_quantizer)
+        _check_quant_layer(type(self).__name__, binary_compute, binary_flavor,
+                           self.in_q, self.k_q, packed_weights)
+        self.in_features = in_features
+        self.kernel_clip = kernel_clip
+        self.dtype = dtype
+        self.binary_compute = binary_compute
+        self.packed_weights = packed_weights
+        self.binary_flavor = binary_flavor
+        self.scaled = not _int8_kernel_is_unscaled(kernel_quantizer)
+        if packed_weights:
+            self.register_buffer(
+                "kernel_packed",
+                torch.zeros(-(-in_features // 32), features, dtype=torch.int32),
+            )
+            self.kernel_scale = nn.Parameter(torch.ones(features))
+        else:
+            self.kernel = nn.Parameter(torch.zeros(in_features, features))
+        self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        with torch.no_grad():
+            if self.packed_weights:
+                self.kernel_packed.zero_()
+                self.kernel_scale.fill_(1.0)
+            else:
+                k, n = self.kernel.shape
+                _normal_(self.kernel, math.sqrt(2.0 / (k + n)), generator)  # glorot_normal
+            if self.bias is not None:
+                self.bias.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        mode = self.binary_compute
+        if x.shape[-1] != self.in_features:
+            raise ValueError(
+                f"{type(self).__name__}: input has {x.shape[-1]} features, the "
+                f"layer was built for {self.in_features}."
+            )
+        if self.in_q is not None:
+            x = self.in_q(x)
+        if self.packed_weights:
+            y = packed_dense_infer(
+                x, self.kernel_packed, self.kernel_scale, self.in_features,
+                use_popcount=mode == "xnor_popcount", flavor=self.binary_flavor,
+            )
+        else:
+            kernel = _apply_clip(self.kernel, self.kernel_clip)
+            if self.k_q is not None:
+                kernel = self.k_q(kernel)
+            if mode == "int8":
+                y = int8_dense(x, kernel, self.scaled)
+            elif mode == "mxu":
+                d = self.dtype
+                y = torch.matmul(x.to(d), kernel.to(d))
+            else:
+                y = xnor_dense(x, kernel, mode == "xnor_popcount", self.binary_flavor)
+        y = y.to(self.dtype)
+        if self.bias is not None:
+            y = y + self.bias.to(self.dtype)
+        return y
+
+
 class QuantConv(nn.Module):
     """Binary 2-D conv (NHWC): the JAX ``QuantConv`` on its four paths.
 
@@ -260,22 +384,12 @@ class QuantConv(nn.Module):
     ):
         super().__init__()
         name = type(self).__name__
-        check_binary_compute(binary_compute, name)
-        resolve_binary_flavor(binary_flavor)  # loud typo check
         if padding not in ("SAME", "VALID"):
             raise ValueError(f"{name}: padding {padding!r} is not SAME/VALID.")
         self.in_q = get_quantizer(input_quantizer)
         self.k_q = get_quantizer(kernel_quantizer)
-        if binary_compute != "mxu" and (self.in_q is None or self.k_q is None):
-            raise ValueError(
-                f"{name}: binary_compute={binary_compute!r} needs both an "
-                "input and a kernel quantizer."
-            )
-        if packed_weights and binary_compute not in ("xnor", "xnor_popcount"):
-            raise ValueError(
-                "packed_weights=True requires binary_compute='xnor' or "
-                f"'xnor_popcount', got {binary_compute!r}."
-            )
+        _check_quant_layer(name, binary_compute, binary_flavor, self.in_q, self.k_q,
+                           packed_weights)
         if pack_residuals:
             check_pack_residuals(binary_compute, input_quantizer, packed_weights, name)
             if input_quantizer == "ste_sign":

@@ -4,7 +4,8 @@ The port of ``zookeeper_tpu/ops/packed.py``'s converter. It works on the
 flax-layout tree (nested dicts of arrays under flax's scope names, as
 ``models/convert.py`` reads and writes), so a JAX checkpoint and a port
 model convert alike. Converted leaves are CPU torch tensors; other
-leaves pass through unchanged.
+leaves pass through unchanged. :func:`quantized_param_view` maps the
+latent sign-read kernels to the values the forward computes with.
 """
 
 import re
@@ -17,7 +18,7 @@ from zookeeper_tpu_torch.ops.binary_compute import (
     pack_conv_kernel,
     pack_dense_kernel,
 )
-from zookeeper_tpu_torch.ops.layers import _apply_clip
+from zookeeper_tpu_torch.ops.layers import BINARY_KERNEL_PATTERN, _apply_clip
 from zookeeper_tpu_torch.ops.quantizers import get_quantizer
 
 _PACK_SCOPES = {
@@ -173,7 +174,10 @@ def _fold_bn_pass(packed: Mapping[str, Any], batch_stats: Mapping[str, Any], eps
                 var, mean = _f32(bstats["var"]), _f32(bstats["mean"])
                 scale = _f32(bn.get("scale", 1.0))
                 shift = _f32(bn.get("bias", 0.0))
-                a = scale / torch.sqrt(var + eps)
+                # The square root of the fp32 sum, correctly rounded as
+                # JAX's is: PyTorch's vectorized fp32 sqrt on the CPU can be
+                # one ulp off, and the fp64 root rounds to the exact one.
+                a = scale / torch.sqrt((var + eps).double()).float()
                 b = shift - mean * a
                 folded = dict(child)
                 folded["kernel_scale"] = _f32(child["kernel_scale"]) * a
@@ -202,6 +206,36 @@ def _fold_bn_pass(packed: Mapping[str, Any], batch_stats: Mapping[str, Any], eps
         return out, stats_out
 
     return walk(packed, batch_stats)
+
+
+def quantized_param_view(
+    params: Mapping[str, Any],
+    kernel_quantizer: Union[str, Callable] = "ste_sign",
+    kernel_clip: bool = True,
+) -> dict:
+    """A params tree whose latent sign-read kernels (the paths matching
+    ``BINARY_KERNEL_PATTERN``, "/"-joined flax scope names) are replaced
+    by the values the forward computes with, ``quantizer(clip(latent))``
+    as CPU float32 tensors; every other leaf passes through unchanged
+    (larq's ``quantized_scope``, as a tree transform)."""
+    k_q = get_quantizer(kernel_quantizer)
+    if k_q is None:
+        raise ValueError("quantized_param_view requires a kernel quantizer.")
+    pattern = re.compile(BINARY_KERNEL_PATTERN)
+
+    def walk(node: Mapping[str, Any], prefix: str) -> dict:
+        out = {}
+        for key, child in node.items():
+            path = f"{prefix}/{key}" if prefix else str(key)
+            if isinstance(child, Mapping):
+                out[key] = walk(child, path)
+            elif pattern.search(path):
+                out[key] = k_q(_apply_clip(_f32(child), kernel_clip))
+            else:
+                out[key] = child
+        return out
+
+    return walk(params, "")
 
 
 def _flat_keys(tree: Mapping[str, Any], prefix: str = ""):

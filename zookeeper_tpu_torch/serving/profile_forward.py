@@ -1,15 +1,19 @@
 """Where a served forward's time goes on the card.
 
     python -m zookeeper_tpu_torch.serving.profile_forward \\
-        [--binary-compute xnor_popcount|xnor]
+        [--model QuickNetLarge|BinaryAlexNet|BinaryNet] \\
+        [--binary-compute xnor_popcount|xnor] [--binary-flavor auto|reference]
 
-Builds packed, BN-folded QuickNet-Large in bf16 at 224x224 through
-``ServingConfig`` (weights from a seed), times ``engine.infer`` on one
-batch of 8 with the host clock and a ``synchronize``, then traces the
-same forwards with ``torch.profiler`` and prints one JSON line: the
-forward's wall time, the device time per forward, the device's busy share
-(device time over wall time) and the 8 kernels that take the most device
-time.
+Builds a packed deployment of the model through ``ServingConfig``
+(weights from a seed): QuickNet-Large packed and BN-folded, bf16,
+224x224; BinaryAlexNet bf16, 224x224, packed throughout under
+"xnor_popcount" or, under "xnor", with "mxu" convs and the packed,
+BN-folded dense stage (BASELINE's deployment); BinaryNet fp32, 32x32,
+10 classes, packed throughout. Times ``engine.infer`` on one batch of 8
+with the host clock and a ``synchronize``, then traces the same forwards
+with ``torch.profiler`` and prints one JSON line: the forward's wall
+time, the device time per forward, the device's busy share (device time
+over wall time) and the 8 kernels that take the most device time.
 Needs a CUDA card.
 """
 
@@ -29,27 +33,47 @@ BATCH = 8
 STEPS = 10
 TOP = 8
 
+#: Each model's deployment, by binary_compute.
+MODELS = {
+    "QuickNetLarge": lambda bc: {
+        "model.compute_dtype": "bfloat16", "model.binary_compute": bc,
+        "model.packed_weights": True, "model.fold_bn": True,
+    },
+    "BinaryAlexNet": lambda bc: {
+        "model.compute_dtype": "bfloat16", "model.binary_compute": bc,
+        "model.packed_weights": True,
+    } if bc == "xnor_popcount" else {
+        "model.compute_dtype": "bfloat16", "model.binary_compute": "mxu",
+        "model.dense_binary_compute": bc, "model.dense_packed_weights": True,
+        "model.fold_bn": True,
+    },
+    "BinaryNet": lambda bc: {
+        "model.compute_dtype": "float32", "model.binary_compute": bc,
+        "model.packed_weights": True, "height": 32, "width": 32, "num_classes": 10,
+    },
+}
+
 
 def main(argv=None) -> dict:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--model", default="QuickNetLarge", choices=tuple(MODELS))
     parser.add_argument("--binary-compute", default="xnor_popcount",
                         choices=("xnor_popcount", "xnor"))
+    parser.add_argument("--binary-flavor", default="auto", choices=("auto", "reference"))
     args = parser.parse_args(argv)
 
     import zookeeper_tpu_torch.models  # noqa: F401  (registers the models)
 
     cfg = ServingConfig()
+    conf = MODELS[args.model](args.binary_compute)
+    if args.model != "BinaryAlexNet":  # the one model without the field
+        conf["model.binary_flavor"] = args.binary_flavor
     configure(cfg, {
-        "model": "QuickNetLarge",
-        "model.compute_dtype": "bfloat16",
-        "model.binary_compute": args.binary_compute,
-        "model.packed_weights": True,
-        "model.fold_bn": True,
-        "engine.batch_buckets": (BATCH,),
-        "device": "cuda", "verbose": False,
+        **conf, "model": args.model,
+        "engine.batch_buckets": (BATCH,), "device": "cuda", "verbose": False,
     })
     engine, _ = cfg.build_service()
-    x = np.random.default_rng(0).normal(size=(BATCH, 224, 224, 3)).astype(np.float32)
+    x = np.random.default_rng(0).normal(size=(BATCH, *cfg.input_shape)).astype(np.float32)
     engine.infer(x)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -74,7 +98,9 @@ def main(argv=None) -> dict:
     ).stdout.strip().splitlines()[0]
     result = {
         "card": card,
+        "model": args.model,
         "binary_compute": args.binary_compute,
+        "binary_flavor": args.binary_flavor if args.model != "BinaryAlexNet" else None,
         "batch": BATCH,
         "forward_ms": forward_ms,
         "device_ms_per_forward": device_ms if kernels else None,
