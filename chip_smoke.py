@@ -92,13 +92,18 @@ CUDA card and ``nvcc``. In order:
 12. LM training kernels: K9 with lse (``flash_forward_lse``), K10
    ``flash_backward_dq`` and K11 ``flash_backward_dkv`` at the training
    step's [4, 8192, 8, 64] bf16 causal, at [1, 2048, 8, 64] bf16 and fp32,
-   causal and full, at s=999, at head_dims 128 and 32, and at [1, 1024,
-   4, 256] and [1, 512, 2, 320] in bf16 and fp32 (past 128, in chunks),
-   each against
+   causal and full, at s=999, at head_dims 128 and 32, at the ragged
+   bf16 head_dims 40 and 72 and at head_dim 128 full and at s=999, and
+   at [1, 1024, 4, 256] and [1, 512, 2, 320] in bf16 and fp32 (past 128,
+   in chunks), each against
    its plain version: K9's out equal bit for bit to the no-lse K9's, lse
    within 1e-5, gradients per element (fp32: 5e-5 + 5e-5|want|, the JAX
    package's flash-gradient tolerance; bf16: 2^-6|want| + 2^-7
    max|want| per element and 2^-7 of |want| in norm, see ``_grad_use``);
+   K10 and K11 called twice must give the same bits; the library's
+   ``zk_flash_backward_variant`` must send every bf16 shape of head_dim
+   <= 128 to the tensor-core kernels and no other (their registers and
+   spills, from ptxas, are printed after the build);
    the fp32 gradients of ``flash_attention`` under autograd
    against the dense oracle's; each timed beside its plain version, its
    bound and SDPA (K10 and K11 together beside SDPA's backward).
@@ -112,7 +117,9 @@ CUDA card and ``nvcc``. In order:
    and profile. Before it, one fp32 step (2 layers, [2, 2048]) through
    the kernels must match the same step through their plain versions
    (loss within 1e-5 relative, each gradient within 1e-4 of its largest
-   magnitude).
+   magnitude), and so must one bf16 step (the same shape, through the
+   tensor-core K10/K11: loss within 2^-7 relative, each gradient within
+   2^-6 of its norm in norm, see ``_bf16_step_use``).
 14. Head_dim 256: TransformerLM with d_model 1024 and 4 heads (2 layers,
    seq_len 2048, bf16) serves 6 requests through
    ``LMServingConfig.run()`` in the slot and paged layouts (2 K9 per
@@ -1513,6 +1520,11 @@ LM_TRAIN_CHECKS = (
     (1, 2048, 8, 64, "float32", True), (1, 2048, 8, 64, "float32", False),
     (1, 999, 8, 64, "bfloat16", True), (1, 999, 8, 64, "float32", True),
     (1, 1024, 4, 128, "bfloat16", True), (2, 300, 3, 32, "float32", False),
+    # The tensor-core K10/K11's ragged edges: head_dims 40 and 72 (zero-
+    # padded to the 64- and 128-dim tiles), head_dim 128 full and at an
+    # awkward length.
+    (1, 1024, 4, 40, "bfloat16", True), (1, 1024, 4, 72, "bfloat16", True),
+    (1, 1024, 4, 128, "bfloat16", False), (1, 999, 4, 128, "bfloat16", True),
     # Past one register tile: head_dims 256 and 320 run in 128-dim chunks.
     (1, 1024, 4, 256, "bfloat16", True), (1, 1024, 4, 256, "float32", True),
     (1, 512, 2, 320, "bfloat16", True), (1, 512, 2, 320, "float32", True),
@@ -1551,6 +1563,43 @@ def _grad_use(torch, got, want, dtype) -> float:
     return float(torch.maximum(elem, norm))
 
 
+def _backward_variant_wanted(torch, dtype, d) -> str:
+    """The K10/K11 kernels a geometry must take: tensor cores for bf16 at
+    head_dim <= 128; fp32 keeps the FMA kernels (exact products, as JAX's
+    Precision.HIGHEST), and head_dims above 128 the chunked FMA kernels."""
+    if d > 128:
+        return "fma_wide"
+    return "mma" if dtype == torch.bfloat16 else "fma"
+
+
+def print_kernel_resources(cuda_build, name: str, match: str) -> None:
+    """Print ptxas's registers and spills of each kernel of ``name``'s
+    library whose mangled name contains ``match``."""
+    import re
+
+    kernel = None
+    for line in cuda_build.build_log(name).splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            mangled = m.group(1)
+            base = re.search(r"\d+(flash_\w+?_kernel)I(\w+?)EEv", mangled)
+            kernel = mangled
+            if base:
+                args = re.findall(r"Li(\d+)E", base.group(2) + "E")
+                kernel = f"{base.group(1)}<{', '.join(args)}>"
+            spills = None
+            continue
+        if kernel is None or match not in kernel:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            spills = f"spill stores {m.group(1)} B, spill loads {m.group(2)} B"
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            print(f"ptxas {name}: {kernel}: {m.group(1)} registers, {spills}", flush=True)
+            kernel = None
+
+
 def _plain_flash_training(A):
     """The training kernels' wrappers swapped for their plain versions."""
     return mock.patch.multiple(
@@ -1583,6 +1632,9 @@ def lm_train_kernel_phase(torch, A):
         q, k, v, do = (torch.randn(b, s, h, d, generator=g, device=dev).to(dtype)
                        for _ in range(4))
         kw = {"causal": causal}
+        variant = A.flash_backward_variant(dtype, d)
+        wanted = _backward_variant_wanted(torch, dtype, d)
+        check(variant == wanted, f"flash backward at {label}: variant {variant}, want {wanted}")
         with deterministic(torch):
             out0 = A.flash_attention(q, k, v, **kw)
             out, lse = A.flash_forward_lse(q, k, v, **kw)
@@ -1593,10 +1645,15 @@ def lm_train_kernel_phase(torch, A):
                    "flash_backward_dkv": A.flash_backward_dkv(*ops, **kw)}
             want = {"flash_backward_dq": (A.flash_backward_dq_plain(*ops, **kw),),
                     "flash_backward_dkv": A.flash_backward_dkv_plain(*ops, **kw)}
+            again = {"flash_backward_dq": (A.flash_backward_dq(*ops, **kw),),
+                     "flash_backward_dkv": A.flash_backward_dkv(*ops, **kw)}
             torch.cuda.synchronize()
+        for name in got:
+            check(all(_same_bits(torch, x, y) for x, y in zip(got[name], again[name])),
+                  f"{name} at {label}: two calls gave different bits")
         check(_same_bits(torch, out, out0),
               f"flash_forward_lse at {label}: out differs from the no-lse K9's")
-        notes = []
+        notes = [f"K10/K11 variant {variant}, the same bits twice"]
         lse_err = _max_abs_err(torch, lse, p_lse)
         # lse: an fp32 log of an fp32 sum on both sides (|lse| < 20 here).
         check(lse_err <= 1e-5, f"flash_forward_lse at {label}: lse err {lse_err} > 1e-5")
@@ -1617,7 +1674,7 @@ def lm_train_kernel_phase(torch, A):
                 check(use <= 1, f"{name} at {label}: {which} err {err}, limit used {use:.3g} > 1")
                 max_err[name] = max(max_err[name], err)
                 notes.append(f"{which} err {err:.3g} (limit used {use:.3g})")
-        del got, want, out0, p_out, p_lse
+        del got, want, again, out0, p_out, p_lse
 
         heavy = s >= 8192
         reps, inner = (5, 3) if heavy else (11, 5)
@@ -1684,30 +1741,34 @@ def lm_train_kernel_phase(torch, A):
     return records, max_err
 
 
-def lm_training_phase(torch, A, smi):
-    """TrainLM: one fp32 step at reduced depth and sequence through the
-    kernels against the same step through their plain versions; then the
-    full-width run() with its launches per step, its losses, the step's
-    time, busy share, peak memory and profile. Returns (launches over
-    run(), stats)."""
-    from torch.profiler import ProfilerActivity, profile
+def _bf16_step_use(torch, loss_k, loss_p, grads_k, grads_p):
+    """How much of the bf16 step limit the worst of loss and gradients
+    uses (ok when at most 1). The loss within 2^-7 relative: one bf16
+    step; the forward's K9-lse differs from its plain version by the
+    order of fp32 sums and the loss is an fp32 mean over every position.
+    Each gradient within 2^-6 of its norm, in norm: each layer's K10/K11
+    output is within 2^-7 of its plain version's in norm (``_grad_use``'s
+    bf16 limit), and the gradients of the bottom layer carry the
+    deviations of both layers' attention backward, 2 x 2^-7. Per element
+    no limit holds: the products downstream mix the deviations of every
+    position, and an element near 0 may move by more than itself.
+    Returns (use, name of the worst tensor)."""
+    uses = [(abs(loss_k - loss_p) / (2.0**-7 * abs(loss_p)), "loss")]
+    for name, g, w in zip(grads_k, grads_k.values(), grads_p.values()):
+        diff = torch.linalg.vector_norm((g - w).float())
+        uses.append((float(diff / (2.0**-6 * torch.linalg.vector_norm(w.float()))), name))
+    return max(uses)
 
-    from zookeeper_tpu_torch.core import configure
-    from zookeeper_tpu_torch.training.lm import TrainLM
+
+def _step_check(torch, A, experiment, dev, dtype_name):
+    """One training step (2 layers, [2, 2048], vocab 1024) through the
+    kernels against the same step through their plain versions. fp32:
+    the loss within 1e-5 relative and each gradient within 1e-4 of its
+    largest magnitude (the CPU tests' step tolerances: the attention sums
+    run in another order); bf16: ``_bf16_step_use``."""
     from zookeeper_tpu_torch.training.step import softmax_cross_entropy
 
-    dev = torch.device("cuda")
-
-    def experiment(**overrides):
-        exp = TrainLM()
-        configure(exp, {**LM_TRAIN_CONFIG, **overrides}, name="experiment")
-        return exp
-
-    # (1) fp32, 2 layers, seq 2048, batch 2: kernel step == plain step
-    # within the CPU tests' step tolerances (the loss within 1e-5
-    # relative, each gradient within 1e-4 of its tensor's largest
-    # magnitude): the attention sums run in another order.
-    exp = experiment(**{"model.num_layers": 2, "model.compute_dtype": "float32",
+    exp = experiment(**{"model.num_layers": 2, "model.compute_dtype": dtype_name,
                         "seq_len": 2048, "batch_size": 2})
     state = exp.build_state(dev)
     batch = next(iter(exp.loader.host_batches("train")))
@@ -1716,8 +1777,9 @@ def lm_training_phase(torch, A, smi):
 
     def loss_and_grads():
         loss = softmax_cross_entropy(state.module.train()(tokens), target)
-        return loss.detach(), torch.autograd.grad(loss, params)
+        return loss.item(), dict(zip(names, torch.autograd.grad(loss, params)))
 
+    what = f"lm training {dtype_name} check"
     with deterministic(torch):
         A.reset_launches()
         loss_k, grads_k = loss_and_grads()
@@ -1726,25 +1788,62 @@ def lm_training_phase(torch, A, smi):
             loss_p, grads_p = loss_and_grads()
         torch.cuda.synchronize()
     check(launched == {**dict.fromkeys(A.LAUNCHES, 0), **dict.fromkeys(LM_TRAIN_KERNELS, 2)},
-          f"lm training fp32 check: the kernel step launched {launched}")
-    check(A.LAUNCHES == launched, f"lm training fp32 check: the plain step launched kernels "
+          f"{what}: the kernel step launched {launched}")
+    check(A.LAUNCHES == launched, f"{what}: the plain step launched kernels "
                                   f"({launched} -> {A.LAUNCHES})")
-    loss_rel = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
-    worst = max((float((a - w).abs().max() / w.abs().max().clamp_min(1e-30)), n)
-                for n, a, w in zip(names, grads_k, grads_p))
-    check(loss_rel <= 1e-5 and worst[0] <= 1e-4,
-          f"lm training fp32 check: loss {loss_k.item()} vs {loss_p.item()}, worst gradient "
-          f"{worst[1]} at {worst[0]} of its largest magnitude")
-    print(f"lm training: fp32 step (2 layers, [2, 2048], vocab 1024) through the kernels "
-          f"against their plain versions: loss {loss_k.item():.7f} vs {loss_p.item():.7f} "
-          f"(rel {loss_rel:.3g}, tol 1e-5), {len(names)} gradients, worst {worst[1]} at "
-          f"{worst[0]:.3g} of its largest magnitude (tol 1e-4)", flush=True)
+    worst = max((float((g - grads_p[n]).abs().max() / grads_p[n].abs().max().clamp_min(1e-30)), n)
+                for n, g in grads_k.items())
+    if dtype_name == "float32":
+        loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+        check(loss_rel <= 1e-5 and worst[0] <= 1e-4,
+              f"{what}: loss {loss_k} vs {loss_p}, worst gradient {worst[1]} at {worst[0]} of "
+              f"its largest magnitude")
+        tol = (f"loss rel {loss_rel:.3g} (tol 1e-5), worst {worst[1]} at {worst[0]:.3g} of its "
+               f"largest magnitude (tol 1e-4)")
+    else:
+        use, where = _bf16_step_use(torch, loss_k, loss_p, grads_k, grads_p)
+        check(use <= 1, f"{what}: loss {loss_k} vs {loss_p}, {where} uses {use:.3g} of its limit")
+        tol = (f"limit (loss 2^-7 rel, each gradient 2^-6 of its norm) used {use:.3g} at "
+               f"{where}; largest element error {worst[0]:.3g} of its tensor's largest "
+               f"magnitude at {worst[1]}")
+    print(f"lm training: {dtype_name} step (2 layers, [2, 2048], vocab 1024, K10/K11 "
+          f"variant {A.flash_backward_variant(getattr(torch, dtype_name), 64)}) through the "
+          f"kernels against their plain versions: loss {loss_k:.7f} vs {loss_p:.7f}, "
+          f"{len(names)} gradients, {tol}", flush=True)
     del exp, state, grads_k, grads_p
     torch.cuda.empty_cache()
+
+
+def lm_training_phase(torch, A, smi):
+    """TrainLM: one fp32 and one bf16 step at reduced depth and sequence
+    through the kernels against the same step through their plain
+    versions; then the full-width run() with its launches per step, its
+    losses, the step's time, busy share, peak memory and profile.
+    Returns (launches over run(), stats)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from zookeeper_tpu_torch.core import configure
+    from zookeeper_tpu_torch.training.lm import TrainLM
+
+    dev = torch.device("cuda")
+
+    def experiment(**overrides):
+        exp = TrainLM()
+        configure(exp, {**LM_TRAIN_CONFIG, **overrides}, name="experiment")
+        return exp
+
+    # (1) 2 layers, seq 2048, batch 2: the kernel step against the plain
+    # step, in fp32 (K10/K11 on FMA) and in bf16 (on tensor cores).
+    for dtype_name in ("float32", "bfloat16"):
+        _step_check(torch, A, experiment, dev, dtype_name)
 
     # (2) run() at full width; each train step's launches and loss are
     # read around the step, the eval's launches are what is left.
     exp = experiment()
+    head_dim = LM_TRAIN_CONFIG["model.d_model"] // LM_TRAIN_CONFIG["model.num_heads"]
+    variant = A.flash_backward_variant(torch.bfloat16, head_dim)
+    check(variant == "mma", f"lm training run(): K10/K11 take the {variant} kernels at bf16 "
+                            f"head_dim {head_dim}, want the tensor-core ones")
     losses, per_step = [], []
     real_step_fn = TrainLM._train_step_fn
 
@@ -1783,7 +1882,8 @@ def lm_training_phase(torch, A, smi):
     check(math.isfinite(val["loss"]), f"lm training run(): validation {val}")
     tokens_per_step = LM_TRAIN_CONFIG["batch_size"] * LM_TRAIN_CONFIG["seq_len"]
     run_tokens_per_s = history["train"][0]["examples_per_sec"] * LM_TRAIN_CONFIG["seq_len"]
-    print(f"lm training run(): {LM_TRAIN_STEPS} steps, launches {launches} (per step "
+    print(f"lm training run(): {LM_TRAIN_STEPS} steps, K10/K11 variant {variant}, launches "
+          f"{launches} (per step "
           f"{per_step[0]}; the eval's {eval_batches} batch ran {launches['flash_forward']} "
           f"no-lse K9), losses {[round(x, 5) for x in losses]}, validation {val}, "
           f"{run_tokens_per_s:.1f} tokens/s through run() (first epoch, first step included), "
@@ -1945,6 +2045,7 @@ def main() -> None:
     print(f"build: {sorted(cuda_build.SIGNATURES)} with nvcc "
           f"{' '.join(cuda_build.NVCC_FLAGS)} in {time.perf_counter() - t0:.1f} s",
           flush=True)
+    print_kernel_resources(cuda_build, "flash_backward", "_mma_")
 
     totals = kernel_phase(torch, bc)
     totals.update(resid_kernel_phase(torch, bc))
@@ -2037,6 +2138,8 @@ def main() -> None:
             "bound_ms": LM_LAYERS * rec["bound_ms"], "bound_by": rec["bound_by"],
             "library_ms": LM_LAYERS * rec["library_ms"], "library_of": library_of[name],
         })
+        if name != "flash_forward_lse":
+            rows[-1]["variant"] = A.flash_backward_variant(torch.bfloat16, LM_TRAIN_SHAPE[3])
     print(smi, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({

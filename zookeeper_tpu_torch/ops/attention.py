@@ -30,8 +30,11 @@ PyTorch version beside it:
   products. Plain versions :func:`flash_backward_dq_plain` and
   :func:`flash_backward_dkv_plain`. :class:`_FlashAttention` ties K9
   with lse, K10 and K11 into one autograd Function, so
-  :func:`flash_attention` trains. The ``lse`` cotangent of JAX's
-  ``_flash_attention_lse`` (only the ring merge uses it) is not ported.
+  :func:`flash_attention` trains. bf16 calls at head_dim <= 128 run on
+  tensor cores, fp32 (exact products) and wider head_dims on fp32 FMA;
+  :func:`flash_backward_variant` names the kernels a call takes. The
+  ``lse`` cotangent of JAX's ``_flash_attention_lse`` (only the ring
+  merge uses it) is not ported.
 - K12 :func:`paged_decode_attention` — one-position decode over a slot
   cache ``[slots, capacity, heads, head_dim]``, reading only rows
   ``0..clamp(lengths, 0, capacity - 1)``. Plain version:
@@ -545,6 +548,23 @@ def flash_backward_dkv(q, k, v, do, lse, delta, *, causal=False,
     )
     LAUNCHES["flash_backward_dkv"] += 1
     return dk, dv
+
+
+#: The K10/K11 kernels by the code ``zk_flash_backward_variant`` returns.
+BACKWARD_VARIANTS = {0: "fma", 1: "fma_wide", 2: "mma"}
+
+
+def flash_backward_variant(dtype: torch.dtype, head_dim: int) -> str:
+    """Which K10/K11 kernels a call on the card launches for this dtype
+    and head_dim, as the library's dispatch decides: ``"mma"`` (bf16 at
+    head_dim <= 128, tensor cores), ``"fma"`` (fp32 at head_dim <= 128,
+    fp32 FMA, exact products) or ``"fma_wide"`` (head_dim > 128, 128-dim
+    chunks). Builds the library at first use."""
+    code = cuda_build.library("flash_backward").zk_flash_backward_variant(
+        _DTYPE_CODES[dtype], int(head_dim))
+    if code not in BACKWARD_VARIANTS:
+        raise ValueError(f"flash backward: no kernel for {dtype} at head_dim {head_dim}")
+    return BACKWARD_VARIANTS[code]
 
 
 class _FlashAttention(torch.autograd.Function):

@@ -25,6 +25,9 @@ BUILD_DIR = os.path.join(_PACKAGE_DIR, "build")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    # ptxas reports each kernel's registers, shared memory and spills;
+    # the report is kept beside the library (``build_log``).
+    "-Xptxas", "-v",
 )
 
 _P = ctypes.c_void_p
@@ -57,6 +60,7 @@ SIGNATURES = {
     "flash_backward": {
         "zk_flash_backward_dq": (_I, [_P] * 7 + [_I] * 5 + [_LL] * 9 + [_F, _I, _I, _P]),
         "zk_flash_backward_dkv": (_I, [_P] * 8 + [_I] * 5 + [_LL] * 9 + [_F, _I, _I, _P]),
+        "zk_flash_backward_variant": (_I, [_I, _I]),
     },
     "xnor_gemm": {
         "zk_xnor_matmul_packed": (_I, [_P, _P, _P] + [_I] * 5 + [_P]),
@@ -124,6 +128,8 @@ def _finish_build(proc: subprocess.Popen, tmp: str, target: str) -> None:
         raise RuntimeError(
             f"nvcc failed ({proc.returncode}): {' '.join(proc.args)}\n{output}"
         )
+    with open(f"{target}.log", "w") as f:
+        f.write(output)
     os.replace(tmp, target)
 
 
@@ -164,6 +170,14 @@ def library(name: str) -> ctypes.CDLL:
     if lib is None:
         lib = build_all([name])[name]
     return lib
+
+
+def build_log(name: str) -> str:
+    """The compiler's report for ``csrc/<name>.cu`` (ptxas's registers,
+    shared memory and spills per kernel), built on first use."""
+    library(name)
+    with open(f"{_library_path(name)}.log") as f:
+        return f.read()
 
 
 def check(status: int, what: str) -> None:
