@@ -73,7 +73,9 @@ CUDA card and ``nvcc``. In order:
    version (K9 in bf16 within 2^-6 of each output value plus 2e-3, and
    3e-2 overall, 2e-5 in fp32; K12/K13 2e-6 in fp32 and one bf16
    rounding step in bf16), timed beside it and beside SDPA where one
-   call computes the same function.
+   call computes the same function. The library's
+   ``zk_flash_forward_variant`` must send every bf16 K9 shape to the
+   tensor-core kernel and fp32 to the FMA one.
 10. LM serving: ``LMServingConfig.run()`` streams 32 requests (prompts
    up to 2048 tokens, 64 new tokens each) through a TransformerLM of 4
    layers, d_model 512, 8 heads, vocab 1024, seq_len 8192, bf16, on 8
@@ -95,15 +97,19 @@ CUDA card and ``nvcc``. In order:
    causal and full, at s=999, at head_dims 128 and 32, at the ragged
    bf16 head_dims 40 and 72 and at head_dim 128 full and at s=999, and
    at [1, 1024, 4, 256] and [1, 512, 2, 320] in bf16 and fp32 (past 128,
-   in chunks), each against
+   in chunks), at bf16 head_dims 20 and 100 (not multiples of 8: the
+   tensor-core kernels copy element by element) and with q, k and v
+   strided views of one fused [b, s, 3 h d] product (as the model splits
+   it), each against
    its plain version: K9's out equal bit for bit to the no-lse K9's, lse
    within 1e-5, gradients per element (fp32: 5e-5 + 5e-5|want|, the JAX
    package's flash-gradient tolerance; bf16: 2^-6|want| + 2^-7
    max|want| per element and 2^-7 of |want| in norm, see ``_grad_use``);
    K10 and K11 called twice must give the same bits; the library's
-   ``zk_flash_backward_variant`` must send every bf16 shape of head_dim
-   <= 128 to the tensor-core kernels and no other (their registers and
-   spills, from ptxas, are printed after the build);
+   ``zk_flash_forward_variant`` and ``zk_flash_backward_variant`` must
+   send every bf16 shape of head_dim <= 128 to the tensor-core kernels
+   and no other (their registers and spills, from ptxas, are printed
+   after the build);
    the fp32 gradients of ``flash_attention`` under autograd
    against the dense oracle's; each timed beside its plain version, its
    bound and SDPA (K10 and K11 together beside SDPA's backward).
@@ -1102,6 +1108,10 @@ def lm_kernel_phase(torch, A):
                                 (4, 8192, torch.bfloat16, True), (1, 512, torch.float32, True),
                                 (1, 999, torch.bfloat16, True), (1, 2048, torch.bfloat16, False)):
         h, d = LM_HEADS, LM_HEAD_DIM
+        variant = A.flash_forward_variant(dtype, d)
+        wanted = _flash_variant_wanted(torch, dtype, d)
+        check(variant == wanted, f"flash_forward at [{b}, {s}, {h}, {d}] {dtype}: variant "
+                                 f"{variant}, want {wanted}")
         q, k, v = (torch.randn(b, s, h, d, generator=g, device=dev).to(dtype) for _ in range(3))
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
         pairs = b * h * (s * (s + 1) // 2 if causal else s * s)
@@ -1511,9 +1521,10 @@ LM_TRAIN_CONFIG = {
 LM_TRAIN_STEPS = 8
 #: The attention shape of every layer of a training step.
 LM_TRAIN_SHAPE = (4, 8192, 8, 64)
-#: K9 with lse, K10 and K11 checks: (b, s, h, d, dtype name, causal); the
-#: main path's shape first, then the prefill-sized shapes in both dtypes
-#: and both masks, an awkward length and the other head_dims.
+#: K9 with lse, K10 and K11 checks: (b, s, h, d, dtype name, causal[,
+#: "fused qkv"]); the main path's shape first, then the prefill-sized
+#: shapes in both dtypes and both masks, an awkward length, the other
+#: head_dims and the model's strided operands.
 LM_TRAIN_CHECKS = (
     (*LM_TRAIN_SHAPE, "bfloat16", True),
     (1, 2048, 8, 64, "bfloat16", True), (1, 2048, 8, 64, "bfloat16", False),
@@ -1528,6 +1539,12 @@ LM_TRAIN_CHECKS = (
     # Past one register tile: head_dims 256 and 320 run in 128-dim chunks.
     (1, 1024, 4, 256, "bfloat16", True), (1, 1024, 4, 256, "float32", True),
     (1, 512, 2, 320, "bfloat16", True), (1, 512, 2, 320, "float32", True),
+    # The tensor-core kernels' element-by-element copies: head_dims that
+    # are not multiples of 8 elements.
+    (1, 999, 4, 20, "bfloat16", True), (1, 1024, 4, 100, "bfloat16", True),
+    # q, k and v as the model passes them: strided views of one fused
+    # [b, s, 3 h d] product (``TransformerLM``'s ``_heads``).
+    (2, 1024, 8, 64, "bfloat16", True, "fused qkv"),
 )
 
 
@@ -1563,10 +1580,11 @@ def _grad_use(torch, got, want, dtype) -> float:
     return float(torch.maximum(elem, norm))
 
 
-def _backward_variant_wanted(torch, dtype, d) -> str:
-    """The K10/K11 kernels a geometry must take: tensor cores for bf16 at
-    head_dim <= 128; fp32 keeps the FMA kernels (exact products, as JAX's
-    Precision.HIGHEST), and head_dims above 128 the chunked FMA kernels."""
+def _flash_variant_wanted(torch, dtype, d) -> str:
+    """The flash kernels (K9, K10/K11) a geometry must take: tensor cores
+    for bf16 at head_dim <= 128; fp32 keeps the FMA kernels (exact
+    products, as JAX's Precision.HIGHEST), and head_dims above 128 the
+    chunked FMA kernels."""
     if d > 128:
         return "fma_wide"
     return "mma" if dtype == torch.bfloat16 else "fma"
@@ -1626,15 +1644,24 @@ def lm_train_kernel_phase(torch, A):
     records = {}
     max_err = dict.fromkeys(LM_TRAIN_KERNELS, 0.0)
 
-    for b, s, h, d, dtype_name, causal in LM_TRAIN_CHECKS:
+    for b, s, h, d, dtype_name, causal, *layout in LM_TRAIN_CHECKS:
         dtype = getattr(torch, dtype_name)
-        label = f"[{b}, {s}, {h}, {d}] {dtype_name} causal={causal}"
-        q, k, v, do = (torch.randn(b, s, h, d, generator=g, device=dev).to(dtype)
-                       for _ in range(4))
+        label = f"[{b}, {s}, {h}, {d}] {dtype_name} causal={causal}" + "".join(
+            f" {x}" for x in layout)
+        if layout == ["fused qkv"]:
+            qkv = torch.randn(b, s, 3 * h * d, generator=g, device=dev).to(dtype)
+            q, k, v = (x.reshape(b, s, h, d) for x in qkv.split(h * d, dim=-1))
+            do = torch.randn(b, s, h, d, generator=g, device=dev).to(dtype)
+            del qkv
+        else:
+            q, k, v, do = (torch.randn(b, s, h, d, generator=g, device=dev).to(dtype)
+                           for _ in range(4))
         kw = {"causal": causal}
+        wanted = _flash_variant_wanted(torch, dtype, d)
         variant = A.flash_backward_variant(dtype, d)
-        wanted = _backward_variant_wanted(torch, dtype, d)
-        check(variant == wanted, f"flash backward at {label}: variant {variant}, want {wanted}")
+        fwd_variant = A.flash_forward_variant(dtype, d)
+        check(variant == wanted and fwd_variant == wanted,
+              f"flash at {label}: K9 variant {fwd_variant}, K10/K11 {variant}, want {wanted}")
         with deterministic(torch):
             out0 = A.flash_attention(q, k, v, **kw)
             out, lse = A.flash_forward_lse(q, k, v, **kw)
@@ -1653,7 +1680,7 @@ def lm_train_kernel_phase(torch, A):
                   f"{name} at {label}: two calls gave different bits")
         check(_same_bits(torch, out, out0),
               f"flash_forward_lse at {label}: out differs from the no-lse K9's")
-        notes = [f"K10/K11 variant {variant}, the same bits twice"]
+        notes = [f"K9 variant {fwd_variant}, K10/K11 variant {variant}, the same bits twice"]
         lse_err = _max_abs_err(torch, lse, p_lse)
         # lse: an fp32 log of an fp32 sum on both sides (|lse| < 20 here).
         check(lse_err <= 1e-5, f"flash_forward_lse at {label}: lse err {lse_err} > 1e-5")
@@ -1842,8 +1869,10 @@ def lm_training_phase(torch, A, smi):
     exp = experiment()
     head_dim = LM_TRAIN_CONFIG["model.d_model"] // LM_TRAIN_CONFIG["model.num_heads"]
     variant = A.flash_backward_variant(torch.bfloat16, head_dim)
-    check(variant == "mma", f"lm training run(): K10/K11 take the {variant} kernels at bf16 "
-                            f"head_dim {head_dim}, want the tensor-core ones")
+    fwd_variant = A.flash_forward_variant(torch.bfloat16, head_dim)
+    check(variant == fwd_variant == "mma",
+          f"lm training run(): K9-lse takes the {fwd_variant}, K10/K11 the {variant} kernels at "
+          f"bf16 head_dim {head_dim}, want the tensor-core ones")
     losses, per_step = [], []
     real_step_fn = TrainLM._train_step_fn
 
@@ -1882,7 +1911,8 @@ def lm_training_phase(torch, A, smi):
     check(math.isfinite(val["loss"]), f"lm training run(): validation {val}")
     tokens_per_step = LM_TRAIN_CONFIG["batch_size"] * LM_TRAIN_CONFIG["seq_len"]
     run_tokens_per_s = history["train"][0]["examples_per_sec"] * LM_TRAIN_CONFIG["seq_len"]
-    print(f"lm training run(): {LM_TRAIN_STEPS} steps, K10/K11 variant {variant}, launches "
+    print(f"lm training run(): {LM_TRAIN_STEPS} steps, K9-lse and K10/K11 variant {variant}, "
+          f"launches "
           f"{launches} (per step "
           f"{per_step[0]}; the eval's {eval_batches} batch ran {launches['flash_forward']} "
           f"no-lse K9), losses {[round(x, 5) for x in losses]}, validation {val}, "
@@ -2045,6 +2075,7 @@ def main() -> None:
     print(f"build: {sorted(cuda_build.SIGNATURES)} with nvcc "
           f"{' '.join(cuda_build.NVCC_FLAGS)} in {time.perf_counter() - t0:.1f} s",
           flush=True)
+    print_kernel_resources(cuda_build, "flash_forward", "_mma_")
     print_kernel_resources(cuda_build, "flash_backward", "_mma_")
 
     totals = kernel_phase(torch, bc)
@@ -2119,6 +2150,8 @@ def main() -> None:
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"],
         })
+        if name == "flash_forward":
+            rows[-1]["variant"] = A.flash_forward_variant(torch.bfloat16, LM_HEAD_DIM)
     # LM training kernels, per training step: 4 launches each (one per
     # layer) at the full-width shape.
     label = "[{}, {}, {}, {}] bfloat16 causal=True".format(*LM_TRAIN_SHAPE)
@@ -2138,8 +2171,9 @@ def main() -> None:
             "bound_ms": LM_LAYERS * rec["bound_ms"], "bound_by": rec["bound_by"],
             "library_ms": LM_LAYERS * rec["library_ms"], "library_of": library_of[name],
         })
-        if name != "flash_forward_lse":
-            rows[-1]["variant"] = A.flash_backward_variant(torch.bfloat16, LM_TRAIN_SHAPE[3])
+        variant_of = (A.flash_forward_variant if name == "flash_forward_lse"
+                      else A.flash_backward_variant)
+        rows[-1]["variant"] = variant_of(torch.bfloat16, LM_TRAIN_SHAPE[3])
     print(smi, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({

@@ -1,28 +1,74 @@
 """The port's kernel tools on the CPU: the ablated copies of the flash
-backward source that ``zookeeper_tpu_torch.ablate`` times, and the SASS
-parsing of ``zookeeper_tpu_torch.sass_diff``. Building and running them
-needs ``nvcc`` and the card; these tests hold the parts that do not."""
+sources that ``zookeeper_tpu_torch.ablate`` times, the SASS parsing of
+``zookeeper_tpu_torch.sass_diff``, the library hash of ``cuda_build``
+and the flash variant names. Building and running them needs ``nvcc`` and the card;
+these tests hold the parts that do not."""
 
 import pathlib
+import types
 
 import pytest
+import torch
 
 from zookeeper_tpu_torch import ablate, sass_diff
+from zookeeper_tpu_torch.ops import attention, cuda_build
 
-SOURCE = (pathlib.Path(__file__).resolve().parents[1] / "zookeeper_tpu_torch" / "csrc"
-          / "flash_backward.cu").read_text()
+CSRC = pathlib.Path(__file__).resolve().parents[1] / "zookeeper_tpu_torch" / "csrc"
+#: The tensor-core kernels each ablated source holds; every edit of an
+#: ablation touches each of them once.
+TENSOR_CORE_KERNELS = {"flash_backward": 2, "flash_forward": 1}
 
 
-@pytest.mark.parametrize("name", [n for n in ablate.ABLATIONS if ablate.ABLATIONS[n]])
-def test_each_ablation_edits_both_tensor_core_kernels_once(name):
-    """Every edit matches exactly one line of the source, so an ablation
-    cannot go stale silently and touches K10 and K11 alike."""
-    edits = ablate.ABLATIONS[name]
-    assert len(edits) == 2
+ABLATED = [(source, name) for source, ablations in ablate.ABLATIONS.items()
+           for name, edits in ablations.items() if edits]
+
+
+# The backward's cases keep the ids they had before the forward joined.
+@pytest.mark.parametrize("source,name", ABLATED, ids=[
+    name if source == "flash_backward" else f"{source}-{name}" for source, name in ABLATED])
+def test_each_ablation_edits_both_tensor_core_kernels_once(source, name):
+    """Every edit matches exactly one line of its source, so an ablation
+    cannot go stale silently, and the backward's touch K10 and K11
+    alike."""
+    text = (CSRC / f"{source}.cu").read_text()
+    edits = ablate.ABLATIONS[source][name]
+    assert len(edits) == TENSOR_CORE_KERNELS[source]
     for old, new in edits:
-        assert SOURCE.count(old) == 1, old
+        assert text.count(old) == 1, old
         assert old != new
-    assert "_mma_kernel" in SOURCE
+    assert "_mma_kernel" in text
+
+
+def test_every_ablated_source_has_the_reference_build():
+    assert set(ablate.ABLATIONS) == set(TENSOR_CORE_KERNELS)
+    assert all(ablations["as built"] == [] for ablations in ablate.ABLATIONS.values())
+
+
+def test_library_path_follows_the_included_headers(tmp_path, monkeypatch):
+    """An edit to a header that a source includes (directly or through
+    another header) renames the library, so a stale build never loads;
+    an edit to a header it does not include leaves the name alone."""
+    monkeypatch.setattr(cuda_build, "CSRC_DIR", str(tmp_path))
+    outer = '#pragma once\n#include "inner.cuh"\n'
+    (tmp_path / "k.cu").write_text('#include "outer.cuh"\nint f() { return g(); }\n')
+    (tmp_path / "outer.cuh").write_text(outer)
+    (tmp_path / "inner.cuh").write_text("int g() { return 1; }\n")
+    (tmp_path / "other.cuh").write_text("int h() { return 2; }\n")
+    first = cuda_build._library_path("k")
+    assert cuda_build._library_path("k") == first
+    (tmp_path / "other.cuh").write_text("int h() { return 3; }\n")
+    assert cuda_build._library_path("k") == first
+    (tmp_path / "inner.cuh").write_text("int g() { return 2; }\n")
+    second = cuda_build._library_path("k")
+    assert second != first
+    (tmp_path / "outer.cuh").write_text(outer + "// note\n")
+    assert cuda_build._library_path("k") not in (first, second)
+
+
+def test_the_flash_sources_include_the_shared_header():
+    for source in ("flash_forward", "flash_backward"):
+        files = cuda_build._sources(str(CSRC / f"{source}.cu"), {})
+        assert [pathlib.Path(f).name for f in files] == [f"{source}.cu", "mma_bf16.cuh"]
 
 
 SASS = """
@@ -53,3 +99,21 @@ def test_parse_sass_compares_the_same_code_under_another_tag_as_equal():
     assert sass_diff.parse_sass(other) == sass_diff.parse_sass(SASS)
     changed = SASS.replace("S2R R0, SR_TID.X", "S2R R0, SR_TID.Y")
     assert sass_diff.parse_sass(changed) != sass_diff.parse_sass(SASS)
+
+
+@pytest.mark.parametrize("which", ["forward", "backward"])
+def test_flash_variant_names_the_library_code(which, monkeypatch):
+    """``flash_forward_variant`` and ``flash_backward_variant`` ask their
+    own library and name its code through the one dict of variants; a
+    code the dict does not hold raises."""
+    codes = {(1, 64): 2, (0, 64): 0, (1, 256): 1, (0, 320): 1}
+    lib = types.SimpleNamespace(**{
+        f"zk_flash_{which}_variant": lambda dtype_code, d: codes.get((dtype_code, d), -1)})
+    monkeypatch.setattr(cuda_build, "library",
+                        lambda name: lib if name == f"flash_{which}" else pytest.fail(name))
+    variant = getattr(attention, f"flash_{which}_variant")
+    assert variant(torch.bfloat16, 64) == attention.FLASH_VARIANTS[2] == "mma"
+    assert variant(torch.float32, 64) == "fma"
+    assert variant(torch.bfloat16, 256) == variant(torch.float32, 320) == "fma_wide"
+    with pytest.raises(ValueError, match=f"flash {which}: no kernel"):
+        variant(torch.bfloat16, 7)

@@ -1,17 +1,22 @@
-"""Where the tensor-core K10/K11 spend their time: time them beside
-copies of ``csrc/flash_backward.cu`` with one part of the work removed.
+"""Where the tensor-core flash kernels spend their time: time them beside
+copies of their source with one part of the work removed.
 
-    python -m zookeeper_tpu_torch.ablate [--shape B S H D] [--full]
+    python -m zookeeper_tpu_torch.ablate [--source flash_backward|flash_forward]
+                                         [--shape B S H D] [--full]
 
-Builds, in parallel, the source as it is and two ablated copies: the
+Builds, in parallel, the source as it is and ablated copies: the
 accurate ``expf`` of P replaced by ``__expf`` (one ``ex2.approx``: a
 measure of the exponential's cost), and the elementwise phase removed
-(P and dS are the raw scores: a measure of the products, copies and
-synchronisation alone). Both copies compute wrong gradients and serve
-only as clocks. Times K10 and K11 of each at the LM training step's
-shape ([4, 8192, 8, 64] bf16 causal by default) with CUDA events, in two
-rounds of opposite order, and prints one JSON line with the card's name
-and power limit. Runs on the machine with the card and ``nvcc``.
+(P, and in the backward dS, are the raw scores: a measure of the
+products, copies and synchronisation alone); these two compute wrong
+results and serve only as clocks. The forward's third copy computes the
+same results with the generic K/V tile copy in place of its fixed-chunk
+one. Times each kernel of the source (K10
+and K11 for ``flash_backward.cu``, K9 with lse for ``flash_forward.cu``)
+at the LM training step's shape ([4, 8192, 8, 64] bf16 causal by
+default) with CUDA events, in two rounds of opposite order, and prints
+one JSON line with the card's name and power limit. Runs on the machine
+with the card and ``nvcc``.
 """
 
 import argparse
@@ -28,24 +33,46 @@ import torch
 from zookeeper_tpu_torch.ops import attention as A
 from zookeeper_tpu_torch.ops import cuda_build
 
-#: (text in the source, its replacement) for each ablation.
+#: Per source, (text in the source, its replacement) for each ablation.
 ABLATIONS = {
-    "as built": [],
-    "fast exp": [(f"? expf(__fmul_rn(sc[j][e], scale) - lse_{x}",
-                  f"? __expf(__fmul_rn(sc[j][e], scale) - lse_{x}") for x in "rt"],
-    "no elementwise": [
-        ("valid ? expf(__fmul_rn(sc[j][e], scale) - lse_r[e >> 1]) : 0.0f", "sc[j][e]"),
-        ("valid ? expf(__fmul_rn(sc[j][e], scale) - lse_t[col]) : 0.0f", "sc[j][e]"),
-    ],
+    "flash_backward": {
+        "as built": [],
+        "fast exp": [(f"? expf(__fmul_rn(sc[j][e], scale) - lse_{x}",
+                      f"? __expf(__fmul_rn(sc[j][e], scale) - lse_{x}") for x in "rt"],
+        "no elementwise": [
+            ("valid ? expf(__fmul_rn(sc[j][e], scale) - lse_r[e >> 1]) : 0.0f", "sc[j][e]"),
+            ("valid ? expf(__fmul_rn(sc[j][e], scale) - lse_t[col]) : 0.0f", "sc[j][e]"),
+        ],
+    },
+    "flash_forward": {
+        "as built": [],
+        "fast exp": [("p[e] = expf(sc[j][e] - mx[e >> 1]);",
+                      "p[e] = __expf(sc[j][e] - mx[e >> 1]);")],
+        # The softmax lambda packs the raw scores and returns: no scale,
+        # mask, row max, exponential, sum or rescale.
+        "no elementwise": [(
+            "auto to_p = [&](auto masked) {",
+            "auto to_p = [&](auto masked) {\n"
+            "      for (int j = 0; j < MMA_KTILE / 8; ++j) {\n"
+            "        pa[j >> 1][2 * (j & 1)] = pack_bf16(sc[j][0], sc[j][1]);\n"
+            "        pa[j >> 1][2 * (j & 1) + 1] = pack_bf16(sc[j][2], sc[j][3]);\n"
+            "      }\n"
+            "      return;",
+        )],
+        # The same outputs, the K/V copy through the generic
+        # `load_tile_bf16`: a measure of `copy_rows16`'s saving.
+        "generic copy": [("    if (vec) {\n      copy_rows16",
+                          "    if (false) {\n      copy_rows16")],
+    },
 }
 
 
-def _build(workdir: str) -> dict:
-    with open(os.path.join(cuda_build.CSRC_DIR, "flash_backward.cu")) as f:
-        source = f.read()
+def _build(source: str, workdir: str) -> dict:
+    with open(os.path.join(cuda_build.CSRC_DIR, f"{source}.cu")) as f:
+        text0 = f.read()
     procs = {}
-    for name, edits in ABLATIONS.items():
-        text = source
+    for name, edits in ABLATIONS[source].items():
+        text = text0
         for old, new in edits:
             if old not in text:
                 raise RuntimeError(f"ablation {name!r}: {old!r} is not in the source")
@@ -54,7 +81,8 @@ def _build(workdir: str) -> dict:
         with open(f"{stem}.cu", "w") as f:
             f.write(text)
         procs[name] = (subprocess.Popen(
-            [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-o", f"{stem}.so", f"{stem}.cu"],
+            [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-I", cuda_build.CSRC_DIR,
+             "-o", f"{stem}.so", f"{stem}.cu"],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), f"{stem}.so")
     libs = {}
     for name, (proc, path) in procs.items():
@@ -62,7 +90,7 @@ def _build(workdir: str) -> dict:
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {name!r}:\n{output}")
         lib = ctypes.CDLL(path)
-        for fn, (restype, argtypes) in cuda_build.SIGNATURES["flash_backward"].items():
+        for fn, (restype, argtypes) in cuda_build.SIGNATURES[source].items():
             getattr(lib, fn).restype = restype
             getattr(lib, fn).argtypes = argtypes
         libs[name] = lib
@@ -86,6 +114,7 @@ def _time_ms(fn, reps: int = 5, inner: int = 3) -> float:
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--source", choices=sorted(ABLATIONS), default="flash_backward")
     parser.add_argument("--shape", type=int, nargs=4, default=(4, 8192, 8, 64))
     parser.add_argument("--full", action="store_true", help="full attention, not causal")
     args = parser.parse_args(argv)
@@ -100,20 +129,24 @@ def main(argv=None) -> int:
     g = torch.Generator(device=dev).manual_seed(0)
     q, k, v, do = (torch.randn(b, s, h, d, generator=g, device=dev).to(torch.bfloat16)
                    for _ in range(4))
-    out, lse = A.flash_forward_lse(q, k, v, causal=causal)
-    ops = (q, k, v, do, lse, A.flash_backward_delta(out, do))
+    if args.source == "flash_forward":
+        kernels = {"flash_forward_lse": lambda: A.flash_forward_lse(q, k, v, causal=causal)}
+    else:
+        out, lse = A.flash_forward_lse(q, k, v, causal=causal)
+        ops = (q, k, v, do, lse, A.flash_backward_delta(out, do))
+        kernels = {"dq": lambda: A.flash_backward_dq(*ops, causal=causal),
+                   "dkv": lambda: A.flash_backward_dkv(*ops, causal=causal)}
     with tempfile.TemporaryDirectory() as workdir:
-        libs = _build(workdir)
-        times = {name: {"dq": [], "dkv": []} for name in libs}
+        libs = _build(args.source, workdir)
+        times = {name: {kernel: [] for kernel in kernels} for name in libs}
         for order in (list(libs), list(reversed(libs))):
             for name in order:
-                cuda_build._loaded["flash_backward"] = libs[name]
-                times[name]["dq"].append(_time_ms(lambda: A.flash_backward_dq(*ops, causal=causal)))
-                times[name]["dkv"].append(
-                    _time_ms(lambda: A.flash_backward_dkv(*ops, causal=causal)))
-        cuda_build._loaded.pop("flash_backward")
-    print(json.dumps({"device": smi, "shape": [b, s, h, d], "causal": causal,
-                      "ms_per_launch": times}), flush=True)
+                cuda_build._loaded[args.source] = libs[name]
+                for kernel, fn in kernels.items():
+                    times[name][kernel].append(_time_ms(fn))
+        cuda_build._loaded.pop(args.source)
+    print(json.dumps({"device": smi, "source": args.source, "shape": [b, s, h, d],
+                      "causal": causal, "ms_per_launch": times}), flush=True)
     return 0
 
 

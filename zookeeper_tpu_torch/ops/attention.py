@@ -30,9 +30,10 @@ PyTorch version beside it:
   products. Plain versions :func:`flash_backward_dq_plain` and
   :func:`flash_backward_dkv_plain`. :class:`_FlashAttention` ties K9
   with lse, K10 and K11 into one autograd Function, so
-  :func:`flash_attention` trains. bf16 calls at head_dim <= 128 run on
-  tensor cores, fp32 (exact products) and wider head_dims on fp32 FMA;
-  :func:`flash_backward_variant` names the kernels a call takes. The
+  :func:`flash_attention` trains. bf16 calls at head_dim <= 128 (K9 and
+  K9-lse as well as K10/K11) run on tensor cores, fp32 (exact products)
+  and wider head_dims on fp32 FMA; :func:`flash_forward_variant` and
+  :func:`flash_backward_variant` name the kernels a call takes. The
   ``lse`` cotangent of JAX's ``_flash_attention_lse`` (only the ring
   merge uses it) is not ported.
 - K12 :func:`paged_decode_attention` — one-position decode over a slot
@@ -550,21 +551,34 @@ def flash_backward_dkv(q, k, v, do, lse, delta, *, causal=False,
     return dk, dv
 
 
-#: The K10/K11 kernels by the code ``zk_flash_backward_variant`` returns.
-BACKWARD_VARIANTS = {0: "fma", 1: "fma_wide", 2: "mma"}
+#: The flash kernels (K9 and K9-lse, K10/K11) by the code
+#: ``zk_flash_forward_variant`` / ``zk_flash_backward_variant`` returns:
+#: ``"mma"`` (bf16 at head_dim <= 128, tensor cores), ``"fma"`` (fp32 at
+#: head_dim <= 128, fp32 FMA, exact products) or ``"fma_wide"`` (head_dim
+#: > 128, 128-dim chunks).
+FLASH_VARIANTS = {0: "fma", 1: "fma_wide", 2: "mma"}
+
+
+def _flash_variant(which: str, dtype: torch.dtype, head_dim: int) -> str:
+    code = getattr(cuda_build.library(f"flash_{which}"), f"zk_flash_{which}_variant")(
+        _DTYPE_CODES[dtype], int(head_dim))
+    if code not in FLASH_VARIANTS:
+        raise ValueError(f"flash {which}: no kernel for {dtype} at head_dim {head_dim}")
+    return FLASH_VARIANTS[code]
+
+
+def flash_forward_variant(dtype: torch.dtype, head_dim: int) -> str:
+    """Which K9 kernel (with or without lse) a call on the card launches
+    for this dtype and head_dim, as the library's dispatch decides (see
+    :data:`FLASH_VARIANTS`). Builds the library at first use."""
+    return _flash_variant("forward", dtype, head_dim)
 
 
 def flash_backward_variant(dtype: torch.dtype, head_dim: int) -> str:
     """Which K10/K11 kernels a call on the card launches for this dtype
-    and head_dim, as the library's dispatch decides: ``"mma"`` (bf16 at
-    head_dim <= 128, tensor cores), ``"fma"`` (fp32 at head_dim <= 128,
-    fp32 FMA, exact products) or ``"fma_wide"`` (head_dim > 128, 128-dim
-    chunks). Builds the library at first use."""
-    code = cuda_build.library("flash_backward").zk_flash_backward_variant(
-        _DTYPE_CODES[dtype], int(head_dim))
-    if code not in BACKWARD_VARIANTS:
-        raise ValueError(f"flash backward: no kernel for {dtype} at head_dim {head_dim}")
-    return BACKWARD_VARIANTS[code]
+    and head_dim, as the library's dispatch decides (see
+    :data:`FLASH_VARIANTS`). Builds the library at first use."""
+    return _flash_variant("backward", dtype, head_dim)
 
 
 class _FlashAttention(torch.autograd.Function):

@@ -3,16 +3,18 @@
 Each ``csrc/*.cu`` source compiles with ``nvcc`` for ``sm_90a`` into its
 own shared library with a plain C interface, loaded through ``ctypes``.
 Libraries land in ``zookeeper_tpu_torch/build/`` under a name that
-carries a hash of the source and the flags, so an edited source
-rebuilds and an unchanged one loads as built. The build runs at first
-use (or all at once through :func:`build_all`, one ``nvcc`` per source
-started together) and never at import: the CPU tests import every
-module on a machine without ``nvcc``.
+carries a hash of the source, the ``csrc/*.cuh`` headers it includes
+and the flags, so an edited source or header rebuilds and an unchanged
+one loads as built. The build runs at first use (or all at once
+through :func:`build_all`, one ``nvcc`` per source started together)
+and never at import: the CPU tests import every module on a machine
+without ``nvcc``.
 """
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -56,6 +58,7 @@ SIGNATURES = {
     },
     "flash_forward": {
         "zk_flash_forward": (_I, [_P] * 5 + [_I] * 5 + [_LL] * 9 + [_F, _I, _I, _P]),
+        "zk_flash_forward_variant": (_I, [_I, _I]),
     },
     "flash_backward": {
         "zk_flash_backward_dq": (_I, [_P] * 7 + [_I] * 5 + [_LL] * 9 + [_F, _I, _I, _P]),
@@ -94,11 +97,26 @@ def _nvcc() -> str:
     )
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+\.cuh)"', re.MULTILINE)
+
+
+def _sources(path: str, seen: Dict[str, bytes]) -> Dict[str, bytes]:
+    """{path: bytes} of ``path`` and every ``csrc/*.cuh`` it includes,
+    directly or through another header, in the order first reached."""
+    if path not in seen:
+        with open(path, "rb") as f:
+            seen[path] = text = f.read()
+        for header in _INCLUDE.findall(text):
+            _sources(os.path.join(CSRC_DIR, header.decode()), seen)
+    return seen
+
+
 def _library_path(name: str) -> str:
-    source = os.path.join(CSRC_DIR, f"{name}.cu")
+    """The library's path: a hash of the source, the headers it includes
+    and the flags, so an edit to any of them rebuilds."""
     digest = hashlib.sha256()
-    with open(source, "rb") as f:
-        digest.update(f.read())
+    for text in _sources(os.path.join(CSRC_DIR, f"{name}.cu"), {}).values():
+        digest.update(text)
     digest.update(" ".join(NVCC_FLAGS).encode())
     return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
 
