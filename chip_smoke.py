@@ -16,10 +16,17 @@ CUDA card and ``nvcc``. In order:
    ``nvcc`` for ``sm_90a``, one process per source, in parallel.
 3. Kernels: K1 ``pack_rows``, K3 ``conv_gemm_popcount`` and K4
    ``packed_weight_matmul`` at every shape the batch-8 QuickNet-Large
-   forward gives them plus a ragged shape: each must EQUAL its plain
-   PyTorch version on the card (exact integers, or one fp32 multiply of
-   one), and each is timed beside its plain version and, where one
-   PyTorch call computes the same function, that call.
+   forward gives them plus a ragged shape; K4 also at slice D's dense
+   shapes (M 8 and 1, K 9216 and 4096, N 4096) and at rows across its
+   variant threshold and tile edges (M 8 and 9, M not a multiple of
+   the tile, N 33 and 130, Kw 1, K not a multiple of 32): each must
+   EQUAL its plain PyTorch version on the card (exact integers, or one
+   fp32 multiply of one), and each is timed beside its plain version
+   and, where one PyTorch call computes the same function, that call
+   (K4: ``torch._int_mm``, M padded where it refuses a small M). Every
+   K4 row must take the design ``packed_weight_matmul_variant`` names
+   for it: "mma" (the int8 tensor-core tiles) for slice B's conv GEMMs
+   and every M > 8, "small_m" for slice D's dense shapes and M <= 8.
 4. Residual kernels: K6 ``pack_resid`` (sign and mask mode), K7
    ``unpack_resid_pm1`` and K8 ``mask_mul_resid`` at the four
    QuickNet-Large section shapes of a batch-128 bf16 training step, and
@@ -33,7 +40,16 @@ CUDA card and ``nvcc``. In order:
    must equal its plain version bit for bit, and K2 must equal K5's
    output ``.float() * scale`` bit for bit; each is timed beside its
    plain version and ``torch._int_mm`` on int8 +-1 operands (M padded
-   where ``_int_mm`` refuses a small M; the line says so).
+   where ``_int_mm`` refuses a small M; the line says so). K5 also runs
+   ragged rows on both sides of its variant threshold (M 64 and 65, 129,
+   300; Kw 1, 7 and 37; N 8, 72 and 130), and K2 the rows at M 64, 65
+   and 300, so its 32-row tiles are held bit for bit to K5's
+   tensor-core output there. Every K5 row must take the
+   design ``xnor_matmul_packed_variant`` names for it: "mma" (the int8
+   tensor cores) for slice E's conv GEMMs and every M > 64, "popc" for
+   M <= 64, K2's shapes included (K2 runs "popc" at every M). The
+   ptxas report (registers, spills) of the K4 and K5 kernels is printed
+   after the build.
 6. The int8 conv's forward at the four section shapes must give the
    exact integer sums (against a float64 conv, exact for these sums).
 7. Serving slices (``SLICES``), each ``ServingConfig.run()`` over 16
@@ -131,7 +147,7 @@ CUDA card and ``nvcc``. In order:
    ``LMServingConfig.run()`` in the slot and paged layouts (2 K9 per
    prefill, 2 K12/K13 per decode step) and takes one training step
    (2 K9-lse, 2 K10, 2 K11).
-15. One JSON line of the kernels (13 rows), then the result line.
+15. One JSON line of the kernels (14 rows), then the result line.
 """
 
 import contextlib
@@ -396,22 +412,42 @@ def kernel_phase(torch, bc):
                rows.numel() * rows.element_size() + m * k // 8, m * k,
                (m, k, str(dtype)))
 
-    gemm_cases = [(n, BATCH * h * h, 9 * c, c) for n, h, c in SECTIONS] + [(0, 37, 70, 33)]
+    gemm_cases = [(n, BATCH * h * h, 9 * c, c) for n, h, c in SECTIONS] + list(K4_EXTRA_CASES)
     for count, m, k, n in gemm_cases:
         a = signs(m, k)
         a[torch.rand(m, k, generator=g) < 0.05] = 0.0  # zeros of the spatial padding
         a = a.to(torch.int8).to(dev)
         w = signs(k, n)
         bp = bc.pack_dense_kernel(w)[0].to(dev)
-        library = None
-        if m > 16 and k % 8 == 0 and n % 8 == 0:
-            w8 = w.to(torch.int8).to(dev).t().contiguous().t()  # column-major
-            library = lambda: torch._int_mm(a, w8)  # noqa: E731
         kw = bp.shape[0]
+        variant = bc.packed_weight_matmul_variant(m, n, kw)
+        wanted = "small_m" if m <= K4_SMALL_M else "mma"
+        check(variant == wanted, f"packed_weight_matmul at {(m, k, n)}: variant {variant}, "
+                                 f"want {wanted}")
+        library, rows = _int_mm_yardstick(torch, m, 32 * kw, n, dev, g)
+        if rows not in (None, m):
+            print(f"kernel packed_weight_matmul {(m, k, n)}: _int_mm at M padded {m} -> "
+                  f"{rows} (it refuses M={m})", flush=True)
         record("packed_weight_matmul", count, lambda: bc.packed_weight_matmul(a, bp),
                lambda: bc.packed_weight_matmul_plain(a, bp), library,
-               m * k + kw * n * 4 + m * n * 4, 2 * m * n * k, (m, k, n))
+               m * k + kw * n * 4 + m * n * 4, 2 * m * n * k, (m, k, n, variant))
     return totals
+
+
+#: K4 rows off slice B's main path (launches per forward 0): slice D's
+#: dense stage at batch 8 and 1 (K 9216 and 4096, N 4096), both sides of
+#: the "small_m"/"mma" threshold (M 8 and 9), M not a multiple of the
+#: 64-row tile (9, 17, 37, 100, 130), N 33 and 130 (ragged column tiles
+#: and unaligned rows of words), Kw 1 (K 32) and K not a multiple of 32
+#: (70, 1000: the wrapper pads A with zeros). (launches, M, K, N).
+K4_EXTRA_CASES = ((0, 8, 9216, 4096), (0, 8, 4096, 4096), (0, 1, 9216, 4096),
+                  (0, 1, 4096, 4096), (0, 8, 4096, 256), (0, 9, 4096, 256),
+                  (0, 3, 70, 130), (0, 9, 32, 33), (0, 17, 32, 33), (0, 37, 70, 33),
+                  (0, 100, 32, 33), (0, 130, 576, 64), (0, 65, 1000, 130))
+#: K4 takes "small_m" up to this M, the tensor-core tiles ("mma") past it;
+#: K5 takes "popc" up to K5_POPC_M, "mma" past it.
+K4_SMALL_M = 8
+K5_POPC_M = 64
 
 
 #: K2 and K5 checks: (M, Kw, N, launches per main-path forward). K2's
@@ -419,13 +455,18 @@ def kernel_phase(torch, bc):
 #: layers, K 9216 and 4096, N 4096), K5's slice E's batch-8 forward
 #: (BinaryNet: 9 per-tap GEMMs of its first binary conv, one fused GEMM
 #: for each of the other four, the two dense layers). Then the dense
-#: shapes at batch 1 and a ragged shape, off the main path.
+#: shapes at batch 1 and ragged shapes, off the main path; K5's last
+#: four sit on both sides of its "popc"/"mma" threshold, and K2's last
+#: three on both sides of its own 8-row/32-row tile threshold (M 64),
+#: where K5 runs "mma", so the check "K2 = K5 .float() * scale" holds
+#: K2's 32-row tiles against the tensor-core design bit for bit.
 K2_CASES = ((8, 288, 4096, 1), (8, 128, 4096, 1), (1, 288, 4096, 0), (1, 128, 4096, 0),
-            (37, 7, 130, 0))
+            (37, 7, 130, 0), (64, 7, 130, 0), (65, 7, 130, 0), (300, 37, 72, 0))
 K5_CASES = ((8192, 4, 128, 9), (2048, 36, 256, 1), (2048, 72, 256, 1), (512, 72, 512, 1),
             (512, 144, 512, 1), (8, 256, 1024, 1), (8, 32, 1024, 1),
             (8, 288, 4096, 0), (8, 128, 4096, 0), (1, 288, 4096, 0), (1, 128, 4096, 0),
-            (37, 7, 130, 0))
+            (37, 7, 130, 0), (64, 7, 130, 0), (65, 7, 130, 0), (129, 1, 8, 0),
+            (300, 37, 72, 0))
 
 
 def _int_mm_yardstick(torch, m, k, n, dev, g):
@@ -476,6 +517,11 @@ def xnor_kernel_phase(torch, bc, smi):
                 kernel = lambda: bc.xnor_matmul_packed_scaled(a, b, scale, k_true=k_true)  # noqa: E731
                 plain = lambda: bc.xnor_matmul_packed_scaled_plain(  # noqa: E731
                     a, b, scale, k_true=k_true)
+            variant = bc.xnor_matmul_packed_variant(m, n, kw)
+            wanted = "popc" if m <= K5_POPC_M else "mma"
+            check(variant == wanted, f"{name} at {(m, kw, n)}: K5 variant {variant}, want {wanted}")
+            if name == "xnor_matmul_packed_scaled":
+                variant = "popc"  # K2 has one design
             with deterministic(torch):
                 got, want = kernel(), plain()
                 k5 = bc.xnor_matmul_packed(a, b, k_true=k_true)
@@ -499,7 +545,7 @@ def xnor_kernel_phase(torch, bc, smi):
             ops = 2 * m * n * 32 * kw
             b_ms, b_by = bound_ms(name, nbytes, ops)
             pad = "" if rows in (None, m) else f" (M padded {m} -> {rows}: _int_mm refuses M={m})"
-            print(f"kernel {name} M={m} Kw={kw} N={n} on {smi}: equal bits"
+            print(f"kernel {name} M={m} Kw={kw} N={n} ({variant}) on {smi}: equal bits"
                   f"{', = K5 .float() * scale' if name.endswith('scaled') else ''}, kernel "
                   f"{k_ms:.6f} ms, plain {p_ms:.6f} ms, _int_mm "
                   f"{None if l_ms is None else round(l_ms, 6)} ms{pad}, bound {b_ms:.6f} ms by "
@@ -1590,6 +1636,24 @@ def _flash_variant_wanted(torch, dtype, d) -> str:
     return "mma" if dtype == torch.bfloat16 else "fma"
 
 
+def _kernel_name(mangled: str) -> str:
+    """``name<args>`` of a mangled kernel template instance (its integer
+    and bool arguments), or the mangled name if it is not one."""
+    import re
+
+    name = mangled
+    for m in re.finditer(r"\d+", mangled):
+        # The length prefix is a suffix of the digit run (a hash may
+        # end in digits just before it); the kernel is the last name.
+        for start in range(m.start(), m.end()):
+            ident = mangled[m.end():m.end() + int(mangled[start:m.end()])]
+            rest = mangled[m.end() + len(ident):]
+            if ident[:1].isalpha() and ident.endswith("_kernel") and rest.startswith("I"):
+                args = re.findall(r"L[ib](\d+)E", rest[:rest.find("EEv") + 1])
+                name = f"{ident}<{', '.join(args)}>"
+    return name
+
+
 def print_kernel_resources(cuda_build, name: str, match: str) -> None:
     """Print ptxas's registers and spills of each kernel of ``name``'s
     library whose mangled name contains ``match``."""
@@ -1599,12 +1663,7 @@ def print_kernel_resources(cuda_build, name: str, match: str) -> None:
     for line in cuda_build.build_log(name).splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            mangled = m.group(1)
-            base = re.search(r"\d+(flash_\w+?_kernel)I(\w+?)EEv", mangled)
-            kernel = mangled
-            if base:
-                args = re.findall(r"Li(\d+)E", base.group(2) + "E")
-                kernel = f"{base.group(1)}<{', '.join(args)}>"
+            kernel = _kernel_name(m.group(1))
             spills = None
             continue
         if kernel is None or match not in kernel:
@@ -2077,6 +2136,8 @@ def main() -> None:
           flush=True)
     print_kernel_resources(cuda_build, "flash_forward", "_mma_")
     print_kernel_resources(cuda_build, "flash_backward", "_mma_")
+    print_kernel_resources(cuda_build, "packed_weight_matmul", "_kernel")
+    print_kernel_resources(cuda_build, "xnor_gemm", "_kernel")
 
     totals = kernel_phase(torch, bc)
     totals.update(resid_kernel_phase(torch, bc))

@@ -8,6 +8,8 @@ version. Every result is an exact integer or one fp32 multiply of one,
 so the comparisons are ``np.array_equal``, not a tolerance.
 """
 
+import pathlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -150,7 +152,10 @@ def test_conv_gemm_popcount_validates_operands():
 # -- K4: packed-weight GEMM --------------------------------------------------
 
 
-@pytest.mark.parametrize("m,k,n", [(1, 32, 1), (37, 70, 33), (130, 576, 64)])
+# Ragged in every axis; on both sides of the kernels' "small_m"/"mma"
+# threshold (M 8 and 9); a single K word; a dense-stage shape at a cut N.
+@pytest.mark.parametrize("m,k,n", [(1, 32, 1), (37, 70, 33), (130, 576, 64), (3, 70, 130),
+                                   (17, 32, 33), (65, 1000, 130), (9, 96, 130), (8, 2304, 64)])
 def test_packed_weight_matmul_matches_pallas(m, k, n):
     rng = np.random.default_rng(m + k + n)
     a = _signs(rng, (m, k))
@@ -164,6 +169,43 @@ def test_packed_weight_matmul_matches_pallas(m, k, n):
     assert got.dtype == torch.int32
     np.testing.assert_array_equal(_np(got), np.asarray(want))
     np.testing.assert_array_equal(_np(got), (a @ w).astype(np.int32))
+
+
+CSRC = pathlib.Path(__file__).resolve().parents[1] / "zookeeper_tpu_torch" / "csrc"
+
+
+def _pm1_bytes(nib):
+    """numpy model of ``pm1_bytes`` in ``csrc/mma_s8.cuh`` (uint32
+    arithmetic): bits 0-3 of ``nib`` as four +-1 bytes."""
+    x = ((nib & np.uint64(0xF)) * np.uint64(0x00204081)) & np.uint64(0x01010101)
+    return (np.uint64(0xFFFFFFFF) - x * np.uint64(0xFE)) & np.uint64(0xFFFFFFFF)
+
+
+def _decode_words(words):
+    """[n] int32 packed words -> [n, 32] int8, as the kernels decode them:
+    word q of the 8 is ``pm1_bytes(w >> 4q)``, bytes little-endian."""
+    w = words.astype(np.int64).astype(np.uint64) & np.uint64(0xFFFFFFFF)
+    quads = np.stack([_pm1_bytes(w >> np.uint64(4 * q)) for q in range(8)], axis=-1)
+    return quads.astype("<u4").view(np.int8).reshape(len(words), 32)
+
+
+def test_kernel_bit_decode_matches_unpack_bits():
+    """The carry-free decode the K4 and K5 kernels compile (the formula in
+    the header, checked verbatim) gives bit t -> byte t, +1 for a set bit
+    and -1 for a clear one, exactly as ``unpack_bits``: for all 16
+    nibbles (every byte position) and for random words."""
+    header = (CSRC / "mma_s8.cuh").read_text()
+    assert "((nib & 0xFu) * 0x00204081u) & 0x01010101u" in header
+    assert "0xFFFFFFFFu - x * 0xFEu" in header
+    nibbles = np.arange(16, dtype=np.uint64)
+    want = np.array([[1 if (v >> j) & 1 else -1 for j in range(4)] for v in range(16)], np.int8)
+    got = _pm1_bytes(nibbles).astype("<u4").view(np.int8).reshape(16, 4)
+    np.testing.assert_array_equal(got, want)
+    rng = np.random.default_rng(11)
+    words = rng.integers(-(2**31), 2**31, size=4096, dtype=np.int64).astype(np.int32)
+    words[:4] = [0, -1, 1, -(2**31)]
+    want = tbc.unpack_bits(torch.from_numpy(words)[:, None], 32, axis=-1).numpy()
+    np.testing.assert_array_equal(_decode_words(words), want.astype(np.int8))
 
 
 def test_packed_weight_matmul_validates_operands():

@@ -1,7 +1,8 @@
 """The port's kernel tools on the CPU: the ablated copies of the flash
 sources that ``zookeeper_tpu_torch.ablate`` times, the SASS parsing of
 ``zookeeper_tpu_torch.sass_diff``, the library hash of ``cuda_build``
-and the flash variant names. Building and running them needs ``nvcc`` and the card;
+and the variant names of the flash kernels and of the int8 tensor-core
+GEMMs (K4, K5). Building and running them needs ``nvcc`` and the card;
 these tests hold the parts that do not."""
 
 import pathlib
@@ -11,7 +12,7 @@ import pytest
 import torch
 
 from zookeeper_tpu_torch import ablate, sass_diff
-from zookeeper_tpu_torch.ops import attention, cuda_build
+from zookeeper_tpu_torch.ops import attention, binary_compute, cuda_build
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "zookeeper_tpu_torch" / "csrc"
 #: The tensor-core kernels each ablated source holds; every edit of an
@@ -71,6 +72,14 @@ def test_the_flash_sources_include_the_shared_header():
         assert [pathlib.Path(f).name for f in files] == [f"{source}.cu", "mma_bf16.cuh"]
 
 
+def test_the_int8_gemm_sources_include_their_shared_header():
+    """K4 and K5 share the int8 tensor-core helpers and block-tile GEMM of
+    ``mma_s8.cuh``, so an edit there renames (rebuilds) both libraries."""
+    for source in ("packed_weight_matmul", "xnor_gemm"):
+        files = cuda_build._sources(str(CSRC / f"{source}.cu"), {})
+        assert [pathlib.Path(f).name for f in files] == [f"{source}.cu", "mma_s8.cuh"]
+
+
 SASS = """
 \tcode for sm_90a
 \t\tFunction : _ZN50_GLOBAL__N__cf84b836_17_flash_backward_cu_4bfeb50715flash_dq_kernelIfLi64EEEvPKT_
@@ -101,6 +110,15 @@ def test_parse_sass_compares_the_same_code_under_another_tag_as_equal():
     assert sass_diff.parse_sass(changed) != sass_diff.parse_sass(SASS)
 
 
+def test_parse_sass_ignores_the_column_padding():
+    """cuobjdump pads each line to the longest instruction of the file, so
+    a source that gains a longer instruction elsewhere re-pads every
+    kernel: the same code padded otherwise compares equal."""
+    wider = SASS.replace(" ;      /*", " ;           /*").replace(" ;          /*", " ;               /*")
+    assert wider != SASS
+    assert sass_diff.parse_sass(wider) == sass_diff.parse_sass(SASS)
+
+
 @pytest.mark.parametrize("which", ["forward", "backward"])
 def test_flash_variant_names_the_library_code(which, monkeypatch):
     """``flash_forward_variant`` and ``flash_backward_variant`` ask their
@@ -117,3 +135,31 @@ def test_flash_variant_names_the_library_code(which, monkeypatch):
     assert variant(torch.bfloat16, 256) == variant(torch.float32, 320) == "fma_wide"
     with pytest.raises(ValueError, match=f"flash {which}: no kernel"):
         variant(torch.bfloat16, 7)
+
+
+@pytest.mark.parametrize("library,what,names", [
+    ("packed_weight_matmul", "packed_weight_matmul", {1: "small_m", 0: "mma"}),
+    ("xnor_gemm", "xnor_matmul_packed", {1: "popc", 0: "mma"}),
+])
+def test_gemm_variant_names_the_library_code(library, what, names, monkeypatch):
+    """``packed_weight_matmul_variant`` and ``xnor_matmul_packed_variant``
+    ask their own library with (M, N, Kw) and name its code through the
+    one dict of variants; a code the dict does not hold raises."""
+    seen = []
+
+    def variant(m, n, kw):
+        seen.append((m, n, kw))
+        return -1 if m <= 0 else (1 if m <= 8 else 0)
+
+    lib = types.SimpleNamespace(**{f"zk_{what}_variant": variant})
+    monkeypatch.setattr(cuda_build, "library",
+                        lambda name: lib if name == library else pytest.fail(name))
+    helper = getattr(binary_compute, f"{what}_variant")
+    table = (binary_compute.PACKED_WEIGHT_VARIANTS if library == "packed_weight_matmul"
+             else binary_compute.XNOR_VARIANTS)
+    assert table == names
+    assert helper(8, 4096, 288) == names[1]
+    assert helper(25088, 64, 18) == names[0] == "mma"
+    assert seen == [(8, 4096, 288), (25088, 64, 18)]
+    with pytest.raises(ValueError, match=f"{what}: no kernel"):
+        helper(0, 64, 2)

@@ -19,8 +19,10 @@ from zookeeper_tpu.ops import binary_compute as jbc
 from zookeeper_tpu_torch.ops import binary_compute as tbc
 
 #: (M, Kw, N): ragged in every axis, a single word, a single row, and the
-#: BinaryAlexNet dense layers' K words at a cut N.
-SHAPES = [(1, 1, 1), (37, 7, 130), (8, 9, 33), (3, 20, 5), (2, 288, 40), (8, 128, 64)]
+#: BinaryAlexNet dense layers' K words at a cut N; then both sides of the
+#: kernels' "popc"/"mma" threshold (M 64 and 65) and ragged rows past it.
+SHAPES = [(1, 1, 1), (37, 7, 130), (8, 9, 33), (3, 20, 5), (2, 288, 40), (8, 128, 64),
+          (64, 7, 130), (65, 7, 130), (129, 1, 8), (300, 37, 72)]
 
 
 def _words(rng, *shape):
@@ -105,3 +107,19 @@ def test_off_the_cpu_the_wrappers_never_run_plain():
     with pytest.raises(ValueError, match="CUDA"):  # mixed devices
         tbc.xnor_matmul_packed(a, torch.zeros(2, 8, dtype=torch.int32), k_true=64)
     assert tbc.LAUNCHES == {k: 0 for k in tbc.LAUNCHES}
+
+
+@pytest.mark.parametrize("m,kw,n", [(5, 1, 3), (65, 7, 130), (9, 37, 8)])
+def test_k5_is_the_pm1_dot_less_the_pad(m, kw, n):
+    """The identity the tensor-core K5 epilogue rests on: over all 32 Kw
+    values, pad bits included and unequal on the two sides, the +-1 dot
+    of the unpacked words is 32 Kw - 2 mismatches, so K5's ``k_true - 2
+    mismatches`` is that dot less ``32 Kw - k_true``, bit for bit."""
+    rng = np.random.default_rng(100 * m + kw)
+    a, b = _words(rng, m, kw), _words(rng, kw, n)
+    ta, tb = torch.from_numpy(a), torch.from_numpy(b)
+    for k_true in (32 * kw, 32 * kw - 1, 32 * kw - 31):
+        dot = (tbc.unpack_bits(ta, 32 * kw, axis=-1).double()
+               @ tbc.unpack_bits(tb, 32 * kw, axis=0).double()).to(torch.int32)
+        got = tbc.xnor_matmul_packed_plain(ta, tb, k_true=k_true)
+        np.testing.assert_array_equal(got.numpy(), (dot - (32 * kw - k_true)).numpy())

@@ -7,107 +7,151 @@
 //       (1 -> +1, 0 -> -1)
 //   out [M, N] int32 = a @ unpack(b)
 //
-// Bound on an H100: memory at the shapes the packed QuickNet serves. A is
-// the materialised im2col patch matrix (kh*kw times the activation
-// bytes), while the weights arrive 32x compressed.
+// Bound on an H100: memory. At large M (the packed QuickNet's fused-tap
+// conv GEMMs) A is the materialised im2col patch matrix and the int32
+// output, while the weights arrive 32x compressed; at M = batch (the
+// packed dense stage) the weights are the bytes (4.7 MB at K 9216, N
+// 4096). The products run on the int8 tensor cores (`mma.sync.m16n8k32`
+// s8 x s8 -> s32, helpers in mma_s8.cuh): every sum is an exact integer,
+// so the result is the same bits in any order. The caller pads K to a
+// multiple of 32 with zeros on the A side, which contribute nothing
+// whatever the padded weight bits decode to.
 //
-// Design: a 64x64 output tile per block, 256 threads, each owning a 4x4
-// sub-tile. The K loop walks one packed word (32 values of K) per step:
-// the block copies its [64, 32] int8 A slab into shared memory as eight
-// int32 words per row, and decodes its [32, 64] weight slab once into
-// +-1 int8, four K values per int32, as the TPU kernel decodes once per
-// (n, k) into scratch. The product is `__dp4a` (4 int8 products and an
-// int32 add per instruction); sums stay exact in int32. The caller pads
-// K to a multiple of 32 with zeros on the A side, which contributes
-// nothing whatever the padded weight bits decode to.
+// Two designs, chosen by M in the C entry point (`variant`):
+//   "mma" (M > 8): the block-tile GEMM of mma_s8.cuh. A 64 x 64 tile a
+//     block (N 64 reads A once), A's rows in a ring of three 128-byte K
+//     stages by 16-byte `cp.async`, each packed weight word loaded once
+//     per block per stage and decoded to +-1 bytes in shared memory, as
+//     the TPU kernel decodes a weight slab into VMEM scratch once per
+//     (n, k). Producer warps copy and decode while consumer warps
+//     multiply; where the tiles leave the card half empty (slice B's
+//     last section: 56 tiles), a cluster of blocks splits K and joins
+//     its sums through distributed shared memory.
+//   "small_m" (M <= 8): out^T = unpack(b)^T a^T. The decoded weight
+//     columns are the mma's A operand (16 columns a tile), decoded from
+//     the packed words straight into the fragment registers; the <= 8
+//     activation rows are its B operand (n8). K is permuted
+//     consistently on both sides (a sum is the same in any order): lane
+//     group t of a product takes 8 values of its own word, so each lane
+//     reads whole 16-byte vectors of 4 neighbouring columns' words. A
+//     warp owns 64 columns and 4 K words, a block 4 warps on the same
+//     columns and 16 K words; the grid splits K over many small blocks
+//     (1152 at K 9216, N 4096), so the weights stream with many loads in
+//     flight. The 4 warps join their sums in shared memory, and each
+//     block adds its share into the output (zeroed first) with one
+//     atomic per value.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mma_s8.cuh"
+
 namespace {
 
-constexpr int kTileM = 64;
-constexpr int kTileN = 64;
-constexpr int kQuads = 8;  // int32 words of int8 per 32-value K step
-constexpr int kThreads = 256;
+constexpr int SMALL_M_MAX = 8;  // "small_m": the rows fill one n8 operand
+constexpr int SM_WARPS = 4;
+constexpr int SM_COLS = 64;  // output columns a block (and a warp)
+constexpr int SM_BLOCK_WORDS = SM_WARPS * 4;  // K words a block: 4 a warp
 
-__device__ __forceinline__ int32_t decode_quad(uint32_t word, int q) {
-  // Four sign bits -> four int8 lanes: bit set -> 0x01 (+1), clear ->
-  // 0xFF (-1); byte j holds K index 4q + j (little-endian, as dp4a reads).
-  const uint32_t nib = (word >> (4 * q)) & 0xFu;
-  uint32_t v = 0;
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    v |= (((nib >> j) & 1u) ? 0x01u : 0xFFu) << (8 * j);
+// Words of K word `wd` for columns col..col+3, zeros past n (or kw).
+__device__ __forceinline__ uint4 load_cols(const uint32_t* __restrict__ b, long long wd, int col,
+                                           int n, bool live, bool vec) {
+  uint4 v = make_uint4(0u, 0u, 0u, 0u);
+  if (!live) return v;
+  const uint32_t* row = b + wd * n;
+  if (vec) {
+    if (col < n) v = __ldg(reinterpret_cast<const uint4*>(row + col));
+  } else {
+    if (col < n) v.x = __ldg(row + col);
+    if (col + 1 < n) v.y = __ldg(row + col + 1);
+    if (col + 2 < n) v.z = __ldg(row + col + 2);
+    if (col + 3 < n) v.w = __ldg(row + col + 3);
   }
-  return static_cast<int32_t>(v);
+  return v;
 }
 
-__global__ void packed_weight_matmul_kernel(const int32_t* __restrict__ a,
-                                            const uint32_t* __restrict__ b,
-                                            int32_t* __restrict__ out, int m,
-                                            int n, int kw) {
-  __shared__ int32_t as[kTileM][kQuads + 1];  // +1: no bank conflicts
-  __shared__ int32_t bs[kQuads][kTileN];
+// M <= 8 activation rows. `vec`: N % 4 == 0 and b 16-byte aligned, so
+// 4 neighbouring columns' words are one vector.
+__global__ void __launch_bounds__(SM_WARPS * 32)
+packed_weight_matmul_small_m_kernel(const int8_t* __restrict__ a,
+                                    const uint32_t* __restrict__ b,
+                                    int32_t* __restrict__ out, int m, int n, int kw,
+                                    bool vec) {
+  __shared__ int32_t part[8][SM_COLS];
+  for (int e = threadIdx.x; e < 8 * SM_COLS; e += blockDim.x) (&part[0][0])[e] = 0;
 
-  const int tx = threadIdx.x % 16;
-  const int ty = threadIdx.x / 16;
-  const int m0 = blockIdx.x * kTileM;
-  const int n0 = blockIdx.y * kTileN;
-  const long long a_row_words = static_cast<long long>(kw) * kQuads;
-
-  int32_t acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0;
-
-  for (int kt = 0; kt < kw; ++kt) {
-    for (int i = threadIdx.x; i < kTileM * kQuads; i += blockDim.x) {
-      const int r = i / kQuads;
-      const int q = i - r * kQuads;
-      const int gm = m0 + r;
-      as[r][q] = gm < m ? a[gm * a_row_words + kt * kQuads + q] : 0;
-    }
-    for (int i = threadIdx.x; i < kQuads * kTileN; i += blockDim.x) {
-      const int q = i / kTileN;
-      const int c = i - q * kTileN;
-      const int gn = n0 + c;
-      const uint32_t word =
-          gn < n ? b[static_cast<long long>(kt) * n + gn] : 0u;
-      bs[q][c] = decode_quad(word, q);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int q = 0; q < kQuads; ++q) {
-      int32_t av[4], bv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) av[i] = as[ty + 16 * i][q];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) bv[j] = bs[q][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = __dp4a(av[i], bv[j], acc[i][j]);
-    }
-    __syncthreads();
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int n0 = blockIdx.x * SM_COLS;
+  // Lane group t takes K word wd of columns n0 + 4g + q (w[q], fragment
+  // row g of tile q) and n0 + 32 + 4g + q (w[4 + q], row g + 8), q = 0..3,
+  // and the 32 activations of word wd for row g (zeros past m or kw):
+  // x[2i], x[2i + 1] are values 8i..8i+3 and 8i+4..8i+7.
+  const int wd = blockIdx.y * SM_BLOCK_WORDS + warp * 4 + t;
+  const uint4 lo = load_cols(b, wd, n0 + 4 * g, n, wd < kw, vec);
+  const uint4 hi = load_cols(b, wd, n0 + 32 + 4 * g, n, wd < kw, vec);
+  const uint32_t w[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+  uint4 x0 = make_uint4(0u, 0u, 0u, 0u), x1 = x0;
+  if (g < m && wd < kw) {
+    const uint4* src = reinterpret_cast<const uint4*>(a + g * 32LL * kw + 32LL * wd);
+    x0 = __ldg(src);
+    x1 = __ldg(src + 1);
   }
+  const uint32_t x[8] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z, x1.w};
 
+  int acc[4][4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[q][c] = 0;
+  // Product i takes bits 8i..8i+7 of each lane group's word: k-slots
+  // 4t..4t+3 are bits 8i..8i+3, slots 16+4t.. bits 8i+4..8i+7, on the
+  // weight side (A) and the activation side (B) alike.
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    const int gm = m0 + ty + 16 * i;
-    if (gm >= m) continue;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int gn = n0 + tx + 16 * j;
-      if (gn < n) out[static_cast<long long>(gm) * n + gn] = acc[i][j];
+    for (int q = 0; q < 4; ++q) {
+      const uint32_t af[4] = {
+          s8::pm1_bytes(w[q] >> (8 * i)), s8::pm1_bytes(w[4 + q] >> (8 * i)),
+          s8::pm1_bytes(w[q] >> (8 * i + 4)), s8::pm1_bytes(w[4 + q] >> (8 * i + 4))};
+      s8::mma(acc[q], af, x[2 * i], x[2 * i + 1]);
     }
   }
+
+  // acc[q]: rows 2t (c0, c2) and 2t + 1 (c1, c3) of columns 4g + q
+  // (c0, c1) and 32 + 4g + q (c2, c3).
+  __syncthreads();  // part is zeroed
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    atomicAdd(&part[2 * t][4 * g + q], acc[q][0]);
+    atomicAdd(&part[2 * t + 1][4 * g + q], acc[q][1]);
+    atomicAdd(&part[2 * t][32 + 4 * g + q], acc[q][2]);
+    atomicAdd(&part[2 * t + 1][32 + 4 * g + q], acc[q][3]);
+  }
+  __syncthreads();
+  for (int e = threadIdx.x; e < 8 * SM_COLS; e += blockDim.x) {
+    const int row = e / SM_COLS;
+    const int col = n0 + e % SM_COLS;
+    if (row < m && col < n) {
+      atomicAdd(out + static_cast<long long>(row) * n + col, (&part[0][0])[e]);
+    }
+  }
+}
+
+// 0 "mma", 1 "small_m"; -1 for a shape no kernel takes.
+int variant(int m, int n, int kw) {
+  if (m <= 0 || n <= 0 || kw < 0) return -1;
+  return m <= SMALL_M_MAX ? 1 : 0;
 }
 
 }  // namespace
 
-// a: [m, 32*kw] int8 (4-byte aligned rows), b: [kw, n] int32,
+// Which design a call takes (see `variant`).
+extern "C" int zk_packed_weight_matmul_variant(int m, int n, int kw) { return variant(m, n, kw); }
+
+// a: [m, 32*kw] int8 (16-byte aligned), b: [kw, n] int32,
 // out: [m, n] int32. Returns a cudaError_t.
 extern "C" int zk_packed_weight_matmul(const void* a, const void* b,
                                        void* out, int m, int n, int kw,
@@ -115,12 +159,17 @@ extern "C" int zk_packed_weight_matmul(const void* a, const void* b,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (m <= 0 || n <= 0) return 0;
-  // M tiles on x (no 65535 limit); neighbouring blocks share a weight
-  // slab through L2.
-  const dim3 grid((m + kTileM - 1) / kTileM, (n + kTileN - 1) / kTileN);
-  packed_weight_matmul_kernel<<<grid, kThreads, 0,
-                                static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(a), static_cast<const uint32_t*>(b),
-      static_cast<int32_t*>(out), m, n, kw);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (variant(m, n, kw) == 0) {
+    return s8::launch_tile_gemm<false>(a, b, out, m, n, kw, 0, device, st);
+  }
+  err = cudaMemsetAsync(out, 0, static_cast<size_t>(m) * n * sizeof(int32_t), st);
+  if (err != cudaSuccess || kw == 0) return static_cast<int>(err);
+  const bool vec = n % 4 == 0 && reinterpret_cast<uintptr_t>(b) % 16 == 0;
+  const dim3 grid((n + SM_COLS - 1) / SM_COLS, (kw + SM_BLOCK_WORDS - 1) / SM_BLOCK_WORDS);
+  if (grid.y > 65535u) return static_cast<int>(cudaErrorInvalidValue);
+  packed_weight_matmul_small_m_kernel<<<grid, SM_WARPS * 32, 0, st>>>(
+      static_cast<const int8_t*>(a), static_cast<const uint32_t*>(b), static_cast<int32_t*>(out),
+      m, n, kw, vec);
   return static_cast<int>(cudaGetLastError());
 }

@@ -9,29 +9,40 @@
 // writes it as int32; K2 writes `__fmul_rn((float)(k_true - 2*acc),
 // scale[n])` as fp32, one multiply that no contraction can fuse, so K2 is
 // bit for bit K5's output `.float() * scale`. K padding of equal bits on
-// both sides adds no mismatch, so the kernel never pads: it bounds-checks
-// the ragged M, N and Kw tails itself.
+// both sides adds no mismatch, so the kernels never pad: they bounds-check
+// the ragged M, N and Kw tails themselves.
 //
 // Bound on an H100: bytes for the dense layers at M = batch (b is read
 // once: 4.7 MB at K 9216, N 4096, against ~0.3 us of popcount work at
 // the int8 peak); operations only at large M (the conv-as-GEMM schedules,
 // whose b is a few hundred kB and stays in L2).
 //
-// Design (simple first; wgmma/TMA is later work): a block of 4 warps owns
-// 32 output columns and BM rows. Inside a warp, 8 lanes cover 8
-// neighbouring columns and the warp's 4 lane groups split K word by word,
-// so one load instruction reads 4 rows of b x 32 contiguous bytes: every
-// 32-byte sector is used whole, and each b word is read once per M tile.
-// The A tile (BM rows x KT words) is staged in shared memory, K-major, and
-// read back as 16-byte vectors broadcast to the 8 lanes of a group. Each
-// thread keeps BM int32 accumulators in registers; the 4 partial sums of a
-// column are joined by two xor-shuffles, register to register, so the
-// accumulator never leaves the registers before the epilogue. BM is 8 for
-// small M (the dense layers) and 32 for the conv GEMMs, where b tiles are
-// re-read from L2 once per M tile.
+// Two designs, chosen by M in the C entry point (`variant`):
+//   "popc" (M <= 64, and K2 at every M): `xnor_gemm_kernel`, XOR and
+//     popcount on the CUDA cores. A block of 4 warps owns 32 output
+//     columns and BM rows. Inside a warp, 8 lanes cover 8 neighbouring
+//     columns and the warp's 4 lane groups split K word by word, so one
+//     load instruction reads 4 rows of b x 32 contiguous bytes: every
+//     32-byte sector is used whole, and each b word is read once per M
+//     tile. The A tile (BM rows x KT words) is staged in shared memory,
+//     K-major, and read back as 16-byte vectors broadcast to the 8 lanes
+//     of a group. Each thread keeps BM int32 accumulators in registers;
+//     the 4 partial sums of a column are joined by two xor-shuffles. BM
+//     is 8 for small M (the dense layers) and 32 for K2's large M.
+//   "mma" (K5 at M > 64, the conv GEMMs): `__popc` on the CUDA cores runs
+//     at 16 a clock per SM, about 1/8 of the int8 tensor-core rate in
+//     binary products. So both operands are decoded to +-1 bytes in
+//     shared memory by producer warps and multiplied on the int8 tensor
+//     cores by consumer warps in the block-tile GEMM of mma_s8.cuh
+//     (`mma.sync.m16n8k32` s8 -> s32), the design K4 runs at large M.
+//     The full padded dot over 32 Kw values is 32 Kw - 2 mismatches
+//     whatever the pad bits are, so the epilogue subtracts
+//     32 Kw - k_true.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "mma_s8.cuh"
 
 namespace {
 
@@ -40,6 +51,7 @@ constexpr int THREADS = WARPS * 32;  // 128
 constexpr int COLS = WARPS * 8;      // 32 output columns per block
 constexpr int SLICES = 4;            // K word slices per warp
 constexpr int KT = 128;              // K words staged per step
+constexpr int POPC_M_MAX = 64;       // K5 takes the tensor cores past this M
 
 template <int BM, bool SCALED>
 __global__ void __launch_bounds__(THREADS)
@@ -125,17 +137,28 @@ int launch(const void* a, const void* b, const void* scale, void* out, int m,
   const uint32_t* bp = static_cast<const uint32_t*>(b);
   const float* sp = static_cast<const float*>(scale);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (m <= 64) {
+  if (m <= POPC_M_MAX) {
     const dim3 grid((m + 7) / 8, col_blocks);
     xnor_gemm_kernel<8, SCALED><<<grid, THREADS, 0, st>>>(ap, bp, sp, out, m, n, kw, k_true);
-  } else {
+  } else if constexpr (SCALED) {
     const dim3 grid((m + 31) / 32, col_blocks);
     xnor_gemm_kernel<32, SCALED><<<grid, THREADS, 0, st>>>(ap, bp, sp, out, m, n, kw, k_true);
+  } else {
+    return s8::launch_tile_gemm<true>(a, b, out, m, n, kw, 32 * kw - k_true, device, st);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
+// K5's design: 0 "mma", 1 "popc"; -1 for a shape no kernel takes.
+int variant(int m, int n, int kw) {
+  if (m <= 0 || n <= 0 || kw < 0) return -1;
+  return m <= POPC_M_MAX ? 1 : 0;
+}
+
 }  // namespace
+
+// Which design K5 takes (see `variant`); K2 always takes "popc".
+extern "C" int zk_xnor_matmul_packed_variant(int m, int n, int kw) { return variant(m, n, kw); }
 
 // K5: a [m, kw], b [kw, n] int32, contiguous; out [m, n] int32.
 // Returns a cudaError_t.

@@ -15,9 +15,11 @@ PyTorch version beside it:
 - K1 :func:`pack_rows` — sign+pack of float rows into words;
 - K3 :func:`conv_gemm_popcount` — popcount conv with the scale epilogue;
 - K4 :func:`packed_weight_matmul` — int8 activations times packed
-  weights;
+  weights, on the int8 tensor cores (:func:`packed_weight_matmul_variant`
+  names the design a shape takes);
 - K5 :func:`xnor_matmul_packed` — the unfused popcount GEMM on packed
-  operands (the "reference" flavor's conv and dense GEMM);
+  operands (the "reference" flavor's conv and dense GEMM; the int8 tensor
+  cores at large M, :func:`xnor_matmul_packed_variant`);
 - K2 :func:`xnor_matmul_packed_scaled` — K5 with the per-output-channel
   scale epilogue (the packed dense layer's GEMM);
 - K6 :func:`pack_resid` — 1-bit pack along the batch of the sign bit or
@@ -338,7 +340,8 @@ def packed_weight_matmul(a: torch.Tensor, b_packed: torch.Tensor) -> torch.Tenso
         a = F.pad(a, (0, kw * 32 - k))
     _require(a.is_contiguous() and b_packed.is_contiguous(), what,
              "operands must be contiguous")
-    _require(a.data_ptr() % 4 == 0, what, "a must be 4-byte aligned")
+    # The kernels read A's rows as 16-byte vectors (``cp.async``).
+    _require(a.data_ptr() % 16 == 0, what, "a must be 16-byte aligned")
     out = torch.empty((m, n), dtype=torch.int32, device=a.device)
     lib = cuda_build.library("packed_weight_matmul")
     cuda_build.check(
@@ -350,6 +353,34 @@ def packed_weight_matmul(a: torch.Tensor, b_packed: torch.Tensor) -> torch.Tenso
     )
     LAUNCHES["packed_weight_matmul"] += 1
     return out
+
+
+#: The K4 kernels by the code ``zk_packed_weight_matmul_variant`` returns:
+#: ``"mma"`` (M > 8: the block-tile GEMM on the int8 tensor cores) or
+#: ``"small_m"`` (M <= 8: the weights as the tensor cores' A operand,
+#: decoded in registers, K split over the card).
+PACKED_WEIGHT_VARIANTS = {0: "mma", 1: "small_m"}
+
+#: The K5 kernels by the code ``zk_xnor_matmul_packed_variant`` returns:
+#: ``"mma"`` (M > 64: both operands decoded to +-1 bytes on the int8
+#: tensor cores) or ``"popc"`` (M <= 64: XOR and popcount on the CUDA
+#: cores, the kernel K2 runs at every M).
+XNOR_VARIANTS = {0: "mma", 1: "popc"}
+
+
+def _gemm_variant(library: str, what: str, names: dict, m: int, n: int, kw: int) -> str:
+    code = getattr(cuda_build.library(library), f"zk_{what}_variant")(int(m), int(n), int(kw))
+    if code not in names:
+        raise ValueError(f"{what}: no kernel for M={m}, N={n}, Kw={kw}")
+    return names[code]
+
+
+def packed_weight_matmul_variant(m: int, n: int, kw: int) -> str:
+    """Which K4 kernel a call on the card launches for ``a`` [m, 32 kw]
+    and ``b_packed`` [kw, n], as the library's dispatch decides (see
+    :data:`PACKED_WEIGHT_VARIANTS`). Builds the library at first use."""
+    return _gemm_variant("packed_weight_matmul", "packed_weight_matmul",
+                         PACKED_WEIGHT_VARIANTS, m, n, kw)
 
 
 # -- batch-packed 1-bit residuals (K6, K7, K8) -------------------------------
@@ -599,6 +630,14 @@ def xnor_matmul_packed(
     )
     LAUNCHES["xnor_matmul_packed"] += 1
     return out
+
+
+def xnor_matmul_packed_variant(m: int, n: int, kw: int) -> str:
+    """Which K5 kernel a call on the card launches for ``a_packed`` [m,
+    kw] and ``b_packed`` [kw, n], as the library's dispatch decides (see
+    :data:`XNOR_VARIANTS`; K2 always runs "popc"). Builds the library at
+    first use."""
+    return _gemm_variant("xnor_gemm", "xnor_matmul_packed", XNOR_VARIANTS, m, n, kw)
 
 
 def xnor_matmul_packed_scaled(

@@ -50,6 +50,7 @@ SIGNATURES = {
     },
     "packed_weight_matmul": {
         "zk_packed_weight_matmul": (_I, [_P, _P, _P, _I, _I, _I, _I, _P]),
+        "zk_packed_weight_matmul_variant": (_I, [_I, _I, _I]),
     },
     "resid_pack": {
         "zk_pack_resid": (_I, [_P, _I, _I, _P, _LL, _LL, _I, _P]),
@@ -68,6 +69,7 @@ SIGNATURES = {
     "xnor_gemm": {
         "zk_xnor_matmul_packed": (_I, [_P, _P, _P] + [_I] * 5 + [_P]),
         "zk_xnor_matmul_packed_scaled": (_I, [_P] * 4 + [_I] * 5 + [_P]),
+        "zk_xnor_matmul_packed_variant": (_I, [_I, _I, _I]),
     },
     "decode_attention": {
         "zk_paged_decode_attention": (

@@ -5,8 +5,10 @@
 Builds each source with the port's ``nvcc`` flags into a shared library
 in a temporary directory, disassembles both with ``cuobjdump -sass`` and
 compares every kernel's instructions. The anonymous-namespace tag that
-``nvcc`` derives from the file is normalised away, so a kernel whose code
-did not change compares equal however the rest of the file changed.
+``nvcc`` derives from the file, and the column padding that ``cuobjdump``
+fits to the file's longest instruction, are normalised away, so a kernel
+whose code did not change compares equal however the rest of the file
+changed.
 Prints one line per kernel (``same``, ``differs`` with the count of
 differing instructions, ``only in old`` or ``only in new``) and, last, a
 JSON summary. Exits 1 if a kernel present in both differs. Needs the
@@ -44,7 +46,7 @@ def kernels_sass(source: str, workdir: str) -> Dict[str, List[str]]:
 
 def parse_sass(text: str) -> Dict[str, List[str]]:
     """Split ``cuobjdump -sass`` output into {kernel: instruction lines},
-    the anonymous-namespace tag normalised away."""
+    the anonymous-namespace tag and the column padding normalised away."""
     out: Dict[str, List[str]] = {}
     current = None
     for line in _NAMESPACE_TAG.sub("_GLOBAL__N_", text).splitlines():
@@ -53,7 +55,9 @@ def parse_sass(text: str) -> Dict[str, List[str]]:
             current = m.group(1)
             out[current] = []
         elif current is not None and line.strip():
-            out[current].append(line.strip())
+            # cuobjdump pads its columns to the file's longest
+            # instruction, so runs of blanks are compared as one.
+            out[current].append(" ".join(line.split()))
     return out
 
 
