@@ -16,7 +16,13 @@ CUDA card and ``nvcc``. In order:
    ``nvcc`` for ``sm_90a``, one process per source, in parallel.
 3. Kernels: K1 ``pack_rows``, K3 ``conv_gemm_popcount`` and K4
    ``packed_weight_matmul`` at every shape the batch-8 QuickNet-Large
-   forward gives them plus a ragged shape; K4 also at slice D's dense
+   forward gives them plus a ragged shape; K3 (and K1) also at
+   BinaryAlexNet's four binary convs (slice C, 5x5 and 3x3), BinaryNet's
+   five (E_AUTO), QuickNet's sections at batch 1 and rows on both sides
+   of K3's "popc"/"mma" threshold, each row on the design
+   ``conv_gemm_popcount_variant`` names ("mma", the implicit GEMM on the
+   int8 tensor cores, past 2^18 word products M*N*Kw) and giving the
+   same bits on a second call; K4 also at slice D's dense
    shapes (M 8 and 1, K 9216 and 4096, N 4096) and at rows across its
    variant threshold and tile edges (M 8 and 9, M not a multiple of
    the tile, N 33 and 130, Kw 1, K not a multiple of 32): each must
@@ -49,7 +55,7 @@ CUDA card and ``nvcc``. In order:
    tensor cores) for slice E's conv GEMMs and every M > 64, "popc" for
    M <= 64, K2's shapes included (K2 runs "popc" at every M). The
    ptxas report (registers, spills) of the K4 and K5 kernels is printed
-   after the build.
+   after the build, and so is that of K3's kernels and K13's row split.
 6. The int8 conv's forward at the four section shapes must give the
    exact integer sums (against a float64 conv, exact for these sums).
 7. Serving slices (``SLICES``), each ``ServingConfig.run()`` over 16
@@ -83,7 +89,10 @@ CUDA card and ``nvcc``. In order:
    K12 ``paged_decode_attention`` ([8, 8192, 8, 64] slot caches, lengths
    mixing 0, 1, 15, 16, 2047, 8191 and 9000, bf16 and fp32) and K13
    ``pool_paged_decode_attention`` (a pool of 4096 pages of 16, shuffled
-   tables with -1 entries, bf16, fp32 and int8 rows), and K12/K13 again
+   tables with -1 entries, bf16, fp32 and int8 rows, at those lengths and
+   at the edges of its row split's 256-row chunks, each call giving the
+   same bits twice and taking the "split" design ``decode_variant``
+   names, "wide" past head_dim 256), and K12/K13 again
    at head_dims 20 and 100 (not multiples of 8) and 264 and 384 (past
    256, in chunks), each against its plain
    version (K9 in bf16 within 2^-6 of each output value plus 2e-3, and
@@ -100,7 +109,8 @@ CUDA card and ``nvcc``. In order:
    K9 4 times per prefill and K12 or K13 4 times per decode step;
    prints its result line and one decode step's profiler breakdown,
    and holds K12/K13 on a mid-run step's cache, lengths and table to
-   their plain versions (one bf16 rounding step).
+   their plain versions (one bf16 rounding step, the same bits twice),
+   timing them there (K13 in the paged and the paged-int8 run).
 11. LM parity (deterministic mode): the same model in fp32 serves a
    12-request stream with slot refills through the kernels and through
    the plain functions, in both layouts: the tokens must be identical
@@ -348,10 +358,12 @@ def kernel_phase(torch, bc):
     def record(name, count, kernel, plain, library, nbytes, ops, shape):
         with deterministic(torch):
             got, want = kernel(), plain()
+            again = kernel()
             torch.cuda.synchronize()
         err = (got.double() - want.double()).abs().max().item() if got.numel() else 0.0
         check(torch.equal(got, want),
               f"{name} at {shape} disagrees with its plain version (max err {err})")
+        check(_same_bits(torch, got, again), f"{name} at {shape}: two calls differ")
         k_ms, p_ms = time_ms(torch, kernel), time_ms(torch, plain, reps=21, inner=2)
         l_ms = time_ms(torch, library) if library is not None else None
         b_ms, b_by = bound_ms(name, nbytes, ops)
@@ -369,16 +381,16 @@ def kernel_phase(torch, bc):
             if library is not None and t["library_ms"] is not None:
                 t["library_ms"] += count * l_ms
 
-    # (launches per forward, batch, spatial in, channels in, co, stride);
-    # the last row of each kernel is a ragged shape off the main path.
-    conv_cases = [(n, BATCH, h, c, c, 1) for n, h, c in SECTIONS] + [(0, 2, 9, 17, 33, 2)]
-    for count, b, h, ci, co, s in conv_cases:
-        x = signs(b, h, h, ci).to(torch.bfloat16).to(dev)
-        q = signs(3, 3, ci, co) * (torch.rand(co, generator=g) + 0.1)
+    # (launches per forward, batch, height, width, channels in, co,
+    # kernel size, stride): slice A's four sections, then K3_EXTRA_CASES.
+    conv_cases = [(n, BATCH, h, h, c, c, 3, 1) for n, h, c in SECTIONS] + list(K3_EXTRA_CASES)
+    for count, b, h, w, ci, co, k, s in conv_cases:
+        x = signs(b, h, w, ci).to(torch.bfloat16).to(dev)
+        q = signs(k, k, ci, co) * (torch.rand(co, generator=g) + 0.1)
         packed, scale = bc.pack_conv_kernel(q)
         packed, scale = packed.to(dev), scale.to(dev)
         ciw = packed.shape[2]
-        xp, ho, wo = bc._spatial_pad(x, 3, 3, (s, s), "SAME", 1.0)
+        xp, ho, wo = bc._spatial_pad(x, k, k, (s, s), "SAME", 1.0)
         xpc = F.pad(xp, (0, ciw * 32 - ci), value=1.0)
         rows = xpc.reshape(-1, ciw * 32).contiguous()
         m = rows.shape[0]
@@ -386,7 +398,12 @@ def kernel_phase(torch, bc):
                lambda: bc.pack_rows_plain(rows), None,
                m * ciw * 32 * 2 + m * ciw * 4, m * ciw * 32, (m, ciw * 32))
         xq = bc.pack_rows_plain(rows).reshape(*xpc.shape[:3], ciw)
-        k_true = 9 * ci
+        k_true = k * k * ci
+        variant = bc.conv_gemm_popcount_variant(b * ho * wo, co, k * k * ciw)
+        wanted = "popc" if b * ho * wo * co * k * k * ciw <= K3_POPC_WORK else "mma"
+        check(variant == wanted and (count == 0 or variant == "mma"),
+              f"conv_gemm_popcount at {tuple(xq.shape)} {k}x{k}/{s} -> {co}: variant "
+              f"{variant}, want {wanted} (slice A's shapes: mma)")
         x_nchw = xp.permute(0, 3, 1, 2)  # +-1 bf16, ones-padded, channels_last
         w_oihw = (q.sign().permute(3, 2, 0, 1).to(torch.bfloat16).to(dev)
                   .contiguous(memory_format=torch.channels_last))
@@ -395,7 +412,8 @@ def kernel_phase(torch, bc):
                lambda: bc.conv_gemm_popcount_plain(xq, packed, scale, (s, s), k_true),
                lambda: F.conv2d(x_nchw, w_oihw, stride=s) * scale[:, None, None],
                xq.numel() * 4 + packed.numel() * 4 + co * 4 + b * ho * wo * co * 4,
-               2 * b * ho * wo * co * k_true, tuple(xq.shape))
+               2 * b * ho * wo * co * k_true,
+               (*xq.shape, f"{k}x{k}/{s}", co, f"M={b * ho * wo}", variant))
 
     # K1's wire-format edges, off the main path, in both dtypes it takes
     # and at ragged word counts: normal values mixed with +-0, +-inf, NaN
@@ -433,6 +451,29 @@ def kernel_phase(torch, bc):
                m * k + kw * n * 4 + m * n * 4, 2 * m * n * k, (m, k, n, variant))
     return totals
 
+
+#: K3 rows off slice A's main path (launches per forward 0), as
+#: ``kernel_phase``'s conv cases: BinaryAlexNet's four binary convs at
+#: batch 8 (slice C: 5x5 at 27 from 64 channels, 3x3 at 13 from 192, 384,
+#: 384), BinaryNet's five (E_AUTO: 32x32 at 128, 16x16 at 128 and 256,
+#: 8x8 at 256 and 512), QuickNet's four sections at batch 1 (M 49 at 512
+#: channels takes "mma"), rows on both sides of the "popc"/"mma"
+#: threshold (M*N*Kw 1.5e5, 1.7e5 and 2.3e5 below 2^18, 2.9e5 twice
+#: above; M 64 and 65), and the ragged (ci 17, co 33) conv at stride 2.
+K3_EXTRA_CASES = (
+    (0, BATCH, 27, 27, 64, 192, 5, 1), (0, BATCH, 13, 13, 192, 384, 3, 1),
+    (0, BATCH, 13, 13, 384, 384, 3, 1), (0, BATCH, 13, 13, 384, 256, 3, 1),
+    (0, BATCH, 32, 32, 128, 128, 3, 1), (0, BATCH, 16, 16, 128, 256, 3, 1),
+    (0, BATCH, 16, 16, 256, 256, 3, 1), (0, BATCH, 8, 8, 256, 512, 3, 1),
+    (0, BATCH, 8, 8, 512, 512, 3, 1),
+    *((0, 1, h, h, c, c, 3, 1) for _, h, c in SECTIONS),
+    (0, 1, 8, 8, 128, 64, 3, 1), (0, 1, 12, 12, 64, 64, 3, 1), (0, 1, 7, 7, 128, 128, 3, 1),
+    (0, 1, 8, 8, 128, 128, 3, 1), (0, 1, 16, 16, 64, 64, 3, 1),
+    (0, 1, 8, 8, 64, 64, 3, 1), (0, 1, 5, 13, 64, 64, 3, 1), (0, 2, 9, 9, 17, 33, 3, 2),
+)
+#: K3 takes "popc" up to this work M*N*Kw (M = B*Ho*Wo, N = co, Kw =
+#: kh*kw*ciw), the tensor-core tiles ("mma") past it.
+K3_POPC_WORK = 2**18
 
 #: K4 rows off slice B's main path (launches per forward 0): slice D's
 #: dense stage at batch 8 and 1 (K 9216 and 4096, N 4096), both sides of
@@ -1088,6 +1129,14 @@ LM_RUNS = (("slots", {}), ("paged", PAGED), ("paged-int8", {**PAGED, "engine.kv_
 #: Lengths of the K12/K13 checks: row-0-only, page edges, the capacity
 #: edge, and one past capacity (clamped).
 LM_CHECK_LENGTHS = (0, 1, 15, 16, 2047, 8191, 9000, 4000)
+#: K13's row split takes chunks of this many rows (``SPLIT_ROWS`` in
+#: ``csrc/decode_attention.cu``); its extra check lengths sit at the
+#: chunk edges (chunk - 1, chunk, chunk + 1, two chunks - 1 and two
+#: chunks), with slots whose rows end in the first chunk (1, 0) beside
+#: one whose rows fill every chunk (8191).
+K13_SPLIT_ROWS = 256
+LM_SPLIT_LENGTHS = (K13_SPLIT_ROWS - 1, K13_SPLIT_ROWS, K13_SPLIT_ROWS + 1,
+                    2 * K13_SPLIT_ROWS - 1, 2 * K13_SPLIT_ROWS, 1, 8191, 0)
 
 
 def _bf16_step_ok(torch, got, want) -> bool:
@@ -1123,7 +1172,9 @@ def lm_kernel_phase(torch, A):
     def record(name, label, kernel, plain, library, nbytes, ops, rate, dtype, heavy=False):
         with deterministic(torch):
             got, want = kernel(), plain()
+            again = kernel() if name != "flash_forward" else got
             torch.cuda.synchronize()
+        check(_same_bits(torch, got, again), f"{name} at {label}: two calls differ")
         err = _max_abs_err(torch, got, want)
         if dtype == torch.float32:
             tol = 2e-5 if name == "flash_forward" else 2e-6
@@ -1185,14 +1236,19 @@ def lm_kernel_phase(torch, A):
                *_decode_work(q, live, kc.element_size()), FP32_OPS_PER_S, dtype)
         del kc, vc
 
-    # K13: a pool of 4096 pages of 16, shuffled tables with -1 entries.
+    # K13: a pool of 4096 pages of 16, shuffled tables with -1 entries;
+    # the edge lengths above, then those at the row split's chunk edges.
     pages, max_pages = 4096, LM_CAP // LM_PAGE
     cpu_g = torch.Generator().manual_seed(3)
     table = torch.randperm(pages, generator=cpu_g)[: LM_SLOTS * max_pages].reshape(LM_SLOTS, max_pages)
     table[torch.rand(LM_SLOTS, max_pages, generator=cpu_g) < 0.1] = -1
     table = table.to(torch.int32).to(dev)
+    split_lengths = torch.tensor(LM_SPLIT_LENGTHS, dtype=torch.int32, device=dev)
     for dtype, quant in ((torch.bfloat16, False), (torch.float32, False),
                          (torch.bfloat16, True), (torch.float32, True)):
+        variant = A.decode_variant(dtype, LM_HEAD_DIM)
+        check(variant == "split", f"pool_paged_decode_attention {dtype}: variant {variant}, "
+                                  f"want split")
         shape = (pages, LM_PAGE, LM_HEADS, LM_HEAD_DIM)
         q = torch.randn(LM_SLOTS, 1, LM_HEADS, LM_HEAD_DIM, generator=g, device=dev).to(dtype)
         kp = torch.randn(*shape, generator=g, device=dev).to(dtype)
@@ -1201,12 +1257,15 @@ def lm_kernel_phase(torch, A):
         if quant:
             (kp, ks), (vp, vs) = quantize_kv_rows(kp), quantize_kv_rows(vp)
             kw = {"k_scale": ks, "v_scale": vs}
-        nbytes, ops = _decode_work(q, live, kp.element_size(), scales=quant)
-        record("pool_paged_decode_attention",
-               f"{list(shape)} {'int8 rows, q ' if quant else ''}{str(dtype)[6:]}",
-               lambda: A.pool_paged_decode_attention(q, kp, vp, table, lengths, **kw),
-               lambda: A.pool_decode_attention(q, kp, vp, table, lengths, **kw),
-               None, nbytes + table.numel() * 4, ops, FP32_OPS_PER_S, dtype)
+        for lens, lens_label in ((lengths, ""), (split_lengths, ", chunk-edge lengths")):
+            rows = int((lens.clamp(0, LM_CAP - 1) + 1).sum())
+            nbytes, ops = _decode_work(q, rows, kp.element_size(), scales=quant)
+            record("pool_paged_decode_attention",
+                   f"{list(shape)} {'int8 rows, q ' if quant else ''}{str(dtype)[6:]}"
+                   f"{lens_label} ({variant})",
+                   lambda: A.pool_paged_decode_attention(q, kp, vp, table, lens, **kw),
+                   lambda: A.pool_decode_attention(q, kp, vp, table, lens, **kw),
+                   None, nbytes + table.numel() * 4, ops, FP32_OPS_PER_S, dtype)
         del kp, vp
 
     # K12/K13 at head_dims that are not multiples of 8 (off the JAX
@@ -1232,6 +1291,9 @@ def lm_kernel_phase(torch, A):
                    lambda: A.cached_attention(q, kc, vc, odd_lengths),
                    _sdpa_decode(torch, q, kc, vc, odd_lengths),
                    *_decode_work(q, odd_live, kc.element_size()), FP32_OPS_PER_S, dtype)
+            variant = A.decode_variant(dtype, d)
+            check(variant == ("split" if d <= 256 else "wide"),
+                  f"pool_paged_decode_attention at head_dim {d}: variant {variant}")
             for quant in (False, True):
                 kp, vp = (torch.randn(pages, LM_PAGE, heads, d, generator=g, device=dev).to(dtype)
                           for _ in range(2))
@@ -1371,8 +1433,11 @@ def lm_serving_phase(torch, A, smi):
             "step_busy_ms": busy_ms, "step_busy_share": busy_ms / wall_ms,
             "step_device_activities": acts,
         }
-        if label != "paged-int8":
-            main[kernel] = _time_main_step(torch, A, engine, kernel, lengths, table)
+        if label != "slots":
+            variant = A.decode_variant(torch.bfloat16, LM_HEAD_DIM)
+            check(variant == "split", f"lm {label}: K13 variant {variant}, want split")
+        key = kernel if label != "paged-int8" else f"{kernel} int8"
+        main[key] = _time_main_step(torch, A, engine, kernel, lengths, table)
         if label == "slots":
             buckets = [engine.seq_bucket_for(p.shape[0])
                        for p in cfg.prompts(min(cfg.max_prompt, engine.max_prompt))]
@@ -1401,21 +1466,26 @@ def _time_main_step(torch, A, engine, kernel, lengths, table):
         nbytes, ops = _decode_work(q, live, 2)
     else:
         tab = torch.from_numpy(table).to(dev)
-        fn = lambda: A.pool_paged_decode_attention(q, layer["k"], layer["v"], tab, lens)  # noqa: E731
-        plain = lambda: A.pool_decode_attention(q, layer["k"], layer["v"], tab, lens)  # noqa: E731
+        scales = {k: layer[k] for k in ("k_scale", "v_scale") if k in layer}
+        fn = lambda: A.pool_paged_decode_attention(  # noqa: E731
+            q, layer["k"], layer["v"], tab, lens, **scales)
+        plain = lambda: A.pool_decode_attention(  # noqa: E731
+            q, layer["k"], layer["v"], tab, lens, **scales)
         library = None
-        nbytes, ops = _decode_work(q, live, 2)
+        nbytes, ops = _decode_work(q, live, layer["k"].element_size(), scales=bool(scales))
         nbytes += tab.numel() * 4
     with deterministic(torch):
-        got, want = fn(), plain()
+        got, want, again = fn(), plain(), fn()
         err = _max_abs_err(torch, got, want)
     check(_bf16_step_ok(torch, got, want),
           f"{kernel} at a mid-run decode step disagrees with its plain version (max err "
           f"{err}, tolerance one bf16 step)")
+    check(_same_bits(torch, got, again), f"{kernel} at a mid-run decode step: two calls differ")
     rec = {"ms": time_ms(torch, fn), "plain_ms": time_ms(torch, plain, reps=5, inner=2),
            "library_ms": time_ms(torch, library) if library is not None else None}
     rec["bound_ms"], rec["bound_by"] = bound_ms(kernel, nbytes, ops)
-    print(f"kernel {kernel} at a mid-run decode step ({live} live rows of {LM_SLOTS} slots): "
+    print(f"kernel {kernel} at a mid-run decode step ({live} live rows of {LM_SLOTS} slots"
+          f"{', int8 rows' if 'k_scale' in layer else ''}): "
           f"max err {err:.3g}, {json.dumps(rec)}", flush=True)
     return rec
 
@@ -2138,6 +2208,8 @@ def main() -> None:
     print_kernel_resources(cuda_build, "flash_backward", "_mma_")
     print_kernel_resources(cuda_build, "packed_weight_matmul", "_kernel")
     print_kernel_resources(cuda_build, "xnor_gemm", "_kernel")
+    print_kernel_resources(cuda_build, "conv_gemm_popcount", "_kernel")
+    print_kernel_resources(cuda_build, "decode_attention", "split")
 
     totals = kernel_phase(torch, bc)
     totals.update(resid_kernel_phase(torch, bc))
@@ -2184,6 +2256,10 @@ def main() -> None:
             "bound_by": bound_by,
             "library_ms": t["library_ms"],
         })
+        if name == "conv_gemm_popcount":
+            # Slice A's batch-8 shapes: M = 8 x 56^2 .. 8 x 7^2.
+            rows[-1]["variant"] = bc.conv_gemm_popcount_variant(
+                BATCH * SECTIONS[-1][1] ** 2, SECTIONS[-1][2], 9 * SECTIONS[-1][2] // 32)
     # LM kernels, per main-path unit: K9 per prefill dispatch (4 layers)
     # over the slots run's bucket mix; K12 and K13 per decode step (4
     # layers) at a mid-run step of the slots / paged run.
@@ -2201,6 +2277,7 @@ def main() -> None:
         per_unit[name] = {key: (None if rec[key] is None else LM_LAYERS * rec[key])
                           for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
         per_unit[name]["bound_by"] = rec["bound_by"]
+    int8 = lm_main["pool_paged_decode_attention int8"]
     for name in LM_KERNELS:
         source, replaces = KERNELS[name]
         t = per_unit[name]
@@ -2213,6 +2290,11 @@ def main() -> None:
         })
         if name == "flash_forward":
             rows[-1]["variant"] = A.flash_forward_variant(torch.bfloat16, LM_HEAD_DIM)
+        if name == "pool_paged_decode_attention":
+            # The paged-int8 run's mid-run step, per decode step.
+            rows[-1]["variant"] = A.decode_variant(torch.bfloat16, LM_HEAD_DIM)
+            rows[-1]["int8_ms"] = LM_LAYERS * int8["ms"]
+            rows[-1]["int8_bound_ms"] = LM_LAYERS * int8["bound_ms"]
     # LM training kernels, per training step: 4 launches each (one per
     # layer) at the full-width shape.
     label = "[{}, {}, {}, {}] bfloat16 causal=True".format(*LM_TRAIN_SHAPE)

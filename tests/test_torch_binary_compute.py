@@ -139,6 +139,33 @@ def test_conv_gemm_popcount_ragged_channels(ci, co, kh, kw):
     _conv_popcount_pair(x, packed, scale, (1, 1), "SAME", ci=ci)
 
 
+# (batch, padded height, padded width, ciw, kh, kw, stride): QuickNet's
+# four sections (3x3 SAME at 56/28/14/7, 64-512 channels), BinaryAlexNet's
+# 5x5 at ciw 2 and 3x3 at ciw 6 and 12, a stride-2 conv, and the ragged
+# (ci 17, co 33) geometry at stride 2.
+@pytest.mark.parametrize("b,hp,wp,ciw,kh,kw,stride", [
+    (2, 58, 58, 2, 3, 3, 1), (2, 30, 30, 4, 3, 3, 1), (2, 16, 16, 8, 3, 3, 1),
+    (2, 9, 9, 16, 3, 3, 1), (2, 31, 31, 2, 5, 5, 1), (2, 15, 15, 6, 3, 3, 1),
+    (2, 15, 15, 12, 3, 3, 1), (2, 30, 29, 4, 3, 3, 2), (2, 10, 10, 1, 3, 3, 2),
+])
+def test_conv_k_offsets_gather_the_unfolded_taps(b, hp, wp, ciw, kh, kw, stride):
+    """K3's implicit im2col: word (m, k) of the plain version's patch
+    matrix is ``xq.flatten()[base(m) + koff[k]]``, with base(m) =
+    ((b*Hp + ho*sh)*Wp + wo*sw)*ciw and koff the wrapper's table."""
+    rng = np.random.default_rng(hp * ciw + kh + stride)
+    xq = torch.from_numpy(rng.integers(-(2**31), 2**31, size=(b, hp, wp, ciw), dtype=np.int64)
+                          .astype(np.int32))
+    koff = tbc._conv_k_offsets(kh, kw, wp, ciw)
+    assert koff.dtype == torch.int32 and koff.shape == (kh * kw * ciw,)
+    ho, wo = (hp - kh) // stride + 1, (wp - kw) // stride + 1
+    bi, y, x = np.meshgrid(np.arange(b), np.arange(ho), np.arange(wo), indexing="ij")
+    base = (((bi * hp + y * stride) * wp + x * stride) * ciw).reshape(-1)
+    index = base[:, None] + koff.numpy().astype(np.int64)[None, :]
+    gathered = xq.reshape(-1)[torch.from_numpy(index)]
+    np.testing.assert_array_equal(
+        gathered.numpy(), tbc._conv_patches(xq, kh, kw, (stride, stride)).numpy())
+
+
 def test_conv_gemm_popcount_validates_operands():
     xq = torch.zeros(1, 5, 5, 2, dtype=torch.int32)
     packed = torch.zeros(3, 3, 1, 4, dtype=torch.int32)

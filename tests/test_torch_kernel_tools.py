@@ -1,9 +1,9 @@
 """The port's kernel tools on the CPU: the ablated copies of the flash
 sources that ``zookeeper_tpu_torch.ablate`` times, the SASS parsing of
 ``zookeeper_tpu_torch.sass_diff``, the library hash of ``cuda_build``
-and the variant names of the flash kernels and of the int8 tensor-core
-GEMMs (K4, K5). Building and running them needs ``nvcc`` and the card;
-these tests hold the parts that do not."""
+and the variant names of the flash kernels, K13 and the int8
+tensor-core kernels (K4, K5, K3). Building and running them needs
+``nvcc`` and the card; these tests hold the parts that do not."""
 
 import pathlib
 import types
@@ -73,9 +73,10 @@ def test_the_flash_sources_include_the_shared_header():
 
 
 def test_the_int8_gemm_sources_include_their_shared_header():
-    """K4 and K5 share the int8 tensor-core helpers and block-tile GEMM of
-    ``mma_s8.cuh``, so an edit there renames (rebuilds) both libraries."""
-    for source in ("packed_weight_matmul", "xnor_gemm"):
+    """K4, K5 and K3 share the int8 tensor-core helpers and block-tile
+    GEMM of ``mma_s8.cuh``, so an edit there renames (rebuilds) all three
+    libraries."""
+    for source in ("packed_weight_matmul", "xnor_gemm", "conv_gemm_popcount"):
         files = cuda_build._sources(str(CSRC / f"{source}.cu"), {})
         assert [pathlib.Path(f).name for f in files] == [f"{source}.cu", "mma_s8.cuh"]
 
@@ -119,27 +120,43 @@ def test_parse_sass_ignores_the_column_padding():
     assert sass_diff.parse_sass(wider) == sass_diff.parse_sass(SASS)
 
 
-@pytest.mark.parametrize("which", ["forward", "backward"])
+# (dtype code, head_dim) -> library code, and the names each helper gives.
+FLASH_CODES = {(1, 64): 2, (0, 64): 0, (1, 256): 1, (0, 320): 1}
+DECODE_CODES = {(1, 64): 0, (0, 64): 0, (1, 256): 0, (0, 320): 1}
+
+
+@pytest.mark.parametrize("which", ["forward", "backward", "decode"])
 def test_flash_variant_names_the_library_code(which, monkeypatch):
-    """``flash_forward_variant`` and ``flash_backward_variant`` ask their
-    own library and name its code through the one dict of variants; a
-    code the dict does not hold raises."""
-    codes = {(1, 64): 2, (0, 64): 0, (1, 256): 1, (0, 320): 1}
-    lib = types.SimpleNamespace(**{
-        f"zk_flash_{which}_variant": lambda dtype_code, d: codes.get((dtype_code, d), -1)})
+    """``flash_forward_variant``, ``flash_backward_variant`` and K13's
+    ``decode_variant`` ask their own library and name its code through
+    the one dict of variants; a code the dict does not hold raises."""
+    if which == "decode":
+        library, codes = "decode_attention", DECODE_CODES
+        fn = "zk_pool_paged_decode_attention_variant"
+        variant, names = attention.decode_variant, attention.DECODE_VARIANTS
+        want = {(torch.bfloat16, 64): "split", (torch.float32, 64): "split",
+                (torch.bfloat16, 256): "split", (torch.float32, 320): "wide"}
+        error = "decode: no kernel"
+    else:
+        library, fn, codes = f"flash_{which}", f"zk_flash_{which}_variant", FLASH_CODES
+        variant, names = getattr(attention, f"flash_{which}_variant"), attention.FLASH_VARIANTS
+        want = {(torch.bfloat16, 64): "mma", (torch.float32, 64): "fma",
+                (torch.bfloat16, 256): "fma_wide", (torch.float32, 320): "fma_wide"}
+        error = f"flash {which}: no kernel"
+    lib = types.SimpleNamespace(**{fn: lambda dtype_code, d: codes.get((dtype_code, d), -1)})
     monkeypatch.setattr(cuda_build, "library",
-                        lambda name: lib if name == f"flash_{which}" else pytest.fail(name))
-    variant = getattr(attention, f"flash_{which}_variant")
-    assert variant(torch.bfloat16, 64) == attention.FLASH_VARIANTS[2] == "mma"
-    assert variant(torch.float32, 64) == "fma"
-    assert variant(torch.bfloat16, 256) == variant(torch.float32, 320) == "fma_wide"
-    with pytest.raises(ValueError, match=f"flash {which}: no kernel"):
+                        lambda name: lib if name == library else pytest.fail(name))
+    assert set(names.values()) == set(want.values())
+    for (dtype, d), name in want.items():
+        assert variant(dtype, d) == name
+    with pytest.raises(ValueError, match=error):
         variant(torch.bfloat16, 7)
 
 
 @pytest.mark.parametrize("library,what,names", [
     ("packed_weight_matmul", "packed_weight_matmul", {1: "small_m", 0: "mma"}),
     ("xnor_gemm", "xnor_matmul_packed", {1: "popc", 0: "mma"}),
+    ("conv_gemm_popcount", "conv_gemm_popcount", {1: "popc", 0: "mma"}),
 ])
 def test_gemm_variant_names_the_library_code(library, what, names, monkeypatch):
     """``packed_weight_matmul_variant`` and ``xnor_matmul_packed_variant``
@@ -155,8 +172,9 @@ def test_gemm_variant_names_the_library_code(library, what, names, monkeypatch):
     monkeypatch.setattr(cuda_build, "library",
                         lambda name: lib if name == library else pytest.fail(name))
     helper = getattr(binary_compute, f"{what}_variant")
-    table = (binary_compute.PACKED_WEIGHT_VARIANTS if library == "packed_weight_matmul"
-             else binary_compute.XNOR_VARIANTS)
+    table = {"packed_weight_matmul": binary_compute.PACKED_WEIGHT_VARIANTS,
+             "xnor_gemm": binary_compute.XNOR_VARIANTS,
+             "conv_gemm_popcount": binary_compute.CONV_GEMM_VARIANTS}[library]
     assert table == names
     assert helper(8, 4096, 288) == names[1]
     assert helper(25088, 64, 18) == names[0] == "mma"

@@ -23,7 +23,9 @@
 // (2 * (len + 1) * d values per slot and head) and does 4 flops per
 // value read; decode is far below the card's flop:byte ratio.
 //
-// Design: one block per (slot, head), 256 threads. Eight lanes share a
+// Design: K12 runs one block per (slot, head), 256 threads; K13 splits
+// each (slot, head)'s rows over blocks of the same shape (below). Eight
+// lanes share a
 // row, each loading its d/8 contiguous values in one vector load (16 B
 // for a bf16 row of 64); the 32 lane groups of the block walk the rows
 // 0..len in a strided loop, four rows per group per iteration (fewer
@@ -35,6 +37,15 @@
 // this loop); at the end the 32 partial states are merged in shared
 // memory and lanes 0..d-1 write the output. Lengths and the page table
 // are read by the block itself, in place of the TPU's scalar prefetch.
+//
+// K13 at head_dim <= 256 (`decode_attention_split_kernel`,
+// flash-decoding): one block per (slot, head) walks its live rows in
+// series, and at 8 slots x 8 heads that is 64 blocks on 132 SMs, each
+// capped by the bytes one SM keeps in flight. So the rows split into
+// chunks of SPLIT_ROWS (256: 16 pages of 16), one block each, with the
+// arithmetic above per chunk; each block's state (m, l, o) goes to a
+// workspace, and the last block of a (slot, head) merges the chunks in
+// a fixed order, chunk 0 first, in the same launch (see the kernel).
 //
 // Head_dims above 256 (`decode_attention_wide_kernel`): the same block
 // and numerics over chunks of 256 dims (32 a lane), one row per lane
@@ -148,8 +159,81 @@ __device__ __forceinline__ long long row_offset(const Geometry& g, int slot,
   return ((static_cast<long long>(slot) * g.cap + r) * g.h + hh) * g.d;
 }
 
+// One lane group's online softmax over rows r_first..r_last of (slot,
+// head hh), strided over the block's lane groups, UNROLL rows a group an
+// iteration: updates the group's running max m, sum l and accumulator
+// acc (this lane's DL dims from d0), through the page table. The row
+// split's loop: K12's kernel keeps the same loop written out, since
+// calling this function from it changed K12's SASS.
+template <typename KT, int DL, int UNROLL>
+__device__ __forceinline__ void attend_rows(
+    const Geometry& g, int slot, int hh, int group, int d0, int n_valid, bool full,
+    const float (&qv)[DL], int r_first, int r_last, const KT* __restrict__ kbuf,
+    const KT* __restrict__ vbuf, const float* __restrict__ k_scale,
+    const float* __restrict__ v_scale, float scale, float& m, float& l, float (&acc)[DL]) {
+  // Every lane runs the same trip count (the bound is per block), so
+  // the full-mask shuffles below are always legal; dead rows are
+  // predicated off.
+  for (int r0 = r_first; r0 <= r_last; r0 += GROUPS * UNROLL) {
+    RawRow<KT, DL> kv[UNROLL], vv[UNROLL];
+    float ksc[UNROLL], vsc[UNROLL];
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) {
+      const int r = r0 + u * GROUPS + group;
+      ksc[u] = 1.0f;
+      vsc[u] = 1.0f;
+      if (r <= r_last) {
+        long long sidx;
+        const long long off = row_offset<true>(g, slot, r, hh, &sidx) + d0;
+        kv[u].load(kbuf + off, full, n_valid);
+        vv[u].load(vbuf + off, full, n_valid);
+        if (k_scale != nullptr) {
+          ksc[u] = k_scale[sidx];
+          vsc[u] = v_scale[sidx];
+        }
+      } else {
+        kv[u].clear();
+        vv[u].clear();
+      }
+    }
+    float sc[UNROLL];
+    float m_new = m;
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) {
+      float dot = 0.0f;
+#pragma unroll
+      for (int i = 0; i < DL; ++i) dot = fmaf(qv[i], kv[u].get(i) * ksc[u], dot);
+      dot += __shfl_xor_sync(0xffffffffu, dot, 1);
+      dot += __shfl_xor_sync(0xffffffffu, dot, 2);
+      dot += __shfl_xor_sync(0xffffffffu, dot, 4);
+      const int r = r0 + u * GROUPS + group;
+      // -inf, not the mask value: a dead row must weigh exactly 0 even
+      // before this group has seen a live row.
+      sc[u] = r <= r_last ? dot * scale : -INFINITY;
+      m_new = fmaxf(m_new, sc[u]);
+    }
+    const float corr = expf(m - m_new);
+    float p_sum = 0.0f;
+    float pv[DL];
+#pragma unroll
+    for (int i = 0; i < DL; ++i) pv[i] = 0.0f;
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) {
+      const float p = expf(sc[u] - m_new);
+      p_sum += p;
+#pragma unroll
+      for (int i = 0; i < DL; ++i) pv[i] = fmaf(p, vv[u].get(i) * vsc[u], pv[i]);
+    }
+    m = m_new;
+    l = l * corr + p_sum;
+#pragma unroll
+    for (int i = 0; i < DL; ++i) acc[i] = acc[i] * corr + pv[i];
+  }
+}
+
 // DL: dims per lane (head_dim padded up to 8 * DL). UNROLL: rows per
 // lane group per iteration, fewer for wide rows to stay in registers.
+// Launched for K12 only (PAGED false): K13 takes the row split below.
 template <typename QT, typename KT, bool PAGED, int DL,
           int UNROLL = (DL >= 32 ? 1 : (DL >= 16 ? 2 : 4))>
 __global__ void __launch_bounds__(THREADS)
@@ -266,6 +350,131 @@ decode_attention_kernel(const QT* __restrict__ q, long long q_sb,
   }
 }
 
+// K13 split over the rows (flash-decoding): block (pair, c) of pair =
+// slot * h + head takes rows c * SPLIT_ROWS.. of its slot, the per-row
+// arithmetic of `decode_attention_kernel`, and merges its lane groups
+// into one unnormalised state (m, l, o[d]). A slot whose rows fit one
+// chunk writes o / l at once. Otherwise each block stores its state in
+// `part` [pairs][gridDim.y][d + 2] (m, l, o), and the last block of the
+// pair to finish (a ticket counted in `tickets[pair]`, which it resets to
+// 0) merges the chunks in order, chunk 0 first, and writes o / l: the
+// same bits whichever block merges. Blocks past their slot's length exit
+// at once (the grid is sized from the capacity: the lengths live on the
+// device).
+constexpr int SPLIT_ROWS = 256;
+
+template <typename QT, typename KT, int DL, int UNROLL = (DL >= 32 ? 1 : (DL >= 16 ? 2 : 4))>
+__global__ void __launch_bounds__(THREADS)
+decode_attention_split_kernel(const QT* __restrict__ q, long long q_sb, long long q_sh,
+                              const KT* __restrict__ kbuf, const KT* __restrict__ vbuf,
+                              const float* __restrict__ k_scale,
+                              const float* __restrict__ v_scale,
+                              const int* __restrict__ lengths, QT* __restrict__ out,
+                              float* __restrict__ part, int* __restrict__ tickets, Geometry g,
+                              float scale) {
+  __shared__ float s_m[GROUPS];
+  __shared__ float s_l[GROUPS];
+  __shared__ float s_acc[GROUPS][DL * LPR];
+  __shared__ float s_w[GROUPS];  // each group's weight in the block's merge
+  __shared__ float s_mb;         // the block's running max
+  __shared__ bool s_last;
+  static_assert(GROUPS == 32, "one warp merges the groups' maxima");
+
+  const int pair = blockIdx.x;
+  const int slot = pair / g.h;
+  const int hh = pair % g.h;
+  const int len = min(max(lengths[slot], 0), g.max_pages * g.page_size - 1);
+  const int chunks = len / SPLIT_ROWS + 1;
+  const int c = blockIdx.y;
+  if (c >= chunks) return;
+  const int group = threadIdx.x / LPR;
+  const int sub = threadIdx.x % LPR;
+  const int d0 = sub * DL;
+  const int n_valid = min(DL, max(g.d - d0, 0));
+  const bool full = (g.d == DL * LPR);
+
+  float qv[DL];
+  {
+    const QT* q_row = q + slot * q_sb + hh * q_sh + d0;
+#pragma unroll
+    for (int i = 0; i < DL; ++i) qv[i] = i < n_valid ? to_float(q_row[i]) : 0.0f;
+  }
+  float m = MASK_VALUE;
+  float l = 0.0f;
+  float acc[DL];
+#pragma unroll
+  for (int i = 0; i < DL; ++i) acc[i] = 0.0f;
+  const int r_first = c * SPLIT_ROWS;
+  attend_rows<KT, DL, UNROLL>(g, slot, hh, group, d0, n_valid, full, qv, r_first,
+                              min(r_first + SPLIT_ROWS - 1, len), kbuf, vbuf, k_scale, v_scale,
+                              scale, m, l, acc);
+
+  // Merge the groups' partial softmax states into the block's: warp 0
+  // takes the max and each group's weight once, then every output dim
+  // sums the groups in order.
+  if (sub == 0) {
+    s_m[group] = m;
+    s_l[group] = l;
+  }
+#pragma unroll
+  for (int i = 0; i < DL; ++i) s_acc[group][d0 + i] = acc[i];
+  __syncthreads();
+  if (threadIdx.x < GROUPS) {
+    const float mk = s_m[threadIdx.x];
+    float mb = fmaxf(mk, MASK_VALUE);
+#pragma unroll
+    for (int o = GROUPS / 2; o > 0; o >>= 1) mb = fmaxf(mb, __shfl_xor_sync(0xffffffffu, mb, o));
+    s_w[threadIdx.x] = expf(mk - mb);
+    if (threadIdx.x == 0) s_mb = mb;
+  }
+  __syncthreads();
+  const int j = threadIdx.x;  // the output dim this thread merges
+  const float m_blk = s_mb;
+  float l_blk = 0.0f, o_blk = 0.0f;
+  if (j < g.d) {
+    for (int k = 0; k < GROUPS; ++k) {
+      l_blk = fmaf(s_l[k], s_w[k], l_blk);
+      o_blk = fmaf(s_acc[k][j], s_w[k], o_blk);
+    }
+  }
+  QT* dst = out + static_cast<long long>(pair) * g.d + j;
+  if (chunks == 1) {
+    if (j < g.d) store(dst, o_blk / l_blk);
+    return;
+  }
+  const int pitch = g.d + 2;
+  float* pair_part = part + static_cast<long long>(pair) * gridDim.y * pitch;
+  if (j < g.d) {
+    float* mine = pair_part + c * pitch;
+    mine[2 + j] = o_blk;
+    if (j == 0) {
+      mine[0] = m_blk;
+      mine[1] = l_blk;
+    }
+  }
+  // Publish the state before the ticket; the last block reads every
+  // chunk's state from L2 after taking it.
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) s_last = atomicAdd(tickets + pair, 1) == chunks - 1;
+  __syncthreads();
+  if (!s_last) return;
+  __threadfence();
+  if (j < g.d) {
+    float m_all = MASK_VALUE;
+    for (int k = 0; k < chunks; ++k) m_all = fmaxf(m_all, __ldcg(pair_part + k * pitch));
+    float l_all = 0.0f, o = 0.0f;
+    for (int k = 0; k < chunks; ++k) {
+      const float* st = pair_part + k * pitch;
+      const float w = expf(__ldcg(st) - m_all);
+      l_all = fmaf(__ldcg(st + 1), w, l_all);
+      o = fmaf(__ldcg(st + 2 + j), w, o);
+    }
+    store(dst, o / l_all);
+  }
+  if (threadIdx.x == 0) tickets[pair] = 0;
+}
+
 // Head_dim > 256: chunks of WDL * LPR dims; see the file comment.
 constexpr int WDL = 32;
 constexpr int WCH = WDL * LPR;  // 256
@@ -378,33 +587,70 @@ decode_attention_wide_kernel(const QT* __restrict__ q, long long q_sb,
   }
 }
 
+// K13's design for head_dim d: 0 the row split, 1 the chunked wide
+// kernel; -1 for a shape no kernel takes.
+int pool_variant(int q_dtype, int d) {
+  if ((q_dtype != 0 && q_dtype != 1) || d < 1) return -1;
+  return d <= 256 ? 0 : 1;
+}
+
+// Chunks of SPLIT_ROWS rows a (slot, head) of K13's row split can have.
+int split_chunks(int max_pages, int page_size) {
+  return static_cast<int>((static_cast<long long>(max_pages) * page_size + SPLIT_ROWS - 1) /
+                          SPLIT_ROWS);
+}
+
+// K12 (PAGED false) and K13 (PAGED true; `part` and `tickets` the row
+// split's workspace, see `decode_attention_split_kernel`).
 template <typename QT, typename KT, bool PAGED>
 cudaError_t launch(const void* q, long long q_sb, long long q_sh,
                    const void* k, const void* v, const float* k_scale,
                    const float* v_scale, const int* lengths, void* out,
                    int slots, const Geometry& g, float scale,
-                   cudaStream_t stream) {
+                   cudaStream_t stream, float* part = nullptr, int* tickets = nullptr) {
   const dim3 grid(slots * g.h);
   const QT* qp = static_cast<const QT*>(q);
   const KT* kp = static_cast<const KT*>(k);
   const KT* vp = static_cast<const KT*>(v);
   QT* op = static_cast<QT*>(out);
-#define ZK_DECODE_LAUNCH(DL)                                                \
-  decode_attention_kernel<QT, KT, PAGED, DL><<<grid, THREADS, 0, stream>>>( \
-      qp, q_sb, q_sh, kp, vp, k_scale, v_scale, lengths, op, g, scale)
-  if (g.d <= 32) {
-    ZK_DECODE_LAUNCH(4);
-  } else if (g.d <= 64) {
-    ZK_DECODE_LAUNCH(8);
-  } else if (g.d <= 128) {
-    ZK_DECODE_LAUNCH(16);
-  } else if (g.d <= 256) {
-    ZK_DECODE_LAUNCH(32);
+  if constexpr (PAGED) {
+    if (g.d > 256) {
+      decode_attention_wide_kernel<QT, KT, true><<<grid, THREADS, 0, stream>>>(
+          qp, q_sb, q_sh, kp, vp, k_scale, v_scale, lengths, op, g, scale);
+      return cudaGetLastError();
+    }
+    const dim3 split_grid(slots * g.h, split_chunks(g.max_pages, g.page_size));
+#define ZK_SPLIT_LAUNCH(DL)                                                     \
+  decode_attention_split_kernel<QT, KT, DL><<<split_grid, THREADS, 0, stream>>>( \
+      qp, q_sb, q_sh, kp, vp, k_scale, v_scale, lengths, op, part, tickets, g, scale)
+    if (g.d <= 32) {
+      ZK_SPLIT_LAUNCH(4);
+    } else if (g.d <= 64) {
+      ZK_SPLIT_LAUNCH(8);
+    } else if (g.d <= 128) {
+      ZK_SPLIT_LAUNCH(16);
+    } else {
+      ZK_SPLIT_LAUNCH(32);
+    }
+#undef ZK_SPLIT_LAUNCH
   } else {
-    decode_attention_wide_kernel<QT, KT, PAGED><<<grid, THREADS, 0, stream>>>(
-        qp, q_sb, q_sh, kp, vp, k_scale, v_scale, lengths, op, g, scale);
-  }
+#define ZK_DECODE_LAUNCH(DL)                                                \
+  decode_attention_kernel<QT, KT, false, DL><<<grid, THREADS, 0, stream>>>( \
+      qp, q_sb, q_sh, kp, vp, k_scale, v_scale, lengths, op, g, scale)
+    if (g.d <= 32) {
+      ZK_DECODE_LAUNCH(4);
+    } else if (g.d <= 64) {
+      ZK_DECODE_LAUNCH(8);
+    } else if (g.d <= 128) {
+      ZK_DECODE_LAUNCH(16);
+    } else if (g.d <= 256) {
+      ZK_DECODE_LAUNCH(32);
+    } else {
+      decode_attention_wide_kernel<QT, KT, false><<<grid, THREADS, 0, stream>>>(
+          qp, q_sb, q_sh, kp, vp, k_scale, v_scale, lengths, op, g, scale);
+    }
 #undef ZK_DECODE_LAUNCH
+  }
   return cudaGetLastError();
 }
 
@@ -438,14 +684,29 @@ extern "C" int zk_paged_decode_attention(const void* q, long long q_sb,
   return static_cast<int>(err);
 }
 
+// K13's design for q's dtype code and head_dim (see `pool_variant`).
+extern "C" int zk_pool_paged_decode_attention_variant(int q_dtype, int d) {
+  return pool_variant(q_dtype, d);
+}
+
+// Floats of the row split's workspace `part` for these operands (0 when
+// the geometry takes the wide kernel); `tickets` holds slots * h int32
+// that start at 0 (each launch leaves them at 0).
+extern "C" long long zk_pool_paged_decode_attention_workspace(int slots, int max_pages,
+                                                               int page_size, int h, int d) {
+  if (pool_variant(0, d) != 0 || slots <= 0 || h <= 0) return 0;
+  return static_cast<long long>(slots) * h * split_chunks(max_pages, page_size) * (d + 2);
+}
+
 // K13. q_dtype: 0 = float32, 1 = bfloat16; kv_dtype: the same codes, or
 // 2 = int8 with k_scale/v_scale [pages, page_size, h] float32 (null for
-// float pools). Returns a cudaError_t.
+// float pools); part and tickets the row split's workspace (see
+// `zk_pool_paged_decode_attention_workspace`). Returns a cudaError_t.
 extern "C" int zk_pool_paged_decode_attention(
     const void* q, long long q_sb, long long q_sh, const void* k,
     const void* v, const void* k_scale, const void* v_scale,
-    const void* table, const void* lengths, void* out, int q_dtype,
-    int kv_dtype, int slots, int max_pages, int num_pages, int page_size,
+    const void* table, const void* lengths, void* out, void* part, void* tickets,
+    int q_dtype, int kv_dtype, int slots, int max_pages, int num_pages, int page_size,
     int h, int d, float scale, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -457,24 +718,30 @@ extern "C" int zk_pool_paged_decode_attention(
   if (quant != (k_scale != nullptr && v_scale != nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  if (pool_variant(q_dtype, d) == 0 &&
+      (part == nullptr || tickets == nullptr || split_chunks(max_pages, page_size) > 65535)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const Geometry g{h, d, 0, static_cast<const int*>(table), max_pages,
                    num_pages, page_size};
   const float* ks = static_cast<const float*>(k_scale);
   const float* vs = static_cast<const float*>(v_scale);
   const int* lens = static_cast<const int*>(lengths);
+  float* pt = static_cast<float*>(part);
+  int* tk = static_cast<int*>(tickets);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (q_dtype == 0 && kv_dtype == 0) {
     err = launch<float, float, true>(q, q_sb, q_sh, k, v, ks, vs, lens, out,
-                                     slots, g, scale, st);
+                                     slots, g, scale, st, pt, tk);
   } else if (q_dtype == 1 && kv_dtype == 1) {
     err = launch<__nv_bfloat16, __nv_bfloat16, true>(
-        q, q_sb, q_sh, k, v, ks, vs, lens, out, slots, g, scale, st);
+        q, q_sb, q_sh, k, v, ks, vs, lens, out, slots, g, scale, st, pt, tk);
   } else if (q_dtype == 0 && quant) {
     err = launch<float, int8_t, true>(q, q_sb, q_sh, k, v, ks, vs, lens, out,
-                                      slots, g, scale, st);
+                                      slots, g, scale, st, pt, tk);
   } else if (q_dtype == 1 && quant) {
     err = launch<__nv_bfloat16, int8_t, true>(q, q_sb, q_sh, k, v, ks, vs,
-                                              lens, out, slots, g, scale, st);
+                                              lens, out, slots, g, scale, st, pt, tk);
   } else {
     err = cudaErrorInvalidValue;
   }

@@ -1,10 +1,12 @@
 // Int8 tensor-core helpers shared by the packed-weight GEMM (K4,
-// packed_weight_matmul.cu) and the popcount GEMM (K5, xnor_gemm.cu):
-// `cp.async` copies, `ldmatrix` operand loads of K-contiguous int8 rows,
-// the `mma.sync.m16n8k32` s8 x s8 -> s32 product, the carry-free decode
-// of packed sign bits to +-1 bytes, and the block-tile GEMM both sources
-// instantiate for large M. Everything sits in `s8` inside an anonymous
-// namespace, so these names cannot meet those of mma_bf16.cuh.
+// packed_weight_matmul.cu), the popcount GEMM (K5, xnor_gemm.cu) and the
+// popcount conv (K3, conv_gemm_popcount.cu): `cp.async` copies,
+// `ldmatrix` operand loads of K-contiguous int8 rows, the
+// `mma.sync.m16n8k32` s8 x s8 -> s32 product, the carry-free decode of
+// packed sign bits to +-1 bytes, and the block-tile GEMM the three
+// sources instantiate for large M (K3 as an implicit-im2col conv).
+// Everything sits in `s8` inside an anonymous namespace, so these names
+// cannot meet those of mma_bf16.cuh.
 //
 // Operand layouts (PTX ISA, mma.m16n8k32 with .s8): with g = lane / 4 and
 // t = lane % 4, lane l holds of A (16 x 32, row) the bytes k = 4t..4t+3
@@ -182,10 +184,33 @@ struct TileGemm {
   static constexpr int EMPTY = 1 + STAGES;
 };
 
-template <bool A_BITS>
-__global__ void __launch_bounds__(TileGemm<A_BITS>::THREADS)
-tile_gemm_s8_kernel(const void* __restrict__ a, const uint32_t* __restrict__ b,
-                    int32_t* __restrict__ out, int m, int n, int kw, int bias) {
+// The conv's geometry (CONV): xq [B, Hp, Wp, ciw] words, output rows
+// m = (b, ho, wo) of [B, Ho, Wo], strides (sh, sw); base(m) =
+// ((b Hp + ho sh) Wp + wo sw) ciw; koff [kw] the word offset of K word
+// k = (dy kw + dx) ciw + t from base(m), (dy Wp + dx) ciw + t; scale [N].
+struct ConvGeom {
+  const int32_t* koff;
+  const float* scale;
+  int hp, wp, ciw, ho, wo, sh, sw;
+};
+
+template <bool CONV>
+struct TileOut {
+  using T = int32_t;
+};
+template <>
+struct TileOut<true> {
+  using T = float;
+};
+
+// The body of the tile GEMM kernels below (forced inline: each kernel
+// compiles to its own code).
+template <bool A_BITS, bool CONV>
+__device__ __forceinline__ void tile_gemm_s8(const void* __restrict__ a,
+                                             const uint32_t* __restrict__ b,
+                                             typename TileOut<CONV>::T* __restrict__ out, int m,
+                                             int n, int kw, int bias, const ConvGeom& conv) {
+  static_assert(A_BITS || !CONV, "the conv gathers packed activation words");
   using T = TileGemm<A_BITS>;
   constexpr int BM = T::BM, BN = T::BN, PITCH = T::PITCH, MI = T::MI, KWS = T::KWS;
   constexpr int STAGES = T::STAGES, WARPS_N = T::WARPS_N;
@@ -215,6 +240,7 @@ tile_gemm_s8_kernel(const void* __restrict__ a, const uint32_t* __restrict__ b,
     const uint8_t* a_src[NA];
     bool a_row[NA];
     int a_k[NA];  // the copy's K word (A_BITS) or 16-byte chunk (int8), first stage
+    int a_off[CONV ? NA : 1];  // CONV: koff of the copy's next K word, loaded a stage ahead
 #pragma unroll
     for (int i = 0; i < NA; ++i) {
       const int e = p + i * T::PRODUCERS;
@@ -222,7 +248,20 @@ tile_gemm_s8_kernel(const void* __restrict__ a, const uint32_t* __restrict__ b,
       const int c = A_BITS ? e / BM : e % CH;
       a_row[i] = m0 + r < m;
       const long long row = a_row[i] ? m0 + r : 0;
-      if constexpr (A_BITS) {
+      if constexpr (CONV) {
+        // The row's first word; the K words' offsets come from koff.
+        const int hw = conv.ho * conv.wo;
+        const int bi = static_cast<int>(row / hw);
+        const int yx = static_cast<int>(row - static_cast<long long>(bi) * hw);
+        const int y = yx / conv.wo;
+        const int x = yx - y * conv.wo;
+        a_k[i] = static_cast<int>(k_first) + c;
+        a_src[i] = static_cast<const uint8_t*>(a) +
+                   4 * ((static_cast<long long>(bi) * conv.hp + y * conv.sh) * conv.wp +
+                        static_cast<long long>(x) * conv.sw) *
+                       conv.ciw;
+        a_off[i] = a_row[i] && a_k[i] < kw ? __ldg(conv.koff + a_k[i]) : 0;
+      } else if constexpr (A_BITS) {
         a_k[i] = static_cast<int>(k_first) + c;
         a_src[i] = static_cast<const uint8_t*>(a) + 4 * (row * kw + k_first + c);
       } else {
@@ -252,7 +291,11 @@ tile_gemm_s8_kernel(const void* __restrict__ a, const uint32_t* __restrict__ b,
 #pragma unroll
         for (int i = 0; i < NA; ++i) {
           const int e = p + i * T::PRODUCERS;
-          if constexpr (A_BITS) {
+          if constexpr (CONV) {
+            cp_async4(st + T::A_ROWS + 4 * e, a_src[i] + 4LL * a_off[i], a_row[i] && a_k[i] < kw);
+            a_k[i] += KWS;
+            a_off[i] = a_row[i] && a_k[i] < kw ? __ldg(conv.koff + a_k[i]) : 0;
+          } else if constexpr (A_BITS) {
             cp_async4(st + T::A_ROWS + 4 * e, a_src[i], a_row[i] && a_k[i] < kw);
             a_src[i] += 4 * KWS;
             a_k[i] += KWS;
@@ -349,13 +392,24 @@ tile_gemm_s8_kernel(const void* __restrict__ a, const uint32_t* __restrict__ b,
         for (int h = 0; h < 2; ++h) {
           const int row = m0 + wm * T::WM + 16 * i + g + 8 * h;
           if (row >= m) continue;
-          int32_t* dst = out + static_cast<long long>(row) * n;
+          auto* dst = out + static_cast<long long>(row) * n;
 #pragma unroll
           for (int j = 0; j < 4; ++j) {
             const int col = n0 + wn * 32 + 8 * j + 2 * t;
             const int v0 = acc[i][j][2 * h] - bias;
             const int v1 = acc[i][j][2 * h + 1] - bias;
-            if (pairs && col + 1 < n) {
+            if constexpr (CONV) {
+              if (pairs && col + 1 < n) {
+                *reinterpret_cast<float2*>(dst + col) =
+                    make_float2(__fmul_rn(__int2float_rn(v0), __ldg(conv.scale + col)),
+                                __fmul_rn(__int2float_rn(v1), __ldg(conv.scale + col + 1)));
+              } else {
+                if (col < n) dst[col] = __fmul_rn(__int2float_rn(v0), __ldg(conv.scale + col));
+                if (col + 1 < n) {
+                  dst[col + 1] = __fmul_rn(__int2float_rn(v1), __ldg(conv.scale + col + 1));
+                }
+              }
+            } else if (pairs && col + 1 < n) {
               *reinterpret_cast<int2*>(dst + col) = make_int2(v0, v1);
             } else {
               if (col < n) dst[col] = v0;
@@ -413,8 +467,22 @@ tile_gemm_s8_kernel(const void* __restrict__ a, const uint32_t* __restrict__ b,
     const int row = m0 + r_lo + lr;
     const int col = n0 + c;
     if (row >= m || col >= n) continue;
-    int32_t* dst = out + static_cast<long long>(row) * n + col;
-    if (quads && col + 3 < n) {
+    auto* dst = out + static_cast<long long>(row) * n + col;
+    if constexpr (CONV) {
+      const float* sc = conv.scale + col;
+      if (quads && col + 3 < n) {
+        *reinterpret_cast<float4*>(dst) = make_float4(
+            __fmul_rn(__int2float_rn(sum.x), __ldg(sc)),
+            __fmul_rn(__int2float_rn(sum.y), __ldg(sc + 1)),
+            __fmul_rn(__int2float_rn(sum.z), __ldg(sc + 2)),
+            __fmul_rn(__int2float_rn(sum.w), __ldg(sc + 3)));
+      } else {
+        dst[0] = __fmul_rn(__int2float_rn(sum.x), __ldg(sc));
+        if (col + 1 < n) dst[1] = __fmul_rn(__int2float_rn(sum.y), __ldg(sc + 1));
+        if (col + 2 < n) dst[2] = __fmul_rn(__int2float_rn(sum.z), __ldg(sc + 2));
+        if (col + 3 < n) dst[3] = __fmul_rn(__int2float_rn(sum.w), __ldg(sc + 3));
+      }
+    } else if (quads && col + 3 < n) {
       *reinterpret_cast<int4*>(dst) = sum;
     } else {
       dst[0] = sum.x;
@@ -425,20 +493,46 @@ tile_gemm_s8_kernel(const void* __restrict__ a, const uint32_t* __restrict__ b,
   }
 }
 
-// Launch the block-tile GEMM on `stream` (device `device` current).
+// K4 (A_BITS false) and K5 (A_BITS true): out [M, N] int32 = A B - bias.
+template <bool A_BITS>
+__global__ void __launch_bounds__(TileGemm<A_BITS>::THREADS)
+tile_gemm_s8_kernel(const void* __restrict__ a, const uint32_t* __restrict__ b,
+                    int32_t* __restrict__ out, int m, int n, int kw, int bias) {
+  tile_gemm_s8<A_BITS, false>(a, b, out, m, n, kw, bias, ConvGeom{});
+}
+
+// K3: out [M, N] fp32 = (A B - bias) * scale, A gathered from xq. A
+// template, so that only the source that launches it compiles it.
+template <bool A_BITS>
+__global__ void __launch_bounds__(TileGemm<A_BITS>::THREADS)
+conv_gemm_s8_kernel(const void* __restrict__ xq, const uint32_t* __restrict__ b,
+                    float* __restrict__ out, int m, int n, int kw, int bias, ConvGeom conv) {
+  tile_gemm_s8<A_BITS, true>(xq, b, out, m, n, kw, bias, conv);
+}
+
+// Launch the block-tile GEMM on `stream` (device `device` current): K4
+// and K5's `tile_gemm_s8_kernel`, or with CONV K3's `conv_gemm_s8_kernel`
+// (out fp32, `conv` its geometry).
 // Where the M x N tiles fill at most half the card's SMs, the K split CS
 // is the most that keeps the grid within one wave of resident blocks
 // (occupancy x SMs), capped at a split of 2 stages a block and at 4
-// blocks for K4, 3 for K5 (wider clusters measured slower on an H100,
-// K5's at 4 already); otherwise, or with CS = 1, the launch is a plain
-// one.
+// blocks for K4, 3 for K5 and K3 (wider clusters measured slower on an
+// H100, K5's at 4 already); otherwise, or with CS = 1, the launch is a
+// plain one.
 // Raises the kernel's dynamic shared memory limit once per device when
 // it needs more than the default 48 KB.
-template <bool A_BITS>
+template <bool A_BITS, bool CONV = false>
 int launch_tile_gemm(const void* a, const void* b, void* out, int m, int n, int kw, int bias,
-                     int device, cudaStream_t stream) {
+                     int device, cudaStream_t stream, const ConvGeom& conv = ConvGeom{}) {
   using T = TileGemm<A_BITS>;
-  auto kernel = tile_gemm_s8_kernel<A_BITS>;
+  using Out = typename TileOut<CONV>::T;
+  const auto kernel = [] {
+    if constexpr (CONV) {
+      return conv_gemm_s8_kernel<A_BITS>;
+    } else {
+      return tile_gemm_s8_kernel<A_BITS>;
+    }
+  }();
   static int sms[64] = {};       // per device: SMs, once the attribute is set
   static int resident[64] = {};  // per device: blocks an SM holds at once
   if (device < 0 || device >= 64) return static_cast<int>(cudaErrorInvalidDevice);
@@ -468,9 +562,16 @@ int launch_tile_gemm(const void* a, const void* b, void* out, int m, int n, int 
     if (cs > max_split) cs = max_split;
     if (cs > nk / 2) cs = nk / 2;
   }
+  const uint32_t* bw = static_cast<const uint32_t*>(b);
+  Out* o = static_cast<Out*>(out);
   if (cs <= 1) {
-    kernel<<<dim3(row_blocks, col_blocks), T::THREADS, T::SMEM, stream>>>(
-        a, static_cast<const uint32_t*>(b), static_cast<int32_t*>(out), m, n, kw, bias);
+    if constexpr (CONV) {
+      kernel<<<dim3(row_blocks, col_blocks), T::THREADS, T::SMEM, stream>>>(a, bw, o, m, n, kw,
+                                                                           bias, conv);
+    } else {
+      kernel<<<dim3(row_blocks, col_blocks), T::THREADS, T::SMEM, stream>>>(a, bw, o, m, n, kw,
+                                                                           bias);
+    }
     return static_cast<int>(cudaGetLastError());
   }
   cudaLaunchConfig_t cfg = {};
@@ -485,8 +586,11 @@ int launch_tile_gemm(const void* a, const void* b, void* out, int m, int n, int 
   attr[0].val.clusterDim.z = static_cast<unsigned>(cs);
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  return static_cast<int>(cudaLaunchKernelEx(&cfg, kernel, a, static_cast<const uint32_t*>(b),
-                                             static_cast<int32_t*>(out), m, n, kw, bias));
+  if constexpr (CONV) {
+    return static_cast<int>(cudaLaunchKernelEx(&cfg, kernel, a, bw, o, m, n, kw, bias, conv));
+  } else {
+    return static_cast<int>(cudaLaunchKernelEx(&cfg, kernel, a, bw, o, m, n, kw, bias));
+  }
 }
 
 }  // namespace s8

@@ -42,7 +42,8 @@ PyTorch version beside it:
   :func:`cached_attention`.
 - K13 :func:`pool_paged_decode_attention` — K12 through per-slot page
   tables over a shared page pool, with optional int8 rows times fp32
-  per-(row, head) scales. Plain version: :func:`pool_decode_attention`.
+  per-(row, head) scales; each (slot, head)'s rows split over blocks
+  (:func:`decode_variant`). Plain version: :func:`pool_decode_attention`.
 
 A wrapper runs its plain version only when its tensors lie on the CPU.
 On CUDA tensors it launches its kernel (counting the launch in
@@ -52,7 +53,7 @@ other blocks), within the JAX package's stated tolerances.
 """
 
 import math
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -695,6 +696,36 @@ def paged_decode_attention(
     return out
 
 
+#: The K13 kernels by the code ``zk_pool_paged_decode_attention_variant``
+#: returns: ``"split"`` (head_dim <= 256: each (slot, head)'s rows split
+#: over blocks, merged in the same launch) or ``"wide"`` (head_dim > 256:
+#: one block per (slot, head) over 256-dim chunks).
+DECODE_VARIANTS = {0: "split", 1: "wide"}
+
+#: Per card: the row split's tickets, int32 zeros that every K13 launch
+#: leaves at zero (so launches on one stream can share them).
+_TICKETS: Dict[int, torch.Tensor] = {}
+
+
+def _decode_tickets(device: int, n: int) -> torch.Tensor:
+    tickets = _TICKETS.get(device)
+    if tickets is None or tickets.numel() < n:
+        tickets = _TICKETS[device] = torch.zeros(
+            n, dtype=torch.int32, device=torch.device("cuda", device))
+    return tickets
+
+
+def decode_variant(dtype: torch.dtype, head_dim: int) -> str:
+    """Which K13 kernel a call on the card launches for q's dtype and
+    head_dim, as the library's dispatch decides (see
+    :data:`DECODE_VARIANTS`). Builds the library at first use."""
+    code = cuda_build.library("decode_attention").zk_pool_paged_decode_attention_variant(
+        _DTYPE_CODES[dtype], int(head_dim))
+    if code not in DECODE_VARIANTS:
+        raise ValueError(f"decode: no kernel for {dtype} at head_dim {head_dim}")
+    return DECODE_VARIANTS[code]
+
+
 def pool_paged_decode_attention(
     q: torch.Tensor,
     k_pool: torch.Tensor,
@@ -748,13 +779,17 @@ def pool_paged_decode_attention(
                            (k_pool, v_pool))
     out = torch.empty((b, 1, h, d), dtype=q.dtype, device=q.device)
     lib = cuda_build.library("decode_attention")
+    max_pages = page_table.shape[1]
+    part = torch.empty(lib.zk_pool_paged_decode_attention_workspace(b, max_pages, ps, h, d),
+                       dtype=torch.float32, device=q.device)
     cuda_build.check(
         lib.zk_pool_paged_decode_attention(
             q.data_ptr(), q.stride(0), q.stride(2), k_pool.data_ptr(),
             v_pool.data_ptr(), k_scale.data_ptr() if scales else None,
             v_scale.data_ptr() if scales else None, page_table.data_ptr(),
-            lengths.data_ptr(), out.data_ptr(), _DTYPE_CODES[q.dtype],
-            _DTYPE_CODES[k_pool.dtype], b, page_table.shape[1], num_pages, ps,
+            lengths.data_ptr(), out.data_ptr(), part.data_ptr(),
+            _decode_tickets(device, b * h).data_ptr(), _DTYPE_CODES[q.dtype],
+            _DTYPE_CODES[k_pool.dtype], b, max_pages, num_pages, ps,
             h, d, float(scale), device, _stream(device),
         ),
         what,

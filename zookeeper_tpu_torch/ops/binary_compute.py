@@ -13,7 +13,9 @@ Kernels (sources in ``zookeeper_tpu_torch/csrc``), each with its plain
 PyTorch version beside it:
 
 - K1 :func:`pack_rows` — sign+pack of float rows into words;
-- K3 :func:`conv_gemm_popcount` — popcount conv with the scale epilogue;
+- K3 :func:`conv_gemm_popcount` — popcount conv with the scale epilogue,
+  an implicit GEMM on the int8 tensor cores past 2^18 word products
+  (:func:`conv_gemm_popcount_variant`);
 - K4 :func:`packed_weight_matmul` — int8 activations times packed
   weights, on the int8 tensor cores (:func:`packed_weight_matmul_variant`
   names the design a shape takes);
@@ -34,6 +36,7 @@ exact integer, one fp32 multiply of one, a bit, or a value times 0 or 1,
 so kernel and plain version agree bit for bit.
 """
 
+import functools
 from typing import Optional, Sequence, Tuple
 
 import torch
@@ -248,17 +251,43 @@ def conv_gemm_popcount_plain(
     the packed weights, popcount in int64, then the kernel's epilogue."""
     b = xq.shape[0]
     kh, kw, ciw, co = packed.shape
-    sh, sw = strides
     ho, wo = _conv_out_size(xq, packed, strides)
+    patches = _conv_patches(xq, kh, kw, strides)
+    mism = _popcount_mismatches(patches, packed.reshape(kh * kw * ciw, co))
+    y = (k_true - (mism + mism)).to(torch.float32) * scale.to(torch.float32)
+    return y.reshape(b, ho, wo, co)
+
+
+def _conv_patches(xq: torch.Tensor, kh: int, kw: int, strides: Sequence[int]) -> torch.Tensor:
+    """The unfolded taps of ``xq`` [B, Hp, Wp, ciw]: [B*Ho*Wo, kh*kw*ciw],
+    row (b, ho, wo), column (dy*kw + dx)*ciw + t (VALID on ``xq``)."""
+    b, hp, wp, ciw = xq.shape
+    sh, sw = strides
+    ho, wo = (hp - kh) // sh + 1, (wp - kw) // sw + 1
     taps = [
         xq[:, dy : dy + (ho - 1) * sh + 1 : sh, dx : dx + (wo - 1) * sw + 1 : sw]
         for dy in range(kh)
         for dx in range(kw)
     ]
-    patches = torch.stack(taps, dim=3).reshape(b * ho * wo, kh * kw * ciw)
-    mism = _popcount_mismatches(patches, packed.reshape(kh * kw * ciw, co))
-    y = (k_true - (mism + mism)).to(torch.float32) * scale.to(torch.float32)
-    return y.reshape(b, ho, wo, co)
+    return torch.stack(taps, dim=3).reshape(b * ho * wo, kh * kw * ciw)
+
+
+def _conv_k_offsets(kh: int, kw: int, wp: int, ciw: int) -> torch.Tensor:
+    """K3's implicit im2col: [kh*kw*ciw] int32, the offset of K word
+    ``(dy*kw + dx)*ciw + t`` from its output pixel's first word in the
+    flattened ``xq``, ``(dy*Wp + dx)*ciw + t``. Pixel (b, ho, wo) starts at
+    ``((b*Hp + ho*sh)*Wp + wo*sw)*ciw``; the kernel gathers word (m, k)
+    of :func:`_conv_patches` from there plus this table."""
+    dy = torch.arange(kh).reshape(kh, 1, 1)
+    dx = torch.arange(kw).reshape(1, kw, 1)
+    t = torch.arange(ciw).reshape(1, 1, ciw)
+    return ((dy * wp + dx) * ciw + t).reshape(-1).to(torch.int32)
+
+
+@functools.lru_cache(maxsize=None)
+def _conv_k_offsets_on(device: int, kh: int, kw: int, wp: int, ciw: int) -> torch.Tensor:
+    """:func:`_conv_k_offsets` on a card, made once per geometry."""
+    return _conv_k_offsets(kh, kw, wp, ciw).to(torch.device("cuda", device))
 
 
 def conv_gemm_popcount(
@@ -292,15 +321,16 @@ def conv_gemm_popcount(
     _require(all(t.is_contiguous() for t in (xq, packed, scale)), what,
              "operands must be contiguous")
     lib = cuda_build.library("conv_gemm_popcount")
-    smem = lib.zk_conv_gemm_popcount_smem(wp, ciw, kh, kw)
+    ho, wo = _conv_out_size(xq, packed, (sh, sw))
+    smem = lib.zk_conv_gemm_popcount_smem(b * ho * wo, co, wp, ciw, kh, kw)
     _require(smem <= _MAX_SMEM_BYTES, what,
              f"needs {smem} B of shared memory per block (> "
              f"{_MAX_SMEM_BYTES}); row too wide for this kernel")
-    ho, wo = _conv_out_size(xq, packed, (sh, sw))
+    koff = _conv_k_offsets_on(device, kh, kw, wp, ciw)
     out = torch.empty((b, ho, wo, co), dtype=torch.float32, device=xq.device)
     cuda_build.check(
         lib.zk_conv_gemm_popcount(
-            xq.data_ptr(), packed.data_ptr(), scale.data_ptr(),
+            xq.data_ptr(), packed.data_ptr(), scale.data_ptr(), koff.data_ptr(),
             out.data_ptr(), b, hp, wp, ciw, kh, kw, co, sh, sw, ho, wo,
             int(k_true), device, _stream(device),
         ),
@@ -368,6 +398,14 @@ PACKED_WEIGHT_VARIANTS = {0: "mma", 1: "small_m"}
 XNOR_VARIANTS = {0: "mma", 1: "popc"}
 
 
+#: The K3 kernels by the code ``zk_conv_gemm_popcount_variant`` returns:
+#: ``"mma"`` (M*N*Kw > 2^18 word products, M = B*Ho*Wo, N = co, Kw =
+#: kh*kw*ciw: the implicit GEMM on the int8 tensor cores, the taps
+#: gathered in its copies) or ``"popc"`` (up to 2^18: XOR and popcount on
+#: the CUDA cores).
+CONV_GEMM_VARIANTS = {0: "mma", 1: "popc"}
+
+
 def _gemm_variant(library: str, what: str, names: dict, m: int, n: int, kw: int) -> str:
     code = getattr(cuda_build.library(library), f"zk_{what}_variant")(int(m), int(n), int(kw))
     if code not in names:
@@ -381,6 +419,15 @@ def packed_weight_matmul_variant(m: int, n: int, kw: int) -> str:
     :data:`PACKED_WEIGHT_VARIANTS`). Builds the library at first use."""
     return _gemm_variant("packed_weight_matmul", "packed_weight_matmul",
                          PACKED_WEIGHT_VARIANTS, m, n, kw)
+
+
+def conv_gemm_popcount_variant(m: int, n: int, kw_total: int) -> str:
+    """Which K3 kernel a call on the card launches for ``m = B*Ho*Wo``
+    output pixels, ``n = co`` and ``kw_total = kh*kw*ciw`` K words, as the
+    library's dispatch decides (see :data:`CONV_GEMM_VARIANTS`). Builds
+    the library at first use."""
+    return _gemm_variant("conv_gemm_popcount", "conv_gemm_popcount",
+                         CONV_GEMM_VARIANTS, m, n, kw_total)
 
 
 # -- batch-packed 1-bit residuals (K6, K7, K8) -------------------------------

@@ -44,9 +44,10 @@ SIGNATURES = {
     },
     "conv_gemm_popcount": {
         "zk_conv_gemm_popcount": (
-            _I, [_P, _P, _P, _P] + [_I] * 13 + [_P],
+            _I, [_P] * 5 + [_I] * 13 + [_P],
         ),
-        "zk_conv_gemm_popcount_smem": (_LL, [_I, _I, _I, _I]),
+        "zk_conv_gemm_popcount_smem": (_LL, [_LL, _I, _I, _I, _I, _I]),
+        "zk_conv_gemm_popcount_variant": (_I, [_LL, _I, _I]),
     },
     "packed_weight_matmul": {
         "zk_packed_weight_matmul": (_I, [_P, _P, _P, _I, _I, _I, _I, _P]),
@@ -76,8 +77,10 @@ SIGNATURES = {
             _I, [_P, _LL, _LL, _P, _P, _P, _P] + [_I] * 5 + [_F, _I, _P],
         ),
         "zk_pool_paged_decode_attention": (
-            _I, [_P, _LL, _LL] + [_P] * 7 + [_I] * 8 + [_F, _I, _P],
+            _I, [_P, _LL, _LL] + [_P] * 9 + [_I] * 8 + [_F, _I, _P],
         ),
+        "zk_pool_paged_decode_attention_variant": (_I, [_I, _I]),
+        "zk_pool_paged_decode_attention_workspace": (_LL, [_I] * 5),
     },
 }
 
