@@ -18,11 +18,8 @@ CUDA card and ``nvcc``. In order:
    ``packed_weight_matmul`` at every shape the batch-8 QuickNet-Large
    forward gives them plus a ragged shape; K3 (and K1) also at
    BinaryAlexNet's four binary convs (slice C, 5x5 and 3x3), BinaryNet's
-   five (E_AUTO), QuickNet's sections at batch 1 and rows on both sides
-   of K3's "popc"/"mma" threshold, each row on the design
-   ``conv_gemm_popcount_variant`` names ("mma", the implicit GEMM on the
-   int8 tensor cores, past 2^18 word products M*N*Kw) and giving the
-   same bits on a second call; K4 also at slice D's dense
+   five (E_AUTO), QuickNet's sections at batch 1 and small convs (M 50
+   to 144), each row giving the same bits on a second call; K4 also at slice D's dense
    shapes (M 8 and 1, K 9216 and 4096, N 4096) and at rows across its
    variant threshold and tile edges (M 8 and 9, M not a multiple of
    the tile, N 33 and 130, Kw 1, K not a multiple of 32): each must
@@ -110,7 +107,8 @@ CUDA card and ``nvcc``. In order:
    prints its result line and one decode step's profiler breakdown,
    and holds K12/K13 on a mid-run step's cache, lengths and table to
    their plain versions (one bf16 rounding step, the same bits twice),
-   timing them there (K13 in the paged and the paged-int8 run).
+   timing them there (K13 in the paged and the paged-int8 run), with
+   each wrapper's host time per call (``host_us``).
 11. LM parity (deterministic mode): the same model in fp32 serves a
    12-request stream with slot refills through the kernels and through
    the plain functions, in both layouts: the tokens must be identical
@@ -399,11 +397,6 @@ def kernel_phase(torch, bc):
                m * ciw * 32 * 2 + m * ciw * 4, m * ciw * 32, (m, ciw * 32))
         xq = bc.pack_rows_plain(rows).reshape(*xpc.shape[:3], ciw)
         k_true = k * k * ci
-        variant = bc.conv_gemm_popcount_variant(b * ho * wo, co, k * k * ciw)
-        wanted = "popc" if b * ho * wo * co * k * k * ciw <= K3_POPC_WORK else "mma"
-        check(variant == wanted and (count == 0 or variant == "mma"),
-              f"conv_gemm_popcount at {tuple(xq.shape)} {k}x{k}/{s} -> {co}: variant "
-              f"{variant}, want {wanted} (slice A's shapes: mma)")
         x_nchw = xp.permute(0, 3, 1, 2)  # +-1 bf16, ones-padded, channels_last
         w_oihw = (q.sign().permute(3, 2, 0, 1).to(torch.bfloat16).to(dev)
                   .contiguous(memory_format=torch.channels_last))
@@ -413,7 +406,7 @@ def kernel_phase(torch, bc):
                lambda: F.conv2d(x_nchw, w_oihw, stride=s) * scale[:, None, None],
                xq.numel() * 4 + packed.numel() * 4 + co * 4 + b * ho * wo * co * 4,
                2 * b * ho * wo * co * k_true,
-               (*xq.shape, f"{k}x{k}/{s}", co, f"M={b * ho * wo}", variant))
+               (*xq.shape, f"{k}x{k}/{s}", co, f"M={b * ho * wo}"))
 
     # K1's wire-format edges, off the main path, in both dtypes it takes
     # and at ragged word counts: normal values mixed with +-0, +-inf, NaN
@@ -457,9 +450,8 @@ def kernel_phase(torch, bc):
 #: batch 8 (slice C: 5x5 at 27 from 64 channels, 3x3 at 13 from 192, 384,
 #: 384), BinaryNet's five (E_AUTO: 32x32 at 128, 16x16 at 128 and 256,
 #: 8x8 at 256 and 512), QuickNet's four sections at batch 1 (M 49 at 512
-#: channels takes "mma"), rows on both sides of the "popc"/"mma"
-#: threshold (M*N*Kw 1.5e5, 1.7e5 and 2.3e5 below 2^18, 2.9e5 twice
-#: above; M 64 and 65), and the ragged (ci 17, co 33) conv at stride 2.
+#: channels), small convs (M*N*Kw 1.5e5 to 2.9e5 word products; M 64 and
+#: 65, a row of 5x13), and the ragged (ci 17, co 33) conv at stride 2.
 K3_EXTRA_CASES = (
     (0, BATCH, 27, 27, 64, 192, 5, 1), (0, BATCH, 13, 13, 192, 384, 3, 1),
     (0, BATCH, 13, 13, 384, 384, 3, 1), (0, BATCH, 13, 13, 384, 256, 3, 1),
@@ -471,10 +463,6 @@ K3_EXTRA_CASES = (
     (0, 1, 8, 8, 128, 128, 3, 1), (0, 1, 16, 16, 64, 64, 3, 1),
     (0, 1, 8, 8, 64, 64, 3, 1), (0, 1, 5, 13, 64, 64, 3, 1), (0, 2, 9, 9, 17, 33, 3, 2),
 )
-#: K3 takes "popc" up to this work M*N*Kw (M = B*Ho*Wo, N = co, Kw =
-#: kh*kw*ciw), the tensor-core tiles ("mma") past it.
-K3_POPC_WORK = 2**18
-
 #: K4 rows off slice B's main path (launches per forward 0): slice D's
 #: dense stage at batch 8 and 1 (K 9216 and 4096, N 4096), both sides of
 #: the "small_m"/"mma" threshold (M 8 and 9), M not a multiple of the
@@ -1172,7 +1160,7 @@ def lm_kernel_phase(torch, A):
     def record(name, label, kernel, plain, library, nbytes, ops, rate, dtype, heavy=False):
         with deterministic(torch):
             got, want = kernel(), plain()
-            again = kernel() if name != "flash_forward" else got
+            again = kernel()
             torch.cuda.synchronize()
         check(_same_bits(torch, got, again), f"{name} at {label}: two calls differ")
         err = _max_abs_err(torch, got, want)
@@ -1266,6 +1254,10 @@ def lm_kernel_phase(torch, A):
                    lambda: A.pool_paged_decode_attention(q, kp, vp, table, lens, **kw),
                    lambda: A.pool_decode_attention(q, kp, vp, table, lens, **kw),
                    None, nbytes + table.numel() * 4, ops, FP32_OPS_PER_S, dtype)
+        _two_streams_check(
+            torch, lambda: A.pool_paged_decode_attention(q, kp, vp, table, split_lengths, **kw),
+            f"pool_paged_decode_attention at {list(shape)} {'int8 rows, ' if quant else ''}"
+            f"{str(dtype)[6:]}")
         del kp, vp
 
     # K12/K13 at head_dims that are not multiples of 8 (off the JAX
@@ -1310,6 +1302,25 @@ def lm_kernel_phase(torch, A):
                        None, nbytes + table.numel() * 4, ops, FP32_OPS_PER_S, dtype)
     torch.cuda.empty_cache()
     return records, max_err
+
+
+def _two_streams_check(torch, fn, label: str, rounds: int = 20) -> None:
+    """``fn`` launched on two streams at once, ``rounds`` times each, must
+    give the bits of one call on the current stream: K13's row split keeps
+    its workspace per stream, so concurrent launches share no ticket."""
+    want = fn()
+    streams = [torch.cuda.Stream() for _ in range(2)]
+    for st in streams:
+        st.wait_stream(torch.cuda.current_stream())
+    outs = []
+    for _ in range(rounds):
+        for st in streams:
+            with torch.cuda.stream(st):
+                outs.append(fn())
+    torch.cuda.synchronize()
+    bad = sum(not _same_bits(torch, o, want) for o in outs)
+    check(bad == 0, f"{label}: {bad} of {len(outs)} calls on two streams differ from one call")
+    print(f"kernel {label}: {len(outs)} calls on two streams at once, the same bits", flush=True)
 
 
 def _decode_work(q, live_rows: int, kv_size: int, scales: bool = False):
@@ -1448,6 +1459,20 @@ def lm_serving_phase(torch, A, smi):
     return launches, stats, main
 
 
+def _host_us(torch, fn, calls=200) -> float:
+    """Host microseconds per call of ``fn``: the wrapper's own work and the
+    launch, with the card's queue far from full (medians of 5 runs)."""
+    times = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        times.append((time.perf_counter() - t0) / calls * 1e6)
+    torch.cuda.synchronize()
+    return statistics.median(times)
+
+
 def _time_main_step(torch, A, engine, kernel, lengths, table):
     """K12 or K13 at one decode step of the run: layer 0's real cache,
     the step's lengths (and table), a seeded q. Per launch."""
@@ -1482,7 +1507,8 @@ def _time_main_step(torch, A, engine, kernel, lengths, table):
           f"{err}, tolerance one bf16 step)")
     check(_same_bits(torch, got, again), f"{kernel} at a mid-run decode step: two calls differ")
     rec = {"ms": time_ms(torch, fn), "plain_ms": time_ms(torch, plain, reps=5, inner=2),
-           "library_ms": time_ms(torch, library) if library is not None else None}
+           "library_ms": time_ms(torch, library) if library is not None else None,
+           "host_us": _host_us(torch, fn)}
     rec["bound_ms"], rec["bound_by"] = bound_ms(kernel, nbytes, ops)
     print(f"kernel {kernel} at a mid-run decode step ({live} live rows of {LM_SLOTS} slots"
           f"{', int8 rows' if 'k_scale' in layer else ''}): "
@@ -2256,10 +2282,6 @@ def main() -> None:
             "bound_by": bound_by,
             "library_ms": t["library_ms"],
         })
-        if name == "conv_gemm_popcount":
-            # Slice A's batch-8 shapes: M = 8 x 56^2 .. 8 x 7^2.
-            rows[-1]["variant"] = bc.conv_gemm_popcount_variant(
-                BATCH * SECTIONS[-1][1] ** 2, SECTIONS[-1][2], 9 * SECTIONS[-1][2] // 32)
     # LM kernels, per main-path unit: K9 per prefill dispatch (4 layers)
     # over the slots run's bucket mix; K12 and K13 per decode step (4
     # layers) at a mid-run step of the slots / paged run.
@@ -2277,6 +2299,7 @@ def main() -> None:
         per_unit[name] = {key: (None if rec[key] is None else LM_LAYERS * rec[key])
                           for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
         per_unit[name]["bound_by"] = rec["bound_by"]
+        per_unit[name]["host_us"] = rec["host_us"]
     int8 = lm_main["pool_paged_decode_attention int8"]
     for name in LM_KERNELS:
         source, replaces = KERNELS[name]
@@ -2288,6 +2311,9 @@ def main() -> None:
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"],
         })
+        if name != "flash_forward":
+            # The wrapper's host time per launch at that step (not per step).
+            rows[-1]["host_us"] = t["host_us"]
         if name == "flash_forward":
             rows[-1]["variant"] = A.flash_forward_variant(torch.bfloat16, LM_HEAD_DIM)
         if name == "pool_paged_decode_attention":

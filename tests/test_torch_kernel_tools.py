@@ -111,6 +111,24 @@ def test_parse_sass_compares_the_same_code_under_another_tag_as_equal():
     assert sass_diff.parse_sass(changed) != sass_diff.parse_sass(SASS)
 
 
+def test_rename_pairs_a_kernel_whose_template_lost_a_parameter():
+    """``--rename`` rewrites the old source's names only where the pattern
+    matches: K12's kernel without its ``bool`` template argument, and not
+    the wide kernel that keeps it."""
+    old = {
+        "_ZN12_GLOBAL__N_123decode_attention_kernelI13__nv_bfloat16S1_Lb0ELi8ELi4EEEvPKT_": ["a"],
+        "_ZN12_GLOBAL__N_123decode_attention_kernelIffLb1ELi8ELi4EEEvPKT_": ["b"],
+        "_ZN12_GLOBAL__N_128decode_attention_wide_kernelIffLb0EEEvPKT_": ["c"],
+    }
+    got = sass_diff.rename(old, [r"(decode_attention_kernelI.*?)Lb0E=\1"])
+    assert got == {
+        "_ZN12_GLOBAL__N_123decode_attention_kernelI13__nv_bfloat16S1_Li8ELi4EEEvPKT_": ["a"],
+        "_ZN12_GLOBAL__N_123decode_attention_kernelIffLb1ELi8ELi4EEEvPKT_": ["b"],
+        "_ZN12_GLOBAL__N_128decode_attention_wide_kernelIffLb0EEEvPKT_": ["c"],
+    }
+    assert sass_diff.rename(old, []) == old
+
+
 def test_parse_sass_ignores_the_column_padding():
     """cuobjdump pads each line to the longest instruction of the file, so
     a source that gains a longer instruction elsewhere re-pads every
@@ -156,7 +174,6 @@ def test_flash_variant_names_the_library_code(which, monkeypatch):
 @pytest.mark.parametrize("library,what,names", [
     ("packed_weight_matmul", "packed_weight_matmul", {1: "small_m", 0: "mma"}),
     ("xnor_gemm", "xnor_matmul_packed", {1: "popc", 0: "mma"}),
-    ("conv_gemm_popcount", "conv_gemm_popcount", {1: "popc", 0: "mma"}),
 ])
 def test_gemm_variant_names_the_library_code(library, what, names, monkeypatch):
     """``packed_weight_matmul_variant`` and ``xnor_matmul_packed_variant``
@@ -173,8 +190,7 @@ def test_gemm_variant_names_the_library_code(library, what, names, monkeypatch):
                         lambda name: lib if name == library else pytest.fail(name))
     helper = getattr(binary_compute, f"{what}_variant")
     table = {"packed_weight_matmul": binary_compute.PACKED_WEIGHT_VARIANTS,
-             "xnor_gemm": binary_compute.XNOR_VARIANTS,
-             "conv_gemm_popcount": binary_compute.CONV_GEMM_VARIANTS}[library]
+             "xnor_gemm": binary_compute.XNOR_VARIANTS}[library]
     assert table == names
     assert helper(8, 4096, 288) == names[1]
     assert helper(25088, 64, 18) == names[0] == "mma"

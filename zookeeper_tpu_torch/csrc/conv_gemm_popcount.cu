@@ -16,125 +16,25 @@
 // the cheapest unit that computes the +-1 products is the int8 tensor
 // core.
 //
-// Two designs, chosen by the work M*N*Kw (M = B*Ho*Wo, N = co, Kw =
-// kh*kw*ciw words) in the C entry point (`variant`):
-//   "mma" (M*N*Kw > POPC_WORK_MAX): an implicit GEMM on the int8 tensor
-//     cores, the block-tile GEMM of mma_s8.cuh (`conv_gemm_s8_kernel`). M rows
-//     of output pixels, N = co, K = kh*kw*ciw words; B is `w` as it lies
-//     ([kh*kw*ciw, co] packed words). A is never materialised: its word
-//     (m, k) sits at xq[base(m) + koff[k]], base(m) = ((b*Hp + ho*sh)*Wp
-//     + wo*sw)*ciw and koff[(dy*kw + dx)*ciw + t] = (dy*Wp + dx)*ciw + t
-//     (a table the wrapper keeps on the device per geometry), so the
-//     producer warps gather the taps word by word in their 4-byte
-//     `cp.async` copies (a K stage of 4 words may cross taps when ciw is
-//     not a multiple of 4) and decode them to +-1 bytes. The full dot
-//     over 32 Kw values is 32 Kw - 2 mismatches whatever the pad bits, so
-//     the epilogue writes __fmul_rn((float)(dot - (32 Kw - k_true)),
-//     scale[n]) as fp32 straight into [B, Ho, Wo, co].
-//   "popc" (M*N*Kw <= POPC_WORK_MAX, where the tile GEMM's fixed
-//     pipeline latency costs more than the work; the work decides, not
-//     M, since a small M with a large N*Kw, as batch 1 at 7x7 and 512
-//     channels (M 49, 3.6e6 word products), still gives the tiles much
-//     to do; chip_smoke.py times rows on both sides):
-//     `conv_gemm_popcount_kernel`, XOR and popcount on the CUDA
-//     cores. One block per (co tile of 64, output row ho, image b)
-//     stages the co tile's packed weights [kh*kw*ciw][64] and the kh
-//     packed input rows that output row reads into shared memory once,
-//     so every word is read from device memory once per block. Thread c
-//     of each group of 64 owns output channel co0 + c and walks the
-//     output columns wo; the 64 threads of a group read consecutive
-//     weight words (no bank conflicts) and the same input word (a
-//     broadcast). The TPU kernel's sequential dy grid axis with a VMEM
-//     accumulator becomes a loop inside the block.
-// Both accumulate exact integers and end in one fp32 multiply
-// (`__fmul_rn`, no FMA contraction), the plain version's operation, so
-// both are bit-identical to it.
+// Design: an implicit GEMM on the int8 tensor cores, the block-tile GEMM
+// of mma_s8.cuh (`conv_gemm_s8_kernel`). M rows of output pixels, N = co,
+// K = kh*kw*ciw words; B is `w` as it lies ([kh*kw*ciw, co] packed
+// words). A is never materialised: its word (m, k) sits at xq[base(m) +
+// koff[k]], base(m) = ((b*Hp + ho*sh)*Wp + wo*sw)*ciw and koff[(dy*kw +
+// dx)*ciw + t] = (dy*Wp + dx)*ciw + t (a table the wrapper keeps on the
+// device per geometry), so the producer warps gather the taps word by
+// word in their 4-byte `cp.async` copies (a K stage of 4 words may cross
+// taps when ciw is not a multiple of 4) and decode them to +-1 bytes.
+// The full dot over 32 Kw values is 32 Kw - 2 mismatches whatever the
+// pad bits, so the epilogue writes __fmul_rn((float)(dot - (32 Kw -
+// k_true)), scale[n]) as fp32 straight into [B, Ho, Wo, co]: exact
+// integers and one fp32 multiply (no FMA contraction), the plain
+// version's operation, so the result is bit-identical to it.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "mma_s8.cuh"
-
-namespace {
-
-constexpr int kCoTile = 64;
-constexpr int kThreads = 256;
-constexpr long long POPC_WORK_MAX = 1 << 18;  // "mma" past this M*N*Kw
-
-__global__ void conv_gemm_popcount_kernel(
-    const int32_t* __restrict__ xq, const int32_t* __restrict__ w,
-    const float* __restrict__ scale, float* __restrict__ out, int hp, int wp,
-    int ciw, int kh, int kw, int co, int sh, int sw, int ho_n, int wo_n,
-    int k_true) {
-  extern __shared__ int32_t smem[];
-  const int tap_words = kh * kw * ciw;
-  const int row_words = wp * ciw;
-  int32_t* ws = smem;                       // [tap_words][kCoTile]
-  int32_t* xs = smem + tap_words * kCoTile;  // [kh][row_words]
-
-  const int co0 = blockIdx.x * kCoTile;
-  const int ho = blockIdx.y;
-  const int b = blockIdx.z;
-
-  for (int i = threadIdx.x; i < tap_words * kCoTile; i += blockDim.x) {
-    const int r = i / kCoTile;
-    const int c = i - r * kCoTile;
-    ws[i] = (co0 + c < co) ? w[static_cast<long long>(r) * co + co0 + c] : 0;
-  }
-  const long long row0 =
-      (static_cast<long long>(b) * hp + static_cast<long long>(ho) * sh) *
-      row_words;
-  for (int i = threadIdx.x; i < kh * row_words; i += blockDim.x) {
-    xs[i] = xq[row0 + i];  // kh consecutive padded rows are contiguous
-  }
-  __syncthreads();
-
-  const int c = threadIdx.x % kCoTile;
-  if (co0 + c >= co) return;  // no barrier follows
-  const float s = scale[co0 + c];
-  const int groups = blockDim.x / kCoTile;
-  float* out_row =
-      out + (static_cast<long long>(b) * ho_n + ho) * wo_n * co + co0 + c;
-  for (int wo = threadIdx.x / kCoTile; wo < wo_n; wo += groups) {
-    int acc = 0;
-    for (int dy = 0; dy < kh; ++dy) {
-      for (int dx = 0; dx < kw; ++dx) {
-        const int32_t* xr = xs + dy * row_words + (wo * sw + dx) * ciw;
-        const int32_t* wr = ws + (dy * kw + dx) * ciw * kCoTile + c;
-        for (int t = 0; t < ciw; ++t) {
-          acc += __popc(xr[t] ^ wr[t * kCoTile]);
-        }
-      }
-    }
-    out_row[static_cast<long long>(wo) * co] =
-        __fmul_rn(static_cast<float>(k_true - (acc + acc)), s);
-  }
-}
-
-// K3's design: 0 "mma", 1 "popc"; -1 for a shape no kernel takes.
-int variant(long long m, int n, int kw_total) {
-  if (m <= 0 || n <= 0 || kw_total <= 0) return -1;
-  return m * n * kw_total <= POPC_WORK_MAX ? 1 : 0;
-}
-
-}  // namespace
-
-// Which design K3 takes for M = B*Ho*Wo output pixels, N = co and
-// kw_total = kh*kw*ciw K words (see `variant`).
-extern "C" int zk_conv_gemm_popcount_variant(long long m, int n, int kw_total) {
-  return variant(m, n, kw_total);
-}
-
-// Shared memory the launch needs, in bytes (the wrapper checks it
-// against the card's limit before launching): the tile GEMM's fixed ring
-// for "mma", the staged weights and input rows for "popc".
-extern "C" long long zk_conv_gemm_popcount_smem(long long m, int n, int wp, int ciw, int kh,
-                                                int kw) {
-  if (variant(m, n, kh * kw * ciw) == 0) return s8::TileGemm<true>::SMEM;
-  return (static_cast<long long>(kh) * kw * ciw * kCoTile +
-          static_cast<long long>(kh) * wp * ciw) *
-         static_cast<long long>(sizeof(int32_t));
-}
 
 // xq [batch, hp, wp, ciw], w [kh, kw, ciw, co] int32 and scale [co]
 // float32, contiguous; koff [kh*kw*ciw] int32 (see the file comment);
@@ -147,26 +47,11 @@ extern "C" int zk_conv_gemm_popcount(const void* xq, const void* w, const void* 
   if (err != cudaSuccess) return static_cast<int>(err);
   if (batch <= 0 || ho <= 0 || wo <= 0 || co <= 0) return 0;
   const long long m = static_cast<long long>(batch) * ho * wo;
+  if (m > 0x7fffffffLL || koff == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   const int kw_total = kh * kw * ciw;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (variant(m, co, kw_total) == 0) {
-    if (m > 0x7fffffffLL || koff == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-    const s8::ConvGeom g{static_cast<const int32_t*>(koff), static_cast<const float*>(scale),
-                         hp, wp, ciw, ho, wo, sh, sw};
-    return s8::launch_tile_gemm<true, true>(xq, w, out, static_cast<int>(m), co, kw_total,
-                                            32 * kw_total - k_true, device, st, g);
-  }
-  const long long smem = zk_conv_gemm_popcount_smem(m, co, wp, ciw, kh, kw);
-  if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(conv_gemm_popcount_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  const dim3 grid((co + kCoTile - 1) / kCoTile, ho, batch);
-  conv_gemm_popcount_kernel<<<grid, kThreads, static_cast<size_t>(smem), st>>>(
-      static_cast<const int32_t*>(xq), static_cast<const int32_t*>(w),
-      static_cast<const float*>(scale), static_cast<float*>(out), hp, wp, ciw,
-      kh, kw, co, sh, sw, ho, wo, k_true);
-  return static_cast<int>(cudaGetLastError());
+  const s8::ConvGeom g{static_cast<const int32_t*>(koff), static_cast<const float*>(scale),
+                       hp, wp, ciw, ho, wo, sh, sw};
+  return s8::launch_tile_gemm<true, true>(xq, w, out, static_cast<int>(m), co, kw_total,
+                                          32 * kw_total - k_true, device,
+                                          static_cast<cudaStream_t>(stream), g);
 }

@@ -231,11 +231,10 @@ __device__ __forceinline__ void attend_rows(
   }
 }
 
-// DL: dims per lane (head_dim padded up to 8 * DL). UNROLL: rows per
-// lane group per iteration, fewer for wide rows to stay in registers.
-// Launched for K12 only (PAGED false): K13 takes the row split below.
-template <typename QT, typename KT, bool PAGED, int DL,
-          int UNROLL = (DL >= 32 ? 1 : (DL >= 16 ? 2 : 4))>
+// K12 at head_dim <= 256. DL: dims per lane (head_dim padded up to
+// 8 * DL). UNROLL: rows per lane group per iteration, fewer for wide rows
+// to stay in registers.
+template <typename QT, typename KT, int DL, int UNROLL = (DL >= 32 ? 1 : (DL >= 16 ? 2 : 4))>
 __global__ void __launch_bounds__(THREADS)
 decode_attention_kernel(const QT* __restrict__ q, long long q_sb,
                         long long q_sh, const KT* __restrict__ kbuf,
@@ -255,8 +254,7 @@ decode_attention_kernel(const QT* __restrict__ q, long long q_sb,
   const int d0 = sub * DL;                      // this lane's first dim
   const int n_valid = min(DL, max(g.d - d0, 0));  // dims of this lane < d
   const bool full = (g.d == DL * LPR);
-  const int cap_view = PAGED ? g.max_pages * g.page_size : g.cap;
-  const int len = min(max(lengths[slot], 0), cap_view - 1);
+  const int len = min(max(lengths[slot], 0), g.cap - 1);
 
   float qv[DL];
   {
@@ -283,7 +281,7 @@ decode_attention_kernel(const QT* __restrict__ q, long long q_sb,
       vsc[u] = 1.0f;
       if (r <= len) {
         long long sidx;
-        const long long off = row_offset<PAGED>(g, slot, r, hh, &sidx) + d0;
+        const long long off = row_offset<false>(g, slot, r, hh, &sidx) + d0;
         kv[u].load(kbuf + off, full, n_valid);
         vv[u].load(vbuf + off, full, n_valid);
         if (k_scale != nullptr) {
@@ -600,57 +598,65 @@ int split_chunks(int max_pages, int page_size) {
                           SPLIT_ROWS);
 }
 
-// K12 (PAGED false) and K13 (PAGED true; `part` and `tickets` the row
-// split's workspace, see `decode_attention_split_kernel`).
-template <typename QT, typename KT, bool PAGED>
-cudaError_t launch(const void* q, long long q_sb, long long q_sh,
-                   const void* k, const void* v, const float* k_scale,
-                   const float* v_scale, const int* lengths, void* out,
-                   int slots, const Geometry& g, float scale,
-                   cudaStream_t stream, float* part = nullptr, int* tickets = nullptr) {
+// K12: one block per (slot, head); the wide kernel past head_dim 256.
+template <typename QT, typename KT>
+cudaError_t launch_k12(const void* q, long long q_sb, long long q_sh, const void* k,
+                       const void* v, const int* lengths, void* out, int slots,
+                       const Geometry& g, float scale, cudaStream_t stream) {
   const dim3 grid(slots * g.h);
   const QT* qp = static_cast<const QT*>(q);
   const KT* kp = static_cast<const KT*>(k);
   const KT* vp = static_cast<const KT*>(v);
   QT* op = static_cast<QT*>(out);
-  if constexpr (PAGED) {
-    if (g.d > 256) {
-      decode_attention_wide_kernel<QT, KT, true><<<grid, THREADS, 0, stream>>>(
-          qp, q_sb, q_sh, kp, vp, k_scale, v_scale, lengths, op, g, scale);
-      return cudaGetLastError();
-    }
-    const dim3 split_grid(slots * g.h, split_chunks(g.max_pages, g.page_size));
-#define ZK_SPLIT_LAUNCH(DL)                                                     \
-  decode_attention_split_kernel<QT, KT, DL><<<split_grid, THREADS, 0, stream>>>( \
-      qp, q_sb, q_sh, kp, vp, k_scale, v_scale, lengths, op, part, tickets, g, scale)
-    if (g.d <= 32) {
-      ZK_SPLIT_LAUNCH(4);
-    } else if (g.d <= 64) {
-      ZK_SPLIT_LAUNCH(8);
-    } else if (g.d <= 128) {
-      ZK_SPLIT_LAUNCH(16);
-    } else {
-      ZK_SPLIT_LAUNCH(32);
-    }
-#undef ZK_SPLIT_LAUNCH
+#define ZK_DECODE_LAUNCH(DL)                                         \
+  decode_attention_kernel<QT, KT, DL><<<grid, THREADS, 0, stream>>>( \
+      qp, q_sb, q_sh, kp, vp, nullptr, nullptr, lengths, op, g, scale)
+  if (g.d <= 32) {
+    ZK_DECODE_LAUNCH(4);
+  } else if (g.d <= 64) {
+    ZK_DECODE_LAUNCH(8);
+  } else if (g.d <= 128) {
+    ZK_DECODE_LAUNCH(16);
+  } else if (g.d <= 256) {
+    ZK_DECODE_LAUNCH(32);
   } else {
-#define ZK_DECODE_LAUNCH(DL)                                                \
-  decode_attention_kernel<QT, KT, false, DL><<<grid, THREADS, 0, stream>>>( \
-      qp, q_sb, q_sh, kp, vp, k_scale, v_scale, lengths, op, g, scale)
-    if (g.d <= 32) {
-      ZK_DECODE_LAUNCH(4);
-    } else if (g.d <= 64) {
-      ZK_DECODE_LAUNCH(8);
-    } else if (g.d <= 128) {
-      ZK_DECODE_LAUNCH(16);
-    } else if (g.d <= 256) {
-      ZK_DECODE_LAUNCH(32);
-    } else {
-      decode_attention_wide_kernel<QT, KT, false><<<grid, THREADS, 0, stream>>>(
-          qp, q_sb, q_sh, kp, vp, k_scale, v_scale, lengths, op, g, scale);
-    }
-#undef ZK_DECODE_LAUNCH
+    decode_attention_wide_kernel<QT, KT, false><<<grid, THREADS, 0, stream>>>(
+        qp, q_sb, q_sh, kp, vp, nullptr, nullptr, lengths, op, g, scale);
   }
+#undef ZK_DECODE_LAUNCH
+  return cudaGetLastError();
+}
+
+// K13: the row split up to head_dim 256 (`part` and `tickets` its
+// workspace, see `decode_attention_split_kernel`), else the wide kernel.
+template <typename QT, typename KT>
+cudaError_t launch_k13(const void* q, long long q_sb, long long q_sh, const void* k,
+                       const void* v, const float* k_scale, const float* v_scale,
+                       const int* lengths, void* out, int slots, const Geometry& g,
+                       float scale, cudaStream_t stream, float* part, int* tickets) {
+  const QT* qp = static_cast<const QT*>(q);
+  const KT* kp = static_cast<const KT*>(k);
+  const KT* vp = static_cast<const KT*>(v);
+  QT* op = static_cast<QT*>(out);
+  if (g.d > 256) {
+    decode_attention_wide_kernel<QT, KT, true><<<slots * g.h, THREADS, 0, stream>>>(
+        qp, q_sb, q_sh, kp, vp, k_scale, v_scale, lengths, op, g, scale);
+    return cudaGetLastError();
+  }
+  const dim3 grid(slots * g.h, split_chunks(g.max_pages, g.page_size));
+#define ZK_SPLIT_LAUNCH(DL)                                                \
+  decode_attention_split_kernel<QT, KT, DL><<<grid, THREADS, 0, stream>>>( \
+      qp, q_sb, q_sh, kp, vp, k_scale, v_scale, lengths, op, part, tickets, g, scale)
+  if (g.d <= 32) {
+    ZK_SPLIT_LAUNCH(4);
+  } else if (g.d <= 64) {
+    ZK_SPLIT_LAUNCH(8);
+  } else if (g.d <= 128) {
+    ZK_SPLIT_LAUNCH(16);
+  } else {
+    ZK_SPLIT_LAUNCH(32);
+  }
+#undef ZK_SPLIT_LAUNCH
   return cudaGetLastError();
 }
 
@@ -673,11 +679,10 @@ extern "C" int zk_paged_decode_attention(const void* q, long long q_sb,
   const int* lens = static_cast<const int*>(lengths);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype_code == 0) {
-    err = launch<float, float, false>(q, q_sb, q_sh, k, v, nullptr, nullptr,
-                                      lens, out, slots, g, scale, st);
+    err = launch_k12<float, float>(q, q_sb, q_sh, k, v, lens, out, slots, g, scale, st);
   } else if (dtype_code == 1) {
-    err = launch<__nv_bfloat16, __nv_bfloat16, false>(
-        q, q_sb, q_sh, k, v, nullptr, nullptr, lens, out, slots, g, scale, st);
+    err = launch_k12<__nv_bfloat16, __nv_bfloat16>(q, q_sb, q_sh, k, v, lens, out, slots, g,
+                                                   scale, st);
   } else {
     err = cudaErrorInvalidValue;
   }
@@ -691,7 +696,8 @@ extern "C" int zk_pool_paged_decode_attention_variant(int q_dtype, int d) {
 
 // Floats of the row split's workspace `part` for these operands (0 when
 // the geometry takes the wide kernel); `tickets` holds slots * h int32
-// that start at 0 (each launch leaves them at 0).
+// that start at 0 (each launch leaves them at 0). Launches that share a
+// workspace must run in order (one stream).
 extern "C" long long zk_pool_paged_decode_attention_workspace(int slots, int max_pages,
                                                                int page_size, int h, int d) {
   if (pool_variant(0, d) != 0 || slots <= 0 || h <= 0) return 0;
@@ -731,17 +737,17 @@ extern "C" int zk_pool_paged_decode_attention(
   int* tk = static_cast<int*>(tickets);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (q_dtype == 0 && kv_dtype == 0) {
-    err = launch<float, float, true>(q, q_sb, q_sh, k, v, ks, vs, lens, out,
-                                     slots, g, scale, st, pt, tk);
+    err = launch_k13<float, float>(q, q_sb, q_sh, k, v, ks, vs, lens, out, slots, g, scale,
+                                   st, pt, tk);
   } else if (q_dtype == 1 && kv_dtype == 1) {
-    err = launch<__nv_bfloat16, __nv_bfloat16, true>(
-        q, q_sb, q_sh, k, v, ks, vs, lens, out, slots, g, scale, st, pt, tk);
+    err = launch_k13<__nv_bfloat16, __nv_bfloat16>(q, q_sb, q_sh, k, v, ks, vs, lens, out,
+                                                   slots, g, scale, st, pt, tk);
   } else if (q_dtype == 0 && quant) {
-    err = launch<float, int8_t, true>(q, q_sb, q_sh, k, v, ks, vs, lens, out,
-                                      slots, g, scale, st, pt, tk);
+    err = launch_k13<float, int8_t>(q, q_sb, q_sh, k, v, ks, vs, lens, out, slots, g, scale,
+                                    st, pt, tk);
   } else if (q_dtype == 1 && quant) {
-    err = launch<__nv_bfloat16, int8_t, true>(q, q_sb, q_sh, k, v, ks, vs,
-                                              lens, out, slots, g, scale, st, pt, tk);
+    err = launch_k13<__nv_bfloat16, int8_t>(q, q_sb, q_sh, k, v, ks, vs, lens, out, slots, g,
+                                            scale, st, pt, tk);
   } else {
     err = cudaErrorInvalidValue;
   }

@@ -702,17 +702,28 @@ def paged_decode_attention(
 #: one block per (slot, head) over 256-dim chunks).
 DECODE_VARIANTS = {0: "split", 1: "wide"}
 
-#: Per card: the row split's tickets, int32 zeros that every K13 launch
-#: leaves at zero (so launches on one stream can share them).
-_TICKETS: Dict[int, torch.Tensor] = {}
+#: K13's row-split workspace per (card, stream, geometry): the chunk
+#: states ``part`` (fp32) and the tickets (int32 zeros that every launch
+#: leaves at zero). Launches on one stream run in order, so they share
+#: one; a launch on another stream gets its own.
+_WORKSPACE: Dict[Tuple[int, ...], Tuple[torch.Tensor, torch.Tensor]] = {}
 
 
-def _decode_tickets(device: int, n: int) -> torch.Tensor:
-    tickets = _TICKETS.get(device)
-    if tickets is None or tickets.numel() < n:
-        tickets = _TICKETS[device] = torch.zeros(
-            n, dtype=torch.int32, device=torch.device("cuda", device))
-    return tickets
+def _split_workspace(lib, device: int, stream: int,
+                     geometry: Tuple[int, int, int, int, int]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K13's (part, tickets) for ``geometry`` (slots, max_pages,
+    page_size, h, d) on ``stream``, made at the first call of the key."""
+    key = (device, stream, *geometry)
+    ws = _WORKSPACE.get(key)
+    if ws is None:
+        slots, _, _, h, _ = geometry
+        dev = torch.device("cuda", device)
+        ws = _WORKSPACE[key] = (
+            torch.empty(lib.zk_pool_paged_decode_attention_workspace(*geometry),
+                        dtype=torch.float32, device=dev),
+            torch.zeros(slots * h, dtype=torch.int32, device=dev),
+        )
+    return ws
 
 
 def decode_variant(dtype: torch.dtype, head_dim: int) -> str:
@@ -742,7 +753,9 @@ def pool_paged_decode_attention(
     page_size, h, d]`` in q's dtype, or int8 with ``k_scale/v_scale
     [pages, page_size, h]`` float32; ``page_table [slots, max_pages]``
     int32 (entries clipped to the pool); lengths clamped to
-    ``max_pages * page_size - 1``."""
+    ``max_pages * page_size - 1``. The row split's workspace is kept per
+    card, stream and geometry (:func:`_split_workspace`): calls on one
+    stream reuse it in order, calls on two streams never share it."""
     what = "pool_paged_decode_attention"
     b, h, d = _check_decode_q(what, q)
     _require(k_pool.shape == v_pool.shape and k_pool.dim() == 4, what,
@@ -780,17 +793,17 @@ def pool_paged_decode_attention(
     out = torch.empty((b, 1, h, d), dtype=q.dtype, device=q.device)
     lib = cuda_build.library("decode_attention")
     max_pages = page_table.shape[1]
-    part = torch.empty(lib.zk_pool_paged_decode_attention_workspace(b, max_pages, ps, h, d),
-                       dtype=torch.float32, device=q.device)
+    stream = _stream(device)
+    part, tickets = _split_workspace(lib, device, stream, (b, max_pages, ps, h, d))
     cuda_build.check(
         lib.zk_pool_paged_decode_attention(
             q.data_ptr(), q.stride(0), q.stride(2), k_pool.data_ptr(),
             v_pool.data_ptr(), k_scale.data_ptr() if scales else None,
             v_scale.data_ptr() if scales else None, page_table.data_ptr(),
             lengths.data_ptr(), out.data_ptr(), part.data_ptr(),
-            _decode_tickets(device, b * h).data_ptr(), _DTYPE_CODES[q.dtype],
+            tickets.data_ptr(), _DTYPE_CODES[q.dtype],
             _DTYPE_CODES[k_pool.dtype], b, max_pages, num_pages, ps,
-            h, d, float(scale), device, _stream(device),
+            h, d, float(scale), device, stream,
         ),
         what,
     )

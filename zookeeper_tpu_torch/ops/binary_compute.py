@@ -14,8 +14,7 @@ PyTorch version beside it:
 
 - K1 :func:`pack_rows` — sign+pack of float rows into words;
 - K3 :func:`conv_gemm_popcount` — popcount conv with the scale epilogue,
-  an implicit GEMM on the int8 tensor cores past 2^18 word products
-  (:func:`conv_gemm_popcount_variant`);
+  an implicit GEMM on the int8 tensor cores;
 - K4 :func:`packed_weight_matmul` — int8 activations times packed
   weights, on the int8 tensor cores (:func:`packed_weight_matmul_variant`
   names the design a shape takes);
@@ -66,8 +65,6 @@ LAUNCHES = {
 #: their kernel a dense one, since the last :func:`reset_launches`.
 COPIES = {"pack_resid": 0, "mask_mul_resid": 0}
 
-#: Dynamic shared memory one block may use on a Hopper card.
-_MAX_SMEM_BYTES = 232448
 
 def reset_launches() -> None:
     for counts in (LAUNCHES, COPIES):
@@ -322,10 +319,6 @@ def conv_gemm_popcount(
              "operands must be contiguous")
     lib = cuda_build.library("conv_gemm_popcount")
     ho, wo = _conv_out_size(xq, packed, (sh, sw))
-    smem = lib.zk_conv_gemm_popcount_smem(b * ho * wo, co, wp, ciw, kh, kw)
-    _require(smem <= _MAX_SMEM_BYTES, what,
-             f"needs {smem} B of shared memory per block (> "
-             f"{_MAX_SMEM_BYTES}); row too wide for this kernel")
     koff = _conv_k_offsets_on(device, kh, kw, wp, ciw)
     out = torch.empty((b, ho, wo, co), dtype=torch.float32, device=xq.device)
     cuda_build.check(
@@ -398,14 +391,6 @@ PACKED_WEIGHT_VARIANTS = {0: "mma", 1: "small_m"}
 XNOR_VARIANTS = {0: "mma", 1: "popc"}
 
 
-#: The K3 kernels by the code ``zk_conv_gemm_popcount_variant`` returns:
-#: ``"mma"`` (M*N*Kw > 2^18 word products, M = B*Ho*Wo, N = co, Kw =
-#: kh*kw*ciw: the implicit GEMM on the int8 tensor cores, the taps
-#: gathered in its copies) or ``"popc"`` (up to 2^18: XOR and popcount on
-#: the CUDA cores).
-CONV_GEMM_VARIANTS = {0: "mma", 1: "popc"}
-
-
 def _gemm_variant(library: str, what: str, names: dict, m: int, n: int, kw: int) -> str:
     code = getattr(cuda_build.library(library), f"zk_{what}_variant")(int(m), int(n), int(kw))
     if code not in names:
@@ -419,15 +404,6 @@ def packed_weight_matmul_variant(m: int, n: int, kw: int) -> str:
     :data:`PACKED_WEIGHT_VARIANTS`). Builds the library at first use."""
     return _gemm_variant("packed_weight_matmul", "packed_weight_matmul",
                          PACKED_WEIGHT_VARIANTS, m, n, kw)
-
-
-def conv_gemm_popcount_variant(m: int, n: int, kw_total: int) -> str:
-    """Which K3 kernel a call on the card launches for ``m = B*Ho*Wo``
-    output pixels, ``n = co`` and ``kw_total = kh*kw*ciw`` K words, as the
-    library's dispatch decides (see :data:`CONV_GEMM_VARIANTS`). Builds
-    the library at first use."""
-    return _gemm_variant("conv_gemm_popcount", "conv_gemm_popcount",
-                         CONV_GEMM_VARIANTS, m, n, kw_total)
 
 
 # -- batch-packed 1-bit residuals (K6, K7, K8) -------------------------------

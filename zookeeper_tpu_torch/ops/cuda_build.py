@@ -46,8 +46,6 @@ SIGNATURES = {
         "zk_conv_gemm_popcount": (
             _I, [_P] * 5 + [_I] * 13 + [_P],
         ),
-        "zk_conv_gemm_popcount_smem": (_LL, [_LL, _I, _I, _I, _I, _I]),
-        "zk_conv_gemm_popcount_variant": (_I, [_LL, _I, _I]),
     },
     "packed_weight_matmul": {
         "zk_packed_weight_matmul": (_I, [_P, _P, _P, _I, _I, _I, _I, _P]),

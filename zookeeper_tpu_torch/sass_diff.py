@@ -1,6 +1,6 @@
 """Compare the SASS of two versions of one CUDA source, kernel by kernel.
 
-    python -m zookeeper_tpu_torch.sass_diff OLD.cu NEW.cu
+    python -m zookeeper_tpu_torch.sass_diff OLD.cu NEW.cu [--rename PATTERN=REPLACEMENT]
 
 Builds each source with the port's ``nvcc`` flags into a shared library
 in a temporary directory, disassembles both with ``cuobjdump -sass`` and
@@ -8,7 +8,9 @@ compares every kernel's instructions. The anonymous-namespace tag that
 ``nvcc`` derives from the file, and the column padding that ``cuobjdump``
 fits to the file's longest instruction, are normalised away, so a kernel
 whose code did not change compares equal however the rest of the file
-changed.
+changed. ``--rename`` (repeatable) rewrites the old source's kernel names
+with a regular expression before they are paired, so a kernel whose
+template lost a parameter is compared with its new name.
 Prints one line per kernel (``same``, ``differs`` with the count of
 differing instructions, ``only in old`` or ``only in new``) and, last, a
 JSON summary. Exits 1 if a kernel present in both differs. Needs the
@@ -61,13 +63,24 @@ def parse_sass(text: str) -> Dict[str, List[str]]:
     return out
 
 
+def rename(kernels: Dict[str, List[str]], rules: List[str]) -> Dict[str, List[str]]:
+    """``kernels`` with every name rewritten by each ``PATTERN=REPLACEMENT``
+    rule in turn (``re.sub``)."""
+    for rule in rules:
+        pattern, _, replacement = rule.partition("=")
+        kernels = {re.sub(pattern, replacement, name): code for name, code in kernels.items()}
+    return kernels
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("old")
     parser.add_argument("new")
+    parser.add_argument("--rename", action="append", default=[], metavar="PATTERN=REPLACEMENT",
+                        help="regular expression rewriting the old kernels' names")
     args = parser.parse_args(argv)
     with tempfile.TemporaryDirectory() as a, tempfile.TemporaryDirectory() as b:
-        old, new = kernels_sass(args.old, a), kernels_sass(args.new, b)
+        old, new = rename(kernels_sass(args.old, a), args.rename), kernels_sass(args.new, b)
     names = sorted(set(old) | set(new))
     summary = {"same": 0, "differs": 0, "only_in_old": 0, "only_in_new": 0}
     for name in names:
