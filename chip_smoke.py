@@ -22,7 +22,13 @@ CUDA card and ``nvcc``. In order:
    to 144), each row giving the same bits on a second call; K4 also at slice D's dense
    shapes (M 8 and 1, K 9216 and 4096, N 4096) and at rows across its
    variant threshold and tile edges (M 8 and 9, M not a multiple of
-   the tile, N 33 and 130, Kw 1, K not a multiple of 32): each must
+   the tile, N 33 and 130, Kw 1, K not a multiple of 32); K1 also at
+   its wire-format edges (+-0, +-inf, NaN, +-subnormals), at bases
+   that are not 16-byte aligned (a view with a storage offset: its
+   scalar-load path) and at the rows slice C (bf16) and E_AUTO (fp32)
+   pack (``ablate.K1_SHAPES``, with their sums per forward), beside the
+   floor of back-to-back launches (an empty ``torch.cuda._sleep(0)``
+   timed as K1 is): each must
    EQUAL its plain PyTorch version on the card (exact integers, or one
    fp32 multiply of one), and each is timed beside its plain version
    and, where one PyTorch call computes the same function, that call
@@ -52,7 +58,7 @@ CUDA card and ``nvcc``. In order:
    tensor cores) for slice E's conv GEMMs and every M > 64, "popc" for
    M <= 64, K2's shapes included (K2 runs "popc" at every M). The
    ptxas report (registers, spills) of the K4 and K5 kernels is printed
-   after the build, and so is that of K3's kernels and K13's row split.
+   after the build, and so is that of K3's kernels and the K12/K13 row split.
 6. The int8 conv's forward at the four section shapes must give the
    exact integer sums (against a float64 conv, exact for these sums).
 7. Serving slices (``SLICES``), each ``ServingConfig.run()`` over 16
@@ -86,10 +92,11 @@ CUDA card and ``nvcc``. In order:
    K12 ``paged_decode_attention`` ([8, 8192, 8, 64] slot caches, lengths
    mixing 0, 1, 15, 16, 2047, 8191 and 9000, bf16 and fp32) and K13
    ``pool_paged_decode_attention`` (a pool of 4096 pages of 16, shuffled
-   tables with -1 entries, bf16, fp32 and int8 rows, at those lengths and
-   at the edges of its row split's 256-row chunks, each call giving the
-   same bits twice and taking the "split" design ``decode_variant``
-   names, "wide" past head_dim 256), and K12/K13 again
+   tables with -1 entries, bf16, fp32 and int8 rows), both at those
+   lengths and at the edges of their row split's 256-row chunks, each
+   call giving the same bits twice, on two streams at once the bits of
+   one call, and taking the "split" design ``decode_variant`` names
+   ("wide" past head_dim 256), and K12/K13 again
    at head_dims 20 and 100 (not multiples of 8) and 264 and 384 (past
    256, in chunks), each against its plain
    version (K9 in bf16 within 2^-6 of each output value plus 2e-3, and
@@ -378,6 +385,7 @@ def kernel_phase(torch, bc):
             t["ops"] += count * ops
             if library is not None and t["library_ms"] is not None:
                 t["library_ms"] += count * l_ms
+        return k_ms
 
     # (launches per forward, batch, height, width, channels in, co,
     # kernel size, stride): slice A's four sections, then K3_EXTRA_CASES.
@@ -408,20 +416,58 @@ def kernel_phase(torch, bc):
                2 * b * ho * wo * co * k_true,
                (*xq.shape, f"{k}x{k}/{s}", co, f"M={b * ho * wo}"))
 
+    # The per-launch floor of back-to-back launches: an empty kernel
+    # (``torch.cuda._sleep(0)``) timed as K1 is. K1's 32 launches a
+    # forward cannot take less than 32 of these, whatever the design.
+    floor = time_ms(torch, lambda: torch.cuda._sleep(0))
+    launches_a = sum(n for n, _, _ in SECTIONS)
+    totals["pack_rows"]["launch_floor_ms"] = launches_a * floor
+    print(f"kernel pack_rows: launch floor (torch.cuda._sleep(0) back to back) {floor:.6f} ms "
+          f"a launch, {launches_a * floor:.6f} ms for the {launches_a} launches of a forward "
+          f"(K1 {totals['pack_rows']['ms']:.6f} ms)", flush=True)
+
+    # K1 on the other serving paths (launches 0 here: they are counted
+    # per slice-A forward), at the rows their batch-8 forwards pack
+    # (``ablate.K1_SHAPES``): slice C in bf16, E_AUTO in fp32. Their
+    # sums per forward are printed.
+    from zookeeper_tpu_torch.ablate import K1_BATCH, K1_SHAPES
+
+    for path in ("C", "E_AUTO"):
+        dtype, shapes = K1_SHAPES[path]
+        per_forward, launches = 0.0, 0
+        for m, k, n in shapes:
+            rows = torch.randn(K1_BATCH * m, k, generator=g).to(getattr(torch, dtype)).to(dev)
+            per_forward += n * record(
+                "pack_rows", 0, lambda: bc.pack_rows(rows), lambda: bc.pack_rows_plain(rows),
+                None, rows.numel() * rows.element_size() + rows.numel() // 8, rows.numel(),
+                (*rows.shape, dtype, path))
+            launches += n
+        print(f"kernel pack_rows: {per_forward:.6f} ms per batch-{K1_BATCH} {path} forward "
+              f"({launches} launches; the floor {launches * floor:.6f} ms)", flush=True)
+
     # K1's wire-format edges, off the main path, in both dtypes it takes
     # and at ragged word counts: normal values mixed with +-0, +-inf, NaN
     # and +-subnormals (bit 1 for +-0, bit 0 for NaN and every negative).
+    # Then bases that are not 16-byte aligned (contiguous views with a
+    # storage offset of one value), which take the scalar-load path of
+    # the same launch function: the edge rows, and slice A's first
+    # section shape.
     edges = torch.tensor([0.0, -0.0, float("inf"), float("-inf"), float("nan"),
                           1e-40, -1e-40])
-    for dtype, (m, k) in ((torch.float32, (37, 96)), (torch.bfloat16, (53, 64))):
-        v = torch.randn(m, k, generator=g)
-        pick = torch.rand(m, k, generator=g) < 0.3
+    for dtype, (m, k), offset in ((torch.float32, (37, 96), 0), (torch.bfloat16, (53, 64), 0),
+                                  (torch.float32, (37, 96), 1), (torch.bfloat16, (53, 64), 1),
+                                  (torch.float32, (BATCH * 58 * 58, 64), 1),
+                                  (torch.bfloat16, (BATCH * 58 * 58, 64), 1)):
+        v = torch.randn(m * k + offset, generator=g)
+        pick = torch.rand(m * k + offset, generator=g) < 0.3
         v[pick] = edges[torch.randint(len(edges), (int(pick.sum()),), generator=g)]
-        rows = v.to(dtype).to(dev)
+        rows = v.to(dtype).to(dev)[offset:].view(m, k)
+        check(rows.is_contiguous() and (rows.data_ptr() % 16 != 0) == (offset != 0),
+              f"pack_rows row {(m, k, str(dtype))}: base {rows.data_ptr()} offset {offset}")
         record("pack_rows", 0, lambda: bc.pack_rows(rows),
                lambda: bc.pack_rows_plain(rows), None,
                rows.numel() * rows.element_size() + m * k // 8, m * k,
-               (m, k, str(dtype)))
+               (m, k, str(dtype), f"base +{offset * rows.element_size()} B" if offset else "aligned"))
 
     gemm_cases = [(n, BATCH * h * h, 9 * c, c) for n, h, c in SECTIONS] + list(K4_EXTRA_CASES)
     for count, m, k, n in gemm_cases:
@@ -1117,14 +1163,14 @@ LM_RUNS = (("slots", {}), ("paged", PAGED), ("paged-int8", {**PAGED, "engine.kv_
 #: Lengths of the K12/K13 checks: row-0-only, page edges, the capacity
 #: edge, and one past capacity (clamped).
 LM_CHECK_LENGTHS = (0, 1, 15, 16, 2047, 8191, 9000, 4000)
-#: K13's row split takes chunks of this many rows (``SPLIT_ROWS`` in
-#: ``csrc/decode_attention.cu``); its extra check lengths sit at the
-#: chunk edges (chunk - 1, chunk, chunk + 1, two chunks - 1 and two
-#: chunks), with slots whose rows end in the first chunk (1, 0) beside
-#: one whose rows fill every chunk (8191).
-K13_SPLIT_ROWS = 256
-LM_SPLIT_LENGTHS = (K13_SPLIT_ROWS - 1, K13_SPLIT_ROWS, K13_SPLIT_ROWS + 1,
-                    2 * K13_SPLIT_ROWS - 1, 2 * K13_SPLIT_ROWS, 1, 8191, 0)
+#: K12's and K13's row split takes chunks of this many rows
+#: (``SPLIT_ROWS`` in ``csrc/decode_attention.cu``); their extra check
+#: lengths sit at the chunk edges (chunk - 1, chunk, chunk + 1, two
+#: chunks - 1 and two chunks), with slots whose rows end in the first
+#: chunk (1, 0) beside one whose rows fill every chunk (8191).
+SPLIT_ROWS = 256
+LM_SPLIT_LENGTHS = (SPLIT_ROWS - 1, SPLIT_ROWS, SPLIT_ROWS + 1,
+                    2 * SPLIT_ROWS - 1, 2 * SPLIT_ROWS, 1, 8191, 0)
 
 
 def _bf16_step_ok(torch, got, want) -> bool:
@@ -1209,19 +1255,29 @@ def lm_kernel_phase(torch, A):
                BF16_OPS_PER_S if dtype == torch.bfloat16 else FP32_OPS_PER_S, dtype,
                heavy=s >= 8192)
 
-    # K12: slot caches [8, 8192, 8, 64], lengths at the edges.
+    # K12: slot caches [8, 8192, 8, 64], lengths at the edges, then at
+    # the row split's chunk edges.
     lengths = torch.tensor(LM_CHECK_LENGTHS, dtype=torch.int32, device=dev)
-    live = int((lengths.clamp(0, LM_CAP - 1) + 1).sum())
+    split_lengths = torch.tensor(LM_SPLIT_LENGTHS, dtype=torch.int32, device=dev)
     for dtype in (torch.bfloat16, torch.float32):
+        variant = A.decode_variant(dtype, LM_HEAD_DIM)
+        check(variant == "split", f"paged_decode_attention {dtype}: variant {variant}, "
+                                  f"want split")
         shape = (LM_SLOTS, LM_CAP, LM_HEADS, LM_HEAD_DIM)
         q = torch.randn(LM_SLOTS, 1, LM_HEADS, LM_HEAD_DIM, generator=g, device=dev).to(dtype)
         kc = torch.randn(*shape, generator=g, device=dev).to(dtype)
         vc = torch.randn(*shape, generator=g, device=dev).to(dtype)
-        record("paged_decode_attention", f"{list(shape)} {str(dtype)[6:]}",
-               lambda: A.paged_decode_attention(q, kc, vc, lengths),
-               lambda: A.cached_attention(q, kc, vc, lengths),
-               _sdpa_decode(torch, q, kc, vc, lengths),
-               *_decode_work(q, live, kc.element_size()), FP32_OPS_PER_S, dtype)
+        for lens, lens_label in ((lengths, ""), (split_lengths, ", chunk-edge lengths")):
+            live = int((lens.clamp(0, LM_CAP - 1) + 1).sum())
+            record("paged_decode_attention",
+                   f"{list(shape)} {str(dtype)[6:]}{lens_label} ({variant})",
+                   lambda: A.paged_decode_attention(q, kc, vc, lens),
+                   lambda: A.cached_attention(q, kc, vc, lens),
+                   _sdpa_decode(torch, q, kc, vc, lens),
+                   *_decode_work(q, live, kc.element_size()), FP32_OPS_PER_S, dtype)
+        _two_streams_check(
+            torch, lambda: A.paged_decode_attention(q, kc, vc, split_lengths),
+            f"paged_decode_attention at {list(shape)} {str(dtype)[6:]}")
         del kc, vc
 
     # K13: a pool of 4096 pages of 16, shuffled tables with -1 entries;
@@ -1231,7 +1287,6 @@ def lm_kernel_phase(torch, A):
     table = torch.randperm(pages, generator=cpu_g)[: LM_SLOTS * max_pages].reshape(LM_SLOTS, max_pages)
     table[torch.rand(LM_SLOTS, max_pages, generator=cpu_g) < 0.1] = -1
     table = table.to(torch.int32).to(dev)
-    split_lengths = torch.tensor(LM_SPLIT_LENGTHS, dtype=torch.int32, device=dev)
     for dtype, quant in ((torch.bfloat16, False), (torch.float32, False),
                          (torch.bfloat16, True), (torch.float32, True)):
         variant = A.decode_variant(dtype, LM_HEAD_DIM)
@@ -1275,17 +1330,20 @@ def lm_kernel_phase(torch, A):
     table = table.to(torch.int32).to(dev)
     for d in (20, 100, 264, 384):
         for dtype in (torch.bfloat16, torch.float32):
+            # One dispatch rule for K12 and K13.
+            variant = A.decode_variant(dtype, d)
+            check(variant == ("split" if d <= 256 else "wide"),
+                  f"paged_decode_attention / pool_paged_decode_attention at head_dim {d}: "
+                  f"variant {variant}")
             q = torch.randn(LM_SLOTS, 1, heads, d, generator=g, device=dev).to(dtype)
             kc, vc = (torch.randn(LM_SLOTS, cap, heads, d, generator=g, device=dev).to(dtype)
                       for _ in range(2))
-            record("paged_decode_attention", f"[{LM_SLOTS}, {cap}, {heads}, {d}] {str(dtype)[6:]}",
+            record("paged_decode_attention",
+                   f"[{LM_SLOTS}, {cap}, {heads}, {d}] {str(dtype)[6:]} ({variant})",
                    lambda: A.paged_decode_attention(q, kc, vc, odd_lengths),
                    lambda: A.cached_attention(q, kc, vc, odd_lengths),
                    _sdpa_decode(torch, q, kc, vc, odd_lengths),
                    *_decode_work(q, odd_live, kc.element_size()), FP32_OPS_PER_S, dtype)
-            variant = A.decode_variant(dtype, d)
-            check(variant == ("split" if d <= 256 else "wide"),
-                  f"pool_paged_decode_attention at head_dim {d}: variant {variant}")
             for quant in (False, True):
                 kp, vp = (torch.randn(pages, LM_PAGE, heads, d, generator=g, device=dev).to(dtype)
                           for _ in range(2))
@@ -1306,8 +1364,9 @@ def lm_kernel_phase(torch, A):
 
 def _two_streams_check(torch, fn, label: str, rounds: int = 20) -> None:
     """``fn`` launched on two streams at once, ``rounds`` times each, must
-    give the bits of one call on the current stream: K13's row split keeps
-    its workspace per stream, so concurrent launches share no ticket."""
+    give the bits of one call on the current stream: K12's and K13's row
+    split keeps its workspace per stream, so concurrent launches share no
+    ticket."""
     want = fn()
     streams = [torch.cuda.Stream() for _ in range(2)]
     for st in streams:
@@ -1444,9 +1503,8 @@ def lm_serving_phase(torch, A, smi):
             "step_busy_ms": busy_ms, "step_busy_share": busy_ms / wall_ms,
             "step_device_activities": acts,
         }
-        if label != "slots":
-            variant = A.decode_variant(torch.bfloat16, LM_HEAD_DIM)
-            check(variant == "split", f"lm {label}: K13 variant {variant}, want split")
+        variant = A.decode_variant(torch.bfloat16, LM_HEAD_DIM)
+        check(variant == "split", f"lm {label}: {kernel} variant {variant}, want split")
         key = kernel if label != "paged-int8" else f"{kernel} int8"
         main[key] = _time_main_step(torch, A, engine, kernel, lengths, table)
         if label == "slots":
@@ -2282,6 +2340,9 @@ def main() -> None:
             "bound_by": bound_by,
             "library_ms": t["library_ms"],
         })
+        if name == "pack_rows":
+            # Per forward: its 32 launches at the empty-kernel floor.
+            rows[-1]["launch_floor_ms"] = t["launch_floor_ms"]
     # LM kernels, per main-path unit: K9 per prefill dispatch (4 layers)
     # over the slots run's bucket mix; K12 and K13 per decode step (4
     # layers) at a mid-run step of the slots / paged run.
@@ -2316,9 +2377,10 @@ def main() -> None:
             rows[-1]["host_us"] = t["host_us"]
         if name == "flash_forward":
             rows[-1]["variant"] = A.flash_forward_variant(torch.bfloat16, LM_HEAD_DIM)
+        if name != "flash_forward":
+            rows[-1]["variant"] = A.decode_variant(torch.bfloat16, LM_HEAD_DIM)
         if name == "pool_paged_decode_attention":
             # The paged-int8 run's mid-run step, per decode step.
-            rows[-1]["variant"] = A.decode_variant(torch.bfloat16, LM_HEAD_DIM)
             rows[-1]["int8_ms"] = LM_LAYERS * int8["ms"]
             rows[-1]["int8_bound_ms"] = LM_LAYERS * int8["bound_ms"]
     # LM training kernels, per training step: 4 launches each (one per

@@ -11,8 +11,9 @@ tests run them on the CPU. Tolerances:
 - the plain flash against ``flash_attention``: 2e-5 in fp32 and 3e-2 in
   bf16, the JAX package's own (``tests/ops/test_ring_attention.py``);
 - the plain K12/K13 against ``paged_decode_attention`` and
-  ``pool_paged_decode_attention``: 2e-6 in fp32, the JAX package's
-  kernel-versus-reference bound;
+  ``pool_paged_decode_attention``, and a PyTorch model of the row split
+  the K12/K13 kernels share against ``paged_decode_attention``: 2e-6 in
+  fp32, the JAX package's kernel-versus-reference bound;
 - ``quantize_kv_rows``: bit for bit.
 """
 
@@ -185,6 +186,56 @@ def test_plain_k12_matches_jax_kernel(head_dim):
     got = A.paged_decode_attention(_t(q), _t(k), _t(v), _t(lengths))
     _close(got, want, F32_DECODE)
     assert A.LAUNCHES["paged_decode_attention"] == 0  # CPU tensors launch nothing
+
+
+#: Rows a chunk of the K12/K13 row split (``SPLIT_ROWS`` in
+#: ``csrc/decode_attention.cu``).
+SPLIT_ROWS = 256
+MASK_VALUE = -0.5 * float(np.finfo(np.float32).max)
+
+
+def _row_split_model(q, k, v, lengths, scale):
+    """The arithmetic of the decode kernels' row split in fp32: each
+    (slot, head)'s live rows in chunks of SPLIT_ROWS, each chunk an
+    unnormalised state (m from the finite mask value, l, o), the states
+    merged in chunk order, chunk 0 first, and o / l once at the end."""
+    b, cap, h, d = k.shape
+    out = torch.empty(b, 1, h, d)
+    for s in range(b):
+        live = min(max(int(lengths[s]), 0), cap - 1) + 1
+        states = []
+        for r0 in range(0, live, SPLIT_ROWS):
+            kc, vc = k[s, r0:min(r0 + SPLIT_ROWS, live)], v[s, r0:min(r0 + SPLIT_ROWS, live)]
+            sc = torch.einsum("hd,rhd->hr", q[s, 0], kc) * scale
+            m = torch.clamp(sc.amax(-1), min=MASK_VALUE)
+            p = torch.exp(sc - m[:, None])
+            states.append((m, p.sum(-1), torch.einsum("hr,rhd->hd", p, vc)))
+        m_all = torch.full((h,), MASK_VALUE)
+        for m, _, _ in states:
+            m_all = torch.maximum(m_all, m)
+        l_all, o_all = torch.zeros(h), torch.zeros(h, d)
+        for m, l, o in states:
+            w = torch.exp(m - m_all)
+            l_all, o_all = l_all + l * w, o_all + o * w[:, None]
+        out[s, 0] = o_all / l_all[:, None]
+    return out
+
+
+@pytest.mark.parametrize("length", [0, 1, 255, 256, 257, 511, 512, 1023])
+@pytest.mark.parametrize("head_dim", [64, 100])
+def test_row_split_model_matches_jax_kernel(head_dim, length):
+    """The row split K12 and K13 share (256-row chunks, ordered merge),
+    modelled in PyTorch, against the JAX K12 kernel at lengths on both
+    sides of the chunk edges of a 1024-row slot cache; the second slot
+    fills the cache."""
+    rng = np.random.default_rng(head_dim * 10000 + length)
+    b, cap, h = 2, 1024, 2
+    q = _normal(rng, b, 1, h, head_dim)
+    k, v = _normal(rng, b, cap, h, head_dim), _normal(rng, b, cap, h, head_dim)
+    lengths = np.array([length, cap - 1], np.int32)
+    want = jops.paged_decode_attention(_j(q), _j(k), _j(v), _j(lengths), page_size=4)
+    got = _row_split_model(_t(q), _t(k), _t(v), lengths, head_dim ** -0.5)
+    _close(got, want, F32_DECODE)
 
 
 @pytest.mark.parametrize("quant", [False, True])

@@ -93,6 +93,77 @@ def test_pack_rows_rejects_unaligned_k():
         tbc.pack_rows(torch.ones(4, 33))
 
 
+#: K1's wire-format edges, as chip_smoke mixes them into its K1 rows.
+K1_EDGES = np.array([0.0, -0.0, np.inf, -np.inf, np.nan, 1e-40, -1e-40], np.float32)
+
+
+def _k1_word_model(bits: np.ndarray, itemsize: int) -> np.ndarray:
+    """The word assembly of ``pack_rows_vec_kernel``: ``bits`` are the
+    raw fp32 (uint32) or bf16 (uint16) values of the flattened source.
+    Thread t reads word t as LPW 16-byte loads ``x + t * LPW + j``, sets
+    bit i of load j's part for its value i >= 0 (bf16 widened to fp32 by
+    a 16-bit shift) and ORs the part in at bit VPL * j. Returns the
+    words as uint32."""
+    vpl = 16 // itemsize
+    lpw = 32 // vpl
+    wide = bits.astype(np.uint32) << np.uint32(16) if itemsize == 2 else bits.astype(np.uint32)
+    ge0 = (wide.view(np.float32) >= 0).astype(np.uint32)  # no flush to zero
+    # [word t, load j, value i]: load j of word t is 16 bytes at t * LPW + j.
+    ge0 = ge0.reshape(-1, lpw, vpl)
+    part = (ge0 << np.arange(vpl, dtype=np.uint32)).sum(-1, dtype=np.uint32)
+    word = np.zeros(part.shape[0], np.uint32)
+    for j in range(lpw):
+        word |= part[:, j] << np.uint32(vpl * j)
+    return word
+
+
+def _bits(words: np.ndarray) -> np.ndarray:
+    """[n] uint32 words -> [n, 32] bits, bit b of word t at [t, b]."""
+    return (words[:, None] >> np.arange(32, dtype=np.uint32)) & 1
+
+
+@pytest.mark.parametrize("m,k,dtype", [(37, 96, "float32"), (53, 64, "bfloat16"),
+                                       (2, 4096, "float32"), (3, 2048, "bfloat16"),
+                                       (648, 512, "bfloat16"), (1, 32, "bfloat16")])
+def test_k1_word_assembly_matches_pallas(m, k, dtype):
+    """The vector kernel's bit assembly, modelled in numpy on a value mix
+    with the edges of ``K1_EDGES`` (ragged word counts, bf16's 4 loads to
+    a word and fp32's 8), equals the JAX Pallas kernel bit for bit, and
+    the port's plain version word for word. XLA's CPU backend flushes
+    subnormals to zero and reads -1e-40 as -0 (bit 1), where the kernel
+    compares in IEEE fp32 (bit 0): JAX is held to every other value, the
+    plain version to all of them."""
+    src = (CSRC / "pack_rows.cu").read_text()
+    assert "x + t * LPW + j" in src and "<< (VPL * j)" in src
+    rng = np.random.default_rng(m * 7 + k)
+    x = rng.normal(size=(m, k)).astype(np.float32)
+    pick = rng.random((m, k)) < 0.3
+    x[pick] = K1_EDGES[rng.integers(len(K1_EDGES), size=int(pick.sum()))]
+    xt = torch.from_numpy(x).to(getattr(torch, dtype))
+    raw = xt.view(torch.int16 if dtype == "bfloat16" else torch.int32).numpy()
+    raw = raw.view(np.uint16 if dtype == "bfloat16" else np.uint32).reshape(-1)
+    got = _k1_word_model(raw, xt.element_size())
+    plain = _np(tbc.pack_rows_plain(xt)).reshape(-1).view(np.uint32)
+    np.testing.assert_array_equal(got, plain)
+    want = np.asarray(jbc.pack_rows_packed(jnp.asarray(xt.float().numpy(), dtype),
+                                           interpret=True)).reshape(-1).view(np.uint32)
+    ieee = ~((xt.float().numpy() < 0) & (xt.float().numpy() > -1.2e-38)).reshape(-1, 32)
+    np.testing.assert_array_equal(_bits(got)[ieee], _bits(want)[ieee])
+    assert bool((_bits(got)[~ieee] == 0).all())  # negative subnormals pack as 0
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_pack_rows_of_an_offset_view_matches_pallas(dtype):
+    """A contiguous view with a storage offset (on the card a base that is
+    not 16-byte aligned, K1's scalar path) packs as the JAX kernel."""
+    rng = np.random.default_rng(3)
+    flat = torch.from_numpy(rng.normal(size=9 * 64 + 3).astype(np.float32)).to(getattr(torch, dtype))
+    xt = flat[3:].view(9, 64)
+    assert xt.is_contiguous() and xt.storage_offset() == 3
+    want = jbc.pack_rows_packed(jnp.asarray(xt.float().numpy(), dtype), interpret=True)
+    np.testing.assert_array_equal(_np(tbc.pack_rows(xt)), np.asarray(want))
+
+
 # -- K3: popcount conv -------------------------------------------------------
 
 

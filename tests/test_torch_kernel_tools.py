@@ -1,10 +1,12 @@
 """The port's kernel tools on the CPU: the ablated copies of the flash
 sources that ``zookeeper_tpu_torch.ablate`` times, the SASS parsing of
-``zookeeper_tpu_torch.sass_diff``, the library hash of ``cuda_build``
-and the variant names of the flash kernels, K13 and the int8
-tensor-core kernels (K4, K5, K3). Building and running them needs
+``zookeeper_tpu_torch.sass_diff`` and its named rename rule, the
+library hash of ``cuda_build``, K1's row shapes and the variant names
+of the flash kernels, K12/K13 and the int8 tensor-core kernels (K4,
+K5). Building and running them needs
 ``nvcc`` and the card; these tests hold the parts that do not."""
 
+import importlib.util
 import pathlib
 import types
 
@@ -14,7 +16,8 @@ import torch
 from zookeeper_tpu_torch import ablate, sass_diff
 from zookeeper_tpu_torch.ops import attention, binary_compute, cuda_build
 
-CSRC = pathlib.Path(__file__).resolve().parents[1] / "zookeeper_tpu_torch" / "csrc"
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+CSRC = ROOT / "zookeeper_tpu_torch" / "csrc"
 #: The tensor-core kernels each ablated source holds; every edit of an
 #: ablation touches each of them once.
 TENSOR_CORE_KERNELS = {"flash_backward": 2, "flash_forward": 1}
@@ -41,8 +44,44 @@ def test_each_ablation_edits_both_tensor_core_kernels_once(source, name):
 
 
 def test_every_ablated_source_has_the_reference_build():
-    assert set(ablate.ABLATIONS) == set(TENSOR_CORE_KERNELS)
+    assert set(ablate.ABLATIONS) == set(TENSOR_CORE_KERNELS) | {"pack_rows"}
     assert all(ablations["as built"] == [] for ablations in ablate.ABLATIONS.values())
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.parametrize("path", sorted(ablate.K1_SHAPES))
+def test_k1_shapes_are_the_rows_the_serving_paths_pack(path, monkeypatch):
+    """``ablate.K1_SHAPES`` (which ``ablate --source pack_rows`` and
+    chip_smoke time K1 at) is what K1 is given, in order, by a batch-1
+    forward of the slice chip_smoke serves (E_AUTO: slice E's model on
+    the fused flavor), on the CPU."""
+    from zookeeper_tpu_torch.core import configure
+    from zookeeper_tpu_torch.serving import ServingConfig
+
+    smoke = _chip_smoke()
+    settings = dict(smoke.SLICES[path.split("_")[0]][0])
+    if path == "E_AUTO":
+        settings["model.binary_flavor"] = "auto"
+    seen, real = [], binary_compute.pack_rows
+
+    def spy(x):
+        seen.append((str(x.dtype).removeprefix("torch."), *x.shape))
+        return real(x)
+
+    monkeypatch.setattr(binary_compute, "pack_rows", spy)
+    cfg = ServingConfig()
+    configure(cfg, {**settings, "engine.batch_buckets": (1,), "requests": 1, "max_request": 1,
+                    "seed": 0, "device": "cpu", "verbose": False})
+    cfg.run()  # warms the bucket, then serves the one request: two forwards
+    dtype, shapes = ablate.K1_SHAPES[path]
+    forward = [(dtype, m, k) for m, k, n in shapes for _ in range(n)]
+    assert seen == 2 * forward
 
 
 def test_library_path_follows_the_included_headers(tmp_path, monkeypatch):
@@ -129,6 +168,28 @@ def test_rename_pairs_a_kernel_whose_template_lost_a_parameter():
     assert sass_diff.rename(old, []) == old
 
 
+SPLIT = "_ZN12_GLOBAL__N_129decode_attention_split_kernel"
+
+
+@pytest.mark.parametrize("old_args,new_args", [
+    ("IffLi8ELi4EEEvPKT_", "IffLb1ELi8ELi4EEEvPKT_"),
+    ("I13__nv_bfloat16S1_Li16ELi2EEEvPKT_", "I13__nv_bfloat16S1_Lb1ELi16ELi2EEEvPKT_"),
+    ("I13__nv_bfloat16aLi32ELi1EEEvPKT_", "I13__nv_bfloat16aLb1ELi32ELi1EEEvPKT_"),
+    ("IfaLi4ELi4EEEvPKT_", "IfaLb1ELi4ELi4EEEvPKT_"),
+])
+def test_split_paged_rule_pairs_the_split_kernels_with_their_paged_instantiations(
+        old_args, new_args):
+    """The named rule ``split-paged`` gives a K13-only split kernel (no
+    ``bool``) the ``PAGED=true`` argument of the template K12 and K13
+    share, before its first ``int``; names that have a ``bool`` (K12's
+    ``Lb0E`` instantiations, the wide kernel) are left alone."""
+    keep = {f"{SPLIT}IffLb0ELi8ELi4EEEvPKT_": ["k12"],
+            "_ZN12_GLOBAL__N_128decode_attention_wide_kernelIffLb1EEEvPKT_": ["wide"]}
+    got = sass_diff.rename({f"{SPLIT}{old_args}": ["k13"], **keep}, ["split-paged"])
+    assert got == {f"{SPLIT}{new_args}": ["k13"], **keep}
+    assert sass_diff.rename(got, ["split-paged"]) == got
+
+
 def test_parse_sass_ignores_the_column_padding():
     """cuobjdump pads each line to the longest instruction of the file, so
     a source that gains a longer instruction elsewhere re-pads every
@@ -145,12 +206,13 @@ DECODE_CODES = {(1, 64): 0, (0, 64): 0, (1, 256): 0, (0, 320): 1}
 
 @pytest.mark.parametrize("which", ["forward", "backward", "decode"])
 def test_flash_variant_names_the_library_code(which, monkeypatch):
-    """``flash_forward_variant``, ``flash_backward_variant`` and K13's
-    ``decode_variant`` ask their own library and name its code through
-    the one dict of variants; a code the dict does not hold raises."""
+    """``flash_forward_variant``, ``flash_backward_variant`` and the
+    ``decode_variant`` of K12 and K13 (one dispatch rule for both) ask
+    their own library and name its code through the one dict of
+    variants; a code the dict does not hold raises."""
     if which == "decode":
         library, codes = "decode_attention", DECODE_CODES
-        fn = "zk_pool_paged_decode_attention_variant"
+        fn = "zk_decode_attention_variant"
         variant, names = attention.decode_variant, attention.DECODE_VARIANTS
         want = {(torch.bfloat16, 64): "split", (torch.float32, 64): "split",
                 (torch.bfloat16, 256): "split", (torch.float32, 320): "wide"}

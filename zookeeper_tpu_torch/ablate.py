@@ -1,8 +1,9 @@
 """Where the tensor-core flash kernels spend their time: time them beside
-copies of their source with one part of the work removed.
+copies of their source with one part of the work removed. Also K1 at
+every shape the serving paths give it.
 
-    python -m zookeeper_tpu_torch.ablate [--source flash_backward|flash_forward]
-                                         [--shape B S H D] [--full]
+    python -m zookeeper_tpu_torch.ablate [--source flash_backward|flash_forward|pack_rows]
+                                         [--shape B S H D] [--full] [--against OLD.cu]
 
 Builds, in parallel, the source as it is and ablated copies: the
 accurate ``expf`` of P replaced by ``__expf`` (one ``ex2.approx``: a
@@ -16,7 +17,17 @@ and K11 for ``flash_backward.cu``, K9 with lse for ``flash_forward.cu``)
 at the LM training step's shape ([4, 8192, 8, 64] bf16 causal by
 default) with CUDA events, in two rounds of opposite order, and prints
 one JSON line with the card's name and power limit. Runs on the machine
-with the card and ``nvcc``.
+with the card and ``nvcc``. ``--against OLD.cu`` builds another version
+of the source (a parent's, unpacked with ``git archive``) beside them,
+as the variant "against"; its includes resolve from its own directory
+first.
+
+``--source pack_rows`` times K1 at every row shape of ``K1_SHAPES`` (the
+batch-8 forwards of slices A and C in bf16, of BinaryNet's fused flavor
+in fp32), each build checked against the plain version first; the line
+gives each shape's ms a launch, the sum per forward of each slice, and
+the time of an empty launch (``torch.cuda._sleep(0)``) timed the same
+way.
 """
 
 import argparse
@@ -64,24 +75,50 @@ ABLATIONS = {
         "generic copy": [("    if (vec) {\n      copy_rows16",
                           "    if (false) {\n      copy_rows16")],
     },
+    "pack_rows": {"as built": []},
 }
 
+#: K1's rows per image, by serving path, in the order a forward packs
+#: them: (dtype, ((rows an image, K, launches a forward), ...)). A conv
+#: packs its SAME-padded input, (h + k - 1)^2 rows of its channels; a
+#: dense layer one row. A: QuickNet-Large's four sections (3x3 at 56, 28,
+#: 14, 7). C: BinaryAlexNet's four binary convs (5x5 at 27, 3x3 at 13)
+#: and two binary dense layers. E_AUTO: BinaryNet (default widths,
+#: ``binary_flavor="auto"``), five binary convs (3x3 at 32, 16, 16, 8, 8)
+#: and two dense layers.
+K1_SHAPES = {
+    "A": ("bfloat16", ((58 * 58, 64, 6), (30 * 30, 128, 8), (16 * 16, 256, 12),
+                       (9 * 9, 512, 6))),
+    "C": ("bfloat16", ((31 * 31, 64, 1), (15 * 15, 192, 1), (15 * 15, 384, 2),
+                       (1, 9216, 1), (1, 4096, 1))),
+    "E_AUTO": ("float32", ((34 * 34, 128, 1), (18 * 18, 128, 1), (18 * 18, 256, 1),
+                           (10 * 10, 256, 1), (10 * 10, 512, 1), (1, 8192, 1), (1, 1024, 1))),
+}
+#: The batch the serving paths' K1 rows are timed at.
+K1_BATCH = 8
 
-def _build(source: str, workdir: str) -> dict:
+
+def _build(source: str, workdir: str, against: str = None) -> dict:
     with open(os.path.join(cuda_build.CSRC_DIR, f"{source}.cu")) as f:
         text0 = f.read()
-    procs = {}
+    variants = {}
     for name, edits in ABLATIONS[source].items():
         text = text0
         for old, new in edits:
             if old not in text:
                 raise RuntimeError(f"ablation {name!r}: {old!r} is not in the source")
             text = text.replace(old, new)
+        variants[name] = (text, [])
+    if against is not None:
+        with open(against) as f:
+            variants["against"] = (f.read(), ["-I", os.path.dirname(os.path.abspath(against))])
+    procs = {}
+    for name, (text, includes) in variants.items():
         stem = os.path.join(workdir, name.replace(" ", "_"))
         with open(f"{stem}.cu", "w") as f:
             f.write(text)
         procs[name] = (subprocess.Popen(
-            [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-I", cuda_build.CSRC_DIR,
+            [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, *includes, "-I", cuda_build.CSRC_DIR,
              "-o", f"{stem}.so", f"{stem}.cu"],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), f"{stem}.so")
     libs = {}
@@ -98,11 +135,15 @@ def _build(source: str, workdir: str) -> dict:
 
 
 def _time_ms(fn, reps: int = 5, inner: int = 3) -> float:
+    """Median ms of one call over ``reps`` runs of ``inner`` calls; a
+    device-side sleep first lets the host queue the calls ahead of the
+    card (for kernels shorter than their launch's host time)."""
     fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(2_000_000)
         start.record()
         for _ in range(inner):
             fn()
@@ -117,12 +158,16 @@ def main(argv=None) -> int:
     parser.add_argument("--source", choices=sorted(ABLATIONS), default="flash_backward")
     parser.add_argument("--shape", type=int, nargs=4, default=(4, 8192, 8, 64))
     parser.add_argument("--full", action="store_true", help="full attention, not causal")
+    parser.add_argument("--against", metavar="OLD.cu",
+                        help="another version of the source, built and timed beside it")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("ablate: no CUDA card", file=sys.stderr)
         return 1
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
+    if args.source == "pack_rows":
+        return _pack_rows_main(smi, args.against)
     b, s, h, d = args.shape
     causal = not args.full
     dev = torch.device("cuda")
@@ -137,7 +182,7 @@ def main(argv=None) -> int:
         kernels = {"dq": lambda: A.flash_backward_dq(*ops, causal=causal),
                    "dkv": lambda: A.flash_backward_dkv(*ops, causal=causal)}
     with tempfile.TemporaryDirectory() as workdir:
-        libs = _build(args.source, workdir)
+        libs = _build(args.source, workdir, args.against)
         times = {name: {kernel: [] for kernel in kernels} for name in libs}
         for order in (list(libs), list(reversed(libs))):
             for name in order:
@@ -147,6 +192,35 @@ def main(argv=None) -> int:
         cuda_build._loaded.pop(args.source)
     print(json.dumps({"device": smi, "source": args.source, "shape": [b, s, h, d],
                       "causal": causal, "ms_per_launch": times}), flush=True)
+    return 0
+
+
+def _pack_rows_main(smi: str, against: str = None) -> int:
+    from zookeeper_tpu_torch.ops import binary_compute as bc
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+    rows = {(path, f"{dtype} {K1_BATCH * m}x{k}"):
+            torch.randn(K1_BATCH * m, k, generator=g, device=dev).to(getattr(torch, dtype))
+            for path, (dtype, shapes) in K1_SHAPES.items() for m, k, _ in shapes}
+    with tempfile.TemporaryDirectory() as workdir:
+        libs = _build("pack_rows", workdir, against)
+        times = {name: {label: [] for _, label in rows} for name in libs}
+        for order in (list(libs), list(reversed(libs))):
+            for name in order:
+                cuda_build._loaded["pack_rows"] = libs[name]
+                for (_, label), x in rows.items():
+                    if not torch.equal(bc.pack_rows(x), bc.pack_rows_plain(x)):
+                        raise RuntimeError(f"pack_rows {name!r} at {label}: not the plain words")
+                    times[name][label].append(_time_ms(lambda: bc.pack_rows(x), reps=21, inner=10))
+        cuda_build._loaded.pop("pack_rows")
+    per_forward = {name: {path: sum(n * statistics.median(t[f"{dtype} {K1_BATCH * m}x{k}"])
+                                    for m, k, n in shapes)
+                          for path, (dtype, shapes) in K1_SHAPES.items()}
+                   for name, t in times.items()}
+    floor = _time_ms(lambda: torch.cuda._sleep(0), reps=21, inner=10)
+    print(json.dumps({"device": smi, "source": "pack_rows", "ms_per_launch": times,
+                      "ms_per_forward": per_forward, "launch_floor_ms": floor}), flush=True)
     return 0
 
 

@@ -23,29 +23,27 @@
 // (2 * (len + 1) * d values per slot and head) and does 4 flops per
 // value read; decode is far below the card's flop:byte ratio.
 //
-// Design: K12 runs one block per (slot, head), 256 threads; K13 splits
-// each (slot, head)'s rows over blocks of the same shape (below). Eight
-// lanes share a
-// row, each loading its d/8 contiguous values in one vector load (16 B
-// for a bf16 row of 64); the 32 lane groups of the block walk the rows
-// 0..len in a strided loop, four rows per group per iteration (fewer
-// past head_dim 64) with all their loads issued first and the rows kept
-// as raw words until the products widen them, so enough bytes are in
-// flight. A score is eight partial dot products summed by three
-// xor-shuffles inside the group. Each group keeps its own running max,
-// sum and accumulator (the TPU kernel's sequential kv grid axis becomes
-// this loop); at the end the 32 partial states are merged in shared
-// memory and lanes 0..d-1 write the output. Lengths and the page table
-// are read by the block itself, in place of the TPU's scalar prefetch.
-//
-// K13 at head_dim <= 256 (`decode_attention_split_kernel`,
-// flash-decoding): one block per (slot, head) walks its live rows in
-// series, and at 8 slots x 8 heads that is 64 blocks on 132 SMs, each
-// capped by the bytes one SM keeps in flight. So the rows split into
-// chunks of SPLIT_ROWS (256: 16 pages of 16), one block each, with the
-// arithmetic above per chunk; each block's state (m, l, o) goes to a
-// workspace, and the last block of a (slot, head) merges the chunks in
-// a fixed order, chunk 0 first, in the same launch (see the kernel).
+// Design, head_dim <= 256 (`decode_attention_split_kernel`, one
+// template for both, PAGED picking how a row is found: K12 at
+// `(slot * cap + row) * h + head`, K13 through the page table). One
+// block per (slot, head) walking its live rows in series would be 64
+// blocks on 132 SMs at 8 slots x 8 heads, each capped by the bytes one
+// SM keeps in flight; so the rows split into chunks of SPLIT_ROWS (256:
+// 16 pages of 16), one block of 256 threads each (flash-decoding).
+// Inside a block eight lanes share a row, each loading its d/8
+// contiguous values in one vector load (16 B for a bf16 row of 64); the
+// 32 lane groups walk the chunk's rows in a strided loop, four rows per
+// group per iteration (fewer past head_dim 64) with all their loads
+// issued first and the rows kept as raw words until the products widen
+// them, so enough bytes are in flight (`attend_rows`). A score is eight
+// partial dot products summed by three xor-shuffles inside the group.
+// Each group keeps its own running max, sum and accumulator (the TPU
+// kernel's sequential kv grid axis becomes this loop); the 32 partial
+// states are merged in shared memory into the block's state (m, l, o),
+// which goes to a workspace, and the last block of a (slot, head)
+// merges the chunks in a fixed order, chunk 0 first, in the same launch
+// (see the kernel). Lengths and the page table are read by the block
+// itself, in place of the TPU's scalar prefetch.
 //
 // Head_dims above 256 (`decode_attention_wide_kernel`): the same block
 // and numerics over chunks of 256 dims (32 a lane), one row per lane
@@ -159,13 +157,17 @@ __device__ __forceinline__ long long row_offset(const Geometry& g, int slot,
   return ((static_cast<long long>(slot) * g.cap + r) * g.h + hh) * g.d;
 }
 
+// Rows a slot can hold: K12's capacity, K13's pages times page size.
+template <bool PAGED>
+__device__ __host__ __forceinline__ int slot_rows(const Geometry& g) {
+  return PAGED ? g.max_pages * g.page_size : g.cap;
+}
+
 // One lane group's online softmax over rows r_first..r_last of (slot,
 // head hh), strided over the block's lane groups, UNROLL rows a group an
 // iteration: updates the group's running max m, sum l and accumulator
-// acc (this lane's DL dims from d0), through the page table. The row
-// split's loop: K12's kernel keeps the same loop written out, since
-// calling this function from it changed K12's SASS.
-template <typename KT, int DL, int UNROLL>
+// acc (this lane's DL dims from d0), rows found as `row_offset<PAGED>`.
+template <bool PAGED, typename KT, int DL, int UNROLL>
 __device__ __forceinline__ void attend_rows(
     const Geometry& g, int slot, int hh, int group, int d0, int n_valid, bool full,
     const float (&qv)[DL], int r_first, int r_last, const KT* __restrict__ kbuf,
@@ -184,10 +186,10 @@ __device__ __forceinline__ void attend_rows(
       vsc[u] = 1.0f;
       if (r <= r_last) {
         long long sidx;
-        const long long off = row_offset<true>(g, slot, r, hh, &sidx) + d0;
+        const long long off = row_offset<PAGED>(g, slot, r, hh, &sidx) + d0;
         kv[u].load(kbuf + off, full, n_valid);
         vv[u].load(vbuf + off, full, n_valid);
-        if (k_scale != nullptr) {
+        if (PAGED && k_scale != nullptr) {  // K12 has no scales
           ksc[u] = k_scale[sidx];
           vsc[u] = v_scale[sidx];
         }
@@ -231,137 +233,21 @@ __device__ __forceinline__ void attend_rows(
   }
 }
 
-// K12 at head_dim <= 256. DL: dims per lane (head_dim padded up to
-// 8 * DL). UNROLL: rows per lane group per iteration, fewer for wide rows
-// to stay in registers.
-template <typename QT, typename KT, int DL, int UNROLL = (DL >= 32 ? 1 : (DL >= 16 ? 2 : 4))>
-__global__ void __launch_bounds__(THREADS)
-decode_attention_kernel(const QT* __restrict__ q, long long q_sb,
-                        long long q_sh, const KT* __restrict__ kbuf,
-                        const KT* __restrict__ vbuf,
-                        const float* __restrict__ k_scale,
-                        const float* __restrict__ v_scale,
-                        const int* __restrict__ lengths, QT* __restrict__ out,
-                        Geometry g, float scale) {
-  __shared__ float s_m[GROUPS];
-  __shared__ float s_l[GROUPS];
-  __shared__ float s_acc[GROUPS][DL * LPR];
-
-  const int slot = blockIdx.x / g.h;
-  const int hh = blockIdx.x % g.h;
-  const int group = threadIdx.x / LPR;
-  const int sub = threadIdx.x % LPR;
-  const int d0 = sub * DL;                      // this lane's first dim
-  const int n_valid = min(DL, max(g.d - d0, 0));  // dims of this lane < d
-  const bool full = (g.d == DL * LPR);
-  const int len = min(max(lengths[slot], 0), g.cap - 1);
-
-  float qv[DL];
-  {
-    const QT* q_row = q + slot * q_sb + hh * q_sh + d0;
-#pragma unroll
-    for (int i = 0; i < DL; ++i) qv[i] = i < n_valid ? to_float(q_row[i]) : 0.0f;
-  }
-  float m = MASK_VALUE;
-  float l = 0.0f;
-  float acc[DL];
-#pragma unroll
-  for (int i = 0; i < DL; ++i) acc[i] = 0.0f;
-
-  // Every lane runs the same trip count (the bound is per block), so
-  // the full-mask shuffles below are always legal; dead rows are
-  // predicated off.
-  for (int r0 = 0; r0 <= len; r0 += GROUPS * UNROLL) {
-    RawRow<KT, DL> kv[UNROLL], vv[UNROLL];
-    float ksc[UNROLL], vsc[UNROLL];
-#pragma unroll
-    for (int u = 0; u < UNROLL; ++u) {
-      const int r = r0 + u * GROUPS + group;
-      ksc[u] = 1.0f;
-      vsc[u] = 1.0f;
-      if (r <= len) {
-        long long sidx;
-        const long long off = row_offset<false>(g, slot, r, hh, &sidx) + d0;
-        kv[u].load(kbuf + off, full, n_valid);
-        vv[u].load(vbuf + off, full, n_valid);
-        if (k_scale != nullptr) {
-          ksc[u] = k_scale[sidx];
-          vsc[u] = v_scale[sidx];
-        }
-      } else {
-        kv[u].clear();
-        vv[u].clear();
-      }
-    }
-    float sc[UNROLL];
-    float m_new = m;
-#pragma unroll
-    for (int u = 0; u < UNROLL; ++u) {
-      float dot = 0.0f;
-#pragma unroll
-      for (int i = 0; i < DL; ++i) dot = fmaf(qv[i], kv[u].get(i) * ksc[u], dot);
-      dot += __shfl_xor_sync(0xffffffffu, dot, 1);
-      dot += __shfl_xor_sync(0xffffffffu, dot, 2);
-      dot += __shfl_xor_sync(0xffffffffu, dot, 4);
-      const int r = r0 + u * GROUPS + group;
-      // -inf, not the mask value: a dead row must weigh exactly 0 even
-      // before this group has seen a live row.
-      sc[u] = r <= len ? dot * scale : -INFINITY;
-      m_new = fmaxf(m_new, sc[u]);
-    }
-    const float corr = expf(m - m_new);
-    float p_sum = 0.0f;
-    float pv[DL];
-#pragma unroll
-    for (int i = 0; i < DL; ++i) pv[i] = 0.0f;
-#pragma unroll
-    for (int u = 0; u < UNROLL; ++u) {
-      const float p = expf(sc[u] - m_new);
-      p_sum += p;
-#pragma unroll
-      for (int i = 0; i < DL; ++i) pv[i] = fmaf(p, vv[u].get(i) * vsc[u], pv[i]);
-    }
-    m = m_new;
-    l = l * corr + p_sum;
-#pragma unroll
-    for (int i = 0; i < DL; ++i) acc[i] = acc[i] * corr + pv[i];
-  }
-
-  // Merge the groups' partial softmax states.
-  if (sub == 0) {
-    s_m[group] = m;
-    s_l[group] = l;
-  }
-#pragma unroll
-  for (int i = 0; i < DL; ++i) s_acc[group][d0 + i] = acc[i];
-  __syncthreads();
-  if (threadIdx.x < g.d) {
-    float m_all = MASK_VALUE;
-    for (int j = 0; j < GROUPS; ++j) m_all = fmaxf(m_all, s_m[j]);
-    float l_all = 0.0f, o = 0.0f;
-    for (int j = 0; j < GROUPS; ++j) {
-      const float w = expf(s_m[j] - m_all);
-      l_all = fmaf(s_l[j], w, l_all);
-      o = fmaf(s_acc[j][threadIdx.x], w, o);
-    }
-    store(out + (static_cast<long long>(slot) * g.h + hh) * g.d + threadIdx.x, o / l_all);
-  }
-}
-
-// K13 split over the rows (flash-decoding): block (pair, c) of pair =
-// slot * h + head takes rows c * SPLIT_ROWS.. of its slot, the per-row
-// arithmetic of `decode_attention_kernel`, and merges its lane groups
-// into one unnormalised state (m, l, o[d]). A slot whose rows fit one
-// chunk writes o / l at once. Otherwise each block stores its state in
-// `part` [pairs][gridDim.y][d + 2] (m, l, o), and the last block of the
-// pair to finish (a ticket counted in `tickets[pair]`, which it resets to
+// K12 and K13 split over the rows (flash-decoding): block (pair, c) of
+// pair = slot * h + head takes rows c * SPLIT_ROWS.. of its slot
+// (`attend_rows`), and merges its lane groups into one unnormalised
+// state (m, l, o[d]). A slot whose rows fit one chunk writes o / l at
+// once. Otherwise each block stores its state in `part`
+// [pairs][gridDim.y][d + 2] (m, l, o), and the last block of the pair
+// to finish (a ticket counted in `tickets[pair]`, which it resets to
 // 0) merges the chunks in order, chunk 0 first, and writes o / l: the
 // same bits whichever block merges. Blocks past their slot's length exit
 // at once (the grid is sized from the capacity: the lengths live on the
 // device).
 constexpr int SPLIT_ROWS = 256;
 
-template <typename QT, typename KT, int DL, int UNROLL = (DL >= 32 ? 1 : (DL >= 16 ? 2 : 4))>
+template <typename QT, typename KT, bool PAGED, int DL,
+          int UNROLL = (DL >= 32 ? 1 : (DL >= 16 ? 2 : 4))>
 __global__ void __launch_bounds__(THREADS)
 decode_attention_split_kernel(const QT* __restrict__ q, long long q_sb, long long q_sh,
                               const KT* __restrict__ kbuf, const KT* __restrict__ vbuf,
@@ -381,7 +267,7 @@ decode_attention_split_kernel(const QT* __restrict__ q, long long q_sb, long lon
   const int pair = blockIdx.x;
   const int slot = pair / g.h;
   const int hh = pair % g.h;
-  const int len = min(max(lengths[slot], 0), g.max_pages * g.page_size - 1);
+  const int len = min(max(lengths[slot], 0), slot_rows<PAGED>(g) - 1);
   const int chunks = len / SPLIT_ROWS + 1;
   const int c = blockIdx.y;
   if (c >= chunks) return;
@@ -403,9 +289,9 @@ decode_attention_split_kernel(const QT* __restrict__ q, long long q_sb, long lon
 #pragma unroll
   for (int i = 0; i < DL; ++i) acc[i] = 0.0f;
   const int r_first = c * SPLIT_ROWS;
-  attend_rows<KT, DL, UNROLL>(g, slot, hh, group, d0, n_valid, full, qv, r_first,
-                              min(r_first + SPLIT_ROWS - 1, len), kbuf, vbuf, k_scale, v_scale,
-                              scale, m, l, acc);
+  attend_rows<PAGED, KT, DL, UNROLL>(g, slot, hh, group, d0, n_valid, full, qv, r_first,
+                                     min(r_first + SPLIT_ROWS - 1, len), kbuf, vbuf, k_scale,
+                                     v_scale, scale, m, l, acc);
 
   // Merge the groups' partial softmax states into the block's: warp 0
   // takes the max and each group's weight once, then every output dim
@@ -494,8 +380,7 @@ decode_attention_wide_kernel(const QT* __restrict__ q, long long q_sb,
   const int hh = blockIdx.x % g.h;
   const int group = threadIdx.x / LPR;
   const int sub = threadIdx.x % LPR;
-  const int cap_view = PAGED ? g.max_pages * g.page_size : g.cap;
-  const int len = min(max(lengths[slot], 0), cap_view - 1);
+  const int len = min(max(lengths[slot], 0), slot_rows<PAGED>(g) - 1);
   const int chunks = (g.d + WCH - 1) / WCH;
   // Vector loads need every lane's 32 values 16-byte aligned: rows of d
   // values keep that when d values fill a multiple of 16 bytes.
@@ -585,67 +470,39 @@ decode_attention_wide_kernel(const QT* __restrict__ q, long long q_sb,
   }
 }
 
-// K13's design for head_dim d: 0 the row split, 1 the chunked wide
-// kernel; -1 for a shape no kernel takes.
-int pool_variant(int q_dtype, int d) {
+// The design for q's dtype code and head_dim d, K12's and K13's alike:
+// 0 the row split, 1 the chunked wide kernel; -1 for a shape no kernel
+// takes.
+int variant(int q_dtype, int d) {
   if ((q_dtype != 0 && q_dtype != 1) || d < 1) return -1;
   return d <= 256 ? 0 : 1;
 }
 
-// Chunks of SPLIT_ROWS rows a (slot, head) of K13's row split can have.
-int split_chunks(int max_pages, int page_size) {
-  return static_cast<int>((static_cast<long long>(max_pages) * page_size + SPLIT_ROWS - 1) /
-                          SPLIT_ROWS);
+// Chunks of SPLIT_ROWS rows a (slot, head) of the row split can have.
+int split_chunks(int rows) {
+  return static_cast<int>((static_cast<long long>(rows) + SPLIT_ROWS - 1) / SPLIT_ROWS);
 }
 
-// K12: one block per (slot, head); the wide kernel past head_dim 256.
-template <typename QT, typename KT>
-cudaError_t launch_k12(const void* q, long long q_sb, long long q_sh, const void* k,
-                       const void* v, const int* lengths, void* out, int slots,
-                       const Geometry& g, float scale, cudaStream_t stream) {
-  const dim3 grid(slots * g.h);
-  const QT* qp = static_cast<const QT*>(q);
-  const KT* kp = static_cast<const KT*>(k);
-  const KT* vp = static_cast<const KT*>(v);
-  QT* op = static_cast<QT*>(out);
-#define ZK_DECODE_LAUNCH(DL)                                         \
-  decode_attention_kernel<QT, KT, DL><<<grid, THREADS, 0, stream>>>( \
-      qp, q_sb, q_sh, kp, vp, nullptr, nullptr, lengths, op, g, scale)
-  if (g.d <= 32) {
-    ZK_DECODE_LAUNCH(4);
-  } else if (g.d <= 64) {
-    ZK_DECODE_LAUNCH(8);
-  } else if (g.d <= 128) {
-    ZK_DECODE_LAUNCH(16);
-  } else if (g.d <= 256) {
-    ZK_DECODE_LAUNCH(32);
-  } else {
-    decode_attention_wide_kernel<QT, KT, false><<<grid, THREADS, 0, stream>>>(
-        qp, q_sb, q_sh, kp, vp, nullptr, nullptr, lengths, op, g, scale);
-  }
-#undef ZK_DECODE_LAUNCH
-  return cudaGetLastError();
-}
-
-// K13: the row split up to head_dim 256 (`part` and `tickets` its
-// workspace, see `decode_attention_split_kernel`), else the wide kernel.
-template <typename QT, typename KT>
-cudaError_t launch_k13(const void* q, long long q_sb, long long q_sh, const void* k,
-                       const void* v, const float* k_scale, const float* v_scale,
-                       const int* lengths, void* out, int slots, const Geometry& g,
-                       float scale, cudaStream_t stream, float* part, int* tickets) {
+// K12 (PAGED false) or K13: the row split up to head_dim 256 (`part` and
+// `tickets` its workspace, see `decode_attention_split_kernel`), else the
+// wide kernel.
+template <typename QT, typename KT, bool PAGED>
+cudaError_t launch(const void* q, long long q_sb, long long q_sh, const void* k,
+                   const void* v, const float* k_scale, const float* v_scale,
+                   const int* lengths, void* out, int slots, const Geometry& g,
+                   float scale, cudaStream_t stream, float* part, int* tickets) {
   const QT* qp = static_cast<const QT*>(q);
   const KT* kp = static_cast<const KT*>(k);
   const KT* vp = static_cast<const KT*>(v);
   QT* op = static_cast<QT*>(out);
   if (g.d > 256) {
-    decode_attention_wide_kernel<QT, KT, true><<<slots * g.h, THREADS, 0, stream>>>(
+    decode_attention_wide_kernel<QT, KT, PAGED><<<slots * g.h, THREADS, 0, stream>>>(
         qp, q_sb, q_sh, kp, vp, k_scale, v_scale, lengths, op, g, scale);
     return cudaGetLastError();
   }
-  const dim3 grid(slots * g.h, split_chunks(g.max_pages, g.page_size));
-#define ZK_SPLIT_LAUNCH(DL)                                                \
-  decode_attention_split_kernel<QT, KT, DL><<<grid, THREADS, 0, stream>>>( \
+  const dim3 grid(slots * g.h, split_chunks(slot_rows<PAGED>(g)));
+#define ZK_SPLIT_LAUNCH(DL)                                                       \
+  decode_attention_split_kernel<QT, KT, PAGED, DL><<<grid, THREADS, 0, stream>>>( \
       qp, q_sb, q_sh, kp, vp, k_scale, v_scale, lengths, op, part, tickets, g, scale)
   if (g.d <= 32) {
     ZK_SPLIT_LAUNCH(4);
@@ -660,54 +517,65 @@ cudaError_t launch_k13(const void* q, long long q_sb, long long q_sh, const void
   return cudaGetLastError();
 }
 
+// The row split needs its workspace, and at most 65535 chunks a slot.
+bool split_ready(int q_dtype, int d, int rows, const void* part, const void* tickets) {
+  return variant(q_dtype, d) != 0 ||
+         (part != nullptr && tickets != nullptr && split_chunks(rows) <= 65535);
+}
+
 }  // namespace
 
 // K12. dtype_code: 0 = float32, 1 = bfloat16 (q and the caches). q is
 // read through its slot and head strides (elements); the caches, the
-// lengths and the output are contiguous. Returns a cudaError_t.
-extern "C" int zk_paged_decode_attention(const void* q, long long q_sb,
-                                         long long q_sh, const void* k,
-                                         const void* v, const void* lengths,
-                                         void* out, int dtype_code, int slots,
-                                         int cap, int h, int d, float scale,
+// lengths and the output are contiguous; part and tickets the row
+// split's workspace (see `zk_decode_attention_workspace`, rows = cap).
+// Returns a cudaError_t.
+extern "C" int zk_paged_decode_attention(const void* q, long long q_sb, long long q_sh,
+                                         const void* k, const void* v, const void* lengths,
+                                         void* out, void* part, void* tickets, int dtype_code,
+                                         int slots, int cap, int h, int d, float scale,
                                          int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (slots <= 0 || h <= 0 || d <= 0) return 0;
-  if (cap <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (cap <= 0 || !split_ready(dtype_code, d, cap, part, tickets)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const Geometry g{h, d, cap, nullptr, 0, 0, 0};
   const int* lens = static_cast<const int*>(lengths);
+  float* pt = static_cast<float*>(part);
+  int* tk = static_cast<int*>(tickets);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype_code == 0) {
-    err = launch_k12<float, float>(q, q_sb, q_sh, k, v, lens, out, slots, g, scale, st);
+    err = launch<float, float, false>(q, q_sb, q_sh, k, v, nullptr, nullptr, lens, out, slots,
+                                      g, scale, st, pt, tk);
   } else if (dtype_code == 1) {
-    err = launch_k12<__nv_bfloat16, __nv_bfloat16>(q, q_sb, q_sh, k, v, lens, out, slots, g,
-                                                   scale, st);
+    err = launch<__nv_bfloat16, __nv_bfloat16, false>(q, q_sb, q_sh, k, v, nullptr, nullptr,
+                                                      lens, out, slots, g, scale, st, pt, tk);
   } else {
     err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);
 }
 
-// K13's design for q's dtype code and head_dim (see `pool_variant`).
-extern "C" int zk_pool_paged_decode_attention_variant(int q_dtype, int d) {
-  return pool_variant(q_dtype, d);
-}
+// K12's and K13's design for q's dtype code and head_dim (see `variant`).
+extern "C" int zk_decode_attention_variant(int q_dtype, int d) { return variant(q_dtype, d); }
 
-// Floats of the row split's workspace `part` for these operands (0 when
-// the geometry takes the wide kernel); `tickets` holds slots * h int32
-// that start at 0 (each launch leaves them at 0). Launches that share a
-// workspace must run in order (one stream).
-extern "C" long long zk_pool_paged_decode_attention_workspace(int slots, int max_pages,
-                                                               int page_size, int h, int d) {
-  if (pool_variant(0, d) != 0 || slots <= 0 || h <= 0) return 0;
-  return static_cast<long long>(slots) * h * split_chunks(max_pages, page_size) * (d + 2);
+// Floats of the row split's workspace `part` for slots of `rows` rows
+// (K12: the capacity; K13: max_pages * page_size), 0 when the geometry
+// takes the wide kernel; `tickets` holds slots * h int32 that start at 0
+// (each launch leaves them at 0). Launches that share a workspace must
+// run in order (one stream).
+extern "C" long long zk_decode_attention_workspace(int slots, int rows, int h, int d) {
+  if (variant(0, d) != 0 || slots <= 0 || h <= 0 || rows <= 0) return 0;
+  return static_cast<long long>(slots) * h * split_chunks(rows) * (d + 2);
 }
 
 // K13. q_dtype: 0 = float32, 1 = bfloat16; kv_dtype: the same codes, or
 // 2 = int8 with k_scale/v_scale [pages, page_size, h] float32 (null for
 // float pools); part and tickets the row split's workspace (see
-// `zk_pool_paged_decode_attention_workspace`). Returns a cudaError_t.
+// `zk_decode_attention_workspace`, rows = max_pages * page_size).
+// Returns a cudaError_t.
 extern "C" int zk_pool_paged_decode_attention(
     const void* q, long long q_sb, long long q_sh, const void* k,
     const void* v, const void* k_scale, const void* v_scale,
@@ -724,8 +592,7 @@ extern "C" int zk_pool_paged_decode_attention(
   if (quant != (k_scale != nullptr && v_scale != nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (pool_variant(q_dtype, d) == 0 &&
-      (part == nullptr || tickets == nullptr || split_chunks(max_pages, page_size) > 65535)) {
+  if (!split_ready(q_dtype, d, max_pages * page_size, part, tickets)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const Geometry g{h, d, 0, static_cast<const int*>(table), max_pages,
@@ -737,17 +604,17 @@ extern "C" int zk_pool_paged_decode_attention(
   int* tk = static_cast<int*>(tickets);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (q_dtype == 0 && kv_dtype == 0) {
-    err = launch_k13<float, float>(q, q_sb, q_sh, k, v, ks, vs, lens, out, slots, g, scale,
-                                   st, pt, tk);
+    err = launch<float, float, true>(q, q_sb, q_sh, k, v, ks, vs, lens, out, slots, g, scale,
+                                     st, pt, tk);
   } else if (q_dtype == 1 && kv_dtype == 1) {
-    err = launch_k13<__nv_bfloat16, __nv_bfloat16>(q, q_sb, q_sh, k, v, ks, vs, lens, out,
-                                                   slots, g, scale, st, pt, tk);
+    err = launch<__nv_bfloat16, __nv_bfloat16, true>(q, q_sb, q_sh, k, v, ks, vs, lens, out,
+                                                     slots, g, scale, st, pt, tk);
   } else if (q_dtype == 0 && quant) {
-    err = launch_k13<float, int8_t>(q, q_sb, q_sh, k, v, ks, vs, lens, out, slots, g, scale,
-                                    st, pt, tk);
+    err = launch<float, int8_t, true>(q, q_sb, q_sh, k, v, ks, vs, lens, out, slots, g, scale,
+                                      st, pt, tk);
   } else if (q_dtype == 1 && quant) {
-    err = launch_k13<__nv_bfloat16, int8_t>(q, q_sb, q_sh, k, v, ks, vs, lens, out, slots, g,
-                                            scale, st, pt, tk);
+    err = launch<__nv_bfloat16, int8_t, true>(q, q_sb, q_sh, k, v, ks, vs, lens, out, slots, g,
+                                              scale, st, pt, tk);
   } else {
     err = cudaErrorInvalidValue;
   }

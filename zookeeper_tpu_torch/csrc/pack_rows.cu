@@ -2,23 +2,36 @@
 //
 // Replaces zookeeper_tpu/ops/binary_compute.py `pack_rows_packed`
 // (Pallas body `_pack_rows_kernel`): [M, K] fp32/bf16 -> [M, K/32] int32,
-// bit b of word t is `x[32t + b] >= 0` (NaN -> 0, -0 and +0 -> 1).
+// bit b of word t is `x[32t + b] >= 0` in IEEE fp32 (NaN -> 0, -0 and
+// +0 -> 1, a negative subnormal -> 0: no flush to zero).
 //
 // Bound on an H100: memory. One read of the source and a 1/32-size
 // write; the compare is one instruction per value.
 //
-// Design: one warp per output word. K % 32 == 0, so the 32 values of a
-// word are 32 consecutive elements of the flattened input: lane b loads
-// element 32*word + b (a coalesced 64- or 128-byte warp load), compares
-// in fp32, and `__ballot_sync` turns lane b's predicate into bit b of the
-// word, exactly the little-endian pack_bits order. Lane 0 stores it. The
-// loop is grid-stride over words; every lane of a warp runs the same
-// trip count, so the full-mask ballot is always legal.
+// Design (`pack_rows_vec_kernel`): K % 32 == 0, so word t of the
+// flattened output packs the 32 consecutive values 32t.., 64 (bf16) or
+// 128 (fp32) contiguous bytes. One thread makes one word from its own
+// LPW = 4 (bf16) or 8 (fp32) 16-byte loads, all issued before the
+// compares: each load's 8 or 4 compares give a byte or a nibble,
+// shifted to its place. Consecutive threads take consecutive words, so
+// each warp's stores are one coalesced 128-byte store. The grid is
+// sized from the SM count and strides over the words. (Chosen by
+// measurement over two words a thread, over lanes that OR their parts
+// of a word by shuffles, and over staging bytes in shared memory:
+// PERF.md section 6.)
+//
+// A source not 16-byte aligned (a view with a storage offset) takes
+// `pack_rows_scalar_kernel` in the same launch function: one warp per
+// word, lane b loads value 32t + b, and `__ballot_sync` turns lane b's
+// compare into bit b.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
+
+constexpr unsigned FULL = 0xffffffffu;
+constexpr int THREADS = 128;
 
 __device__ __forceinline__ float load_as_float(const float* p) { return *p; }
 
@@ -27,42 +40,103 @@ __device__ __forceinline__ float load_as_float(const uint16_t* p) {
   return __uint_as_float(static_cast<uint32_t>(*p) << 16);
 }
 
+// Bit i set when value i of the 16 bytes is >= 0, values in memory order.
+__device__ __forceinline__ unsigned part_bits(const uint4& v, const float*) {
+  return (__uint_as_float(v.x) >= 0.0f ? 1u : 0u) | (__uint_as_float(v.y) >= 0.0f ? 2u : 0u) |
+         (__uint_as_float(v.z) >= 0.0f ? 4u : 0u) | (__uint_as_float(v.w) >= 0.0f ? 8u : 0u);
+}
+
+__device__ __forceinline__ unsigned part_bits(const uint4& v, const uint16_t*) {
+  // A 32-bit word holds two bf16 values, the first in its low half;
+  // each widens exactly to the fp32 with those top bits.
+  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+  unsigned bits = 0;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    bits |= (__uint_as_float(w[i] << 16) >= 0.0f ? 1u : 0u) << (2 * i);
+    bits |= (__uint_as_float(w[i] & 0xffff0000u) >= 0.0f ? 1u : 0u) << (2 * i + 1);
+  }
+  return bits;
+}
+
 template <typename T>
-__global__ void pack_rows_kernel(const T* __restrict__ x,
-                                 int32_t* __restrict__ out,
-                                 long long n_words) {
+__global__ void __launch_bounds__(THREADS)
+pack_rows_vec_kernel(const uint4* __restrict__ x, int32_t* __restrict__ out,
+                     long long n_words) {
+  constexpr int VPL = 16 / static_cast<int>(sizeof(T));  // values a load: 8 or 4
+  constexpr int LPW = 32 / VPL;                          // loads a word: 4 or 8
+  const long long threads = static_cast<long long>(gridDim.x) * THREADS;
+  for (long long t = static_cast<long long>(blockIdx.x) * THREADS + threadIdx.x; t < n_words;
+       t += threads) {
+    uint4 v[LPW];
+#pragma unroll
+    for (int j = 0; j < LPW; ++j) v[j] = __ldg(x + t * LPW + j);
+    unsigned word = 0;
+#pragma unroll
+    for (int j = 0; j < LPW; ++j) {
+      word |= part_bits(v[j], static_cast<const T*>(nullptr)) << (VPL * j);
+    }
+    out[t] = static_cast<int32_t>(word);
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+pack_rows_scalar_kernel(const T* __restrict__ x, int32_t* __restrict__ out,
+                        long long n_words) {
   const int lane = threadIdx.x & 31;
-  const long long warps_per_grid =
-      (static_cast<long long>(gridDim.x) * blockDim.x) >> 5;
-  long long word =
-      (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
-  for (; word < n_words; word += warps_per_grid) {
+  const long long warps = (static_cast<long long>(gridDim.x) * THREADS) >> 5;
+  for (long long word = (static_cast<long long>(blockIdx.x) * THREADS + threadIdx.x) >> 5;
+       word < n_words; word += warps) {
     const float v = load_as_float(x + word * 32 + lane);
-    const unsigned bits = __ballot_sync(0xffffffffu, v >= 0.0f);
+    const unsigned bits = __ballot_sync(FULL, v >= 0.0f);
     if (lane == 0) out[word] = static_cast<int32_t>(bits);
+  }
+}
+
+// Blocks for `units` warp-sized pieces of work: one warp each, at most
+// 16 blocks (2048 threads) per SM of the device.
+int grid_blocks(long long units, int sms) {
+  const long long needed = (units + THREADS / 32 - 1) / (THREADS / 32);
+  const long long most = 16LL * sms;
+  return static_cast<int>(needed < most ? needed : most);
+}
+
+template <typename T>
+void launch(const void* x, void* out, long long n_words, int sms, cudaStream_t s) {
+  int32_t* o = static_cast<int32_t*>(out);
+  if (reinterpret_cast<uintptr_t>(x) % 16 == 0) {
+    pack_rows_vec_kernel<T><<<grid_blocks((n_words + 31) / 32, sms), THREADS, 0, s>>>(
+        static_cast<const uint4*>(x), o, n_words);
+  } else {
+    pack_rows_scalar_kernel<T><<<grid_blocks(n_words, sms), THREADS, 0, s>>>(
+        static_cast<const T*>(x), o, n_words);
   }
 }
 
 }  // namespace
 
-// dtype_code: 0 = float32, 1 = bfloat16. Returns a cudaError_t.
+// dtype_code: 0 = float32, 1 = bfloat16. x is the contiguous source,
+// any base address of its dtype's alignment. Returns a cudaError_t.
 extern "C" int zk_pack_rows(const void* x, int dtype_code, void* out,
                             long long n_words, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (n_words <= 0) return 0;
-  const int threads = 256;
-  const long long blocks_needed = (n_words * 32 + threads - 1) / threads;
-  const int blocks = static_cast<int>(
-      blocks_needed < 1048576LL ? blocks_needed : 1048576LL);
+  static int sms[64] = {};  // per device: SMs, once the attribute is read
+  if (device < 0 || device >= 64) return static_cast<int>(cudaErrorInvalidDevice);
+  if (sms[device] == 0) {
+    err = cudaDeviceGetAttribute(&sms[device], cudaDevAttrMultiProcessorCount, device);
+    if (err != cudaSuccess || sms[device] < 1) {
+      sms[device] = 0;
+      return static_cast<int>(err != cudaSuccess ? err : cudaErrorInvalidDevice);
+    }
+  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype_code == 0) {
-    pack_rows_kernel<float><<<blocks, threads, 0, s>>>(
-        static_cast<const float*>(x), static_cast<int32_t*>(out), n_words);
+    launch<float>(x, out, n_words, sms[device], s);
   } else if (dtype_code == 1) {
-    pack_rows_kernel<uint16_t><<<blocks, threads, 0, s>>>(
-        static_cast<const uint16_t*>(x), static_cast<int32_t*>(out),
-        n_words);
+    launch<uint16_t>(x, out, n_words, sms[device], s);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -662,7 +662,9 @@ def paged_decode_attention(
     """K12: single-position decode attention over a slot cache, the
     contract of :func:`cached_attention` (``q [slots, 1, h, d]``,
     ``k_cache/v_cache [slots, capacity, h, d]`` in q's dtype, ``lengths
-    [slots]`` int32), reading only the live rows of each slot."""
+    [slots]`` int32), reading only the live rows of each slot. The row
+    split's workspace is kept per card, stream and geometry, as K13's
+    (:func:`_split_workspace`): calls on two streams never share it."""
     what = "paged_decode_attention"
     b, h, d = _check_decode_q(what, q)
     _require(k_cache.shape == v_cache.shape and k_cache.dim() == 4, what,
@@ -683,12 +685,14 @@ def paged_decode_attention(
     cap = k_cache.shape[1]
     out = torch.empty((b, 1, h, d), dtype=q.dtype, device=q.device)
     lib = cuda_build.library("decode_attention")
+    stream = _stream(device)
+    part, tickets = _split_workspace(lib, device, stream, (b, cap, h, d))
     cuda_build.check(
         lib.zk_paged_decode_attention(
             q.data_ptr(), q.stride(0), q.stride(2), k_cache.data_ptr(),
-            v_cache.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-            _DTYPE_CODES[q.dtype], b, cap, h, d, float(scale), device,
-            _stream(device),
+            v_cache.data_ptr(), lengths.data_ptr(), out.data_ptr(), part.data_ptr(),
+            tickets.data_ptr(), _DTYPE_CODES[q.dtype], b, cap, h, d, float(scale), device,
+            stream,
         ),
         what,
     )
@@ -696,30 +700,32 @@ def paged_decode_attention(
     return out
 
 
-#: The K13 kernels by the code ``zk_pool_paged_decode_attention_variant``
-#: returns: ``"split"`` (head_dim <= 256: each (slot, head)'s rows split
-#: over blocks, merged in the same launch) or ``"wide"`` (head_dim > 256:
-#: one block per (slot, head) over 256-dim chunks).
+#: The K12 and K13 kernels by the code ``zk_decode_attention_variant``
+#: returns (one rule for both): ``"split"`` (head_dim <= 256: each (slot,
+#: head)'s rows split over blocks, merged in the same launch) or
+#: ``"wide"`` (head_dim > 256: one block per (slot, head) over 256-dim
+#: chunks).
 DECODE_VARIANTS = {0: "split", 1: "wide"}
 
-#: K13's row-split workspace per (card, stream, geometry): the chunk
-#: states ``part`` (fp32) and the tickets (int32 zeros that every launch
-#: leaves at zero). Launches on one stream run in order, so they share
-#: one; a launch on another stream gets its own.
+#: The row split's workspace per (card, stream, geometry), K12's and
+#: K13's: the chunk states ``part`` (fp32) and the tickets (int32 zeros
+#: that every launch leaves at zero). Launches on one stream run in
+#: order, so they share one; a launch on another stream gets its own.
 _WORKSPACE: Dict[Tuple[int, ...], Tuple[torch.Tensor, torch.Tensor]] = {}
 
 
 def _split_workspace(lib, device: int, stream: int,
-                     geometry: Tuple[int, int, int, int, int]) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K13's (part, tickets) for ``geometry`` (slots, max_pages,
-    page_size, h, d) on ``stream``, made at the first call of the key."""
+                     geometry: Tuple[int, int, int, int]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The row split's (part, tickets) for ``geometry`` (slots, rows a
+    slot holds, h, d) on ``stream``, made at the first call of the key:
+    K12's rows are its capacity, K13's ``max_pages * page_size``."""
     key = (device, stream, *geometry)
     ws = _WORKSPACE.get(key)
     if ws is None:
-        slots, _, _, h, _ = geometry
+        slots, _, h, _ = geometry
         dev = torch.device("cuda", device)
         ws = _WORKSPACE[key] = (
-            torch.empty(lib.zk_pool_paged_decode_attention_workspace(*geometry),
+            torch.empty(lib.zk_decode_attention_workspace(*geometry),
                         dtype=torch.float32, device=dev),
             torch.zeros(slots * h, dtype=torch.int32, device=dev),
         )
@@ -727,10 +733,10 @@ def _split_workspace(lib, device: int, stream: int,
 
 
 def decode_variant(dtype: torch.dtype, head_dim: int) -> str:
-    """Which K13 kernel a call on the card launches for q's dtype and
-    head_dim, as the library's dispatch decides (see
+    """Which kernel a K12 or K13 call on the card launches for q's dtype
+    and head_dim, as the library's dispatch decides (see
     :data:`DECODE_VARIANTS`). Builds the library at first use."""
-    code = cuda_build.library("decode_attention").zk_pool_paged_decode_attention_variant(
+    code = cuda_build.library("decode_attention").zk_decode_attention_variant(
         _DTYPE_CODES[dtype], int(head_dim))
     if code not in DECODE_VARIANTS:
         raise ValueError(f"decode: no kernel for {dtype} at head_dim {head_dim}")
@@ -794,7 +800,7 @@ def pool_paged_decode_attention(
     lib = cuda_build.library("decode_attention")
     max_pages = page_table.shape[1]
     stream = _stream(device)
-    part, tickets = _split_workspace(lib, device, stream, (b, max_pages, ps, h, d))
+    part, tickets = _split_workspace(lib, device, stream, (b, max_pages * ps, h, d))
     cuda_build.check(
         lib.zk_pool_paged_decode_attention(
             q.data_ptr(), q.stride(0), q.stride(2), k_pool.data_ptr(),

@@ -206,7 +206,9 @@ def pack_rows_plain(x: torch.Tensor) -> torch.Tensor:
 
 def pack_rows(x: torch.Tensor) -> torch.Tensor:
     """K1: [M, K] fp32/bf16 -> [M, K/32] int32 wire-format words
-    (bit-identical to :func:`pack_bits`, NaN -> 0, ±0 -> 1)."""
+    (bit-identical to :func:`pack_bits`, NaN -> 0, ±0 -> 1). On the card
+    a base that is not 16-byte aligned (a view with a storage offset)
+    takes the kernel's scalar-load path."""
     what = "pack_rows"
     _require(x.dim() == 2, what, f"expected [M, K], got {tuple(x.shape)}")
     m, k = x.shape

@@ -72,13 +72,13 @@ SIGNATURES = {
     },
     "decode_attention": {
         "zk_paged_decode_attention": (
-            _I, [_P, _LL, _LL, _P, _P, _P, _P] + [_I] * 5 + [_F, _I, _P],
+            _I, [_P, _LL, _LL] + [_P] * 6 + [_I] * 5 + [_F, _I, _P],
         ),
         "zk_pool_paged_decode_attention": (
             _I, [_P, _LL, _LL] + [_P] * 9 + [_I] * 8 + [_F, _I, _P],
         ),
-        "zk_pool_paged_decode_attention_variant": (_I, [_I, _I]),
-        "zk_pool_paged_decode_attention_workspace": (_LL, [_I] * 5),
+        "zk_decode_attention_variant": (_I, [_I, _I]),
+        "zk_decode_attention_workspace": (_LL, [_I] * 4),
     },
 }
 

@@ -1,6 +1,6 @@
 """Compare the SASS of two versions of one CUDA source, kernel by kernel.
 
-    python -m zookeeper_tpu_torch.sass_diff OLD.cu NEW.cu [--rename PATTERN=REPLACEMENT]
+    python -m zookeeper_tpu_torch.sass_diff OLD.cu NEW.cu [--rename PATTERN=REPLACEMENT|NAME]
 
 Builds each source with the port's ``nvcc`` flags into a shared library
 in a temporary directory, disassembles both with ``cuobjdump -sass`` and
@@ -10,7 +10,8 @@ fits to the file's longest instruction, are normalised away, so a kernel
 whose code did not change compares equal however the rest of the file
 changed. ``--rename`` (repeatable) rewrites the old source's kernel names
 with a regular expression before they are paired, so a kernel whose
-template lost a parameter is compared with its new name.
+template lost or gained a parameter is compared with its new name; a
+NAME takes that rule from :data:`RULES`.
 Prints one line per kernel (``same``, ``differs`` with the count of
 differing instructions, ``only in old`` or ``only in new``) and, last, a
 JSON summary. Exits 1 if a kernel present in both differs. Needs the
@@ -27,6 +28,15 @@ import tempfile
 from typing import Dict, List
 
 from zookeeper_tpu_torch.ops import cuda_build
+
+#: Named ``--rename`` rules. ``split-paged``: the row-split decode
+#: kernels of a ``decode_attention.cu`` whose split kernel served K13
+#: alone (``decode_attention_split_kernel<QT, KT, DL, UNROLL>``) paired
+#: with their ``PAGED=true`` instantiations of the template K12 and K13
+#: share (``<QT, KT, PAGED, DL, UNROLL>``); the types before the first
+#: ``int`` argument hold no ``L``, so a name that has its ``bool``
+#: already is left alone.
+RULES = {"split-paged": r"(decode_attention_split_kernelI[^L]*)(Li)=\1Lb1E\2"}
 
 _FUNCTION = re.compile(r"^\s*Function : (\S+)")
 _NAMESPACE_TAG = re.compile(r"_GLOBAL__N__[0-9a-f]+_\d+_\w+?_[0-9a-f]{8}")
@@ -65,9 +75,9 @@ def parse_sass(text: str) -> Dict[str, List[str]]:
 
 def rename(kernels: Dict[str, List[str]], rules: List[str]) -> Dict[str, List[str]]:
     """``kernels`` with every name rewritten by each ``PATTERN=REPLACEMENT``
-    rule in turn (``re.sub``)."""
+    rule (or the name of one in :data:`RULES`) in turn (``re.sub``)."""
     for rule in rules:
-        pattern, _, replacement = rule.partition("=")
+        pattern, _, replacement = RULES.get(rule, rule).partition("=")
         kernels = {re.sub(pattern, replacement, name): code for name, code in kernels.items()}
     return kernels
 
@@ -76,8 +86,10 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("old")
     parser.add_argument("new")
-    parser.add_argument("--rename", action="append", default=[], metavar="PATTERN=REPLACEMENT",
-                        help="regular expression rewriting the old kernels' names")
+    parser.add_argument("--rename", action="append", default=[],
+                        metavar="PATTERN=REPLACEMENT|NAME",
+                        help="regular expression rewriting the old kernels' names, or the "
+                             f"name of one of {sorted(RULES)}")
     args = parser.parse_args(argv)
     with tempfile.TemporaryDirectory() as a, tempfile.TemporaryDirectory() as b:
         old, new = rename(kernels_sass(args.old, a), args.rename), kernels_sass(args.new, b)

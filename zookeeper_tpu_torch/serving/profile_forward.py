@@ -2,7 +2,8 @@
 
     python -m zookeeper_tpu_torch.serving.profile_forward \\
         [--model QuickNetLarge|BinaryAlexNet|BinaryNet] \\
-        [--binary-compute xnor_popcount|xnor] [--binary-flavor auto|reference]
+        [--binary-compute xnor_popcount|xnor] [--binary-flavor auto|reference] \\
+        [--top N]
 
 Builds a packed deployment of the model through ``ServingConfig``
 (weights from a seed): QuickNet-Large packed and BN-folded, bf16,
@@ -13,7 +14,8 @@ BN-folded dense stage (BASELINE's deployment); BinaryNet fp32, 32x32,
 with the host clock and a ``synchronize``, then traces the same forwards
 with ``torch.profiler`` and prints one JSON line: the forward's wall
 time, the device time per forward, the device's busy share (device time
-over wall time) and the 8 kernels that take the most device time.
+over wall time) and the ``--top`` (8) kernels that take the most device
+time.
 Needs a CUDA card.
 """
 
@@ -60,6 +62,7 @@ def main(argv=None) -> dict:
     parser.add_argument("--binary-compute", default="xnor_popcount",
                         choices=("xnor_popcount", "xnor"))
     parser.add_argument("--binary-flavor", default="auto", choices=("auto", "reference"))
+    parser.add_argument("--top", type=int, default=TOP, help="kernels listed")
     args = parser.parse_args(argv)
 
     import zookeeper_tpu_torch.models  # noqa: F401  (registers the models)
@@ -91,7 +94,7 @@ def main(argv=None) -> dict:
         if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0
     ]
     device_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / STEPS
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:TOP]
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:args.top]
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
