@@ -44,21 +44,27 @@ CUDA card and ``nvcc``. In order:
    plain version bit for bit, and is timed beside it.
 5. Popcount GEMMs: K5 ``xnor_matmul_packed`` and K2
    ``xnor_matmul_packed_scaled`` at BinaryAlexNet's dense shapes (M 1
-   and 8, K 9216 and 4096, N 4096), BinaryNet's batch-8 K5 shapes (the
-   per-tap and fused convs, the dense layers) and a ragged shape: each
-   must equal its plain version bit for bit, and K2 must equal K5's
+   and 8, K 9216 and 4096, N 4096), BinaryNet's batch-8 shapes (K5: the
+   per-tap and fused convs and the dense layers; K2: E_AUTO's two dense
+   layers) and ragged shapes: each must equal its plain version bit for
+   bit, give the same bits on a second call, and K2 must equal K5's
    output ``.float() * scale`` bit for bit; each is timed beside its
    plain version and ``torch._int_mm`` on int8 +-1 operands (M padded
-   where ``_int_mm`` refuses a small M; the line says so). K5 also runs
-   ragged rows on both sides of its variant threshold (M 64 and 65, 129,
-   300; Kw 1, 7 and 37; N 8, 72 and 130), and K2 the rows at M 64, 65
-   and 300, so its 32-row tiles are held bit for bit to K5's
-   tensor-core output there. Every K5 row must take the
-   design ``xnor_matmul_packed_variant`` names for it: "mma" (the int8
-   tensor cores) for slice E's conv GEMMs and every M > 64, "popc" for
-   M <= 64, K2's shapes included (K2 runs "popc" at every M). The
-   ptxas report (registers, spills) of the K4 and K5 kernels is printed
-   after the build, and so is that of K3's kernels and the K12/K13 row split.
+   where ``_int_mm`` refuses a small M; the line says so). Both also run
+   ragged rows at M <= 8 (M 3 to 8; Kw 7 to 288; N 8 to 4100: rows past
+   M, the scalar weight loads of N % 4 != 0, a Kw below one block's
+   share, K split over a cluster of each size from 2 to 8, partial
+   column tiles) and on both sides of K5's "popc"/"mma" threshold (M
+   64 and 65, 129, 300; Kw 1, 7 and 37; N 8, 72 and 130), so K2's
+   CUDA-core tiles are held bit for bit to K5's tensor-core output
+   there. Every row must take the design ``xnor_matmul_packed_variant``
+   / ``xnor_matmul_packed_scaled_variant`` names for it: "small_m" (the
+   int8 tensor cores, K split over a cluster) for both at M <= 8, then
+   "popc" (K5 up to M 64, K2 at every larger M), and "mma" (the int8
+   tensor-core tiles) for K5 past M 64, slice E's conv GEMMs included.
+   The ptxas report (registers, spills) of the K4 and K5 kernels is
+   printed after the build, and so is that of K3's kernels and the
+   K12/K13 row split.
 6. The int8 conv's forward at the four section shapes must give the
    exact integer sums (against a float64 conv, exact for these sums).
 7. Serving slices (``SLICES``), each ``ServingConfig.run()`` over 16
@@ -478,7 +484,7 @@ def kernel_phase(torch, bc):
         bp = bc.pack_dense_kernel(w)[0].to(dev)
         kw = bp.shape[0]
         variant = bc.packed_weight_matmul_variant(m, n, kw)
-        wanted = "small_m" if m <= K4_SMALL_M else "mma"
+        wanted = "small_m" if m <= SMALL_M else "mma"
         check(variant == wanted, f"packed_weight_matmul at {(m, k, n)}: variant {variant}, "
                                  f"want {wanted}")
         library, rows = _int_mm_yardstick(torch, m, 32 * kw, n, dev, g)
@@ -519,9 +525,10 @@ K4_EXTRA_CASES = ((0, 8, 9216, 4096), (0, 8, 4096, 4096), (0, 1, 9216, 4096),
                   (0, 1, 4096, 4096), (0, 8, 4096, 256), (0, 9, 4096, 256),
                   (0, 3, 70, 130), (0, 9, 32, 33), (0, 17, 32, 33), (0, 37, 70, 33),
                   (0, 100, 32, 33), (0, 130, 576, 64), (0, 65, 1000, 130))
-#: K4 takes "small_m" up to this M, the tensor-core tiles ("mma") past it;
-#: K5 takes "popc" up to K5_POPC_M, "mma" past it.
-K4_SMALL_M = 8
+#: K4, K5 and K2 take "small_m" up to this M; past it K4 takes the
+#: tensor-core tiles ("mma"), K5 "popc" up to K5_POPC_M and "mma" past
+#: it, K2 "popc".
+SMALL_M = 8
 K5_POPC_M = 64
 
 
@@ -529,19 +536,26 @@ K5_POPC_M = 64
 #: main path is slice C's batch-8 forward (BinaryAlexNet's two dense
 #: layers, K 9216 and 4096, N 4096), K5's slice E's batch-8 forward
 #: (BinaryNet: 9 per-tap GEMMs of its first binary conv, one fused GEMM
-#: for each of the other four, the two dense layers). Then the dense
-#: shapes at batch 1 and ragged shapes, off the main path; K5's last
-#: four sit on both sides of its "popc"/"mma" threshold, and K2's last
-#: three on both sides of its own 8-row/32-row tile threshold (M 64),
-#: where K5 runs "mma", so the check "K2 = K5 .float() * scale" holds
-#: K2's 32-row tiles against the tensor-core design bit for bit.
-K2_CASES = ((8, 288, 4096, 1), (8, 128, 4096, 1), (1, 288, 4096, 0), (1, 128, 4096, 0),
-            (37, 7, 130, 0), (64, 7, 130, 0), (65, 7, 130, 0), (300, 37, 72, 0))
+#: for each of the other four, the two dense layers). Then, off the main
+#: path: K2 at E_AUTO's two dense layers (BinaryNet's on the fused
+#: flavor), the dense shapes at batch 1, ragged rows at M <= 8 (rows past
+#: M, N % 4 != 0, a Kw below one block's share, K split over a cluster of
+#: each size from 2 to 7 on partial column tiles: the M <= 8 rows are
+#: ``ablate.XNOR_ROWS``), and rows on both sides of K5's "popc"/"mma"
+#: threshold (M 64), where K5 runs "mma", so the check "K2 = K5 .float()
+#: * scale" holds K2's CUDA-core tiles against the tensor-core design
+#: bit for bit.
+K2_CASES = ((8, 288, 4096, 1), (8, 128, 4096, 1), (8, 256, 1024, 0), (8, 32, 1024, 0),
+            (1, 288, 4096, 0), (1, 128, 4096, 0), (3, 288, 4096, 0), (6, 37, 72, 0),
+            (8, 7, 130, 0), (8, 64, 8, 0), (5, 96, 130, 0), (8, 160, 72, 0), (7, 190, 130, 0),
+            (3, 224, 4100, 0), (37, 7, 130, 0), (64, 7, 130, 0), (65, 7, 130, 0),
+            (300, 37, 72, 0))
 K5_CASES = ((8192, 4, 128, 9), (2048, 36, 256, 1), (2048, 72, 256, 1), (512, 72, 512, 1),
             (512, 144, 512, 1), (8, 256, 1024, 1), (8, 32, 1024, 1),
             (8, 288, 4096, 0), (8, 128, 4096, 0), (1, 288, 4096, 0), (1, 128, 4096, 0),
-            (37, 7, 130, 0), (64, 7, 130, 0), (65, 7, 130, 0), (129, 1, 8, 0),
-            (300, 37, 72, 0))
+            (3, 288, 4096, 0), (6, 37, 72, 0), (8, 7, 130, 0), (8, 64, 8, 0), (5, 96, 130, 0),
+            (8, 160, 72, 0), (7, 190, 130, 0), (3, 224, 4100, 0), (37, 7, 130, 0),
+            (64, 7, 130, 0), (65, 7, 130, 0), (129, 1, 8, 0), (300, 37, 72, 0))
 
 
 def _int_mm_yardstick(torch, m, k, n, dev, g):
@@ -592,18 +606,23 @@ def xnor_kernel_phase(torch, bc, smi):
                 kernel = lambda: bc.xnor_matmul_packed_scaled(a, b, scale, k_true=k_true)  # noqa: E731
                 plain = lambda: bc.xnor_matmul_packed_scaled_plain(  # noqa: E731
                     a, b, scale, k_true=k_true)
-            variant = bc.xnor_matmul_packed_variant(m, n, kw)
-            wanted = "popc" if m <= K5_POPC_M else "mma"
-            check(variant == wanted, f"{name} at {(m, kw, n)}: K5 variant {variant}, want {wanted}")
-            if name == "xnor_matmul_packed_scaled":
-                variant = "popc"  # K2 has one design
+            variant = getattr(bc, f"{name}_variant")(m, n, kw)
+            if m <= SMALL_M:
+                wanted = "small_m"
+            elif m <= K5_POPC_M or name == "xnor_matmul_packed_scaled":
+                wanted = "popc"
+            else:
+                wanted = "mma"
+            check(variant == wanted, f"{name} at {(m, kw, n)}: variant {variant}, want {wanted}")
             with deterministic(torch):
-                got, want = kernel(), plain()
+                got, again, want = kernel(), kernel(), plain()
                 k5 = bc.xnor_matmul_packed(a, b, k_true=k_true)
                 torch.cuda.synchronize()
             err = _max_abs_err(torch, got, want)
             check(_same_bits(torch, got, want),
                   f"{name} at {(m, kw, n)} disagrees with its plain version (max err {err})")
+            check(_same_bits(torch, got, again),
+                  f"{name} at {(m, kw, n)}: two calls gave other bits")
             if name == "xnor_matmul_packed_scaled":
                 check(_same_bits(torch, got, k5.float() * scale[None, :]),
                       f"K2 at {(m, kw, n)} is not K5 .float() * scale bit for bit")
@@ -621,7 +640,8 @@ def xnor_kernel_phase(torch, bc, smi):
             b_ms, b_by = bound_ms(name, nbytes, ops)
             pad = "" if rows in (None, m) else f" (M padded {m} -> {rows}: _int_mm refuses M={m})"
             print(f"kernel {name} M={m} Kw={kw} N={n} ({variant}) on {smi}: equal bits"
-                  f"{', = K5 .float() * scale' if name.endswith('scaled') else ''}, kernel "
+                  f"{', = K5 .float() * scale' if name.endswith('scaled') else ''}, the same "
+                  f"bits twice, kernel "
                   f"{k_ms:.6f} ms, plain {p_ms:.6f} ms, _int_mm "
                   f"{None if l_ms is None else round(l_ms, 6)} ms{pad}, bound {b_ms:.6f} ms by "
                   f"{b_by} ({nbytes} B, {ops} ops), launches/forward {count}", flush=True)
@@ -636,7 +656,7 @@ def xnor_kernel_phase(torch, bc, smi):
                     t["library_ms"] = None
                 else:
                     t["library_ms"] += count * l_ms
-            del a, b, got, want, k5
+            del a, b, got, again, want, k5
     torch.cuda.empty_cache()
     return totals
 

@@ -1,9 +1,9 @@
 """The port's kernel tools on the CPU: the ablated copies of the flash
-sources that ``zookeeper_tpu_torch.ablate`` times, the SASS parsing of
-``zookeeper_tpu_torch.sass_diff`` and its named rename rule, the
-library hash of ``cuda_build``, K1's row shapes and the variant names
-of the flash kernels, K12/K13 and the int8 tensor-core kernels (K4,
-K5). Building and running them needs
+and popcount GEMM sources that ``zookeeper_tpu_torch.ablate`` times,
+the SASS parsing of ``zookeeper_tpu_torch.sass_diff`` and its named
+rename rule, the library hash of ``cuda_build``, K1's row shapes and
+K2/K5's dense shapes per forward, and the variant names of the flash
+kernels, K12/K13 and the int8 tensor-core kernels (K4, K5, K2). Building and running them needs
 ``nvcc`` and the card; these tests hold the parts that do not."""
 
 import importlib.util
@@ -18,9 +18,12 @@ from zookeeper_tpu_torch.ops import attention, binary_compute, cuda_build
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 CSRC = ROOT / "zookeeper_tpu_torch" / "csrc"
-#: The tensor-core kernels each ablated source holds; every edit of an
-#: ablation touches each of them once.
-TENSOR_CORE_KERNELS = {"flash_backward": 2, "flash_forward": 1}
+#: The tensor-core kernels each ablated source holds, and a part of
+#: their names; every edit of an ablation touches each of them once.
+TENSOR_CORE_KERNELS = {"flash_backward": (2, "_mma_kernel"), "flash_forward": (1, "_mma_kernel"),
+                       "xnor_gemm": (1, "_small_m_kernel")}
+#: Edits that change more than the kernel's one place (its epilogue too).
+EXTRA_EDITS = {("xnor_gemm", "pm1 decode"): 1}
 
 
 ABLATED = [(source, name) for source, ablations in ablate.ABLATIONS.items()
@@ -36,11 +39,12 @@ def test_each_ablation_edits_both_tensor_core_kernels_once(source, name):
     alike."""
     text = (CSRC / f"{source}.cu").read_text()
     edits = ablate.ABLATIONS[source][name]
-    assert len(edits) == TENSOR_CORE_KERNELS[source]
+    count, kernel = TENSOR_CORE_KERNELS[source]
+    assert len(edits) == count + EXTRA_EDITS.get((source, name), 0)
     for old, new in edits:
         assert text.count(old) == 1, old
         assert old != new
-    assert "_mma_kernel" in text
+    assert kernel in text
 
 
 def test_every_ablated_source_has_the_reference_build():
@@ -82,6 +86,51 @@ def test_k1_shapes_are_the_rows_the_serving_paths_pack(path, monkeypatch):
     dtype, shapes = ablate.K1_SHAPES[path]
     forward = [(dtype, m, k) for m, k, n in shapes for _ in range(n)]
     assert seen == 2 * forward
+
+
+@pytest.mark.parametrize("path", sorted(ablate.XNOR_FORWARDS))
+def test_xnor_forwards_are_the_dense_layers_the_serving_paths_run(path, monkeypatch):
+    """``ablate.XNOR_FORWARDS`` (the rows ``ablate --source xnor_gemm``
+    sums per forward) is what K2 or K5 is given at M = batch, in order,
+    by a batch-1 forward of the slice chip_smoke serves (E_AUTO: slice
+    E's model on the fused flavor), on the CPU; the conv GEMMs (M = the
+    output pixels) are not dense layers."""
+    from zookeeper_tpu_torch.core import configure
+    from zookeeper_tpu_torch.serving import ServingConfig
+
+    smoke = _chip_smoke()
+    settings = dict(smoke.SLICES[path.split("_")[0]][0])
+    if path == "E_AUTO":
+        settings["model.binary_flavor"] = "auto"
+    name, shapes = ablate.XNOR_FORWARDS[path]
+    seen, real = [], getattr(binary_compute, name)
+
+    def spy(a, b, *args, **kwargs):
+        if a.shape[0] == 1:
+            seen.append(tuple(b.shape))
+        return real(a, b, *args, **kwargs)
+
+    monkeypatch.setattr(binary_compute, name, spy)
+    cfg = ServingConfig()
+    configure(cfg, {**settings, "engine.batch_buckets": (1,), "requests": 1, "max_request": 1,
+                    "seed": 0, "device": "cpu", "verbose": False})
+    cfg.run()  # warms the bucket, then serves the one request: two forwards
+    assert seen == 2 * list(shapes)
+
+
+def test_xnor_rows_are_chip_smokes_small_m_cases():
+    """``ablate.XNOR_ROWS`` (the rows ``ablate --source xnor_gemm``
+    times) are chip_smoke's K2 and K5 cases at M <= 8, in order, and
+    hold every dense layer of ``ablate.XNOR_FORWARDS`` at batch 8."""
+    smoke = _chip_smoke()
+    rows = ablate.XNOR_ROWS
+    for name, cases in (("xnor_matmul_packed_scaled", smoke.K2_CASES),
+                        ("xnor_matmul_packed", smoke.K5_CASES)):
+        assert list(rows[name]) == [(m, kw, n) for m, kw, n, _ in cases if m <= smoke.SMALL_M]
+        assert all(m <= smoke.SMALL_M for m, _, _ in rows[name])
+    for name, shapes in ablate.XNOR_FORWARDS.values():
+        for kw, n in shapes:
+            assert (ablate.K1_BATCH, kw, n) in rows[name]
 
 
 def test_library_path_follows_the_included_headers(tmp_path, monkeypatch):
@@ -235,17 +284,20 @@ def test_flash_variant_names_the_library_code(which, monkeypatch):
 
 @pytest.mark.parametrize("library,what,names", [
     ("packed_weight_matmul", "packed_weight_matmul", {1: "small_m", 0: "mma"}),
-    ("xnor_gemm", "xnor_matmul_packed", {1: "popc", 0: "mma"}),
+    ("xnor_gemm", "xnor_matmul_packed", {2: "small_m", 1: "popc", 0: "mma"}),
+    ("xnor_gemm", "xnor_matmul_packed_scaled", {2: "small_m", 1: "popc", 0: "mma"}),
 ])
 def test_gemm_variant_names_the_library_code(library, what, names, monkeypatch):
-    """``packed_weight_matmul_variant`` and ``xnor_matmul_packed_variant``
-    ask their own library with (M, N, Kw) and name its code through the
-    one dict of variants; a code the dict does not hold raises."""
+    """``packed_weight_matmul_variant``, ``xnor_matmul_packed_variant``
+    and ``xnor_matmul_packed_scaled_variant`` ask their own library with
+    (M, N, Kw) and name its code through the one dict of variants; a code
+    the dict does not hold raises."""
     seen = []
+    small_m = max(names)
 
     def variant(m, n, kw):
         seen.append((m, n, kw))
-        return -1 if m <= 0 else (1 if m <= 8 else 0)
+        return -1 if m <= 0 else (small_m if m <= 8 else 0)
 
     lib = types.SimpleNamespace(**{f"zk_{what}_variant": variant})
     monkeypatch.setattr(cuda_build, "library",
@@ -254,7 +306,7 @@ def test_gemm_variant_names_the_library_code(library, what, names, monkeypatch):
     table = {"packed_weight_matmul": binary_compute.PACKED_WEIGHT_VARIANTS,
              "xnor_gemm": binary_compute.XNOR_VARIANTS}[library]
     assert table == names
-    assert helper(8, 4096, 288) == names[1]
+    assert helper(8, 4096, 288) == names[small_m] == "small_m"
     assert helper(25088, 64, 18) == names[0] == "mma"
     assert seen == [(8, 4096, 288), (25088, 64, 18)]
     with pytest.raises(ValueError, match=f"{what}: no kernel"):

@@ -10,6 +10,9 @@ comparisons are ``assert_array_equal`` on the bits. The CUDA kernels are
 held to these plain versions on the card by ``chip_smoke.py``.
 """
 
+import pathlib
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -17,6 +20,8 @@ import torch
 
 from zookeeper_tpu.ops import binary_compute as jbc
 from zookeeper_tpu_torch.ops import binary_compute as tbc
+
+CSRC = pathlib.Path(__file__).resolve().parents[1] / "zookeeper_tpu_torch" / "csrc"
 
 #: (M, Kw, N): ragged in every axis, a single word, a single row, and the
 #: BinaryAlexNet dense layers' K words at a cut N; then both sides of the
@@ -123,3 +128,148 @@ def test_k5_is_the_pm1_dot_less_the_pad(m, kw, n):
                @ tbc.unpack_bits(tb, 32 * kw, axis=0).double()).to(torch.int32)
         got = tbc.xnor_matmul_packed_plain(ta, tb, k_true=k_true)
         np.testing.assert_array_equal(got.numpy(), (dot - (32 * kw - k_true)).numpy())
+
+
+#: The "small_m" rows (M <= 8) of the card's K2 and K5: M 1, 3 and 8,
+#: Kw 1, 7 and 288 (BinaryAlexNet's first dense layer), N 72 and 130.
+SMALL_M_SHAPES = [(m, kw, n) for m in (1, 3, 8) for kw in (1, 7, 288) for n in (72, 130)]
+
+
+def _pm1(words, axis):
+    """Packed words as +-1 int64 along ``axis`` (bit t of word w is value
+    32w + t; a set bit is +1), independent of the port's unpacking."""
+    bits = (words.astype(np.int64)[..., None] >> np.arange(32)) & 1
+    if axis == 0:
+        bits = np.moveaxis(bits, -1, 1)  # [Kw, 32, N]
+        return (2 * bits - 1).reshape(-1, words.shape[1])
+    return (2 * bits - 1).reshape(words.shape[0], -1)
+
+
+def _equal_pad_operands(m, kw, n, seed):
+    """Seeded words whose K padding (the top 32 Kw - k_true bits of the
+    last word, k_true not a multiple of 32) is set on both sides, as the
+    packing pads with ones."""
+    a, b, scale, _ = _operands(m, kw, n, seed)
+    pad = 1 + seed % 31
+    k_true = 32 * kw - pad
+    ones = np.array(-(1 << (32 - pad)), dtype=np.int64).astype(np.int32)  # bits 32 - pad..31
+    a[:, -1] |= ones
+    b[-1, :] |= ones
+    return a, b, scale, k_true
+
+
+@pytest.mark.parametrize("m,kw,n", SMALL_M_SHAPES)
+def test_k2_is_the_pm1_product_less_the_pad_times_scale(m, kw, n):
+    """The identity K2's "small_m" design computes on the int8 tensor
+    cores: the +-1 product of both decoded operands over all 32 Kw values
+    less ``32 Kw - k_true``, cast to fp32, times the scale, is the plain
+    K2 bit for bit; with equal pad bits that integer is the +-1 dot over
+    the k_true true values."""
+    a, b, scale, k_true = _equal_pad_operands(m, kw, n, 3 * m + kw + n)
+    full = _pm1(a, axis=1) @ _pm1(b, axis=0)
+    dot = full - (32 * kw - k_true)
+    np.testing.assert_array_equal(dot, _pm1(a, 1)[:, :k_true] @ _pm1(b, 0)[:k_true])
+    want = torch.from_numpy(dot.astype(np.int32)).float() * torch.from_numpy(scale)[None, :]
+    got = tbc.xnor_matmul_packed_scaled_plain(torch.from_numpy(a), torch.from_numpy(b),
+                                              torch.from_numpy(scale), k_true=k_true)
+    np.testing.assert_array_equal(got.numpy().view(np.int32), want.numpy().view(np.int32))
+
+
+@pytest.mark.parametrize("m,kw,n", SMALL_M_SHAPES)
+def test_k2_small_m_shapes_match_pallas(m, kw, n):
+    """The port's K2 at the "small_m" rows against the JAX kernel in
+    interpret mode, bit for bit, with equal pad bits."""
+    a, b, scale, k_true = _equal_pad_operands(m, kw, n, 5 * m + kw + n)
+    want = np.asarray(jbc.xnor_matmul_packed_scaled(
+        jnp.asarray(a), jnp.asarray(b), jnp.asarray(scale), k_true=k_true, interpret=True))
+    got = tbc.xnor_matmul_packed_scaled(torch.from_numpy(a), torch.from_numpy(b),
+                                        torch.from_numpy(scale), k_true=k_true)
+    assert got.dtype == torch.float32 and tuple(got.shape) == (m, n)
+    np.testing.assert_array_equal(got.numpy().view(np.int32), want.view(np.int32))
+
+
+def _sign_bytes(w, r):
+    """The kernel's ``sign_bytes``: byte j is 0xFF where bit 8j + 7 - r of
+    w is set (the top bit of byte j of ``w << r``), else 0x00."""
+    x = (w.astype(np.int64) << r) & 0xFFFFFFFF
+    out = np.zeros_like(x)
+    for j in range(4):
+        out |= ((x >> (8 * j + 7)) & 1) * (0xFF << (8 * j))
+    return out
+
+
+def _s8(v):
+    """uint32 values as their 4 little-endian int8 bytes, [..., 4] int64."""
+    return v.astype("<u4").view(np.int8).reshape(*v.shape, 4).astype(np.int64)
+
+
+@pytest.mark.parametrize("m,kw,n", [(1, 1, 8), (3, 7, 72), (8, 37, 130), (6, 288, 20)])
+def test_small_m_sign_byte_decode_gives_k5(m, kw, n):
+    """A numpy model of the K2/K5 "small_m" kernel's arithmetic: for each
+    K word and shift r = 0..7, the weights' ``sign_bytes`` (-x a byte) times
+    the activations' ``~sign_bytes | 0x01010101`` (+-1 a byte) summed to M,
+    each row's S = sum over its words of 2 popcount - 32, and D = -2 M - S
+    less ``32 Kw - k_true`` is the plain K5 bit for bit. The formulas are
+    checked in the source verbatim."""
+    source = (CSRC / "xnor_gemm.cu").read_text()
+    for text in ('asm("prmt.b32 %0, %1, %1, 0xBA98;" : "=r"(d) : "r"(w << r));',
+                 "~sign_bytes(aw, 2 * i) | 0x01010101u", "~sign_bytes(aw, 2 * i + 1) | 0x01010101u",
+                 "s_row += live ? 2 * __popc(aw) - 32 : 0;", "constexpr int M_SCALE = -2;",
+                 "make_int4(M_SCALE * acc[0][c] - sc, M_SCALE * acc[1][c] - sc,"):
+        assert text in source, text
+    rng = np.random.default_rng(m + kw + n)
+    a, b = _words(rng, m, kw), _words(rng, kw, n)
+    k_true = 32 * kw - 3
+    prod = np.zeros((m, n), np.int64)
+    for wd in range(kw):
+        for r in range(8):
+            w_side = _s8(_sign_bytes(b[wd], r))                               # [n, 4]: -x
+            x_side = _s8((~_sign_bytes(a[:, wd], r) | 0x01010101) & 0xFFFFFFFF)  # [m, 4]: +-1
+            assert set(np.unique(w_side)) <= {0, -1} and set(np.unique(x_side)) <= {1, -1}
+            prod += x_side @ w_side.T
+    popc = ((a.astype(np.int64)[..., None] >> np.arange(32)) & 1).sum(-1)
+    s_row = (2 * popc - 32).sum(1)
+    dot = -2 * prod - s_row[:, None] - (32 * kw - k_true)
+    want = tbc.xnor_matmul_packed_plain(torch.from_numpy(a), torch.from_numpy(b), k_true=k_true)
+    np.testing.assert_array_equal(dot, want.numpy())
+
+
+@pytest.mark.parametrize("cs", range(1, 9))
+def test_small_m_cluster_join_gives_every_quad_one_slot(cs):
+    """A model of the "small_m" kernel's cluster join at a cluster of cs
+    blocks: block z owns quads [z Q / cs, (z + 1) Q / cs) of the tile's Q,
+    every block stores its sum of quad e into slot z * share_max + e - (its
+    owner's first quad) of the owner, and the owner reads slots rank *
+    share_max + its e. Each (block, quad) lands in one slot of the array
+    the kernel declares, the slots of two pairs never meet, and each owner
+    reads back exactly the cs sums of each of its quads, at every cs up to
+    the largest cluster, however unevenly cs divides Q. The formulas are
+    checked in the source verbatim."""
+    source = (CSRC / "xnor_gemm.cu").read_text()
+    for text in ("const int share_max = (SM_QUADS + cs - 1) / cs;",
+                 "const int owner = ((e + 1) * cs - 1) / SM_QUADS;",
+                 "cluster.map_shared_rank(slots_in, owner)[z * share_max + e - owner * SM_QUADS / cs]",
+                 "const int q0 = z * SM_QUADS / cs;",
+                 "if (e < (z + 1) * SM_QUADS / cs - q0) {",
+                 "const int4 v = slots_in[rank * share_max + e];",
+                 "__shared__ int4 slots_in[SM_QUADS + SM_CLUSTER_MAX];"):
+        assert text in source, text
+    const = {name: int(v) for name, v in
+             re.findall(r"constexpr int (SM_COLS|SM_CLUSTER_MAX) = (\d+);", source)}
+    quads, slots = 8 * const["SM_COLS"] // 4, 8 * const["SM_COLS"] // 4 + const["SM_CLUSTER_MAX"]
+    assert cs <= const["SM_CLUSTER_MAX"]
+    share_max = (quads + cs - 1) // cs
+    written = {}  # (owner, slot): (block, quad)
+    for z in range(cs):
+        for e in range(quads):
+            owner = ((e + 1) * cs - 1) // quads
+            assert owner * quads // cs <= e < (owner + 1) * quads // cs
+            slot = z * share_max + e - owner * quads // cs
+            assert 0 <= slot < slots and (owner, slot) not in written
+            written[(owner, slot)] = (z, e)
+    for z in range(cs):
+        q0 = z * quads // cs
+        for e in range((z + 1) * quads // cs - q0):
+            assert [written[(z, rank * share_max + e)] for rank in range(cs)] == [
+                (rank, q0 + e) for rank in range(cs)]
+    assert len(written) == cs * quads

@@ -2,7 +2,7 @@
 copies of their source with one part of the work removed. Also K1 at
 every shape the serving paths give it.
 
-    python -m zookeeper_tpu_torch.ablate [--source flash_backward|flash_forward|pack_rows]
+    python -m zookeeper_tpu_torch.ablate [--source flash_backward|flash_forward|pack_rows|xnor_gemm]
                                          [--shape B S H D] [--full] [--against OLD.cu]
 
 Builds, in parallel, the source as it is and ablated copies: the
@@ -28,12 +28,24 @@ in fp32), each build checked against the plain version first; the line
 gives each shape's ms a launch, the sum per forward of each slice, and
 the time of an empty launch (``torch.cuda._sleep(0)``) timed the same
 way.
+
+``--source xnor_gemm`` times K2 and K5 at every row of ``XNOR_ROWS``
+(their "small_m" design, M <= 8), with the sums per batch-8 forward of
+the dense layers of ``XNOR_FORWARDS`` (slices C, E and E_AUTO): the
+source as built, a copy whose small_m kernel decodes both sides to +-1
+bytes with K4's ``pm1_bytes`` (the decode first planned for it, kept
+for comparison with its two-instruction ``sign_bytes``), one with
+blocks of 8 warps in place of 4, and ``--against`` another version.
+Every build is checked against the plain version (twice, the same bits)
+before it is timed; the line ends with the empty-launch floor, as for
+``pack_rows``.
 """
 
 import argparse
 import ctypes
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -76,6 +88,26 @@ ABLATIONS = {
                           "    if (false) {\n      copy_rows16")],
     },
     "pack_rows": {"as built": []},
+    "xnor_gemm": {
+        "as built": [],
+        # The same results with both sides decoded to +-1 bytes by
+        # `s8::pm1_bytes` (five instructions a register, K4's decode): the
+        # products give the dot itself.
+        "pm1 decode": [
+            ("      small_m_step(acc, s_row, w, aw[d], x_live);\n", """\
+      uint32_t x[8];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        x[2 * i] = x_live ? s8::pm1_bytes(aw[d] >> (8 * i)) : 0u;
+        x[2 * i + 1] = x_live ? s8::pm1_bytes(aw[d] >> (8 * i + 4)) : 0u;
+      }
+      s8::small_m_products(acc, w, x);
+"""),
+            ("  constexpr int M_SCALE = -2;\n", "  constexpr int M_SCALE = 1;\n"),
+        ],
+        # The same results from blocks of 8 warps (32 K words a step).
+        "8 warps": [("constexpr int SM_WARPS = 4;\n", "constexpr int SM_WARPS = 8;\n")],
+    },
 }
 
 #: K1's rows per image, by serving path, in the order a forward packs
@@ -97,6 +129,30 @@ K1_SHAPES = {
 #: The batch the serving paths' K1 rows are timed at.
 K1_BATCH = 8
 
+#: K2's and K5's dense layers on the serving paths, (kernel, ((Kw, N),
+#: ...)) in the order a forward runs them, one launch each at M = batch.
+#: C: BinaryAlexNet's two packed dense layers; E: BinaryNet's two on the
+#: "reference" flavor; E_AUTO: the same on "auto".
+XNOR_FORWARDS = {
+    "C": ("xnor_matmul_packed_scaled", ((288, 4096), (128, 4096))),
+    "E": ("xnor_matmul_packed", ((256, 1024), (32, 1024))),
+    "E_AUTO": ("xnor_matmul_packed_scaled", ((256, 1024), (32, 1024))),
+}
+
+#: The rows (M, Kw, N) at M <= 8 that ``--source xnor_gemm`` times, by
+#: kernel, chip_smoke's cases there: the dense layers of
+#: ``XNOR_FORWARDS`` at batch 8, slice C's at batch 1, then rows past M,
+#: N % 4 != 0 (scalar weight loads), a Kw below one block's share, and a
+#: cluster of each size from 2 to 7 on partial column tiles.
+_XNOR_RAGGED = ((3, 288, 4096), (6, 37, 72), (8, 7, 130), (8, 64, 8), (5, 96, 130),
+                (8, 160, 72), (7, 190, 130), (3, 224, 4100))
+XNOR_ROWS = {
+    "xnor_matmul_packed_scaled": ((8, 288, 4096), (8, 128, 4096), (8, 256, 1024), (8, 32, 1024),
+                                  (1, 288, 4096), (1, 128, 4096), *_XNOR_RAGGED),
+    "xnor_matmul_packed": ((8, 256, 1024), (8, 32, 1024), (8, 288, 4096), (8, 128, 4096),
+                           (1, 288, 4096), (1, 128, 4096), *_XNOR_RAGGED),
+}
+
 
 def _build(source: str, workdir: str, against: str = None) -> dict:
     with open(os.path.join(cuda_build.CSRC_DIR, f"{source}.cu")) as f:
@@ -114,7 +170,7 @@ def _build(source: str, workdir: str, against: str = None) -> dict:
             variants["against"] = (f.read(), ["-I", os.path.dirname(os.path.abspath(against))])
     procs = {}
     for name, (text, includes) in variants.items():
-        stem = os.path.join(workdir, name.replace(" ", "_"))
+        stem = os.path.join(workdir, re.sub(r"\W", "_", name))
         with open(f"{stem}.cu", "w") as f:
             f.write(text)
         procs[name] = (subprocess.Popen(
@@ -128,6 +184,8 @@ def _build(source: str, workdir: str, against: str = None) -> dict:
             raise RuntimeError(f"nvcc failed for {name!r}:\n{output}")
         lib = ctypes.CDLL(path)
         for fn, (restype, argtypes) in cuda_build.SIGNATURES[source].items():
+            if not hasattr(lib, fn):  # an older version of the source
+                continue
             getattr(lib, fn).restype = restype
             getattr(lib, fn).argtypes = argtypes
         libs[name] = lib
@@ -168,6 +226,8 @@ def main(argv=None) -> int:
                          capture_output=True, text=True, check=True).stdout.strip()
     if args.source == "pack_rows":
         return _pack_rows_main(smi, args.against)
+    if args.source == "xnor_gemm":
+        return _xnor_gemm_main(smi, args.against)
     b, s, h, d = args.shape
     causal = not args.full
     dev = torch.device("cuda")
@@ -220,6 +280,62 @@ def _pack_rows_main(smi: str, against: str = None) -> int:
                    for name, t in times.items()}
     floor = _time_ms(lambda: torch.cuda._sleep(0), reps=21, inner=10)
     print(json.dumps({"device": smi, "source": "pack_rows", "ms_per_launch": times,
+                      "ms_per_forward": per_forward, "launch_floor_ms": floor}), flush=True)
+    return 0
+
+
+def _xnor_label(name: str, m: int, kw: int, n: int) -> str:
+    return f"{'K5' if name == 'xnor_matmul_packed' else 'K2'} {m}x{kw}x{n}"
+
+
+def _xnor_gemm_main(smi: str, against: str = None) -> int:
+    from zookeeper_tpu_torch.ops import binary_compute as bc
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    g = torch.Generator(device=dev).manual_seed(0)
+    rows = {}  # label: (a, b, scale or None for K5, k_true)
+    for name, m, kw, n in ((name, *row) for name, r in XNOR_ROWS.items() for row in r):
+        a, b = (torch.randint(-(2**31), 2**31, shape, generator=g, device=dev, dtype=torch.int64)
+                .to(torch.int32) for shape in ((m, kw), (kw, n)))
+        scale = None if name == "xnor_matmul_packed" else torch.randn(n, generator=g, device=dev)
+        rows[_xnor_label(name, m, kw, n)] = (a, b, scale, 32 * kw - 5)
+
+    def wrapper(lib):
+        def fn(a, b, scale, k_true):
+            cuda_build._loaded["xnor_gemm"] = lib
+            if scale is None:
+                return bc.xnor_matmul_packed(a, b, k_true=k_true)
+            return bc.xnor_matmul_packed_scaled(a, b, scale, k_true=k_true)
+        return fn
+
+    def plain(a, b, scale, k_true):
+        if scale is None:
+            return bc.xnor_matmul_packed_plain(a, b, k_true=k_true)
+        return bc.xnor_matmul_packed_scaled_plain(a, b, scale, k_true=k_true)
+
+    with tempfile.TemporaryDirectory() as workdir:
+        libs = _build("xnor_gemm", workdir, against)
+        fns = {name: wrapper(lib) for name, lib in libs.items()}
+        for variant, fn in fns.items():
+            for label, r in rows.items():
+                got, again, want = fn(*r), fn(*r), plain(*r)
+                if not all(x.dtype == want.dtype and torch.equal(x.view(torch.int32),
+                                                                  want.view(torch.int32))
+                           for x in (got, again)):
+                    raise RuntimeError(f"xnor_gemm {variant!r} at {label}: not the plain bits")
+        times = {variant: {label: [] for label in rows} for variant in fns}
+        for order in (list(fns), list(reversed(fns))):
+            for variant in order:
+                for label, r in rows.items():
+                    times[variant][label].append(
+                        _time_ms(lambda: fns[variant](*r), reps=21, inner=10))
+        cuda_build._loaded.pop("xnor_gemm")
+    per_forward = {variant: {path: sum(statistics.median(t[_xnor_label(name, K1_BATCH, kw, n)])
+                                       for kw, n in shapes)
+                             for path, (name, shapes) in XNOR_FORWARDS.items()}
+                   for variant, t in times.items()}
+    floor = _time_ms(lambda: torch.cuda._sleep(0), reps=21, inner=10)
+    print(json.dumps({"device": smi, "source": "xnor_gemm", "ms_per_launch": times,
                       "ms_per_forward": per_forward, "launch_floor_ms": floor}), flush=True)
     return 0
 

@@ -3,8 +3,9 @@
 // popcount conv (K3, conv_gemm_popcount.cu): `cp.async` copies,
 // `ldmatrix` operand loads of K-contiguous int8 rows, the
 // `mma.sync.m16n8k32` s8 x s8 -> s32 product, the carry-free decode of
-// packed sign bits to +-1 bytes, and the block-tile GEMM the three
-// sources instantiate for large M (K3 as an implicit-im2col conv).
+// packed sign bits to +-1 bytes, the "small_m" weight loads and
+// products of M <= 8 rows, and the block-tile GEMM the three sources
+// instantiate for large M (K3 as an implicit-im2col conv).
 // Everything sits in `s8` inside an anonymous namespace, so these names
 // cannot meet those of mma_bf16.cuh.
 //
@@ -109,6 +110,56 @@ __device__ __forceinline__ void store_pm1_word(uint8_t* dst, uint32_t w, bool li
   uint4* d = reinterpret_cast<uint4*>(dst);
   d[0] = make_uint4(v[0], v[1], v[2], v[3]);
   d[1] = make_uint4(v[4], v[5], v[6], v[7]);
+}
+
+// The "small_m" layout (K4, and K2/K5 at M <= 8): out^T = W^T X^T,
+// the decoded weight columns the mma's A operand (16 columns a tile),
+// decoded from the packed words straight into the fragment registers,
+// and the <= 8 activation rows its n8 B operand. A warp owns 64 output
+// columns and 4 K words at a time: lane (g, t) = (lane / 4, lane % 4)
+// takes K word t of the four for columns 4g + q (w[q], fragment row g
+// of tile q) and 32 + 4g + q (w[4 + q], row g + 8), q = 0..3, and the
+// activations of that word for row g, so each lane reads whole 16-byte
+// vectors of 4 neighbouring columns' words. K is permuted consistently
+// on both sides (a sum is the same in any order).
+
+// Words of K word `wd` for columns col..col+3, zeros past n (or when
+// !live). `vec`: N % 4 == 0 and b 16-byte aligned, so 4 neighbouring
+// columns' words are one vector.
+__device__ __forceinline__ uint4 load_cols(const uint32_t* __restrict__ b, long long wd, int col,
+                                           int n, bool live, bool vec) {
+  uint4 v = make_uint4(0u, 0u, 0u, 0u);
+  if (!live) return v;
+  const uint32_t* row = b + wd * n;
+  if (vec) {
+    if (col < n) v = __ldg(reinterpret_cast<const uint4*>(row + col));
+  } else {
+    if (col < n) v.x = __ldg(row + col);
+    if (col + 1 < n) v.y = __ldg(row + col + 1);
+    if (col + 2 < n) v.z = __ldg(row + col + 2);
+    if (col + 3 < n) v.w = __ldg(row + col + 3);
+  }
+  return v;
+}
+
+// K4's products: acc[q] += the 4 products of the lane's weight words w
+// (above), decoded to +-1 bytes, with the B operand x. Product i takes
+// bits 8i..8i+7 of each lane group's word: k-slots 4t..4t+3 bits
+// 8i..8i+3 and 16+4t..16+4t+3 bits 8i+4..8i+7, x[2i] and x[2i + 1] for
+// row g. acc[q] then holds rows 2t (c0, c2) and 2t + 1 (c1, c3) of
+// columns 4g + q (c0, c1) and 32 + 4g + q (c2, c3).
+__device__ __forceinline__ void small_m_products(int (&acc)[4][4], const uint32_t (&w)[8],
+                                                 const uint32_t (&x)[8]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const uint32_t af[4] = {
+          pm1_bytes(w[q] >> (8 * i)), pm1_bytes(w[4 + q] >> (8 * i)),
+          pm1_bytes(w[q] >> (8 * i + 4)), pm1_bytes(w[4 + q] >> (8 * i + 4))};
+      mma(acc[q], af, x[2 * i], x[2 * i + 1]);
+    }
+  }
 }
 
 // Named barriers (ids 1..15; 0 is __syncthreads'): `count` threads,

@@ -53,25 +53,7 @@ constexpr int SM_WARPS = 4;
 constexpr int SM_COLS = 64;  // output columns a block (and a warp)
 constexpr int SM_BLOCK_WORDS = SM_WARPS * 4;  // K words a block: 4 a warp
 
-// Words of K word `wd` for columns col..col+3, zeros past n (or kw).
-__device__ __forceinline__ uint4 load_cols(const uint32_t* __restrict__ b, long long wd, int col,
-                                           int n, bool live, bool vec) {
-  uint4 v = make_uint4(0u, 0u, 0u, 0u);
-  if (!live) return v;
-  const uint32_t* row = b + wd * n;
-  if (vec) {
-    if (col < n) v = __ldg(reinterpret_cast<const uint4*>(row + col));
-  } else {
-    if (col < n) v.x = __ldg(row + col);
-    if (col + 1 < n) v.y = __ldg(row + col + 1);
-    if (col + 2 < n) v.z = __ldg(row + col + 2);
-    if (col + 3 < n) v.w = __ldg(row + col + 3);
-  }
-  return v;
-}
-
-// M <= 8 activation rows. `vec`: N % 4 == 0 and b 16-byte aligned, so
-// 4 neighbouring columns' words are one vector.
+// M <= 8 activation rows, `vec` as `s8::load_cols` takes it.
 __global__ void __launch_bounds__(SM_WARPS * 32)
 packed_weight_matmul_small_m_kernel(const int8_t* __restrict__ a,
                                     const uint32_t* __restrict__ b,
@@ -85,13 +67,12 @@ packed_weight_matmul_small_m_kernel(const int8_t* __restrict__ a,
   const int g = lane >> 2;
   const int t = lane & 3;
   const int n0 = blockIdx.x * SM_COLS;
-  // Lane group t takes K word wd of columns n0 + 4g + q (w[q], fragment
-  // row g of tile q) and n0 + 32 + 4g + q (w[4 + q], row g + 8), q = 0..3,
-  // and the 32 activations of word wd for row g (zeros past m or kw):
-  // x[2i], x[2i + 1] are values 8i..8i+3 and 8i+4..8i+7.
+  // Lane group t takes K word wd (`s8::small_m_products` has the
+  // layout), and the 32 activations of word wd for row g (zeros past m
+  // or kw): x[2i], x[2i + 1] are values 8i..8i+3 and 8i+4..8i+7.
   const int wd = blockIdx.y * SM_BLOCK_WORDS + warp * 4 + t;
-  const uint4 lo = load_cols(b, wd, n0 + 4 * g, n, wd < kw, vec);
-  const uint4 hi = load_cols(b, wd, n0 + 32 + 4 * g, n, wd < kw, vec);
+  const uint4 lo = s8::load_cols(b, wd, n0 + 4 * g, n, wd < kw, vec);
+  const uint4 hi = s8::load_cols(b, wd, n0 + 32 + 4 * g, n, wd < kw, vec);
   const uint32_t w[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
   uint4 x0 = make_uint4(0u, 0u, 0u, 0u), x1 = x0;
   if (g < m && wd < kw) {
@@ -106,19 +87,7 @@ packed_weight_matmul_small_m_kernel(const int8_t* __restrict__ a,
   for (int q = 0; q < 4; ++q)
 #pragma unroll
     for (int c = 0; c < 4; ++c) acc[q][c] = 0;
-  // Product i takes bits 8i..8i+7 of each lane group's word: k-slots
-  // 4t..4t+3 are bits 8i..8i+3, slots 16+4t.. bits 8i+4..8i+7, on the
-  // weight side (A) and the activation side (B) alike.
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const uint32_t af[4] = {
-          s8::pm1_bytes(w[q] >> (8 * i)), s8::pm1_bytes(w[4 + q] >> (8 * i)),
-          s8::pm1_bytes(w[q] >> (8 * i + 4)), s8::pm1_bytes(w[4 + q] >> (8 * i + 4))};
-      s8::mma(acc[q], af, x[2 * i], x[2 * i + 1]);
-    }
-  }
+  s8::small_m_products(acc, w, x);
 
   // acc[q]: rows 2t (c0, c2) and 2t + 1 (c1, c3) of columns 4g + q
   // (c0, c1) and 32 + 4g + q (c2, c3).

@@ -19,10 +19,13 @@ PyTorch version beside it:
   weights, on the int8 tensor cores (:func:`packed_weight_matmul_variant`
   names the design a shape takes);
 - K5 :func:`xnor_matmul_packed` — the unfused popcount GEMM on packed
-  operands (the "reference" flavor's conv and dense GEMM; the int8 tensor
-  cores at large M, :func:`xnor_matmul_packed_variant`);
+  operands (the "reference" flavor's conv and dense GEMM): the int8
+  tensor cores at M <= 8 (K split over a cluster) and past M 64, XOR and
+  popcount on the CUDA cores between (:func:`xnor_matmul_packed_variant`);
 - K2 :func:`xnor_matmul_packed_scaled` — K5 with the per-output-channel
-  scale epilogue (the packed dense layer's GEMM);
+  scale epilogue (the packed dense layer's GEMM): K5's int8 tensor-core
+  design at M <= 8, XOR and popcount past it
+  (:func:`xnor_matmul_packed_scaled_variant`);
 - K6 :func:`pack_resid` — 1-bit pack along the batch of the sign bit or
   the STE mask;
 - K7 :func:`unpack_resid_pm1` — the sign-mode inverse of K6, to ±1;
@@ -386,11 +389,15 @@ def packed_weight_matmul(a: torch.Tensor, b_packed: torch.Tensor) -> torch.Tenso
 #: decoded in registers, K split over the card).
 PACKED_WEIGHT_VARIANTS = {0: "mma", 1: "small_m"}
 
-#: The K5 kernels by the code ``zk_xnor_matmul_packed_variant`` returns:
-#: ``"mma"`` (M > 64: both operands decoded to +-1 bytes on the int8
-#: tensor cores) or ``"popc"`` (M <= 64: XOR and popcount on the CUDA
-#: cores, the kernel K2 runs at every M).
-XNOR_VARIANTS = {0: "mma", 1: "popc"}
+#: The K5 and K2 kernels by the code ``zk_xnor_matmul_packed_variant`` /
+#: ``zk_xnor_matmul_packed_scaled_variant`` returns: ``"small_m"`` (M <=
+#: 8, both: the weights as the int8 tensor cores' A operand, both sides
+#: decoded to +-1 bytes in registers, K split over a cluster of blocks
+#: that joins its sums in distributed shared memory), ``"popc"`` (XOR and
+#: popcount on the CUDA cores: K5 at M 9..64, K2 at every M past 8) or
+#: ``"mma"`` (K5 past M 64: both operands decoded to +-1 bytes in the
+#: block-tile GEMM on the int8 tensor cores).
+XNOR_VARIANTS = {0: "mma", 1: "popc", 2: "small_m"}
 
 
 def _gemm_variant(library: str, what: str, names: dict, m: int, n: int, kw: int) -> str:
@@ -660,9 +667,14 @@ def xnor_matmul_packed(
 def xnor_matmul_packed_variant(m: int, n: int, kw: int) -> str:
     """Which K5 kernel a call on the card launches for ``a_packed`` [m,
     kw] and ``b_packed`` [kw, n], as the library's dispatch decides (see
-    :data:`XNOR_VARIANTS`; K2 always runs "popc"). Builds the library at
-    first use."""
+    :data:`XNOR_VARIANTS`). Builds the library at first use."""
     return _gemm_variant("xnor_gemm", "xnor_matmul_packed", XNOR_VARIANTS, m, n, kw)
+
+
+def xnor_matmul_packed_scaled_variant(m: int, n: int, kw: int) -> str:
+    """Which K2 kernel a call on the card launches, as
+    :func:`xnor_matmul_packed_variant` says for K5."""
+    return _gemm_variant("xnor_gemm", "xnor_matmul_packed_scaled", XNOR_VARIANTS, m, n, kw)
 
 
 def xnor_matmul_packed_scaled(

@@ -69,6 +69,7 @@ SIGNATURES = {
         "zk_xnor_matmul_packed": (_I, [_P, _P, _P] + [_I] * 5 + [_P]),
         "zk_xnor_matmul_packed_scaled": (_I, [_P] * 4 + [_I] * 5 + [_P]),
         "zk_xnor_matmul_packed_variant": (_I, [_I, _I, _I]),
+        "zk_xnor_matmul_packed_scaled_variant": (_I, [_I, _I, _I]),
     },
     "decode_attention": {
         "zk_paged_decode_attention": (
