@@ -80,7 +80,13 @@ CUDA card and ``nvcc``. In order:
    (default widths), 32x32x3, 10 classes, fp32, ``"xnor_popcount"``
    packed, ``binary_flavor="reference"`` (K5 15 per batch-8 forward, 7
    at batch 1); its logits must also equal the same model's under
-   ``binary_flavor="auto"`` (K1 7, K3 5, K2 2) bit for bit.
+   ``binary_flavor="auto"`` (K1 7, K3 5, K2 2) bit for bit. The
+   ResNet-topology zoo (``ZOO``: 224x224x3, 1000 classes, bf16,
+   ``"xnor_popcount"``): F Bi-Real-Net-18 packed and BN-folded with its
+   mean|w| scales (K1, K3: 16 each, three convs at stride 2), G the same
+   on ``"xnor"`` (K4 16), H BinaryResNetE18 packed and folded (K1, K3
+   16), I XNORNet packed and folded (K1 6, K3 4, K2 2), J RealToBinaryNet
+   (K1, K3 16) and K ReActNet-A (K1, K3 31) with latent kernels.
 8. Training: ``TrainImageNet`` with QuickNet-Large, 224x224x3, 1000
    classes, bf16, batch 128, ``binary_compute="int8"`` and
    ``pack_residuals=True``. One step from a fixed state (Adam's count at
@@ -92,6 +98,15 @@ CUDA card and ``nvcc``. In order:
    Prints the
    step's device time, peak memory with the residuals packed and not,
    the profiler's top device items, and images/s through ``run()``.
+   Then Bi-Real-Net-18: K1 and K3 at its 16 convs (batch 8 and 1) and K4
+   at slice G's GEMMs, K6 and K7 at its conv inputs' shapes of a
+   batch-128 step, each against its plain version; the same training
+   step checks with ``model=BiRealNet`` (K6 16, K7 16, K8 0: approx_sign
+   keeps its float input). Then ResNet-50 (BASELINE config 5) in bf16
+   and fp32 at batch 128 (six steps on one batch, the loss falling; step
+   time, peak memory, one step's profile, images/s through ``run()``)
+   and ``TrainMnist``
+   (config 1: three epochs on the card, the loss falling, steps/s).
 9. LM kernels: K9 ``flash_attention`` (bf16 causal at the prefill
    buckets [1, 512, 8, 64] and [1, 2048, 8, 64] and at the long-context
    [4, 8192, 8, 64]; fp32 [1, 512, 8, 64]; ragged s=999; causal=False),
@@ -168,7 +183,9 @@ CUDA card and ``nvcc``. In order:
    ``LMServingConfig.run()`` in the slot and paged layouts (2 K9 per
    prefill, 2 K12/K13 per decode step) and takes one training step
    (2 K9-lse, 2 K10, 2 K11).
-15. One JSON line of the kernels (14 rows), then the result line.
+15. One JSON line of the kernels (14 rows; K1, K3, K4, K6 and K7 also
+   with their sums on Bi-Real-Net's path under ``bireal``), then the
+   result line.
 """
 
 import contextlib
@@ -286,6 +303,42 @@ SLICES = {
            "height": 32, "width": 32, "channels": 3, "num_classes": 10},
           lambda bucket: {"xnor_matmul_packed": 15 if bucket == BATCH else 7}),
 }
+#: The ResNet-topology zoo's slices, all 224x224x3, 1000 classes, bf16,
+#: "xnor_popcount" unless named: F Bi-Real-Net-18 packed and BN-folded
+#: (its mean|w| scales; K1 + K3 in each of its 16 binary convs, three at
+#: stride 2); G the same on "xnor" (K4 in each); H BinaryResNetE18 packed
+#: and folded; I XNORNet packed and folded (K1 before each of its 4 binary
+#: convs and 2 binary dense layers, K3 in each conv, K2 in each dense
+#: layer); J RealToBinaryNet and K ReActNet-A with latent kernels packed at
+#: each call (ReActNet: 13 binary 3x3 convs and 18 binary 1x1 convs).
+ZOO = {"model.compute_dtype": "bfloat16", "model.binary_compute": "xnor_popcount", **IMAGENET}
+SLICES.update({
+    "F": ({"model": "BiRealNet", **ZOO, "model.packed_weights": True, "model.fold_bn": True},
+          lambda bucket: {"pack_rows": 16, "conv_gemm_popcount": 16}),
+    "G": ({"model": "BiRealNet", **ZOO, "model.binary_compute": "xnor",
+           "model.packed_weights": True, "model.fold_bn": True},
+          lambda bucket: {"packed_weight_matmul": 16}),
+    "H": ({"model": "BinaryResNetE18", **ZOO, "model.packed_weights": True,
+           "model.fold_bn": True},
+          lambda bucket: {"pack_rows": 16, "conv_gemm_popcount": 16}),
+    "I": ({"model": "XNORNet", **ZOO, "model.packed_weights": True, "model.fold_bn": True},
+          lambda bucket: {"pack_rows": 6, "conv_gemm_popcount": 4,
+                          "xnor_matmul_packed_scaled": 2}),
+    "J": ({"model": "RealToBinaryNet", **ZOO},
+          lambda bucket: {"pack_rows": 16, "conv_gemm_popcount": 16}),
+    "K": ({"model": "ReActNet", **ZOO},
+          lambda bucket: {"pack_rows": 31, "conv_gemm_popcount": 31}),
+})
+#: Bi-Real-Net-18's binary convs at 224x224: (convs, input size, channels
+#: in, out, stride). Each section's first conv past the first section
+#: halves the size (56 -> 28, 28 -> 14, 14 -> 7).
+BIREAL_CONVS = ((4, 56, 64, 64, 1), (1, 56, 64, 128, 2), (3, 28, 128, 128, 1),
+                (1, 28, 128, 256, 2), (3, 14, 256, 256, 1), (1, 14, 256, 512, 2),
+                (3, 7, 512, 512, 1))
+#: Its binary convs' inputs in a training step by shape: (convs, size,
+#: channels), where K6 packs each (sign mode) and K7 unpacks it.
+BIREAL_RESID = ((5, 56, 64), (4, 28, 128), (4, 14, 256), (3, 7, 512))
+BIREAL_TRAIN = {"pack_resid": 16, "unpack_resid_pm1": 16}
 #: Slice E's fused-flavor twin: K1 + K3 in its 5 binary convs, K1 + K2 in
 #: its 2 dense layers.
 E_AUTO = {"pack_rows": 7, "conv_gemm_popcount": 5, "xnor_matmul_packed_scaled": 2}
@@ -347,24 +400,23 @@ def time_ms(torch, fn, reps: int = 21, inner: int = 10) -> float:
     return statistics.median(times)
 
 
-def kernel_phase(torch, bc):
-    """Check and time K1, K3 and K4 at the main path's shapes. Returns
-    {kernel: {"ms", "plain_ms", "library_ms", "bytes", "ops",
-    "max_abs_err"}} summed over one batch-8 forward's launches."""
-    import torch.nn.functional as F
-
-    dev = torch.device("cuda")
-    g = torch.Generator().manual_seed(0)
-
-    def signs(*shape):
-        return torch.where(torch.rand(*shape, generator=g) < 0.5, -1.0, 1.0)
-
+def _binary_totals():
+    """Empty per-kernel totals of K1, K3 and K4 (K1 has no library call)."""
     totals = {
         name: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0.0,
                "ops": 0.0, "max_abs_err": 0.0}
         for name in ("pack_rows", "conv_gemm_popcount", "packed_weight_matmul")
     }
     totals["pack_rows"]["library_ms"] = None
+    return totals
+
+
+def _recorder(torch, totals):
+    """``record(name, count, kernel, plain, library, nbytes, ops, shape)``:
+    check a kernel call equal to its plain version and the same bits on a
+    second call, time it beside its plain version and the library call,
+    print the row and add ``count`` launches of it to ``totals``. Returns
+    the kernel's time."""
 
     def record(name, count, kernel, plain, library, nbytes, ops, shape):
         with deterministic(torch):
@@ -393,12 +445,25 @@ def kernel_phase(torch, bc):
                 t["library_ms"] += count * l_ms
         return k_ms
 
-    # (launches per forward, batch, height, width, channels in, co,
-    # kernel size, stride): slice A's four sections, then K3_EXTRA_CASES.
-    conv_cases = [(n, BATCH, h, h, c, c, 3, 1) for n, h, c in SECTIONS] + list(K3_EXTRA_CASES)
-    for count, b, h, w, ci, co, k, s in conv_cases:
-        x = signs(b, h, w, ci).to(torch.bfloat16).to(dev)
-        q = signs(k, k, ci, co) * (torch.rand(co, generator=g) + 0.1)
+    return record
+
+
+def _signs(torch, g, *shape):
+    return torch.where(torch.rand(*shape, generator=g) < 0.5, -1.0, 1.0)
+
+
+def _conv_rows(torch, bc, record, cases, g) -> None:
+    """K1 and K3 at each conv case (launches per forward, batch, height,
+    width, channels in, co, kernel size, stride): the +-1 bf16 input
+    ones-padded SAME and packed, the weights +-1 times a per-channel scale;
+    K3's yardstick is the cuDNN bf16 conv of the +-1 operands times the
+    scale."""
+    import torch.nn.functional as F
+
+    dev = torch.device("cuda")
+    for count, b, h, w, ci, co, k, s in cases:
+        x = _signs(torch, g, b, h, w, ci).to(torch.bfloat16).to(dev)
+        q = _signs(torch, g, k, k, ci, co) * (torch.rand(co, generator=g) + 0.1)
         packed, scale = bc.pack_conv_kernel(q)
         packed, scale = packed.to(dev), scale.to(dev)
         ciw = packed.shape[2]
@@ -421,6 +486,48 @@ def kernel_phase(torch, bc):
                xq.numel() * 4 + packed.numel() * 4 + co * 4 + b * ho * wo * co * 4,
                2 * b * ho * wo * co * k_true,
                (*xq.shape, f"{k}x{k}/{s}", co, f"M={b * ho * wo}"))
+
+
+def _gemm_rows(torch, bc, record, cases, g) -> None:
+    """K4 at each GEMM case (launches per forward, M, K, N): int8 +-1
+    activations with 5% zeros (the spatial padding's) against packed +-1
+    weights, each row taking the design ``packed_weight_matmul_variant``
+    names ("small_m" up to M 8, "mma" past it); the yardstick is
+    ``torch._int_mm``."""
+    dev = torch.device("cuda")
+    for count, m, k, n in cases:
+        a = _signs(torch, g, m, k)
+        a[torch.rand(m, k, generator=g) < 0.05] = 0.0  # zeros of the spatial padding
+        a = a.to(torch.int8).to(dev)
+        w = _signs(torch, g, k, n)
+        bp = bc.pack_dense_kernel(w)[0].to(dev)
+        kw = bp.shape[0]
+        variant = bc.packed_weight_matmul_variant(m, n, kw)
+        wanted = "small_m" if m <= SMALL_M else "mma"
+        check(variant == wanted, f"packed_weight_matmul at {(m, k, n)}: variant {variant}, "
+                                 f"want {wanted}")
+        library, rows = _int_mm_yardstick(torch, m, 32 * kw, n, dev, g)
+        if rows not in (None, m):
+            print(f"kernel packed_weight_matmul {(m, k, n)}: _int_mm at M padded {m} -> "
+                  f"{rows} (it refuses M={m})", flush=True)
+        record("packed_weight_matmul", count, lambda: bc.packed_weight_matmul(a, bp),
+               lambda: bc.packed_weight_matmul_plain(a, bp), library,
+               m * k + kw * n * 4 + m * n * 4, 2 * m * n * k, (m, k, n, variant))
+
+
+def kernel_phase(torch, bc):
+    """Check and time K1, K3 and K4 at the main path's shapes. Returns
+    {kernel: {"ms", "plain_ms", "library_ms", "bytes", "ops",
+    "max_abs_err"}} summed over one batch-8 forward's launches."""
+    dev = torch.device("cuda")
+    g = torch.Generator().manual_seed(0)
+    totals = _binary_totals()
+    record = _recorder(torch, totals)
+
+    # (launches per forward, batch, height, width, channels in, co,
+    # kernel size, stride): slice A's four sections, then K3_EXTRA_CASES.
+    conv_cases = [(n, BATCH, h, h, c, c, 3, 1) for n, h, c in SECTIONS] + list(K3_EXTRA_CASES)
+    _conv_rows(torch, bc, record, conv_cases, g)
 
     # The per-launch floor of back-to-back launches: an empty kernel
     # (``torch.cuda._sleep(0)``) timed as K1 is. K1's 32 launches a
@@ -476,24 +583,7 @@ def kernel_phase(torch, bc):
                (m, k, str(dtype), f"base +{offset * rows.element_size()} B" if offset else "aligned"))
 
     gemm_cases = [(n, BATCH * h * h, 9 * c, c) for n, h, c in SECTIONS] + list(K4_EXTRA_CASES)
-    for count, m, k, n in gemm_cases:
-        a = signs(m, k)
-        a[torch.rand(m, k, generator=g) < 0.05] = 0.0  # zeros of the spatial padding
-        a = a.to(torch.int8).to(dev)
-        w = signs(k, n)
-        bp = bc.pack_dense_kernel(w)[0].to(dev)
-        kw = bp.shape[0]
-        variant = bc.packed_weight_matmul_variant(m, n, kw)
-        wanted = "small_m" if m <= SMALL_M else "mma"
-        check(variant == wanted, f"packed_weight_matmul at {(m, k, n)}: variant {variant}, "
-                                 f"want {wanted}")
-        library, rows = _int_mm_yardstick(torch, m, 32 * kw, n, dev, g)
-        if rows not in (None, m):
-            print(f"kernel packed_weight_matmul {(m, k, n)}: _int_mm at M padded {m} -> "
-                  f"{rows} (it refuses M={m})", flush=True)
-        record("packed_weight_matmul", count, lambda: bc.packed_weight_matmul(a, bp),
-               lambda: bc.packed_weight_matmul_plain(a, bp), library,
-               m * k + kw * n * 4 + m * n * 4, 2 * m * n * k, (m, k, n, variant))
+    _gemm_rows(torch, bc, record, gemm_cases, g)
     return totals
 
 
@@ -948,14 +1038,42 @@ def _restore(state, snap) -> None:
     state.opt_state["count"], state.step = count, step
 
 
-def training_phase(torch, bc, smi):
-    """TrainImageNet's QuickNet-Large int8 step with 1-bit residuals:
-    launches, finiteness and bit equality against the plain-kernel step
-    and the unpacked step from one fixed state; then device time, peak
-    memory, the profiler's top items and images/s through ``run()``.
-    Returns (launches per step, stats)."""
+def _profile_train_step(torch, run_step, step_ms: float, tag: str, top: int = 15):
+    """Trace one ``run_step()`` with ``torch.profiler`` and print its device
+    activities' summed time against the step's device time ``step_ms``
+    (the busy share) and the ``top`` items. Returns (busy ms, device
+    activities)."""
     from torch.profiler import ProfilerActivity, profile
 
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run_step()
+        torch.cuda.synchronize()
+    attr = ("self_device_time_total" if hasattr(prof.key_averages()[0], "self_device_time_total")
+            else "self_cuda_time_total")
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(getattr(e, attr) for e in kernels) / 1e3
+    launched = sum(e.count for e in kernels)
+    print(f"{tag} profile: {launched} device activities, {busy_ms:.3f} ms "
+          f"busy, {100 * busy_ms / step_ms:.1f}% of the {step_ms:.3f} "
+          f"ms step; top items:", flush=True)
+    for e in sorted(kernels, key=lambda e: getattr(e, attr), reverse=True)[:top]:
+        t = getattr(e, attr) / 1e3
+        print(f"  {t:9.3f} ms {100 * t / busy_ms:5.1f}% x{e.count:<5d} {e.key[:110]}",
+              flush=True)
+    return busy_ms, launched
+
+
+def training_phase(torch, bc, smi, model="QuickNetLarge", per_step=None, tag="training"):
+    """TrainImageNet's int8 step with 1-bit residuals of ``model``
+    (QuickNet-Large; Bi-Real-Net-18 too): launches (``per_step``, by
+    default QuickNet-Large's K6, K7 and K8 per binary conv), finiteness
+    and bit equality against the plain-kernel step and the unpacked step
+    from one fixed state; then device time, peak memory, the profiler's
+    top items and images/s through ``run()``. Returns (launches per
+    step, stats)."""
+    if per_step is None:
+        per_step = {name: n * sum(s[0] for s in SECTIONS) for name, n in RESID_PER_CONV.items()}
     from zookeeper_tpu_torch.core import configure
     from zookeeper_tpu_torch.training.imagenet import TrainImageNet
 
@@ -964,7 +1082,7 @@ def training_phase(torch, bc, smi):
     def experiment(pack: bool, epochs: int = 1):
         exp = TrainImageNet()
         configure(exp, {
-            "model": "QuickNetLarge",
+            "model": model,
             "model.compute_dtype": "bfloat16",
             "model.binary_compute": "int8",
             "model.pack_residuals": pack,
@@ -987,7 +1105,7 @@ def training_phase(torch, bc, smi):
     init = _snapshot(state)
     param_names = [name for name, _ in state.module.named_parameters()]
     n_params = sum(p.numel() for p in state.module.parameters())
-    print(f"training: QuickNet-Large ({n_params} parameters) built, "
+    print(f"{tag}: {model} ({n_params} parameters) built, "
           f"{TRAIN_EXAMPLES} synthetic ImageNet examples made and one batch "
           f"{tuple(batch['input'].shape)} staged in {time.perf_counter() - t0:.1f} s",
           flush=True)
@@ -1018,9 +1136,9 @@ def training_phase(torch, bc, smi):
     def same(a, b, label):
         bad = [k for k in a if not _same_bits(torch, a[k], b[k])]
         check(set(a) == set(b) and not bad,
-              f"training: {label} differs from the kernel step in {len(bad)} of "
+              f"{tag}: {label} differs from the kernel step in {len(bad)} of "
               f"{len(a)} tensors, e.g. {bad[:4]}")
-        print(f"training: {label} equals the kernel step bit for bit "
+        print(f"{tag}: {label} equals the kernel step bit for bit "
               f"({len(a)} tensors: loss, gradients, parameters, BN statistics, "
               f"Adam moments)", flush=True)
 
@@ -1034,14 +1152,14 @@ def training_phase(torch, bc, smi):
         launches = {name: bc.LAUNCHES[name] for name in RESID_KERNELS}
         copies = dict(bc.COPIES)
         for name in bc.LAUNCHES:
-            want = RESID_PER_CONV.get(name, 0) * sum(s[0] for s in SECTIONS)
+            want = per_step.get(name, 0)
             check(bc.LAUNCHES[name] == want,
-                  f"training: {name} launched {bc.LAUNCHES[name]} times in one step, want {want}")
+                  f"{tag}: {name} launched {bc.LAUNCHES[name]} times in one step, want {want}")
         loss = res_a["loss"].item()
-        check(math.isfinite(loss), f"training: loss {loss} is not finite")
+        check(math.isfinite(loss), f"{tag}: loss {loss} is not finite")
         moved = sum(not _same_bits(torch, res_a[f"state {n}"], init[0][n]) for n in param_names)
-        check(moved > 0, "training: the step moved no parameter")
-        print(f"training: one step, loss {loss:.6f}, launches {launches}, "
+        check(moved > 0, f"{tag}: the step moved no parameter")
+        print(f"{tag}: one step, loss {loss:.6f}, launches {launches}, "
               f"strided inputs copied {copies}, {moved} of {len(param_names)} "
               f"parameter tensors moved", flush=True)
 
@@ -1055,7 +1173,7 @@ def training_phase(torch, bc, smi):
         ):
             res_b = traced_step(state)
         check(bc.LAUNCHES == before,
-              f"training: the plain-kernel step launched kernels ({before} -> {bc.LAUNCHES})")
+              f"{tag}: the plain-kernel step launched kernels ({before} -> {bc.LAUNCHES})")
         same(res_a, res_b, "the plain-kernel step")
         del res_b
 
@@ -1064,7 +1182,7 @@ def training_phase(torch, bc, smi):
         bc.reset_launches()
         res_c = traced_step(state_off)
         check(all(bc.LAUNCHES[n] == 0 for n in RESID_KERNELS),
-              f"training: the unpacked step launched residual kernels {bc.LAUNCHES}")
+              f"{tag}: the unpacked step launched residual kernels {bc.LAUNCHES}")
         same(res_a, res_c, "the pack_residuals=False step")
         del res_a, res_c
 
@@ -1090,10 +1208,10 @@ def training_phase(torch, bc, smi):
     # compared: both peaks also hold the two train states and the
     # snapshot.
     check(peak_on - base_on < peak_off - base_off,
-          f"training: the step's peak memory with packed residuals "
+          f"{tag}: the step's peak memory with packed residuals "
           f"{peak_on - base_on} B is not below the unpacked step's "
           f"{peak_off - base_off} B")
-    print(f"training: peak memory {json.dumps(memory)}", flush=True)
+    print(f"{tag}: peak memory {json.dumps(memory)}", flush=True)
 
     # Device time of one step on a device-resident batch, pack on and off
     # in turns (on, off, off, on), three steps each after a warm step;
@@ -1118,30 +1236,15 @@ def training_phase(torch, bc, smi):
                "step_ms_pack_off": statistics.median(times[False]),
                "step_wall_ms_pack_on": statistics.median(walls[True]),
                "step_wall_ms_pack_off": statistics.median(walls[False])}
-    print(f"training: time per step {json.dumps(step_ms)} (device, all: "
+    print(f"{tag}: time per step {json.dumps(step_ms)} (device, all: "
           f"{json.dumps({str(k): v for k, v in times.items()})})", flush=True)
     del state_off, exp_off
     torch.cuda.empty_cache()
 
-    # The profiler's kernels for one step (pack on): their summed device
-    # time against the step's device time gives the busy share.
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        step(state, batch)
-        torch.cuda.synchronize()
-    attr = ("self_device_time_total" if hasattr(prof.key_averages()[0], "self_device_time_total")
-            else "self_cuda_time_total")
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_ms = sum(getattr(e, attr) for e in kernels) / 1e3
-    launched = sum(e.count for e in kernels)
+    # The profiler's kernels for one step (pack on).
+    busy_ms, launched = _profile_train_step(torch, lambda: step(state, batch),
+                                      step_ms["step_ms_pack_on"], tag)
     busy_share = busy_ms / step_ms["step_ms_pack_on"]
-    print(f"training profile: {launched} device activities, {busy_ms:.3f} ms "
-          f"busy, {100 * busy_share:.1f}% of the {step_ms['step_ms_pack_on']:.3f} "
-          f"ms step; top items:", flush=True)
-    for e in sorted(kernels, key=lambda e: getattr(e, attr), reverse=True)[:15]:
-        t = getattr(e, attr) / 1e3
-        print(f"  {t:9.3f} ms {100 * t / busy_ms:5.1f}% x{e.count:<5d} {e.key[:110]}",
-              flush=True)
 
     # images/s through run(): two epochs of three steps, host pipeline
     # (RandomResizedCrop on 8 worker threads, pinned prefetch) included.
@@ -1150,20 +1253,159 @@ def training_phase(torch, bc, smi):
     torch.cuda.synchronize()
     steps = 2 * 3
     for name in RESID_KERNELS:
-        want = RESID_PER_CONV[name] * sum(s[0] for s in SECTIONS) * steps
+        want = per_step.get(name, 0) * steps
         check(bc.LAUNCHES[name] == want,
-              f"training run(): {name} launched {bc.LAUNCHES[name]} times, want {want}")
+              f"{tag} run(): {name} launched {bc.LAUNCHES[name]} times, want {want}")
     losses = [e["loss"] for e in history["train"]]
-    check(all(math.isfinite(v) for v in losses), f"training run(): losses {losses}")
+    check(all(math.isfinite(v) for v in losses), f"{tag} run(): losses {losses}")
     run_stats = {f"images_per_s_epoch{i + 1}": e["examples_per_sec"]
                  for i, e in enumerate(history["train"])}
-    print(f"training run(): losses {losses}, {json.dumps(run_stats)}", flush=True)
+    print(f"{tag} run(): losses {losses}, {json.dumps(run_stats)}", flush=True)
     stats = {**step_ms, **memory, **run_stats, "device_busy_ms": busy_ms,
              "device_busy_share": busy_share, "device_activities_per_step": launched}
-    print(f"training on {smi}: {json.dumps(stats)}", flush=True)
+    print(f"{tag} on {smi}: {json.dumps(stats)}", flush=True)
     del exp, state
     torch.cuda.empty_cache()
     return launches, stats
+
+
+def bireal_kernel_phase(torch, bc):
+    """K1 and K3 at Bi-Real-Net-18's 16 binary convs (slice F), at batch 8
+    (launches per forward) and 1, the three stride-2 convs included, and
+    K4 at its slice-G GEMMs (the nine taps fused: M = batch x output
+    pixels, K = 9 x channels in, N = channels out), each equal to its plain
+    version and the same bits twice, timed beside it and its yardstick.
+    Returns per-kernel totals over one batch-8 forward of F (K1, K3) and
+    of G (K4)."""
+    g = torch.Generator().manual_seed(7)
+    totals = _binary_totals()
+    record = _recorder(torch, totals)
+    _conv_rows(torch, bc, record, [
+        (n if b == BATCH else 0, b, h, h, ci, co, 3, s)
+        for b in (BATCH, 1) for n, h, ci, co, s in BIREAL_CONVS], g)
+    _gemm_rows(torch, bc, record, [
+        (n if b == BATCH else 0, b * (h // s) ** 2, 9 * ci, co)
+        for b in (BATCH, 1) for n, h, ci, co, s in BIREAL_CONVS], g)
+    return totals
+
+
+def bireal_resid_phase(torch, bc):
+    """K6 (sign mode) and K7 at the shapes of Bi-Real-Net-18's binary conv
+    inputs in a batch-128 bf16 step (approx_sign keeps its float input, so
+    no mask is packed and K8 has no work), each equal to its plain version
+    bit for bit, timed beside it. Returns per-kernel totals over one
+    step."""
+    dev = torch.device("cuda")
+    g = torch.Generator().manual_seed(8)
+    totals = {name: {"ms": 0.0, "plain_ms": 0.0, "library_ms": None, "bytes": 0.0,
+                     "ops": 0.0, "max_abs_err": 0.0} for name in BIREAL_TRAIN}
+    for count, h, c in BIREAL_RESID:
+        shape = (TRAIN_BATCH, h, h, c)
+        x = _signs(torch, g, *shape).to(torch.bfloat16).to(dev)
+        words = bc.pack_resid_plain(x)
+        n = h * h * c
+        io = TRAIN_BATCH * n * 2 + -(-TRAIN_BATCH // 32) * n * 4
+        for name, kernel, plain in (
+            ("pack_resid", lambda: bc.pack_resid(x), lambda: bc.pack_resid_plain(x)),
+            ("unpack_resid_pm1", lambda: bc.unpack_resid_pm1(words, shape, torch.bfloat16),
+             lambda: bc.unpack_resid_pm1_plain(words, shape, torch.bfloat16)),
+        ):
+            with deterministic(torch):
+                got, want = kernel(), plain()
+                torch.cuda.synchronize()
+            check(_same_bits(torch, got, want),
+                  f"{name} at {shape}: disagrees with its plain version "
+                  f"(max err {_max_abs_err(torch, got, want)})")
+            k_ms, p_ms = time_ms(torch, kernel), time_ms(torch, plain, reps=21, inner=2)
+            b_ms, b_by = bound_ms(name, io, TRAIN_BATCH * n)
+            print(f"kernel {name} {shape} bfloat16 (Bi-Real): equal bits, kernel {k_ms:.6f} ms, "
+                  f"plain {p_ms:.6f} ms, library none, bound {b_ms:.6f} ms by {b_by}, "
+                  f"launches/step {count}", flush=True)
+            t = totals[name]
+            t["ms"] += count * k_ms
+            t["plain_ms"] += count * p_ms
+            t["bytes"] += count * io
+            t["ops"] += count * TRAIN_BATCH * n
+    return totals
+
+
+def resnet_training_phase(torch, bc, smi):
+    """ResNet-50 (BASELINE config 5) through TrainImageNet at batch 128, in
+    bf16 and fp32: six steps on one staged batch from a fixed state (Adam
+    at a constant 1e-3), the loss finite and lower after them than before;
+    each step's device time (CUDA events), peak memory, one step's profile
+    (busy share, top items), and images/s through ``run()`` (one epoch of three steps, the host pipeline
+    included). It launches no kernel of the port. Returns stats by
+    dtype."""
+    from zookeeper_tpu_torch.core import configure
+    from zookeeper_tpu_torch.training.imagenet import TrainImageNet
+
+    dev = torch.device("cuda")
+    out = {}
+    for dtype in ("bfloat16", "float32"):
+        exp = TrainImageNet()
+        configure(exp, {
+            "model": "ResNet50", "model.compute_dtype": dtype,
+            "optimizer.schedule": "ConstantSchedule", "optimizer.schedule.base_lr": 1e-3,
+            "loader.dataset.num_train_examples": TRAIN_EXAMPLES, "batch_size": TRAIN_BATCH,
+            "epochs": 1, "steps_per_epoch": 3, "validate": False, "seed": 0,
+            "device": "cuda", "verbose": False,
+        }, name="experiment")
+        state = exp.build_state(dev)
+        batches = exp.loader.batches("train", device=dev, epoch=0, max_batches=1)
+        batch = next(batches)
+        batches.close()
+        step = exp._train_step_fn()
+        bc.reset_launches()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses, times = [], []
+        for _ in range(7):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            _, metrics = step(state, batch)
+            end.record()
+            end.synchronize()
+            losses.append(metrics["loss"].item())
+            times.append(start.elapsed_time(end))
+        check(sum(bc.LAUNCHES.values()) == 0, f"ResNet-50 launched kernels {bc.LAUNCHES}")
+        check(all(math.isfinite(v) for v in losses) and losses[-1] < losses[0],
+              f"ResNet-50 {dtype}: losses {losses} not finite or not falling")
+        step_ms = statistics.median(times[1:])
+        peak = torch.cuda.max_memory_allocated() / 2.0**30
+        busy_ms, _ = _profile_train_step(torch, lambda: step(state, batch), step_ms,
+                                   f"resnet50 {dtype}", top=10)
+        history = exp.run()
+        run_ips = history["train"][0]["examples_per_sec"]
+        out[dtype] = {"step_ms": step_ms, "images_per_s_step": TRAIN_BATCH / step_ms * 1e3,
+                      "images_per_s_run": run_ips, "peak_gib": peak,
+                      "device_busy_share": busy_ms / step_ms,
+                      "loss_first": losses[0], "loss_last": losses[-1]}
+        print(f"resnet50 {dtype} on {smi}: losses {[round(v, 4) for v in losses]}, step times "
+              f"{[round(t, 3) for t in times]} ms; {json.dumps(out[dtype])}", flush=True)
+        del exp, state, batch
+        torch.cuda.empty_cache()
+    return out
+
+
+def mnist_phase(torch, smi):
+    """TrainMnist (BASELINE config 1: SimpleCnn on synthetic MNIST, batch
+    64) through ``run()`` on the card for three epochs of 16 steps: the
+    epoch loss finite and falling; steps/s per epoch."""
+    from zookeeper_tpu_torch.core import configure
+    from zookeeper_tpu_torch.training.mnist import TrainMnist
+
+    exp = TrainMnist()
+    configure(exp, {"epochs": 3, "device": "cuda", "verbose": False}, name="experiment")
+    history = exp.run()
+    losses = [e["loss"] for e in history["train"]]
+    check(all(math.isfinite(v) for v in losses) and losses[-1] < losses[0],
+          f"TrainMnist: epoch losses {losses} not finite or not falling")
+    stats = {"losses": losses, "val": history["validation"][-1],
+             "steps_per_s": [e["examples_per_sec"] / exp.batch_size for e in history["train"]]}
+    print(f"mnist on {smi}: {json.dumps(stats)}", flush=True)
+    return stats
 
 
 #: The LM serving slice: the long-context TransformerLM of
@@ -2324,6 +2566,13 @@ def main() -> None:
           + " ".join(f"{label} {json.dumps(stats)}" for label, (_, stats) in slices.items()),
           flush=True)
     launches_t, _ = training_phase(torch, bc, smi)
+    bireal = bireal_kernel_phase(torch, bc)
+    bireal.update(bireal_resid_phase(torch, bc))
+    launches_bt, _ = training_phase(torch, bc, smi, model="BiRealNet",
+                                    per_step=BIREAL_TRAIN, tag="bireal training")
+    resnet = resnet_training_phase(torch, bc, smi)
+    mnist = mnist_phase(torch, smi)
+    print(f"zoo on {smi}: resnet50 {json.dumps(resnet)} mnist {json.dumps(mnist)}", flush=True)
 
     from zookeeper_tpu_torch.ops import attention as A
 
@@ -2363,6 +2612,22 @@ def main() -> None:
         if name == "pack_rows":
             # Per forward: its 32 launches at the empty-kernel floor.
             rows[-1]["launch_floor_ms"] = t["launch_floor_ms"]
+        # Bi-Real-Net-18's path: K1 and K3 per slice-F forward, K4 per
+        # slice-G forward, K6 and K7 per training step (its rows' sums).
+        if name in bireal:
+            b = bireal[name]
+            path = {"pack_rows": "F", "conv_gemm_popcount": "F",
+                    "packed_weight_matmul": "G"}.get(name, "training step")
+            least, by = bound_ms(name, b["bytes"], b["ops"])
+            rows[-1]["bireal"] = {
+                "path": path, "ms": b["ms"], "plain_ms": b["plain_ms"], "bound_ms": least,
+                "bound_by": by, "library_ms": b["library_ms"],
+                "launches": slices[path][0][name] if path in slices else launches_bt[name],
+            }
+        if name in ("mask_mul_resid", "xnor_matmul_packed_scaled"):
+            # K8 has no work on Bi-Real's step; K2 runs in XNORNet's dense stage.
+            rows[-1]["zoo_launches"] = (launches_bt[name] if name == "mask_mul_resid"
+                                        else slices["I"][0][name])
     # LM kernels, per main-path unit: K9 per prefill dispatch (4 layers)
     # over the slots run's bucket mix; K12 and K13 per decode step (4
     # layers) at a mid-run step of the slots / paged run.

@@ -6,9 +6,12 @@ package's pipeline for the same seed and epoch.
 
 from zookeeper_tpu_torch.data.augrng import AugRng
 from zookeeper_tpu_torch.data.dataset import (
+    ArrayDataset,
     Dataset,
+    SyntheticCifar10,
     SyntheticImageClassification,
     SyntheticImageNet,
+    SyntheticMnist,
     SyntheticTokens,
 )
 from zookeeper_tpu_torch.data.pipeline import DataLoader, batch_iterator, prefetch_to_device
@@ -21,6 +24,7 @@ from zookeeper_tpu_torch.data.preprocessing import (
 from zookeeper_tpu_torch.data.source import ArraySource, DataSource
 
 __all__ = [
+    "ArrayDataset",
     "ArraySource",
     "AugRng",
     "DataLoader",
@@ -29,8 +33,10 @@ __all__ = [
     "ImageClassificationPreprocessing",
     "PassThroughPreprocessing",
     "Preprocessing",
+    "SyntheticCifar10",
     "SyntheticImageClassification",
     "SyntheticImageNet",
+    "SyntheticMnist",
     "SyntheticTokens",
     "TokenPreprocessing",
     "batch_iterator",

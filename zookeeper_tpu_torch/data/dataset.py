@@ -2,11 +2,12 @@
 
 The port's own copy of the part of ``zookeeper_tpu/data/dataset.py``
 that training needs: the abstract ``Dataset`` (``train()``/
-``validation()`` sources and the class-count contract), the
-always-available synthetic image datasets and the synthetic token corpus
+``validation()`` sources and the class-count contract), ``ArrayDataset``
+over in-memory arrays, the always-available synthetic image datasets
+(MNIST-, CIFAR-10- and ImageNet-shaped) and the synthetic token corpus
 ``SyntheticTokens``, each of which generates the same bytes as the JAX
-package's for the same seed. The TFDS- and store-backed datasets are not
-ported yet (ROADMAP.md).
+package's for the same seed. The TFDS-, store- and grain-backed datasets
+and ``SklearnDigits`` are not ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -43,6 +44,62 @@ class Dataset:
             f"{type(self).__name__} cannot infer its class count; set "
             "`num_classes` on the dataset."
         )
+
+
+@component
+class ArrayDataset(Dataset):
+    """A dataset over in-memory arrays, given after construction by
+    ``with_data`` (or by subclassing); its class count is inferred from
+    the integer ``label`` feature."""
+
+    _train_arrays: Optional[Dict[str, np.ndarray]] = None
+    _validation_arrays: Optional[Dict[str, np.ndarray]] = None
+
+    def with_data(
+        self,
+        train: Dict[str, np.ndarray],
+        validation: Optional[Dict[str, np.ndarray]] = None,
+    ) -> "ArrayDataset":
+        self._train_arrays = train
+        self._validation_arrays = validation
+        return self
+
+    def train(self) -> DataSource:
+        if self._train_arrays is None:
+            raise ValueError("ArrayDataset has no data; call with_data() first.")
+        return ArraySource(self._train_arrays)
+
+    def validation(self) -> Optional[DataSource]:
+        if self._validation_arrays is None:
+            return None
+        return ArraySource(self._validation_arrays)
+
+    def infer_num_classes(self) -> int:
+        if self._train_arrays is not None:
+            return _labels_to_num_classes(self._train_arrays, "ArrayDataset")
+        return super().infer_num_classes()
+
+
+def _labels_to_num_classes(arrays: Dict[str, np.ndarray], what: str) -> int:
+    """max(label) + 1 of the integer ``label`` feature; without one, of the
+    only integer feature with one value per example (image-like integer
+    arrays never count)."""
+    label = arrays.get("label")
+    if label is not None and not np.issubdtype(np.asarray(label).dtype, np.integer):
+        label = None
+    if label is None:
+        candidates = [
+            v for v in arrays.values()
+            if np.issubdtype(np.asarray(v).dtype, np.integer) and np.asarray(v).ndim == 1
+        ]
+        if len(candidates) == 1:
+            label = candidates[0]
+    if label is None:
+        raise ValueError(
+            f"{what} has no scalar integer 'label' feature to infer "
+            "num_classes from; set `num_classes` explicitly."
+        )
+    return int(np.max(label)) + 1
 
 
 def _synthetic_image_classification(
@@ -106,6 +163,26 @@ class SyntheticImageClassification(Dataset):
         return ArraySource(
             self._arrays(self.num_validation_examples, self.seed + 1)
         )
+
+
+@component
+class SyntheticMnist(SyntheticImageClassification):
+    """MNIST-shaped synthetic data (28x28x1, 10 classes)."""
+
+    image_height: int = Field(28)
+    image_width: int = Field(28)
+    image_channels: int = Field(1)
+    num_classes: int = Field(10)
+
+
+@component
+class SyntheticCifar10(SyntheticImageClassification):
+    """CIFAR-10-shaped synthetic data (32x32x3, 10 classes)."""
+
+    image_height: int = Field(32)
+    image_width: int = Field(32)
+    image_channels: int = Field(3)
+    num_classes: int = Field(10)
 
 
 @component

@@ -1,17 +1,30 @@
-"""Models: the abstract ``Model`` component, the binary zoo (the QuickNet
-family, BinaryNet, BinaryAlexNet) and the TransformerLM family."""
+"""Models: the abstract ``Model`` component; the binary zoo (the QuickNet
+family, BinaryNet, BinaryAlexNet, XNORNet, DoReFaNet; the ResNet-topology
+BiRealNet, BinaryResNetE18, RealToBinaryNet and ReActNet); the fp
+ResNet50/101/152, SimpleCnn and Mlp; and the TransformerLM family."""
 
 from zookeeper_tpu_torch.models.base import Model
 from zookeeper_tpu_torch.models.binary import (
     BinaryAlexNet,
     BinaryNet,
+    DoReFaNet,
     QuickNet,
     QuickNetLarge,
     QuickNetSmall,
+    XNORNet,
 )
+from zookeeper_tpu_torch.models.binary_resnet import (
+    BinaryResNetE18,
+    BiRealNet,
+    ReActNet,
+    RealToBinaryNet,
+)
+from zookeeper_tpu_torch.models.resnet import ResNet50, ResNet101, ResNet152
+from zookeeper_tpu_torch.models.simple import Mlp, SimpleCnn
 from zookeeper_tpu_torch.models.transformer import TransformerLM
 
 __all__ = [
-    "BinaryAlexNet", "BinaryNet", "Model", "QuickNet", "QuickNetLarge", "QuickNetSmall",
-    "TransformerLM",
+    "BiRealNet", "BinaryAlexNet", "BinaryNet", "BinaryResNetE18", "DoReFaNet", "Mlp", "Model",
+    "QuickNet", "QuickNetLarge", "QuickNetSmall", "ReActNet", "RealToBinaryNet", "ResNet50",
+    "ResNet101", "ResNet152", "SimpleCnn", "TransformerLM", "XNORNet",
 ]

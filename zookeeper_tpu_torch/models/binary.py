@@ -16,6 +16,7 @@ creation order, so a JAX checkpoint maps across by name
 with the BN created after it.
 """
 
+import functools
 from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
@@ -26,6 +27,7 @@ from zookeeper_tpu_torch.core import Field, component
 from zookeeper_tpu_torch.models.base import Model
 from zookeeper_tpu_torch.ops.binary_compute import _spatial_pad
 from zookeeper_tpu_torch.ops.layers import BatchNorm, Conv, Dense, QuantConv, QuantDense
+from zookeeper_tpu_torch.ops.quantizers import dorefa
 
 _FOLD_BN_TRAINING_ERROR = (
     "fold_bn=True is a DEPLOYMENT mode: the binary-conv BatchNorms are "
@@ -69,9 +71,23 @@ def _dense_stage_fold(
     return fold_bn and dense_packed
 
 
-def max_pool(x: torch.Tensor, window: Tuple[int, int], strides: Tuple[int, int]) -> torch.Tensor:
-    """``flax.linen.max_pool`` over NHWC with VALID padding."""
+def max_pool(
+    x: torch.Tensor, window: Tuple[int, int], strides: Tuple[int, int], padding: str = "VALID"
+) -> torch.Tensor:
+    """``flax.linen.max_pool`` over NHWC. SAME pads as XLA does (the odd
+    pixel after) with -inf, then pools VALID: ``F.max_pool2d``'s own
+    padding is symmetric and would shift every window."""
+    x, _, _ = _spatial_pad(x, *window, strides, padding, float("-inf"))
     return F.max_pool2d(x.permute(0, 3, 1, 2), window, strides).permute(0, 2, 3, 1)
+
+
+def avg_pool(
+    x: torch.Tensor, window: Tuple[int, int], strides: Tuple[int, int], padding: str = "VALID"
+) -> torch.Tensor:
+    """``flax.linen.avg_pool`` over NHWC: SAME pads with zeros that count
+    in the mean (flax's ``count_include_pad=True``)."""
+    x, _, _ = _spatial_pad(x, *window, strides, padding, 0.0)
+    return F.avg_pool2d(x.permute(0, 3, 1, 2), window, strides).permute(0, 2, 3, 1)
 
 
 def _pooled(size: int, window: int, stride: int) -> int:
@@ -135,6 +151,8 @@ class _QuickNetModule(nn.Module):
     ``kernel_scale``/``bias`` by ``ops.packed.pack_quantconv_params``. The
     skipped BN still takes its number, so the remaining BatchNorm names
     match the trained checkpoint."""
+
+    KERNEL_QUANTIZER = "ste_sign"
 
     def __init__(
         self,
@@ -242,8 +260,10 @@ class _QuickNetModule(nn.Module):
 def _initialize_packed(model: Model, module: nn.Module, seed: int) -> nn.Module:
     """A packed build gets the packed (and, where it folds, folded) form of
     its float twin initialized from the same seed, through
-    ``pack_quantconv_params``: the deployment path a trained float model
-    takes. Other builds initialize in place."""
+    ``pack_quantconv_params`` with the kernel quantizer the family trains
+    with (the module's ``KERNEL_QUANTIZER``: ``magnitude_aware_sign``
+    gives Bi-Real-Net and XNOR-Net their mean|w| scales): the deployment
+    path a trained float model takes. Other builds initialize in place."""
     if not getattr(module, "packed_any", False):
         return Model.initialize(model, module, seed)
     from zookeeper_tpu_torch.models.convert import (
@@ -255,14 +275,15 @@ def _initialize_packed(model: Model, module: nn.Module, seed: int) -> nn.Module:
     twin = Model.initialize(model, module.float_twin(), seed)
     params, state = to_flax_variables(twin)
     template, _ = to_flax_variables(module)
+    k_q = module.KERNEL_QUANTIZER
     if module.folds:
         params, stats = pack_quantconv_params(
-            params, template=template, fold_bn=True,
+            params, kernel_quantizer=k_q, template=template, fold_bn=True,
             batch_stats=state["batch_stats"],
         )
         state = {"batch_stats": stats}
     else:
-        params = pack_quantconv_params(params, template=template)
+        params = pack_quantconv_params(params, kernel_quantizer=k_q, template=template)
     module.load_state_dict(from_flax_variables(params, state))
     return module
 
@@ -335,6 +356,7 @@ class _VggModule(nn.Module):
 
     FAMILY = ""
     POOLED_CONVS = ""
+    KERNEL_QUANTIZER = "ste_sign"
 
     def _setup_dense_stage(self, add: _FlaxNames, width: int, dense_units, num_classes: int,
                            fold_bn: bool, dtype: torch.dtype, flavor: str) -> None:
@@ -581,3 +603,202 @@ class BinaryAlexNet(Model):
 
     def initialize(self, module: nn.Module, seed: int = 0) -> nn.Module:
         return _initialize_packed(self, module, seed)
+
+
+def _conv_out(size: int, k: int, s: int, padding: str) -> int:
+    return -(-size // s) if padding == "SAME" else (size - k) // s + 1
+
+
+class _XnorNetModule(nn.Module):
+    """XNOR-Net over NHWC input: binarized AlexNet in the order BN ->
+    binarize -> conv -> pool, every binary layer's kernel
+    ``magnitude_aware_sign`` (mean|w| per output channel). An fp 11x11/4
+    VALID stem of 96 and BN, a 3x3/2 max pool; binary convs of 256 (5x5),
+    384, 384 and 256 (3x3), each followed by its BN, max pools after the
+    first and the last; two binary dense layers of 4096 with BNs; the fp
+    head; float32 logits. Every binary layer is directly BN-followed, so
+    ``fold_bn`` folds both stages, each where it is packed."""
+
+    KERNEL_QUANTIZER = "magnitude_aware_sign"
+
+    def __init__(
+        self,
+        *,
+        input_shape: Tuple[int, int, int],
+        num_classes: int,
+        dtype: torch.dtype,
+        binary_compute: str = "mxu",
+        packed_weights: bool = False,
+        dense_binary_compute: Optional[str] = None,
+        dense_packed_weights: Optional[bool] = None,
+        fold_bn: bool = False,
+    ):
+        super().__init__()
+        self.config: Dict[str, Any] = dict(
+            input_shape=tuple(input_shape), num_classes=num_classes, dtype=dtype,
+            binary_compute=binary_compute, packed_weights=packed_weights,
+            dense_binary_compute=dense_binary_compute,
+            dense_packed_weights=dense_packed_weights, fold_bn=fold_bn,
+        )
+        self.dtype = dtype
+        self.dense_packed = bool(
+            packed_weights if dense_packed_weights is None else dense_packed_weights
+        )
+        conv_fold = fold_bn and bool(packed_weights)
+        self.dense_fold = fold_bn and self.dense_packed
+        dense_bc = binary_compute if dense_binary_compute is None else dense_binary_compute
+        add = _FlaxNames(self)
+        h, w, width = input_shape
+        self._stem = (add("Conv", Conv(width, 96, (11, 11), (4, 4), "VALID", dtype=dtype)),
+                      add("BatchNorm", BatchNorm(96, dtype=dtype)))
+        h, w = _pooled(_conv_out(h, 11, 4, "VALID"), 3, 2), _pooled(_conv_out(w, 11, 4, "VALID"), 3, 2)
+        width = 96
+        self._convs: List[Tuple[str, Optional[str], bool]] = []
+        for feat, k, pool in ((256, 5, True), (384, 3, False), (384, 3, False), (256, 3, True)):
+            conv = add("QuantConv", QuantConv(
+                width, feat, (k, k), input_quantizer="ste_sign",
+                kernel_quantizer="magnitude_aware_sign", dtype=dtype,
+                binary_compute=binary_compute, packed_weights=packed_weights,
+                use_bias=conv_fold,  # carries the folded BN shift
+            ))
+            self._convs.append((conv, _post_conv_bn(add, feat, dtype, conv_fold), pool))
+            if pool:
+                h, w = _pooled(h, 3, 2), _pooled(w, 3, 2)
+            width = feat
+        width = h * w * width
+        self._denses: List[Tuple[str, Optional[str]]] = []
+        for units in (4096, 4096):
+            dense = add("QuantDense", QuantDense(
+                width, units, input_quantizer="ste_sign",
+                kernel_quantizer="magnitude_aware_sign", use_bias=self.dense_fold, dtype=dtype,
+                binary_compute=dense_bc, packed_weights=self.dense_packed,
+            ))
+            self._denses.append((dense, _post_conv_bn(add, units, dtype, self.dense_fold)))
+            width = units
+        self._head = add("Dense", Dense(width, num_classes, dtype=dtype))
+        self.eval()  # flax's training=False default
+
+    def float_twin(self) -> "_XnorNetModule":
+        """The same architecture holding latent float kernels and every BN."""
+        return _XnorNetModule(**{**self.config, "packed_weights": False,
+                                 "dense_packed_weights": False, "fold_bn": False})
+
+    @property
+    def packed_any(self) -> bool:
+        return bool(self.config["packed_weights"]) or self.dense_packed
+
+    @property
+    def folds(self) -> bool:
+        return bool(self.config["fold_bn"]) and self.packed_any
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        _check_fold_training(self.config["fold_bn"], self.packed_any, self.training)
+        layer = self.get_submodule
+        conv0, bn0 = self._stem
+        x = max_pool(layer(bn0)(layer(conv0)(x.to(self.dtype))), (3, 3), (2, 2))
+        for conv, bn, pool in self._convs:
+            x = layer(conv)(x)
+            if bn is not None:
+                x = layer(bn)(x)
+            if pool:
+                x = max_pool(x, (3, 3), (2, 2))
+        x = x.reshape(x.shape[0], -1)
+        for dense, bn in self._denses:
+            x = layer(dense)(x)
+            if bn is not None:
+                x = layer(bn)(x)
+        return layer(self._head)(x).to(torch.float32)
+
+
+@component
+class XNORNet(Model):
+    """XNOR-Net AlexNet."""
+
+    binary_compute: str = Field("mxu")
+    packed_weights: bool = Field(False)
+    #: Dense-stage overrides; unset = follow the conv-stage settings.
+    dense_binary_compute: str = Field(allow_missing=True)
+    dense_packed_weights: bool = Field(allow_missing=True)
+    #: Deployment-only; both stages fold, each where it is packed.
+    fold_bn: bool = Field(False)
+
+    def build(self, input_shape: Sequence[int], num_classes: int) -> nn.Module:
+        return _XnorNetModule(
+            input_shape=tuple(int(s) for s in input_shape), num_classes=num_classes,
+            dtype=self.dtype(), binary_compute=self.binary_compute,
+            packed_weights=self.packed_weights,
+            dense_binary_compute=getattr(self, "dense_binary_compute", None),
+            dense_packed_weights=getattr(self, "dense_packed_weights", None),
+            fold_bn=self.fold_bn,
+        )
+
+    def initialize(self, module: nn.Module, seed: int = 0) -> nn.Module:
+        return _initialize_packed(self, module, seed)
+
+
+class _DoReFaNetModule(nn.Module):
+    """DoReFa-Net w1/a``activation_bits`` over NHWC input: an fp 12x12/4
+    VALID stem of 96 and BN; binary convs of 256 (5x5), 384, 384 and 256
+    (3x3) whose inputs are ``dorefa`` k-bit fixed point and whose kernels
+    are ``magnitude_aware_sign``, each followed by BN, 3x3/2 SAME max pools
+    after the first and the last; two such dense layers of 4096 with BNs;
+    the fp head; float32 logits. Multi-bit activations keep it on the
+    "mxu" path (the quantizer passes as a callable, as in the JAX
+    module)."""
+
+    def __init__(self, *, input_shape: Tuple[int, int, int], num_classes: int,
+                 dtype: torch.dtype, activation_bits: int = 2):
+        super().__init__()
+        self.dtype = dtype
+        act_q = functools.partial(dorefa, k_bit=activation_bits)
+        add = _FlaxNames(self)
+        h, w, width = input_shape
+        self._stem = (add("Conv", Conv(width, 96, (12, 12), (4, 4), "VALID", dtype=dtype)),
+                      add("BatchNorm", BatchNorm(96, dtype=dtype)))
+        h, w = _conv_out(h, 12, 4, "VALID"), _conv_out(w, 12, 4, "VALID")
+        width = 96
+        self._convs: List[Tuple[str, str, bool]] = []
+        for feat, k, pool in ((256, 5, True), (384, 3, False), (384, 3, False), (256, 3, True)):
+            conv = add("QuantConv", QuantConv(
+                width, feat, (k, k), input_quantizer=act_q,
+                kernel_quantizer="magnitude_aware_sign", dtype=dtype))
+            self._convs.append((conv, add("BatchNorm", BatchNorm(feat, dtype=dtype)), pool))
+            if pool:
+                h, w = _conv_out(h, 3, 2, "SAME"), _conv_out(w, 3, 2, "SAME")
+            width = feat
+        width = h * w * width
+        self._denses: List[Tuple[str, str]] = []
+        for units in (4096, 4096):
+            dense = add("QuantDense", QuantDense(
+                width, units, input_quantizer=act_q, kernel_quantizer="magnitude_aware_sign",
+                use_bias=False, dtype=dtype))
+            self._denses.append((dense, add("BatchNorm", BatchNorm(units, dtype=dtype))))
+            width = units
+        self._head = add("Dense", Dense(width, num_classes, dtype=dtype))
+        self.eval()  # flax's training=False default
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        layer = self.get_submodule
+        conv0, bn0 = self._stem
+        x = layer(bn0)(layer(conv0)(x.to(self.dtype)))
+        for conv, bn, pool in self._convs:
+            x = layer(bn)(layer(conv)(x))
+            if pool:
+                x = max_pool(x, (3, 3), (2, 2), "SAME")
+        x = x.reshape(x.shape[0], -1)
+        for dense, bn in self._denses:
+            x = layer(bn)(layer(dense)(x))
+        return layer(self._head)(x).to(torch.float32)
+
+
+@component
+class DoReFaNet(Model):
+    """DoReFa-Net w1/a2 (1-bit scaled weights, 2-bit activations)."""
+
+    activation_bits: int = Field(2)
+
+    def build(self, input_shape: Sequence[int], num_classes: int) -> nn.Module:
+        return _DoReFaNetModule(
+            input_shape=tuple(int(s) for s in input_shape), num_classes=num_classes,
+            dtype=self.dtype(), activation_bits=self.activation_bits,
+        )

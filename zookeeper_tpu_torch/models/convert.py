@@ -1,18 +1,21 @@
 """Carry weights between a flax variables tree and the port's modules.
 
-A JAX/flax tree of the binary zoo (QuickNet, BinaryNet, BinaryAlexNet)
-— nested dicts of arrays under flax's auto-numbered scopes (``Conv_i``,
-``BatchNorm_i``, ``QuantConv_i``, ``QuantDense_i``, ``Dense_0``) — maps
-to the port's ``state_dict`` by name, since the port's modules carry the
-same names in the same order. Layouts change
-only where PyTorch holds a weight differently: fp conv kernels HWIO ->
-OIHW (grouped convs included) and the dense kernel [in, out] -> [out,
-in]. BN ``scale``/``bias`` become ``weight``/``bias`` and ``batch_stats``
-``mean``/``var`` become ``running_mean``/``running_var``. QuantConv
-leaves (``kernel``, ``kernel_packed``, ``kernel_scale``, ``bias``) keep
-the JAX layout, and so do QuantDense leaves (``kernel`` [K, N],
-``kernel_packed``, ``kernel_scale``, ``bias``). A folded BN (deployment with ``fold_bn``) has no
-parameters and maps to nothing. Conversion is in memory only.
+A JAX/flax tree of the CNN zoo — nested dicts of arrays under flax's
+auto-numbered scopes — maps to the port's ``state_dict`` by name, since
+the port's modules carry the same names in the same order. Layer scopes
+are ``Conv_i``, ``BatchNorm_i``, ``Dense_i``, ``QuantConv_i``,
+``QuantDense_i``, ``RSign_i`` and ``RPReLU_i``; any other ``Name_i`` scope
+is a block (``_BiRealBlock_3``, ``_ReActBlock_0``, ``_Bottleneck_5``) and
+is walked into, its layers' names joined with dots
+(``_BiRealBlock_3.QuantConv_0.kernel``). Layouts change only where
+PyTorch holds a weight differently: fp conv kernels HWIO -> OIHW
+(grouped convs included) and the dense kernel [in, out] -> [out, in]. BN
+``scale``/``bias`` become ``weight``/``bias`` and ``batch_stats``
+``mean``/``var`` become ``running_mean``/``running_var``. Quant* leaves
+(``kernel`` or ``kernel_fp``, ``kernel_packed``, ``kernel_scale``,
+``bias``) and the RSign/RPReLU leaves (``alpha``; ``gamma``, ``zeta``,
+``beta``) keep the JAX layout. A folded BN (deployment with ``fold_bn``)
+has no parameters and maps to nothing. Conversion is in memory only.
 
 A TransformerLM tree maps with :func:`from_flax_lm_variables` and its
 inverse :func:`to_flax_lm_variables`: ``embed``, ``pos``, ``block{i}``
@@ -24,7 +27,7 @@ A training state carries across too: :func:`flax_train_state` and
 :func:`load_flax_train_state` move the step, params, ``batch_stats`` and
 optax Adam's ``count``/``mu``/``nu`` (whose trees have the params'
 structure, so they convert leaf for leaf like the params) between the
-port's ``TrainState`` and numpy trees, for QuickNet and for
+port's ``TrainState`` and numpy trees, for the CNN zoo and for
 TransformerLM states (an LM has no ``batch_stats``).
 """
 
@@ -40,7 +43,10 @@ from zookeeper_tpu_torch.models.transformer import TransformerLMModule
 _CONV = re.compile(r"^Conv_\d+$")
 _BN = re.compile(r"^BatchNorm_\d+$")
 _DENSE = re.compile(r"^Dense_\d+$")
-_QUANT = re.compile(r"^Quant(Conv|Dense)_\d+$")
+#: Layers whose leaves keep the flax names and layouts.
+_AS_IS = re.compile(r"^(Quant(Conv|Dense)|RSign|RPReLU)_\d+$")
+#: A block scope (a flax submodule holding layers), walked into.
+_BLOCK = re.compile(r"^_?[A-Za-z][A-Za-z0-9]*_\d+$")
 
 _BN_PARAMS = {"scale": "weight", "bias": "bias"}
 _BN_STATS = {"mean": "running_mean", "var": "running_var"}
@@ -52,33 +58,56 @@ def _tensor(x: Any) -> torch.Tensor:
     return torch.from_numpy(np.array(x))
 
 
+def _is_layer(scope: str) -> bool:
+    return any(p.match(scope) for p in (_CONV, _BN, _DENSE, _AS_IS))
+
+
+def _port_param_leaves(scope: str, leaves: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """One layer scope's flax parameter leaves in the port's names and
+    layouts."""
+    if _CONV.match(scope):
+        out = {"weight": _tensor(leaves["kernel"]).permute(3, 2, 0, 1).contiguous()}
+        if "bias" in leaves:
+            out["bias"] = _tensor(leaves["bias"])
+        return out
+    if _DENSE.match(scope):
+        return {"weight": _tensor(leaves["kernel"]).t().contiguous(),
+                "bias": _tensor(leaves["bias"])}
+    if _BN.match(scope):
+        return {name: _tensor(leaves[flax_name]) for flax_name, name in _BN_PARAMS.items()}
+    return {name: _tensor(leaf) for name, leaf in leaves.items()}
+
+
+def _walk(tree: Mapping[str, Any], what: str, layer_fn, prefix: str = ""):
+    """``layer_fn(scope, leaves)`` of every layer scope of a flax tree,
+    walking into block scopes; yields ``("Block.Layer", its dict)``."""
+    for scope, leaves in tree.items():
+        if _is_layer(scope):
+            yield f"{prefix}{scope}", layer_fn(scope, leaves)
+        elif _BLOCK.match(scope) and isinstance(leaves, Mapping):
+            yield from _walk(leaves, what, layer_fn, f"{prefix}{scope}.")
+        else:
+            raise ValueError(f"{what}: unknown scope {prefix}{scope!r}.")
+
+
 def from_flax_variables(
     params: Mapping[str, Any], model_state: Optional[Mapping[str, Any]] = None
 ) -> Dict[str, torch.Tensor]:
     """Flax ``params`` (+ ``model_state`` holding ``batch_stats``) ->
     the port's ``state_dict`` (CPU tensors; load with
     ``module.load_state_dict``)."""
-    stats = dict((model_state or {}).get("batch_stats", {}))
+    stats = (model_state or {}).get("batch_stats", {})
     out: Dict[str, torch.Tensor] = {}
-    for scope, leaves in params.items():
-        if _CONV.match(scope):
-            out[f"{scope}.weight"] = _tensor(leaves["kernel"]).permute(3, 2, 0, 1).contiguous()
-        elif _DENSE.match(scope):
-            out[f"{scope}.weight"] = _tensor(leaves["kernel"]).t().contiguous()
-            out[f"{scope}.bias"] = _tensor(leaves["bias"])
-        elif _BN.match(scope):
-            for flax_name, name in _BN_PARAMS.items():
-                out[f"{scope}.{name}"] = _tensor(leaves[flax_name])
-        elif _QUANT.match(scope):
-            for name, leaf in leaves.items():
-                out[f"{scope}.{name}"] = _tensor(leaf)
-        else:
-            raise ValueError(f"from_flax_variables: unknown scope {scope!r}.")
-    for scope, leaves in stats.items():
+    for path, leaves in _walk(params, "from_flax_variables", _port_param_leaves):
+        out.update({f"{path}.{name}": leaf for name, leaf in leaves.items()})
+
+    def bn_stats(scope: str, leaves: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
         if not _BN.match(scope):
             raise ValueError(f"from_flax_variables: unknown stats scope {scope!r}.")
-        for flax_name, name in _BN_STATS.items():
-            out[f"{scope}.{name}"] = _tensor(leaves[flax_name])
+        return {name: _tensor(leaves[flax_name]) for flax_name, name in _BN_STATS.items()}
+
+    for path, leaves in _walk(stats, "from_flax_variables", bn_stats):
+        out.update({f"{path}.{name}": leaf for name, leaf in leaves.items()})
     return out
 
 
@@ -135,38 +164,48 @@ def _flax_lm_tree(named: Mapping[str, Any]) -> Dict[str, Any]:
 
 
 def _flax_param_leaves(scope: str, leaves: Mapping[str, np.ndarray]) -> Dict[str, np.ndarray]:
-    """One scope's parameter leaves (state_dict names, numpy) in flax's
-    names and layouts."""
+    """One layer scope's parameter leaves (state_dict names, numpy) in
+    flax's names and layouts."""
     if _CONV.match(scope):
-        return {"kernel": leaves["weight"].transpose(2, 3, 1, 0)}
+        out = {"kernel": leaves["weight"].transpose(2, 3, 1, 0)}
+        if "bias" in leaves:
+            out["bias"] = leaves["bias"]
+        return out
     if _DENSE.match(scope):
         return {"kernel": leaves["weight"].T, "bias": leaves["bias"]}
     if _BN.match(scope):
         return {k: leaves[v] for k, v in _BN_PARAMS.items() if v in leaves}
-    if _QUANT.match(scope):
+    if _AS_IS.match(scope):
         return dict(leaves)
     raise ValueError(f"to_flax_variables: unknown scope {scope!r}.")
 
 
-def _by_scope(named: Mapping[str, Any]) -> Dict[str, Dict[str, np.ndarray]]:
-    """``{"Scope.leaf": tensor}`` -> ``{scope: {leaf: numpy}}``, in order."""
-    out: Dict[str, Dict[str, np.ndarray]] = {}
+def _by_layer(named: Mapping[str, Any]) -> Dict[Tuple[str, ...], Dict[str, np.ndarray]]:
+    """``{"Block.Layer.leaf": tensor}`` -> ``{("Block", "Layer"): {leaf:
+    numpy}}``, in order."""
+    out: Dict[Tuple[str, ...], Dict[str, np.ndarray]] = {}
     for name, value in named.items():
-        scope, leaf = name.split(".", 1)
-        out.setdefault(scope, {})[leaf] = _tensor(value).numpy()
+        *path, leaf = name.split(".")
+        out.setdefault(tuple(path), {})[leaf] = _tensor(value).numpy()
     return out
+
+
+def _nest(tree: Dict[str, Any], path: Tuple[str, ...], value: Any) -> None:
+    for scope in path[:-1]:
+        tree = tree.setdefault(scope, {})
+    tree[path[-1]] = value
 
 
 def to_flax_variables(module: nn.Module) -> Tuple[Dict[str, Any], Dict[str, Any]]:
     """The port module's weights as flax ``(params, {"batch_stats":
     ...})`` nested dicts of numpy arrays, scopes in module creation
     order (the inverse of :func:`from_flax_variables`)."""
-    params: Dict[str, Dict[str, np.ndarray]] = {}
-    stats: Dict[str, Dict[str, np.ndarray]] = {}
-    for scope, leaves in _by_scope(module.state_dict()).items():
-        params[scope] = _flax_param_leaves(scope, leaves)
-        if _BN.match(scope):
-            stats[scope] = {k: leaves[v] for k, v in _BN_STATS.items()}
+    params: Dict[str, Any] = {}
+    stats: Dict[str, Any] = {}
+    for path, leaves in _by_layer(module.state_dict()).items():
+        _nest(params, path, _flax_param_leaves(path[-1], leaves))
+        if _BN.match(path[-1]):
+            _nest(stats, path, {k: leaves[v] for k, v in _BN_STATS.items()})
     return params, {"batch_stats": stats}
 
 
@@ -175,7 +214,10 @@ def _is_lm(module: nn.Module) -> bool:
 
 
 def _flax_cnn_tree(named: Mapping[str, Any]) -> Dict[str, Any]:
-    return {s: _flax_param_leaves(s, v) for s, v in _by_scope(named).items()}
+    tree: Dict[str, Any] = {}
+    for path, leaves in _by_layer(named).items():
+        _nest(tree, path, _flax_param_leaves(path[-1], leaves))
+    return tree
 
 
 def flax_train_state(state: Any) -> Dict[str, Any]:

@@ -1,19 +1,21 @@
 """The binary models' layers, as ``nn.Module``s, for training and serving.
 
 Counterparts of the flax layers the JAX zoo builds: ``Conv``
-(``flax.linen.Conv``), ``BatchNorm`` (``ops/layers.py`` ``BatchNorm``,
-i.e. ``flax.linen.BatchNorm``), ``Dense``, and ``QuantConv`` and
-``QuantDense`` on all four binary paths. Every layer takes and returns NHWC tensors, as in the JAX
-package. The fp convs run ``F.conv2d`` on the logical-NCHW view of the
-NHWC storage (a ``torch.channels_last`` tensor), so no layout copy is
-made; the packed kernels read the same storage directly. Parameter names
-and layouts follow the flax ones (see ``models/convert.py``), except that
-fp conv weights are OIHW and the dense weight is [out, in], as PyTorch
-holds them. ``module.train()`` is flax's ``training=True``.
+(``flax.linen.Conv``, with or without a bias), ``BatchNorm``
+(``ops/layers.py`` ``BatchNorm``, i.e. ``flax.linen.BatchNorm``), ``Dense``,
+and ``QuantConv`` and ``QuantDense`` on all four binary paths with every
+quantizer of the registry, validated as the JAX layers validate them.
+Every layer takes and returns NHWC tensors, as in the JAX package. The fp
+convs run ``F.conv2d`` on the logical-NCHW view of the NHWC storage (a
+``torch.channels_last`` tensor), so no layout copy is made; the packed
+kernels read the same storage directly. Parameter names and layouts
+follow the flax ones (see ``models/convert.py``), except that fp conv
+weights are OIHW and the dense weight is [out, in], as PyTorch holds
+them. ``module.train()`` is flax's ``training=True``.
 """
 
 import math
-from typing import Optional, Sequence, Tuple
+from typing import Callable, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -33,6 +35,9 @@ from zookeeper_tpu_torch.ops.binary_compute import (
 )
 from zookeeper_tpu_torch.ops.quantizers import get_quantizer, ste_sign_packed
 
+#: A quantizer: a registry name, a callable, or None (no quantization).
+Quantizer = Union[str, Callable, None]
+
 #: Binary compute modes of the JAX package; the port runs all four.
 BINARY_COMPUTE_MODES = ("mxu", "int8", "xnor", "xnor_popcount")
 
@@ -41,18 +46,93 @@ BINARY_COMPUTE_MODES = ("mxu", "int8", "xnor", "xnor_popcount")
 #: ``BINARY_KERNEL_PATTERN``, kept here so the port reads no JAX module.
 BINARY_KERNEL_PATTERN = r"Quant[A-Za-z0-9]*_\d+/kernel$"
 
-#: Input quantizers that emit strictly ±1 (what 1-bit residual packing
-#: needs: a 0 would come back as +1).
-_PM1_INPUT_QUANTIZERS = frozenset({"ste_sign", "ste_sign_packed"})
+#: Kernel quantizers whose output is sign x per-output-channel scale: the
+#: contract of the packed binary kernels.
+_SIGN_KERNEL_QUANTIZERS = frozenset(
+    {"ste_sign", "approx_sign", "swish_sign", "magnitude_aware_sign"}
+)
+#: Input quantizers that emit exact small integers ({-1, 0, +1}), which
+#: the int8 and packed-weight paths cast to int8 (dorefa's fractions would
+#: truncate).
+_INT_INPUT_QUANTIZERS = frozenset(
+    {"ste_sign", "ste_sign_packed", "approx_sign", "swish_sign", "ste_tern",
+     "ste_heaviside"}
+)
+#: Kernel quantizers the int8 path runs exactly: the sign family (the
+#: scale re-applies after the integer sum) and the small-integer ones.
+_INT_KERNEL_QUANTIZERS = _SIGN_KERNEL_QUANTIZERS | {"ste_tern", "ste_heaviside"}
+#: Input quantizers that emit strictly ±1: what the popcount path and
+#: 1-bit residual packing need (a 0 would come back as +1).
+_PM1_INPUT_QUANTIZERS = frozenset(
+    {"ste_sign", "ste_sign_packed", "approx_sign", "swish_sign"}
+)
 
 
-def check_binary_compute(mode: str, layer: str) -> None:
-    """Raise for an unknown mode: a typo must not quietly run another
-    path."""
+def kernel_param_name(kernel_quantizer: Quantizer) -> str:
+    """The latent kernel's parameter name, as the flax layers name it:
+    "kernel" for a sign-family or callable quantizer (what
+    ``BINARY_KERNEL_PATTERN`` treats as binary), "kernel_fp" for None and
+    the multi-level quantizers (ste_tern, ste_heaviside, dorefa)."""
+    if kernel_quantizer is None:
+        return "kernel_fp"
+    if callable(kernel_quantizer) or kernel_quantizer in _SIGN_KERNEL_QUANTIZERS:
+        return "kernel"
+    return "kernel_fp"
+
+
+def check_binary_compute(mode: str, layer: str, input_quantizer: Quantizer = None,
+                         kernel_quantizer: Quantizer = None) -> None:
+    """Raise where the JAX layers raise: an unknown mode, or a binary path
+    that its quantizers cannot run exactly (a typo or a mismatch must not
+    quietly run another path). Callables are trusted to honour the value
+    contracts."""
     if mode not in BINARY_COMPUTE_MODES:
         raise ValueError(
             f"{layer}: unknown binary_compute {mode!r}; choose from "
             f"{BINARY_COMPUTE_MODES}."
+        )
+    if mode == "mxu":
+        return
+    problems = []
+    missing = [n for n, q in (("input", input_quantizer), ("kernel", kernel_quantizer))
+               if q is None]
+    if missing:
+        problems.append(
+            f"it needs both an input and a kernel quantizer (the {' and '.join(missing)} "
+            "quantizer is None: not binarized)"
+        )
+    if isinstance(kernel_quantizer, str):
+        if mode in ("xnor", "xnor_popcount") and kernel_quantizer not in _SIGN_KERNEL_QUANTIZERS:
+            problems.append(
+                f"kernel_quantizer {kernel_quantizer!r} does not produce sign x "
+                "per-channel scale (packed kernels require one of "
+                f"{sorted(_SIGN_KERNEL_QUANTIZERS)})"
+            )
+        if mode == "int8" and kernel_quantizer not in _INT_KERNEL_QUANTIZERS:
+            problems.append(
+                f"kernel_quantizer {kernel_quantizer!r} does not produce sign x "
+                "per-channel scale or exact small integers (int8 requires one of "
+                f"{sorted(_INT_KERNEL_QUANTIZERS)})"
+            )
+    if isinstance(input_quantizer, str):
+        if mode in ("int8", "xnor") and input_quantizer not in _INT_INPUT_QUANTIZERS:
+            problems.append(
+                f"input_quantizer {input_quantizer!r} can emit non-integer values, "
+                f"which the int8 activation cast would truncate ({mode} requires "
+                f"one of {sorted(_INT_INPUT_QUANTIZERS)})"
+            )
+        if mode == "xnor_popcount" and input_quantizer not in _PM1_INPUT_QUANTIZERS:
+            problems.append(
+                f"input_quantizer {input_quantizer!r} can emit values other than "
+                "+-1, which bit-packing would miscount (xnor_popcount requires "
+                f"one of {sorted(_PM1_INPUT_QUANTIZERS)})"
+            )
+    if problems:
+        raise ValueError(
+            f"{layer}: binary_compute={mode!r} requested but unusable: "
+            + "; ".join(problems)
+            + ". Fix the configuration or set binary_compute='mxu' explicitly "
+            "— this layer never falls back silently."
         )
 
 
@@ -114,8 +194,9 @@ def _normal_(t: torch.Tensor, std: float, generator: torch.Generator) -> None:
 
 
 class Conv(nn.Module):
-    """Float conv over NHWC with XLA SAME/VALID padding (``flax.linen.Conv``
-    with ``use_bias=False``); the weight is OIHW. Computes in ``dtype``."""
+    """Float conv over NHWC with XLA SAME/VALID padding
+    (``flax.linen.Conv``); the weight is OIHW. Computes in ``dtype``, the
+    bias (``use_bias``) added in it."""
 
     def __init__(
         self,
@@ -126,6 +207,7 @@ class Conv(nn.Module):
         padding: str = "SAME",
         feature_group_count: int = 1,
         dtype: torch.dtype = torch.float32,
+        use_bias: bool = False,
     ):
         super().__init__()
         kh, kw = kernel_size
@@ -137,10 +219,14 @@ class Conv(nn.Module):
         self.weight = nn.Parameter(
             torch.zeros(features, in_features // feature_group_count, kh, kw)
         )
+        self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         fan_in = self.weight[0].numel()  # lecun_normal, as flax's default
         _normal_(self.weight, 1.0 / math.sqrt(fan_in), generator)
+        if self.bias is not None:
+            with torch.no_grad():
+                self.bias.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         kh, kw = self.kernel_size
@@ -150,29 +236,31 @@ class Conv(nn.Module):
         y = F.conv2d(
             x.permute(0, 3, 1, 2), self.weight.to(self.dtype),
             stride=self.strides, groups=self.groups,
-        )
-        return y.permute(0, 2, 3, 1)
+        ).permute(0, 2, 3, 1)
+        if self.bias is not None:
+            y = y + self.bias.to(self.dtype)
+        return y
 
 
 class BatchNorm(nn.Module):
     """Batch norm over the trailing (channel) axis with flax
-    ``nn.BatchNorm`` semantics (momentum 0.9, eps 1e-5 as the QuickNet
-    family builds it). Statistics and the normalisation run in float32:
+    ``nn.BatchNorm`` semantics (``momentum`` 0.9 and eps 1e-5 as the zoo
+    builds it; flax's own default momentum is 0.99, which ``SimpleCnn``
+    takes). Statistics and the normalisation run in float32:
     ``(x - mean) * (rsqrt(var + eps) * scale) + bias``, cast to ``dtype``.
 
     In train mode (``module.train()``) it normalises with the batch mean
     and flax's fast biased variance ``mean(x^2) - mean(x)^2`` clipped at
-    0, and updates ``ra = 0.9 * ra + 0.1 * batch`` for both statistics
-    (the biased variance, unlike ``nn.BatchNorm2d``). In eval mode it uses
+    0, and updates ``ra = m * ra + (1 - m) * batch`` for both statistics
+    (the biased variance, unlike ``nn.BatchNorm2d``), ``m`` the share of
+    the running statistic kept (flax's convention). In eval mode it uses
     the running statistics."""
 
-    #: flax's convention: the share of the running statistic kept.
-    MOMENTUM = 0.9
-
     def __init__(self, features: int, eps: float = 1e-5,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, momentum: float = 0.9):
         super().__init__()
         self.eps = eps
+        self.momentum = momentum
         self.dtype = dtype
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
@@ -193,7 +281,7 @@ class BatchNorm(nn.Module):
             mean = xf.mean(dim=axes)
             var = torch.clamp((xf * xf).mean(dim=axes) - mean * mean, min=0.0)
             with torch.no_grad():
-                keep, take = self.MOMENTUM, 1.0 - self.MOMENTUM
+                keep, take = self.momentum, 1.0 - self.momentum
                 self.running_mean.copy_(keep * self.running_mean + take * mean)
                 self.running_var.copy_(keep * self.running_var + take * var)
         else:
@@ -224,16 +312,12 @@ class Dense(nn.Module):
 
 
 def _check_quant_layer(layer: str, binary_compute: str, binary_flavor: str,
-                       in_q, k_q, packed_weights: bool) -> None:
-    """The validation both Quant layers share: a known mode and flavor, both
-    quantizers on a binary path, packed weights only on the packed paths."""
-    check_binary_compute(binary_compute, layer)
+                       input_quantizer, kernel_quantizer, packed_weights: bool) -> None:
+    """The validation both Quant layers share: a known flavor, a binary path
+    its quantizers run exactly (``check_binary_compute``), packed weights
+    only on the packed paths."""
     resolve_binary_flavor(binary_flavor)  # loud typo check
-    if binary_compute != "mxu" and (in_q is None or k_q is None):
-        raise ValueError(
-            f"{layer}: binary_compute={binary_compute!r} needs both an "
-            "input and a kernel quantizer."
-        )
+    check_binary_compute(binary_compute, layer, input_quantizer, kernel_quantizer)
     if packed_weights and binary_compute not in ("xnor", "xnor_popcount"):
         raise ValueError(
             "packed_weights=True requires binary_compute='xnor' or "
@@ -241,7 +325,15 @@ def _check_quant_layer(layer: str, binary_compute: str, binary_flavor: str,
         )
 
 
-class QuantDense(nn.Module):
+class _QuantLayer(nn.Module):
+    @property
+    def latent(self) -> nn.Parameter:
+        """The latent float kernel, under flax's name for it
+        (:func:`kernel_param_name`: ``kernel`` or ``kernel_fp``)."""
+        return getattr(self, self.latent_name)
+
+
+class QuantDense(_QuantLayer):
     """Binary dense layer over the last axis: the JAX ``QuantDense`` on its
     four paths.
 
@@ -256,8 +348,9 @@ class QuantDense(nn.Module):
     VJP is queued in ROADMAP.md). ``packed_weights=True`` holds only the
     deployed form: ``kernel_packed`` [ceil(K/32), N] int32 and
     ``kernel_scale`` [N] float32 (plus ``bias`` when ``use_bias``, which
-    carries a folded BN's shift). Otherwise the latent float ``kernel``
-    [K, N] (the flax layout) is held, clipped straight-through and
+    carries a folded BN's shift). Otherwise the latent float kernel
+    [K, N] (the flax layout, named as flax names it: ``kernel``, or
+    ``kernel_fp`` for a multi-level or no quantizer) is held, clipped straight-through and
     quantized at each call. Output is cast to ``dtype`` and the bias added
     in ``dtype``. ``in_features`` (K) is given at construction.
     """
@@ -266,8 +359,8 @@ class QuantDense(nn.Module):
         self,
         in_features: int,
         features: int,
-        input_quantizer: Optional[str] = None,
-        kernel_quantizer: Optional[str] = None,
+        input_quantizer: Quantizer = None,
+        kernel_quantizer: Quantizer = None,
         kernel_clip: bool = True,
         use_bias: bool = True,
         dtype: torch.dtype = torch.float32,
@@ -279,7 +372,7 @@ class QuantDense(nn.Module):
         self.in_q = get_quantizer(input_quantizer)
         self.k_q = get_quantizer(kernel_quantizer)
         _check_quant_layer(type(self).__name__, binary_compute, binary_flavor,
-                           self.in_q, self.k_q, packed_weights)
+                           input_quantizer, kernel_quantizer, packed_weights)
         self.in_features = in_features
         self.kernel_clip = kernel_clip
         self.dtype = dtype
@@ -294,7 +387,10 @@ class QuantDense(nn.Module):
             )
             self.kernel_scale = nn.Parameter(torch.ones(features))
         else:
-            self.kernel = nn.Parameter(torch.zeros(in_features, features))
+            self.latent_name = kernel_param_name(kernel_quantizer)
+            self.register_parameter(
+                self.latent_name, nn.Parameter(torch.zeros(in_features, features))
+            )
         self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
 
     def reset_parameters(self, generator: torch.Generator) -> None:
@@ -303,8 +399,8 @@ class QuantDense(nn.Module):
                 self.kernel_packed.zero_()
                 self.kernel_scale.fill_(1.0)
             else:
-                k, n = self.kernel.shape
-                _normal_(self.kernel, math.sqrt(2.0 / (k + n)), generator)  # glorot_normal
+                k, n = self.latent.shape
+                _normal_(self.latent, math.sqrt(2.0 / (k + n)), generator)  # glorot_normal
             if self.bias is not None:
                 self.bias.zero_()
 
@@ -323,7 +419,7 @@ class QuantDense(nn.Module):
                 use_popcount=mode == "xnor_popcount", flavor=self.binary_flavor,
             )
         else:
-            kernel = _apply_clip(self.kernel, self.kernel_clip)
+            kernel = _apply_clip(self.latent, self.kernel_clip)
             if self.k_q is not None:
                 kernel = self.k_q(kernel)
             if mode == "int8":
@@ -339,7 +435,7 @@ class QuantDense(nn.Module):
         return y
 
 
-class QuantConv(nn.Module):
+class QuantConv(_QuantLayer):
     """Binary 2-D conv (NHWC): the JAX ``QuantConv`` on its four paths.
 
     - "mxu": the float conv of the quantized operands in ``dtype`` (the
@@ -360,9 +456,10 @@ class QuantConv(nn.Module):
     VJP is queued in ROADMAP.md). ``packed_weights=True`` holds only the
     deployed form: ``kernel_packed`` [kh, kw, ceil(ci/32), co] int32 and
     ``kernel_scale`` [co] float32 (plus ``bias`` when ``use_bias``, which
-    carries a folded BN's shift). Otherwise the latent HWIO float
-    ``kernel`` is held, clipped straight-through and quantized at each
-    call. Output is cast to ``dtype`` and the bias added in ``dtype``.
+    carries a folded BN's shift). Otherwise the latent HWIO float kernel
+    (``kernel``, or ``kernel_fp`` as flax names it) is held, clipped
+    straight-through and quantized at each call. Output is cast to
+    ``dtype`` and the bias added in ``dtype``.
     """
 
     def __init__(
@@ -372,8 +469,8 @@ class QuantConv(nn.Module):
         kernel_size: Tuple[int, int] = (3, 3),
         strides: Sequence[int] = (1, 1),
         padding: str = "SAME",
-        input_quantizer: Optional[str] = "ste_sign",
-        kernel_quantizer: Optional[str] = "ste_sign",
+        input_quantizer: Quantizer = "ste_sign",
+        kernel_quantizer: Quantizer = "ste_sign",
         kernel_clip: bool = True,
         use_bias: bool = False,
         dtype: torch.dtype = torch.float32,
@@ -388,8 +485,8 @@ class QuantConv(nn.Module):
             raise ValueError(f"{name}: padding {padding!r} is not SAME/VALID.")
         self.in_q = get_quantizer(input_quantizer)
         self.k_q = get_quantizer(kernel_quantizer)
-        _check_quant_layer(name, binary_compute, binary_flavor, self.in_q, self.k_q,
-                           packed_weights)
+        _check_quant_layer(name, binary_compute, binary_flavor, input_quantizer,
+                           kernel_quantizer, packed_weights)
         if pack_residuals:
             check_pack_residuals(binary_compute, input_quantizer, packed_weights, name)
             if input_quantizer == "ste_sign":
@@ -415,8 +512,9 @@ class QuantConv(nn.Module):
             )
             self.kernel_scale = nn.Parameter(torch.ones(features))
         else:
-            self.kernel = nn.Parameter(
-                torch.zeros(kh, kw, in_features, features)
+            self.latent_name = kernel_param_name(kernel_quantizer)
+            self.register_parameter(
+                self.latent_name, nn.Parameter(torch.zeros(kh, kw, in_features, features))
             )
         self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
 
@@ -426,9 +524,9 @@ class QuantConv(nn.Module):
                 self.kernel_packed.zero_()
                 self.kernel_scale.fill_(1.0)
             else:
-                kh, kw, ci, co = self.kernel.shape
+                kh, kw, ci, co = self.latent.shape
                 std = math.sqrt(2.0 / (kh * kw * (ci + co)))  # glorot_normal
-                _normal_(self.kernel, std, generator)
+                _normal_(self.latent, std, generator)
             if self.bias is not None:
                 self.bias.zero_()
 
@@ -443,7 +541,7 @@ class QuantConv(nn.Module):
                 flavor=self.binary_flavor,
             )
         else:
-            kernel = _apply_clip(self.kernel, self.kernel_clip)
+            kernel = _apply_clip(self.latent, self.kernel_clip)
             if self.k_q is not None:
                 kernel = self.k_q(kernel)
             if mode == "int8":

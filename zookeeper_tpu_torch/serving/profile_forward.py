@@ -1,7 +1,7 @@
 """Where a served forward's time goes on the card.
 
     python -m zookeeper_tpu_torch.serving.profile_forward \\
-        [--model QuickNetLarge|BinaryAlexNet|BinaryNet] \\
+        [--model QuickNetLarge|BinaryAlexNet|BinaryNet|BiRealNet] \\
         [--binary-compute xnor_popcount|xnor] [--binary-flavor auto|reference] \\
         [--top N]
 
@@ -10,7 +10,8 @@ Builds a packed deployment of the model through ``ServingConfig``
 224x224; BinaryAlexNet bf16, 224x224, packed throughout under
 "xnor_popcount" or, under "xnor", with "mxu" convs and the packed,
 BN-folded dense stage (BASELINE's deployment); BinaryNet fp32, 32x32,
-10 classes, packed throughout. Times ``engine.infer`` on one batch of 8
+10 classes, packed throughout; Bi-Real-Net-18 packed and BN-folded (its
+mean|w| scales), bf16, 224x224. Times ``engine.infer`` on one batch of 8
 with the host clock and a ``synchronize``, then traces the same forwards
 with ``torch.profiler`` and prints one JSON line: the forward's wall
 time, the device time per forward, the device's busy share (device time
@@ -53,7 +54,13 @@ MODELS = {
         "model.compute_dtype": "float32", "model.binary_compute": bc,
         "model.packed_weights": True, "height": 32, "width": 32, "num_classes": 10,
     },
+    "BiRealNet": lambda bc: {
+        "model.compute_dtype": "bfloat16", "model.binary_compute": bc,
+        "model.packed_weights": True, "model.fold_bn": True,
+    },
 }
+#: The models with a ``binary_flavor`` field.
+FLAVORED = ("QuickNetLarge", "BinaryNet")
 
 
 def main(argv=None) -> dict:
@@ -69,7 +76,7 @@ def main(argv=None) -> dict:
 
     cfg = ServingConfig()
     conf = MODELS[args.model](args.binary_compute)
-    if args.model != "BinaryAlexNet":  # the one model without the field
+    if args.model in FLAVORED:
         conf["model.binary_flavor"] = args.binary_flavor
     configure(cfg, {
         **conf, "model": args.model,
@@ -103,7 +110,7 @@ def main(argv=None) -> dict:
         "card": card,
         "model": args.model,
         "binary_compute": args.binary_compute,
-        "binary_flavor": args.binary_flavor if args.model != "BinaryAlexNet" else None,
+        "binary_flavor": args.binary_flavor if args.model in FLAVORED else None,
         "batch": BATCH,
         "forward_ms": forward_ms,
         "device_ms_per_forward": device_ms if kernels else None,

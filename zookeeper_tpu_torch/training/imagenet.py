@@ -7,8 +7,10 @@
 
 QuickNet in bfloat16 on synthetic ImageNet-shaped data with the
 Inception RandomResizedCrop recipe, Adam under a warmup-cosine schedule
-and label smoothing 0.1. It trains on the card unless ``device=cpu`` is
-passed.
+and label smoothing 0.1; ``model=`` takes any model of the zoo
+(``BiRealNet``, ``BinaryResNetE18``, ``RealToBinaryNet``, ``ReActNet``,
+``XNORNet``, ``DoReFaNet``, ``ResNet50``, ...). It trains on the card
+unless ``device=cpu`` is passed.
 """
 
 from zookeeper_tpu_torch.core import ComponentField, Field, PartialComponent, task
