@@ -107,6 +107,29 @@ CUDA card and ``nvcc``. In order:
    time, peak memory, one step's profile, images/s through ``run()``)
    and ``TrainMnist``
    (config 1: three epochs on the card, the loss falling, steps/s).
+   Then the dense zoo: K1, K3 and K4 at each of the 28 binary-conv
+   shapes of a batch-8 BinaryDenseNet-28 and MeliusNet-22 forward (N =
+   64 over 64 to 512 channels at 56, 28, 14 and 7; read by hooks from a
+   forward on the ``meta`` device; K4 per tap where the fused patch
+   matrix passes the 32 MiB limit, as the model runs it), K1 and K3 at
+   the DenseNet batch-128 training step's shapes (401408 rows at 56x56)
+   and K2 at BinaryAlexNet's dense layers at M 128 (the "popc" design,
+   beside an unpadded ``torch._int_mm``), each equal to its plain
+   version, the same bits twice, timed beside it and its yardstick;
+   ``xnor_dense`` under autograd at those dense shapes on the fused,
+   "reference" and "xnor" flavors (output and both gradients equal to
+   the plain kernels' bit for bit); slices L (BinaryDenseNet-28 packed,
+   popcount: K1, K3 23 a forward), M (the same on "xnor": K4 87 at batch
+   8, 23 at batch 1), N (MeliusNet-22, latent kernels: K1, K3 34) and O
+   (BinaryDenseNet-37-dilated on "mxu": no port kernel) in the serving
+   slices above, with ``profile_forward``'s device time and busy share
+   for each; BinaryDenseNet-28 trained through ``"xnor_popcount"``
+   (batch 128, bf16, Adam under WarmupCosine at 1e-3: K1 23, K3 23 a
+   step, bit identity of the step against the plain kernels' from one
+   fixed state, step time, peak memory, the loss falling over six steps
+   on one batch, the busy share and top items, images/s through
+   ``run()``); one BinaryAlexNet popcount step (K1 6, K3 4, K2 2, bit
+   identity, step time, peak memory).
 9. LM kernels: K9 ``flash_attention`` (bf16 causal at the prefill
    buckets [1, 512, 8, 64] and [1, 2048, 8, 64] and at the long-context
    [4, 8192, 8, 64]; fp32 [1, 512, 8, 64]; ragged s=999; causal=False),
@@ -184,8 +207,10 @@ CUDA card and ``nvcc``. In order:
    prefill, 2 K12/K13 per decode step) and takes one training step
    (2 K9-lse, 2 K10, 2 K11).
 15. One JSON line of the kernels (14 rows; K1, K3, K4, K6 and K7 also
-   with their sums on Bi-Real-Net's path under ``bireal``), then the
-   result line.
+   with their sums on Bi-Real-Net's path under ``bireal``; K1, K3 and K4
+   under ``densenet`` and ``melius``, K1 and K3 under ``xnor_train`` per
+   DenseNet training step, K2 under ``xnor_train`` per BinaryAlexNet
+   step), then the result line.
 """
 
 import contextlib
@@ -411,12 +436,14 @@ def _binary_totals():
     return totals
 
 
-def _recorder(torch, totals):
+def _recorder(torch, totals, plain_reps: int = 21, plain_inner: int = 2, log=None):
     """``record(name, count, kernel, plain, library, nbytes, ops, shape)``:
     check a kernel call equal to its plain version and the same bits on a
-    second call, time it beside its plain version and the library call,
-    print the row and add ``count`` launches of it to ``totals``. Returns
-    the kernel's time."""
+    second call, time it beside its plain version (``plain_reps`` runs of
+    ``plain_inner`` calls) and the library call, print the row and add
+    ``count`` launches of it to ``totals``; ``log`` (a list) gets
+    ``(name, kernel ms, plain ms, library ms, bytes, ops)`` of each row.
+    Returns the kernel's time."""
 
     def record(name, count, kernel, plain, library, nbytes, ops, shape):
         with deterministic(torch):
@@ -427,9 +454,12 @@ def _recorder(torch, totals):
         check(torch.equal(got, want),
               f"{name} at {shape} disagrees with its plain version (max err {err})")
         check(_same_bits(torch, got, again), f"{name} at {shape}: two calls differ")
-        k_ms, p_ms = time_ms(torch, kernel), time_ms(torch, plain, reps=21, inner=2)
+        k_ms = time_ms(torch, kernel)
+        p_ms = time_ms(torch, plain, reps=plain_reps, inner=plain_inner)
         l_ms = time_ms(torch, library) if library is not None else None
         b_ms, b_by = bound_ms(name, nbytes, ops)
+        if log is not None:
+            log.append((name, k_ms, p_ms, l_ms, nbytes, ops))
         print(f"kernel {name} {shape}: equal, kernel {k_ms:.6f} ms, plain "
               f"{p_ms:.6f} ms, library {l_ms if l_ms is None else round(l_ms, 6)} ms, "
               f"bound {b_ms:.6f} ms by {b_by} ({nbytes} B, {ops} ops), "
@@ -1406,6 +1436,364 @@ def mnist_phase(torch, smi):
              "steps_per_s": [e["examples_per_sec"] / exp.batch_size for e in history["train"]]}
     print(f"mnist on {smi}: {json.dumps(stats)}", flush=True)
     return stats
+
+
+#: The dense zoo's serving slices (``ZOO``: 224x224x3, 1000 classes,
+#: bf16): L BinaryDenseNet-28 packed (no fold: the family is
+#: pre-activation; K1 + K3 in each of its 23 binary convs), M the same on
+#: "xnor" (K4 in each), N MeliusNet-22 with latent kernels packed at each
+#: call (K1 + K3 in each of its 34 binary convs), O BinaryDenseNet-37
+#: dilated on "mxu" (its dilated convs run there only, on cuDNN: none of
+#: the port's kernels).
+DENSE_SLICES = {
+    "L": ({"model": "BinaryDenseNet28", **ZOO, "model.packed_weights": True},
+          lambda bucket: {"pack_rows": 23, "conv_gemm_popcount": 23}),
+    "M": ({"model": "BinaryDenseNet28", **ZOO, "model.binary_compute": "xnor",
+           "model.packed_weights": True},
+          lambda bucket: {"packed_weight_matmul": DENSE_K4[bucket]}),
+    "N": ({"model": "MeliusNet22", **ZOO},
+          lambda bucket: {"pack_rows": 34, "conv_gemm_popcount": 34}),
+    "O": ({"model": "BinaryDenseNet37Dilated", **ZOO, "model.binary_compute": "mxu"},
+          lambda bucket: {}),
+}
+SLICES.update(DENSE_SLICES)
+#: K4 launches per slice-M forward by bucket: one fused GEMM per conv,
+#: except where the patch matrix (M x 9 x channels, counted in the bf16
+#: input's 2 bytes) passes the 32 MiB fusion limit: at batch 8 the five
+#: 56x56 convs from 128 channels and the three 28x28 convs from 352 run
+#: one GEMM per tap (9 each), 15 + 72 = 87 (``dense_gemm_cases``).
+DENSE_K4 = {1: 23, BATCH: 87}
+#: profile_forward's model and binary_compute for each dense slice (the
+#: dilated model runs "mxu" whatever it is given).
+DENSE_PROFILES = {"L": ("BinaryDenseNet28", "xnor_popcount"), "M": ("BinaryDenseNet28", "xnor"),
+                  "N": ("MeliusNet22", "xnor_popcount"),
+                  "O": ("BinaryDenseNet37Dilated", "xnor_popcount")}
+#: Training through the packed kernels: BinaryDenseNet-28 on
+#: "xnor_popcount" (K1 + K3 in each binary conv's forward), and one
+#: BinaryAlexNet step (K1 + K3 in its 4 convs, K1 + K2 in its 2 dense
+#: layers at M = the batch, K2's "popc" design).
+DENSE_TRAIN = {"pack_rows": 23, "conv_gemm_popcount": 23}
+ALEXNET_TRAIN = {"pack_rows": 6, "conv_gemm_popcount": 4, "xnor_matmul_packed_scaled": 2}
+#: BinaryAlexNet's dense layers at the training batch: (M, K, N).
+ALEXNET_DENSE = ((TRAIN_BATCH, 9216, 4096), (TRAIN_BATCH, 4096, 4096))
+
+
+def dense_conv_shapes(torch, model: str, batch: int = BATCH):
+    """{(height, width, channels in, channels out): binary convs of that
+    shape in one forward} of ``model`` (the dense zoo at its default
+    widths, 224x224), read by hooks from a forward on the ``meta`` device
+    (on "mxu": no kernel, nothing allocated)."""
+    from zookeeper_tpu_torch import models
+    from zookeeper_tpu_torch.core import configure
+    from zookeeper_tpu_torch.models.summary import meta_module
+    from zookeeper_tpu_torch.ops.layers import QuantConv
+
+    m = getattr(models, model)()
+    configure(m, {"compute_dtype": "bfloat16", "binary_compute": "mxu"}, name="model")
+    module = meta_module(m, (224, 224, 3), 1000)
+    shapes = {}
+
+    def hook(conv, args):
+        _, h, w, ci = args[0].shape
+        key = (h, w, ci, conv.latent.shape[-1])
+        shapes[key] = shapes.get(key, 0) + 1
+
+    for conv in module.modules():
+        if isinstance(conv, QuantConv):
+            conv.register_forward_pre_hook(hook)
+    with torch.no_grad():
+        module(torch.zeros(batch, 224, 224, 3, device="meta"))
+    return shapes
+
+
+def dense_gemm_cases(bc, shapes, batch: int = BATCH):
+    """K4's GEMMs in one "xnor" forward of convs ``shapes`` (as
+    :func:`dense_conv_shapes` gives them) at ``batch``: (launches, M, K,
+    N), the nine taps fused into one GEMM where the patch matrix fits
+    ``_FUSE_TAPS_MAX_BYTES`` (counted in the bf16 input's bytes), one GEMM
+    per tap otherwise, as ``_packed_conv_forward`` decides it."""
+    cases = []
+    for (h, w, ci, co), n in sorted(shapes.items()):
+        m, ci_pad = batch * h * w, -(-ci // 32) * 32
+        if m * 9 * ci_pad * 2 <= bc._FUSE_TAPS_MAX_BYTES:
+            cases.append((n, m, 9 * ci, co))
+        else:
+            cases.append((9 * n, m, ci, co))
+    return cases
+
+
+def _add_row(totals, name, count, k_ms, p_ms, l_ms, nbytes, ops) -> None:
+    t = totals[name]
+    t["ms"] += count * k_ms
+    t["plain_ms"] += count * p_ms
+    t["bytes"] += count * nbytes
+    t["ops"] += count * ops
+    if t["library_ms"] is not None:
+        t["library_ms"] = None if l_ms is None else t["library_ms"] + count * l_ms
+
+
+def dense_kernel_phase(torch, bc):
+    """K1 and K3 at every binary-conv shape of a batch-8 BinaryDenseNet-28
+    and MeliusNet-22 forward (N = 64 over 64 to 512 channels at 56, 28, 14
+    and 7), K4 at the same convs' GEMMs (M = 8 x pixels, K = 9 x channels
+    in, N = 64); K1 and K3 at the batch-128 training step's shapes
+    (401408 rows at 56x56); K2 at BinaryAlexNet's dense layers at M 128
+    ("popc"). Each equal to its plain version and the same bits twice,
+    timed beside its plain version and its yardstick (cuDNN's conv x
+    scale, ``torch._int_mm``). Returns per-entry totals: "densenet" (K1,
+    K3 per slice-L forward, K4 per slice-M forward), "melius" (per
+    slice-N forward; K4 per forward of the same model on "xnor", which no
+    slice serves), "xnor_train" (K1, K3 per DenseNet training step, K2
+    per BinaryAlexNet step)."""
+    g = torch.Generator().manual_seed(9)
+    dev = torch.device("cuda")
+    dn, ml = dense_conv_shapes(torch, "BinaryDenseNet28"), dense_conv_shapes(torch, "MeliusNet22")
+    print(f"dense zoo convs (h, w, ci, co): count per forward: densenet {dn}, melius {ml}",
+          flush=True)
+    check(sum(dn.values()) == 23 and sum(ml.values()) == 34,
+          f"dense zoo: {sum(dn.values())} and {sum(ml.values())} binary convs, want 23 and 34")
+    out = {"densenet": _binary_totals(), "melius": _binary_totals(),
+           "xnor_train": _binary_totals()}
+    del out["xnor_train"]["packed_weight_matmul"]  # no "xnor" conv trains here
+    out["xnor_train"].update({"xnor_matmul_packed_scaled": {
+        "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0.0, "ops": 0.0,
+        "max_abs_err": 0.0}})
+    for batch in (1, BATCH):
+        k4 = sum(n for n, *_ in dense_gemm_cases(bc, dense_conv_shapes(torch, "BinaryDenseNet28",
+                                                                       batch), batch))
+        check(k4 == DENSE_K4[batch], f"slice M: {k4} K4 GEMMs at batch {batch}, "
+                                     f"DENSE_K4 says {DENSE_K4[batch]}")
+    log = []
+    record = _recorder(torch, out["densenet"], plain_reps=3, plain_inner=1, log=log)
+    for key in sorted(set(dn) | set(ml)):
+        h, w, ci, co = key
+        start = len(log)
+        _conv_rows(torch, bc, record, [(dn.get(key, 0), BATCH, h, w, ci, co, 3, 1)], g)
+        ((n, m, k, nn),) = dense_gemm_cases(bc, {key: 1})
+        _gemm_rows(torch, bc, record, [(n * dn.get(key, 0), m, k, nn)], g)
+        for row in log[start:]:
+            per_conv = n if row[0] == "packed_weight_matmul" else 1
+            _add_row(out["melius"], row[0], per_conv * ml.get(key, 0), *row[1:])
+    for name in ("pack_rows", "conv_gemm_popcount", "packed_weight_matmul"):
+        out["melius"][name]["max_abs_err"] = out["densenet"][name]["max_abs_err"]
+
+    train = dense_conv_shapes(torch, "BinaryDenseNet28", batch=TRAIN_BATCH)
+    record = _recorder(torch, out["xnor_train"], plain_reps=1, plain_inner=1)
+    _conv_rows(torch, bc, record, [(n, TRAIN_BATCH, h, w, ci, co, 3, 1)
+                                   for (h, w, ci, co), n in sorted(train.items())], g)
+    torch.cuda.empty_cache()
+
+    name = "xnor_matmul_packed_scaled"
+    for m, k, n in ALEXNET_DENSE:
+        a = bc.pack_rows_plain(_signs(torch, g, m, k).to(dev))
+        b = bc.pack_dense_kernel(_signs(torch, g, k, n))[0].to(dev)
+        scale = (torch.rand(n, generator=g) + 0.1).to(dev)
+        kw = b.shape[0]
+        variant = bc.xnor_matmul_packed_scaled_variant(m, n, kw)
+        check(variant == "popc", f"K2 at the training step's {(m, k, n)}: variant {variant}, "
+                                 "want popc")
+        mm, rows = _int_mm_yardstick(torch, m, k, n, dev, g)
+        check(rows == m, f"_int_mm at {(m, k, n)} ran at M {rows}")
+        record(name, 1, lambda: bc.xnor_matmul_packed_scaled(a, b, scale, k_true=k),
+               lambda: bc.xnor_matmul_packed_scaled_plain(a, b, scale, k_true=k),
+               lambda: mm().float() * scale[None, :],
+               m * kw * 4 + kw * n * 4 + n * 4 + m * n * 4, 2 * m * n * k,
+               (m, k, n, variant))
+    return out
+
+
+def xnor_dense_vjp_phase(torch, bc):
+    """``xnor_dense`` under autograd at BinaryAlexNet's dense shapes (M 128,
+    bf16 +-1 inputs, sign x scale kernels) on the fused flavor (K1 + K2),
+    "reference" (K5) and "xnor" (K4): the output and both gradients equal
+    bit for bit to the same call with the plain kernels patched in
+    (deterministic mode), one launch of each kernel per call."""
+    dev = torch.device("cuda")
+    g = torch.Generator().manual_seed(10)
+    want_launches = {"auto": {"pack_rows": 1, "xnor_matmul_packed_scaled": 1},
+                     "reference": {"xnor_matmul_packed": 1},
+                     "xnor": {"packed_weight_matmul": 1}}
+    for m, k, n in ALEXNET_DENSE:
+        x0 = _signs(torch, g, m, k).to(torch.bfloat16).to(dev)
+        q0 = (_signs(torch, g, k, n) * (torch.rand(n, generator=g) + 0.1)).to(dev)
+        cot = torch.randn(m, n, generator=g).to(dev)
+        for flavor, launches in want_launches.items():
+            def run():
+                x = x0.clone().requires_grad_()
+                q = q0.clone().requires_grad_()
+                y = bc.xnor_dense(x, q, flavor != "xnor",
+                                  "auto" if flavor == "xnor" else flavor)
+                y.backward(cot)
+                torch.cuda.synchronize()
+                return y.detach(), x.grad, q.grad
+
+            with deterministic(torch):
+                bc.reset_launches()
+                got = run()
+                seen = {k2: v for k2, v in bc.LAUNCHES.items() if v}
+                with _plain_binary(bc):
+                    want = run()
+            check(seen == launches, f"xnor_dense {flavor} at {(m, k, n)} launched {seen}, "
+                                    f"want {launches}")
+            for what, a, b in zip(("output", "dx", "dk"), got, want):
+                check(_same_bits(torch, a, b),
+                      f"xnor_dense {flavor} at {(m, k, n)}: {what} differs from the plain "
+                      f"kernels' (max {_max_abs_err(torch, a, b)})")
+            print(f"xnor_dense {flavor} at M={m} K={k} N={n}: launches {seen}; output, dx "
+                  f"[{m}, {k}] {got[1].dtype} and dk [{k}, {n}] {got[2].dtype} equal to the "
+                  f"plain kernels' bit for bit", flush=True)
+
+
+def xnor_training_phase(torch, bc, smi, model, per_step, tag, full=True):
+    """TrainImageNet's step through the packed kernels: ``model`` on
+    "xnor_popcount", bf16, batch 128, Adam under WarmupCosine (base rate
+    1e-3). From one fixed state (Adam's count at 1): the step's launches
+    (``per_step``), a finite loss that moves the parameters, and the same
+    loss, gradients, parameters, BatchNorm statistics and Adam moments bit
+    for bit as the step with the plain kernels patched in (deterministic
+    mode); then the step's device time, host time and peak memory. With
+    ``full``: the loss falling over six steps on the one batch, the
+    profiler's busy share and top items, and images/s through ``run()``.
+    Returns (launches per step, stats)."""
+    from zookeeper_tpu_torch.core import configure
+    from zookeeper_tpu_torch.training.imagenet import TrainImageNet
+
+    dev = torch.device("cuda")
+
+    def experiment(epochs):
+        exp = TrainImageNet()
+        configure(exp, {
+            "model": model, "model.compute_dtype": "bfloat16",
+            "model.binary_compute": "xnor_popcount",
+            "optimizer.schedule.base_lr": 1e-3,
+            "loader.dataset.num_train_examples": TRAIN_EXAMPLES,
+            "batch_size": TRAIN_BATCH, "epochs": epochs, "steps_per_epoch": 3,
+            "validate": False, "seed": 0, "device": "cuda", "verbose": False,
+        }, name="experiment")
+        return exp
+
+    t0 = time.perf_counter()
+    exp = experiment(epochs=4)
+    state = exp.build_state(dev)
+    batches = exp.loader.batches("train", device=dev, epoch=0, max_batches=1)
+    batch = next(batches)
+    batches.close()
+    step = exp._train_step_fn()
+    state.opt_state["count"] = 1
+    init = _snapshot(state)
+    param_names = [name for name, _ in state.module.named_parameters()]
+    print(f"{tag}: {model} ({sum(p.numel() for p in state.module.parameters())} parameters) "
+          f"built and one batch {tuple(batch['input'].shape)} staged in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    def traced_step():
+        grads = {}
+        real = state.tx.update
+
+        def spy(g, opt_state, params):
+            grads.update({k: v.detach().clone() for k, v in g.items()})
+            real(g, opt_state, params)
+
+        state.tx.update = spy
+        try:
+            _, metrics = step(state, batch)
+        finally:
+            del state.tx.update
+        torch.cuda.synchronize()
+        out = {"loss": metrics["loss"].clone()}
+        out.update({f"grad {k}": v for k, v in grads.items()})
+        out.update({f"state {k}": v.detach().clone()
+                    for k, v in state.module.state_dict().items()})
+        for key in ("mu", "nu"):
+            out.update({f"{key} {k}": v.clone() for k, v in state.opt_state[key].items()})
+        return out
+
+    with deterministic(torch):
+        _restore(state, init)
+        bc.reset_launches()
+        got = traced_step()
+        launches = {k: v for k, v in bc.LAUNCHES.items() if v}
+        check(launches == per_step, f"{tag}: one step launched {launches}, want {per_step}")
+        loss = got["loss"].item()
+        check(math.isfinite(loss), f"{tag}: loss {loss} is not finite")
+        moved = sum(not _same_bits(torch, got[f"state {n}"], init[0][n]) for n in param_names)
+        check(moved > 0, f"{tag}: the step moved no parameter")
+        _restore(state, init)
+        before = dict(bc.LAUNCHES)
+        with _plain_binary(bc):
+            want = traced_step()
+        check(bc.LAUNCHES == before, f"{tag}: the plain-kernel step launched kernels")
+        bad = [k for k in got if not _same_bits(torch, got[k], want[k])]
+        check(set(got) == set(want) and not bad,
+              f"{tag}: the plain-kernel step differs in {len(bad)} of {len(got)} tensors, "
+              f"e.g. {bad[:4]}")
+        print(f"{tag}: one step, loss {loss:.6f}, launches {launches}, {moved} of "
+              f"{len(param_names)} parameter tensors moved; equal to the plain-kernel step bit "
+              f"for bit ({len(got)} tensors: loss, gradients, parameters, BN statistics, Adam "
+              f"moments)", flush=True)
+        del got, want
+
+    _restore(state, init)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    step(state, batch)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    times, walls = [], []
+    for _ in range(4):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t1 = time.perf_counter()
+        start.record()
+        step(state, batch)
+        end.record()
+        end.synchronize()
+        walls.append((time.perf_counter() - t1) * 1e3)
+        times.append(start.elapsed_time(end))
+    step_ms = statistics.median(times[1:])
+    stats = {"step_ms": step_ms, "step_wall_ms": statistics.median(walls[1:]),
+             "images_per_s_step": TRAIN_BATCH / step_ms * 1e3,
+             "peak_gib": peak / 2.0**30, "step_gib": (peak - base) / 2.0**30}
+    if full:
+        _restore(state, init)
+        losses = [step(state, batch)[1]["loss"].item() for _ in range(6)]
+        check(all(math.isfinite(v) for v in losses) and losses[-1] < losses[0],
+              f"{tag}: losses {losses} over six steps on one batch not finite or not falling")
+        busy_ms, launched = _profile_train_step(torch, lambda: step(state, batch), step_ms, tag)
+        run_exp = experiment(epochs=1)
+        bc.reset_launches()
+        history = run_exp.run()
+        torch.cuda.synchronize()
+        for name, n in per_step.items():
+            check(bc.LAUNCHES[name] == 3 * n,
+                  f"{tag} run(): {name} launched {bc.LAUNCHES[name]} times, want {3 * n}")
+        stats.update({"losses_one_batch": losses, "device_busy_ms": busy_ms,
+                      "device_busy_share": busy_ms / step_ms,
+                      "device_activities_per_step": launched,
+                      "images_per_s_run": history["train"][0]["examples_per_sec"],
+                      "run_loss": history["train"][0]["loss"]})
+        del run_exp
+    print(f"{tag} on {smi}: {json.dumps(stats)}", flush=True)
+    del exp, state, batch
+    torch.cuda.empty_cache()
+    return launches, stats
+
+
+def dense_profile_phase(smi):
+    """profile_forward of each dense slice's deployment: the device time
+    of a batch-8 forward and the device's busy share."""
+    from zookeeper_tpu_torch.serving import profile_forward
+
+    out = {}
+    for label, (model, mode) in DENSE_PROFILES.items():
+        result = profile_forward.main(["--model", model, "--binary-compute", mode, "--top", "5"])
+        check(result["device_ms_per_forward"] is not None,
+              f"profile_forward {model} {mode}: no device time")
+        out[label] = {"device_ms_per_forward": result["device_ms_per_forward"],
+                      "busy_share": result["busy_share"], "forward_ms": result["forward_ms"]}
+    print(f"dense slices' profiles on {smi}: {json.dumps(out)}", flush=True)
+    return out
 
 
 #: The LM serving slice: the long-context TransformerLM of
@@ -2573,6 +2961,18 @@ def main() -> None:
     resnet = resnet_training_phase(torch, bc, smi)
     mnist = mnist_phase(torch, smi)
     print(f"zoo on {smi}: resnet50 {json.dumps(resnet)} mnist {json.dumps(mnist)}", flush=True)
+    dense = dense_kernel_phase(torch, bc)
+    xnor_dense_vjp_phase(torch, bc)
+    dense_profiles = dense_profile_phase(smi)
+    launches_dt, dense_train = xnor_training_phase(torch, bc, smi, "BinaryDenseNet28",
+                                                   DENSE_TRAIN, "densenet training")
+    launches_at, alex_train = xnor_training_phase(torch, bc, smi, "BinaryAlexNet", ALEXNET_TRAIN,
+                                                  "alexnet xnor training", full=False)
+    print(f"dense zoo on {smi}: " + " ".join(
+        f"{label} {json.dumps({**slices[label][1], **dense_profiles[label]})}"
+        for label in DENSE_SLICES)
+        + f" densenet_training {json.dumps(dense_train)} alexnet_training "
+        f"{json.dumps(alex_train)}", flush=True)
 
     from zookeeper_tpu_torch.ops import attention as A
 
@@ -2623,6 +3023,29 @@ def main() -> None:
                 "path": path, "ms": b["ms"], "plain_ms": b["plain_ms"], "bound_ms": least,
                 "bound_by": by, "library_ms": b["library_ms"],
                 "launches": slices[path][0][name] if path in slices else launches_bt[name],
+            }
+        # The dense zoo: K1 and K3 per slice-L (DenseNet) and slice-N
+        # (Melius) forward, K4 per slice-M forward (and per forward of
+        # Melius on "xnor", which no slice serves), K1 and K3 per DenseNet
+        # training step, K2 per BinaryAlexNet training step (M 128).
+        entries = {
+            "densenet": ("L" if name != "packed_weight_matmul" else "M", None),
+            "melius": ("N" if name != "packed_weight_matmul" else "Melius on xnor, not served",
+                       None),
+            "xnor_train": ("DenseNet28 training step" if name != "xnor_matmul_packed_scaled"
+                           else "BinaryAlexNet training step",
+                           launches_at if name == "xnor_matmul_packed_scaled" else launches_dt),
+        }
+        for entry, (path, step_launches) in entries.items():
+            if name not in dense[entry]:
+                continue
+            d = dense[entry][name]
+            least, by = bound_ms(name, d["bytes"], d["ops"])
+            rows[-1][entry] = {
+                "path": path, "ms": d["ms"], "plain_ms": d["plain_ms"], "bound_ms": least,
+                "bound_by": by, "library_ms": d["library_ms"], "max_abs_err": d["max_abs_err"],
+                "launches": (step_launches.get(name, 0) if step_launches is not None
+                             else slices[path][0].get(name, 0) if path in slices else 0),
             }
         if name in ("mask_mul_resid", "xnor_matmul_packed_scaled"):
             # K8 has no work on Bi-Real's step; K2 runs in XNORNet's dense stage.

@@ -150,14 +150,17 @@ def test_int8_quantdense_trains():
 
 
 def test_packed_and_xnor_dense_are_inference_only():
+    """Packed weights serve only; the latent "xnor" layer now trains too
+    (``xnor_dense``'s float-matmul gradients), with and without a
+    gradient to take."""
     x = torch.ones(2, 64, requires_grad=True)
     packed = torch.zeros(2, 4, dtype=torch.int32)
     with pytest.raises(ValueError, match="inference-only"):
         tbc.packed_dense_infer(x, packed, torch.ones(4), 64, use_popcount=True)
     layer = QuantDense(64, 4, input_quantizer="ste_sign", kernel_quantizer="ste_sign",
                        binary_compute="xnor")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        layer(torch.ones(2, 64))
+    layer(torch.ones(2, 64)).sum().backward()
+    assert layer.kernel.grad is not None and layer.kernel.grad.shape == (64, 4)
     with torch.no_grad():  # inference through the same layer runs
         assert layer(torch.ones(2, 64)).shape == (2, 4)
 

@@ -234,15 +234,18 @@ def test_packed_init_serves_the_float_twin(mode):
 
 
 def test_unported_modes_raise_naming_the_roadmap():
-    """Every binary_compute mode builds now; what the port does not run
-    yet (training through the xnor paths' VJP) raises naming ROADMAP.md
-    instead of running another path. Every quantizer of the registry is
+    """Every binary_compute mode builds and trains now (the xnor paths
+    through ``xnor_conv``'s VJP), and a packed build still refuses a
+    training forward's gradient. Every quantizer of the registry is
     ported: a name outside it raises, listing the registry."""
     for mode in ("mxu", "int8", ("int8", "int8", "xnor", "xnor")):
         _port_model(binary_compute=mode).build(SHAPE, CLASSES)
     module = _port_model(binary_compute="xnor").build(SHAPE, CLASSES).train()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        module(torch.zeros(2, *SHAPE))
+    module(torch.zeros(2, *SHAPE)).sum().backward()
+    assert all(p.grad is not None for p in module.parameters())
+    packed = _port_model(binary_compute="xnor", packed_weights=True).build(SHAPE, CLASSES).train()
+    with pytest.raises(ValueError, match="inference-only"):
+        packed(torch.zeros(2, *SHAPE, requires_grad=True))
     PortQuantConv(8, 8, input_quantizer="approx_sign", kernel_quantizer="magnitude_aware_sign")
     with pytest.raises(ValueError, match="Known: .*'approx_sign'"):
         PortQuantConv(8, 8, input_quantizer="aprox_sign")

@@ -1,6 +1,7 @@
 """Models: the abstract ``Model`` component; the binary zoo (the QuickNet
 family, BinaryNet, BinaryAlexNet, XNORNet, DoReFaNet; the ResNet-topology
-BiRealNet, BinaryResNetE18, RealToBinaryNet and ReActNet); the fp
+BiRealNet, BinaryResNetE18, RealToBinaryNet and ReActNet; the dense
+BinaryDenseNet28/37/37Dilated/45 and MeliusNet22); the fp
 ResNet50/101/152, SimpleCnn and Mlp; and the TransformerLM family."""
 
 from zookeeper_tpu_torch.models.base import Model
@@ -13,6 +14,13 @@ from zookeeper_tpu_torch.models.binary import (
     QuickNetSmall,
     XNORNet,
 )
+from zookeeper_tpu_torch.models.binary_dense import (
+    BinaryDenseNet28,
+    BinaryDenseNet37,
+    BinaryDenseNet37Dilated,
+    BinaryDenseNet45,
+    MeliusNet22,
+)
 from zookeeper_tpu_torch.models.binary_resnet import (
     BinaryResNetE18,
     BiRealNet,
@@ -24,7 +32,9 @@ from zookeeper_tpu_torch.models.simple import Mlp, SimpleCnn
 from zookeeper_tpu_torch.models.transformer import TransformerLM
 
 __all__ = [
-    "BiRealNet", "BinaryAlexNet", "BinaryNet", "BinaryResNetE18", "DoReFaNet", "Mlp", "Model",
+    "BiRealNet", "BinaryAlexNet", "BinaryDenseNet28", "BinaryDenseNet37",
+    "BinaryDenseNet37Dilated", "BinaryDenseNet45", "BinaryNet", "BinaryResNetE18",
+    "DoReFaNet", "MeliusNet22", "Mlp", "Model",
     "QuickNet", "QuickNetLarge", "QuickNetSmall", "ReActNet", "RealToBinaryNet", "ResNet50",
     "ResNet101", "ResNet152", "SimpleCnn", "TransformerLM", "XNORNet",
 ]

@@ -4,9 +4,11 @@ A JAX/flax tree of the CNN zoo — nested dicts of arrays under flax's
 auto-numbered scopes — maps to the port's ``state_dict`` by name, since
 the port's modules carry the same names in the same order. Layer scopes
 are ``Conv_i``, ``BatchNorm_i``, ``Dense_i``, ``QuantConv_i``,
-``QuantDense_i``, ``RSign_i`` and ``RPReLU_i``; any other ``Name_i`` scope
-is a block (``_BiRealBlock_3``, ``_ReActBlock_0``, ``_Bottleneck_5``) and
-is walked into, its layers' names joined with dots
+``QuantDense_i`` (and every other ``Quant*_i`` that holds leaves:
+``QuantConvTranspose_0``, ``QuantLocallyConnected2D_0``), ``RSign_i`` and
+``RPReLU_i``; any other ``Name_i`` scope, and a scope of scopes, is a
+block (``_BiRealBlock_3``, ``_MeliusDenseBlock_0``,
+``QuantDepthwiseConv_0``) and is walked into, its layers' names joined with dots
 (``_BiRealBlock_3.QuantConv_0.kernel``). Layouts change only where
 PyTorch holds a weight differently: fp conv kernels HWIO -> OIHW
 (grouped convs included) and the dense kernel [in, out] -> [out, in]. BN
@@ -43,8 +45,10 @@ from zookeeper_tpu_torch.models.transformer import TransformerLMModule
 _CONV = re.compile(r"^Conv_\d+$")
 _BN = re.compile(r"^BatchNorm_\d+$")
 _DENSE = re.compile(r"^Dense_\d+$")
-#: Layers whose leaves keep the flax names and layouts.
-_AS_IS = re.compile(r"^(Quant(Conv|Dense)|RSign|RPReLU)_\d+$")
+#: Layers whose leaves keep the flax names and layouts (every Quant*
+#: layer that holds its own leaves; one that wraps others, as
+#: ``QuantDepthwiseConv_0`` wraps ``QuantConv_0``, is walked into).
+_AS_IS = re.compile(r"^(Quant[A-Za-z0-9]*|RSign|RPReLU)_\d+$")
 #: A block scope (a flax submodule holding layers), walked into.
 _BLOCK = re.compile(r"^_?[A-Za-z][A-Za-z0-9]*_\d+$")
 
@@ -58,7 +62,9 @@ def _tensor(x: Any) -> torch.Tensor:
     return torch.from_numpy(np.array(x))
 
 
-def _is_layer(scope: str) -> bool:
+def _is_layer(scope: str, leaves: Any) -> bool:
+    if isinstance(leaves, Mapping) and any(isinstance(v, Mapping) for v in leaves.values()):
+        return False  # a scope of scopes: a block
     return any(p.match(scope) for p in (_CONV, _BN, _DENSE, _AS_IS))
 
 
@@ -82,7 +88,7 @@ def _walk(tree: Mapping[str, Any], what: str, layer_fn, prefix: str = ""):
     """``layer_fn(scope, leaves)`` of every layer scope of a flax tree,
     walking into block scopes; yields ``("Block.Layer", its dict)``."""
     for scope, leaves in tree.items():
-        if _is_layer(scope):
+        if _is_layer(scope, leaves):
             yield f"{prefix}{scope}", layer_fn(scope, leaves)
         elif _BLOCK.match(scope) and isinstance(leaves, Mapping):
             yield from _walk(leaves, what, layer_fn, f"{prefix}{scope}.")
@@ -144,11 +150,16 @@ def to_flax_lm_variables(module: nn.Module) -> Dict[str, Any]:
     return _flax_lm_tree(module.state_dict())
 
 
-def _flax_lm_tree(named: Mapping[str, Any]) -> Dict[str, Any]:
-    """``{state_dict name: tensor}`` of an LM -> a flax params tree."""
+def _numpy(value: Any) -> np.ndarray:
+    return _tensor(value).numpy()
+
+
+def _flax_lm_tree(named: Mapping[str, Any], leaf_fn=_numpy) -> Dict[str, Any]:
+    """``{state_dict name: tensor}`` of an LM -> a flax params tree, each
+    tensor through ``leaf_fn`` (numpy by default)."""
     params: Dict[str, Any] = {}
     for name, value in named.items():
-        leaf = _tensor(value).numpy()
+        leaf = leaf_fn(value)
         parts = name.split(".")
         if parts[0] in ("embed", "pos"):
             params[parts[0]] = leaf
@@ -180,13 +191,13 @@ def _flax_param_leaves(scope: str, leaves: Mapping[str, np.ndarray]) -> Dict[str
     raise ValueError(f"to_flax_variables: unknown scope {scope!r}.")
 
 
-def _by_layer(named: Mapping[str, Any]) -> Dict[Tuple[str, ...], Dict[str, np.ndarray]]:
+def _by_layer(named: Mapping[str, Any], leaf_fn=_numpy) -> Dict[Tuple[str, ...], Dict[str, Any]]:
     """``{"Block.Layer.leaf": tensor}`` -> ``{("Block", "Layer"): {leaf:
-    numpy}}``, in order."""
-    out: Dict[Tuple[str, ...], Dict[str, np.ndarray]] = {}
+    leaf_fn(tensor)}}`` (numpy by default), in order."""
+    out: Dict[Tuple[str, ...], Dict[str, Any]] = {}
     for name, value in named.items():
         *path, leaf = name.split(".")
-        out.setdefault(tuple(path), {})[leaf] = _tensor(value).numpy()
+        out.setdefault(tuple(path), {})[leaf] = leaf_fn(value)
     return out
 
 
@@ -213,11 +224,21 @@ def _is_lm(module: nn.Module) -> bool:
     return isinstance(module, TransformerLMModule)
 
 
-def _flax_cnn_tree(named: Mapping[str, Any]) -> Dict[str, Any]:
+def _flax_cnn_tree(named: Mapping[str, Any], leaf_fn=_numpy) -> Dict[str, Any]:
+    """``{state_dict name: tensor}`` of a CNN -> a flax params tree (the
+    BatchNorm statistics left out), each tensor through ``leaf_fn``."""
     tree: Dict[str, Any] = {}
-    for path, leaves in _by_layer(named).items():
+    for path, leaves in _by_layer(named, leaf_fn).items():
         _nest(tree, path, _flax_param_leaves(path[-1], leaves))
     return tree
+
+
+def flax_param_tree(module: nn.Module, leaf_fn=_numpy) -> Dict[str, Any]:
+    """The module's parameters (no BatchNorm statistics) as a flax params
+    tree, each tensor through ``leaf_fn`` (numpy by default; a shape
+    stand-in reads a module built on the ``meta`` device)."""
+    tree = _flax_lm_tree if _is_lm(module) else _flax_cnn_tree
+    return tree(module.state_dict(), leaf_fn)
 
 
 def flax_train_state(state: Any) -> Dict[str, Any]:

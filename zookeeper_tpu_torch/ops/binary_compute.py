@@ -1,6 +1,8 @@
-"""Binary compute: bit packing, the packed conv and dense schedules, the
-int8 training conv and dense (the conv with its 1-bit residuals), and
-the hand-written CUDA kernels they run.
+"""Binary compute: bit packing, the packed conv and dense schedules and
+their training VJPs (``xnor_conv``, ``xnor_dense``), the int8 training
+conv (any spatial rank, with its 1-bit residuals), transposed conv and
+dense, the rank-generic float conv, and the hand-written CUDA kernels
+they run.
 
 The PyTorch counterpart of ``zookeeper_tpu/ops/binary_compute.py``.
 Tensors keep the JAX package's layouts at every public function: NHWC
@@ -727,14 +729,10 @@ def _pads(
 ) -> Tuple[int, int, int, int]:
     """(top, bottom, left, right) of XLA's SAME (odd pixel after) or
     VALID padding."""
-    if padding == "VALID":
-        return (0, 0, 0, 0)
-    if padding != "SAME":
+    if padding not in ("SAME", "VALID"):
         raise ValueError(f"Unsupported padding {padding!r} (SAME/VALID).")
-    sh, sw = strides
-    pad_h = max((-(-h // sh) - 1) * sh + kh - h, 0)
-    pad_w = max((-(-w // sw) - 1) * sw + kw - w, 0)
-    return pad_h // 2, pad_h - pad_h // 2, pad_w // 2, pad_w - pad_w // 2
+    (top, bottom), (left, right) = conv_pads((h, w), (kh, kw), strides, padding)
+    return top, bottom, left, right
 
 
 def _conv_gemm_popcount(
@@ -898,17 +896,14 @@ def xnor_dense(
     use_popcount: bool = False,
     flavor: str = "auto",
 ) -> torch.Tensor:
-    """Binary dense ``[..., K] @ [K, N]`` through the packed kernels,
-    packing the quantized kernel (sign x per-output-channel scale) on the
-    fly. Inference only in the port: its training VJP (the float
-    matmul's, on the saved quantized operands) is queued in ROADMAP.md,
-    so a call that would need a gradient raises."""
+    """Binary dense ``[..., K] @ [K, N]`` through the packed kernels (the
+    JAX package's ``xnor_dense``), packing the quantized kernel (sign x
+    per-output-channel scale) at each call: K1 + K2 (``pack_bits`` + K5
+    under "reference") with ``use_popcount``, K4 otherwise. Under autograd
+    the gradients are the float matmul's on the saved quantized operands
+    (:class:`_XnorDense`)."""
     if torch.is_grad_enabled() and (x.requires_grad or q_kernel.requires_grad):
-        raise NotImplementedError(
-            "xnor_dense: training through the packed dense paths (the "
-            "xnor_dense VJP) is not in the PyTorch port yet; it is queued in "
-            "ROADMAP.md. Train with 'int8' or 'mxu'."
-        )
+        return _XnorDense.apply(x, q_kernel, bool(use_popcount), flavor)
     packed, scale = pack_dense_kernel(q_kernel)
     return _packed_dense_forward(
         x, packed, scale, k_true=q_kernel.shape[0], use_popcount=use_popcount,
@@ -937,65 +932,216 @@ def packed_dense_infer(
     )
 
 
-# -- the int8 training conv --------------------------------------------------
+# -- the float conv and its VJP (rank-generic) ----------------------------
+
+
+def conv_pads(
+    spatial: Sequence[int], kernel: Sequence[int], strides: Sequence[int], padding,
+    dilation: Optional[Sequence[int]] = None,
+) -> Tuple[Tuple[int, int], ...]:
+    """(before, after) per spatial dim of XLA's SAME (the odd pixel after,
+    over the dilated kernel's extent), VALID, or explicit pads."""
+    rank = len(spatial)
+    dilation = tuple(dilation or (1,) * rank)
+    if isinstance(padding, str):
+        if padding == "VALID":
+            return ((0, 0),) * rank
+        if padding != "SAME":
+            raise ValueError(f"Unsupported padding {padding!r} (SAME/VALID or explicit pads).")
+        pads = []
+        for n, k, s, d in zip(spatial, kernel, strides, dilation):
+            total = max((-(-n // s) - 1) * s + (k - 1) * d + 1 - n, 0)
+            pads.append((total // 2, total - total // 2))
+        return tuple(pads)
+    pads = tuple((int(lo), int(hi)) for lo, hi in padding)
+    if len(pads) != rank or any(lo < 0 or hi < 0 for lo, hi in pads):
+        raise ValueError(f"Explicit pads {padding!r}: want {rank} non-negative (lo, hi) pairs.")
+    return pads
 
 
 def _conv_operands(
-    x: torch.Tensor, kh: int, kw: int, strides: Sequence[int], padding: str
-) -> Tuple[torch.Tensor, Tuple[int, int], Optional[Tuple[int, int]]]:
-    """``(input, conv padding, offset)`` for a conv of NHWC ``x``:
-    symmetric SAME padding is left to the conv; an asymmetric one (the
-    odd pixel after) is applied with zeros here, and ``offset`` (top,
-    left) locates ``x`` inside the padded input."""
-    top, bottom, left, right = _pads(x.shape[1], x.shape[2], kh, kw, strides, padding)
-    if top == bottom and left == right:
-        return x, (top, left), None
-    return F.pad(x, (0, 0, left, right, top, bottom)), (0, 0), (top, left)
+    x: torch.Tensor, kernel: Sequence[int], strides: Sequence[int], padding,
+    dilation: Optional[Sequence[int]] = None,
+) -> Tuple[torch.Tensor, Tuple[int, ...], Optional[Tuple[int, ...]]]:
+    """``(input, conv padding, offset)`` for a conv of channels-last ``x``:
+    symmetric padding is left to the conv; an asymmetric one (SAME's odd
+    pixel after, or explicit pads) is applied with zeros here, and
+    ``offset`` (the leading pad of each spatial dim) locates ``x`` inside
+    the padded input."""
+    pads = conv_pads(x.shape[1:-1], kernel, strides, padding, dilation)
+    if all(lo == hi for lo, hi in pads):
+        return x, tuple(lo for lo, _ in pads), None
+    flat = [0, 0]
+    for lo, hi in reversed(pads):
+        flat += [lo, hi]
+    return F.pad(x, flat), (0,) * len(pads), tuple(lo for lo, _ in pads)
 
 
 def _oihw(k: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """An HWIO kernel as the OIHW weight of ``F.conv2d`` in ``dtype``,
-    stored channels-last like the NHWC activations it meets."""
-    return k.to(dtype).permute(3, 0, 1, 2).contiguous().permute(0, 3, 1, 2)
+    """A channels-last kernel (``[*spatial, I, O]``, HWIO in 2-D) as the
+    ``[O, I, *spatial]`` weight of ``F.conv*d`` in ``dtype``, stored
+    channels-last like the activations it meets."""
+    return k.to(dtype).movedim(-1, 0).contiguous().movedim(-1, 1)
+
+
+_CONV = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}
 
 
 def float_conv(
-    x: torch.Tensor, k: torch.Tensor, strides: Sequence[int], padding: str,
-    groups: int = 1,
+    x: torch.Tensor, k: torch.Tensor, strides: Sequence[int], padding,
+    groups: int = 1, dilation: Optional[Sequence[int]] = None,
 ) -> torch.Tensor:
-    """Conv of NHWC ``x`` with the HWIO kernel ``k`` cast to ``x``'s dtype
-    (the JAX package's ``_float_conv``): the compute dtype follows the
-    activations, as the gradient convs of the binary paths do. XLA
-    SAME/VALID padding; differentiable by autograd."""
-    xp, pad, _ = _conv_operands(x, k.shape[0], k.shape[1], strides, padding)
-    y = F.conv2d(
-        xp.permute(0, 3, 1, 2), _oihw(k, x.dtype), stride=tuple(strides),
-        padding=pad, groups=groups,
+    """Conv of channels-last ``x`` (NHWC in 2-D; 1-D and 3-D too) with the
+    channels-last kernel ``k`` (HWIO) cast to ``x``'s dtype (the JAX
+    package's ``_float_conv``): the compute dtype follows the activations,
+    as the gradient convs of the binary paths do. XLA SAME/VALID padding
+    or explicit pads, ``dilation`` of the kernel; differentiable by
+    autograd."""
+    rank = k.dim() - 2
+    xp, pad, _ = _conv_operands(x, k.shape[:rank], strides, padding, dilation)
+    y = _CONV[rank](
+        xp.movedim(-1, 1), _oihw(k, x.dtype), stride=tuple(strides), padding=pad,
+        dilation=tuple(dilation or (1,) * rank), groups=groups,
     )
-    return y.permute(0, 2, 3, 1)
+    return y.movedim(1, -1)
 
 
 def _float_conv_vjp(
     x: torch.Tensor, k: torch.Tensor, g: torch.Tensor, strides: Sequence[int],
-    padding: str, groups: int, needs: Sequence[bool],
+    padding, groups: int, needs: Sequence[bool],
+    dilation: Optional[Sequence[int]] = None,
 ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
     """``(dx, dk)`` of :func:`float_conv` at ``(x, k)`` for the cotangent
-    ``g`` (in ``x``'s dtype; dk in it too, HWIO), straight from the conv
-    backward, without recomputing the forward. ``needs`` masks them."""
-    xp, pad, offset = _conv_operands(x, k.shape[0], k.shape[1], strides, padding)
+    ``g`` (in ``x``'s dtype; dk in it too, channels-last), straight from
+    the conv backward, without recomputing the forward. ``needs`` masks
+    them."""
+    rank = k.dim() - 2
+    dilation = tuple(dilation or (1,) * rank)
+    xp, pad, offset = _conv_operands(x, k.shape[:rank], strides, padding, dilation)
     dx, dw, _ = torch.ops.aten.convolution_backward(
-        g.permute(0, 3, 1, 2), xp.permute(0, 3, 1, 2), _oihw(k, x.dtype), None,
-        list(strides), list(pad), [1, 1], False, [0, 0], groups,
+        g.movedim(-1, 1), xp.movedim(-1, 1), _oihw(k, x.dtype), None,
+        list(strides), list(pad), list(dilation), False, [0] * rank, groups,
         [bool(needs[0]), bool(needs[1]), False],
     )
     if dx is not None:
-        dx = dx.permute(0, 2, 3, 1)
+        dx = dx.movedim(1, -1)
         if offset is not None:
-            top, left = offset
-            dx = dx[:, top : top + x.shape[1], left : left + x.shape[2]]
+            dx = dx[(slice(None),) + tuple(
+                slice(o, o + n) for o, n in zip(offset, x.shape[1:-1]))]
     if dw is not None:
-        dw = dw.permute(2, 3, 1, 0)
+        dw = dw.movedim(0, -1).movedim(0, -2)
     return dx, dw
+
+
+# -- training through the packed kernels ------------------------------------
+
+
+class _XnorConv(torch.autograd.Function):
+    """:func:`xnor_conv` on the differentiated path: the packed forward,
+    and the VJP of the float function it equals on its domain
+    (``_reference_conv`` of the JAX package) on the saved quantized
+    operands. The popcount path's SAME pads with ones and then runs VALID,
+    so its border gradient is the interior slice of the padded input's
+    gradient; the others are the float conv's. The backward computes in
+    ``x``'s dtype (the kernel cast to it, as the forward convs of the
+    float paths do)."""
+
+    @staticmethod
+    def forward(ctx, x, q_kernel, strides, padding, use_popcount, flavor):
+        packed, scale = pack_conv_kernel(q_kernel)
+        ctx.save_for_backward(x, q_kernel)
+        ctx.conf = (strides, padding, use_popcount)
+        return _packed_conv_forward(
+            x, packed, scale, strides, padding, ci=x.shape[-1],
+            use_popcount=use_popcount, flavor=flavor,
+        )
+
+    @staticmethod
+    def backward(ctx, g):
+        x, q_kernel = ctx.saved_tensors
+        strides, padding, use_popcount = ctx.conf
+        needs = ctx.needs_input_grad[:2]
+        g = g.to(x.dtype)
+        if use_popcount and padding == "SAME":
+            kh, kw = q_kernel.shape[:2]
+            xp, _, _ = _spatial_pad(x, kh, kw, strides, "SAME", 1.0)
+            dx, dk = _float_conv_vjp(xp, q_kernel, g, strides, "VALID", 1, needs)
+            if dx is not None:
+                top, _, left, _ = _pads(x.shape[1], x.shape[2], kh, kw, strides, "SAME")
+                dx = dx[:, top : top + x.shape[1], left : left + x.shape[2]]
+        else:
+            dx, dk = _float_conv_vjp(x, q_kernel, g, strides, padding, 1, needs)
+        return (
+            None if dx is None else dx.to(x.dtype),
+            None if dk is None else dk.to(q_kernel.dtype),
+            None, None, None, None,
+        )
+
+
+def xnor_conv(
+    x: torch.Tensor,
+    q_kernel: torch.Tensor,
+    strides: Sequence[int],
+    padding: str,
+    use_popcount: bool = False,
+    flavor: str = "auto",
+) -> torch.Tensor:
+    """NHWC binary conv through the packed kernels (the JAX package's
+    ``xnor_conv``), packing the quantized kernel (sign x per-output-channel
+    scale, HWIO) at each call; float32 out.
+
+    ``use_popcount`` runs K1 + K3 (or ``pack_bits`` + K5 under the
+    "reference" flavor), SAME padding with ones; otherwise K4 on int8
+    activations, exact against the float conv. Under autograd the
+    gradients are those of the float function the op equals (see
+    :class:`_XnorConv`), so the quantizers' straight-through gradients
+    compose as on the "mxu" and "int8" paths."""
+    strides = tuple(int(s) for s in strides)
+    if torch.is_grad_enabled() and (x.requires_grad or q_kernel.requires_grad):
+        return _XnorConv.apply(x, q_kernel, strides, padding, bool(use_popcount), flavor)
+    packed, scale = pack_conv_kernel(q_kernel)
+    return _packed_conv_forward(
+        x, packed, scale, strides, padding, ci=x.shape[-1],
+        use_popcount=use_popcount, flavor=flavor,
+    )
+
+
+def _float_dense_vjp(x, k, g, needs):
+    """``(dx, dk)`` of ``[..., K] @ k.to(x.dtype)`` for the cotangent
+    ``g`` in ``x``'s dtype; dk cast back to ``k``'s dtype."""
+    dtype = x.dtype
+    g2, _ = _flatten_leading(g.to(dtype))
+    dx = dk = None
+    if needs[0]:
+        dx = (g2 @ k.to(dtype).t()).reshape(x.shape)
+    if needs[1]:
+        x2, _ = _flatten_leading(x)
+        dk = (x2.t() @ g2).to(k.dtype)
+    return dx, dk
+
+
+class _XnorDense(torch.autograd.Function):
+    """:func:`xnor_dense` on the differentiated path: the packed forward,
+    the float matmul's VJP in ``x``'s dtype on the saved quantized
+    operands."""
+
+    @staticmethod
+    def forward(ctx, x, q_kernel, use_popcount, flavor):
+        ctx.save_for_backward(x, q_kernel)
+        packed, scale = pack_dense_kernel(q_kernel)
+        return _packed_dense_forward(
+            x, packed, scale, k_true=q_kernel.shape[0], use_popcount=use_popcount,
+            flavor=flavor,
+        )
+
+    @staticmethod
+    def backward(ctx, g):
+        x, q_kernel = ctx.saved_tensors
+        dx, dk = _float_dense_vjp(x, q_kernel, g, ctx.needs_input_grad[:2])
+        return dx, dk, None, None
+
+
+# -- the int8 training conv --------------------------------------------------
 
 
 def _int8_conv_forward(x_sign, k_sign, strides, padding, groups, scaled):
@@ -1066,8 +1212,9 @@ def int8_conv(
     scaled: bool = True,
     pack_residuals: bool = False,
 ) -> torch.Tensor:
-    """NHWC conv of quantized operands with exact integer accumulation,
-    returned as float32 (the JAX package's ``int8_conv``).
+    """Channels-last conv of quantized operands (1-D, 2-D NHWC or 3-D;
+    the rank is the kernel's) with exact integer accumulation, returned as
+    float32 (the JAX package's ``int8_conv``).
 
     ``x_sign`` holds exact small integers ({-1, 0, +1}); ``k_sign`` (HWIO)
     is sign x per-output-channel scale (``scaled``) or pure {-1, 0, +1}
@@ -1085,6 +1232,96 @@ def int8_conv(
             bool(pack_residuals),
         )
     return _int8_conv_forward(x_sign, k_sign, strides, padding, int(groups), bool(scaled))
+
+
+# -- the transposed conv (float and int8) ----------------------------------
+
+
+def float_conv_transpose(
+    x: torch.Tensor, k: torch.Tensor, strides: Sequence[int], padding,
+) -> torch.Tensor:
+    """JAX's ``lax.conv_transpose`` (``transpose_kernel=False``) over
+    channels-last ``x`` with the un-flipped ``[*spatial, I, O]`` kernel cast
+    to ``x``'s dtype: ``x`` dilated by ``strides`` (zeros between its
+    values), padded as the transposed conv pads (SAME/VALID of the forward
+    conv, or explicit pads of the transposed one), then a stride-1 conv.
+    Differentiable by autograd."""
+    rank = k.dim() - 2
+    strides = tuple(int(s) for s in strides)
+    spatial = x.shape[1:-1]
+    dilated = [(n - 1) * s + 1 for n, s in zip(spatial, strides)]
+    xd = x.new_zeros((x.shape[0], *dilated, x.shape[-1]))
+    xd[(slice(None),) + tuple(slice(None, None, s) for s in strides)] = x
+    if isinstance(padding, str):
+        if padding not in ("SAME", "VALID"):
+            raise ValueError(f"Unsupported padding {padding!r} (SAME/VALID or explicit pads).")
+        pads = []
+        for kk, s in zip(k.shape[:rank], strides):
+            if padding == "SAME":
+                total = kk + s - 2
+                lo = kk - 1 if s > kk - 1 else -(-total // 2)
+            else:
+                total = kk + s - 2 + max(kk - s, 0)
+                lo = kk - 1
+            pads.append((lo, total - lo))
+    else:
+        pads = padding
+    return float_conv(xd, k, (1,) * rank, pads)
+
+
+def _int8_conv_transpose_forward(x_sign, k_sign, strides, padding, scaled):
+    """Exact integer sums of the rounded operands through
+    :func:`float_conv_transpose` (float64 on the CPU, float32 on the card:
+    exact for these small sums), then the optional per-output-channel
+    scale, as float32 (the JAX package's int32 accumulation, one scale
+    multiply)."""
+    if scaled:
+        kscale = k_sign.abs().amax(dim=tuple(range(k_sign.dim() - 1)))
+        safe = torch.where(kscale > 0, kscale, torch.ones_like(kscale))
+        k8 = torch.round(k_sign / safe)
+    else:
+        k8 = torch.round(k_sign)
+    x8 = torch.round(x_sign)
+    acc = torch.float64 if x_sign.device.type == "cpu" else torch.float32
+    out = float_conv_transpose(x8.to(acc), k8, strides, padding).to(torch.float32)
+    return out * safe.to(torch.float32) if scaled else out
+
+
+class _Int8ConvTranspose(torch.autograd.Function):
+    """:func:`int8_conv_transpose` on the differentiated path: the VJP of
+    :func:`float_conv_transpose` in ``x_sign``'s dtype."""
+
+    @staticmethod
+    def forward(ctx, x_sign, k_sign, strides, padding, scaled):
+        ctx.save_for_backward(x_sign, k_sign)
+        ctx.conf = (strides, padding)
+        return _int8_conv_transpose_forward(x_sign, k_sign, strides, padding, scaled)
+
+    @staticmethod
+    def backward(ctx, g):
+        x_sign, k_sign = ctx.saved_tensors
+        strides, padding = ctx.conf
+        with torch.enable_grad():
+            x = x_sign.detach().requires_grad_()
+            k = k_sign.detach().requires_grad_()
+            y = float_conv_transpose(x, k, strides, padding)
+            dx, dk = torch.autograd.grad(y, (x, k), g.to(x_sign.dtype))
+        return dx.to(x_sign.dtype), dk.to(k_sign.dtype), None, None, None
+
+
+def int8_conv_transpose(
+    x_sign: torch.Tensor, k_sign: torch.Tensor, strides: Sequence[int], padding,
+    scaled: bool = True,
+) -> torch.Tensor:
+    """Channels-last transposed conv of quantized operands with exact
+    integer accumulation, float32 out (the JAX package's
+    ``int8_conv_transpose``; any spatial rank): inputs in {-1, 0, +1}, the
+    kernel sign x per-output-channel scale (``scaled``) or pure {-1, 0,
+    +1}. The gradients are :func:`float_conv_transpose`'s."""
+    strides = tuple(int(s) for s in strides)
+    if torch.is_grad_enabled() and (x_sign.requires_grad or k_sign.requires_grad):
+        return _Int8ConvTranspose.apply(x_sign, k_sign, strides, padding, bool(scaled))
+    return _int8_conv_transpose_forward(x_sign, k_sign, strides, padding, bool(scaled))
 
 
 # -- the int8 training dense --------------------------------------------------
@@ -1119,14 +1356,7 @@ class _Int8Dense(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         x_sign, k_sign = ctx.saved_tensors
-        dtype = x_sign.dtype
-        g2, _ = _flatten_leading(g.to(dtype))
-        dx = dk = None
-        if ctx.needs_input_grad[0]:
-            dx = (g2 @ k_sign.to(dtype).t()).reshape(x_sign.shape)
-        if ctx.needs_input_grad[1]:
-            x2, _ = _flatten_leading(x_sign)
-            dk = (x2.t() @ g2).to(k_sign.dtype)
+        dx, dk = _float_dense_vjp(x_sign, k_sign, g, ctx.needs_input_grad[:2])
         return dx, dk, None
 
 

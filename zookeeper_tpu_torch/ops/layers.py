@@ -4,33 +4,42 @@ Counterparts of the flax layers the JAX zoo builds: ``Conv``
 (``flax.linen.Conv``, with or without a bias), ``BatchNorm``
 (``ops/layers.py`` ``BatchNorm``, i.e. ``flax.linen.BatchNorm``), ``Dense``,
 and ``QuantConv`` and ``QuantDense`` on all four binary paths with every
-quantizer of the registry, validated as the JAX layers validate them.
-Every layer takes and returns NHWC tensors, as in the JAX package. The fp
-convs run ``F.conv2d`` on the logical-NCHW view of the NHWC storage (a
-``torch.channels_last`` tensor), so no layout copy is made; the packed
-kernels read the same storage directly. Parameter names and layouts
-follow the flax ones (see ``models/convert.py``), except that fp conv
-weights are OIHW and the dense weight is [out, in], as PyTorch holds
-them. ``module.train()`` is flax's ``training=True``.
+quantizer of the registry, validated as the JAX layers validate them; and
+the rest of the JAX Quant layers: ``QuantConvND``/``1D``/``3D``,
+``QuantLocallyConnectedND``/``1D``/``2D``, ``QuantConvTranspose``,
+``QuantDepthwiseConv``, ``QuantSeparableConvND``/``1D`` and
+``QuantSeparableConv``.
+Every layer takes and returns channels-last tensors (NHWC in 2-D), as in
+the JAX package. The fp convs run ``F.conv*d`` on the channels-first view
+of the channels-last storage (a ``torch.channels_last`` tensor in 2-D),
+so no layout copy is made; the packed kernels read the same storage
+directly. Parameter names and layouts follow the flax ones (see
+``models/convert.py``), except that fp conv weights are OIHW and the
+dense weight is [out, in], as PyTorch holds them; a layer that wraps
+others holds them under their flax scope names (``QuantConv_0``).
+``module.train()`` is flax's ``training=True``. Unlike flax, a layer takes
+its input width (``in_features``) at construction.
 """
 
 import math
-from typing import Callable, Sequence, Tuple, Union
+from typing import Callable, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from zookeeper_tpu_torch.ops.binary_compute import (
-    _packed_conv_forward,
     _spatial_pad,
+    conv_pads,
     float_conv,
+    float_conv_transpose,
     int8_conv,
+    int8_conv_transpose,
     int8_dense,
-    pack_conv_kernel,
     packed_conv_infer,
     packed_dense_infer,
     resolve_binary_flavor,
+    xnor_conv,
     xnor_dense,
 )
 from zookeeper_tpu_torch.ops.quantizers import get_quantizer, ste_sign_packed
@@ -81,11 +90,11 @@ def kernel_param_name(kernel_quantizer: Quantizer) -> str:
 
 
 def check_binary_compute(mode: str, layer: str, input_quantizer: Quantizer = None,
-                         kernel_quantizer: Quantizer = None) -> None:
+                         kernel_quantizer: Quantizer = None, padding="SAME") -> None:
     """Raise where the JAX layers raise: an unknown mode, or a binary path
-    that its quantizers cannot run exactly (a typo or a mismatch must not
-    quietly run another path). Callables are trusted to honour the value
-    contracts."""
+    that its quantizers or its padding cannot run exactly (a typo or a
+    mismatch must not quietly run another path; explicit pads run on "mxu"
+    only). Callables are trusted to honour the value contracts."""
     if mode not in BINARY_COMPUTE_MODES:
         raise ValueError(
             f"{layer}: unknown binary_compute {mode!r}; choose from "
@@ -101,6 +110,8 @@ def check_binary_compute(mode: str, layer: str, input_quantizer: Quantizer = Non
             f"it needs both an input and a kernel quantizer (the {' and '.join(missing)} "
             "quantizer is None: not binarized)"
         )
+    if not isinstance(padding, str):
+        problems.append(f"padding {padding!r} is not a named mode (SAME/VALID)")
     if isinstance(kernel_quantizer, str):
         if mode in ("xnor", "xnor_popcount") and kernel_quantizer not in _SIGN_KERNEL_QUANTIZERS:
             problems.append(
@@ -312,12 +323,13 @@ class Dense(nn.Module):
 
 
 def _check_quant_layer(layer: str, binary_compute: str, binary_flavor: str,
-                       input_quantizer, kernel_quantizer, packed_weights: bool) -> None:
+                       input_quantizer, kernel_quantizer, packed_weights: bool,
+                       padding="SAME") -> None:
     """The validation both Quant layers share: a known flavor, a binary path
     its quantizers run exactly (``check_binary_compute``), packed weights
     only on the packed paths."""
     resolve_binary_flavor(binary_flavor)  # loud typo check
-    check_binary_compute(binary_compute, layer, input_quantizer, kernel_quantizer)
+    check_binary_compute(binary_compute, layer, input_quantizer, kernel_quantizer, padding)
     if packed_weights and binary_compute not in ("xnor", "xnor_popcount"):
         raise ValueError(
             "packed_weights=True requires binary_compute='xnor' or "
@@ -344,9 +356,10 @@ class QuantDense(_QuantLayer):
       flavor, ``pack_bits`` + K5 + the scale under "reference".
     - "xnor": int8 activations times packed weights, K4.
 
-    The two packed paths are inference-only in the port (their training
-    VJP is queued in ROADMAP.md). ``packed_weights=True`` holds only the
-    deployed form: ``kernel_packed`` [ceil(K/32), N] int32 and
+    The two packed paths train through
+    :func:`~zookeeper_tpu_torch.ops.binary_compute.xnor_dense` (the float
+    matmul's gradients). ``packed_weights=True`` holds only the
+    deployed form (inference only): ``kernel_packed`` [ceil(K/32), N] int32 and
     ``kernel_scale`` [N] float32 (plus ``bias`` when ``use_bias``, which
     carries a folded BN's shift). Otherwise the latent float kernel
     [K, N] (the flax layout, named as flax names it: ``kernel``, or
@@ -435,11 +448,43 @@ class QuantDense(_QuantLayer):
         return y
 
 
+def _glorot_(t: torch.Tensor, generator: torch.Generator) -> None:
+    """glorot_normal over a channels-last kernel ``[*receptive, in, out]``."""
+    receptive = math.prod(t.shape[:-2])
+    fan_in, fan_out = receptive * t.shape[-2], receptive * t.shape[-1]
+    _normal_(t, math.sqrt(2.0 / (fan_in + fan_out)), generator)
+
+
+def _resolve_groups(layer: str, groups: int, ci: int, features: int,
+                    depthwise_ok: bool = True) -> int:
+    """``feature_group_count`` as a group count (-1: depthwise, where
+    allowed), validated as the JAX layers validate it."""
+    if groups == -1 and depthwise_ok:
+        groups = ci
+    elif groups < 1:
+        raise ValueError(
+            f"{layer}: feature_group_count={groups} invalid (>= 1"
+            + (", or -1 for depthwise)." if depthwise_ok else ").")
+        )
+    if ci % groups != 0 or features % groups != 0:
+        raise ValueError(
+            f"{layer}: feature_group_count={groups} must divide both input "
+            f"channels ({ci}) and features ({features})."
+        )
+    return groups
+
+
+def _check_named_padding(layer: str, padding) -> None:
+    if isinstance(padding, str) and padding not in ("SAME", "VALID"):
+        raise ValueError(f"{layer}: padding {padding!r} is not SAME/VALID.")
+
+
 class QuantConv(_QuantLayer):
     """Binary 2-D conv (NHWC): the JAX ``QuantConv`` on its four paths.
 
     - "mxu": the float conv of the quantized operands in ``dtype`` (the
-      JAX package's default training path).
+      JAX package's default training path); the only path that takes
+      ``kernel_dilation`` and explicit pads (a sequence of (lo, hi)).
     - "int8": :func:`~zookeeper_tpu_torch.ops.binary_compute.int8_conv`,
       exact integer sums with the float conv's gradients.
       ``pack_residuals=True`` stores its forward->backward residuals at 1
@@ -452,14 +497,19 @@ class QuantConv(_QuantLayer):
     - "xnor": int8 activations times packed weights, K4 (zero padding,
       exact against the float conv).
 
-    The two packed paths are inference-only in the port (their training
-    VJP is queued in ROADMAP.md). ``packed_weights=True`` holds only the
-    deployed form: ``kernel_packed`` [kh, kw, ceil(ci/32), co] int32 and
-    ``kernel_scale`` [co] float32 (plus ``bias`` when ``use_bias``, which
-    carries a folded BN's shift). Otherwise the latent HWIO float kernel
-    (``kernel``, or ``kernel_fp`` as flax names it) is held, clipped
-    straight-through and quantized at each call. Output is cast to
-    ``dtype`` and the bias added in ``dtype``.
+    ``feature_group_count`` groups the conv on "mxu" and "int8" (-1:
+    depthwise, one group per input channel); the packed paths compress
+    the K = ci contraction, which grouping removes, and refuse it. The two
+    packed paths train through
+    :func:`~zookeeper_tpu_torch.ops.binary_compute.xnor_conv` (the float
+    conv's gradients). ``packed_weights=True`` holds only the deployed
+    form (inference only): ``kernel_packed`` [kh, kw, ceil(ci/32), co]
+    int32 and ``kernel_scale`` [co] float32 (plus ``bias`` when
+    ``use_bias``, which carries a folded BN's shift). Otherwise the latent
+    HWIO float kernel [kh, kw, ci / groups, co] (``kernel``, or
+    ``kernel_fp`` as flax names it) is held, clipped straight-through and
+    quantized at each call. Output is cast to ``dtype`` and the bias added
+    in ``dtype``.
     """
 
     def __init__(
@@ -468,7 +518,7 @@ class QuantConv(_QuantLayer):
         features: int,
         kernel_size: Tuple[int, int] = (3, 3),
         strides: Sequence[int] = (1, 1),
-        padding: str = "SAME",
+        padding: Union[str, Sequence[Tuple[int, int]]] = "SAME",
         input_quantizer: Quantizer = "ste_sign",
         kernel_quantizer: Quantizer = "ste_sign",
         kernel_clip: bool = True,
@@ -478,25 +528,40 @@ class QuantConv(_QuantLayer):
         packed_weights: bool = False,
         pack_residuals: bool = False,
         binary_flavor: str = "auto",
+        kernel_dilation: Tuple[int, int] = (1, 1),
+        feature_group_count: int = 1,
     ):
         super().__init__()
         name = type(self).__name__
-        if padding not in ("SAME", "VALID"):
-            raise ValueError(f"{name}: padding {padding!r} is not SAME/VALID.")
+        _check_named_padding(name, padding)
         self.in_q = get_quantizer(input_quantizer)
         self.k_q = get_quantizer(kernel_quantizer)
         _check_quant_layer(name, binary_compute, binary_flavor, input_quantizer,
-                           kernel_quantizer, packed_weights)
+                           kernel_quantizer, packed_weights, padding)
         if pack_residuals:
             check_pack_residuals(binary_compute, input_quantizer, packed_weights, name)
             if input_quantizer == "ste_sign":
                 # Same values and gradients; the STE mask packs to 1 bit
                 # alongside the conv input.
                 self.in_q = ste_sign_packed
+        if tuple(kernel_dilation) != (1, 1) and binary_compute != "mxu":
+            raise ValueError(
+                f"{name}: kernel_dilation={tuple(kernel_dilation)} is only supported "
+                f"with binary_compute='mxu' (got {binary_compute!r}) — no silent fallback."
+            )
+        groups = _resolve_groups(name, feature_group_count, in_features, features)
+        if groups != 1 and binary_compute not in ("mxu", "int8"):
+            raise ValueError(
+                f"{name}: grouped conv (feature_group_count={groups}) supports "
+                f"binary_compute 'mxu'/'int8' only (got {binary_compute!r}) — the "
+                "packed kernels compress the K=ci contraction, which grouping removes."
+            )
         kh, kw = kernel_size
         self.kernel_size = (kh, kw)
         self.strides = tuple(strides)
         self.padding = padding
+        self.kernel_dilation = tuple(kernel_dilation)
+        self.groups = groups
         self.kernel_clip = kernel_clip
         self.dtype = dtype
         self.binary_compute = binary_compute
@@ -513,9 +578,8 @@ class QuantConv(_QuantLayer):
             self.kernel_scale = nn.Parameter(torch.ones(features))
         else:
             self.latent_name = kernel_param_name(kernel_quantizer)
-            self.register_parameter(
-                self.latent_name, nn.Parameter(torch.zeros(kh, kw, in_features, features))
-            )
+            self.register_parameter(self.latent_name, nn.Parameter(
+                torch.zeros(kh, kw, in_features // groups, features)))
         self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
 
     def reset_parameters(self, generator: torch.Generator) -> None:
@@ -524,9 +588,7 @@ class QuantConv(_QuantLayer):
                 self.kernel_packed.zero_()
                 self.kernel_scale.fill_(1.0)
             else:
-                kh, kw, ci, co = self.latent.shape
-                std = math.sqrt(2.0 / (kh * kw * (ci + co)))  # glorot_normal
-                _normal_(self.latent, std, generator)
+                _glorot_(self.latent, generator)
             if self.bias is not None:
                 self.bias.zero_()
 
@@ -546,26 +608,423 @@ class QuantConv(_QuantLayer):
                 kernel = self.k_q(kernel)
             if mode == "int8":
                 y = int8_conv(
-                    x, kernel, self.strides, self.padding, 1,
+                    x, kernel, self.strides, self.padding, self.groups,
                     self.scaled, self.pack_residuals,
                 )
             elif mode == "mxu":
-                y = float_conv(x.to(self.dtype), kernel, self.strides, self.padding)
+                y = float_conv(x.to(self.dtype), kernel, self.strides, self.padding,
+                               self.groups, self.kernel_dilation)
             else:
-                if torch.is_grad_enabled() and kernel.requires_grad:
-                    raise NotImplementedError(
-                        f"{type(self).__name__}: training through "
-                        f"binary_compute={mode!r} (the xnor_conv VJP) is not "
-                        "in the PyTorch port yet; it is queued in "
-                        "ROADMAP.md. Train with 'int8' or 'mxu'."
-                    )
-                packed, scale = pack_conv_kernel(kernel)
-                y = _packed_conv_forward(
-                    x, packed, scale, self.strides, self.padding,
-                    ci=x.shape[-1], use_popcount=mode == "xnor_popcount",
-                    flavor=self.binary_flavor,
-                )
+                y = xnor_conv(x, kernel, self.strides, self.padding,
+                              mode == "xnor_popcount", self.binary_flavor)
         y = y.to(self.dtype)
         if self.bias is not None:
             y = y + self.bias.to(self.dtype)
         return y
+
+
+class _LatentLayer(_QuantLayer):
+    """What the rank-generic Quant layers share: the quantizers, the latent
+    kernel under flax's name (glorot_normal), the optional float32 bias,
+    and the quantize-then-compute forward (``_compute(x, kernel)`` in the
+    subclass; output cast to ``dtype``, bias added in it)."""
+
+    def _setup(self, kernel_shape, bias_shape, input_quantizer, kernel_quantizer,
+               kernel_clip: bool, use_bias: bool, dtype: torch.dtype) -> None:
+        self.in_q = get_quantizer(input_quantizer)
+        self.k_q = get_quantizer(kernel_quantizer)
+        self.kernel_clip = kernel_clip
+        self.dtype = dtype
+        self.scaled = not _int8_kernel_is_unscaled(kernel_quantizer)
+        self.latent_name = kernel_param_name(kernel_quantizer)
+        self.register_parameter(self.latent_name, nn.Parameter(torch.zeros(*kernel_shape)))
+        self.bias = nn.Parameter(torch.zeros(*bias_shape)) if use_bias else None
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        _glorot_(self.latent, generator)
+        if self.bias is not None:
+            with torch.no_grad():
+                self.bias.zero_()
+
+    def _check_input(self, x: torch.Tensor) -> None:
+        rank = len(self.kernel_size)
+        if x.dim() != rank + 2:
+            raise ValueError(
+                f"{type(self).__name__}: input rank {x.dim()} does not match a "
+                f"{rank}-D layer (expect [batch, *spatial, channels])."
+            )
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        self._check_input(x)
+        if self.in_q is not None:
+            x = self.in_q(x)
+        kernel = _apply_clip(self.latent, self.kernel_clip)
+        if self.k_q is not None:
+            kernel = self.k_q(kernel)
+        y = self._compute(x, kernel).to(self.dtype)
+        if self.bias is not None:
+            y = y + self.bias.to(self.dtype)
+        return y
+
+
+def _rank_of(layer: str, kernel_size, rank: Optional[int]) -> int:
+    if rank is not None and len(kernel_size) != rank:
+        raise ValueError(
+            f"{layer}: kernel_size {tuple(kernel_size)} must have {rank} spatial dim(s)."
+        )
+    return len(kernel_size)
+
+
+def _per_dim(layer: str, what: str, value, rank: int) -> Tuple[int, ...]:
+    value = tuple(value) if value else (1,) * rank
+    if len(value) != rank:
+        raise ValueError(f"{layer}: {what} {value} must match kernel_size rank {rank}.")
+    return value
+
+
+class QuantConvND(_LatentLayer):
+    """Channels-last N-D conv with optional input/kernel quantization (the
+    JAX ``QuantConvND``; the spatial rank is ``len(kernel_size)``).
+    ``binary_compute`` is "mxu" (the float conv, with ``kernel_dilation``
+    and explicit pads) or "int8" (rank-generic
+    :func:`~zookeeper_tpu_torch.ops.binary_compute.int8_conv`); the packed
+    kernels are 2-D only and raise here (use :class:`QuantConv`)."""
+
+    _SPATIAL_RANK: Optional[int] = None
+
+    def __init__(
+        self,
+        in_features: int,
+        features: int,
+        kernel_size: Sequence[int] = (3,),
+        strides: Optional[Sequence[int]] = None,
+        padding: Union[str, Sequence[Tuple[int, int]]] = "SAME",
+        kernel_dilation: Optional[Sequence[int]] = None,
+        feature_group_count: int = 1,
+        input_quantizer: Quantizer = None,
+        kernel_quantizer: Quantizer = None,
+        kernel_clip: bool = True,
+        use_bias: bool = False,
+        dtype: torch.dtype = torch.float32,
+        binary_compute: str = "mxu",
+    ):
+        super().__init__()
+        name = type(self).__name__
+        rank = _rank_of(name, kernel_size, self._SPATIAL_RANK)
+        strides = _per_dim(name, "strides", strides, rank)
+        dilation = _per_dim(name, "kernel_dilation", kernel_dilation, rank)
+        if binary_compute not in ("mxu", "int8"):
+            raise ValueError(
+                f"{name}: binary_compute={binary_compute!r} unsupported — the packed "
+                "kernels are 2-D-specific; use QuantConv for packed deployment, or "
+                "'mxu'/'int8' here."
+            )
+        _check_named_padding(name, padding)
+        check_binary_compute(binary_compute, name, input_quantizer, kernel_quantizer, padding)
+        if dilation != (1,) * rank and binary_compute != "mxu":
+            raise ValueError(
+                f"{name}: kernel_dilation={dilation} is only supported with "
+                "binary_compute='mxu' — no silent fallback."
+            )
+        groups = _resolve_groups(name, feature_group_count, in_features, features,
+                                 depthwise_ok=False)
+        self.kernel_size = tuple(kernel_size)
+        self.strides, self.padding, self.kernel_dilation = strides, padding, dilation
+        self.groups = groups
+        self.binary_compute = binary_compute
+        self._setup((*kernel_size, in_features // groups, features), (features,),
+                    input_quantizer, kernel_quantizer, kernel_clip, use_bias, dtype)
+
+    def _compute(self, x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
+        if self.binary_compute == "int8":
+            return int8_conv(x, kernel, self.strides, self.padding, self.groups, self.scaled)
+        return float_conv(x.to(self.dtype), kernel, self.strides, self.padding,
+                          self.groups, self.kernel_dilation)
+
+
+class QuantConv1D(QuantConvND):
+    """1-D quantized conv over [batch, width, channels] (larq
+    ``QuantConv1D``)."""
+
+    _SPATIAL_RANK = 1
+
+
+class QuantConv3D(QuantConvND):
+    """3-D quantized conv over [batch, depth, height, width, channels]
+    (larq ``QuantConv3D``)."""
+
+    _SPATIAL_RANK = 3
+
+    def __init__(self, in_features: int, features: int,
+                 kernel_size: Sequence[int] = (3, 3, 3), **kwargs):
+        super().__init__(in_features, features, kernel_size, **kwargs)
+
+
+class QuantLocallyConnectedND(_LatentLayer):
+    """Channels-last N-D locally connected layer with optional input/kernel
+    quantization (the JAX ``QuantLocallyConnectedND``): a conv whose kernel
+    is not shared across positions. Every output position owns a
+    ``[prod(kernel_size) * in_features, features]`` block, held as one
+    ``[*out_spatial, prod(kernel_size) * in_features, features]`` kernel
+    whose rows run channel-major, then the window row-major (XLA's
+    ``conv_general_dilated_local`` order); the bias, when used, is per
+    position and channel. The output size depends on the input's, so
+    ``input_spatial`` is given at construction. "mxu" only: unshared
+    weights leave the packed and int8 paths nothing to amortize."""
+
+    def __init__(
+        self,
+        in_features: int,
+        features: int,
+        input_spatial: Sequence[int],
+        kernel_size: Sequence[int] = (3, 3),
+        strides: Optional[Sequence[int]] = None,
+        padding: Union[str, Sequence[Tuple[int, int]]] = "VALID",
+        input_quantizer: Quantizer = None,
+        kernel_quantizer: Quantizer = None,
+        kernel_clip: bool = True,
+        use_bias: bool = True,
+        dtype: torch.dtype = torch.float32,
+        binary_compute: str = "mxu",
+    ):
+        super().__init__()
+        name = type(self).__name__
+        rank = len(kernel_size)
+        if len(input_spatial) != rank:
+            raise ValueError(
+                f"{name} with kernel_size={tuple(kernel_size)} expects a rank-{rank + 2} "
+                f"channels-last input, got spatial size {tuple(input_spatial)}."
+            )
+        if binary_compute != "mxu":
+            raise ValueError(
+                f"{name}: binary_compute={binary_compute!r} is not supported — unshared "
+                "weights defeat the packed kernels' one-unpack-many-positions "
+                "amortization and the int8 path's per-channel scale contract; only "
+                "'mxu' runs (no silent fallback)."
+            )
+        _check_named_padding(name, padding)
+        self.kernel_size = tuple(kernel_size)
+        self.strides = tuple(strides or (1,) * rank)
+        self.pads = conv_pads(input_spatial, kernel_size, self.strides, padding)
+        self.out_spatial = tuple(
+            (n + lo + hi - k) // s + 1
+            for n, k, s, (lo, hi) in zip(input_spatial, kernel_size, self.strides, self.pads))
+        k = math.prod(kernel_size) * in_features
+        self._setup((*self.out_spatial, k, features), (*self.out_spatial, features),
+                    input_quantizer, kernel_quantizer, kernel_clip, use_bias, dtype)
+
+    def _compute(self, x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
+        flat = [0, 0]
+        for lo, hi in reversed(self.pads):
+            flat += [lo, hi]
+        patches = F.pad(x.to(self.dtype), flat)
+        for i, (k, s) in enumerate(zip(self.kernel_size, self.strides)):
+            patches = patches.unfold(1 + i, k, s)  # [B, *out, C, *window]
+        b = x.shape[0]
+        p = math.prod(self.out_spatial)
+        patches = patches.reshape(b, p, -1)
+        w = kernel.to(self.dtype).reshape(p, *kernel.shape[-2:])
+        y = torch.einsum("bpk,pkf->bpf", patches, w)
+        return y.reshape(b, *self.out_spatial, -1)
+
+
+class QuantLocallyConnected1D(QuantLocallyConnectedND):
+    """1-D locally connected layer over [batch, width, channels] (larq
+    ``QuantLocallyConnected1D``)."""
+
+    def __init__(self, in_features: int, features: int, input_spatial: Sequence[int],
+                 kernel_size: Sequence[int] = (3,), **kwargs):
+        super().__init__(in_features, features, input_spatial, kernel_size, **kwargs)
+
+
+class QuantLocallyConnected2D(QuantLocallyConnectedND):
+    """2-D locally connected layer over NHWC (larq
+    ``QuantLocallyConnected2D``)."""
+
+
+class QuantConvTranspose(_LatentLayer):
+    """Channels-last N-D transposed conv with optional input/kernel
+    quantization (the JAX ``QuantConvTranspose``): JAX's
+    ``lax.conv_transpose`` with ``transpose_kernel=False``, the kernel
+    ``[*kernel_size, in_features, features]`` neither flipped nor IO-swapped
+    (``models.keras_import.keras_transpose_kernel`` converts a Keras
+    ``Conv2DTranspose`` kernel). "mxu" or "int8" (exact integer sums,
+    :func:`~zookeeper_tpu_torch.ops.binary_compute.int8_conv_transpose`)."""
+
+    def __init__(
+        self,
+        in_features: int,
+        features: int,
+        kernel_size: Sequence[int] = (3, 3),
+        strides: Optional[Sequence[int]] = None,
+        padding: Union[str, Sequence[Tuple[int, int]]] = "SAME",
+        input_quantizer: Quantizer = None,
+        kernel_quantizer: Quantizer = None,
+        kernel_clip: bool = True,
+        use_bias: bool = False,
+        dtype: torch.dtype = torch.float32,
+        binary_compute: str = "mxu",
+    ):
+        super().__init__()
+        name = type(self).__name__
+        rank = len(kernel_size)
+        self.strides = _per_dim(name, "strides", strides, rank)
+        if binary_compute not in ("mxu", "int8"):
+            raise ValueError(
+                f"{name}: binary_compute={binary_compute!r} unsupported (packed kernels "
+                "cover the 2-D forward conv only); use 'mxu' or 'int8'."
+            )
+        _check_named_padding(name, padding)
+        check_binary_compute(binary_compute, name, input_quantizer, kernel_quantizer, padding)
+        self.kernel_size = tuple(kernel_size)
+        self.padding = padding
+        self.binary_compute = binary_compute
+        self._setup((*kernel_size, in_features, features), (features,), input_quantizer,
+                    kernel_quantizer, kernel_clip, use_bias, dtype)
+
+    def _compute(self, x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
+        if self.binary_compute == "int8":
+            return int8_conv_transpose(x, kernel, self.strides, self.padding, self.scaled)
+        return float_conv_transpose(x.to(self.dtype), kernel, self.strides, self.padding)
+
+
+class QuantDepthwiseConv(nn.Module):
+    """Depthwise 2-D conv with optional input/kernel quantization (NHWC; the
+    JAX ``QuantDepthwiseConv``): a :class:`QuantConv` with one group per
+    input channel, held under flax's scope name ``QuantConv_0``, its kernel
+    ``[kh, kw, 1, in_features * channel_multiplier]``. "mxu" and "int8"
+    only: a depthwise contraction is kh*kw long, nothing for the packed
+    kernels to compress."""
+
+    def __init__(
+        self,
+        in_features: int,
+        channel_multiplier: int = 1,
+        kernel_size: Tuple[int, int] = (3, 3),
+        strides: Sequence[int] = (1, 1),
+        padding: Union[str, Sequence[Tuple[int, int]]] = "SAME",
+        input_quantizer: Quantizer = None,
+        kernel_quantizer: Quantizer = None,
+        kernel_clip: bool = True,
+        use_bias: bool = False,
+        dtype: torch.dtype = torch.float32,
+        binary_compute: str = "mxu",
+    ):
+        super().__init__()
+        if binary_compute not in ("mxu", "int8"):
+            raise ValueError(
+                f"{type(self).__name__}: binary_compute={binary_compute!r} unsupported "
+                "(depthwise K is kh*kw — nothing for the packed kernels to compress); "
+                "use 'mxu' or 'int8'."
+            )
+        self.QuantConv_0 = QuantConv(
+            in_features, in_features * channel_multiplier, kernel_size, strides, padding,
+            input_quantizer=input_quantizer, kernel_quantizer=kernel_quantizer,
+            kernel_clip=kernel_clip, use_bias=use_bias, dtype=dtype,
+            binary_compute=binary_compute, feature_group_count=-1,
+        )
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.QuantConv_0(x)
+
+
+class QuantSeparableConvND(nn.Module):
+    """N-D separable conv (depthwise, then pointwise), both stages
+    optionally quantized (the JAX ``QuantSeparableConvND``):
+    ``QuantConvND_0`` with one group per input channel, then the 1x..x1
+    ``QuantConvND_1``. ``input_quantizer`` applies to the layer input only;
+    ``intermediate_quantizer`` re-binarizes between the stages. Each stage
+    runs "mxu" or "int8"."""
+
+    _SPATIAL_RANK: Optional[int] = None
+
+    def __init__(
+        self,
+        in_features: int,
+        features: int,
+        kernel_size: Sequence[int] = (3,),
+        strides: Optional[Sequence[int]] = None,
+        padding: Union[str, Sequence[Tuple[int, int]]] = "SAME",
+        channel_multiplier: int = 1,
+        input_quantizer: Quantizer = None,
+        depthwise_quantizer: Quantizer = None,
+        pointwise_quantizer: Quantizer = None,
+        intermediate_quantizer: Quantizer = None,
+        kernel_clip: bool = True,
+        use_bias: bool = False,
+        dtype: torch.dtype = torch.float32,
+        depthwise_compute: str = "mxu",
+        pointwise_compute: str = "mxu",
+    ):
+        super().__init__()
+        rank = _rank_of(type(self).__name__, kernel_size, self._SPATIAL_RANK)
+        mid = in_features * channel_multiplier
+        self.QuantConvND_0 = QuantConvND(
+            in_features, mid, tuple(kernel_size), strides, padding,
+            feature_group_count=in_features, input_quantizer=input_quantizer,
+            kernel_quantizer=depthwise_quantizer, kernel_clip=kernel_clip, dtype=dtype,
+            binary_compute=depthwise_compute,
+        )
+        self.QuantConvND_1 = QuantConvND(
+            mid, features, (1,) * rank, input_quantizer=intermediate_quantizer,
+            kernel_quantizer=pointwise_quantizer, kernel_clip=kernel_clip,
+            use_bias=use_bias, dtype=dtype, binary_compute=pointwise_compute,
+        )
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.QuantConvND_1(self.QuantConvND_0(x))
+
+
+class QuantSeparableConv1D(QuantSeparableConvND):
+    """1-D separable quant conv over [batch, width, channels] (larq
+    ``QuantSeparableConv1D``)."""
+
+    _SPATIAL_RANK = 1
+
+
+class QuantSeparableConv(nn.Module):
+    """Separable 2-D conv (depthwise, then pointwise), both stages
+    optionally quantized (the JAX ``QuantSeparableConv``):
+    ``QuantDepthwiseConv_0`` ("mxu"/"int8", ``depthwise_compute``), then a
+    full 1x1 ``QuantConv_0`` (``pointwise_compute``, the packed paths and
+    ``packed_weights`` included: on "xnor_popcount" it is a 1x1 K1 + K3).
+    ``input_quantizer`` applies to the layer input only; the depthwise
+    output reaches the pointwise stage unquantized unless
+    ``intermediate_quantizer`` is set, which a binary pointwise path needs."""
+
+    def __init__(
+        self,
+        in_features: int,
+        features: int,
+        kernel_size: Tuple[int, int] = (3, 3),
+        strides: Sequence[int] = (1, 1),
+        padding: Union[str, Sequence[Tuple[int, int]]] = "SAME",
+        channel_multiplier: int = 1,
+        input_quantizer: Quantizer = None,
+        depthwise_quantizer: Quantizer = None,
+        pointwise_quantizer: Quantizer = None,
+        intermediate_quantizer: Quantizer = None,
+        kernel_clip: bool = True,
+        use_bias: bool = False,
+        dtype: torch.dtype = torch.float32,
+        depthwise_compute: str = "mxu",
+        pointwise_compute: str = "mxu",
+        packed_weights: bool = False,
+        binary_flavor: str = "auto",
+    ):
+        super().__init__()
+        self.QuantDepthwiseConv_0 = QuantDepthwiseConv(
+            in_features, channel_multiplier, kernel_size, strides, padding,
+            input_quantizer=input_quantizer, kernel_quantizer=depthwise_quantizer,
+            kernel_clip=kernel_clip, dtype=dtype, binary_compute=depthwise_compute,
+        )
+        self.QuantConv_0 = QuantConv(
+            in_features * channel_multiplier, features, (1, 1),
+            input_quantizer=intermediate_quantizer, kernel_quantizer=pointwise_quantizer,
+            kernel_clip=kernel_clip, use_bias=use_bias, dtype=dtype,
+            binary_compute=pointwise_compute, packed_weights=packed_weights,
+            binary_flavor=binary_flavor,
+        )
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.QuantConv_0(self.QuantDepthwiseConv_0(x))

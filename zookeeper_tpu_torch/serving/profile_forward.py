@@ -1,7 +1,8 @@
 """Where a served forward's time goes on the card.
 
     python -m zookeeper_tpu_torch.serving.profile_forward \\
-        [--model QuickNetLarge|BinaryAlexNet|BinaryNet|BiRealNet] \\
+        [--model QuickNetLarge|BinaryAlexNet|BinaryNet|BiRealNet|BinaryDenseNet28|
+                 MeliusNet22|BinaryDenseNet37Dilated] \\
         [--binary-compute xnor_popcount|xnor] [--binary-flavor auto|reference] \\
         [--top N]
 
@@ -11,7 +12,12 @@ Builds a packed deployment of the model through ``ServingConfig``
 "xnor_popcount" or, under "xnor", with "mxu" convs and the packed,
 BN-folded dense stage (BASELINE's deployment); BinaryNet fp32, 32x32,
 10 classes, packed throughout; Bi-Real-Net-18 packed and BN-folded (its
-mean|w| scales), bf16, 224x224. Times ``engine.infer`` on one batch of 8
+mean|w| scales), bf16, 224x224; BinaryDenseNet-28 packed (no fold: the
+family is pre-activation), bf16, 224x224; MeliusNet-22 with latent
+kernels packed at each call, bf16, 224x224; BinaryDenseNet-37-dilated on
+"mxu" whatever ``--binary-compute`` says (its dilated convs run there
+only). Times
+``engine.infer`` on one batch of 8
 with the host clock and a ``synchronize``, then traces the same forwards
 with ``torch.profiler`` and prints one JSON line: the forward's wall
 time, the device time per forward, the device's busy share (device time
@@ -57,6 +63,16 @@ MODELS = {
     "BiRealNet": lambda bc: {
         "model.compute_dtype": "bfloat16", "model.binary_compute": bc,
         "model.packed_weights": True, "model.fold_bn": True,
+    },
+    "BinaryDenseNet28": lambda bc: {
+        "model.compute_dtype": "bfloat16", "model.binary_compute": bc,
+        "model.packed_weights": True,
+    },
+    "MeliusNet22": lambda bc: {
+        "model.compute_dtype": "bfloat16", "model.binary_compute": bc,
+    },
+    "BinaryDenseNet37Dilated": lambda bc: {
+        "model.compute_dtype": "bfloat16", "model.binary_compute": "mxu",
     },
 }
 #: The models with a ``binary_flavor`` field.
@@ -109,7 +125,7 @@ def main(argv=None) -> dict:
     result = {
         "card": card,
         "model": args.model,
-        "binary_compute": args.binary_compute,
+        "binary_compute": conf["model.binary_compute"],
         "binary_flavor": args.binary_flavor if args.model in FLAVORED else None,
         "batch": BATCH,
         "forward_ms": forward_ms,
