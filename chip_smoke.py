@@ -206,11 +206,36 @@ CUDA card and ``nvcc``. In order:
    ``LMServingConfig.run()`` in the slot and paged layouts (2 K9 per
    prefill, 2 K12/K13 per decode step) and takes one training step
    (2 K9-lse, 2 K10, 2 K11).
-15. One JSON line of the kernels (14 rows; K1, K3, K4, K6 and K7 also
+15. The binary-net recipe (DistillImageNet's geometry: 224x224x3, 1000
+   classes, bf16, batch 128): ``TrainImageNet`` trains a ResNet-50 teacher
+   for 2 steps and exports it; ``DistillImageNet`` distills a
+   RealToBinaryNet on "xnor_popcount" from it for 3 steps through
+   ``run()`` (Bop with Adam under WarmupCosine at 2.5e-3 on the fp side,
+   alpha 0.4, temperature 2, the flip ratio, EMA 0.999,
+   ``nan_policy=skip``) and exports it: K1 and K3 16 times a step, the
+   loss, ``kd_loss`` and ``flip_ratio`` of each step. From one fixed state
+   (one warm step in): the step equal bit for bit to the step through the
+   plain kernels (metrics, gradients, parameters, statistics, EMA, Bop's
+   memory and count, Adam's moments and count), and remat "full", "dots"
+   and "quant" each equal to "none" (their K1/K3 launches doubled by the
+   recompute); a batch holding a NaN leaves every state tensor as it was
+   (``skipped_steps`` 1), and under "halt" ``DistillImageNet`` raises
+   ``NonFiniteLossError``. Then the step's device and host time, busy
+   share, the teacher's forward, each remat policy's peak memory and time,
+   the step without and with each of the EMA, the flip ratio and the NaN
+   guard; ``EvalExperiment`` on the export (weights "auto") equal to
+   ``make_eval_step(use_ema=True)`` on the final state; and
+   ``ServingConfig`` serving the export (16 requests, K1 and K3 16 a
+   forward), its logits equal bit for bit to an engine bound to the EMA
+   weights directly, images/s and p50/p99. K1 and K3 also at the
+   student's 16 conv shapes of the batch-128 step, against their plain
+   versions.
+16. One JSON line of the kernels (14 rows; K1, K3, K4, K6 and K7 also
    with their sums on Bi-Real-Net's path under ``bireal``; K1, K3 and K4
    under ``densenet`` and ``melius``, K1 and K3 under ``xnor_train`` per
    DenseNet training step, K2 under ``xnor_train`` per BinaryAlexNet
-   step), then the result line.
+   step, K1 and K3 under ``recipe`` per distillation step), then the
+   result line.
 """
 
 import contextlib
@@ -1780,6 +1805,410 @@ def xnor_training_phase(torch, bc, smi, model, per_step, tag, full=True):
     return launches, stats
 
 
+#: The binary-net recipe (phase 16), at DistillImageNet's geometry: a
+#: ResNet-50 teacher trained for TEACHER_STEPS steps and exported, a
+#: RealToBinaryNet student (bf16, "xnor_popcount": K1 + K3 in each of its
+#: 16 binary convs, three at stride 2) distilled from it for RECIPE_STEPS
+#: steps with Bop (Adam under WarmupCosine on the fp side), the flip
+#: ratio, the EMA and ``nan_policy=skip``, then exported, scored and
+#: served. Bop's ``schedule`` must stay unconfigured (it has no learning
+#: rate), so the ImageNet task's WarmupCosine moves to the fp optimizer.
+TEACHER_STEPS, RECIPE_STEPS = 2, 3
+RECIPE = {
+    "model.binary_compute": "xnor_popcount", "alpha": 0.4, "temperature": 2.0,
+    "optimizer": "Bop", "optimizer.schedule": "ConstantSchedule",
+    "optimizer.fp_optimizer.schedule": "WarmupCosine",
+    "optimizer.fp_optimizer.schedule.base_lr": 2.5e-3,
+    "track_flip_ratio": True, "ema_decay": 0.999, "nan_policy": "skip",
+}
+RECIPE_PER_STEP = {"pack_rows": 16, "conv_gemm_popcount": 16}
+REMAT = ("none", "full", "dots", "quant")
+
+
+def recipe_kernel_phase(torch, bc):
+    """K1 and K3 at the 16 binary convs of the student's batch-128
+    training step (RealToBinaryNet's are Bi-Real-Net-18's shapes), each
+    equal to its plain version and the same bits twice, timed beside it
+    and cuDNN's conv. Returns per-kernel totals over one step."""
+    g = torch.Generator().manual_seed(15)
+    totals = _binary_totals()
+    del totals["packed_weight_matmul"]
+    record = _recorder(torch, totals, plain_reps=1, plain_inner=1)
+    _conv_rows(torch, bc, record, [(n, TRAIN_BATCH, h, h, ci, co, 3, s)
+                                   for n, h, ci, co, s in BIREAL_CONVS], g)
+    torch.cuda.empty_cache()
+    return totals
+
+
+def _recipe_tensors(state):
+    """Every tensor a recipe step changes, by name: the module's
+    parameters and statistics, the EMA and the optimizer state (Bop's
+    memory and count, Adam's moments and count)."""
+    from zookeeper_tpu_torch.training.optimizer import state_tensors
+
+    out = {f"state {k}": v for k, v in state.module.state_dict().items()}
+    out.update({f"ema {k}": v for k, v in state.ema_params.items()})
+    out.update({f"opt {i}": t for i, t in enumerate(state_tensors(state.opt_state))})
+    return out
+
+
+def _recipe_snapshot(state):
+    import copy
+
+    return (copy.deepcopy(state.module.state_dict()),
+            {k: v.clone() for k, v in state.ema_params.items()},
+            copy.deepcopy(state.opt_state), state.step)
+
+
+def _recipe_restore(state, snap) -> None:
+    import copy
+
+    module_state, ema, opt, step = snap
+    state.module.load_state_dict(module_state)
+    for k, v in ema.items():
+        state.ema_params[k].copy_(v)
+    state.opt_state, state.step = copy.deepcopy(opt), step
+
+
+def recipe_phase(torch, bc, smi):
+    """The binary-net recipe at full width through its entry points: a
+    ResNet-50 teacher exported by ``TrainImageNet``, a RealToBinaryNet
+    distilled from it by ``DistillImageNet`` (Bop, EMA, flip ratio,
+    ``nan_policy=skip``; K1 and K3 16 times a step) and exported, one
+    step held bit for bit to the plain kernels' and every remat policy's
+    to "none", a NaN batch skipped with the state unchanged (and
+    ``NonFiniteLossError`` under "halt"), ``EvalExperiment`` on the export
+    equal to the EMA eval step, and ``ServingConfig`` serving the export
+    (K1, K3 16 a forward) with the logits of an engine bound to the EMA
+    weights. Returns (launches per step, per forward, stats)."""
+    import tempfile
+
+    import numpy as np
+
+    from zookeeper_tpu_torch.core import configure
+    from zookeeper_tpu_torch.data.pipeline import DataLoader
+    from zookeeper_tpu_torch.resilience import NonFiniteLossError
+    from zookeeper_tpu_torch.serving import InferenceEngine, ServingConfig
+    from zookeeper_tpu_torch.training import EvalExperiment, make_eval_step, make_train_step
+    from zookeeper_tpu_torch.training.experiment import run_weighted_eval
+    from zookeeper_tpu_torch.training.imagenet import DistillImageNet, TrainImageNet
+
+    dev = torch.device("cuda")
+    tag = "recipe"
+    common = {"loader.dataset.num_train_examples": TRAIN_EXAMPLES,
+              "loader.dataset.num_validation_examples": TRAIN_BATCH,
+              "batch_size": TRAIN_BATCH, "seed": 0, "device": "cuda", "verbose": False,
+              "validate": False}
+    stats = {}
+    with tempfile.TemporaryDirectory(prefix="zk_recipe_") as tmp:
+        teacher_dir, student_dir = os.path.join(tmp, "teacher"), os.path.join(tmp, "student")
+
+        # 1. The teacher: TrainImageNet model=ResNet50, exported.
+        t0 = time.perf_counter()
+        teacher = TrainImageNet()
+        configure(teacher, {**common, "model": "ResNet50", "model.compute_dtype": "bfloat16",
+                            "epochs": 1, "steps_per_epoch": TEACHER_STEPS,
+                            "export_model_to": teacher_dir}, name="teacher")
+        bc.reset_launches()
+        losses = [e["loss"] for e in teacher.run()["train"]]
+        check(all(math.isfinite(v) for v in losses), f"{tag}: teacher losses {losses}")
+        check(not any(bc.LAUNCHES.values()), f"{tag}: the teacher launched {bc.LAUNCHES}")
+        check(os.path.isfile(os.path.join(teacher_dir, "model.pt")), f"{tag}: no teacher export")
+        print(f"{tag}: ResNet50 teacher, {TEACHER_STEPS} steps (loss {losses}), exported in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        del teacher
+        torch.cuda.empty_cache()
+
+        # 2. The student: DistillImageNet through run(), one step an epoch.
+        def distill(**overrides):
+            exp = DistillImageNet()
+            configure(exp, {**common, **RECIPE, "teacher_checkpoint": teacher_dir,
+                            "epochs": RECIPE_STEPS, "steps_per_epoch": 1,
+                            "export_model_to": student_dir, **overrides}, name="distill")
+            return exp
+
+        t0 = time.perf_counter()
+        exp = distill()
+        bc.reset_launches()
+        history = exp.run()
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in bc.LAUNCHES.items() if v}
+        want = {k: n * RECIPE_STEPS for k, n in RECIPE_PER_STEP.items()}
+        check(launches == want, f"{tag} run(): launched {launches} in {RECIPE_STEPS} steps, "
+                                f"want {want}")
+        rows = [{k: e[k] for k in ("loss", "kd_loss", "flip_ratio", "skipped_steps",
+                                   "examples_per_sec")} for e in history["train"]]
+        check(all(math.isfinite(r["loss"]) and math.isfinite(r["kd_loss"])
+                  and 0.0 < r["flip_ratio"] < 1.0 and r["skipped_steps"] == 0.0 for r in rows),
+              f"{tag} run(): per step {rows}")
+        check(os.path.isfile(os.path.join(student_dir, "model.pt")), f"{tag}: no student export")
+        final = exp.final_state
+        print(f"{tag}: DistillImageNet RealToBinaryNet <- ResNet50, {RECIPE_STEPS} steps in "
+              f"{time.perf_counter() - t0:.1f} s, K1/K3 per step "
+              f"{ {k: v // RECIPE_STEPS for k, v in launches.items()} }; per step "
+              f"{json.dumps(rows)}", flush=True)
+        stats["run_steps"] = rows
+
+        # 3-6 run from one fixed state of a second experiment: one warm step
+        # (Adam's count at 1, where WarmupCosine's rate is not 0; the
+        # counts then live on the card), then every comparison from it.
+        step_exp = distill(epochs=2, steps_per_epoch=2)
+        state = step_exp.build_state(dev)
+        teacher_module = step_exp._teacher_fn()
+        kwargs = step_exp._train_step_kwargs()
+        steps = {p: make_train_step(**{**kwargs, "remat": p},
+                                    distill=(teacher_module, RECIPE["alpha"],
+                                             RECIPE["temperature"])) for p in REMAT}
+        batches = step_exp.loader.batches("train", device=dev, epoch=0, max_batches=1)
+        batch = next(batches)
+        batches.close()
+        steps["none"](state, batch)
+        init = _recipe_snapshot(state)
+        n_params = sum(p.numel() for p in state.module.parameters())
+
+        def traced(step_fn, b=batch):
+            grads = {}
+            real = state.tx.update
+
+            def spy(g, opt_state, params):
+                grads.update({k: v.detach().clone() for k, v in g.items()})
+                return real(g, opt_state, params)
+
+            state.tx.update = spy
+            try:
+                _, metrics = step_fn(state, b)
+            finally:
+                del state.tx.update
+            torch.cuda.synchronize()
+            out = {f"metric {k}": v.clone() for k, v in metrics.items()}
+            out.update({f"grad {k}": v for k, v in grads.items()})
+            out.update({k: v.detach().clone() for k, v in _recipe_tensors(state).items()})
+            return out
+
+        def same(a, b, label):
+            bad = [k for k in a if not _same_bits(torch, a[k], b[k])]
+            check(set(a) == set(b) and not bad,
+                  f"{tag}: {label} differs in {len(bad)} of {len(a)} tensors, e.g. {bad[:4]}")
+
+        with deterministic(torch):
+            # 3. The kernel step against the plain-kernel step.
+            _recipe_restore(state, init)
+            bc.reset_launches()
+            got = traced(steps["none"])
+            step_launches = {k: v for k, v in bc.LAUNCHES.items() if v}
+            check(step_launches == RECIPE_PER_STEP,
+                  f"{tag}: one step launched {step_launches}, want {RECIPE_PER_STEP}")
+            _recipe_restore(state, init)
+            before = dict(bc.LAUNCHES)
+            with _plain_binary(bc):
+                plain = traced(steps["none"])
+            check(bc.LAUNCHES == before, f"{tag}: the plain-kernel step launched kernels")
+            same(got, plain, "the plain-kernel step")
+            print(f"{tag}: one step ({n_params} parameters), loss "
+                  f"{got['metric loss'].item():.6f}, kd_loss {got['metric kd_loss'].item():.6f}, "
+                  f"flip_ratio {got['metric flip_ratio'].item():.6f}, launches {step_launches}; "
+                  f"equal to the plain-kernel step bit for bit ({len(got)} tensors: metrics, "
+                  "gradients, parameters, BN statistics, EMA, Bop memory and count, Adam "
+                  "moments and count)", flush=True)
+            del plain
+
+            # 4. Every remat policy against "none".
+            remat_launches = {"none": step_launches}
+            for p in REMAT[1:]:
+                _recipe_restore(state, init)
+                bc.reset_launches()
+                res = traced(steps[p])
+                remat_launches[p] = {k: v for k, v in bc.LAUNCHES.items() if v}
+                # The forward runs again for the backward: K1, K3 twice.
+                want = {k: 2 * n for k, n in RECIPE_PER_STEP.items()}
+                check(remat_launches[p] == want,
+                      f"{tag}: remat={p} launched {remat_launches[p]}, want {want}")
+                same(got, res, f"the remat={p} step")
+                del res
+            print(f"{tag}: remat full, dots and quant equal to none bit for bit "
+                  f"({len(got)} tensors); launches {json.dumps(remat_launches)}", flush=True)
+
+            # 5. A batch holding a NaN under nan_policy=skip.
+            _recipe_restore(state, init)
+            before = {k: v.detach().clone() for k, v in _recipe_tensors(state).items()}
+            bad_input = batch["input"].clone()
+            bad_input[0, 0, 0, 0] = float("nan")
+            _, metrics = steps["none"](state, {**batch, "input": bad_input})
+            torch.cuda.synchronize()
+            check(metrics["skipped_steps"].item() == 1.0,
+                  f"{tag}: the NaN step reports skipped_steps {metrics['skipped_steps'].item()}")
+            after = {k: v.detach() for k, v in _recipe_tensors(state).items()}
+            same(before, after, "the state after the NaN step")
+            check(state.step == init[3] + 1, f"{tag}: the NaN step did not advance state.step")
+            print(f"{tag}: the NaN step skipped (skipped_steps 1), {len(before)} state tensors "
+                  "unchanged bit for bit", flush=True)
+            del got, before, after
+
+        real_batches = DataLoader.batches
+
+        def nan_batches(loader, split, *args, **kw):
+            for b in real_batches(loader, split, *args, **kw):
+                yield {**b, "input": b["input"] * float("nan")}
+
+        halt = distill(epochs=1, steps_per_epoch=1, nan_policy="halt", export_model_to=None)
+        try:
+            with mock.patch.object(DataLoader, "batches", nan_batches):
+                halt.run()
+            fail(f"{tag}: nan_policy=halt did not raise on a NaN batch")
+        except NonFiniteLossError as e:
+            print(f"{tag}: nan_policy=halt raised NonFiniteLossError: {e}", flush=True)
+        del halt
+        torch.cuda.empty_cache()
+
+        # 6. Time, peak memory and busy share, in the default settings.
+        def timed(step_fn, n=4):
+            step_fn(state, batch)
+            torch.cuda.synchronize()
+            times, walls = [], []
+            for _ in range(n):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                t1 = time.perf_counter()
+                start.record()
+                step_fn(state, batch)
+                end.record()
+                end.synchronize()
+                walls.append((time.perf_counter() - t1) * 1e3)
+                times.append(start.elapsed_time(end))
+            return statistics.median(times), statistics.median(walls)
+
+        peaks = {}
+        for p in REMAT:
+            _recipe_restore(state, init)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            steps[p](state, batch)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated()
+            peaks[p] = {"peak_gib": peak / 2.0**30, "step_gib": (peak - base) / 2.0**30}
+        # The step with all of the recipe's options and without some, in
+        # turns (forward order, then backward), three timed steps each.
+        distill_only = (teacher_module, RECIPE["alpha"], RECIPE["temperature"])
+        variants = {
+            "recipe": steps["none"],
+            "bop_distill_only": make_train_step(kwargs["loss_fn"], distill=distill_only),
+            "plus_ema": make_train_step(kwargs["loss_fn"], distill=distill_only,
+                                        ema_decay=RECIPE["ema_decay"]),
+            "plus_flip_ratio": make_train_step(kwargs["loss_fn"], distill=distill_only,
+                                               flip_ratio_pattern=kwargs["flip_ratio_pattern"]),
+            "plus_nan_skip": make_train_step(kwargs["loss_fn"], distill=distill_only,
+                                             nan_policy="skip"),
+        }
+        _recipe_restore(state, init)
+        turns = {k: [] for k in variants}
+        for k in list(variants) + list(reversed(variants)):
+            turns[k].append(timed(variants[k], n=3))
+        variant_ms = {k: statistics.median(t[0] for t in v) for k, v in turns.items()}
+        step_ms = variant_ms["recipe"]
+        wall_ms = statistics.median(t[1] for t in turns["recipe"])
+        remat_ms = {p: timed(steps[p], n=2)[0] for p in REMAT[1:]}
+        x = batch["input"]
+        with torch.no_grad():
+            teacher_ms = time_ms(torch, lambda: teacher_module(x), reps=5, inner=1)
+        busy_ms, launched = _profile_train_step(torch, lambda: steps["none"](state, batch),
+                                                step_ms, tag)
+        base_busy, base_launched = _profile_train_step(
+            torch, lambda: variants["bop_distill_only"](state, batch),
+            variant_ms["bop_distill_only"], f"{tag} (Bop and distillation only)", top=5)
+        stats.update({
+            "step_ms": step_ms, "step_wall_ms": wall_ms,
+            "images_per_s_step": TRAIN_BATCH / step_ms * 1e3,
+            "device_busy_ms": busy_ms, "device_busy_share": busy_ms / step_ms,
+            "device_activities_per_step": launched, "teacher_forward_ms": teacher_ms,
+            "remat_step_ms": remat_ms, "remat_peak": peaks, "feature_step_ms": variant_ms,
+            "bop_distill_only_busy_ms": base_busy,
+            "bop_distill_only_activities": base_launched,
+            "images_per_s_run": [r["examples_per_sec"] for r in rows],
+        })
+        print(f"{tag}: step {step_ms:.3f} ms device ({wall_ms:.3f} host), busy "
+              f"{100 * busy_ms / step_ms:.1f}%, teacher forward {teacher_ms:.3f} ms, remat "
+              f"{json.dumps(remat_ms)}, peaks {json.dumps(peaks)}, features (in turns) "
+              f"{json.dumps(variant_ms)}", flush=True)
+        del state, steps, variants, step_exp
+        torch.cuda.empty_cache()
+
+        # 7. EvalExperiment on the export against the EMA eval step.
+        ev = EvalExperiment()
+        configure(ev, {
+            "loader.dataset": "SyntheticImageNet",
+            "loader.dataset.num_train_examples": TRAIN_EXAMPLES,
+            "loader.dataset.num_validation_examples": TRAIN_BATCH,
+            "loader.preprocessing": "ImageClassificationPreprocessing",
+            "loader.preprocessing.height": 224, "loader.preprocessing.width": 224,
+            "loader.preprocessing.channels": 3, "loader.preprocessing.augment": True,
+            "loader.preprocessing.random_resized_crop": True, "loader.num_workers": 8,
+            "model": "RealToBinaryNet", "model.compute_dtype": "bfloat16",
+            "model.binary_compute": "xnor_popcount", "checkpoint": student_dir,
+            "weights": "auto", "batch_size": TRAIN_BATCH, "seed": 0, "track_top5": True,
+            "device": "cuda", "verbose": False,
+        }, name="evaluate")
+        with deterministic(torch):
+            scored = ev.run()
+            want = run_weighted_eval(exp.loader, "validation",
+                                     make_eval_step(use_ema=True, top5=True), final, dev)
+        check(scored == want, f"{tag}: EvalExperiment {scored} differs from the EMA eval "
+                              f"step's {want}")
+        print(f"{tag}: EvalExperiment on the export (weights=auto) equals the EMA eval step: "
+              f"{json.dumps(scored)}", flush=True)
+        stats["eval"] = scored
+
+        # 8. ServingConfig serving the export.
+        cfg = ServingConfig()
+        configure(cfg, {"model": "RealToBinaryNet", "model.compute_dtype": "bfloat16",
+                        "model.binary_compute": "xnor_popcount", **IMAGENET,
+                        "checkpoint": student_dir, "engine.batch_buckets": (1, BATCH),
+                        "requests": 16, "max_request": BATCH, "seed": 0, "device": "cuda",
+                        "verbose": False}, name="serving")
+        buckets = []
+        real_infer = InferenceEngine.infer
+
+        def spy(engine, xb):
+            buckets.append(engine.bucket_for(len(xb)))
+            return real_infer(engine, xb)
+
+        bc.reset_launches()
+        with mock.patch.object(InferenceEngine, "infer", spy):
+            result = cfg.run()
+        torch.cuda.synchronize()
+        served = {k: v for k, v in bc.LAUNCHES.items() if v}
+        want = {k: n * len(buckets) for k, n in RECIPE_PER_STEP.items()}
+        check(served == want, f"{tag} serving: {len(buckets)} forwards launched {served}, "
+                              f"want {want}")
+        module = cfg.model.build(cfg.input_shape, cfg.num_classes)
+        module.load_state_dict({**final.module.state_dict(), **final.ema_params})
+        direct = InferenceEngine()
+        configure(direct, {"batch_buckets": (1, BATCH)}, name="engine")
+        direct.bind(module, cfg.input_shape, dtype=torch.bfloat16, device="cuda")
+        xb = np.random.default_rng(1).normal(size=(BATCH, *cfg.input_shape)).astype(np.float32)
+        with deterministic(torch):
+            logits, bound = cfg.engine.infer(xb), direct.infer(xb)
+            torch.cuda.synchronize()
+        check(bool(torch.isfinite(logits).all()) and _same_bits(torch, logits, bound),
+              f"{tag} serving: the export's logits differ from the EMA-bound engine's")
+        cfg.engine.infer(xb)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for _ in range(20):
+            cfg.engine.infer(xb)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t1
+        stats["serving"] = {"images_per_s": BATCH * 20 / dt, "batch8_forward_ms": dt / 20 * 1e3,
+                            "p50_ms": result["latency_p50_ms"], "p99_ms": result["latency_p99_ms"]}
+        print(f"{tag} serving: {result['requests']} requests, {len(buckets)} forwards, "
+              f"launches {served} (16 + 16 a forward), logits equal to the EMA-bound engine's "
+              f"bit for bit; {json.dumps(stats['serving'])}", flush=True)
+        del cfg, direct, module, exp, final
+    torch.cuda.empty_cache()
+    print(f"{tag} on {smi}: {json.dumps(stats)}", flush=True)
+    return step_launches, stats
+
+
 def dense_profile_phase(smi):
     """profile_forward of each dense slice's deployment: the device time
     of a batch-8 forward and the device's busy share."""
@@ -2983,6 +3412,8 @@ def main() -> None:
     lm_train_records, lm_train_err = lm_train_kernel_phase(torch, A)
     launches_lt, _ = lm_training_phase(torch, A, smi)
     lm_wide_phase(torch, A, smi)
+    recipe_kernels = recipe_kernel_phase(torch, bc)
+    launches_rt, recipe = recipe_phase(torch, bc, smi)
 
     # Each kernel's launches on its main path: K1 and K3 serving slice A,
     # K4 slice B, K2 slice C, K5 slice E, K6-K8 the training step.
@@ -3046,6 +3477,18 @@ def main() -> None:
                 "bound_by": by, "library_ms": d["library_ms"], "max_abs_err": d["max_abs_err"],
                 "launches": (step_launches.get(name, 0) if step_launches is not None
                              else slices[path][0].get(name, 0) if path in slices else 0),
+            }
+        # The recipe: K1 and K3 per distillation step (RealToBinaryNet,
+        # batch 128), at the step's 16 conv shapes.
+        if name in recipe_kernels:
+            r = recipe_kernels[name]
+            least, by = bound_ms(name, r["bytes"], r["ops"])
+            rows[-1]["recipe"] = {
+                "path": "DistillImageNet step (RealToBinaryNet, batch 128)", "ms": r["ms"],
+                "plain_ms": r["plain_ms"], "bound_ms": least, "bound_by": by,
+                "library_ms": r["library_ms"], "max_abs_err": r["max_abs_err"],
+                "launches": launches_rt[name],
+                "step_ms": recipe["step_ms"], "step_busy_share": recipe["device_busy_share"],
             }
         if name in ("mask_mul_resid", "xnor_matmul_packed_scaled"):
             # K8 has no work on Bi-Real's step; K2 runs in XNORNet's dense stage.

@@ -513,13 +513,26 @@ def test_adam_update_matches_optax(weight_decay, clip):
         np.testing.assert_allclose(pp[k].numpy(), np.asarray(jp[k]), rtol=1e-6, atol=1e-7)
 
 
-def test_unported_training_options_raise_naming_the_roadmap():
-    for kwargs in ({"remat": "full"}, {"nan_policy": "skip"}, {"ema_decay": 0.99},
-                   {"flip_ratio_pattern": "kernel"}, {"distill": (None, 0.5, 2.0)}):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+@pytest.mark.parametrize("kwargs", [
+    {"remat": "full"}, {"nan_policy": "skip"}, {"ema_decay": 0.99},
+    {"flip_ratio_pattern": "kernel"}, {"distill": (None, 0.5, 2.0)}, {"accumulate_steps": 2},
+    {"remat": "everything"}, {"nan_policy": "retry"},
+])
+def test_training_options_build_and_unknown_policies_raise_as_jax(kwargs):
+    """The step options and accumulation build; an unknown remat or
+    nan_policy raises JAX's ``ValueError``."""
+    if "accumulate_steps" in kwargs:
+        tx = _adam(PortAdam, kwargs).build(10)
+        assert type(tx).__name__ == "MultiSteps" and tx.every_k == 2
+        return
+    if kwargs.get("remat") == "everything" or kwargs.get("nan_policy") == "retry":
+        with pytest.raises(ValueError) as want:
+            jax_make_train_step(**kwargs)
+        with pytest.raises(ValueError) as got:
             port_make_train_step(**kwargs)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        _adam(PortAdam, {"accumulate_steps": 2}).build(10)
+        assert str(got.value) == str(want.value)
+        return
+    assert callable(port_make_train_step(**kwargs))
 
 
 def test_train_imagenet_runs_on_the_card_by_default(monkeypatch):

@@ -26,11 +26,19 @@ scopes of ``RMSNorm_0``, ``qkv``, ``proj``, ``RMSNorm_1``, ``up`` and
 out]`` becomes a ``weight`` ``[out, in]``.
 
 A training state carries across too: :func:`flax_train_state` and
-:func:`load_flax_train_state` move the step, params, ``batch_stats`` and
-optax Adam's ``count``/``mu``/``nu`` (whose trees have the params'
-structure, so they convert leaf for leaf like the params) between the
+:func:`load_flax_train_state` move the step, params, ``batch_stats``,
+the parameter EMA (``ema_params``) and the optimizer state between the
 port's ``TrainState`` and numpy trees, for the CNN zoo and for
-TransformerLM states (an LM has no ``batch_stats``).
+TransformerLM states (an LM has no ``batch_stats``). The optimizer state
+keeps optax's names: Adam's ``count``/``mu``/``nu`` under ``adam``, any
+other optimizer's state (Bop's ``gradient_memory`` and ``count`` under
+``binary``, its fp optimizer's under ``fp``; ``trace``; ``MultiSteps``'
+``mini_step``, ``gradient_step``, ``acc_grads`` and ``inner_opt_state``)
+under ``opt_state``. Its per-parameter trees have the params' structure
+(or a part of it: each side of Bop's split holds its own leaves) and
+convert leaf for leaf like the params. :func:`flax_param_paths` names
+each parameter's flax path ("/"-joined), and :func:`flatten_tree` /
+:func:`unflatten_tree` move between nested trees and such paths.
 """
 
 import re
@@ -207,13 +215,16 @@ def _nest(tree: Dict[str, Any], path: Tuple[str, ...], value: Any) -> None:
     tree[path[-1]] = value
 
 
-def to_flax_variables(module: nn.Module) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+def to_flax_variables(
+    module: nn.Module, named: Optional[Mapping[str, Any]] = None
+) -> Tuple[Dict[str, Any], Dict[str, Any]]:
     """The port module's weights as flax ``(params, {"batch_stats":
     ...})`` nested dicts of numpy arrays, scopes in module creation
-    order (the inverse of :func:`from_flax_variables`)."""
+    order (the inverse of :func:`from_flax_variables`). ``named`` (a
+    ``state_dict``-like mapping) stands in for the module's tensors."""
     params: Dict[str, Any] = {}
     stats: Dict[str, Any] = {}
-    for path, leaves in _by_layer(module.state_dict()).items():
+    for path, leaves in _by_layer(module.state_dict() if named is None else named).items():
         _nest(params, path, _flax_param_leaves(path[-1], leaves))
         if _BN.match(path[-1]):
             _nest(stats, path, {k: leaves[v] for k, v in _BN_STATS.items()})
@@ -241,26 +252,121 @@ def flax_param_tree(module: nn.Module, leaf_fn=_numpy) -> Dict[str, Any]:
     return tree(module.state_dict(), leaf_fn)
 
 
+class _Name(str):
+    """A parameter's name standing in for its tensor in a flax tree: it
+    passes through the layout changes unchanged, so the tree maps each
+    flax path to the port's name."""
+
+    def transpose(self, *axes):
+        return self
+
+    @property
+    def T(self):
+        return self
+
+    def copy(self):
+        return self
+
+
+def flatten_tree(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, Any]:
+    """A nested tree as ``{"a/b/c": leaf}``."""
+    flat: Dict[str, Any] = {}
+    for key, value in tree.items():
+        path = f"{prefix}{key}"
+        if isinstance(value, Mapping):
+            flat.update(flatten_tree(value, f"{path}/"))
+        else:
+            flat[path] = value
+    return flat
+
+
+def unflatten_tree(flat: Mapping[str, Any]) -> Dict[str, Any]:
+    """``{"a/b/c": leaf}`` as a nested tree (the inverse of
+    :func:`flatten_tree`)."""
+    tree: Dict[str, Any] = {}
+    for path, value in flat.items():
+        _nest(tree, tuple(path.split("/")), value)
+    return tree
+
+
+def flax_param_paths(module: nn.Module) -> Dict[str, str]:
+    """``{parameter name: its "/"-joined flax path}`` (``QuantConv_3.kernel``
+    -> ``QuantConv_3/kernel``, ``BatchNorm_0.weight`` ->
+    ``BatchNorm_0/scale``), from :func:`flax_param_tree`'s naming."""
+    named = {n: _Name(n) for n, _ in module.named_parameters()}
+    tree = (_flax_lm_tree if _is_lm(module) else _flax_cnn_tree)(named, lambda x: x)
+    return {name: path for path, name in flatten_tree(tree).items()}
+
+
+#: The optimizer-state keys that hold a tree shaped like (part of) the
+#: params, and those that hold a count (``training.optimizer.COUNT_KEYS``).
+_PER_PARAM = ("mu", "nu", "trace", "gradient_memory", "acc_grads")
+COUNT_KEYS = ("count", "mini_step", "gradient_step")
+
+
+def _opt_to_flax(opt: Mapping[str, Any], tree) -> Dict[str, Any]:
+    out: Dict[str, Any] = {}
+    for key, value in opt.items():
+        if key in _PER_PARAM:
+            out[key] = tree(value)
+        elif key in COUNT_KEYS:
+            out[key] = np.int32(int(value))
+        else:
+            out[key] = _opt_to_flax(value, tree)
+    return out
+
+
+def _opt_from_flax(opt: Dict[str, Any], flax: Mapping[str, Any], convert, where: str) -> None:
+    if set(opt) != set(flax):
+        raise ValueError(
+            f"load_flax_train_state: optimizer state {where or '/'} holds "
+            f"{sorted(flax)}, the port's {sorted(opt)}."
+        )
+    for key, value in opt.items():
+        if key in _PER_PARAM:
+            leaves = convert(flax[key])
+            if set(leaves) != set(value):
+                raise ValueError(
+                    f"load_flax_train_state: {where}{key} leaves {sorted(leaves)} "
+                    f"do not match the model's parameters {sorted(value)}."
+                )
+            for name, t in leaves.items():
+                value[name].copy_(t)
+        elif key in COUNT_KEYS:
+            if isinstance(value, torch.Tensor):
+                value.fill_(int(flax[key]))
+            else:
+                opt[key] = int(flax[key])
+        else:
+            _opt_from_flax(value, flax[key], convert, f"{where}{key}/")
+
+
+def _is_adam(opt: Mapping[str, Any]) -> bool:
+    return set(opt) == {"count", "mu", "nu"}
+
+
 def flax_train_state(state: Any) -> Dict[str, Any]:
     """A port ``TrainState`` as numpy trees in the JAX package's layout:
-    ``{"step", "params", "model_state", "adam": {"count", "mu", "nu"}}``
-    (the Adam moments as params-shaped trees; ``model_state`` holds the
-    ``batch_stats`` of a CNN and is empty for an LM)."""
+    ``{"step", "params", "model_state"}``, then ``"adam": {"count", "mu",
+    "nu"}`` (the Adam moments as params-shaped trees) for an Adam state or
+    ``"opt_state"`` (optax's names, see the module docstring) for any
+    other, and ``"ema_params"`` when the state keeps the EMA.
+    ``model_state`` holds the ``batch_stats`` of a CNN and is empty for an
+    LM."""
     if _is_lm(state.module):
         params, model_state, tree = to_flax_lm_variables(state.module), {}, _flax_lm_tree
     else:
         (params, model_state), tree = to_flax_variables(state.module), _flax_cnn_tree
     opt = state.opt_state
-    return {
+    out = {
         "step": np.int32(state.step),
         "params": params,
         "model_state": model_state,
-        "adam": {
-            "count": np.int32(opt["count"]),
-            "mu": tree(opt["mu"]),
-            "nu": tree(opt["nu"]),
-        },
+        ("adam" if _is_adam(opt) else "opt_state"): _opt_to_flax(opt, tree),
     }
+    if state.ema_params is not None:
+        out["ema_params"] = tree(state.ema_params)
+    return out
 
 
 def load_flax_train_state(
@@ -269,13 +375,17 @@ def load_flax_train_state(
     step: Any,
     params: Mapping[str, Any],
     model_state: Mapping[str, Any],
-    adam: Mapping[str, Any],
+    adam: Optional[Mapping[str, Any]] = None,
+    opt_state: Optional[Mapping[str, Any]] = None,
+    ema_params: Optional[Mapping[str, Any]] = None,
 ) -> Any:
     """Load a JAX train state (numpy trees, as :func:`flax_train_state`
-    returns them; ``adam`` holds optax's ``ScaleByAdamState`` leaves) into
+    returns them: ``adam`` holds optax's ``ScaleByAdamState`` leaves,
+    ``opt_state`` any other optimizer's state under optax's names) into
     the port's ``TrainState`` in place, on the devices its tensors lie
     on; an LM state's trees go through :func:`from_flax_lm_variables`.
-    Returns ``state``."""
+    ``ema_params`` fills the state's EMA, which must exist. Returns
+    ``state``."""
     if _is_lm(state.module):
         if model_state:
             raise ValueError(
@@ -287,15 +397,21 @@ def load_flax_train_state(
         convert = from_flax_variables
         state.module.load_state_dict(convert(params, model_state))
     state.step = int(step)
-    opt = state.opt_state
-    opt["count"] = int(adam["count"])
-    for key in ("mu", "nu"):
-        moments = convert(adam[key])
-        if set(moments) != set(opt[key]):
+    if (adam is None) == (opt_state is None):
+        raise ValueError("load_flax_train_state: pass exactly one of adam= and opt_state=.")
+    _opt_from_flax(state.opt_state, adam if adam is not None else opt_state, convert, "")
+    if ema_params is not None:
+        if state.ema_params is None:
             raise ValueError(
-                f"load_flax_train_state: Adam {key} leaves {sorted(moments)} "
-                f"do not match the model's parameters {sorted(opt[key])}."
+                "load_flax_train_state: ema_params given but the state keeps no "
+                "EMA; build it with TrainState.create(..., ema=True)."
             )
-        for name, value in moments.items():
-            opt[key][name].copy_(value)
+        leaves = convert(ema_params)
+        if set(leaves) != set(state.ema_params):
+            raise ValueError(
+                f"load_flax_train_state: ema_params leaves {sorted(leaves)} do not "
+                f"match the model's parameters {sorted(state.ema_params)}."
+            )
+        for name, t in leaves.items():
+            state.ema_params[name].copy_(t)
     return state

@@ -21,7 +21,9 @@ others holds them under their flax scope names (``QuantConv_0``).
 its input width (``in_features``) at construction.
 """
 
+import contextlib
 import math
+import threading
 from typing import Callable, Optional, Sequence, Tuple, Union
 
 import torch
@@ -54,6 +56,55 @@ BINARY_COMPUTE_MODES = ("mxu", "int8", "xnor", "xnor_popcount")
 #: latent sign-read kernels of the Quant* layers: the JAX package's
 #: ``BINARY_KERNEL_PATTERN``, kept here so the port reads no JAX module.
 BINARY_KERNEL_PATTERN = r"Quant[A-Za-z0-9]*_\d+/kernel$"
+
+#: The tag on every Quant* layer's quantized input (:func:`tag_quant_act`):
+#: the JAX package's ``QUANT_ACT_CHECKPOINT_NAME``, the one name the
+#: "quant" rematerialization policy saves.
+QUANT_ACT_CHECKPOINT_NAME = "quant_act"
+
+
+@torch.library.custom_op(f"zookeeper_tpu_torch::{QUANT_ACT_CHECKPOINT_NAME}", mutates_args=())
+def _quant_act(x: torch.Tensor) -> torch.Tensor:
+    return x.clone()
+
+
+_quant_act.register_fake(lambda x: torch.empty_like(x))
+_quant_act.register_autograd(lambda ctx, grad: grad)
+
+
+class _RematFlags(threading.local):
+    """What a rematerialized train step asks of the layers: ``tag`` the
+    quantized inputs (the "quant" policy), and whether the forward is a
+    ``recompute`` for the backward (BatchNorm then leaves its running
+    statistics as the first forward left them)."""
+
+    tag = False
+    recompute = False
+
+
+_REMAT = _RematFlags()
+
+
+@contextlib.contextmanager
+def remat_scope(tag: bool = False, recompute: bool = False):
+    """Set the layers' rematerialization flags inside the block."""
+    saved = (_REMAT.tag, _REMAT.recompute)
+    _REMAT.tag, _REMAT.recompute = tag, recompute
+    try:
+        yield
+    finally:
+        _REMAT.tag, _REMAT.recompute = saved
+
+
+def tag_quant_act(x: torch.Tensor) -> torch.Tensor:
+    """Tag a quantized activation for the "quant" remat policy: inside a
+    tagging scope, the ``zookeeper_tpu_torch::quant_act`` op (a copy, its
+    gradient the identity) that the policy saves; elsewhere ``x`` itself
+    (JAX's ``checkpoint_name`` is the identity outside a checkpoint)."""
+    if _REMAT.tag:
+        return torch.ops.zookeeper_tpu_torch.quant_act(x)
+    return x
+
 
 #: Kernel quantizers whose output is sign x per-output-channel scale: the
 #: contract of the packed binary kernels.
@@ -265,7 +316,8 @@ class BatchNorm(nn.Module):
     0, and updates ``ra = m * ra + (1 - m) * batch`` for both statistics
     (the biased variance, unlike ``nn.BatchNorm2d``), ``m`` the share of
     the running statistic kept (flax's convention). In eval mode it uses
-    the running statistics."""
+    the running statistics. The recompute of a rematerialized step leaves
+    the statistics as the step's first forward left them."""
 
     def __init__(self, features: int, eps: float = 1e-5,
                  dtype: torch.dtype = torch.float32, momentum: float = 0.9):
@@ -291,10 +343,11 @@ class BatchNorm(nn.Module):
             axes = tuple(range(x.dim() - 1))
             mean = xf.mean(dim=axes)
             var = torch.clamp((xf * xf).mean(dim=axes) - mean * mean, min=0.0)
-            with torch.no_grad():
-                keep, take = self.momentum, 1.0 - self.momentum
-                self.running_mean.copy_(keep * self.running_mean + take * mean)
-                self.running_var.copy_(keep * self.running_var + take * var)
+            if not _REMAT.recompute:
+                with torch.no_grad():
+                    keep, take = self.momentum, 1.0 - self.momentum
+                    self.running_mean.copy_(keep * self.running_mean + take * mean)
+                    self.running_var.copy_(keep * self.running_var + take * var)
         else:
             mean, var = self.running_mean, self.running_var
         mul = torch.rsqrt(var + self.eps) * self.weight
@@ -425,7 +478,7 @@ class QuantDense(_QuantLayer):
                 f"layer was built for {self.in_features}."
             )
         if self.in_q is not None:
-            x = self.in_q(x)
+            x = tag_quant_act(self.in_q(x))
         if self.packed_weights:
             y = packed_dense_infer(
                 x, self.kernel_packed, self.kernel_scale, self.in_features,
@@ -595,7 +648,7 @@ class QuantConv(_QuantLayer):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         mode = self.binary_compute
         if self.in_q is not None:
-            x = self.in_q(x)
+            x = tag_quant_act(self.in_q(x))
         if self.packed_weights:
             y = packed_conv_infer(
                 x, self.kernel_packed, self.kernel_scale, self.strides,
@@ -657,7 +710,7 @@ class _LatentLayer(_QuantLayer):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         self._check_input(x)
         if self.in_q is not None:
-            x = self.in_q(x)
+            x = tag_quant_act(self.in_q(x))
         kernel = _apply_clip(self.latent, self.kernel_clip)
         if self.k_q is not None:
             kernel = self.k_q(kernel)

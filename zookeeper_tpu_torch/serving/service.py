@@ -7,18 +7,21 @@ The port of ``zookeeper_tpu/serving/service.py``'s ``ServingConfig``, a
         model.compute_dtype=bfloat16 model.binary_compute=xnor_popcount \\
         model.packed_weights=True model.fold_bn=True
 
-``build_service()`` builds the model, initializes its weights from
-``seed`` (a packed model gets the packed form of its float twin, see
+``build_service()`` builds the model, loads its weights from
+``checkpoint`` (a model-only export, ``training.checkpoint``: the EMA or
+the raw weights as ``weights`` picks them, the tree checked against the
+built model's structure) or initializes them from ``seed`` (a packed
+model gets the packed form of its float twin, see
 ``QuickNet.initialize``), binds and warms the engine on ``device`` and
 binds the batcher. ``run()`` serves a seeded stream of variable-size
-synthetic requests and prints one JSON line of serving metrics.
-Checkpoint loading waits (ROADMAP.md): the JAX package's checkpoints are
-an orbax format.
+synthetic requests and prints one JSON line of serving metrics. The
+JAX service's ``watch`` (hot swaps from a live ``Checkpointer``
+directory) is not ported yet (ROADMAP.md).
 """
 
 import json
 import time
-from typing import Any, Dict, Iterator
+from typing import Any, Dict, Iterator, Optional
 
 import numpy as np
 import torch
@@ -39,6 +42,14 @@ class ServingConfig:
     engine: InferenceEngine = ComponentField(InferenceEngine)
     batcher: MicroBatcher = ComponentField(MicroBatcher)
     metrics: ServingMetrics = ComponentField(ServingMetrics)
+
+    #: The deployment artifact: a ``save_model`` export. None serves
+    #: weights initialized from ``seed``.
+    checkpoint: Optional[str] = Field(None)
+    #: "auto" serves the EMA when the checkpoint carries one, "ema"
+    #: requires it, "raw" the training parameters
+    #: (``training.checkpoint.select_inference_weights``).
+    weights: str = Field("auto")
 
     #: Per-example input geometry (NHWC images).
     height: int = Field(224)
@@ -61,15 +72,31 @@ class ServingConfig:
         return (self.height, self.width, self.channels)
 
     def build_service(self):
-        """Build and initialize the model, bind and warm the engine, bind
-        the batcher. Returns ``(engine, batcher)``."""
+        """Build the model and load or initialize its weights, bind and
+        warm the engine, bind the batcher. Returns ``(engine, batcher)``."""
+        if self.weights not in ("auto", "ema", "raw"):
+            raise ValueError(f"weights={self.weights!r} unknown; choose auto/ema/raw.")
         if self.requests < 0 or self.max_request < 1:
             raise ValueError(
                 f"requests={self.requests} must be >= 0 and "
                 f"max_request={self.max_request} >= 1."
             )
         module = self.model.build(self.input_shape, self.num_classes)
-        self.model.initialize(module, seed=self.seed)
+        if self.checkpoint:
+            from zookeeper_tpu_torch.training.checkpoint import (
+                export_trees,
+                load_inference_model,
+                load_into_module,
+            )
+
+            params_like, state_like = export_trees(module)
+            params, model_state = load_inference_model(
+                self.checkpoint, weights=self.weights,
+                params_like=params_like, model_state_like=state_like,
+            )
+            load_into_module(module, params, model_state)
+        else:
+            self.model.initialize(module, seed=self.seed)
         self.engine.bind(
             module, self.input_shape, dtype=self.model.dtype(), device=self.device
         )

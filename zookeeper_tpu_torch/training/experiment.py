@@ -1,21 +1,28 @@
-"""Experiment components: the configurable training loop.
+"""Experiment components: the configurable training loop and the eval
+of an export.
 
-The port of ``zookeeper_tpu/training/experiment.py``'s ``Experiment``
-and a trimmed ``TrainingExperiment``::
+The port of ``zookeeper_tpu/training/experiment.py``'s ``Experiment``,
+``TrainingExperiment`` and ``EvalExperiment``::
 
     loader.batches() --prefetch--> device tensors
-    state = TrainState(module, optimizer state)
+    state = TrainState(module, optimizer state, EMA)
     for epoch: for batch: state, metrics = train_step(state, batch)
 
 One host readback per epoch (or per ``log_every`` steps) pulls the
 step metrics. ``run()`` returns ``{"train": [...], "validation":
-[...]}``, one dict of metric means per epoch. Checkpointing,
-partitioners and multi-GPU, multi-step slabs, observability, EMA,
-distillation and early stopping are not ported yet (ROADMAP.md).
+[...]}``, one dict of metric means per epoch (``skipped_steps``, under a
+``nan_policy``, summed). The training recipe's options are the JAX
+loop's: the flip ratio, the parameter EMA (validation and the export
+use it), ``nan_policy``, ``remat``, ``validate_every``, early stopping,
+the model summary and ``export_model_to`` (a model-only export,
+``training.checkpoint``). The ``Checkpointer`` and resume, partitioners
+and multi-GPU, multi-step slabs, metrics writers, profiling and
+observability are not ported yet (ROADMAP.md).
 """
 
+import math
 import time
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Optional
 
 import torch
 
@@ -23,9 +30,19 @@ from zookeeper_tpu_torch.core import ComponentField, Field, component, pretty_pr
 from zookeeper_tpu_torch.data.pipeline import DataLoader
 from zookeeper_tpu_torch.models.base import Model
 from zookeeper_tpu_torch.ops.device import resolve_device
+from zookeeper_tpu_torch.ops.layers import BINARY_KERNEL_PATTERN
+from zookeeper_tpu_torch.resilience.faults import NonFiniteLossError
+from zookeeper_tpu_torch.training.checkpoint import (
+    export_trees,
+    load_inference_model,
+    load_into_module,
+    save_model,
+)
 from zookeeper_tpu_torch.training.optimizer import Adam, Optimizer
 from zookeeper_tpu_torch.training.state import TrainState
 from zookeeper_tpu_torch.training.step import (
+    NAN_POLICIES,
+    REMAT_POLICIES,
     make_eval_step,
     make_train_step,
     smoothed_softmax_cross_entropy,
@@ -42,13 +59,14 @@ class Experiment:
 
 def _host_means(accum: List[Dict[str, torch.Tensor]]) -> Dict[str, float]:
     """Per-key means of a list of 0-d metric tensors, read back in one
-    device-to-host copy."""
+    device-to-host copy; ``skipped_steps`` is a count, summed."""
     if not accum:
         return {}
     keys = list(accum[0])
-    stacked = torch.stack([torch.stack([m[k] for m in accum]) for k in keys])
+    stacked = torch.stack([torch.stack([m[k].to(torch.float32) for m in accum]) for k in keys])
     host = stacked.to(torch.float64).cpu()
-    return {k: float(host[i].mean()) for i, k in enumerate(keys)}
+    return {k: float(host[i].sum() if k == "skipped_steps" else host[i].mean())
+            for i, k in enumerate(keys)}
 
 
 def run_weighted_eval(loader, split, eval_step, state, device, epoch=0) -> Dict[str, float]:
@@ -83,11 +101,44 @@ class TrainingExperiment(Experiment):
     #: Cap on steps per epoch; -1 = the full epoch.
     steps_per_epoch: int = Field(-1)
     validate: bool = Field(True)
+    #: Validate on epochs where ``(epoch + 1) % validate_every == 0``; on
+    #: the others nothing validation-derived happens (early stopping's
+    #: patience counts validated epochs).
+    validate_every: int = Field(1)
+    #: Report the per-step sign-flip share of the binary kernels (larq's
+    #: FlipRatio) in the train metrics.
+    track_flip_ratio: bool = Field(False)
     #: Label smoothing of the loss (0 = off); validation scores the same
     #: smoothed loss.
     label_smoothing: float = Field(0.0)
     #: Also report top-5 accuracy in validation (needs >= 5 classes).
     track_top5: bool = Field(False)
+    #: Save a model-only export (parameters and BatchNorm statistics) here
+    #: after training (``training.checkpoint.save_model``): the EMA
+    #: weights when ``ema_decay`` is on.
+    export_model_to: Optional[str] = Field(None)
+    #: The parameters' exponential moving average (0 = off): kept by the
+    #: step, scored by validation, shipped by ``export_model_to``.
+    ema_decay: float = Field(0.0)
+    #: "ignore", "skip" (a non-finite step keeps the pre-step state, on the
+    #: card; epochs report the summed ``skipped_steps``) or "halt" (skip,
+    #: then raise ``NonFiniteLossError`` at the next readback).
+    nan_policy: str = Field("ignore")
+    #: Rematerialization policy: "none", "dots", "full" or "quant"
+    #: (``training.step.make_train_step``).
+    remat: str = Field("none")
+    #: Keras ``EarlyStopping``: stop when this metric (of validation when
+    #: the dataset has a split, else of the train epoch) has not improved
+    #: by ``early_stop_min_delta`` for ``early_stop_patience`` scored
+    #: epochs. None disables.
+    early_stop_metric: Optional[str] = Field(None)
+    early_stop_patience: int = Field(3)
+    early_stop_min_delta: float = Field(0.0)
+    #: "auto" ("loss" in the name -> min, else max), "min" or "max".
+    early_stop_mode: str = Field("auto")
+    #: Print the quantization-aware parameter summary (``models.summary``,
+    #: read from a model built on the meta device) before training.
+    print_model_summary: bool = Field(False)
     #: Steps between progress lines; 0 = epoch lines only.
     log_every: int = Field(0)
     verbose: bool = Field(True)
@@ -110,34 +161,91 @@ class TrainingExperiment(Experiment):
 
     def build_state(self, device: torch.device) -> TrainState:
         """Build and initialize the module from ``seed`` on ``device``,
-        and the optimizer over the run's steps."""
+        the optimizer over the run's steps, and the EMA when on."""
         input_shape = self.loader.preprocessing.input_shape
         module = self.model.build(input_shape, self.num_classes)
         self.model.initialize(module, seed=self.seed)
         module.to(device)
         tx = self.optimizer.build(total_steps=max(1, self._steps_per_epoch() * self.epochs))
-        return TrainState.create(module, tx)
+        return TrainState.create(module, tx, ema=self.ema_decay > 0)
+
+    def _train_step_kwargs(self) -> Dict[str, Any]:
+        """The ``make_train_step`` wiring, which subclasses extend."""
+        return {
+            "loss_fn": smoothed_softmax_cross_entropy(self.label_smoothing),
+            "flip_ratio_pattern": BINARY_KERNEL_PATTERN if self.track_flip_ratio else None,
+            "ema_decay": self.ema_decay if self.ema_decay > 0 else None,
+            "remat": self.remat,
+            "nan_policy": self.nan_policy,
+        }
 
     def _train_step_fn(self):
-        return make_train_step(smoothed_softmax_cross_entropy(self.label_smoothing))
+        return make_train_step(**self._train_step_kwargs())
 
-    def run(self) -> Dict[str, List[Dict[str, float]]]:
+    def _validate_config(self) -> None:
+        if not 0.0 <= self.ema_decay < 1.0:
+            raise ValueError(
+                f"ema_decay={self.ema_decay} is outside [0, 1): 0 disables "
+                "EMA; 1.0 would freeze the average at initialization "
+                "forever (common typo for 0.999)."
+            )
+        if self.remat not in REMAT_POLICIES:
+            raise ValueError(f"remat={self.remat!r} unknown; choose none/dots/full/quant.")
+        if self.nan_policy not in NAN_POLICIES:
+            raise ValueError(f"nan_policy={self.nan_policy!r} unknown; choose ignore/skip/halt.")
+        if self.early_stop_mode not in ("auto", "min", "max"):
+            raise ValueError(
+                f"early_stop_mode={self.early_stop_mode!r} unknown; choose auto/min/max."
+            )
+        if self.validate_every < 1:
+            raise ValueError(
+                f"validate_every={self.validate_every} must be >= 1; "
+                "set validate=False to disable validation."
+            )
         if not 0.0 <= self.label_smoothing < 1.0:
             raise ValueError(f"label_smoothing={self.label_smoothing} outside [0, 1).")
         if self.track_top5 and self.num_classes < 5:
             raise ValueError(
                 f"track_top5=True needs >= 5 classes (dataset has {self.num_classes})."
             )
+
+    def _check_halt(self, host: Dict[str, float], global_step: int) -> None:
+        """``nan_policy="halt"``: raise when a step of the metrics just read
+        back was skipped."""
+        if self.nan_policy == "halt" and host.get("skipped_steps", 0.0) > 0:
+            raise NonFiniteLossError(global_step, int(host["skipped_steps"]))
+
+    def _print_summary(self) -> None:
+        from zookeeper_tpu_torch.models.summary import meta_module, model_summary
+
+        input_shape = self.loader.preprocessing.input_shape
+        dtype = self.loader.preprocessing.input_dtype
+        self._log(str(model_summary(
+            meta_module(self.model, input_shape, self.num_classes), input_shape,
+            input_dtype=getattr(torch, dtype) if isinstance(dtype, str) else dtype,
+        )))
+
+    def run(self) -> Dict[str, List[Dict[str, float]]]:
+        self._validate_config()
         device = resolve_device(self.device)
         self._log(pretty_print(self))
+        if self.print_model_summary:
+            self._print_summary()
         state = self.build_state(device)
         train_step = self._train_step_fn()
         eval_step = make_eval_step(
-            smoothed_softmax_cross_entropy(self.label_smoothing), top5=self.track_top5
+            smoothed_softmax_cross_entropy(self.label_smoothing),
+            use_ema=self.ema_decay > 0, top5=self.track_top5,
         )
         spe = self._steps_per_epoch()
         history: Dict[str, List[Dict[str, float]]] = {"train": [], "validation": []}
         has_val_split = self.validate and self.loader.dataset.validation() is not None
+        es_best: Optional[float] = None
+        es_stale = 0
+        es_minimize = self.early_stop_mode == "min" or (
+            self.early_stop_mode == "auto" and self.early_stop_metric is not None
+            and "loss" in self.early_stop_metric
+        )
         for epoch in range(self.epochs):
             t0 = time.perf_counter()
             accum: List[Dict[str, torch.Tensor]] = []
@@ -150,6 +258,7 @@ class TrainingExperiment(Experiment):
                     accum.append(metrics)
                     if self.log_every and (step_idx + 1) % self.log_every == 0:
                         row = _host_means([metrics])
+                        self._check_halt(row, epoch * spe + step_idx + 1)
                         self._log(
                             f"  step {step_idx + 1}/{spe} "
                             f"loss={row['loss']:.4f} acc={row['accuracy']:.4f}"
@@ -159,6 +268,7 @@ class TrainingExperiment(Experiment):
                 if close is not None:
                     close()
             epoch_metrics = _host_means(accum)  # the epoch's one readback
+            self._check_halt(epoch_metrics, epoch * spe + len(accum))
             dt = time.perf_counter() - t0
             epoch_metrics["examples_per_sec"] = (
                 len(accum) * self.loader.batch_size / dt if dt > 0 else 0.0
@@ -170,16 +280,123 @@ class TrainingExperiment(Experiment):
                 f"acc={epoch_metrics.get('accuracy', float('nan')):.4f} "
                 f"({epoch_metrics['examples_per_sec']:.0f} ex/s)"
             )
-            if has_val_split:
+            vmetrics = None
+            if has_val_split and (epoch + 1) % self.validate_every == 0:
                 vmetrics = run_weighted_eval(
                     self.loader, "validation", eval_step, state, device, epoch=epoch
-                )
-                if vmetrics:
+                ) or None
+                if vmetrics is not None:
                     history["validation"].append(vmetrics)
                     line += (
                         f" | val_loss={vmetrics.get('loss', float('nan')):.4f} "
                         f"val_acc={vmetrics.get('accuracy', float('nan')):.4f}"
                     )
             self._log(line)
+            # Scored: fresh validation when the dataset has a split, else
+            # the train epoch; None on an epoch that was not validated.
+            scored = vmetrics if has_val_split else epoch_metrics
+            if self.early_stop_metric is not None and scored is not None:
+                if self.early_stop_metric not in scored:
+                    raise ValueError(
+                        f"early_stop_metric={self.early_stop_metric!r} "
+                        f"not in epoch metrics {sorted(scored)}."
+                    )
+                current = float(scored[self.early_stop_metric])
+                improved = es_best is None or (
+                    es_best - current > self.early_stop_min_delta if es_minimize
+                    else current - es_best > self.early_stop_min_delta
+                )
+                if improved:
+                    es_best, es_stale = current, 0
+                else:
+                    es_stale += 1
+                    if es_stale >= self.early_stop_patience:
+                        self._log(
+                            f"early stop at epoch {epoch + 1}: "
+                            f"{self.early_stop_metric} has not improved "
+                            f"for {es_stale} scored epoch(s) (best {es_best:.6g})"
+                        )
+                        break
+        if self.export_model_to:
+            save_model(self.export_model_to, *export_trees(
+                state.module, state.ema_params if self.ema_decay > 0 else None))
         self.final_state = state
         return history
+
+
+@component
+class EvalExperiment(Experiment):
+    """Score a model-only export (``export_model_to``) on a dataset split.
+    The loader keeps the last partial batch (``drop_remainder=False``), so
+    the score covers every example of the split; ``split="train"`` reads
+    the training data in eval mode (no shuffle, no augmentation)."""
+
+    loader: DataLoader = ComponentField(DataLoader, drop_remainder=False)
+    model: Model = ComponentField()
+
+    #: The ``save_model`` export to score. A ``Checkpointer`` directory is
+    #: not ported yet (ROADMAP.md).
+    checkpoint: str = Field()
+    #: "auto" (the EMA when the checkpoint carries one), "ema" or "raw"
+    #: (``training.checkpoint.select_inference_weights``, shared with
+    #: serving, so eval scores what serving ships).
+    weights: str = Field("auto")
+    split: str = Field("validation")
+    batch_size: int = Field(32)
+    seed: int = Field(0)
+    verbose: bool = Field(True)
+    #: Also report top-5 accuracy.
+    track_top5: bool = Field(False)
+    #: LM metrics derived from the split's weighted-mean cross-entropy:
+    #: ``perplexity`` (e^CE) and ``bits_per_token`` (CE / ln 2).
+    track_lm_metrics: bool = Field(False)
+    #: Where the model runs: "cuda" (raises without a card) or "cpu".
+    device: str = Field("cuda")
+
+    @Field
+    def num_classes(self) -> int:
+        return int(self.loader.dataset.resolved_num_classes())
+
+    def build_state(self, device: torch.device) -> TrainState:
+        """The model built and loaded from ``checkpoint`` (its structure
+        checked against the build) on ``device``, as a state with no
+        optimizer."""
+        input_shape = self.loader.preprocessing.input_shape
+        module = self.model.build(input_shape, self.num_classes)
+        params_like, state_like = export_trees(module)
+        params, model_state = load_inference_model(
+            self.checkpoint, weights=self.weights,
+            params_like=params_like, model_state_like=state_like,
+        )
+        load_into_module(module, params, model_state).to(device)
+        return TrainState(step=0, module=module, tx=None, opt_state={})
+
+    def run(self) -> Dict[str, float]:
+        if self.weights not in ("auto", "ema", "raw"):
+            raise ValueError(f"weights={self.weights!r} unknown; choose auto/ema/raw.")
+        if self.split not in ("train", "validation"):
+            raise ValueError(
+                f"split={self.split!r} unknown; datasets here expose "
+                "'train' and 'validation'."
+            )
+        if self.track_top5 and self.num_classes < 5:
+            raise ValueError(
+                f"track_top5=True needs >= 5 classes (dataset has {self.num_classes})."
+            )
+        device = resolve_device(self.device)
+        if self.verbose:
+            print(pretty_print(self), flush=True)
+        state = self.build_state(device)
+        metrics = run_weighted_eval(
+            self.loader, self.split, make_eval_step(top5=self.track_top5), state, device
+        )
+        if not metrics:
+            raise ValueError(f"Split {self.split!r} produced no batches.")
+        if self.track_lm_metrics:
+            ce = metrics["loss"]
+            metrics["perplexity"] = math.exp(ce)
+            metrics["bits_per_token"] = ce / math.log(2.0)
+        if self.verbose:
+            line = " ".join(f"{k}={v:.4f}" for k, v in sorted(metrics.items()))
+            print(f"eval[{self.split}] {line}", flush=True)
+        return metrics

@@ -3,15 +3,18 @@
 The port of ``zookeeper_tpu/training/state.py``. In PyTorch the
 parameters and the model state (the BatchNorm running statistics) live
 in the ``nn.Module``; the optimizer state is a dict of tensors beside
-it. The train step updates all of them in place and advances ``step``,
-a host-side count, so reading it never waits on the card.
+it, and so is the parameter EMA when it is kept. The train step updates
+all of them in place and advances ``step``, a host-side count, so
+reading it never waits on the card.
 """
 
-from dataclasses import dataclass
-from typing import Any, Dict, Mapping
+from dataclasses import dataclass, field
+from typing import Any, Dict, Mapping, Optional
 
 import torch
 from torch import nn
+
+from zookeeper_tpu_torch.models.convert import flax_param_paths
 
 
 @dataclass
@@ -20,11 +23,21 @@ class TrainState:
     module: nn.Module
     tx: Any  # the built optimizer (``init``/``update``)
     opt_state: Dict[str, Any]
+    #: The exponential moving average of the parameters (None when EMA is
+    #: off), kept by the train step's ``ema_decay``, read by eval/export.
+    ema_params: Optional[Dict[str, torch.Tensor]] = None
+    #: ``{parameter name: flax path}`` (``models.convert.flax_param_paths``):
+    #: what Bop's split and the flip ratio match their patterns against.
+    flax_paths: Dict[str, str] = field(default_factory=dict)
 
     @classmethod
-    def create(cls, module: nn.Module, tx: Any) -> "TrainState":
-        state = cls(step=0, module=module, tx=tx, opt_state={})
-        state.opt_state = tx.init(state.params)
+    def create(cls, module: nn.Module, tx: Any, ema: bool = False) -> "TrainState":
+        state = cls(step=0, module=module, tx=tx, opt_state={},
+                    flax_paths=flax_param_paths(module))
+        params = state.params
+        state.opt_state = tx.init(params, state.flax_paths)
+        if ema:
+            state.ema_params = {n: p.detach().clone() for n, p in params.items()}
         return state
 
     @property
