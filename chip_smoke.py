@@ -230,12 +230,35 @@ CUDA card and ``nvcc``. In order:
    weights directly, images/s and p50/p99. K1 and K3 also at the
    student's 16 conv shapes of the batch-128 step, against their plain
    versions.
-16. One JSON line of the kernels (14 rows; K1, K3, K4, K6 and K7 also
+16. Checkpoint and resume (deterministic mode where bits are compared):
+   QuickNet-Large's TrainImageNet step (int8, packed residuals, batch
+   128, bf16) for 6 steps of one epoch, uninterrupted twice (their
+   spread); then saved every 2 steps and killed under
+   ``run_with_recovery``: mode sync with ``FaultPlan(kill_at_step=3)``
+   (Preempted once, steps 2 and 3 on disk, resumed at start_batch 3);
+   mode async with ``kill_during_async_write=4`` and the process dying
+   at step 5 (step 2 on disk beside step 4's remnant, resumed from step
+   2); mode async killed at step 3 (the preemption drains the writer).
+   Each ends equal to the uninterrupted run in every tensor (parameters,
+   statistics, Adam's moments and count, the step), K6, K7 and K8
+   launched 64, 32, 32 a step on both sides of the resume. Then the
+   checkpoint's bytes, the sync save, the async snapshot's stall on the
+   training thread and its write, the restore, and the step with async
+   saves every 2 steps against none. At a smaller depth the same for the
+   recipe student (RealToBinaryNet, one block a section: K1 and K3 4 a
+   step; Bop + Adam, EMA, flip ratio, ``nan_policy=skip`` with a NaN at
+   step counter 4, a seeded ResNet-50 teacher's export) and TrainLM (2
+   layers: K9-lse, K10, K11 2 a step); ``EvalExperiment`` and
+   ``ServingConfig`` on the recipe run's directory give the metrics and,
+   bit for bit, the logits of the same state's export (K1, K3 4 a
+   forward).
+17. One JSON line of the kernels (14 rows; K1, K3, K4, K6 and K7 also
    with their sums on Bi-Real-Net's path under ``bireal``; K1, K3 and K4
    under ``densenet`` and ``melius``, K1 and K3 under ``xnor_train`` per
    DenseNet training step, K2 under ``xnor_train`` per BinaryAlexNet
-   step, K1 and K3 under ``recipe`` per distillation step), then the
-   result line.
+   step, K1 and K3 under ``recipe`` per distillation step; K1, K3, K6-K11
+   under ``checkpoint``, their launches over the killed-and-resumed
+   runs), then the result line.
 """
 
 import contextlib
@@ -2209,6 +2232,431 @@ def recipe_phase(torch, bc, smi):
     return step_launches, stats
 
 
+#: The checkpoint phase: QuickNet-Large's TrainImageNet step as the
+#: training phase runs it (int8, packed residuals, batch 128, bf16: K6
+#: twice, K7 and K8 once in each of its 32 binary convs), one epoch of
+#: CKPT_STEPS steps saved every CKPT_EVERY steps, killed and resumed.
+CKPT_STEPS, CKPT_EVERY = 6, 2
+CKPT = {"model": "QuickNetLarge", "model.compute_dtype": "bfloat16",
+        "model.binary_compute": "int8", "model.pack_residuals": True,
+        "loader.dataset.num_train_examples": CKPT_STEPS * TRAIN_BATCH,
+        "batch_size": TRAIN_BATCH, "epochs": 1, "steps_per_epoch": CKPT_STEPS,
+        "validate": False, "seed": 0, "device": "cuda", "verbose": False}
+CKPT_PER_STEP = {name: n * sum(s[0] for s in SECTIONS) for name, n in RESID_PER_CONV.items()}
+#: Its smaller-depth legs: the recipe student (RealToBinaryNet with one
+#: block a section, K1 + K3 in its 4 binary convs, Bop + Adam, EMA, flip
+#: ratio, nan_policy=skip with a NaN at step counter CKPT_NAN) under a
+#: seeded ResNet-50 teacher's export, and TrainLM at 2 layers (K9-lse, K10,
+#: K11 2 each a step; ``checkpoint_phase`` cuts ``LM_TRAIN_CONFIG``).
+CKPT_NAN = 4
+CKPT_RECIPE = {**RECIPE, "model.blocks_per_section": (1, 1, 1, 1),
+               "loader.dataset.num_train_examples": CKPT_STEPS * TRAIN_BATCH,
+               "loader.dataset.num_validation_examples": TRAIN_BATCH,
+               "batch_size": TRAIN_BATCH, "epochs": 1, "steps_per_epoch": CKPT_STEPS,
+               "validate": False, "seed": 0, "device": "cuda", "verbose": False}
+
+
+class _ProcessDied(Exception):
+    """An injected crash at a step boundary: no preemption save, as when
+    the process is killed outright."""
+
+    def __init__(self, step: int):
+        self.step = step
+        super().__init__(f"injected crash at step {step}")
+
+
+def _flat_state(torch, state):
+    """Every tensor and count the next step reads, by name, copied to the
+    host: the module's parameters and statistics, the optimizer state
+    with its counts, the EMA and the step."""
+    out = {f"module {k}": v for k, v in state.module.state_dict().items()}
+
+    def walk(tree, prefix):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                walk(v, f"{prefix}{k}/")
+            else:
+                out[f"opt {prefix}{k}"] = v
+
+    walk(state.opt_state, "")
+    out.update({f"ema {k}": v for k, v in (state.ema_params or {}).items()})
+    out["step"] = state.step
+    return {k: (v.detach().to("cpu", copy=True) if isinstance(v, torch.Tensor)
+                else torch.tensor(int(v), dtype=torch.int64)) for k, v in out.items()}
+
+
+def _state_spread(torch, got, want):
+    """(tensors whose bits differ, largest difference) between two
+    ``_flat_state`` results."""
+    check(set(got) == set(want), f"checkpoint: state names differ: {sorted(set(got) ^ set(want))[:4]}")
+    bad = [k for k in want if not _same_bits(torch, got[k], want[k])]
+    return bad, max([_max_abs_err(torch, got[k], want[k]) for k in bad] or [0.0])
+
+
+def _kill_and_resume(torch, make, counters, names, directory, plan, crash_at=None, conf=None):
+    """``make(conf)`` checkpointing into ``directory`` every CKPT_EVERY
+    steps, run by ``run_with_recovery`` under ``plan``; ``crash_at`` raises
+    ``_ProcessDied`` at that step boundary of the first attempt. Returns
+    (experiment, result, attempts): per attempt the loader's start batches,
+    the kernels' launches (counts set to 0 just before it) and the steps
+    finalized on disk after it."""
+    from zookeeper_tpu_torch.data.pipeline import DataLoader
+    from zookeeper_tpu_torch.resilience import RECOVERABLE, faults, run_with_recovery
+    from zookeeper_tpu_torch.training import finalized_steps
+
+    exp = make({"checkpointer.directory": directory,
+                "checkpointer.save_every_steps": CKPT_EVERY, **(conf or {})})
+    attempts = []
+    real_run, real_check, real_batches = exp.run, exp._boundary_check, DataLoader.batches
+
+    def run():
+        for name in counters:
+            counters[name] = 0
+        attempts.append({"start_batches": []})
+        try:
+            return real_run()
+        finally:
+            torch.cuda.synchronize()
+            attempts[-1]["launches"] = {n: counters[n] for n in names}
+            attempts[-1]["finalized"] = finalized_steps(directory)
+            attempts[-1]["remnants"] = sorted(n for n in os.listdir(directory) if ".tmp-" in n)
+
+    def boundary(state, global_step):
+        if global_step == crash_at and len(attempts) == 1:
+            raise _ProcessDied(global_step)
+        return real_check(state, global_step)
+
+    def batches(loader, split="train", **kw):
+        if split == "train":
+            attempts[-1]["start_batches"].append(kw.get("start_batch", 0))
+        return real_batches(loader, split, **kw)
+
+    exp.run, exp._boundary_check = run, boundary
+    with faults.injected(plan), mock.patch.object(DataLoader, "batches", batches):
+        result = run_with_recovery(exp, backoff_s=0.0, sleep=lambda s: None,
+                                   recover_on=RECOVERABLE + (_ProcessDied,))
+    return exp, result, attempts
+
+
+def _resume_leg(torch, tag, make, counters, names, per_step, tmp, ref_plan_kw, legs):
+    """One model's kill-and-resume legs against its uninterrupted run: the
+    reference twice (its spread), then each leg ``(label, conf, plan
+    fields, crash_at, want_resume)`` killed and resumed, held to the
+    reference within that spread (bitwise when it is 0), with its launches
+    per attempt. Returns (reference experiment, stats, legs' results)."""
+    from zookeeper_tpu_torch.resilience import FaultPlan, faults
+
+    refs = []
+    for _ in range(2):
+        for name in counters:
+            counters[name] = 0
+        exp = make({})
+        with faults.injected(FaultPlan(**ref_plan_kw)):
+            exp.run()
+        torch.cuda.synchronize()
+        ref_launches = {n: counters[n] for n in names}
+        refs.append(_flat_state(torch, exp.final_state))
+        if len(refs) == 1:
+            del exp
+            torch.cuda.empty_cache()
+    want = {n: k * CKPT_STEPS for n, k in per_step.items()}
+    check(ref_launches == want, f"{tag}: the uninterrupted run launched {ref_launches}, want {want}")
+    bad, spread = _state_spread(torch, refs[1], refs[0])
+    print(f"{tag}: uninterrupted run twice, {len(refs[0])} tensors, {len(bad)} differ, "
+          f"spread {spread}", flush=True)
+    stats = {"tensors": len(refs[0]), "reference_spread": spread, "reference_differ": len(bad)}
+    results = {}
+    for label, conf, plan_kw, crash_at, want_resume in legs:
+        directory = os.path.join(tmp, f"{tag}-{label}".replace(" ", "-"))
+        got_exp, result, attempts = _kill_and_resume(
+            torch, make, counters, names, directory, FaultPlan(**ref_plan_kw, **plan_kw),
+            crash_at=crash_at, conf=conf)
+        check(result.restarts == 1 and len(attempts) == 2,
+              f"{tag} {label}: {result.restarts} restarts, causes {result.causes}")
+        cause = result.causes[0]
+        resumed_at = attempts[1]["start_batches"][0]
+        check(resumed_at == want_resume,
+              f"{tag} {label}: resumed at start_batch {resumed_at}, want {want_resume}")
+        first_steps = cause.step
+        for i, (a, n_steps) in enumerate(zip(attempts, (first_steps, CKPT_STEPS - resumed_at))):
+            want_a = {n: k * n_steps for n, k in per_step.items()}
+            check(a["launches"] == want_a,
+                  f"{tag} {label}: attempt {i + 1} launched {a['launches']}, want {want_a}")
+        bad, diff = _state_spread(torch, _flat_state(torch, got_exp.final_state), refs[0])
+        ok = not bad if spread == 0.0 else diff <= spread
+        check(ok, f"{tag} {label}: the resumed run differs from the uninterrupted one in "
+                  f"{len(bad)} of {len(refs[0])} tensors (largest {diff}, the reference's "
+                  f"spread {spread}), e.g. {bad[:4]}")
+        got_exp.checkpointer.close()
+        results[label] = {
+            "cause": type(cause).__name__, "stopped_at": cause.step, "directory": directory,
+            "finalized_after_kill": attempts[0]["finalized"],
+            "remnants_after_kill": attempts[0]["remnants"], "resumed_at_batch": resumed_at,
+            "launches_before": attempts[0]["launches"], "launches_after": attempts[1]["launches"],
+            "restore_ms": result.restore_ms, "save_wait_ms": result.save_wait_ms,
+            "skipped_steps": sum(e.get("skipped_steps", 0.0) for e in result.history["train"]),
+            "differ": len(bad), "max_abs_diff": diff, "experiment": got_exp,
+        }
+        print(f"{tag} {label}: {type(cause).__name__} at step {cause.step} (steps on disk "
+              f"{attempts[0]['finalized']}), resumed at start_batch {resumed_at}, launches "
+              f"{attempts[0]['launches']} before and {attempts[1]['launches']} after, restore "
+              f"{result.restore_ms} ms, save wait {result.save_wait_ms} ms; final state "
+              f"{'bit-identical to' if not bad else f'within {diff} of'} the uninterrupted "
+              f"run's ({len(refs[0])} tensors)", flush=True)
+    return exp, stats, results
+
+
+def checkpoint_phase(torch, bc, A, smi):
+    """The Checkpointer through its entry points on the card. QuickNet-Large
+    TrainImageNet at full width: (a) CKPT_STEPS steps uninterrupted (twice,
+    their spread); (b) saved every CKPT_EVERY steps, mode sync, killed by
+    ``FaultPlan(kill_at_step=3)`` under ``run_with_recovery``: Preempted
+    once, step 3 saved, resumed at start_batch 3; (c) mode async with
+    ``kill_during_async_write=4`` and the process dying at step 5: resumed
+    from step 2; (c2) mode async killed at step 3 (the preemption drains
+    the writer); each ends equal to (a) in every tensor, K6/K7/K8 launched
+    on both sides of the resume. Then the save's bytes and times, the
+    async snapshot's stall and write, the step with async saves against
+    none, and the restore. (d) the recipe student and TrainLM (2 layers)
+    killed and resumed the same way; (e) EvalExperiment and ServingConfig
+    on (d)'s recipe directory against the same state's export. Returns
+    (launches over each main path, stats)."""
+    import tempfile
+
+    import numpy as np
+
+    from zookeeper_tpu_torch.core import configure
+    from zookeeper_tpu_torch.models import ResNet50
+    from zookeeper_tpu_torch.serving import ServingConfig
+    from zookeeper_tpu_torch.training import Checkpointer, EvalExperiment, finalized_steps
+    from zookeeper_tpu_torch.training.checkpoint import STATE_FILE, export_trees, save_model
+    from zookeeper_tpu_torch.training.imagenet import DistillImageNet, TrainImageNet
+    from zookeeper_tpu_torch.training.lm import TrainLM
+
+    tag = "checkpoint"
+    dev = torch.device("cuda")
+    stats, launches = {}, {}
+
+    def quicknet(conf):
+        exp = TrainImageNet()
+        configure(exp, {**CKPT, **conf}, name="experiment")
+        return exp
+
+    with tempfile.TemporaryDirectory(prefix="zk_ckpt_") as tmp:
+        t0 = time.perf_counter()
+        with deterministic(torch):
+            ref, stats["quicknet"], legs = _resume_leg(
+                torch, tag, quicknet, bc.LAUNCHES, RESID_KERNELS, CKPT_PER_STEP, tmp, {}, [
+                    ("sync", {"checkpointer.mode": "sync"}, {"kill_at_step": 3}, None, 3),
+                    ("async", {"checkpointer.mode": "async"}, {"kill_during_async_write": 4},
+                     5, 2),
+                    ("async_preempted", {"checkpointer.mode": "async"}, {"kill_at_step": 3},
+                     None, 3),
+                ])
+        sync, asyn = legs["sync"], legs["async"]
+        check(sync["cause"] == "Preempted" and sync["stopped_at"] == 3
+              and sync["finalized_after_kill"] == [2, 3],
+              f"{tag} sync: stopped by {sync['cause']} at {sync['stopped_at']}, steps on disk "
+              f"{sync['finalized_after_kill']}, want Preempted at 3 with steps [2, 3]")
+        check(asyn["cause"] == "_ProcessDied" and asyn["finalized_after_kill"] == [2]
+              and any(n.startswith("4.tmp-") for n in asyn["remnants_after_kill"]),
+              f"{tag} async: steps on disk {asyn['finalized_after_kill']} and remnants "
+              f"{asyn['remnants_after_kill']} after the killed write, want [2] and step 4's")
+        for label, leg in legs.items():
+            launches[f"quicknet {label}"] = {
+                n: leg["launches_before"][n] + leg["launches_after"][n] for n in RESID_KERNELS}
+            stats["quicknet"][label] = {k: v for k, v in leg.items()
+                                        if k not in ("experiment", "directory")}
+        print(f"{tag}: QuickNet-Large legs in {time.perf_counter() - t0:.1f} s", flush=True)
+
+        # Save, snapshot, write and restore times on the final state, in the
+        # default settings.
+        state = ref.final_state
+        step_fn = ref._train_step_fn()
+        batches = ref.loader.batches("train", device=dev, epoch=0, max_batches=1)
+        batch = next(batches)
+        batches.close()
+        for name in list(legs):
+            legs[name].pop("experiment")
+        del legs
+        torch.cuda.empty_cache()
+
+        def checkpointer(name, **conf):
+            ck = Checkpointer()
+            configure(ck, {"directory": os.path.join(tmp, name), "max_to_keep": 2, **conf},
+                      name="checkpointer")
+            return ck
+
+        ck_sync, ck_async = checkpointer("timing-sync"), checkpointer("timing-async", mode="async")
+        sync_ms, stall_ms, write_ms = [], [], []
+        for i in range(3):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            ck_sync.save(state, step=100 + i)
+            sync_ms.append((time.perf_counter() - t1) * 1e3)
+            t1 = time.perf_counter()
+            ck_async.save(state, step=100 + i)
+            stall_ms.append((time.perf_counter() - t1) * 1e3)
+            ck_async.wait()
+            write_ms.append(ck_async._writer().stats["last_write_ms"])
+        nbytes = os.path.getsize(os.path.join(tmp, "timing-sync", "102", STATE_FILE))
+        t1 = time.perf_counter()
+        ck_sync.restore_state(state)
+        torch.cuda.synchronize()
+        restore_read_ms = (time.perf_counter() - t1) * 1e3
+
+        def steps(every, n=16):
+            """Per step over ``n`` steps with an async save every ``every``
+            steps (0: none): (device ms between events, host ms)."""
+            step_fn(state, batch)
+            torch.cuda.synchronize()
+            ck_async.wait()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            t1 = time.perf_counter()
+            start.record()
+            for i in range(n):
+                step_fn(state, batch)
+                if every and i % every == every - 1:
+                    ck_async.save(state, step=200 + state.step)
+            end.record()
+            end.synchronize()
+            wall = (time.perf_counter() - t1) * 1e3 / n
+            ck_async.wait()
+            return start.elapsed_time(end) / n, wall
+
+        # Every 2 steps the writer (one write ~ 5 steps) falls behind and the
+        # "wait" queue holds the training thread back; every 8 it keeps up,
+        # so only the snapshot and the writer's host time remain.
+        turns = {0: [], CKPT_EVERY: [], 8: []}
+        for every in (0, CKPT_EVERY, 8, 8, CKPT_EVERY, 0):
+            turns[every].append(steps(every))
+        ck_async.close()
+        step_stats = {}
+        for every, label in ((0, "no_saves"), (CKPT_EVERY, f"async_every_{CKPT_EVERY}"),
+                             (8, "async_every_8")):
+            step_stats[f"step_ms_{label}"] = statistics.median(t[0] for t in turns[every])
+            step_stats[f"step_wall_ms_{label}"] = statistics.median(t[1] for t in turns[every])
+        stats["quicknet"].update({
+            "checkpoint_bytes": nbytes, "sync_save_ms": sync_ms, "async_snapshot_stall_ms": stall_ms,
+            "async_write_ms": write_ms, "restore_read_ms": restore_read_ms, **step_stats,
+            "restore_ms_sync_leg": stats["quicknet"]["sync"]["restore_ms"],
+            "save_wait_ms_async_leg": stats["quicknet"]["async_preempted"]["save_wait_ms"],
+        })
+        print(f"{tag} timing on {smi}: {nbytes} B a step, sync save {sync_ms} ms, async "
+              f"snapshot stall {stall_ms} ms, write {write_ms} ms, restore (read + copy) "
+              f"{restore_read_ms:.1f} ms, {json.dumps(step_stats)}", flush=True)
+        del state, step_fn, batch, ref, ck_sync, ck_async
+        torch.cuda.empty_cache()
+
+        # (d) the recipe student under a seeded ResNet-50 teacher's export.
+        teacher_dir, student_dir = os.path.join(tmp, "teacher"), os.path.join(tmp, "student")
+        teacher = ResNet50()
+        configure(teacher, {"compute_dtype": "bfloat16"}, name="teacher")
+        module = teacher.build((224, 224, 3), 1000)
+        teacher.initialize(module, seed=0)
+        save_model(teacher_dir, *export_trees(module))
+        del module
+
+        def recipe(conf):
+            exp = DistillImageNet()
+            configure(exp, {**CKPT_RECIPE, "teacher_checkpoint": teacher_dir, **conf},
+                      name="distill")
+            return exp
+
+        t0 = time.perf_counter()
+        recipe_steps = {"pack_rows": 4, "conv_gemm_popcount": 4}
+        with deterministic(torch):
+            _, stats["recipe"], rlegs = _resume_leg(
+                torch, f"{tag} recipe", recipe, bc.LAUNCHES, tuple(recipe_steps), recipe_steps,
+                tmp, {"nan_at_step": CKPT_NAN}, [
+                    ("sync", {"export_model_to": student_dir}, {"kill_at_step": 3}, None, 3)])
+        leg = rlegs["sync"]
+        check(leg["skipped_steps"] == 1.0,
+              f"{tag} recipe: the resumed run skipped {leg['skipped_steps']} steps, want the "
+              f"NaN at step counter {CKPT_NAN}")
+        launches["recipe"] = {n: leg["launches_before"][n] + leg["launches_after"][n]
+                              for n in recipe_steps}
+        recipe_dir = leg.pop("directory")
+        final = leg.pop("experiment").final_state
+        stats["recipe"]["sync"] = leg
+        check(finalized_steps(recipe_dir)[-1] == final.step == CKPT_STEPS,
+              f"{tag} recipe: steps on disk {finalized_steps(recipe_dir)}")
+
+        # (e) EvalExperiment and ServingConfig on the run's directory against
+        # the same state's export.
+        model_conf = {"model": "RealToBinaryNet", "model.compute_dtype": "bfloat16",
+                      "model.binary_compute": "xnor_popcount",
+                      "model.blocks_per_section": (1, 1, 1, 1)}
+        scores = {}
+        for label, path in (("directory", recipe_dir), ("export", student_dir)):
+            ev = EvalExperiment()
+            configure(ev, {
+                "loader.dataset": "SyntheticImageNet",
+                "loader.dataset.num_train_examples": TRAIN_BATCH,
+                "loader.dataset.num_validation_examples": TRAIN_BATCH,
+                "loader.preprocessing": "ImageClassificationPreprocessing",
+                "loader.preprocessing.height": 224, "loader.preprocessing.width": 224,
+                "loader.preprocessing.channels": 3, **model_conf, "checkpoint": path,
+                "batch_size": TRAIN_BATCH, "seed": 0, "device": "cuda", "verbose": False,
+            }, name="evaluate")
+            with deterministic(torch):
+                scores[label] = ev.run()
+        check(scores["directory"] == scores["export"],
+              f"{tag} recipe: EvalExperiment on the directory {scores['directory']} differs "
+              f"from the export's {scores['export']}")
+        xb = np.random.default_rng(2).normal(size=(BATCH, 224, 224, 3)).astype(np.float32)
+        logits, served = {}, {}
+        for label, path in (("directory", recipe_dir), ("export", student_dir)):
+            cfg = ServingConfig()
+            configure(cfg, {**model_conf, **IMAGENET, "checkpoint": path,
+                            "engine.batch_buckets": (1, BATCH), "seed": 0, "device": "cuda",
+                            "verbose": False}, name="serving")
+            engine, batcher = cfg.build_service()
+            bc.reset_launches()
+            with deterministic(torch):
+                logits[label] = engine.infer(xb)
+                torch.cuda.synchronize()
+            served[label] = {k: v for k, v in bc.LAUNCHES.items() if v}
+            batcher.close()
+            del cfg, engine
+        check(served["directory"] == served["export"] == recipe_steps
+              and bool(torch.isfinite(logits["directory"]).all())
+              and _same_bits(torch, logits["directory"], logits["export"]),
+              f"{tag} recipe: served logits from the directory differ from the export's "
+              f"(launches {served})")
+        stats["recipe"].update({"eval": scores["directory"], "serving_launches": served["directory"]})
+        print(f"{tag} recipe: EvalExperiment on the directory equals the export's "
+              f"{json.dumps(scores['directory'])}; ServingConfig on the directory serves the "
+              f"export's logits bit for bit, launches {served['directory']} a forward; legs "
+              f"in {time.perf_counter() - t0:.1f} s", flush=True)
+        del final
+        torch.cuda.empty_cache()
+
+        # (d) TrainLM at 2 layers.
+        def lm(conf):
+            exp = TrainLM()
+            configure(exp, {**LM_TRAIN_CONFIG, "model.num_layers": 2,
+                            "steps_per_epoch": CKPT_STEPS, "validate": False, **conf},
+                      name="experiment")
+            return exp
+
+        t0 = time.perf_counter()
+        lm_steps = dict.fromkeys(LM_TRAIN_KERNELS, 2)
+        with deterministic(torch):
+            _, stats["lm"], llegs = _resume_leg(
+                torch, f"{tag} lm", lm, A.LAUNCHES, LM_TRAIN_KERNELS, lm_steps, tmp, {}, [
+                    ("sync", {}, {"kill_at_step": 3}, None, 3)])
+        leg = llegs["sync"]
+        leg.pop("experiment"), leg.pop("directory")
+        launches["lm"] = {n: leg["launches_before"][n] + leg["launches_after"][n]
+                          for n in LM_TRAIN_KERNELS}
+        stats["lm"]["sync"] = leg
+        print(f"{tag} lm: legs in {time.perf_counter() - t0:.1f} s", flush=True)
+    torch.cuda.empty_cache()
+    print(f"{tag} on {smi}: {json.dumps(stats)}", flush=True)
+    return launches, stats
+
+
 def dense_profile_phase(smi):
     """profile_forward of each dense slice's deployment: the device time
     of a batch-8 forward and the device's busy share."""
@@ -3414,6 +3862,19 @@ def main() -> None:
     lm_wide_phase(torch, A, smi)
     recipe_kernels = recipe_kernel_phase(torch, bc)
     launches_rt, recipe = recipe_phase(torch, bc, smi)
+    launches_ck, _ = checkpoint_phase(torch, bc, A, smi)
+    # Each kernel's launches over the killed-and-resumed runs (both
+    # attempts of each).
+    checkpoint_rows = {name: {"path": "TrainImageNet QuickNet-Large, 6 steps killed and "
+                                      "resumed: sync, async (write killed), async preempted",
+                              **{f"launches_{leg}": launches_ck[f"quicknet {leg}"][name]
+                                 for leg in ("sync", "async", "async_preempted")}}
+                       for name in RESID_KERNELS}
+    checkpoint_rows.update({name: {"path": "DistillImageNet student (one block a section), 6 "
+                                           "steps killed at 3 and resumed",
+                                   "launches": n} for name, n in launches_ck["recipe"].items()})
+    checkpoint_rows.update({name: {"path": "TrainLM 2 layers, 6 steps killed at 3 and resumed",
+                                   "launches": n} for name, n in launches_ck["lm"].items()})
 
     # Each kernel's launches on its main path: K1 and K3 serving slice A,
     # K4 slice B, K2 slice C, K5 slice E, K6-K8 the training step.
@@ -3490,6 +3951,8 @@ def main() -> None:
                 "launches": launches_rt[name],
                 "step_ms": recipe["step_ms"], "step_busy_share": recipe["device_busy_share"],
             }
+        if name in checkpoint_rows:
+            rows[-1]["checkpoint"] = checkpoint_rows[name]
         if name in ("mask_mul_resid", "xnor_matmul_packed_scaled"):
             # K8 has no work on Bi-Real's step; K2 runs in XNORNet's dense stage.
             rows[-1]["zoo_launches"] = (launches_bt[name] if name == "mask_mul_resid"
@@ -3556,6 +4019,7 @@ def main() -> None:
         variant_of = (A.flash_forward_variant if name == "flash_forward_lse"
                       else A.flash_backward_variant)
         rows[-1]["variant"] = variant_of(torch.bfloat16, LM_TRAIN_SHAPE[3])
+        rows[-1]["checkpoint"] = checkpoint_rows[name]
     print(smi, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({

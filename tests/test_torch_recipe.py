@@ -10,8 +10,8 @@ the EMA, the flip ratio), score and serve the student's export.
   less than the tolerance), eval metrics within 1e-3.
 - The export holds JAX's ``save_model`` tree: the same flax paths, shapes
   and dtypes; a mismatched model raises the structure ``ValueError``, an
-  empty path ``CheckpointUnreadableError``, a ``Checkpointer`` directory
-  ``NotImplementedError``.
+  empty path or a ``Checkpointer`` directory whose latest step holds no
+  state ``CheckpointUnreadableError``.
 - ``select_inference_weights`` answers as JAX's in all three modes; the
   train-state converter carries the EMA and Bop's, Momentum's and
   ``MultiSteps``' state both ways, leaf for leaf.
@@ -304,7 +304,7 @@ def test_mismatched_and_unreadable_checkpoints_raise(tmp_path):
         with pytest.raises(CheckpointUnreadableError):
             load_model(str(path), {}, {})
     (tmp_path / "run" / "100").mkdir(parents=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(CheckpointUnreadableError):
         load_model(str(tmp_path / "run"), {}, {})
 
 

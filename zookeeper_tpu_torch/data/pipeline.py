@@ -47,15 +47,28 @@ def batch_iterator(
     epoch: int = 0,
     drop_remainder: bool = True,
     num_workers: int = 0,
+    start_batch: int = 0,
 ) -> Iterator[Batch]:
     """Yield batches of stacked numpy arrays from ``source``, in the
-    (seed, epoch)-fixed permutation."""
+    (seed, epoch)-fixed permutation.
+
+    ``start_batch`` skips the first k batches of the epoch without
+    fetching them: the permutation is fixed by (seed, epoch), so batch k
+    onward is the uninterrupted epoch's, the mid-epoch resume of a step
+    checkpoint (``step % steps_per_epoch == k``)."""
     n = len(source)
     num_batches = n // batch_size if drop_remainder else -(-n // batch_size)
     if training and n > 0 and num_batches == 0:
         raise ValueError(
             f"Train split has {n} examples but the batch is {batch_size} "
             "with drop_remainder: every epoch would yield zero batches."
+        )
+    if start_batch < 0 or (start_batch > 0 and start_batch >= num_batches):
+        # A resume point past the epoch's end would yield an empty epoch
+        # forever; an epoch-boundary resume starts the next epoch at 0.
+        raise ValueError(
+            f"start_batch={start_batch} outside [0, {num_batches}) "
+            f"(the epoch has {num_batches} batches)"
         )
     if n == 0:
         return
@@ -82,7 +95,7 @@ def batch_iterator(
         else None
     )
     try:
-        for b in range(num_batches):
+        for b in range(start_batch, num_batches):
             indices = range(b * batch_size, min((b + 1) * batch_size, n))
             if pool is not None:
                 examples = list(pool.map(fetch, indices))
@@ -202,9 +215,11 @@ class DataLoader:
         *,
         epoch: int = 0,
         training: Optional[bool] = None,
+        start_batch: int = 0,
     ) -> Iterator[Batch]:
-        """The split's numpy batches. ``training=None`` infers train-mode
-        behaviour (shuffle, augment, drop-remainder) from the split."""
+        """The split's numpy batches from batch ``start_batch`` of the
+        epoch on. ``training=None`` infers train-mode behaviour (shuffle,
+        augment, drop-remainder) from the split."""
         if training is None:
             training = split == "train"
         source = self._source(split)
@@ -220,6 +235,7 @@ class DataLoader:
             epoch=epoch,
             drop_remainder=self.drop_remainder or training,
             num_workers=self.num_workers,
+            start_batch=start_batch,
         )
 
     def batches(
@@ -229,13 +245,18 @@ class DataLoader:
         device: Any = "cuda",
         epoch: int = 0,
         training: Optional[bool] = None,
+        start_batch: int = 0,
         max_batches: Optional[int] = None,
     ) -> Iterator[Dict[str, torch.Tensor]]:
-        """The split's batches as tensors on ``device``, at most
-        ``max_batches`` of them, through :func:`prefetch_to_device`."""
-        it = self.host_batches(split, epoch=epoch, training=training)
+        """The split's batches as tensors on ``device`` through
+        :func:`prefetch_to_device`, from batch ``start_batch`` of the
+        epoch (:func:`batch_iterator`) up to, not including, batch
+        ``max_batches``: the cap counts from the epoch's start, as the
+        training loop's ``steps_per_epoch`` cutoff does, so a resumed
+        epoch ends where the uninterrupted one does."""
+        it = self.host_batches(split, epoch=epoch, training=training, start_batch=start_batch)
         if max_batches is not None:
-            it = itertools.islice(it, max_batches)
+            it = itertools.islice(it, max(0, max_batches - start_batch))
         return prefetch_to_device(it, device)
 
     def steps_per_epoch(self, split: str = "train") -> int:

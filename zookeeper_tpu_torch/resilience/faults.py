@@ -1,12 +1,64 @@
-"""The port of ``zookeeper_tpu/resilience/faults.py``'s
-``NonFiniteLossError``. ``FaultPlan`` (fault injection) is not ported yet
-(ROADMAP.md)."""
+"""Deterministic, process-local fault injection, and the errors a run
+raises when it must stop.
+
+The port of ``zookeeper_tpu/resilience/faults.py``'s training legs: a
+test installs a :class:`FaultPlan` naming which fault fires where
+(``kill_at_step=N``, ``corrupt_checkpoint_step=M``, ``fail_save_io=1``,
+``nan_at_step=K``, ``fail_async_finalize=1``,
+``kill_during_async_write=S``), runs the real system and checks the
+recovery, e.g. that the recovered training state equals an
+uninterrupted run's bit for bit. The hooks live in the production code
+paths (the experiment's boundary check, the checkpointer's write path,
+the async writer, ``make_train_step``); with no plan installed each is
+one ``None`` check.
+
+- Faults key on logical coordinates (the global step, the N-th save
+  attempt), never on the clock: two runs of one plan fire the same
+  faults at the same points.
+- One-shot faults consume themselves (under a lock: the async writer
+  thread reads the plan too), so the retry of a faulted operation
+  succeeds and the recovery completes.
+- ``nan_at_step`` is read once, when ``make_train_step`` builds the step:
+  the step whose counter (the host ``state.step`` before it) equals it
+  computes a NaN loss, which the ``nan_policy`` then handles.
+
+The serving legs (worker and decode crashes, disaggregation, the fleet)
+and the multi-host legs (``kill_process_at_step``, ``fail_host_finalize``,
+``coordinator_loss``) are not ported yet (ROADMAP.md).
+"""
+
+import contextlib
+import os
+import threading
+from dataclasses import dataclass, field
+from typing import Iterator, Optional
+
+
+class Preempted(Exception):
+    """Training exited at a safe boundary after a preemption request
+    (SIGTERM/SIGINT or an injected kill). The state as of ``step`` has
+    been checkpointed when a checkpoint directory was configured; a
+    supervisor (``run_with_recovery``) resumes from it, except for a
+    SIGINT exit (``signum``), which is the operator stopping the job."""
+
+    def __init__(self, step: int, saved: bool, signum: Optional[int] = None):
+        self.step = int(step)
+        self.saved = bool(saved)
+        #: The signal that caused the exit (None = injected/programmatic).
+        self.signum = signum
+        super().__init__(
+            f"preempted at step {step} "
+            f"({'checkpoint saved' if saved else 'no checkpoint configured'}"
+            + (f", signal {signum}" if signum is not None else "")
+            + ")"
+        )
 
 
 class NonFiniteLossError(RuntimeError):
     """``nan_policy="halt"``: a non-finite training loss reached a host
     readback boundary. The in-memory state skipped the bad step(s), but
-    the run refuses to continue."""
+    the run refuses to continue; a supervisor restores from the last
+    checkpoint."""
 
     def __init__(self, step: int, skipped: int):
         self.step = int(step)
@@ -15,3 +67,153 @@ class NonFiniteLossError(RuntimeError):
             f"non-finite training loss detected by step {step} "
             f"({skipped} step(s) skipped); halting per nan_policy='halt'"
         )
+
+
+class InjectedFault(OSError):
+    """The error of plan-driven IO faults: an ``OSError``, so the retry
+    paths treat it as the disk failures it stands in for."""
+
+
+@dataclass
+class FaultPlan:
+    """One deterministic schedule of faults; every field defaults to
+    "never fire".
+
+    - ``kill_at_step``: request preemption at the first safe boundary
+      whose global step is ``>= kill_at_step`` (one-shot: the recovery
+      run is not killed again).
+    - ``corrupt_checkpoint_step``: after the save of this step lands,
+      tear its files on disk so that restore finds it unreadable.
+    - ``fail_save_io``: the next N checkpoint save attempts raise
+      :class:`InjectedFault` (1 = once: the retry succeeds).
+    - ``nan_at_step``: the train step whose counter equals this computes
+      a NaN loss (read when the step is built).
+    - ``fail_async_finalize``: the next N async writes fail at the
+      finalize: the data is written under its temporary name and never
+      renamed, leaving an unfinalized remnant, and the write reports
+      failure to the writer's retries (1 = once).
+    - ``kill_during_async_write``: the async write of this step dies
+      mid-write (one-shot): a torn unfinalized remnant is left and the
+      write is abandoned, with no retry and no error to training, as
+      when the process is killed while the writer thread saves.
+    """
+
+    kill_at_step: Optional[int] = None
+    corrupt_checkpoint_step: Optional[int] = None
+    fail_save_io: int = 0
+    nan_at_step: Optional[int] = None
+    fail_async_finalize: int = 0
+    kill_during_async_write: Optional[int] = None
+
+    _lock: threading.Lock = field(default_factory=threading.Lock, repr=False, compare=False)
+    _killed: bool = field(default=False, repr=False, compare=False)
+    _corrupted: bool = field(default=False, repr=False, compare=False)
+    _async_killed: bool = field(default=False, repr=False, compare=False)
+
+    def kill_due(self, step: int) -> bool:
+        """One-shot: True at the first query with ``step >=
+        kill_at_step`` (queried at step boundaries)."""
+        if self.kill_at_step is None:
+            return False
+        with self._lock:
+            if not self._killed and int(step) >= int(self.kill_at_step):
+                self._killed = True
+                return True
+        return False
+
+    def take_save_io_failure(self) -> bool:
+        """Consume one injected save-IO failure (False when exhausted)."""
+        with self._lock:
+            if self.fail_save_io > 0:
+                self.fail_save_io -= 1
+                return True
+        return False
+
+    def take_async_finalize_failure(self) -> bool:
+        """Consume one injected async-finalize failure (False when
+        exhausted)."""
+        with self._lock:
+            if self.fail_async_finalize > 0:
+                self.fail_async_finalize -= 1
+                return True
+        return False
+
+    def async_kill_due(self, step: int) -> bool:
+        """One-shot: True when the async write of ``step`` should die
+        mid-write."""
+        if self.kill_during_async_write is None:
+            return False
+        with self._lock:
+            if not self._async_killed and int(step) == self.kill_during_async_write:
+                self._async_killed = True
+                return True
+        return False
+
+    def corrupt_due(self, step: int) -> bool:
+        """One-shot: True when ``step``'s just-landed save should be torn
+        on disk."""
+        if self.corrupt_checkpoint_step is None:
+            return False
+        with self._lock:
+            if not self._corrupted and int(step) == self.corrupt_checkpoint_step:
+                self._corrupted = True
+                return True
+        return False
+
+
+def corrupt_checkpoint_dir(path: str) -> int:
+    """Tear a checkpoint on disk the same way every time: each regular
+    file under ``path`` is truncated to half and its head overwritten
+    with a fixed pattern, the shape a torn write leaves. Returns the
+    number of files damaged (0: ``path`` held nothing to corrupt)."""
+    damaged = 0
+    pattern = b"\xde\xad\xbe\xef" * 16
+    for root, _, files in os.walk(path):
+        for name in files:
+            fpath = os.path.join(root, name)
+            try:
+                size = os.path.getsize(fpath)
+            except OSError:
+                continue
+            with open(fpath, "r+b" if size else "wb") as f:
+                f.truncate(size // 2)
+                f.seek(0)
+                f.write(pattern[: max(1, min(len(pattern), size // 2 or 1))])
+            damaged += 1
+    return damaged
+
+
+# -- process-local activation -------------------------------------------
+
+_ACTIVE: Optional[FaultPlan] = None
+
+
+def install(plan: FaultPlan) -> FaultPlan:
+    """Make ``plan`` the process's active plan (replacing any other)."""
+    global _ACTIVE
+    _ACTIVE = plan
+    return plan
+
+
+def clear() -> None:
+    """Deactivate fault injection."""
+    global _ACTIVE
+    _ACTIVE = None
+
+
+def active() -> Optional[FaultPlan]:
+    """The active plan, or None."""
+    return _ACTIVE
+
+
+@contextlib.contextmanager
+def injected(plan: FaultPlan) -> Iterator[FaultPlan]:
+    """``with injected(FaultPlan(...)) as plan:``: scoped activation that
+    restores the previous plan (scopes nest)."""
+    global _ACTIVE
+    prev = _ACTIVE
+    _ACTIVE = plan
+    try:
+        yield plan
+    finally:
+        _ACTIVE = prev

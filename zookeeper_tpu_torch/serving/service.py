@@ -8,15 +8,16 @@ The port of ``zookeeper_tpu/serving/service.py``'s ``ServingConfig``, a
         model.packed_weights=True model.fold_bn=True
 
 ``build_service()`` builds the model, loads its weights from
-``checkpoint`` (a model-only export, ``training.checkpoint``: the EMA or
-the raw weights as ``weights`` picks them, the tree checked against the
-built model's structure) or initializes them from ``seed`` (a packed
+``checkpoint`` (a model-only export or a training run's ``Checkpointer``
+directory, ``training.checkpoint``: the EMA or the raw weights as
+``weights`` picks them, the tree checked against the built model's
+structure) or initializes them from ``seed`` (a packed
 model gets the packed form of its float twin, see
 ``QuickNet.initialize``), binds and warms the engine on ``device`` and
 binds the batcher. ``run()`` serves a seeded stream of variable-size
 synthetic requests and prints one JSON line of serving metrics. The
 JAX service's ``watch`` (hot swaps from a live ``Checkpointer``
-directory) is not ported yet (ROADMAP.md).
+directory) is not ported yet (ROADMAP.md): ``watch=True`` raises.
 """
 
 import json
@@ -43,8 +44,9 @@ class ServingConfig:
     batcher: MicroBatcher = ComponentField(MicroBatcher)
     metrics: ServingMetrics = ComponentField(ServingMetrics)
 
-    #: The deployment artifact: a ``save_model`` export. None serves
-    #: weights initialized from ``seed``.
+    #: The deployment artifact: a ``save_model`` export or a
+    #: ``Checkpointer`` directory (its latest step). None serves weights
+    #: initialized from ``seed``.
     checkpoint: Optional[str] = Field(None)
     #: "auto" serves the EMA when the checkpoint carries one, "ema"
     #: requires it, "raw" the training parameters
@@ -62,6 +64,9 @@ class ServingConfig:
     device: str = Field("cuda")
     #: Run every bucket once before serving.
     warmup: bool = Field(True)
+    #: Hot-swap each newly finalized step of a live ``Checkpointer``
+    #: directory into the engine: not ported yet, True raises.
+    watch: bool = Field(False)
     #: ``run()``'s stream: how many requests, and the largest request.
     requests: int = Field(64)
     max_request: int = Field(8)
@@ -80,6 +85,12 @@ class ServingConfig:
             raise ValueError(
                 f"requests={self.requests} must be >= 0 and "
                 f"max_request={self.max_request} >= 1."
+            )
+        if self.watch:
+            raise NotImplementedError(
+                "ServingConfig.watch (hot swaps of a live Checkpointer "
+                "directory's new steps) is not in the PyTorch port yet; it "
+                "is queued in ROADMAP.md (Queue 1 item 4)."
             )
         module = self.model.build(self.input_shape, self.num_classes)
         if self.checkpoint:

@@ -1,9 +1,12 @@
 """Training: state, schedules, optimizers, steps, the experiment loop,
-distillation and the model-only export."""
+distillation, checkpoint and resume, and the model-only export."""
 
 from zookeeper_tpu_torch.ops.layers import BINARY_KERNEL_PATTERN
+from zookeeper_tpu_torch.training.async_checkpoint import AsyncCheckpointWriter
 from zookeeper_tpu_torch.training.checkpoint import (
+    Checkpointer,
     CheckpointUnreadableError,
+    finalized_steps,
     load_exported_model,
     load_inference_model,
     load_model,
@@ -40,6 +43,7 @@ from zookeeper_tpu_torch.training.schedule import (
 from zookeeper_tpu_torch.training.state import TrainState
 from zookeeper_tpu_torch.training.step import (
     accuracy,
+    host_snapshot,
     kd_divergence,
     make_eval_step,
     make_train_step,
@@ -51,9 +55,11 @@ from zookeeper_tpu_torch.training.step import (
 __all__ = [
     "Adam",
     "AdamW",
+    "AsyncCheckpointWriter",
     "BINARY_KERNEL_PATTERN",
     "Bop",
     "CheckpointUnreadableError",
+    "Checkpointer",
     "ConstantSchedule",
     "CosineDecay",
     "DistillationExperiment",
@@ -73,6 +79,8 @@ __all__ = [
     "TrainingExperiment",
     "WarmupCosine",
     "accuracy",
+    "finalized_steps",
+    "host_snapshot",
     "kd_divergence",
     "load_exported_model",
     "load_inference_model",

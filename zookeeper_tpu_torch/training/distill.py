@@ -37,7 +37,8 @@ class DistillationExperiment(TrainingExperiment):
     """``TrainingExperiment`` plus a frozen teacher's distillation loss.
     The teacher runs on the student's device, in eval mode (running
     statistics, never updated), in its own compute dtype, under
-    ``torch.no_grad()``."""
+    ``torch.no_grad()``. It is loaded from its export on every run (a
+    resumed run too) and is never part of the student's checkpoint."""
 
     teacher: Model = ComponentField()
     #: The teacher's model-only export. None trains against a random

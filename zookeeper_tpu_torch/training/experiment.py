@@ -15,12 +15,22 @@ step metrics. ``run()`` returns ``{"train": [...], "validation":
 loop's: the flip ratio, the parameter EMA (validation and the export
 use it), ``nan_policy``, ``remat``, ``validate_every``, early stopping,
 the model summary and ``export_model_to`` (a model-only export,
-``training.checkpoint``). The ``Checkpointer`` and resume, partitioners
-and multi-GPU, multi-step slabs, metrics writers, profiling and
+``training.checkpoint``).
+
+Checkpoint and resume: ``checkpointer`` saves the state on a step and
+epoch cadence, and a rerun restores the newest restorable step before
+its first step and replays the (seed, epoch)-fixed pipeline from
+``step % steps_per_epoch``, an exact mid-epoch resume. ``guard`` turns
+SIGTERM/SIGINT (or a ``FaultPlan`` kill) into one synchronous save at the
+next step boundary and a ``Preempted`` exit, which
+``resilience.run_with_recovery`` resumes from. Partitioners and
+multi-GPU, multi-step slabs, metrics writers, profiling and
 observability are not ported yet (ROADMAP.md).
 """
 
+import logging
 import math
+import sys
 import time
 from typing import Any, Dict, List, Optional
 
@@ -31,8 +41,11 @@ from zookeeper_tpu_torch.data.pipeline import DataLoader
 from zookeeper_tpu_torch.models.base import Model
 from zookeeper_tpu_torch.ops.device import resolve_device
 from zookeeper_tpu_torch.ops.layers import BINARY_KERNEL_PATTERN
-from zookeeper_tpu_torch.resilience.faults import NonFiniteLossError
+from zookeeper_tpu_torch.resilience import faults
+from zookeeper_tpu_torch.resilience.faults import NonFiniteLossError, Preempted
+from zookeeper_tpu_torch.resilience.guard import PreemptionGuard
 from zookeeper_tpu_torch.training.checkpoint import (
+    Checkpointer,
     export_trees,
     load_inference_model,
     load_into_module,
@@ -47,6 +60,8 @@ from zookeeper_tpu_torch.training.step import (
     make_train_step,
     smoothed_softmax_cross_entropy,
 )
+
+logger = logging.getLogger(__name__)
 
 
 @component
@@ -94,6 +109,12 @@ class TrainingExperiment(Experiment):
     loader: DataLoader = ComponentField(DataLoader)
     model: Model = ComponentField()
     optimizer: Optimizer = ComponentField(Adam)
+    checkpointer: Checkpointer = ComponentField(Checkpointer)
+    #: Preemption safety: while training runs, SIGTERM/SIGINT set a flag
+    #: checked at each step boundary; the loop then saves once,
+    #: synchronously, and raises ``Preempted``. ``guard.enabled=False``
+    #: keeps the signals' default effect.
+    guard: PreemptionGuard = ComponentField(PreemptionGuard)
 
     epochs: int = Field(1)
     batch_size: int = Field(32)
@@ -208,6 +229,77 @@ class TrainingExperiment(Experiment):
             raise ValueError(
                 f"track_top5=True needs >= 5 classes (dataset has {self.num_classes})."
             )
+        ck = self.checkpointer
+        if ck.save_every_epochs < 0 or ck.save_every_steps < 0:
+            raise ValueError(
+                "checkpointer.save_every_epochs/save_every_steps must be "
+                ">= 0 (0 disables that cadence)."
+            )
+        ck._validate_mode()
+        if ck.save_every_steps > 0 and ck.keep_best_metric is not None:
+            raise ValueError(
+                "checkpointer.save_every_steps is incompatible with "
+                "keep_best_metric: mid-epoch saves carry no fresh "
+                "rankable metrics (best-ranking pins every save to a "
+                "metric). Use one or the other."
+            )
+
+    def _step_save_due(self, epoch: int, step_idx: int, spe: int) -> bool:
+        """Whether the step-cadence save fires after this step. On an
+        epoch's last step it defers to the epoch save only when that one
+        fires this epoch (one step is never saved twice); otherwise the
+        cadence holds, so the work lost stays bounded by N steps."""
+        ck = self.checkpointer
+        if not (ck.enabled and ck.save_every_steps > 0):
+            return False
+        if (epoch * spe + step_idx + 1) % ck.save_every_steps != 0:
+            return False
+        epoch_save_fires = ck.save_every_epochs > 0 and (epoch + 1) % ck.save_every_epochs == 0
+        return step_idx + 1 < spe or not epoch_save_fires
+
+    def _mark_first_step(self, metrics: Dict[str, torch.Tensor]) -> None:
+        """Time the end of this run's first train step (one readback, once
+        a run, and only with a checkpointer, the one way a run resumes):
+        ``run_with_recovery`` reads it as the restore latency."""
+        if self.first_step_at is None and self.checkpointer.enabled:
+            float(metrics["loss"])
+            self.first_step_at = time.perf_counter()
+
+    def _boundary_check(self, state: TrainState, global_step: int) -> None:
+        """Preemption check at a step boundary, where ``state`` is an exact
+        resume point. A ``FaultPlan``'s ``kill_at_step`` trips the flag a
+        real SIGTERM does. On preemption: the guard's one synchronous
+        save, then ``Preempted`` (teardown still runs)."""
+        plan = faults.active()
+        if plan is not None and plan.kill_due(global_step):
+            self.guard.request_preemption()
+        if not self.guard.preempted:
+            return
+        saved, self.save_wait_ms = self.guard.preemption_save(
+            self.checkpointer, state, global_step)
+        self._log(
+            f"preemption requested (signal "
+            f"{self.guard.received_signal or 'injected/manual'}); exiting at "
+            f"step {global_step} ({'checkpoint saved' if saved else 'NO checkpoint'})"
+        )
+        raise Preempted(global_step, saved, self.guard.received_signal)
+
+    def _teardown(self) -> None:
+        """Uninstall the guard and wait on the checkpoint writer. A
+        teardown failure while an exception is already in flight is
+        logged and suppressed, so the original error propagates; with
+        none in flight it propagates."""
+        self.guard.uninstall()
+        pending = sys.exc_info()[1]
+        try:
+            self.checkpointer.wait()
+        except Exception as e:
+            if pending is None:
+                raise
+            logger.warning(
+                "teardown checkpointer.wait failed (%s); suppressed so the "
+                "original exception propagates", e,
+            )
 
     def _check_halt(self, host: Dict[str, float], global_step: int) -> None:
         """``nan_policy="halt"``: raise when a step of the metrics just read
@@ -231,13 +323,39 @@ class TrainingExperiment(Experiment):
         self._log(pretty_print(self))
         if self.print_model_summary:
             self._print_summary()
-        state = self.build_state(device)
+        # Per-run probes read by run_with_recovery.
+        self.first_step_at = None
+        self.save_wait_ms = None
+        try:
+            state = self.checkpointer.restore_state(self.build_state(device))
+            state, history = self._train(state, device)
+        finally:
+            self._teardown()
+        if self.export_model_to:
+            save_model(self.export_model_to, *export_trees(
+                state.module, state.ema_params if self.ema_decay > 0 else None))
+        self.final_state = state
+        return history
+
+    def _train(self, state: TrainState, device: torch.device):
+        """The epochs from the restored ``state``; returns ``(state,
+        history)``."""
         train_step = self._train_step_fn()
         eval_step = make_eval_step(
             smoothed_softmax_cross_entropy(self.label_smoothing),
             use_ema=self.ema_decay > 0, top5=self.track_top5,
         )
         spe = self._steps_per_epoch()
+        start_step = state.step
+        start_epoch = start_step // max(1, spe)
+        # Steps already trained in the resumed epoch: its permutation is
+        # (seed, epoch)-fixed, so skipping them resumes exactly.
+        resume_step = start_step % max(1, spe)
+        if start_step > 0:
+            self._log(
+                f"resumed from checkpoint at step {start_step} (epoch {start_epoch}"
+                + (f", step {resume_step} within it" if resume_step else "") + ")"
+            )
         history: Dict[str, List[Dict[str, float]]] = {"train": [], "validation": []}
         has_val_split = self.validate and self.loader.dataset.validation() is not None
         es_best: Optional[float] = None
@@ -246,33 +364,49 @@ class TrainingExperiment(Experiment):
             self.early_stop_mode == "auto" and self.early_stop_metric is not None
             and "loss" in self.early_stop_metric
         )
-        for epoch in range(self.epochs):
+        ck = self.checkpointer
+        # From here to teardown, SIGTERM/SIGINT mean "save and exit at the
+        # next step boundary".
+        self.guard.install()
+        for epoch in range(start_epoch, self.epochs):
             t0 = time.perf_counter()
             accum: List[Dict[str, torch.Tensor]] = []
+            # A mid-epoch resume skips the trained prefix of its first
+            # epoch; step_idx stays epoch-absolute.
+            start_b = resume_step if epoch == start_epoch else 0
             batches = self.loader.batches(
-                "train", device=device, epoch=epoch, max_batches=spe
+                "train", device=device, epoch=epoch, start_batch=start_b, max_batches=spe
             )
             try:
-                for step_idx, batch in enumerate(batches):
+                for step_idx, batch in enumerate(batches, start=start_b):
+                    global_step = epoch * spe + step_idx + 1
                     state, metrics = train_step(state, batch)
                     accum.append(metrics)
+                    self._mark_first_step(metrics)
+                    if self._step_save_due(epoch, step_idx, spe):
+                        ck.save(state)
                     if self.log_every and (step_idx + 1) % self.log_every == 0:
                         row = _host_means([metrics])
-                        self._check_halt(row, epoch * spe + step_idx + 1)
+                        self._check_halt(row, global_step)
                         self._log(
                             f"  step {step_idx + 1}/{spe} "
                             f"loss={row['loss']:.4f} acc={row['accuracy']:.4f}"
                         )
+                    self._boundary_check(state, global_step)
             finally:
+                # A preemption drops the batch in flight with the loader
+                # thread; the rerun restarts the epoch at start_batch.
                 close = getattr(batches, "close", None)
                 if close is not None:
                     close()
             epoch_metrics = _host_means(accum)  # the epoch's one readback
-            self._check_halt(epoch_metrics, epoch * spe + len(accum))
+            self._check_halt(epoch_metrics, epoch * spe + start_b + len(accum))
             dt = time.perf_counter() - t0
             epoch_metrics["examples_per_sec"] = (
                 len(accum) * self.loader.batch_size / dt if dt > 0 else 0.0
             )
+            # A resumed epoch's train aggregates cover its last steps only.
+            partial_epoch = epoch == start_epoch and start_b > 0
             history["train"].append(epoch_metrics)
             line = (
                 f"epoch {epoch + 1}/{self.epochs} "
@@ -280,6 +414,8 @@ class TrainingExperiment(Experiment):
                 f"acc={epoch_metrics.get('accuracy', float('nan')):.4f} "
                 f"({epoch_metrics['examples_per_sec']:.0f} ex/s)"
             )
+            if partial_epoch:
+                line += f" [partial: resumed at step {start_b}]"
             vmetrics = None
             if has_val_split and (epoch + 1) % self.validate_every == 0:
                 vmetrics = run_weighted_eval(
@@ -293,8 +429,16 @@ class TrainingExperiment(Experiment):
                     )
             self._log(line)
             # Scored: fresh validation when the dataset has a split, else
-            # the train epoch; None on an epoch that was not validated.
+            # the train epoch (not a partial one: its aggregates are not
+            # comparable); None on an epoch that was not validated.
             scored = vmetrics if has_val_split else epoch_metrics
+            if partial_epoch and not has_val_split:
+                scored = None
+            if (ck.enabled and ck.save_every_epochs > 0
+                    and (epoch + 1) % ck.save_every_epochs == 0
+                    and not (ck.keep_best_metric is not None and scored is None)):
+                # Best-ranking saves only on epochs with fresh metrics.
+                ck.save(state, metrics=scored)
             if self.early_stop_metric is not None and scored is not None:
                 if self.early_stop_metric not in scored:
                     raise ValueError(
@@ -317,16 +461,13 @@ class TrainingExperiment(Experiment):
                             f"for {es_stale} scored epoch(s) (best {es_best:.6g})"
                         )
                         break
-        if self.export_model_to:
-            save_model(self.export_model_to, *export_trees(
-                state.module, state.ema_params if self.ema_decay > 0 else None))
-        self.final_state = state
-        return history
+        return state, history
 
 
 @component
 class EvalExperiment(Experiment):
-    """Score a model-only export (``export_model_to``) on a dataset split.
+    """Score a model-only export (``export_model_to``) or a training run's
+    ``Checkpointer`` directory (its latest step) on a dataset split.
     The loader keeps the last partial batch (``drop_remainder=False``), so
     the score covers every example of the split; ``split="train"`` reads
     the training data in eval mode (no shuffle, no augmentation)."""
@@ -334,8 +475,8 @@ class EvalExperiment(Experiment):
     loader: DataLoader = ComponentField(DataLoader, drop_remainder=False)
     model: Model = ComponentField()
 
-    #: The ``save_model`` export to score. A ``Checkpointer`` directory is
-    #: not ported yet (ROADMAP.md).
+    #: The ``save_model`` export, or a ``Checkpointer`` directory (the
+    #: latest step's EMA or raw weights), to score.
     checkpoint: str = Field()
     #: "auto" (the EMA when the checkpoint carries one), "ema" or "raw"
     #: (``training.checkpoint.select_inference_weights``, shared with

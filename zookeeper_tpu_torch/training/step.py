@@ -9,16 +9,18 @@ pay the readback. The step's options are the JAX step's: distillation
 from a frozen teacher, the parameter EMA, the flip ratio of the binary
 kernels, a non-finite-loss policy (selected on the card, no readback)
 and a rematerialization policy (``torch.utils.checkpoint``).
+:func:`host_snapshot` is the async checkpointer's copy of the state.
 """
 
 import contextlib
 import re
-from typing import Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from zookeeper_tpu_torch.ops.layers import remat_scope
+from zookeeper_tpu_torch.resilience import faults
 from zookeeper_tpu_torch.training.optimizer import (
     counts_to_device,
     global_norm,
@@ -170,6 +172,10 @@ def make_train_step(
       and keep the optimizer's counts on the card.
     - ``remat``: "none", "dots", "full" or "quant" (see
       ``_apply_model``); every policy computes the same bits as "none".
+
+    The active ``FaultPlan``'s ``nan_at_step`` is read here, once: the
+    step whose counter (``state.step`` before it) equals it multiplies
+    its loss by NaN, which poisons every gradient as a real blow-up does.
     """
     if remat not in REMAT_POLICIES:
         raise ValueError(f"Unknown remat policy {remat!r}; choose none/dots/full/quant.")
@@ -178,6 +184,8 @@ def make_train_step(
     flip_paths = re.compile(flip_ratio_pattern) if flip_ratio_pattern is not None else None
     apply_model = _apply_model(remat)
     guard = nan_policy != "ignore"
+    plan = faults.active()
+    nan_at_step = plan.nan_at_step if plan is not None else None
 
     def train_step(state: TrainState, batch: Batch) -> Tuple[TrainState, Metrics]:
         module = state.module.train()
@@ -206,6 +214,8 @@ def make_train_step(
             olds = [t.detach().clone() for t in kept]
         logits = apply_model(module, batch["input"])
         loss = loss_fn(logits, batch["target"])
+        if nan_at_step is not None and state.step == nan_at_step:
+            loss = loss * float("nan")
         kd = None
         if distill is not None:
             teacher_fn, alpha, temperature = distill
@@ -275,3 +285,34 @@ def make_eval_step(
         return metrics
 
     return eval_step
+
+
+def host_snapshot(tree: Any) -> Tuple[Any, Optional[torch.cuda.Event]]:
+    """A copy of a nested dict of tensors (and host ints) that owns its
+    bytes, for a checkpoint written while training goes on: every card
+    tensor is copied into pinned host memory by a non-blocking copy on
+    the current stream, the stream the step runs on, so the next step's
+    in-place writes queue behind the copies; a CPU tensor is cloned.
+    Returns ``(copy, event)``, the event recorded after the copies (None
+    when no tensor lies on a card): wait on it before reading the copy."""
+    devices = []
+
+    def copy(x):
+        if isinstance(x, dict):
+            return {k: copy(v) for k, v in x.items()}
+        if not isinstance(x, torch.Tensor):
+            return x
+        x = x.detach()
+        if x.device.type != "cuda":
+            return x.clone()
+        devices.append(x.device)
+        out = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+        out.copy_(x, non_blocking=True)
+        return out
+
+    out = copy(tree)
+    event = None
+    if devices:
+        event = torch.cuda.Event()
+        event.record(torch.cuda.current_stream(devices[0]))
+    return out, event
