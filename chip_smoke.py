@@ -252,13 +252,34 @@ CUDA card and ``nvcc``. In order:
    ``ServingConfig`` on the recipe run's directory give the metrics and,
    bit for bit, the logits of the same state's export (K1, K3 4 a
    forward).
-17. One JSON line of the kernels (14 rows; K1, K3, K4, K6 and K7 also
+17. The example tasks and the tools around a run (deterministic mode
+   where bits are compared): ``TrainCifar`` at its own width (BinaryNet
+   (128, 128, 256, 256) + (512,), batch 128, pad-and-crop by 4, Adam; no
+   port kernel: its convs train on "mxu") for one epoch of 8 steps with
+   a ``JsonlMetricsWriter`` (its epoch line equal to ``run()``'s
+   metrics), ``profile_dir`` (the window's ``op_time_breakdown`` printed
+   and held within 10% of one traced step's busy time, with the same
+   leading kernels) and ``export_model_to``; the same 8 steps from a
+   ``MemmapDataset`` store of the same splits (written in chunks) equal
+   in every tensor and every step's metrics; ``ConvertPacked`` of the
+   export to the "xnor" twin (K4) and the popcount twin (K1, K3, K2; its
+   float side on the same popcount path) at ``verify_atol=0``, and to the
+   BN-folded dense-stage twins (K4; K1, K2) at 1e-4, each probe on the
+   card through those kernels, the ones-padded popcount twin of the
+   "mxu" model refused at 0; ``LatencyBench`` on each export at batch 1
+   and 8; ``ServingConfig`` on the "xnor" export (16 requests), its
+   logits equal to ``EvalExperiment``'s forward bit for bit. Then
+   ``TrainDigits`` -> ``ServeDigits`` -> ``LatencyBench`` on real digits
+   when scikit-learn imports (served accuracy equal to
+   ``EvalExperiment``'s), else one line saying so.
+18. One JSON line of the kernels (14 rows; K1, K3, K4, K6 and K7 also
    with their sums on Bi-Real-Net's path under ``bireal``; K1, K3 and K4
    under ``densenet`` and ``melius``, K1 and K3 under ``xnor_train`` per
    DenseNet training step, K2 under ``xnor_train`` per BinaryAlexNet
    step, K1 and K3 under ``recipe`` per distillation step; K1, K3, K6-K11
    under ``checkpoint``, their launches over the killed-and-resumed
-   runs), then the result line.
+   runs; K1-K4 under ``cifar``, their launches on each path of phase
+   17), then the result line.
 """
 
 import contextlib
@@ -1116,11 +1137,12 @@ def _restore(state, snap) -> None:
     state.opt_state["count"], state.step = count, step
 
 
-def _profile_train_step(torch, run_step, step_ms: float, tag: str, top: int = 15):
+def _profile_train_step(torch, run_step, step_ms: float, tag: str, top: int = 15,
+                        keys=None):
     """Trace one ``run_step()`` with ``torch.profiler`` and print its device
     activities' summed time against the step's device time ``step_ms``
-    (the busy share) and the ``top`` items. Returns (busy ms, device
-    activities)."""
+    (the busy share) and the ``top`` items (their names appended to
+    ``keys`` when given). Returns (busy ms, device activities)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1137,6 +1159,8 @@ def _profile_train_step(torch, run_step, step_ms: float, tag: str, top: int = 15
           f"ms step; top items:", flush=True)
     for e in sorted(kernels, key=lambda e: getattr(e, attr), reverse=True)[:top]:
         t = getattr(e, attr) / 1e3
+        if keys is not None:
+            keys.append(e.key)
         print(f"  {t:9.3f} ms {100 * t / busy_ms:5.1f}% x{e.count:<5d} {e.key[:110]}",
               flush=True)
     return busy_ms, launched
@@ -3785,6 +3809,404 @@ def lm_wide_phase(torch, A, smi):
     return launches
 
 
+#: TrainCifar at its own width (``examples/cifar_experiment.py``: BinaryNet
+#: with features (128, 128, 256, 256) and one dense layer of 512, batch
+#: 128, pad-and-crop by 4, Adam) on SyntheticCifar10's 1024 training
+#: examples: one epoch of 8 steps, the profiler window on steps 5-8.
+CIFAR = {"model": "BinaryNet", "model.features": (128, 128, 256, 256),
+         "model.dense_units": (512,)}
+CIFAR_GEOMETRY = {"height": 32, "width": 32, "channels": 3, "num_classes": 10}
+CIFAR_STEPS = 8
+CIFAR_WINDOW = 4
+#: ConvertPacked of the float export: (label, settings, verify_atol, the
+#: kernels its twin launches). BinaryNet folds its dense stage only (its
+#: conv BNs follow a maxpool), so the folded twins pack the dense stage;
+#: the popcount twin's float side runs the same popcount path on latent
+#: kernels (its SAME convs pad with ones, unlike "mxu"'s zeros).
+CIFAR_CONVERSIONS = (
+    ("xnor", {}, 0.0, {"packed_weight_matmul"}),
+    ("xnor_fold", {"fold_bn": True, "deploy_overrides": {
+        "packed_weights": False, "dense_packed_weights": True,
+        "dense_binary_compute": "xnor"}}, 1e-4, {"packed_weight_matmul"}),
+    ("popcount", {"model.binary_compute": "xnor_popcount"}, 0.0,
+     {"pack_rows", "conv_gemm_popcount", "xnor_matmul_packed_scaled"}),
+    ("popcount_fold", {"fold_bn": True, "deploy_overrides": {
+        "packed_weights": False, "dense_packed_weights": True,
+        "dense_binary_compute": "xnor_popcount"}}, 1e-4,
+     {"pack_rows", "xnor_matmul_packed_scaled"}),
+)
+CIFAR_LATENCY_BATCHES = (1, 8)
+
+
+def _sync(torch, dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _launched(bc):
+    return {k: v for k, v in bc.LAUNCHES.items() if v}
+
+
+def _jsonl(path):
+    with open(path) as f:
+        return [json.loads(line) for line in f]
+
+
+def _state_tensors(torch, state):
+    """Every tensor of a train state, by name (parameters, statistics,
+    Adam's moments and count)."""
+    out = {f"module.{k}": v for k, v in state.module.state_dict().items()}
+    for key in ("mu", "nu"):
+        out.update({f"{key}.{k}": v for k, v in state.opt_state[key].items()})
+    out["count"] = torch.as_tensor(state.opt_state["count"])
+    return out
+
+
+def cifar_phase(torch, bc, smi, device="cuda", model=None):
+    """TrainCifar -> export -> ConvertPacked -> LatencyBench / ServingConfig
+    on the card (module docstring, phase 17). ``device`` and ``model``
+    exist for a rehearsal on the CPU at a small width. Returns ({kernel:
+    {path: launches}}, stats)."""
+    import tempfile
+
+    import numpy as np
+
+    from zookeeper_tpu_torch.core import configure
+    from zookeeper_tpu_torch.data.store import MemmapWriter
+    from zookeeper_tpu_torch.serving import InferenceEngine, ServingConfig
+    from zookeeper_tpu_torch.serving.latency import LatencyBench
+    from zookeeper_tpu_torch.training import EvalExperiment
+    from zookeeper_tpu_torch.training.cifar import TrainCifar
+    from zookeeper_tpu_torch.training.convert_packed import ConvertPacked, resolve_deploy_conf
+    from zookeeper_tpu_torch.training.profiling import format_breakdown, op_time_breakdown
+
+    dev = torch.device(device)
+    model = model or CIFAR
+    tag = "cifar"
+    stats = {}
+    entries = {}
+
+    def add_launches(path, launches):
+        for name, n in launches.items():
+            entries.setdefault(name, {})[path] = n
+
+    with tempfile.TemporaryDirectory(prefix="zk_cifar_") as tmp:
+        float_dir = os.path.join(tmp, "float")
+
+        def train(extra):
+            exp = TrainCifar()
+            configure(exp, {**model, "epochs": 1, "steps_per_epoch": CIFAR_STEPS,
+                            "log_every": 1, "seed": 0, "device": device, "verbose": False,
+                            **extra}, name="experiment")
+            with deterministic(torch):
+                bc.reset_launches()
+                t0 = time.perf_counter()
+                history = exp.run()
+                _sync(torch, dev)
+            check(not _launched(bc), f"{tag}: TrainCifar on mxu launched {_launched(bc)}")
+            return exp, history, time.perf_counter() - t0
+
+        # 1. In memory, with the jsonl writer, the profiler window and the export.
+        mem_log, prof_dir = os.path.join(tmp, "mem.jsonl"), os.path.join(tmp, "prof")
+        exp, history, wall = train({"writer.jsonl.path": mem_log, "profile_dir": prof_dir,
+                                    "export_model_to": float_dir})
+        losses = [r["train/loss"] for r in _jsonl(mem_log) if "train/loss" in r]
+        check(len(losses) == CIFAR_STEPS and all(math.isfinite(v) for v in losses),
+              f"{tag}: per-step losses {losses}")
+        epoch_rows = [r for r in _jsonl(mem_log) if "train_epoch/loss" in r]
+        want = {"step": CIFAR_STEPS, **{f"train_epoch/{k}": v for k, v in history["train"][0].items()},
+                **{f"val/{k}": v for k, v in history["validation"][0].items()}}
+        check(epoch_rows == [want], f"{tag}: the jsonl epoch line {epoch_rows} is not run()'s "
+                                    f"metrics {want}")
+        check(os.path.isfile(os.path.join(float_dir, "model.pt")), f"{tag}: no float export")
+        ips_mem = history["train"][0]["examples_per_sec"]
+        print(f"{tag}: TrainCifar (BinaryNet {model['model.features']} + "
+              f"{model['model.dense_units']}, batch 128, deterministic) {CIFAR_STEPS} steps "
+              f"in {wall:.1f} s, losses {[round(v, 4) for v in losses]}, the jsonl epoch line "
+              f"equal to run()'s metrics, val {json.dumps(history['validation'][0])}", flush=True)
+
+        # The window's breakdown against one traced step of the same step
+        # function (deterministic mode, as in the run).
+        check(len(os.listdir(prof_dir)) == 1, f"{tag}: profile_dir holds {os.listdir(prof_dir)}")
+        if dev.type == "cuda":
+            breakdown = op_time_breakdown(prof_dir, steps=CIFAR_WINDOW)
+            print(f"{tag} profiler window ({CIFAR_WINDOW} steps) on {smi}:\n"
+                  + format_breakdown(breakdown), flush=True)
+            state = exp.build_state(dev)
+            step = exp._train_step_fn()
+            batches = exp.loader.batches("train", device=dev, epoch=0, max_batches=1)
+            batch = next(batches)
+            batches.close()
+            keys = []
+            with deterministic(torch):
+                times = []
+                for _ in range(7):
+                    start = torch.cuda.Event(enable_timing=True)
+                    end = torch.cuda.Event(enable_timing=True)
+                    start.record()
+                    step(state, batch)
+                    end.record()
+                    end.synchronize()
+                    times.append(start.elapsed_time(end))
+                step_ms = statistics.median(times[1:])
+                busy_ms, _ = _profile_train_step(torch, lambda: step(state, batch), step_ms,
+                                                 f"{tag} step", top=5, keys=keys)
+            window_ms = breakdown["total_ms_per_step"]
+            top = [row[2] for row in breakdown["top_ops"][:5]]
+            rel = abs(window_ms - busy_ms) / busy_ms
+            check(rel <= 0.1, f"{tag}: the window's {window_ms:.4f} ms/step differs from the "
+                              f"traced step's busy {busy_ms:.4f} ms by {100 * rel:.1f}%")
+            check(top[0] in keys[:3] and keys[0] in top[:3]
+                  and len(set(top) & set(keys)) >= 3,
+                  f"{tag}: the window's top kernels {top} disagree with the step's {keys}")
+            stats["train"] = {"step_ms": step_ms, "busy_ms_step": busy_ms,
+                              "busy_ms_window": window_ms,
+                              "busy_share_step": busy_ms / step_ms,
+                              "busy_share_window": window_ms / step_ms,
+                              "window_vs_step": rel}
+            print(f"{tag} on {smi}: step {step_ms:.4f} ms, busy {busy_ms:.4f} ms "
+                  f"({100 * busy_ms / step_ms:.1f}%); the window's {window_ms:.4f} ms/step "
+                  f"({100 * window_ms / step_ms:.1f}%), {100 * rel:.2f}% apart, top items "
+                  f"shared {len(set(top) & set(keys))}/5", flush=True)
+            del state, batch
+        mem_state = _state_tensors(torch, exp.final_state)
+        mem_lines = _jsonl(mem_log)
+
+        # 2. The same steps from a MemmapDataset store of the same splits.
+        store = os.path.join(tmp, "store")
+        t0 = time.perf_counter()
+        for split, source in (("train", exp.loader.dataset.train()),
+                              ("validation", exp.loader.dataset.validation())):
+            with MemmapWriter(os.path.join(store, split)) as writer:
+                for lo in range(0, len(source), 100):
+                    writer.append({k: v[lo:lo + 100] for k, v in source.arrays.items()})
+        write_s = time.perf_counter() - t0
+        store_bytes = sum(os.path.getsize(os.path.join(root, f))
+                          for root, _, files in os.walk(store) for f in files)
+        mm_log = os.path.join(tmp, "memmap.jsonl")
+        exp_mm, history_mm, wall_mm = train({"loader.dataset": "MemmapDataset",
+                                             "loader.dataset.directory": store,
+                                             "writer.jsonl.path": mm_log})
+        # In memory again, without the profiler window (the first run's
+        # host time carried it and the warm-up), for the rate beside the
+        # store's.
+        exp_again, history_again, _ = train({})
+        again = _state_tensors(torch, exp_again.final_state)
+        check(all(_same_bits(torch, again[k], mem_state[k]) for k in mem_state),
+              f"{tag}: two in-memory runs differ")
+        del exp_again
+        check(exp_mm.num_classes == 10, f"{tag}: the store's label scan gave {exp_mm.num_classes}")
+        mm_state = _state_tensors(torch, exp_mm.final_state)
+        differ = [k for k in mem_state if not _same_bits(torch, mem_state[k], mm_state[k])]
+        check(not differ and mem_state.keys() == mm_state.keys(),
+              f"{tag}: the memmap run's state differs in {differ[:5]}")
+        strip = lambda rows: [{k: v for k, v in r.items() if "examples_per_sec" not in k}  # noqa: E731
+                              for r in rows]
+        check(strip(_jsonl(mm_log)) == strip(mem_lines),
+              f"{tag}: the memmap run's metrics differ from the in-memory run's")
+        ips_mm = history_mm["train"][0]["examples_per_sec"]
+        ips_again = history_again["train"][0]["examples_per_sec"]
+        stats["memmap"] = {"store_bytes": store_bytes, "write_s": write_s,
+                           "examples_per_sec_memory_profiled": ips_mem,
+                           "examples_per_sec_memmap": ips_mm,
+                           "examples_per_sec_memory": ips_again}
+        print(f"{tag} memmap on {smi}: store {store_bytes} B written in {write_s:.3f} s "
+              f"(chunks of 100); the run equal to the in-memory one in all "
+              f"{len(mem_state)} tensors and every step's metrics; run() "
+              f"{ips_mm:.1f} examples/s from the store, then {ips_again:.1f} in memory "
+              f"({ips_mem:.1f} in the first, profiled run; deterministic mode, 8 steps)",
+              flush=True)
+        del exp_mm
+
+        # 3. ConvertPacked, each twin's probe through its kernels.
+        geometry = {**CIFAR_GEOMETRY}
+        exports = {}
+        for label, settings, atol, kernels in CIFAR_CONVERSIONS:
+            out = os.path.join(tmp, f"packed_{label}")
+            cp = ConvertPacked()
+            configure(cp, {**model, **geometry, **settings, "checkpoint": float_dir,
+                           "output": out, "verify_atol": atol, "device": device,
+                           "verbose": False}, name="convert")
+            with deterministic(torch):
+                bc.reset_launches()
+                cp.run()
+                _sync(torch, dev)
+            launched = _launched(bc)
+            if dev.type == "cuda":
+                check(set(launched) == kernels,
+                      f"{tag}: ConvertPacked {label}'s probe launched {launched}, want {kernels}")
+            add_launches(f"ConvertPacked {label} probe", launched)
+            conf, _ = resolve_deploy_conf(cp.model, cp.fold_bn, cp.deploy_overrides)
+            exports[label] = (out, {"model": model["model"],
+                                    **{f"model.{k}": v for k, v in conf.items()}}, kernels)
+            r = cp.result
+            stats[f"convert_{label}"] = r
+            print(f"{tag} ConvertPacked {label} on {smi}: max |diff| {r['max_abs_diff']} "
+                  f"(verify_atol {atol}), whole model {r['whole_mib'][0]:.4f} -> "
+                  f"{r['whole_mib'][1]:.4f} MiB, binary kernels {r['binary_kib'][0]:.1f} -> "
+                  f"{r['binary_kib'][1]:.1f} KiB, probe launches {launched}", flush=True)
+        # The popcount twin of the "mxu" float model differs by its ones
+        # padding: verify_atol=0 must refuse it.
+        cp = ConvertPacked()
+        configure(cp, {**model, **geometry, "checkpoint": float_dir,
+                       "output": os.path.join(tmp, "refused"), "device": device,
+                       "deploy_overrides": {"binary_compute": "xnor_popcount"},
+                       "verbose": False}, name="convert")
+        try:
+            cp.run()
+            refused = None
+        except RuntimeError as e:
+            refused = str(e)
+        check(refused is not None and "diverges" in refused
+              and not os.path.exists(os.path.join(tmp, "refused")),
+              f"{tag}: the ones-padded popcount twin of the mxu model was not refused")
+        print(f"{tag}: the popcount twin of the mxu float model refused at verify_atol=0 "
+              f"({refused.split(':')[1].split('>')[0].strip()})", flush=True)
+
+        # 4. LatencyBench on each export at batch 1 and 8.
+        for label, (out, conf, kernels) in exports.items():
+            for b in CIFAR_LATENCY_BATCHES:
+                lb = LatencyBench()
+                configure(lb, {**conf, **geometry, "checkpoint": out, "batch_size": b,
+                               "device": device}, name="bench")
+                bc.reset_launches()
+                result = lb.run()
+                _sync(torch, dev)
+                launched = _launched(bc)
+                if dev.type == "cuda":
+                    check(set(launched) == kernels,
+                          f"{tag}: LatencyBench {label} batch {b} launched {launched}")
+                check(result["ms_per_inference"] > 0 and result["p99_ms"] >= result["p50_ms"],
+                      f"{tag}: LatencyBench {label} batch {b}: {result}")
+                add_launches(f"LatencyBench {label} batch {b}", launched)
+                stats[f"latency_{label}_b{b}"] = result
+                print(f"{tag} LatencyBench {label} batch {b} on {smi}: {json.dumps(result)}",
+                      flush=True)
+
+        # 5. ServingConfig on the "xnor" export, and its logits against
+        # EvalExperiment's forward of the same export.
+        out, conf, _ = exports["xnor"]
+        cfg = ServingConfig()
+        configure(cfg, {**conf, **geometry, "checkpoint": out, "device": device,
+                        "engine.batch_buckets": (1, BATCH), "requests": 16,
+                        "max_request": BATCH, "seed": 0, "verbose": False}, name="serving")
+        buckets = []
+        real_infer = InferenceEngine.infer
+
+        def spy(engine, x):
+            buckets.append(engine.bucket_for(len(x)))
+            return real_infer(engine, x)
+
+        bc.reset_launches()
+        with mock.patch.object(InferenceEngine, "infer", spy):
+            result = cfg.run()
+        _sync(torch, dev)
+        launched = _launched(bc)
+        add_launches("ServingConfig xnor (16 requests, buckets 1 and 8)", launched)
+        x = np.random.default_rng(1).normal(size=(BATCH, 32, 32, 3)).astype(np.float32)
+        ev = EvalExperiment()
+        configure(ev, {**conf, "checkpoint": out, "device": device, "batch_size": BATCH,
+                       "loader.dataset": "SyntheticCifar10",
+                       "loader.preprocessing": "ImageClassificationPreprocessing",
+                       "loader.preprocessing.height": 32, "loader.preprocessing.width": 32,
+                       "loader.preprocessing.channels": 3, "verbose": False}, name="eval")
+        module = ev.build_state(dev).module.eval()
+        with deterministic(torch):
+            bc.reset_launches()
+            served = cfg.engine.infer(x)
+            _sync(torch, dev)
+            per_forward = _launched(bc)
+            with torch.inference_mode():
+                want = module(torch.from_numpy(x).to(dev))
+            _sync(torch, dev)
+        check(_same_bits(torch, served, want),
+              f"{tag}: served logits differ from EvalExperiment's forward "
+              f"(max {_max_abs_err(torch, served, want)})")
+        if dev.type == "cuda":
+            check(set(per_forward) == {"packed_weight_matmul"},
+                  f"{tag}: the xnor export's forward launched {per_forward}")
+            # K4 launches per forward of each bucket (a conv whose patch
+            # matrix is large runs per tap).
+            per_bucket = {}
+            for b in sorted(set(buckets)):
+                bc.reset_launches()
+                cfg.engine.infer(np.zeros((b, 32, 32, 3), np.float32))
+                per_bucket[b] = bc.LAUNCHES["packed_weight_matmul"]
+            n = sum(per_bucket[b] for b in buckets)
+            check(launched == {"packed_weight_matmul": n},
+                  f"{tag}: ServingConfig launched {launched} in forwards "
+                  f"{ {b: buckets.count(b) for b in per_bucket} } of {per_bucket} K4")
+            stats["serving_xnor_k4_per_forward"] = per_bucket
+        scores = ev.run()
+        stats["serving_xnor"] = {k: result[k] for k in ("latency_p50_ms", "latency_p99_ms",
+                                                        "bucket_fill_mean", "qps")}
+        stats["eval_xnor"] = scores
+        print(f"{tag} ServingConfig xnor on {smi}: {len(buckets)} forwards, launches "
+              f"{launched}, {json.dumps(stats['serving_xnor'])}; logits equal to "
+              f"EvalExperiment's forward bit for bit; eval {json.dumps(scores)}", flush=True)
+        del cfg, ev, module
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return entries, stats
+
+
+def digits_phase(torch, smi, device="cuda"):
+    """TrainDigits -> export -> ServeDigits -> LatencyBench on real
+    digits, when scikit-learn imports (it bundles the data); otherwise
+    one line saying the leg did not run. SimpleCnn launches none of the
+    port's kernels. Returns stats or None."""
+    try:
+        import sklearn  # noqa: F401
+    except ImportError:
+        print("digits: the TrainDigits -> ServeDigits -> LatencyBench leg was not run: "
+              "scikit-learn is absent on this machine", flush=True)
+        return None
+    import tempfile
+
+    from zookeeper_tpu_torch.core import configure
+    from zookeeper_tpu_torch.serving.classifier import ServeDigits
+    from zookeeper_tpu_torch.serving.latency import LatencyBench
+    from zookeeper_tpu_torch.training import EvalExperiment
+    from zookeeper_tpu_torch.training.digits import TrainDigits
+
+    with tempfile.TemporaryDirectory(prefix="zk_digits_") as tmp:
+        export = os.path.join(tmp, "digits")
+        exp = TrainDigits()
+        configure(exp, {"device": device, "verbose": False, "export_model_to": export},
+                  name="experiment")
+        history = exp.run()
+        losses = [e["loss"] for e in history["train"]]
+        check(all(math.isfinite(v) for v in losses) and losses[-1] < losses[0],
+              f"digits: epoch losses {losses}")
+        serve = ServeDigits()
+        configure(serve, {"checkpoint": export, "device": device, "verbose": False},
+                  name="serving")
+        served = serve.run()
+        ev = EvalExperiment()
+        configure(ev, {"checkpoint": export, "device": device, "model": "SimpleCnn",
+                       "batch_size": 64, "loader.dataset": "SklearnDigits",
+                       "loader.preprocessing": "ImageClassificationPreprocessing",
+                       "loader.preprocessing.height": 8, "loader.preprocessing.width": 8,
+                       "loader.preprocessing.channels": 1, "verbose": False}, name="eval")
+        scores = ev.run()
+        check(abs(served["accuracy"] - scores["accuracy"]) <= 5e-5
+              and served["examples"] == 359,
+              f"digits: served accuracy {served['accuracy']} over {served['examples']} "
+              f"examples, eval {scores['accuracy']}")
+        bench = {}
+        for b in CIFAR_LATENCY_BATCHES:
+            lb = LatencyBench()
+            configure(lb, {"model": "SimpleCnn", "checkpoint": export, "batch_size": b,
+                           "height": 8, "width": 8, "channels": 1, "num_classes": 10,
+                           "device": device}, name="bench")
+            bench[b] = lb.run()
+    stats = {"val_accuracy": history["validation"][-1]["accuracy"],
+             "served_accuracy": served["accuracy"], "eval_accuracy": scores["accuracy"],
+             "latency": bench}
+    print(f"digits on {smi}: {json.dumps(stats)}", flush=True)
+    return stats
+
+
 def main() -> None:
     if not os.path.isdir(os.path.join(ROOT, "zookeeper_tpu_torch", "csrc")):
         fail("run from a checkout: zookeeper_tpu_torch/ is not beside this script")
@@ -3863,6 +4285,10 @@ def main() -> None:
     recipe_kernels = recipe_kernel_phase(torch, bc)
     launches_rt, recipe = recipe_phase(torch, bc, smi)
     launches_ck, _ = checkpoint_phase(torch, bc, A, smi)
+    cifar_entries, cifar = cifar_phase(torch, bc, smi)
+    digits = digits_phase(torch, smi)
+    print(f"cifar and digits on {smi}: {json.dumps(cifar)} digits {json.dumps(digits)}",
+          flush=True)
     # Each kernel's launches over the killed-and-resumed runs (both
     # attempts of each).
     checkpoint_rows = {name: {"path": "TrainImageNet QuickNet-Large, 6 steps killed and "
@@ -3953,6 +4379,10 @@ def main() -> None:
             }
         if name in checkpoint_rows:
             rows[-1]["checkpoint"] = checkpoint_rows[name]
+        if name in cifar_entries:
+            # ConvertPacked's probes, LatencyBench and ServingConfig on the
+            # TrainCifar export's packed twins.
+            rows[-1]["cifar"] = {"launches": cifar_entries[name]}
         if name in ("mask_mul_resid", "xnor_matmul_packed_scaled"):
             # K8 has no work on Bi-Real's step; K2 runs in XNORNet's dense stage.
             rows[-1]["zoo_launches"] = (launches_bt[name] if name == "mask_mul_resid"

@@ -1,23 +1,28 @@
 """Dataset components.
 
 The port's own copy of the part of ``zookeeper_tpu/data/dataset.py``
-that training needs: the abstract ``Dataset`` (``train()``/
+that needs no download: the abstract ``Dataset`` (``train()``/
 ``validation()`` sources and the class-count contract), ``ArrayDataset``
 over in-memory arrays, the always-available synthetic image datasets
-(MNIST-, CIFAR-10- and ImageNet-shaped) and the synthetic token corpus
-``SyntheticTokens``, each of which generates the same bytes as the JAX
-package's for the same seed. The TFDS-, store- and grain-backed datasets
-and ``SklearnDigits`` are not ported yet (ROADMAP.md).
+(MNIST-, CIFAR-10- and ImageNet-shaped), the synthetic token corpus
+``SyntheticTokens``, the real handwritten digits bundled with
+scikit-learn (``SklearnDigits``), the disk-backed ``MemmapDataset`` over
+``data.store`` stores and the ``GrainDataset`` adapter. Each gives the
+same bytes as the JAX package's for the same seed and files. The TFDS
+datasets need a download and are not ported.
 """
 
 from __future__ import annotations
 
+import os
+import warnings
 from typing import Dict, Optional, Tuple
 
 import numpy as np
 
 from zookeeper_tpu_torch.core import Field, component
 from zookeeper_tpu_torch.data.source import ArraySource, DataSource
+from zookeeper_tpu_torch.data.store import MemmapSource
 
 
 @component
@@ -238,3 +243,162 @@ class SyntheticTokens(Dataset):
 
     def infer_num_classes(self) -> int:
         return self.vocab_size
+
+
+@component
+class SklearnDigits(Dataset):
+    """Real handwritten digits with no download: scikit-learn's bundled
+    ``digits`` set (1,797 8x8 grayscale scans of the digits 0-9) as
+    uint8 images in [0, 255], split by a seeded permutation into
+    validation (the leading ``validation_fraction``) and train. Needs
+    scikit-learn, imported at first use."""
+
+    validation_fraction: float = Field(0.2)
+    #: Keep only this leading fraction of the train split (validation is
+    #: untouched): the few-label regime.
+    train_fraction: float = Field(1.0)
+    #: Re-label this fraction of the train split to another class,
+    #: seeded by ``seed`` (validation is untouched): the noisy-label regime.
+    label_noise_fraction: float = Field(0.0)
+    num_classes: int = Field(10)
+    seed: int = Field(0)
+
+    def _splits(self):
+        cache = getattr(self, "_split_cache", None)
+        if cache is not None:
+            return cache
+        try:
+            from sklearn.datasets import load_digits
+        except ImportError as e:
+            raise ImportError(
+                "SklearnDigits requires scikit-learn (bundles the data offline)."
+            ) from e
+
+        digits = load_digits()
+        # Pixel counts in [0, 16] -> uint8 [0, 255], rounded in float32.
+        images = np.round(
+            digits.images.astype(np.float32) * (255.0 / 16.0)
+        ).astype(np.uint8)[..., None]
+        labels = digits.target.astype(np.int32)
+        order = np.random.default_rng(self.seed).permutation(len(labels))
+        images, labels = images[order], labels[order]
+        n_val = int(len(labels) * self.validation_fraction)
+        if not 0.0 < self.train_fraction <= 1.0:
+            raise ValueError(f"train_fraction={self.train_fraction} outside (0, 1].")
+        n_train = int(round((len(labels) - n_val) * self.train_fraction))
+        if n_train < 1:
+            raise ValueError(
+                f"train_fraction={self.train_fraction} keeps zero of the "
+                f"{len(labels) - n_val} train examples."
+            )
+        train_labels = labels[n_val : n_val + n_train]
+        if not 0.0 <= self.label_noise_fraction <= 1.0:
+            raise ValueError(
+                f"label_noise_fraction={self.label_noise_fraction} outside [0, 1]."
+            )
+        if self.label_noise_fraction > 0.0:
+            rng = np.random.default_rng(self.seed + 1)
+            train_labels = train_labels.copy()
+            n_noise = int(round(len(train_labels) * self.label_noise_fraction))
+            idx = rng.choice(len(train_labels), size=n_noise, replace=False)
+            # Shifted by 1..num_classes-1: every corrupted label is wrong.
+            shift = rng.integers(1, self.num_classes, size=n_noise)
+            train_labels[idx] = (train_labels[idx] + shift.astype(np.int32)) % self.num_classes
+        cache = (
+            {"image": images[n_val : n_val + n_train], "label": train_labels},
+            {"image": images[:n_val], "label": labels[:n_val]},
+        )
+        object.__setattr__(self, "_split_cache", cache)
+        return cache
+
+    def train(self) -> DataSource:
+        return ArraySource(self._splits()[0])
+
+    def validation(self) -> DataSource:
+        return ArraySource(self._splits()[1])
+
+
+@component
+class MemmapDataset(Dataset):
+    """Disk-backed dataset over ``data.store`` stores: ``directory`` holds
+    one store per split (``train/``, ``validation/``), read by memory-
+    mapped random access, so the data may exceed host memory. Write the
+    stores with ``data.store.MemmapWriter``."""
+
+    directory: str = Field(allow_missing=True)
+    train_subdir: str = Field("train")
+    validation_subdir: str = Field("validation")
+    #: -1 = infer by scanning the label feature once.
+    num_classes: int = Field(-1)
+
+    def train(self) -> DataSource:
+        return MemmapSource(os.path.join(self.directory, self.train_subdir))
+
+    def validation(self) -> Optional[DataSource]:
+        path = os.path.join(self.directory, self.validation_subdir)
+        if not os.path.isdir(path):
+            return None
+        return MemmapSource(path)
+
+    def infer_num_classes(self) -> int:
+        return _labels_to_num_classes(self.train().features, "MemmapDataset")
+
+
+@component
+class GrainDataset(Dataset):
+    """Any random-access source (``__len__`` + ``__getitem__`` of dict
+    examples: a ``grain`` ``MapDataset`` or ``ArrayRecordDataSource``, or
+    one of one's own) as a dataset; batching, shuffling and the device
+    copy stay with the ``DataLoader``. Sources are live objects, not
+    configuration: give them with :meth:`with_sources`. Imports no
+    ``grain``."""
+
+    #: Set when known; otherwise inferred from the 'label' of the first
+    #: ``infer_scan_limit`` examples.
+    num_classes: int = Field(-1)
+    infer_scan_limit: int = Field(1024)
+
+    _train_source: Optional[DataSource] = None
+    _validation_source: Optional[DataSource] = None
+
+    def with_sources(self, train, validation=None) -> "GrainDataset":
+        for name, src in (("train", train), ("validation", validation)):
+            if src is None:
+                continue
+            if not (hasattr(src, "__len__") and hasattr(src, "__getitem__")):
+                raise TypeError(
+                    f"GrainDataset {name} source {type(src).__name__} does not "
+                    "implement the random-access protocol (__len__/__getitem__)."
+                )
+        self._train_source = train
+        self._validation_source = validation
+        return self
+
+    def train(self) -> DataSource:
+        if self._train_source is None:
+            raise ValueError("GrainDataset has no sources; call with_sources() first.")
+        return self._train_source
+
+    def validation(self) -> Optional[DataSource]:
+        return self._validation_source
+
+    def infer_num_classes(self) -> int:
+        if self._train_source is None:
+            return super().infer_num_classes()
+        n = min(len(self._train_source), self.infer_scan_limit)
+        labels = []
+        for i in range(n):
+            ex = self._train_source[i]
+            if "label" not in ex:
+                return super().infer_num_classes()
+            labels.append(ex["label"])
+        if not labels:
+            return super().infer_num_classes()
+        if n < len(self._train_source):
+            warnings.warn(
+                f"GrainDataset inferred num_classes from the first {n} of "
+                f"{len(self._train_source)} examples; set num_classes "
+                "explicitly if higher labels exist beyond the scan limit.",
+                stacklevel=2,
+            )
+        return _labels_to_num_classes({"label": np.asarray(labels)}, "GrainDataset")

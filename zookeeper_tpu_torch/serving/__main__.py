@@ -1,8 +1,12 @@
-"""``python -m zookeeper_tpu_torch.serving ServingConfig model=QuickNetLarge ...``"""
+"""``python -m zookeeper_tpu_torch.serving TASK key=value ...``, TASK one of
+ServingConfig, ServeDigits, LatencyBench."""
 
+import zookeeper_tpu_torch.data  # noqa: F401  (registers the datasets by name)
 import zookeeper_tpu_torch.models  # noqa: F401  (registers the models by name)
 from zookeeper_tpu_torch.core import cli
-from zookeeper_tpu_torch.serving import ServingConfig  # noqa: F401  (the task)
+from zookeeper_tpu_torch.serving import ServingConfig  # noqa: F401  (a task)
+from zookeeper_tpu_torch.serving.classifier import ServeDigits  # noqa: F401  (a task)
+from zookeeper_tpu_torch.serving.latency import LatencyBench  # noqa: F401  (a task)
 
 if __name__ == "__main__":
     cli()

@@ -13,7 +13,7 @@ synchronises the card.
 
 import threading
 from collections import deque
-from typing import Dict
+from typing import Dict, Mapping, Optional
 
 import numpy as np
 
@@ -114,3 +114,15 @@ class ServingMetrics:
             if windows.get(name):
                 out[f"{name}_mean"] = float(np.mean(windows[name]))
         return out
+
+    def emit(self, writer, step: int = 0,
+             extra: Optional[Mapping[str, float]] = None) -> Dict[str, float]:
+        """Write the snapshot (and ``extra``) through a training-family
+        ``MetricsWriter`` under the ``serve/`` prefix; returns the
+        snapshot."""
+        snap = self.snapshot()
+        scalars = {f"serve/{k}": float(v) for k, v in snap.items()}
+        if extra:
+            scalars.update({f"serve/{k}": float(v) for k, v in extra.items()})
+        writer.write_scalars(int(step), scalars)
+        return snap

@@ -15,7 +15,11 @@ structure) or initializes them from ``seed`` (a packed
 model gets the packed form of its float twin, see
 ``QuickNet.initialize``), binds and warms the engine on ``device`` and
 binds the batcher. ``run()`` serves a seeded stream of variable-size
-synthetic requests and prints one JSON line of serving metrics. The
+synthetic requests and reports through ``finish_report``: the metrics
+snapshot through ``writer`` (``training.metrics``, ``serve/`` scalars)
+and one printed JSON line (latency p50/p95/p99, bucket fill, padding
+waste, qps). A task that serves other traffic overrides ``run()`` and
+reports the same way (``serving.classifier.ServeDigits``). The
 JAX service's ``watch`` (hot swaps from a live ``Checkpointer``
 directory) is not ported yet (ROADMAP.md): ``watch=True`` raises.
 """
@@ -32,6 +36,7 @@ from zookeeper_tpu_torch.models.base import Model
 from zookeeper_tpu_torch.serving.batcher import MicroBatcher
 from zookeeper_tpu_torch.serving.engine import InferenceEngine
 from zookeeper_tpu_torch.serving.metrics import ServingMetrics
+from zookeeper_tpu_torch.training.metrics import CompositeMetricsWriter, MetricsWriter
 
 
 @task
@@ -43,6 +48,9 @@ class ServingConfig:
     engine: InferenceEngine = ComponentField(InferenceEngine)
     batcher: MicroBatcher = ComponentField(MicroBatcher)
     metrics: ServingMetrics = ComponentField(ServingMetrics)
+    #: Where the serving scalars go (``writer.jsonl.path=...`` /
+    #: ``writer.tensorboard.log_dir=...``); off until configured.
+    writer: MetricsWriter = ComponentField(CompositeMetricsWriter)
 
     #: The deployment artifact: a ``save_model`` export or a
     #: ``Checkpointer`` directory (its latest step). None serves weights
@@ -124,13 +132,58 @@ class ServingConfig:
             n = int(rng.integers(1, self.max_request + 1))
             yield rng.normal(size=(n, *self.input_shape)).astype(np.float32)
 
+    def finish_report(
+        self,
+        *,
+        warm_compiles: int,
+        n_requests: int,
+        dt: float,
+        writer_extra: Optional[Dict[str, float]] = None,
+        result_extra: Optional[Dict[str, Any]] = None,
+    ) -> Dict[str, Any]:
+        """The one reporting path, shared with the serving tasks that
+        override ``run()``: the metrics snapshot (and ``qps`` and
+        ``writer_extra``) through the writer, then one result printed as a
+        JSON line and returned; closes the batcher. ``warm_compiles`` is
+        the engine's ``warmed_buckets`` before traffic: the port's
+        counterpart of a compile is a bucket's first run."""
+        try:
+            qps = n_requests / dt if dt > 0 else 0.0
+            snapshot = self.metrics.emit(
+                self.writer, step=0, extra={"qps": qps, **(writer_extra or {})}
+            )
+            self.writer.flush()
+            device = self.engine.device
+            compiles = self.engine.warmed_buckets
+            result = {
+                **{k: round(float(v), 4) for k, v in snapshot.items()},
+                "model": type(self.model).__name__,
+                "weights": self.weights,
+                "device": (
+                    torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
+                ),
+                "batch_buckets": [int(b) for b in self.engine.batch_buckets],
+                "warmed_buckets": compiles,
+                "compiles": compiles,
+                "recompiles_after_warmup": compiles - warm_compiles,
+                "requests": n_requests,
+                "qps": round(qps, 1),
+                **(result_extra or {}),
+            }
+            if self.verbose:
+                print(json.dumps(result), flush=True)
+        finally:
+            self.batcher.close()
+        return result
+
     def run(self) -> Dict[str, Any]:
         """Serve the stream, check every answer's shape and finiteness,
-        print and return one JSON-able result."""
+        report (``finish_report``)."""
         if self.verbose:
             print(pretty_print(self), flush=True)
         engine, batcher = self.build_service()
         try:
+            warm_compiles = engine.warmed_buckets
             pending = []
             rows = 0
             t0 = time.perf_counter()
@@ -146,21 +199,12 @@ class ServingConfig:
                         f"bad answer: shape {out.shape} (want {(n, self.num_classes)}), "
                         f"finite={bool(np.isfinite(out).all())}"
                     )
-        finally:
+        except BaseException:
             batcher.close()
-        device = engine.device
-        result = {
-            **self.metrics.snapshot(),
-            "model": type(self.model).__name__,
-            "device": (
-                torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
-            ),
-            "batch_buckets": [int(b) for b in self.engine.batch_buckets],
-            "warmed_buckets": engine.warmed_buckets,
-            "requests": self.requests,
-            "rows_per_sec": rows / dt if dt > 0 else 0.0,
-            "qps": self.requests / dt if dt > 0 else 0.0,
-        }
-        if self.verbose:
-            print(json.dumps(result), flush=True)
-        return result
+            raise
+        rows_per_sec = rows / dt if dt > 0 else 0.0
+        return self.finish_report(
+            warm_compiles=warm_compiles, n_requests=self.requests, dt=dt,
+            writer_extra={"rows_per_sec": rows_per_sec},
+            result_extra={"rows_per_sec": rows_per_sec},
+        )

@@ -23,11 +23,18 @@ its first step and replays the (seed, epoch)-fixed pipeline from
 ``step % steps_per_epoch``, an exact mid-epoch resume. ``guard`` turns
 SIGTERM/SIGINT (or a ``FaultPlan`` kill) into one synchronous save at the
 next step boundary and a ``Preempted`` exit, which
-``resilience.run_with_recovery`` resumes from. Partitioners and
-multi-GPU, multi-step slabs, metrics writers, profiling and
-observability are not ported yet (ROADMAP.md).
+``resilience.run_with_recovery`` resumes from.
+
+The tools around a run: ``writer`` (``training.metrics``) gets the
+``train/`` scalars at each ``log_every`` readback and the
+``train_epoch/``/``val/`` scalars at each epoch's end, ``metrics_file``
+one JSON record per epoch, and ``profile_dir`` a ``torch.profiler``
+trace of a few steady-state steps of the first epoch
+(``training.profiling``). Partitioners and multi-GPU, multi-step slabs
+and observability are not ported yet (ROADMAP.md).
 """
 
+import json
 import logging
 import math
 import sys
@@ -51,7 +58,13 @@ from zookeeper_tpu_torch.training.checkpoint import (
     load_into_module,
     save_model,
 )
+from zookeeper_tpu_torch.training.metrics import CompositeMetricsWriter, MetricsWriter
 from zookeeper_tpu_torch.training.optimizer import Adam, Optimizer
+from zookeeper_tpu_torch.training.profiling import (
+    ProfileWindow,
+    format_breakdown,
+    op_time_breakdown,
+)
 from zookeeper_tpu_torch.training.state import TrainState
 from zookeeper_tpu_torch.training.step import (
     NAN_POLICIES,
@@ -115,6 +128,9 @@ class TrainingExperiment(Experiment):
     #: synchronously, and raises ``Preempted``. ``guard.enabled=False``
     #: keeps the signals' default effect.
     guard: PreemptionGuard = ComponentField(PreemptionGuard)
+    #: Where the scalars go; off until a leg is configured, e.g.
+    #: ``writer.jsonl.path=m.jsonl writer.tensorboard.log_dir=tb``.
+    writer: MetricsWriter = ComponentField(CompositeMetricsWriter)
 
     epochs: int = Field(1)
     batch_size: int = Field(32)
@@ -163,6 +179,12 @@ class TrainingExperiment(Experiment):
     #: Steps between progress lines; 0 = epoch lines only.
     log_every: int = Field(0)
     verbose: bool = Field(True)
+    #: One JSON record per epoch (``{"epoch": N, ..., "val_*": ...}``),
+    #: appended; ``writer.jsonl.path`` is the step-keyed form.
+    metrics_file: Optional[str] = Field(None)
+    #: A ``torch.profiler`` trace of a few steady-state steps of the first
+    #: epoch is written here, and its breakdown logged.
+    profile_dir: Optional[str] = Field(None)
     #: Where the model trains: "cuda" (raises without a card) or "cpu".
     device: str = Field("cuda")
 
@@ -173,6 +195,23 @@ class TrainingExperiment(Experiment):
     def _log(self, msg: str) -> None:
         if self.verbose:
             print(msg, flush=True)
+
+    def _log_profile_breakdown(self, steps: int) -> None:
+        """The captured window's breakdown, best effort: a trace of a CPU
+        run holds no device kernels."""
+        if not self.verbose:
+            return
+        try:
+            self._log(format_breakdown(op_time_breakdown(self.profile_dir, steps=max(1, steps))))
+        except (OSError, ValueError) as e:
+            logger.warning("profile breakdown unavailable: %s", e)
+
+    def _abort_profile(self) -> None:
+        """Close an open profiler window (an exception mid-window must not
+        leave the profiler running)."""
+        window = getattr(self, "_profile_window", None)
+        if window is not None:
+            window.abort()
 
     def _steps_per_epoch(self) -> int:
         spe = self.loader.steps_per_epoch("train")
@@ -285,21 +324,32 @@ class TrainingExperiment(Experiment):
         raise Preempted(global_step, saved, self.guard.received_signal)
 
     def _teardown(self) -> None:
-        """Uninstall the guard and wait on the checkpoint writer. A
-        teardown failure while an exception is already in flight is
-        logged and suppressed, so the original error propagates; with
-        none in flight it propagates."""
+        """Uninstall the guard, close an open profiler window, wait on the
+        checkpoint writer and flush the metrics writer (flush, not close:
+        ``run()`` may be called again). Every step runs; a failure while
+        an exception is already in flight is logged and suppressed, so the
+        original error propagates; with none in flight the first failure
+        propagates."""
         self.guard.uninstall()
         pending = sys.exc_info()[1]
-        try:
-            self.checkpointer.wait()
-        except Exception as e:
-            if pending is None:
-                raise
-            logger.warning(
-                "teardown checkpointer.wait failed (%s); suppressed so the "
-                "original exception propagates", e,
-            )
+        first: Optional[BaseException] = None
+        for what, fn in (
+            ("profiler.stop", self._abort_profile),
+            ("checkpointer.wait", self.checkpointer.wait),
+            ("writer.flush", self.writer.flush),
+        ):
+            try:
+                fn()
+            except Exception as e:
+                if pending is None and first is None:
+                    first = e
+                else:
+                    logger.warning(
+                        "teardown %s failed (%s); suppressed so the original "
+                        "exception propagates", what, e,
+                    )
+        if first is not None:
+            raise first
 
     def _check_halt(self, host: Dict[str, float], global_step: int) -> None:
         """``nan_policy="halt"``: raise when a step of the metrics just read
@@ -326,6 +376,7 @@ class TrainingExperiment(Experiment):
         # Per-run probes read by run_with_recovery.
         self.first_step_at = None
         self.save_wait_ms = None
+        self._profile_window = None
         try:
             state = self.checkpointer.restore_state(self.build_state(device))
             state, history = self._train(state, device)
@@ -374,24 +425,41 @@ class TrainingExperiment(Experiment):
             # A mid-epoch resume skips the trained prefix of its first
             # epoch; step_idx stays epoch-absolute.
             start_b = resume_step if epoch == start_epoch else 0
+            # The profiler window: steps p_start..p_stop (inclusive) of the
+            # first epoch this run trains, its warm-up steps left out.
+            profiling = self.profile_dir is not None and epoch == start_epoch
+            p_start = min(start_b + 4, spe - 1)
+            p_stop = min(start_b + 14, spe - 1)
             batches = self.loader.batches(
                 "train", device=device, epoch=epoch, start_batch=start_b, max_batches=spe
             )
             try:
                 for step_idx, batch in enumerate(batches, start=start_b):
                     global_step = epoch * spe + step_idx + 1
+                    if profiling and step_idx == p_start:
+                        self._profile_window = ProfileWindow(self.profile_dir, device)
+                        self._profile_window.start()
                     state, metrics = train_step(state, batch)
                     accum.append(metrics)
                     self._mark_first_step(metrics)
+                    if profiling and step_idx == p_stop:
+                        window, self._profile_window = self._profile_window, None
+                        window.stop()
+                        profiling = False
+                        self._log_profile_breakdown(p_stop - p_start + 1)
                     if self._step_save_due(epoch, step_idx, spe):
                         ck.save(state)
                     if self.log_every and (step_idx + 1) % self.log_every == 0:
+                        # The step's scalars ride the readback log_every
+                        # already pays for.
                         row = _host_means([metrics])
                         self._check_halt(row, global_step)
                         self._log(
                             f"  step {step_idx + 1}/{spe} "
                             f"loss={row['loss']:.4f} acc={row['accuracy']:.4f}"
                         )
+                        self.writer.write_scalars(
+                            global_step, {f"train/{k}": v for k, v in row.items()})
                     self._boundary_check(state, global_step)
             finally:
                 # A preemption drops the batch in flight with the loader
@@ -428,6 +496,20 @@ class TrainingExperiment(Experiment):
                         f"val_acc={vmetrics.get('accuracy', float('nan')):.4f}"
                     )
             self._log(line)
+            if self.metrics_file:
+                record = {"epoch": epoch, **epoch_metrics}
+                if partial_epoch:
+                    record["partial_epoch"] = True
+                if vmetrics is not None:
+                    record.update({f"val_{k}": v for k, v in vmetrics.items()})
+                with open(self.metrics_file, "a") as f:
+                    f.write(json.dumps(record) + "\n")
+            # Epoch aggregates under their own prefix, so they never share
+            # a tag with the per-step train/ scalars at the same step.
+            scalars = {f"train_epoch/{k}": v for k, v in epoch_metrics.items()}
+            if vmetrics is not None:
+                scalars.update({f"val/{k}": v for k, v in vmetrics.items()})
+            self.writer.write_scalars((epoch + 1) * spe, scalars)
             # Scored: fresh validation when the dataset has a split, else
             # the train epoch (not a partial one: its aggregates are not
             # comparable); None on an epoch that was not validated.
