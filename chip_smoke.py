@@ -272,17 +272,45 @@ CUDA card and ``nvcc``. In order:
    ``TrainDigits`` -> ``ServeDigits`` -> ``LatencyBench`` on real digits
    when scikit-learn imports (served accuracy equal to
    ``EvalExperiment``'s), else one line saying so.
-18. One JSON line of the kernels (14 rows; K1, K3, K4, K6 and K7 also
+18. The fused loop (``unroll_phase``): first what counts on the card must
+   reproduce, a division by a host float (a product by its float32
+   reciprocal on the card, which ``optimizer._foreach_div`` matches for a
+   0-d divisor) and the host's bias corrections (the table's values; the
+   card's ``torch.pow`` counted where it differs); then ``TrainImageNet`` (QuickNet-Large,
+   batch 128, bf16, int8 + packed residuals, Adam under WarmupCosine:
+   K6-K8), ``DistillImageNet`` (the recipe at full width from a seeded
+   ResNet-50 teacher: K1 + K3) and ``TrainLM`` (2 layers, seq 8192, d 512,
+   8x64, batch 4, bf16: K9-lse, K10, K11), each 14 steps at ``unroll`` 4
+   (slabs of 4, 4, 4, 2: an eager warm-up slab, then two replays of the
+   4-step CUDA graph and one of the 2-step graph) against the eager loop
+   on the same seed and batches, in deterministic mode: every per-step
+   metric and every state tensor equal bit for bit; the kernels' launches
+   the eager run's, and the warm-up slab's plus each graph's captured
+   launches times its replays; the profiler's kernels over two replays
+   the graph's captured ones (and, for the LM, the experiment's
+   ``profile_dir`` window over whole slabs finds K9-K11); then, in the
+   default settings, the eager step's and the fused loop's wall ms per
+   step (``measure_fused_loop_time``), the fused loop's busy ms and share
+   from that profiler window, capture seconds and peak memory of both
+   runs. Then
+   ``TrainImageNet``'s input pipeline: the native library must build and
+   engage on the card's host, its batches equal the per-example path's
+   bit for bit, and ``run()``'s examples/s (epoch 2 of 2, unroll 4) with
+   the native and the per-example assembly at ``prefetch`` 1 and 2.
+19. One JSON line of the kernels (14 rows; K1, K3, K4, K6 and K7 also
    with their sums on Bi-Real-Net's path under ``bireal``; K1, K3 and K4
    under ``densenet`` and ``melius``, K1 and K3 under ``xnor_train`` per
    DenseNet training step, K2 under ``xnor_train`` per BinaryAlexNet
    step, K1 and K3 under ``recipe`` per distillation step; K1, K3, K6-K11
    under ``checkpoint``, their launches over the killed-and-resumed
    runs; K1-K4 under ``cifar``, their launches on each path of phase
-   17), then the result line.
+   17; K1, K3, K6-K11 under ``unroll``, phase 18's launches, graphs and
+   step times), then the result line.
 """
 
 import contextlib
+import gc
+import itertools
 import json
 import math
 import os
@@ -4207,10 +4235,372 @@ def digits_phase(torch, smi, device="cuda"):
     return stats
 
 
+#: The fused loop (phase 18): ``unroll`` 4 over 14 steps, slabs of 4, 4,
+#: 4 and 2 (an eager warm-up slab, two replays of the 4-step graph, one
+#: of the 2-step graph).
+UNROLL = 4
+UNROLL_STEPS = 14
+UNROLL_LEGS = {
+    "TrainImageNet": ({
+        "model": "QuickNetLarge", "model.compute_dtype": "bfloat16",
+        "model.binary_compute": "int8", "model.pack_residuals": True,
+        "batch_size": TRAIN_BATCH,
+    }, {name: n * sum(s[0] for s in SECTIONS) for name, n in RESID_PER_CONV.items()}),
+    "DistillImageNet": ({
+        **RECIPE, "allow_random_teacher": True, "batch_size": TRAIN_BATCH,
+    }, RECIPE_PER_STEP),
+    "TrainLM": ({**LM_TRAIN_CONFIG, "model.num_layers": 2},
+                {name: 2 for name in LM_TRAIN_KERNELS}),
+}
+#: The kernels' categories in a profiler trace (``training.profiling``).
+CATEGORY_OF = {"pack_rows": "K1 pack_rows", "conv_gemm_popcount": "K3 conv_gemm_popcount",
+               "pack_resid": "K6 pack_resid", "unpack_resid_pm1": "K7 unpack_resid_pm1",
+               "mask_mul_resid": "K8 mask_mul_resid", "flash_forward_lse": "K9 flash_forward",
+               "flash_backward_dq": "K10 flash_backward_dq",
+               "flash_backward_dkv": "K11 flash_backward_dkv"}
+
+
+def _shared_source(exp, cache: dict):
+    """Give ``exp``'s loader the split sources of ``cache`` (filled by
+    the first loader that reads them): every ImageNet-shaped experiment
+    of phase 18 configures the same seeded synthetic dataset, made once."""
+    object.__setattr__(exp.loader, "_source_cache", cache)
+    return exp
+
+
+def _launch_counts(bc, A):
+    return {k: v for counts in (bc.LAUNCHES, A.LAUNCHES) for k, v in counts.items() if v}
+
+
+def _reset_all(bc, A):
+    bc.reset_launches()
+    A.reset_launches()
+
+
+def _same_state(torch, got, want) -> list:
+    """Names whose bits differ between two ``_flat_state`` results; a
+    count compares by value (a graph keeps it on the card as int32)."""
+    check(set(got) == set(want), f"unroll: state names differ: {sorted(set(got) ^ set(want))[:4]}")
+    bad = []
+    for k in want:
+        a, b = got[k], want[k]
+        if a.ndim == 0 and not a.is_floating_point() and not b.is_floating_point():
+            a, b = a.long(), b.long()
+        if not _same_bits(torch, a, b):
+            bad.append(k)
+    return bad
+
+
+def _kernel_counts(torch, prof) -> dict:
+    """Device kernels of a profiler window by port kernel name."""
+    from zookeeper_tpu_torch.training.profiling import kernel_category
+
+    names = {v: k for k, v in CATEGORY_OF.items()}
+    counts = {}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        name = names.get(kernel_category(e.name))
+        if name is not None:
+            counts[name] = counts.get(name, 0) + 1
+    return counts
+
+
+def _busy_ms(torch, prof) -> float:
+    """Summed device time of a profiler window's device activities."""
+    attr = ("self_device_time_total" if hasattr(prof.key_averages()[0], "self_device_time_total")
+            else "self_cuda_time_total")
+    return sum(getattr(e, attr) for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+
+
+def _unroll_leg(torch, bc, A, smi, name, tmp, sources):
+    """One task's fused loop against its eager loop (module docstring,
+    phase 18). Returns the leg's numbers."""
+    import importlib
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from zookeeper_tpu_torch.core import configure
+    from zookeeper_tpu_torch.training import build_multi_step
+    from zookeeper_tpu_torch.training.benchmark import measure_fused_loop_time, time_marginal
+
+    conf, per_step = UNROLL_LEGS[name]
+    module = "lm" if name == "TrainLM" else "imagenet"
+    cls = getattr(importlib.import_module(f"zookeeper_tpu_torch.training.{module}"), name)
+    batch = conf.get("batch_size", 4)
+    tag = f"unroll {name}"
+    dev = torch.device("cuda")
+
+    # The LM's fused run also keeps the experiment's profiler window (whole
+    # slabs), read back by the trace breakdown.
+    profile_dir = os.path.join(tmp, "profile") if name == "TrainLM" else None
+
+    def make(unroll, path):
+        exp = cls()
+        configure(exp, {**conf, "loader.dataset.num_train_examples": UNROLL_STEPS * batch,
+                        "epochs": 1, "steps_per_epoch": UNROLL_STEPS, "validate": False,
+                        "seed": 0, "device": "cuda", "verbose": False, "unroll": unroll,
+                        "log_every": 1, "writer.jsonl.path": path,
+                        "profile_dir": profile_dir if unroll > 1 else None},
+                  name="experiment")
+        return _shared_source(exp, sources)
+
+    runs = {}
+    for unroll in (1, UNROLL):
+        path = os.path.join(tmp, f"{name}-{unroll}.jsonl")
+        exp = make(unroll, path)
+        _reset_all(bc, A)
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        with deterministic(torch):
+            history = exp.run()
+            torch.cuda.synchronize()
+        runs[unroll] = {
+            "exp": exp, "history": history, "seconds": time.perf_counter() - t0,
+            "rows": [r for r in _jsonl(path) if any(k.startswith("train/") for k in r)],
+            "state": _flat_state(torch, exp.final_state), "launches": _launch_counts(bc, A),
+            # The run's own peak: over what was allocated before it.
+            "peak_gib": (torch.cuda.max_memory_allocated() - base) / 2.0**30,
+        }
+    eager, fused = runs[1], runs[UNROLL]
+    # Bit identity: every per-step metric, every state tensor.
+    check(len(eager["rows"]) == len(fused["rows"]) == UNROLL_STEPS,
+          f"{tag}: {len(eager['rows'])} and {len(fused['rows'])} step rows, want {UNROLL_STEPS}")
+    bad_rows = [i for i, (a, b) in enumerate(zip(eager["rows"], fused["rows"])) if a != b]
+    check(not bad_rows, f"{tag}: the per-step metrics differ at steps {bad_rows}: "
+                        f"{eager['rows'][bad_rows[0]] if bad_rows else ''} vs "
+                        f"{fused['rows'][bad_rows[0]] if bad_rows else ''}")
+    bad = _same_state(torch, fused["state"], eager["state"])
+    check(not bad, f"{tag}: the fused run differs from the eager run in {len(bad)} of "
+                   f"{len(eager['state'])} state tensors, e.g. {bad[:4]}")
+    losses = [r["train/loss"] for r in fused["rows"]]
+    check(all(math.isfinite(v) for v in losses), f"{tag}: losses {losses}")
+    print(f"{tag}: {UNROLL_STEPS} steps at unroll {UNROLL} equal the eager loop bit for bit "
+          f"({len(eager['state'])} state tensors, {len(losses)} steps' metrics; losses "
+          f"{losses[0]:.5f} -> {losses[-1]:.5f})", flush=True)
+
+    # Launches: the warm-up slab's own, then captured x replays.
+    multi = fused["exp"].multi_step
+    graphs = list(multi.graphs.values())
+    check(len(graphs) == 2, f"{tag}: {len(graphs)} graphs captured, want 2 (4 and 2 steps)")
+    total = {k: n * UNROLL_STEPS for k, n in per_step.items()}
+    check(fused["launches"] == total == eager["launches"],
+          f"{tag}: launched {fused['launches']} fused, {eager['launches']} eager, want {total}")
+    graph_rows = []
+    replayed = {k: 0 for k in per_step}
+    for g in graphs:
+        k = int(next(iter(g.slab.values())).shape[0])
+        captured = {n: c for d in g.launches for n, c in d.items()}
+        want = {n: c * k for n, c in per_step.items()}
+        check({n: captured.get(n, 0) for n in per_step} == want,
+              f"{tag}: the {k}-step graph captured {captured}, want {want}")
+        for n in per_step:
+            replayed[n] += captured[n] * g.replays
+        graph_rows.append({"steps": k, "replays": g.replays, "captured": want,
+                           "capture_s": g.capture_s})
+    check(all(replayed[n] + per_step[n] * UNROLL == total[n] for n in per_step),
+          f"{tag}: captured x replays {replayed} + the warm-up slab != {total}")
+
+    profile_window = {}
+    if profile_dir is not None:
+        # The window opens at the first slab from step 4 and closes after
+        # the slab holding step 13: steps 4-13.
+        from zookeeper_tpu_torch.training.profiling import op_time_breakdown
+
+        cats = op_time_breakdown(profile_dir, steps=UNROLL_STEPS - UNROLL)["by_category"]
+        profile_window = {c: cats[c]["ms_per_step"] for c in cats if c.startswith("K")}
+        check(sorted(profile_window) == sorted(CATEGORY_OF[n] for n in per_step)
+              and all(v > 0 for v in profile_window.values()),
+              f"{tag}: the profile_dir window's port kernels are {profile_window}")
+        print(f"{tag}: the profile_dir window over whole slabs finds the replayed kernels, "
+              f"ms a step {json.dumps(profile_window)}", flush=True)
+
+    # Timing, default settings, from the fused run's state: the fused
+    # loop (a fresh multi-step of the fused run's step: its own warm-up
+    # slab and capture) against the same step, eager, from the eager
+    # run's state, on the same slab.
+    exp_e, exp_f = eager["exp"], fused["exp"]
+    slabs = exp_f.loader.batches("train", device=dev, epoch=0, max_batches=UNROLL,
+                                 unroll=UNROLL)
+    slab = next(slabs)
+    slabs.close()
+    step_batch = {k: v[0] for k, v in slab.items()}
+    step_fn = multi.step_fn
+    timing_ms = build_multi_step(step_fn)
+    fused_s, state_f = measure_fused_loop_time(timing_ms, exp_f.final_state, slab,
+                                               rounds=2, n1=1, n2=3)
+    holder = {"state": exp_e.final_state}
+
+    def eager_chain(n):
+        st, m = holder["state"], None
+        t0 = time.perf_counter()
+        for _ in range(n):
+            st, m = step_fn(st, step_batch)
+        float(m["loss"])
+        return time.perf_counter() - t0
+
+    eager_chain(2)
+    eager_s = time_marginal(eager_chain, UNROLL, 3 * UNROLL, 2)
+
+    # Two profiler windows over two whole slabs (replays of the timing
+    # graph): the kernels they launched, counted in a window whose
+    # schedule drops a warm-up replay first (a window's first kernel can
+    # be missed), and the busy share against the timed wall per step,
+    # from a plain window (a scheduled one's device totals read high).
+    torch.cuda.synchronize()
+    sched = torch.profiler.schedule(wait=0, warmup=1, active=2, repeat=1)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=sched) as prof:
+        for _ in range(3):
+            state_f, _ = timing_ms(state_f, slab)
+            torch.cuda.synchronize()
+            prof.step()
+    seen = _kernel_counts(torch, prof)
+    want_seen = {n: 2 * UNROLL * c for n, c in per_step.items()}
+    check(seen == want_seen, f"{tag}: the profiler saw {seen} in two replays, want {want_seen}")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(2):
+            state_f, _ = timing_ms(state_f, slab)
+        torch.cuda.synchronize()
+    fused_busy = _busy_ms(torch, prof) / (2 * UNROLL)
+    stats = {
+        "bit_identical": True, "steps": UNROLL_STEPS, "unroll": UNROLL,
+        "launches": total, "graphs": graph_rows,
+        "profiler_per_replay": {n: c // 2 for n, c in seen.items()},
+        "eager_step_ms": eager_s * 1e3, "fused_step_ms": fused_s * 1e3,
+        "fused_busy_ms": fused_busy, "fused_busy_share": fused_busy / (fused_s * 1e3),
+        "timing_capture_s": [g.capture_s for g in timing_ms.graphs.values()],
+        "eager_peak_gib": eager["peak_gib"], "fused_peak_gib": fused["peak_gib"],
+        "eager_run_s": eager["seconds"], "fused_run_s": fused["seconds"],
+        "profile_window_ms": profile_window,
+    }
+    print(f"{tag} on {smi}: {json.dumps(stats)}", flush=True)
+    del runs, eager, fused, exp_e, exp_f, timing_ms, state_f, holder
+    torch.cuda.empty_cache()
+    return stats
+
+
+def _native_leg(torch, smi, sources):
+    """TrainImageNet's input pipeline: the native assembly is built and
+    engaged on this host, its batches equal the per-example path's, and
+    ``run()``'s examples/s (the fused loop) with each at prefetch 1 and 2."""
+    import numpy as np
+
+    from zookeeper_tpu_torch import native
+    from zookeeper_tpu_torch.core import configure
+    from zookeeper_tpu_torch.training.imagenet import TrainImageNet
+
+    tag = "unroll native"
+    check(native.available(), f"{tag}: the native library does not build or load on this host")
+    conf, _ = UNROLL_LEGS["TrainImageNet"]
+    steps = 2 * UNROLL
+
+    def make(prefetch, per_example):
+        exp = TrainImageNet()
+        configure(exp, {**conf, "loader.dataset.num_train_examples": UNROLL_STEPS * TRAIN_BATCH,
+                        "epochs": 2, "steps_per_epoch": steps, "validate": False, "seed": 0,
+                        "device": "cuda", "verbose": False, "unroll": UNROLL,
+                        "loader.prefetch": prefetch}, name="experiment")
+        if per_example:
+            object.__setattr__(exp.loader.preprocessing, "native_batch_spec", lambda t: None)
+        return _shared_source(exp, sources)
+
+    # The same batches either way, bit for bit (the augmenting mode).
+    calls = []
+    real = native.gather_augment_normalize
+    with mock.patch.object(native, "gather_augment_normalize",
+                           lambda *a, **k: (calls.append(1), real(*a, **k))[1]):
+        fast = list(itertools.islice(make(2, False).loader.host_batches("train", epoch=0), 2))
+    check(len(calls) == 2, f"{tag}: the native path did not engage ({len(calls)} calls)")
+    slow = list(itertools.islice(make(2, True).loader.host_batches("train", epoch=0), 2))
+    check(all(np.array_equal(a[k], b[k]) for a, b in zip(fast, slow) for k in a),
+          f"{tag}: native and per-example batches differ")
+    stats = {}
+    for per_example in (False, True):
+        for prefetch in (1, 2):
+            calls.clear()
+            exp = make(prefetch, per_example)
+            with mock.patch.object(native, "gather_augment_normalize",
+                                   lambda *a, **k: (calls.append(1), real(*a, **k))[1]):
+                history = exp.run()
+            check(len(calls) == (0 if per_example else 2 * steps),
+                  f"{tag}: {len(calls)} native batches with per_example={per_example}")
+            key = f"{'per_example' if per_example else 'native'}_prefetch{prefetch}"
+            stats[key] = history["train"][1]["examples_per_sec"]
+            del exp
+    print(f"{tag} on {smi}: run() examples/s, epoch 2 of 2 ({steps} steps each, unroll "
+          f"{UNROLL}: two replays an epoch): {json.dumps(stats)}", flush=True)
+    torch.cuda.empty_cache()
+    return stats
+
+
+def _scalar_route_check(torch, smi) -> dict:
+    """What the counts on the card must reproduce (``training.optimizer``):
+    a division by a host float is a product by its float32 reciprocal
+    here, a division by a 0-d tensor is not; and ``1 - torch.pow(decay,
+    count)`` here against the host's ``powf`` for counts 1-20000."""
+    import numpy as np
+
+    from zookeeper_tpu_torch.training.optimizer import _bias_correction, _foreach_div
+
+    dev = torch.device("cuda")
+    g = torch.Generator().manual_seed(0)
+    xs = [torch.randn(s, generator=g).to(dev) for s in ((64, 3, 3, 32), (1000,), (7, 9))]
+    out = {"float_is_reciprocal_product": True, "float_differs_from_tensor": False}
+    for d in (0.1, 0.001, 0.999, 0.19, 3.0):
+        f = float(np.float32(d))
+        t = torch.tensor(f, dtype=torch.float32, device=dev)
+        by_float = torch._foreach_div(xs, f)
+        same = lambda a, b: all(torch.equal(p, q) for p, q in zip(a, b))  # noqa: E731
+        out["float_is_reciprocal_product"] &= same(by_float, _foreach_div(xs, t))
+        out["float_differs_from_tensor"] |= not same(by_float, torch._foreach_div(xs, t))
+    check(out["float_is_reciprocal_product"],
+          "unroll: a divisor on the card does not give the host float's bits")
+    counts = torch.arange(1, 20001, device=dev, dtype=torch.int32)
+    for decay in (0.9, 0.95, 0.99, 0.999):
+        card = (1 - torch.pow(decay, counts.to(torch.float32))).cpu().numpy()
+        host = np.array([_bias_correction(decay, c) for c in range(1, 20001)], np.float32)
+        tables = {}
+        table = torch.stack([_bias_correction(decay, c, tables)
+                             for c in counts[:2000]]).cpu().numpy()
+        check(np.array_equal(table.view(np.int32), host[:2000].view(np.int32)),
+              f"unroll: the bias-correction table at {decay} differs from the host")
+        out[f"pow_differs_{decay}"] = int((card.view(np.int32) != host.view(np.int32)).sum())
+    print(f"unroll scalars on {smi}: {json.dumps(out)} (pow: counts 1-20000 where the "
+          "card's torch.pow differs from the host's powf)", flush=True)
+    return out
+
+
+def unroll_phase(torch, bc, A, smi):
+    """Phase 18, the fused loop (module docstring). Returns {leg: stats}."""
+    import tempfile
+
+    out = {"scalars": _scalar_route_check(torch, smi)}
+    imagenet, tokens = {}, {}
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="zk_unroll_") as tmp:
+        for name in UNROLL_LEGS:
+            out[name] = _unroll_leg(torch, bc, A, smi, name, tmp,
+                                    tokens if name == "TrainLM" else imagenet)
+            print(f"unroll: {name} leg done at {time.perf_counter() - t0:.1f} s", flush=True)
+    out["native"] = _native_leg(torch, smi, imagenet)
+    print(f"unroll: phase 18 in {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
 def main() -> None:
     if not os.path.isdir(os.path.join(ROOT, "zookeeper_tpu_torch", "csrc")):
         fail("run from a checkout: zookeeper_tpu_torch/ is not beside this script")
     sys.path.insert(0, ROOT)
+    started = time.perf_counter()
+
+    def elapsed(label: str) -> None:
+        print(f"elapsed {time.perf_counter() - started:.1f} s: {label}", flush=True)
+
     # cuBLAS reads this when CUDA starts: deterministic workspaces.
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
@@ -4248,10 +4638,12 @@ def main() -> None:
     totals.update(resid_kernel_phase(torch, bc))
     totals.update(xnor_kernel_phase(torch, bc, smi))
     int8_exact_phase(torch, bc)
+    elapsed("build, kernel phases")
     slices = {label: slice_phase(torch, bc, label, smi) for label in SLICES}
     print(f"slices on {smi}: "
           + " ".join(f"{label} {json.dumps(stats)}" for label, (_, stats) in slices.items()),
           flush=True)
+    elapsed("serving slices")
     launches_t, _ = training_phase(torch, bc, smi)
     bireal = bireal_kernel_phase(torch, bc)
     bireal.update(bireal_resid_phase(torch, bc))
@@ -4260,6 +4652,7 @@ def main() -> None:
     resnet = resnet_training_phase(torch, bc, smi)
     mnist = mnist_phase(torch, smi)
     print(f"zoo on {smi}: resnet50 {json.dumps(resnet)} mnist {json.dumps(mnist)}", flush=True)
+    elapsed("training phases, zoo")
     dense = dense_kernel_phase(torch, bc)
     xnor_dense_vjp_phase(torch, bc)
     dense_profiles = dense_profile_phase(smi)
@@ -4273,6 +4666,7 @@ def main() -> None:
         + f" densenet_training {json.dumps(dense_train)} alexnet_training "
         f"{json.dumps(alex_train)}", flush=True)
 
+    elapsed("dense zoo")
     from zookeeper_tpu_torch.ops import attention as A
 
     lm_records, lm_err = lm_kernel_phase(torch, A)
@@ -4282,13 +4676,31 @@ def main() -> None:
     lm_train_records, lm_train_err = lm_train_kernel_phase(torch, A)
     launches_lt, _ = lm_training_phase(torch, A, smi)
     lm_wide_phase(torch, A, smi)
+    elapsed("LM phases")
     recipe_kernels = recipe_kernel_phase(torch, bc)
     launches_rt, recipe = recipe_phase(torch, bc, smi)
+    elapsed("recipe")
     launches_ck, _ = checkpoint_phase(torch, bc, A, smi)
+    elapsed("checkpoint")
     cifar_entries, cifar = cifar_phase(torch, bc, smi)
     digits = digits_phase(torch, smi)
     print(f"cifar and digits on {smi}: {json.dumps(cifar)} digits {json.dumps(digits)}",
           flush=True)
+    elapsed("cifar, digits")
+    unroll = unroll_phase(torch, bc, A, smi)
+    elapsed("unroll")
+    unroll_rows = {}
+    for leg in UNROLL_LEGS:
+        u = unroll[leg]
+        for name, n in u["launches"].items():
+            unroll_rows[name] = {
+                "path": f"{leg} at unroll {UNROLL}, {UNROLL_STEPS} steps (a warm-up slab, "
+                        "then CUDA graph replays)",
+                "launches": n, "graphs": u["graphs"],
+                "profiler_per_replay": u["profiler_per_replay"].get(name, 0),
+                "eager_step_ms": u["eager_step_ms"], "fused_step_ms": u["fused_step_ms"],
+                "fused_busy_share": u["fused_busy_share"], "bit_identical": u["bit_identical"],
+            }
     # Each kernel's launches over the killed-and-resumed runs (both
     # attempts of each).
     checkpoint_rows = {name: {"path": "TrainImageNet QuickNet-Large, 6 steps killed and "
@@ -4383,6 +4795,8 @@ def main() -> None:
             # ConvertPacked's probes, LatencyBench and ServingConfig on the
             # TrainCifar export's packed twins.
             rows[-1]["cifar"] = {"launches": cifar_entries[name]}
+        if name in unroll_rows:
+            rows[-1]["unroll"] = unroll_rows[name]
         if name in ("mask_mul_resid", "xnor_matmul_packed_scaled"):
             # K8 has no work on Bi-Real's step; K2 runs in XNORNet's dense stage.
             rows[-1]["zoo_launches"] = (launches_bt[name] if name == "mask_mul_resid"
@@ -4450,6 +4864,7 @@ def main() -> None:
                       else A.flash_backward_variant)
         rows[-1]["variant"] = variant_of(torch.bfloat16, LM_TRAIN_SHAPE[3])
         rows[-1]["checkpoint"] = checkpoint_rows[name]
+        rows[-1]["unroll"] = unroll_rows[name]
     print(smi, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({

@@ -46,7 +46,7 @@ def test_importing_the_port_loads_no_jax():
         "import zookeeper_tpu_torch.data.store, zookeeper_tpu_torch.training.metrics\n"
         "import zookeeper_tpu_torch.training.profiling, zookeeper_tpu_torch.training.benchmark\n"
         "import zookeeper_tpu_torch.training.digits, zookeeper_tpu_torch.training.cifar\n"
-        "import zookeeper_tpu_torch.training.convert_packed\n"
+        "import zookeeper_tpu_torch.training.convert_packed, zookeeper_tpu_torch.native\n"
         "import zookeeper_tpu_torch.serving.classifier, zookeeper_tpu_torch.serving.latency\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
         "assert not bad, bad\n"

@@ -18,7 +18,12 @@ from zookeeper_tpu_torch.data.dataset import (
     SyntheticMnist,
     SyntheticTokens,
 )
-from zookeeper_tpu_torch.data.pipeline import DataLoader, batch_iterator, prefetch_to_device
+from zookeeper_tpu_torch.data.pipeline import (
+    DataLoader,
+    batch_iterator,
+    prefetch_to_device,
+    slab_iterator,
+)
 from zookeeper_tpu_torch.data.preprocessing import (
     ImageClassificationPreprocessing,
     PassThroughPreprocessing,
@@ -67,6 +72,7 @@ __all__ = [
     "WrappedSource",
     "batch_iterator",
     "prefetch_to_device",
+    "slab_iterator",
     "wrap_source",
     "write_store",
 ]

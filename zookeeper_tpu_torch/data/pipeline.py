@@ -4,17 +4,21 @@ The port's own copy of ``zookeeper_tpu/data/pipeline.py``:
 
 - :func:`batch_iterator`: the deterministic per-epoch global shuffle
   (the same permutation as the JAX package for the same seed and epoch),
-  per-example preprocessing (optionally on a thread pool) and stacking
-  into numpy batches;
+  then either the fused native batch assembly (``native``: one C++ call a
+  batch over a uint8 column store, when the preprocessing offers a
+  ``native_batch_spec``) or per-example preprocessing (optionally on a
+  thread pool) and stacking into numpy batches; the two give the same
+  batches, bit for bit;
+- :func:`slab_iterator`: ``unroll`` consecutive batches stacked into one
+  slab, the fused multi-step loop's input;
 - :func:`prefetch_to_device`: a background thread that moves each batch
-  to the device through pinned host memory with a non-blocking copy on a
-  side stream, one batch in flight while the card runs the step;
+  or slab to the device through pinned host memory with a non-blocking
+  copy on a side stream, ``size`` of them in flight while the card runs
+  the step;
 - :class:`DataLoader`: the component tying a ``Dataset``, a
   ``Preprocessing`` and the batch settings together.
 
-The JAX package's fused native batch assembly, multi-host slicing and
-the multi-step slabs are not ported (ROADMAP.md); the per-example path
-here is the one the native kernel is held bit-identical to.
+Multi-host slicing is not ported (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -34,6 +38,70 @@ from zookeeper_tpu_torch.data.preprocessing import Preprocessing
 from zookeeper_tpu_torch.data.source import DataSource
 
 Batch = Dict[str, np.ndarray]
+
+
+def _column_arrays(source: DataSource) -> Optional[Dict[str, np.ndarray]]:
+    """Whole-column ndarray views of a source's features, when it has
+    them: ``.arrays`` (``ArraySource``) or ``.features``
+    (``MemmapSource``'s read-only memmaps). None keeps the per-example
+    path."""
+    for attr in ("arrays", "features"):
+        cols = getattr(source, attr, None)
+        if isinstance(cols, dict) and all(isinstance(v, np.ndarray) for v in cols.values()):
+            return cols
+    return None
+
+
+def _native_assembly(source: DataSource, preprocessing: Optional[Preprocessing],
+                     training: bool, seed: int, epoch: int):
+    """``(assemble, labels)`` when the batch can be assembled natively:
+    ``assemble(indices)`` gives the float32 inputs of the examples at
+    ``indices`` and ``labels`` is the label column; None otherwise. The
+    JAX package's conditions: a spec from the preprocessing, a uint8
+    C-contiguous image column; "normalize" needs the store already in the
+    output shape; "augment" needs either RandomResizedCrop over any [N,
+    H, W, C] store of the output's channels, or pad-and-crop over an
+    output-shaped store with ``pad_pixels`` below its side (the kernel
+    reflects once; numpy's reflect pad repeats for larger pads). Both
+    modes run ``gather_augment_normalize``, "normalize" through its copy
+    branch (no crop, no flip): ``x / 255`` then the affine, the
+    per-example path's arithmetic, so the batches are that path's bit for
+    bit (the JAX package's ``gather_normalize`` computes ``scale * x +
+    shift``, off in the last bit). It has no numpy fallback: without the
+    library the per-example path runs."""
+    spec_fn = getattr(preprocessing, "native_batch_spec", None)
+    spec = spec_fn(training) if spec_fn is not None else None
+    if spec is None:
+        return None
+    arrays = _column_arrays(source)
+    if arrays is None:
+        return None
+    img, lbl = arrays.get(spec["image_key"]), arrays.get(spec["label_key"])
+    if img is None or lbl is None or img.dtype != np.uint8 or not img.flags["C_CONTIGUOUS"]:
+        return None
+    from zookeeper_tpu_torch import native
+
+    normalize = spec.get("mode", "normalize") == "normalize"
+    expected = tuple(spec["expected_shape"])
+    if not native.available() or img.ndim != 4:
+        return None
+    if normalize or not spec["random_resized_crop"]:
+        if tuple(img.shape[1:]) != expected or (
+                not normalize and spec["pad_pixels"] >= min(expected[:2])):
+            return None
+    elif img.shape[3] != expected[2]:
+        return None
+    recipe = ({"random_resized_crop": False, "pad_pixels": 0, "random_flip": False}
+              if normalize else
+              {k: spec[k] for k in ("random_resized_crop", "crop_scale_range",
+                                    "log_aspect_range", "pad_pixels", "random_flip")})
+
+    def assemble(idx):
+        return native.gather_augment_normalize(
+            img, idx, out_height=expected[0], out_width=expected[1], seed=seed, epoch=epoch,
+            post_scale=spec["post_scale"], post_shift=spec["post_shift"], **recipe)
+
+    return assemble, lbl
 
 
 def batch_iterator(
@@ -79,6 +147,15 @@ def batch_iterator(
     else:
         order = np.arange(n)
 
+    assembly = _native_assembly(source, preprocessing, training, seed, epoch)
+    if assembly is not None:
+        assemble, labels = assembly
+        for b in range(start_batch, num_batches):
+            idx = order[b * batch_size:min((b + 1) * batch_size, n)].astype(np.int64)
+            if len(idx):
+                yield {"input": assemble(idx), "target": labels[idx].astype(np.int32)}
+        return
+
     def fetch(global_index: int) -> Dict[str, np.ndarray]:
         idx = int(order[global_index])
         example = dict(source[idx])
@@ -110,12 +187,62 @@ def batch_iterator(
             pool.shutdown(wait=False)
 
 
+def slab_iterator(
+    iterator: Iterator[Batch],
+    unroll: int,
+    *,
+    max_batches: Optional[int] = None,
+) -> Iterator[Batch]:
+    """Group ``unroll`` consecutive batches into one ``[unroll, batch,
+    ...]`` slab, the fused multi-step loop's input
+    (``training.step.build_multi_step``).
+
+    Slab ``i`` is batches ``[i * unroll, (i + 1) * unroll)`` of
+    ``iterator``, so which example lands in which step never changes: a
+    ``start_batch`` resume that is not a multiple of ``unroll`` just
+    starts slabbing from that batch. The last slab may be partial.
+    Every batch must have the first batch's shapes, across slabs too (a
+    partial last batch raises: slabs need ``drop_remainder``).
+    ``max_batches`` caps the batches consumed, before stacking, so a cap
+    inside a slab truncates it."""
+    if unroll < 1:
+        raise ValueError(f"unroll={unroll} must be >= 1.")
+
+    def stack(buf):
+        return {k: np.stack([b[k] for b in buf]) for k in buf[0]}
+
+    if max_batches is not None and max_batches <= 0:
+        return
+    buf: list = []
+    consumed = 0
+    first_sig = None
+    for batch in iterator:
+        sig = tuple(sorted((k, np.shape(v)) for k, v in batch.items()))
+        if first_sig is None:
+            first_sig = sig
+        elif sig != first_sig:
+            raise ValueError(
+                "slab_iterator got batches of differing shapes (a "
+                "partial final batch?): slabs require drop_remainder "
+                "batching."
+            )
+        buf.append(batch)
+        consumed += 1
+        if len(buf) == unroll:
+            yield stack(buf)
+            buf = []
+        if max_batches is not None and consumed >= max_batches:
+            break
+    if buf:
+        yield stack(buf)
+
+
 _END = object()
 
 
 def _stage(batch: Batch, device: torch.device, stream) -> Any:
-    """One numpy batch as tensors on ``device``. For a CUDA device the
-    host arrays are copied into pinned memory and sent with a
+    """One numpy batch (or slab) as tensors on ``device``. For a CUDA
+    device each host array is copied into pinned memory and sent with one
     non-blocking copy on ``stream``; returns ``(tensors, event)`` with
     the event recorded after the copies."""
     host = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in batch.items()}
@@ -128,16 +255,42 @@ def _stage(batch: Batch, device: torch.device, stream) -> Any:
     return out, event
 
 
+def _hand_over(item, device: torch.device) -> Dict[str, torch.Tensor]:
+    """A staged batch for the caller: its stream waits on the copy (no
+    host synchronisation) and the allocator learns that stream uses the
+    tensors the copy stream allocated."""
+    batch, event = item
+    if event is not None:
+        current = torch.cuda.current_stream(device)
+        current.wait_event(event)
+        for t in batch.values():
+            t.record_stream(current)
+    return batch
+
+
+def _stage_inline(iterator: Iterator[Batch], device: torch.device):
+    """``prefetch_to_device(size=0)``: each batch staged on the calling
+    thread, on its current stream, when the caller asks for it."""
+    for batch in iterator:
+        stream = torch.cuda.current_stream(device) if device.type == "cuda" else None
+        yield _hand_over(_stage(batch, device, stream), device)
+
+
 def prefetch_to_device(
-    iterator: Iterator[Batch], device: Any
+    iterator: Iterator[Batch], device: Any, *, size: int = 2
 ) -> Iterator[Dict[str, torch.Tensor]]:
-    """Stage host batches on ``device`` from a background thread, one
-    batch in flight (queued or being copied) while the caller runs on the
-    one it holds. The caller's stream waits on each batch's copy before
-    it is handed over, so no host synchronisation is paid."""
+    """Stage host batches (or slabs) on ``device`` from a background
+    thread, up to ``size`` staged and waiting while the caller runs on
+    the one it holds (``DataLoader.prefetch``). The caller's stream waits
+    on each one's copy before it is handed over, so no host
+    synchronisation is paid. ``size=0`` stages inline on the calling
+    thread, with no thread and nothing in flight."""
     device = torch.device(device)
+    if size <= 0:
+        yield from _stage_inline(iterator, device)
+        return
     stream = torch.cuda.Stream(device) if device.type == "cuda" else None
-    q: "queue.Queue[Any]" = queue.Queue(maxsize=1)
+    q: "queue.Queue[Any]" = queue.Queue(maxsize=size)
     stop = threading.Event()
     err: list = []
 
@@ -169,15 +322,7 @@ def prefetch_to_device(
                 if err:
                     raise err[0]
                 return
-            batch, event = item
-            if event is not None:
-                current = torch.cuda.current_stream(device)
-                current.wait_event(event)
-                for t in batch.values():
-                    # The copy stream allocated these; tell the allocator
-                    # the caller's stream uses them now.
-                    t.record_stream(current)
-            yield batch
+            yield _hand_over(item, device)
     finally:
         stop.set()
         thread.join()
@@ -196,6 +341,9 @@ class DataLoader:
     seed: int = Field(0)
     drop_remainder: bool = Field(True)
     num_workers: int = Field(0)
+    #: Staged batches (or slabs) in flight on the device ahead of the
+    #: step; 0 copies each one on the calling thread when it is asked for.
+    prefetch: int = Field(2)
 
     def _source(self, split: str) -> Optional[DataSource]:
         """The split's source, built once for the loader's lifetime."""
@@ -247,17 +395,24 @@ class DataLoader:
         training: Optional[bool] = None,
         start_batch: int = 0,
         max_batches: Optional[int] = None,
+        unroll: int = 1,
     ) -> Iterator[Dict[str, torch.Tensor]]:
         """The split's batches as tensors on ``device`` through
-        :func:`prefetch_to_device`, from batch ``start_batch`` of the
-        epoch (:func:`batch_iterator`) up to, not including, batch
-        ``max_batches``: the cap counts from the epoch's start, as the
-        training loop's ``steps_per_epoch`` cutoff does, so a resumed
-        epoch ends where the uninterrupted one does."""
+        :func:`prefetch_to_device` (``prefetch`` deep), from batch
+        ``start_batch`` of the epoch (:func:`batch_iterator`) up to, not
+        including, batch ``max_batches``: the cap counts from the epoch's
+        start, as the training loop's ``steps_per_epoch`` cutoff does, so
+        a resumed epoch ends where the uninterrupted one does.
+        ``unroll > 1`` yields slabs of ``unroll`` stacked batches
+        (:func:`slab_iterator`, the last one truncated at the cap),
+        stacked on the host and staged with one copy a tensor."""
         it = self.host_batches(split, epoch=epoch, training=training, start_batch=start_batch)
-        if max_batches is not None:
-            it = itertools.islice(it, max(0, max_batches - start_batch))
-        return prefetch_to_device(it, device)
+        cap = None if max_batches is None else max(0, max_batches - start_batch)
+        if unroll > 1:
+            it = slab_iterator(it, unroll, max_batches=cap)
+        elif cap is not None:
+            it = itertools.islice(it, cap)
+        return prefetch_to_device(it, device, size=self.prefetch)
 
     def steps_per_epoch(self, split: str = "train") -> int:
         source = self._source(split)

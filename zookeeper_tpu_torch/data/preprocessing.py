@@ -50,6 +50,13 @@ class Preprocessing:
             "target": np.asarray(self.output(example, training)),
         }
 
+    def native_batch_spec(self, training: bool):
+        """The spec of the pipeline's native batch assembly
+        (``data.pipeline``, ``zookeeper_tpu_torch.native``) when this
+        preprocessing reduces to it in this mode over a uint8 store;
+        None keeps the per-example path."""
+        return None
+
 
 @component
 class PassThroughPreprocessing(Preprocessing):
@@ -198,6 +205,48 @@ class ImageClassificationPreprocessing(Preprocessing):
 
     def output(self, example: Example, training: bool) -> np.ndarray:
         return np.asarray(example[self.label_key], dtype=np.int32)
+
+    def native_batch_spec(self, training: bool):
+        """The JAX package's spec. Training with ``augment``: the
+        "augment" mode, the whole recipe, which the native kernel replays
+        bit for bit through the shared counter RNG. Otherwise the
+        "normalize" mode: the affine over the uint8 pixels, as JAX's
+        ``scale``/``shift`` and as this package assembles it,
+        ``post_scale``/``post_shift`` after the division by 255 (the
+        per-example path's order, ``data.pipeline``)."""
+        if training and self.augment:
+            spec = {
+                "image_key": self.image_key,
+                "label_key": self.label_key,
+                "mode": "augment",
+                "expected_shape": self.input_shape,
+                "random_resized_crop": bool(self.random_resized_crop),
+                "pad_pixels": int(self.pad_pixels),
+                "random_flip": bool(self.random_flip),
+                "post_scale": 2.0 if self.zero_center else 1.0,
+                "post_shift": -1.0 if self.zero_center else 0.0,
+                "crop_scale_range": (0.0, 0.0),
+                "log_aspect_range": (0.0, 0.0),
+            }
+            if self.random_resized_crop:
+                s_lo, s_hi, log_lo, log_hi = self._validated_rrc_ranges()
+                spec["crop_scale_range"] = (s_lo, s_hi)
+                spec["log_aspect_range"] = (log_lo, log_hi)
+            return spec
+        if self.zero_center:
+            scale, shift = 2.0 / 255.0, -1.0
+        else:
+            scale, shift = 1.0 / 255.0, 0.0
+        return {
+            "image_key": self.image_key,
+            "label_key": self.label_key,
+            "mode": "normalize",
+            "scale": scale,
+            "shift": shift,
+            "post_scale": 2.0 if self.zero_center else 1.0,
+            "post_shift": -1.0 if self.zero_center else 0.0,
+            "expected_shape": self.input_shape,
+        }
 
 
 def _center_crop_or_pad(image: np.ndarray, height: int, width: int) -> np.ndarray:

@@ -131,7 +131,9 @@ def _blur_pool(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """Anti-aliased stride-2 downsampling over NHWC: fixed 3x3 binomial
     filter, depthwise, SAME padding."""
     c = x.shape[-1]
-    f = torch.tensor([1.0, 2.0, 1.0], dtype=dtype, device=x.device)
+    # Filled on the device: a host tensor's copy has no place in a CUDA
+    # graph's capture.
+    f = 2.0 - (torch.arange(3, dtype=dtype, device=x.device) - 1.0).abs()  # [1, 2, 1]
     k2d = torch.outer(f, f)
     k2d = k2d / k2d.sum()
     weight = k2d.expand(c, 1, 3, 3).contiguous()

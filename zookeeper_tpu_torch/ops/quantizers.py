@@ -139,7 +139,8 @@ def _mean_abs(x: torch.Tensor, dims=None) -> torch.Tensor:
     a = x.detach().abs().float()
     count = a.numel() if dims is None else math.prod(a.shape[d] for d in dims)
     total = a.sum() if dims is None else a.sum(dim=dims, keepdim=True)
-    recip = 1.0 / torch.tensor(float(count), dtype=torch.float32, device=x.device)
+    # A fill, not a host copy, so a CUDA graph can capture it.
+    recip = 1.0 / torch.full((), float(count), dtype=torch.float32, device=x.device)
     return (total * recip).to(x.dtype)
 
 

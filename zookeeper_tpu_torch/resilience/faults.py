@@ -19,8 +19,12 @@ one ``None`` check.
   thread reads the plan too), so the retry of a faulted operation
   succeeds and the recovery completes.
 - ``nan_at_step`` is read once, when ``make_train_step`` builds the step:
-  the step whose counter (the host ``state.step`` before it) equals it
+  the step whose counter (the host ``state.step`` before it, or under the
+  fused loop's CUDA graph ``state.step_counter`` on the card) equals it
   computes a NaN loss, which the ``nan_policy`` then handles.
+- Under the fused loop (``TrainingExperiment.unroll > 1``) the boundaries
+  are slab ends: a kill at a step inside a slab lands at the slab's end,
+  as step-cadence checkpoints do.
 
 The serving legs (worker and decode crashes, disaggregation, the fleet)
 and the multi-host legs (``kill_process_at_step``, ``fail_host_finalize``,
@@ -112,7 +116,9 @@ class FaultPlan:
 
     def kill_due(self, step: int) -> bool:
         """One-shot: True at the first query with ``step >=
-        kill_at_step`` (queried at step boundaries)."""
+        kill_at_step`` (queried at step boundaries; with ``unroll > 1``
+        at slab ends, so the kill lands at the end of the slab holding
+        the step)."""
         if self.kill_at_step is None:
             return False
         with self._lock:

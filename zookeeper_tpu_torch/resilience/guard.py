@@ -10,7 +10,10 @@ point, saves once, synchronously, and raises
 ``run_with_recovery`` resumes from. Nothing runs inside the handler:
 the save happens on the training thread at the next boundary.
 ``FaultPlan(kill_at_step=N)`` trips the same flag, so an injected kill
-and a real SIGTERM take one code path.
+and a real SIGTERM take one code path. The fused loop
+(``TrainingExperiment.unroll > 1``) checks the flag at slab ends: the
+state is an exact resume point only between slabs, so a signal during a
+slab takes effect, and saves, at its end.
 """
 
 import logging

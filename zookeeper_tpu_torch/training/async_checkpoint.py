@@ -10,7 +10,9 @@ mode splits it:
    and records an event. The port's train step updates the state in
    place, so the snapshot must own its bytes before the next step runs:
    stream order puts the next step's writes behind the copies, and the
-   training thread goes on without waiting for them.
+   training thread goes on without waiting for them. Under the fused
+   loop the snapshot is taken at a slab's end, on the stream its CUDA
+   graph replays on, so the next slab's replay queues behind it too.
 2. **Write** (this module's thread): it waits on the snapshot's event,
    then serializes and writes it with the sync path's protocol
    (temporary name, fsync, atomic rename), so a write that dies with the

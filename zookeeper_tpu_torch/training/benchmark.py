@@ -43,6 +43,42 @@ def _readback(out: torch.Tensor) -> float:
     return float(out.reshape(-1)[0])
 
 
+def measure_fused_loop_time(
+    multi_step: Callable[[Any, Any], Tuple[Any, Any]],
+    state: Any,
+    slab: Any,
+    *,
+    rounds: int = 4,
+    n1: int = 8,
+    n2: int = 24,
+) -> Tuple[float, Any]:
+    """Wall seconds per step of the fused loop in its steady state: the
+    host's call of the multi-step (on the card a graph replay, with the
+    slab's copy into the graph's buffers) and the card's work, end to
+    end. Chains of ``n`` back-to-back calls of ``multi_step(state,
+    slab)`` on the same ``slab``, each ended by one host readback of the
+    last loss, timed by :func:`time_marginal`; the per-slab marginal over
+    the slab's ``k`` steps. It trains ``state`` on the way, so time a
+    copy the run does not need. Returns ``(seconds_per_step, state)``;
+    the time may be non-positive under pathological jitter."""
+    unroll = int(next(iter(slab.values())).shape[0])
+    holder = {"state": state}
+
+    def run_chain(n: int) -> float:
+        st = holder["state"]
+        metrics = None
+        t0 = time.perf_counter()
+        for _ in range(n):
+            st, metrics = multi_step(st, slab)
+        holder["state"] = st
+        _readback(metrics["loss"].reshape(-1)[-1:])
+        return time.perf_counter() - t0
+
+    run_chain(2)  # a new multi-step's eager warm-up slab, then its capture
+    per_slab = time_marginal(run_chain, n1, n2, rounds)
+    return per_slab / unroll, holder["state"]
+
+
 def measure_serving_latency(
     engine: Any,
     x: Any,

@@ -398,7 +398,9 @@ class Checkpointer:
     #: Also save every N train steps (0 = off), so a crash loses at most N
     #: steps; the resume is exact mid-epoch (``DataLoader.batches(
     #: start_batch=...)``). Refused with ``keep_best_metric``: mid-epoch
-    #: saves carry no rankable metrics.
+    #: saves carry no rankable metrics. Under the fused loop
+    #: (``unroll > 1``) a due step saves at the end of its slab, the state
+    #: a few steps later, just as exactly resumable.
     save_every_steps: int = Field(0)
     #: Resume from the newest restorable step in ``directory``.
     restore: bool = Field(True)

@@ -9,8 +9,12 @@ The port of ``zookeeper_tpu/training/experiment.py``'s ``Experiment``,
     for epoch: for batch: state, metrics = train_step(state, batch)
 
 One host readback per epoch (or per ``log_every`` steps) pulls the
-step metrics. ``run()`` returns ``{"train": [...], "validation":
-[...]}``, one dict of metric means per epoch (``skipped_steps``, under a
+step metrics. ``unroll > 1`` is the fused loop: slabs of ``unroll``
+stacked batches through ``training.step.build_multi_step`` (one CUDA
+graph replay a slab on the card), the metrics read back per slab only
+when a ``log_every`` step falls in it. ``run()`` returns ``{"train":
+[...], "validation": [...]}``, one dict of metric means per epoch
+(``skipped_steps``, under a
 ``nan_policy``, summed). The training recipe's options are the JAX
 loop's: the flip ratio, the parameter EMA (validation and the export
 use it), ``nan_policy``, ``remat``, ``validate_every``, early stopping,
@@ -30,8 +34,8 @@ The tools around a run: ``writer`` (``training.metrics``) gets the
 ``train_epoch/``/``val/`` scalars at each epoch's end, ``metrics_file``
 one JSON record per epoch, and ``profile_dir`` a ``torch.profiler``
 trace of a few steady-state steps of the first epoch
-(``training.profiling``). Partitioners and multi-GPU, multi-step slabs
-and observability are not ported yet (ROADMAP.md).
+(``training.profiling``). Partitioners and multi-GPU and observability
+are not ported yet (ROADMAP.md).
 """
 
 import json
@@ -64,11 +68,13 @@ from zookeeper_tpu_torch.training.profiling import (
     ProfileWindow,
     format_breakdown,
     op_time_breakdown,
+    slab_annotation,
 )
 from zookeeper_tpu_torch.training.state import TrainState
 from zookeeper_tpu_torch.training.step import (
     NAN_POLICIES,
     REMAT_POLICIES,
+    build_multi_step,
     make_eval_step,
     make_train_step,
     smoothed_softmax_cross_entropy,
@@ -86,12 +92,14 @@ class Experiment:
 
 
 def _host_means(accum: List[Dict[str, torch.Tensor]]) -> Dict[str, float]:
-    """Per-key means of a list of 0-d metric tensors, read back in one
-    device-to-host copy; ``skipped_steps`` is a count, summed."""
+    """Per-key means over the steps of a list of metric dicts (a step's
+    0-d tensors, or a slab's ``[k]``), read back in one device-to-host
+    copy; ``skipped_steps`` is a count, summed."""
     if not accum:
         return {}
     keys = list(accum[0])
-    stacked = torch.stack([torch.stack([m[k].to(torch.float32) for m in accum]) for k in keys])
+    stacked = torch.stack([torch.cat([m[k].to(torch.float32).reshape(-1) for m in accum])
+                           for k in keys])
     host = stacked.to(torch.float64).cpu()
     return {k: float(host[i].sum() if k == "skipped_steps" else host[i].mean())
             for i, k in enumerate(keys)}
@@ -135,6 +143,16 @@ class TrainingExperiment(Experiment):
     epochs: int = Field(1)
     batch_size: int = Field(32)
     seed: int = Field(0)
+    #: The fused loop: the train steps run in slabs of ``unroll``
+    #: consecutive batches, stacked on the host and staged with one copy
+    #: a tensor, through ``training.step.build_multi_step`` (one CUDA
+    #: graph replay a slab on the card). The same steps on the same
+    #: batches as the eager loop (1), to the bit; the metrics stay on
+    #: the card until a ``log_every`` step's slab ends or the epoch
+    #: does. Step-cadence checkpoints, ``log_every`` lines, preemption
+    #: and the profiler window move to slab ends. Costs ``unroll`` batches
+    #: of device memory a slab (times the ``loader.prefetch`` in flight).
+    unroll: int = Field(1)
     #: Cap on steps per epoch; -1 = the full epoch.
     steps_per_epoch: int = Field(-1)
     validate: bool = Field(True)
@@ -251,6 +269,11 @@ class TrainingExperiment(Experiment):
             )
         if self.remat not in REMAT_POLICIES:
             raise ValueError(f"remat={self.remat!r} unknown; choose none/dots/full/quant.")
+        if self.unroll < 1:
+            raise ValueError(
+                f"unroll={self.unroll} must be >= 1 (1 = eager per-step "
+                "loop; N fuses N steps per dispatch)."
+            )
         if self.nan_policy not in NAN_POLICIES:
             raise ValueError(f"nan_policy={self.nan_policy!r} unknown; choose ignore/skip/halt.")
         if self.early_stop_mode not in ("auto", "min", "max"):
@@ -297,11 +320,12 @@ class TrainingExperiment(Experiment):
         return step_idx + 1 < spe or not epoch_save_fires
 
     def _mark_first_step(self, metrics: Dict[str, torch.Tensor]) -> None:
-        """Time the end of this run's first train step (one readback, once
-        a run, and only with a checkpointer, the one way a run resumes):
-        ``run_with_recovery`` reads it as the restore latency."""
+        """Time the end of this run's first train step, or slab (one
+        readback, once a run, and only with a checkpointer, the one way a
+        run resumes): ``run_with_recovery`` reads it as the restore
+        latency."""
         if self.first_step_at is None and self.checkpointer.enabled:
-            float(metrics["loss"])
+            float(metrics["loss"].reshape(-1)[-1])
             self.first_step_at = time.perf_counter()
 
     def _boundary_check(self, state: TrainState, global_step: int) -> None:
@@ -351,6 +375,15 @@ class TrainingExperiment(Experiment):
         if first is not None:
             raise first
 
+    def _log_step_scalars(self, step_idx: int, spe: int, global_step: int,
+                          row: Dict[str, float]) -> None:
+        """A ``log_every`` step's line and ``train/`` scalars."""
+        self._log(
+            f"  step {step_idx + 1}/{spe} "
+            f"loss={row['loss']:.4f} acc={row['accuracy']:.4f}"
+        )
+        self.writer.write_scalars(global_step, {f"train/{k}": v for k, v in row.items()})
+
     def _check_halt(self, host: Dict[str, float], global_step: int) -> None:
         """``nan_policy="halt"``: raise when a step of the metrics just read
         back was skipped."""
@@ -388,10 +421,96 @@ class TrainingExperiment(Experiment):
         self.final_state = state
         return history
 
+    def _run_eager_epoch(self, train_step, state, batches, accum, epoch, spe, start_b,
+                         profiling, p_start, p_stop, device):
+        """One epoch of the eager loop, a step a batch; returns ``(state,
+        steps_trained)``."""
+        ck = self.checkpointer
+        for step_idx, batch in enumerate(batches, start=start_b):
+            global_step = epoch * spe + step_idx + 1
+            if profiling and step_idx == p_start:
+                self._profile_window = ProfileWindow(self.profile_dir, device)
+                self._profile_window.start()
+            state, metrics = train_step(state, batch)
+            accum.append(metrics)
+            self._mark_first_step(metrics)
+            if profiling and step_idx == p_stop:
+                window, self._profile_window = self._profile_window, None
+                window.stop()
+                profiling = False
+                self._log_profile_breakdown(p_stop - p_start + 1)
+            if self._step_save_due(epoch, step_idx, spe):
+                ck.save(state)
+            if self.log_every and (step_idx + 1) % self.log_every == 0:
+                # The step's scalars ride the readback log_every already
+                # pays for.
+                row = _host_means([metrics])
+                self._check_halt(row, global_step)
+                self._log_step_scalars(step_idx, spe, global_step, row)
+            self._boundary_check(state, global_step)
+        return state, len(accum)
+
+    def _run_fused_epoch(self, multi_step, state, slabs, accum, epoch, spe, start_b,
+                         profiling, p_start, p_stop, device):
+        """One epoch of the fused loop, a ``multi_step`` call a slab;
+        returns ``(state, steps_trained)``.
+
+        The eager loop's semantics, step for step: a mid-slab resume is
+        the first slab's first step; the metrics of each slab stay on the
+        card, read back once per slab that holds a ``log_every`` step,
+        which logs the eager loop's per-step values (and checks
+        ``nan_policy="halt"``). Slab ends are the fused loop's boundaries:
+        a step-cadence save fires at the end of the slab holding the due
+        step, preemption (and ``FaultPlan.kill_at_step``) is checked
+        there, and the profiler window covers whole slabs, from the first
+        slab starting at or after ``p_start`` (or the epoch's last slab)
+        to the one holding ``p_stop``."""
+        step_idx = start_b
+        trace_first = start_b
+        for slab_idx, slab in enumerate(slabs):
+            k = int(next(iter(slab.values())).shape[0])
+            if profiling and self._profile_window is None and (
+                    step_idx >= p_start or step_idx + k >= spe):
+                self._profile_window = ProfileWindow(self.profile_dir, device)
+                self._profile_window.start()
+                trace_first = step_idx
+            with slab_annotation(slab_idx, num_steps=k):
+                state, metrics = multi_step(state, slab)
+            accum.append(metrics)
+            self._mark_first_step(metrics)
+            if profiling and self._profile_window is not None and step_idx + k > p_stop:
+                window, self._profile_window = self._profile_window, None
+                window.stop()
+                profiling = False
+                self._log_profile_breakdown(step_idx + k - trace_first)
+            if any(self._step_save_due(epoch, s, spe) for s in range(step_idx, step_idx + k)):
+                self.checkpointer.save(state)
+            bounds = [s for s in range(step_idx, step_idx + k)
+                      if self.log_every and (s + 1) % self.log_every == 0]
+            if bounds:
+                # One readback for the slab; each step's values are the
+                # ones the eager loop logs.
+                host = {name: v.to(torch.float32).to(torch.float64).cpu()
+                        for name, v in metrics.items()}
+                self._check_halt({"skipped_steps": float(host["skipped_steps"].sum())}
+                                 if "skipped_steps" in host else {},
+                                 epoch * spe + step_idx + k)
+                for s in bounds:
+                    self._log_step_scalars(s, spe, epoch * spe + s + 1,
+                                           {name: float(v[s - step_idx])
+                                            for name, v in host.items()})
+            step_idx += k
+            self._boundary_check(state, epoch * spe + step_idx)
+        return state, step_idx - start_b
+
     def _train(self, state: TrainState, device: torch.device):
         """The epochs from the restored ``state``; returns ``(state,
         history)``."""
         train_step = self._train_step_fn()
+        # Built per run, after the restore: a graph captures the state's
+        # tensors as they are now.
+        multi_step = build_multi_step(train_step) if self.unroll > 1 else None
+        self.multi_step = multi_step
         eval_step = make_eval_step(
             smoothed_softmax_cross_entropy(self.label_smoothing),
             use_ema=self.ema_decay > 0, top5=self.track_top5,
@@ -430,37 +549,15 @@ class TrainingExperiment(Experiment):
             profiling = self.profile_dir is not None and epoch == start_epoch
             p_start = min(start_b + 4, spe - 1)
             p_stop = min(start_b + 14, spe - 1)
+            run_epoch = self._run_eager_epoch if multi_step is None else self._run_fused_epoch
             batches = self.loader.batches(
-                "train", device=device, epoch=epoch, start_batch=start_b, max_batches=spe
+                "train", device=device, epoch=epoch, start_batch=start_b, max_batches=spe,
+                unroll=self.unroll,
             )
             try:
-                for step_idx, batch in enumerate(batches, start=start_b):
-                    global_step = epoch * spe + step_idx + 1
-                    if profiling and step_idx == p_start:
-                        self._profile_window = ProfileWindow(self.profile_dir, device)
-                        self._profile_window.start()
-                    state, metrics = train_step(state, batch)
-                    accum.append(metrics)
-                    self._mark_first_step(metrics)
-                    if profiling and step_idx == p_stop:
-                        window, self._profile_window = self._profile_window, None
-                        window.stop()
-                        profiling = False
-                        self._log_profile_breakdown(p_stop - p_start + 1)
-                    if self._step_save_due(epoch, step_idx, spe):
-                        ck.save(state)
-                    if self.log_every and (step_idx + 1) % self.log_every == 0:
-                        # The step's scalars ride the readback log_every
-                        # already pays for.
-                        row = _host_means([metrics])
-                        self._check_halt(row, global_step)
-                        self._log(
-                            f"  step {step_idx + 1}/{spe} "
-                            f"loss={row['loss']:.4f} acc={row['accuracy']:.4f}"
-                        )
-                        self.writer.write_scalars(
-                            global_step, {f"train/{k}": v for k, v in row.items()})
-                    self._boundary_check(state, global_step)
+                state, steps_trained = run_epoch(
+                    multi_step or train_step, state, batches, accum, epoch, spe, start_b,
+                    profiling, p_start, p_stop, device)
             finally:
                 # A preemption drops the batch in flight with the loader
                 # thread; the rerun restarts the epoch at start_batch.
@@ -468,10 +565,10 @@ class TrainingExperiment(Experiment):
                 if close is not None:
                     close()
             epoch_metrics = _host_means(accum)  # the epoch's one readback
-            self._check_halt(epoch_metrics, epoch * spe + start_b + len(accum))
+            self._check_halt(epoch_metrics, epoch * spe + start_b + steps_trained)
             dt = time.perf_counter() - t0
             epoch_metrics["examples_per_sec"] = (
-                len(accum) * self.loader.batch_size / dt if dt > 0 else 0.0
+                steps_trained * self.loader.batch_size / dt if dt > 0 else 0.0
             )
             # A resumed epoch's train aggregates cover its last steps only.
             partial_epoch = epoch == start_epoch and start_b > 0

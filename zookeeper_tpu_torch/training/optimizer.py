@@ -18,7 +18,13 @@ per-parameter entry a ``{name: tensor}`` dict. ``count`` (the updates
 applied, which drives the schedules) is a host ``int``; a train step
 under a ``nan_policy`` that may skip a step moves every count to the
 card as a 0-d int32 tensor (:func:`counts_to_device`), and the
-schedules read it there, so skipping a step needs no readback.
+schedules read it there, so skipping a step needs no readback. So does
+the fused loop's CUDA graph (``training.step.build_multi_step``), which
+replays no host code. Every count-dependent scalar on the card is read
+from a float32 table of the host's values (the schedules' tables, the
+Adam bias corrections' :func:`_bias_table`), and a division by one takes
+the host float's route (:func:`_foreach_div`), so a count on the card
+gives the host's bits.
 """
 
 import re
@@ -90,11 +96,50 @@ def _knob(value: Knob, count):
     return value(count) if callable(value) else value
 
 
-def _bias_correction(decay: float, count):
-    """optax's ``1 - decay**count`` in float32."""
-    if isinstance(count, torch.Tensor):
-        return 1 - torch.pow(decay, count.to(torch.float32))
+def _host_bias_correction(decay: float, count: int) -> float:
     return float(_F(1) - _F(decay) ** _F(count))
+
+
+def _bias_table(decay: float) -> torch.Tensor:
+    """The host's ``1 - decay**count`` for counts 0.. up to the first
+    count where it rounds to 1 in float32 (it stays 1 past it), as a
+    float32 table: a count on the card reads the host's values, so the
+    two branches agree bit for bit on any card (``torch.pow`` there need
+    not round as the host's ``powf``)."""
+    values = [_host_bias_correction(decay, 0)]
+    while values[-1] != 1.0:
+        values.append(_host_bias_correction(decay, len(values)))
+    return torch.tensor(values, dtype=torch.float32)
+
+
+def _bias_correction(decay: float, count, tables: Optional[Dict[Any, torch.Tensor]] = None):
+    """optax's ``1 - decay**count`` in float32: on the host for an int
+    count, from :func:`_bias_table` (made once per device into
+    ``tables``) for a count on the card."""
+    if isinstance(count, torch.Tensor):
+        if abs(decay) >= 1:  # no saturation, so no finite table
+            return 1 - torch.pow(decay, count.to(torch.float32))
+        tables = {} if tables is None else tables
+        key = (float(decay), count.device)
+        if key not in tables:
+            tables[key] = _bias_table(decay).to(count.device)
+        table = tables[key]
+        index = count.clamp(0, table.numel() - 1).long().reshape(1)
+        return torch.index_select(table, 0, index).reshape(())
+    return _host_bias_correction(decay, count)
+
+
+def _foreach_div(tensors: List[torch.Tensor], divisor) -> List[torch.Tensor]:
+    """``t / divisor`` for each tensor, ``divisor`` a host float or a 0-d
+    float32 tensor holding the value the host would pass. PyTorch divides
+    by a host float on a card as ``t * (1 / divisor)`` (the reciprocal
+    rounded to float32), and by a tensor as ``t / divisor``; on the CPU
+    both are the division. A divisor on the card takes the same route as
+    a host float there, so a count on the card gives the host count's
+    bits."""
+    if isinstance(divisor, torch.Tensor) and divisor.device.type == "cuda":
+        return torch._foreach_mul(tensors, torch.reciprocal(divisor))
+    return torch._foreach_div(tensors, divisor)
 
 
 class Transform:
@@ -158,6 +203,7 @@ class ScaleByAdam(_Stage):
 
     def __init__(self, b1: float, b2: float, eps: float):
         self.b1, self.b2, self.eps = b1, b2, eps
+        self._tables: Dict[Any, torch.Tensor] = {}
 
     def apply(self, u, state, p, names, count):
         mu = [state["mu"][n] for n in names]
@@ -171,8 +217,8 @@ class ScaleByAdam(_Stage):
         torch._foreach_mul_(t, 1 - self.b2)
         torch._foreach_mul_(nu, self.b2)
         torch._foreach_add_(nu, t)
-        out = torch._foreach_div(mu, _bias_correction(self.b1, count + 1))
-        den = torch._foreach_div(nu, _bias_correction(self.b2, count + 1))
+        out = _foreach_div(mu, _bias_correction(self.b1, count + 1, self._tables))
+        den = _foreach_div(nu, _bias_correction(self.b2, count + 1, self._tables))
         torch._foreach_sqrt_(den)
         torch._foreach_add_(den, self.eps)
         torch._foreach_div_(out, den)
@@ -298,9 +344,9 @@ class MultiSteps(Transform):
         n_acc = state["mini_step"]
         k = self.every_k
         if names:
-            d = torch._foreach_sub([grads[n] for n in names], acc)
-            torch._foreach_div_(d, (n_acc + 1).to(torch.float32)
-                                if isinstance(n_acc, torch.Tensor) else float(n_acc + 1))
+            d = _foreach_div(torch._foreach_sub([grads[n] for n in names], acc),
+                             (n_acc + 1).to(torch.float32)
+                             if isinstance(n_acc, torch.Tensor) else float(n_acc + 1))
             torch._foreach_add_(acc, d)
         inner_state = state["inner_opt_state"]
         if not isinstance(n_acc, torch.Tensor):

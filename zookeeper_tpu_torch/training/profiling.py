@@ -46,6 +46,7 @@ __all__ = [
     "format_breakdown",
     "kernel_category",
     "op_time_breakdown",
+    "slab_annotation",
 ]
 
 TRACE_SUFFIX = ".pt.trace.json"
@@ -83,6 +84,22 @@ _CATEGORIES = tuple((re.compile(p), c) for p, c in (
     (r"(?i)reduce|welford|batch_norm_collect|softmax|norm_kernel", "reduction"),
     (r"(?i)elementwise|foreach|index|scatter|gather|where", "elementwise"),
 ))
+
+
+def slab_annotation(slab_index: int, num_steps: int = 1):
+    """A ``torch.profiler.record_function`` span ``"slab i (k steps)"``
+    around one call of the fused loop's multi-step
+    (``training.step.build_multi_step``)::
+
+        with slab_annotation(i, num_steps=k):
+            state, metrics = multi_step(state, slab)
+
+    In a trace the host thread shows one span a slab (on the card one
+    graph launch) over the device's kernels of its ``k`` steps. Nearly
+    free when no profiler records."""
+    import torch
+
+    return torch.profiler.record_function(f"slab {slab_index} ({num_steps} steps)")
 
 
 def kernel_category(name: str, cat: str = "kernel") -> str:

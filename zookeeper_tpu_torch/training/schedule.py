@@ -46,7 +46,10 @@ class ScheduleFn:
             if table is None:
                 table = torch.from_numpy(self.table()).to(count.device)
                 self._device_tables[count.device] = table
-            return table[count.clamp(0, self.horizon).long()]
+            # index_select, not ``table[count]``: a 0-d index tensor is
+            # read back to the host, which a CUDA graph's capture forbids.
+            index = count.clamp(0, self.horizon).long().reshape(1)
+            return torch.index_select(table, 0, index).reshape(())
         return float(self.table()[min(max(int(count), 0), self.horizon)])
 
 

@@ -5,7 +5,9 @@ parameters and the model state (the BatchNorm running statistics) live
 in the ``nn.Module``; the optimizer state is a dict of tensors beside
 it, and so is the parameter EMA when it is kept. The train step updates
 all of them in place and advances ``step``, a host-side count, so
-reading it never waits on the card.
+reading it never waits on the card. The fused loop's CUDA graph replays
+no host code, so under it the step also lives on the card
+(``step_counter``), advanced by the same update.
 """
 
 from dataclasses import dataclass, field
@@ -29,6 +31,10 @@ class TrainState:
     #: ``{parameter name: flax path}`` (``models.convert.flax_param_paths``):
     #: what Bop's split and the flip ratio match their patterns against.
     flax_paths: Dict[str, str] = field(default_factory=dict)
+    #: ``step`` on the card (a 0-d int64), kept only while a CUDA graph
+    #: replays the step (``training.step.prepare_for_graph``): what the
+    #: step reads where it would read ``step``. Never checkpointed.
+    step_counter: Optional[torch.Tensor] = None
 
     @classmethod
     def create(cls, module: nn.Module, tx: Any, ema: bool = False) -> "TrainState":
@@ -49,5 +55,7 @@ class TrainState:
         advances. Returns the state."""
         with torch.no_grad():
             self.tx.update(grads, self.opt_state, self.params)
+            if self.step_counter is not None:
+                self.step_counter.add_(1)
         self.step += 1
         return self

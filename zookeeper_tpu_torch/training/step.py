@@ -10,11 +10,18 @@ from a frozen teacher, the parameter EMA, the flip ratio of the binary
 kernels, a non-finite-loss policy (selected on the card, no readback)
 and a rematerialization policy (``torch.utils.checkpoint``).
 :func:`host_snapshot` is the async checkpointer's copy of the state.
+
+:func:`build_multi_step` fuses the step over a *slab* of ``k`` stacked
+batches (the JAX package's ``lax.scan`` multi-step). On the card it
+captures the ``k`` steps once into one ``torch.cuda.CUDAGraph`` and
+replays it once per slab, so the host launches one graph where it would
+launch every kernel of ``k`` steps; on the CPU it is the plain loop.
 """
 
 import contextlib
 import re
-from typing import Any, Callable, Dict, Optional, Tuple
+import time
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -57,7 +64,9 @@ def smoothed_softmax_cross_entropy(smoothing: float):
     def loss_fn(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
         logits = logits.to(torch.float32)
         num_classes = logits.shape[-1]
-        targets = F.one_hot(labels.long(), num_classes).to(torch.float32)
+        # one_hot's label-range check reads the labels back on the CPU.
+        classes = torch.arange(num_classes, device=labels.device)
+        targets = (labels.long()[..., None] == classes).to(torch.float32)
         targets = targets * (1.0 - smoothing) + smoothing / num_classes
         return -(targets * F.log_softmax(logits, dim=-1)).sum(-1).mean()
 
@@ -133,7 +142,11 @@ def _apply_model(remat: str) -> Callable[[torch.nn.Module, torch.Tensor], torch.
         sac_forward, sac_recompute = create_selective_checkpoint_contexts(_save_if(saved))
         return _both(forward, sac_forward), _both(recompute, sac_recompute)
 
-    return lambda module, x: checkpoint(module, x, use_reentrant=False, context_fn=contexts)
+    # The forward draws no random numbers, so the RNG state needs no
+    # saving; under a CUDA graph's capture it cannot be read.
+    return lambda module, x: checkpoint(
+        module, x, use_reentrant=False, context_fn=contexts,
+        preserve_rng_state=not (x.is_cuda and torch.cuda.is_current_stream_capturing()))
 
 
 def _bn_statistics(module: torch.nn.Module):
@@ -176,6 +189,9 @@ def make_train_step(
     The active ``FaultPlan``'s ``nan_at_step`` is read here, once: the
     step whose counter (``state.step`` before it) equals it multiplies
     its loss by NaN, which poisons every gradient as a real blow-up does.
+    Under a CUDA graph the counter is ``state.step_counter`` on the card
+    and the factor is selected there (1 elsewhere: ``loss * 1`` is
+    ``loss``).
     """
     if remat not in REMAT_POLICIES:
         raise ValueError(f"Unknown remat policy {remat!r}; choose none/dots/full/quant.")
@@ -214,8 +230,12 @@ def make_train_step(
             olds = [t.detach().clone() for t in kept]
         logits = apply_model(module, batch["input"])
         loss = loss_fn(logits, batch["target"])
-        if nan_at_step is not None and state.step == nan_at_step:
-            loss = loss * float("nan")
+        if nan_at_step is not None:
+            if state.step_counter is not None:
+                loss = loss * torch.where(state.step_counter == nan_at_step,
+                                          float("nan"), 1.0)
+            elif state.step == nan_at_step:
+                loss = loss * float("nan")
         kd = None
         if distill is not None:
             teacher_fn, alpha, temperature = distill
@@ -247,8 +267,9 @@ def make_train_step(
         if flip_paths is not None:
             flips = sum((torch.sign(params[n].detach()) != s).sum() for n, s in zip(flipped, old_signs))
             total = sum(params[n].numel() for n in flipped)
-            metrics["flip_ratio"] = flips.to(torch.float32) / torch.tensor(
-                float(total), dtype=torch.float32, device=flips.device)
+            # A fill, not a host copy: a graph's capture allows no copy.
+            metrics["flip_ratio"] = flips.to(torch.float32) / torch.full(
+                (), float(total), dtype=torch.float32, device=flips.device)
         return state, metrics
 
     return train_step
@@ -287,12 +308,174 @@ def make_eval_step(
     return eval_step
 
 
+# -- the fused multi-step ---------------------------------------------------
+
+
+def _launch_counters() -> List[Dict[str, int]]:
+    """The kernel wrappers' launch (and copy) counters, bumped in Python
+    where a wrapper launches: a graph's capture bumps them without
+    launching, each replay launches without bumping."""
+    from zookeeper_tpu_torch.ops import attention, binary_compute
+
+    return [binary_compute.LAUNCHES, binary_compute.COPIES, attention.LAUNCHES]
+
+
+def _stack_metrics(per_step: List[Metrics]) -> Metrics:
+    return {k: torch.stack([m[k] for m in per_step]) for k in per_step[0]}
+
+
+def _slab_steps(step_fn, state: TrainState, slab: Batch) -> Tuple[TrainState, Metrics]:
+    """The plain multi-step: ``step_fn`` over the slab's leading axis,
+    the metrics stacked ``[k]``."""
+    k = int(next(iter(slab.values())).shape[0])
+    per_step = []
+    for i in range(k):
+        state, metrics = step_fn(state, {key: v[i] for key, v in slab.items()})
+        per_step.append(metrics)
+    return state, _stack_metrics(per_step)
+
+
+def state_storage(state: TrainState) -> Tuple[int, ...]:
+    """The addresses of every tensor of the state: parameters, buffers
+    (the BatchNorm statistics), optimizer state (its counts on the card
+    included), EMA and ``step_counter``. A graph replays these addresses,
+    so a state that rebinds any of them needs a new capture."""
+    tensors = (list(state.module.parameters()) + list(state.module.buffers())
+               + state_tensors(state.opt_state) + list((state.ema_params or {}).values()))
+    if state.step_counter is not None:
+        tensors.append(state.step_counter)
+    return tuple(t.data_ptr() for t in tensors)
+
+
+def prepare_for_graph(state: TrainState, device: torch.device) -> TrainState:
+    """Move what the step reads on the host to ``device``: every
+    optimizer count (``counts_to_device``) and the step
+    (``state.step_counter``). A replay runs no host code, so a value the
+    step would read on the host would stay as it was at the capture."""
+    counts_to_device(state.opt_state, device)
+    if state.step_counter is None:
+        state.step_counter = torch.zeros((), dtype=torch.int64, device=device)
+    state.step_counter.fill_(state.step)
+    return state
+
+
+class _SlabGraph:
+    """One captured slab: the graph, its input buffers (a slab is copied
+    in before each replay), its ``[k]`` metrics (overwritten by each
+    replay), the state's addresses at the capture and the launches a
+    replay makes."""
+
+    def __init__(self, graph, slab, metrics, storage, launches, capture_s):
+        self.graph, self.slab, self.metrics = graph, slab, metrics
+        self.storage, self.launches, self.capture_s = storage, launches, capture_s
+        self.replays = 0
+
+
+class MultiStep:
+    """``(state, slab) -> (state, metrics stacked [k])``: ``step_fn`` run
+    over the slab's leading axis (:func:`build_multi_step`).
+
+    On CPU tensors it is the plain loop. On the card the first slab runs
+    eagerly on a side stream (the warm-up ``torch.cuda.graphs``
+    prescribes: the CUDA libraries built at first use, cuBLAS and cuDNN
+    handles and workspaces, the tables read by counts on the card are
+    made here, outside any capture), and each later slab replays a graph
+    of its ``k`` steps, captured once per slab shape (an epoch has at
+    most two: the steady ``unroll`` and a partial last slab) and again
+    whenever a state tensor was rebound. The graph replays on the
+    caller's stream, so a ``host_snapshot`` taken between slabs queues
+    behind it and the next replay behind the snapshot's copies. A
+    failed capture or replay raises; nothing falls back to the eager
+    loop. ``graphs`` maps each slab signature to its :class:`_SlabGraph`."""
+
+    def __init__(self, step_fn):
+        self.step_fn = step_fn
+        self.graphs: Dict[tuple, _SlabGraph] = {}
+        self.warmed = False
+        self._stream = None
+        self._pool = None
+
+    def __call__(self, state: TrainState, slab: Batch) -> Tuple[TrainState, Metrics]:
+        first = next(iter(slab.values()))
+        if first.device.type != "cuda":
+            return _slab_steps(self.step_fn, state, slab)
+        device = first.device
+        prepare_for_graph(state, device)
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(device)
+        if not self.warmed:
+            return self._warm_up(state, slab)
+        key = tuple((k, tuple(v.shape), v.dtype) for k, v in slab.items())
+        graph = self.graphs.get(key)
+        if graph is None or graph.storage != state_storage(state):
+            graph = self.graphs[key] = self._capture(state, slab)
+        for name, buf in graph.slab.items():
+            buf.copy_(slab[name])
+        graph.graph.replay()
+        graph.replays += 1
+        for counts, delta in zip(_launch_counters(), graph.launches):
+            for name, n in delta.items():
+                counts[name] += n
+        state.step += int(first.shape[0])
+        return state, {k: v.clone() for k, v in graph.metrics.items()}
+
+    def _warm_up(self, state: TrainState, slab: Batch) -> Tuple[TrainState, Metrics]:
+        current, side = torch.cuda.current_stream(self._stream.device), self._stream
+        side.wait_stream(current)
+        for v in slab.values():
+            v.record_stream(side)
+        with torch.cuda.stream(side):
+            state, metrics = _slab_steps(self.step_fn, state, slab)
+        current.wait_stream(side)
+        for v in metrics.values():
+            v.record_stream(current)
+        self.warmed = True
+        return state, metrics
+
+    def _capture(self, state: TrainState, slab: Batch) -> _SlabGraph:
+        buffers = {k: torch.empty_like(v) for k, v in slab.items()}
+        counters = _launch_counters()
+        before = [dict(c) for c in counters]
+        host_step = state.step
+        graph = torch.cuda.CUDAGraph()
+        t0 = time.perf_counter()
+        self._stream.wait_stream(torch.cuda.current_stream(self._stream.device))
+        try:
+            with torch.cuda.graph(graph, pool=self._pool, stream=self._stream):
+                _, metrics = _slab_steps(self.step_fn, state, buffers)
+        finally:
+            # The capture ran the host code but no kernel: the state is
+            # as it was, and nothing was launched.
+            state.step = host_step
+            launches = [{n: c[n] - b[n] for n in c if c[n] != b[n]}
+                        for c, b in zip(counters, before)]
+            for c, b in zip(counters, before):
+                c.update(b)
+        capture_s = time.perf_counter() - t0
+        # Both shapes of an epoch share one pool: they never replay at once.
+        self._pool = graph.pool()
+        return _SlabGraph(graph, buffers, metrics, state_storage(state), launches, capture_s)
+
+
+def build_multi_step(step_fn) -> MultiStep:
+    """Fuse a ``(state, batch) -> (state, metrics)`` step into a
+    ``(state, slab) -> (state, metrics stacked [k])`` multi-step over a
+    slab of ``k`` stacked batches (``data.pipeline.slab_iterator``): the
+    port of the JAX package's ``lax.scan`` multi-step. The same steps on
+    the same batches in the same order, so the same bits as ``k`` calls
+    of ``step_fn``: on the CPU the plain loop, on the card one CUDA graph
+    per slab shape (:class:`MultiStep`), with the optimizer's counts and
+    the step counter on the card (:func:`prepare_for_graph`)."""
+    return MultiStep(step_fn)
+
+
 def host_snapshot(tree: Any) -> Tuple[Any, Optional[torch.cuda.Event]]:
     """A copy of a nested dict of tensors (and host ints) that owns its
     bytes, for a checkpoint written while training goes on: every card
     tensor is copied into pinned host memory by a non-blocking copy on
-    the current stream, the stream the step runs on, so the next step's
-    in-place writes queue behind the copies; a CPU tensor is cloned.
+    the current stream, the stream the step runs on and the fused loop's
+    graph replays on, so the next step's (or slab's) in-place writes
+    queue behind the copies; a CPU tensor is cloned.
     Returns ``(copy, event)``, the event recorded after the copies (None
     when no tensor lies on a card): wait on it before reading the copy."""
     devices = []
