@@ -18,7 +18,12 @@ The port's own copy of ``zookeeper_tpu/data/pipeline.py``:
 - :class:`DataLoader`: the component tying a ``Dataset``, a
   ``Preprocessing`` and the batch settings together.
 
-Multi-host slicing is not ported (ROADMAP.md).
+Under a partitioner each rank builds only its share of every global
+batch (``DataLoader.batches(sharding=...)``, a ``parallel.BatchSlice``):
+the rows of its data index, as the JAX package's ``host_index``/
+``host_count`` slice them, and, for token batches under sequence
+parallelism, the sequence columns of its sp index, before the copy to
+the card.
 """
 
 from __future__ import annotations
@@ -116,17 +121,50 @@ def batch_iterator(
     drop_remainder: bool = True,
     num_workers: int = 0,
     start_batch: int = 0,
+    host_index: int = 0,
+    host_count: int = 1,
+    seq_index: int = 0,
+    seq_count: int = 1,
 ) -> Iterator[Batch]:
     """Yield batches of stacked numpy arrays from ``source``, in the
     (seed, epoch)-fixed permutation.
+
+    ``batch_size`` is the per-host (per data index) batch size; with
+    ``host_count > 1`` each global batch of ``batch_size * host_count``
+    examples is split contiguously and this rank builds slice
+    ``host_index`` (only those examples are fetched), as in the JAX
+    package, and the final partial global batch is always dropped.
+    ``seq_count > 1`` then keeps slice ``seq_index`` of axis 1 of every
+    array (the sequence columns of token batches, ``tokens`` and ``next``
+    alike); the global sequence must divide ``seq_count``.
 
     ``start_batch`` skips the first k batches of the epoch without
     fetching them: the permutation is fixed by (seed, epoch), so batch k
     onward is the uninterrupted epoch's, the mid-epoch resume of a step
     checkpoint (``step % steps_per_epoch == k``)."""
+    if host_count < 1 or not 0 <= host_index < host_count:
+        raise ValueError(
+            f"host_index={host_index} outside [0, host_count="
+            f"{host_count}): every host must own exactly one slice of "
+            "the global batch."
+        )
+    if seq_count < 1 or not 0 <= seq_index < seq_count:
+        raise ValueError(f"seq_index={seq_index} outside [0, seq_count={seq_count}).")
     n = len(source)
-    num_batches = n // batch_size if drop_remainder else -(-n // batch_size)
+    global_batch = batch_size * host_count
+    if host_count > 1:
+        # A batch present on some ranks but not others would leave the
+        # rest waiting in the gradient all-reduce.
+        drop_remainder = True
+    num_batches = n // global_batch if drop_remainder else -(-n // global_batch)
     if training and n > 0 and num_batches == 0:
+        if host_count > 1:
+            raise ValueError(
+                f"Train split has {n} examples but the global batch is "
+                f"{global_batch} (batch_size={batch_size} x "
+                f"host_count={host_count}) with drop_remainder: every epoch "
+                "would yield zero batches."
+            )
         raise ValueError(
             f"Train split has {n} examples but the batch is {batch_size} "
             "with drop_remainder: every epoch would yield zero batches."
@@ -147,13 +185,34 @@ def batch_iterator(
     else:
         order = np.arange(n)
 
+    def rows(b: int) -> range:
+        start = b * global_batch + host_index * batch_size
+        return range(start, min(start + batch_size, n, (b + 1) * global_batch))
+
+    def columns(batch: Batch) -> Batch:
+        if seq_count == 1:
+            return batch
+        out = {}
+        for k, v in batch.items():
+            if v.ndim < 2:
+                raise ValueError(f"'{k}' has no sequence axis to split over 'sp'.")
+            if v.shape[1] % seq_count != 0:
+                raise ValueError(
+                    f"Sequence length {v.shape[1]} does not divide the 'sp' "
+                    f"axis size {seq_count}."
+                )
+            width = v.shape[1] // seq_count
+            out[k] = np.ascontiguousarray(v[:, seq_index * width:(seq_index + 1) * width])
+        return out
+
     assembly = _native_assembly(source, preprocessing, training, seed, epoch)
     if assembly is not None:
         assemble, labels = assembly
         for b in range(start_batch, num_batches):
-            idx = order[b * batch_size:min((b + 1) * batch_size, n)].astype(np.int64)
+            r = rows(b)
+            idx = order[r.start:r.stop].astype(np.int64)
             if len(idx):
-                yield {"input": assemble(idx), "target": labels[idx].astype(np.int32)}
+                yield columns({"input": assemble(idx), "target": labels[idx].astype(np.int32)})
         return
 
     def fetch(global_index: int) -> Dict[str, np.ndarray]:
@@ -173,7 +232,7 @@ def batch_iterator(
     )
     try:
         for b in range(start_batch, num_batches):
-            indices = range(b * batch_size, min((b + 1) * batch_size, n))
+            indices = rows(b)
             if pool is not None:
                 examples = list(pool.map(fetch, indices))
             else:
@@ -181,7 +240,7 @@ def batch_iterator(
             if not examples:
                 continue
             keys = examples[0].keys()
-            yield {k: np.stack([e[k] for e in examples]) for k in keys}
+            yield columns({k: np.stack([e[k] for e in examples]) for k in keys})
     finally:
         if pool is not None:
             pool.shutdown(wait=False)
@@ -357,6 +416,16 @@ class DataLoader:
             )
         return cache[split]
 
+    def per_host_batch_size(self, data_count: int = 1) -> int:
+        """The rows each of ``data_count`` data indices builds of every
+        global batch of ``batch_size``."""
+        if self.batch_size % data_count != 0:
+            raise ValueError(
+                f"Global batch size {self.batch_size} not divisible by "
+                f"host count {data_count}."
+            )
+        return self.batch_size // data_count
+
     def host_batches(
         self,
         split: str = "train",
@@ -364,19 +433,26 @@ class DataLoader:
         epoch: int = 0,
         training: Optional[bool] = None,
         start_batch: int = 0,
+        sharding: Optional[Any] = None,
     ) -> Iterator[Batch]:
         """The split's numpy batches from batch ``start_batch`` of the
-        epoch on. ``training=None`` infers train-mode behaviour (shuffle,
-        augment, drop-remainder) from the split."""
+        epoch on: this rank's share of each (``sharding``, a
+        ``parallel.BatchSlice``; None = the whole batch).
+        ``training=None`` infers train-mode behaviour (shuffle, augment,
+        drop-remainder) from the split."""
         if training is None:
             training = split == "train"
         source = self._source(split)
         if source is None:
             raise ValueError(f"Dataset has no '{split}' split.")
+        share = {}
+        if sharding is not None:
+            share = dict(host_index=sharding.data_index, host_count=sharding.data_count,
+                         seq_index=sharding.seq_index, seq_count=sharding.seq_count)
         return batch_iterator(
             source,
             self.preprocessing,
-            self.batch_size,
+            self.per_host_batch_size(share.get("host_count", 1)),
             training=training,
             shuffle=self.shuffle and training,
             seed=self.seed,
@@ -384,6 +460,7 @@ class DataLoader:
             drop_remainder=self.drop_remainder or training,
             num_workers=self.num_workers,
             start_batch=start_batch,
+            **share,
         )
 
     def batches(
@@ -396,6 +473,7 @@ class DataLoader:
         start_batch: int = 0,
         max_batches: Optional[int] = None,
         unroll: int = 1,
+        sharding: Optional[Any] = None,
     ) -> Iterator[Dict[str, torch.Tensor]]:
         """The split's batches as tensors on ``device`` through
         :func:`prefetch_to_device` (``prefetch`` deep), from batch
@@ -405,8 +483,11 @@ class DataLoader:
         a resumed epoch ends where the uninterrupted one does.
         ``unroll > 1`` yields slabs of ``unroll`` stacked batches
         (:func:`slab_iterator`, the last one truncated at the cap),
-        stacked on the host and staged with one copy a tensor."""
-        it = self.host_batches(split, epoch=epoch, training=training, start_batch=start_batch)
+        stacked on the host and staged with one copy a tensor.
+        ``sharding`` (the partitioner's ``batch_sharding()``) takes this
+        rank's share of each batch before the slab is stacked."""
+        it = self.host_batches(split, epoch=epoch, training=training, start_batch=start_batch,
+                               sharding=sharding)
         cap = None if max_batches is None else max(0, max_batches - start_batch)
         if unroll > 1:
             it = slab_iterator(it, unroll, max_batches=cap)

@@ -13,8 +13,10 @@ One weight set serves three paths, as in the JAX module:
 
 - ``forward`` / ``prefill``: the full-context forward (prefill also
   returns every layer's K/V heads and each sequence's last logits), its
-  attention K9 (``attention="flash"``) or the dense oracle
-  (``"dense"``). ``forward`` trains under autograd: flash attention
+  attention K9 (``attention="flash"``), the dense oracle (``"dense"``)
+  or a callable a partitioner injected (``set_attention_override``: the
+  sequence-parallel attention, the tokens then a shard of the sequence
+  and the positional table read at the shard's global offset). ``forward`` trains under autograd: flash attention
   then runs K9 with lse forward and K10/K11 backward;
 - ``decode_step``: one token per sequence over caller-owned slot caches
   ``[slots, capacity, heads, head_dim]`` (K12);
@@ -151,10 +153,12 @@ class _Block(nn.Module):
         h = F.gelu(h, approximate="tanh")
         return x + self.down(h)
 
-    def forward(self, x: torch.Tensor, return_kv: bool = False):
+    def forward(self, x: torch.Tensor, return_kv: bool = False, attention=None):
         b, s, d = x.shape
         q, k, v = self._heads(x)
-        o = getattr(attn_ops, _ATTENTION[self.attention])(q, k, v, causal=True)
+        if attention is None:
+            attention = getattr(attn_ops, _ATTENTION[self.attention])
+        o = attention(q, k, v, causal=True)
         out = self._mlp(x + self.proj(o.reshape(b, s, d)))
         return (out, (k, v)) if return_kv else out
 
@@ -189,9 +193,15 @@ class TransformerLMModule(nn.Module):
 
     def __init__(self, vocab_size: int, num_layers: int, d_model: int, num_heads: int,
                  mlp_ratio: int, max_seq_len: int, dtype: torch.dtype,
-                 attention: str = "flash"):
+                 attention: str = "flash", attention_override=None):
         super().__init__()
         _check_attention(attention)
+        #: An injected attention callable (``TransformerLM.
+        #: set_attention_override``) that takes precedence over
+        #: ``attention`` in the full-context forward; with a
+        #: ``sequence_offset(local_len)`` method (sequence parallelism) the
+        #: tokens are a shard of the sequence starting at that position.
+        self.attention_override = attention_override
         self.vocab_size = vocab_size
         self.num_layers = num_layers
         self.d_model = d_model
@@ -228,19 +238,21 @@ class TransformerLMModule(nn.Module):
                 f"{tuple(tokens.shape)}."
             )
         s = tokens.shape[1]
-        if s > self.max_seq_len:
+        override = self.attention_override
+        offset = getattr(override, "sequence_offset", lambda _: 0)(s)
+        if offset + s > self.max_seq_len:
             raise ValueError(
-                f"Sequence length {s} exceeds max_seq_len {self.max_seq_len} "
+                f"Sequence length {offset + s} exceeds max_seq_len {self.max_seq_len} "
                 "(the positional table size)."
             )
-        x = (self.embed[tokens.long()] + self.pos[None, :s]).to(self.dtype)
+        x = (self.embed[tokens.long()] + self.pos[None, offset:offset + s]).to(self.dtype)
         kv = []
         for block in self.blocks:
             if collect_kv:
-                x, layer_kv = block(x, return_kv=True)
+                x, layer_kv = block(x, return_kv=True, attention=override)
                 kv.append(layer_kv)
             else:
-                x = block(x)
+                x = block(x, attention=override)
         return x, kv
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
@@ -341,6 +353,19 @@ class TransformerLM(Model):
     #: Positional-table capacity; -1 sizes it to the built sequence.
     max_seq_len: int = Field(-1)
 
+    def set_attention_override(self, fn) -> None:
+        """The partitioner injection seam (``Partitioner.prepare_model``):
+        a mesh-owning partitioner (``SequenceParallelPartitioner``)
+        installs its attention callable here before ``build()``, and it
+        takes precedence over the ``attention`` Field in the full-context
+        forward. ``None`` clears the override."""
+        if fn is not None and not callable(fn):
+            raise ValueError(
+                f"attention override must be callable(q, k, v, *, "
+                f"causal) or None, got {fn!r}."
+            )
+        object.__setattr__(self, "_attention_override", fn)
+
     def build(self, input_shape: Sequence[int], num_classes: int) -> TransformerLMModule:
         if len(input_shape) != 1:
             raise ValueError(
@@ -372,4 +397,5 @@ class TransformerLM(Model):
             max_seq_len=max_seq_len,
             dtype=self.dtype(),
             attention=self.attention,
+            attention_override=getattr(self, "_attention_override", None),
         )

@@ -33,9 +33,10 @@ PyTorch version beside it:
   :func:`flash_attention` trains. bf16 calls at head_dim <= 128 (K9 and
   K9-lse as well as K10/K11) run on tensor cores, fp32 (exact products)
   and wider head_dims on fp32 FMA; :func:`flash_forward_variant` and
-  :func:`flash_backward_variant` name the kernels a call takes. The
-  ``lse`` cotangent of JAX's ``_flash_attention_lse`` (only the ring
-  merge uses it) is not ported.
+  :func:`flash_backward_variant` name the kernels a call takes.
+  :func:`flash_attention_lse` (JAX's ``_flash_attention_lse``) goes
+  through the same Function and also returns ``lse`` and takes its
+  cotangent: the backward runs K10/K11 with ``D' = D - dlse``.
 - K12 :func:`paged_decode_attention` — one-position decode over a slot
   cache ``[slots, capacity, heads, head_dim]``, reading only rows
   ``0..clamp(lengths, 0, capacity - 1)``. Plain version:
@@ -44,6 +45,14 @@ PyTorch version beside it:
   tables over a shared page pool, with optional int8 rows times fp32
   per-(row, head) scales; each (slot, head)'s rows split over blocks
   (:func:`decode_variant`). Plain version: :func:`pool_decode_attention`.
+
+Sequence parallelism across ranks (the JAX package's shard_map
+programs, each rank holding its sequence shard): :func:`ring_attention`
+(dense blocks), :func:`ring_flash_attention` (:func:`ring_flash_step`
+per block: K9-lse forward, K10/K11 backward with the lse cotangent) and
+:func:`all_to_all_attention` (Ulysses: dense or flash over whole heads),
+their rotations and re-shards ``torch.distributed`` calls on the sp
+group.
 
 A wrapper runs its plain version only when its tensors lie on the CPU.
 On CUDA tensors it launches its kernel (counting the launch in
@@ -583,22 +592,33 @@ def flash_backward_variant(dtype: torch.dtype, head_dim: int) -> str:
 
 
 class _FlashAttention(torch.autograd.Function):
-    """Flash attention under autograd: K9 with lse forward (saving q, k,
-    v, out and lse), then D, K10 and K11 backward. On CPU tensors the
-    wrappers run their plain versions; on CUDA tensors they launch."""
+    """Flash attention under autograd, returning ``(out, lse)``: K9 with
+    lse forward (saving q, k, v, out and lse), then D, K10 and K11
+    backward. Where lse takes a cotangent (the ring-flash merge), the
+    backward folds it into D as ``D' = D - dlse`` (fp32, ``[b*h, s]``;
+    ``d lse_i / d S_ij = P_ij``, so ``dS = P * (dO V^T - D')``) and runs
+    K10 and K11 unchanged, as JAX's ``_flash_attention_lse`` does; where
+    it takes none (:func:`flash_attention`), D is left as it is. On CPU
+    tensors the wrappers run their plain versions; on CUDA tensors they
+    launch."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, scale):
         out, lse = flash_forward_lse(q, k, v, causal=causal, scale=scale)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.causal, ctx.scale = causal, scale
-        return out
+        ctx.set_materialize_grads(False)
+        return out, lse
 
     @staticmethod
     @torch.autograd.function.once_differentiable
-    def backward(ctx, do):
+    def backward(ctx, do, dlse):
         q, k, v, out, lse = ctx.saved_tensors
+        if do is None:
+            do = torch.zeros_like(out)
         delta = flash_backward_delta(out, do)
+        if dlse is not None:
+            delta = (delta - dlse.float()).contiguous()
         kw = dict(causal=ctx.causal, scale=ctx.scale)
         dq = flash_backward_dq(q, k, v, do, lse, delta, **kw)
         dk, dv = flash_backward_dkv(q, k, v, do, lse, delta, **kw)
@@ -623,11 +643,25 @@ def flash_attention(
     if scale is None:
         scale = q.shape[3] ** -0.5
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        return _FlashAttention.apply(q, k, v, bool(causal), float(scale))
+        return _FlashAttention.apply(q, k, v, bool(causal), float(scale))[0]
     device = _cuda_device(what, q, k, v)
     if device is None:
         return flash_attention_plain(q, k, v, causal=causal, scale=scale)
     return _flash_forward_launch(what, q, k, v, causal, scale, device, False)[0]
+
+
+def flash_attention_lse(q, k, v, *, causal=False, scale=None):
+    """Flash attention that also returns each row's log-sum-exp: ``(out
+    [b, s, h, d], lse [b*h, s] fp32)``, K9 with lse. Under autograd both
+    outputs take a cotangent (:class:`_FlashAttention`: K10 and K11
+    with ``D' = D - dlse``); the ring-flash merge consumes ``lse``."""
+    what = "flash_attention_lse"
+    _check_self_attention(what, q, k, v)
+    if scale is None:
+        scale = q.shape[3] ** -0.5
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return _FlashAttention.apply(q, k, v, bool(causal), float(scale))
+    return flash_forward_lse(q, k, v, causal=causal, scale=scale)
 
 
 # -- K12 / K13: decode attention --------------------------------------------
@@ -815,3 +849,330 @@ def pool_paged_decode_attention(
     )
     LAUNCHES["pool_paged_decode_attention"] += 1
     return out
+
+
+# -- sequence parallelism across ranks: ring, ring-flash, Ulysses -----------
+#
+# Each rank holds its sequence shard ``[b, s/n, h, d]`` of q, k and v; the
+# n ranks of the ``seq_axis`` group (the ranks of one data index) hold the
+# shards in rank order. The JAX package runs the same programs under
+# shard_map; here every rank runs its own, and the collectives are
+# ``torch.distributed`` calls on the sp group.
+
+
+def _check_self_attention_shapes(q, k, v) -> None:
+    """Identical q/k/v shapes are the sequence-parallel contract (the JAX
+    package's check and message)."""
+    if k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(
+            "Sequence-parallel attention requires q, k, v of identical "
+            f"shape (self-attention); got q={tuple(q.shape)}, k={tuple(k.shape)}, "
+            f"v={tuple(v.shape)}."
+        )
+
+
+def _ring(group) -> Tuple[int, int]:
+    """``(n, my)``: the group's size and this rank's index in it; ``(1,
+    0)`` without a group."""
+    import torch.distributed as dist
+
+    if group is None:
+        return 1, 0
+    return dist.get_world_size(group), dist.get_rank(group)
+
+
+def _ring_start(tensors, group, shift: int):
+    """Post one hop of ``tensors`` around ``group``: send each to group
+    rank ``my + shift``, receive its successor's from ``my - shift``.
+    Returns ``(received, works, sent)``; the received buffers hold the
+    data once every work has been waited on, and ``sent`` must live
+    until then."""
+    import torch.distributed as dist
+
+    n, my = _ring(group)
+    dst = dist.get_global_rank(group, (my + shift) % n)
+    src = dist.get_global_rank(group, (my - shift) % n)
+    sent = [t.contiguous() for t in tensors]
+    received = [torch.empty_like(t) for t in sent]
+    ops = []
+    for t, r in zip(sent, received):
+        ops.append(dist.P2POp(dist.isend, t, dst, group))
+        ops.append(dist.P2POp(dist.irecv, r, src, group))
+    return received, dist.batch_isend_irecv(ops), sent
+
+
+class _RingRotate(torch.autograd.Function):
+    """One ring hop of a K/V block (``_ring_rotate``): group rank i sends
+    to i-1 and receives from i+1, so after t hops rank r holds the block
+    that started on ``(r + t) % n``. The backward runs the inverse hop.
+    ``pending``: None waits in the forward; a list takes the works (and
+    the sent buffers) for the caller to wait on after the block's compute
+    (the overlap schedule)."""
+
+    @staticmethod
+    def forward(ctx, k, v, group, pending):
+        ctx.group = group
+        (k_next, v_next), works, sent = _ring_start((k, v), group, -1)
+        if pending is None:
+            for w in works:
+                w.wait()
+        else:
+            pending.extend([*works, sent])
+        return k_next, v_next
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dk, dv):
+        (dk_prev, dv_prev), works, _ = _ring_start((dk, dv), ctx.group, 1)
+        for w in works:
+            w.wait()
+        return dk_prev, dv_prev, None, None
+
+
+def _wait(pending) -> None:
+    for item in pending:
+        if not isinstance(item, list):
+            item.wait()
+
+
+def _ring_rotate(k_blk, v_blk, group, pending=None):
+    """One hop of the ring (:class:`_RingRotate`); the identity at n = 1."""
+    if _ring(group)[0] == 1:
+        return k_blk, v_blk
+    return _RingRotate.apply(k_blk, v_blk, group, pending)
+
+
+class _KeepRingInGraph(torch.autograd.Function):
+    """``o.to(dtype)`` that also takes the ring's last K/V blocks, whose
+    gradient it leaves at zero. The rotations form a chain, so the last
+    blocks tie every rotation into the backward graph on every rank: a
+    causal rank that used no rotated block (rank 0 skips every block after
+    its own) still runs each inverse rotation its peers post, in the same
+    order, instead of leaving them waiting."""
+
+    @staticmethod
+    def forward(ctx, o, dtype, k_last, v_last):
+        ctx.o_dtype = o.dtype
+        ctx.blocks = [(t.shape, t.dtype, t.device) for t in (k_last, v_last)]
+        return o.to(dtype, copy=True)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, grad):
+        zeros = [torch.zeros(shape, dtype=dtype, device=device)
+                 for shape, dtype, device in ctx.blocks]
+        return grad.to(ctx.o_dtype), None, *zeros
+
+
+def _ring_loop(k, v, group, overlap: bool, block_fn):
+    """The ring schedule over the n blocks: ``block_fn(t, k_blk, v_blk)``
+    at step t on the block that started on ``(my + t) % n``, with the
+    rotation to the next block issued before the compute and waited on
+    after it (``overlap``) or issued after it. No hop follows the last
+    block. Returns the last blocks."""
+    n, _ = _ring(group)
+    k_blk, v_blk = k, v
+    for t in range(n):
+        last = t == n - 1
+        pending = []
+        if overlap and not last:
+            nxt = _ring_rotate(k_blk, v_blk, group, pending)
+        block_fn(t, k_blk, v_blk)
+        if not last:
+            if overlap:
+                _wait(pending)
+            else:
+                nxt = _ring_rotate(k_blk, v_blk, group)
+            k_blk, v_blk = nxt
+    return k_blk, v_blk
+
+
+def ring_attention_local(q, k, v, *, group, causal=False, scale=None, overlap=True):
+    """The per-rank ring program with dense block compute (JAX's
+    ``ring_attention_local``): the online softmax of this rank's queries
+    over each rank's K/V block in ring order, scores and products in fp32,
+    causal masking by global positions (this rank's queries start at ``my
+    * sq``; the block at step t started on ``(my + t) % n``). ``overlap``
+    picks the schedule (:func:`_ring_loop`); the same bits either way."""
+    _check_self_attention_shapes(q, k, v)
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    n, my = _ring(group)
+    b, sq, h, d = q.shape
+    qf = q.float().permute(0, 2, 1, 3)  # [b, h, sq, d]
+    carry = {
+        "m": torch.full((b, h, sq), _MASK_VALUE, dtype=torch.float32, device=q.device),
+        "l": torch.zeros((b, h, sq), dtype=torch.float32, device=q.device),
+        "acc": torch.zeros((b, h, sq, d), dtype=torch.float32, device=q.device),
+    }
+    rows = torch.arange(sq, device=q.device)[:, None]
+    cols = torch.arange(sq, device=q.device)[None, :]
+
+    def block(t, k_blk, v_blk):
+        s = torch.einsum("bhqd,bkhd->bhqk", qf, k_blk.float()) * float(scale)
+        if causal:
+            src = (my + t) % n
+            s = torch.where(src * sq + cols <= my * sq + rows, s, _MASK_VALUE)
+        m, l, acc = carry["m"], carry["l"], carry["acc"]
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        carry["m"] = m_new
+        carry["l"] = l * corr + p.sum(dim=-1)
+        carry["acc"] = acc * corr[..., None] + torch.einsum("bhqk,bkhd->bhqd", p, v_blk.float())
+
+    _ring_loop(k, v, group, overlap, block)
+    out = carry["acc"] / carry["l"][..., None]
+    return out.permute(0, 2, 1, 3).to(q.dtype)
+
+
+def ring_flash_step(q, k_blk, v_blk, o, lse, *, src, my, causal=False, scale=None):
+    """One ring-flash step: this rank's queries (group index ``my``)
+    against the K/V block that started on ``src``, merged into the
+    running ``(o [b, s, h, d] fp32, lse [b, s, h, 1] fp32)`` (both None
+    before the first block). The block's position picks its kernel call
+    under ``causal``: ``src == my`` the causal diagonal block (K9-lse on
+    local indices), ``src < my`` a full block, ``src > my`` no call (its
+    zeros and ``_MASK_VALUE`` lse leave the merge as it was). The merge is
+    JAX's: ``lse' = logaddexp(lse, lse_t)``, ``o' = o exp(lse - lse') +
+    o_t exp(lse_t - lse')``; the first block is taken as it is (the merge
+    of it into the empty state, to the bit)."""
+    if causal and src > my:
+        return o, lse
+    b, s, h, _ = q.shape
+    o_t, lse_t = flash_attention_lse(q, k_blk, v_blk, causal=causal and src == my, scale=scale)
+    o_t = o_t.float()
+    lse_t = lse_t.view(b, h, s).permute(0, 2, 1).unsqueeze(-1)
+    if o is None:
+        return o_t, lse_t
+    lse_new = torch.logaddexp(lse, lse_t)
+    return o * torch.exp(lse - lse_new) + o_t * torch.exp(lse_t - lse_new), lse_new
+
+
+def ring_flash_attention_local(q, k, v, *, group, causal=False, scale=None, overlap=True):
+    """The composed tier, flash within the card and ring across cards
+    (JAX's ``ring_flash_attention_local``): :func:`ring_flash_step` on
+    each block in ring order, K9-lse forward and K10/K11 backward (with
+    the lse cotangent) per live block, the inverse rotation carrying the
+    K/V gradients home. ``overlap`` picks the schedule; the same bits
+    either way. Output in q's dtype."""
+    _check_self_attention_shapes(q, k, v)
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    n, my = _ring(group)
+    state = {"o": None, "lse": None}
+
+    def block(t, k_blk, v_blk):
+        state["o"], state["lse"] = ring_flash_step(
+            q, k_blk, v_blk, state["o"], state["lse"], src=(my + t) % n, my=my,
+            causal=causal, scale=scale)
+
+    k_last, v_last = _ring_loop(k, v, group, overlap, block)
+    if n > 1 and torch.is_grad_enabled() and k_last.requires_grad:
+        return _KeepRingInGraph.apply(state["o"], q.dtype, k_last, v_last)
+    return state["o"].to(q.dtype)
+
+
+def _all_to_all(x: torch.Tensor, group) -> torch.Tensor:
+    """``all_to_all_single`` over ``group`` along the leading axis (chunk
+    j goes to group rank j), autograd-aware."""
+    import warnings
+
+    from torch.distributed.nn.functional import all_to_all_single
+
+    x = x.contiguous()
+    with warnings.catch_warnings():
+        # Deprecated in favour of a private module; present in every
+        # torch this port runs on.
+        warnings.simplefilter("ignore", FutureWarning)
+        return all_to_all_single(torch.empty_like(x), x, group=group)
+
+
+def _seq_to_heads(x, group, n):
+    """``[b, s/n, h, d]`` sequence shards -> ``[b, s, h/n, d]`` head
+    shards (JAX's ``all_to_all(split_axis=2, concat_axis=1, tiled=True)``)."""
+    b, sl, h, d = x.shape
+    parts = x.reshape(b, sl, n, h // n, d).permute(2, 0, 1, 3, 4)
+    return _all_to_all(parts, group).permute(1, 0, 2, 3, 4).reshape(b, n * sl, h // n, d)
+
+
+def _heads_to_seq(x, group, n):
+    """The inverse of :func:`_seq_to_heads`."""
+    b, s, hn, d = x.shape
+    parts = x.reshape(b, n, s // n, hn, d).permute(1, 0, 2, 3, 4)
+    return _all_to_all(parts, group).permute(1, 2, 0, 3, 4).reshape(b, s // n, n * hn, d)
+
+
+def all_to_all_attention_local(q, k, v, *, group, causal=False, scale=None,
+                               local_attention="dense", axis_name="sp"):
+    """Ulysses-style sequence parallelism (JAX's
+    ``all_to_all_attention_local``): one all-to-all re-shards q, k and v
+    from sequence shards ``[b, s/n, h, d]`` to head shards ``[b, s, h/n,
+    d]``, the local attention runs over the whole sequence of this rank's
+    heads (``"dense"``: the fp32 oracle; ``"flash"``: K9, and K9-lse with
+    K10/K11 under autograd), and one all-to-all re-shards back. Needs
+    ``heads % n == 0``."""
+    if local_attention not in ("dense", "flash"):
+        raise ValueError(
+            f"local_attention={local_attention!r}: expected 'dense' or "
+            "'flash'."
+        )
+    _check_self_attention_shapes(q, k, v)
+    n, _ = _ring(group)
+    if q.shape[2] % n != 0:
+        raise ValueError(
+            f"heads={q.shape[2]} is not divisible by the '{axis_name}' "
+            f"axis size {n}, which all-to-all (Ulysses) attention needs "
+            "to give every device whole heads."
+        )
+    local_fn = flash_attention if local_attention == "flash" else attention_reference
+    if n == 1:
+        return local_fn(q, k, v, causal=causal, scale=scale)
+    out = local_fn(*(_seq_to_heads(t, group, n) for t in (q, k, v)), causal=causal, scale=scale)
+    return _heads_to_seq(out, group, n)
+
+
+def _seq_group(q, k, v, mesh, seq_axis, batch_axis):
+    """The checks of JAX's one-call wrappers, on this rank's shards, and
+    the ring's group (None without a mesh: one rank, no collective)."""
+    _check_self_attention_shapes(q, k, v)
+    if mesh is None:
+        return None
+    names = mesh.mesh_dim_names or ()
+    for axis in (seq_axis, batch_axis):
+        if axis is not None and axis not in names:
+            raise ValueError(f"Mesh axis {axis!r} is not one of the mesh's axes {names}.")
+    return mesh.get_group(seq_axis)
+
+
+def ring_attention(q, k, v, *, mesh, seq_axis, batch_axis=None, causal=False,
+                   scale=None, overlap=True):
+    """One-call sequence-parallel attention with dense block compute
+    (JAX's ``ring_attention``) over this rank's shards ``[b, s/n, h,
+    d]`` of q/k/v: the ring over ``mesh``'s ``seq_axis`` group. ``batch_
+    axis`` names the axis the batch is split over (each of its indices
+    runs its own ring; attention is batch-elementwise, so it changes no
+    value). ``mesh=None`` is one rank."""
+    group = _seq_group(q, k, v, mesh, seq_axis, batch_axis)
+    return ring_attention_local(q, k, v, group=group, causal=causal, scale=scale,
+                                overlap=overlap)
+
+
+def ring_flash_attention(q, k, v, *, mesh, seq_axis, batch_axis=None, causal=False,
+                         scale=None, overlap=True):
+    """One-call composed-tier attention (JAX's ``ring_flash_attention``):
+    :func:`ring_attention`'s contract with the flash kernels as each
+    block's compute (:func:`ring_flash_attention_local`)."""
+    group = _seq_group(q, k, v, mesh, seq_axis, batch_axis)
+    return ring_flash_attention_local(q, k, v, group=group, causal=causal, scale=scale,
+                                      overlap=overlap)
+
+
+def all_to_all_attention(q, k, v, *, mesh, seq_axis, batch_axis=None, causal=False,
+                         scale=None, local_attention="dense"):
+    """One-call Ulysses attention (JAX's ``all_to_all_attention``):
+    :func:`ring_attention`'s contract, the all-to-all re-shard of
+    :func:`all_to_all_attention_local` as the communication."""
+    group = _seq_group(q, k, v, mesh, seq_axis, batch_axis)
+    return all_to_all_attention_local(q, k, v, group=group, causal=causal, scale=scale,
+                                      local_attention=local_attention, axis_name=seq_axis)

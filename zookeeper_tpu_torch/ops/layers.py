@@ -96,6 +96,46 @@ def remat_scope(tag: bool = False, recompute: bool = False):
         _REMAT.tag, _REMAT.recompute = saved
 
 
+class _BatchStatsGroup(threading.local):
+    """The process group whose global batch the train-mode BatchNorms
+    take their moments over (None: this rank's batch alone)."""
+
+    group = None
+
+
+_BATCH_STATS = _BatchStatsGroup()
+
+
+@contextlib.contextmanager
+def global_batch_stats(group):
+    """Inside the block, train-mode BatchNorms normalise with the moments
+    of the global batch of ``group`` (the data-parallel ranks): the sums
+    of x, x^2 and the count are all-reduced, as the JAX package's GSPMD
+    step reduces them over the batch sharding. The sums' all-reduce is
+    autograd-aware, so the backward (and a remat recompute inside the
+    block) reduces the same way."""
+    saved = _BATCH_STATS.group
+    _BATCH_STATS.group = group
+    try:
+        yield
+    finally:
+        _BATCH_STATS.group = saved
+
+
+def _global_moments(xf: torch.Tensor, axes, group) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The mean and flax's fast variance ``E[x^2] - E[x]^2`` (clipped at
+    0) of ``xf`` over ``axes`` and every rank of ``group``."""
+    from torch.distributed.nn.functional import all_reduce
+
+    c = xf.shape[-1]
+    count = torch.full((1,), float(xf.numel() // c), dtype=torch.float32, device=xf.device)
+    sums = all_reduce(torch.cat([xf.sum(dim=axes), (xf * xf).sum(dim=axes), count]),
+                      group=group)
+    mean = sums[:c] / sums[2 * c]
+    var = torch.clamp(sums[c:2 * c] / sums[2 * c] - mean * mean, min=0.0)
+    return mean, var
+
+
 def tag_quant_act(x: torch.Tensor) -> torch.Tensor:
     """Tag a quantized activation for the "quant" remat policy: inside a
     tagging scope, the ``zookeeper_tpu_torch::quant_act`` op (a copy, its
@@ -313,7 +353,8 @@ class BatchNorm(nn.Module):
 
     In train mode (``module.train()``) it normalises with the batch mean
     and flax's fast biased variance ``mean(x^2) - mean(x)^2`` clipped at
-    0, and updates ``ra = m * ra + (1 - m) * batch`` for both statistics
+    0 (of the global batch of the data-parallel ranks inside
+    :func:`global_batch_stats`), and updates ``ra = m * ra + (1 - m) * batch`` for both statistics
     (the biased variance, unlike ``nn.BatchNorm2d``), ``m`` the share of
     the running statistic kept (flax's convention). In eval mode it uses
     the running statistics. The recompute of a rematerialized step leaves
@@ -341,8 +382,11 @@ class BatchNorm(nn.Module):
         xf = x.to(torch.float32)
         if self.training:
             axes = tuple(range(x.dim() - 1))
-            mean = xf.mean(dim=axes)
-            var = torch.clamp((xf * xf).mean(dim=axes) - mean * mean, min=0.0)
+            if _BATCH_STATS.group is not None:
+                mean, var = _global_moments(xf, axes, _BATCH_STATS.group)
+            else:
+                mean = xf.mean(dim=axes)
+                var = torch.clamp((xf * xf).mean(dim=axes) - mean * mean, min=0.0)
             if not _REMAT.recompute:
                 with torch.no_grad():
                     keep, take = self.momentum, 1.0 - self.momentum

@@ -31,6 +31,11 @@ format (no orbax):
   an export or a ``Checkpointer`` directory (its latest step, or
   ``step=``), as the same ``{flax path: tensor}`` trees.
 
+Under data or sequence parallelism (:meth:`Checkpointer.set_replicas`)
+the state is replicated: rank 0 writes it and every rank passes a
+barrier after the rename (a sync save) or after the writer drains
+(``wait``), so every rank restores the same step.
+
 The JAX package's per-host sharded protocol (``sharded_per_host``,
 ``process_index``, ``process_count``, ``host_commit_timeout_s``) is not
 ported yet (ROADMAP.md): those fields keep JAX's defaults and raise when
@@ -452,6 +457,25 @@ class Checkpointer:
     def enabled(self) -> bool:
         return self.directory is not None
 
+    def set_replicas(self, replicas: Any, is_chief: bool) -> None:
+        """The ranks holding copies of the state (a ``parallel.
+        ReplicaGroup``; None on one rank): only the chief (rank 0) writes,
+        and every rank passes ``replicas.barrier()`` once a sync save has
+        landed and once ``wait`` has drained the writer."""
+        object.__setattr__(self, "_replicas", replicas)
+        object.__setattr__(self, "_chief", is_chief)
+
+    def _barrier(self) -> None:
+        replicas = getattr(self, "_replicas", None)
+        if replicas is not None:
+            replicas.barrier()
+
+    @property
+    def _writes(self) -> bool:
+        """Whether this rank writes (every rank but the chief's replicas
+        skip)."""
+        return getattr(self, "_replicas", None) is None or getattr(self, "_chief", True)
+
     def _root(self) -> str:
         return os.path.abspath(os.path.expanduser(self.directory))
 
@@ -683,12 +707,19 @@ class Checkpointer:
         if metrics:
             metrics = {k: float(v) for k, v in metrics.items()}
         step = int(state.step) if step is None else int(step)
+        asynchronous = self.mode == "async" and not sync
+        if not self._writes:
+            if not asynchronous:
+                self._barrier()  # the chief's write has landed
+            return True
         tree, ready = host_snapshot(_state_tree(state))
-        if self.mode == "async" and not sync:
+        if asynchronous:
             return self._writer().submit(step, tree, metrics, ready=ready)
         if ready is not None:
             ready.synchronize()
-        return self._run_with_save_retries(step, lambda: self._write_state(tree, step, metrics))
+        saved = self._run_with_save_retries(step, lambda: self._write_state(tree, step, metrics))
+        self._barrier()
+        return saved
 
     def _tier_entries(self) -> List[Tuple[int, str]]:
         """Every retained ``(step, tier)``, newest first, the local tier
@@ -791,13 +822,14 @@ class Checkpointer:
 
     def wait(self, supersede: bool = False) -> float:
         """Block until every accepted async snapshot is written or dropped
-        (sync saves have landed when ``save`` returns); returns the ms
-        spent (0.0 in sync mode). ``supersede=True`` drops the queued, not
-        yet started snapshot first."""
+        (sync saves have landed when ``save`` returns), then pass the
+        ranks' barrier; returns the ms spent draining (0.0 in sync mode).
+        ``supersede=True`` drops the queued, not yet started snapshot
+        first."""
         writer = getattr(self, "_async_writer", None)
-        if writer is None:
-            return 0.0
-        return writer.drain(supersede=supersede)
+        waited = 0.0 if writer is None else writer.drain(supersede=supersede)
+        self._barrier()
+        return waited
 
     def close(self) -> None:
         """Stop the async writer (a queued snapshot is still written)."""

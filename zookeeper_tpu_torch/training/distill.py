@@ -24,7 +24,7 @@ import torch
 
 from zookeeper_tpu_torch.core import ComponentField, Field, component
 from zookeeper_tpu_torch.models.base import Model
-from zookeeper_tpu_torch.ops.device import resolve_device
+from zookeeper_tpu_torch.parallel.distributed import local_device
 from zookeeper_tpu_torch.training.checkpoint import load_exported_model
 from zookeeper_tpu_torch.training.experiment import TrainingExperiment
 from zookeeper_tpu_torch.training.step import make_train_step
@@ -64,7 +64,7 @@ class DistillationExperiment(TrainingExperiment):
         return super().run()
 
     def _teacher_fn(self) -> torch.nn.Module:
-        """The teacher: built, loaded, on the device, in eval mode."""
+        """The teacher: built, loaded, on this rank's device, in eval mode."""
         self._validate_teacher_config()
         input_shape = self.loader.preprocessing.input_shape
         module = self.teacher.build(input_shape, self.num_classes)
@@ -72,7 +72,7 @@ class DistillationExperiment(TrainingExperiment):
             load_exported_model(self.teacher_checkpoint, module)
         else:
             self.teacher.initialize(module, seed=self.seed)
-        return module.to(resolve_device(self.device)).eval().requires_grad_(False)
+        return module.to(local_device(self.device)).eval().requires_grad_(False)
 
     def _train_step_fn(self):
         return make_train_step(

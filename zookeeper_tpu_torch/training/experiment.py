@@ -34,8 +34,18 @@ The tools around a run: ``writer`` (``training.metrics``) gets the
 ``train_epoch/``/``val/`` scalars at each epoch's end, ``metrics_file``
 one JSON record per epoch, and ``profile_dir`` a ``torch.profiler``
 trace of a few steady-state steps of the first epoch
-(``training.profiling``). Partitioners and multi-GPU and observability
-are not ported yet (ROADMAP.md).
+(``training.profiling``).
+
+Data and sequence parallelism: ``partitioner`` (``parallel``) names the
+mesh over the ranks, each rank's share of every global batch and the
+collectives of the step; ``runtime`` forms the process group (from
+``torch.distributed.run``'s environment, or an explicit coordinator).
+Each rank runs on its own card (``cuda:LOCAL_RANK``; gloo CPU ranks with
+``device=cpu``). Rank 0 alone logs, writes the metrics, the profile,
+the checkpoints and the export; validation metrics are averaged over the
+ranks. Without a launcher there is no group and no collective: the run
+is the single-card run, to the bit. Observability is not ported yet
+(ROADMAP.md).
 """
 
 import json
@@ -50,8 +60,9 @@ import torch
 from zookeeper_tpu_torch.core import ComponentField, Field, component, pretty_print
 from zookeeper_tpu_torch.data.pipeline import DataLoader
 from zookeeper_tpu_torch.models.base import Model
-from zookeeper_tpu_torch.ops.device import resolve_device
 from zookeeper_tpu_torch.ops.layers import BINARY_KERNEL_PATTERN
+from zookeeper_tpu_torch.parallel import DistributedRuntime, Partitioner, SingleDevicePartitioner
+from zookeeper_tpu_torch.parallel.distributed import local_device
 from zookeeper_tpu_torch.resilience import faults
 from zookeeper_tpu_torch.resilience.faults import NonFiniteLossError, Preempted
 from zookeeper_tpu_torch.resilience.guard import PreemptionGuard
@@ -105,18 +116,30 @@ def _host_means(accum: List[Dict[str, torch.Tensor]]) -> Dict[str, float]:
             for i, k in enumerate(keys)}
 
 
-def run_weighted_eval(loader, split, eval_step, state, device, epoch=0) -> Dict[str, float]:
+def run_weighted_eval(loader, split, eval_step, state, device, epoch=0, *,
+                      sharding=None, replicas=None) -> Dict[str, float]:
     """Eval loop: per-batch metric means weighted by the batch's example
     count, accumulated on the device, read back once. ``{}`` when the
-    split yields no batches."""
+    split yields no batches. Under a partitioner each rank scores its
+    share of every batch (``sharding``) and the weighted sums and counts
+    are summed over the ranks (``replicas``), so every rank returns the
+    means over the whole split."""
     accum = None
     examples = 0
-    for batch in loader.batches(split, device=device, epoch=epoch, training=False):
+    for batch in loader.batches(split, device=device, epoch=epoch, training=False,
+                                sharding=sharding):
         n = int(batch["target"].shape[0])
         m = eval_step(state, batch)
         weighted = {k: v.to(torch.float64) * n for k, v in m.items()}
         accum = weighted if accum is None else {k: accum[k] + weighted[k] for k in accum}
         examples += n
+    if replicas is not None and accum is not None:
+        keys = list(accum)
+        sums = torch.stack([accum[k] for k in keys]
+                           + [torch.tensor(float(examples), dtype=torch.float64, device=device)])
+        replicas.sum_([sums])
+        host = sums.cpu()
+        return {k: float(host[i]) / float(host[-1]) for i, k in enumerate(keys)}
     if not examples:
         return {}
     return {k: float(v.cpu()) / examples for k, v in accum.items()}
@@ -130,6 +153,11 @@ class TrainingExperiment(Experiment):
     loader: DataLoader = ComponentField(DataLoader)
     model: Model = ComponentField()
     optimizer: Optimizer = ComponentField(Adam)
+    #: The mesh over the ranks and each rank's share (``parallel``); the
+    #: ImageNet and LM tasks default to ``DataParallelPartitioner``.
+    partitioner: Partitioner = ComponentField(SingleDevicePartitioner)
+    #: Forms the process group (a no-op without a launcher).
+    runtime: DistributedRuntime = ComponentField(DistributedRuntime)
     checkpointer: Checkpointer = ComponentField(Checkpointer)
     #: Preemption safety: while training runs, SIGTERM/SIGINT set a flag
     #: checked at each step boundary; the loop then saves once,
@@ -211,7 +239,7 @@ class TrainingExperiment(Experiment):
         return int(self.loader.dataset.resolved_num_classes())
 
     def _log(self, msg: str) -> None:
-        if self.verbose:
+        if self.verbose and self.partitioner.is_chief:
             print(msg, flush=True)
 
     def _log_profile_breakdown(self, steps: int) -> None:
@@ -239,8 +267,11 @@ class TrainingExperiment(Experiment):
 
     def build_state(self, device: torch.device) -> TrainState:
         """Build and initialize the module from ``seed`` on ``device``,
-        the optimizer over the run's steps, and the EMA when on."""
+        the optimizer over the run's steps, and the EMA when on. The
+        partitioner wires itself into the model first
+        (``prepare_model``: the sequence-parallel attention)."""
         input_shape = self.loader.preprocessing.input_shape
+        self.partitioner.prepare_model(self.model)
         module = self.model.build(input_shape, self.num_classes)
         self.model.initialize(module, seed=self.seed)
         module.to(device)
@@ -255,6 +286,7 @@ class TrainingExperiment(Experiment):
             "ema_decay": self.ema_decay if self.ema_decay > 0 else None,
             "remat": self.remat,
             "nan_policy": self.nan_policy,
+            "replicas": self.partitioner.replicas(),
         }
 
     def _train_step_fn(self):
@@ -382,7 +414,8 @@ class TrainingExperiment(Experiment):
             f"  step {step_idx + 1}/{spe} "
             f"loss={row['loss']:.4f} acc={row['accuracy']:.4f}"
         )
-        self.writer.write_scalars(global_step, {f"train/{k}": v for k, v in row.items()})
+        if self.partitioner.is_chief:
+            self.writer.write_scalars(global_step, {f"train/{k}": v for k, v in row.items()})
 
     def _check_halt(self, host: Dict[str, float], global_step: int) -> None:
         """``nan_policy="halt"``: raise when a step of the metrics just read
@@ -400,9 +433,16 @@ class TrainingExperiment(Experiment):
             input_dtype=getattr(torch, dtype) if isinstance(dtype, str) else dtype,
         )))
 
+    def _setup_ranks(self) -> torch.device:
+        """Form the group (when launched as ranks), build the mesh, and
+        return this rank's device."""
+        self.runtime.initialize(self.device)
+        self.partitioner.setup()
+        return local_device(self.device)
+
     def run(self) -> Dict[str, List[Dict[str, float]]]:
         self._validate_config()
-        device = resolve_device(self.device)
+        device = self._setup_ranks()
         self._log(pretty_print(self))
         if self.print_model_summary:
             self._print_summary()
@@ -410,12 +450,17 @@ class TrainingExperiment(Experiment):
         self.first_step_at = None
         self.save_wait_ms = None
         self._profile_window = None
+        partitioner = self.partitioner
+        self.checkpointer.set_replicas(
+            partitioner.replicas() if self.checkpointer.enabled else None, partitioner.is_chief)
         try:
-            state = self.checkpointer.restore_state(self.build_state(device))
+            state = partitioner.shard_state(self.build_state(device))
+            state = self.checkpointer.restore_state(state)
+            partitioner.check_same_step(state.step)
             state, history = self._train(state, device)
         finally:
             self._teardown()
-        if self.export_model_to:
+        if self.export_model_to and partitioner.is_chief:
             save_model(self.export_model_to, *export_trees(
                 state.module, state.ema_params if self.ema_decay > 0 else None))
         self.final_state = state
@@ -546,13 +591,14 @@ class TrainingExperiment(Experiment):
             start_b = resume_step if epoch == start_epoch else 0
             # The profiler window: steps p_start..p_stop (inclusive) of the
             # first epoch this run trains, its warm-up steps left out.
-            profiling = self.profile_dir is not None and epoch == start_epoch
+            profiling = (self.profile_dir is not None and epoch == start_epoch
+                         and self.partitioner.is_chief)
             p_start = min(start_b + 4, spe - 1)
             p_stop = min(start_b + 14, spe - 1)
             run_epoch = self._run_eager_epoch if multi_step is None else self._run_fused_epoch
             batches = self.loader.batches(
                 "train", device=device, epoch=epoch, start_batch=start_b, max_batches=spe,
-                unroll=self.unroll,
+                unroll=self.unroll, sharding=self.partitioner.batch_sharding(),
             )
             try:
                 state, steps_trained = run_epoch(
@@ -584,7 +630,9 @@ class TrainingExperiment(Experiment):
             vmetrics = None
             if has_val_split and (epoch + 1) % self.validate_every == 0:
                 vmetrics = run_weighted_eval(
-                    self.loader, "validation", eval_step, state, device, epoch=epoch
+                    self.loader, "validation", eval_step, state, device, epoch=epoch,
+                    sharding=self.partitioner.batch_sharding(),
+                    replicas=self.partitioner.replicas(),
                 ) or None
                 if vmetrics is not None:
                     history["validation"].append(vmetrics)
@@ -593,7 +641,7 @@ class TrainingExperiment(Experiment):
                         f"val_acc={vmetrics.get('accuracy', float('nan')):.4f}"
                     )
             self._log(line)
-            if self.metrics_file:
+            if self.metrics_file and self.partitioner.is_chief:
                 record = {"epoch": epoch, **epoch_metrics}
                 if partial_epoch:
                     record["partial_epoch"] = True
@@ -606,7 +654,8 @@ class TrainingExperiment(Experiment):
             scalars = {f"train_epoch/{k}": v for k, v in epoch_metrics.items()}
             if vmetrics is not None:
                 scalars.update({f"val/{k}": v for k, v in vmetrics.items()})
-            self.writer.write_scalars((epoch + 1) * spe, scalars)
+            if self.partitioner.is_chief:
+                self.writer.write_scalars((epoch + 1) * spe, scalars)
             # Scored: fresh validation when the dataset has a split, else
             # the train epoch (not a partial one: its aggregates are not
             # comparable); None on an epoch that was not validated.
@@ -653,6 +702,8 @@ class EvalExperiment(Experiment):
 
     loader: DataLoader = ComponentField(DataLoader, drop_remainder=False)
     model: Model = ComponentField()
+    partitioner: Partitioner = ComponentField(SingleDevicePartitioner)
+    runtime: DistributedRuntime = ComponentField(DistributedRuntime)
 
     #: The ``save_model`` export, or a ``Checkpointer`` directory (the
     #: latest step's EMA or raw weights), to score.
@@ -680,8 +731,9 @@ class EvalExperiment(Experiment):
     def build_state(self, device: torch.device) -> TrainState:
         """The model built and loaded from ``checkpoint`` (its structure
         checked against the build) on ``device``, as a state with no
-        optimizer."""
+        optimizer. The partitioner wires itself into the model first."""
         input_shape = self.loader.preprocessing.input_shape
+        self.partitioner.prepare_model(self.model)
         module = self.model.build(input_shape, self.num_classes)
         params_like, state_like = export_trees(module)
         params, model_state = load_inference_model(
@@ -703,12 +755,17 @@ class EvalExperiment(Experiment):
             raise ValueError(
                 f"track_top5=True needs >= 5 classes (dataset has {self.num_classes})."
             )
-        device = resolve_device(self.device)
-        if self.verbose:
+        self.runtime.initialize(self.device)
+        partitioner = self.partitioner
+        partitioner.setup()
+        device = local_device(self.device)
+        verbose = self.verbose and partitioner.is_chief
+        if verbose:
             print(pretty_print(self), flush=True)
         state = self.build_state(device)
         metrics = run_weighted_eval(
-            self.loader, self.split, make_eval_step(top5=self.track_top5), state, device
+            self.loader, self.split, make_eval_step(top5=self.track_top5), state, device,
+            sharding=partitioner.batch_sharding(), replicas=partitioner.replicas(),
         )
         if not metrics:
             raise ValueError(f"Split {self.split!r} produced no batches.")
@@ -716,7 +773,7 @@ class EvalExperiment(Experiment):
             ce = metrics["loss"]
             metrics["perplexity"] = math.exp(ce)
             metrics["bits_per_token"] = ce / math.log(2.0)
-        if self.verbose:
+        if verbose:
             line = " ".join(f"{k}={v:.4f}" for k, v in sorted(metrics.items()))
             print(f"eval[{self.split}] {line}", flush=True)
         return metrics

@@ -10,7 +10,11 @@ Inception RandomResizedCrop recipe, Adam under a warmup-cosine schedule
 and label smoothing 0.1; ``model=`` takes any model of the zoo
 (``BiRealNet``, ``BinaryResNetE18``, ``RealToBinaryNet``, ``ReActNet``,
 ``XNORNet``, ``DoReFaNet``, ``ResNet50``, ...). It trains on the card
-unless ``device=cpu`` is passed.
+unless ``device=cpu`` is passed. ``partitioner`` defaults to
+``DataParallelPartitioner``: under ``python -m torch.distributed.run
+--nproc-per-node N`` each rank trains on its rows of every global batch,
+with the gradients averaged and the BatchNorm moments taken over the
+global batch; without a launcher, one card.
 
 ``DistillImageNet`` is the Real-to-Binary staged recipe (Martinez et al.
 2020): train a full-precision teacher and export it, then distill the
@@ -30,6 +34,7 @@ from zookeeper_tpu_torch.data import (
     SyntheticImageNet,
 )
 from zookeeper_tpu_torch.models import Model, QuickNet, RealToBinaryNet, ResNet50
+from zookeeper_tpu_torch.parallel import DataParallelPartitioner, Partitioner
 from zookeeper_tpu_torch.training.distill import DistillationExperiment
 from zookeeper_tpu_torch.training.experiment import TrainingExperiment
 from zookeeper_tpu_torch.training.optimizer import Adam, Optimizer
@@ -54,6 +59,7 @@ class TrainImageNet(TrainingExperiment):
     optimizer: Optimizer = ComponentField(
         Adam, schedule=PartialComponent(WarmupCosine, base_lr=1e-2)
     )
+    partitioner: Partitioner = ComponentField(DataParallelPartitioner)
     epochs: int = Field(120)
     batch_size: int = Field(256)
     label_smoothing: float = Field(0.1)
@@ -76,6 +82,7 @@ class DistillImageNet(DistillationExperiment):
     optimizer: Optimizer = ComponentField(
         Adam, schedule=PartialComponent(WarmupCosine, base_lr=2.5e-3)
     )
+    partitioner: Partitioner = ComponentField(DataParallelPartitioner)
     epochs: int = Field(75)
     batch_size: int = Field(256)
     track_top5: bool = Field(True)

@@ -162,6 +162,7 @@ def make_train_step(
     ema_decay: Optional[float] = None,
     remat: str = "none",
     nan_policy: str = "ignore",
+    replicas: Optional[Any] = None,
 ) -> Callable[[TrainState, Batch], Tuple[TrainState, Metrics]]:
     """Build the train step. It updates ``state`` in place (parameters,
     BatchNorm statistics, optimizer state, EMA, ``step``) and returns it
@@ -185,6 +186,15 @@ def make_train_step(
       and keep the optimizer's counts on the card.
     - ``remat``: "none", "dots", "full" or "quant" (see
       ``_apply_model``); every policy computes the same bits as "none".
+    - ``replicas``: the ranks that hold copies of the parameters
+      (``parallel.ReplicaGroup``, from the partitioner; None on one
+      rank). Each rank runs its share of the global batch; train-mode
+      BatchNorms take the moments of the global batch (forward, backward
+      and a remat recompute), and the gradients and the loss are averaged
+      over the ranks right after the backward, before the norm and the
+      update, so the norm, the non-finite guard, the optimizer (Bop's
+      flips) and the EMA agree on every rank. The other metrics are
+      averaged at the end of the step.
 
     The active ``FaultPlan``'s ``nan_at_step`` is read here, once: the
     step whose counter (``state.step`` before it) equals it multiplies
@@ -205,6 +215,7 @@ def make_train_step(
 
     def train_step(state: TrainState, batch: Batch) -> Tuple[TrainState, Metrics]:
         module = state.module.train()
+        batch_stats = replicas.batch_stats() if replicas is not None else contextlib.nullcontext()
         params = state.params
         names = list(params)
         if ema_decay is not None and state.ema_params is None:
@@ -228,22 +239,27 @@ def make_train_step(
             kept = (list(params.values()) + state_tensors(state.opt_state)
                     + list((state.ema_params or {}).values()) + _bn_statistics(module))
             olds = [t.detach().clone() for t in kept]
-        logits = apply_model(module, batch["input"])
-        loss = loss_fn(logits, batch["target"])
-        if nan_at_step is not None:
-            if state.step_counter is not None:
-                loss = loss * torch.where(state.step_counter == nan_at_step,
-                                          float("nan"), 1.0)
-            elif state.step == nan_at_step:
-                loss = loss * float("nan")
-        kd = None
-        if distill is not None:
-            teacher_fn, alpha, temperature = distill
-            with torch.no_grad():
-                t_logits = teacher_fn(batch["input"])
-            kd = kd_divergence(logits, t_logits, temperature)
-            loss = alpha * loss + (1.0 - alpha) * kd
-        grads = dict(zip(names, torch.autograd.grad(loss, list(params.values()))))
+        with batch_stats:
+            logits = apply_model(module, batch["input"])
+            loss = loss_fn(logits, batch["target"])
+            if nan_at_step is not None:
+                if state.step_counter is not None:
+                    loss = loss * torch.where(state.step_counter == nan_at_step,
+                                              float("nan"), 1.0)
+                elif state.step == nan_at_step:
+                    loss = loss * float("nan")
+            kd = None
+            if distill is not None:
+                teacher_fn, alpha, temperature = distill
+                with torch.no_grad():
+                    t_logits = teacher_fn(batch["input"])
+                kd = kd_divergence(logits, t_logits, temperature)
+                loss = alpha * loss + (1.0 - alpha) * kd
+            grads = dict(zip(names, torch.autograd.grad(loss, list(params.values()))))
+        loss = loss.detach()
+        if replicas is not None:
+            loss = loss.clone()
+            replicas.mean_([*grads.values(), loss])
         grad_norm = global_norm(grads.values())
         state.apply_gradients(grads)
         with torch.no_grad():
@@ -256,7 +272,7 @@ def make_train_step(
                 ok = torch.isfinite(loss.detach()) & torch.isfinite(grad_norm)
                 select_(ok, [t.detach() for t in kept], olds)
         metrics = {
-            "loss": loss.detach(),
+            "loss": loss,
             "accuracy": accuracy(logits.detach(), batch["target"]),
             "grad_norm": grad_norm,
         }
@@ -270,6 +286,11 @@ def make_train_step(
             # A fill, not a host copy: a graph's capture allows no copy.
             metrics["flip_ratio"] = flips.to(torch.float32) / torch.full(
                 (), float(total), dtype=torch.float32, device=flips.device)
+        if replicas is not None:
+            # The parameters agree on every rank, so the flip ratio, the
+            # norm and the skip flag do; the rest are per-rank means.
+            local = [metrics[k] for k in ("accuracy", "kd_loss") if k in metrics]
+            replicas.mean_(local)
         return state, metrics
 
     return train_step
