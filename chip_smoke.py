@@ -327,7 +327,31 @@ CUDA card and ``nvcc``. In order:
    diagonal block) and full (a past block), K10/K11 with ``D' = D -
    dlse`` for a random dlse, each held to its plain version and timed
    beside it, its bound and SDPA.
-20. One JSON line of the kernels (14 rows; K1, K3, K4, K6 and K7 also
+20. Sharded parameters (``sharded_phase``, deterministic mode where bits
+   are compared): (a) on a world-size-1 NCCL group, ``FsdpPartitioner
+   (min_weight_size=1)`` and a ``(1, 1)`` data x model
+   ``MeshPartitioner`` (``transformer_tp_rules`` / ``conv_model_tp_rules``)
+   on ``TrainLM`` at phase 19's width (3 steps) and on ``TrainImageNet``
+   (QuickNet-Large, batch 128, int8, packed residuals, 5 steps), and
+   ``SequenceParallelPartitioner tp=1 sp=1``, each through ``run()``:
+   every state tensor and loss equal bit for bit to the run with no
+   group, the same launches (K9-lse, K10, K11 4 a step; K6, K7, K8 64, 32,
+   32), the step's device ms and peak memory beside the no-group run's;
+   the TP TrainLM again at ``unroll`` 4 (8 steps: the collectives
+   captured in a CUDA graph) against the no-group run at ``unroll`` 4.
+   (b) tp=4 composed in one process: K9-lse, K10 and K11 on each rank's
+   heads [4, 8192, 2, 64] equal the same heads of the whole call bit for
+   bit (each shard's ms beside the whole call's ms / 4); a TrainLM block
+   whose four ranks' shards the port's own plan builds (head-aligned
+   ``qkv``), forward and backward with the row-parallel outputs summed in
+   rank order, within the bf16 limits (``_grad_use``) of the whole block
+   (4 K9-lse, 4 K10, 4 K11). (c) A QuickNet-Large binary conv (int8,
+   packed residuals, [128, 14, 14, 256]) at tp=4 composed: each rank's
+   output channels equal the whole layer's bit for bit, K6-K8 launched
+   per rank; its kernel gradient (cuDNN's, whose algorithm follows the
+   channel count) and the summed input gradient within the bf16 limits,
+   the kernel gradients' bits counted.
+21. One JSON line of the kernels (14 rows; K1, K3, K4, K6 and K7 also
    with their sums on Bi-Real-Net's path under ``bireal``; K1, K3 and K4
    under ``densenet`` and ``melius``, K1 and K3 under ``xnor_train`` per
    DenseNet training step, K2 under ``xnor_train`` per BinaryAlexNet
@@ -337,7 +361,9 @@ CUDA card and ``nvcc``. In order:
    17; K1, K3, K6-K11 under ``unroll``, phase 18's launches, graphs and
    step times; K9-lse, K10 and K11 under ``parallel``, phase 19's
    launches on the sequence-parallel run and in the composed ring, and
-   their times at the ring's shard shapes), then the result line.
+   their times at the ring's shard shapes; K6-K11 under ``sharded``,
+   phase 20's launches and step times, and K9-lse/K10/K11's head-shard
+   times), then the result line.
 """
 
 import contextlib
@@ -4935,6 +4961,450 @@ def parallel_phase(torch, A, smi):
     return results["ring_flash"]["launches"], ring_launches, rows
 
 
+#: Phase 20: sharded parameters. Each partitioner at world size 1 on an
+#: NCCL group, TrainLM at PARALLEL_CONFIG (3 steps; 8 at unroll 4 for the
+#: graph leg) and TrainImageNet (QuickNet-Large, batch 128, int8, packed
+#: residuals, SHARD_IMAGENET_STEPS steps: its host-bound eager step's time
+#: spreads, so four are timed); then tp=SHARD_TP composed in one process.
+SHARD_TP = 4
+SHARD_UNROLL_STEPS = 8
+SHARD_IMAGENET_STEPS = 5
+SHARD_IMAGENET = {**UNROLL_LEGS["TrainImageNet"][0],
+                  "loader.dataset.num_train_examples": SHARD_IMAGENET_STEPS * TRAIN_BATCH,
+                  "epochs": 1, "steps_per_epoch": SHARD_IMAGENET_STEPS, "validate": False,
+                  "seed": 0, "device": "cuda", "verbose": False}
+_FSDP = {"partitioner": "FsdpPartitioner", "partitioner.min_weight_size": 1}
+_TP_MESH = {"partitioner": "MeshPartitioner", "partitioner.mesh_shape": (1, 1),
+            "partitioner.mesh_axes": ("data", "model")}
+#: (label, task, config, rules function of ``parallel.rules`` or None,
+#: baseline label).
+SHARD_RUNS = (
+    ("lm fsdp", "TrainLM", _FSDP, None, "lm"),
+    ("lm tp", "TrainLM", _TP_MESH, "transformer_tp_rules", "lm"),
+    ("lm sp=1 tp=1", "TrainLM", {"partitioner": "SequenceParallelPartitioner",
+                                 "partitioner.sp": 1, "partitioner.tp": 1}, None, "lm"),
+    ("imagenet fsdp", "TrainImageNet", _FSDP, None, "imagenet"),
+    ("imagenet tp", "TrainImageNet", _TP_MESH, "conv_model_tp_rules", "imagenet"),
+    ("lm tp unroll", "TrainLM", {**_TP_MESH, "unroll": UNROLL,
+                                 "steps_per_epoch": SHARD_UNROLL_STEPS},
+     "transformer_tp_rules", "lm unroll"),
+)
+SHARD_BASELINES = (("lm", "TrainLM", {}), ("imagenet", "TrainImageNet", {}),
+                   ("lm unroll", "TrainLM", {"unroll": UNROLL,
+                                             "steps_per_epoch": SHARD_UNROLL_STEPS}))
+
+
+def _shard_run(torch, bc, A, task, extra, rules, sources, tmp, label):
+    """One run through run() in deterministic mode, its kernel counts set to
+    0 just before it: the flat final state, the per-step losses (the
+    metrics file), the launches, the median step ms over the steps after
+    the first (eager runs; CUDA events around each step), the run's peak
+    memory over what was allocated before it, and what the plan shards."""
+    import importlib
+
+    from zookeeper_tpu_torch.core import configure
+    from zookeeper_tpu_torch.parallel import rules as R
+
+    module = "lm" if task == "TrainLM" else "imagenet"
+    cls = getattr(importlib.import_module(f"zookeeper_tpu_torch.training.{module}"), task)
+    conf = PARALLEL_CONFIG if task == "TrainLM" else SHARD_IMAGENET
+    path = os.path.join(tmp, label.replace(" ", "_") + ".jsonl")
+    exp = cls()
+    configure(exp, {**conf, **extra, "log_every": 1, "writer.jsonl.path": path},
+              name="experiment")
+    if rules is not None:
+        exp.partitioner.with_rules(getattr(R, rules)())
+    if task != "TrainLM":
+        _shared_source(exp, sources)
+    events = []
+    real_step_fn = cls._train_step_fn
+
+    def step_fn(self):
+        step = real_step_fn(self)
+        if self.unroll > 1:
+            return step
+
+        def timed(st, b):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = step(st, b)
+            end.record()
+            events.append((start, end))
+            return out
+
+        return timed
+
+    _reset_all(bc, A)
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    with deterministic(torch), mock.patch.object(cls, "_train_step_fn", step_fn):
+        exp.run()
+        torch.cuda.synchronize()
+    state = exp.final_state
+    plan = state.shards
+    out = {
+        "exp": exp, "state": _flat_state(torch, state),
+        "losses": [r["train/loss"] for r in _jsonl(path) if "train/loss" in r],
+        "launches": _launch_counts(bc, A),
+        "step_ms": (statistics.median(s.elapsed_time(e) for s, e in events[1:])
+                    if len(events) > 1 else None),
+        "peak_gib": (torch.cuda.max_memory_allocated() - base) / 2.0**30,
+        "sharded": 0 if plan is None else len(plan.layouts),
+        "gathered": 0 if plan is None else len(plan.gathered),
+        "local_layers": sum(1 for m in state.module.modules()
+                            for a in ("_tp", "_tp_attn", "_tp_mlp")
+                            if getattr(m, a, None) is not None),
+    }
+    return out
+
+
+def _composed_mesh(n, rank):
+    """Rank ``rank`` of a ``{"model": n}`` mesh with no process group (a
+    ``parallel.shards.MeshGroups`` whose groups are None): what builds each
+    rank's shards in one process."""
+    from zookeeper_tpu_torch.parallel.shards import MeshGroups
+
+    class Composed(MeshGroups):
+        def group(self, axes):
+            return None
+
+    return Composed({"model": n}, rank)
+
+
+def _rank_copies(torch, module, rules):
+    """SHARD_TP copies of ``module``, each holding one rank's shards through
+    the port's own plan (``plan_state`` + ``ShardPlan.apply``): (modules,
+    plans)."""
+    import copy
+    import types
+
+    from zookeeper_tpu_torch.parallel.shards import plan_state
+
+    copies, plans = [], []
+    for r in range(SHARD_TP):
+        m = copy.deepcopy(module)
+        plan = plan_state(m, rules, _composed_mesh(SHARD_TP, r), ("model",), ())
+        plan.apply(types.SimpleNamespace(module=m, opt_state={}, ema_params=None))
+        copies.append(m)
+        plans.append(plan)
+    return copies, plans
+
+
+def _head_kernel_rows(torch, A, g):
+    """K9-lse, K10 and K11 on each rank's heads [b, s, h / SHARD_TP, d] of
+    LM_TRAIN_SHAPE: equal bit for bit to the same heads of the whole call,
+    and each shard's ms beside the whole call's ms / SHARD_TP."""
+    dev = torch.device("cuda")
+    b, s, h, d = LM_TRAIN_SHAPE
+    hs = h // SHARD_TP
+    q, k, v, do = (torch.randn(b, s, h, d, generator=g, device=dev).to(torch.bfloat16)
+                   for _ in range(4))
+    kw = {"causal": True}
+
+    def calls(q, k, v, do):
+        out, lse = A.flash_forward_lse(q, k, v, **kw)
+        delta = A.flash_backward_delta(out, do)
+        ops = (q, k, v, do, lse, delta)
+        return (out, lse), ops
+
+    with deterministic(torch):
+        (out, lse), ops = calls(q, k, v, do)
+        dq = A.flash_backward_dq(*ops, **kw)
+        dk, dv = A.flash_backward_dkv(*ops, **kw)
+        torch.cuda.synchronize()
+        heads = lambda x, r: x[:, :, r * hs:(r + 1) * hs].contiguous()  # noqa: E731
+        rows_of = lambda x, r: x.view(b, h, s)[:, r * hs:(r + 1) * hs].reshape(b * hs, s)  # noqa
+        for r in range(SHARD_TP):
+            (o_r, l_r), ops_r = calls(*(heads(x, r) for x in (q, k, v, do)))
+            dq_r = A.flash_backward_dq(*ops_r, **kw)
+            dk_r, dv_r = A.flash_backward_dkv(*ops_r, **kw)
+            torch.cuda.synchronize()
+            same = {"out": _same_bits(torch, o_r, heads(out, r)),
+                    "lse": _same_bits(torch, l_r, rows_of(lse, r)),
+                    "dq": _same_bits(torch, dq_r, heads(dq, r)),
+                    "dk": _same_bits(torch, dk_r, heads(dk, r)),
+                    "dv": _same_bits(torch, dv_r, heads(dv, r))}
+            check(all(same.values()), f"sharded: rank {r}'s heads differ from the whole call's: "
+                                      f"{same}")
+    import torch.nn.functional as F
+
+    shard = [heads(x, 0) for x in (q, k, v, do)]
+    (o0, l0), ops0 = calls(*shard)
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True) for x in shard[:3])
+    dot = shard[3].transpose(1, 2)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+
+    sdpa_fwd = time_ms(torch, sdpa, 11, 5)
+    sdpa_bwd = time_ms(torch, lambda: torch.autograd.grad(sdpa(), (qt, kt, vt), dot),
+                       11, 5) - sdpa_fwd
+    rows = {}
+    for name, whole_fn, shard_fn, plain_fn in (
+        ("flash_forward_lse", lambda: A.flash_forward_lse(q, k, v, **kw),
+         lambda: A.flash_forward_lse(*shard[:3], **kw),
+         lambda: A.flash_attention_plain(*shard[:3], want_lse=True, **kw)),
+        ("flash_backward_dq", lambda: A.flash_backward_dq(*ops, **kw),
+         lambda: A.flash_backward_dq(*ops0, **kw),
+         lambda: A.flash_backward_dq_plain(*ops0, **kw)),
+        ("flash_backward_dkv", lambda: A.flash_backward_dkv(*ops, **kw),
+         lambda: A.flash_backward_dkv(*ops0, **kw),
+         lambda: A.flash_backward_dkv_plain(*ops0, **kw)),
+    ):
+        whole_ms = time_ms(torch, whole_fn, 11, 5)
+        shard_ms = time_ms(torch, shard_fn, 11, 5)
+        nbytes, n_ops = _flash_work(name, b, s, hs, d, 2, True)
+        least, by = bound_ms(name, nbytes, n_ops, BF16_OPS_PER_S)
+        rows[name] = {"shape": f"[{b}, {s}, {hs}, {d}] bfloat16 causal=True", "ms": shard_ms,
+                      "whole_ms_over_tp": whole_ms / SHARD_TP, "whole_ms": whole_ms,
+                      "plain_ms": time_ms(torch, plain_fn, 5, 2),
+                      "library_ms": sdpa_fwd if name == "flash_forward_lse" else sdpa_bwd,
+                      "bound_ms": least, "bound_by": by, "bit_identical_heads": True}
+    del q, k, v, do, out, lse, ops, dq, dk, dv, shard, ops0, qt, kt, vt, dot
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _composed_block(torch, A, g):
+    """One TrainLM block at PARALLEL_CONFIG's width, tp=SHARD_TP composed in
+    one process: each rank's shard built from the whole block's weights by
+    the port's plan, its attention and MLP forward and backward, the
+    row-parallel partial outputs summed in float32 in rank order and the
+    column-parallel inputs' gradients summed in float32 (as the model
+    group's all-reduces sum them), the replicated norms run once, against
+    the whole block. Returns (launches, limits used)."""
+    import copy
+
+    from zookeeper_tpu_torch.models import transformer as T
+    from zookeeper_tpu_torch.parallel import transformer_tp_rules
+
+    dev = torch.device("cuda")
+    b, s, h, d = LM_TRAIN_SHAPE
+    width = h * d
+    gen = torch.Generator().manual_seed(20)
+    module = T.TransformerLMModule(vocab_size=1024, num_layers=1, d_model=width, num_heads=h,
+                                   mlp_ratio=4, max_seq_len=s, dtype=torch.bfloat16)
+    for sub in module.modules():
+        if isinstance(sub, T._Linear):
+            sub.reset_parameters(gen)
+    module.to(dev)
+    ranks, plans = _rank_copies(torch, module, transformer_tp_rules())
+    check(all(m.block0._tp_attn is not None and m.block0._tp_mlp is not None for m in ranks),
+          "sharded: a composed rank's block has no model group")
+    x = torch.randn(b, s, width, generator=g, device=dev).to(torch.bfloat16).requires_grad_(True)
+    do = torch.randn(b, s, width, generator=g, device=dev).to(torch.bfloat16)
+
+    class FanOut(torch.autograd.Function):
+        """The members' copies of a replicated activation; the backward sums
+        their gradients in float32, as the model group's all-reduce does."""
+
+        @staticmethod
+        def forward(ctx, t):
+            return tuple(t.view_as(t) for _ in range(SHARD_TP))
+
+        @staticmethod
+        def backward(ctx, *grads):
+            return sum(gr.float() for gr in grads).to(grads[0].dtype)
+
+    def summed(parts):
+        return sum(p.float() for p in parts).to(parts[0].dtype)
+
+    # The replicated norms run once (their copies on the ranks are equal);
+    # each rank's column-parallel input is its copy of the norm's output.
+    rep = module.block0
+    feed = []
+    names = [n for n, _ in rep.named_parameters()]
+    with deterministic(torch), mock.patch.object(T, "copy_to_model", lambda t, tp: feed.pop(0)):
+        A.reset_launches()
+        feed[:] = FanOut.apply(rep.RMSNorm_0(x))
+        x1 = x + summed([m.block0.attention_partial(x) for m in ranks])
+        feed[:] = FanOut.apply(rep.RMSNorm_1(x1))
+        out = x1 + summed([m.block0.mlp_partial(x1) for m in ranks])
+        sharded = [n for n in names if f"block0.{n}" in plans[0].layouts]
+        params = [dict(m.block0.named_parameters())[n] for m in ranks for n in sharded]
+        norms = [p for n, p in rep.named_parameters() if n not in sharded]
+        grads = torch.autograd.grad(out, [x] + params + norms, do)
+        torch.cuda.synchronize()
+        launches = dict(A.LAUNCHES)
+        xw = x.detach().clone().requires_grad_(True)
+        whole = copy.deepcopy(module).block0
+        wnamed = dict(whole.named_parameters())
+        whole_out = whole(xw)
+        wgrads = torch.autograd.grad(whole_out, [xw] + [wnamed[n] for n in names], do)
+        torch.cuda.synchronize()
+    wgrad = dict(zip(names, wgrads[1:]))
+    want = {**dict.fromkeys(A.LAUNCHES, 0), **dict.fromkeys(LM_TRAIN_KERNELS, SHARD_TP)}
+    check(launches == want, f"sharded: the composed block launched {launches}, want {want}")
+    uses = {"out": _grad_use(torch, out.detach(), whole_out.detach(), torch.bfloat16),
+            "dx": _grad_use(torch, grads[0], wgrads[0], torch.bfloat16)}
+    for r in range(SHARD_TP):
+        for i, name in enumerate(sharded):
+            want_r = plans[r].shard(f"block0.{name}", wgrad[name])
+            uses[f"{name} rank {r}"] = _grad_use(torch, grads[1 + r * len(sharded) + i], want_r,
+                                                 torch.bfloat16)
+    rest = [n for n in names if n not in sharded]
+    for name, got in zip(rest, grads[1 + SHARD_TP * len(sharded):]):
+        uses[name] = _grad_use(torch, got, wgrad[name], torch.bfloat16)
+    check(max(uses.values()) <= 1, f"sharded: the composed tp={SHARD_TP} block against the whole "
+                                   f"block uses {max(uses.values()):.3g} of the bf16 limits: "
+                                   f"{uses}")
+    del x, do, x1, out, grads, xw, whole, whole_out, wgrads, ranks, module, feed
+    torch.cuda.empty_cache()
+    return launches, uses
+
+
+def _composed_conv(torch, bc, g):
+    """One QuickNet-Large binary conv (int8, packed residuals, bf16, batch
+    128, the 14x14x256 section) at tp=SHARD_TP composed in one process:
+    each rank's output-channel shard, built by the port's plan, forward and
+    backward (K6-K8 launched): its output channels equal the whole layer's
+    bit for bit, its kernel gradient and the input gradient's tp partial
+    sums are within the bf16 limits of the whole layer's. Returns
+    (launches, record)."""
+    from zookeeper_tpu_torch.ops.layers import QuantConv
+    from zookeeper_tpu_torch.parallel import conv_model_tp_rules
+
+    dev = torch.device("cuda")
+    _, hw, c = SECTIONS[2]
+    holder = torch.nn.Module()
+    holder.QuantConv_0 = QuantConv(c, c, (3, 3), dtype=torch.bfloat16, binary_compute="int8",
+                                   pack_residuals=True)
+    holder.QuantConv_0.reset_parameters(torch.Generator().manual_seed(21))
+    holder.to(dev)
+    ranks, plans = _rank_copies(torch, holder, conv_model_tp_rules())
+    for m in ranks:
+        check(m.QuantConv_0._tp is not None, "sharded: a composed conv has no model group")
+        m.QuantConv_0._tp = None  # computes its shard; the harness gathers
+    x = torch.randn(TRAIN_BATCH, hw, hw, c, generator=g, device=dev).to(torch.bfloat16)
+    x.requires_grad_(True)
+    do = torch.randn(TRAIN_BATCH, hw, hw, c, generator=g, device=dev).to(torch.bfloat16)
+    cs = c // SHARD_TP
+    whole = holder.QuantConv_0
+    with deterministic(torch):
+        y = whole(x)
+        dx, dk = torch.autograd.grad(y, (x, whole.latent), do)
+        torch.cuda.synchronize()
+        bc.reset_launches()
+        outs, dxs, dks = [], [], []
+        for r, m in enumerate(ranks):
+            y_r = m.QuantConv_0(x)
+            dx_r, dk_r = torch.autograd.grad(y_r, (x, m.QuantConv_0.latent),
+                                             do[..., r * cs:(r + 1) * cs])
+            outs.append(y_r)
+            dxs.append(dx_r)
+            dks.append(dk_r)
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in bc.LAUNCHES.items() if v}
+    same_out = [_same_bits(torch, o, y[..., r * cs:(r + 1) * cs]) for r, o in enumerate(outs)]
+    want_dk = [plans[r].shard("QuantConv_0.kernel", dk) for r in range(SHARD_TP)]
+    want = {name: SHARD_TP * n for name, n in RESID_PER_CONV.items()}
+    check(launches == want, f"sharded: the composed conv launched {launches}, want {want}")
+    check(all(same_out), f"sharded: the composed conv's output channels differ from the whole "
+                         f"layer's: {same_out}")
+    dx_sum = sum(p.float() for p in dxs).to(dx.dtype)
+    # The kernel gradient is cuDNN's weight gradient of the +-1 input: its
+    # algorithm (and so its sum order) follows the output-channel count,
+    # so a shard's need not have the whole layer's bits; it is held to the
+    # bf16 limits and its bits are counted.
+    rec = {"shape": f"x [{TRAIN_BATCH}, {hw}, {hw}, {c}] bf16, {SHARD_TP} shards of {cs} "
+                    "channels", "outputs_bit_identical": True,
+           "kernel_grads_bit_identical": [_same_bits(torch, a, w) for a, w in zip(dks, want_dk)],
+           "kernel_grad_limit_used": max(_grad_use(torch, a, w, torch.bfloat16)
+                                         for a, w in zip(dks, want_dk)),
+           "kernel_grad_max_abs_err": max(_max_abs_err(torch, a, w)
+                                          for a, w in zip(dks, want_dk)),
+           "dx_partial_sum_limit_used": _grad_use(torch, dx_sum, dx, torch.bfloat16),
+           "dx_partial_sum_max_abs_err": _max_abs_err(torch, dx_sum, dx)}
+    check(rec["dx_partial_sum_limit_used"] <= 1 and rec["kernel_grad_limit_used"] <= 1,
+          f"sharded: the conv's gradients against the whole layer's: {rec}")
+    del x, do, y, dx, dk, outs, dxs, dks, ranks, holder
+    torch.cuda.empty_cache()
+    return launches, rec
+
+
+def sharded_phase(torch, bc, A, smi):
+    """Phase 20 (see the module docstring). Returns (the sharded TrainLM
+    and TrainImageNet runs' launches, the composed launches, the head
+    shard kernel rows)."""
+    import socket
+    import tempfile
+
+    import torch.distributed as dist
+
+    from zookeeper_tpu_torch.parallel import distributed as D
+
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="zk-sharded-")
+    sources = {}
+    check(not D.is_distributed_initialized(), "sharded: a group exists before the phase")
+    base = {}
+    for label, task, extra in SHARD_BASELINES:
+        base[label] = _shard_run(torch, bc, A, task, extra, None, sources, tmp, f"base {label}")
+        check(base[label]["exp"].partitioner.mesh is None and base[label]["sharded"] == 0,
+              f"sharded: the baseline {label} formed a group or sharded")
+        losses = base[label]["losses"]
+        check(all(math.isfinite(x) for x in losses), f"sharded: baseline {label} losses {losses}")
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    launcher = {"MASTER_ADDR": "localhost", "MASTER_PORT": str(port), "RANK": "0",
+                "WORLD_SIZE": "1", "LOCAL_RANK": "0"}
+    results = {}
+    with mock.patch.dict(os.environ, launcher):
+        D.initialize_distributed(device="cuda")
+        check(dist.get_backend() == "nccl" and dist.get_world_size() == 1,
+              "sharded: no world-size-1 NCCL group")
+        for label, task, extra, rules, base_label in SHARD_RUNS:
+            run = _shard_run(torch, bc, A, task, extra, rules, sources, tmp, label)
+            want = base[base_label]
+            bad, spread = _state_spread(torch, run["state"], want["state"])
+            check(run["exp"].partitioner.mesh is not None, f"sharded: {label} built no mesh")
+            check(run["sharded"] > 0 if "sp=1" not in label else run["sharded"] == 0,
+                  f"sharded: {label} sharded {run['sharded']} tensors")
+            check(not bad and run["losses"] == want["losses"],
+                  f"sharded: {label} differs from the run with no group in {bad[:4]} (largest "
+                  f"{spread}), losses {run['losses']} vs {want['losses']}")
+            check(run["launches"] == want["launches"],
+                  f"sharded: {label} launched {run['launches']}, the run with no group "
+                  f"{want['launches']}")
+            rec = {"tensors": len(want["state"]), "losses": run["losses"],
+                   "launches": run["launches"], "sharded_tensors": run["sharded"],
+                   "gathered_params": run["gathered"], "tp_layers": run["local_layers"],
+                   "step_ms": run["step_ms"], "no_group_step_ms": want["step_ms"],
+                   "peak_gib": run["peak_gib"], "no_group_peak_gib": want["peak_gib"]}
+            if run["exp"].unroll > 1:
+                graphs = list(run["exp"].multi_step.graphs.values())
+                check(graphs and all(gr.replays > 0 for gr in graphs),
+                      f"sharded: {label} replayed no CUDA graph")
+                rec["graphs"] = [{"launches": gr.launches, "replays": gr.replays}
+                                 for gr in graphs]
+            results[label] = rec
+            print(f"sharded: {label} on the world-size-1 {dist.get_backend()} group equals the "
+                  f"run with no group bit for bit on {smi}: {json.dumps(rec)}", flush=True)
+            del run
+        D.shutdown_distributed()
+        check(not D.is_distributed_initialized(), "sharded: the group outlived the phase")
+    del base
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    g = torch.Generator(device=torch.device("cuda")).manual_seed(20)
+    head_rows = _head_kernel_rows(torch, A, g)
+    for name, row in head_rows.items():
+        print(f"kernel {name} head shard tp={SHARD_TP} on {smi}: {json.dumps(row)}", flush=True)
+    block_launches, block_uses = _composed_block(torch, A, g)
+    print(f"sharded: TrainLM block tp={SHARD_TP} composed (head-aligned qkv, row-parallel sums "
+          f"in rank order) against the whole block: launches {json.dumps(block_launches)}, "
+          f"largest share of the bf16 limits {max(block_uses.values()):.4g}", flush=True)
+    conv_launches, conv = _composed_conv(torch, bc, g)
+    print(f"sharded: QuickNet-Large binary conv tp={SHARD_TP} composed: launches "
+          f"{json.dumps(conv_launches)} {json.dumps(conv)}", flush=True)
+    print(f"sharded: phase 20 in {time.perf_counter() - t0:.1f} s", flush=True)
+    return results, {**block_launches, **conv_launches}, head_rows
+
+
 def main() -> None:
     if not os.path.isdir(os.path.join(ROOT, "zookeeper_tpu_torch", "csrc")):
         fail("run from a checkout: zookeeper_tpu_torch/ is not beside this script")
@@ -5034,6 +5504,23 @@ def main() -> None:
     elapsed("unroll")
     launches_sp, launches_ring, ring_rows = parallel_phase(torch, A, smi)
     elapsed("parallel")
+    sharded, launches_composed, head_rows = sharded_phase(torch, bc, A, smi)
+    elapsed("sharded")
+    sharded_rows = {}
+    for name in (*RESID_KERNELS, *LM_TRAIN_KERNELS):
+        task = "imagenet" if name in RESID_KERNELS else "lm"
+        sharded_rows[name] = {
+            "path": f"{task} under FsdpPartitioner and a (1, 1) data x model MeshPartitioner "
+                    "on a world-size-1 NCCL group (bit identical to no group); "
+                    f"tp={SHARD_TP} composed in one process",
+            "launches": {label: r["launches"].get(name, 0) for label, r in sharded.items()
+                         if label.startswith(task)},
+            "composed_launches": launches_composed.get(name, 0),
+            "step_ms": {label: [r["step_ms"], r["no_group_step_ms"]]
+                        for label, r in sharded.items() if label.startswith(task)},
+        }
+        if name in head_rows:
+            sharded_rows[name]["head_shard"] = head_rows[name]
     unroll_rows = {}
     for leg in UNROLL_LEGS:
         u = unroll[leg]
@@ -5142,6 +5629,8 @@ def main() -> None:
             rows[-1]["cifar"] = {"launches": cifar_entries[name]}
         if name in unroll_rows:
             rows[-1]["unroll"] = unroll_rows[name]
+        if name in sharded_rows:
+            rows[-1]["sharded"] = sharded_rows[name]
         if name in ("mask_mul_resid", "xnor_matmul_packed_scaled"):
             # K8 has no work on Bi-Real's step; K2 runs in XNORNet's dense stage.
             rows[-1]["zoo_launches"] = (launches_bt[name] if name == "mask_mul_resid"
@@ -5217,6 +5706,7 @@ def main() -> None:
             "launches": launches_sp[name], "ring_launches_per_layer": launches_ring[name],
             "ring_shard": ring_rows[name],
         }
+        rows[-1]["sharded"] = sharded_rows[name]
     print(smi, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({

@@ -118,17 +118,39 @@ def test_sequence_partitioner_config_rejections_match_jax(fields):
     assert str(got.value) == str(want.value)
 
 
-def test_unported_layouts_raise_not_implemented():
-    from zookeeper_tpu_torch.parallel import FsdpPartitioner, MeshPartitioner
+def test_unported_layouts_raise_not_implemented(tmp_path):
+    """The sharded layouts are ported: FSDP, a ``model`` axis with rules
+    and ``tp`` lay out one rank without a group (``tp=2`` needs its ranks,
+    with JAX's message). The per-host sharded checkpoint is not: any
+    non-default value of its fields raises naming ROADMAP.md."""
+    from zookeeper_tpu_torch.parallel import (
+        FsdpPartitioner,
+        MeshPartitioner,
+        transformer_tp_rules,
+    )
+    from zookeeper_tpu_torch.training import Checkpointer
 
-    for part, conf in ((SequenceParallelPartitioner(), {"tp": 2}), (FsdpPartitioner(), {}),
-                       (MeshPartitioner(), {"mesh_shape": (1, 1),
-                                            "mesh_axes": ("data", "model")})):
-        port_configure(part, conf, name="partitioner")
+    fsdp = FsdpPartitioner()
+    port_configure(fsdp, {}, name="partitioner")
+    mesh = MeshPartitioner()
+    port_configure(mesh, {"mesh_shape": (1, 1), "mesh_axes": ("data", "model")},
+                   name="partitioner")
+    assert mesh.with_rules(transformer_tp_rules()) is mesh
+    assert mesh.rules == transformer_tp_rules()
+    for part, sizes in ((fsdp, {"fsdp": 1}), (mesh, {"data": 1, "model": 1})):
+        part.setup()
+        assert part.mesh is None and part.mesh_sizes == sizes and part.replicas() is None
+    assert mesh.decode_cache_axes() == (("data",), "model")
+    tp = SequenceParallelPartitioner()
+    port_configure(tp, {"tp": 2}, name="partitioner")
+    with pytest.raises(ValueError, match="not divisible by fixed axes 2"):
+        tp.setup()
+    for field, value in (("sharded_per_host", True), ("process_index", 0),
+                         ("process_count", 2), ("host_commit_timeout_s", 5.0)):
+        ckpt = Checkpointer()
+        port_configure(ckpt, {"directory": str(tmp_path), field: value}, name="checkpointer")
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            part.setup()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        MeshPartitioner().with_rules([("kernel", None)])
+            ckpt.save(None)
 
 
 def test_initialize_distributed_rejections_match_jax(monkeypatch):

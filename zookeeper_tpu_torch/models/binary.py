@@ -28,6 +28,7 @@ from zookeeper_tpu_torch.models.base import Model
 from zookeeper_tpu_torch.ops.binary_compute import _spatial_pad
 from zookeeper_tpu_torch.ops.layers import BatchNorm, Conv, Dense, QuantConv, QuantDense
 from zookeeper_tpu_torch.ops.quantizers import dorefa
+from zookeeper_tpu_torch.parallel.sharding import constrain_batch_sharded
 
 _FOLD_BN_TRAINING_ERROR = (
     "fold_bn=True is a DEPLOYMENT mode: the binary-conv BatchNorms are "
@@ -242,14 +243,17 @@ class _QuickNetModule(nn.Module):
             self.config["fold_bn"], self.config["packed_weights"], self.training
         )
         layer = self.get_submodule
+        # The JAX model's activation pins (parallel.sharding): where the
+        # port checks the layout it keeps.
+        pin = constrain_batch_sharded
         conv0, bn0, conv1, bn1 = self._stem
         x = x.to(self.dtype)
-        x = F.relu(layer(bn0)(layer(conv0)(x)))
-        x = layer(bn1)(layer(conv1)(x))
+        x = pin(F.relu(layer(bn0)(layer(conv0)(x))))
+        x = pin(layer(bn1)(layer(conv1)(x)))
         for transition, blocks in self._sections:
             if transition is not None:
-                x = _blur_pool(F.relu(x), self.dtype)
-                x = layer(transition[1])(layer(transition[0])(x))
+                x = pin(_blur_pool(pin(F.relu(x)), self.dtype))
+                x = pin(layer(transition[1])(layer(transition[0])(x)))
             for conv, bn in blocks:
                 y = layer(conv)(x)
                 if bn is not None:

@@ -39,6 +39,15 @@ under ``opt_state``. Its per-parameter trees have the params' structure
 convert leaf for leaf like the params. :func:`flax_param_paths` names
 each parameter's flax path ("/"-joined), and :func:`flatten_tree` /
 :func:`unflatten_tree` move between nested trees and such paths.
+
+A sharded state (``TrainState.shards``, ``parallel.shards``) converts as
+the global state it is a block of: :func:`flax_train_state` gathers every
+block (collectives: every rank calls it), the head-aligned ``qkv`` rows
+included, so the trees are the JAX package's layout under every
+partitioner; :func:`load_flax_train_state` keeps each rank's block.
+:func:`flax_state_layouts` names every tensor's flax state path and
+which port dimension each flax dimension is, what a partition rule is
+matched against and mapped through.
 """
 
 import re
@@ -252,17 +261,21 @@ def flax_param_tree(module: nn.Module, leaf_fn=_numpy) -> Dict[str, Any]:
     return tree(module.state_dict(), leaf_fn)
 
 
-class _Name(str):
-    """A parameter's name standing in for its tensor in a flax tree: it
-    passes through the layout changes unchanged, so the tree maps each
-    flax path to the port's name."""
+class _Layout:
+    """A tensor's stand-in in a flax tree: the port's name for it and, for
+    each flax dimension, the port dimension it is (``axes``). It passes
+    through the layout changes as the tensor would (``transpose``, ``.T``),
+    so the tree maps each flax path to the port's name and dimensions."""
+
+    def __init__(self, name: str, axes: Tuple[int, ...]):
+        self.name, self.axes = name, tuple(axes)
 
     def transpose(self, *axes):
-        return self
+        return _Layout(self.name, tuple(self.axes[a] for a in axes))
 
     @property
     def T(self):
-        return self
+        return _Layout(self.name, self.axes[::-1])
 
     def copy(self):
         return self
@@ -293,9 +306,32 @@ def flax_param_paths(module: nn.Module) -> Dict[str, str]:
     """``{parameter name: its "/"-joined flax path}`` (``QuantConv_3.kernel``
     -> ``QuantConv_3/kernel``, ``BatchNorm_0.weight`` ->
     ``BatchNorm_0/scale``), from :func:`flax_param_tree`'s naming."""
-    named = {n: _Name(n) for n, _ in module.named_parameters()}
+    named = {n: _Layout(n, tuple(range(p.dim()))) for n, p in module.named_parameters()}
     tree = (_flax_lm_tree if _is_lm(module) else _flax_cnn_tree)(named, lambda x: x)
-    return {name: path for path, name in flatten_tree(tree).items()}
+    return {leaf.name: path for path, leaf in flatten_tree(tree).items()}
+
+
+def flax_state_layouts(module: nn.Module) -> Dict[str, Tuple[str, Tuple[int, ...]]]:
+    """``{state_dict name: (flax state path, axes)}`` for every tensor of
+    the module: parameters (and the packed kernels a deployed layer holds
+    as buffers) under ``params/``, BatchNorm statistics under
+    ``model_state/batch_stats/`` (``.../mean``, ``.../var``), the paths a
+    JAX ``TrainState`` gives the same leaves. ``axes[i]`` is the port
+    dimension of flax dimension ``i`` (an OIHW conv weight: ``(2, 3, 1,
+    0)``), what maps a ``PartitionSpec`` over flax dimensions onto the
+    port's tensor."""
+    named = {n: _Layout(n, tuple(range(t.dim()))) for n, t in module.state_dict().items()}
+    lm = _is_lm(module)
+    tree = (_flax_lm_tree if lm else _flax_cnn_tree)(named, lambda x: x)
+    out = {leaf.name: (f"params/{path}", leaf.axes) for path, leaf in flatten_tree(tree).items()}
+    if not lm:
+        for path, leaves in _by_layer(named, lambda x: x).items():
+            if _BN.match(path[-1]):
+                for flax_name, name in _BN_STATS.items():
+                    leaf = leaves[name]
+                    out[leaf.name] = ("model_state/batch_stats/" + "/".join(path)
+                                      + f"/{flax_name}", leaf.axes)
+    return out
 
 
 #: The optimizer-state keys that hold a tree shaped like (part of) the
@@ -352,20 +388,23 @@ def flax_train_state(state: Any) -> Dict[str, Any]:
     ``"opt_state"`` (optax's names, see the module docstring) for any
     other, and ``"ema_params"`` when the state keeps the EMA.
     ``model_state`` holds the ``batch_stats`` of a CNN and is empty for an
-    LM."""
+    LM. A sharded state's blocks are gathered first."""
+    named, opt, ema = dict(state.module.state_dict()), state.opt_state, state.ema_params
+    if getattr(state, "shards", None) is not None:
+        full = state.shards.gather_tree({"module": named, "opt_state": opt, "ema_params": ema})
+        named, opt, ema = full["module"], full["opt_state"], full["ema_params"]
     if _is_lm(state.module):
-        params, model_state, tree = to_flax_lm_variables(state.module), {}, _flax_lm_tree
+        params, model_state, tree = _flax_lm_tree(named), {}, _flax_lm_tree
     else:
-        (params, model_state), tree = to_flax_variables(state.module), _flax_cnn_tree
-    opt = state.opt_state
+        (params, model_state), tree = to_flax_variables(state.module, named), _flax_cnn_tree
     out = {
         "step": np.int32(state.step),
         "params": params,
         "model_state": model_state,
         ("adam" if _is_adam(opt) else "opt_state"): _opt_to_flax(opt, tree),
     }
-    if state.ema_params is not None:
-        out["ema_params"] = tree(state.ema_params)
+    if ema is not None:
+        out["ema_params"] = tree(ema)
     return out
 
 
@@ -384,18 +423,26 @@ def load_flax_train_state(
     ``opt_state`` any other optimizer's state under optax's names) into
     the port's ``TrainState`` in place, on the devices its tensors lie
     on; an LM state's trees go through :func:`from_flax_lm_variables`.
-    ``ema_params`` fills the state's EMA, which must exist. Returns
-    ``state``."""
+    ``ema_params`` fills the state's EMA, which must exist. A sharded
+    state keeps this rank's block of each tensor. Returns ``state``."""
+    plan = getattr(state, "shards", None)
     if _is_lm(state.module):
         if model_state:
             raise ValueError(
                 f"load_flax_train_state: an LM has no model state, got {sorted(model_state)}."
             )
-        convert = from_flax_lm_variables
-        state.module.load_state_dict(convert(params))
+        to_port = from_flax_lm_variables
+        named = to_port(params)
     else:
-        convert = from_flax_variables
-        state.module.load_state_dict(convert(params, model_state))
+        to_port = from_flax_variables
+        named = to_port(params, model_state)
+    if plan is not None:
+        def convert(tree):
+            return {n: plan.shard(n, t) for n, t in to_port(tree).items()}
+        named = {n: plan.shard(n, t) for n, t in named.items()}
+    else:
+        convert = to_port
+    state.module.load_state_dict(named)
     state.step = int(step)
     if (adam is None) == (opt_state is None):
         raise ValueError("load_flax_train_state: pass exactly one of adam= and opt_state=.")

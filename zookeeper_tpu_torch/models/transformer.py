@@ -31,6 +31,17 @@ objects. Submodules carry the flax scope names (``embed``, ``pos``,
 ``models.convert.from_flax_lm_variables`` maps a JAX tree by name.
 Attention functions are looked up in ``ops.attention`` at call time;
 each kernel wrapper runs its plain version on CPU tensors.
+
+Tensor parallelism (``parallel.shards``, ``transformer_tp_rules``): a
+block handed a model group for its attention (``_tp_attn``) holds the
+head-aligned rows of ``qkv`` (the q, k and v rows of its heads) and the
+matching input columns of ``proj``; it attends over its own heads only
+(K9-lse/K10/K11, or the sequence-parallel attention, at ``heads / tp``)
+and sums the members' ``proj`` outputs (one all-reduce, in float32). Its
+MLP (``_tp_mlp``) is the same over the ``up`` rows and ``down`` columns.
+A block whose heads or hidden units do not divide the group computes
+whole on gathered weights. Decoding under a model group is not ported
+(serving under partitioners, ROADMAP.md) and raises.
 The speculative ``decode_verify`` paths are not ported yet (ROADMAP.md).
 """
 
@@ -45,6 +56,7 @@ from zookeeper_tpu_torch.core import Field, component
 from zookeeper_tpu_torch.models.base import Model
 from zookeeper_tpu_torch.ops import attention as attn_ops
 from zookeeper_tpu_torch.ops.quantizers import quantize_kv_rows
+from zookeeper_tpu_torch.parallel.shards import copy_to_model, reduce_from_model
 
 #: Full-context attention tiers, by the name of their ``ops.attention``
 #: function.
@@ -124,8 +136,19 @@ def _pool_write_rows(layer: Dict[str, torch.Tensor], rows: Dict[str, torch.Tenso
     return layer
 
 
+def _summed(partial: torch.Tensor, tp) -> torch.Tensor:
+    """A row-parallel output summed over the model group ``tp`` (itself
+    without one)."""
+    return partial if tp is None else reduce_from_model(partial, tp)
+
+
 class _Block(nn.Module):
-    """One pre-norm decoder block; its submodules carry the flax names."""
+    """One pre-norm decoder block; its submodules carry the flax names.
+    ``_tp_attn``/``_tp_mlp``: the model groups of its tensor-parallel
+    halves (see the module docstring)."""
+
+    _tp_attn = None
+    _tp_mlp = None
 
     def __init__(self, d_model: int, num_heads: int, mlp_ratio: int,
                  dtype: torch.dtype, attention: str):
@@ -141,30 +164,68 @@ class _Block(nn.Module):
         self.up = _Linear(d_model, mlp_ratio * d_model, dtype)
         self.down = _Linear(mlp_ratio * d_model, d_model, dtype)
 
-    def _heads(self, x: torch.Tensor):
-        """q, k, v ``[b, n, heads, head_dim]`` (views of one qkv product)."""
+    def tensor_parallel_forms(self):
+        """Column-parallel ``qkv`` (head-aligned: interleave 3) with
+        row-parallel ``proj``, and column-parallel ``up`` with row-parallel
+        ``down``; the weights are ``[out, in]``."""
+        d_ff = self.up.weight.shape[0]
+        return [
+            ("_tp_attn", {"qkv.weight": (0, 3), "proj.weight": (1, 1)},
+             lambda size: self.num_heads % size == 0),
+            ("_tp_mlp", {"up.weight": (0, 1), "down.weight": (1, 1)},
+             lambda size: d_ff % size == 0),
+        ]
+
+    def _heads(self, x: torch.Tensor, tp=None):
+        """q, k, v ``[b, n, heads, head_dim]`` (views of one qkv product):
+        this rank's heads under a model group ``tp``, whose members sum
+        the input's gradient."""
         b, n, _ = x.shape
-        qkv = self.qkv(self.RMSNorm_0(x))
-        return (t.reshape(b, n, self.num_heads, self.head_dim)
-                for t in qkv.split(self.d_model, dim=-1))
+        heads = self.num_heads // (tp.size if tp is not None else 1)
+        h = self.RMSNorm_0(x)
+        qkv = self.qkv(h if tp is None else copy_to_model(h, tp))
+        return (t.reshape(b, n, heads, self.head_dim)
+                for t in qkv.split(heads * self.head_dim, dim=-1))
 
-    def _mlp(self, x: torch.Tensor) -> torch.Tensor:
-        h = self.up(self.RMSNorm_1(x))
-        h = F.gelu(h, approximate="tanh")
-        return x + self.down(h)
-
-    def forward(self, x: torch.Tensor, return_kv: bool = False, attention=None):
-        b, s, d = x.shape
-        q, k, v = self._heads(x)
+    def attention_partial(self, x: torch.Tensor, attention=None, kv=None) -> torch.Tensor:
+        """The ``proj`` output of this rank's heads (the whole output
+        without a model group); ``kv`` collects the heads' K/V."""
+        b, s, _ = x.shape
+        q, k, v = self._heads(x, self._tp_attn)
+        if kv is not None:
+            kv.extend((k, v))
         if attention is None:
             attention = getattr(attn_ops, _ATTENTION[self.attention])
         o = attention(q, k, v, causal=True)
-        out = self._mlp(x + self.proj(o.reshape(b, s, d)))
-        return (out, (k, v)) if return_kv else out
+        return self.proj(o.reshape(b, s, -1))
+
+    def mlp_partial(self, x: torch.Tensor) -> torch.Tensor:
+        """The ``down`` output of this rank's hidden units (the whole
+        output without a model group)."""
+        tp = self._tp_mlp
+        h = self.RMSNorm_1(x)
+        h = self.up(h if tp is None else copy_to_model(h, tp))
+        return self.down(F.gelu(h, approximate="tanh"))
+
+    def _mlp(self, x: torch.Tensor) -> torch.Tensor:
+        return x + _summed(self.mlp_partial(x), self._tp_mlp)
+
+    def forward(self, x: torch.Tensor, return_kv: bool = False, attention=None):
+        kv = [] if return_kv else None
+        out = self._mlp(x + _summed(self.attention_partial(x, attention, kv), self._tp_attn))
+        return (out, tuple(kv)) if return_kv else out
+
+    def _check_decode(self) -> None:
+        if self._tp_attn is not None or self._tp_mlp is not None:
+            raise NotImplementedError(
+                "Decoding a tensor-parallel block (serving under partitioners) is not in "
+                "the PyTorch port yet; it is queued in ROADMAP.md (Queue 1 item 3)."
+            )
 
     def decode(self, x, k_cache, v_cache, lengths):
         """One cached step: write the new K/V at ``clamp(lengths, 0,
         capacity - 1)`` in place, attend rows ``0..lengths`` (K12)."""
+        self._check_decode()
         b = x.shape[0]
         q, k, v = self._heads(x)
         write = lengths.long().clamp(0, k_cache.shape[1] - 1)
@@ -178,6 +239,7 @@ class _Block(nn.Module):
         """The page-pool twin of :meth:`decode` (K13): ``write = (slots,
         pages, offsets)`` names the slots whose new K/V row lands in the
         pool and where (the others drop it)."""
+        self._check_decode()
         b = x.shape[0]
         q, k, v = self._heads(x)
         slots, pages, offsets = write

@@ -19,6 +19,16 @@ dense weight is [out, in], as PyTorch holds them; a layer that wraps
 others holds them under their flax scope names (``QuantConv_0``).
 ``module.train()`` is flax's ``training=True``. Unlike flax, a layer takes
 its input width (``in_features``) at construction.
+
+Tensor parallelism (``parallel.shards``): ``Conv``, ``Dense``,
+``QuantConv``, ``QuantDense`` and ``BatchNorm`` name the layouts they can
+compute on (``tensor_parallel_forms``: every tensor of the layer split
+on its output features over one model axis). A layer the partitioner
+handed its model group (``_tp``) holds only its output-feature shard;
+a conv or dense then computes that shard of the output from the whole
+input (whose gradient it sums over the group), a BatchNorm normalises
+its own channels of the whole input, and each all-gathers the channels
+before it returns, so the next layer reads every channel.
 """
 
 import contextlib
@@ -168,6 +178,42 @@ _PM1_INPUT_QUANTIZERS = frozenset(
 )
 
 
+def _channelwise(kernel_quantizer: Quantizer) -> bool:
+    """Whether a kernel quantizer treats each output channel on its own
+    (elementwise, or a per-channel scale), so an output-feature shard of
+    the kernel quantizes as its slice of the whole."""
+    return kernel_quantizer is None or kernel_quantizer in _SIGN_KERNEL_QUANTIZERS
+
+
+def _tp_input(x: torch.Tensor, tp) -> torch.Tensor:
+    """A tensor-parallel layer's input: itself, its gradient summed over
+    the model group (each rank's shard contributes a part)."""
+    if tp is None:
+        return x
+    from zookeeper_tpu_torch.parallel.shards import copy_to_model
+
+    return copy_to_model(x, tp)
+
+
+def _tp_output(y: torch.Tensor, tp) -> torch.Tensor:
+    """A tensor-parallel layer's output shard with every channel
+    gathered."""
+    if tp is None:
+        return y
+    from zookeeper_tpu_torch.parallel.shards import gather_channels
+
+    return gather_channels(y, tp)
+
+
+def _output_forms(layer: nn.Module, weight: str, dim: int, ok: bool):
+    """The one form of a layer that computes an output-feature shard:
+    ``weight`` split on ``dim``, the bias (when held) on its only dim."""
+    leaves = {weight: (dim, 1)}
+    if getattr(layer, "bias", None) is not None:
+        leaves["bias"] = (0, 1)
+    return [("_tp", leaves, lambda size: ok)]
+
+
 def kernel_param_name(kernel_quantizer: Quantizer) -> str:
     """The latent kernel's parameter name, as the flax layers name it:
     "kernel" for a sign-family or callable quantizer (what
@@ -298,7 +344,10 @@ def _normal_(t: torch.Tensor, std: float, generator: torch.Generator) -> None:
 class Conv(nn.Module):
     """Float conv over NHWC with XLA SAME/VALID padding
     (``flax.linen.Conv``); the weight is OIHW. Computes in ``dtype``, the
-    bias (``use_bias``) added in it."""
+    bias (``use_bias``) added in it. Tensor-parallel on its output
+    features when ungrouped."""
+
+    _tp = None
 
     def __init__(
         self,
@@ -330,10 +379,13 @@ class Conv(nn.Module):
             with torch.no_grad():
                 self.bias.zero_()
 
+    def tensor_parallel_forms(self):
+        return _output_forms(self, "weight", 0, self.groups == 1)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         kh, kw = self.kernel_size
         x, _, _ = _spatial_pad(
-            x.to(self.dtype), kh, kw, self.strides, self.padding, 0.0
+            _tp_input(x, self._tp).to(self.dtype), kh, kw, self.strides, self.padding, 0.0
         )
         y = F.conv2d(
             x.permute(0, 3, 1, 2), self.weight.to(self.dtype),
@@ -341,7 +393,7 @@ class Conv(nn.Module):
         ).permute(0, 2, 3, 1)
         if self.bias is not None:
             y = y + self.bias.to(self.dtype)
-        return y
+        return _tp_output(y, self._tp)
 
 
 class BatchNorm(nn.Module):
@@ -358,7 +410,11 @@ class BatchNorm(nn.Module):
     (the biased variance, unlike ``nn.BatchNorm2d``), ``m`` the share of
     the running statistic kept (flax's convention). In eval mode it uses
     the running statistics. The recompute of a rematerialized step leaves
-    the statistics as the step's first forward left them."""
+    the statistics as the step's first forward left them. Tensor-parallel
+    over its channels: it normalises its own channels of the whole input
+    and gathers the rest."""
+
+    _tp = None
 
     def __init__(self, features: int, eps: float = 1e-5,
                  dtype: torch.dtype = torch.float32, momentum: float = 0.9):
@@ -378,7 +434,15 @@ class BatchNorm(nn.Module):
             self.running_mean.zero_()
             self.running_var.fill_(1.0)
 
+    def tensor_parallel_forms(self):
+        leaves = {n: (0, 1) for n in ("weight", "bias", "running_mean", "running_var")}
+        return [("_tp", leaves, lambda size: True)]
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self._tp is not None:
+            from zookeeper_tpu_torch.parallel.shards import split_channels
+
+            x = split_channels(x, self._tp)
         xf = x.to(torch.float32)
         if self.training:
             axes = tuple(range(x.dim() - 1))
@@ -395,12 +459,14 @@ class BatchNorm(nn.Module):
         else:
             mean, var = self.running_mean, self.running_var
         mul = torch.rsqrt(var + self.eps) * self.weight
-        return ((xf - mean) * mul + self.bias).to(self.dtype)
+        return _tp_output(((xf - mean) * mul + self.bias).to(self.dtype), self._tp)
 
 
 class Dense(nn.Module):
     """``flax.linen.Dense`` over the last axis, computed in ``dtype``;
-    the weight is [out, in]."""
+    the weight is [out, in]. Tensor-parallel on its output features."""
+
+    _tp = None
 
     def __init__(self, in_features: int, features: int,
                  dtype: torch.dtype = torch.float32):
@@ -414,9 +480,13 @@ class Dense(nn.Module):
         with torch.no_grad():
             self.bias.zero_()
 
+    def tensor_parallel_forms(self):
+        return _output_forms(self, "weight", 0, True)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         d = self.dtype
-        return F.linear(x.to(d), self.weight.to(d), self.bias.to(d))
+        y = F.linear(_tp_input(x, self._tp).to(d), self.weight.to(d), self.bias.to(d))
+        return _tp_output(y, self._tp)
 
 
 def _check_quant_layer(layer: str, binary_compute: str, binary_flavor: str,
@@ -435,6 +505,8 @@ def _check_quant_layer(layer: str, binary_compute: str, binary_flavor: str,
 
 
 class _QuantLayer(nn.Module):
+    _tp = None
+
     @property
     def latent(self) -> nn.Parameter:
         """The latent float kernel, under flax's name for it
@@ -490,6 +562,7 @@ class QuantDense(_QuantLayer):
         self.packed_weights = packed_weights
         self.binary_flavor = binary_flavor
         self.scaled = not _int8_kernel_is_unscaled(kernel_quantizer)
+        self.channelwise = _channelwise(kernel_quantizer)
         if packed_weights:
             self.register_buffer(
                 "kernel_packed",
@@ -514,6 +587,11 @@ class QuantDense(_QuantLayer):
             if self.bias is not None:
                 self.bias.zero_()
 
+    def tensor_parallel_forms(self):
+        if self.packed_weights:
+            return []
+        return _output_forms(self, self.latent_name, 1, self.channelwise)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         mode = self.binary_compute
         if x.shape[-1] != self.in_features:
@@ -521,6 +599,7 @@ class QuantDense(_QuantLayer):
                 f"{type(self).__name__}: input has {x.shape[-1]} features, the "
                 f"layer was built for {self.in_features}."
             )
+        x = _tp_input(x, self._tp)
         if self.in_q is not None:
             x = tag_quant_act(self.in_q(x))
         if self.packed_weights:
@@ -542,7 +621,7 @@ class QuantDense(_QuantLayer):
         y = y.to(self.dtype)
         if self.bias is not None:
             y = y + self.bias.to(self.dtype)
-        return y
+        return _tp_output(y, self._tp)
 
 
 def _glorot_(t: torch.Tensor, generator: torch.Generator) -> None:
@@ -666,6 +745,7 @@ class QuantConv(_QuantLayer):
         self.pack_residuals = pack_residuals
         self.binary_flavor = binary_flavor
         self.scaled = not _int8_kernel_is_unscaled(kernel_quantizer)
+        self.channelwise = _channelwise(kernel_quantizer)
         if packed_weights:
             ciw = -(-in_features // 32)
             self.register_buffer(
@@ -689,8 +769,14 @@ class QuantConv(_QuantLayer):
             if self.bias is not None:
                 self.bias.zero_()
 
+    def tensor_parallel_forms(self):
+        if self.packed_weights:
+            return []
+        return _output_forms(self, self.latent_name, 3, self.channelwise and self.groups == 1)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         mode = self.binary_compute
+        x = _tp_input(x, self._tp)
         if self.in_q is not None:
             x = tag_quant_act(self.in_q(x))
         if self.packed_weights:
@@ -717,7 +803,7 @@ class QuantConv(_QuantLayer):
         y = y.to(self.dtype)
         if self.bias is not None:
             y = y + self.bias.to(self.dtype)
-        return y
+        return _tp_output(y, self._tp)
 
 
 class _LatentLayer(_QuantLayer):

@@ -12,15 +12,23 @@ needs:
   the gradients and the step metrics are averaged over the ranks and
   train-mode BatchNorms take the moments of the global batch
   (``ops.layers.global_batch_stats``), as JAX's synced BatchNorm does;
-- ``MeshPartitioner``: the N-D form, with data axes only in this slice.
+- ``MeshPartitioner``: the N-D form: data axes that split the batch
+  and model axes that do not, with partition ``rules`` (``with_rules``)
+  that shard parameters over any of them;
+- ``FsdpPartitioner``: one ``fsdp`` axis that splits the batch and, by
+  ``auto_fsdp_rules`` derived from each state, the large weights.
 
 The mesh is ``torch.distributed.device_mesh.init_device_mesh`` over the
 ranks in JAX's row-major axis order: on a ``("data", "sp")`` mesh rank
-r sits at ``(r // sp, r % sp)``. Without a process group (no launcher,
-world size 1) there is no mesh and no collective is ever called, so a
-single-card run is the run it was before partitioners existed, to the
-bit. ``FsdpPartitioner``, partition ``rules`` and a ``model`` axis are
-not ported yet (ROADMAP.md) and raise.
+r sits at ``(r // sp, r % sp)``. ``shard_state`` keeps each rank's
+block of every tensor the rules shard (``parallel.shards``: the layers
+that can compute on their shard do, over the model group; every other
+sharded parameter is all-gathered before the forward and its gradient
+reduce-scattered). The gradients of what every rank of a model
+coordinate holds alike are averaged over those ranks (the replica
+group, ``ReplicaGroup``). Without a process group (no launcher, world
+size 1) there is no mesh, no shard and no collective, so a single-card
+run is the run it was before partitioners existed, to the bit.
 """
 
 import contextlib
@@ -32,8 +40,8 @@ import torch.distributed as dist
 
 from zookeeper_tpu_torch.core import Field, component
 from zookeeper_tpu_torch.parallel import distributed
-
-_NOT_PORTED = "is not in the PyTorch port yet; it is queued in ROADMAP.md (Queue 1 item 3)."
+from zookeeper_tpu_torch.parallel.rules import PartitionRule, spec_for
+from zookeeper_tpu_torch.parallel.shards import MeshGroups, plan_state
 
 
 @dataclass(frozen=True)
@@ -51,15 +59,20 @@ class BatchSlice:
 
 
 class ReplicaGroup:
-    """The ranks that hold one copy of the parameters (every rank of the
-    mesh) and, inside them, the data group whose global batch the
-    BatchNorms normalise over. What the train step and the eval loop ask
-    of the ranks: means, sums and the BatchNorm scope."""
+    """The ranks that hold one copy of the parameters (``group``, ``size``
+    of them: every rank of the mesh with this rank's model coordinates)
+    and, inside them, the data group whose global batch the BatchNorms
+    normalise over. What the train step and the eval loop ask of the
+    ranks: means, sums, the BatchNorm scope and the activation scope
+    (``scope``: ``(mesh, data_axes, model_axes)``, None for none)."""
 
-    def __init__(self, size: int, data_group: Any, data_size: int):
+    def __init__(self, size: int, data_group: Any, data_size: int, group: Any = None,
+                 scope: Optional[Tuple[Any, Tuple[str, ...], Tuple[str, ...]]] = None):
         self.size = size
         self.data_group = data_group
         self.data_size = data_size
+        self.group = group
+        self.scope = scope
 
     def sum_(self, tensors: Sequence[torch.Tensor]) -> None:
         """Sum ``tensors`` over the ranks, in place: one all-reduce per
@@ -69,7 +82,7 @@ class ReplicaGroup:
             buckets.setdefault((t.dtype, t.device), []).append(t)
         for group in buckets.values():
             flat = torch.cat([t.reshape(-1) for t in group])
-            dist.all_reduce(flat)
+            dist.all_reduce(flat, group=self.group)
             torch._foreach_copy_(group, [v.view_as(t) for v, t in
                                          zip(flat.split([t.numel() for t in group]), group)])
 
@@ -87,6 +100,15 @@ class ReplicaGroup:
         if self.data_size == 1:
             return contextlib.nullcontext()
         return global_batch_stats(self.data_group)
+
+    def activation_scope(self, rows: int):
+        """The partitioner's activation-sharding scope for a batch of which
+        this rank holds ``rows`` (``parallel.sharding``)."""
+        from zookeeper_tpu_torch.parallel.sharding import activation_sharding_scope
+
+        if self.scope is None:
+            return contextlib.nullcontext()
+        return activation_sharding_scope(*self.scope, rows=rows)
 
     def barrier(self) -> None:
         dist.barrier()
@@ -172,6 +194,11 @@ class Partitioner:
         """Place the freshly initialized state (identity without ranks)."""
         return state
 
+    def decode_cache_axes(self) -> Tuple[Tuple[str, ...], Optional[str]]:
+        """``(data_axes, model_axis)`` a decode KV cache shards over
+        (``parallel.rules.decode_cache_rules``); nothing without a mesh."""
+        return (), None
+
     def replicas(self) -> Optional[ReplicaGroup]:
         """The ranks that average the gradients and the step metrics;
         None when there is one."""
@@ -191,10 +218,11 @@ class SingleDevicePartitioner(Partitioner):
 class MeshPartitioner(Partitioner):
     """General N-D mesh partitioner over the ranks.
 
-    ``mesh_shape``/``mesh_axes`` define the mesh (e.g. ``(-1,)`` with
-    ``('data',)``); ``data_axes`` names the axes the batch is split over.
-    Every axis is a data axis in this slice: a ``model`` axis and
-    partition rules raise."""
+    ``mesh_shape``/``mesh_axes`` define the mesh (e.g. ``(-1, 8)`` with
+    ``('data', 'model')``); ``data_axes`` names the axes the batch is
+    split over (the others are model axes: every rank of one data index
+    sees the same rows); ``rules`` maps state paths to PartitionSpecs
+    (empty: every tensor replicates)."""
 
     mesh_shape: Sequence[int] = Field((-1,))
     mesh_axes: Sequence[str] = Field(("data",))
@@ -204,14 +232,18 @@ class MeshPartitioner(Partitioner):
 
     _mesh: Any = None
     _sizes: Optional[Dict[str, int]] = None
+    _groups: Optional[MeshGroups] = None
+    _rules: List[PartitionRule] = []
 
-    def with_rules(self, rules: Sequence[Any]) -> "MeshPartitioner":
-        """Partition rules (programmatic): the empty list replicates every
-        parameter, which is what the port does; sharded parameters are not
-        ported yet."""
-        if list(rules):
-            raise NotImplementedError(f"Partition rules (sharded parameters) {_NOT_PORTED}")
+    def with_rules(self, rules: Sequence[PartitionRule]) -> "MeshPartitioner":
+        """Set the partition rules (programmatic, since PartitionSpecs are
+        not CLI-expressible). Returns self for chaining."""
+        object.__setattr__(self, "_rules_override", list(rules))
         return self
+
+    @property
+    def rules(self) -> List[PartitionRule]:
+        return getattr(self, "_rules_override", self._rules)
 
     def _axes(self) -> Tuple[List[int], List[str]]:
         """The mesh's sizes and axis names (subclasses derive them)."""
@@ -221,12 +253,16 @@ class MeshPartitioner(Partitioner):
         unknown = [a for a in self.data_axes if a not in axes]
         if unknown:
             raise ValueError(f"data_axes {unknown} are not mesh axes {tuple(axes)}.")
-        model = [a for a in axes if a not in self.data_axes]
-        if model:
-            raise NotImplementedError(
-                f"Mesh axes {model} that do not carry the batch (tensor "
-                f"parallelism, a 'model' axis) {_NOT_PORTED}"
-            )
+
+    def _model_axes(self) -> Tuple[str, ...]:
+        """The axes a tensor-parallel layer may compute its shard over:
+        those that do not split the batch."""
+        return tuple(a for a in self.mesh_sizes if a not in self.data_axes)
+
+    def _replica_axes(self) -> Tuple[str, ...]:
+        """The axes whose ranks hold the same replicated parameters and
+        average their gradients."""
+        return tuple(self.data_axes)
 
     def setup(self) -> None:
         if self._sizes is not None:
@@ -248,6 +284,8 @@ class MeshPartitioner(Partitioner):
             mesh = init_device_mesh(kind, tuple(sizes), mesh_dim_names=tuple(axes))
         object.__setattr__(self, "_mesh", mesh)
         object.__setattr__(self, "_sizes", dict(zip(axes, sizes)))
+        if mesh is not None:
+            object.__setattr__(self, "_groups", MeshGroups(self._sizes, dist.get_rank()))
 
     @property
     def mesh(self) -> Any:
@@ -285,29 +323,58 @@ class MeshPartitioner(Partitioner):
 
     def _data_group(self) -> Any:
         """The process group of this rank's data axes."""
-        if tuple(self.data_axes) == tuple(self.mesh_sizes):
-            return dist.group.WORLD
-        (axis,) = self.data_axes
-        return self.mesh.get_group(axis)
+        return self._groups.group(self.data_axes)
+
+    def _scope(self) -> Optional[Tuple[Any, Tuple[str, ...], Tuple[str, ...]]]:
+        return self.mesh, tuple(self.data_axes), self._model_axes()
 
     def replicas(self) -> Optional[ReplicaGroup]:
         if self.process_span() == 1:
             return None
-        return ReplicaGroup(self.process_span(), self._data_group(), self._data_share()[1])
+        axes = self._replica_axes()
+        return ReplicaGroup(self._groups.size(axes), self._data_group(),
+                            self._data_share()[1], self._groups.group(axes), self._scope())
+
+    def _rules_for(self, state: Any) -> List[PartitionRule]:
+        """The rules that lay out ``state`` (FSDP derives them from it)."""
+        return self.rules
+
+    def state_sharding(self, state: Any) -> Dict[str, Any]:
+        """The spec of every tensor of ``state`` as a flax-layout tree
+        ``{"params": ..., "model_state": {"batch_stats": ...}}`` (JAX's
+        ``state_sharding``); each parameter's optimizer state and EMA
+        copy have its spec. Specs name flax dimensions."""
+        from zookeeper_tpu_torch.models.convert import flax_state_layouts, unflatten_tree
+
+        rules = self._rules_for(state)
+        return unflatten_tree({path: spec_for(rules, path) for path, _ in
+                               flax_state_layouts(state.module).values()})
 
     def shard_state(self, state: Any) -> Any:
         """Every rank built the same state from the same seed; at world
         size > 1 rank 0's copy is broadcast all the same (parameters,
         buffers, optimizer state, EMA), so the replicas start equal to the
-        bit whatever each rank's initialization did."""
-        if self.process_span() == 1:
+        bit whatever each rank's initialization did. Then, in a process
+        group, each rank keeps its block of every tensor the rules shard
+        (``parallel.shards.ShardPlan``; ``state.shards``)."""
+        if self.mesh is None:
             return state
-        from zookeeper_tpu_torch.training.optimizer import state_tensors
+        if self.process_span() > 1:
+            from zookeeper_tpu_torch.training.optimizer import state_tensors
 
-        with torch.no_grad():
-            for t in _state_tensors(state, state_tensors):
-                dist.broadcast(t, src=0)
-        return state
+            with torch.no_grad():
+                for t in _state_tensors(state, state_tensors):
+                    dist.broadcast(t, src=0)
+        plan = plan_state(state.module, self._rules_for(state), self._groups,
+                          self._model_axes(), self._replica_axes())
+        return state if plan is None else plan.apply(state)
+
+    def decode_cache_axes(self) -> Tuple[Tuple[str, ...], Optional[str]]:
+        # From the mesh_axes field, as the JAX package derives it (a
+        # partitioner that builds its mesh from other fields keeps the
+        # field's default).
+        model = [a for a in self.mesh_axes if a not in self.data_axes]
+        return tuple(self.data_axes), (model[0] if model else None)
 
     def check_same_step(self, step: int) -> None:
         if self.process_span() == 1:
@@ -336,15 +403,46 @@ class DataParallelPartitioner(MeshPartitioner):
 
 @component
 class FsdpPartitioner(MeshPartitioner):
-    """Turnkey FSDP (batch and large weights sharded over one ``fsdp``
-    axis), with the JAX package's fields; not ported yet, so ``setup``
-    raises."""
+    """Turnkey FSDP: a 1-D mesh, the batch and the large weights split over
+    the same ``fsdp`` axis (ZeRO-3, ``parallel.rules.auto_fsdp_rules``):
+    each rank holds its block of every sharded weight and of its optimizer
+    state and EMA, all-gathers the weights before the forward and
+    reduce-scatters their gradients. The rules derive from each state's
+    parameters on every call; an explicit ``with_rules``, even an empty
+    one, wins."""
 
     mesh_shape: Sequence[int] = Field((-1,))
     mesh_axes: Sequence[str] = Field(("fsdp",))
     data_axes: Sequence[str] = Field(("fsdp",))
+    #: Parameters below this many elements replicate (biases, BN).
     min_weight_size: int = Field(2**15)
+    #: Regexes over params-relative paths forced to replicate regardless
+    #: of size (``auto_fsdp_rules``).
     replicate_patterns: Sequence[str] = Field(())
 
-    def setup(self) -> None:
-        raise NotImplementedError(f"FsdpPartitioner (sharded parameters) {_NOT_PORTED}")
+    def _rules_for(self, state: Any) -> List[PartitionRule]:
+        if getattr(self, "_rules_override", None) is not None:
+            return self._rules_override
+        from zookeeper_tpu_torch.models.convert import flax_state_layouts, unflatten_tree
+        from zookeeper_tpu_torch.parallel.rules import auto_fsdp_rules
+
+        plan = getattr(state, "shards", None)
+        tensors = state.module.state_dict()
+        params = {}
+        for name, (path, axes) in flax_state_layouts(state.module).items():
+            if path.startswith("params/"):
+                shape = (plan.layouts[name].shape if plan is not None and name in plan.layouts
+                         else tuple(tensors[name].shape))
+                params[path[len("params/"):]] = _Shape(shape[a] for a in axes)
+        params = unflatten_tree(params)
+        axis = tuple(self.mesh_axes)[0]
+        return auto_fsdp_rules(params, axis_size=self.mesh_sizes[axis], fsdp_axis=axis,
+                               min_weight_size=self.min_weight_size,
+                               replicate_patterns=tuple(self.replicate_patterns))
+
+
+class _Shape:
+    """A leaf that has only a ``shape`` (what ``auto_fsdp_rules`` reads)."""
+
+    def __init__(self, shape):
+        self.shape = tuple(shape)

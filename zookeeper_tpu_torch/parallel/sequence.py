@@ -16,17 +16,21 @@ Ranks of one data index form a ring over their sp group; the model
 adds its positional table at the shard's global offset
 (:meth:`SequenceParallelAttention.sequence_offset`). Everything between
 attention calls is rank-local; the parameters replicate over every rank
-and their gradients are averaged over all of them.
+of a model index and their gradients are averaged over those ranks.
+
+``tp > 1`` adds a trailing ``model`` axis (rank r at ``(r // (sp * tp),
+r // tp % sp, r % tp)``) with ``transformer_tp_rules`` by default: each
+block holds its heads' rows of ``qkv`` and ``up`` and the matching
+columns of ``proj`` and ``down``, attends over its own heads (the ring
+or all-to-all then runs at ``heads / tp``) and sums the row-parallel
+outputs over the model group (``models.transformer``).
 """
 
-from typing import Any, Sequence
+from typing import Any, List, Sequence, Tuple
 
 from zookeeper_tpu_torch.core import Field, component, configured_field_names
-from zookeeper_tpu_torch.parallel.partitioner import (
-    _NOT_PORTED,
-    BatchSlice,
-    MeshPartitioner,
-)
+from zookeeper_tpu_torch.parallel.partitioner import BatchSlice, MeshPartitioner
+from zookeeper_tpu_torch.parallel.rules import PartitionRule, transformer_tp_rules
 
 #: The attention flavors the ``attention`` Field selects.
 SP_ATTENTION_FLAVORS = ("ring_flash", "ring", "ulysses")
@@ -72,8 +76,9 @@ class SequenceParallelPartitioner(MeshPartitioner):
 
     Contract: the model exposes ``set_attention_override`` (the
     TransformerLM family does); the global sequence length divides ``sp``
-    and the global batch divides ``dp``. ``tp > 1`` (a ``model`` axis)
-    is not ported yet and raises.
+    and the global batch divides ``dp``. ``tp > 1`` adds the trailing
+    ``model`` axis (see the module docstring); ``with_rules`` replaces its
+    default ``transformer_tp_rules``.
     """
 
     #: Sequence-parallel degree; -1 = all ranks not taken by dp/tp.
@@ -133,27 +138,38 @@ class SequenceParallelPartitioner(MeshPartitioner):
                 f"sp={self.sp} / dp={self.dp}: expected a positive "
                 "degree or -1 (infer)."
             )
-        if self.tp > 1:
-            raise NotImplementedError(
-                f"SequenceParallelPartitioner.tp={self.tp} (a 'model' axis) {_NOT_PORTED}"
-            )
         dp, sp = self.dp, self.sp
         if dp == -1 and sp == -1:
             # Wholly unspecified: everything onto the sequence axis.
             dp = 1
+        if self.tp > 1:
+            return [dp, sp, self.tp], ["data", "sp", "model"]
         return [dp, sp], ["data", "sp"]
 
     def _check_axes(self, axes) -> None:
         """The sp axis carries the sequence, not a model shard."""
 
+    @property
+    def rules(self) -> List[PartitionRule]:
+        override = getattr(self, "_rules_override", None)
+        if override is not None:
+            return override
+        return transformer_tp_rules() if self.tp > 1 else []
+
+    def _model_axes(self) -> Tuple[str, ...]:
+        return ("model",) if "model" in self.mesh_sizes else ()
+
+    def _replica_axes(self) -> Tuple[str, ...]:
+        return ("data", "sp")
+
+    def _scope(self):
+        # No activation scope, as in the JAX package: the sequence-parallel
+        # attention owns the sequence-sharded layout.
+        return None
+
     def batch_sharding(self) -> BatchSlice:
         index, count = self._data_share()
         return BatchSlice(index, count, self.coordinates()["sp"], self.mesh_sizes["sp"])
-
-    def _data_group(self) -> Any:
-        if self.mesh is None:
-            return None
-        return self.mesh.get_group("data")
 
     def attention_callable(self) -> SequenceParallelAttention:
         """The injected attention: the Field-selected flavor bound to this

@@ -34,7 +34,11 @@ format (no orbax):
 Under data or sequence parallelism (:meth:`Checkpointer.set_replicas`)
 the state is replicated: rank 0 writes it and every rank passes a
 barrier after the rename (a sync save) or after the writer drains
-(``wait``), so every rank restores the same step.
+(``wait``), so every rank restores the same step. A sharded state
+(``state.shards``) is gathered by every rank before rank 0 writes it, so
+the file holds the global tensors in the format above (the ``qkv`` rows
+in their global order) under every partitioner, and a restore keeps
+each rank's block of them.
 
 The JAX package's per-host sharded protocol (``sharded_per_host``,
 ``process_index``, ``process_count``, ``host_commit_timeout_s``) is not
@@ -97,14 +101,18 @@ def _torch_tree(tree: Mapping[str, Any]) -> Flat:
     return {path: torch.tensor(np.asarray(leaf)) for path, leaf in flatten_tree(tree).items()}
 
 
-def export_trees(module: nn.Module, params: Optional[Mapping[str, torch.Tensor]] = None
-                 ) -> Tuple[Flat, Flat]:
+def export_trees(module: nn.Module, params: Optional[Mapping[str, torch.Tensor]] = None,
+                 shards: Any = None) -> Tuple[Flat, Flat]:
     """The module's weights as the export's ``(params, model_state)``:
     ``{flax path: CPU tensor}`` in flax layouts. ``params`` (``{name:
-    tensor}``, the EMA) stands in for the module's parameters."""
+    tensor}``, the EMA) stands in for the module's parameters. ``shards``
+    (a sharded state's plan) gathers the global tensors first: every rank
+    calls it."""
     named = dict(module.state_dict())
     if params is not None:
         named.update({n: t.detach() for n, t in params.items()})
+    if shards is not None:
+        named = shards.gather_tree({"module": named})["module"]
     return _named_trees(named, _is_lm(module))
 
 
@@ -327,7 +335,7 @@ def _state_tree(state: Any) -> Dict[str, Any]:
     """The persistable part of a ``TrainState``: the module's parameters
     and statistics, the optimizer state (with its counts), the EMA, the
     host ``step``, and whether the module is an LM (the flax layout of
-    ``load_inference_model``)."""
+    ``load_inference_model``); a sharded state's blocks as they are."""
     tree = {
         "step": int(state.step),
         "module": dict(state.module.state_dict()),
@@ -708,11 +716,14 @@ class Checkpointer:
             metrics = {k: float(v) for k, v in metrics.items()}
         step = int(state.step) if step is None else int(step)
         asynchronous = self.mode == "async" and not sync
+        tree = _state_tree(state)
+        if state.shards is not None:
+            tree = state.shards.gather_tree(tree)  # every rank takes part
         if not self._writes:
             if not asynchronous:
                 self._barrier()  # the chief's write has landed
             return True
-        tree, ready = host_snapshot(_state_tree(state))
+        tree, ready = host_snapshot(tree)
         if asynchronous:
             return self._writer().submit(step, tree, metrics, ready=ready)
         if ready is not None:
@@ -755,6 +766,8 @@ class Checkpointer:
         with self._io_lock():
             tree = _load_state_file(step_dir)
         live = _state_tree(state)
+        if state.shards is not None:
+            live = state.shards.global_like(live)
         _check_tree(step_dir, tree["module"], live["module"], "module/")
         _check_tree(step_dir, tree["opt_state"], live["opt_state"], "opt_state/")
         if tree.get("ema_params") is not None:
@@ -810,6 +823,8 @@ class Checkpointer:
 
     @staticmethod
     def _assemble(state: Any, tree: Mapping[str, Any]) -> None:
+        if state.shards is not None:
+            tree = state.shards.shard_tree(dict(tree))
         with torch.no_grad():
             state.module.load_state_dict(tree["module"])
             _copy_into(state.opt_state, tree["opt_state"])

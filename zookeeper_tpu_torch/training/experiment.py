@@ -43,9 +43,12 @@ collectives of the step; ``runtime`` forms the process group (from
 Each rank runs on its own card (``cuda:LOCAL_RANK``; gloo CPU ranks with
 ``device=cpu``). Rank 0 alone logs, writes the metrics, the profile,
 the checkpoints and the export; validation metrics are averaged over the
-ranks. Without a launcher there is no group and no collective: the run
-is the single-card run, to the bit. Observability is not ported yet
-(ROADMAP.md).
+ranks. Under partition rules (``FsdpPartitioner``, a ``MeshPartitioner``
+with a ``model`` axis, ``SequenceParallelPartitioner.tp``) each rank
+holds its blocks of the sharded state (``parallel.shards``); the eval,
+the checkpoints and the export gather them. Without a launcher there is
+no group and no collective: the run is the single-card run, to the bit.
+Observability is not ported yet (ROADMAP.md).
 """
 
 import json
@@ -460,9 +463,11 @@ class TrainingExperiment(Experiment):
             state, history = self._train(state, device)
         finally:
             self._teardown()
-        if self.export_model_to and partitioner.is_chief:
-            save_model(self.export_model_to, *export_trees(
-                state.module, state.ema_params if self.ema_decay > 0 else None))
+        if self.export_model_to:
+            trees = export_trees(state.module, state.ema_params if self.ema_decay > 0 else None,
+                                 state.shards)
+            if partitioner.is_chief:
+                save_model(self.export_model_to, *trees)
         self.final_state = state
         return history
 
@@ -762,7 +767,7 @@ class EvalExperiment(Experiment):
         verbose = self.verbose and partitioner.is_chief
         if verbose:
             print(pretty_print(self), flush=True)
-        state = self.build_state(device)
+        state = partitioner.shard_state(self.build_state(device))
         metrics = run_weighted_eval(
             self.loader, self.split, make_eval_step(top5=self.track_top5), state, device,
             sharding=partitioner.batch_sharding(), replicas=partitioner.replicas(),

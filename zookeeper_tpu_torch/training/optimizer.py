@@ -25,9 +25,19 @@ from a float32 table of the host's values (the schedules' tables, the
 Adam bias corrections' :func:`_bias_table`), and a division by one takes
 the host float's route (:func:`_foreach_div`), so a count on the card
 gives the host's bits.
+
+Under sharded parameters (``parallel.shards``) every tensor a transform
+sees is this rank's block, and the elementwise stages need nothing more.
+The stages that reduce over whole tensors (the global norm of
+``ClipByGlobalNorm`` and of the train step's ``grad_norm``,
+``ScaleByTrustRatio``'s per-parameter norms) complete each block's norm
+over its group inside :func:`sharded_norms`, so every rank computes the
+same clip and trust ratio.
 """
 
+import contextlib
 import re
+from contextvars import ContextVar
 from typing import Any, Callable, Dict, List, Mapping, Optional, Union
 
 import numpy as np
@@ -48,11 +58,36 @@ Params = Mapping[str, torch.Tensor]
 Knob = Union[float, Callable]
 
 
-def global_norm(tensors) -> torch.Tensor:
-    """sqrt of the sum of squares of every element (optax's
-    ``global_norm``), as a 0-d tensor on the tensors' device."""
+_SHARDS: ContextVar[Optional[Any]] = ContextVar("zk_torch_norm_shards", default=None)
+
+
+@contextlib.contextmanager
+def sharded_norms(plan: Optional[Any]):
+    """Inside the block, the norms of named tensors that ``plan`` (a
+    ``parallel.shards.ShardPlan``, or None) shards are the norms of the
+    whole tensors."""
+    token = _SHARDS.set(plan)
+    try:
+        yield
+    finally:
+        _SHARDS.reset(token)
+
+
+def tensor_norms(tensors, names=None) -> List[torch.Tensor]:
+    """The L2 norm of each tensor (a 0-d tensor each): of the whole tensor
+    where an active :func:`sharded_norms` plan shards ``names[i]``."""
     norms = torch._foreach_norm(list(tensors))
-    return torch.linalg.vector_norm(torch.stack(norms))
+    plan = _SHARDS.get()
+    if plan is None or names is None:
+        return norms
+    return plan.whole_norms(norms, list(names))
+
+
+def global_norm(tensors, names=None) -> torch.Tensor:
+    """sqrt of the sum of squares of every element (optax's
+    ``global_norm``), as a 0-d tensor on the tensors' device; ``names``
+    completes sharded tensors (:func:`tensor_norms`)."""
+    return torch.linalg.vector_norm(torch.stack(tensor_norms(tensors, names)))
 
 
 def counts_to_device(state: Dict[str, Any], device: torch.device) -> None:
@@ -184,7 +219,7 @@ class ClipByGlobalNorm(_Stage):
         self.max_norm = max_norm
 
     def apply(self, u, state, p, names, count):
-        norm = global_norm(u)
+        norm = global_norm(u, names)
         scaled = torch._foreach_mul(torch._foreach_div(u, norm), self.max_norm)
         keep = norm < self.max_norm
         return [torch.where(keep, a, b) for a, b in zip(u, scaled)]
@@ -253,8 +288,8 @@ class ScaleByTrustRatio(_Stage):
     def apply(self, u, state, p, names, count):
         if not u:
             return u
-        p_norm = torch.stack(torch._foreach_norm(p))
-        u_norm = torch.stack(torch._foreach_norm(u))
+        p_norm = torch.stack(tensor_norms(p, names))
+        u_norm = torch.stack(tensor_norms(u, names))
         ratio = self.trust_coefficient * p_norm / (u_norm + self.eps)
         ratio = torch.where((p_norm == 0) | (u_norm == 0), torch.ones_like(ratio), ratio)
         return [x * r for x, r in zip(u, ratio.unbind())]

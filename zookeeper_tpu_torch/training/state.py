@@ -8,6 +8,13 @@ all of them in place and advances ``step``, a host-side count, so
 reading it never waits on the card. The fused loop's CUDA graph replays
 no host code, so under it the step also lives on the card
 (``step_counter``), advanced by the same update.
+
+Under a partitioner's rules (``parallel.shards``) the state holds
+shards: each sharded parameter (and buffer) of the module is this
+rank's block, and so are its optimizer state and its EMA copy, whose
+dicts co-shard with it; ``shards`` is the plan that says which and how,
+and what gathers them (a checkpoint, ``models.convert.flax_train_state``)
+and scatters them back.
 """
 
 from dataclasses import dataclass, field
@@ -35,6 +42,9 @@ class TrainState:
     #: replays the step (``training.step.prepare_for_graph``): what the
     #: step reads where it would read ``step``. Never checkpointed.
     step_counter: Optional[torch.Tensor] = None
+    #: The ``parallel.shards.ShardPlan`` of a sharded state (None: every
+    #: tensor whole), set by the partitioner's ``shard_state``.
+    shards: Optional[Any] = None
 
     @classmethod
     def create(cls, module: nn.Module, tx: Any, ema: bool = False) -> "TrainState":

@@ -32,6 +32,7 @@ from zookeeper_tpu_torch.training.optimizer import (
     counts_to_device,
     global_norm,
     select_,
+    sharded_norms,
     state_tensors,
 )
 from zookeeper_tpu_torch.training.state import TrainState
@@ -194,7 +195,17 @@ def make_train_step(
       over the ranks right after the backward, before the norm and the
       update, so the norm, the non-finite guard, the optimizer (Bop's
       flips) and the EMA agree on every rank. The other metrics are
-      averaged at the end of the step.
+      averaged at the end of the step. The forward runs in the
+      partitioner's activation scope.
+
+    A sharded state (``state.shards``, ``parallel.shards``) gathers the
+    parameters it holds in blocks and no layer computes on before the
+    forward (into leaves whose gradients the backward returns), swaps them
+    into the module for the forward and backward, and reduce-scatters
+    their gradients back to blocks; the tensor-parallel layers compute on
+    their blocks. The gradient norm, the trust ratio, the clip and the
+    flip ratio are taken over the whole tensors, so every rank takes the
+    non-finite guard's decision alike.
 
     The active ``FaultPlan``'s ``nan_at_step`` is read here, once: the
     step whose counter (``state.step`` before it) equals it multiplies
@@ -216,6 +227,9 @@ def make_train_step(
     def train_step(state: TrainState, batch: Batch) -> Tuple[TrainState, Metrics]:
         module = state.module.train()
         batch_stats = replicas.batch_stats() if replicas is not None else contextlib.nullcontext()
+        scope = (replicas.activation_scope(batch["input"].shape[0]) if replicas is not None
+                 else contextlib.nullcontext())
+        plan = state.shards
         params = state.params
         names = list(params)
         if ema_decay is not None and state.ema_params is None:
@@ -239,7 +253,9 @@ def make_train_step(
             kept = (list(params.values()) + state_tensors(state.opt_state)
                     + list((state.ema_params or {}).values()) + _bn_statistics(module))
             olds = [t.detach().clone() for t in kept]
-        with batch_stats:
+        whole = plan.gather_params(params, requires_grad=True) if plan is not None else {}
+        swapped = plan.swapped(module, whole) if plan is not None else contextlib.nullcontext()
+        with batch_stats, scope, swapped:
             logits = apply_model(module, batch["input"])
             loss = loss_fn(logits, batch["target"])
             if nan_at_step is not None:
@@ -255,13 +271,18 @@ def make_train_step(
                     t_logits = teacher_fn(batch["input"])
                 kd = kd_divergence(logits, t_logits, temperature)
                 loss = alpha * loss + (1.0 - alpha) * kd
-            grads = dict(zip(names, torch.autograd.grad(loss, list(params.values()))))
+            grads = dict(zip(names, torch.autograd.grad(
+                loss, [whole.get(n, p) for n, p in params.items()])))
         loss = loss.detach()
-        if replicas is not None:
+        if plan is not None:
+            loss = loss.clone()
+            plan.reduce_gradients(grads, [loss], replicas)
+        elif replicas is not None:
             loss = loss.clone()
             replicas.mean_([*grads.values(), loss])
-        grad_norm = global_norm(grads.values())
-        state.apply_gradients(grads)
+        with sharded_norms(plan):
+            grad_norm = global_norm(grads.values(), names)
+            state.apply_gradients(grads)
         with torch.no_grad():
             if ema_decay is not None:
                 ema = [state.ema_params[n] for n in names]
@@ -281,14 +302,19 @@ def make_train_step(
         if kd is not None:
             metrics["kd_loss"] = kd.detach()
         if flip_paths is not None:
-            flips = sum((torch.sign(params[n].detach()) != s).sum() for n, s in zip(flipped, old_signs))
+            counts = [(torch.sign(params[n].detach()) != s).sum() for n, s in zip(flipped, old_signs)]
             total = sum(params[n].numel() for n in flipped)
+            if plan is not None:
+                counts = plan.whole_sums(counts, flipped)
+                total = sum(plan.numel(n, params[n]) for n in flipped)
+            flips = sum(counts)
             # A fill, not a host copy: a graph's capture allows no copy.
             metrics["flip_ratio"] = flips.to(torch.float32) / torch.full(
                 (), float(total), dtype=torch.float32, device=flips.device)
         if replicas is not None:
-            # The parameters agree on every rank, so the flip ratio, the
-            # norm and the skip flag do; the rest are per-rank means.
+            # The parameters agree on every rank (each block on the ranks
+            # that hold it), so the flip ratio, the norm and the skip flag
+            # do; the rest are per-rank means.
             local = [metrics[k] for k in ("accuracy", "kd_loss") if k in metrics]
             replicas.mean_(local)
         return state, metrics
@@ -304,7 +330,9 @@ def make_eval_step(
 ) -> Callable[[TrainState, Batch], Metrics]:
     """Build the eval step: the module in eval mode (running statistics),
     no gradient. ``use_ema`` scores the EMA weights (the ones that ship)
-    instead of the parameters; ``top5`` adds top-5 accuracy."""
+    instead of the parameters; ``top5`` adds top-5 accuracy. A sharded
+    state gathers the blocks no layer computes on, as the train step
+    does."""
 
     def eval_step(state: TrainState, batch: Batch) -> Metrics:
         module = state.module.eval()
@@ -313,9 +341,16 @@ def make_eval_step(
                 "use_ema=True but the TrainState has no ema_params; "
                 "build it with TrainState.create(..., ema=True)."
             )
+        plan = state.shards
         with torch.no_grad():
             if use_ema:
-                logits = torch.func.functional_call(module, state.ema_params, (batch["input"],))
+                weights = dict(state.ema_params)
+                if plan is not None:
+                    weights.update(plan.gather_params(weights))
+                logits = torch.func.functional_call(module, weights, (batch["input"],))
+            elif plan is not None:
+                with plan.swapped(module, plan.gather_params(state.params)):
+                    logits = module(batch["input"])
             else:
                 logits = module(batch["input"])
             metrics = {
