@@ -351,7 +351,30 @@ CUDA card and ``nvcc``. In order:
    per rank; its kernel gradient (cuDNN's, whose algorithm follows the
    channel count) and the summed input gradient within the bf16 limits,
    the kernel gradients' bits counted.
-21. One JSON line of the kernels (14 rows; K1, K3, K4, K6 and K7 also
+21. Serving under partitioners (``served_sharded_phase``, deterministic
+   mode where bits are compared): (a) with no group, then on a
+   world-size-1 NCCL group, ``LMServingConfig`` at phase 10's model (4
+   requests x 8 tokens, prompts up to 512) in the slot, paged and
+   paged-int8 layouts under ``FsdpPartitioner(min_weight_size=1)``, a
+   ``(1, 1)`` data x model ``MeshPartitioner`` with ``transformer_tp_rules``
+   and ``SequenceParallelPartitioner sp=1 tp=1``: the tokens equal the run
+   with no group bit for bit with the same K9/K12/K13 launches (each
+   run's median decode step ms printed beside the no-group run's);
+   ``ServingConfig`` on slices A and B (4 requests) under
+   ``DataParallelPartitioner`` and the (1, 1) mesh with
+   ``conv_model_tp_rules``: a batch-8 request's logits and the K1/K3/K4
+   launches equal the run with no group's; ``TrainLM`` (phase 19's width)
+   2 steps under the (1, 1) TP mesh exports, and ``LMServingConfig``
+   under TP serves the export: the tokens equal serving it with no group.
+   (b) Composed in one process: K12, K13 and K13 on int8 rows at phase
+   10's decode geometry on each of 4 ranks' head shards [8, 1, 2, 64]
+   and on each rank's [4, 1, 4, 64] block of a dp=2 x tp=2 mesh, each
+   equal to the whole call's block bit for bit; K3 and K4 on each
+   co / 4 block of every QuickNet-Large conv shape at batch 8 (blocks of
+   16 to 128 channels), each equal to the whole call's channels bit for
+   bit; each shard's ms beside the whole call's ms / 4, its bound, its
+   plain version and its library call.
+22. One JSON line of the kernels (14 rows; K1, K3, K4, K6 and K7 also
    with their sums on Bi-Real-Net's path under ``bireal``; K1, K3 and K4
    under ``densenet`` and ``melius``, K1 and K3 under ``xnor_train`` per
    DenseNet training step, K2 under ``xnor_train`` per BinaryAlexNet
@@ -363,7 +386,8 @@ CUDA card and ``nvcc``. In order:
    launches on the sequence-parallel run and in the composed ring, and
    their times at the ring's shard shapes; K6-K11 under ``sharded``,
    phase 20's launches and step times, and K9-lse/K10/K11's head-shard
-   times), then the result line.
+   times; K1, K3, K4, K9, K12 and K13 under ``served_sharded``, phase 21's
+   launches and the block times), then the result line.
 """
 
 import contextlib
@@ -5405,6 +5429,409 @@ def sharded_phase(torch, bc, A, smi):
     return results, {**block_launches, **conv_launches}, head_rows
 
 
+#: Phase 21: serving under partitioners. The LM stream of each run (phase
+#: 10's model, a few dozen tokens), the classifier requests, the composed
+#: model-axis size.
+SERVE_SHARDED_LM = {"requests": 4, "max_prompt": 512, "new_tokens": 8,
+                    "engine.seq_buckets": (512,)}
+SERVE_SHARDED_CNN = {"engine.batch_buckets": (1, BATCH), "requests": 4, "max_request": BATCH,
+                     "seed": 0, "device": "cuda", "verbose": False}
+SERVE_TP = 4
+#: (label, partitioner config, rules function of ``parallel.rules``).
+SERVE_LM_LEGS = (
+    ("fsdp", _FSDP, None),
+    ("tp", _TP_MESH, "transformer_tp_rules"),
+    ("sp=1 tp=1", {"partitioner": "SequenceParallelPartitioner", "partitioner.sp": 1,
+                   "partitioner.tp": 1}, None),
+)
+#: (label, slice of SLICES, partitioner config, rules).
+SERVE_CNN_LEGS = (
+    ("dp", "A", {"partitioner": "DataParallelPartitioner"}, None),
+    ("tp", "A", _TP_MESH, "conv_model_tp_rules"),
+    ("tp xnor", "B", _TP_MESH, "conv_model_tp_rules"),
+)
+
+
+def _served_lm(torch, bc, A, overrides, rules=None):
+    """LMServingConfig.run() in deterministic mode, the kernel counts set
+    to 0 just before it: (tokens, launches, median decode step ms, the
+    config)."""
+    from zookeeper_tpu_torch.parallel import rules as R
+
+    cfg = _lm_config({**SERVE_SHARDED_LM, **overrides})
+    if rules is not None:
+        cfg.partitioner.with_rules(getattr(R, rules)())
+    _reset_all(bc, A)
+    with deterministic(torch):
+        cfg.run()
+        torch.cuda.synchronize()
+    launches = _launch_counts(bc, A)
+    step_ms = statistics.median(r[0] for r in cfg.engine._decode_records) * 1e3
+    return [o.copy() for o in cfg.outputs], launches, step_ms, cfg
+
+
+def _served_cnn(torch, bc, A, label, overrides, rules=None):
+    """ServingConfig.run() on slice ``label``'s settings in deterministic
+    mode, the counts set to 0 just before it: (launches, logits of one
+    fixed batch-8 request, the config)."""
+    import numpy as np
+
+    from zookeeper_tpu_torch.core import configure
+    from zookeeper_tpu_torch.parallel import rules as R
+    from zookeeper_tpu_torch.serving import ServingConfig
+
+    cfg = ServingConfig()
+    configure(cfg, {**SLICES[label][0], **SERVE_SHARDED_CNN, **overrides})
+    if rules is not None:
+        cfg.partitioner.with_rules(getattr(R, rules)())
+    _reset_all(bc, A)
+    with deterministic(torch):
+        cfg.run()
+        torch.cuda.synchronize()
+        launches = _launch_counts(bc, A)
+        x = np.random.default_rng(1).normal(size=(BATCH, *cfg.input_shape)).astype(np.float32)
+        logits = cfg.engine.infer(x)
+        torch.cuda.synchronize()
+    check(bool(torch.isfinite(logits).all()), f"served sharded: slice {label} logits")
+    return launches, logits, cfg
+
+
+def _served_step(torch, engine, label, steps: int = 20):
+    """A decode step of every slot at 1000 rows, after the run, in the
+    default settings: the median wall ms of ``steps`` steps (each ends in
+    the readback of its tokens), and one step's profile (device busy ms,
+    activities, top items, printed)."""
+    import numpy as np
+
+    n = int(engine.slots)
+    tokens, lengths = np.ones(n, np.int32), np.full(n, 1000, np.int32)
+    engine.decode(tokens, lengths)
+    walls = []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        engine.decode(tokens, lengths)
+        walls.append((time.perf_counter() - t0) * 1e3)
+    _, busy_ms, acts, top = _profile_step(torch, engine, tokens, lengths)
+    rec = {"wall_ms": statistics.median(walls), "busy_ms": busy_ms, "activities": acts}
+    print(f"served sharded: {label} decode step: {json.dumps(rec)}; top items: "
+          + "; ".join(f"{t:.4f} ms x{c} {k}" for t, c, k in top[:6]), flush=True)
+    return rec
+
+
+def _decode_shard_rows(torch, A, g):
+    """K12 and K13 (bf16 and int8 rows) at phase 10's decode geometry: on
+    each of SERVE_TP ranks' head shards [8, 1, 8 / SERVE_TP, 64] and on
+    each rank's slot-and-head shard of a dp=2 x tp=2 mesh, each equal to
+    the whole call's block bit for bit; the busiest rank's ms (the most
+    live rows) beside the whole call's ms / SERVE_TP, its bound and its
+    library call."""
+    import numpy as np
+
+    dev = torch.device("cuda")
+    b, cap, h, d, ps = LM_SLOTS, LM_CAP, LM_HEADS, LM_HEAD_DIM, LM_PAGE
+    lengths = torch.tensor(LM_CHECK_LENGTHS, dtype=torch.int32, device=dev)
+    q = torch.randn(b, 1, h, d, generator=g, device=dev).to(torch.bfloat16)
+    k, v = (torch.randn(b, cap, h, d, generator=g, device=dev).to(torch.bfloat16)
+            for _ in range(2))
+    pages = b * cap // ps
+    table = torch.randperm(pages, device=dev, generator=g).view(b, cap // ps).int()
+    kp, vp = (torch.randn(pages, ps, h, d, generator=g, device=dev).to(torch.bfloat16)
+              for _ in range(2))
+    k8, v8 = (torch.randint(-127, 128, (pages, ps, h, d), generator=g, device=dev,
+                            dtype=torch.int8) for _ in range(2))
+    ks, vs = (torch.rand(pages, ps, h, generator=g, device=dev) * 0.04 + 0.01
+              for _ in range(2))
+    live = int((np.clip(np.array(LM_CHECK_LENGTHS), 0, cap - 1) + 1).sum())
+    mesh = {"data": 2, "model": 2}
+    cases = {
+        "paged_decode_attention": (
+            lambda q_, k_, v_, l_, **kw: A.sharded_paged_decode_attention(q_, k_, v_, l_, **kw),
+            (q, k, v, lengths), ("sh", "sh", "sh", "s"), {}),
+        "pool_paged_decode_attention": (
+            lambda q_, k_, v_, t_, l_, **kw: A.sharded_pool_paged_decode_attention(
+                q_, k_, v_, t_, l_, **kw),
+            (q, kp, vp, table, lengths), ("sh", "h", "h", "s", "s"), {}),
+        "pool_paged_decode_attention int8": (
+            lambda q_, k_, v_, t_, l_, ks_, vs_, **kw: A.sharded_pool_paged_decode_attention(
+                q_, k_, v_, t_, l_, k_scale=ks_, v_scale=vs_, **kw),
+            (q, k8, v8, table, lengths, ks, vs), ("sh", "h", "h", "s", "s", "h", "h"), {}),
+    }
+
+    def block(t, how, slot, head, n_slot, n_head):
+        # "s": slots on dim 0; "h": heads on dim 2; "sh": both.
+        if "s" in how and n_slot > 1:
+            n = t.shape[0] // n_slot
+            t = t[slot * n:(slot + 1) * n]
+        if "h" in how and n_head > 1:
+            n = t.shape[2] // n_head
+            t = t[:, :, head * n:(head + 1) * n]
+        return t.contiguous()
+
+    rows = {}
+    for name, (fn, ops, hows, _) in cases.items():
+        kernel = name.split()[0]
+        whole_kw = {"mesh": mesh, "replicated": True}
+        with deterministic(torch):
+            whole = fn(*ops, **whole_kw)
+            torch.cuda.synchronize()
+        rec = {}
+        for layout, (n_slot, n_head) in (("head_shard", (1, SERVE_TP)),
+                                         ("slot_head_shard", (2, 2))):
+            kw = {"mesh": {"model": n_head} if n_slot == 1 else mesh,
+                  "data_axes": () if n_slot == 1 else ("data",), "model_axis": "model"}
+            shards = []
+            with deterministic(torch):
+                for r in range(n_slot * n_head):
+                    slot, head = divmod(r, n_head)
+                    args = [block(t, how, slot, head, n_slot, n_head) for t, how in zip(ops, hows)]
+                    out = fn(*args, **kw)
+                    torch.cuda.synchronize()
+                    want = block(whole, "sh", slot, head, n_slot, n_head)
+                    check(_same_bits(torch, out, want),
+                          f"served sharded: {name} {layout} rank {r} differs from the whole "
+                          f"call's block")
+                    shards.append(args)
+            # The busiest rank (the most live rows: the slot blocks differ).
+            rank_rows = [int((np.clip(a[3 if kernel == "paged_decode_attention" else 4]
+                                      .cpu().numpy(), 0, cap - 1) + 1).sum()) for a in shards]
+            busiest = int(np.argmax(rank_rows))
+            args0 = shards[busiest]
+            shard_ms = time_ms(torch, lambda: fn(*args0, **kw))
+            whole_ms = time_ms(torch, lambda: fn(*ops, **whole_kw))
+            q0 = args0[0]
+            live0 = rank_rows[busiest]
+            scales = name.endswith("int8")
+            nbytes, n_ops = _decode_work(q0, live0, args0[1].element_size(), scales=scales)
+            if kernel == "pool_paged_decode_attention":
+                nbytes += args0[3].numel() * 4
+            least, by = bound_ms(kernel, nbytes, n_ops)
+            library = None
+            if kernel == "paged_decode_attention":
+                library = time_ms(torch, _sdpa_decode(torch, *args0[:4]))
+            plain = (A.cached_attention if kernel == "paged_decode_attention"
+                     else A.pool_decode_attention)
+            plain_kw = {"k_scale": args0[5], "v_scale": args0[6]} if scales else {}
+            rec[layout] = {
+                "shape": f"q {list(q0.shape)} of [{b}, 1, {h}, {d}] bf16"
+                         + (", int8 rows" if scales else ""),
+                "ms": shard_ms, "whole_ms_over_tp": whole_ms / SERVE_TP, "whole_ms": whole_ms,
+                "plain_ms": time_ms(torch, lambda: plain(*args0[:5 if kernel.startswith("pool")
+                                                               else 4], **plain_kw), 5, 2),
+                "bound_ms": least, "bound_by": by, "library_ms": library,
+                "bit_identical_blocks": True, "rank": busiest, "rank_live_rows": live0,
+                "whole_live_rows": live}
+        rows[name] = rec
+        print(f"kernel {name} served sharded on its blocks: {json.dumps(rec)}", flush=True)
+    del q, k, v, kp, vp, k8, v8, ks, vs, table
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _channel_block_rows(torch, bc, g):
+    """K3 and K4 on each co / SERVE_TP block of every QuickNet-Large binary
+    conv shape (SECTIONS at batch 8; 32 convs a forward): each block
+    equal to the whole call's channels bit for bit; per forward, rank 0's
+    block ms beside the whole call's ms / SERVE_TP, its bound and its
+    library call (cuDNN's bf16 conv of the +-1 operands times the scale;
+    ``torch._int_mm``)."""
+    import torch.nn.functional as F
+
+    dev = torch.device("cuda")
+    keys = ("ms", "whole_ms", "plain_ms", "library_ms", "bytes", "ops")
+    totals = {name: dict.fromkeys(keys, 0.0) for name in ("conv_gemm_popcount",
+                                                          "packed_weight_matmul")}
+    for count, hw, c in SECTIONS:
+        n = c // SERVE_TP
+        x = _signs(torch, g, BATCH, hw, hw, c).to(torch.bfloat16).to(dev)
+        q = _signs(torch, g, 3, 3, c, c) * (torch.rand(c, generator=g) + 0.1)
+        packed, scale = (t.to(dev) for t in bc.pack_conv_kernel(q))
+        ciw = packed.shape[2]
+        xp, ho, wo = bc._spatial_pad(x, 3, 3, (1, 1), "SAME", 1.0)
+        xpc = F.pad(xp, (0, ciw * 32 - c), value=1.0)
+        xq = bc.pack_rows_plain(xpc.reshape(-1, ciw * 32).contiguous()).reshape(
+            *xpc.shape[:3], ciw)
+        k_true = 9 * c
+        m = BATCH * ho * wo
+        a = _signs(torch, g, m, k_true)
+        a[torch.rand(m, k_true, generator=g) < 0.05] = 0.0
+        a = a.to(torch.int8).to(dev)
+        bp = bc.pack_dense_kernel(_signs(torch, g, k_true, c))[0].to(dev)
+        kw = bp.shape[0]
+        x_nchw = xp.permute(0, 3, 1, 2)
+        w_oihw = (q.sign().permute(3, 2, 0, 1).to(torch.bfloat16).to(dev)
+                  .contiguous(memory_format=torch.channels_last))
+        calls = {
+            "conv_gemm_popcount": (
+                lambda p, s_: bc.conv_gemm_popcount(xq, p, s_, (1, 1), k_true),
+                lambda p, s_: bc.conv_gemm_popcount_plain(xq, p, s_, (1, 1), k_true),
+                lambda r: (packed[..., r * n:(r + 1) * n].contiguous(),
+                           scale[r * n:(r + 1) * n].contiguous()),
+                (packed, scale),
+                lambda: F.conv2d(x_nchw, w_oihw[:n], stride=1) * scale[:n, None, None],
+                xq.numel() * 4 + ciw * 9 * n * 4 + n * 4 + m * n * 4, 2 * m * n * k_true),
+            "packed_weight_matmul": (
+                lambda p, _: bc.packed_weight_matmul(a, p),
+                lambda p, _: bc.packed_weight_matmul_plain(a, p),
+                lambda r: (bp[:, r * n:(r + 1) * n].contiguous(), None), (bp, None),
+                _int_mm_yardstick(torch, m, 32 * kw, n, dev, g)[0],
+                m * k_true + kw * n * 4 + m * n * 4, 2 * m * n * k_true),
+        }
+        for name, (fn, plain, part, whole_args, library, nbytes, n_ops) in calls.items():
+            with deterministic(torch):
+                whole = fn(*whole_args)
+                for r in range(SERVE_TP):
+                    out = fn(*part(r))
+                    torch.cuda.synchronize()
+                    check(_same_bits(torch, out, whole[..., r * n:(r + 1) * n]),
+                          f"served sharded: {name} block {r} of {c} channels at {hw}x{hw} "
+                          "differs from the whole call's channels")
+            args0 = part(0)
+            t = totals[name]
+            t["ms"] += count * time_ms(torch, lambda: fn(*args0))
+            t["whole_ms"] += count * time_ms(torch, lambda: fn(*whole_args))
+            t["plain_ms"] += count * time_ms(torch, lambda: plain(*args0), 5, 2)
+            t["library_ms"] += count * time_ms(torch, library)
+            t["bytes"] += count * nbytes
+            t["ops"] += count * n_ops
+        del x, xp, xpc, xq, a, bp, packed, scale, x_nchw, w_oihw
+    rows = {}
+    for name, t in totals.items():
+        least, by = bound_ms(name, t["bytes"], t["ops"])
+        rows[name] = {"per": f"batch-{BATCH} QuickNet-Large forward, rank 0's co/{SERVE_TP} "
+                             "block of each of its 32 binary convs",
+                      "ms": t["ms"], "whole_ms_over_tp": t["whole_ms"] / SERVE_TP,
+                      "whole_ms": t["whole_ms"], "plain_ms": t["plain_ms"],
+                      "library_ms": t["library_ms"], "bound_ms": least, "bound_by": by,
+                      "bit_identical_blocks": True}
+        print(f"kernel {name} on channel blocks tp={SERVE_TP}: {json.dumps(rows[name])}",
+              flush=True)
+    torch.cuda.empty_cache()
+    return rows
+
+
+def served_sharded_phase(torch, bc, A, smi):
+    """Phase 21 (see the module docstring). Returns (each leg's launches
+    beside the no-group run's, the decode shard rows, the channel block
+    rows)."""
+    import shutil
+    import socket
+    import tempfile
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from zookeeper_tpu_torch.core import configure
+    from zookeeper_tpu_torch.parallel import distributed as D
+    from zookeeper_tpu_torch.parallel import rules as R
+    from zookeeper_tpu_torch.training.lm import TrainLM
+
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="zk-served-")
+    check(not D.is_distributed_initialized(), "served sharded: a group exists before the phase")
+    base_lm = {}
+    for label, layout in LM_RUNS:
+        tokens, launches, step_ms, cfg = _served_lm(torch, bc, A, layout)
+        base_lm[label] = (tokens, launches, step_ms)
+        if label == "slots":
+            base_step = _served_step(torch, cfg.engine, "lm no group slots")
+        del cfg
+    base_cnn = {}
+    for slice_label in ("A", "B"):
+        launches, logits, cfg = _served_cnn(torch, bc, A, slice_label, {})
+        base_cnn[slice_label] = (launches, logits)
+        del cfg
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    launcher = {"MASTER_ADDR": "localhost", "MASTER_PORT": str(port), "RANK": "0",
+                "WORLD_SIZE": "1", "LOCAL_RANK": "0"}
+    results = {}
+    with mock.patch.dict(os.environ, launcher):
+        D.initialize_distributed(device="cuda")
+        check(dist.get_backend() == "nccl" and dist.get_world_size() == 1,
+              "served sharded: no world-size-1 NCCL group")
+        for part_label, part, rules in SERVE_LM_LEGS:
+            for label, layout in LM_RUNS:
+                tokens, launches, step_ms, cfg = _served_lm(torch, bc, A, {**layout, **part},
+                                                            rules)
+                want_tokens, want_launches, want_ms = base_lm[label]
+                shard = cfg.engine.decode_shard
+                check(shard is not None and not shard.replicated,
+                      f"served sharded: lm {part_label} {label} holds no cache block")
+                check(all(np.array_equal(a, b) for a, b in zip(tokens, want_tokens)),
+                      f"served sharded: lm {part_label} {label} tokens differ from the run "
+                      "with no group")
+                check(launches == want_launches,
+                      f"served sharded: lm {part_label} {label} launched {launches}, the run "
+                      f"with no group {want_launches}")
+                tp_blocks = sum(b._tp_attn is not None for b in cfg.engine._module.blocks)
+                step = (_served_step(torch, cfg.engine, f"lm {part_label} {label}")
+                        if label == "slots" else None)
+                rec = {"launches": launches, "decode_step_ms": step_ms,
+                       "no_group_decode_step_ms": want_ms, "tp_blocks": tp_blocks,
+                       **({"step": step, "no_group_step": base_step} if step else {}),
+                       "gathered_params": (0 if cfg.engine._plan is None
+                                           else len(cfg.engine._plan.gathered)),
+                       "kv_bytes": cfg.engine.kv_cache_nbytes}
+                results[f"lm {part_label} {label}"] = rec
+                print(f"served sharded: lm {part_label} {label} on the world-size-1 "
+                      f"{dist.get_backend()} group equals the run with no group bit for bit "
+                      f"on {smi}: {json.dumps(rec)}", flush=True)
+                del cfg
+        for leg_label, slice_label, part, rules in SERVE_CNN_LEGS:
+            launches, logits, cfg = _served_cnn(torch, bc, A, slice_label, part, rules)
+            want_launches, want_logits = base_cnn[slice_label]
+            check(_same_bits(torch, logits, want_logits),
+                  f"served sharded: slice {slice_label} {leg_label} logits differ from the "
+                  "run with no group")
+            check(launches == want_launches,
+                  f"served sharded: slice {slice_label} {leg_label} launched {launches}, the "
+                  f"run with no group {want_launches}")
+            tp_layers = sum(getattr(m, "_tp", None) is not None
+                            for m in cfg.engine._module.modules())
+            rec = {"launches": launches, "tp_layers": tp_layers}
+            results[f"cnn {leg_label}"] = rec
+            print(f"served sharded: slice {slice_label} under {leg_label} equals the run with "
+                  f"no group bit for bit: {json.dumps(rec)}", flush=True)
+            del cfg
+        # Train under TP, save, serve the export under TP.
+        export = os.path.join(tmp, "lm_export")
+        exp = TrainLM()
+        configure(exp, {**PARALLEL_CONFIG, **_TP_MESH, "steps_per_epoch": 2,
+                        "export_model_to": export}, name="experiment")
+        exp.partitioner.with_rules(R.transformer_tp_rules())
+        _reset_all(bc, A)
+        with deterministic(torch):
+            exp.run()
+        check(os.path.exists(os.path.join(export, "model.pt")),
+              "served sharded: TrainLM under TP wrote no export")
+        ckpt_tokens, ckpt_launches, _, cfg = _served_lm(
+            torch, bc, A, {**_TP_MESH, "checkpoint": export}, "transformer_tp_rules")
+        del exp, cfg
+        D.shutdown_distributed()
+        check(not D.is_distributed_initialized(), "served sharded: the group outlived the phase")
+    plain_tokens, plain_launches, _, cfg = _served_lm(torch, bc, A, {"checkpoint": export})
+    check(all(np.array_equal(a, b) for a, b in zip(ckpt_tokens, plain_tokens))
+          and ckpt_launches == plain_launches,
+          "served sharded: the TP-trained checkpoint served under TP differs from serving it "
+          "with no group")
+    results["lm tp checkpoint"] = {"launches": ckpt_launches}
+    print(f"served sharded: TrainLM 2 steps under TP -> export -> LMServingConfig under TP "
+          f"equals serving the export with no group bit for bit ({sum(map(len, plain_tokens))} "
+          f"tokens, launches {json.dumps(ckpt_launches)})", flush=True)
+    del cfg
+    shutil.rmtree(tmp, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    g = torch.Generator(device=torch.device("cuda")).manual_seed(21)
+    decode_rows = _decode_shard_rows(torch, A, g)
+    channel_rows = _channel_block_rows(torch, bc, torch.Generator().manual_seed(21))
+    print(f"served sharded: phase 21 in {time.perf_counter() - t0:.1f} s", flush=True)
+    results["no_group"] = {label: base_lm[label][1] for label in base_lm}
+    results["no_group"].update({f"slice {k}": v[0] for k, v in base_cnn.items()})
+    return results, decode_rows, channel_rows
+
+
 def main() -> None:
     if not os.path.isdir(os.path.join(ROOT, "zookeeper_tpu_torch", "csrc")):
         fail("run from a checkout: zookeeper_tpu_torch/ is not beside this script")
@@ -5506,6 +5933,39 @@ def main() -> None:
     elapsed("parallel")
     sharded, launches_composed, head_rows = sharded_phase(torch, bc, A, smi)
     elapsed("sharded")
+    served, decode_shard_rows, channel_rows = served_sharded_phase(torch, bc, A, smi)
+    elapsed("served sharded")
+    served_rows = {}
+    for name in ("pack_rows", "conv_gemm_popcount", "packed_weight_matmul", *LM_KERNELS):
+        lm = name in LM_KERNELS
+        served_rows[name] = {
+            "path": ("LMServingConfig (phase 10's model, 4 requests x 8 tokens) under "
+                     "FsdpPartitioner, a (1, 1) data x model MeshPartitioner and "
+                     "SequenceParallelPartitioner sp=1 tp=1, and a TP-trained export under TP"
+                     if lm else "ServingConfig slices A and B (4 requests) under "
+                     "DataParallelPartitioner and a (1, 1) MeshPartitioner with "
+                     "conv_model_tp_rules")
+                    + " on a world-size-1 NCCL group (bit identical to no group); "
+                    f"tp={SERVE_TP} composed in one process",
+            "launches": {label: r["launches"].get(name, 0) for label, r in served.items()
+                         if label != "no_group" and label.startswith("lm" if lm else "cnn")},
+            "no_group_launches": {label: n.get(name, 0)
+                                  for label, n in served["no_group"].items()},
+        }
+        if name in channel_rows:
+            served_rows[name]["channel_block"] = channel_rows[name]
+        for key, rec in decode_shard_rows.items():
+            if key.split()[0] == name:
+                served_rows[name]["int8" if key.endswith("int8") else "bf16"] = rec
+        if lm and name != "flash_forward":
+            # Each run's median decode step wall ms beside the no-group
+            # run's, and (slot layout) 20 steps at 1000 rows after it.
+            served_rows[name]["decode_step_ms"] = {
+                label: [r["decode_step_ms"], r["no_group_decode_step_ms"]]
+                for label, r in served.items() if label.startswith("lm") and "decode_step_ms" in r}
+            served_rows[name]["decode_step_1000_rows"] = {
+                label: [r["step"], r["no_group_step"]]
+                for label, r in served.items() if "step" in r}
     sharded_rows = {}
     for name in (*RESID_KERNELS, *LM_TRAIN_KERNELS):
         task = "imagenet" if name in RESID_KERNELS else "lm"
@@ -5631,6 +6091,8 @@ def main() -> None:
             rows[-1]["unroll"] = unroll_rows[name]
         if name in sharded_rows:
             rows[-1]["sharded"] = sharded_rows[name]
+        if name in served_rows:
+            rows[-1]["served_sharded"] = served_rows[name]
         if name in ("mask_mul_resid", "xnor_matmul_packed_scaled"):
             # K8 has no work on Bi-Real's step; K2 runs in XNORNet's dense stage.
             rows[-1]["zoo_launches"] = (launches_bt[name] if name == "mask_mul_resid"
@@ -5675,6 +6137,7 @@ def main() -> None:
             # The paged-int8 run's mid-run step, per decode step.
             rows[-1]["int8_ms"] = LM_LAYERS * int8["ms"]
             rows[-1]["int8_bound_ms"] = LM_LAYERS * int8["bound_ms"]
+        rows[-1]["served_sharded"] = served_rows[name]
     # LM training kernels, per training step: 4 launches each (one per
     # layer) at the full-width shape.
     label = "[{}, {}, {}, {}] bfloat16 causal=True".format(*LM_TRAIN_SHAPE)

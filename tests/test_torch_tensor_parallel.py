@@ -18,7 +18,8 @@
   rows of its heads, and its checkpoint file holds the global tensors,
   ``qkv`` in JAX's order.
 - A layer whose heads do not divide the model axis computes whole on
-  gathered weights; decoding a tensor-parallel block raises; the plan's
+  gathered weights; a tensor-parallel block at one rank decodes equal to
+  the whole block; the plan's
   blocks round-trip the head-aligned layout; each partitioner's
   ``decode_cache_axes`` is JAX's.
 """
@@ -29,6 +30,7 @@ import pytest
 import torch
 
 import torch_parallel_workers as workers
+import torch_serving_workers as serving_workers
 import torch_shard_workers as shard_workers
 from test_torch_fsdp import _flat, _jax_numpy_state, _numpy_tree
 from zookeeper_tpu.core import configure as jax_configure
@@ -217,12 +219,14 @@ def test_plan_blocks_round_trip_the_head_aligned_layout():
     assert torch.equal(block, torch.cat([full[8:16], full[24:32], full[40:48]]))
 
 
-def test_tensor_parallel_fallbacks_and_decode():
+def test_tensor_parallel_fallbacks_and_decode(tmp_path):
     """Three heads do not divide two ranks: the block keeps no model group
-    (its weights are gathered on use); a block that has one refuses to
-    decode."""
+    (its weights are gathered on use). A block that has one decodes: on a
+    one-rank gloo group, every block of an LM handed its model group by
+    the plan gives the decode step's logits and cache rows of the whole
+    block bit for bit."""
     from zookeeper_tpu_torch.parallel import transformer_tp_rules
-    from zookeeper_tpu_torch.parallel.shards import TensorParallel, plan_state
+    from zookeeper_tpu_torch.parallel.shards import plan_state
 
     model = TransformerLM()
     port_configure(model, {"num_layers": 1, "d_model": 24, "num_heads": 3}, name="model")
@@ -236,10 +240,22 @@ def test_tensor_parallel_fallbacks_and_decode():
     assert module.block0._tp_attn is None and module.block0._tp_mlp is not None
     assert not plan.layouts["block0.qkv.weight"].local
     assert plan.gathered == ["block0.qkv.weight", "block0.proj.weight"]
-    module.block0._tp_attn = TensorParallel(None, 0, 1)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        module.decode_step(torch.zeros(1, dtype=torch.long), torch.zeros(1, dtype=torch.int32),
-                           [{"k": torch.zeros(1, 8, 3, 8), "v": torch.zeros(1, 8, 3, 8)}])
+    geometry = {"num_layers": 2, "d_model": 32, "num_heads": 4, "max_seq_len": 16}
+    lm = TransformerLM()
+    port_configure(lm, dict(geometry), name="model")
+    whole = lm.build((16,), 11)
+    lm.initialize(whole, seed=0)
+    state = whole.state_dict()
+    tokens = np.array([3, 7, 1], np.int32)
+    lengths = np.array([0, 5, 15], np.int32)
+    workers.spawn(serving_workers.tp_block_decode, 1, str(tmp_path), (geometry, 11, state),
+                  tokens, lengths, timeout=120)
+    (got,) = workers.load(str(tmp_path), "tp_block", 1)
+    assert got["groups"] == [(True, True), (True, True)]
+    assert torch.equal(got["tp"][0], got["whole"][0])
+    for tp_layer, whole_layer in zip(got["tp"][1], got["whole"][1]):
+        for name in ("k", "v"):
+            assert torch.equal(tp_layer[name], whole_layer[name]), name
 
 
 @pytest.mark.parametrize("name,conf", [

@@ -40,8 +40,21 @@ matching input columns of ``proj``; it attends over its own heads only
 and sums the members' ``proj`` outputs (one all-reduce, in float32). Its
 MLP (``_tp_mlp``) is the same over the ``up`` rows and ``down`` columns.
 A block whose heads or hidden units do not divide the group computes
-whole on gathered weights. Decoding under a model group is not ported
-(serving under partitioners, ROADMAP.md) and raises.
+whole on gathered weights.
+
+Serving under a partitioner (``serving.decode.engine``, with a
+``parallel.shards.DecodeShard``): a block's heads lie as its weights
+give them (its own heads under ``_tp_attn``, else all) and the cache's
+as the engine placed it (its own heads over the model axis, else all);
+:func:`relay_heads` moves q/k/v to the cache's layout (a slice, or an
+all-gather over the model group) and the attention output back to the
+``proj`` input's, so K12/K13 run on the cache's heads and the
+row-parallel ``proj``/``down`` partials are summed in float32 as in
+training: the logits are the same on every model rank. Under a data
+split each rank decodes its own slots; a page pool, which every data
+rank holds whole, takes every slot's new rows (gathered over the data
+group) so its copies stay equal. ``prefill`` under a model group
+returns each layer's K/V for the rank's heads only.
 The speculative ``decode_verify`` paths are not ported yet (ROADMAP.md).
 """
 
@@ -56,7 +69,11 @@ from zookeeper_tpu_torch.core import Field, component
 from zookeeper_tpu_torch.models.base import Model
 from zookeeper_tpu_torch.ops import attention as attn_ops
 from zookeeper_tpu_torch.ops.quantizers import quantize_kv_rows
-from zookeeper_tpu_torch.parallel.shards import copy_to_model, reduce_from_model
+from zookeeper_tpu_torch.parallel.shards import (
+    all_gather_stack,
+    copy_to_model,
+    reduce_from_model,
+)
 
 #: Full-context attention tiers, by the name of their ``ops.attention``
 #: function.
@@ -142,6 +159,28 @@ def _summed(partial: torch.Tensor, tp) -> torch.Tensor:
     return partial if tp is None else reduce_from_model(partial, tp)
 
 
+def relay_heads(t: torch.Tensor, have, want) -> torch.Tensor:
+    """``t [..., heads, head_dim]`` whose heads lie as ``have`` (a
+    ``TensorParallel``: this rank's block of the model group; None: every
+    head) laid out as ``want``: a slice of this rank's heads, an all-gather
+    of the group's heads (in group order), or ``t`` itself. Exact either
+    way."""
+    if have is None and want is None:
+        return t
+    if have is not None and want is not None:
+        if (have.size, have.index) != (want.size, want.index):
+            raise ValueError(
+                f"heads split {have.size} ways (index {have.index}) cannot be relaid as "
+                f"{want.size} ways (index {want.index})."
+            )
+        return t
+    if have is None:
+        n = t.shape[-2] // want.size
+        return t.narrow(-2, want.index * n, n)
+    stacked = all_gather_stack(t, have.group, have.size)  # [size, ..., n, d]
+    return stacked.movedim(0, -3).reshape(*t.shape[:-2], have.size * t.shape[-2], t.shape[-1])
+
+
 class _Block(nn.Module):
     """One pre-norm decoder block; its submodules carry the flax names.
     ``_tp_attn``/``_tp_mlp``: the model groups of its tensor-parallel
@@ -215,39 +254,57 @@ class _Block(nn.Module):
         out = self._mlp(x + _summed(self.attention_partial(x, attention, kv), self._tp_attn))
         return (out, tuple(kv)) if return_kv else out
 
-    def _check_decode(self) -> None:
-        if self._tp_attn is not None or self._tp_mlp is not None:
-            raise NotImplementedError(
-                "Decoding a tensor-parallel block (serving under partitioners) is not in "
-                "the PyTorch port yet; it is queued in ROADMAP.md (Queue 1 item 3)."
-            )
+    def _decode_heads(self, x, shard):
+        """q, k, v of one decode step in the cache's head layout."""
+        cache = None if shard is None else shard.heads
+        return (relay_heads(t, self._tp_attn, cache) for t in self._heads(x, self._tp_attn))
 
-    def decode(self, x, k_cache, v_cache, lengths):
-        """One cached step: write the new K/V at ``clamp(lengths, 0,
-        capacity - 1)`` in place, attend rows ``0..lengths`` (K12)."""
-        self._check_decode()
+    def _decode_out(self, x, o, shard):
+        """The block's output from the attention output ``o [b, 1, heads,
+        head_dim]`` in the cache's head layout: back to the ``proj``
+        input's heads, the row-parallel partials summed."""
         b = x.shape[0]
-        q, k, v = self._heads(x)
+        o = relay_heads(o, None if shard is None else shard.heads, self._tp_attn)
+        return self._mlp(x + _summed(self.proj(o.reshape(b, 1, -1)), self._tp_attn))
+
+    def decode(self, x, k_cache, v_cache, lengths, shard=None):
+        """One cached step: write the new K/V at ``clamp(lengths, 0,
+        capacity - 1)`` in place, attend rows ``0..lengths`` (K12; the
+        sharded wrapper on this rank's block under a ``shard``)."""
+        b = x.shape[0]
+        q, k, v = self._decode_heads(x, shard)
         write = lengths.long().clamp(0, k_cache.shape[1] - 1)
         slots = torch.arange(b, device=x.device)
         k_cache[slots, write] = k[:, 0]
         v_cache[slots, write] = v[:, 0]
-        o = attn_ops.paged_decode_attention(q, k_cache, v_cache, lengths)
-        return self._mlp(x + self.proj(o.reshape(b, 1, self.d_model)))
+        if shard is None:
+            o = attn_ops.paged_decode_attention(q, k_cache, v_cache, lengths)
+        else:
+            o = attn_ops.sharded_paged_decode_attention(q, k_cache, v_cache, lengths,
+                                                        **shard.attention_kwargs())
+        return self._decode_out(x, o, shard)
 
-    def decode_paged(self, x, layer, page_table, lengths, write):
+    def decode_paged(self, x, layer, page_table, lengths, write, shard=None):
         """The page-pool twin of :meth:`decode` (K13): ``write = (slots,
         pages, offsets)`` names the slots whose new K/V row lands in the
-        pool and where (the others drop it)."""
-        self._check_decode()
-        b = x.shape[0]
-        q, k, v = self._heads(x)
+        pool and where (the others drop it); under a ``shard`` with a data
+        split the slots are global and every data rank's rows are gathered
+        first."""
+        q, k, v = self._decode_heads(x, shard)
         slots, pages, offsets = write
-        _pool_store(layer, {"k": k[slots, 0], "v": v[slots, 0]}, pages, offsets)
-        o = attn_ops.pool_paged_decode_attention(
-            q, layer["k"], layer["v"], page_table, lengths,
-            k_scale=layer.get("k_scale"), v_scale=layer.get("v_scale"))
-        return self._mlp(x + self.proj(o.reshape(b, 1, self.d_model)))
+        rows = {"k": k[:, 0], "v": v[:, 0]}
+        if shard is not None:
+            rows = {name: shard.gather_slots(r) for name, r in rows.items()}
+        _pool_store(layer, {name: r[slots] for name, r in rows.items()}, pages, offsets)
+        scales = {"k_scale": layer.get("k_scale"), "v_scale": layer.get("v_scale")}
+        if shard is None:
+            o = attn_ops.pool_paged_decode_attention(q, layer["k"], layer["v"], page_table,
+                                                     lengths, **scales)
+        else:
+            o = attn_ops.sharded_pool_paged_decode_attention(
+                q, layer["k"], layer["v"], page_table, lengths, **scales,
+                **shard.attention_kwargs())
+        return self._decode_out(x, o, shard)
 
 
 class TransformerLMModule(nn.Module):
@@ -342,38 +399,44 @@ class TransformerLMModule(nn.Module):
         return x[:, None, :]
 
     def decode_step(self, tokens: torch.Tensor, lengths: torch.Tensor,
-                    cache: Sequence[Dict[str, torch.Tensor]]):
+                    cache: Sequence[Dict[str, torch.Tensor]], shard=None):
         """One token per sequence: ``tokens [b]`` sit at positions
         ``lengths [b]`` (int32); ``cache`` a per-layer tuple of ``{"k",
         "v"}`` buffers ``[b, capacity, heads, head_dim]``, written in
-        place. Returns ``(logits [b, vocab], cache)``."""
+        place. Returns ``(logits [b, vocab], cache)``. Under a ``shard``
+        (``parallel.shards.DecodeShard``) the tokens, lengths and cache are
+        this rank's block (see the module docstring)."""
         x = self._step_input(tokens, lengths, cache)
         for block, layer in zip(self.blocks, cache):
-            x = block.decode(x, layer["k"], layer["v"], lengths)
+            x = block.decode(x, layer["k"], layer["v"], lengths, shard)
         return self._logits(x)[:, 0], tuple(cache)
 
     def decode_step_paged(self, tokens: torch.Tensor, lengths: torch.Tensor,
                           cache: Sequence[Dict[str, torch.Tensor]],
-                          page_table: torch.Tensor):
+                          page_table: torch.Tensor, shard=None, write=None):
         """:meth:`decode_step` over a shared page pool: ``cache`` a
         per-layer tuple of pool dicts (``k``/``v`` ``[pages, page_size,
         heads, head_dim]``, plus ``k_scale``/``v_scale`` for int8 pools),
         ``page_table [b, max_pages]`` int32. The new row lands at
         ``(page_table[b, lengths // page_size], lengths % page_size)``;
-        an unallocated entry or a length past the table drops it."""
+        an unallocated entry or a length past the table drops it. Under a
+        ``shard`` whose slots split over the data axes, ``write = (slots,
+        pages, offsets)`` is the write of every global slot (the engine
+        computes it from the whole table)."""
         x = self._step_input(tokens, lengths, cache)
-        num_pages, ps = cache[0]["k"].shape[:2]
-        max_pages = page_table.shape[1]
-        lens = lengths.long()
-        row = (lens // ps).clamp(0, max_pages - 1)
-        page = page_table.long().gather(1, row[:, None])[:, 0]
-        live = (page >= 0) & (lens < max_pages * ps)
-        # The slots whose write lands, found once for every layer (one
-        # readback of the mask, not one per layer).
-        slots = live.nonzero()[:, 0]
-        write = (slots, page[slots], (lens % ps)[slots])
+        if write is None:
+            num_pages, ps = cache[0]["k"].shape[:2]
+            max_pages = page_table.shape[1]
+            lens = lengths.long()
+            row = (lens // ps).clamp(0, max_pages - 1)
+            page = page_table.long().gather(1, row[:, None])[:, 0]
+            live = (page >= 0) & (lens < max_pages * ps)
+            # The slots whose write lands, found once for every layer (one
+            # readback of the mask, not one per layer).
+            slots = live.nonzero()[:, 0]
+            write = (slots, page[slots], (lens % ps)[slots])
         for block, layer in zip(self.blocks, cache):
-            x = block.decode_paged(x, layer, page_table, lengths, write)
+            x = block.decode_paged(x, layer, page_table, lengths, write, shard)
         return self._logits(x)[:, 0], tuple(cache)
 
 

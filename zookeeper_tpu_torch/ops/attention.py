@@ -46,6 +46,10 @@ PyTorch version beside it:
   per-(row, head) scales; each (slot, head)'s rows split over blocks
   (:func:`decode_variant`). Plain version: :func:`pool_decode_attention`.
 
+The sharded decode path (:func:`sharded_paged_decode_attention`,
+:func:`sharded_pool_paged_decode_attention`): K12 or K13 on this rank's
+(slots, heads) block, zero collectives.
+
 Sequence parallelism across ranks (the JAX package's shard_map
 programs, each rank holding its sequence shard): :func:`ring_attention`
 (dense blocks), :func:`ring_flash_attention` (:func:`ring_flash_step`
@@ -849,6 +853,92 @@ def pool_paged_decode_attention(
     )
     LAUNCHES["pool_paged_decode_attention"] += 1
     return out
+
+
+# -- the sharded decode path ------------------------------------------------
+#
+# Decode attention is elementwise over slots and heads, so a rank that
+# holds its (slots, heads) block of q, the lengths and the cache (or its
+# heads of the pool and its slots' rows of the table) computes exactly its
+# block of the whole call's output with zero collectives: the JAX
+# package's shard_map local function. Here each rank already holds its
+# blocks (the decode engine allocates them, ``parallel.shards.
+# DecodeShard``), so the wrappers check the layout and run K12 or K13 on
+# them. The kernels are looked up at call time.
+
+
+def _mesh_axes(mesh) -> Tuple[str, ...]:
+    """The axis names of a ``DeviceMesh`` or a ``{axis: size}`` mapping."""
+    if isinstance(mesh, dict):
+        return tuple(mesh)
+    return tuple(getattr(mesh, "mesh_dim_names", None) or ())
+
+
+def _check_decode_axes(what: str, mesh, data_axes, model_axis, replicated: bool) -> None:
+    if mesh is None:
+        raise ValueError(f"{what}: the sharded decode path needs the mesh.")
+    if replicated:
+        return
+    names = _mesh_axes(mesh)
+    unknown = [a for a in (*tuple(data_axes), *((model_axis,) if model_axis else ()))
+               if a not in names]
+    _require(not unknown, what, f"axes {unknown} are not mesh axes {names}")
+
+
+def sharded_paged_decode_attention(
+    q: torch.Tensor,
+    k_cache: torch.Tensor,
+    v_cache: torch.Tensor,
+    lengths: torch.Tensor,
+    *,
+    mesh,
+    data_axes=("data",),
+    model_axis: Optional[str] = None,
+    replicated: bool = False,
+    **kernel_kwargs,
+) -> torch.Tensor:
+    """:func:`paged_decode_attention` (K12) on this rank's block: ``q
+    [slots / data, 1, heads / model, d]``, the cache ``[slots / data,
+    capacity, heads / model, d]`` and ``lengths [slots / data]``, the
+    layout ``parallel.rules.decode_cache_rules(data_axes, model_axis)``
+    gives the cache (slots over ``data_axes``, heads over ``model_axis``).
+    Returns this rank's block of the output, with zero collectives.
+    ``replicated=True`` is the engine's indivisible-geometry fallback:
+    every rank holds and runs the whole call. ``mesh`` is the
+    ``DeviceMesh`` (or a ``{axis: size}`` mapping, to compose ranks in
+    one process)."""
+    what = "sharded_paged_decode_attention"
+    _check_decode_axes(what, mesh, data_axes, model_axis, replicated)
+    return paged_decode_attention(q, k_cache, v_cache, lengths, **kernel_kwargs)
+
+
+def sharded_pool_paged_decode_attention(
+    q: torch.Tensor,
+    k_pool: torch.Tensor,
+    v_pool: torch.Tensor,
+    page_table: torch.Tensor,
+    lengths: torch.Tensor,
+    *,
+    mesh,
+    data_axes=("data",),
+    model_axis: Optional[str] = None,
+    replicated: bool = False,
+    k_scale: Optional[torch.Tensor] = None,
+    v_scale: Optional[torch.Tensor] = None,
+    **kernel_kwargs,
+) -> torch.Tensor:
+    """:func:`pool_paged_decode_attention` (K13) on this rank's block. A
+    pool differs from a slot cache in one way: any slot may read any page,
+    so the pages never split; the pools ``[pages, page_size, heads /
+    model, d]`` and their int8 scales ``[pages, page_size, heads / model]``
+    split on heads only, while q, ``page_table [slots / data, max_pages]``
+    and ``lengths`` split on slots (``parallel.rules.page_pool_rules``).
+    Zero collectives; ``replicated=True`` runs the whole call on every
+    rank."""
+    what = "sharded_pool_paged_decode_attention"
+    _check_decode_axes(what, mesh, data_axes, model_axis, replicated)
+    return pool_paged_decode_attention(q, k_pool, v_pool, page_table, lengths,
+                                       k_scale=k_scale, v_scale=v_scale, **kernel_kwargs)
 
 
 # -- sequence parallelism across ranks: ring, ring-flash, Ulysses -----------

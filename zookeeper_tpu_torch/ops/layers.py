@@ -21,7 +21,9 @@ others holds them under their flax scope names (``QuantConv_0``).
 its input width (``in_features``) at construction.
 
 Tensor parallelism (``parallel.shards``): ``Conv``, ``Dense``,
-``QuantConv``, ``QuantDense`` and ``BatchNorm`` name the layouts they can
+``QuantConv``, ``QuantDense`` (latent or packed: ``kernel_packed`` and
+``kernel_scale`` split on ``co``/``N``, run through K3/K4 or K2/K5 on the
+block, with the block of a bias the rules leave whole) and ``BatchNorm`` name the layouts they can
 compute on (``tensor_parallel_forms``: every tensor of the layer split
 on its output features over one model axis). A layer the partitioner
 handed its model group (``_tp``) holds only its output-feature shard;
@@ -212,6 +214,25 @@ def _output_forms(layer: nn.Module, weight: str, dim: int, ok: bool):
     if getattr(layer, "bias", None) is not None:
         leaves["bias"] = (0, 1)
     return [("_tp", leaves, lambda size: ok)]
+
+
+def _packed_forms(layer: nn.Module, dim: int):
+    """The output-feature form of a packed layer: ``kernel_packed`` split
+    on ``dim`` and ``kernel_scale`` on its only dim. A packed kernel's
+    output features are independent integer sums, so a block computes its
+    slice of the whole layer's output exactly. The bias (a folded BN's
+    shift) is not part of the form: the rules may leave it whole (JAX's
+    ``conv_model_tp_rules`` name no conv bias), and the layer adds its
+    block of it (:func:`_block_bias`)."""
+    return [("_tp", {"kernel_packed": (dim, 1), "kernel_scale": (0, 1)}, lambda size: True)]
+
+
+def _block_bias(bias: torch.Tensor, tp, features: int) -> torch.Tensor:
+    """The bias of a block of ``features`` output channels: this rank's
+    block of a whole bias (itself when it is the block's already)."""
+    if tp is None or bias.shape[-1] == features:
+        return bias
+    return bias.narrow(-1, tp.index * features, features)
 
 
 def kernel_param_name(kernel_quantizer: Quantizer) -> str:
@@ -589,7 +610,9 @@ class QuantDense(_QuantLayer):
 
     def tensor_parallel_forms(self):
         if self.packed_weights:
-            return []
+            # ``kernel_packed`` [ceil(K/32), N] and ``kernel_scale`` [N]
+            # on N: K2 (or K5) computes the block's columns.
+            return _packed_forms(self, 1)
         return _output_forms(self, self.latent_name, 1, self.channelwise)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -620,7 +643,7 @@ class QuantDense(_QuantLayer):
                 y = xnor_dense(x, kernel, mode == "xnor_popcount", self.binary_flavor)
         y = y.to(self.dtype)
         if self.bias is not None:
-            y = y + self.bias.to(self.dtype)
+            y = y + _block_bias(self.bias, self._tp, y.shape[-1]).to(self.dtype)
         return _tp_output(y, self._tp)
 
 
@@ -771,7 +794,9 @@ class QuantConv(_QuantLayer):
 
     def tensor_parallel_forms(self):
         if self.packed_weights:
-            return []
+            # ``kernel_packed`` [kh, kw, ci_words, co] and ``kernel_scale``
+            # [co] on co: K3 (or K4) computes the block's channels.
+            return _packed_forms(self, 3)
         return _output_forms(self, self.latent_name, 3, self.channelwise and self.groups == 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -802,7 +827,7 @@ class QuantConv(_QuantLayer):
                               mode == "xnor_popcount", self.binary_flavor)
         y = y.to(self.dtype)
         if self.bias is not None:
-            y = y + self.bias.to(self.dtype)
+            y = y + _block_bias(self.bias, self._tp, y.shape[-1]).to(self.dtype)
         return _tp_output(y, self._tp)
 
 

@@ -22,6 +22,7 @@ from zookeeper_tpu_torch.parallel.distributed import (
 from zookeeper_tpu_torch.parallel.partitioner import (
     BatchSlice,
     DataParallelPartitioner,
+    ForwardPlan,
     FsdpPartitioner,
     MeshPartitioner,
     Partitioner,
@@ -55,6 +56,7 @@ __all__ = [
     "decode_cache_rules",
     "DataParallelPartitioner",
     "DistributedRuntime",
+    "ForwardPlan",
     "FsdpPartitioner",
     "MeshPartitioner",
     "PartitionRule",

@@ -126,6 +126,51 @@ def initialize_distributed(
         raise ValueError(f"device={device!r}: expected cuda or cpu.")
 
 
+def check_same_dispatch(values, what: str) -> None:
+    """The collective dispatch guard of the serving engines under a
+    partitioner that spans several ranks: every rank runs its own
+    scheduler, and a collective forward needs every rank to make the same
+    dispatch. The ranks all-gather ``values`` (small ints: kind, bucket,
+    rows, a checksum of the slots) and raise on any difference, so a
+    divergence is an error, not a hang in the next collective."""
+    device = (torch.device("cuda", torch.cuda.current_device())
+              if dist.get_backend() == "nccl" else torch.device("cpu"))
+    mine = torch.tensor([int(v) for v in values], dtype=torch.int64, device=device)
+    seen = torch.empty((world_size(), mine.numel()), dtype=torch.int64, device=device)
+    dist.all_gather_into_tensor(seen.view(-1), mine)
+    rows = seen.cpu().tolist()
+    if any(r != rows[0] for r in rows):
+        raise RuntimeError(
+            f"{what}: the ranks' dispatches differ ({rows}): every rank must make the "
+            "same dispatches (run the same synchronous scheduler on the same request "
+            "stream)."
+        )
+
+
+def dispatch_checksum(*arrays) -> int:
+    """A checksum of small int arrays (slot ids, lengths) for
+    :func:`check_same_dispatch`."""
+    total = 0
+    for i, a in enumerate(arrays):
+        for j, v in enumerate(a):
+            total = (total * 1000003 + (i + 1) * (j + 7) * (int(v) + 11)) % (1 << 61)
+    return total
+
+
+def refuse_clock_driven(engine, what: str) -> None:
+    """Raise for a clock-driven serving mode in front of a collective
+    ``engine`` (one whose partitioner spans several ranks): a threaded
+    scheduler or batcher, or a request deadline, decides by each rank's
+    own clock, so the ranks' dispatches would diverge."""
+    if getattr(engine, "collective", False):
+        raise ValueError(
+            f"{what} decides by each rank's own clock, so at world size "
+            f"{world_size()} the ranks' dispatches would diverge; serve with "
+            "synchronous=True and no deadlines (a chief-led dispatch is queued in "
+            "ROADMAP.md)."
+        )
+
+
 def shutdown_distributed() -> None:
     """Leave the process group, when there is one."""
     if is_distributed_initialized():

@@ -29,6 +29,17 @@ coordinate holds alike are averaged over those ranks (the replica
 group, ``ReplicaGroup``). Without a process group (no launcher, world
 size 1) there is no mesh, no shard and no collective, so a single-card
 run is the run it was before partitioners existed, to the bit.
+
+Serving takes the layout a model trained with, as JAX's partitioners
+promise it: ``variables_sharding``, ``decode_cache_sharding`` and
+``page_pool_sharding`` give the specs of an inference variables tree,
+a KV cache and a page pool (flax paths, as ``state_sharding``);
+``plan_variables`` shards a served module by the training rules
+(``parallel.shards.plan_inference``); and ``compile_forward`` is the
+per-bucket plan of JAX's compiled forward (:class:`ForwardPlan`): a
+bucket whose rows divide the data-axis product runs each rank on its
+share of the rows, any other runs replicated. PyTorch compiles nothing,
+so the plan is what the engine consults for each dispatch.
 """
 
 import contextlib
@@ -40,7 +51,13 @@ import torch.distributed as dist
 
 from zookeeper_tpu_torch.core import Field, component
 from zookeeper_tpu_torch.parallel import distributed
-from zookeeper_tpu_torch.parallel.rules import PartitionRule, spec_for
+from zookeeper_tpu_torch.parallel.rules import (
+    PartitionRule,
+    decode_cache_rules,
+    match_partition_rules,
+    page_pool_rules,
+    spec_for,
+)
 from zookeeper_tpu_torch.parallel.shards import MeshGroups, plan_state
 
 
@@ -56,6 +73,51 @@ class BatchSlice:
     data_count: int
     seq_index: int = 0
     seq_count: int = 1
+
+
+@dataclass(frozen=True)
+class ForwardPlan:
+    """One batch bucket's inference forward on this rank (JAX's
+    ``compile_forward``): ``rows`` the bucket; ``split`` whether each rank
+    of the data group (``group``, ``count`` ranks, this one ``index``) runs
+    its ``rows / count`` rows, the outputs then gathered over the group;
+    otherwise every rank runs the whole bucket. ``scope`` is the
+    activation scope a split bucket runs in (None for none)."""
+
+    rows: int
+    split: bool = False
+    index: int = 0
+    count: int = 1
+    group: Any = None
+    scope: Optional[Tuple[Any, Tuple[str, ...], Tuple[str, ...]]] = None
+
+    @property
+    def local_rows(self) -> int:
+        return self.rows // self.count if self.split else self.rows
+
+    def take(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's rows of the bucket's batch."""
+        if not self.split:
+            return x
+        n = self.local_rows
+        return x[self.index * n:(self.index + 1) * n]
+
+    def assemble(self, y: torch.Tensor) -> torch.Tensor:
+        """The bucket's outputs from this rank's (one all-gather of the
+        rows over the data group when split)."""
+        if not self.split:
+            return y
+        from zookeeper_tpu_torch.parallel.shards import all_gather_stack
+
+        stacked = all_gather_stack(y, self.group, self.count)
+        return stacked.reshape(self.count * y.shape[0], *y.shape[1:])
+
+    def activation_scope(self):
+        from zookeeper_tpu_torch.parallel.sharding import activation_sharding_scope
+
+        if not self.split or self.scope is None:
+            return contextlib.nullcontext()
+        return activation_sharding_scope(*self.scope, rows=self.local_rows)
 
 
 class ReplicaGroup:
@@ -196,8 +258,47 @@ class Partitioner:
 
     def decode_cache_axes(self) -> Tuple[Tuple[str, ...], Optional[str]]:
         """``(data_axes, model_axis)`` a decode KV cache shards over
-        (``parallel.rules.decode_cache_rules``); nothing without a mesh."""
+        (``parallel.rules.decode_cache_rules``); nothing without a mesh.
+        The one derivation the cache placement and the sharded decode
+        attention both read."""
         return (), None
+
+    def variables_sharding(self, variables: Any) -> Any:
+        """Specs of an inference variables tree (``{"params": ...,
+        "batch_stats": ...}``, no optimizer state): the training rules
+        matched on the same paths, so a model serves under the layout it
+        trained with. None = default placement."""
+        return None
+
+    def decode_cache_sharding(self, cache: Any) -> Any:
+        """Specs of a decode engine's KV cache (a per-layer tuple of
+        ``{"k", "v"}`` ``[slots, capacity, heads, head_dim]``): slots over
+        the data axes, heads over the model axis. The engine checks that
+        they divide and otherwise keeps the cache replicated. None =
+        default placement."""
+        return None
+
+    def page_pool_sharding(self, pool: Any) -> Any:
+        """Specs of a decode engine's page pool: pages replicated (any slot
+        reads any page), heads over the model axis (int8 scales too). None
+        = default placement."""
+        return None
+
+    def compile_forward(self, batch_rows: Optional[int] = None) -> ForwardPlan:
+        """The forward plan of a ``batch_rows`` bucket (see
+        :class:`ForwardPlan`): without a mesh, the whole bucket here."""
+        return ForwardPlan(int(batch_rows or 0))
+
+    def plan_variables(self, module: Any) -> Any:
+        """The ``parallel.shards.ShardPlan`` of a served module by the
+        rules (None: nothing shards)."""
+        return None
+
+    def group_of(self, axes: Sequence[str]) -> Any:
+        """This rank's group over ``axes`` as a
+        ``parallel.shards.TensorParallel`` (group, index, size); None
+        without a mesh."""
+        return None
 
     def replicas(self) -> Optional[ReplicaGroup]:
         """The ranks that average the gradients and the step metrics;
@@ -376,6 +477,58 @@ class MeshPartitioner(Partitioner):
         model = [a for a in self.mesh_axes if a not in self.data_axes]
         return tuple(self.data_axes), (model[0] if model else None)
 
+    def _variables_rules(self, variables: Any) -> List[PartitionRule]:
+        return self.rules
+
+    def variables_sharding(self, variables: Any) -> Any:
+        # The training rules: an inference dict's ``params/...`` and
+        # ``batch_stats/...`` paths are the training state's prefixes.
+        return match_partition_rules(self._variables_rules(variables), variables)
+
+    def decode_cache_sharding(self, cache: Any) -> Any:
+        return match_partition_rules(decode_cache_rules(*self.decode_cache_axes()), cache)
+
+    def page_pool_sharding(self, pool: Any) -> Any:
+        return match_partition_rules(page_pool_rules(*self.decode_cache_axes()), pool)
+
+    def compile_forward(self, batch_rows: Optional[int] = None) -> ForwardPlan:
+        rows = int(batch_rows or 0)
+        if self.mesh is None:
+            return ForwardPlan(rows)
+        index, count = self._data_share()
+        if count == 1 or rows % count != 0:
+            # A bucket that cannot split over the data axes (the 1-row
+            # bucket on a wide mesh) runs replicated, with no activation
+            # scope, as JAX's compile_forward does.
+            return ForwardPlan(rows)
+        return ForwardPlan(rows, True, index, count, self._data_group(), self._scope())
+
+    def _module_rules(self, module: Any) -> List[PartitionRule]:
+        """The rules that lay out a served module (FSDP derives them)."""
+        return self.rules
+
+    def plan_variables(self, module: Any) -> Any:
+        from zookeeper_tpu_torch.parallel.shards import plan_inference
+
+        if self.mesh is None:
+            return None
+        rules = self._module_rules(module)
+        if not rules:
+            return None  # every tensor replicates (pure data parallelism)
+        plan = plan_inference(module, rules, self._groups, self._model_axes())
+        if plan is not None:
+            plan.apply_module(module)
+        return plan
+
+    def group_of(self, axes: Sequence[str]) -> Any:
+        from zookeeper_tpu_torch.parallel.shards import TensorParallel
+
+        if self.mesh is None:
+            return None
+        members = self._groups.members(axes)
+        return TensorParallel(self._groups.group(axes), members.index(distributed.rank()),
+                              len(members))
+
     def check_same_step(self, step: int) -> None:
         if self.process_span() == 1:
             return
@@ -420,25 +573,38 @@ class FsdpPartitioner(MeshPartitioner):
     #: of size (``auto_fsdp_rules``).
     replicate_patterns: Sequence[str] = Field(())
 
-    def _rules_for(self, state: Any) -> List[PartitionRule]:
-        if getattr(self, "_rules_override", None) is not None:
-            return self._rules_override
-        from zookeeper_tpu_torch.models.convert import flax_state_layouts, unflatten_tree
+    def _auto_rules(self, params: Any) -> List[PartitionRule]:
         from zookeeper_tpu_torch.parallel.rules import auto_fsdp_rules
 
-        plan = getattr(state, "shards", None)
-        tensors = state.module.state_dict()
-        params = {}
-        for name, (path, axes) in flax_state_layouts(state.module).items():
-            if path.startswith("params/"):
-                shape = (plan.layouts[name].shape if plan is not None and name in plan.layouts
-                         else tuple(tensors[name].shape))
-                params[path[len("params/"):]] = _Shape(shape[a] for a in axes)
-        params = unflatten_tree(params)
         axis = tuple(self.mesh_axes)[0]
         return auto_fsdp_rules(params, axis_size=self.mesh_sizes[axis], fsdp_axis=axis,
                                min_weight_size=self.min_weight_size,
                                replicate_patterns=tuple(self.replicate_patterns))
+
+    def _module_rules(self, module: Any, plan: Any = None) -> List[PartitionRule]:
+        if getattr(self, "_rules_override", None) is not None:
+            return self._rules_override
+        from zookeeper_tpu_torch.models.convert import flax_state_layouts, unflatten_tree
+
+        tensors = module.state_dict()
+        params = {}
+        for name, (path, axes) in flax_state_layouts(module).items():
+            if path.startswith("params/"):
+                shape = (plan.layouts[name].shape if plan is not None and name in plan.layouts
+                         else tuple(tensors[name].shape))
+                params[path[len("params/"):]] = _Shape(shape[a] for a in axes)
+        return self._auto_rules(unflatten_tree(params))
+
+    def _rules_for(self, state: Any) -> List[PartitionRule]:
+        return self._module_rules(state.module, getattr(state, "shards", None))
+
+    def _variables_rules(self, variables: Any) -> List[PartitionRule]:
+        # Serving under FSDP: the same auto layout, derived from the
+        # inference dict's params (suffix-anchored rules, so the tree's
+        # paths match like the training state's).
+        if getattr(self, "_rules_override", None) is not None:
+            return self._rules_override
+        return self._auto_rules(variables["params"])
 
 
 class _Shape:

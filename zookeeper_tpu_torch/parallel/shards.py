@@ -32,10 +32,19 @@ A sharded tensor is used in one of two ways:
 
 A dimension that does not divide its axes replicates (GSPMD would pad
 it; the values are the same), and so does a buffer whose layer does not
-compute locally. Whole-tensor reductions over a sharded tensor (norms,
+compute locally (in an inference plan, :func:`plan_inference`, a buffer
+under ``params/``, a packed kernel, is gathered on use like a
+parameter). Whole-tensor reductions over a sharded tensor (norms,
 counts) are completed over its group (:meth:`ShardPlan.whole_sums`).
 Every collective is posted in the same order on every rank: parameters
 in module order, groups in mesh-axis order.
+
+Serving: :func:`plan_inference` is the plan of a module with no
+optimizer state and no EMA (``ShardPlan.apply_module``), and
+:class:`DecodeShard` is how a decode engine's KV cache or page pool lies
+over the mesh for one rank: slots over the data axes, heads over the
+model axis (``parallel.rules.decode_cache_rules``/``page_pool_rules``),
+with the local shapes a rank allocates.
 """
 
 import contextlib
@@ -382,19 +391,34 @@ class ShardPlan:
 
     @contextlib.contextmanager
     def swapped(self, module: torch.nn.Module, tensors: Dict[str, torch.Tensor]):
-        """Inside the block the module's parameters ``tensors`` (by name)
-        are the given tensors; the shards are put back after it."""
+        """Inside the block the module's parameters (or buffers)
+        ``tensors`` (by name) are the given tensors; the shards are put
+        back after it."""
         saved = []
         try:
             for name, t in tensors.items():
                 prefix, _, leaf = name.rpartition(".")
                 owner = module.get_submodule(prefix)
-                saved.append((owner, leaf, owner._parameters[leaf]))
-                owner._parameters[leaf] = t
+                slot = owner._parameters if leaf in owner._parameters else owner._buffers
+                saved.append((slot, leaf, slot[leaf]))
+                slot[leaf] = t
             yield
         finally:
-            for owner, leaf, p in reversed(saved):
-                owner._parameters[leaf] = p
+            for slot, leaf, p in reversed(saved):
+                slot[leaf] = p
+
+    @contextlib.contextmanager
+    def gathered_weights(self, module: torch.nn.Module):
+        """An inference dispatch under this plan: every gathered tensor is
+        all-gathered for the block and freed after it, so between
+        dispatches the rank holds only its blocks (no-op when nothing is
+        gathered)."""
+        if not self.gathered:
+            yield
+            return
+        tensors = dict(module.state_dict(keep_vars=True))
+        with self.swapped(module, self.gather_params(tensors)):
+            yield
 
     def reduce_gradients(self, grads: Dict[str, torch.Tensor], extra: Sequence[torch.Tensor],
                          replicas: Any) -> None:
@@ -521,6 +545,14 @@ class ShardPlan:
         state.shards = self
         return state
 
+    def apply_module(self, module: torch.nn.Module) -> torch.nn.Module:
+        """:meth:`apply` for a module served alone (no optimizer state, no
+        EMA): it keeps this rank's block of every sharded tensor."""
+        import types
+
+        self.apply(types.SimpleNamespace(module=module, opt_state={}, ema_params=None))
+        return module
+
 
 def _exact_axis(dims: List[Tuple[str, ...]], want_dim: int) -> Optional[str]:
     """The one axis a tensor is split over when that is ``want_dim`` on a
@@ -532,16 +564,21 @@ def _exact_axis(dims: List[Tuple[str, ...]], want_dim: int) -> Optional[str]:
 
 
 def plan_state(module: torch.nn.Module, rules: Sequence[PartitionRule], mesh: MeshGroups,
-               model_axes: Sequence[str], replica_axes: Sequence[str]) -> Optional[ShardPlan]:
+               model_axes: Sequence[str], replica_axes: Sequence[str],
+               gather_buffers: bool = False) -> Optional[ShardPlan]:
     """The :class:`ShardPlan` of ``module`` under ``rules`` on ``mesh``
     (None when no tensor shards). Hands each layer whose tensors have one
     of its ``tensor_parallel_forms`` on a model axis that divides it its
-    :class:`TensorParallel` (and clears it elsewhere)."""
+    :class:`TensorParallel` (and clears it elsewhere). ``gather_buffers``:
+    a buffer under ``params/`` (a packed kernel) that its layer does not
+    compute on is sharded and gathered on use, as a parameter is (the
+    inference plan; a training state keeps such buffers whole)."""
     from zookeeper_tpu_torch.models.convert import flax_state_layouts
 
     tensors = module.state_dict(keep_vars=True)
+    layouts_of = flax_state_layouts(module)
     dims: Dict[str, List[Tuple[str, ...]]] = {}
-    for name, (path, axes_map) in flax_state_layouts(module).items():
+    for name, (path, axes_map) in layouts_of.items():
         t = tensors[name]
         port = _port_dims(spec_for(rules, path), axes_map, t.dim())
         if not any(port):
@@ -568,6 +605,9 @@ def plan_state(module: torch.nn.Module, rules: Sequence[PartitionRule], mesh: Me
                     interleave.update(names)
             object.__setattr__(sub, attr, tp)
     params = [n for n, _ in module.named_parameters()]
+    if gather_buffers:
+        params += [n for n, _ in module.named_buffers()
+                   if layouts_of.get(n, ("",))[0].startswith("params/")]
     layouts = {}
     for name, port in dims.items():
         local = name in interleave
@@ -580,3 +620,73 @@ def plan_state(module: torch.nn.Module, rules: Sequence[PartitionRule], mesh: Me
     if not layouts:
         return None
     return ShardPlan(layouts, params, mesh, replica_axes)
+
+
+def plan_inference(module: torch.nn.Module, rules: Sequence[PartitionRule], mesh: MeshGroups,
+                   model_axes: Sequence[str]) -> Optional[ShardPlan]:
+    """The plan of an inference module (no optimizer state, no EMA), by
+    :func:`plan_state`'s rules: the tensor-parallel layers get their model
+    groups (the head-aligned ``qkv`` block: a rank's K/V rows are its own
+    heads) and every other sharded tensor, packed kernels included, is
+    gathered for each dispatch (:meth:`ShardPlan.gathered_weights`). Call
+    :meth:`ShardPlan.apply_module` to keep this rank's blocks."""
+    return plan_state(module, rules, mesh, model_axes, (), gather_buffers=True)
+
+
+# -- the decode engine's KV state ---------------------------------------------
+
+
+@dataclass(frozen=True)
+class DecodeShard:
+    """How a decode engine's KV state lies over the mesh for this rank:
+    ``data`` the group its slots are split over (the data axes; None: every
+    rank holds every slot) and ``heads`` the group its heads are split over
+    (the model axis; None: whole heads); ``replicated`` marks the
+    indivisible-geometry fallback (both None). ``mesh``, ``data_axes`` and
+    ``model_axis`` are what the sharded decode attention is called with
+    (``ops.attention.sharded_paged_decode_attention``). A page pool never
+    splits its pages (any slot may read any page): only its heads split,
+    while the slots of q, the lengths and the page table split over
+    ``data``."""
+
+    mesh: Any
+    data_axes: Tuple[str, ...]
+    model_axis: Optional[str]
+    data: Optional[TensorParallel] = None
+    heads: Optional[TensorParallel] = None
+    replicated: bool = False
+
+    def slot_range(self, slots: int) -> Tuple[int, int]:
+        """``[lo, hi)``: the global slots this rank holds."""
+        if self.data is None:
+            return 0, slots
+        n = slots // self.data.size
+        return self.data.index * n, (self.data.index + 1) * n
+
+    def local_heads(self, heads: int) -> int:
+        return heads if self.heads is None else heads // self.heads.size
+
+    def cache_shape(self, slots: int, capacity: int, heads: int,
+                    head_dim: int) -> Tuple[int, int, int, int]:
+        """This rank's ``[slots, capacity, heads, head_dim]`` block of a
+        slot cache."""
+        lo, hi = self.slot_range(slots)
+        return hi - lo, capacity, self.local_heads(heads), head_dim
+
+    def pool_shape(self, num_pages: int, page_size: int, heads: int,
+                   head_dim: int) -> Tuple[int, int, int, int]:
+        """This rank's ``[pages, page_size, heads, head_dim]`` block of a
+        page pool (every page, its heads)."""
+        return num_pages, page_size, self.local_heads(heads), head_dim
+
+    def attention_kwargs(self) -> Dict[str, Any]:
+        return {"mesh": self.mesh, "data_axes": self.data_axes,
+                "model_axis": self.model_axis, "replicated": self.replicated}
+
+    def gather_slots(self, x: torch.Tensor) -> torch.Tensor:
+        """``x [local slots, ...]`` of every data rank, in slot order
+        (``x`` itself without a data split)."""
+        if self.data is None:
+            return x
+        stacked = all_gather_stack(x, self.data.group, self.data.size)
+        return stacked.reshape(self.data.size * x.shape[0], *x.shape[1:])

@@ -19,7 +19,11 @@ slices come back out of ONE ``.cpu()`` readback per dispatch.
 queue until ``flush()`` or ``result()``. Async mode adds one worker that
 dispatches when the largest bucket fills or the oldest request has
 waited ``max_delay_ms``. Inference is row-independent, so a request's
-result does not depend on how it was coalesced or split.
+result does not depend on how it was coalesced or split. In front of
+an engine whose partitioner spans several ranks every rank runs its own
+batcher before a collective engine, so only the synchronous mode without deadlines is
+allowed (the async worker and deadlines decide by each rank's clock and
+raise ``ValueError``).
 
 Not ported yet (ROADMAP.md): the trace, flight-recorder, RequestLog,
 overload-guard and fault-injection hooks.
@@ -32,6 +36,7 @@ from typing import Any, List, Optional, Tuple
 import numpy as np
 
 from zookeeper_tpu_torch.core import Field, component
+from zookeeper_tpu_torch.parallel.distributed import refuse_clock_driven
 
 
 class RejectedError(RuntimeError):
@@ -170,6 +175,10 @@ class MicroBatcher:
                 "shed_above_rows and default_deadline_ms must be >= 0 "
                 "(0 disables)."
             )
+        if not self.synchronous:
+            refuse_clock_driven(engine, "MicroBatcher(synchronous=False)")
+        if self.default_deadline_ms > 0:
+            refuse_clock_driven(engine, "MicroBatcher.default_deadline_ms")
         object.__setattr__(self, "_engine", engine)
         object.__setattr__(self, "_metrics", metrics)
         # Queue of (request, x, lo, hi): row slice [lo, hi) still owed.
@@ -241,6 +250,8 @@ class MicroBatcher:
         if x.ndim < 1 or x.shape[0] < 1:
             raise ValueError(f"request must have at least one row, got shape {x.shape}.")
         n = int(x.shape[0])
+        if deadline_ms is not None:
+            refuse_clock_driven(self._engine, "a request deadline (deadline_ms)")
         deadline_at = self._deadline_at(deadline_ms)
         if self.synchronous:
             self._shed_check(n)

@@ -13,6 +13,11 @@ decode step writes row ``length`` and then advances ``length``, so
 garbage always sits at ``j >= length``, where decode attention masks it;
 refilling a slot needs no zeroing. The speculative ``append_kv_rows``
 is not ported yet (ROADMAP.md).
+
+Under a partitioner (``shard``, a ``parallel.shards.DecodeShard``) a
+rank allocates and counts only its block: its slots of the data split,
+its heads of the model split, the per-device accounting of the JAX
+engine's sharded cache.
 """
 
 import math
@@ -31,15 +36,19 @@ def allocate_kv_cache(
     head_dim: int,
     dtype: torch.dtype,
     device: Any = "cpu",
+    shard: Any = None,
 ) -> Tuple[Dict[str, torch.Tensor], ...]:
     """Zeroed KV cache: a per-layer tuple of ``{"k", "v"}`` buffers
-    ``[slots, capacity, heads, head_dim]`` on ``device``."""
+    ``[slots, capacity, heads, head_dim]`` on ``device`` (this rank's
+    block of them under a ``shard``)."""
     if slots < 1 or capacity < 1:
         raise ValueError(
             f"KV cache needs slots >= 1 and capacity >= 1, got "
             f"slots={slots}, capacity={capacity}."
         )
     shape = (slots, capacity, num_heads, head_dim)
+    if shard is not None:
+        shape = shard.cache_shape(*shape)
     return tuple(
         {"k": torch.zeros(shape, dtype=dtype, device=device),
          "v": torch.zeros(shape, dtype=dtype, device=device)}
@@ -54,8 +63,13 @@ def kv_cache_bytes(
     num_heads: int,
     head_dim: int,
     itemsize: int,
+    shard: Any = None,
 ) -> int:
-    """Device memory the cache occupies (k + v, all layers)."""
+    """Device memory the cache occupies (k + v, all layers): one rank's
+    under a ``shard``."""
+    if shard is not None:
+        slots, capacity, num_heads, head_dim = shard.cache_shape(
+            slots, capacity, num_heads, head_dim)
     return 2 * num_layers * slots * capacity * num_heads * head_dim * itemsize
 
 

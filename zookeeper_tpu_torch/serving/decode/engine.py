@@ -15,12 +15,30 @@ The port of ``zookeeper_tpu/serving/decode/engine.py``'s
 PyTorch runs eagerly, so there is nothing to compile: ``warmup()`` runs
 each bucket and one decode step once, which builds the kernels and warms
 the allocator before the first request. The cache is written in place.
+
+Under a partitioner (``bind(module, partitioner=...)``) the module serves
+in the layout it trained with (``Partitioner.plan_variables``: the
+tensor-parallel blocks on their heads, FSDP's shards gathered for each
+dispatch and freed after) and each rank holds its block of the KV state
+(``parallel.shards.DecodeShard``): slots over the data axes, heads over
+the model axis (``decode_cache_axes``; a page pool splits its heads
+only). Geometry that does not divide logs JAX's warning and keeps a
+replicated cache. A slot id stays global. ``prefill`` runs the whole
+group on every rank and each writes the rows it holds; ``decode`` runs
+each data rank on its slots and gathers the next tokens, so both return
+the same tokens on every rank. The engine is collective: every rank
+must make the same dispatches (the synchronous ``DecodeScheduler`` on
+the same stream does), and when the partitioner spans several ranks
+each dispatch checks that they agree (``parallel.distributed.check_same_dispatch``).
+
 Not ported yet (ROADMAP.md), each raising ``NotImplementedError``: the
 radix prefix cache (``prefix_cache=True`` with the paged layout),
 chunked prefill, warm-prefix and chunk prefill, speculative verify, page
-transfer, weight hot-swap, partitioners and the program ledger.
+transfer, weight hot-swap and the program ledger.
 """
 
+import contextlib
+import logging
 import statistics
 import time
 from typing import Any, Optional, Sequence
@@ -30,7 +48,8 @@ import torch
 
 from zookeeper_tpu_torch.core import Field, component
 from zookeeper_tpu_torch.models.transformer import _pool_write_rows
-from zookeeper_tpu_torch.ops.device import resolve_device
+from zookeeper_tpu_torch.parallel import distributed
+from zookeeper_tpu_torch.parallel.shards import DecodeShard
 from zookeeper_tpu_torch.serving.decode.cache import (
     allocate_kv_cache,
     kv_cache_bytes,
@@ -43,6 +62,11 @@ from zookeeper_tpu_torch.serving.decode.pages import (
 )
 
 __all__ = ["DecodeEngine"]
+
+logger = logging.getLogger(__name__)
+
+#: The dispatch kinds :func:`check_same_dispatch` compares.
+_PREFILL, _DECODE = 1, 2
 
 #: HBM bandwidth of an H100 SXM (NVIDIA data sheet), the denominator of
 #: ``decode_mbu``.
@@ -90,9 +114,12 @@ class DecodeEngine:
 
     # -- binding ---------------------------------------------------------
 
-    def bind(self, module: Any, device: Any = "cuda") -> "DecodeEngine":
+    def bind(self, module: Any, partitioner: Any = None, device: Any = "cuda") -> "DecodeEngine":
         """Attach the LM module (moved to ``device``, eval mode) and
-        allocate the cache there."""
+        allocate the cache there. ``partitioner`` (default: one card)
+        serves under a training layout: every rank binds the same weights
+        and holds its block of them and of the cache (see the module
+        docstring)."""
         for method in ("prefill", "decode_step", "decode_step_paged"):
             if not hasattr(module, method):
                 raise ValueError(
@@ -189,11 +216,20 @@ class DecodeEngine:
                 )
         else:
             num_pages = 0
-        device = resolve_device(device)
+        if partitioner is None:
+            from zookeeper_tpu_torch.parallel.partitioner import SingleDevicePartitioner
+
+            partitioner = SingleDevicePartitioner()
+        partitioner.setup()
+        device = distributed.local_device(device)
         module = module.to(device).eval()
         set_ = lambda name, value: object.__setattr__(self, name, value)  # noqa: E731
         set_("_module", module)
         set_("_device", device)
+        set_("_partitioner", partitioner)
+        set_("_plan", partitioner.plan_variables(module))
+        set_("_shard", self._decode_shard(partitioner, module))
+        set_("_cache_replicated", self._shard is not None and self._shard.replicated)
         set_("_seq_buckets", seq_buckets)
         set_("_prefill_buckets", prefill_buckets)
         set_("_capacity", capacity)
@@ -209,15 +245,19 @@ class DecodeEngine:
         if paged:
             nbytes = page_pool_bytes(int(module.num_layers), num_pages, int(self.page_size),
                                      int(module.num_heads), module.head_dim, itemsize,
-                                     quant=str(self.kv_quant))
+                                     quant=str(self.kv_quant), shard=self._shard)
         else:
             nbytes = kv_cache_bytes(int(module.num_layers), int(self.slots), capacity,
-                                    int(module.num_heads), module.head_dim, itemsize)
+                                    int(module.num_heads), module.head_dim, itemsize,
+                                    shard=self._shard)
         set_("_cache_nbytes", nbytes)
         # Parameters a decode step reads once (the positional table only
-        # at the slots' rows, counted with the K/V rows in _step_bytes).
-        set_("_weight_bytes", sum(p.numel() * p.element_size()
-                                  for name, p in module.named_parameters() if name != "pos"))
+        # at the slots' rows, counted with the K/V rows in _step_bytes):
+        # the rank's blocks, or whole where FSDP gathers them.
+        gathered = set() if self._plan is None else set(self._plan.gathered)
+        set_("_weight_bytes", sum(
+            (self._plan.numel(name, p) if name in gathered else p.numel()) * p.element_size()
+            for name, p in module.named_parameters() if name != "pos"))
         set_("_decode_records", [])
         set_("_warmed", False)
         set_("_decode_attention_flavor",
@@ -232,16 +272,49 @@ class DecodeEngine:
                 "warmup()/prefill()/decode()."
             )
 
+    def _decode_shard(self, partitioner, module) -> Optional[DecodeShard]:
+        """This rank's block of the KV state (None without a mesh): slots
+        over the data axes and heads over the model axis of
+        ``decode_cache_axes``, the one derivation the sharded attention
+        reads too. When slots do not divide the data-axis product (the
+        slots of q, the lengths and the table split the same way in the
+        paged layout) or heads the model axis, the cache replicates, with
+        the JAX engine's warning."""
+        mesh = partitioner.mesh
+        if mesh is None:
+            return None
+        data_axes, model_axis = partitioner.decode_cache_axes()
+        sizes = partitioner.mesh_sizes
+        data_axes = tuple(a for a in data_axes if a in sizes)
+        if model_axis is not None and model_axis not in sizes:
+            model_axis = None
+        data_size = int(np.prod([sizes[a] for a in data_axes])) if data_axes else 1
+        model_size = sizes[model_axis] if model_axis is not None else 1
+        slots, heads = int(self.slots), int(module.num_heads)
+        if slots % data_size or heads % model_size:
+            logger.warning(
+                "KV cache [slots=%d, heads=%d] does not divide over the %s mesh (%s); "
+                "decoding with a REPLICATED cache — size slots/heads in multiples of the "
+                "mesh axes to shard", slots, heads, sizes,
+                f"slots % {data_size} = {slots % data_size}, heads % {model_size} = "
+                f"{heads % model_size}")
+            return DecodeShard(mesh, data_axes, model_axis, replicated=True)
+        return DecodeShard(
+            mesh, data_axes, model_axis,
+            data=partitioner.group_of(data_axes) if data_axes else None,
+            heads=partitioner.group_of((model_axis,)) if model_axis is not None else None)
+
     def _allocate_cache(self):
         module = self._module
         if self._paged:
             return allocate_page_pool(int(module.num_layers), self._num_pages,
                                       int(self.page_size), int(module.num_heads),
                                       module.head_dim, module.dtype,
-                                      quant=str(self.kv_quant), device=self._device)
+                                      quant=str(self.kv_quant), device=self._device,
+                                      shard=self._shard)
         return allocate_kv_cache(int(module.num_layers), int(self.slots), self._capacity,
                                  int(module.num_heads), module.head_dim, module.dtype,
-                                 device=self._device)
+                                 device=self._device, shard=self._shard)
 
     # -- geometry and accounting ----------------------------------------
 
@@ -280,8 +353,21 @@ class DecodeEngine:
 
     @property
     def kv_cache_nbytes(self) -> int:
+        """This rank's KV bytes (the whole cache on one card)."""
         self._require_bound()
         return self._cache_nbytes
+
+    @property
+    def decode_shard(self) -> Optional[DecodeShard]:
+        """This rank's block of the KV state (None without a mesh)."""
+        self._require_bound()
+        return self._shard
+
+    @property
+    def cache_replicated(self) -> bool:
+        """Whether the cache took the replicated fallback."""
+        self._require_bound()
+        return bool(self._cache_replicated)
 
     @property
     def paged(self) -> bool:
@@ -318,11 +404,16 @@ class DecodeEngine:
         return nbytes / seconds / HBM_BYTES_PER_S if seconds > 0 else -1.0
 
     def _step_bytes(self, lengths: np.ndarray) -> int:
-        """Bytes one decode step must read: weights, and per slot its
-        ``clamp(length) + 1`` live K/V rows (int8 rows with their fp32
-        scales), and its positional row."""
+        """Bytes one decode step must read on this rank: weights, and per
+        slot it decodes its ``clamp(length) + 1`` live K/V rows of the
+        heads it holds (int8 rows with their fp32 scales), and its
+        positional row."""
         module = self._module
         heads = int(module.num_heads)
+        if self._shard is not None:
+            heads = self._shard.local_heads(heads)
+            lo, hi = self._shard.slot_range(len(lengths))
+            lengths = lengths[lo:hi]
         rows = int(np.sum(np.clip(lengths, 0, self._capacity - 1) + 1))
         if self._paged and str(self.kv_quant) == "int8":
             per_row = heads * (module.head_dim + 4)
@@ -404,6 +495,25 @@ class DecodeEngine:
 
     # -- dispatch --------------------------------------------------------
 
+    def _weights(self):
+        """The block one dispatch runs in: FSDP's gathered weights, freed
+        after it (nothing to do without a plan)."""
+        if self._plan is None:
+            return contextlib.nullcontext()
+        return self._plan.gathered_weights(self._module)
+
+    @property
+    def collective(self) -> bool:
+        """Whether the engine's partitioner spans several ranks: every
+        rank must then make the same dispatches."""
+        return getattr(self, "_partitioner", None) is not None and \
+            self._partitioner.process_span() > 1
+
+    def _check_dispatch(self, kind: int, bucket: int, rows: int, *arrays) -> None:
+        if self.collective:
+            distributed.check_same_dispatch(
+                (kind, bucket, rows, distributed.dispatch_checksum(*arrays)), "DecodeEngine")
+
     def warmup(self) -> int:
         """Run every prefill bucket and one decode step once (writing no
         live cache row: prefill outputs are discarded, the decode step
@@ -414,12 +524,15 @@ class DecodeEngine:
         with torch.inference_mode():
             for pb in self._prefill_buckets:
                 for sb in self._seq_buckets:
+                    self._check_dispatch(_PREFILL, pb, sb)
                     tokens = torch.zeros((pb, sb), dtype=torch.int32, device=self._device)
                     lengths = torch.ones((pb,), dtype=torch.int32, device=self._device)
-                    last, _ = self._module.prefill(tokens, lengths)
+                    with self._weights():
+                        last, _ = self._module.prefill(tokens, lengths)
                     torch.argmax(last, dim=-1).cpu()
                     runs += 1
             n = int(self.slots)
+            self._check_dispatch(_DECODE, n, 0)
             self._decode_dispatch(np.zeros(n, np.int32), np.zeros(n, np.int32))
             runs += 1
         object.__setattr__(self, "_warmed", True)
@@ -428,7 +541,8 @@ class DecodeEngine:
     def prefill(self, prompts: Sequence[np.ndarray], slot_ids: Sequence[int]) -> np.ndarray:
         """Admit a group: write each prompt's K/V into its slot (or its
         pages) and return each sequence's first token as a host ``[n]``
-        int32 array."""
+        int32 array. Under a partitioner every rank runs the whole group
+        and writes the rows it holds."""
         self._require_bound()
         n = len(prompts)
         if n == 0:
@@ -447,21 +561,41 @@ class DecodeEngine:
         for i, p in enumerate(prompts):
             tokens[i, : lens[i]] = np.asarray(p, np.int32)
             lengths[i] = lens[i]
+        self._check_dispatch(_PREFILL, pb, sb, [int(s) for s in slot_ids], lens)
         dev = self._device
         with torch.inference_mode():
-            last, kv = self._module.prefill(torch.from_numpy(tokens).to(dev),
-                                            torch.from_numpy(lengths).to(dev))
+            with self._weights():
+                last, kv = self._module.prefill(torch.from_numpy(tokens).to(dev),
+                                                torch.from_numpy(lengths).to(dev))
+            kv = self._cache_heads(kv)
             if self._paged:
                 self._write_prefill_pages(kv, lengths, slot_ids, pb, sb)
             else:
                 # Slots: rows [0, sb) of each real row's slot, padding
-                # included; padding rows of a partial group write nowhere.
-                ids = torch.as_tensor([int(s) for s in slot_ids], device=dev)
-                for layer, (k, v) in zip(self._cache, kv):
-                    layer["k"][ids, :sb] = k[:n]
-                    layer["v"][ids, :sb] = v[:n]
+                # included; padding rows of a partial group write nowhere;
+                # under a data split a rank writes the slots it holds.
+                lo, hi = (0, int(self.slots)) if self._shard is None else \
+                    self._shard.slot_range(int(self.slots))
+                own = [(i, int(s) - lo) for i, s in enumerate(slot_ids) if lo <= int(s) < hi]
+                if own:
+                    rows = torch.as_tensor([i for i, _ in own], device=dev)
+                    ids = torch.as_tensor([s for _, s in own], device=dev)
+                    for layer, (k, v) in zip(self._cache, kv):
+                        layer["k"][ids, :sb] = k[rows]
+                        layer["v"][ids, :sb] = v[rows]
             first = torch.argmax(last, dim=-1).to(torch.int32).cpu().numpy()
         return first[:n].astype(np.int32)
+
+    def _cache_heads(self, kv):
+        """Each layer's prefill K/V in the cache's head layout (a slice or
+        a gather of heads, see ``models.transformer.relay_heads``)."""
+        if self._shard is None:
+            return kv
+        from zookeeper_tpu_torch.models.transformer import relay_heads
+
+        return tuple((relay_heads(k, block._tp_attn, self._shard.heads),
+                      relay_heads(v, block._tp_attn, self._shard.heads))
+                     for block, (k, v) in zip(self._module.blocks, kv))
 
     def _write_prefill_pages(self, kv, lengths: np.ndarray, slot_ids, pb: int, sb: int) -> None:
         """Scatter each prompt row through its slot's table row: position
@@ -495,6 +629,7 @@ class DecodeEngine:
                 f"decode expects [slots]={n} token and length arrays, got "
                 f"{tokens.shape} / {lengths.shape}."
             )
+        self._check_dispatch(_DECODE, n, 0, tokens, lengths)
         t0 = time.perf_counter()
         with torch.inference_mode():
             nxt = self._decode_dispatch(tokens, lengths)
@@ -505,11 +640,34 @@ class DecodeEngine:
 
     def _decode_dispatch(self, tokens: np.ndarray, lengths: np.ndarray) -> np.ndarray:
         dev = self._device
-        tok_t = torch.from_numpy(tokens).to(dev)
-        len_t = torch.from_numpy(lengths).to(dev)
-        if self._paged:
-            table_t = torch.from_numpy(np.ascontiguousarray(self._pool.table)).to(dev)
-            logits, _ = self._module.decode_step_paged(tok_t, len_t, self._cache, table_t)
-        else:
-            logits, _ = self._module.decode_step(tok_t, len_t, self._cache)
-        return torch.argmax(logits, dim=-1).to(torch.int32).cpu().numpy()
+        shard = self._shard
+        lo, hi = (0, len(tokens)) if shard is None else shard.slot_range(len(tokens))
+        tok_t = torch.from_numpy(np.ascontiguousarray(tokens[lo:hi])).to(dev)
+        len_t = torch.from_numpy(np.ascontiguousarray(lengths[lo:hi])).to(dev)
+        with self._weights():
+            if self._paged:
+                table = np.ascontiguousarray(self._pool.table)
+                table_t = torch.from_numpy(np.ascontiguousarray(table[lo:hi])).to(dev)
+                write = None if shard is None or shard.data is None else \
+                    self._pool_write(table, lengths)
+                logits, _ = self._module.decode_step_paged(tok_t, len_t, self._cache, table_t,
+                                                           shard, write)
+            else:
+                logits, _ = self._module.decode_step(tok_t, len_t, self._cache, shard)
+            nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+            if shard is not None:
+                nxt = shard.gather_slots(nxt)
+        return nxt.cpu().numpy()
+
+    def _pool_write(self, table: np.ndarray, lengths: np.ndarray):
+        """Where every global slot's new row lands in the pool (the live
+        slots, their pages and offsets), from the whole table: under a
+        data split each rank's copy of the pool takes every slot's row."""
+        ps = int(self.page_size)
+        lens = lengths.astype(np.int64)
+        row = np.clip(lens // ps, 0, self._max_pages - 1)
+        page = table[np.arange(len(lens)), row].astype(np.int64)
+        live = np.nonzero((page >= 0) & (lens < self._max_pages * ps))[0]
+        dev = self._device
+        return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                     for a in (live, page[live], lens[live] % ps))

@@ -12,6 +12,10 @@ stores rows int8 with ``[num_pages, page_size, heads]`` float32 scales
 (``ops.quantizers.quantize_kv_rows``), dequantized inside the attention
 read.
 
+Under a partitioner (``shard``, a ``parallel.shards.DecodeShard``) a
+rank allocates and counts its heads of every page: the pages never split
+(any slot may reference any page), so each data rank holds a whole copy.
+
 Validity is the slot layout's: a slot's row ``j`` is meaningful iff
 ``j < length``, wherever the table put it; a recycled page's old rows
 sit past the new occupant's length and are never attended.
@@ -35,6 +39,7 @@ def allocate_page_pool(
     dtype: torch.dtype,
     quant: str = "none",
     device: Any = "cpu",
+    shard: Any = None,
 ) -> Tuple[Dict[str, torch.Tensor], ...]:
     """Zeroed page pools: a per-layer tuple of ``{"k", "v"}`` pools
     ``[num_pages, page_size, heads, head_dim]``, plus ``{"k_scale",
@@ -48,6 +53,8 @@ def allocate_page_pool(
     if quant not in ("none", "int8"):
         raise ValueError(f"quant={quant!r}: expected 'none' or 'int8'.")
     shape = (num_pages, page_size, num_heads, head_dim)
+    if shard is not None:
+        shape = shard.pool_shape(*shape)
     row_dtype = torch.int8 if quant == "int8" else dtype
     layers = []
     for _ in range(num_layers):
@@ -70,9 +77,12 @@ def page_pool_bytes(
     head_dim: int,
     itemsize: int,
     quant: str = "none",
+    shard: Any = None,
 ) -> int:
     """Device memory the pool occupies (k + v rows, all layers, plus the
-    scales when quantized)."""
+    scales when quantized): one rank's under a ``shard``."""
+    if shard is not None:
+        num_heads = shard.local_heads(num_heads)
     rows = 2 * num_layers * num_pages * page_size * num_heads
     total = rows * head_dim * (1 if quant == "int8" else itemsize)
     if quant == "int8":

@@ -20,7 +20,10 @@ it. In the paged layout an admission the pool cannot serve waits at the
 queue head for pages, or is shed when nothing is in flight to free any.
 ``synchronous=True`` (the default) is thread- and clock-free: the caller
 drives with ``drain()``/``result()``; otherwise one ``zk-decode-
-scheduler`` daemon thread runs the loop. Not ported yet (ROADMAP.md):
+scheduler`` daemon thread runs the loop. In front of an engine whose
+partitioner spans several ranks each rank runs its own scheduler
+before a collective engine, so the threaded mode and deadlines, which decide by each rank's
+clock, raise ``ValueError``. Not ported yet (ROADMAP.md):
 speculative decoding, chunked prefill, staged weight swaps, the overload
 guard and brown-out, the RequestLog, tracing and fault injection.
 """
@@ -33,6 +36,7 @@ from typing import Any, List, Optional
 import numpy as np
 
 from zookeeper_tpu_torch.core import Field, component
+from zookeeper_tpu_torch.parallel.distributed import refuse_clock_driven
 from zookeeper_tpu_torch.serving.batcher import (
     DeadlineExpiredError,
     RejectedError,
@@ -180,6 +184,10 @@ class DecodeScheduler:
             )
         if self.max_queue < 1:
             raise ValueError(f"max_queue={self.max_queue} must be >= 1.")
+        if not self.synchronous:
+            refuse_clock_driven(engine, "DecodeScheduler(synchronous=False)")
+        if self.default_deadline_ms > 0:
+            refuse_clock_driven(engine, "DecodeScheduler.default_deadline_ms")
         engine._require_bound()
         n = int(engine.slots)
         set_ = lambda name, value: object.__setattr__(self, name, value)  # noqa: E731
@@ -241,6 +249,8 @@ class DecodeScheduler:
                 f"prompt of {prompt.shape[0]} tokens leaves no room to generate "
                 f"within token_limit={engine.token_limit}."
             )
+        if deadline_ms is not None:
+            refuse_clock_driven(self._engine, "a request deadline (deadline_ms)")
         new = int(max_new_tokens if max_new_tokens is not None else self.max_new_tokens)
         if new < 1:
             raise ValueError(f"max_new_tokens={new} must be >= 1.")

@@ -10,9 +10,21 @@ CLI::
         model.compute_dtype=bfloat16 seq_len=8192 vocab_size=1024 \\
         engine.seq_buckets='(512,2048)' max_prompt=2048 new_tokens=64
 
-``build_service()`` builds the model with seeded random weights (loading
-checkpoints waits, ROADMAP.md), binds and warms the engine on ``device``
-and binds the scheduler. ``run()`` serves the JAX ``run()``'s seeded
+``build_service()`` builds the model, loads its weights from
+``checkpoint`` (a model-only export or a ``Checkpointer`` directory's
+latest step, the EMA or the raw weights as ``weights`` picks them:
+``ServingConfig``'s loader) or initializes them from ``seed``, binds and
+warms the engine on ``device`` under ``partitioner`` and binds the
+scheduler. Under ``torchrun`` (``runtime`` forms the group) every rank
+runs the same ``run()`` on the same seeded stream and holds its share of
+the weights and the KV cache (``DecodeEngine.bind(partitioner=...)``);
+only the chief prints::
+
+    python -m torch.distributed.run --nproc-per-node 2 \
+        -m zookeeper_tpu_torch.serving.decode LMServingConfig ... \
+        partitioner=MeshPartitioner partitioner.mesh_shape='(1,2)' \
+        partitioner.mesh_axes='(data,model)'
+ ``run()`` serves the JAX ``run()``'s seeded
 prompt stream and prints one JSON line: tokens/s, TTFT and inter-token
 percentiles, the resolved decode attention, the KV layout, the pool fill
 and ``decode_mbu`` (see ``DecodeEngine.decode_mbu``: counted from the
@@ -21,7 +33,7 @@ shapes, where the JAX figure comes from XLA's cost analysis).
 
 import json
 import time
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -29,6 +41,8 @@ import torch
 from zookeeper_tpu_torch.core import ComponentField, Field, pretty_print, task
 from zookeeper_tpu_torch.models.base import Model
 from zookeeper_tpu_torch.models.transformer import TransformerLM
+from zookeeper_tpu_torch.parallel.distributed import DistributedRuntime
+from zookeeper_tpu_torch.parallel.partitioner import Partitioner, SingleDevicePartitioner
 from zookeeper_tpu_torch.serving.decode.engine import DecodeEngine
 from zookeeper_tpu_torch.serving.decode.metrics import DecodeMetrics
 from zookeeper_tpu_torch.serving.decode.scheduler import DecodeScheduler
@@ -42,10 +56,23 @@ class LMServingConfig:
     decode engine and scheduler, and report tokens/s and latencies."""
 
     model: Model = ComponentField(TransformerLM)
+    #: The layout to serve under (the training one); the default is one
+    #: card.
+    partitioner: Partitioner = ComponentField(SingleDevicePartitioner)
+    #: Forms the process group under a launcher (``torchrun``).
+    runtime: DistributedRuntime = ComponentField(DistributedRuntime)
     engine: DecodeEngine = ComponentField(DecodeEngine)
     scheduler: DecodeScheduler = ComponentField(DecodeScheduler)
     metrics: DecodeMetrics = ComponentField(DecodeMetrics)
 
+    #: The deployment artifact: a ``save_model`` export or a
+    #: ``Checkpointer`` directory (its latest step). None serves weights
+    #: initialized from ``seed``.
+    checkpoint: Optional[str] = Field(None)
+    #: "auto" serves the EMA when the checkpoint carries one, "ema"
+    #: requires it, "raw" the training parameters
+    #: (``training.checkpoint.select_inference_weights``).
+    weights: str = Field("auto")
     #: The positional capacity the model is built with, and the vocab.
     seq_len: int = Field(128)
     vocab_size: int = Field(256)
@@ -62,16 +89,34 @@ class LMServingConfig:
     device: str = Field("cuda")
 
     def build_service(self):
-        """Build the model with weights from ``seed``, bind and warm the
-        engine, bind the scheduler. Returns ``(engine, scheduler)``."""
+        """Build the model, load or initialize its weights, bind and warm
+        the engine, bind the scheduler. Returns ``(engine, scheduler)``."""
+        if self.weights not in ("auto", "ema", "raw"):
+            raise ValueError(f"weights={self.weights!r} unknown; choose auto/ema/raw.")
         if self.requests < 0 or self.max_prompt < 1 or self.new_tokens < 1:
             raise ValueError(
                 f"requests={self.requests} must be >= 0, max_prompt="
                 f"{self.max_prompt} and new_tokens={self.new_tokens} >= 1."
             )
         module = self.model.build((self.seq_len,), self.vocab_size)
-        self.model.initialize(module, seed=self.seed)
-        self.engine.bind(module, device=self.device)
+        if self.checkpoint:
+            from zookeeper_tpu_torch.training.checkpoint import (
+                export_trees,
+                load_inference_model,
+                load_into_module,
+            )
+
+            params_like, state_like = export_trees(module)
+            params, model_state = load_inference_model(
+                self.checkpoint, weights=self.weights,
+                params_like=params_like, model_state_like=state_like,
+            )
+            load_into_module(module, params, model_state)
+        else:
+            self.model.initialize(module, seed=self.seed)
+        self.runtime.initialize(self.device)
+        self.partitioner.setup()
+        self.engine.bind(module, partitioner=self.partitioner, device=self.device)
         if self.warmup:
             self.engine.warmup()
         self.scheduler.bind(self.engine, metrics=self.metrics)
@@ -91,7 +136,8 @@ class LMServingConfig:
         """Serve the stream, check every stream's output, print and return
         one JSON-able result. The generated tokens stay in
         ``self.outputs``."""
-        if self.verbose:
+        chief = self.partitioner.is_chief
+        if self.verbose and chief:
             print(pretty_print(self), flush=True)
         engine, scheduler = self.build_service()
         try:
@@ -127,7 +173,9 @@ class LMServingConfig:
             "requests": self.requests,
             "generated_tokens": tokens,
             "tokens_per_sec": round(tokens / dt, 1) if dt > 0 else 0.0,
+            "partitioner": type(self.partitioner).__name__,
+            "cache_replicated": engine.cache_replicated,
         }
-        if self.verbose:
+        if self.verbose and chief:
             print(json.dumps(result), flush=True)
         return result

@@ -9,10 +9,23 @@ padding rows are sliced back off. Inference is row-independent
 (BatchNorm uses running statistics), so a request's rows give the same
 answer whichever bucket they ride in.
 
+Under a partitioner (``bind(..., partitioner=...)``) the module serves in
+the layout it trained with (``Partitioner.plan_variables``: the
+tensor-parallel layers on their channel blocks, FSDP's shards gathered
+for each dispatch and freed after, so between requests a rank holds only
+its shards), and each bucket follows its plan (``compile_forward``): a
+bucket whose rows divide the data-axis product runs each rank on its
+share of the rows and gathers the outputs over the data group, any other
+runs replicated; ``infer`` returns every row on every rank. The engine is
+collective when the partitioner spans several ranks: every rank must
+make the same dispatches (the synchronous ``MicroBatcher`` on the same
+stream does), and each dispatch checks that they agree.
+
 Not ported yet (ROADMAP.md): sequence buckets, hot weight swaps and the
-checkpoint watcher, the partitioner, and the program ledger / MFU gauges.
+checkpoint watcher, and the program ledger / MFU gauges.
 """
 
+import contextlib
 from typing import Any, Sequence
 
 import numpy as np
@@ -20,7 +33,7 @@ import torch
 from torch import nn
 
 from zookeeper_tpu_torch.core import Field, component
-from zookeeper_tpu_torch.ops.device import resolve_device
+from zookeeper_tpu_torch.parallel import distributed
 
 
 @component
@@ -41,10 +54,13 @@ MicroBatcher`."""
         *,
         dtype: torch.dtype = torch.float32,
         device: Any = "cuda",
+        partitioner: Any = None,
     ) -> "InferenceEngine":
         """Attach the model to serve: moved to ``device`` and put in eval
         mode. ``input_shape`` is the per-example shape (no batch dim);
-        ``dtype`` the dtype inputs are sent to the card in."""
+        ``dtype`` the dtype inputs are sent to the card in.
+        ``partitioner`` (default: one card) serves under a training
+        layout; every rank binds the same weights."""
         buckets = tuple(int(b) for b in self.batch_buckets)
         if not buckets or any(b < 1 for b in buckets) or list(buckets) != sorted(
             set(buckets)
@@ -53,13 +69,40 @@ MicroBatcher`."""
                 f"batch_buckets={self.batch_buckets!r} must be a non-empty, "
                 "strictly-ascending tuple of positive sizes."
             )
-        device = resolve_device(device)
-        object.__setattr__(self, "_module", module.to(device).eval())
+        if partitioner is None:
+            from zookeeper_tpu_torch.parallel.partitioner import SingleDevicePartitioner
+
+            partitioner = SingleDevicePartitioner()
+        partitioner.setup()
+        device = distributed.local_device(device)
+        module = module.to(device).eval()
+        object.__setattr__(self, "_module", module)
+        object.__setattr__(self, "_partitioner", partitioner)
+        object.__setattr__(self, "_plan", partitioner.plan_variables(module))
+        object.__setattr__(self, "_mesh_key", tuple(partitioner.mesh_sizes.items()))
+        object.__setattr__(self, "_forward_plans", {})
         object.__setattr__(self, "_input_shape", tuple(int(s) for s in input_shape))
         object.__setattr__(self, "_dtype", dtype)
         object.__setattr__(self, "_device", device)
         object.__setattr__(self, "_warmed", set())
         return self
+
+    @property
+    def collective(self) -> bool:
+        """Whether the engine's partitioner spans several ranks: every
+        rank must then make the same dispatches."""
+        return getattr(self, "_partitioner", None) is not None and \
+            self._partitioner.process_span() > 1
+
+    def forward_plan(self, bucket: int):
+        """The bucket's :class:`~zookeeper_tpu_torch.parallel.ForwardPlan`
+        (``Partitioner.compile_forward``), made once per bucket."""
+        self._require_bound()
+        plan = self._forward_plans.get(bucket)
+        if plan is None:
+            plan = self._partitioner.compile_forward(batch_rows=bucket)
+            self._forward_plans[bucket] = plan
+        return plan
 
     def _require_bound(self) -> None:
         if getattr(self, "_module", None) is None:
@@ -126,11 +169,19 @@ MicroBatcher`."""
             )
         n = x.shape[0]
         bucket = self.bucket_for(n)
+        if self.collective:
+            distributed.check_same_dispatch((0, bucket, n, 0), "InferenceEngine")
         if bucket != n:
             x = torch.cat([x, x.new_zeros((bucket - n, *self._input_shape))])
+        plan = self.forward_plan(bucket)
+        weights = (contextlib.nullcontext() if self._plan is None
+                   else self._plan.gathered_weights(self._module))
         with torch.inference_mode():
-            out = self._module(x.to(self._device))[:n]
-        self._warmed.add(bucket)
+            with weights, plan.activation_scope():
+                out = self._module(plan.take(x).to(self._device))
+            out = plan.assemble(out)[:n]
+        # Keyed by bucket and mesh, as the JAX engine's compile cache is.
+        self._warmed.add((bucket, self._mesh_key))
         return out
 
     def __call__(self, x: Any) -> torch.Tensor:

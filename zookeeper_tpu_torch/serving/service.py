@@ -19,8 +19,19 @@ synthetic requests and reports through ``finish_report``: the metrics
 snapshot through ``writer`` (``training.metrics``, ``serve/`` scalars)
 and one printed JSON line (latency p50/p95/p99, bucket fill, padding
 waste, qps). A task that serves other traffic overrides ``run()`` and
-reports the same way (``serving.classifier.ServeDigits``). The
-JAX service's ``watch`` (hot swaps from a live ``Checkpointer``
+reports the same way (``serving.classifier.ServeDigits``).
+
+``partitioner`` serves under a training layout (``parallel``): under
+``torchrun`` (``runtime`` forms the group) every rank builds the same
+weights, runs the same ``run()`` on the same seeded stream and holds its
+share (``InferenceEngine.bind(partitioner=...)``); only the chief
+(``partitioner.is_chief``) prints and writes metrics::
+
+    python -m torch.distributed.run --nproc-per-node 2 \
+        -m zookeeper_tpu_torch.serving ServingConfig model=QuickNet ... \
+        partitioner=DataParallelPartitioner
+
+The JAX service's ``watch`` (hot swaps from a live ``Checkpointer``
 directory) is not ported yet (ROADMAP.md): ``watch=True`` raises.
 """
 
@@ -33,6 +44,8 @@ import torch
 
 from zookeeper_tpu_torch.core import ComponentField, Field, pretty_print, task
 from zookeeper_tpu_torch.models.base import Model
+from zookeeper_tpu_torch.parallel.distributed import DistributedRuntime
+from zookeeper_tpu_torch.parallel.partitioner import Partitioner, SingleDevicePartitioner
 from zookeeper_tpu_torch.serving.batcher import MicroBatcher
 from zookeeper_tpu_torch.serving.engine import InferenceEngine
 from zookeeper_tpu_torch.serving.metrics import ServingMetrics
@@ -45,6 +58,11 @@ class ServingConfig:
     batcher, and report latency percentiles, bucket fill and qps."""
 
     model: Model = ComponentField()
+    #: The layout to serve under (the training one); the default is one
+    #: card.
+    partitioner: Partitioner = ComponentField(SingleDevicePartitioner)
+    #: Forms the process group under a launcher (``torchrun``).
+    runtime: DistributedRuntime = ComponentField(DistributedRuntime)
     engine: InferenceEngine = ComponentField(InferenceEngine)
     batcher: MicroBatcher = ComponentField(MicroBatcher)
     metrics: ServingMetrics = ComponentField(ServingMetrics)
@@ -116,8 +134,11 @@ class ServingConfig:
             load_into_module(module, params, model_state)
         else:
             self.model.initialize(module, seed=self.seed)
+        self.runtime.initialize(self.device)
+        self.partitioner.setup()
         self.engine.bind(
-            module, self.input_shape, dtype=self.model.dtype(), device=self.device
+            module, self.input_shape, dtype=self.model.dtype(), device=self.device,
+            partitioner=self.partitioner,
         )
         if self.warmup:
             self.engine.warmup()
@@ -149,10 +170,13 @@ class ServingConfig:
         counterpart of a compile is a bucket's first run."""
         try:
             qps = n_requests / dt if dt > 0 else 0.0
-            snapshot = self.metrics.emit(
-                self.writer, step=0, extra={"qps": qps, **(writer_extra or {})}
-            )
-            self.writer.flush()
+            chief = self.partitioner.is_chief
+            extra = {"qps": qps, **(writer_extra or {})}
+            if chief:
+                snapshot = self.metrics.emit(self.writer, step=0, extra=extra)
+                self.writer.flush()
+            else:
+                snapshot = self.metrics.snapshot()
             device = self.engine.device
             compiles = self.engine.warmed_buckets
             result = {
@@ -170,7 +194,7 @@ class ServingConfig:
                 "qps": round(qps, 1),
                 **(result_extra or {}),
             }
-            if self.verbose:
+            if self.verbose and chief:
                 print(json.dumps(result), flush=True)
         finally:
             self.batcher.close()
@@ -179,7 +203,7 @@ class ServingConfig:
     def run(self) -> Dict[str, Any]:
         """Serve the stream, check every answer's shape and finiteness,
         report (``finish_report``)."""
-        if self.verbose:
+        if self.verbose and self.partitioner.is_chief:
             print(pretty_print(self), flush=True)
         engine, batcher = self.build_service()
         try:

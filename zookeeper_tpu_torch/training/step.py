@@ -497,7 +497,12 @@ class MultiStep:
         t0 = time.perf_counter()
         self._stream.wait_stream(torch.cuda.current_stream(self._stream.device))
         try:
-            with torch.cuda.graph(graph, pool=self._pool, stream=self._stream):
+            # "thread_local": the loader's prefetch thread keeps pinning and
+            # copying the next batches on its own stream while this thread
+            # captures; in the default global mode such a call from another
+            # thread invalidates the capture.
+            with torch.cuda.graph(graph, pool=self._pool, stream=self._stream,
+                                  capture_error_mode="thread_local"):
                 _, metrics = _slab_steps(self.step_fn, state, buffers)
         finally:
             # The capture ran the host code but no kernel: the state is
