@@ -374,7 +374,29 @@ CUDA card and ``nvcc``. In order:
    16 to 128 channels), each equal to the whole call's channels bit for
    bit; each shard's ms beside the whole call's ms / 4, its bound, its
    plain version and its library call.
-22. One JSON line of the kernels (14 rows; K1, K3, K4, K6 and K7 also
+22. The decode engine's serving features (``features_phase``):
+   phase 10's stream (32 requests) through ``LMServingConfig.run()`` on
+   the paged layout at its defaults (the radix prefix cache on), K9 4 a
+   cold prefill dispatch and K13 4 a decode step; then at phase 10's
+   model (bf16, the kernels on): (a) 32 requests sharing a 1536-token
+   prefix with seeded 1-512-token suffixes, then 32 sharing a 1537-token
+   one (copies forced), served cold (``prefix_cache=False``) and warm:
+   TTFT and prefill-dispatch p50/p99 of each, the hit rate, the copies,
+   no leaked page, and K9 launched only by the cold prefills; (b) a
+   2048-token prompt arriving while 7 streams decode, with
+   ``prefill_chunk_tokens=512`` and without: the 7 streams' inter-token
+   p50/p99/max; (c) ``LMServingConfig.run()`` (16 requests of up to 512
+   tokens, 32 new) plain, then with ``speculative.k=4`` and a fresh
+   1-layer draft, then with the teacher's own export (written to a
+   temporary directory) as the draft: tokens/s, the acceptance rate,
+   ``speculative`` true, the share of tokens equal to the plain run's,
+   and each engine's K9/K12/K13 launches; (d) deterministic fp32 at
+   phase 11's model: warm = cold, chunked = monolithic, speculative
+   (the teacher as its draft, and a fresh 1-layer draft) = plain greedy
+   tokens; (e) on a world-size-1 NCCL group under FSDP and the (1, 1)
+   mesh with ``transformer_tp_rules``: a warm, chunked, speculative run's
+   tokens and launches equal the run with no group's bit for bit.
+23. One JSON line of the kernels (14 rows; K1, K3, K4, K6 and K7 also
    with their sums on Bi-Real-Net's path under ``bireal``; K1, K3 and K4
    under ``densenet`` and ``melius``, K1 and K3 under ``xnor_train`` per
    DenseNet training step, K2 under ``xnor_train`` per BinaryAlexNet
@@ -387,7 +409,8 @@ CUDA card and ``nvcc``. In order:
    their times at the ring's shard shapes; K6-K11 under ``sharded``,
    phase 20's launches and step times, and K9-lse/K10/K11's head-shard
    times; K1, K3, K4, K9, K12 and K13 under ``served_sharded``, phase 21's
-   launches and the block times), then the result line.
+   launches and the block times; K9, K12 and K13 under ``features``,
+   phase 22's launches on each path), then the result line.
 """
 
 import contextlib
@@ -5832,6 +5855,394 @@ def served_sharded_phase(torch, bc, A, smi):
     return results, decode_rows, channel_rows
 
 
+#: Phase 22: phase 10's model on the paged pool, the kernels on.
+FEATURE_ENGINE = {"slots": LM_SLOTS, "seq_buckets": (512, 2048), "page_size": LM_PAGE,
+                  "decode_attention": "kernel", "kv_layout": "paged"}
+#: (a)'s shared prefixes (the second off a page edge: copies forced), the
+#: requests sharing each and their new tokens; suffixes of 1-512 tokens,
+#: cut to fit the largest bucket (2048).
+FEATURE_PREFIXES = (1536, 1537)
+FEATURE_REQUESTS = 32
+FEATURE_NEW = 8
+FEATURE_CHUNK = 512
+SPEC_K = 4
+#: (c)'s stream through LMServingConfig.run() (phase 10's, shorter).
+SPEC_STREAM = {"requests": 16, "max_prompt": 512, "new_tokens": 32,
+               "engine.kv_layout": "paged"}
+_LM_WIDTH = {"d_model": 512, "num_heads": 8, "mlp_ratio": 4}
+#: A fresh 1-layer draft at the teacher's widths, and the teacher's own
+#: geometry (the draft read from its export).
+DRAFT_FRESH = {"speculative.draft_model.num_layers": 1, "speculative.draft_model.compute_dtype":
+               "bfloat16", **{f"speculative.draft_model.{k}": v for k, v in _LM_WIDTH.items()}}
+DRAFT_TEACHER = {**DRAFT_FRESH, "speculative.draft_model.num_layers": LM_LAYERS}
+SPEC_ON = {"speculative.enabled": True, "speculative.k": SPEC_K}
+
+
+def _feature_module(torch, dtype, layers=LM_LAYERS, seed=0):
+    from zookeeper_tpu_torch.core import configure
+    from zookeeper_tpu_torch.models.transformer import TransformerLM
+
+    model = TransformerLM()
+    configure(model, {"num_layers": layers, "compute_dtype": dtype, **_LM_WIDTH}, name="model")
+    return model.initialize(model.build((LM_CAP,), 1024), seed=seed).cuda()
+
+
+def _feature_launches(A, label, launches, engine, spec=None):
+    """Hold one run's K9/K12/K13 launches to its dispatches (the warm-ups
+    included): K9 once a layer a prefill dispatch, K12 (slots) or K13
+    (paged) once a layer a decode step, of the teacher and of the draft;
+    the window dispatches launch none. Fails when a kernel of the path
+    launched no time. Returns the launches."""
+    got = {name: launches.get(name, 0) for name in LM_KERNELS}
+    want = dict.fromkeys(LM_KERNELS, 0)
+    for eng in (engine,) + ((spec.draft_engine,) if spec is not None else ()):
+        layers, d = int(eng._module.num_layers), eng.dispatches
+        want["flash_forward"] += layers * d.get("prefill", 0)
+        kernel = "pool_paged_decode_attention" if eng.paged else "paged_decode_attention"
+        want[kernel] += layers * d.get("decode", 0)
+    check(got == want, f"features {label}: launched {got}, the dispatches say {want} "
+                       f"(teacher {engine.dispatches}"
+                       f"{'' if spec is None else f', draft {spec.draft_engine.dispatches}'})")
+    check(all(launches.get(n, 0) == 0 for n in LM_TRAIN_KERNELS),
+          f"features {label}: serving launched training kernels {launches}")
+    check(got["flash_forward"] > 0 and got["paged_decode_attention"] +
+          got["pool_paged_decode_attention"] > 0,
+          f"features {label}: a kernel of the path launched no time ({got})")
+    return got
+
+
+def _feature_serve(torch, A, module, prompts, budgets, conf=None, draft=None, sched_conf=None):
+    """``prompts`` through a DecodeEngine (FEATURE_ENGINE with ``conf``) and
+    a synchronous DecodeScheduler, speculative when ``draft`` is a module;
+    the counts set to 0 before the bind (the warm-ups count, as in the
+    dispatches) and read after the drain. Returns a record."""
+    from zookeeper_tpu_torch.core import configure
+    from zookeeper_tpu_torch.serving.decode import (
+        DecodeEngine,
+        DecodeMetrics,
+        DecodeScheduler,
+        SpeculativeDecoding,
+    )
+
+    A.reset_launches()
+    engine = DecodeEngine()
+    configure(engine, {**FEATURE_ENGINE, **(conf or {})}, name="engine")
+    engine.bind(module, device="cuda")
+    engine.warmup()
+    spec = None
+    if draft is not None:
+        spec = SpeculativeDecoding()
+        configure(spec, {"enabled": True, "k": SPEC_K}, name="spec")
+        spec.bind(engine, draft)
+    metrics = DecodeMetrics()
+    configure(metrics, {}, name="metrics")
+    sched = DecodeScheduler()
+    configure(sched, dict(sched_conf or {}), name="sched")
+    sched.bind(engine, metrics=metrics, speculative=spec)
+    t0 = time.perf_counter()
+    streams = [sched.submit(p, max_new_tokens=b) for p, b in zip(prompts, budgets)]
+    sched.drain()
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = dict(A.LAUNCHES)
+    tokens = [s.result() for s in streams]
+    check(all(t.shape == (b,) for t, b in zip(tokens, budgets)),
+          "features: a stream ended short of its budget")
+    pool = engine.page_pool
+    if pool is not None:
+        check(pool.leak_check() == 0, f"features: {pool.leak_check()} pages leaked")
+    sched.close()
+    return {"tokens": tokens, "metrics": metrics, "engine": engine, "spec": spec,
+            "launches": launches, "wall_s": wall_s, "streams": streams}
+
+
+def _equal_share(a, b) -> float:
+    import numpy as np
+
+    return sum(int(np.sum(x == y)) for x, y in zip(a, b)) / sum(len(x) for x in a)
+
+
+def _shared_prefix_prompts(seed, prefixes, per_prefix, suffix_max, cap):
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    prompts = []
+    for n in prefixes:
+        prefix = rng.integers(1, 1024, size=n).astype(np.int32)
+        for _ in range(per_prefix):
+            m = int(rng.integers(1, min(suffix_max, cap - n) + 1))
+            prompts.append(np.concatenate([prefix, rng.integers(1, 1024, size=m)
+                                           .astype(np.int32)]))
+    return prompts
+
+
+def _itl_run(torch, A, module, chunk):
+    """(b): 7 streams of 256-token prompts decode; once each has 8 tokens,
+    a 2048-token prompt arrives. The scheduler is stepped by hand; each
+    step ends in the tokens' readback. Returns the 7 streams' inter-token
+    gaps from the arrival on, the long prompt's TTFT, the tokens and the
+    launches."""
+    import numpy as np
+
+    from zookeeper_tpu_torch.core import configure
+    from zookeeper_tpu_torch.serving.decode import DecodeEngine, DecodeScheduler
+
+    A.reset_launches()
+    engine = DecodeEngine()
+    configure(engine, {**FEATURE_ENGINE, "prefix_cache": False, "prefill_chunk_tokens": chunk},
+              name="engine")
+    engine.bind(module, device="cuda")
+    engine.warmup()
+    sched = DecodeScheduler()
+    configure(sched, {}, name="sched")
+    sched.bind(engine)
+    rng = np.random.default_rng(23)
+    short = [rng.integers(1, 1024, size=256).astype(np.int32) for _ in range(LM_SLOTS - 1)]
+    long = rng.integers(1, 1024, size=2048).astype(np.int32)
+    streams = [sched.submit(p, max_new_tokens=48) for p in short]
+    seen, last, gaps, arrival = [0] * len(streams), [0.0] * len(streams), [], None
+    while sched._has_work():
+        sched._pump()
+        now = time.perf_counter()
+        for i, s in enumerate(streams):
+            n = len(s._tokens)
+            if n > seen[i]:
+                if arrival is not None:
+                    gaps.append((now - last[i]) * 1e3)
+                seen[i], last[i] = n, now
+        if arrival is None and min(seen) >= 8:
+            arrival = sched.submit(long, max_new_tokens=8)
+    torch.cuda.synchronize()
+    launches = _feature_launches(A, f"itl chunk={chunk}", dict(A.LAUNCHES), engine)
+    tokens = [s.result() for s in streams + [arrival]]
+    check(engine.page_pool.leak_check() == 0, "features: itl run leaked pages")
+    arr = np.asarray(gaps)
+    rec = {"itl_p50_ms": float(np.percentile(arr, 50)), "itl_p99_ms": float(np.percentile(arr, 99)),
+           "itl_max_ms": float(arr.max()), "gaps": len(gaps), "long_ttft_ms": arrival.ttft_ms,
+           "dispatches": engine.dispatches, "launches": launches}
+    sched.close()
+    return rec, tokens
+
+
+def features_phase(torch, bc, A, smi):
+    """Phase 22 (see the module docstring). Returns {path: K9/K12/K13
+    launches}."""
+    import shutil
+    import socket
+    import tempfile
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from zookeeper_tpu_torch.models.transformer import greedy_decode
+    from zookeeper_tpu_torch.parallel import distributed as D
+    from zookeeper_tpu_torch.parallel import rules as R
+    from zookeeper_tpu_torch.training.checkpoint import export_trees, save_model
+
+    t0 = time.perf_counter()
+    features = {}
+
+    # Phase 10's stream on the paged layout at its defaults.
+    cfg = _lm_config({"engine.kv_layout": "paged"})
+    A.reset_launches()
+    result = cfg.run()
+    torch.cuda.synchronize()
+    check(cfg.engine.prefix_cache and result["prefix_cache_hit_rate"] >= 0,
+          "features: the paged defaults served without the prefix cache")
+    features["paged_defaults"] = _feature_launches(A, "paged defaults", dict(A.LAUNCHES),
+                                                   cfg.engine)
+    check(cfg.engine.page_pool.leak_check() == 0, "features: paged defaults leaked pages")
+    print(f"features: phase 10's stream, paged at the defaults (prefix cache on) on {smi}: "
+          f"{json.dumps({k: result[k] for k in ('tokens_per_sec', 'ttft_p50_ms', 'ttft_p99_ms', 'itl_p50_ms', 'itl_p99_ms', 'prefix_cache_hit_rate', 'prefills_total', 'decode_steps_total')})}"
+          f" dispatches {cfg.engine.dispatches} launches {features['paged_defaults']}", flush=True)
+    del cfg
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (a) Shared prefixes, cold and warm.
+    module = _feature_module(torch, "bfloat16")
+    prompts = _shared_prefix_prompts(22, FEATURE_PREFIXES, FEATURE_REQUESTS, 512, 2048)
+    budgets = [FEATURE_NEW] * len(prompts)
+    runs = {}
+    for label, conf in (("cold", {"prefix_cache": False}), ("warm", {})):
+        run = _feature_serve(torch, A, module, prompts, budgets, conf)
+        run["launches"] = _feature_launches(A, f"shared prefix {label}", run["launches"],
+                                            run["engine"])
+        snap, pool, d = run["metrics"].snapshot(), run["engine"].page_pool, run["engine"].dispatches
+        rec = {k: snap[k] for k in ("ttft_p50_ms", "ttft_p99_ms", "prefill_p50_ms",
+                                    "prefill_p99_ms", "token_p50_ms")}
+        rec.update(wall_s=run["wall_s"], hit_rate=pool.prefix_hit_rate, cow_pages=pool.cow_pages,
+                   leaked=pool.leak_check(), dispatches=d, launches=run["launches"])
+        runs[label] = (run, rec)
+        features[f"shared_prefix_{label}"] = run["launches"]
+        print(f"features (a) {label} on {smi}: {json.dumps(rec)}", flush=True)
+    warm = runs["warm"][0]
+    d = warm["engine"].dispatches
+    cold_admissions = sum(s.shared_tokens == 0 for s in warm["streams"])
+    check(d["prefill"] == len(FEATURE_ENGINE["seq_buckets"]) + cold_admissions
+          and d.get("prefill_warm", 0) == len(FEATURE_ENGINE["seq_buckets"]) + len(prompts)
+          - cold_admissions
+          and 1 <= cold_admissions <= len(FEATURE_PREFIXES),
+          f"features (a): K9 must run for the cold groups only ({cold_admissions} cold "
+          f"admissions, dispatches {d})")
+    check(warm["engine"].page_pool.cow_pages >= FEATURE_REQUESTS - 1,
+          "features (a): the 1537-token prefix forced no copy")
+    print(f"features (a): warm tokens equal cold in {_equal_share(warm['tokens'], runs['cold'][0]['tokens']):.4f} "
+          "of tokens (bf16: the warm suffix runs the plain fp32 window attention, the cold "
+          "prefill K9)", flush=True)
+    del runs, warm
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) A long prompt arriving under decode, chunked and not.
+    itl = {}
+    for chunk in (0, FEATURE_CHUNK):
+        rec, tokens = _itl_run(torch, A, module, chunk)
+        itl[chunk] = (rec, tokens)
+        features["chunked" if chunk else "unchunked"] = rec["launches"]
+        print(f"features (b) prefill_chunk_tokens={chunk} on {smi}: {json.dumps(rec)}", flush=True)
+    print(f"features (b): chunked tokens equal unchunked in "
+          f"{_equal_share(itl[FEATURE_CHUNK][1], itl[0][1]):.4f} of tokens (bf16)", flush=True)
+    del module
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) Speculation through LMServingConfig.run(): plain, a fresh 1-layer
+    # draft, the teacher's own export.
+    tmp = tempfile.mkdtemp(prefix="zk-features-")
+    export = os.path.join(tmp, "teacher")
+    save_model(export, *export_trees(_feature_module(torch, "bfloat16").cpu()))
+    spec_runs = {}
+    for label, extra in (("plain", {}), ("fresh draft", {**SPEC_ON, **DRAFT_FRESH}),
+                         ("teacher draft", {**SPEC_ON, **DRAFT_TEACHER,
+                                            "speculative.draft_checkpoint": export})):
+        cfg = _lm_config({**SPEC_STREAM, **extra})
+        A.reset_launches()
+        result = cfg.run()
+        torch.cuda.synchronize()
+        spec = cfg.scheduler._speculative
+        check(result["speculative"] == bool(extra),
+              f"features (c) {label}: speculative is {result['speculative']}")
+        launches = _feature_launches(A, f"speculative {label}", dict(A.LAUNCHES), cfg.engine,
+                                     spec)
+        features[f"speculative_{label.split()[0]}"] = launches
+        rec = {k: result.get(k) for k in ("tokens_per_sec", "spec_acceptance_rate",
+                                          "spec_draft_tokens_total", "decode_steps_total",
+                                          "token_p50_ms", "itl_p50_ms", "ttft_p50_ms")}
+        rec.update(teacher_dispatches=cfg.engine.dispatches, launches=launches,
+                   draft_dispatches=None if spec is None else spec.draft_engine.dispatches)
+        if spec_runs:
+            rec["equal_to_plain"] = _equal_share(cfg.outputs, spec_runs["plain"][1])
+            rec["tokens_per_sec_over_plain"] = (result["tokens_per_sec"]
+                                                / spec_runs["plain"][0]["tokens_per_sec"])
+        spec_runs[label] = (rec, [o.copy() for o in cfg.outputs])
+        print(f"features (c) {label} on {smi}: {json.dumps(rec)}", flush=True)
+        del cfg
+        gc.collect()
+        torch.cuda.empty_cache()
+    check(spec_runs["teacher draft"][0]["spec_acceptance_rate"] > 0.5,
+          "features (c): the teacher's own export as the draft accepts under half its drafts")
+
+    # (d) Deterministic fp32 identities at phase 11's model.
+    module = _feature_module(torch, "float32")
+    fresh = _feature_module(torch, "float32", layers=1, seed=5)
+    prompts = _shared_prefix_prompts(24, (300,), 8, 100, 2048)
+    rng = np.random.default_rng(25)
+    prompts += [rng.integers(1, 1024, size=int(n)).astype(np.int32) for n in (37, 700)]
+    budgets = [int(b) for b in rng.integers(1, 13, size=len(prompts))]
+    legs = (("warm", {}, None), ("chunked", {"prefix_cache": False, "prefill_chunk_tokens": 128},
+                                 None),
+            ("speculative teacher", {"prefix_cache": False}, module),
+            ("speculative fresh slots", {"kv_layout": "slots"}, fresh))
+    with deterministic(torch):
+        cold = _feature_serve(torch, A, module, prompts, budgets, {"prefix_cache": False})
+        _feature_launches(A, "fp32 cold", cold["launches"], cold["engine"])
+        with mock.patch.object(A, "flash_attention", A.attention_reference):
+            for i in range(2):
+                oracle = greedy_decode(module, torch.from_numpy(prompts[i])[None].cuda(),
+                                       budgets[i])[0, len(prompts[i]):].cpu().numpy()
+                check(np.array_equal(oracle, cold["tokens"][i]),
+                      f"features (d): cold stream {i} differs from greedy_decode")
+        for label, conf, draft in legs:
+            run = _feature_serve(torch, A, module, prompts, budgets, conf, draft)
+            features[f"fp32_{label.replace(' ', '_')}"] = _feature_launches(
+                A, f"fp32 {label}", run["launches"], run["engine"], run["spec"])
+            bad = [i for i, (a, b) in enumerate(zip(run["tokens"], cold["tokens"]))
+                   if not np.array_equal(a, b)]
+            check(not bad, f"features (d) fp32: {label} tokens differ from the cold plain "
+                           f"run's in streams {bad}")
+            extra = ""
+            if label == "warm":
+                pool = run["engine"].page_pool
+                check(run["engine"].dispatches.get("prefill_warm", 0) > 0 and pool.cow_pages > 0,
+                      "features (d): the warm run took no warm admission or copy")
+                extra = f", hit rate {pool.prefix_hit_rate:.4f}, {pool.cow_pages} copies"
+            if run["spec"] is not None:
+                extra = f", acceptance {run['spec'].acceptance_rate:.4f}"
+            print(f"features (d) fp32: {label} tokens equal the cold plain run's "
+                  f"({sum(budgets)} of {sum(budgets)}{extra})", flush=True)
+    del module, fresh, cold, run
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (e) On a world-size-1 NCCL group: warm, chunked and speculative at once.
+    prompts = _shared_prefix_prompts(26, (600,), 6, 200, 2048)
+    conf = {"engine.kv_layout": "paged", "engine.prefill_chunk_tokens": FEATURE_CHUNK,
+            **SPEC_ON, **DRAFT_FRESH}
+
+    def grouped(part, rules=None):
+        cfg = _lm_config({**conf, **part})
+        if rules is not None:
+            cfg.partitioner.with_rules(getattr(R, rules)())
+        _reset_all(bc, A)
+        with deterministic(torch):
+            engine, sched = cfg.build_service()
+            # The first prompt's pages are cached before the others arrive.
+            streams = [sched.submit(prompts[0], max_new_tokens=FEATURE_NEW)]
+            sched.drain()
+            streams += [sched.submit(p, max_new_tokens=FEATURE_NEW) for p in prompts[1:]]
+            sched.drain()
+            torch.cuda.synchronize()
+        launches = _feature_launches(A, f"grouped {part.get('partitioner', 'none')}",
+                                     _launch_counts(bc, A), engine, sched._speculative)
+        tokens = [s.result() for s in streams]
+        check(engine.page_pool.cow_pages > 0 and engine.dispatches.get("prefill_chunk", 0) > 0
+              and sched._speculative is not None,
+              "features (e): the run took no copy, no chunk or no speculation")
+        sched.close()
+        return tokens, launches
+
+    base_tokens, base_launches = grouped({})
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    launcher = {"MASTER_ADDR": "localhost", "MASTER_PORT": str(port), "RANK": "0",
+                "WORLD_SIZE": "1", "LOCAL_RANK": "0"}
+    with mock.patch.dict(os.environ, launcher):
+        D.initialize_distributed(device="cuda")
+        check(dist.get_backend() == "nccl" and dist.get_world_size() == 1,
+              "features: no world-size-1 NCCL group")
+        for label, part, rules in (("fsdp", _FSDP, None),
+                                   ("tp", _TP_MESH, "transformer_tp_rules")):
+            tokens, launches = grouped(part, rules)
+            check(all(np.array_equal(a, b) for a, b in zip(tokens, base_tokens))
+                  and launches == base_launches,
+                  f"features (e): {label} tokens or launches ({launches}) differ from the run "
+                  f"with no group ({base_launches})")
+            features[f"world1_{label}"] = launches
+            print(f"features (e): warm + chunked + speculative under {label} on the "
+                  "world-size-1 NCCL group equal the run with no group bit for bit "
+                  f"({sum(map(len, tokens))} tokens, launches {json.dumps(launches)})", flush=True)
+        D.shutdown_distributed()
+    check(not D.is_distributed_initialized(), "features: the group outlived the phase")
+    features["world1_no_group"] = base_launches
+    shutil.rmtree(tmp, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"features: phase 22 in {time.perf_counter() - t0:.1f} s", flush=True)
+    return features
+
+
 def main() -> None:
     if not os.path.isdir(os.path.join(ROOT, "zookeeper_tpu_torch", "csrc")):
         fail("run from a checkout: zookeeper_tpu_torch/ is not beside this script")
@@ -5935,6 +6346,8 @@ def main() -> None:
     elapsed("sharded")
     served, decode_shard_rows, channel_rows = served_sharded_phase(torch, bc, A, smi)
     elapsed("served sharded")
+    features = features_phase(torch, bc, A, smi)
+    elapsed("serving features")
     served_rows = {}
     for name in ("pack_rows", "conv_gemm_popcount", "packed_weight_matmul", *LM_KERNELS):
         lm = name in LM_KERNELS
@@ -6138,6 +6551,7 @@ def main() -> None:
             rows[-1]["int8_ms"] = LM_LAYERS * int8["ms"]
             rows[-1]["int8_bound_ms"] = LM_LAYERS * int8["bound_ms"]
         rows[-1]["served_sharded"] = served_rows[name]
+        rows[-1]["features"] = {path: n[name] for path, n in features.items()}
     # LM training kernels, per training step: 4 launches each (one per
     # layer) at the full-width shape.
     label = "[{}, {}, {}, {}] bfloat16 causal=True".format(*LM_TRAIN_SHAPE)

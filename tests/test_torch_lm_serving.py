@@ -265,7 +265,7 @@ def test_lm_serving_cli_prints_one_json_line(tmp_path):
         "model.num_layers=2", "model.d_model=32", "model.num_heads=4", "seq_len=64",
         f"vocab_size={VOCAB}", "device=cpu", "requests=5", "max_prompt=12",
         "new_tokens=4", "engine.slots=2", "engine.seq_buckets=(8,16)",
-        "engine.kv_layout=paged", "engine.prefix_cache=False", "engine.page_size=4",
+        "engine.kv_layout=paged", "engine.page_size=4",
     ]
     proc = subprocess.run(cmd, capture_output=True, text=True, timeout=120, check=True)
     lines = [l for l in proc.stdout.splitlines() if l.startswith("{")]
@@ -293,25 +293,10 @@ def test_service_serves_the_jax_prompt_stream():
     assert result["generated_tokens"] == 12 and len(cfg.outputs) == 4
 
 
-# -- settings this slice does not port ----------------------------------------
+# -- paths this slice does not port ----------------------------------------
 
 
-@pytest.mark.parametrize(
-    "conf,match",
-    [
-        ({"kv_layout": "paged"}, "prefix cache"),
-        ({"kv_layout": "paged", "prefix_cache": False, "prefill_chunk_tokens": 8},
-         "chunked prefill"),
-    ],
-)
-def test_deferred_settings_raise(lm, conf, match):
-    _, _, mod = lm
-    with pytest.raises(NotImplementedError, match=match):
-        _port_engine(mod, **conf)
-
-
-@pytest.mark.parametrize("method", ["prefill_warm", "prefill_chunk", "verify",
-                                    "export_pages", "import_pages", "swap_weights"])
+@pytest.mark.parametrize("method", ["export_pages", "import_pages", "swap_weights"])
 def test_deferred_paths_raise(lm, method):
     _, _, mod = lm
     engine = _port_engine(mod)

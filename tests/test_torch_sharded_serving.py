@@ -65,6 +65,15 @@ DECODE_LEGS = (
 )
 
 
+#: The radix prefix cache and chunked prefill at world size 2, on a
+#: stream of shared prefixes (label, partitioner, conf, rules, engine).
+FEATURE_LEGS = (
+    ("dp2 warm", _TP[0], _mesh((2, 1)), _TP[1], {**ENGINE, "kv_layout": "paged"}),
+    ("tp2 warm chunked", _TP[0], _mesh((1, 2)), _TP[1],
+     {**ENGINE, "kv_layout": "paged", "prefill_chunk_tokens": 4}),
+)
+
+
 def _legs(world):
     return [(f"{label} {layout}", name, conf, rules, {**ENGINE, **LAYOUTS[layout], **extra})
             for label, w, name, conf, rules, layouts, extra in DECODE_LEGS if w == world
@@ -97,6 +106,19 @@ def _stream():
 
 
 @functools.lru_cache(maxsize=1)
+def _feature_stream():
+    """Eight prompts that share 3-6 tokens of one prefix (on and off the
+    4-token page edge) before seeded suffixes, and their budgets."""
+    rng = np.random.default_rng(9)
+    prefix = rng.integers(1, VOCAB, size=6).astype(np.int32)
+    prompts = [np.concatenate([prefix[:int(n)], rng.integers(1, VOCAB, size=int(m))
+                               .astype(np.int32)])
+               for n, m in zip(rng.integers(3, 7, size=8), rng.integers(1, 6, size=8))]
+    budgets = [int(b) for b in rng.integers(2, 6, size=8)]
+    return prompts, budgets
+
+
+@functools.lru_cache(maxsize=1)
 def _oracles():
     """The JAX single-device oracles: ``greedy_decode`` (full recompute)
     for the float layouts, the JAX engine (single device, int8 pool,
@@ -117,7 +139,11 @@ def _oracles():
     sched.bind(engine)
     streams = [sched.submit(p, max_new_tokens=b) for p, b in zip(prompts, budgets)]
     sched.drain()
-    return {"float": greedy, "int8": [np.asarray(s.result()) for s in streams]}
+    feature_prompts, feature_budgets = _feature_stream()
+    features = [np.asarray(greedy_decode(jmod, {"params": params}, p[None], b))[0, len(p):]
+                for p, b in zip(feature_prompts, feature_budgets)]
+    return {"float": greedy, "int8": [np.asarray(s.result()) for s in streams],
+            "features": features}
 
 
 CLASSES = 4
@@ -191,8 +217,11 @@ def _infer_legs():
             for label, model, conf, key, shape, name, pconf, rules, buckets in INFER_LEGS_4]
 
 
-def _all_legs(rank, world, out_dir, lm, stream, decode, infer, qn_batches, mlp_batches):
+def _all_legs(rank, world, out_dir, lm, stream, decode, infer, qn_batches, mlp_batches,
+              features):
     serving_workers.decode_legs(rank, world, out_dir, lm, *stream, decode)
+    if features:
+        serving_workers.decode_legs(rank, world, out_dir + "/features", lm, *features)
     if infer:
         mlp = [leg for leg in infer if leg[1] == "Mlp"]
         qn = [leg for leg in infer if leg[1] != "Mlp"]
@@ -209,12 +238,15 @@ def ranks(tmp_path_factory):
     out = {}
     for world in (2, 4):
         out_dir = tmp_path_factory.mktemp(f"serve{world}")
-        for sub in ("mlp", "qn"):
+        for sub in ("mlp", "qn", "features"):
             (out_dir / sub).mkdir()
         infer = _infer_legs() if world == 4 else []
+        features = (*_feature_stream(), FEATURE_LEGS) if world == 2 else None
         workers.spawn(_all_legs, world, str(out_dir), lm, _stream(), _legs(world), infer,
-                      _batches(QN_SHAPE), _batches(MLP_SHAPE), timeout=240)
+                      _batches(QN_SHAPE), _batches(MLP_SHAPE), features, timeout=240)
         out[world] = {"decode": workers.load(str(out_dir), "decode", world)}
+        if features:
+            out[world]["features"] = workers.load(str(out_dir / "features"), "decode", world)
         if infer:
             out[world]["mlp"] = workers.load(str(out_dir / "mlp"), "infer", world)
             out[world]["qn"] = workers.load(str(out_dir / "qn"), "infer", world)
@@ -433,6 +465,32 @@ def test_sharded_decode_tokens_equal_the_jax_oracles(ranks, world):
         for r, res in enumerate(results):
             for got, want in zip(res[label]["tokens"], oracle):
                 np.testing.assert_array_equal(got, want, err_msg=f"{label} rank {r}")
+
+
+def test_prefix_cache_and_chunks_at_world_size_two_equal_the_oracles(ranks):
+    """The radix prefix cache (dp2: every rank runs the whole warm group;
+    its pool copies stay equal) and chunked prefill with it (tp2: the
+    window's heads relayed and its partials summed): every rank's tokens
+    equal the JAX greedy oracle's, warm admissions and copies happened,
+    nothing leaked, and the ranks' host state agrees."""
+    oracles = _oracles()["features"]
+    results = ranks[2]["features"]
+    for label, *_ in FEATURE_LEGS:
+        for r, res in enumerate(results):
+            got = res[label]
+            for i, (tokens, want) in enumerate(zip(got["tokens"], oracles)):
+                np.testing.assert_array_equal(tokens, want, err_msg=f"{label} rank {r} #{i}")
+            status = got["pool_status"]
+            assert status["leaked"] == 0 and status["prefix_hits"] > 0, label
+            assert status["cow_pages"] > 0, label
+            assert got["dispatches"] == results[0][label]["dispatches"], label
+            assert status == results[0][label]["pool_status"], label
+        d = results[0][label]["dispatches"]
+        assert d["prefill_chunk" if "chunked" in label else "prefill_warm"] > 0, label
+        if label.startswith("dp2"):
+            for got, want in zip(results[1][label]["pool"], results[0][label]["pool"]):
+                for name in want:
+                    assert torch.equal(got[name], want[name]), (label, name)
 
 
 def test_each_rank_holds_its_block_of_the_kv_state(ranks):

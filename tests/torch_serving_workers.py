@@ -55,7 +55,8 @@ def decode_legs(rank, world, out_dir, lm, prompts, budgets, legs):
     ``DecodeEngine`` under the partitioner, the prompts served through the
     synchronous ``DecodeScheduler``: the tokens, whether the cache
     replicated and the warnings, this rank's cache blocks and bytes, the
-    blocks' model groups, and (paged) every layer's pool after the run."""
+    blocks' model groups, the engine's dispatches, and (paged) every
+    layer's pool and the pool's status after the run."""
     from zookeeper_tpu_torch.core import configure
     from zookeeper_tpu_torch.serving.decode import DecodeEngine, DecodeScheduler
 
@@ -86,6 +87,8 @@ def decode_legs(rank, world, out_dir, lm, prompts, budgets, legs):
             "qkv_shape": tuple(block.qkv.weight.shape),
             "pool": ([{k: t.clone() for k, t in layer.items()} for layer in engine.cache]
                      if engine.paged else None),
+            "dispatches": engine.dispatches,
+            "pool_status": engine.pool_status(),
         }
     _save(out_dir, "decode", rank, out)
 

@@ -55,7 +55,12 @@ split each rank decodes its own slots; a page pool, which every data
 rank holds whole, takes every slot's new rows (gathered over the data
 group) so its copies stay equal. ``prefill`` under a model group
 returns each layer's K/V for the rank's heads only.
-The speculative ``decode_verify`` paths are not ported yet (ROADMAP.md).
+
+``decode_verify`` / ``decode_verify_paged`` take ``w`` tokens per
+sequence in one dispatch (the speculative verify; over the pool also the
+warm-prefix extend and the prefill chunk), their attention the plain
+fp32 ``verify_cached_attention`` / ``pool_verify_attention``, their
+heads relayed as the decode steps' are.
 """
 
 import math
@@ -151,6 +156,25 @@ def _pool_write_rows(layer: Dict[str, torch.Tensor], rows: Dict[str, torch.Tenso
     _pool_store(layer, {name: rows[name][keep] for name in ("k", "v")},
                 pages[keep], offsets[keep])
     return layer
+
+
+def pool_window_write(page_table: torch.Tensor, lengths: torch.Tensor, w: int,
+                      page_size: int, valid: torch.Tensor = None):
+    """Where a window's rows land in a page pool: ``(rows, pages,
+    offsets)`` for the rows, flattened over ``[slots, w]``, whose write is
+    live. Position ``lengths + j`` goes to ``(page_table[slot, pos //
+    page_size], pos % page_size)``; an unallocated entry, a position past
+    the table or a row ``j >= valid`` (when given) drops. Found once for
+    every layer (one readback of the mask)."""
+    max_pages = page_table.shape[1]
+    pos = lengths.long()[:, None] + torch.arange(w, device=page_table.device)[None, :]
+    row = (pos // page_size).clamp(0, max_pages - 1)
+    page = page_table.long().gather(1, row)
+    live = (page >= 0) & (pos < max_pages * page_size)
+    if valid is not None:
+        live &= torch.arange(w, device=page_table.device)[None, :] < valid.long()[:, None]
+    rows = live.reshape(-1).nonzero()[:, 0]
+    return rows, page.reshape(-1)[rows], (pos % page_size).reshape(-1)[rows]
 
 
 def _summed(partial: torch.Tensor, tp) -> torch.Tensor:
@@ -260,12 +284,12 @@ class _Block(nn.Module):
         return (relay_heads(t, self._tp_attn, cache) for t in self._heads(x, self._tp_attn))
 
     def _decode_out(self, x, o, shard):
-        """The block's output from the attention output ``o [b, 1, heads,
+        """The block's output from the attention output ``o [b, n, heads,
         head_dim]`` in the cache's head layout: back to the ``proj``
         input's heads, the row-parallel partials summed."""
-        b = x.shape[0]
+        b, n = x.shape[:2]
         o = relay_heads(o, None if shard is None else shard.heads, self._tp_attn)
-        return self._mlp(x + _summed(self.proj(o.reshape(b, 1, -1)), self._tp_attn))
+        return self._mlp(x + _summed(self.proj(o.reshape(b, n, -1)), self._tp_attn))
 
     def decode(self, x, k_cache, v_cache, lengths, shard=None):
         """One cached step: write the new K/V at ``clamp(lengths, 0,
@@ -304,6 +328,43 @@ class _Block(nn.Module):
             o = attn_ops.sharded_pool_paged_decode_attention(
                 q, layer["k"], layer["v"], page_table, lengths, **scales,
                 **shard.attention_kwargs())
+        return self._decode_out(x, o, shard)
+
+    def decode_verify(self, x, k_cache, v_cache, lengths, shard=None):
+        """The multi-token step (the speculative verify): ``x [b, w, d]``,
+        position ``j`` the token at index ``lengths + j``. All ``w`` new
+        K/V rows land at ``lengths`` in place (``append_kv_rows``, its
+        start clamped to ``capacity - w``) and position ``j`` attends rows
+        ``0..lengths + j`` (``verify_cached_attention``, plain fp32).
+        Rollback is by length: the caller advances ``lengths`` over the
+        accepted prefix only. Under a ``shard`` the heads relay as in
+        :meth:`decode`."""
+        from zookeeper_tpu_torch.serving.decode.cache import append_kv_rows
+
+        q, k, v = self._decode_heads(x, shard)
+        append_kv_rows(k_cache, k, lengths)
+        append_kv_rows(v_cache, v, lengths)
+        o = attn_ops.verify_cached_attention(q, k_cache, v_cache, lengths)
+        return self._decode_out(x, o, shard)
+
+    def decode_verify_paged(self, x, layer, page_table, lengths, write, shard=None):
+        """The page-pool twin of :meth:`decode_verify` (also the
+        warm-prefix extend and the prefill chunk): ``write = (rows, pages,
+        offsets)`` names the window rows, flattened over ``[slots, w]``,
+        that land in the pool and where (the others drop theirs); every
+        position attends through the table (``pool_verify_attention``).
+        Under a ``shard`` with a data split the slots are global and every
+        data rank's rows are gathered first, as in :meth:`decode_paged`."""
+        q, k, v = self._decode_heads(x, shard)
+        rows, pages, offsets = write
+        new = {"k": k, "v": v}
+        if shard is not None:
+            new = {name: shard.gather_slots(r) for name, r in new.items()}
+        new = {name: r.reshape(-1, *r.shape[2:]) for name, r in new.items()}
+        _pool_store(layer, {name: r[rows] for name, r in new.items()}, pages, offsets)
+        o = attn_ops.pool_verify_attention(q, layer["k"], layer["v"], page_table, lengths,
+                                           k_scale=layer.get("k_scale"),
+                                           v_scale=layer.get("v_scale"))
         return self._decode_out(x, o, shard)
 
 
@@ -425,19 +486,63 @@ class TransformerLMModule(nn.Module):
         computes it from the whole table)."""
         x = self._step_input(tokens, lengths, cache)
         if write is None:
-            num_pages, ps = cache[0]["k"].shape[:2]
-            max_pages = page_table.shape[1]
-            lens = lengths.long()
-            row = (lens // ps).clamp(0, max_pages - 1)
-            page = page_table.long().gather(1, row[:, None])[:, 0]
-            live = (page >= 0) & (lens < max_pages * ps)
-            # The slots whose write lands, found once for every layer (one
-            # readback of the mask, not one per layer).
-            slots = live.nonzero()[:, 0]
-            write = (slots, page[slots], (lens % ps)[slots])
+            write = pool_window_write(page_table, lengths, 1, cache[0]["k"].shape[1])
         for block, layer in zip(self.blocks, cache):
             x = block.decode_paged(x, layer, page_table, lengths, write, shard)
         return self._logits(x)[:, 0], tuple(cache)
+
+    def _window_input(self, tokens: torch.Tensor, lengths: torch.Tensor, cache) -> torch.Tensor:
+        if len(cache) != self.num_layers:
+            raise ValueError(
+                f"cache has {len(cache)} layers, model has {self.num_layers}."
+            )
+        if tokens.dim() != 2:
+            raise ValueError(
+                f"a verify window expects [batch, w] int tokens, got shape "
+                f"{tuple(tokens.shape)}."
+            )
+        w = tokens.shape[1]
+        pos_idx = (lengths.long()[:, None]
+                   + torch.arange(w, device=tokens.device)[None, :]).clamp(0, self.max_seq_len - 1)
+        return (self.embed[tokens.long()] + self.pos[pos_idx]).to(self.dtype)
+
+    def decode_verify(self, tokens: torch.Tensor, lengths: torch.Tensor,
+                      cache: Sequence[Dict[str, torch.Tensor]], shard=None):
+        """``w`` tokens per sequence in one dispatch (the speculative
+        verify): ``tokens [b, w]``, token ``j`` at position ``lengths +
+        j`` (clamped to the positional table). All ``w`` K/V rows are
+        appended to every layer's slot buffers in place. Returns
+        ``(logits [b, w, vocab], cache)``: ``logits[:, j]`` is the
+        distribution after token ``j``. The caller owns the lengths
+        (rollback is advancing them over the accepted prefix only). At
+        ``w == 1`` this computes what :meth:`decode_step` does, with the
+        plain attention."""
+        x = self._window_input(tokens, lengths, cache)
+        for block, layer in zip(self.blocks, cache):
+            x = block.decode_verify(x, layer["k"], layer["v"], lengths, shard)
+        return self._logits(x), tuple(cache)
+
+    def decode_verify_paged(self, tokens: torch.Tensor, lengths: torch.Tensor,
+                            cache: Sequence[Dict[str, torch.Tensor]],
+                            page_table: torch.Tensor, valid: torch.Tensor = None,
+                            shard=None, write=None):
+        """:meth:`decode_verify` over a shared page pool: the window's rows
+        go through the page table (a window crossing a page edge lands in
+        two pages). Also the warm-prefix extend and the prefill chunk: a
+        prompt whose first ``lengths`` tokens are resident enters with the
+        rest as the window, ``valid [b]`` bounding the real rows of each
+        (the others write nowhere; None: all ``w``). A row whose table
+        entry is unallocated or whose position is past the table drops
+        its write. Under a ``shard`` whose slots split over the data axes,
+        ``write`` is the write of every global slot's rows (the engine
+        computes it from the whole table)."""
+        x = self._window_input(tokens, lengths, cache)
+        if write is None:
+            write = pool_window_write(page_table, lengths, tokens.shape[1],
+                                      cache[0]["k"].shape[1], valid)
+        for block, layer in zip(self.blocks, cache):
+            x = block.decode_verify_paged(x, layer, page_table, lengths, write, shard)
+        return self._logits(x), tuple(cache)
 
 
 @torch.no_grad()

@@ -50,6 +50,12 @@ The sharded decode path (:func:`sharded_paged_decode_attention`,
 :func:`sharded_pool_paged_decode_attention`): K12 or K13 on this rank's
 (slots, heads) block, zero collectives.
 
+The multi-position windows of the speculative verify, the warm-prefix
+extend and chunked prefill (:func:`verify_cached_attention`,
+:func:`pool_verify_attention`) are plain fp32 PyTorch, as the JAX
+functions are plain einsums: a window-of-``w`` K12/K13 is queued in
+ROADMAP.md.
+
 Sequence parallelism across ranks (the JAX package's shard_map
 programs, each rank holding its sequence shard): :func:`ring_attention`
 (dense blocks), :func:`ring_flash_attention` (:func:`ring_flash_step`
@@ -65,6 +71,7 @@ version differ only by the order of fp32 sums (online softmax over
 other blocks), within the JAX package's stated tolerances.
 """
 
+import contextlib
 import math
 from typing import Dict, Optional, Tuple
 
@@ -184,6 +191,68 @@ def pool_decode_attention(
     kc = _gathered_pool_view(k_pool, page_table, k_scale)
     vc = _gathered_pool_view(v_pool, page_table, v_scale)
     return cached_attention(q, kc, vc, lengths, scale=scale)
+
+
+@contextlib.contextmanager
+def _fp32_products():
+    """fp32 products at full precision (no TF32) on the card, the JAX
+    functions' ``Precision.HIGHEST``."""
+    prev = torch.get_float32_matmul_precision()
+    if prev != "highest":
+        torch.set_float32_matmul_precision("highest")
+    try:
+        yield
+    finally:
+        if prev != "highest":
+            torch.set_float32_matmul_precision(prev)
+
+
+def verify_cached_attention(
+    q: torch.Tensor,
+    k_cache: torch.Tensor,
+    v_cache: torch.Tensor,
+    lengths: torch.Tensor,
+    *,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Multi-position attention over a per-sequence KV cache (the
+    speculative verify and the warm-extend window): ``q [b, w, h, d]``,
+    position ``j`` the token at index ``lengths + j``; ``k_cache/v_cache
+    [b, capacity, h, d]`` already holding the ``w`` new rows. Position
+    ``j`` attends rows ``0..lengths + j``. Output ``[b, w, h, d]`` in q's
+    dtype. :func:`cached_attention` op for op (fp32 scores and products,
+    the finite mask value); at ``w == 1`` the same computation. Plain
+    PyTorch: no kernel serves it yet (ROADMAP.md)."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    with _fp32_products():
+        s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k_cache.float()) * float(scale)
+        ki = torch.arange(k_cache.shape[1], device=s.device)
+        qi = torch.arange(q.shape[1], device=s.device)
+        limit = lengths.to(s.device).long()[:, None] + qi[None, :]  # [b, w]
+        mask = ki[None, None, None, :] <= limit[:, None, :, None]
+        s = torch.where(mask, s, _MASK_VALUE)
+        p = torch.softmax(s, dim=-1)
+        return torch.einsum("bhqk,bkhd->bqhd", p, v_cache.float()).to(q.dtype)
+
+
+def pool_verify_attention(
+    q: torch.Tensor,
+    k_pool: torch.Tensor,
+    v_pool: torch.Tensor,
+    page_table: torch.Tensor,
+    lengths: torch.Tensor,
+    *,
+    k_scale: Optional[torch.Tensor] = None,
+    v_scale: Optional[torch.Tensor] = None,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """:func:`verify_cached_attention` over a shared page pool, through
+    the slots' page tables (the operands of :func:`pool_decode_attention`;
+    int8 pools dequantized in the gathered view)."""
+    kc = _gathered_pool_view(k_pool, page_table, k_scale)
+    vc = _gathered_pool_view(v_pool, page_table, v_scale)
+    return verify_cached_attention(q, kc, vc, lengths, scale=scale)
 
 
 # -- K9, K10, K11: flash attention forward and backward --------------------

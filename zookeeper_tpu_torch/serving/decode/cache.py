@@ -11,8 +11,9 @@ meaningful iff ``j < length`` for its current occupant. Prefill writes
 rows ``[0, seq_bucket)`` (rows past the prompt hold padding garbage), a
 decode step writes row ``length`` and then advances ``length``, so
 garbage always sits at ``j >= length``, where decode attention masks it;
-refilling a slot needs no zeroing. The speculative ``append_kv_rows``
-is not ported yet (ROADMAP.md).
+refilling a slot needs no zeroing. A verify window writes ``w`` rows
+from ``length`` at once (:func:`append_kv_rows`); rolling back a
+rejected suffix is just not advancing ``length`` over it.
 
 Under a partitioner (``shard``, a ``parallel.shards.DecodeShard``) a
 rank allocates and counts only its block: its slots of the data split,
@@ -25,7 +26,7 @@ from typing import Any, Dict, Iterable, Tuple
 
 import torch
 
-__all__ = ["allocate_kv_cache", "kv_cache_bytes", "pages_in_use"]
+__all__ = ["allocate_kv_cache", "append_kv_rows", "kv_cache_bytes", "pages_in_use"]
 
 
 def allocate_kv_cache(
@@ -54,6 +55,23 @@ def allocate_kv_cache(
          "v": torch.zeros(shape, dtype=dtype, device=device)}
         for _ in range(num_layers)
     )
+
+
+def append_kv_rows(cache_buf: torch.Tensor, rows: torch.Tensor,
+                   starts: torch.Tensor) -> torch.Tensor:
+    """Write ``w`` new K/V rows per slot, ``rows [slots, w, heads,
+    head_dim]``, into ``cache_buf [slots, capacity, heads, head_dim]`` at
+    each slot's ``starts [slots]`` along the capacity axis, in place;
+    returns ``cache_buf``. A start is clamped to ``[0, capacity - w]`` (a
+    dynamic-update-slice's semantics) so an idle slot's write stays in
+    bounds: callers keep active slots at ``start + w <= capacity`` (the
+    scheduler's speculation check), else a clamped write lands on live
+    rows."""
+    b, w = rows.shape[:2]
+    starts = starts.long().clamp(0, cache_buf.shape[1] - w)
+    idx = starts[:, None] + torch.arange(w, device=cache_buf.device)[None, :]
+    cache_buf[torch.arange(b, device=cache_buf.device)[:, None], idx] = rows.to(cache_buf.dtype)
+    return cache_buf
 
 
 def kv_cache_bytes(

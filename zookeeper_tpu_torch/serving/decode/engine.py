@@ -12,9 +12,25 @@ The port of ``zookeeper_tpu/serving/decode/engine.py``'s
   slot caches, or K13 through the page tables), inactive slots riding
   along with their output ignored.
 
+The serving features add windows of several positions, the module's
+``decode_verify`` / ``decode_verify_paged`` (plain fp32 attention):
+
+- **verify** (``w`` tokens for every slot, the speculative teacher's
+  ``k + 1`` and the draft's width-2 catch-up);
+- **prefill_warm** (the radix prefix cache, paged: a prompt whose prefix
+  is resident in shared pages runs only its suffix, over the
+  ``prefill_buckets`` x ``seq_buckets`` width grid) and **prefill_chunk**
+  (chunked prefill, paged: one chunk of each of a group of prompts,
+  appended at its cursor), both with the first token from each row's
+  last real position;
+- **copy_page**: the copy-on-write of one pool page, every layer's k/v
+  (and scale) rows, before a warm suffix writes into it.
+
 PyTorch runs eagerly, so there is nothing to compile: ``warmup()`` runs
-each bucket and one decode step once, which builds the kernels and warms
-the allocator before the first request. The cache is written in place.
+each bucket and one decode step once (and, paged with the prefix cache
+or chunking, each extend width), which builds the kernels and warms the
+allocator before the first request; ``warmup_verify(w)`` runs a verify
+window. The cache is written in place. ``dispatches`` counts each kind.
 
 Under a partitioner (``bind(module, partitioner=...)``) the module serves
 in the layout it trained with (``Partitioner.plan_variables``: the
@@ -31,13 +47,18 @@ must make the same dispatches (the synchronous ``DecodeScheduler`` on
 the same stream does), and when the partitioner spans several ranks
 each dispatch checks that they agree (``parallel.distributed.check_same_dispatch``).
 
-Not ported yet (ROADMAP.md), each raising ``NotImplementedError``: the
-radix prefix cache (``prefix_cache=True`` with the paged layout),
-chunked prefill, warm-prefix and chunk prefill, speculative verify, page
-transfer, weight hot-swap and the program ledger.
+A window over a group (warm extend, chunk) runs like a prefill: every
+rank runs the whole group and writes its heads of every row; a verify
+window runs like a decode step (each data rank its slots, the pool
+taking every slot's rows). The host state (table, refcounts, trie) is
+the same on every rank. Not ported yet (ROADMAP.md), each raising
+``NotImplementedError``: page transfer, weight hot-swap and the program
+ledger (``ledger_prefix`` is accepted and inert).
 """
 
+import collections
 import contextlib
+import dataclasses
 import logging
 import statistics
 import time
@@ -47,7 +68,7 @@ import numpy as np
 import torch
 
 from zookeeper_tpu_torch.core import Field, component
-from zookeeper_tpu_torch.models.transformer import _pool_write_rows
+from zookeeper_tpu_torch.models.transformer import _pool_write_rows, pool_window_write
 from zookeeper_tpu_torch.parallel import distributed
 from zookeeper_tpu_torch.parallel.shards import DecodeShard
 from zookeeper_tpu_torch.serving.decode.cache import (
@@ -66,7 +87,7 @@ __all__ = ["DecodeEngine"]
 logger = logging.getLogger(__name__)
 
 #: The dispatch kinds :func:`check_same_dispatch` compares.
-_PREFILL, _DECODE = 1, 2
+_PREFILL, _DECODE, _WARM, _CHUNK, _VERIFY, _COPY = 1, 2, 3, 4, 5, 6
 
 #: HBM bandwidth of an H100 SXM (NVIDIA data sheet), the denominator of
 #: ``decode_mbu``.
@@ -106,11 +127,20 @@ class DecodeEngine:
     #: Paged-pool rows: "none" (the compute dtype) or "int8" (with fp32
     #: per-(row, head) scales).
     kv_quant: str = Field("none")
-    #: Radix prefix cache (paged only): not ported, so the paged layout
-    #: needs ``prefix_cache=False``.
+    #: Radix prefix cache over prompt prefixes (paged only): a warm
+    #: admission references the cached pages of its longest cached prefix
+    #: and runs only its suffix (copy-on-write at a mid-page divergence,
+    #: LRU eviction under pool pressure). Off: every admission is cold.
     prefix_cache: bool = Field(True)
-    #: Chunked prefill: not ported, must stay 0.
+    #: Chunked prefill (paged only): > 0 splits every admitted prompt into
+    #: chunks of at most this many tokens, which the scheduler interleaves
+    #: with decode steps under its token budget. 0: one prefill dispatch
+    #: a prompt. At most the largest seq bucket.
     prefill_chunk_tokens: int = Field(0)
+    #: Names the engine's programs in the program ledger (a speculative
+    #: draft engine takes "draft_"). Inert: the ledger is not ported
+    #: (ROADMAP.md Queue 1 item 5).
+    ledger_prefix: str = Field("")
 
     # -- binding ---------------------------------------------------------
 
@@ -120,7 +150,8 @@ class DecodeEngine:
         serves under a training layout: every rank binds the same weights
         and holds its block of them and of the cache (see the module
         docstring)."""
-        for method in ("prefill", "decode_step", "decode_step_paged"):
+        for method in ("prefill", "decode_step", "decode_step_paged", "decode_verify",
+                       "decode_verify_paged"):
             if not hasattr(module, method):
                 raise ValueError(
                     f"DecodeEngine needs a module with a {method!r} method "
@@ -187,16 +218,23 @@ class DecodeEngine:
                 "kv_quant='int8' requires kv_layout='paged' (quantization "
                 "lives with the page pool)."
             )
-        if int(self.prefill_chunk_tokens) < 0:
+        chunk = int(self.prefill_chunk_tokens)
+        if chunk < 0:
             raise ValueError(
-                f"prefill_chunk_tokens={self.prefill_chunk_tokens}: expected 0."
+                f"prefill_chunk_tokens={chunk}: expected 0 (monolithic prefill) or a "
+                "positive chunk size in tokens."
             )
-        if int(self.prefill_chunk_tokens) > 0:
-            raise NotImplementedError(f"chunked prefill (prefill_chunk_tokens > 0) {_NOT_PORTED}")
-        if paged and self.prefix_cache:
-            raise NotImplementedError(
-                f"the radix prefix cache (prefix_cache=True with "
-                f"kv_layout='paged') {_NOT_PORTED}; set engine.prefix_cache=False"
+        if chunk > 0 and not paged:
+            raise ValueError(
+                "prefill_chunk_tokens requires kv_layout='paged' (chunks append "
+                "through the page table; the slot layout always prefills "
+                "monolithically). Set engine.kv_layout='paged' or prefill_chunk_tokens=0."
+            )
+        if chunk > max(seq_buckets):
+            raise ValueError(
+                f"prefill_chunk_tokens={chunk} exceeds the largest seq bucket "
+                f"{max(seq_buckets)}: chunks ride the extend width grid; shrink the "
+                "chunk or widen seq_buckets."
             )
         max_pages = capacity // int(self.page_size)
         if paged:
@@ -238,7 +276,8 @@ class DecodeEngine:
         set_("_num_pages", num_pages)
         set_("_max_pages", max_pages)
         set_("_pool", PagePool(num_pages=num_pages, page_size=int(self.page_size),
-                               slots=int(self.slots), max_pages_per_slot=max_pages)
+                               slots=int(self.slots), max_pages_per_slot=max_pages,
+                               prefix_cache=bool(self.prefix_cache))
              if paged else None)
         set_("_cache", self._allocate_cache())
         itemsize = torch.empty((), dtype=module.dtype).element_size()
@@ -259,6 +298,7 @@ class DecodeEngine:
             (self._plan.numel(name, p) if name in gathered else p.numel()) * p.element_size()
             for name, p in module.named_parameters() if name != "pos"))
         set_("_decode_records", [])
+        set_("_dispatches", collections.Counter())
         set_("_warmed", False)
         set_("_decode_attention_flavor",
              "reference" if str(self.decode_attention) == "auto" and device.type != "cuda"
@@ -450,12 +490,24 @@ class DecodeEngine:
     # -- page lifecycle (every method answers in both layouts) -----------
 
     def admit_slot(self, slot: int, prompt, *, copy: bool = True) -> Optional[dict]:
-        """Allocate ``slot``'s pages for ``prompt``: the plan
-        ``{"shared_tokens": 0, "cow": None}`` (the slot layout's is
-        trivial), or None when the pool is exhausted."""
+        """Allocate ``slot``'s pages for ``prompt``: the prefix-cache
+        lookup, the table row and (``copy=True``) the copy-on-write of a
+        mid-page divergence. Returns the plan ``{"shared_tokens": t,
+        "cow": None}``, with the pending ``"cow": (src, dst)`` when
+        ``copy=False`` (the scheduler runs :meth:`copy_page` itself), or
+        None when the pool is exhausted (nothing allocated). The slot
+        layout's plan is always cold."""
         if not self._paged:
             return {"shared_tokens": 0, "cow": None}
-        return self._pool.assign_prompt(int(slot), prompt)
+        plan = self._pool.assign_prompt(int(slot), prompt)
+        if plan is None:
+            return None
+        if copy:
+            cow = plan.pop("cow")
+            if cow is not None:
+                self.copy_page(*cow)
+            plan["cow"] = None
+        return plan
 
     def ensure_rows(self, slot: int, rows: int) -> bool:
         """Guarantee ``slot``'s pages cover ``rows`` KV rows before a
@@ -465,24 +517,39 @@ class DecodeEngine:
         return self._pool.ensure_rows(int(slot), int(rows))
 
     def release_slot(self, slot: int) -> None:
-        """Stream finished or failed: return the slot's pages."""
+        """Stream finished or failed: drop the slot's page references
+        (pages the prefix cache shares stay resident)."""
         if self._paged:
             self._pool.release_slot(int(slot))
+
+    def insert_prefix(self, slot: int, prompt) -> int:
+        """Cache the admitted prompt's pages for later warm hits (after
+        the dispatch that wrote them). Returns the nodes created."""
+        if not self._paged:
+            return 0
+        return self._pool.insert_prefix(int(slot), prompt)
+
+    def invalidate_prefix_cache(self) -> int:
+        """Drop every cached prefix page (a weight swap: the cached K/V
+        is the old weights'). Returns the nodes dropped."""
+        if not self._paged:
+            return 0
+        return self._pool.invalidate_prefix()
 
     def pool_status(self) -> Optional[dict]:
         return self._pool.status() if self._paged else None
 
+    @property
+    def dispatches(self) -> dict:
+        """Dispatches so far by kind ("prefill", "prefill_warm",
+        "prefill_chunk", "decode", "verify", "copy_page"), the warm-up's
+        included: a prefill dispatch launches K9 once a layer, a decode
+        step K12 (slots) or K13 (paged) once a layer; the other kinds
+        launch no kernel."""
+        return dict(self._dispatches)
+
     def _not_ported(self, what: str):
         raise NotImplementedError(f"{what} {_NOT_PORTED}")
-
-    def prefill_warm(self, *args, **kwargs):
-        self._not_ported("warm-prefix prefill (the radix prefix cache)")
-
-    def prefill_chunk(self, *args, **kwargs):
-        self._not_ported("chunked prefill")
-
-    def verify(self, *args, **kwargs):
-        self._not_ported("the speculative verify step")
 
     def export_pages(self, *args, **kwargs):
         self._not_ported("page transfer (disaggregated prefill/decode)")
@@ -515,28 +582,49 @@ class DecodeEngine:
                 (kind, bucket, rows, distributed.dispatch_checksum(*arrays)), "DecodeEngine")
 
     def warmup(self) -> int:
-        """Run every prefill bucket and one decode step once (writing no
-        live cache row: prefill outputs are discarded, the decode step
-        writes only rows that no stream owns). Returns the number of
-        dispatches run."""
+        """Run every prefill bucket and one decode step once, and in the
+        paged layout with the prefix cache or chunking every extend
+        (bucket, width) pair, writing no live cache row: prefill outputs
+        are discarded, the decode step writes only rows no stream owns,
+        the extend rows are all masked. Returns the number of dispatches
+        run."""
         self._require_bound()
         runs = 0
+        dev = self._device
+        extend = self._paged and (bool(self.prefix_cache) or int(self.prefill_chunk_tokens) > 0)
         with torch.inference_mode():
             for pb in self._prefill_buckets:
                 for sb in self._seq_buckets:
                     self._check_dispatch(_PREFILL, pb, sb)
-                    tokens = torch.zeros((pb, sb), dtype=torch.int32, device=self._device)
-                    lengths = torch.ones((pb,), dtype=torch.int32, device=self._device)
+                    tokens = torch.zeros((pb, sb), dtype=torch.int32, device=dev)
+                    lengths = torch.ones((pb,), dtype=torch.int32, device=dev)
                     with self._weights():
                         last, _ = self._module.prefill(tokens, lengths)
                     torch.argmax(last, dim=-1).cpu()
+                    self._dispatches["prefill"] += 1
                     runs += 1
+                    if extend:
+                        zeros = np.zeros((pb,), np.int32)
+                        self._check_dispatch(_WARM, pb, sb)
+                        self._extend_dispatch("prefill_warm", np.zeros((pb, sb), np.int32),
+                                              zeros, np.full((pb, self._max_pages), -1, np.int32),
+                                              zeros, zeros)
+                        runs += 1
             n = int(self.slots)
             self._check_dispatch(_DECODE, n, 0)
-            self._decode_dispatch(np.zeros(n, np.int32), np.zeros(n, np.int32))
+            self._slots_dispatch("decode", np.zeros(n, np.int32), np.zeros(n, np.int32))
             runs += 1
         object.__setattr__(self, "_warmed", True)
         return runs
+
+    def warmup_verify(self, width: int) -> None:
+        """Run one verify window of ``width`` before traffic (a
+        speculative bind warms the teacher's ``k + 1`` and the draft's
+        catch-up width). Writes rows that no stream owns yet: call it
+        before serving."""
+        self._require_bound()
+        n = int(self.slots)
+        self.verify(np.zeros((n, int(width)), np.int32), np.zeros(n, np.int32))
 
     def prefill(self, prompts: Sequence[np.ndarray], slot_ids: Sequence[int]) -> np.ndarray:
         """Admit a group: write each prompt's K/V into its slot (or its
@@ -584,6 +672,7 @@ class DecodeEngine:
                         layer["k"][ids, :sb] = k[rows]
                         layer["v"][ids, :sb] = v[rows]
             first = torch.argmax(last, dim=-1).to(torch.int32).cpu().numpy()
+        self._dispatches["prefill"] += 1
         return first[:n].astype(np.int32)
 
     def _cache_heads(self, kv):
@@ -616,6 +705,105 @@ class DecodeEngine:
         for layer, (k, v) in zip(self._cache, kv):
             _pool_write_rows(layer, {"k": k, "v": v}, pages_t, offsets_t)
 
+    def _require_paged(self, what: str) -> None:
+        self._require_bound()
+        if not self._paged:
+            raise RuntimeError(
+                f"{what} is a paged-layout dispatch; the slot layout always runs the "
+                "cold, monolithic prefill."
+            )
+
+    def prefill_warm(self, prompts: Sequence[np.ndarray], slot_ids: Sequence[int],
+                     shared_lens: Sequence[int]) -> np.ndarray:
+        """Warm-prefix admission (paged): each prompt's first
+        ``shared_lens[i]`` tokens are resident in its slot's (shared)
+        pages, so only the suffix runs, in one window dispatch at the
+        smallest seq bucket holding the longest suffix. Returns each
+        request's first token, as :meth:`prefill` does."""
+        self._require_paged("prefill_warm")
+        n = len(prompts)
+        if n == 0:
+            return np.zeros((0,), np.int32)
+        suffixes = [int(np.shape(p)[0]) - int(sh) for p, sh in zip(prompts, shared_lens)]
+        if min(suffixes) < 1:
+            raise ValueError(
+                "warm prefill needs >= 1 suffix token per prompt (the prefix match is "
+                "capped at len - 1 so the first emission's logits exist)."
+            )
+        windows = [np.asarray(p, np.int32)[int(sh):] for p, sh in zip(prompts, shared_lens)]
+        return self._extend(_WARM, "prefill_warm", windows, slot_ids, shared_lens)
+
+    def prefill_chunk(self, chunks: Sequence[np.ndarray], slot_ids: Sequence[int],
+                      offsets: Sequence[int]) -> np.ndarray:
+        """Chunked-prefill append (paged): write lane ``i``'s ``chunks[i]``
+        rows at positions ``offsets[i]..`` of its slot through its table
+        row, each attending the committed rows below its offset (earlier
+        chunks or prefix-cache pages). Returns the argmax at each chunk's
+        last position: the first emission on a prompt's final chunk,
+        discarded otherwise. Every row is written once with its full
+        causal context, so the tokens are the monolithic prefill's."""
+        self._require_paged("prefill_chunk")
+        n = len(chunks)
+        if n == 0:
+            return np.zeros((0,), np.int32)
+        if min(int(np.shape(c)[0]) for c in chunks) < 1:
+            raise ValueError(
+                "prefill_chunk needs >= 1 token per lane (the planner skips empty chunks)."
+            )
+        return self._extend(_CHUNK, "prefill_chunk", [np.asarray(c, np.int32) for c in chunks],
+                            slot_ids, offsets)
+
+    def _extend(self, kind: int, name: str, windows, slot_ids, starts) -> np.ndarray:
+        """One window dispatch over a group: lane ``i``'s ``windows[i]``
+        at positions ``starts[i]..`` of slot ``slot_ids[i]``, padded to the
+        (prefill bucket, seq bucket) grid; padding rows and lanes write
+        nowhere."""
+        n = len(windows)
+        lens = [int(w.shape[0]) for w in windows]
+        pb = self.prefill_bucket_for(n)
+        w = self.seq_bucket_for(max(lens))
+        tokens = np.zeros((pb, w), np.int32)
+        lengths = np.zeros((pb,), np.int32)
+        valid = np.zeros((pb,), np.int32)  # padding lanes: no valid row
+        rows = np.full((pb, self._max_pages), -1, np.int32)
+        for i, (win, s, start) in enumerate(zip(windows, slot_ids, starts)):
+            tokens[i, : lens[i]] = win
+            lengths[i] = int(start)
+            valid[i] = lens[i]
+            rows[i] = self._pool.table[int(s)]
+        out_idx = np.maximum(valid - 1, 0)
+        self._check_dispatch(kind, pb, w, [int(s) for s in slot_ids], list(starts), lens)
+        with torch.inference_mode():
+            first = self._extend_dispatch(name, tokens, lengths, rows, valid, out_idx)
+        return first[:n].astype(np.int32)
+
+    def _extend_dispatch(self, name: str, tokens, lengths, rows, valid, out_idx) -> np.ndarray:
+        """Run a padded window group through ``decode_verify_paged`` and
+        return the argmax at each lane's ``out_idx``. Every rank runs the
+        whole group (no data split) and writes its heads of every row."""
+        dev = self._device
+        t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+        shard = None if self._shard is None else dataclasses.replace(self._shard, data=None)
+        with self._weights():
+            logits, _ = self._module.decode_verify_paged(t(tokens), t(lengths), self._cache,
+                                                         t(rows), valid=t(valid), shard=shard)
+        last = logits[torch.arange(tokens.shape[0], device=dev), t(out_idx).long()]
+        self._dispatches[name] += 1
+        return torch.argmax(last, dim=-1).to(torch.int32).cpu().numpy()
+
+    def copy_page(self, src: int, dst: int) -> None:
+        """The copy-on-write of one pool page, before the dispatch that
+        writes into ``dst``: every layer's k/v rows (and int8 scales) of
+        page ``src`` into page ``dst`` (a rank copies the heads it
+        holds)."""
+        self._require_paged("copy_page")
+        self._check_dispatch(_COPY, int(src), int(dst))
+        with torch.inference_mode():
+            for layer in self._cache:
+                for buf in layer.values():
+                    buf[int(dst)] = buf[int(src)]
+        self._dispatches["copy_page"] += 1
+
     def decode(self, tokens: np.ndarray, lengths: np.ndarray) -> np.ndarray:
         """One token for every slot: feed each slot's current token (at
         position ``lengths[slot]``), write its K/V, and return the argmax
@@ -632,42 +820,71 @@ class DecodeEngine:
         self._check_dispatch(_DECODE, n, 0, tokens, lengths)
         t0 = time.perf_counter()
         with torch.inference_mode():
-            nxt = self._decode_dispatch(tokens, lengths)
+            nxt = self._slots_dispatch("decode", tokens, lengths)
         # Readback-bounded wall time: the dispatch ends in a copy to the
         # host, which waits for the card.
         self._decode_records.append((time.perf_counter() - t0, self._step_bytes(lengths)))
         return nxt
 
-    def _decode_dispatch(self, tokens: np.ndarray, lengths: np.ndarray) -> np.ndarray:
+    def verify(self, tokens: np.ndarray, lengths: np.ndarray) -> np.ndarray:
+        """``w`` tokens for every slot in one dispatch: token ``j`` of a
+        slot's window sits at position ``lengths[slot] + j``; all ``w``
+        K/V rows are appended. Returns the argmax next token at each
+        position as a host ``[slots, w]`` int32 array (``out[s, j]``:
+        after consuming input ``j``). The caller owns the rollback: only
+        the lengths it advances count. Active slots must satisfy
+        ``lengths + w <= capacity`` (the scheduler's check); inactive
+        ones ride along and are ignored."""
+        self._require_bound()
+        tokens = np.asarray(tokens, np.int32)
+        lengths = np.asarray(lengths, np.int32)
+        n = int(self.slots)
+        if tokens.ndim != 2 or tokens.shape[0] != n or lengths.shape != (n,):
+            raise ValueError(
+                f"verify expects [slots={n}, w] tokens and [slots] lengths, got "
+                f"{tokens.shape} / {lengths.shape}."
+            )
+        w = int(tokens.shape[1])
+        if not 1 <= w <= self._capacity:
+            raise ValueError(
+                f"verify width {w} must be in [1, {self._capacity}] (the KV capacity); "
+                "shrink speculative.k or raise kv_capacity."
+            )
+        self._check_dispatch(_VERIFY, n, w, tokens.reshape(-1), lengths)
+        with torch.inference_mode():
+            return self._slots_dispatch("verify", tokens, lengths)
+
+    def _slots_dispatch(self, name: str, tokens: np.ndarray, lengths: np.ndarray) -> np.ndarray:
+        """A decode step (``tokens [slots]``) or a verify window
+        (``tokens [slots, w]``) over the slot array; under a data split
+        each rank runs its slots and the next tokens are gathered."""
         dev = self._device
         shard = self._shard
+        window = tokens.ndim == 2
         lo, hi = (0, len(tokens)) if shard is None else shard.slot_range(len(tokens))
-        tok_t = torch.from_numpy(np.ascontiguousarray(tokens[lo:hi])).to(dev)
-        len_t = torch.from_numpy(np.ascontiguousarray(lengths[lo:hi])).to(dev)
+        t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+        tok_t, len_t = t(tokens[lo:hi]), t(lengths[lo:hi])
+        module = self._module
         with self._weights():
             if self._paged:
                 table = np.ascontiguousarray(self._pool.table)
-                table_t = torch.from_numpy(np.ascontiguousarray(table[lo:hi])).to(dev)
-                write = None if shard is None or shard.data is None else \
-                    self._pool_write(table, lengths)
-                logits, _ = self._module.decode_step_paged(tok_t, len_t, self._cache, table_t,
-                                                           shard, write)
+                table_t = t(table[lo:hi])
+                # Under a data split every data rank's pool copy takes every
+                # slot's rows: their write comes from the whole table.
+                write = None if shard is None or shard.data is None else pool_window_write(
+                    t(table), t(lengths), tokens.shape[1] if window else 1, int(self.page_size))
+                if window:
+                    logits, _ = module.decode_verify_paged(tok_t, len_t, self._cache, table_t,
+                                                           shard=shard, write=write)
+                else:
+                    logits, _ = module.decode_step_paged(tok_t, len_t, self._cache, table_t,
+                                                         shard, write)
+            elif window:
+                logits, _ = module.decode_verify(tok_t, len_t, self._cache, shard)
             else:
-                logits, _ = self._module.decode_step(tok_t, len_t, self._cache, shard)
+                logits, _ = module.decode_step(tok_t, len_t, self._cache, shard)
             nxt = torch.argmax(logits, dim=-1).to(torch.int32)
             if shard is not None:
                 nxt = shard.gather_slots(nxt)
+        self._dispatches[name] += 1
         return nxt.cpu().numpy()
-
-    def _pool_write(self, table: np.ndarray, lengths: np.ndarray):
-        """Where every global slot's new row lands in the pool (the live
-        slots, their pages and offsets), from the whole table: under a
-        data split each rank's copy of the pool takes every slot's row."""
-        ps = int(self.page_size)
-        lens = lengths.astype(np.int64)
-        row = np.clip(lens // ps, 0, self._max_pages - 1)
-        page = table[np.arange(len(lens)), row].astype(np.int64)
-        live = np.nonzero((page >= 0) & (lens < self._max_pages * ps))[0]
-        dev = self._device
-        return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-                     for a in (live, page[live], lens[live] % ps))

@@ -11,9 +11,17 @@ thread-safe and host-side: recording never synchronises the card.
 - ``token_ms``: one decode dispatch (one token for every active slot);
 - ``prefill_ms``: one prefill dispatch;
 - ``itl_ms``: the gap between consecutive tokens of one stream;
+- ``prefill_stall_ms``: under chunked prefill, a request's admission to
+  its first token;
+- counters of the serving features: ``prefill_chunks_total`` (chunk
+  lanes dispatched), ``spec_draft_tokens_total`` and
+  ``spec_accepted_tokens_total`` (their ratio the acceptance rate, also
+  in ``snapshot()``), and per speculative window and slot the accepted
+  drafts (``spec_accept_lengths``);
 - gauges: active slots, slot occupancy, queue depth, KV pages in use,
-  free pool pages (-1 in the slot layout) and the prefix-cache hit rate
-  (-1: not ported).
+  free pool pages (-1 in the slot layout), the prefix cache's token hit
+  rate (-1 before a lookup or without the cache) and the acceptance
+  rate (-1 before a window).
 """
 
 import threading
@@ -35,10 +43,13 @@ _COUNTER_NAMES = (
     "rejected_total",
     "deadline_expired_total",
     "worker_restarts_total",
+    "prefill_chunks_total",
+    "spec_draft_tokens_total",
+    "spec_accepted_tokens_total",
 )
 
 #: Windowed series, reported as ``<name>_p50_ms``/``_p99_ms``/``_mean_ms``.
-_WINDOW_NAMES = ("ttft_ms", "token_ms", "prefill_ms", "itl_ms")
+_WINDOW_NAMES = ("ttft_ms", "token_ms", "prefill_ms", "itl_ms", "prefill_stall_ms")
 
 
 @component
@@ -57,8 +68,9 @@ class DecodeMetrics:
                 "gauges": {
                     "active_slots": 0.0, "slot_occupancy": 0.0, "queue_depth": 0.0,
                     "kv_pages_in_use": 0.0, "kv_pool_free_pages": -1.0,
-                    "prefix_cache_hit_rate": -1.0,
+                    "prefix_cache_hit_rate": -1.0, "spec_acceptance_rate": -1.0,
                 },
+                "accept_lengths": {},
                 "windows": {},
             }
             object.__setattr__(self, "_obs_state", state)
@@ -105,6 +117,40 @@ class DecodeMetrics:
     def record_itl(self, gap_ms: float) -> None:
         self._observe("itl_ms", gap_ms)
 
+    def record_prefill_chunks(self, chunks: int, dispatch_ms: float) -> None:
+        """One chunked-prefill dispatch of ``chunks`` lanes (one slot's
+        chunk each); its wall time joins the prefill series."""
+        self._count("prefill_chunks_total", chunks)
+        self._count("prefills_total")
+        self._observe("prefill_ms", dispatch_ms)
+
+    def record_prefill_finish(self, requests: int, stall_ms) -> None:
+        """``requests`` prompts' final chunks landed: admitted requests
+        now, each with its admission-to-first-token wall time."""
+        self._count("requests_total", requests)
+        for ms in stall_ms:
+            self._observe("prefill_stall_ms", ms)
+
+    def record_spec_window(self, proposed: int, accepted: int, accept_lengths,
+                           window_ms: float, delivered: int) -> None:
+        """One speculative window committed: ``proposed``/``accepted``
+        drafts over its slots, each slot's accepted count, the window's
+        wall time in the decode series (a window is the speculative
+        path's decode dispatch) and ``delivered`` stream tokens."""
+        state = self._state()
+        with state["lock"]:
+            counters = state["counters"]
+            counters["spec_draft_tokens_total"] += int(proposed)
+            counters["spec_accepted_tokens_total"] += int(accepted)
+            counters["tokens_total"] += int(delivered)
+            counters["decode_steps_total"] += 1
+            for a in accept_lengths:
+                state["accept_lengths"][int(a)] = state["accept_lengths"].get(int(a), 0) + 1
+            total = counters["spec_draft_tokens_total"]
+            state["gauges"]["spec_acceptance_rate"] = (
+                counters["spec_accepted_tokens_total"] / total if total else -1.0)
+        self._observe("token_ms", window_ms)
+
     def record_occupancy(self, active: int, slots: int, queue_depth: int,
                          kv_pages: int) -> None:
         self._set(active_slots=active, slot_occupancy=active / slots if slots else 0.0,
@@ -131,6 +177,13 @@ class DecodeMetrics:
             return dict(state["counters"])
 
     @property
+    def spec_accept_lengths(self) -> Dict[int, int]:
+        """Speculative windows by accepted drafts (per slot and window)."""
+        state = self._state()
+        with state["lock"]:
+            return dict(sorted(state["accept_lengths"].items()))
+
+    @property
     def gauges(self) -> Dict[str, float]:
         state = self._state()
         with state["lock"]:
@@ -143,6 +196,9 @@ class DecodeMetrics:
         with state["lock"]:
             windows = {k: list(v) for k, v in state["windows"].items()}
             out: Dict[str, float] = {k: float(v) for k, v in state["counters"].items()}
+        if out["spec_draft_tokens_total"]:
+            out["spec_acceptance_rate"] = (out["spec_accepted_tokens_total"]
+                                           / out["spec_draft_tokens_total"])
         for name in _WINDOW_NAMES:
             series = windows.get(name)
             if series:

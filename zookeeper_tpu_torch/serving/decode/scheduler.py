@@ -7,9 +7,26 @@ across many dispatches, so the scheduling unit is the slot:
 1. **Admit**: free slots are refilled from the FIFO queue; a group of
    queued prompts rides one bucketed prefill, which writes their K/V and
    emits each request's first token (TTFT). A finished sequence's slot
-   is refilled without draining anything.
+   is refilled without draining anything. In the paged layout with the
+   radix prefix cache, a prompt whose prefix is cached shares its pages
+   (copy-on-write at a mid-page divergence) and runs only its suffix
+   (``prefill_warm``); every admitted prompt's pages are then cached.
 2. **Decode**: one decode step advances every active slot one token.
-3. **Finish**: EOS, the request's ``max_new_tokens``, the engine's
+   With a bound :class:`SpeculativeDecoding` the two-model window runs
+   instead: the draft proposes ``k`` tokens per slot (a width-2 catch-up
+   verify and ``k - 1`` draft steps), one teacher ``verify`` scores all
+   ``k + 1`` positions, and greedy acceptance commits the longest
+   matching prefix plus the teacher's token at the first mismatch: 1 to
+   ``k + 1`` tokens per slot, rolled back by length. An iteration where
+   a slot is within a window of its token limit runs the plain step (the
+   draft catching up by its width-2 verify), so the tokens are plain
+   greedy decode's.
+3. **Chunks** (the engine's ``prefill_chunk_tokens`` > 0): admission
+   allocates pages but dispatches nothing; each iteration spends its
+   ``token_budget`` first on decode (one token a slot, a window ``k +
+   1``), then on pending prompt chunks, so a long prompt no longer
+   stalls the streams in flight. TTFT lands with a prompt's last chunk.
+4. **Finish**: EOS, the request's ``max_new_tokens``, the engine's
    token limit, or a deadline ends a stream and frees its slot.
 
 ``shed_above`` sheds with ``RejectedError`` before enqueueing; deadlines
@@ -23,9 +40,9 @@ drives with ``drain()``/``result()``; otherwise one ``zk-decode-
 scheduler`` daemon thread runs the loop. In front of an engine whose
 partitioner spans several ranks each rank runs its own scheduler
 before a collective engine, so the threaded mode and deadlines, which decide by each rank's
-clock, raise ``ValueError``. Not ported yet (ROADMAP.md):
-speculative decoding, chunked prefill, staged weight swaps, the overload
-guard and brown-out, the RequestLog, tracing and fault injection.
+clock, raise ``ValueError``. Not ported yet (ROADMAP.md): staged
+weight swaps, the overload guard and brown-out, the RequestLog, tracing
+and fault injection.
 """
 
 import threading
@@ -67,6 +84,10 @@ class DecodeStream:
         self._t_submit = time.perf_counter()
         #: Submit-to-first-token milliseconds (None until it lands).
         self.ttft_ms: Optional[float] = None
+        self._shared_tokens = 0
+        # Drafts proposed and accepted for this stream (speculation).
+        self._spec_proposed = 0
+        self._spec_accepted = 0
         self._slot: Optional[int] = None
         self._cond = threading.Condition()
 
@@ -83,6 +104,12 @@ class DecodeStream:
         """"eos", "length" (max_new_tokens) or "capacity" (the token
         limit); None while streaming or on failure."""
         return self._finish_reason
+
+    @property
+    def shared_tokens(self) -> int:
+        """Prompt tokens whose K/V came warm from the radix prefix cache
+        at admission (0: a cold admission, or the slot layout)."""
+        return self._shared_tokens
 
     @property
     def tokens_so_far(self) -> np.ndarray:
@@ -170,8 +197,14 @@ class DecodeScheduler:
     eos_token: int = Field(-1)
     #: Thread-free mode: the caller drives via drain()/result().
     synchronous: bool = Field(True)
+    #: Tokens one iteration may spend under chunked prefill: decode first
+    #: (a token a slot, a speculative window ``k + 1``), then prompt
+    #: chunks. 0 sizes it to ``slots x window + prefill_chunk_tokens``
+    #: (every slot decoding plus one whole chunk); a smaller budget
+    #: squeezes prefill harder, down to one token an iteration.
+    token_budget: int = Field(0)
 
-    def bind(self, engine, metrics=None) -> "DecodeScheduler":
+    def bind(self, engine, metrics=None, speculative=None) -> "DecodeScheduler":
         if self.max_new_tokens < 1:
             raise ValueError(
                 f"max_new_tokens={self.max_new_tokens} must be >= 1 (prefill "
@@ -184,6 +217,18 @@ class DecodeScheduler:
             )
         if self.max_queue < 1:
             raise ValueError(f"max_queue={self.max_queue} must be >= 1.")
+        if self.token_budget < 0:
+            raise ValueError(
+                f"token_budget={self.token_budget} must be >= 0 (0 sizes the "
+                "chunked-prefill budget automatically)."
+            )
+        if speculative is not None:
+            speculative._require_bound()
+            if speculative.engine is not engine:
+                raise ValueError(
+                    "the speculative binding mirrors another teacher engine; bind the "
+                    "scheduler and the speculative config to the same DecodeEngine."
+                )
         if not self.synchronous:
             refuse_clock_driven(engine, "DecodeScheduler(synchronous=False)")
         if self.default_deadline_ms > 0:
@@ -197,6 +242,16 @@ class DecodeScheduler:
         set_("_slot_stream", [None] * n)
         set_("_slot_lengths", np.zeros(n, np.int64))
         set_("_slot_tokens", np.zeros(n, np.int32))
+        set_("_speculative", speculative)
+        # The draft cache's rows per slot, and the (at most one) committed
+        # token it has not consumed yet (after a fully accepted window).
+        set_("_draft_lengths", np.zeros(n, np.int64))
+        set_("_draft_pending", [[] for _ in range(n)])
+        # Chunked prefill: slot -> {"pos": the next uncommitted prompt
+        # offset, "admit_t": admission time} while a prompt is mid-prefill;
+        # such a slot holds pages and a stream but does not decode.
+        set_("_chunked", bool(engine.paged) and int(engine.prefill_chunk_tokens) > 0)
+        set_("_chunk_state", {})
         set_("_slot_last_emit", np.zeros(n, np.float64))
         # _lock guards the bookkeeping; _step_lock serializes iterations
         # so _lock is released across the device dispatches.
@@ -304,8 +359,18 @@ class DecodeScheduler:
         with self._lock:
             return bool(self._queue) or any(s is not None for s in self._slot_stream)
 
+    def _chunk_units(self, prompt_tokens: int) -> int:
+        """Prefill work still owed in budget units: the chunk dispatches
+        for ``prompt_tokens`` uncommitted tokens (0 without chunking). The
+        overload guard's admission estimate counts it (not ported yet,
+        ROADMAP.md)."""
+        if not self._chunked or prompt_tokens <= 0:
+            return 0
+        return -(-int(prompt_tokens) // int(self._engine.prefill_chunk_tokens))
+
     def _free_slot(self, slot: int) -> None:
         self._slot_stream[slot] = None
+        self._chunk_state.pop(slot, None)
         self._engine.release_slot(slot)
 
     def _finish_or_continue(self, slot: int, token: int) -> None:
@@ -354,9 +419,12 @@ class DecodeScheduler:
 
     def _admit(self) -> None:
         """Refill free slots from the queue head, one prefill dispatch per
-        admitted group. Caller holds ``_step_lock``; the prefill runs
-        outside ``_lock`` (admitted streams are reserved into the slot
-        array first, so ``close()`` and a crash see them)."""
+        admitted group (a cold ``prefill`` and a warm ``prefill_warm``
+        when both kinds are in it; under chunked prefill none: the
+        planner appends the prompts). Caller holds ``_step_lock``; the
+        dispatches run outside ``_lock`` (admitted streams are reserved
+        into the slot array first, so ``close()`` and a crash see
+        them)."""
         engine = self._engine
         while True:
             with self._lock:
@@ -383,14 +451,18 @@ class DecodeScheduler:
                     self._slot_lengths[slot] = int(stream.prompt.shape[0])
                     self._slot_last_emit[slot] = 0.0
                     stream._slot = slot
-                # Page allocation (the slot layout's plans are trivial). A
-                # stream the pool cannot hold goes back to the queue head
-                # while other streams can free pages, else it is shed.
-                admitted, admitted_slots, overflow = [], [], []
+                # Page allocation and the prefix lookup (the slot layout's
+                # plans are cold). A stream the pool cannot hold goes back
+                # to the queue head while other streams can free pages,
+                # else it is shed. The copy-on-write runs outside the lock.
+                plans, admitted, admitted_slots, overflow = [], [], [], []
                 for stream, slot in zip(group, slots):
-                    if engine.admit_slot(slot, stream.prompt) is None:
+                    plan = engine.admit_slot(slot, stream.prompt, copy=False)
+                    if plan is None:
                         overflow.append((stream, slot))
                     else:
+                        stream._shared_tokens = int(plan.get("shared_tokens") or 0)
+                        plans.append(plan)
                         admitted.append(stream)
                         admitted_slots.append(slot)
                 overflow_slots = {slot for _, slot in overflow}
@@ -415,35 +487,75 @@ class DecodeScheduler:
                 if overflow:
                     return
                 continue
+            group, slots = admitted, admitted_slots
+            for plan in plans:
+                cow = plan.pop("cow", None)
+                if cow is not None:
+                    engine.copy_page(*cow)
+            if self._chunked:
+                # The planner (_prefill_chunks) appends the prompt chunk by
+                # chunk from its cursor: past a warm prefix, so a fully warm
+                # prompt costs a 1-token chunk. Meanwhile _slot_lengths is
+                # the committed prefix.
+                with self._lock:
+                    now = time.perf_counter()
+                    for stream, slot, plan in zip(group, slots, plans):
+                        if self._slot_stream[slot] is not stream:
+                            continue  # failed by close()/crash already
+                        shared = int(plan.get("shared_tokens") or 0)
+                        self._slot_lengths[slot] = shared
+                        self._chunk_state[slot] = {"pos": shared, "admit_t": now}
+                continue
+            cold = [i for i, p in enumerate(plans) if not p.get("shared_tokens")]
+            warm = [i for i, p in enumerate(plans) if p.get("shared_tokens")]
             t0 = time.perf_counter()
-            first = engine.prefill([s.prompt for s in admitted], admitted_slots)
+            first = np.zeros(len(group), np.int32)
+            if cold:
+                out = engine.prefill([group[i].prompt for i in cold], [slots[i] for i in cold])
+                first[cold] = out
+            if warm:
+                out = engine.prefill_warm([group[i].prompt for i in warm],
+                                          [slots[i] for i in warm],
+                                          [int(plans[i]["shared_tokens"]) for i in warm])
+                first[warm] = out
+            spec = self._speculative
+            if spec is not None:
+                # The draft's own slot cache takes the whole prompt (its
+                # first token is discarded: the teacher's is delivered).
+                spec.draft_engine.prefill([s.prompt for s in group], slots)
             dt_ms = (time.perf_counter() - t0) * 1e3
             with self._lock:
                 now = time.perf_counter()
                 delivered = 0
-                for stream, slot, token in zip(admitted, admitted_slots, first):
+                for stream, slot, token in zip(group, slots, first):
                     if self._slot_stream[slot] is not stream:
                         continue  # failed by close()/crash mid-dispatch
                     stream.ttft_ms = (now - stream._t_submit) * 1e3
                     if self._metrics is not None:
                         self._metrics.record_ttft(stream.ttft_ms)
+                    if spec is not None:
+                        self._draft_lengths[slot] = int(stream.prompt.shape[0])
+                        self._draft_pending[slot] = []
+                    # Cache the prompt's pages while the slot holds them.
+                    engine.insert_prefix(slot, stream.prompt)
                     self._slot_tokens[slot] = int(token)
                     self._finish_or_continue(slot, int(token))
                     delivered += 1
                 if self._metrics is not None:
                     self._metrics.record_prefill(dt_ms, delivered)
                     self._metrics.record_first_tokens(delivered)
-            if overflow:
-                return
 
-    def _ensure_active_rows(self) -> None:
-        """Every active slot must hold pages for its next row before the
-        decode step writes it; a slot the pool cannot grow fails its
-        stream with ``RejectedError``. Caller holds ``_lock``."""
+    def _ensure_active_rows(self, extra: int) -> None:
+        """Every active slot must hold pages for ``length + extra`` rows
+        before a decode step (``extra=1``) or a verify window (``extra=w``)
+        writes them; a slot the pool cannot grow, even after prefix-cache
+        eviction, fails its stream with ``RejectedError``. Mid-prefill
+        slots already hold their whole prompt's pages. Caller holds
+        ``_lock``."""
         for slot, stream in enumerate(self._slot_stream):
-            if stream is None:
+            if stream is None or slot in self._chunk_state:
                 continue
-            if self._engine.ensure_rows(slot, int(self._slot_lengths[slot]) + 1):
+            if self._engine.ensure_rows(slot, int(self._slot_lengths[slot]) + int(extra)):
                 continue
             if self._metrics is not None:
                 self._metrics.record_rejected()
@@ -454,21 +566,48 @@ class DecodeScheduler:
             ))
             self._free_slot(slot)
 
-    def _decode(self) -> None:
+    def _decoding(self, streams) -> List[int]:
+        """The slots that decode: active and not mid-prefill."""
+        return [i for i, s in enumerate(streams) if s is not None and i not in self._chunk_state]
+
+    def _decode(self) -> int:
         """One decode dispatch over the whole slot array; deliver each
-        active slot's token. The dispatch runs outside ``_lock`` over a
-        snapshot of the slot arrays."""
+        decoding slot's token. Returns the iteration's decode spend for the
+        chunk budget (a token a slot, a speculative window ``k + 1``). With
+        speculation the window schedule runs instead, unless a slot is
+        within one window of its token limit (a clamped multi-row append
+        would land on live rows): then this iteration is plain and the
+        draft keeps up through its width-2 verify. The dispatches run
+        outside ``_lock`` over a snapshot of the slot arrays."""
+        spec = self._speculative
+        if spec is not None:
+            with self._lock:
+                active = self._decoding(self._slot_stream)
+                eligible = bool(active) and all(
+                    int(self._slot_lengths[i]) + spec.window <= self._engine.token_limit
+                    for i in active)
+            if not active:
+                return 0
+            if eligible:
+                return self._decode_spec(spec)
         engine = self._engine
         with self._lock:
-            self._ensure_active_rows()
+            self._ensure_active_rows(1)
             snapshot = list(self._slot_stream)
-            active = [i for i, s in enumerate(snapshot) if s is not None]
+            active = self._decoding(snapshot)
             if not active:
-                return
+                return 0
             tokens = self._slot_tokens.astype(np.int32)
             lengths = self._slot_lengths.astype(np.int32)
+            if spec is not None:
+                dlengths = self._draft_lengths.astype(np.int32)
+                ctokens, counts = self._draft_catchup_window(active, tokens)
         t0 = time.perf_counter()
         nxt = engine.decode(tokens, lengths)
+        if spec is not None:
+            # The draft consumes the same token(s): its gap to the teacher
+            # stays at most one across plain and speculative iterations.
+            spec.draft_engine.verify(ctokens, dlengths)
         dt_ms = (time.perf_counter() - t0) * 1e3
         with self._lock:
             delivered = 0
@@ -476,12 +615,202 @@ class DecodeScheduler:
                 if self._slot_stream[slot] is not snapshot[slot]:
                     continue  # failed by close()/crash mid-dispatch
                 self._slot_lengths[slot] += 1
+                if spec is not None:
+                    self._draft_lengths[slot] = int(dlengths[slot]) + int(counts[slot])
+                    self._draft_pending[slot] = []
                 token = int(nxt[slot])
                 self._slot_tokens[slot] = token
                 self._finish_or_continue(slot, token)
                 delivered += 1
             if self._metrics is not None:
                 self._metrics.record_decode_step(dt_ms, delivered)
+        return len(active)
+
+    def _draft_catchup_window(self, active, cur_tokens):
+        """The draft's width-2 window: per active slot the (at most one)
+        committed token the draft has not consumed, then the current
+        token. Returns ``(tokens [slots, 2], counts [slots])``, ``counts``
+        the real ones (a padding row's K/V stays past the length)."""
+        n = int(self._engine.slots)
+        ctokens = np.zeros((n, 2), np.int32)
+        counts = np.zeros((n,), np.int32)
+        for i in active:
+            pending = self._draft_pending[i]
+            if pending:
+                ctokens[i] = (int(pending[0]), int(cur_tokens[i]))
+                counts[i] = 2
+            else:
+                ctokens[i] = int(cur_tokens[i])
+                counts[i] = 1
+        return ctokens, counts
+
+    def _decode_spec(self, spec) -> int:
+        """One speculative window over the slot array: the draft proposes
+        ``k`` tokens per slot (a width-2 catch-up verify, then ``k - 1``
+        steps), one teacher ``verify`` scores the ``k + 1`` positions, and
+        each slot commits its longest matching prefix plus the teacher's
+        token at the first mismatch, one token at a time through the plain
+        path's bookkeeping (a stream that finishes mid-window drops the
+        rest). Rejected rows in both caches stay past the lengths."""
+        engine = self._engine
+        draft = spec.draft_engine
+        k = int(spec.k)
+        n = int(engine.slots)
+        with self._lock:
+            # The teacher's window writes k + 1 rows; rollback never frees.
+            self._ensure_active_rows(spec.window)
+            snapshot = list(self._slot_stream)
+            active = self._decoding(snapshot)
+            if not active:
+                return 0
+            cur = self._slot_tokens.astype(np.int32)
+            lengths = self._slot_lengths.astype(np.int32)
+            dlengths = self._draft_lengths.astype(np.int32)
+            ctokens, counts = self._draft_catchup_window(active, cur)
+        t0 = time.perf_counter()
+        proposals = np.zeros((n, k), np.int32)
+        # 1. The catch-up brings the draft level with the teacher and
+        # consumes the current token; its last real position's argmax is
+        # the first proposal.
+        out = draft.verify(ctokens, dlengths)
+        step_lengths = dlengths.copy()
+        for i in active:
+            proposals[i, 0] = int(out[i, int(counts[i]) - 1])
+            step_lengths[i] += int(counts[i])
+        # 2. k - 1 draft steps propose the rest.
+        step_tokens = proposals[:, 0].copy()
+        for t in range(1, k):
+            step_tokens = draft.decode(step_tokens, step_lengths)
+            for i in active:
+                proposals[i, t] = int(step_tokens[i])
+                step_lengths[i] += 1
+        # 3. One teacher dispatch scores [current, d_1..d_k].
+        vtokens = np.zeros((n, k + 1), np.int32)
+        for i in active:
+            vtokens[i, 0] = int(cur[i])
+            vtokens[i, 1:] = proposals[i]
+        scored = engine.verify(vtokens, lengths)
+        dt_ms = (time.perf_counter() - t0) * 1e3
+        # 4. Greedy acceptance and the commit.
+        with self._lock:
+            delivered = proposed_total = accepted_total = 0
+            accept_lengths = []
+            for i in active:
+                stream = snapshot[i]
+                if self._slot_stream[i] is not stream:
+                    continue  # failed by close()/crash mid-dispatch
+                a = 0
+                while a < k and int(proposals[i, a]) == int(scored[i, a]):
+                    a += 1
+                base = int(lengths[i])
+                for j in range(a + 1):
+                    self._slot_lengths[i] = base + j + 1
+                    token = int(scored[i, j])
+                    self._slot_tokens[i] = token
+                    self._finish_or_continue(i, token)
+                    delivered += 1
+                    if self._slot_stream[i] is not stream:
+                        break
+                if self._slot_stream[i] is stream:
+                    # The draft consumed [current, d_1..d_{k-1}]; on full
+                    # acceptance it still owes d_k, its next catch-up token.
+                    self._draft_lengths[i] = base + 1 + min(a, k - 1)
+                    self._draft_pending[i] = [int(proposals[i, k - 1])] if a == k else []
+                stream._spec_proposed += k
+                stream._spec_accepted += a
+                proposed_total += k
+                accepted_total += a
+                accept_lengths.append(a)
+            if accept_lengths:
+                spec.record_window(proposed_total, accepted_total)
+                if self._metrics is not None:
+                    self._metrics.record_spec_window(proposed_total, accepted_total,
+                                                     accept_lengths, dt_ms, delivered)
+        return len(active) * (k + 1)
+
+    def _iteration_budget(self) -> int:
+        """Tokens an iteration may spend on decode and chunks: the
+        explicit ``token_budget``, or every slot's window plus one whole
+        chunk."""
+        if int(self.token_budget) > 0:
+            return int(self.token_budget)
+        spec = self._speculative
+        per = int(spec.window) if spec is not None else 1
+        return int(self._engine.slots) * per + int(self._engine.prefill_chunk_tokens)
+
+    def _prefill_chunks(self, decode_spend: int) -> None:
+        """Spend what decode left of the budget on pending chunks, in slot
+        order: at most ``prefill_chunk_tokens`` a lane, a prefill bucket
+        of lanes a dispatch, dispatches while budget and lanes remain (at
+        least one token an iteration, so a full slot array cannot starve
+        the prompts). A prompt's final chunk gives its first token: TTFT,
+        the prefix cached, the draft prefilled, and the slot decodes from
+        the next iteration."""
+        if not self._chunked:
+            return
+        engine = self._engine
+        spec = self._speculative
+        chunk_cap = int(engine.prefill_chunk_tokens)
+        lane_cap = max(engine._prefill_buckets)
+        budget = max(1, self._iteration_budget() - int(decode_spend))
+        while budget > 0:
+            group = []  # (slot, stream, chunk, offset, final)
+            with self._lock:
+                for slot in sorted(self._chunk_state):
+                    if len(group) >= lane_cap or budget < 1:
+                        break
+                    stream = self._slot_stream[slot]
+                    if stream is None:
+                        continue
+                    pos = int(self._chunk_state[slot]["pos"])
+                    total = int(stream.prompt.shape[0])
+                    c = min(chunk_cap, total - pos, budget)
+                    if c < 1:
+                        continue
+                    budget -= c
+                    group.append((slot, stream, stream.prompt[pos:pos + c], pos, pos + c >= total))
+            if not group:
+                return
+            t0 = time.perf_counter()
+            last = engine.prefill_chunk([g[2] for g in group], [g[0] for g in group],
+                                        [g[3] for g in group])
+            finals = [g for g in group if g[4]]
+            if spec is not None and finals:
+                # The draft prefills once the whole prompt is committed.
+                spec.draft_engine.prefill([g[1].prompt for g in finals], [g[0] for g in finals])
+            dt_ms = (time.perf_counter() - t0) * 1e3
+            with self._lock:
+                now = time.perf_counter()
+                finished = 0
+                stalls = []
+                for (slot, stream, chunk, pos, final), tok in zip(group, last):
+                    if self._slot_stream[slot] is not stream:
+                        continue  # failed by close()/crash mid-dispatch
+                    st = self._chunk_state.get(slot)
+                    if st is None:
+                        continue
+                    end = pos + int(np.shape(chunk)[0])
+                    st["pos"] = end
+                    self._slot_lengths[slot] = end
+                    if not final:
+                        continue
+                    del self._chunk_state[slot]
+                    stream.ttft_ms = (now - stream._t_submit) * 1e3
+                    stalls.append((now - float(st["admit_t"])) * 1e3)
+                    if self._metrics is not None:
+                        self._metrics.record_ttft(stream.ttft_ms)
+                    if spec is not None:
+                        self._draft_lengths[slot] = end
+                        self._draft_pending[slot] = []
+                    engine.insert_prefix(slot, stream.prompt)
+                    self._slot_tokens[slot] = int(tok)
+                    self._finish_or_continue(slot, int(tok))
+                    finished += 1
+                if self._metrics is not None:
+                    self._metrics.record_prefill_chunks(len(group), dt_ms)
+                    if finished:
+                        self._metrics.record_prefill_finish(finished, stalls)
+                        self._metrics.record_first_tokens(finished)
 
     def _update_occupancy(self) -> None:
         if self._metrics is None:
@@ -496,14 +825,16 @@ class DecodeScheduler:
             self._metrics.record_pool(pool.free_pages, pool.prefix_hit_rate)
 
     def _step_once(self) -> bool:
-        """One iteration: deadline sweeps, admit (prefill), decode.
-        Returns whether work remains."""
+        """One iteration: deadline sweeps, admit (prefill), decode, then
+        prompt chunks under what decode left of the budget. Returns
+        whether work remains."""
         with self._step_lock:
             with self._lock:
                 self._expire_queued()
                 self._expire_active()
             self._admit()
-            self._decode()
+            spent = self._decode()
+            self._prefill_chunks(spent)
             with self._lock:
                 self._update_occupancy()
         with self._cv:
@@ -526,6 +857,10 @@ class DecodeScheduler:
             for i in range(len(self._slot_stream)):
                 self._slot_stream[i] = None
                 self._engine.release_slot(i)
+                # The next occupant's draft prefill reseeds the draft.
+                self._draft_lengths[i] = 0
+                self._draft_pending[i] = []
+            self._chunk_state.clear()
             object.__setattr__(self, "_worker", None)
             if self._metrics is not None:
                 self._metrics.record_worker_restart()
@@ -690,4 +1025,15 @@ class DecodeScheduler:
             }
             if engine.paged:
                 out["kv_pool"] = engine.pool_status()
+            spec = self._speculative
+            out["speculative"] = spec.status() if spec is not None else {"enabled": False}
+            out["chunked_prefill"] = {
+                "enabled": self._chunked,
+                "chunk_tokens": int(engine.prefill_chunk_tokens),
+                "token_budget": self._iteration_budget() if self._chunked else 0,
+                "pending_prefills": len(self._chunk_state),
+                "pending_prefill_tokens": sum(
+                    int(self._slot_stream[i].prompt.shape[0]) - int(st["pos"])
+                    for i, st in self._chunk_state.items() if self._slot_stream[i] is not None),
+            }
             return out

@@ -24,14 +24,22 @@ only the chief prints::
         -m zookeeper_tpu_torch.serving.decode LMServingConfig ... \
         partitioner=MeshPartitioner partitioner.mesh_shape='(1,2)' \
         partitioner.mesh_axes='(data,model)'
- ``run()`` serves the JAX ``run()``'s seeded
-prompt stream and prints one JSON line: tokens/s, TTFT and inter-token
-percentiles, the resolved decode attention, the KV layout, the pool fill
-and ``decode_mbu`` (see ``DecodeEngine.decode_mbu``: counted from the
-shapes, where the JAX figure comes from XLA's cost analysis).
+
+``run()`` serves the JAX ``run()``'s seeded prompt stream and prints one
+JSON line: tokens/s, TTFT and inter-token percentiles, the resolved
+decode attention, the KV layout, the pool fill and the prefix cache's
+hit rate, whether speculation served (``speculative``, ``spec_k``,
+``spec_acceptance_rate``) and ``decode_mbu`` (see
+``DecodeEngine.decode_mbu``: counted from the shapes, where the JAX
+figure comes from XLA's cost analysis). ``speculative.enabled=True``
+serves the draft/verify schedule with ``speculative.draft_model``
+(weights from ``speculative.draft_checkpoint`` or the seed); a draft
+that cannot be loaded or bound falls back to plain decode with a
+warning, and the line says ``"speculative": false``.
 """
 
 import json
+import logging
 import time
 from typing import Any, Dict, List, Optional
 
@@ -46,6 +54,9 @@ from zookeeper_tpu_torch.parallel.partitioner import Partitioner, SingleDevicePa
 from zookeeper_tpu_torch.serving.decode.engine import DecodeEngine
 from zookeeper_tpu_torch.serving.decode.metrics import DecodeMetrics
 from zookeeper_tpu_torch.serving.decode.scheduler import DecodeScheduler
+from zookeeper_tpu_torch.serving.decode.speculative import SpeculativeDecoding
+
+logger = logging.getLogger(__name__)
 
 __all__ = ["LMServingConfig"]
 
@@ -64,6 +75,10 @@ class LMServingConfig:
     engine: DecodeEngine = ComponentField(DecodeEngine)
     scheduler: DecodeScheduler = ComponentField(DecodeScheduler)
     metrics: DecodeMetrics = ComponentField(DecodeMetrics)
+    #: Speculative decoding: ``speculative.enabled=True speculative.k=4
+    #: speculative.draft_checkpoint=DIR``. A draft that cannot be loaded or
+    #: bound falls back to plain decode, loudly.
+    speculative: SpeculativeDecoding = ComponentField(SpeculativeDecoding)
 
     #: The deployment artifact: a ``save_model`` export or a
     #: ``Checkpointer`` directory (its latest step). None serves weights
@@ -98,29 +113,59 @@ class LMServingConfig:
                 f"requests={self.requests} must be >= 0, max_prompt="
                 f"{self.max_prompt} and new_tokens={self.new_tokens} >= 1."
             )
-        module = self.model.build((self.seq_len,), self.vocab_size)
-        if self.checkpoint:
-            from zookeeper_tpu_torch.training.checkpoint import (
-                export_trees,
-                load_inference_model,
-                load_into_module,
-            )
-
-            params_like, state_like = export_trees(module)
-            params, model_state = load_inference_model(
-                self.checkpoint, weights=self.weights,
-                params_like=params_like, model_state_like=state_like,
-            )
-            load_into_module(module, params, model_state)
-        else:
-            self.model.initialize(module, seed=self.seed)
+        module = self._load(self.model, self.model.build((self.seq_len,), self.vocab_size),
+                            self.checkpoint, self.weights)
         self.runtime.initialize(self.device)
         self.partitioner.setup()
         self.engine.bind(module, partitioner=self.partitioner, device=self.device)
         if self.warmup:
             self.engine.warmup()
-        self.scheduler.bind(self.engine, metrics=self.metrics)
+        self.scheduler.bind(self.engine, metrics=self.metrics,
+                            speculative=self._resolve_speculative())
         return self.engine, self.scheduler
+
+    def _load(self, model: Model, module, checkpoint: Optional[str], weights: str):
+        """``module`` (built by ``model``) with its weights read from
+        ``checkpoint`` (``weights`` picks EMA or raw) or initialized from
+        ``seed``."""
+        if not checkpoint:
+            return model.initialize(module, seed=self.seed)
+        from zookeeper_tpu_torch.training.checkpoint import (
+            export_trees,
+            load_inference_model,
+            load_into_module,
+        )
+
+        params_like, state_like = export_trees(module)
+        params, model_state = load_inference_model(
+            checkpoint, weights=weights, params_like=params_like,
+            model_state_like=state_like,
+        )
+        load_into_module(module, params, model_state)
+        return module
+
+    def _resolve_speculative(self) -> Optional[SpeculativeDecoding]:
+        """The bound speculative schedule, or None: plain decode when it
+        is off, and also (with a warning) when the draft cannot be loaded
+        or bound, so the teacher keeps serving."""
+        sp = self.speculative
+        if not sp.enabled:
+            return None
+        draft = sp.draft_model.build((self.seq_len,), self.vocab_size)
+        try:
+            if not sp.draft_checkpoint:
+                logger.warning(
+                    "speculative.enabled with no draft_checkpoint: serving a draft "
+                    "initialized from the seed (acceptance near chance unless it has the "
+                    "teacher's geometry)")
+            draft = self._load(sp.draft_model, draft, sp.draft_checkpoint, sp.draft_weights)
+            return sp.bind(self.engine, draft, partitioner=self.partitioner)
+        except (OSError, ValueError) as e:
+            logger.warning("speculative decoding DISABLED, the draft is unavailable (%s); "
+                           "serving plain greedy decode", e)
+            if self.verbose and self.partitioner.is_chief:
+                print(f"speculative decoding disabled: {e}", flush=True)
+            return None
 
     def prompts(self, max_prompt: int) -> List[np.ndarray]:
         """The seeded stream ``run()`` serves (the JAX ``run()``'s):
@@ -157,6 +202,7 @@ class LMServingConfig:
         object.__setattr__(self, "outputs", outputs)
         tokens = sum(int(o.shape[0]) for o in outputs)
         device = engine.device
+        spec = scheduler._speculative
         result = {
             **{k: round(float(v), 4) for k, v in self.metrics.snapshot().items()},
             "model": type(self.model).__name__,
@@ -168,8 +214,15 @@ class LMServingConfig:
             "decode_mbu": round(engine.decode_mbu, 4),
             "kv_layout": str(engine.kv_layout),
             **({"kv_pool_fill": round(engine.page_pool.used_pages
-                                      / engine.page_pool.num_pages, 4)}
+                                      / engine.page_pool.num_pages, 4),
+                "prefix_cache_hit_rate": round(engine.page_pool.prefix_hit_rate, 4)}
                if engine.paged else {}),
+            # What served: a speculative config whose draft fell back says
+            # false here.
+            "speculative": spec is not None,
+            "spec_k": int(spec.k) if spec is not None else 0,
+            **({"spec_acceptance_rate": round(spec.acceptance_rate, 4)}
+               if spec is not None else {}),
             "requests": self.requests,
             "generated_tokens": tokens,
             "tokens_per_sec": round(tokens / dt, 1) if dt > 0 else 0.0,
