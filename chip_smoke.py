@@ -396,7 +396,26 @@ CUDA card and ``nvcc``. In order:
    tokens; (e) on a world-size-1 NCCL group under FSDP and the (1, 1)
    mesh with ``transformer_tp_rules``: a warm, chunked, speculative run's
    tokens and launches equal the run with no group's bit for bit.
-23. One JSON line of the kernels (14 rows; K1, K3, K4, K6 and K7 also
+23. Per-host sharded checkpoints and group recovery (``group_phase``,
+   deterministic mode where bits are compared): ``TrainLM`` at the LM
+   training width with 2 layers (K9-lse, K10, K11 2 each a step), 24
+   steps at ``unroll`` 4. (b) Uninterrupted once; then as host 0 of a
+   2-host ``FileCoordinator`` group under ``run_with_recovery(
+   coordinator=...)``, a stub thread as host 1 starting a drain at step
+   0: host 0 stops at 0 + the margin 16, saved, restarts once, resumes,
+   and ends on the uninterrupted run's bits, the kernels launched 24
+   steps x 2 layers each. (a) Two ``Checkpointer``s as hosts 0 and 1
+   (``process_count=2``) save the trained state on the card, commit,
+   and restore it bit for bit into fresh states; a ``fail_host_finalize``
+   step stays invisible and both walk back; each host's bytes and write
+   ms, the commit ms and the restore ms (split into the npz reads, the
+   agreement's rounds, the load into the state and the rest; beside one
+   thread's read of a host's file alone and bare exchange rounds) beside
+   the bare layout's save and restore of the same state. (c) The wall ms
+   a step (epochs 2-9 of three runs each, graph replays) with a 2-host
+   coordinator wired and no flag, against none, as medians and quartiles;
+   and one ``poll_flags`` of the boundary alone.
+24. One JSON line of the kernels (14 rows; K1, K3, K4, K6 and K7 also
    with their sums on Bi-Real-Net's path under ``bireal``; K1, K3 and K4
    under ``densenet`` and ``melius``, K1 and K3 under ``xnor_train`` per
    DenseNet training step, K2 under ``xnor_train`` per BinaryAlexNet
@@ -410,7 +429,8 @@ CUDA card and ``nvcc``. In order:
    phase 20's launches and step times, and K9-lse/K10/K11's head-shard
    times; K1, K3, K4, K9, K12 and K13 under ``served_sharded``, phase 21's
    launches and the block times; K9, K12 and K13 under ``features``,
-   phase 22's launches on each path), then the result line.
+   phase 22's launches on each path; K9-lse, K10 and K11 under ``group``,
+   phase 23's launches in the supervised run), then the result line.
 """
 
 import contextlib
@@ -6243,6 +6263,320 @@ def features_phase(torch, bc, A, smi):
     return features
 
 
+#: Phase 23 (``group_phase``): TrainLM at the LM training width, 2
+#: layers, GROUP_STEPS steps a run at unroll UNROLL (4 and 4 a slab, then
+#: CUDA graph replays); a drain started at step 0 exits at 0 + the margin
+#: 4 x unroll.
+GROUP_SPE = 8
+GROUP_EPOCHS = 3
+GROUP_STEPS = GROUP_SPE * GROUP_EPOCHS
+GROUP_LAYERS = 2
+GROUP_TIMEOUT_S = 2.0
+#: (c)'s runs: GROUP_COST_EPOCHS epochs each (the first, with the warm-up
+#: and the capture, not sampled), in the order GROUP_COST_ORDER.
+GROUP_COST_EPOCHS = 9
+GROUP_COST_ORDER = ("none", "wired", "wired", "none", "none", "wired")
+
+
+class _PeerHost:
+    """Host 1 of a 2-host group, on a thread: starts a drain at step 0,
+    then answers "recoverable" and "ok" to host 0's verdict rounds."""
+
+    def __init__(self, root):
+        import threading
+
+        from zookeeper_tpu_torch.resilience import FileCoordinator
+
+        self.coord = FileCoordinator(root, 1, 2, timeout_s=300.0)
+        self.verdicts, self.error = [], None
+        self.thread = threading.Thread(target=self._run, daemon=True)
+        self.thread.start()
+
+    def _run(self):
+        try:
+            self.coord.publish_flag("preempt", {"origin": 1, "step": 0, "signal": None})
+            for attempt, outcome in enumerate(("recoverable", "ok")):
+                self.coord.generation = attempt
+                self.verdicts.append(self.coord.exchange(
+                    "supervisor_verdict", {"outcome": outcome, "cause": None, "origin": None}))
+        except BaseException as e:  # read by the phase
+            self.error = e
+
+
+def _dir_bytes(path) -> int:
+    return sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(path) for f in fs)
+
+
+def group_phase(torch, A, smi, device="cuda", conf=None):
+    """Phase 23, the per-host sharded checkpoint and group recovery on the
+    card (module docstring). Returns (launches of the supervised run,
+    stats)."""
+    import tempfile
+    import threading
+
+    import numpy as np
+
+    from zookeeper_tpu_torch.core import configure
+    from zookeeper_tpu_torch.resilience import FaultPlan, FileCoordinator, faults, run_with_recovery
+    from zookeeper_tpu_torch.training import Checkpointer
+    from zookeeper_tpu_torch.training import checkpoint as ck_mod
+    from zookeeper_tpu_torch.training.lm import TrainLM
+
+    tag = "group"
+    dev = torch.device(device)
+    conf = conf or {**LM_TRAIN_CONFIG, "model.num_layers": GROUP_LAYERS}
+    per_step = dict.fromkeys(LM_TRAIN_KERNELS, GROUP_LAYERS)
+    stats = {}
+
+    def lm(extra=None, seed=0):
+        exp = TrainLM()
+        configure(exp, {**conf, "loader.dataset.num_train_examples":
+                        GROUP_SPE * conf["batch_size"], "steps_per_epoch": GROUP_SPE,
+                        "epochs": GROUP_EPOCHS, "unroll": UNROLL, "validate": False,
+                        "seed": seed, "device": device, **(extra or {})}, name="experiment")
+        return exp
+
+    with tempfile.TemporaryDirectory(prefix="zk_group_") as tmp:
+        # (b) the group drain: host 0 under run_with_recovery, host 1 a stub.
+        t0 = time.perf_counter()
+        A.reset_launches()
+        with deterministic(torch):
+            oracle = lm()
+            oracle.run()
+        _sync(torch, dev)
+        want = _flat_state(torch, oracle.final_state)
+        oracle_launches = {n: A.LAUNCHES[n] for n in LM_TRAIN_KERNELS}
+        total = {n: k * GROUP_STEPS for n, k in per_step.items()}
+        check(oracle_launches == total,
+              f"{tag}: the uninterrupted run launched {oracle_launches}, want {total}")
+        exp = lm({"checkpointer.directory": os.path.join(tmp, "drain"),
+                  "checkpointer.save_every_epochs": 0})
+        coord_root = os.path.join(tmp, "coord")
+        coord = FileCoordinator(coord_root, 0, 2, timeout_s=300.0)
+        peer = _PeerHost(coord_root)
+        A.reset_launches()
+        with deterministic(torch):
+            result = run_with_recovery(exp, coordinator=coord, max_restarts=1, backoff_s=0.0,
+                                       sleep=lambda s: None)
+        _sync(torch, dev)
+        launches = {n: A.LAUNCHES[n] for n in LM_TRAIN_KERNELS}
+        peer.thread.join(60)
+        check(peer.error is None and not peer.thread.is_alive(),
+              f"{tag}: the peer host failed: {peer.error}")
+        causes = [(type(c).__name__, c.step, c.saved) for c in result.causes]
+        stop = 4 * UNROLL
+        check(result.restarts == 1 and causes == [("Preempted", stop, True)],
+              f"{tag}: {result.restarts} restarts, causes {causes}, want one Preempted at {stop}")
+        check([[v["outcome"] for v in r] for r in peer.verdicts]
+              == [["recoverable", "recoverable"], ["ok", "ok"]]
+              and peer.verdicts[0][0]["origin"] == 1,
+              f"{tag}: verdicts {peer.verdicts}")
+        run_steps = stop + (GROUP_STEPS - stop)
+        check(launches == {n: k * run_steps for n, k in per_step.items()},
+              f"{tag}: the supervised run launched {launches}, want {per_step} x {run_steps} "
+              "steps")
+        bad = _same_state(torch, _flat_state(torch, exp.final_state), want)
+        check(not bad, f"{tag}: the drained and resumed run differs from the uninterrupted "
+                       f"one in {len(bad)} of {len(want)} tensors, e.g. {bad[:4]}")
+        stats["drain"] = {"stopped_at": stop, "restarts": result.restarts,
+                          "restore_ms": result.restore_ms, "save_wait_ms": result.save_wait_ms,
+                          "launches": launches, "tensors": len(want),
+                          "seconds": time.perf_counter() - t0}
+        print(f"{tag}: a drain started by host 1 at step 0 stops host 0 at step {stop}, saved; "
+              f"one restart; the resumed run equals the uninterrupted one bit for bit "
+              f"({len(want)} tensors); launches {launches}", flush=True)
+        del exp
+
+        # (a) the two-host save of the trained state, its restore, a torn
+        # finalize; beside the bare layout's save and restore.
+        state = oracle.final_state
+        step = state.step
+        hosts = []
+        for pid in range(2):
+            ck = Checkpointer()
+            configure(ck, {"directory": os.path.join(tmp, "hosts"), "sharded_per_host": True,
+                           "save_every_epochs": 0, "process_index": pid, "process_count": 2,
+                           "host_commit_timeout_s": GROUP_TIMEOUT_S}, name="checkpointer")
+            hosts.append(ck)
+        commit_ms = []
+        real_commit = hosts[0]._commit_sharded_step
+
+        def timed_commit(*a):
+            t1 = time.perf_counter()
+            try:
+                return real_commit(*a)
+            finally:
+                commit_ms.append((time.perf_counter() - t1) * 1e3)
+
+        object.__setattr__(hosts[0], "_commit_sharded_step", timed_commit)
+        write_ms = {}
+        for pid in (1, 0):
+            _sync(torch, dev)
+            t1 = time.perf_counter()
+            check(hosts[pid].save(state), f"{tag}: host {pid}'s save of step {step} failed")
+            write_ms[pid] = (time.perf_counter() - t1) * 1e3
+        step_root = os.path.join(tmp, "hosts", f"{step}.zkhost")
+        host_bytes = [_dir_bytes(os.path.join(step_root, f"host_{pid:05d}")) for pid in (0, 1)]
+        check(os.path.isfile(os.path.join(step_root, "COMMIT.json")),
+              f"{tag}: no commit record for step {step}")
+
+        # The split of each host's restore: reading its boxes from the npz
+        # files, the agreement's exchange rounds (waiting on the peer
+        # included), loading the tree into the state, and the rest.
+        split = {}
+        where = threading.local()
+
+        def timed(kind, fn):
+            def call(*a, **k):
+                t1 = time.perf_counter()
+                try:
+                    return fn(*a, **k)
+                finally:
+                    d = split.get(getattr(where, "pid", None))
+                    if d is not None:
+                        d[kind] += (time.perf_counter() - t1) * 1e3
+                        if kind == "exchange_ms":
+                            d["rounds"] += 1
+            return call
+
+        def group_restore():
+            out, ms = {}, {}
+
+            def run(pid):
+                fresh = lm(seed=1).build_state(dev)
+                where.pid = pid
+                split[pid] = dict.fromkeys(("read_ms", "exchange_ms", "load_ms", "rounds"), 0)
+                t1 = time.perf_counter()
+                hosts[pid].restore_state(fresh)
+                _sync(torch, dev)
+                ms[pid] = (time.perf_counter() - t1) * 1e3
+                d = split[pid]
+                d["other_ms"] = ms[pid] - d["read_ms"] - d["exchange_ms"] - d["load_ms"]
+                out[pid] = fresh
+
+            with contextlib.ExitStack() as stack:
+                for cls, attr, kind in ((ck_mod._HostFiles, "table", "read_ms"),
+                                        (ck_mod._HostFiles, "read", "read_ms")):
+                    stack.enter_context(mock.patch.object(
+                        cls, attr, timed(kind, getattr(cls, attr))))
+                stack.enter_context(mock.patch.object(
+                    Checkpointer, "_load_tree",
+                    staticmethod(timed("load_ms", Checkpointer._load_tree))))
+                for ck in hosts:
+                    c = ck._coordinator()
+                    stack.enter_context(mock.patch.object(
+                        c, "exchange", timed("exchange_ms", c.exchange)))
+                t = threading.Thread(target=run, args=(1,))
+                t.start()
+                run(0)
+                t.join()
+            return out, ms
+
+        restored, restore_ms = group_restore()
+        restore_split = {pid: dict(split[pid]) for pid in (0, 1)}
+        # The same reads on one thread alone, and bare exchange rounds with
+        # both hosts ready at once.
+        t1 = time.perf_counter()
+        with np.load(os.path.join(step_root, "host_00000", "data.npz")) as npz:
+            solo_bytes = sum(npz[key].nbytes for key in npz.files)
+        solo_read_ms = (time.perf_counter() - t1) * 1e3
+        round_ms = []
+        pair = [FileCoordinator(os.path.join(tmp, "rounds"), pid, 2) for pid in (0, 1)]
+        for r in range(20):
+            t = threading.Thread(target=pair[1].exchange, args=("round", r))
+            t1 = time.perf_counter()
+            t.start()
+            pair[0].exchange("round", r)
+            round_ms.append((time.perf_counter() - t1) * 1e3)
+            t.join()
+        for pid in (0, 1):
+            bad = _same_state(torch, _flat_state(torch, restored[pid]), want)
+            check(restored[pid].step == step and not bad,
+                  f"{tag}: host {pid} restored step {restored[pid].step}, {len(bad)} tensors "
+                  f"differ, e.g. {bad[:4]}")
+        del restored
+        bare = Checkpointer()
+        configure(bare, {"directory": os.path.join(tmp, "bare")}, name="checkpointer")
+        _sync(torch, dev)
+        t1 = time.perf_counter()
+        bare.save(state)
+        bare_save_ms = (time.perf_counter() - t1) * 1e3
+        fresh = lm(seed=1).build_state(dev)
+        t1 = time.perf_counter()
+        bare.restore_state(fresh)
+        _sync(torch, dev)
+        bare_restore_ms = (time.perf_counter() - t1) * 1e3
+        del fresh
+        # A torn finalize: host 1 dies before its rename; host 0 waits out
+        # the commit deadline; every host walks back to the committed step.
+        state.step = step + 1
+        with faults.injected(FaultPlan(fail_host_finalize=1)):
+            torn = [hosts[1].save(state), hosts[0].save(state)]
+        state.step = step
+        check(torn == [False, False] and [ck.latest_step() for ck in hosts] == [step, step],
+              f"{tag}: the torn step saved {torn}, latest {[ck.latest_step() for ck in hosts]}")
+        walked, _ = group_restore()
+        for pid in (0, 1):
+            bad = _same_state(torch, _flat_state(torch, walked[pid]), want)
+            check(walked[pid].step == step and not bad,
+                  f"{tag}: after the torn step host {pid} restored {walked[pid].step}")
+        del walked
+        stats["two_host"] = {
+            "step": step, "host_bytes": host_bytes, "host_write_ms": [write_ms[0], write_ms[1]],
+            "commit_ms": commit_ms[0], "restore_ms": [restore_ms[0], restore_ms[1]],
+            "bare_bytes": _dir_bytes(os.path.join(tmp, "bare", str(step))),
+            "bare_save_ms": bare_save_ms, "bare_restore_ms": bare_restore_ms,
+            "torn_commit_wait_ms": commit_ms[-1], "restore_split": restore_split,
+            "solo_read_ms": solo_read_ms, "solo_read_bytes": solo_bytes,
+            "exchange_round_ms_median": statistics.median(round_ms),
+            "exchange_round_ms_max": max(round_ms),
+        }
+        print(f"{tag}: two hosts saved step {step} ({host_bytes} B), committed, and restored "
+              "it bit for bit into fresh states; a torn finalize on host 1 stays invisible and "
+              "both walk back to it", flush=True)
+
+        # (c) a wired coordinator's cost: ms a step at unroll 4, epochs 2 on
+        # (graph replays), with a 2-host coordinator and no flag, against
+        # none; and the boundary's poll_flags alone.
+        per_step_ms = {"none": [], "wired": []}
+        for label in GROUP_COST_ORDER:
+            exp = lm({"epochs": GROUP_COST_EPOCHS})
+            if label == "wired":
+                idle = os.path.join(tmp, f"idle{len(per_step_ms['wired'])}")
+                exp.group_coordinator = FileCoordinator(idle, 0, 2)
+            history = exp.run()
+            for epoch in history["train"][1:]:
+                per_step_ms[label].append(conf["batch_size"] * 1e3 / epoch["examples_per_sec"])
+            del exp
+        idle = FileCoordinator(os.path.join(tmp, "idle_poll"), 0, 2)
+        poll_us = []
+        for _ in range(500):
+            t1 = time.perf_counter()
+            idle.poll_flags("preempt")
+            poll_us.append((time.perf_counter() - t1) * 1e6)
+
+        def spread(xs):
+            q1, q2, q3 = statistics.quantiles(xs, n=4)
+            return {"median": statistics.median(xs), "q1": q1, "q3": q3,
+                    "min": min(xs), "max": max(xs), "n": len(xs)}
+
+        none, wired = spread(per_step_ms["none"]), spread(per_step_ms["wired"])
+        stats["coordinator_cost"] = {
+            "step_ms_none": none, "step_ms_wired": wired,
+            "median_diff_ms": wired["median"] - none["median"],
+            # The difference is resolved only when it exceeds both
+            # interquartile ranges.
+            "resolved": abs(wired["median"] - none["median"]) > max(
+                none["q3"] - none["q1"], wired["q3"] - wired["q1"]),
+            "poll_flags_us_median": statistics.median(poll_us),
+            "samples": per_step_ms,
+        }
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    print(f"{tag} on {smi}: {json.dumps(stats)}", flush=True)
+    return launches, stats
+
+
 def main() -> None:
     if not os.path.isdir(os.path.join(ROOT, "zookeeper_tpu_torch", "csrc")):
         fail("run from a checkout: zookeeper_tpu_torch/ is not beside this script")
@@ -6348,6 +6682,8 @@ def main() -> None:
     elapsed("served sharded")
     features = features_phase(torch, bc, A, smi)
     elapsed("serving features")
+    launches_group, _ = group_phase(torch, A, smi)
+    elapsed("group recovery")
     served_rows = {}
     for name in ("pack_rows", "conv_gemm_popcount", "packed_weight_matmul", *LM_KERNELS):
         lm = name in LM_KERNELS
@@ -6584,6 +6920,12 @@ def main() -> None:
             "ring_shard": ring_rows[name],
         }
         rows[-1]["sharded"] = sharded_rows[name]
+        rows[-1]["group"] = {
+            "path": f"TrainLM {GROUP_LAYERS} layers at unroll {UNROLL} as host 0 of a 2-host "
+                    f"group, drained at step {4 * UNROLL}, restarted and resumed to "
+                    f"{GROUP_STEPS}",
+            "launches": launches_group[name],
+        }
     print(smi, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({

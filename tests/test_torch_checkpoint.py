@@ -333,9 +333,13 @@ def test_invalid_mode_and_policy_rejected(tmp_path, bad):
     ("host_commit_timeout_s", 5.0),
 ])
 def test_later_slice_fields_raise_naming_roadmap(tmp_path, field, value):
-    exp = make_experiment({**ckpt_conf(tmp_path), f"checkpointer.{field}": value})
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        exp.run()
+    """The per-host protocol's fields (a group of one process: the bare
+    layout's saves land, as they do without them)."""
+    exp = make_experiment({**ckpt_conf(tmp_path, **{"checkpointer.save_every_epochs": 1}),
+                           f"checkpointer.{field}": value}, train=128, val=0, hidden=(16,))
+    exp.run()
+    assert sorted(os.listdir(tmp_path / "ckpt")) == ["4", "8"]
+    assert exp.checkpointer.latest_step() == 8
 
 
 def test_kill_mid_async_write_restores_previous_finalized_step(tmp_path):
@@ -620,10 +624,29 @@ def test_supervisor_rejects_bad_config():
         run_with_recovery(object(), backoff_factor=0.5)
 
     class Group:
-        process_count = 2
+        process_index, process_count, generation = 0, 2, None
+        rounds = []
 
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        run_with_recovery(object(), coordinator=Group())
+        def exchange(self, key, payload, timeout_s=None):
+            self.rounds.append((key, payload, timeout_s))
+            return [payload, {"outcome": "ok", "cause": None, "origin": None}]
+
+    class Run:
+        group_coordinator = None
+        seen = []
+
+        def run(self):
+            self.seen.append(self.group_coordinator)
+            return "history"
+
+    # A group of two: the coordinator is wired for the run, the verdicts
+    # are exchanged, and the run returns.
+    group, exp = Group(), Run()
+    result = run_with_recovery(exp, coordinator=group, group_timeout_s=7.0)
+    assert result.history == "history" and result.restarts == 0
+    assert exp.seen == [group] and exp.group_coordinator is None and group.generation == 0
+    assert group.rounds == [("supervisor_verdict",
+                             {"outcome": "ok", "cause": None, "origin": None}, 7.0)]
 
 
 def test_supervisor_does_not_restart_operator_sigint(tmp_path):

@@ -26,6 +26,7 @@
 """
 
 import functools
+import os
 
 import jax
 import jax.numpy as jnp
@@ -121,8 +122,9 @@ def test_sequence_partitioner_config_rejections_match_jax(fields):
 def test_unported_layouts_raise_not_implemented(tmp_path):
     """The sharded layouts are ported: FSDP, a ``model`` axis with rules
     and ``tp`` lay out one rank without a group (``tp=2`` needs its ranks,
-    with JAX's message). The per-host sharded checkpoint is not: any
-    non-default value of its fields raises naming ROADMAP.md."""
+    with JAX's message). The per-host sharded checkpoint's fields take their
+    values: one process saves the bare layout, and the invalid values
+    raise JAX's ``ValueError``s."""
     from zookeeper_tpu_torch.parallel import (
         FsdpPartitioner,
         MeshPartitioner,
@@ -145,12 +147,32 @@ def test_unported_layouts_raise_not_implemented(tmp_path):
     port_configure(tp, {"tp": 2}, name="partitioner")
     with pytest.raises(ValueError, match="not divisible by fixed axes 2"):
         tp.setup()
+    from zookeeper_tpu.training import Checkpointer as JaxCheckpointer
+    from zookeeper_tpu_torch.training import Sgd, TrainState
+
+    sgd = Sgd()
+    port_configure(sgd, {}, name="optimizer")
+    tx = sgd.build(total_steps=1)
+    module = torch.nn.Linear(2, 2)
+    state = TrainState(step=3, module=module, tx=tx,
+                       opt_state=tx.init(dict(module.named_parameters())))
     for field, value in (("sharded_per_host", True), ("process_index", 0),
                          ("process_count", 2), ("host_commit_timeout_s", 5.0)):
+        # One process in the group: the save lands in the bare layout.
         ckpt = Checkpointer()
-        port_configure(ckpt, {"directory": str(tmp_path), field: value}, name="checkpointer")
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            ckpt.save(None)
+        directory = tmp_path / field
+        port_configure(ckpt, {"directory": str(directory), field: value}, name="checkpointer")
+        assert ckpt.save(state) and sorted(os.listdir(directory)) == ["3"]
+    for bad in ({"host_commit_timeout_s": 0.0},
+                {"sharded_per_host": True, "keep_best_metric": "accuracy"}):
+        jax_ckpt, port_ckpt = JaxCheckpointer(), Checkpointer()
+        jax_configure(jax_ckpt, {"directory": str(tmp_path), **bad}, name="checkpointer")
+        port_configure(port_ckpt, {"directory": str(tmp_path), **bad}, name="checkpointer")
+        with pytest.raises(ValueError) as want:
+            jax_ckpt._validate_mode()
+        with pytest.raises(ValueError) as got:
+            port_ckpt.save(state)
+        assert str(got.value) == str(want.value)
 
 
 def test_initialize_distributed_rejections_match_jax(monkeypatch):

@@ -225,15 +225,17 @@ def _nest(tree: Dict[str, Any], path: Tuple[str, ...], value: Any) -> None:
 
 
 def to_flax_variables(
-    module: nn.Module, named: Optional[Mapping[str, Any]] = None
+    module: nn.Module, named: Optional[Mapping[str, Any]] = None, leaf_fn=_numpy
 ) -> Tuple[Dict[str, Any], Dict[str, Any]]:
     """The port module's weights as flax ``(params, {"batch_stats":
-    ...})`` nested dicts of numpy arrays, scopes in module creation
-    order (the inverse of :func:`from_flax_variables`). ``named`` (a
-    ``state_dict``-like mapping) stands in for the module's tensors."""
+    ...})`` nested dicts of numpy arrays (each tensor through
+    ``leaf_fn``), scopes in module creation order (the inverse of
+    :func:`from_flax_variables`). ``named`` (a ``state_dict``-like
+    mapping) stands in for the module's tensors."""
     params: Dict[str, Any] = {}
     stats: Dict[str, Any] = {}
-    for path, leaves in _by_layer(module.state_dict() if named is None else named).items():
+    for path, leaves in _by_layer(module.state_dict() if named is None else named,
+                                  leaf_fn).items():
         _nest(params, path, _flax_param_leaves(path[-1], leaves))
         if _BN.match(path[-1]):
             _nest(stats, path, {k: leaves[v] for k, v in _BN_STATS.items()})

@@ -266,6 +266,31 @@ class Layout:
     def axes(self) -> Tuple[str, ...]:
         return tuple(a for axes, _ in self.dims for a in axes)
 
+    def box(self, coords: Dict[str, int],
+            sizes: Dict[str, int]) -> Tuple[List[int], List[List[int]]]:
+        """The block ``coords`` holds, as a box: ``(view, index)``, the
+        view of the global shape in which the block is one box (a dimension
+        of interleave k > 1 read as ``[k, members, rest]``) and the box's
+        ``[start, stop]`` in each view dimension."""
+        view: List[int] = []
+        index: List[List[int]] = []
+        for n, (axes, k) in zip(self.shape, self.dims):
+            if not axes:
+                view.append(n)
+                index.append([0, n])
+                continue
+            count = prod(sizes[a] for a in axes)
+            i = _block_index(axes, coords, sizes)
+            if k == 1:
+                m = n // count
+                view.append(n)
+                index.append([i * m, (i + 1) * m])
+            else:
+                rest = n // (k * count)
+                view += [k, count, rest]
+                index += [[0, k], [i, i + 1], [0, rest]]
+        return view, index
+
 
 def _block_index(axes: Sequence[str], coords: Dict[str, int], sizes: Dict[str, int]) -> int:
     index = 0
@@ -276,19 +301,18 @@ def _block_index(axes: Sequence[str], coords: Dict[str, int], sizes: Dict[str, i
 
 def _block(t: torch.Tensor, layout: Layout, coords: Dict[str, int],
            sizes: Dict[str, int]) -> torch.Tensor:
-    """A view of the block ``coords`` holds of the global tensor ``t``,
-    each sharded dimension of interleave k > 1 left as ``[k, rest]``."""
-    for dim in reversed(range(len(layout.dims))):
-        axes, k = layout.dims[dim]
-        if not axes:
-            continue
-        count = prod(sizes[a] for a in axes)
-        index = _block_index(axes, coords, sizes)
-        if k == 1:
-            n = t.shape[dim] // count
-            t = t.narrow(dim, index * n, n)
+    """A view of the block ``coords`` holds of the global tensor ``t``
+    (:meth:`Layout.box`), each sharded dimension of interleave k > 1 left
+    as ``[k, rest]``."""
+    view, index = layout.box(coords, sizes)
+    t = t.reshape(view)[tuple(slice(a, b) for a, b in index)]
+    dim = 0
+    for axes, k in layout.dims:
+        if axes and k > 1:
+            t = t.squeeze(dim + 1)  # the member dimension, one wide
+            dim += 2
         else:
-            t = t.unflatten(dim, (k, count, -1)).select(dim + 1, index)
+            dim += 1
     return t
 
 

@@ -8,7 +8,12 @@
   (seed, epoch)-fixed pipeline from the saved step, an exact resume.
 - :class:`FaultPlan` (``faults.py``): deterministic, process-local fault
   injection (kill at a step, tear a checkpoint, fail a save, NaN a step,
-  kill or fail an async write).
+  kill or fail an async write, kill a host of a group, drop a host's
+  checkpoint finalize, lose the coordinator).
+- :class:`FileCoordinator` (``coordination.py``): the shared-directory
+  flags and exchanges the multi-host protocols ride: the group drain,
+  the supervisor's restart verdicts and the per-host checkpoint's
+  restore agreement.
 
 The retrying, crash-consistent saves and the restore walk live in
 ``training.checkpoint.Checkpointer``; the ``nan_policy`` in
@@ -16,6 +21,12 @@ The retrying, crash-consistent saves and the restore walk live in
 """
 
 from zookeeper_tpu_torch.resilience import faults
+from zookeeper_tpu_torch.resilience.coordination import (
+    CoordinatorLostError,
+    FileCoordinator,
+    HostCoordinator,
+    NullCoordinator,
+)
 from zookeeper_tpu_torch.resilience.faults import (
     FaultPlan,
     InjectedFault,
@@ -26,15 +37,21 @@ from zookeeper_tpu_torch.resilience.faults import (
 from zookeeper_tpu_torch.resilience.guard import PreemptionGuard
 from zookeeper_tpu_torch.resilience.supervisor import (
     RECOVERABLE,
+    GroupPeerFailure,
     RecoveryResult,
     measure_recovery_restore_ms,
     run_with_recovery,
 )
 
 __all__ = [
+    "CoordinatorLostError",
     "FaultPlan",
+    "FileCoordinator",
+    "GroupPeerFailure",
+    "HostCoordinator",
     "InjectedFault",
     "NonFiniteLossError",
+    "NullCoordinator",
     "Preempted",
     "PreemptionGuard",
     "RECOVERABLE",

@@ -25,17 +25,19 @@ one ``None`` check.
 - Under the fused loop (``TrainingExperiment.unroll > 1``) the boundaries
   are slab ends: a kill at a step inside a slab lands at the slab's end,
   as step-cadence checkpoints do.
+- The multi-host legs key on the host's logical process index: a
+  several-process run installs the same plan in every process and each
+  host fires only its own faults.
 
 The serving legs (worker and decode crashes, disaggregation, the fleet)
-and the multi-host legs (``kill_process_at_step``, ``fail_host_finalize``,
-``coordinator_loss``) are not ported yet (ROADMAP.md).
+are not ported yet (ROADMAP.md).
 """
 
 import contextlib
 import os
 import threading
 from dataclasses import dataclass, field
-from typing import Iterator, Optional
+from typing import Dict, Iterator, Optional
 
 
 class Preempted(Exception):
@@ -100,6 +102,21 @@ class FaultPlan:
       mid-write (one-shot): a torn unfinalized remnant is left and the
       write is abandoned, with no retry and no error to training, as
       when the process is killed while the writer thread saves.
+
+    The multi-host legs:
+
+    - ``kill_process_at_step``: ``{process_index: step}``, request
+      preemption on that host only, at the first boundary whose step is
+      ``>= step`` (one-shot per plan, ``kill_at_step``'s twin). Under
+      group recovery the flag becomes a drain and save of the whole group.
+    - ``fail_host_finalize``: the first per-host sharded checkpoint
+      finalize on this process index is dropped, as when the host dies
+      between writing its shards and the rename: the temporary directory
+      stays, the marker never appears, process 0 never writes the step's
+      commit record, so no host's restore sees the step. One-shot, not
+      retried (a dead host does not retry).
+    - ``coordinator_loss``: the next N cross-host ``exchange`` rounds
+      raise ``CoordinatorLostError``.
     """
 
     kill_at_step: Optional[int] = None
@@ -108,22 +125,52 @@ class FaultPlan:
     nan_at_step: Optional[int] = None
     fail_async_finalize: int = 0
     kill_during_async_write: Optional[int] = None
+    kill_process_at_step: Optional[Dict[int, int]] = None
+    fail_host_finalize: Optional[int] = None
+    coordinator_loss: int = 0
 
     _lock: threading.Lock = field(default_factory=threading.Lock, repr=False, compare=False)
     _killed: bool = field(default=False, repr=False, compare=False)
     _corrupted: bool = field(default=False, repr=False, compare=False)
     _async_killed: bool = field(default=False, repr=False, compare=False)
+    _host_finalize_failed: bool = field(default=False, repr=False, compare=False)
 
-    def kill_due(self, step: int) -> bool:
+    def kill_due(self, step: int, process_index: int = 0) -> bool:
         """One-shot: True at the first query with ``step >=
-        kill_at_step`` (queried at step boundaries; with ``unroll > 1``
-        at slab ends, so the kill lands at the end of the slab holding
-        the step)."""
-        if self.kill_at_step is None:
+        kill_at_step`` (any host) or ``step >=
+        kill_process_at_step[process_index]`` (that host only), whichever
+        comes first (queried at step boundaries; with ``unroll > 1`` at
+        slab ends, so the kill lands at the end of the slab holding the
+        step)."""
+        candidates = [self.kill_at_step]
+        if self.kill_process_at_step is not None:
+            candidates.append(self.kill_process_at_step.get(int(process_index)))
+        candidates = [c for c in candidates if c is not None]
+        if not candidates:
             return False
         with self._lock:
-            if not self._killed and int(step) >= int(self.kill_at_step):
+            if not self._killed and int(step) >= int(min(candidates)):
                 self._killed = True
+                return True
+        return False
+
+    def take_host_finalize_failure(self, process_index: int) -> bool:
+        """Consume the injected per-host finalize death when it names
+        ``process_index`` (False otherwise, or once fired)."""
+        if self.fail_host_finalize is None:
+            return False
+        with self._lock:
+            if (not self._host_finalize_failed
+                    and int(process_index) == int(self.fail_host_finalize)):
+                self._host_finalize_failed = True
+                return True
+        return False
+
+    def take_coordinator_loss(self) -> bool:
+        """Consume one injected coordinator loss (False when exhausted)."""
+        with self._lock:
+            if self.coordinator_loss > 0:
+                self.coordinator_loss -= 1
                 return True
         return False
 

@@ -1,29 +1,48 @@
 """The restart supervisor: keep training alive across recoverable exits.
 
-The port of ``zookeeper_tpu/resilience/supervisor.py``'s single-process
-path. ``run_with_recovery(experiment)`` runs ``experiment.run()``, and
-when it exits with a recoverable status, :class:`Preempted` (SIGTERM or
-an injected kill, the state already saved) or
-:class:`NonFiniteLossError` (``nan_policy="halt"``), runs it again; the
-experiment's ``Checkpointer.restore_state`` picks up at the newest
-restorable step (an exact mid-epoch resume). Restarts are budgeted
-(``max_restarts``) with exponential backoff, and each resumed run's
-restore latency (restart to its first train step) is measured.
-Unrecoverable exceptions (config errors, structure mismatches, bugs)
-propagate at once. The group mode (``coordinator=`` over several
-processes) is not ported yet (ROADMAP.md).
+The port of ``zookeeper_tpu/resilience/supervisor.py``.
+``run_with_recovery(experiment)`` runs ``experiment.run()``, and when it
+exits with a recoverable status, :class:`Preempted` (SIGTERM or an
+injected kill, the state already saved) or :class:`NonFiniteLossError`
+(``nan_policy="halt"``), runs it again; the experiment's
+``Checkpointer.restore_state`` picks up at the newest restorable step (an
+exact mid-epoch resume). Restarts are budgeted (``max_restarts``) with
+exponential backoff, and each resumed run's restore latency (restart to
+its first train step) is measured. Unrecoverable exceptions (config
+errors, structure mismatches, bugs) propagate at once.
+
+Group mode: with a ``coordinator`` over more than one process, every
+host of the job runs this function with its own coordinator over one
+shared root. The coordinator is wired into the experiment's boundary
+check, so any host's preemption drains and saves every host at one
+agreed step; after every exit the hosts exchange a restart verdict and
+restart together, or raise :class:`GroupPeerFailure` when a peer exited
+unrecoverably or the coordinator was lost.
 """
 
 import logging
 import signal as _signal
 import time
 from dataclasses import dataclass, field
-from typing import Any, Callable, Dict, List, Tuple, Type
+from typing import Any, Callable, Dict, List, Optional, Tuple, Type
 
 from zookeeper_tpu_torch.resilience import faults
+from zookeeper_tpu_torch.resilience.coordination import (
+    CoordinatorLostError,
+    HostCoordinator,
+    NullCoordinator,
+)
 from zookeeper_tpu_torch.resilience.faults import NonFiniteLossError, Preempted
 
 logger = logging.getLogger(__name__)
+
+
+class GroupPeerFailure(RuntimeError):
+    """A peer host of the process group exited unrecoverably, or the
+    coordinator was lost during the restart verdict: the group cannot
+    restart as a whole, so this host's supervisor stops too instead of
+    re-forming a partial group that would wedge in its first collective."""
+
 
 #: Exits a restart can fix: the state to resume from is on disk and the
 #: cause is transient (preemption) or halted by policy (a non-finite loss
@@ -59,15 +78,22 @@ def run_with_recovery(
     max_backoff_s: float = 60.0,
     recover_on: Tuple[Type[BaseException], ...] = RECOVERABLE,
     sleep: Callable[[float], None] = time.sleep,
-    coordinator: Any = None,
+    coordinator: Optional[HostCoordinator] = None,
+    group_timeout_s: float = 120.0,
 ) -> RecoveryResult:
     """Run ``experiment.run()`` under a restart budget: at most
     ``max_restarts`` reruns, ``backoff_s * backoff_factor**i`` (capped at
     ``max_backoff_s``) apart (``sleep`` is injectable for tests). When the
     budget is spent the last recoverable exception propagates. The same
     experiment object is rerun, so its checkpoint directory carries over.
-    ``coordinator`` is the JAX package's group recovery across processes:
-    one over more than one process raises ``NotImplementedError``."""
+
+    With a ``coordinator`` over ``process_count > 1`` hosts (module
+    docstring), each attempt's rounds are namespaced by
+    ``coordinator.generation = attempt``, and after each exit the hosts
+    exchange verdicts (deadline ``group_timeout_s``): any "stop" stops
+    every host (this host's own exception, else
+    :class:`GroupPeerFailure`); any "recoverable" restarts every host on
+    the same backoff; all "ok" returns."""
     if max_restarts < 0:
         raise ValueError(f"max_restarts={max_restarts} must be >= 0.")
     if backoff_s < 0 or backoff_factor < 1.0:
@@ -75,44 +101,85 @@ def run_with_recovery(
             f"backoff_s={backoff_s} must be >= 0 and "
             f"backoff_factor={backoff_factor} >= 1."
         )
-    if coordinator is not None and getattr(coordinator, "process_count", 1) > 1:
-        raise NotImplementedError(
-            "run_with_recovery(coordinator=...) over several processes (group "
-            "recovery) is not in the PyTorch port yet; it is queued in "
-            "ROADMAP.md (Queue 1 item 3)."
-        )
+    group = coordinator is not None and getattr(coordinator, "process_count", 1) > 1
+    # One process exchanges with itself: the verdict is its own outcome.
+    coord = coordinator if group else NullCoordinator()
+    if group:
+        experiment.group_coordinator = coordinator
     causes: List[BaseException] = []
     restore_ms: List[float] = []
     save_wait_ms: List[float] = []
-    for attempt in range(max_restarts + 1):
-        t_start = time.perf_counter()
-        try:
-            history = experiment.run()
-        except recover_on as e:
-            _record_save_wait_ms(experiment, e, save_wait_ms)
-            if isinstance(e, Preempted) and e.signum == _signal.SIGINT:
-                logger.warning("SIGINT preemption (operator stop) — not restarting: %s", e)
-                raise
-            causes.append(e)
+    try:
+        for attempt in range(max_restarts + 1):
+            t_start = time.perf_counter()
+            # Attempt N's flags and rounds never satisfy attempt N+1's.
+            coord.generation = attempt
+            history, cause, outcome = None, None, "ok"
+            try:
+                history = experiment.run()
+            except recover_on as e:
+                cause = e
+                _record_save_wait_ms(experiment, e, save_wait_ms)
+                if isinstance(e, Preempted) and e.signum == _signal.SIGINT:
+                    # The operator's stop: the "stop" verdict stops the
+                    # peers too.
+                    logger.warning("SIGINT preemption (operator stop) — not restarting: %s",
+                                   e)
+                    outcome = "stop"
+                else:
+                    outcome = "recoverable"
+            except BaseException as e:
+                # A hard failure still publishes its verdict: the peers
+                # wait in the exchange.
+                cause = e
+                outcome = "stop"
             _record_restore_ms(experiment, attempt, t_start, restore_ms)
-            if attempt >= max_restarts:
-                logger.warning(
-                    "restart budget exhausted (%d restart(s)); last "
-                    "recoverable exit propagates: %s", max_restarts, e,
+            origin = getattr(getattr(experiment, "guard", None), "preemption_origin", None)
+            try:
+                verdicts = coord.exchange(
+                    "supervisor_verdict",
+                    {"outcome": outcome, "cause": type(cause).__name__ if cause else None,
+                     "origin": origin},
+                    timeout_s=group_timeout_s,
                 )
-                raise
+            except CoordinatorLostError as ce:
+                logger.error("group restart verdict lost (%s); not re-forming a partial "
+                             "process group", ce)
+                raise GroupPeerFailure(str(ce)) from (cause if cause is not None else ce)
+            outcomes = [v.get("outcome") for v in verdicts]
+            if "stop" in outcomes:
+                if cause is not None:
+                    raise cause
+                raise GroupPeerFailure(
+                    f"peer host(s) exited unrecoverably (verdicts: {outcomes}); this "
+                    "host's run succeeded but the group cannot re-form"
+                )
+            if "recoverable" not in outcomes:
+                return RecoveryResult(history=history, restarts=attempt, causes=causes,
+                                      restore_ms=restore_ms, save_wait_ms=save_wait_ms)
+            if cause is not None:
+                causes.append(cause)
+            if attempt >= max_restarts:
+                logger.warning("restart budget exhausted (%d restart(s)); last "
+                               "recoverable exit propagates", max_restarts)
+                if cause is not None:
+                    raise cause
+                raise GroupPeerFailure(
+                    "group restart budget exhausted while peers still want to restart")
             delay = min(max_backoff_s, backoff_s * (backoff_factor**attempt))
+            origin_pid = next((v.get("origin") for v in verdicts
+                               if v.get("origin") is not None), None)
+            cause_name = next((v.get("cause") for v in verdicts if v.get("cause")), None)
             logger.warning(
-                "recoverable exit (%s); restart %d/%d after %.1fs backoff",
-                e, attempt + 1, max_restarts, delay,
+                "recoverable exit (origin host %s, cause %s); restart %d/%d after "
+                "%.1fs backoff", origin_pid, cause_name, attempt + 1, max_restarts, delay,
             )
             if delay > 0:
                 sleep(delay)
-            continue
-        _record_restore_ms(experiment, attempt, t_start, restore_ms)
-        return RecoveryResult(history=history, restarts=attempt, causes=causes,
-                              restore_ms=restore_ms, save_wait_ms=save_wait_ms)
-    raise AssertionError("unreachable")  # pragma: no cover
+        raise AssertionError("unreachable")  # pragma: no cover
+    finally:
+        if group:
+            experiment.group_coordinator = None
 
 
 def _record_save_wait_ms(experiment: Any, cause: BaseException,

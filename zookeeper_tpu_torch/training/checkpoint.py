@@ -40,10 +40,25 @@ the file holds the global tensors in the format above (the ``qkv`` rows
 in their global order) under every partitioner, and a restore keeps
 each rank's block of them.
 
-The JAX package's per-host sharded protocol (``sharded_per_host``,
-``process_index``, ``process_count``, ``host_commit_timeout_s``) is not
-ported yet (ROADMAP.md): those fields keep JAX's defaults and raise when
-set.
+The per-host sharded protocol (``sharded_per_host``, the JAX package's
+on-disk layout): on a run of several processes each process writes only
+its own blocks of the state (a replicated tensor whole), as raw bytes
+and an index manifest, into ``<directory>/<step>.zkhost/host_<pid>/``
+(``data.npz`` of uint8 arrays, ``manifest.json``), written under a
+temporary name and finalized by rename; process 0 writes the step's
+``COMMIT.json`` only once every host's directory is there (within
+``host_commit_timeout_s``). A step without a commit record does not
+exist for a restore, so a group save torn on one host is never half
+restored. ``restore_state`` walks committed steps with the others and,
+across processes, agrees on the step through a ``FileCoordinator``
+(``resilience.coordination``): a step any host finds torn is skipped by
+every host. No collective runs in this mode's save or restore. A block
+of a dimension split with interleave ``k > 1`` (the head-aligned
+``qkv``) is recorded in the ``[k, members, rest]`` view of its global
+shape, so every block is a box; readers that need the global tensor
+(a one-process restore of a group's step, ``load_inference_model``)
+fold it back in the order ``ShardPlan.gather`` gives. At
+``process_count == 1`` the mode is the layout above, byte for byte.
 """
 
 import itertools
@@ -81,8 +96,16 @@ EXPORT_FILE = "model.pt"
 #: The files of a ``Checkpointer`` step directory.
 STATE_FILE = "state.pt"
 METRICS_FILE = "metrics.json"
-#: Walk order among tiers holding the same step: the local tier first.
-_TIER_PRIORITY = {"local": 2, "durable": 0}
+#: Walk order among tiers holding the same step: the per-host sharded
+#: local tier (this host reads its own files), the local tier, then the
+#: durable ones.
+_TIER_PRIORITY = {"hosts": 3, "local": 2, "hosts-durable": 1, "durable": 0}
+#: The per-host payload's marker (``_write_state`` routes it).
+_HOST_SHARD_KIND = "zkhost-shards-v1"
+#: Suffix of a per-host sharded step directory: not a bare step number, so
+#: the bare layout's listings never see it.
+_HOST_STEP_SUFFIX = ".zkhost"
+_KEYSTR_SEGMENT_RE = re.compile(r"\['([^']*)'\]")
 #: A step written under its temporary name, not yet finalized.
 _REMNANT = re.compile(r"^\d+\.tmp-")
 Flat = Dict[str, torch.Tensor]
@@ -95,10 +118,26 @@ class CheckpointUnreadableError(ValueError):
     mismatch, ``weights="ema"`` without an EMA) by its type."""
 
 
+class _BFloat16Bits(np.ndarray):
+    """A bfloat16 tensor's bits as int16 (numpy has no bfloat16); the flax
+    layouts' transposes keep the type, so the bits come back as bfloat16."""
+
+
+def _leaf_numpy(t: Any) -> np.ndarray:
+    t = torch.as_tensor(t).detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(_BFloat16Bits)
+    return t.numpy()
+
+
 def _torch_tree(tree: Mapping[str, Any]) -> Flat:
     """A nested tree of numpy leaves as ``{path: contiguous CPU tensor}``
-    (copies)."""
-    return {path: torch.tensor(np.asarray(leaf)) for path, leaf in flatten_tree(tree).items()}
+    (copies; a :class:`_BFloat16Bits` leaf as bfloat16)."""
+    out = {}
+    for path, leaf in flatten_tree(tree).items():
+        t = torch.tensor(np.asarray(leaf))
+        out[path] = t.view(torch.bfloat16) if isinstance(leaf, _BFloat16Bits) else t
+    return out
 
 
 def export_trees(module: nn.Module, params: Optional[Mapping[str, torch.Tensor]] = None,
@@ -140,12 +179,37 @@ def _step_names(path: str) -> List[str]:
     return [n for n in names if n.isdigit() and os.path.isdir(os.path.join(path, n))]
 
 
+def _bare_steps(path: str) -> List[int]:
+    """The bare numbered (finalized) step directories, ascending."""
+    return sorted(int(n) for n in _step_names(path))
+
+
+def _sharded_step_dirs(root: str) -> List[Tuple[int, str]]:
+    """The committed per-host sharded steps under ``root``, newest first,
+    as ``(step, step_dir)``: a step directory without ``COMMIT.json`` (a
+    host never finalized) is not listed."""
+    try:
+        names = os.listdir(root)
+    except OSError:
+        return []
+    out = []
+    for name in names:
+        stem = name[: -len(_HOST_STEP_SUFFIX)]
+        if name.endswith(_HOST_STEP_SUFFIX) and stem.isdigit():
+            path = os.path.join(root, name)
+            if os.path.isfile(os.path.join(path, "COMMIT.json")):
+                out.append((int(stem), path))
+    return sorted(out, reverse=True)
+
+
 def finalized_steps(path: str) -> List[int]:
-    """The finalized steps of a ``Checkpointer`` directory, ascending:
-    its bare numbered directories. A write in flight, or one that died,
-    lives under a temporary name until its rename and is never listed.
-    Empty when ``path`` is missing or holds no step."""
-    return sorted(int(n) for n in _step_names(os.path.abspath(os.path.expanduser(path))))
+    """The finalized steps of a ``Checkpointer`` directory, ascending: its
+    bare numbered directories and its committed per-host sharded steps. A
+    write in flight, or one that died, lives under a temporary name until
+    its rename (a sharded step until its commit record) and is never
+    listed. Empty when ``path`` is missing or holds no step."""
+    path = os.path.abspath(os.path.expanduser(path))
+    return sorted(set(_bare_steps(path)) | {s for s, _ in _sharded_step_dirs(path)})
 
 
 def _checkpointer_step_dir(path: str, step: Optional[int] = None) -> Optional[str]:
@@ -187,8 +251,8 @@ def _load_state_file(step_dir: str) -> Dict[str, Any]:
 def _named_trees(named: Mapping[str, torch.Tensor], lm: bool) -> Tuple[Flat, Flat]:
     """A ``state_dict`` as the export's ``(params, model_state)``."""
     if lm:
-        return _torch_tree(_flax_lm_tree(named)), {}
-    flax_params, model_state = to_flax_variables(None, named)
+        return _torch_tree(_flax_lm_tree(named, _leaf_numpy)), {}
+    flax_params, model_state = to_flax_variables(None, named, _leaf_numpy)
     return _torch_tree(flax_params), _torch_tree(model_state)
 
 
@@ -204,10 +268,31 @@ def _export_view(tree: Mapping[str, Any]) -> Dict[str, Any]:
     return out
 
 
+def _zkhost_step_dir(path: str, step: Optional[int]) -> Optional[str]:
+    """The committed ``<step>.zkhost`` directory to read, or None when the
+    bare layout serves the read: an explicit ``step`` is read from the
+    layout that holds it (the bare one when both do), no ``step`` from
+    the newest finalized step of either layout."""
+    sharded = dict(_sharded_step_dirs(path))
+    if not sharded:
+        return None
+    if step is not None:
+        if os.path.isdir(os.path.join(path, str(int(step)))):
+            return None
+        return sharded.get(int(step))
+    bare = _bare_steps(path)
+    if bare and bare[-1] >= max(sharded):
+        return None
+    return sharded[max(sharded)]
+
+
 def _read(path: str, step: Optional[int] = None) -> Dict[str, Any]:
     """An export's trees, or those of a ``Checkpointer`` directory's latest
-    (or ``step``'s) training state."""
+    (or ``step``'s) training state, either layout."""
     path = os.path.abspath(os.path.expanduser(path))
+    zkhost_dir = _zkhost_step_dir(path, step) if os.path.isdir(path) else None
+    if zkhost_dir is not None:
+        return _export_view(_restore_zkhost_tree(zkhost_dir))
     step_dir = _checkpointer_step_dir(path, step) if os.path.isdir(path) else None
     if step_dir is not None:
         return _export_view(_load_state_file(step_dir))
@@ -397,6 +482,182 @@ def _copy_into(live: Dict[str, Any], saved: Mapping[str, Any]) -> None:
             live[key] = int(src)
 
 
+# -- the per-host sharded layout ---------------------------------------------
+
+
+def _keystr(keys: Tuple[str, ...]) -> str:
+    """A leaf's path as the manifest writes it (``['module']['w']``, the
+    JAX package's ``keystr`` form)."""
+    return "".join(f"['{k}']" for k in keys)
+
+
+def _dtype_name(dtype: torch.dtype) -> str:
+    """numpy's name of a dtype (``float32``, ``bfloat16``, ``int64``)."""
+    return str(dtype).replace("torch.", "")
+
+
+class _Named:
+    """A state tensor tagged with its ``state_dict`` name (the key of its
+    ``ShardPlan`` layout)."""
+
+    __slots__ = ("name", "tensor")
+
+    def __init__(self, name: str, tensor: torch.Tensor):
+        self.name, self.tensor = name, tensor
+
+
+def _flat_leaves(tree: Mapping[str, Any], keys: Tuple[str, ...] = ()):
+    """``(keys, leaf)`` of every non-dict value of a nested dict, in order."""
+    for key, value in tree.items():
+        if isinstance(value, dict):
+            yield from _flat_leaves(value, keys + (str(key),))
+        else:
+            yield keys + (str(key),), value
+
+
+def _named_tree(state: Any, tree: Dict[str, Any]) -> Dict[str, Any]:
+    """``tree`` with every named state tensor of a sharded state wrapped in
+    :class:`_Named` (no-op without shards)."""
+    if state.shards is None:
+        return tree
+    return state.shards.map_tree(tree, _Named)
+
+
+def _box(shape: Tuple[int, ...], layout: Any, coords: Dict[str, int],
+         sizes: Dict[str, int]) -> Tuple[List[int], List[List[int]]]:
+    """``layout.box`` (``parallel.shards.Layout.box``) of a sharded
+    tensor; the whole ``shape`` of one that is not."""
+    if layout is None:
+        return [int(n) for n in shape], [[0, int(n)] for n in shape]
+    return layout.box(coords, sizes)
+
+
+def _token(index) -> Tuple[Tuple[int, int], ...]:
+    return tuple((int(a), int(b)) for a, b in index)
+
+
+class _HostFiles:
+    """The manifests and data of one committed sharded step's host
+    directories, opened on demand; close it after use."""
+
+    def __init__(self, step_root: str, hosts: List[str]):
+        self.step_root, self.hosts = step_root, hosts
+        self._open: Dict[str, Tuple[Dict[str, Dict[Any, Any]], Any]] = {}
+
+    def table(self, host: str) -> Dict[str, Dict[Any, Any]]:
+        """``{path: {box token: (key, meta)}}`` of ``host``'s manifest."""
+        if host not in self._open:
+            host_dir = os.path.join(self.step_root, host)
+            with open(os.path.join(host_dir, "manifest.json")) as f:
+                manifest = json.load(f)
+            npz = np.load(os.path.join(host_dir, "data.npz"))
+            table: Dict[str, Dict[Any, Any]] = {}
+            for akey, meta in manifest.items():
+                table.setdefault(meta["path"], {})[_token(meta["index"])] = (akey, meta)
+            self._open[host] = (table, npz)
+        return self._open[host][0]
+
+    def read(self, host: str, akey: str, meta: Mapping[str, Any]) -> torch.Tensor:
+        """One box's tensor (``shard_shape``, the saved dtype), from its
+        raw bytes: a bfloat16 box round-trips bit for bit."""
+        raw = torch.from_numpy(self._open[host][1][akey])
+        return raw.view(getattr(torch, meta["dtype"])).reshape(meta["shard_shape"])
+
+    def stitch(self, path: str) -> Optional[torch.Tensor]:
+        """The global tensor of ``path`` from every host's boxes (a
+        replicated tensor's first copy serves), folded to its global shape;
+        None when no host saved it. Raises ``CheckpointUnreadableError``
+        when the boxes leave part of it uncovered."""
+        boxes: Dict[Any, Tuple[str, str, Mapping[str, Any]]] = {}
+        for host in self.hosts:
+            for token, (akey, meta) in self.table(host).get(path, {}).items():
+                boxes.setdefault(token, (host, akey, meta))
+        if not boxes:
+            return None
+        meta0 = next(iter(boxes.values()))[2]
+        full = torch.empty(meta0["shape"], dtype=getattr(torch, meta0["dtype"]))
+        covered = 0
+        for host, akey, meta in boxes.values():
+            full[tuple(slice(a, b) for a, b in meta["index"])] = self.read(host, akey, meta)
+            covered += int(np.prod(meta["shard_shape"]))
+        if covered < full.numel():
+            raise CheckpointUnreadableError(
+                f"sharded step at {self.step_root!r}: leaf {path} covers {covered} of "
+                f"{full.numel()} elements: a host's blocks are missing."
+            )
+        return full.reshape(meta0.get("global_shape", meta0["shape"]))
+
+    def close(self) -> None:
+        for _, npz in self._open.values():
+            try:
+                npz.close()
+            except Exception:
+                pass
+        self._open.clear()
+
+
+def _step_hosts(step_root: str) -> List[str]:
+    """The hosts a committed step's record lists (raises
+    ``CheckpointUnreadableError`` without a readable record)."""
+    try:
+        with open(os.path.join(step_root, "COMMIT.json")) as f:
+            commit = json.load(f)
+    except (OSError, ValueError) as e:
+        raise CheckpointUnreadableError(
+            f"sharded step at {step_root!r} has no readable commit record: {e}") from e
+    hosts = sorted(commit.get("hosts", []))
+    if not hosts:
+        raise CheckpointUnreadableError(
+            f"sharded step at {step_root!r}: commit record lists no hosts.")
+    return hosts
+
+
+def _restore_zkhost_tree(step_root: str) -> Dict[str, Any]:
+    """The global tensors of the module, the EMA and the LM flag of one
+    committed per-host sharded step (every host's blocks stitched together
+    and folded): the readers' view of a group's checkpoint. Warns when the
+    step spans several hosts (the whole state then sits in this process's
+    memory). Raises ``CheckpointUnreadableError`` on torn or missing
+    blocks."""
+    hosts = _step_hosts(step_root)
+    if len(hosts) > 1:
+        logger.warning(
+            "loading a MULTI-HOST sharded checkpoint (%d hosts) at %s into one "
+            "process: every host's blocks are reassembled here, so the full state "
+            "must fit this host's memory", len(hosts), step_root,
+        )
+    files = _HostFiles(step_root, hosts)
+    try:
+        paths: Dict[str, None] = {}
+        for host in hosts:
+            try:
+                paths.update(dict.fromkeys(files.table(host)))
+            except (OSError, ValueError) as e:
+                raise CheckpointUnreadableError(
+                    f"sharded step at {step_root!r}: host dir {host} unreadable ({e}): torn "
+                    "after commit?") from e
+        tree: Dict[str, Any] = {}
+        for path in paths:
+            segs = _KEYSTR_SEGMENT_RE.findall(path)
+            if not segs or segs[0] not in ("module", "ema_params", "lm"):
+                continue
+            if _keystr(tuple(segs)) != path:
+                raise CheckpointUnreadableError(
+                    f"sharded step at {step_root!r}: leaf path {path!r} is not a nested-dict "
+                    "path.")
+            node = tree
+            for seg in segs[:-1]:
+                node = node.setdefault(seg, {})
+            node[segs[-1]] = files.stitch(path)
+        if "module" not in tree:
+            raise CheckpointUnreadableError(
+                f"sharded step at {step_root!r} holds no module blocks: not a training state.")
+        tree["lm"] = bool(tree.get("lm", False))
+        return tree
+    finally:
+        files.close()
+
+
 @component
 class Checkpointer:
     """Saves and restores the training state (see the module docstring
@@ -454,11 +715,21 @@ class Checkpointer:
     durable_directory: Optional[str] = Field(None)
     #: Steps the durable tier keeps; 0 keeps every step.
     durable_max_to_keep: int = Field(0)
-    #: The per-host sharded protocol's fields, with JAX's defaults; not
-    #: ported yet (ROADMAP.md), so another value raises.
+    #: The per-host sharded protocol (module docstring): on a run of
+    #: several processes each writes only its own blocks, and process 0
+    #: commits the step once every host has finalized. The directory must
+    #: be storage every host reads and writes. At ``process_count == 1``
+    #: the bare layout above, unchanged.
     sharded_per_host: bool = Field(False)
+    #: This host in the group (-1: ``torch.distributed``'s rank and world
+    #: size when a group is formed, else 0 and 1); set them to drive the
+    #: protocol without a real group.
     process_index: int = Field(-1)
     process_count: int = Field(-1)
+    #: How long process 0 waits for every host's directory before giving
+    #: up the step's commit record (the step then never becomes
+    #: restorable); a quarter of the restore agreement's rounds' deadline
+    #: (at least 60 s).
     host_commit_timeout_s: float = Field(60.0)
 
     @property
@@ -474,15 +745,60 @@ class Checkpointer:
         object.__setattr__(self, "_chief", is_chief)
 
     def _barrier(self) -> None:
+        """The replicas' barrier (the bare layout's; the per-host protocol
+        runs no collective)."""
         replicas = getattr(self, "_replicas", None)
-        if replicas is not None:
+        if replicas is not None and not self._sharded_active:
             replicas.barrier()
 
     @property
     def _writes(self) -> bool:
         """Whether this rank writes (every rank but the chief's replicas
-        skip)."""
-        return getattr(self, "_replicas", None) is None or getattr(self, "_chief", True)
+        skip; under the per-host protocol every rank writes its blocks)."""
+        return (getattr(self, "_replicas", None) is None or getattr(self, "_chief", True)
+                or self._sharded_active)
+
+    # -- the per-host protocol's identity and coordinator -------------------
+
+    def _host_identity(self) -> Tuple[int, int]:
+        """``(process_index, process_count)``: the fields when set, else
+        the formed process group's rank and size, else ``(0, 1)``."""
+        pid, count = self.process_index, self.process_count
+        if pid < 0 or count < 0:
+            import torch.distributed as dist
+
+            formed = dist.is_available() and dist.is_initialized()
+            if pid < 0:
+                pid = dist.get_rank() if formed else 0
+            if count < 0:
+                count = dist.get_world_size() if formed else 1
+        return int(pid), int(count)
+
+    @property
+    def _sharded_active(self) -> bool:
+        """Whether saves take the per-host protocol: asked for, and the
+        group has more than one process."""
+        return self.enabled and self.sharded_per_host and self._host_identity()[1] > 1
+
+    def set_coordinator(self, coordinator: Any) -> "Checkpointer":
+        """The cross-host coordinator the restore agreement uses (tests, or
+        one shared with a supervisor). Default: a ``FileCoordinator`` under
+        ``<directory>/.zkcoord``."""
+        object.__setattr__(self, "_coord", coordinator)
+        return self
+
+    def _coordinator(self):
+        coord = getattr(self, "_coord", None)
+        if coord is None and self._sharded_active:
+            from zookeeper_tpu_torch.resilience.coordination import FileCoordinator
+
+            pid, count = self._host_identity()
+            # The agreement's rounds must outlast a peer still waiting out
+            # its own commit deadline.
+            coord = FileCoordinator(os.path.join(self._root(), ".zkcoord"), pid, count,
+                                    timeout_s=max(60.0, 4 * self.host_commit_timeout_s))
+            object.__setattr__(self, "_coord", coord)
+        return coord
 
     def _root(self) -> str:
         return os.path.abspath(os.path.expanduser(self.directory))
@@ -496,7 +812,7 @@ class Checkpointer:
         return os.path.abspath(os.path.expanduser(base))
 
     def _tier_root(self, tier: str) -> str:
-        return self._durable_path() if tier == "durable" else self._root()
+        return self._durable_path() if tier in ("durable", "hosts-durable") else self._root()
 
     def _io_lock(self) -> threading.Lock:
         """Held around every write, retention pass and restore read: the
@@ -552,17 +868,17 @@ class Checkpointer:
                 "queued snapshot in favor of a worse one. Use "
                 "queue_policy='wait'."
             )
-        later = {"sharded_per_host": (self.sharded_per_host, False),
-                 "process_index": (self.process_index, -1),
-                 "process_count": (self.process_count, -1),
-                 "host_commit_timeout_s": (self.host_commit_timeout_s, 60.0)}
-        for name, (value, default) in later.items():
-            if value != default:
-                raise NotImplementedError(
-                    f"checkpointer.{name}={value!r}: the per-host sharded "
-                    "checkpoint protocol is not in the PyTorch port yet; it is "
-                    "queued in ROADMAP.md (Queue 1 item 3)."
-                )
+        if self.host_commit_timeout_s <= 0:
+            raise ValueError(
+                f"host_commit_timeout_s={self.host_commit_timeout_s} must be > 0."
+            )
+        if self.sharded_per_host and self.keep_best_metric:
+            # The per-host commit record carries no metrics to rank by.
+            raise ValueError(
+                "sharded_per_host is incompatible with keep_best_metric:"
+                " the per-host commit protocol keeps by recency, not "
+                "rank. Use one or the other."
+            )
 
     # -- the write path (the sync caller and the async writer) ------------
 
@@ -637,7 +953,7 @@ class Checkpointer:
     def _retain(self, root: str, keep: int, ranked: bool) -> None:
         """Retention: delete the steps past ``keep`` (0 keeps all) and the
         remnants of writes that died. Caller holds ``_io_lock``."""
-        steps = sorted(finalized_steps(root), reverse=True)
+        steps = sorted(_bare_steps(root), reverse=True)
         if keep > 0 and len(steps) > keep:
             order = self._ranked(root, steps) if ranked else steps
             for step in order[keep:]:
@@ -650,7 +966,7 @@ class Checkpointer:
         """The first save promotes, then every save at least
         ``durable_every_steps`` past the durable tier's newest step (so the
         cadence survives restarts)."""
-        steps = finalized_steps(self._durable_path())
+        steps = _bare_steps(self._durable_path())
         return not steps or step - steps[-1] >= self.durable_every_steps
 
     def _write_state(self, tree: Any, step: int, metrics: Optional[dict]) -> bool:
@@ -659,6 +975,10 @@ class Checkpointer:
         plan = faults.active()
         if plan is not None and plan.take_save_io_failure():
             raise faults.InjectedFault(f"injected save IO failure at step {step}")
+        if isinstance(tree, dict) and tree.get("kind") == _HOST_SHARD_KIND:
+            # The per-host protocol replaces the bare layout's write, its
+            # durable promotion and its retention.
+            return self._write_host_sharded(tree, step)
         root = self._root()
         with self._io_lock():
             self._write_step(root, step, tree, metrics)
@@ -678,8 +998,11 @@ class Checkpointer:
         the data and skips the rename, leaving an unfinalized remnant."""
         plan = faults.active()
         if plan is not None and plan.take_async_finalize_failure():
-            with self._io_lock():
-                self._write_step(self._root(), step, tree, metrics, finalize=False)
+            if tree.get("kind") == _HOST_SHARD_KIND:
+                self._leave_unfinalized_remnant(step)
+            else:
+                with self._io_lock():
+                    self._write_step(self._root(), step, tree, metrics, finalize=False)
             raise faults.InjectedFault(f"injected async finalize failure at step {step}")
         return self._write_state(tree, step, metrics)
 
@@ -691,6 +1014,151 @@ class Checkpointer:
         tmp = os.path.join(root, f"{step}.tmp-{os.getpid()}-{self._nonce()}")
         os.makedirs(tmp, exist_ok=True)
         _write_file(os.path.join(tmp, STATE_FILE), lambda f: f.write(b"\xde\xad\xbe\xef" * 8))
+
+    # -- the per-host protocol's write path ----------------------------------
+
+    def _extract_host_shards(self, state: Any) -> Tuple[Dict[str, Any], Any]:
+        """This host's blocks of the state (a replicated tensor whole) as
+        a snapshot of host tensors plus the index manifest: ``(payload,
+        ready event)``, the event as ``host_snapshot``'s. The training
+        thread takes it; the raw bytes are made by the write."""
+        from zookeeper_tpu_torch.training.step import host_snapshot
+
+        plan = state.shards
+        coords = plan.coords if plan is not None else {}
+        sizes = plan.mesh.sizes if plan is not None else {}
+        tensors, manifest = {}, {}
+        for n, (keys, leaf) in enumerate(_flat_leaves(_named_tree(state, _state_tree(state)))):
+            layout = None
+            if isinstance(leaf, _Named):
+                layout = plan.layouts.get(leaf.name)
+                leaf = leaf.tensor
+            t = leaf.detach() if isinstance(leaf, torch.Tensor) else torch.tensor(leaf)
+            gshape = tuple(layout.shape) if layout is not None else tuple(t.shape)
+            view, index = _box(gshape, layout, coords, sizes)
+            akey = f"a{n}"
+            tensors[akey] = t
+            manifest[akey] = {
+                "path": _keystr(keys), "index": index, "shape": view,
+                "shard_shape": [b - a for a, b in index], "dtype": _dtype_name(t.dtype),
+            }
+            if list(gshape) != view:
+                manifest[akey]["global_shape"] = list(gshape)
+        tensors, ready = host_snapshot(tensors)
+        return {"kind": _HOST_SHARD_KIND, "tensors": tensors, "manifest": manifest}, ready
+
+    def _write_host_sharded(self, payload: Dict[str, Any], step: int) -> bool:
+        """One attempt of the per-host protocol: finalize this host's
+        directory; process 0 then waits for every host's and commits the
+        step, promotes it and prunes."""
+        pid, count = self._host_identity()
+        root = self._root()
+        step_root = os.path.join(root, f"{int(step)}{_HOST_STEP_SUFFIX}")
+        if not self._finalize_host_dir(step_root, step, pid, payload):
+            return False
+        if pid != 0:
+            return True  # this host's half is durable; process 0 commits
+        if not self._commit_sharded_step(step_root, step, count):
+            return False
+        self._maybe_promote_sharded_durable(step, step_root)
+        self._prune_sharded(root)
+        return True
+
+    def _finalize_host_dir(self, step_root: str, step: int, pid: int,
+                           payload: Dict[str, Any]) -> bool:
+        """Write this host's blocks into a temporary directory, fsync, and
+        rename it: the rename is the host's finalize marker."""
+        from zookeeper_tpu_torch.resilience.coordination import _atomic_write_json
+
+        host_dir = os.path.join(step_root, f"host_{pid:05d}")
+        if os.path.isdir(host_dir):
+            if os.path.isfile(os.path.join(step_root, "COMMIT.json")):
+                return True  # committed: saving it again changes nothing
+            # An uncommitted host directory is a stale half of an earlier
+            # incarnation's torn save: rewrite it, never seal old bytes
+            # under a new commit.
+            shutil.rmtree(host_dir, ignore_errors=True)
+        tmp = os.path.join(step_root, f".tmp-host_{pid:05d}-{self._nonce()}")
+        os.makedirs(tmp, exist_ok=True)
+        arrays = {akey: t.contiguous().reshape(-1).view(torch.uint8).numpy()
+                  for akey, t in payload["tensors"].items()}
+        _write_file(os.path.join(tmp, "data.npz"), lambda f: np.savez(f, **arrays))
+        _atomic_write_json(os.path.join(tmp, "manifest.json"), payload["manifest"])
+        _fsync_dir(tmp)
+        plan = faults.active()
+        if plan is not None and plan.take_host_finalize_failure(pid):
+            # The host died between writing its blocks and the rename: no
+            # marker, no commit, no retry (a dead host does not retry).
+            logger.error(
+                "per-host finalize of step %d on host %d dropped (injected host "
+                "death): marker absent, the step's commit record will not land and "
+                "restore walks back", step, pid,
+            )
+            return False
+        os.replace(tmp, host_dir)
+        _fsync_dir(step_root)
+        return True
+
+    def _commit_sharded_step(self, step_root: str, step: int, count: int) -> bool:
+        """Process 0: write ``COMMIT.json`` once every host's directory is
+        there; a host missing at ``host_commit_timeout_s`` leaves the step
+        uncommitted (the previous committed step is the resume point)."""
+        from zookeeper_tpu_torch.resilience.coordination import _atomic_write_json
+
+        deadline = time.monotonic() + self.host_commit_timeout_s
+        while True:
+            try:
+                hosts = sorted(n for n in os.listdir(step_root) if n.startswith("host_"))
+            except OSError:
+                hosts = []
+            if len(hosts) >= count:
+                break
+            if time.monotonic() >= deadline:
+                logger.error(
+                    "sharded checkpoint of step %d: only %d/%d host(s) finalized within "
+                    "%.1fs; commit record NOT written — the step stays invisible to "
+                    "restore on every host", step, len(hosts), count,
+                    self.host_commit_timeout_s,
+                )
+                return False
+            time.sleep(0.01)
+        _atomic_write_json(os.path.join(step_root, "COMMIT.json"),
+                           {"step": int(step), "process_count": int(count), "hosts": hosts})
+        return True
+
+    def _maybe_promote_sharded_durable(self, step: int, step_root: str) -> None:
+        """Process 0: a committed step is copied whole (its record too)
+        into the durable tier on the bare layout's progress cadence,
+        finalized by rename."""
+        if not self._durable_enabled:
+            return
+        droot = self._durable_path()
+        existing = _sharded_step_dirs(droot)
+        if existing and step - existing[0][0] < self.durable_every_steps:
+            return
+        dst = os.path.join(droot, f"{int(step)}{_HOST_STEP_SUFFIX}")
+        if os.path.isdir(dst):
+            return
+        os.makedirs(droot, exist_ok=True)
+        tmp = os.path.join(droot, f".tmp-{int(step)}-{self._nonce()}")
+        try:
+            shutil.copytree(step_root, tmp)
+            os.replace(tmp, dst)
+        except OSError as e:
+            logger.warning("durable promotion of sharded step %d failed (%s); the local "
+                           "tier still holds it", step, e)
+            shutil.rmtree(tmp, ignore_errors=True)
+            return
+        if self.durable_max_to_keep > 0:
+            for _, old in _sharded_step_dirs(droot)[self.durable_max_to_keep:]:
+                shutil.rmtree(old, ignore_errors=True)
+
+    def _prune_sharded(self, root: str) -> None:
+        """Process 0: keep the newest ``max_to_keep`` committed steps."""
+        if self.max_to_keep <= 0:
+            return
+        for _, old in _sharded_step_dirs(root)[self.max_to_keep:]:
+            shutil.rmtree(old, ignore_errors=True)
 
     def save(self, state: Any, *, step: Optional[int] = None,
              metrics: Optional[dict] = None, sync: Optional[bool] = None) -> bool:
@@ -716,6 +1184,15 @@ class Checkpointer:
             metrics = {k: float(v) for k, v in metrics.items()}
         step = int(state.step) if step is None else int(step)
         asynchronous = self.mode == "async" and not sync
+        if self._sharded_active:
+            # Every rank writes its own blocks: no gather, no barrier.
+            payload, ready = self._extract_host_shards(state)
+            if asynchronous:
+                return self._writer().submit(step, payload, metrics, ready=ready)
+            if ready is not None:
+                ready.synchronize()
+            return self._run_with_save_retries(
+                step, lambda: self._write_state(payload, step, metrics))
         tree = _state_tree(state)
         if state.shards is not None:
             tree = state.shards.gather_tree(tree)  # every rank takes part
@@ -733,17 +1210,23 @@ class Checkpointer:
         return saved
 
     def _tier_entries(self) -> List[Tuple[int, str]]:
-        """Every retained ``(step, tier)``, newest first, the local tier
-        before the durable one for the same step."""
-        entries = [(s, "local") for s in finalized_steps(self._root())]
+        """Every retained ``(step, tier)``, newest first: the bare tiers
+        ("local", "durable") and the committed per-host sharded steps
+        ("hosts", "hosts-durable"); for one step the cheapest tier first
+        (``_TIER_PRIORITY``)."""
+        entries = [(s, "local") for s in _bare_steps(self._root())]
+        entries += [(s, "hosts") for s, _ in _sharded_step_dirs(self._root())]
         if self._durable_enabled:
-            entries += [(s, "durable") for s in finalized_steps(self._durable_path())]
+            durable = self._durable_path()
+            entries += [(s, "durable") for s in _bare_steps(durable)]
+            entries += [(s, "hosts-durable") for s, _ in _sharded_step_dirs(durable)]
         entries.sort(key=lambda e: (e[0], _TIER_PRIORITY[e[1]]), reverse=True)
         return entries
 
     def latest_step(self) -> Optional[int]:
-        """The newest finalized step of either tier (an async write still
-        in flight does not count)."""
+        """The newest finalized step of any tier (an async write still in
+        flight, or a sharded step some host has not finalized, does not
+        count)."""
         if not self.enabled:
             return None
         entries = self._tier_entries()
@@ -755,13 +1238,13 @@ class Checkpointer:
         if not self.enabled or self.keep_best_metric is None:
             return None
         root = self._root()
-        ranked = [s for s in self._ranked(root, finalized_steps(root))
+        ranked = [s for s in self._ranked(root, _bare_steps(root))
                   if (self._step_metrics(root, s) or {}).get(self.keep_best_metric) is not None]
         return ranked[0] if ranked else None
 
     def _read_checked(self, step: int, tier: str, state: Any) -> Dict[str, Any]:
-        """Read one step and check it against the live state's structure;
-        raises on a torn, vanished or mismatched step."""
+        """Read one bare-layout step and check it against the live state's
+        structure; raises on a torn, vanished or mismatched step."""
         step_dir = os.path.join(self._tier_root(tier), str(step))
         with self._io_lock():
             tree = _load_state_file(step_dir)
@@ -776,6 +1259,109 @@ class Checkpointer:
                         "ema_params/")
         return tree
 
+    def _validate_sharded_step(self, step: int, root: str) -> bool:
+        """A committed sharded step is whole: its record and every recorded
+        host's files are there (retention, or a lost tier, can tear a step
+        after its commit)."""
+        step_root = os.path.join(root, f"{int(step)}{_HOST_STEP_SUFFIX}")
+        try:
+            hosts = _step_hosts(step_root)
+        except CheckpointUnreadableError:
+            return False
+        return all(os.path.isfile(os.path.join(step_root, h, "data.npz"))
+                   and os.path.isfile(os.path.join(step_root, h, "manifest.json"))
+                   for h in hosts)
+
+    def _validate_entry(self, step: int, tier: str) -> bool:
+        """The cheap, local check of one walk entry, which the group
+        exchanges before any host restores."""
+        if tier in ("hosts", "hosts-durable"):
+            return self._validate_sharded_step(step, self._tier_root(tier))
+        return os.path.isfile(os.path.join(self._tier_root(tier), str(step), STATE_FILE))
+
+    def _restore_host_sharded(self, step: int, state: Any, root: str) -> Dict[str, Any]:
+        """This rank's tree of one committed sharded step, shaped as the
+        live state's (its blocks under a sharded state): each block is read
+        from the host directory holding that box, this host's first; a box
+        no host saved (another topology) is cut from the stitched global
+        tensor. Raises on a torn or missing block, or a shape or dtype
+        that differs from the live state's."""
+        step_root = os.path.join(root, f"{int(step)}{_HOST_STEP_SUFFIX}")
+        try:
+            hosts = sorted(n for n in os.listdir(step_root) if n.startswith("host_")
+                           and os.path.isdir(os.path.join(step_root, n)))
+        except OSError as e:
+            raise CheckpointUnreadableError(
+                f"sharded step {step} vanished under the walk: {e}") from e
+        if not hosts:
+            raise CheckpointUnreadableError(
+                f"sharded step {step} has a commit record but no host directories")
+        own = f"host_{self._host_identity()[0]:05d}"
+        order = ([own] if own in hosts else []) + [h for h in hosts if h != own]
+        files = _HostFiles(step_root, order)
+        plan = state.shards
+        coords = plan.coords if plan is not None else {}
+        sizes = plan.mesh.sizes if plan is not None else {}
+
+        def read(keys, leaf):
+            layout, name = None, None
+            if isinstance(leaf, _Named):
+                name, leaf = leaf.name, leaf.tensor
+                layout = plan.layouts.get(name)
+            path = _keystr(keys)
+            tensor = isinstance(leaf, torch.Tensor)
+            shape = tuple(leaf.shape) if tensor else ()
+            gshape = tuple(layout.shape) if layout is not None else shape
+            _, index = _box(gshape, layout, coords, sizes)
+            token = _token(index)
+            count = keys[-1] in COUNT_KEYS or not tensor
+
+            def check(saved_shape, saved_dtype):
+                # A count may be a host int or a 0-d tensor on either side.
+                if tuple(saved_shape) != gshape or (
+                        not count and saved_dtype != _dtype_name(leaf.dtype)):
+                    raise ValueError(
+                        f"sharded step {step}: leaf {path} saved as {saved_dtype}"
+                        f"{tuple(saved_shape)}, the run expects "
+                        f"{_dtype_name(leaf.dtype) if tensor else 'a count'}{gshape} — "
+                        "model/checkpoint structure mismatch")
+
+            for host in order:
+                hit = files.table(host).get(path, {}).get(token)
+                if hit is not None:
+                    akey, meta = hit
+                    check(meta.get("global_shape", meta["shape"]), meta["dtype"])
+                    return files.read(host, akey, meta).reshape(shape)
+            full = files.stitch(path)
+            if full is None:
+                raise CheckpointUnreadableError(f"sharded step {step}: no host saved {path}")
+            check(full.shape, _dtype_name(full.dtype))
+            return plan.shard(name, full) if layout is not None else full.reshape(shape)
+
+        def build(tree, keys=()):
+            return {k: (build(v, keys + (str(k),)) if isinstance(v, dict)
+                        else read(keys + (str(k),), v)) for k, v in tree.items()}
+
+        try:
+            live = _named_tree(state, _state_tree(state))
+            if "ema_params" in live and not any(
+                    p.startswith("['ema_params']") for h in order for p in files.table(h)):
+                del live["ema_params"]  # saved without the EMA: seeded from the module
+            live.pop("lm", None)
+            return build(live)
+        finally:
+            files.close()
+
+    def _restore_entry(self, step: int, tier: str, state: Any):
+        """One restore attempt: ``(tree, None)``, or ``(None, error)``."""
+        try:
+            if tier in ("hosts", "hosts-durable"):
+                with self._io_lock():
+                    return self._restore_host_sharded(step, state, self._tier_root(tier)), None
+            return self._read_checked(step, tier, state), None
+        except Exception as e:
+            return None, e
+
     def restore_state(self, state: Any) -> Any:
         """Restore the newest restorable step into ``state``, in place:
         every tensor is copied into the built state's own (on its device,
@@ -783,33 +1369,92 @@ class Checkpointer:
         references stay valid. Returns ``state``; unchanged when disabled
         or when no step exists.
 
-        A step that is torn, structurally unreadable, or deleted since it
-        was listed is skipped with a warning and the next newest restores
-        instead. Only when every retained step fails does restore raise:
-        the likely cause is then a model or config mismatch."""
+        A step that is unfinalized, torn, structurally unreadable, or
+        deleted since it was listed is skipped with a warning and the next
+        newest restores instead. Only when every retained step fails does
+        restore raise: the likely cause is then a model or config mismatch.
+
+        Under the per-host protocol on several processes the walk is
+        agreed: the hosts exchange their candidate lists (the union is
+        walked), then for each candidate a validity verdict before anyone
+        reads it (a step any host finds torn is skipped by all) and a
+        read verdict after, so every process resumes from the same step.
+        A lost coordinator drops the walk to this host's own decisions,
+        with a warning."""
         if not self.enabled or not self.restore:
             return state
+        from zookeeper_tpu_torch.resilience.coordination import CoordinatorLostError
+
         entries = self._tier_entries()
+        coord = self._coordinator() if self._sharded_active else None
+        group = coord is not None and coord.process_count > 1
+        if group:
+            try:
+                proposals = coord.exchange("restore_candidates",
+                                           [[int(s), t] for s, t in entries])
+                merged = {(int(s), str(t)) for plist in proposals for s, t in plist}
+                entries = sorted(merged, key=lambda e: (e[0], _TIER_PRIORITY.get(e[1], -1)),
+                                 reverse=True)
+            except CoordinatorLostError as e:
+                logger.warning(
+                    "cross-host restore agreement unavailable (%s); falling back to "
+                    "this host's local walk — a step another host finds torn may "
+                    "desync the group", e,
+                )
+                group = False
         if not entries:
             return state
         last_err: Optional[Exception] = None
         for i, (step, tier) in enumerate(entries):
-            try:
-                tree = self._read_checked(step, tier, state)
-            except Exception as e:
-                last_err = e
+            valid = self._validate_entry(step, tier)
+            if group:
+                try:
+                    valids = coord.exchange(f"restore_try_{step}_{tier}", bool(valid))
+                except CoordinatorLostError as e:
+                    logger.warning("restore agreement lost mid-walk (%s); continuing with "
+                                   "this host's local walk", e)
+                    group, valids = False, [valid]
+                if valid and not all(valids):
+                    logger.warning(
+                        "%s checkpoint step %d is restorable here but torn on a peer "
+                        "host; skipped on EVERY host for group agreement", tier, step)
+                    continue
+            if not valid:
                 logger.warning(
-                    "%s checkpoint step %d failed to restore (%s); falling "
-                    "back to an earlier retained step", tier, step, e,
+                    "%s checkpoint step %d is not finalized (crash mid-save, or host "
+                    "data GC'd since listing?); falling back to an earlier step",
+                    tier, step)
+                continue
+            tree, err = self._restore_entry(step, tier, state)
+            ok = err is None
+            if group:
+                try:
+                    oks = coord.exchange(f"restore_ok_{step}_{tier}", ok)
+                except CoordinatorLostError as e:
+                    logger.warning("restore confirmation lost (%s); continuing with this "
+                                   "host's local walk", e)
+                    group, oks = False, [ok]
+                if ok and not all(oks):
+                    logger.warning("a peer host failed to read %s step %d; skipped on every "
+                                   "host for group agreement", tier, step)
+                    continue
+            if not ok:
+                last_err = err
+                logger.warning(
+                    "%s checkpoint step %d failed to restore (%s); falling back to an "
+                    "earlier retained step", tier, step, err,
                 )
                 continue
             if i > 0:
                 logger.warning(
-                    "restored %s step %d instead of the newest retained step "
-                    "%d: later step(s) were corrupt/unreadable — work since "
-                    "step %d will be retrained", tier, step, entries[0][0], step,
+                    "restored %s step %d instead of the newest retained step %d: later "
+                    "step(s) were corrupt/unreadable — work since step %d will be "
+                    "retrained", tier, step, entries[0][0], step,
                 )
-            self._assemble(state, tree)
+            if tier in ("hosts", "hosts-durable"):
+                self._load_tree(state, tree)
+            else:
+                self._assemble(state, tree)
             return state
         raise ValueError(
             f"None of the {len(entries)} retained checkpoint step(s) "
@@ -823,8 +1468,14 @@ class Checkpointer:
 
     @staticmethod
     def _assemble(state: Any, tree: Mapping[str, Any]) -> None:
+        """Load a global tree (this rank's blocks of it under shards)."""
         if state.shards is not None:
             tree = state.shards.shard_tree(dict(tree))
+        Checkpointer._load_tree(state, tree)
+
+    @staticmethod
+    def _load_tree(state: Any, tree: Mapping[str, Any]) -> None:
+        """Load a tree shaped as the live state (its blocks) into it."""
         with torch.no_grad():
             state.module.load_state_dict(tree["module"])
             _copy_into(state.opt_state, tree["opt_state"])
@@ -838,7 +1489,7 @@ class Checkpointer:
     def wait(self, supersede: bool = False) -> float:
         """Block until every accepted async snapshot is written or dropped
         (sync saves have landed when ``save`` returns), then pass the
-        ranks' barrier; returns the ms spent draining (0.0 in sync mode).
+        ranks' barrier (the bare layout's); returns the ms spent draining (0.0 in sync mode).
         ``supersede=True`` drops the queued, not yet started snapshot
         first."""
         writer = getattr(self, "_async_writer", None)

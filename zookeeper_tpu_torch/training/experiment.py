@@ -27,7 +27,11 @@ its first step and replays the (seed, epoch)-fixed pipeline from
 ``step % steps_per_epoch``, an exact mid-epoch resume. ``guard`` turns
 SIGTERM/SIGINT (or a ``FaultPlan`` kill) into one synchronous save at the
 next step boundary and a ``Preempted`` exit, which
-``resilience.run_with_recovery`` resumes from.
+``resilience.run_with_recovery`` resumes from. Under
+``run_with_recovery(coordinator=...)`` over several processes the
+boundary runs the group drain: a host whose guard tripped publishes a
+stop flag, and every host exits, saved, at the first boundary at or past
+the flag's step plus ``group_drain_margin_steps``.
 
 The tools around a run: ``writer`` (``training.metrics``) gets the
 ``train/`` scalars at each ``log_every`` readback and the
@@ -236,6 +240,11 @@ class TrainingExperiment(Experiment):
     profile_dir: Optional[str] = Field(None)
     #: Where the model trains: "cuda" (raises without a card) or "cpu".
     device: str = Field("cuda")
+    #: The group drain's margin in steps: the gap between a stop flag's
+    #: boundary and the group's agreed exit. It must exceed the hosts'
+    #: boundary skew (one slab, bounded by the boundary's device sync)
+    #: plus the shared storage's flag-visibility lag; 0 = 4 x ``unroll``.
+    group_drain_margin_steps: int = Field(0)
 
     @Field
     def num_classes(self) -> int:
@@ -340,6 +349,11 @@ class TrainingExperiment(Experiment):
                 "rankable metrics (best-ranking pins every save to a "
                 "metric). Use one or the other."
             )
+        if self.group_drain_margin_steps < 0:
+            raise ValueError(
+                f"group_drain_margin_steps={self.group_drain_margin_steps}"
+                " must be >= 0 (0 = auto: 4 x unroll)."
+            )
 
     def _step_save_due(self, epoch: int, step_idx: int, spe: int) -> bool:
         """Whether the step-cadence save fires after this step. On an
@@ -363,15 +377,75 @@ class TrainingExperiment(Experiment):
             float(metrics["loss"].reshape(-1)[-1])
             self.first_step_at = time.perf_counter()
 
+    def _group_process_index(self) -> int:
+        """This host's index for the fault legs: the group coordinator's
+        when one is wired, else the process group's rank (0 without one)."""
+        coord = getattr(self, "group_coordinator", None)
+        if coord is not None:
+            return int(coord.process_index)
+        import torch.distributed as dist
+
+        return dist.get_rank() if dist.is_available() and dist.is_initialized() else 0
+
+    def _group_drain_margin(self) -> int:
+        """Steps between a stop flag's boundary and the group's exit
+        (``group_drain_margin_steps``, or 4 x ``unroll``)."""
+        if self.group_drain_margin_steps > 0:
+            return int(self.group_drain_margin_steps)
+        return 4 * max(1, int(self.unroll))
+
+    def _group_stop_due(self, global_step: int) -> bool:
+        """The group boundary: a host whose guard tripped publishes a stop
+        flag (when no drain is under way) instead of exiting; every host
+        sees the flags at a later boundary, and the group exits at the
+        first boundary at or past the newest flag's step plus the margin:
+        one stop step, the same state saved by every host. A host never
+        waits here (a peer may be waiting on its next dispatch). True when
+        this boundary is the exit."""
+        coord = self.group_coordinator
+        pid = int(coord.process_index)
+        flags = coord.poll_flags("preempt")
+        if self.guard.preempted and not flags and self._group_flag_step is None:
+            # This host starts the drain.
+            coord.publish_flag("preempt", {"origin": pid, "step": int(global_step),
+                                           "signal": self.guard.received_signal})
+            self._group_flag_step = int(global_step)
+            self.guard.request_preemption(signum=self.guard.received_signal, origin=pid)
+            flags = coord.poll_flags("preempt")
+        if not flags:
+            return False
+        if self.guard.preemption_origin is None:
+            # Join the drain, recording who started it.
+            first = min(flags, key=lambda f: int(f["origin"]))
+            self.guard.request_preemption(
+                signum=self.guard.received_signal or first.get("signal"),
+                origin=int(first["origin"]))
+        stop_step = max(int(f["step"]) for f in flags) + self._group_drain_margin()
+        return int(global_step) >= stop_step
+
     def _boundary_check(self, state: TrainState, global_step: int) -> None:
         """Preemption check at a step boundary, where ``state`` is an exact
-        resume point. A ``FaultPlan``'s ``kill_at_step`` trips the flag a
-        real SIGTERM does. On preemption: the guard's one synchronous
-        save, then ``Preempted`` (teardown still runs)."""
+        resume point. A ``FaultPlan``'s ``kill_at_step`` (or this host's
+        ``kill_process_at_step``) trips the flag a real SIGTERM does. On
+        preemption: the guard's one synchronous save, then ``Preempted``
+        (teardown still runs). With a group coordinator wired, the group
+        drain decides the boundary (``_group_stop_due``)."""
         plan = faults.active()
-        if plan is not None and plan.kill_due(global_step):
+        coord = getattr(self, "group_coordinator", None)
+        if plan is not None and plan.kill_due(
+                global_step, self._group_process_index()
+                if plan.kill_process_at_step is not None or coord is not None else 0):
             self.guard.request_preemption()
-        if not self.guard.preempted:
+        if coord is not None and coord.process_count > 1:
+            # Bound the hosts' skew to one slab: this host passes the
+            # boundary only once its card has run the slab that made
+            # ``state`` (the drain margin's no-deadlock argument). The
+            # step counter of a graph replay is on the card: read after.
+            if self._device.type == "cuda":
+                torch.cuda.synchronize(self._device)
+            if not self._group_stop_due(global_step):
+                return
+        elif not self.guard.preempted:
             return
         saved, self.save_wait_ms = self.guard.preemption_save(
             self.checkpointer, state, global_step)
@@ -446,13 +520,21 @@ class TrainingExperiment(Experiment):
     def run(self) -> Dict[str, List[Dict[str, float]]]:
         self._validate_config()
         device = self._setup_ranks()
+        self._device = device
+        if self.checkpointer.enabled and self.checkpointer.sharded_per_host:
+            # Build (and purge the stale files of) the restore agreement's
+            # coordinator now, behind the group's rendezvous, not at the
+            # first restore, where a slow peer's stale files could show.
+            self.checkpointer._coordinator()
         self._log(pretty_print(self))
         if self.print_model_summary:
             self._print_summary()
-        # Per-run probes read by run_with_recovery.
+        # Per-run probes read by run_with_recovery, and the group drain's
+        # flag (at most one published a run).
         self.first_step_at = None
         self.save_wait_ms = None
         self._profile_window = None
+        self._group_flag_step = None
         partitioner = self.partitioner
         self.checkpointer.set_replicas(
             partitioner.replicas() if self.checkpointer.enabled else None, partitioner.is_chief)
