@@ -415,7 +415,39 @@ CUDA card and ``nvcc``. In order:
    a step (epochs 2-9 of three runs each, graph replays) with a 2-host
    coordinator wired and no flag, against none, as medians and quartiles;
    and one ``poll_flags`` of the boundary alone.
-24. One JSON line of the kernels (14 rows; K1, K3, K4, K6 and K7 also
+24. Disaggregated prefill/decode and hot weight swaps (``disagg_phase``,
+   deterministic mode where bits are compared): (a)
+   ``DisaggServingConfig.run()`` on phase 10's model and stream (32
+   requests x 64 tokens; the prefill role 4 lanes batched (1, 2, 4) wide,
+   the decode role 8 slots; both on the one card, the overlap flagged,
+   and a line saying that disjoint roles need two cards) with bf16 and
+   int8 rows: K9 4 a prefill dispatch of the prefill role and none on the
+   decode role, K13 4 a decode step of the decode role and none on the
+   prefill role, one handoff a request, both pools leak-free; its TTFT,
+   inter-token and step p50/p99 beside ``LMServingConfig``'s paged engine
+   on the same stream, with the share of equal tokens and the first
+   position where they diverge. (b) One 2048-token prompt's 128 pages
+   moved alone 20 times by the direct copy and through host memory: the
+   moved pages equal the source's bit for bit, ms p50/p99, bytes and
+   GB/s. (c) fp32 at phase 22 (d)'s model and prompts: the
+   disaggregated tokens equal the single paged engine's, plain and with
+   a fresh 1-layer draft on the decode role (K12); ``fail_page_transfer=1``
+   fails one victim, ``prefill_role_crash_at=2`` the prefill side's
+   streams, the survivors' tokens equal, both pools leak-free; a swap
+   staged mid-stream keeps the 4 in-flight streams on the old weights and
+   the rest on the new (their tokens the single engine's on them, one
+   checked against ``greedy_decode``). (d) A staged swap of
+   ``LMServingConfig`` (paged, bf16) with no group, then under FSDP and
+   the (1, 1) TP mesh on a world-size-1 NCCL group: equal bit for bit,
+   the same launches. (e) ``ServingConfig(watch=True)`` on slice A
+   (packed QuickNet-Large, K1 + K3 32 each a forward) over a
+   ``Checkpointer`` directory that gains a step between the halves of 8
+   requests: the step is swapped in (load + placement ms), no bucket
+   warmed again, and the answers equal a cold load of the step bit for
+   bit. (f) ``serving_worker_crash`` on an async ``MicroBatcher`` and
+   ``decode_worker_crash`` on an async ``DecodeScheduler``: the request
+   fails, the next submit serves on a restarted worker.
+25. One JSON line of the kernels (14 rows; K1, K3, K4, K6 and K7 also
    with their sums on Bi-Real-Net's path under ``bireal``; K1, K3 and K4
    under ``densenet`` and ``melius``, K1 and K3 under ``xnor_train`` per
    DenseNet training step, K2 under ``xnor_train`` per BinaryAlexNet
@@ -430,7 +462,9 @@ CUDA card and ``nvcc``. In order:
    times; K1, K3, K4, K9, K12 and K13 under ``served_sharded``, phase 21's
    launches and the block times; K9, K12 and K13 under ``features``,
    phase 22's launches on each path; K9-lse, K10 and K11 under ``group``,
-   phase 23's launches in the supervised run), then the result line.
+   phase 23's launches in the supervised run; K9, K12 and K13 under
+   ``disagg``, phase 24's launches on each path, and K1 and K3 under
+   ``hot_swap``, its watched service's), then the result line.
 """
 
 import contextlib
@@ -6577,6 +6611,523 @@ def group_phase(torch, A, smi, device="cuda", conf=None):
     return launches, stats
 
 
+#: Phase 24 (``disagg_phase``): DisaggServingConfig at phase 10's model
+#: and stream (bf16 and int8 rows on both roles: the prefill role 4 lanes
+#: batched (1, 2, 4) wide with the prefix cache, the decode role 8 slots
+#: without), beside LMServingConfig's paged engine on the same stream.
+DISAGG = {**LM_CONFIG, "engine.kv_layout": "paged", "engine.prefix_cache": False,
+          "prefill_engine.seq_buckets": LM_CONFIG["engine.seq_buckets"],
+          "prefill_engine.page_size": LM_PAGE, "prefill_engine.decode_attention": "auto"}
+DISAGG_ROWS = (("bf16", {}, {}),
+               ("int8", {"engine.kv_quant": "int8", "prefill_engine.kv_quant": "int8"},
+                {"engine.kv_quant": "int8"}))
+#: The handoff timed alone: one 2048-token prompt (128 pages), this many
+#: moves a path after one untimed.
+DISAGG_MOVES = 20
+#: The roles of the fp32 legs (``_disagg_serve``): FEATURE_ENGINE's
+#: geometry, 4 prefill lanes, 8 decode slots.
+DISAGG_PREFILL = {**FEATURE_ENGINE, "slots": 4, "prefill_buckets": (1, 2, 4)}
+DISAGG_DECODE = {**FEATURE_ENGINE, "prefix_cache": False}
+#: (c)'s prompts beside phase 22 (d)'s shared-prefix ones, and (d)'s
+#: prompt lengths (4 in flight at the swap, 2 after it).
+DISAGG_EXTRA = (37, 700)
+DISAGG_SWAP_PROMPTS = (100, 300, 500, 40, 200, 7)
+#: The packed classifier the watcher swaps (slice A: K1 + K3 32 each a
+#: forward), its checkpoint steps' seeds and the stream around the swap.
+WATCH_SLICE = "A"
+WATCH_REQUESTS = 8
+
+
+def _disagg_config(overrides):
+    from zookeeper_tpu_torch.core import configure
+    from zookeeper_tpu_torch.serving import DisaggServingConfig
+
+    cfg = DisaggServingConfig()
+    configure(cfg, {**DISAGG, **overrides})
+    return cfg
+
+
+def _disagg_serve(torch, A, module, prompts, budgets, *, conf=None, draft=None, plan=None,
+                  swap=None):
+    """``prompts`` through a prefill and a decode DecodeEngine over
+    ``module`` (DISAGG_PREFILL/DISAGG_DECODE with ``conf``), a PageTransfer
+    and a synchronous DisaggScheduler, the decode role speculative when
+    ``draft`` is a module, under the FaultPlan ``plan``; ``swap`` (export
+    trees) is requested after two iterations, and the prompts from the
+    fifth on are submitted after it. The counts are set to 0 before the
+    binds and read after the drain. Returns a record."""
+    from zookeeper_tpu_torch.core import configure
+    from zookeeper_tpu_torch.resilience import faults
+    from zookeeper_tpu_torch.serving import DisaggScheduler, PageTransfer
+    from zookeeper_tpu_torch.serving.decode import (
+        DecodeEngine,
+        DecodeMetrics,
+        SpeculativeDecoding,
+    )
+
+    A.reset_launches()
+    engines = []
+    for role, base, warm in (("prefill", DISAGG_PREFILL, {"decode": False}),
+                             ("decode", DISAGG_DECODE, {"prefill": False})):
+        engine = DecodeEngine()
+        configure(engine, {**base, **(conf or {})}, name=f"{role}_engine")
+        engine.bind(module, device="cuda")
+        engine.warmup(**warm)
+        engine.warmup_transfer()
+        engines.append(engine)
+    pre, dec = engines
+    spec = None
+    if draft is not None:
+        spec = SpeculativeDecoding()
+        configure(spec, {"enabled": True, "k": SPEC_K}, name="spec")
+        spec.bind(dec, draft)
+    metrics = DecodeMetrics()
+    configure(metrics, {}, name="metrics")
+    transfer = PageTransfer()
+    configure(transfer, {}, name="transfer")
+    transfer.bind(pre, dec, metrics=metrics)
+    sched = DisaggScheduler()
+    configure(sched, {}, name="sched")
+    sched.bind(pre, dec, transfer, metrics=metrics, speculative=spec)
+    with faults.injected(plan) if plan is not None else contextlib.nullcontext():
+        if swap is None:
+            streams = [sched.submit(p, max_new_tokens=b) for p, b in zip(prompts, budgets)]
+        else:
+            streams = [sched.submit(p, max_new_tokens=b) for p, b in zip(prompts[:4], budgets)]
+            sched._pump()
+            sched._pump()
+            sched.request_swap(*swap, step=2)
+            check(sched.swap_pending, "disagg: the swap applied with streams in flight")
+            streams += [sched.submit(p, max_new_tokens=b)
+                        for p, b in zip(prompts[4:], budgets[4:])]
+        sched.drain()
+    torch.cuda.synchronize()
+    launches = dict(A.LAUNCHES)
+    check(pre.page_pool.leak_check() == 0 and dec.page_pool.leak_check() == 0,
+          f"disagg: pages leaked (prefill {pre.page_pool.leak_check()}, decode "
+          f"{dec.page_pool.leak_check()})")
+    out = [(s.tokens_so_far, None if s.error is None else type(s.error).__name__)
+           for s in streams]
+    rec = {"out": out, "metrics": metrics, "engines": (pre, dec), "spec": spec,
+           "launches": launches, "transfer": transfer.status(), "sched": sched}
+    sched.close()
+    return rec
+
+
+def _role_launches(A, label, launches, pre, dec, spec=None):
+    """Hold a disaggregated run's launches to its roles' dispatches (the
+    warm-ups included): K9 once a layer a prefill dispatch, of the prefill
+    role (and of the draft, whose cache prefills at the decode admission),
+    none of the decode role; K13 once a layer a decode step of the decode
+    role, none of the prefill role; K12 once a layer a draft step. Fails
+    when a kernel of the path launched no time. Returns the launches."""
+    got = {name: launches.get(name, 0) for name in LM_KERNELS}
+    check(dec.dispatches.get("prefill", 0) == 0 and pre.dispatches.get("decode", 0) == 0,
+          f"disagg {label}: a role ran the other's dispatch (prefill {pre.dispatches}, "
+          f"decode {dec.dispatches})")
+    want = {"flash_forward": int(pre._module.num_layers) * pre.dispatches.get("prefill", 0),
+            "pool_paged_decode_attention": int(dec._module.num_layers)
+            * dec.dispatches.get("decode", 0), "paged_decode_attention": 0}
+    if spec is not None:
+        d, layers = spec.draft_engine.dispatches, int(spec.draft_engine._module.num_layers)
+        want["flash_forward"] += layers * d.get("prefill", 0)
+        want["paged_decode_attention"] += layers * d.get("decode", 0)
+    check(got == want, f"disagg {label}: launched {got}, the roles' dispatches say {want} "
+                       f"(prefill {pre.dispatches}, decode {dec.dispatches})")
+    check(got["flash_forward"] > 0 and got["pool_paged_decode_attention"] > 0
+          and (spec is None or got["paged_decode_attention"] > 0),
+          f"disagg {label}: a kernel of the path launched no time ({got})")
+    check(all(launches.get(n, 0) == 0 for n in LM_TRAIN_KERNELS),
+          f"disagg {label}: serving launched training kernels {launches}")
+    return got
+
+
+def _first_divergence(a, b):
+    """(share of equal tokens, the first (stream, position) where two
+    streams' tokens differ, or None)."""
+    import numpy as np
+
+    first = None
+    for i, (x, y) in enumerate(zip(a, b)):
+        diff = np.flatnonzero(np.asarray(x) != np.asarray(y))
+        if diff.size and (first is None or diff[0] < first[1]):
+            first = (i, int(diff[0]))
+    return _equal_share(a, b), first
+
+
+def _save_packed(torch, directory, settings, step, seed):
+    """Save a packed classifier initialized from ``seed`` as training step
+    ``step`` of a ``Checkpointer`` directory (built on the CPU)."""
+    from zookeeper_tpu_torch.core import configure
+    from zookeeper_tpu_torch.serving import ServingConfig
+    from zookeeper_tpu_torch.training import Checkpointer
+    from zookeeper_tpu_torch.training.optimizer import Sgd
+    from zookeeper_tpu_torch.training.state import TrainState
+
+    cfg = ServingConfig()
+    configure(cfg, dict(settings), name="serving")
+    module = cfg.model.initialize(cfg.model.build(cfg.input_shape, cfg.num_classes), seed=seed)
+    opt = Sgd()
+    configure(opt, {}, name="optimizer")
+    tx = opt.build(total_steps=1)
+    ckpt = Checkpointer()
+    configure(ckpt, {"directory": directory}, name="ckpt")
+    t0 = time.perf_counter()
+    ckpt.save(TrainState(step=step, module=module, tx=tx,
+                         opt_state=tx.init(dict(module.named_parameters()))), step=step)
+    ckpt.wait()
+    ckpt.close()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def disagg_phase(torch, bc, A, smi):
+    """Phase 24 (see the module docstring). Returns ({path: K9/K12/K13
+    launches}, {path: K1/K3 launches}, stats)."""
+    import shutil
+    import socket
+    import tempfile
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from zookeeper_tpu_torch.core import configure
+    from zookeeper_tpu_torch.models.transformer import greedy_decode
+    from zookeeper_tpu_torch.parallel import distributed as D
+    from zookeeper_tpu_torch.parallel import rules as R
+    from zookeeper_tpu_torch.resilience import FaultPlan, faults
+    from zookeeper_tpu_torch.serving import (
+        DisaggPartitioner,
+        InferenceEngine,
+        MicroBatcher,
+        PageTransfer,
+        ServingConfig,
+        WorkerCrashedError,
+    )
+    from zookeeper_tpu_torch.serving.decode import DecodeEngine, DecodeScheduler
+    from zookeeper_tpu_torch.training.checkpoint import export_trees
+
+    t_phase = time.perf_counter()
+    launches, stats = {}, {}
+
+    # The roles' devices: one card here.
+    part = DisaggPartitioner()
+    configure(part, {"device": "cuda"}, name="partitioner")
+    cards = torch.cuda.device_count()
+    check(part.disjoint == (cards >= 2), f"disagg: {cards} device(s) but {part.describe()}")
+    print(f"disagg: {cards} device(s) in this process: roles {json.dumps(part.describe())}; "
+          "disjoint roles need two cards, so this run checks the overlapping roles (both on "
+          "device 0) and no cross-card copy", flush=True)
+
+    # (a) Phase 10's stream through DisaggServingConfig.run(), bf16 and int8
+    # rows, beside LMServingConfig's paged engine on the same stream;
+    # (b) the handoff of one 2048-token prompt timed alone.
+    for label, extra, single_extra in DISAGG_ROWS:
+        single = _lm_config({**PAGED, **single_extra})
+        single_result = single.run()
+        torch.cuda.synchronize()
+        single_out = [o.copy() for o in single.outputs]
+        del single
+        cfg = _disagg_config(extra)
+        A.reset_launches()
+        result = cfg.run()
+        torch.cuda.synchronize()
+        pre, dec = cfg.prefill_engine, cfg.engine
+        launches[f"run_{label}"] = _role_launches(A, f"run {label}", dict(A.LAUNCHES), pre, dec)
+        requests = int(cfg.requests)
+        check(result["transfer_handoffs"] == requests and result["disjoint_roles"] is False,
+              f"disagg {label}: {result['transfer_handoffs']} handoffs for {requests} requests")
+        check(pre.page_pool.leak_check() == 0 and dec.page_pool.leak_check() == 0,
+              f"disagg {label}: pages leaked")
+        share, first = _first_divergence(cfg.outputs, single_out)
+        keys = ("tokens_per_sec", "ttft_p50_ms", "ttft_p99_ms", "itl_p50_ms", "itl_p99_ms",
+                "token_p50_ms", "prefill_p50_ms")
+        rec = {"disagg": {k: result.get(k) for k in keys + ("transfer_p50_ms", "transfer_p99_ms",
+                                                           "transfer_bytes", "transfer_pages")},
+               "single": {k: single_result.get(k) for k in keys},
+               "equal_tokens_share": share, "first_divergence": first,
+               "prefill_dispatches": pre.dispatches, "decode_dispatches": dec.dispatches,
+               "launches": launches[f"run_{label}"]}
+        print(f"disagg (a) {label} on {smi}: {json.dumps(rec)}", flush=True)
+
+        # (b) One 2048-token prompt's pages (128 of 16 tokens) moved alone.
+        n = int(max(pre.seq_buckets))
+        prompt = np.random.default_rng(40).integers(1, 1024, size=n).astype(np.int32)
+        for engine in (pre, dec):
+            engine._reset_cache()
+        check(pre.admit_slot(0, prompt) is not None, "disagg (b): no pages for the prompt")
+        pre.prefill([prompt], [0])
+        pages = pre.page_pool.pages_for(n)
+        src = [int(p) for p in pre.page_pool.table[0, :pages]]
+        dst = dec.page_pool.adopt_slot(0, pages)
+        idx = {"src": torch.as_tensor(src, device="cuda"),
+               "dst": torch.as_tensor(dst, device="cuda")}
+        moves = {}
+        for bounce in (False, True):
+            transfer = PageTransfer()
+            configure(transfer, {"host_bounce": bounce}, name="transfer")
+            transfer.bind(pre, dec)
+            for layer in dec.cache:
+                for buf in layer.values():
+                    buf.index_fill_(0, idx["dst"], 0)
+            transfer.move(src, dst)  # untimed first move
+            torch.cuda.synchronize()
+            same = all(torch.equal(d[name].index_select(0, idx["dst"]),
+                                   s[name].index_select(0, idx["src"]))
+                       for s, d in zip(pre.cache, dec.cache) for name in s)
+            check(same, f"disagg (b) {label}: the moved pages differ from the source's "
+                        f"(host_bounce={bounce})")
+            ms = []
+            for _ in range(DISAGG_MOVES):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                transfer.move(src, dst)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+            st = transfer.status()
+            nbytes = st["bytes_total"] // st["handoffs_total"]
+            p50, p99 = float(np.percentile(ms, 50)), float(np.percentile(ms, 99))
+            check(st["host_bounces"] == (st["handoffs_total"] if bounce else 0),
+                  f"disagg (b): {st['host_bounces']} bounces counted (host_bounce={bounce})")
+            moves["host_bounce" if bounce else "direct"] = {
+                "ms_p50": p50, "ms_p99": p99, "ms_min": min(ms), "bytes": nbytes,
+                "pages": pages, "gb_per_s_p50": nbytes / (p50 * 1e-3) / 1e9,
+                # The export's gather and the import's scatter each read and
+                # write the block on the card: 4 x its bytes of HBM traffic.
+                "hbm_bound_ms": 4 * nbytes / HBM_BYTES_PER_S * 1e3}
+        pre.page_pool.release_slot(0)
+        dec.page_pool.release_slot(0)
+        stats[label] = {**rec, "moves": moves}
+        print(f"disagg (b) {label}: one {n}-token prompt's handoff on {smi}: "
+              f"{json.dumps(moves)}", flush=True)
+        del cfg, pre, dec
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # (c) Deterministic fp32 at phase 11's model: the disaggregated tokens
+    # equal the single paged engine's, plain and speculative (a fresh
+    # 1-layer draft with the decode role: K12); both fault legs fail their
+    # victims only; a swap mid-stream keeps each stream on one version.
+    module = _feature_module(torch, "float32")
+    module_b = _feature_module(torch, "float32", seed=1)
+    fresh = _feature_module(torch, "float32", layers=1, seed=5)
+    params_b = export_trees(module_b)
+    prompts = _shared_prefix_prompts(24, (300,), 8, 100, int(max(FEATURE_ENGINE["seq_buckets"])))
+    rng = np.random.default_rng(25)
+    prompts += [rng.integers(1, 1024, size=int(n)).astype(np.int32) for n in DISAGG_EXTRA]
+    budgets = [int(b) for b in rng.integers(2, 13, size=len(prompts))]
+    with deterministic(torch):
+        cold = _feature_serve(torch, A, module, prompts, budgets, {"prefix_cache": False})
+        cold_b = _feature_serve(torch, A, module_b, prompts[4:], budgets[4:],
+                                {"prefix_cache": False})
+        with mock.patch.object(A, "flash_attention", A.attention_reference):
+            oracle = greedy_decode(module_b, torch.from_numpy(prompts[4])[None].cuda(),
+                                   budgets[4])[0, len(prompts[4]):].cpu().numpy()
+        check(np.array_equal(oracle, cold_b["tokens"][0]),
+              "disagg (c): the single engine's new-weights stream differs from greedy_decode")
+        want = [t.tolist() for t in cold["tokens"]]
+        legs = (("plain", {}), ("speculative", {"draft": fresh}),
+                ("fail_page_transfer", {"plan": FaultPlan(fail_page_transfer=1)}),
+                ("prefill_role_crash_at", {"plan": FaultPlan(prefill_role_crash_at=2)}),
+                ("swap", {"swap": params_b}))
+        for label, kw in legs:
+            run = _disagg_serve(torch, A, module, prompts, budgets, **kw)
+            pre, dec = run["engines"]
+            launches[f"fp32_{label}"] = _role_launches(A, f"fp32 {label}", run["launches"], pre,
+                                                       dec, run["spec"])
+            got = [t.tolist() for t, _ in run["out"]]
+            errors = [e for _, e in run["out"]]
+            if label == "swap":
+                check(got[:4] == want[:4] and got[4:] == [t.tolist() for t in cold_b["tokens"]],
+                      "disagg (c): a stream of the swap run is not wholly on one weight version")
+                check(run["metrics"].totals["weight_swaps_total"] == 1,
+                      "disagg (c): the swap was not applied once")
+                note = "4 in-flight streams on the old weights, the rest on the new"
+            elif "plan" in kw:
+                victims = [i for i, e in enumerate(errors) if e is not None]
+                expect = ("PageTransferError" if label == "fail_page_transfer"
+                          else "WorkerCrashedError")
+                check(victims and all(errors[i] == expect for i in victims)
+                      and (label != "fail_page_transfer" or len(victims) == 1),
+                      f"disagg (c) {label}: victims {victims} with {errors}")
+                check(all(got[i] == want[i] for i in range(len(got)) if errors[i] is None),
+                      f"disagg (c) {label}: a survivor's tokens differ from the plain run's")
+                check(all(got[i] == want[i][:len(got[i])] and len(got[i]) >= 1
+                          for i in victims),
+                      f"disagg (c) {label}: a victim's partial tokens are not the plain run's")
+                note = f"victims {victims} ({expect}), {len(got) - len(victims)} survivors equal"
+            else:
+                check(got == want and not any(errors),
+                      f"disagg (c) fp32 {label}: tokens differ from the single paged engine's")
+                note = "tokens equal the single paged engine's"
+                if run["spec"] is not None:
+                    note += f", acceptance {run['spec'].acceptance_rate:.4f}"
+            print(f"disagg (c) fp32 {label}: {note}; handoffs {run['transfer']['handoffs_total']}, "
+                  f"launches {json.dumps(launches[f'fp32_{label}'])}", flush=True)
+    del module, module_b, fresh, cold, cold_b, run
+    gc.collect()
+
+    # (d) A staged swap under FSDP and the (1, 1) TP mesh on a world-size-1
+    # group equals the swap with no group, bf16, deterministic.
+    params_b = export_trees(_feature_module(torch, "bfloat16", seed=1))
+    swap_prompts = [np.random.default_rng(41 + i).integers(1, 1024, size=int(n))
+                    .astype(np.int32) for i, n in enumerate(DISAGG_SWAP_PROMPTS)]
+
+    def swapped(part, rules=None):
+        cfg = _lm_config({**PAGED, **part})
+        if rules is not None:
+            cfg.partitioner.with_rules(getattr(R, rules)())
+        _reset_all(bc, A)
+        with deterministic(torch):
+            engine, sched = cfg.build_service()
+            streams = [sched.submit(p, max_new_tokens=16) for p in swap_prompts[:4]]
+            sched._pump()
+            sched._pump()
+            sched.request_swap(*params_b)
+            streams += [sched.submit(p, max_new_tokens=16) for p in swap_prompts[4:]]
+            sched.drain()
+            torch.cuda.synchronize()
+        got = _launch_counts(bc, A)
+        tokens = [s.result() for s in streams]
+        check(cfg.metrics.totals["weight_swaps_total"] == 1, "disagg (d): no swap applied")
+        sched.close()
+        return tokens, got
+
+    base_tokens, base_launches = swapped({})
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    launcher = {"MASTER_ADDR": "localhost", "MASTER_PORT": str(port), "RANK": "0",
+                "WORLD_SIZE": "1", "LOCAL_RANK": "0"}
+    with mock.patch.dict(os.environ, launcher):
+        D.initialize_distributed(device="cuda")
+        check(dist.get_backend() == "nccl" and dist.get_world_size() == 1,
+              "disagg: no world-size-1 NCCL group")
+        for label, part, rules in (("fsdp", _FSDP, None),
+                                   ("tp", _TP_MESH, "transformer_tp_rules")):
+            tokens, got = swapped(part, rules)
+            check(all(np.array_equal(a, b) for a, b in zip(tokens, base_tokens))
+                  and got == base_launches,
+                  f"disagg (d): the swap under {label} differs from the swap with no group "
+                  f"(launches {got} against {base_launches})")
+            print(f"disagg (d): a staged swap under {label} on the world-size-1 group equals "
+                  f"the swap with no group bit for bit ({sum(map(len, tokens))} tokens, "
+                  f"launches {json.dumps(got)})", flush=True)
+        D.shutdown_distributed()
+    check(not D.is_distributed_initialized(), "disagg: the group outlived the phase")
+
+    # (e) ServingConfig(watch=True) on packed QuickNet-Large: a step that
+    # lands while it serves is swapped in; the answers then equal a cold
+    # load of that step bit for bit. (f) The worker crashes on the card.
+    settings = {**SLICES[WATCH_SLICE][0], "engine.batch_buckets": (1, BATCH),
+                "requests": WATCH_REQUESTS, "max_request": BATCH, "weights": "raw",
+                "device": "cuda", "verbose": False}
+    per_forward = SLICES[WATCH_SLICE][1]
+    tmp = tempfile.mkdtemp(prefix="zk-watch-")
+    save_ms = [_save_packed(torch, tmp, settings, 1, seed=0)]
+    cfg = ServingConfig()
+    configure(cfg, {**settings, "checkpoint": tmp, "watch": True, "watch_poll_s": 3600.0},
+              name="serving")
+    buckets = []
+    real_infer = InferenceEngine.infer
+
+    def spy(engine, x):
+        buckets.append(engine.bucket_for(len(x)))
+        return real_infer(engine, x)
+
+    x = np.random.default_rng(3).normal(size=(BATCH, *cfg.input_shape)).astype(np.float32)
+    requests = list(cfg.request_stream())
+    bc.reset_launches()
+    with mock.patch.object(InferenceEngine, "infer", spy):
+        engine, batcher = cfg.build_service()
+        warmed = engine.warmed_buckets
+        check(cfg.watcher.current_step == 1 and cfg.metrics.totals["weight_swaps"] == 0,
+              "disagg (e): the watcher swapped the step the service loaded")
+        handles = [batcher.submit(r) for r in requests[: len(requests) // 2]]
+        batcher.flush()
+        save_ms.append(_save_packed(torch, tmp, settings, 2, seed=1))
+        check(cfg.watcher.poll_once() == 2, "disagg (e): the watcher did not swap step 2 in")
+        handles += [batcher.submit(r) for r in requests[len(requests) // 2:]]
+        batcher.flush()
+        torch.cuda.synchronize()
+    watch_launches = _launched(bc)
+    for name in ("pack_rows", "conv_gemm_popcount"):
+        want_n = sum(per_forward(b).get(name, 0) for b in buckets)
+        check(watch_launches.get(name, 0) == want_n > 0,
+              f"disagg (e): {name} launched {watch_launches.get(name, 0)}, the forwards say "
+              f"{want_n}")
+    check(all(h.result().shape[0] >= 1 for h in handles), "disagg (e): an answer is missing")
+    swap_snapshot = cfg.metrics.snapshot()
+    status = cfg.status()
+    check(status["watcher_alive"] is True and status["serving_weights_step"] == 2
+          and engine.warmed_buckets == warmed,
+          f"disagg (e): status {status}, warmed buckets {engine.warmed_buckets} against {warmed}")
+    with deterministic(torch):
+        live = engine.infer(x)
+        cold = ServingConfig()
+        configure(cold, {**settings, "checkpoint": tmp}, name="serving")
+        cold_engine, cold_batcher = cold.build_service()
+        check(torch.equal(live, cold_engine.infer(x)),
+              "disagg (e): the swapped answers differ from a cold load of step 2")
+        cold_batcher.close()
+    del cold, cold_engine
+
+    # (f) serving_worker_crash on an async batcher over the watched engine.
+    crash_batcher = MicroBatcher()
+    configure(crash_batcher, {"synchronous": False, "max_delay_ms": 1.0}, name="batcher")
+    crash_batcher.bind(engine)
+    with faults.injected(FaultPlan(serving_worker_crash=1)):
+        doomed = crash_batcher.submit(x[:2])
+        try:
+            doomed.result(timeout=120)
+            fail("disagg (f): serving_worker_crash did not crash the worker")
+        except WorkerCrashedError:
+            pass
+    with deterministic(torch):
+        check(torch.equal(torch.as_tensor(crash_batcher.submit(x[:3]).result(timeout=120)),
+                          engine.infer(x[:3]).cpu()),
+              "disagg (f): the restarted batcher's answer differs")
+    crash_batcher.close()
+    cfg._teardown_service()
+    check(not cfg.watcher.alive, "disagg (e): teardown left the watcher running")
+    stats["watch"] = {"swap_ms": swap_snapshot.get("weight_swap_ms_mean"),
+                      "save_ms": save_ms, "forwards": len(buckets), "launches": watch_launches,
+                      "recompiles_after_warmup": engine.warmed_buckets - warmed}
+    print(f"disagg (e) watch on {smi}: {json.dumps(stats['watch'])}", flush=True)
+    del cfg, engine, batcher
+    shutil.rmtree(tmp, ignore_errors=True)
+
+    # decode_worker_crash on an async DecodeScheduler.
+    module = _feature_module(torch, "bfloat16")
+    decoded = {}
+    for mode in ("sync", "async"):
+        engine = DecodeEngine()
+        configure(engine, dict(FEATURE_ENGINE), name="engine")
+        engine.bind(module, device="cuda")
+        sched = DecodeScheduler()
+        configure(sched, {"synchronous": mode == "sync"}, name="sched")
+        sched.bind(engine)
+        if mode == "async":
+            with faults.injected(FaultPlan(decode_worker_crash=1)):
+                doomed = sched.submit(swap_prompts[0], max_new_tokens=8)
+                try:
+                    doomed.result(timeout=120)
+                    fail("disagg (f): decode_worker_crash did not crash the loop")
+                except WorkerCrashedError:
+                    pass
+        with deterministic(torch):
+            decoded[mode] = sched.submit(swap_prompts[1], max_new_tokens=8).result(timeout=120)
+        sched.close()
+    check(np.array_equal(decoded["sync"], decoded["async"]),
+          "disagg (f): the restarted decode loop's tokens differ")
+    print("disagg (f): serving_worker_crash and decode_worker_crash failed their requests and "
+          "the next submit served on a restarted worker", flush=True)
+    del module, engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"disagg: phase 24 in {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches, {"watch": watch_launches}, stats
+
+
 def main() -> None:
     if not os.path.isdir(os.path.join(ROOT, "zookeeper_tpu_torch", "csrc")):
         fail("run from a checkout: zookeeper_tpu_torch/ is not beside this script")
@@ -6684,6 +7235,8 @@ def main() -> None:
     elapsed("serving features")
     launches_group, _ = group_phase(torch, A, smi)
     elapsed("group recovery")
+    launches_disagg, launches_watch, _ = disagg_phase(torch, bc, A, smi)
+    elapsed("disaggregated serving, hot swaps")
     served_rows = {}
     for name in ("pack_rows", "conv_gemm_popcount", "packed_weight_matmul", *LM_KERNELS):
         lm = name in LM_KERNELS
@@ -6842,6 +7395,11 @@ def main() -> None:
             rows[-1]["sharded"] = sharded_rows[name]
         if name in served_rows:
             rows[-1]["served_sharded"] = served_rows[name]
+        if name in launches_watch["watch"]:
+            rows[-1]["hot_swap"] = {
+                "path": f"ServingConfig(watch=True) on slice {WATCH_SLICE}: "
+                        f"{WATCH_REQUESTS} requests, a step swapped in between their halves",
+                "launches": launches_watch["watch"][name]}
         if name in ("mask_mul_resid", "xnor_matmul_packed_scaled"):
             # K8 has no work on Bi-Real's step; K2 runs in XNORNet's dense stage.
             rows[-1]["zoo_launches"] = (launches_bt[name] if name == "mask_mul_resid"
@@ -6888,6 +7446,7 @@ def main() -> None:
             rows[-1]["int8_bound_ms"] = LM_LAYERS * int8["bound_ms"]
         rows[-1]["served_sharded"] = served_rows[name]
         rows[-1]["features"] = {path: n[name] for path, n in features.items()}
+        rows[-1]["disagg"] = {path: n[name] for path, n in launches_disagg.items()}
     # LM training kernels, per training step: 4 launches each (one per
     # layer) at the full-width shape.
     label = "[{}, {}, {}, {}] bfloat16 causal=True".format(*LM_TRAIN_SHAPE)

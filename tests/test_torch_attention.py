@@ -17,6 +17,7 @@ tests run them on the CPU. Tolerances:
 - ``quantize_kv_rows``: bit for bit.
 """
 
+import torch_threads  # noqa: F401,I001  (one intra-op thread a process)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -8,6 +8,7 @@ version. Every result is an exact integer or one fp32 multiply of one,
 so the comparisons are ``np.array_equal``, not a tolerance.
 """
 
+import torch_threads  # noqa: F401,I001  (one intra-op thread a process)
 import pathlib
 
 import jax

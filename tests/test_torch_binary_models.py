@@ -17,6 +17,7 @@ largest magnitude. The dense-stage BN fold is compared leaf for leaf,
 bit for bit, with seeded BN statistics of any value.
 """
 
+import torch_threads  # noqa: F401,I001  (one intra-op thread a process)
 import functools
 
 import jax

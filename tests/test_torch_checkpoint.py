@@ -10,6 +10,7 @@ state's own tensors, ``finalized_steps`` never lists a remnant, and
 ``EvalExperiment``/``ServingConfig`` read a training run's directory as
 the export of the same state."""
 
+import torch_threads  # noqa: F401,I001  (one intra-op thread a process)
 import logging
 import os
 import shutil
@@ -1018,11 +1019,14 @@ def test_eval_and_serving_read_a_run_directory_as_its_export(tmp_path, weights):
 
 
 def test_serving_watch_raises_naming_roadmap():
+    """``watch=True`` follows a live ``Checkpointer`` directory: without
+    ``checkpoint`` there is none to follow, and the service refuses as
+    JAX's does (the watcher itself: ``test_torch_hot_swap.py``)."""
     cfg = ServingConfig()
     configure(cfg, {"model": "Mlp", "model.hidden_units": (4,), "height": 2, "width": 2,
                     "channels": 1, "num_classes": 2, "watch": True, "device": "cpu",
                     "verbose": False}, name="serving")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(ValueError, match="watch=True needs checkpoint="):
         cfg.build_service()
 
 

@@ -13,6 +13,7 @@
 - The settings JAX refuses, the port refuses.
 """
 
+import torch_threads  # noqa: F401,I001  (one intra-op thread a process)
 import jax.numpy as jnp
 import numpy as np
 import pytest

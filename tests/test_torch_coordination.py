@@ -10,6 +10,7 @@ coordinator and a port coordinator play the two hosts of one group over
 one directory, in both seatings.
 """
 
+import torch_threads  # noqa: F401,I001  (one intra-op thread a process)
 import os
 import threading
 from types import SimpleNamespace

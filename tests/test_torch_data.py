@@ -8,6 +8,7 @@ path is the JAX package's reference, and the port's pipeline is its
 copy.
 """
 
+import torch_threads  # noqa: F401,I001  (one intra-op thread a process)
 import numpy as np
 import pytest
 import torch

@@ -13,6 +13,7 @@ order differently, so it is held to rtol 1e-5 (the tolerance of
 matmul's VJP) are held to JAX's custom VJP at the same rtol.
 """
 
+import torch_threads  # noqa: F401,I001  (one intra-op thread a process)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -21,6 +21,7 @@ convs' inputs asserted clear of 0 and of +-1 (ste_sign's mask edge) by
 1e-5.
 """
 
+import torch_threads  # noqa: F401,I001  (one intra-op thread a process)
 import functools
 
 import jax
@@ -339,7 +340,8 @@ def _jax_state(family, conf, seed):
     model = getattr(jax_models, family)()
     jax_configure(model, {**FAMILIES[family], **conf, "pallas_interpret": True}, name="model")
     module = model.build(SHAPE, num_classes=CLASSES)
-    params, model_state = model.initialize(module, SHAPE, seed=seed)
+    # Jitted: the eager init's values from one compile, not an op-by-op forward.
+    params, model_state = jax.jit(lambda: model.initialize(module, SHAPE, seed=seed))()
     return module, JaxTrainState.create(apply_fn=module.apply, params=params,
                                         model_state=model_state, tx=_adam(JaxAdam).build(10))
 

@@ -5,6 +5,7 @@ learns the digits (the JAX package's accuracy anchor), and
 ``ServeDigits`` scores what ``EvalExperiment`` scores on the same
 export."""
 
+import torch_threads  # noqa: F401,I001  (one intra-op thread a process)
 import functools
 import json
 import subprocess

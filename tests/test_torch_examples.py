@@ -5,6 +5,7 @@ configuration and two steps, ``LatencyBench``'s JSON line, and the whole
 TrainCifar -> ConvertPacked -> LatencyBench / ServingConfig path at a
 small width on the CPU."""
 
+import torch_threads  # noqa: F401,I001  (one intra-op thread a process)
 import importlib
 import json
 import os

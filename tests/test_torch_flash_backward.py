@@ -9,6 +9,7 @@ lse is an fp32 reduction on both sides and is held to 5e-5 in both
 dtypes (bf16 inputs give exact products).
 """
 
+import torch_threads  # noqa: F401,I001  (one intra-op thread a process)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -22,6 +22,7 @@
   inside one, the rows checked.
 """
 
+import torch_threads  # noqa: F401,I001  (one intra-op thread a process)
 import random
 
 import jax
@@ -113,7 +114,8 @@ def _jax_variables(name):
     model = jax_cls()
     jax_configure(model, dict(conf), name="model")
     module = model.build(shape, num_classes=classes)
-    params, model_state = model.initialize(module, shape, seed=0)
+    # Jitted: the eager init's values from one compile, not an op-by-op forward.
+    params, model_state = jax.jit(lambda: model.initialize(module, shape, seed=0))()
     return {"params": _numpy_tree(params), "model_state": _numpy_tree(model_state)}
 
 

@@ -16,6 +16,7 @@ trace events, gauges, counter and flight recorder that JAX's cases also
 read are not ported.
 """
 
+import torch_threads  # noqa: F401,I001  (one intra-op thread a process)
 import threading
 
 import pytest

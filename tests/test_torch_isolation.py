@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: it imports nothing of JAX or of the JAX
 package, and its entry points never drop from the card to the CPU."""
 
+import torch_threads  # noqa: F401,I001  (one intra-op thread a process)
 import ast
 import pathlib
 import shutil

@@ -6,6 +6,7 @@ K2/K5's dense shapes per forward, and the variant names of the flash
 kernels, K12/K13 and the int8 tensor-core kernels (K4, K5, K2). Building and running them needs
 ``nvcc`` and the card; these tests hold the parts that do not."""
 
+import torch_threads  # noqa: F401,I001  (one intra-op thread a process)
 import importlib.util
 import pathlib
 import types

@@ -11,11 +11,13 @@ decode kernels in interpret mode, as the JAX tests run them) and to both
 frameworks' full-recompute ``greedy_decode`` oracles.
 """
 
+import torch_threads  # noqa: F401,I001  (one intra-op thread a process)
 import json
 import subprocess
 import sys
 
 import jax.numpy as jnp
+import jax
 import numpy as np
 import pytest
 import torch
@@ -50,7 +52,8 @@ def lm():
     jm = JaxLM()
     jax_configure(jm, dict(GEOMETRY), name="lm")
     jmod = jm.build((SEQ,), VOCAB)
-    params, _ = jm.initialize(jmod, (SEQ,), seed=0)
+    # Jitted: the eager init's values from one compile, not an op-by-op forward.
+    params, _ = jax.jit(lambda: jm.initialize(jmod, (SEQ,), seed=0))()
     pm = TransformerLM()
     configure(pm, dict(GEOMETRY), name="lm")
     mod = pm.build((SEQ,), VOCAB)
@@ -293,15 +296,26 @@ def test_service_serves_the_jax_prompt_stream():
     assert result["generated_tokens"] == 12 and len(cfg.outputs) == 4
 
 
-# -- paths this slice does not port ----------------------------------------
+# -- the page transfer and the swap refuse what JAX refuses -----------------
 
 
 @pytest.mark.parametrize("method", ["export_pages", "import_pages", "swap_weights"])
 def test_deferred_paths_raise(lm, method):
-    _, _, mod = lm
-    engine = _port_engine(mod)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        getattr(engine, method)()
+    """The page transfer needs the paged layout, and a swap the bound
+    structure: on a slot-layout engine the transfer raises JAX's
+    ``RuntimeError`` and a swap of another architecture JAX's
+    ``ValueError`` (both packages). The working paths are held in
+    ``test_torch_disagg.py`` and ``test_torch_serving_faults.py``."""
+    jmod, params, mod = lm
+    engines = {"port": _port_engine(mod), "jax": _jax_engine(jmod, params)}
+    for side, engine in engines.items():
+        if method == "swap_weights":
+            bad = ({"params": {}}, None) if side == "jax" else ({}, {})
+            with pytest.raises(ValueError, match="does not match the bound structure"):
+                engine.swap_weights(*bad)
+        else:
+            with pytest.raises(RuntimeError, match="paged-layout program"):
+                getattr(engine, method)(*(([0],) if method == "export_pages" else (None, [0])))
 
 
 def test_cache_and_pool_allocation():
@@ -331,7 +345,8 @@ def test_unsupported_geometry_degrades_to_the_reference(caplog):
     jm = JaxLM()
     jax_configure(jm, dict(geometry), name="lm")
     jmod = jm.build((32,), VOCAB)
-    params, _ = jm.initialize(jmod, (32,), seed=1)
+    # Jitted: the eager init's values from one compile, not an op-by-op forward.
+    params, _ = jax.jit(lambda: jm.initialize(jmod, (32,), seed=1))()
     pm = TransformerLM()
     configure(pm, dict(geometry), name="lm")
     mod = pm.build((32,), VOCAB)

@@ -13,6 +13,7 @@ as ``test_torch_training.py`` states (lr * 1e-3 where |g| > 1e-6, else
 lr: the first Adam step moves a weight by about lr * sign(g)).
 """
 
+import torch_threads  # noqa: F401,I001  (one intra-op thread a process)
 import functools
 import subprocess
 import sys

@@ -23,6 +23,7 @@ The cluster is spawned once for the module; its rank programs are in
 ``tests/torch_chaos_workers.py``.
 """
 
+import torch_threads  # noqa: F401,I001  (one intra-op thread a process)
 import pytest
 
 import torch_chaos_workers as chaos

@@ -16,6 +16,7 @@ the pipeline's native batch assembly, on the CPU.
   fit (the same batches either way).
 """
 
+import torch_threads  # noqa: F401,I001  (one intra-op thread a process)
 import shutil
 
 import numpy as np

@@ -15,6 +15,7 @@ binary/fp labels equal the JAX split's on five zoo models, and every
 ``ValueError`` of ``Bop.build`` carries JAX's text.
 """
 
+import torch_threads  # noqa: F401,I001  (one intra-op thread a process)
 import re
 
 import jax

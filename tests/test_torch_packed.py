@@ -7,6 +7,7 @@ and with ``fold_order``; every leaf must be equal and every level must
 list its scopes in the same order.
 """
 
+import torch_threads  # noqa: F401,I001  (one intra-op thread a process)
 import functools
 
 import jax

@@ -25,6 +25,7 @@
   the single-device step bit for bit.
 """
 
+import torch_threads  # noqa: F401,I001  (one intra-op thread a process)
 import functools
 import os
 
@@ -280,7 +281,8 @@ def _jax_dp_step():
     model = JaxQuickNet()
     jax_configure(model, QUICKNET, name="model")
     module = model.build(SHAPE, num_classes=CLASSES)
-    params, model_state = model.initialize(module, SHAPE, seed=3)
+    # Jitted: the eager init's values from one compile, not an op-by-op forward.
+    params, model_state = jax.jit(lambda: model.initialize(module, SHAPE, seed=3))()
     adam = JaxAdam()
     jax_configure(adam, {"schedule": "ConstantSchedule", "schedule.base_lr": LR},
                   name="optimizer")

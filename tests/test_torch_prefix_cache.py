@@ -20,6 +20,7 @@
   cache on): its report's prefix keys equal JAX's.
 """
 
+import torch_threads  # noqa: F401,I001  (one intra-op thread a process)
 import numpy as np
 import pytest
 import torch

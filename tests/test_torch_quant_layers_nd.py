@@ -15,6 +15,7 @@ order the sums differently). The int8 transposed conv's gradients
 are held within 1e-5 of their largest magnitude.
 """
 
+import torch_threads  # noqa: F401,I001  (one intra-op thread a process)
 import re
 
 import jax

@@ -26,6 +26,7 @@ port raises exactly where flax raises, and names the latent kernel as
 flax does (``kernel`` or ``kernel_fp``).
 """
 
+import torch_threads  # noqa: F401,I001  (one intra-op thread a process)
 import functools
 
 import jax

@@ -10,6 +10,7 @@ zero; the test asserts that no binary conv input on the port's side lies
 within 1e-4 of zero, so the seeded inputs are clear of that case.
 """
 
+import torch_threads  # noqa: F401,I001  (one intra-op thread a process)
 import functools
 
 import jax

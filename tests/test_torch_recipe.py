@@ -19,6 +19,7 @@ the EMA, the flip ratio), score and serve the student's export.
   engine bound to the EMA weights directly.
 """
 
+import torch_threads  # noqa: F401,I001  (one intra-op thread a process)
 import os
 import subprocess
 import sys
@@ -333,7 +334,8 @@ def test_train_state_converter_carries_ema_and_optimizer_state(optimizer, conf):
     jm = jax_models.BinaryNet()
     jax_configure(jm, model_conf, name="model")
     jmodule = jm.build(shape, num_classes=10)
-    params, model_state = jm.initialize(jmodule, shape, seed=1)
+    # Jitted: the eager init's values from one compile, not an op-by-op forward.
+    params, model_state = jax.jit(lambda: jm.initialize(jmodule, shape, seed=1))()
     jopt = getattr(jax_training, optimizer)()
     jax_configure(jopt, conf, name="optimizer")
     jstate = JaxTrainState.create(apply_fn=jmodule.apply, params=params, model_state=model_state,

@@ -13,6 +13,7 @@ port, its CUDA kernel and its K1 wire format compare in IEEE arithmetic
 (sign bit 0). A separate test pins the port's subnormal semantics.
 """
 
+import torch_threads  # noqa: F401,I001  (one intra-op thread a process)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -13,6 +13,7 @@ bytes as JAX's for the same seed, and ``TrainMnist`` tracks the JAX
 example's losses from the same state.
 """
 
+import torch_threads  # noqa: F401,I001  (one intra-op thread a process)
 import functools
 import subprocess
 import sys
@@ -59,17 +60,27 @@ def _seeded_stats(stats, rng):
             for k, v in stats.items()}
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_init(case, dtype):
+    """The flax module, its seeded parameters and statistics (numpy),
+    built once for the eval and the train case."""
+    _, shape = CASES[case]
+    jm, _ = _models(case, dtype)
+    jmod = jm.build(shape, CLASSES)
+    # Jitted: the eager init's values from one compile, not an op-by-op forward.
+    params, state = jax.jit(lambda: jm.initialize(jmod, shape, seed=2))()
+    return (jmod, jax.tree.map(np.array, params),
+            jax.tree.map(np.array, state.get("batch_stats", {})))
+
+
 @pytest.mark.parametrize("train", [False, True], ids=["eval", "train"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_logits_match_flax(case, dtype, train):
     _, shape = CASES[case]
-    jm, pm = _models(case, dtype)
-    jmod = jm.build(shape, CLASSES)
-    params, state = jm.initialize(jmod, shape, seed=2)
-    params = jax.tree.map(np.array, params)
-    stats = _seeded_stats(jax.tree.map(np.array, state.get("batch_stats", {})),
-                          np.random.default_rng(5))
+    _, pm = _models(case, dtype)
+    jmod, params, stats = _jax_init(case, dtype)
+    stats = _seeded_stats(stats, np.random.default_rng(5))
     x = np.random.default_rng(6).normal(size=(3, *shape)).astype(np.float32)
     variables = {"params": params, "batch_stats": stats}
     if train:

@@ -38,6 +38,7 @@ under ``FaultPlan(kill_at_step=3)`` and ``run_with_recovery``.
   its ``ValueError`` outside ``[0, num_batches)``.
 """
 
+import torch_threads  # noqa: F401,I001  (one intra-op thread a process)
 import re
 
 import jax

@@ -15,6 +15,7 @@ sequential one bit for bit. The lse cotangent of
 ``_flash_attention_lse`` in one process.
 """
 
+import torch_threads  # noqa: F401,I001  (one intra-op thread a process)
 import functools
 
 import jax

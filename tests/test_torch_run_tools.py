@@ -5,6 +5,7 @@ hand-made Chrome trace against JAX's breakdown of the hand-made xplane
 built from the same op list), the profiler window, and the latency
 protocol."""
 
+import torch_threads  # noqa: F401,I001  (one intra-op thread a process)
 import glob
 import json
 import os

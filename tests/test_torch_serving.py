@@ -7,6 +7,7 @@ same dispatches (rows per dispatch and bucket), the same delivered rows
 and the same metrics.
 """
 
+import torch_threads  # noqa: F401,I001  (one intra-op thread a process)
 import numpy as np
 import pytest
 import torch

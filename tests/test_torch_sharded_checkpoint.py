@@ -22,6 +22,7 @@ the flax converter keeps as it is). The outcomes must be equal:
   the errors raised, and what ``load_inference_model`` reads.
 """
 
+import torch_threads  # noqa: F401,I001  (one intra-op thread a process)
 import json
 import os
 import shutil

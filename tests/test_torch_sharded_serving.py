@@ -26,6 +26,7 @@
 - The refusals of the clock-driven modes at world size 2.
 """
 
+import torch_threads  # noqa: F401,I001  (one intra-op thread a process)
 import functools
 
 import jax
@@ -91,7 +92,8 @@ def _lm():
     jm = JaxLM()
     jax_configure(jm, {**GEOMETRY, "attention": "dense"}, name="lm")
     jmod = jm.build((SEQ,), VOCAB)
-    params, _ = jm.initialize(jmod, (SEQ,), seed=0)
+    # Jitted: the eager init's values from one compile, not an op-by-op forward.
+    params, _ = jax.jit(lambda: jm.initialize(jmod, (SEQ,), seed=0))()
     state = {k: v.clone() for k, v in from_flax_lm_variables(params).items()}
     return jmod, params, state
 

@@ -4,6 +4,7 @@ same errors), ``DataLoader.batches(unroll=...)`` against JAX's loader,
 and ``DataLoader.prefetch`` 0, 1 and 2 giving the same batches in the
 same order."""
 
+import torch_threads  # noqa: F401,I001  (one intra-op thread a process)
 import numpy as np
 import pytest
 import torch

@@ -20,6 +20,7 @@
   decode, reported as such.
 """
 
+import torch_threads  # noqa: F401,I001  (one intra-op thread a process)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -21,6 +21,7 @@ statistics, optimizer state, EMA), on "mxu" and on the popcount path
 tensor as it was.
 """
 
+import torch_threads  # noqa: F401,I001  (one intra-op thread a process)
 import functools
 import re
 

@@ -4,6 +4,7 @@ examples, a store written by either package is read by the other bit for
 bit, both raise the same errors, and ``MemmapDataset``'s batches equal
 the JAX loader's."""
 
+import torch_threads  # noqa: F401,I001  (one intra-op thread a process)
 import json
 import os
 

@@ -15,6 +15,7 @@ Keras model: the port module's logits equal the flax module's within
 2e-5 (as the JAX test holds flax's to Keras's), and both to Keras's.
 """
 
+import torch_threads  # noqa: F401,I001  (one intra-op thread a process)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -24,6 +24,7 @@
   ``decode_cache_axes`` is JAX's.
 """
 
+import torch_threads  # noqa: F401,I001  (one intra-op thread a process)
 import jax
 import numpy as np
 import pytest
@@ -76,7 +77,8 @@ def _jax_quicknet_tp_step():
     model = JaxQuickNet()
     jax_configure(model, dict(QUICKNET), name="model")
     module = model.build(SHAPE, num_classes=CLASSES)
-    params, model_state = model.initialize(module, SHAPE, seed=3)
+    # Jitted: the eager init's values from one compile, not an op-by-op forward.
+    params, model_state = jax.jit(lambda: model.initialize(module, SHAPE, seed=3))()
     adam = JaxAdam()
     jax_configure(adam, {"schedule": "ConstantSchedule", "schedule.base_lr": LR},
                   name="optimizer")

@@ -19,6 +19,7 @@ order floating-point sums differently:
   states.
 """
 
+import torch_threads  # noqa: F401,I001  (one intra-op thread a process)
 import functools
 
 import jax
@@ -322,7 +323,8 @@ def _assert_clear_of_flips(module, margin=1e-5):
 def _jax_step_result():
     model = _jax_model()
     module = model.build(SHAPE, num_classes=CLASSES)
-    params, model_state = model.initialize(module, SHAPE, seed=3)
+    # Jitted: the eager init's values from one compile, not an op-by-op forward.
+    params, model_state = jax.jit(lambda: model.initialize(module, SHAPE, seed=3))()
     tx = _adam(JaxAdam).build(10)
     state = JaxTrainState.create(
         apply_fn=module.apply, params=params, model_state=model_state, tx=tx
@@ -341,7 +343,7 @@ def _jax_step_result():
         )
         return loss_fn(logits, jnp.asarray(batch["target"]))
 
-    grads = jax.grad(compute_loss)(state.params)
+    grads = jax.jit(jax.grad(compute_loss))(state.params)
     new_state, metrics = jax.jit(jax_make_train_step(loss_fn))(
         state, {k: jnp.asarray(v) for k, v in batch.items()}
     )

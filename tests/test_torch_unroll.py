@@ -19,6 +19,7 @@ the port's own.
   in), which a capture forbids.
 """
 
+import torch_threads  # noqa: F401,I001  (one intra-op thread a process)
 import json
 
 import numpy as np

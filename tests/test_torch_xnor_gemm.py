@@ -10,6 +10,7 @@ comparisons are ``assert_array_equal`` on the bits. The CUDA kernels are
 held to these plain versions on the card by ``chip_smoke.py``.
 """
 
+import torch_threads  # noqa: F401,I001  (one intra-op thread a process)
 import pathlib
 import re
 

@@ -13,6 +13,7 @@ activations' dtype, as the JAX package's does) within 2^-7 of it, one
 bf16 rounding step either side.
 """
 
+import torch_threads  # noqa: F401,I001  (one intra-op thread a process)
 import jax
 import jax.numpy as jnp
 import numpy as np

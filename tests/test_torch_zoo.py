@@ -31,6 +31,7 @@ within 2e-6 relative (the float32 means of ``magnitude_aware_sign``, summed
 in different orders).
 """
 
+import torch_threads  # noqa: F401,I001  (one intra-op thread a process)
 import functools
 
 import jax

@@ -15,6 +15,7 @@ the port's side lies within 1e-5 of 0 (approx_sign's gradient is
 continuous at |x| = 1, so its mask edge moves nothing).
 """
 
+import torch_threads  # noqa: F401,I001  (one intra-op thread a process)
 import functools
 
 import jax
@@ -92,7 +93,8 @@ def _jax_step():
     model = jax_models.BiRealNet()
     jax_configure(model, CONF, name="model")
     module = model.build(SHAPE, num_classes=CLASSES)
-    params, model_state = model.initialize(module, SHAPE, seed=3)
+    # Jitted: the eager init's values from one compile, not an op-by-op forward.
+    params, model_state = jax.jit(lambda: model.initialize(module, SHAPE, seed=3))()
     state = JaxTrainState.create(apply_fn=module.apply, params=params,
                                  model_state=model_state, tx=_adam(JaxAdam).build(10))
     rng = np.random.default_rng(11)
@@ -105,7 +107,7 @@ def _jax_step():
                                  training=True, mutable=["batch_stats"])
         return loss_fn(logits, jnp.asarray(batch["target"]))
 
-    grads = jax.grad(compute_loss)(state.params)
+    grads = jax.jit(jax.grad(compute_loss))(state.params)
     new_state, metrics = jax.jit(jax_make_train_step(loss_fn))(
         state, {k: jnp.asarray(v) for k, v in batch.items()})
     return (_jax_state_numpy(state), batch, _numpy_tree(grads), _jax_state_numpy(new_state),
@@ -193,7 +195,8 @@ def test_train_state_converter_round_trips_nested_scopes(family, conf):
     model = getattr(jax_models, family)()
     jax_configure(model, conf, name="model")
     module = model.build(SHAPE, num_classes=CLASSES)
-    params, model_state = model.initialize(module, SHAPE, seed=1)
+    # Jitted: the eager init's values from one compile, not an op-by-op forward.
+    params, model_state = jax.jit(lambda: model.initialize(module, SHAPE, seed=1))()
     jstate = JaxTrainState.create(apply_fn=module.apply, params=params,
                                   model_state=model_state, tx=_adam(JaxAdam).build(10))
     start = _jax_state_numpy(jstate)

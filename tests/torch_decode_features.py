@@ -6,6 +6,9 @@ packages' decode engines and schedulers configured alike, and the
 seeded streams.
 """
 
+import copy
+
+import jax
 import numpy as np
 import torch
 
@@ -40,12 +43,24 @@ def build_lm(geometry=GEOMETRY, seed=0):
     jm = JaxLM()
     jax_configure(jm, {**geometry, "attention": "dense"}, name="lm")
     jmod = jm.build((SEQ,), VOCAB)
-    params, _ = jm.initialize(jmod, (SEQ,), seed=seed)
+    # Jitted: the eager init's values from one compile, not an op-by-op forward.
+    params, _ = jax.jit(lambda: jm.initialize(jmod, (SEQ,), seed=seed))()
     pm = TransformerLM()
     configure(pm, dict(geometry), name="lm")
     mod = pm.build((SEQ,), VOCAB)
     mod.load_state_dict(from_flax_lm_variables(params))
     return jmod, params, mod
+
+
+def negated(lm):
+    """A second weight set of ``lm`` (``build_lm``'s triple) without
+    another JAX init: every JAX parameter negated, as ``(JAX params,
+    port module)``."""
+    _, params, mod = lm
+    params_b = jax.tree.map(lambda a: -np.asarray(a), params)
+    mod_b = copy.deepcopy(mod)
+    mod_b.load_state_dict(from_flax_lm_variables(params_b))
+    return params_b, mod_b
 
 
 def port_engine(mod, **conf):

@@ -29,7 +29,8 @@ one ``None`` check.
   several-process run installs the same plan in every process and each
   host fires only its own faults.
 
-The serving legs (worker and decode crashes, disaggregation, the fleet)
+The serving legs cover the worker and decode-scheduler crashes and the
+disaggregated page handoff; the fleet's legs and ``delay_forward_ms``
 are not ported yet (ROADMAP.md).
 """
 
@@ -117,6 +118,23 @@ class FaultPlan:
       retried (a dead host does not retry).
     - ``coordinator_loss``: the next N cross-host ``exchange`` rounds
       raise ``CoordinatorLostError``.
+
+    The serving legs:
+
+    - ``serving_worker_crash``: the next N ``MicroBatcher`` worker
+      iterations crash the worker thread (its requests fail cleanly and
+      the next submit restarts it).
+    - ``decode_worker_crash``: the next N ``DecodeScheduler`` loop
+      iterations crash mid-decode (every queued and in-flight stream
+      fails cleanly, the next submit restarts the loop).
+    - ``prefill_role_crash_at``: the N-th decode-slot admission of a
+      parked prefill (1 = the first) finds the prefill role dead
+      mid-handoff: the victim and every parked handoff fail cleanly, the
+      prefill pool is reset (``leak_check() == 0``) and the decode role
+      keeps serving its active streams.
+    - ``fail_page_transfer``: the next N page transfers fail at the move
+      itself: the victim fails cleanly, both pools unwind their half of
+      the handoff and every other stream proceeds.
     """
 
     kill_at_step: Optional[int] = None
@@ -128,12 +146,18 @@ class FaultPlan:
     kill_process_at_step: Optional[Dict[int, int]] = None
     fail_host_finalize: Optional[int] = None
     coordinator_loss: int = 0
+    serving_worker_crash: int = 0
+    decode_worker_crash: int = 0
+    prefill_role_crash_at: Optional[int] = None
+    fail_page_transfer: int = 0
 
     _lock: threading.Lock = field(default_factory=threading.Lock, repr=False, compare=False)
     _killed: bool = field(default=False, repr=False, compare=False)
     _corrupted: bool = field(default=False, repr=False, compare=False)
     _async_killed: bool = field(default=False, repr=False, compare=False)
     _host_finalize_failed: bool = field(default=False, repr=False, compare=False)
+    _handoffs_seen: int = field(default=0, repr=False, compare=False)
+    _prefill_role_crashed: bool = field(default=False, repr=False, compare=False)
 
     def kill_due(self, step: int, process_index: int = 0) -> bool:
         """One-shot: True at the first query with ``step >=
@@ -171,6 +195,45 @@ class FaultPlan:
         with self._lock:
             if self.coordinator_loss > 0:
                 self.coordinator_loss -= 1
+                return True
+        return False
+
+    def take_worker_crash(self) -> bool:
+        """Consume one injected serving-worker crash."""
+        with self._lock:
+            if self.serving_worker_crash > 0:
+                self.serving_worker_crash -= 1
+                return True
+        return False
+
+    def take_decode_worker_crash(self) -> bool:
+        """Consume one injected decode-scheduler crash."""
+        with self._lock:
+            if self.decode_worker_crash > 0:
+                self.decode_worker_crash -= 1
+                return True
+        return False
+
+    def take_prefill_role_crash(self) -> bool:
+        """One-shot, keyed on handoffs: True when this decode-slot
+        admission (the N-th page handoff, counting from 1) should find
+        the prefill role dead mid-handoff."""
+        if self.prefill_role_crash_at is None:
+            return False
+        with self._lock:
+            self._handoffs_seen += 1
+            if (not self._prefill_role_crashed
+                    and self._handoffs_seen >= int(self.prefill_role_crash_at)):
+                self._prefill_role_crashed = True
+                return True
+        return False
+
+    def take_fail_page_transfer(self) -> bool:
+        """Consume one injected page-transfer failure (False when
+        exhausted)."""
+        with self._lock:
+            if self.fail_page_transfer > 0:
+                self.fail_page_transfer -= 1
                 return True
         return False
 

@@ -25,8 +25,11 @@ batcher before a collective engine, so only the synchronous mode without deadlin
 allowed (the async worker and deadlines decide by each rank's clock and
 raise ``ValueError``).
 
-Not ported yet (ROADMAP.md): the trace, flight-recorder, RequestLog,
-overload-guard and fault-injection hooks.
+``FaultPlan.serving_worker_crash`` crashes the async worker at the top
+of an iteration (the chaos seam of the crash path above).
+
+Not ported yet (ROADMAP.md): the trace, flight-recorder, RequestLog and
+overload-guard hooks.
 """
 
 import threading
@@ -379,6 +382,8 @@ class MicroBatcher:
             self._on_worker_crash(e)
 
     def _worker_body(self) -> None:
+        from zookeeper_tpu_torch.resilience import faults
+
         max_batch = self._engine.max_batch
         delay_s = self.max_delay_ms / 1e3
         while not self._stop.is_set():
@@ -387,6 +392,11 @@ class MicroBatcher:
                     self._cv.wait(0.05)
                 if self._stop.is_set():
                     break
+                plan_fault = faults.active()
+                if plan_fault is not None and plan_fault.take_worker_crash():
+                    raise WorkerCrashedError(
+                        "injected worker crash (FaultPlan.serving_worker_crash)"
+                    )
                 oldest = self._queue[0][0]._t_submit
                 while (
                     self._queue_rows < max_batch

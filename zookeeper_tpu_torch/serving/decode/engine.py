@@ -51,9 +51,26 @@ A window over a group (warm extend, chunk) runs like a prefill: every
 rank runs the whole group and writes its heads of every row; a verify
 window runs like a decode step (each data rank its slots, the pool
 taking every slot's rows). The host state (table, refcounts, trie) is
-the same on every rank. Not ported yet (ROADMAP.md), each raising
-``NotImplementedError``: page transfer, weight hot-swap and the program
-ledger (``ledger_prefix`` is accepted and inert).
+the same on every rank.
+
+**Page transfer** (disaggregated prefill/decode, paged): ``export_pages``
+gathers the k/v rows (and int8 scales) of a list of pool pages, every
+layer's, into a block of exactly those pages; ``import_pages`` writes a
+block into this pool at the pages ``PagePool.adopt_slot`` gave. The
+JAX engine pads every block to ``transfer_width`` pages so one compiled
+program serves every handoff, its padding lanes writing nowhere; eager
+PyTorch moves the live pages only, and ``transfer_width`` stays the
+bound both roles must agree on.
+
+**Hot weight swap**: ``check_swap`` validates a candidate weight set (the
+export trees, ``{flax path: tensor}``) against the bound structure, leaf
+shapes and dtypes; ``swap_weights`` then copies it into the module in
+place, each rank's block through the plan ``bind`` cut it with
+(``serving.weights``). Per dispatch that is atomic only when no dispatch
+runs meanwhile: a bound ``DecodeScheduler`` swaps through
+``request_swap``, at a boundary with no stream in flight. Not ported yet
+(ROADMAP.md): the program ledger (``ledger_prefix`` is accepted and
+inert).
 """
 
 import collections
@@ -71,6 +88,7 @@ from zookeeper_tpu_torch.core import Field, component
 from zookeeper_tpu_torch.models.transformer import _pool_write_rows, pool_window_write
 from zookeeper_tpu_torch.parallel import distributed
 from zookeeper_tpu_torch.parallel.shards import DecodeShard
+from zookeeper_tpu_torch.serving import weights as _weights
 from zookeeper_tpu_torch.serving.decode.cache import (
     allocate_kv_cache,
     kv_cache_bytes,
@@ -92,8 +110,6 @@ _PREFILL, _DECODE, _WARM, _CHUNK, _VERIFY, _COPY = 1, 2, 3, 4, 5, 6
 #: HBM bandwidth of an H100 SXM (NVIDIA data sheet), the denominator of
 #: ``decode_mbu``.
 HBM_BYTES_PER_S = 3.35e12
-
-_NOT_PORTED = "is not ported to the PyTorch engine yet (queued in ROADMAP.md)"
 
 
 @component
@@ -297,6 +313,7 @@ class DecodeEngine:
         set_("_weight_bytes", sum(
             (self._plan.numel(name, p) if name in gathered else p.numel()) * p.element_size()
             for name, p in module.named_parameters() if name != "pos"))
+        set_("_swap_layout", None)  # the bound weights' trees, taken at the first swap
         set_("_decode_records", [])
         set_("_dispatches", collections.Counter())
         set_("_warmed", False)
@@ -542,23 +559,105 @@ class DecodeEngine:
     @property
     def dispatches(self) -> dict:
         """Dispatches so far by kind ("prefill", "prefill_warm",
-        "prefill_chunk", "decode", "verify", "copy_page"), the warm-up's
-        included: a prefill dispatch launches K9 once a layer, a decode
-        step K12 (slots) or K13 (paged) once a layer; the other kinds
-        launch no kernel."""
+        "prefill_chunk", "decode", "verify", "copy_page", "export_pages",
+        "import_pages"), the warm-ups included: a prefill dispatch
+        launches K9 once a layer, a decode step K12 (slots) or K13 (paged)
+        once a layer; the other kinds launch no kernel."""
         return dict(self._dispatches)
 
-    def _not_ported(self, what: str):
-        raise NotImplementedError(f"{what} {_NOT_PORTED}")
+    def _reset_cache(self) -> None:
+        """Back to a freshly bound pool: every cache buffer zeroed in place
+        and the host allocator reset (no page held, the trie dropped). The
+        disaggregated scheduler's answer to a prefill role that died: its
+        device state is gone wholesale, with nothing leaked."""
+        with torch.inference_mode():
+            for layer in self._cache:
+                for buf in layer.values():
+                    buf.zero_()
+        if self._paged:
+            self._pool.reset()
 
-    def export_pages(self, *args, **kwargs):
-        self._not_ported("page transfer (disaggregated prefill/decode)")
+    # -- page transfer ---------------------------------------------------
 
-    def import_pages(self, *args, **kwargs):
-        self._not_ported("page transfer (disaggregated prefill/decode)")
+    @property
+    def transfer_width(self) -> int:
+        """Pages of the largest transfer block: the pages a prompt of the
+        largest seq bucket writes. Both roles of a transfer must agree
+        on it."""
+        self._require_bound()
+        if not self._paged:
+            raise RuntimeError(
+                "page transfer is a paged-layout program; kv_layout='slots' has no "
+                "page pool to export."
+            )
+        return self._pool.pages_for(max(self._seq_buckets))
 
-    def swap_weights(self, *args, **kwargs):
-        self._not_ported("weight hot-swap")
+    def warmup_transfer(self) -> None:
+        """Run the export and import once before handoff traffic: page 0
+        gathered and written back onto itself (the same bytes)."""
+        self.import_pages(self.export_pages([0]), [0])
+
+    def _transfer_ids(self, what: str, page_ids: Sequence[int]) -> torch.Tensor:
+        w = self.transfer_width
+        n = len(page_ids)
+        if not 0 < n <= w:
+            raise ValueError(f"{what} 1..{w} pages per block, got {n}.")
+        return torch.as_tensor([int(p) for p in page_ids], dtype=torch.long,
+                               device=self._device)
+
+    def export_pages(self, page_ids: Sequence[int]) -> list:
+        """Gather ``page_ids``'s pool pages into a transfer block: per
+        layer ``{name: [n, page_size, ...]}`` over the pool's buffers (k,
+        v, and the int8 rows' scales), on this engine's device. The pool
+        is only read (pages the prefix cache shares may be read by
+        another lane meanwhile)."""
+        self._require_bound()
+        ids = self._transfer_ids("export_pages moves", page_ids)
+        with torch.inference_mode():
+            block = [{name: buf.index_select(0, ids) for name, buf in layer.items()}
+                     for layer in self._cache]
+        self._dispatches["export_pages"] += 1
+        return block
+
+    def import_pages(self, block: list, page_ids: Sequence[int]) -> None:
+        """Write a transferred ``block`` into this pool at ``page_ids``
+        (from ``PagePool.adopt_slot``): the destination half of a
+        handoff. ``block`` must already be on this engine's device (the
+        caller, ``PageTransfer``, owns the move)."""
+        self._require_bound()
+        ids = self._transfer_ids("import_pages lands", page_ids)
+        if len(block) != len(self._cache):
+            raise ValueError(
+                f"import_pages: a block of {len(block)} layers for a pool of "
+                f"{len(self._cache)}."
+            )
+        with torch.inference_mode():
+            for layer, pages in zip(self._cache, block):
+                for name, buf in layer.items():
+                    buf.index_copy_(0, ids, pages[name])
+        self._dispatches["import_pages"] += 1
+
+    # -- hot swap --------------------------------------------------------
+
+    def check_swap(self, params: Any, model_state: Any = None) -> None:
+        """Validate a candidate weight set (export trees, ``{flax path:
+        tensor}``) against the bound one, structure and leaf shapes and
+        dtypes, without applying it. Raises ``ValueError`` on a
+        mismatch."""
+        self._require_bound()
+        if self._swap_layout is None:
+            object.__setattr__(self, "_swap_layout",
+                               _weights.weight_layout(self._module, self._plan))
+        _weights.check_swap(self._swap_layout, params, model_state,
+                            "prefill/decode programs")
+
+    def swap_weights(self, params: Any, model_state: Any = None) -> None:
+        """Replace the decoded weights in place, with no rebind: the kernels
+        keep their shapes and the cache its contents (see the module
+        docstring for what a swap under in-flight streams means;
+        ``DecodeScheduler.request_swap`` is the safe seam)."""
+        self.check_swap(params, model_state)
+        _weights.load_weights(self._module, self._plan, params, model_state)
 
     # -- dispatch --------------------------------------------------------
 
@@ -581,19 +680,21 @@ class DecodeEngine:
             distributed.check_same_dispatch(
                 (kind, bucket, rows, distributed.dispatch_checksum(*arrays)), "DecodeEngine")
 
-    def warmup(self) -> int:
+    def warmup(self, prefill: bool = True, decode: bool = True) -> int:
         """Run every prefill bucket and one decode step once, and in the
         paged layout with the prefix cache or chunking every extend
         (bucket, width) pair, writing no live cache row: prefill outputs
         are discarded, the decode step writes only rows no stream owns,
-        the extend rows are all masked. Returns the number of dispatches
-        run."""
+        the extend rows are all masked. ``prefill=False`` or
+        ``decode=False`` leaves out the dispatches a disaggregated role
+        never makes (the decode role prefills nothing, the prefill role
+        decodes nothing). Returns the number of dispatches run."""
         self._require_bound()
         runs = 0
         dev = self._device
         extend = self._paged and (bool(self.prefix_cache) or int(self.prefill_chunk_tokens) > 0)
         with torch.inference_mode():
-            for pb in self._prefill_buckets:
+            for pb in self._prefill_buckets if prefill else ():
                 for sb in self._seq_buckets:
                     self._check_dispatch(_PREFILL, pb, sb)
                     tokens = torch.zeros((pb, sb), dtype=torch.int32, device=dev)
@@ -610,10 +711,11 @@ class DecodeEngine:
                                               zeros, np.full((pb, self._max_pages), -1, np.int32),
                                               zeros, zeros)
                         runs += 1
-            n = int(self.slots)
-            self._check_dispatch(_DECODE, n, 0)
-            self._slots_dispatch("decode", np.zeros(n, np.int32), np.zeros(n, np.int32))
-            runs += 1
+            if decode:
+                n = int(self.slots)
+                self._check_dispatch(_DECODE, n, 0)
+                self._slots_dispatch("decode", np.zeros(n, np.int32), np.zeros(n, np.int32))
+                runs += 1
         object.__setattr__(self, "_warmed", True)
         return runs
 

@@ -18,6 +18,11 @@ thread-safe and host-side: recording never synchronises the card.
   ``spec_accepted_tokens_total`` (their ratio the acceptance rate, also
   in ``snapshot()``), and per speculative window and slot the accepted
   drafts (``spec_accept_lengths``);
+- the staged weight swaps (``weight_swaps_total``, the live training
+  step in the ``weights_step`` gauge, -1 for the bind-time weights) and
+  the disaggregated page handoffs: ``transfer_handoffs_total``,
+  ``transfer_pages_total``, ``transfer_bytes`` (real pages only) and the
+  ``transfer_ms`` window;
 - gauges: active slots, slot occupancy, queue depth, KV pages in use,
   free pool pages (-1 in the slot layout), the prefix cache's token hit
   rate (-1 before a lookup or without the cache) and the acceptance
@@ -43,13 +48,18 @@ _COUNTER_NAMES = (
     "rejected_total",
     "deadline_expired_total",
     "worker_restarts_total",
+    "weight_swaps_total",
     "prefill_chunks_total",
     "spec_draft_tokens_total",
     "spec_accepted_tokens_total",
+    "transfer_handoffs_total",
+    "transfer_pages_total",
+    "transfer_bytes",
 )
 
 #: Windowed series, reported as ``<name>_p50_ms``/``_p99_ms``/``_mean_ms``.
-_WINDOW_NAMES = ("ttft_ms", "token_ms", "prefill_ms", "itl_ms", "prefill_stall_ms")
+_WINDOW_NAMES = ("ttft_ms", "token_ms", "prefill_ms", "transfer_ms", "itl_ms",
+                 "prefill_stall_ms")
 
 
 @component
@@ -69,6 +79,7 @@ class DecodeMetrics:
                     "active_slots": 0.0, "slot_occupancy": 0.0, "queue_depth": 0.0,
                     "kv_pages_in_use": 0.0, "kv_pool_free_pages": -1.0,
                     "prefix_cache_hit_rate": -1.0, "spec_acceptance_rate": -1.0,
+                    "weights_step": -1.0,
                 },
                 "accept_lengths": {},
                 "windows": {},
@@ -158,6 +169,25 @@ class DecodeMetrics:
 
     def record_pool(self, free_pages: int, hit_rate: float) -> None:
         self._set(kv_pool_free_pages=free_pages, prefix_cache_hit_rate=hit_rate)
+
+    def record_transfer(self, pages: int, nbytes: int, transfer_ms: float) -> None:
+        """One completed page handoff: ``pages`` real pages and ``nbytes``
+        real bytes moved from the prefill role to the decode role, in
+        ``transfer_ms`` wall milliseconds."""
+        state = self._state()
+        with state["lock"]:
+            counters = state["counters"]
+            counters["transfer_handoffs_total"] += 1
+            counters["transfer_pages_total"] += int(pages)
+            counters["transfer_bytes"] += int(nbytes)
+        self._observe("transfer_ms", transfer_ms)
+
+    def record_weight_swap(self, step=None) -> None:
+        """A staged weight swap applied (``step``: the training step now
+        live, when known)."""
+        self._count("weight_swaps_total")
+        if step is not None:
+            self._set(weights_step=int(step))
 
     def record_rejected(self) -> None:
         self._count("rejected_total")

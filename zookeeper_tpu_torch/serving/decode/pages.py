@@ -379,6 +379,30 @@ class PagePool:
         self.counts[slot] = len(row)
         return {"shared_tokens": shared_tokens, "cow": cow}
 
+    def adopt_slot(self, slot: int, n_pages: int) -> Optional[List[int]]:
+        """The destination side of a disaggregated handoff: allocate
+        ``n_pages`` fresh pages as ``slot``'s table row, with no prefix
+        lookup and no sharing (their contents arrive by page transfer
+        from another engine's pool). Returns the pages (the transfer's
+        targets), or None when the pool cannot serve them (nothing
+        changed but evictions). A failed transfer unwinds with
+        :meth:`release_slot`."""
+        if self.counts[slot]:
+            raise AssertionError(
+                f"slot {slot} still holds pages at adoption; release first."
+            )
+        n_pages = int(n_pages)
+        if n_pages < 1 or n_pages > self.max_pages_per_slot:
+            raise ValueError(
+                f"adopt_slot needs 1..{self.max_pages_per_slot} pages, got {n_pages}."
+            )
+        fresh = self._alloc(n_pages)
+        if fresh is None:
+            return None
+        self.table[slot, :n_pages] = fresh
+        self.counts[slot] = n_pages
+        return fresh
+
     def ensure_rows(self, slot: int, rows: int) -> bool:
         """Grow ``slot``'s pages to cover ``rows`` KV rows (a decode
         step's ``length + 1``, a verify window's ``length + w``); False

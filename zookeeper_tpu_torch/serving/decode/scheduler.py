@@ -40,11 +40,23 @@ drives with ``drain()``/``result()``; otherwise one ``zk-decode-
 scheduler`` daemon thread runs the loop. In front of an engine whose
 partitioner spans several ranks each rank runs its own scheduler
 before a collective engine, so the threaded mode and deadlines, which decide by each rank's
-clock, raise ``ValueError``. Not ported yet (ROADMAP.md): staged
-weight swaps, the overload guard and brown-out, the RequestLog, tracing
-and fault injection.
+clock, raise ``ValueError``.
+
+Weight swaps go through :meth:`request_swap`, which keeps one weight
+version per sequence (a stream spans many dispatches, so the engine's
+``swap_weights`` alone cannot): the swap is validated at the call, held
+pending while admission pauses and the slot array drains, and applied
+at the first boundary with no stream in flight, with the prefix cache
+invalidated (its pages hold the old weights' K/V). Every stream runs
+wholly on the weights it started with. Under speculation only the
+teacher is swapped, never the draft: a stale draft lowers acceptance,
+never correctness. ``FaultPlan.decode_worker_crash`` crashes the loop
+at the top of an iteration (the crash path above). Not ported yet
+(ROADMAP.md): the overload guard and brown-out, the RequestLog and
+tracing.
 """
 
+import logging
 import threading
 import time
 from collections import deque
@@ -61,6 +73,8 @@ from zookeeper_tpu_torch.serving.batcher import (
 )
 
 __all__ = ["DecodeScheduler", "DecodeStream"]
+
+logger = logging.getLogger(__name__)
 
 
 class DecodeStream:
@@ -260,6 +274,7 @@ class DecodeScheduler:
         set_("_cv", threading.Condition())
         set_("_worker", None)
         set_("_stop", threading.Event())
+        set_("_swap_pending", None)
         return self
 
     def _require_bound(self) -> None:
@@ -353,6 +368,45 @@ class DecodeScheduler:
         """Submit and block for the whole generation."""
         return self.submit(prompt, **kwargs).result()
 
+    # -- weight hot-swap -------------------------------------------------
+
+    def request_swap(self, params: Any, model_state: Any = None, *,
+                     step: Optional[int] = None) -> None:
+        """Stage a weight swap (export trees, see ``DecodeEngine.
+        check_swap``, which runs here so a bad tree fails at the call):
+        admission pauses, in-flight streams finish on their weights, and
+        the swap applies at the first boundary with no stream in flight.
+        A second request before the first applies replaces it."""
+        self._require_bound()
+        self._engine.check_swap(params, model_state)
+        with self._lock:
+            object.__setattr__(self, "_swap_pending", (params, model_state, step))
+        if not self.synchronous:
+            self._ensure_worker()
+            with self._cv:
+                self._cv.notify_all()
+
+    @property
+    def swap_pending(self) -> bool:
+        return getattr(self, "_swap_pending", None) is not None
+
+    def _maybe_apply_swap(self) -> None:
+        """Apply the pending swap once the slot array is empty. Caller
+        holds ``_lock``."""
+        pending = getattr(self, "_swap_pending", None)
+        if pending is None or any(s is not None for s in self._slot_stream):
+            return
+        params, model_state, step = pending
+        self._engine.swap_weights(params, model_state)
+        # Cached prefix pages hold K/V of the old weights: a warm hit after
+        # the swap would splice them into a new-weights stream.
+        self._engine.invalidate_prefix_cache()
+        object.__setattr__(self, "_swap_pending", None)
+        if self._metrics is not None:
+            self._metrics.record_weight_swap(step)
+        logger.info("decode weights hot-swapped%s (slot array drained)",
+                    f" to training step {step}" if step is not None else "")
+
     # -- the scheduling loop ---------------------------------------------
 
     def _has_work(self) -> bool:
@@ -428,8 +482,8 @@ class DecodeScheduler:
         engine = self._engine
         while True:
             with self._lock:
-                if not self._queue:
-                    return
+                if self._swap_pending is not None or not self._queue:
+                    return  # a pending swap drains the slot array first
                 free = [i for i, s in enumerate(self._slot_stream) if s is None]
                 if not free:
                     return
@@ -825,17 +879,27 @@ class DecodeScheduler:
             self._metrics.record_pool(pool.free_pages, pool.prefix_hit_rate)
 
     def _step_once(self) -> bool:
-        """One iteration: deadline sweeps, admit (prefill), decode, then
-        prompt chunks under what decode left of the budget. Returns
-        whether work remains."""
+        """One iteration: the swap boundary, deadline sweeps, admit
+        (prefill), decode, then prompt chunks under what decode left of
+        the budget, and the swap boundary again (the slot array may have
+        drained). Returns whether work remains."""
+        from zookeeper_tpu_torch.resilience import faults
+
         with self._step_lock:
             with self._lock:
+                plan = faults.active()
+                if plan is not None and plan.take_decode_worker_crash():
+                    raise WorkerCrashedError(
+                        "injected decode scheduler crash (FaultPlan.decode_worker_crash)"
+                    )
+                self._maybe_apply_swap()
                 self._expire_queued()
                 self._expire_active()
             self._admit()
             spent = self._decode()
             self._prefill_chunks(spent)
             with self._lock:
+                self._maybe_apply_swap()
                 self._update_occupancy()
         with self._cv:
             self._cv.notify_all()
@@ -883,6 +947,8 @@ class DecodeScheduler:
         if self.synchronous:
             while self._has_work():
                 self._pump()
+            with self._lock:
+                self._maybe_apply_swap()
             return
         self._ensure_worker()
         with self._cv:
@@ -955,7 +1021,7 @@ class DecodeScheduler:
 
     def _worker_loop(self) -> None:
         while not self._stop.is_set():
-            if not self._has_work():
+            if not self._has_work() and not self.swap_pending:
                 with self._cv:
                     self._cv.wait(0.05)
                 continue
@@ -1022,6 +1088,7 @@ class DecodeScheduler:
                 "decode_attention": engine.decode_attention_flavor,
                 "kv_layout": str(engine.kv_layout),
                 "decode_mbu": round(engine.decode_mbu, 4),
+                "swap_pending": self.swap_pending,
             }
             if engine.paged:
                 out["kv_pool"] = engine.pool_status()

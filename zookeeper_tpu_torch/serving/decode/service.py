@@ -113,8 +113,7 @@ class LMServingConfig:
                 f"requests={self.requests} must be >= 0, max_prompt="
                 f"{self.max_prompt} and new_tokens={self.new_tokens} >= 1."
             )
-        module = self._load(self.model, self.model.build((self.seq_len,), self.vocab_size),
-                            self.checkpoint, self.weights)
+        module = self._build_module()
         self.runtime.initialize(self.device)
         self.partitioner.setup()
         self.engine.bind(module, partitioner=self.partitioner, device=self.device)
@@ -123,6 +122,11 @@ class LMServingConfig:
         self.scheduler.bind(self.engine, metrics=self.metrics,
                             speculative=self._resolve_speculative())
         return self.engine, self.scheduler
+
+    def _build_module(self):
+        """The model's module with its weights loaded or initialized."""
+        return self._load(self.model, self.model.build((self.seq_len,), self.vocab_size),
+                          self.checkpoint, self.weights)
 
     def _load(self, model: Model, module, checkpoint: Optional[str], weights: str):
         """``module`` (built by ``model``) with its weights read from
@@ -181,8 +185,7 @@ class LMServingConfig:
         """Serve the stream, check every stream's output, print and return
         one JSON-able result. The generated tokens stay in
         ``self.outputs``."""
-        chief = self.partitioner.is_chief
-        if self.verbose and chief:
+        if self.verbose and self.partitioner.is_chief:
             print(pretty_print(self), flush=True)
         engine, scheduler = self.build_service()
         try:
@@ -229,6 +232,11 @@ class LMServingConfig:
             "partitioner": type(self.partitioner).__name__,
             "cache_replicated": engine.cache_replicated,
         }
-        if self.verbose and chief:
+        return self.finish_report(result)
+
+    def finish_report(self, result: Dict[str, Any]) -> Dict[str, Any]:
+        """Print ``result`` as one JSON line (the chief, when verbose) and
+        return it; a subclass adds its keys here."""
+        if self.verbose and self.partitioner.is_chief:
             print(json.dumps(result), flush=True)
         return result

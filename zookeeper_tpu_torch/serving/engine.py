@@ -21,12 +21,27 @@ collective when the partitioner spans several ranks: every rank must
 make the same dispatches (the synchronous ``MicroBatcher`` on the same
 stream does), and each dispatch checks that they agree.
 
-Not ported yet (ROADMAP.md): sequence buckets, hot weight swaps and the
-checkpoint watcher, and the program ledger / MFU gauges.
+**Hot weight swaps.** ``swap_weights`` replaces the served weights (the
+export trees, ``{flax path: tensor}``) in place after checking them
+against the bound structure, leaf shapes and dtypes (``serving.weights``;
+under a partitioner each rank keeps its block through the plan ``bind``
+cut it with). A dispatch and a swap exclude each other, so every batch
+is served wholly by one weight version. :class:`CheckpointWatcher`
+(``watch_checkpoints``) follows a live training run: it polls a
+``Checkpointer`` directory for newly finalized steps
+(``training.checkpoint.finalized_steps``) and swaps each one in,
+loaded as a service's first load is (``load_inference_model``).
+
+Not ported yet (ROADMAP.md): sequence buckets, and the program ledger /
+MFU gauges.
 """
 
 import contextlib
-from typing import Any, Sequence
+import logging
+import os
+import threading
+import time
+from typing import Any, Optional, Sequence
 
 import numpy as np
 import torch
@@ -34,6 +49,9 @@ from torch import nn
 
 from zookeeper_tpu_torch.core import Field, component
 from zookeeper_tpu_torch.parallel import distributed
+from zookeeper_tpu_torch.serving import weights as _weights
+
+logger = logging.getLogger(__name__)
 
 
 @component
@@ -75,6 +93,8 @@ MicroBatcher`."""
             partitioner = SingleDevicePartitioner()
         partitioner.setup()
         device = distributed.local_device(device)
+        object.__setattr__(self, "_swap_layout", None)  # taken at the first swap
+        object.__setattr__(self, "_swap_lock", threading.Lock())
         module = module.to(device).eval()
         object.__setattr__(self, "_module", module)
         object.__setattr__(self, "_partitioner", partitioner)
@@ -110,6 +130,50 @@ MicroBatcher`."""
                 "InferenceEngine is not bound: call engine.bind(module, "
                 "input_shape) before warmup()/infer()."
             )
+
+    def swap_weights(self, params: Any, model_state: Any = None) -> None:
+        """Replace the served weights in place, with no rebind. The new
+        trees must match the bound ones in structure, leaf shapes and
+        dtypes (``ValueError`` otherwise, before anything changes). A swap
+        waits for the dispatch in flight, so each batch is served wholly
+        by one version."""
+        self._require_bound()
+        if self._swap_layout is None:
+            object.__setattr__(self, "_swap_layout",
+                               _weights.weight_layout(self._module, self._plan))
+        _weights.check_swap(self._swap_layout, params, model_state, "warmed buckets")
+        with self._swap_lock:
+            _weights.load_weights(self._module, self._plan, params, model_state)
+
+    def watch_checkpoints(self, directory: str, *, weights: str = "ema",
+                          poll_interval_s: float = 2.0, metrics: Any = None,
+                          start: bool = True,
+                          initial_step: Optional[int] = None) -> "CheckpointWatcher":
+        """Serve a live training run: poll ``directory`` (a
+        ``Checkpointer`` tree) for newly finalized steps and swap each one
+        in. ``weights`` picks EMA or raw as the cold loaders do;
+        ``metrics`` (a ``ServingMetrics``) records ``weight_swaps``,
+        ``weight_swap_ms`` and ``serving_weights_step``;
+        ``initial_step`` marks that step as live already (the caller
+        bound its weights), so start-up does not load it again.
+        ``start=False`` returns the watcher unstarted, for
+        ``poll_once``. With ``start=True`` the first poll runs on the
+        calling thread, so a configuration error (``weights="ema"``
+        against a run without an EMA, a structure mismatch) raises here
+        rather than on the daemon thread. A directory that does not
+        exist yet is a warning, not an error."""
+        self._require_bound()
+        if not os.path.isdir(os.path.expanduser(directory)):
+            logger.warning(
+                "watch_checkpoints: %r does not exist (yet); polling continues — if "
+                "this path is misspelled, no checkpoint will ever stream in", directory)
+        watcher = CheckpointWatcher(self, directory, weights=weights,
+                                    poll_interval_s=poll_interval_s, metrics=metrics,
+                                    initial_step=initial_step)
+        if start:
+            watcher.poll_once()
+            watcher.start()
+        return watcher
 
     @property
     def device(self) -> torch.device:
@@ -176,7 +240,7 @@ MicroBatcher`."""
         plan = self.forward_plan(bucket)
         weights = (contextlib.nullcontext() if self._plan is None
                    else self._plan.gathered_weights(self._module))
-        with torch.inference_mode():
+        with torch.inference_mode(), self._swap_lock:
             with weights, plan.activation_scope():
                 out = self._module(plan.take(x).to(self._device))
             out = plan.assemble(out)[:n]
@@ -186,3 +250,136 @@ MicroBatcher`."""
 
     def __call__(self, x: Any) -> torch.Tensor:
         return self.infer(x)
+
+
+class CheckpointWatcher:
+    """Follow a training run's ``Checkpointer`` directory and swap each
+    newly finalized step into a live :class:`InferenceEngine`.
+
+    Discovery lists finalized steps only (a torn async write or a crash
+    mid-save is never served). A step that vanishes between listing and
+    loading (retention racing the poll), or a finalized step that cannot
+    be read, is skipped with a warning and retried at the next poll; a
+    configuration error (a structure mismatch, ``weights="ema"`` without
+    an EMA) stops the watcher and counts ``watcher_stopped``.
+    ``poll_once()`` is the deterministic unit; ``start()`` runs it on a
+    daemon thread every ``poll_interval_s``; ``stop()`` is idempotent."""
+
+    def __init__(self, engine: InferenceEngine, directory: str, *, weights: str = "ema",
+                 poll_interval_s: float = 2.0, metrics: Any = None,
+                 initial_step: Optional[int] = None) -> None:
+        if weights not in ("auto", "ema", "raw"):
+            raise ValueError(f"weights={weights!r} unknown; choose auto/ema/raw.")
+        if poll_interval_s <= 0:
+            raise ValueError(f"poll_interval_s={poll_interval_s} must be > 0.")
+        self._engine = engine
+        self._directory = directory
+        self._weights = weights
+        self._poll_interval_s = float(poll_interval_s)
+        self._metrics = metrics
+        self._current_step: Optional[int] = (
+            int(initial_step) if initial_step is not None else None)
+        if initial_step is not None and metrics is not None:
+            metrics.record_weights_step(int(initial_step))
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+        self._swaps = 0
+        self._poll_lock = threading.Lock()
+
+    @property
+    def current_step(self) -> Optional[int]:
+        """The training step whose weights are live (None until a swap,
+        or ``initial_step``)."""
+        return self._current_step
+
+    @property
+    def swaps(self) -> int:
+        return self._swaps
+
+    @property
+    def alive(self) -> bool:
+        """Whether the daemon poller still follows the directory (False
+        after ``stop()`` or a fatal error)."""
+        thread = self._thread
+        return thread is not None and thread.is_alive() and not self._stop.is_set()
+
+    def poll_once(self) -> Optional[int]:
+        """One poll: when a finalized step newer than ``current_step``
+        exists, load it and swap it in. Returns the newly live step, or
+        None (nothing new, or the newest step could not be loaded)."""
+        with self._poll_lock:
+            return self._poll_once_locked()
+
+    def _poll_once_locked(self) -> Optional[int]:
+        from zookeeper_tpu_torch.training import checkpoint as ckpt
+
+        steps = ckpt.finalized_steps(self._directory)
+        if not steps:
+            return None
+        newest = steps[-1]
+        if self._current_step is not None and newest <= self._current_step:
+            return None
+        t0 = time.perf_counter()
+        try:
+            params, model_state = ckpt.load_inference_model(
+                self._directory, weights=self._weights, step=newest)
+        except ckpt.CheckpointUnreadableError as e:
+            logger.warning("checkpoint watcher: step %d could not be loaded (%s); "
+                           "retrying at the next poll", newest, e)
+            return None
+        except ValueError:
+            self._record_fatal_stop()
+            raise
+        except Exception as e:
+            logger.warning("checkpoint watcher: step %d could not be loaded (%s); "
+                           "retrying at the next poll", newest, e)
+            return None
+        try:
+            self._engine.swap_weights(params, model_state)
+        except ValueError:
+            self._record_fatal_stop()
+            raise
+        if self._engine.device.type == "cuda":
+            torch.cuda.synchronize(self._engine.device)
+        swap_ms = (time.perf_counter() - t0) * 1e3
+        self._current_step = newest
+        self._swaps += 1
+        if self._metrics is not None:
+            self._metrics.record_weight_swap(swap_ms, newest)
+        logger.info("serving weights hot-swapped to training step %d (%.1f ms)",
+                    newest, swap_ms)
+        return newest
+
+    def _record_fatal_stop(self) -> None:
+        """Stop over a configuration error; the metric lands before the
+        flag turns ``alive`` false."""
+        if self._metrics is not None:
+            self._metrics.record_watcher_stopped()
+        self._stop.set()
+
+    def start(self) -> "CheckpointWatcher":
+        if self._thread is not None and self._thread.is_alive():
+            return self
+        self._stop.clear()
+
+        def loop():
+            while not self._stop.is_set():
+                try:
+                    self.poll_once()
+                except Exception as e:
+                    logger.error("checkpoint watcher stopped: %s", e)
+                    if not self._stop.is_set():
+                        self._record_fatal_stop()
+                    return
+                self._stop.wait(self._poll_interval_s)
+
+        self._thread = threading.Thread(target=loop, name="zk-ckpt-watcher", daemon=True)
+        self._thread.start()
+        return self
+
+    def stop(self) -> None:
+        self._stop.set()
+        thread = self._thread
+        if thread is not None:
+            thread.join(timeout=10)
+            self._thread = None

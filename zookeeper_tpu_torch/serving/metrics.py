@@ -8,7 +8,12 @@ synchronises the card.
 - ``latency_p50/p95/p99_ms``: per-request submit-to-result wall time;
 - ``queue_depth``: pending rows at submit time;
 - ``bucket_fill``: real rows / bucket rows per dispatch;
-- ``padding_waste``: padded rows / bucket rows per dispatch.
+- ``padding_waste``: padded rows / bucket rows per dispatch;
+- ``weight_swaps`` and ``weight_swap_ms``: checkpoint hot swaps and
+  their load + placement wall time; ``serving_weights_step`` the
+  training step whose weights are live (-1: the bind-time weights);
+  ``watcher_stopped`` counts a checkpoint watcher that died on a fatal
+  error (its step is frozen from then on).
 """
 
 import threading
@@ -27,6 +32,8 @@ _COUNTER_NAMES = (
     "rejected",
     "deadline_expired",
     "worker_restarts",
+    "weight_swaps",
+    "watcher_stopped",
 )
 
 
@@ -45,6 +52,7 @@ class ServingMetrics:
             state = {
                 "lock": threading.Lock(),
                 "counters": dict.fromkeys(_COUNTER_NAMES, 0),
+                "weights_step": -1,
                 "windows": {},
             }
             object.__setattr__(self, "_obs_state", state)
@@ -81,6 +89,34 @@ class ServingMetrics:
     def record_worker_restart(self) -> None:
         self._count("worker_restarts")
 
+    def record_weight_swap(self, swap_ms: float, step: int) -> None:
+        """A checkpoint hot swap landed: ``step``'s weights are live;
+        ``swap_ms`` is the load + placement wall time."""
+        self._observe("weight_swap_ms", swap_ms)
+        state = self._state()
+        with state["lock"]:
+            state["counters"]["weight_swaps"] += 1
+            state["weights_step"] = int(step)
+
+    def record_watcher_stopped(self) -> None:
+        """The checkpoint watcher died on a fatal error:
+        ``serving_weights_step`` is frozen from here on."""
+        self._count("watcher_stopped")
+
+    def record_weights_step(self, step: int) -> None:
+        """Set the live-weights step without counting a swap (the
+        weights a service loaded at start-up)."""
+        state = self._state()
+        with state["lock"]:
+            state["weights_step"] = int(step)
+
+    @property
+    def weights_step(self) -> int:
+        """The live training step (-1: the bind-time weights)."""
+        state = self._state()
+        with state["lock"]:
+            return int(state["weights_step"])
+
     def record_dispatch(self, real_rows: int, bucket_rows: int) -> None:
         if bucket_rows <= 0:
             return
@@ -92,7 +128,13 @@ class ServingMetrics:
     def totals(self) -> Dict[str, int]:
         state = self._state()
         with state["lock"]:
-            return dict(state["counters"])
+            out: Dict[str, int] = {}
+            for name in _COUNTER_NAMES:
+                out[name] = int(state["counters"][name])
+                if name == "weight_swaps":
+                    # JAX's key order: the live step follows the swap count.
+                    out["serving_weights_step"] = int(state["weights_step"])
+            return out
 
     def snapshot(self) -> Dict[str, float]:
         """The current window as a flat ``{name: float}`` mapping (absent
@@ -100,9 +142,7 @@ class ServingMetrics:
         state = self._state()
         with state["lock"]:
             windows = {k: list(v) for k, v in state["windows"].items()}
-            out: Dict[str, float] = {
-                k: float(v) for k, v in state["counters"].items()
-            }
+        out: Dict[str, float] = {k: float(v) for k, v in self.totals.items()}
         lat = windows.get("latency_ms")
         if lat:
             arr = np.asarray(lat)
@@ -110,7 +150,7 @@ class ServingMetrics:
             out["latency_p95_ms"] = float(np.percentile(arr, 95))
             out["latency_p99_ms"] = float(np.percentile(arr, 99))
             out["latency_mean_ms"] = float(arr.mean())
-        for name in ("queue_depth", "bucket_fill", "padding_waste"):
+        for name in ("queue_depth", "bucket_fill", "padding_waste", "weight_swap_ms"):
             if windows.get(name):
                 out[f"{name}_mean"] = float(np.mean(windows[name]))
         return out

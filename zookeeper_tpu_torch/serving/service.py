@@ -31,8 +31,19 @@ share (``InferenceEngine.bind(partitioner=...)``); only the chief
         -m zookeeper_tpu_torch.serving ServingConfig model=QuickNet ... \
         partitioner=DataParallelPartitioner
 
-The JAX service's ``watch`` (hot swaps from a live ``Checkpointer``
-directory) is not ported yet (ROADMAP.md): ``watch=True`` raises.
+``watch=True`` serves a live training run: ``checkpoint`` must be a
+``Checkpointer`` directory, and a ``CheckpointWatcher`` polls it every
+``watch_poll_s`` seconds and swaps each newly finalized step into the
+warmed engine (``InferenceEngine.watch_checkpoints``), loaded as the
+first load is, so a packed model is built the same way. The newest step
+listed before the first load is the watcher's baseline, and its first
+poll runs at once: a step that finalized during the load and warm-up is
+swapped in then. Teardown stops the watcher; the report's
+``watcher_alive`` and ``serving_weights_step`` say whether it still
+follows the run. At world size > 1 each rank's watcher would poll by its
+own clock, so ``watch=True`` raises (a chief-led dispatch is queued in
+ROADMAP.md); a ``swap_weights`` that every rank calls at the same point
+stays allowed.
 """
 
 import json
@@ -44,7 +55,7 @@ import torch
 
 from zookeeper_tpu_torch.core import ComponentField, Field, pretty_print, task
 from zookeeper_tpu_torch.models.base import Model
-from zookeeper_tpu_torch.parallel.distributed import DistributedRuntime
+from zookeeper_tpu_torch.parallel.distributed import DistributedRuntime, refuse_clock_driven
 from zookeeper_tpu_torch.parallel.partitioner import Partitioner, SingleDevicePartitioner
 from zookeeper_tpu_torch.serving.batcher import MicroBatcher
 from zookeeper_tpu_torch.serving.engine import InferenceEngine
@@ -91,8 +102,11 @@ class ServingConfig:
     #: Run every bucket once before serving.
     warmup: bool = Field(True)
     #: Hot-swap each newly finalized step of a live ``Checkpointer``
-    #: directory into the engine: not ported yet, True raises.
+    #: directory (``checkpoint``) into the warmed engine; ``weights``
+    #: picks EMA or raw for the swaps as for the first load.
     watch: bool = Field(False)
+    #: The watcher's poll interval, seconds.
+    watch_poll_s: float = Field(2.0)
     #: ``run()``'s stream: how many requests, and the largest request.
     requests: int = Field(64)
     max_request: int = Field(8)
@@ -112,13 +126,16 @@ class ServingConfig:
                 f"requests={self.requests} must be >= 0 and "
                 f"max_request={self.max_request} >= 1."
             )
-        if self.watch:
-            raise NotImplementedError(
-                "ServingConfig.watch (hot swaps of a live Checkpointer "
-                "directory's new steps) is not in the PyTorch port yet; it "
-                "is queued in ROADMAP.md (Queue 1 item 4)."
-            )
         module = self.model.build(self.input_shape, self.num_classes)
+        # The watcher's baseline, listed before the load: the load binds at
+        # least this step, so a step finalizing meanwhile stays newer and
+        # the first poll swaps it in.
+        watch_baseline = None
+        if self.watch and self.checkpoint:
+            from zookeeper_tpu_torch.training.checkpoint import finalized_steps
+
+            steps = finalized_steps(self.checkpoint)
+            watch_baseline = steps[-1] if steps else None
         if self.checkpoint:
             from zookeeper_tpu_torch.training.checkpoint import (
                 export_trees,
@@ -143,7 +160,41 @@ class ServingConfig:
         if self.warmup:
             self.engine.warmup()
         self.batcher.bind(self.engine, metrics=self.metrics)
+        if self.watch:
+            if not self.checkpoint:
+                raise ValueError(
+                    "watch=True needs checkpoint= pointing at a live Checkpointer "
+                    "directory to stream steps from."
+                )
+            refuse_clock_driven(self.engine, "ServingConfig.watch (the checkpoint watcher)")
+            object.__setattr__(self, "watcher", self.engine.watch_checkpoints(
+                self.checkpoint, weights=self.weights, poll_interval_s=self.watch_poll_s,
+                metrics=self.metrics, initial_step=watch_baseline))
         return self.engine, self.batcher
+
+    def _teardown_service(self) -> None:
+        """Stop the watcher (when one runs) and close the batcher: every
+        exit path's teardown."""
+        watcher = getattr(self, "watcher", None)
+        try:
+            if watcher is not None:
+                watcher.stop()
+        finally:
+            self.batcher.close()
+
+    def status(self) -> Dict[str, Any]:
+        """The serving vitals an operator checks before trusting the
+        metrics: the live weights' step and whether the watcher still
+        follows the run (None without one)."""
+        watcher = getattr(self, "watcher", None)
+        return {
+            "model": type(self.model).__name__,
+            "weights": self.weights,
+            "batch_buckets": [int(b) for b in self.engine.batch_buckets],
+            "packed_deployment": self.engine.packed_deployment,
+            "watcher_alive": watcher.alive if watcher is not None else None,
+            "serving_weights_step": self.metrics.weights_step,
+        }
 
     def request_stream(self) -> Iterator[np.ndarray]:
         """The seeded stream ``run()`` serves: ``requests`` float32 NHWC
@@ -192,12 +243,14 @@ class ServingConfig:
                 "recompiles_after_warmup": compiles - warm_compiles,
                 "requests": n_requests,
                 "qps": round(qps, 1),
+                **({"watcher_alive": self.status()["watcher_alive"]}
+                   if getattr(self, "watcher", None) is not None else {}),
                 **(result_extra or {}),
             }
             if self.verbose and chief:
                 print(json.dumps(result), flush=True)
         finally:
-            self.batcher.close()
+            self._teardown_service()
         return result
 
     def run(self) -> Dict[str, Any]:
@@ -224,7 +277,7 @@ class ServingConfig:
                         f"finite={bool(np.isfinite(out).all())}"
                     )
         except BaseException:
-            batcher.close()
+            self._teardown_service()
             raise
         rows_per_sec = rows / dt if dt > 0 else 0.0
         return self.finish_report(

@@ -372,14 +372,18 @@ def load_model(path: str, params_like: Mapping[str, Any], model_state_like: Mapp
     return params, model_state
 
 
+def module_state_from_trees(module: nn.Module, params: Mapping[str, torch.Tensor],
+                            model_state: Mapping[str, torch.Tensor]) -> Flat:
+    """Export trees as ``module``'s ``state_dict`` (global tensors)."""
+    if _is_lm(module):
+        return from_flax_lm_variables(unflatten_tree(params))
+    return from_flax_variables(unflatten_tree(params), unflatten_tree(model_state))
+
+
 def load_into_module(module: nn.Module, params: Mapping[str, torch.Tensor],
                      model_state: Mapping[str, torch.Tensor]) -> nn.Module:
     """Copy export trees into the module's parameters and statistics."""
-    if _is_lm(module):
-        named = from_flax_lm_variables(unflatten_tree(params))
-    else:
-        named = from_flax_variables(unflatten_tree(params), unflatten_tree(model_state))
-    module.load_state_dict(named)
+    module.load_state_dict(module_state_from_trees(module, params, model_state))
     return module
 
 
