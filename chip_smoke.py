@@ -447,7 +447,30 @@ CUDA card and ``nvcc``. In order:
    bit. (f) ``serving_worker_crash`` on an async ``MicroBatcher`` and
    ``decode_worker_crash`` on an async ``DecodeScheduler``: the request
    fails, the next submit serves on a restarted worker.
-25. One JSON line of the kernels (14 rows; K1, K3, K4, K6 and K7 also
+25. Observability on both serving paths (``obs_phase``; deterministic
+   mode where bits are compared): (a) phase 10's model and stream (32
+   requests x 64 tokens, paged) through ``LMServingConfig`` built twice,
+   with everything off and with ``metrics_port=0``, a flight recorder and
+   tracing on: ``/metrics`` and ``/statusz`` scraped over HTTP while the
+   stream is served and after; the tokens equal bit for bit and K9 and K13
+   launched equally; every exposition line valid and every ``zk_decode_*``
+   series (and the ``zk_spec_*``, ``zk_prefill_*``, ``zk_kv_pool_*``,
+   ``zk_transfer_*`` and ``zk_hbm_*`` families) present; ``0 <
+   zk_decode_mbu <= 1.05``; ``0 < zk_hbm_bytes_in_use <= zk_hbm_bytes_limit
+   = torch.cuda.mem_get_info()[1]``; ``/statusz["programs"]`` one row per
+   warmed program; ``zk_serving_recompiles_total`` 0. (c) Tokens/s and
+   inter-token p50/p99 of three runs each, off and on in turns (printed,
+   no threshold). (d) ``FaultPlan.decode_worker_crash`` mid-stream with
+   the recorder armed: exactly one bundle, whose RequestLog tail carries
+   the victims' rids as "crashed" and whose trace ring carries the same
+   rids. (b) Slice A (K1 + K3) through ``ServingConfig`` off and with
+   ``metrics_port=0``: the answers equal bit for bit, K1/K3 launched
+   equally, ``0 < zk_serve_mfu_int8 <= 1.05`` and ``zk_serve_mfu`` too.
+   (e) One batch-8 forward of slice A's module on a warmed engine whose
+   bucket 8 was dropped from its cache of run programs (a private seam):
+   the recompile counter reads 1 and one ``recompile_detected`` bundle
+   is written.
+26. One JSON line of the kernels (14 rows; K1, K3, K4, K6 and K7 also
    with their sums on Bi-Real-Net's path under ``bireal``; K1, K3 and K4
    under ``densenet`` and ``melius``, K1 and K3 under ``xnor_train`` per
    DenseNet training step, K2 under ``xnor_train`` per BinaryAlexNet
@@ -464,7 +487,9 @@ CUDA card and ``nvcc``. In order:
    phase 22's launches on each path; K9-lse, K10 and K11 under ``group``,
    phase 23's launches in the supervised run; K9, K12 and K13 under
    ``disagg``, phase 24's launches on each path, and K1 and K3 under
-   ``hot_swap``, its watched service's), then the result line.
+   ``hot_swap``, its watched service's; K9, K13, K1 and K3 under ``obs``,
+   phase 25's launches with observability off and on), then the result
+   line.
 """
 
 import contextlib
@@ -7128,6 +7153,329 @@ def disagg_phase(torch, bc, A, smi):
     return launches, {"watch": watch_launches}, stats
 
 
+#: Phase 25 (c): the LM service's runs with observability off and on, in
+#: turns, in default (not deterministic) settings.
+OBS_ORDER = ("off", "on", "on", "off", "off", "on")
+#: Streams in flight when (d)'s injected crash fires.
+OBS_CRASH_STREAMS = 10
+#: Series every scrape of the LM service must carry (the JAX package's
+#: scrape smoke's, less the overload guard's).
+OBS_REQUIRED = (
+    "zk_decode_tokens_total", "zk_decode_ttft_ms_bucket", "zk_decode_token_ms_bucket",
+    "zk_decode_slot_occupancy", "zk_decode_kv_pages_in_use", "zk_decode_queue_depth",
+    "zk_decode_kv_bytes", "zk_decode_mbu", "zk_decode_itl_ms_bucket",
+    "zk_spec_draft_tokens_total", "zk_spec_accepted_tokens_total", "zk_spec_acceptance_rate",
+    "zk_spec_accept_length_bucket", "zk_kv_pool_free_pages", "zk_prefix_cache_hit_rate",
+    "zk_prefill_chunks_total", "zk_prefill_stall_ms_bucket", "zk_transfer_bytes",
+    "zk_hbm_bytes_in_use", "zk_hbm_peak_bytes_in_use", "zk_hbm_bytes_limit",
+    "zk_serving_recompiles_total", "zk_compiles_total",
+)
+
+
+def obs_phase(torch, bc, A, smi):
+    """Phase 25 (see the module docstring). Returns ({path: K9/K13
+    launches}, {path: K1/K3 launches}, stats)."""
+    import re
+    import shutil
+    import tempfile
+    import threading
+    import urllib.request
+
+    import numpy as np
+
+    from zookeeper_tpu_torch.core import configure
+    from zookeeper_tpu_torch.observability import trace
+    from zookeeper_tpu_torch.observability.ledger import default_ledger
+    from zookeeper_tpu_torch.observability.registry import default_registry
+    from zookeeper_tpu_torch.resilience import FaultPlan, faults
+    from zookeeper_tpu_torch.serving import InferenceEngine, ServingConfig, WorkerCrashedError
+
+    t_phase = time.perf_counter()
+    line_re = re.compile(r"^[a-zA-Z_:][a-zA-Z0-9_:]*(\{[^{}]*\})? [^ ]+$")
+    tmp = tempfile.mkdtemp(prefix="obs_phase_")
+    launches_lm, launches_cnn, stats = {}, {}, {}
+
+    def get(port, path):
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=10) as r:
+            return r.read().decode()
+
+    def parse(body):
+        """{series: value} of an exposition, and its invalid lines."""
+        samples = [ln for ln in body.splitlines() if ln and not ln.startswith("#")]
+        bad = [ln for ln in samples if not line_re.match(ln)]
+        return {ln.rsplit(" ", 1)[0]: float(ln.rsplit(" ", 1)[1]) for ln in samples
+                if line_re.match(ln)}, bad
+
+    def recompiles():
+        return sum(i.value for i in default_registry().collect()
+                   if i.name == "zk_serving_recompiles_total")
+
+    # The process-wide recompile counter starts this phase at 0.
+    for inst in default_registry().collect():
+        if inst.name == "zk_serving_recompiles_total":
+            inst.reset()
+
+    # (a) Phase 10's LM (paged) through LMServingConfig with everything off,
+    # and with the endpoint, the recorder and tracing on.
+    services = {}
+    for label, extra in (("off", {}), ("on", {"metrics_port": 0,
+                                              "flight_recorder_dir": os.path.join(tmp, "lm")})):
+        if label == "on":
+            default_ledger().clear()  # /statusz then lists this service's programs
+        cfg = _lm_config({**PAGED, **extra})
+        A.reset_launches()
+        t0 = time.perf_counter()
+        cfg.build_service()
+        torch.cuda.synchronize()
+        launches_lm[f"build_{label}"] = dict(A.LAUNCHES)
+        services[label] = cfg
+        stats[f"build_{label}_s"] = time.perf_counter() - t0
+    check(launches_lm["build_off"] == launches_lm["build_on"],
+          f"obs: warm-ups launched differently: {launches_lm['build_off']} (off) "
+          f"{launches_lm['build_on']} (on)")
+    on, off = services["on"], services["off"]
+    port = on.obs_server.port
+    prompts = off.prompts(min(off.max_prompt, off.engine.max_prompt))
+
+    def serve(label, scrapes=None):
+        cfg = services[label]
+        trace.install(trace.Tracer() if label == "on" else None)
+        cfg.metrics.reset()
+        A.reset_launches()
+        t0 = time.perf_counter()
+        streams = [cfg.scheduler.submit(pr, max_new_tokens=cfg.new_tokens) for pr in prompts]
+        cfg.scheduler.drain()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        outs = [st.result() for st in streams]
+        snap = cfg.metrics.snapshot()
+        tokens = sum(int(o.shape[0]) for o in outs)
+        return outs, {"tokens_per_sec": tokens / dt, "itl_p50_ms": snap["itl_p50_ms"],
+                      "itl_p99_ms": snap["itl_p99_ms"], "ttft_p50_ms": snap["ttft_p50_ms"],
+                      "launches": dict(A.LAUNCHES)}
+
+    # Scrapes over HTTP while the first "on" run serves: a thread GETs
+    # /metrics and /statusz until the drain ends.
+    scraped, errors, done = [], [], threading.Event()
+
+    def scraper():
+        while not done.is_set():
+            try:
+                scraped.append((get(port, "/metrics"), json.loads(get(port, "/statusz"))))
+            except Exception as e:  # reported by the main thread
+                errors.append(repr(e))
+            done.wait(0.05)
+
+    # (a)'s pair is held to bit equality, in deterministic mode.
+    outputs = {}
+    for label in ("off", "on"):
+        thread = None
+        if label == "on":
+            thread = threading.Thread(target=scraper, name="obs-scraper", daemon=True)
+            thread.start()
+        with deterministic(torch):
+            outputs[label], rec = serve(label)
+        launches_lm[f"serve_{label}"] = rec["launches"]
+        if thread is not None:
+            done.set()
+            thread.join(timeout=30)
+            check(not thread.is_alive(), "obs: the scraper thread did not stop")
+        if label == "on":
+            check(not errors, f"obs: scrapes during the run failed: {errors[:3]}")
+            check(len(scraped) >= 1, "obs: no scrape landed while the stream was served")
+            for body, status in scraped:
+                _, bad = parse(body)
+                check(not bad, f"obs: invalid exposition lines mid-run: {bad[:5]}")
+                check("decode" in status and "requests" in status and "programs" in status,
+                      f"obs: /statusz sections mid-run: {sorted(status)}")
+            on.obs_probe.poll_once()
+            body = get(port, "/metrics")
+            values, bad = parse(body)
+            check(not bad, f"obs: invalid exposition lines: {bad[:5]}")
+            missing = [n for n in OBS_REQUIRED if n not in body]
+            missing += [inst.name for inst in on.metrics.registry.collect()
+                        if inst.name not in body]
+            check(not missing, f"obs: series missing from /metrics: {missing}")
+            status = json.loads(get(port, "/statusz"))
+            mbu = values["zk_decode_mbu"]
+            in_use = values['zk_hbm_bytes_in_use{device="0"}']
+            limit = values['zk_hbm_bytes_limit{device="0"}']
+            total = torch.cuda.mem_get_info()[1]
+            programs = {row["key"] for row in status["programs"]["programs"]}
+            warmed = {rec.key for rec in on.engine.programs.values()}
+            stats["a"] = {
+                "scrapes_mid_run": len(scraped), "series": len(values), "zk_decode_mbu": mbu,
+                "zk_hbm_bytes_in_use": in_use, "zk_hbm_bytes_limit": limit,
+                "zk_hbm_peak_bytes_in_use": values['zk_hbm_peak_bytes_in_use{device="0"}'],
+                "zk_serving_recompiles_total": values["zk_serving_recompiles_total"],
+                "programs": sorted(programs),
+                "program_rows": {rec.key: {"compile_ms": rec.compile_ms, "flops": rec.flops,
+                                           "bytes": rec.bytes_accessed,
+                                           "dispatches": rec.dispatches}
+                                 for rec in on.engine.programs.values()},
+                "requests_by_outcome": status["requests"]["by_outcome"],
+            }
+            check(0 < mbu <= 1.05, f"obs: zk_decode_mbu {mbu} outside (0, 1.05]")
+            check(0 < in_use <= limit and limit == total,
+                  f"obs: zk_hbm_bytes_in_use {in_use}, limit {limit}, card total {total}")
+            check(programs == warmed and status["programs"]["count"] == len(warmed),
+                  f"obs: /statusz programs {sorted(programs)} against the warmed {sorted(warmed)}")
+            check(values["zk_serving_recompiles_total"] == 0
+                  and status["decode"]["recompiles_detected"] == 0,
+                  f"obs: recompiles after warm-up: {values['zk_serving_recompiles_total']}")
+            check(status["requests"]["by_outcome"] == {"ok": len(prompts)},
+                  f"obs: RequestLog outcomes {status['requests']['by_outcome']}")
+    trace.install(None)
+    for label in ("off", "on"):
+        check(len(outputs[label]) == len(prompts), f"obs: {label} run lost streams")
+    check(all(np.array_equal(a, b) for a, b in zip(outputs["off"], outputs["on"])),
+          "obs: tokens differ with observability on")
+    for name in ("flash_forward", "pool_paged_decode_attention"):
+        check(launches_lm["serve_off"][name] == launches_lm["serve_on"][name] > 0,
+              f"obs: {name} launched {launches_lm['serve_off'][name]} (off) and "
+              f"{launches_lm['serve_on'][name]} (on) times")
+    print(f"obs (a) on {smi}: tokens equal off/on, launches {launches_lm}; "
+          f"{json.dumps(stats['a'])}", flush=True)
+
+    # (c) tokens/s and inter-token p50/p99, three runs each, in turns.
+    runs = []
+    for i, label in enumerate(OBS_ORDER):
+        outs, rec = serve(label)
+        rec["tokens_equal_a"] = all(np.array_equal(a, b) for a, b in zip(outs, outputs[label]))
+        runs.append({"run": i + 1, "obs": label, **rec})
+    trace.install(None)
+    by = {label: [r for r in runs if r["obs"] == label] for label in ("off", "on")}
+    stats["c"] = {label: {key: [r[key] for r in rs] for key in
+                          ("tokens_per_sec", "itl_p50_ms", "itl_p99_ms", "ttft_p50_ms")}
+                  for label, rs in by.items()}
+    stats["c"]["order"] = list(OBS_ORDER)
+    stats["c"]["tokens_equal_a"] = [r["tokens_equal_a"] for r in runs]
+    print(f"obs (c) overhead on {smi}: {json.dumps(stats['c'])}", flush=True)
+
+    # (d) An injected loop crash with the recorder armed: one bundle, the
+    # victims' rids crashed in its RequestLog tail and present in its trace.
+    trace.install(trace.Tracer())
+    sched = on.scheduler
+    streams = [sched.submit(pr, max_new_tokens=on.new_tokens)
+               for pr in prompts[:OBS_CRASH_STREAMS]]
+    for _ in range(3):
+        sched._pump()  # admit and decode a few steps first
+    with faults.injected(FaultPlan(decode_worker_crash=1)):
+        try:
+            sched.drain()
+            fail("obs (d): the injected decode crash did not fire")
+        except WorkerCrashedError:
+            pass
+    victims = {st.rid for st in streams if isinstance(st.error, WorkerCrashedError)}
+    bundles = on.flight_recorder.bundles()
+    check(len(victims) == OBS_CRASH_STREAMS, f"obs (d): {len(victims)} victims")
+    check(len(bundles) == 1 and bundles[0].endswith("decode_worker_crash"),
+          f"obs (d): bundles {bundles}")
+    with open(os.path.join(bundles[0], "requestlog.json")) as f:
+        tail = json.load(f)["decode"]["tail"]
+    with open(os.path.join(bundles[0], "trace.json")) as f:
+        traced = {ev.get("args", {}).get("rid") for ev in json.load(f)["traceEvents"]}
+    crashed = {r["rid"] for r in tail if r["outcome"] == "crashed"}
+    with open(os.path.join(bundles[0], "manifest.json")) as f:
+        manifest = json.load(f)
+    stats["d"] = {"victims": len(victims), "bundle": os.path.basename(bundles[0]),
+                  "files": manifest["files"], "write_ms": manifest["write_ms"]}
+    check(victims == crashed, f"obs (d): crashed rids {sorted(crashed)} against the "
+          f"victims {sorted(victims)}")
+    check(victims <= traced, f"obs (d): victims missing from the bundle's trace: "
+          f"{sorted(victims - traced)}")
+    trace.install(None)
+    print(f"obs (d): {json.dumps(stats['d'])}", flush=True)
+    for cfg in services.values():
+        cfg._teardown_service()
+    check(on.obs_server is None and on.obs_probe is None and on.flight_recorder is None,
+          "obs: the LM service's endpoint, probe or recorder outlived its teardown")
+    del services, on, off, sched, streams
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) Slice A through ServingConfig with observability off and on; (e)
+    # one forward at an unwarmed bucket after a partial warm-up.
+    settings, per_forward = SLICES["A"]
+    base = {"engine.batch_buckets": (1, BATCH), "requests": 16, "max_request": BATCH,
+            "seed": 0, "device": "cuda", "verbose": False, **settings}
+    answers = {}
+    for label, extra in (("off", {}), ("on", {"metrics_port": 0, "flight_recorder_interval_s": 0.0,
+                                              "flight_recorder_dir": os.path.join(tmp, "cnn")})):
+        cfg = ServingConfig()
+        configure(cfg, {**base, **extra})
+        bc.reset_launches()
+        engine, batcher = cfg.build_service()
+        with deterministic(torch):
+            handles = [batcher.submit(x) for x in cfg.request_stream()]
+            batcher.flush()
+            answers[label] = [h.result() for h in handles]
+        torch.cuda.synchronize()
+        launches_cnn[label] = dict(bc.LAUNCHES)
+        if label == "on":
+            cport = cfg.obs_server.port
+            values, bad = parse(get(cport, "/metrics"))
+            status = json.loads(get(cport, "/statusz"))
+            mfu, mfu8 = values["zk_serve_mfu"], values["zk_serve_mfu_int8"]
+            stats["b"] = {"zk_serve_mfu": mfu, "zk_serve_mfu_int8": mfu8,
+                          "zk_serve_dispatch_ms": values["zk_serve_dispatch_ms"],
+                          "zk_serve_dispatch_rows": values["zk_serve_dispatch_rows"],
+                          "programs": {rec.key: {"compile_ms": rec.compile_ms,
+                                                 "flops": rec.flops,
+                                                 "bytes": rec.bytes_accessed}
+                                       for rec in engine.programs.values()}}
+            check(not bad, f"obs (b): invalid exposition lines {bad[:5]}")
+            check(0 < mfu8 <= 1.05 and 0 < mfu <= 1.05,
+                  f"obs (b): zk_serve_mfu {mfu}, zk_serve_mfu_int8 {mfu8}")
+            check(status["serving"]["packed_deployment"] and
+                  status["requests"]["by_outcome"] == {"ok": int(cfg.requests)},
+                  f"obs (b): /statusz {status['serving']}, {status['requests']['by_outcome']}")
+            # (e) A second engine over the same module, warmed; bucket 8 is
+            # then dropped from its cache of run programs (a private seam,
+            # as the JAX test reaches a bucket the warm-up never covered),
+            # so its next batch-8 forward is the detected stall.
+            eng = InferenceEngine()
+            configure(eng, {"batch_buckets": (1, BATCH)}, name="engine")
+            eng.bind(engine._module, cfg.input_shape, dtype=cfg.model.dtype(), device="cuda")
+            eng.warmup()
+            eng._warmed.discard((BATCH, eng._mesh_key))
+            x = np.random.default_rng(25).normal(size=(BATCH, *cfg.input_shape))
+            eng.infer(x.astype(np.float32))
+            torch.cuda.synchronize()
+            rec_bundles = [b for b in cfg.flight_recorder.bundles()
+                           if b.endswith("recompile_detected")]
+            values, _ = parse(get(cport, "/metrics"))
+            stats["e"] = {"recompiles_detected": eng.recompiles_detected,
+                          "first_run_ms": {rec.key: rec.compile_ms
+                                           for rec in eng.programs.values()},
+                          "zk_serving_recompiles_total": values["zk_serving_recompiles_total"],
+                          "bundles": [os.path.basename(b) for b in rec_bundles]}
+            check(eng.recompiles_detected == 1 and recompiles() == 1
+                  and values["zk_serving_recompiles_total"] == 1,
+                  f"obs (e): recompiles {stats['e']}")
+            check(len(rec_bundles) == 1, f"obs (e): recompile bundles {rec_bundles}")
+            del eng
+        cfg._teardown_service()
+        del cfg, engine, batcher
+        torch.cuda.empty_cache()
+    for name in bc.LAUNCHES:
+        check(launches_cnn["off"][name] == launches_cnn["on"][name],
+              f"obs (b): {name} launched {launches_cnn['off'][name]} (off) and "
+              f"{launches_cnn['on'][name]} (on) times")
+    check(launches_cnn["on"]["pack_rows"] > 0 and launches_cnn["on"]["conv_gemm_popcount"] > 0,
+          f"obs (b): slice A launched {launches_cnn['on']}")
+    check(len(answers["off"]) == len(answers["on"]) and all(
+        np.array_equal(a, b) for a, b in zip(answers["off"], answers["on"])),
+          "obs (b): slice A's answers differ with observability on")
+    print(f"obs (b) on {smi}: answers equal off/on, launches {launches_cnn}; "
+          f"{json.dumps(stats['b'])}", flush=True)
+    print(f"obs (e): {json.dumps(stats['e'])}", flush=True)
+    shutil.rmtree(tmp, ignore_errors=True)
+    stats["phase_s"] = time.perf_counter() - t_phase
+    print(f"obs phase: {stats['phase_s']:.1f} s", flush=True)
+    return launches_lm, launches_cnn, stats
+
+
 def main() -> None:
     if not os.path.isdir(os.path.join(ROOT, "zookeeper_tpu_torch", "csrc")):
         fail("run from a checkout: zookeeper_tpu_torch/ is not beside this script")
@@ -7237,6 +7585,8 @@ def main() -> None:
     elapsed("group recovery")
     launches_disagg, launches_watch, _ = disagg_phase(torch, bc, A, smi)
     elapsed("disaggregated serving, hot swaps")
+    obs_lm, obs_cnn, _ = obs_phase(torch, bc, A, smi)
+    elapsed("observability")
     served_rows = {}
     for name in ("pack_rows", "conv_gemm_popcount", "packed_weight_matmul", *LM_KERNELS):
         lm = name in LM_KERNELS
@@ -7395,6 +7745,11 @@ def main() -> None:
             rows[-1]["sharded"] = sharded_rows[name]
         if name in served_rows:
             rows[-1]["served_sharded"] = served_rows[name]
+        if name in ("pack_rows", "conv_gemm_popcount"):
+            rows[-1]["obs"] = {
+                "path": "ServingConfig slice A, 16 requests, observability off and on "
+                        "(metrics_port=0, flight recorder)",
+                "launches": {label: n[name] for label, n in obs_cnn.items()}}
         if name in launches_watch["watch"]:
             rows[-1]["hot_swap"] = {
                 "path": f"ServingConfig(watch=True) on slice {WATCH_SLICE}: "
@@ -7447,6 +7802,11 @@ def main() -> None:
         rows[-1]["served_sharded"] = served_rows[name]
         rows[-1]["features"] = {path: n[name] for path, n in features.items()}
         rows[-1]["disagg"] = {path: n[name] for path, n in launches_disagg.items()}
+        if name != "paged_decode_attention":
+            rows[-1]["obs"] = {
+                "path": "LMServingConfig paged (phase 10's model and stream), built and "
+                        "served with observability off and on",
+                "launches": {path: n[name] for path, n in obs_lm.items()}}
     # LM training kernels, per training step: 4 launches each (one per
     # layer) at the full-width shape.
     label = "[{}, {}, {}, {}] bfloat16 causal=True".format(*LM_TRAIN_SHAPE)

@@ -49,6 +49,8 @@ def test_importing_the_port_loads_no_jax():
         "import zookeeper_tpu_torch.training.digits, zookeeper_tpu_torch.training.cifar\n"
         "import zookeeper_tpu_torch.training.convert_packed, zookeeper_tpu_torch.native\n"
         "import zookeeper_tpu_torch.serving.classifier, zookeeper_tpu_torch.serving.latency\n"
+        "import zookeeper_tpu_torch.observability\n"
+        "from zookeeper_tpu_torch.observability import device, ledger, peaks, recorder\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
         "assert not bad, bad\n"
     )

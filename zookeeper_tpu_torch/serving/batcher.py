@@ -28,10 +28,23 @@ raise ``ValueError``).
 ``FaultPlan.serving_worker_crash`` crashes the async worker at the top
 of an iteration (the chaos seam of the crash path above).
 
-Not ported yet (ROADMAP.md): the trace, flight-recorder, RequestLog and
-overload-guard hooks.
+Observability (``observability``): every request gets a rid at
+``submit()`` (before the shed check, so a shed request is traceable
+too), its terminal summary lands in the batcher's
+``RequestLog("serving")`` (``request_log``; outcome by
+:func:`outcome_of`), and with tracing on the rid-tagged
+``request_enqueue`` / ``request_dispatch`` / ``request_complete`` /
+``request_shed`` events and the ``serve_dispatch`` span draw each
+request's flow; a deadline expiry is a ``request_deadline_expired``
+event. A worker crash notifies the flight recorder, outside the lock,
+after the victims' summaries are logged. After each dispatch's readback
+the engine's ``observe_dispatch(rows, seconds)`` feeds its watchdog and
+MFU gauges: the wall time is the readback's own, so nothing adds a
+device synchronisation. Not ported yet (ROADMAP.md): the overload
+guard.
 """
 
+import logging
 import threading
 import time
 from typing import Any, List, Optional, Tuple
@@ -39,7 +52,12 @@ from typing import Any, List, Optional, Tuple
 import numpy as np
 
 from zookeeper_tpu_torch.core import Field, component
+from zookeeper_tpu_torch.observability import recorder as _recorder
+from zookeeper_tpu_torch.observability import trace as _trace
+from zookeeper_tpu_torch.observability.requests import RequestLog, next_rid
 from zookeeper_tpu_torch.parallel.distributed import refuse_clock_driven
+
+logger = logging.getLogger(__name__)
 
 
 class RejectedError(RuntimeError):
@@ -55,12 +73,28 @@ class WorkerCrashedError(RuntimeError):
     """The async worker died with this request queued or in flight."""
 
 
+def outcome_of(error: Optional[BaseException]) -> str:
+    """The ``RequestLog`` outcome of a terminal error
+    (``observability.requests.OUTCOMES``), shared by the batcher and the
+    decode scheduler so both services' summaries read the same."""
+    if error is None:
+        return "ok"
+    if isinstance(error, DeadlineExpiredError):
+        return "deadline_expired"
+    if isinstance(error, WorkerCrashedError):
+        return "crashed"
+    if isinstance(error, RejectedError):
+        return "shed"
+    return "error"
+
+
 class PendingResult:
     """Handle for one submitted request; ``result()`` yields its
-    ``[n, ...]`` output rows as a numpy array."""
+    ``[n, ...]`` output rows as a numpy array. ``rid`` is the request id
+    minted at submit."""
 
     def __init__(self, batcher: "MicroBatcher", rows: int, event,
-                 deadline_at: Optional[float] = None) -> None:
+                 deadline_at: Optional[float] = None, rid: Optional[int] = None) -> None:
         self._batcher = batcher
         self._event = event  # None in synchronous mode
         self._parts: List[np.ndarray] = []
@@ -71,6 +105,9 @@ class PendingResult:
         self._done = False
         self._t_submit = time.perf_counter()
         self._deadline_at = deadline_at
+        self.rid = rid
+        self._t_dispatch_ns: Optional[int] = None
+        self._bucket: Optional[int] = None
         # Completion can race between the worker, a crash handler and a
         # deadline expiry: the first transition wins.
         self._lock = threading.Lock()
@@ -111,8 +148,7 @@ class PendingResult:
     def _finish(self) -> None:
         """Caller holds ``_lock``."""
         self._done = True
-        if self._error is None:
-            self._batcher._record_done(self)
+        self._batcher._record_done(self, (time.perf_counter() - self._t_submit) * 1e3)
         if self._event is not None:
             self._event.set()
 
@@ -184,6 +220,8 @@ class MicroBatcher:
             refuse_clock_driven(engine, "MicroBatcher.default_deadline_ms")
         object.__setattr__(self, "_engine", engine)
         object.__setattr__(self, "_metrics", metrics)
+        # One compact summary per request that reached an outcome.
+        object.__setattr__(self, "_request_log", RequestLog("serving"))
         # Queue of (request, x, lo, hi): row slice [lo, hi) still owed.
         object.__setattr__(self, "_queue", [])
         object.__setattr__(self, "_queue_rows", 0)
@@ -201,18 +239,36 @@ class MicroBatcher:
                 "submit()."
             )
 
-    def _record_done(self, req: PendingResult) -> None:
-        if self._metrics is not None:
-            latency_ms = (time.perf_counter() - req._t_submit) * 1e3
+    def _weights_step(self) -> Optional[int]:
+        return self._metrics.weights_step if self._metrics is not None else None
+
+    def _record_done(self, req: PendingResult, latency_ms: float) -> None:
+        error = type(req._error).__name__ if req._error is not None else None
+        if _trace.enabled():
+            _trace.event("request_complete", rid=req.rid, attrs={
+                "rows": req._rows, "latency_ms": round(latency_ms, 3), "error": error})
+        if req.rid is not None:
+            self._request_log.append(
+                req.rid, outcome_of(req._error), enqueue_ns=int(req._t_submit * 1e9),
+                dispatch_ns=req._t_dispatch_ns, complete_ns=time.perf_counter_ns(),
+                rows=req._rows, bucket=req._bucket, weights_step=self._weights_step(),
+                detail=error)
+        if self._metrics is not None and req._error is None:
             self._metrics.record_request(latency_ms, req._rows)
 
     def _record_deadline_expired(self) -> None:
+        _trace.event("request_deadline_expired")
         if self._metrics is not None:
             self._metrics.record_deadline_expired()
 
     @property
     def queue_rows(self) -> int:
         return getattr(self, "_queue_rows", 0)
+
+    @property
+    def request_log(self) -> Optional[RequestLog]:
+        """This batcher's terminal-request ring (None before bind)."""
+        return getattr(self, "_request_log", None)
 
     # -- submission ------------------------------------------------------
 
@@ -225,7 +281,7 @@ class MicroBatcher:
             raise ValueError(f"deadline_ms={deadline_ms} must be >= 0.")
         return time.perf_counter() + deadline_ms / 1e3
 
-    def _shed_check(self, n: int) -> None:
+    def _shed_check(self, n: int, rid: Optional[int] = None) -> None:
         if (
             self.shed_above_rows > 0
             and self._queue
@@ -233,6 +289,14 @@ class MicroBatcher:
         ):
             if self._metrics is not None:
                 self._metrics.record_rejected()
+            if _trace.enabled():
+                _trace.event("request_shed", rid=rid,
+                             attrs={"rows": n, "queue_rows": self._queue_rows})
+            if rid is not None:
+                # Never enqueued, so no handle: the summary lands here.
+                now_ns = time.perf_counter_ns()
+                self._request_log.append(rid, "shed", enqueue_ns=now_ns, complete_ns=now_ns,
+                                         rows=n, weights_step=self._weights_step())
             raise RejectedError(
                 f"queue at {self._queue_rows} rows; admitting {n} more would "
                 f"exceed shed_above_rows={self.shed_above_rows}."
@@ -243,6 +307,9 @@ class MicroBatcher:
         object.__setattr__(self, "_queue_rows", self._queue_rows + n)
         if self._metrics is not None:
             self._metrics.record_queue_depth(self._queue_rows)
+        if _trace.enabled():
+            _trace.event("request_enqueue", rid=req.rid,
+                         attrs={"rows": n, "queue_rows": self._queue_rows})
 
     def submit(self, x: Any, *, deadline_ms: Optional[float] = None) -> PendingResult:
         """Enqueue one request ``[n, *input_shape]``. An explicit
@@ -256,16 +323,18 @@ class MicroBatcher:
         if deadline_ms is not None:
             refuse_clock_driven(self._engine, "a request deadline (deadline_ms)")
         deadline_at = self._deadline_at(deadline_ms)
+        # Minted before the shed check: every outcome has a rid.
+        rid = next_rid()
         if self.synchronous:
-            self._shed_check(n)
+            self._shed_check(n, rid)
             if self._queue and self._queue_rows + n > self.max_queue_rows:
                 self.flush()  # backpressure: drain the backlog inline
-            req = PendingResult(self, n, event=None, deadline_at=deadline_at)
+            req = PendingResult(self, n, event=None, deadline_at=deadline_at, rid=rid)
             self._enqueue(req, x, n)
             return req
-        req = PendingResult(self, n, event=threading.Event(), deadline_at=deadline_at)
+        req = PendingResult(self, n, event=threading.Event(), deadline_at=deadline_at, rid=rid)
         with self._cv:
-            self._shed_check(n)
+            self._shed_check(n, rid)
             while (
                 self._queue
                 and self._queue_rows + n > self.max_queue_rows
@@ -322,12 +391,35 @@ class MicroBatcher:
         rows = sum(part.shape[0] for _, part in plan)
         if rows == 0:
             return
+        traced = _trace.enabled()
         try:
-            batch = plan[0][1] if len(plan) == 1 else np.concatenate(
-                [part for _, part in plan]
-            )
-            bucket = self._engine.bucket_for(rows)
-            out = self._engine.infer(batch).cpu().numpy()
+            with _trace.span("serve_dispatch",
+                             attrs={"rows": rows, "requests": len(plan)} if traced else None):
+                t0 = time.perf_counter()
+                t0_ns = time.perf_counter_ns()
+                batch = plan[0][1] if len(plan) == 1 else np.concatenate(
+                    [part for _, part in plan]
+                )
+                bucket = self._engine.bucket_for(rows)
+                # Attributed before the device work: a crash mid-infer still
+                # shows the request reached dispatch.
+                for req, _ in plan:
+                    if req._t_dispatch_ns is None:
+                        req._t_dispatch_ns = t0_ns
+                        req._bucket = bucket
+                    if traced and req.rid is not None:
+                        _trace.event("request_dispatch", rid=req.rid, attrs={"bucket": bucket})
+                out = self._engine.infer(batch).cpu().numpy()
+                dispatch_s = time.perf_counter() - t0
+            # The readback above bounds the dispatch: the engine's watchdog
+            # and MFU gauges take its wall time. A metrics failure must not
+            # fail requests whose inference succeeded.
+            observe = getattr(self._engine, "observe_dispatch", None)
+            if observe is not None:
+                try:
+                    observe(rows, dispatch_s)
+                except Exception:
+                    logger.warning("observe_dispatch failed", exc_info=True)
             if self._metrics is not None:
                 self._metrics.record_dispatch(rows, bucket)
             offset = 0
@@ -426,6 +518,8 @@ class MicroBatcher:
             object.__setattr__(self, "_queue_rows", 0)
             object.__setattr__(self, "_inflight", None)
             object.__setattr__(self, "_worker", None)
+            _trace.event("worker_crash", attrs={"error": type(error).__name__,
+                                                "failed_requests": len(failed)})
             if self._metrics is not None:
                 self._metrics.record_worker_restart()
             wrapped = WorkerCrashedError(
@@ -436,6 +530,11 @@ class MicroBatcher:
             for req in failed:
                 req._fail(wrapped)
             self._cv.notify_all()
+        # After the fails (the bundle's RequestLog tail carries the
+        # crashed summaries) and outside the lock (a bundle write must not
+        # stall submitters).
+        _recorder.notify("worker_crash", attrs={"error": type(error).__name__,
+                                                "failed_requests": len(failed)})
 
     def close(self, drain: bool = False) -> None:
         """Stop the async worker. ``drain=True`` serves what is queued

@@ -68,9 +68,30 @@ shapes and dtypes; ``swap_weights`` then copies it into the module in
 place, each rank's block through the plan ``bind`` cut it with
 (``serving.weights``). Per dispatch that is atomic only when no dispatch
 runs meanwhile: a bound ``DecodeScheduler`` swaps through
-``request_swap``, at a boundary with no stream in flight. Not ported yet
-(ROADMAP.md): the program ledger (``ledger_prefix`` is accepted and
-inert).
+``request_swap``, at a boundary with no stream in flight.
+
+**Programs and the ledger** (``observability.ledger``). Each program's
+first run (a ``(prefill bucket, seq bucket)`` prefill, the warm-extend
+``(bucket, width)`` grid shared by warm and chunked prefill, the decode
+step, a verify window ``verify_step/w{N}``, ``copy_page``, the transfer
+gather and scatter) ends in a device synchronisation and lands one ledger
+row, its key carrying ``ledger_prefix`` ("draft_" for a speculative
+draft): its wall time, and its FLOPs and bytes counted from the shapes
+(``2*M*N*K`` for each dense layer and the head, ``4 * head_dim`` per
+(query, key) pair and head; the weights once plus the K/V rows it reads
+or writes). ``warmup()`` runs the grid (and ``copy_page`` when paged);
+``warmup_verify`` and ``warmup_transfer`` extend it. A first run after
+``warmup()`` outside them is a stall: ``zk_serving_recompiles_total``,
+``recompile_detected`` and a flight-recorder trigger. Binding sets
+``zk_decode_kv_bytes``; each decode step and verify window publishes
+``zk_decode_mbu``: the bytes that dispatch must read (:meth:`_step_bytes`:
+the weights, the live K/V rows and their scales, the positional rows)
+over its readback-bounded wall time over the card's HBM bandwidth. With
+tracing on, each dispatch is a span (``prefill_dispatch``,
+``prefill_warm_dispatch``, ``prefill_chunk_dispatch``,
+``decode_dispatch``, ``verify_dispatch``, ``copy_page_dispatch``,
+``export_pages_dispatch``, ``import_pages_dispatch``, ``weight_swap``).
+None of it adds a synchronisation or a launch to a warmed dispatch.
 """
 
 import collections
@@ -85,7 +106,12 @@ import numpy as np
 import torch
 
 from zookeeper_tpu_torch.core import Field, component
-from zookeeper_tpu_torch.models.transformer import _pool_write_rows, pool_window_write
+from zookeeper_tpu_torch.models.transformer import _Linear, _pool_write_rows, pool_window_write
+from zookeeper_tpu_torch.observability import ledger as _ledger
+from zookeeper_tpu_torch.observability import peaks as _peaks
+from zookeeper_tpu_torch.observability import recorder as _recorder
+from zookeeper_tpu_torch.observability import trace as _trace
+from zookeeper_tpu_torch.observability.registry import default_registry
 from zookeeper_tpu_torch.parallel import distributed
 from zookeeper_tpu_torch.parallel.shards import DecodeShard
 from zookeeper_tpu_torch.serving import weights as _weights
@@ -107,9 +133,23 @@ logger = logging.getLogger(__name__)
 #: The dispatch kinds :func:`check_same_dispatch` compares.
 _PREFILL, _DECODE, _WARM, _CHUNK, _VERIFY, _COPY = 1, 2, 3, 4, 5, 6
 
-#: HBM bandwidth of an H100 SXM (NVIDIA data sheet), the denominator of
-#: ``decode_mbu``.
-HBM_BYTES_PER_S = 3.35e12
+
+class _Dispatch:
+    """A warm program's run: counts its dispatch when the body returns
+    (a plain object, not a generator: the decode loop enters one a step)."""
+
+    __slots__ = ("record",)
+
+    def __init__(self, record) -> None:
+        self.record = record
+
+    def __enter__(self) -> None:
+        return None
+
+    def __exit__(self, exc_type, exc, tb) -> bool:
+        if exc_type is None:
+            self.record.dispatches += 1
+        return False
 
 
 @component
@@ -153,9 +193,8 @@ class DecodeEngine:
     #: with decode steps under its token budget. 0: one prefill dispatch
     #: a prompt. At most the largest seq bucket.
     prefill_chunk_tokens: int = Field(0)
-    #: Names the engine's programs in the program ledger (a speculative
-    #: draft engine takes "draft_"). Inert: the ledger is not ported
-    #: (ROADMAP.md Queue 1 item 5).
+    #: Prefixes the engine's program keys in the program ledger (a
+    #: speculative draft engine takes "draft_": ``draft_decode_step``).
     ledger_prefix: str = Field("")
 
     # -- binding ---------------------------------------------------------
@@ -320,6 +359,35 @@ class DecodeEngine:
         set_("_decode_attention_flavor",
              "reference" if str(self.decode_attention) == "auto" and device.type != "cuda"
              else "kernel")
+        # The program ledger: rows by key, the warm-up scopes' depth, the
+        # counted FLOPs per token (dense layers + the head) and per (query,
+        # key) pair (every layer's heads on this rank).
+        set_("_programs", {})
+        set_("_key_prefix", str(self.ledger_prefix))
+        set_("_kv_row_nbytes", self._kv_row_bytes())
+        set_("_warming", 0)
+        set_("_recompiles_detected", 0)
+        linear = sum(
+            (self._plan.numel(f"{name}.weight", m.weight) if f"{name}.weight" in gathered
+             else m.weight.numel())
+            for name, m in module.named_modules() if isinstance(m, _Linear))
+        set_("_token_flops", 2 * linear + 2 * int(module.d_model) * int(module.vocab_size))
+        heads = int(module.num_heads) if self._shard is None else \
+            self._shard.local_heads(int(module.num_heads))
+        set_("_pair_flops", 4 * module.head_dim * heads * int(module.num_layers))
+        set_("_hbm_bandwidth", _peaks.reference_hbm_bandwidth(
+            torch.cuda.get_device_name(device) if device.type == "cuda" else None)[0])
+        _ledger.recompile_counter()
+        reg = default_registry()
+        reg.gauge("zk_decode_kv_bytes",
+                  help="bytes provisioned for the decode KV cache (k+v, all layers, full "
+                  "slot capacity or pool)").set(float(nbytes))
+        # A handle: the gauge is set once per decode-path dispatch.
+        set_("_mbu_gauge", reg.gauge(
+            "zk_decode_mbu",
+            help="last decode dispatch: the bytes it must read (weights, live K/V rows "
+            "and scales) / wall time / HBM bandwidth (-1 = unknown)",
+            initial=-1))
         return self
 
     def _require_bound(self) -> None:
@@ -449,35 +517,159 @@ class DecodeEngine:
         """Memory-bandwidth utilization of the decode steps so far: the
         median bytes a step must read (the weights once, plus every
         slot's live K/V rows, scales and positional row) over the median
-        step wall time, over the card's 3.35 TB/s. The JAX engine takes
-        its bytes from XLA's cost analysis, which the port has no
-        counterpart of, so this counts them from the shapes. -1 when
-        nothing was decoded or the engine runs on the CPU."""
+        step wall time, over the card's HBM bandwidth
+        (``observability.peaks``). The JAX engine takes its bytes from
+        XLA's cost analysis, which the port has no counterpart of, so
+        this counts them from the shapes. -1 when nothing was decoded or
+        the engine runs on the CPU. ``zk_decode_mbu`` is the same ratio
+        for the last dispatch alone (:meth:`decode_mbu_for`)."""
         records = getattr(self, "_decode_records", [])
         if not records or self._device.type != "cuda":
             return -1.0
         seconds = statistics.median(r[0] for r in records)
         nbytes = statistics.median(r[1] for r in records)
-        return nbytes / seconds / HBM_BYTES_PER_S if seconds > 0 else -1.0
+        return self.decode_mbu_for(seconds, nbytes=nbytes)
 
-    def _step_bytes(self, lengths: np.ndarray) -> int:
-        """Bytes one decode step must read on this rank: weights, and per
-        slot it decodes its ``clamp(length) + 1`` live K/V rows of the
-        heads it holds (int8 rows with their fp32 scales), and its
-        positional row."""
+    def decode_mbu_for(self, seconds: float, program: str = "decode_step",
+                       nbytes: Optional[float] = None) -> float:
+        """MBU of a decode-path program at a given wall time: ``nbytes``
+        (default: the bytes the ledger row of ``program`` — the
+        ``ledger_prefix`` applied — counted at its first run) over
+        ``seconds`` over the card's HBM bandwidth; -1 when an input is
+        unknown (``ledger.mbu``'s totality contract: never raises). The
+        bytes are those the dispatch must read (:meth:`_step_bytes`), so
+        on a card that meets its data-sheet bandwidth the ratio stays at
+        or below 1, where the JAX gauge's full-buffer bytes are an upper
+        bound."""
+        if nbytes is None:
+            nbytes = _ledger.cost_bytes(
+                getattr(self, "_programs", {}).get(getattr(self, "_key_prefix", "") + program))
+        value = _ledger.mbu(nbytes, seconds, getattr(self, "_hbm_bandwidth", None))
+        return float(value) if value is not None else -1.0
+
+    def _observe_decode(self, seconds: float, nbytes: float) -> None:
+        """Publish ``zk_decode_mbu`` for one completed, readback-bounded
+        decode step or verify window (under speculation the verify window
+        is the hot program). Host arithmetic only."""
+        if seconds > 0:
+            self._mbu_gauge.set(self.decode_mbu_for(seconds, nbytes=nbytes))
+
+    @property
+    def recompiles_detected(self) -> int:
+        """Programs first run after ``warmup()`` outside a warm-up call
+        (each one stalled every active stream)."""
+        return getattr(self, "_recompiles_detected", 0)
+
+    @property
+    def compile_count(self) -> int:
+        """Programs run at least once (the port's counterpart of the JAX
+        engine's compiled executables)."""
+        return len(getattr(self, "_programs", {}))
+
+    @property
+    def programs(self) -> dict:
+        """This engine's ledger rows by key (``ledger_prefix`` applied)."""
+        return dict(getattr(self, "_programs", {}))
+
+    def _kv_row_bytes(self) -> int:
+        """Bytes of one K (or V) row of one layer on this rank: the heads
+        it holds, int8 rows with their fp32 scale per head. Taken once at
+        bind (``_kv_row_nbytes``): the byte counts run every step."""
         module = self._module
         heads = int(module.num_heads)
         if self._shard is not None:
             heads = self._shard.local_heads(heads)
-            lo, hi = self._shard.slot_range(len(lengths))
-            lengths = lengths[lo:hi]
-        rows = int(np.sum(np.clip(lengths, 0, self._capacity - 1) + 1))
         if self._paged and str(self.kv_quant) == "int8":
-            per_row = heads * (module.head_dim + 4)
-        else:
-            per_row = heads * module.head_dim * torch.empty((), dtype=module.dtype).element_size()
-        kv = 2 * int(module.num_layers) * rows * per_row
-        return self._weight_bytes + kv + len(lengths) * int(module.d_model) * 4
+            return heads * (module.head_dim + 4)
+        return heads * module.head_dim * torch.empty((), dtype=module.dtype).element_size()
+
+    def _rank_lengths(self, lengths: np.ndarray) -> np.ndarray:
+        if self._shard is None:
+            return lengths
+        lo, hi = self._shard.slot_range(len(lengths))
+        return lengths[lo:hi]
+
+    def _step_bytes(self, lengths: np.ndarray, width: int = 1) -> int:
+        """Bytes one decode step (``width`` 1) or verify window must read
+        on this rank: weights, and per slot it runs its ``clamp(length) +
+        width`` live K/V rows of the heads it holds (int8 rows with their
+        fp32 scales), and its ``width`` positional rows."""
+        module = self._module
+        lengths = self._rank_lengths(lengths)
+        rows = int(np.sum(np.minimum(np.clip(lengths, 0, self._capacity - 1) + width,
+                                     self._capacity)))
+        kv = 2 * int(module.num_layers) * rows * self._kv_row_nbytes
+        return self._weight_bytes + kv + len(lengths) * width * int(module.d_model) * 4
+
+    def _window_bytes(self, kv_rows: int, tokens: int) -> int:
+        """Bytes a prefill or window dispatch must move: the weights once,
+        ``kv_rows`` K/V rows of every layer read or written, and the
+        positional rows of its ``tokens``."""
+        module = self._module
+        return (self._weight_bytes + 2 * int(module.num_layers) * kv_rows * self._kv_row_nbytes
+                + tokens * int(module.d_model) * 4)
+
+    def _page_bytes(self) -> int:
+        """Bytes of one pool page over every layer's buffers (k, v and the
+        int8 rows' scales) on this rank."""
+        return sum(buf[0].numel() * buf.element_size()
+                   for layer in self._cache for buf in layer.values())
+
+    def _flops(self, tokens: int, pairs: int) -> int:
+        """``2*M*N*K`` over the dense layers and the head for ``tokens``
+        rows, plus ``4 * head_dim`` per (query, key) pair and head."""
+        return tokens * self._token_flops + pairs * self._pair_flops
+
+    @contextlib.contextmanager
+    def _warmup_scope(self):
+        """First runs inside are the warmed grid, not stalls."""
+        object.__setattr__(self, "_warming", self._warming + 1)
+        try:
+            yield
+        finally:
+            object.__setattr__(self, "_warming", self._warming - 1)
+
+    def _note_dispatch_compile(self, key: str) -> None:
+        """A program's first run after ``warmup()``, on the dispatch path:
+        counted (the classifier engine's series too), traced, logged and
+        handed to the flight recorder — with continuous batching it stalls
+        every active stream."""
+        object.__setattr__(self, "_recompiles_detected", self._recompiles_detected + 1)
+        _ledger.recompile_counter().inc()
+        _trace.event("recompile_detected", attrs={"program": key})
+        _recorder.notify("recompile_detected", attrs={"program": key})
+        logger.warning(
+            "post-warmup decode-engine first run on the dispatch path (%s): every "
+            "active stream is stalling on it — warm the full bucket grid", key)
+
+    def _program(self, key: str, flops, nbytes):
+        """Run the body as program ``key`` (``ledger_prefix`` applied).
+        Its first run is synchronised, timed and ledgered, ``flops()`` and
+        ``nbytes()`` counted then (and only then); a first run after
+        ``warmup()`` outside a warm-up scope is noted as a stall. A warm
+        run only counts its dispatch, when the body returns."""
+        key = self._key_prefix + key
+        record = self._programs.get(key)
+        if record is not None:
+            return _Dispatch(record)
+        return self._first_run(key, flops, nbytes)
+
+    @contextlib.contextmanager
+    def _first_run(self, key: str, flops, nbytes):
+        if self._warmed and not self._warming:
+            self._note_dispatch_compile(key)
+        t0 = time.perf_counter()
+        yield
+        if self._device.type == "cuda":
+            torch.cuda.synchronize(self._device)
+        compile_ms = (time.perf_counter() - t0) * 1e3
+        mesh = "x".join(f"{k}:{v}" for k, v in self._partitioner.mesh_sizes.items()) or "1"
+        record = _ledger.default_ledger().record(
+            key.split("/")[0], f"{type(self._partitioner).__name__}/mesh={mesh}/{key}",
+            flops=flops(), bytes_accessed=nbytes(), compile_ms=compile_ms,
+            attrs={"slots": int(self.slots)})
+        record.dispatches += 1
+        self._programs[key] = record
 
     def kv_pages_in_use(self, lengths) -> int:
         """Occupancy: the allocator's count (paged), or ``sum(ceil(len /
@@ -595,7 +787,8 @@ class DecodeEngine:
     def warmup_transfer(self) -> None:
         """Run the export and import once before handoff traffic: page 0
         gathered and written back onto itself (the same bytes)."""
-        self.import_pages(self.export_pages([0]), [0])
+        with self._warmup_scope():
+            self.import_pages(self.export_pages([0]), [0])
 
     def _transfer_ids(self, what: str, page_ids: Sequence[int]) -> torch.Tensor:
         w = self.transfer_width
@@ -613,7 +806,11 @@ class DecodeEngine:
         another lane meanwhile)."""
         self._require_bound()
         ids = self._transfer_ids("export_pages moves", page_ids)
-        with torch.inference_mode():
+        n = len(page_ids)
+        with self._program("gather_pages", lambda: 0, lambda: 2 * n * self._page_bytes()), \
+                _trace.span("export_pages_dispatch",
+                            attrs={"pages": n} if _trace.enabled() else None), \
+                torch.inference_mode():
             block = [{name: buf.index_select(0, ids) for name, buf in layer.items()}
                      for layer in self._cache]
         self._dispatches["export_pages"] += 1
@@ -631,7 +828,11 @@ class DecodeEngine:
                 f"import_pages: a block of {len(block)} layers for a pool of "
                 f"{len(self._cache)}."
             )
-        with torch.inference_mode():
+        n = len(page_ids)
+        with self._program("scatter_pages", lambda: 0, lambda: 2 * n * self._page_bytes()), \
+                _trace.span("import_pages_dispatch",
+                            attrs={"pages": n} if _trace.enabled() else None), \
+                torch.inference_mode():
             for layer, pages in zip(self._cache, block):
                 for name, buf in layer.items():
                     buf.index_copy_(0, ids, pages[name])
@@ -657,7 +858,8 @@ class DecodeEngine:
         docstring for what a swap under in-flight streams means;
         ``DecodeScheduler.request_swap`` is the safe seam)."""
         self.check_swap(params, model_state)
-        _weights.load_weights(self._module, self._plan, params, model_state)
+        with _trace.span("weight_swap"):
+            _weights.load_weights(self._module, self._plan, params, model_state)
 
     # -- dispatch --------------------------------------------------------
 
@@ -693,15 +895,15 @@ class DecodeEngine:
         runs = 0
         dev = self._device
         extend = self._paged and (bool(self.prefix_cache) or int(self.prefill_chunk_tokens) > 0)
-        with torch.inference_mode():
+        with torch.inference_mode(), self._warmup_scope():
             for pb in self._prefill_buckets if prefill else ():
                 for sb in self._seq_buckets:
                     self._check_dispatch(_PREFILL, pb, sb)
                     tokens = torch.zeros((pb, sb), dtype=torch.int32, device=dev)
                     lengths = torch.ones((pb,), dtype=torch.int32, device=dev)
-                    with self._weights():
+                    with self._prefill_program(pb, sb), self._weights():
                         last, _ = self._module.prefill(tokens, lengths)
-                    torch.argmax(last, dim=-1).cpu()
+                        torch.argmax(last, dim=-1).cpu()
                     self._dispatches["prefill"] += 1
                     runs += 1
                     if extend:
@@ -716,6 +918,10 @@ class DecodeEngine:
                 self._check_dispatch(_DECODE, n, 0)
                 self._slots_dispatch("decode", np.zeros(n, np.int32), np.zeros(n, np.int32))
                 runs += 1
+            if self._paged:
+                # Page 0 onto itself: the same bytes.
+                self.copy_page(0, 0)
+                runs += 1
         object.__setattr__(self, "_warmed", True)
         return runs
 
@@ -726,7 +932,15 @@ class DecodeEngine:
         before serving."""
         self._require_bound()
         n = int(self.slots)
-        self.verify(np.zeros((n, int(width)), np.int32), np.zeros(n, np.int32))
+        with self._warmup_scope():
+            self.verify(np.zeros((n, int(width)), np.int32), np.zeros(n, np.int32))
+
+    def _prefill_program(self, pb: int, sb: int):
+        """The ``(pb, sb)`` prefill's program: K9 over the causal bucket,
+        its K/V rows written."""
+        return self._program(f"prefill/b{pb}s{sb}",
+                             lambda: self._flops(pb * sb, pb * sb * (sb + 1) // 2),
+                             lambda: self._window_bytes(pb * sb, pb * sb))
 
     def prefill(self, prompts: Sequence[np.ndarray], slot_ids: Sequence[int]) -> np.ndarray:
         """Admit a group: write each prompt's K/V into its slot (or its
@@ -753,7 +967,9 @@ class DecodeEngine:
             lengths[i] = lens[i]
         self._check_dispatch(_PREFILL, pb, sb, [int(s) for s in slot_ids], lens)
         dev = self._device
-        with torch.inference_mode():
+        with self._prefill_program(pb, sb), _trace.span(
+                "prefill_dispatch", attrs={"requests": n, "bucket": pb, "seq_bucket": sb}
+                if _trace.enabled() else None), torch.inference_mode():
             with self._weights():
                 last, kv = self._module.prefill(torch.from_numpy(tokens).to(dev),
                                                 torch.from_numpy(lengths).to(dev))
@@ -882,16 +1098,34 @@ class DecodeEngine:
     def _extend_dispatch(self, name: str, tokens, lengths, rows, valid, out_idx) -> np.ndarray:
         """Run a padded window group through ``decode_verify_paged`` and
         return the argmax at each lane's ``out_idx``. Every rank runs the
-        whole group (no data split) and writes its heads of every row."""
+        whole group (no data split) and writes its heads of every row.
+        Warm and chunked prefill share the ``prefill_extend/b{pb}w{w}``
+        programs."""
         dev = self._device
         t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
         shard = None if self._shard is None else dataclasses.replace(self._shard, data=None)
-        with self._weights():
-            logits, _ = self._module.decode_verify_paged(t(tokens), t(lengths), self._cache,
-                                                         t(rows), valid=t(valid), shard=shard)
-        last = logits[torch.arange(tokens.shape[0], device=dev), t(out_idx).long()]
+        pb, w = tokens.shape
+        span = None
+        if _trace.enabled():
+            lanes = int(np.count_nonzero(valid))
+            span = ({"requests": lanes, "bucket": pb, "width": w} if name == "prefill_warm"
+                    else {"lanes": lanes, "bucket": pb, "width": w, "tokens": int(valid.sum())})
+        v, st = valid.astype(np.int64), lengths.astype(np.int64)
+
+        def flops():
+            # Lane i's row j (of v[i]) attends st[i] + j + 1 keys.
+            return self._flops(pb * w, int(np.sum(v * (st + 1) + v * (v - 1) // 2)))
+
+        with self._program(f"prefill_extend/b{pb}w{w}", flops,
+                           lambda: self._window_bytes(int(np.sum(st + v)), pb * w)), \
+                _trace.span(f"{name}_dispatch", attrs=span):
+            with self._weights():
+                logits, _ = self._module.decode_verify_paged(t(tokens), t(lengths), self._cache,
+                                                             t(rows), valid=t(valid), shard=shard)
+            last = logits[torch.arange(tokens.shape[0], device=dev), t(out_idx).long()]
+            first = torch.argmax(last, dim=-1).to(torch.int32).cpu().numpy()
         self._dispatches[name] += 1
-        return torch.argmax(last, dim=-1).to(torch.int32).cpu().numpy()
+        return first
 
     def copy_page(self, src: int, dst: int) -> None:
         """The copy-on-write of one pool page, before the dispatch that
@@ -900,7 +1134,9 @@ class DecodeEngine:
         holds)."""
         self._require_paged("copy_page")
         self._check_dispatch(_COPY, int(src), int(dst))
-        with torch.inference_mode():
+        with self._program("copy_page", lambda: 0, lambda: 2 * self._page_bytes()), \
+                _trace.span("copy_page_dispatch", attrs={"src": int(src), "dst": int(dst)}
+                            if _trace.enabled() else None), torch.inference_mode():
             for layer in self._cache:
                 for buf in layer.values():
                     buf[int(dst)] = buf[int(src)]
@@ -925,7 +1161,9 @@ class DecodeEngine:
             nxt = self._slots_dispatch("decode", tokens, lengths)
         # Readback-bounded wall time: the dispatch ends in a copy to the
         # host, which waits for the card.
-        self._decode_records.append((time.perf_counter() - t0, self._step_bytes(lengths)))
+        seconds, nbytes = time.perf_counter() - t0, self._step_bytes(lengths)
+        self._decode_records.append((seconds, nbytes))
+        self._observe_decode(seconds, nbytes)
         return nxt
 
     def verify(self, tokens: np.ndarray, lengths: np.ndarray) -> np.ndarray:
@@ -953,8 +1191,11 @@ class DecodeEngine:
                 "shrink speculative.k or raise kv_capacity."
             )
         self._check_dispatch(_VERIFY, n, w, tokens.reshape(-1), lengths)
+        t0 = time.perf_counter()
         with torch.inference_mode():
-            return self._slots_dispatch("verify", tokens, lengths)
+            nxt = self._slots_dispatch("verify", tokens, lengths)
+        self._observe_decode(time.perf_counter() - t0, self._step_bytes(lengths, width=w))
+        return nxt
 
     def _slots_dispatch(self, name: str, tokens: np.ndarray, lengths: np.ndarray) -> np.ndarray:
         """A decode step (``tokens [slots]``) or a verify window
@@ -963,11 +1204,22 @@ class DecodeEngine:
         dev = self._device
         shard = self._shard
         window = tokens.ndim == 2
+        w = tokens.shape[1] if window else 1
         lo, hi = (0, len(tokens)) if shard is None else shard.slot_range(len(tokens))
         t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
         tok_t, len_t = t(tokens[lo:hi]), t(lengths[lo:hi])
         module = self._module
-        with self._weights():
+
+        def flops():
+            live = np.clip(lengths[lo:hi].astype(np.int64), 0, self._capacity - 1) + 1
+            return self._flops((hi - lo) * w, int(np.sum(w * live)) + (hi - lo) * w * (w - 1) // 2)
+
+        program = self._program(f"verify_step/w{w}" if window else "decode_step", flops,
+                                lambda: self._step_bytes(lengths, width=w))
+        span = _trace.span(f"{name}_dispatch", attrs=(
+            {"slots": int(self.slots), "width": w} if window else {"slots": int(self.slots)})
+            if _trace.enabled() else None)
+        with program, span, self._weights():
             if self._paged:
                 table = np.ascontiguousarray(self._pool.table)
                 table_t = t(table[lo:hi])
@@ -988,5 +1240,6 @@ class DecodeEngine:
             nxt = torch.argmax(logits, dim=-1).to(torch.int32)
             if shard is not None:
                 nxt = shard.gather_slots(nxt)
+            nxt = nxt.cpu().numpy()
         self._dispatches[name] += 1
-        return nxt.cpu().numpy()
+        return nxt

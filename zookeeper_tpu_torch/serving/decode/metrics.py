@@ -2,9 +2,15 @@
 occupancy.
 
 The port of ``zookeeper_tpu/serving/decode/metrics.py``'s
-``DecodeMetrics``, stored as the port's ``ServingMetrics`` stores its
-series (lifetime counters, bounded windows reduced by ``snapshot()``);
-the Prometheus registry waits (ROADMAP.md). Recorders are O(1),
+``DecodeMetrics``, built on the typed registry as ``ServingMetrics`` is:
+every lifetime total is a ``Counter``, every sampled series feeds a
+bounded window (exact ``np.percentile`` snapshots) plus a fixed-bucket
+``Histogram``, and the instruments render live at ``/metrics``
+(``LMServingConfig.metrics_port``) under the JAX package's series:
+``zk_decode_*``, the speculative ``zk_spec_*``, the chunked-prefill
+``zk_prefill_chunks_total`` and ``zk_prefill_stall_ms``, the pool's
+``zk_kv_pool_free_pages`` and ``zk_prefix_cache_hit_rate``, and the
+disaggregated handoffs' ``zk_transfer_*``. Recorders are O(1),
 thread-safe and host-side: recording never synchronises the card.
 
 - ``ttft_ms``: submit-to-first-token wall time;
@@ -17,7 +23,8 @@ thread-safe and host-side: recording never synchronises the card.
   lanes dispatched), ``spec_draft_tokens_total`` and
   ``spec_accepted_tokens_total`` (their ratio the acceptance rate, also
   in ``snapshot()``), and per speculative window and slot the accepted
-  drafts (``spec_accept_lengths``);
+  drafts (``spec_accept_lengths``, and the ``zk_spec_accept_length``
+  histogram);
 - the staged weight swaps (``weight_swaps_total``, the live training
   step in the ``weights_step`` gauge, -1 for the bind-time weights) and
   the disaggregated page handoffs: ``transfer_handoffs_total``,
@@ -30,16 +37,19 @@ thread-safe and host-side: recording never synchronises the card.
 """
 
 import threading
-from collections import deque
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 
 from zookeeper_tpu_torch.core import Field, component
+from zookeeper_tpu_torch.observability.registry import DEFAULT_MS_BUCKETS, MetricsRegistry
+from zookeeper_tpu_torch.serving.metrics import _get_or_build_obs, _observe_sample, _reset_obs
 
 __all__ = ["DecodeMetrics"]
 
-#: Lifetime counters, in ``totals`` reporting order.
+_PREFIX = "zk_decode_"
+
+#: Lifetime counters under the ``zk_decode_`` prefix, in ``totals`` order.
 _COUNTER_NAMES = (
     "tokens_total",
     "requests_total",
@@ -49,13 +59,29 @@ _COUNTER_NAMES = (
     "deadline_expired_total",
     "worker_restarts_total",
     "weight_swaps_total",
-    "prefill_chunks_total",
-    "spec_draft_tokens_total",
-    "spec_accepted_tokens_total",
-    "transfer_handoffs_total",
-    "transfer_pages_total",
-    "transfer_bytes",
 )
+
+#: The feature families' counters, each under its own prefix, reported
+#: after the decode family: (name in ``totals``, exposition name, help).
+_FEATURE_COUNTERS = (
+    ("prefill_chunks_total", "zk_prefill_chunks_total",
+     "prefill chunk lanes dispatched (one per slot per chunk; a monolithic "
+     "prefill counts zero)"),
+    ("spec_draft_tokens_total", "zk_spec_draft_tokens_total",
+     "draft tokens proposed across all speculative windows (k per slot per window)"),
+    ("spec_accepted_tokens_total", "zk_spec_accepted_tokens_total",
+     "draft tokens the teacher verify accepted (longest prefix match; ratio to "
+     "proposed = acceptance rate)"),
+    ("transfer_handoffs_total", "zk_transfer_handoffs_total",
+     "completed page handoffs (one per stream admitted into a decode slot)"),
+    ("transfer_pages_total", "zk_transfer_pages_total",
+     "KV pages moved prefill->decode across all handoffs"),
+    ("transfer_bytes", "zk_transfer_bytes",
+     "KV bytes moved prefill->decode (real page bytes, padding lanes excluded)"),
+)
+
+#: Accept-length histogram buckets: accepted drafts per verify window.
+_SPEC_ACCEPT_BUCKETS = (0, 1, 2, 3, 4, 6, 8, 12, 16)
 
 #: Windowed series, reported as ``<name>_p50_ms``/``_p99_ms``/``_mean_ms``.
 _WINDOW_NAMES = ("ttft_ms", "token_ms", "prefill_ms", "transfer_ms", "itl_ms",
@@ -64,46 +90,99 @@ _WINDOW_NAMES = ("ttft_ms", "token_ms", "prefill_ms", "transfer_ms", "itl_ms",
 
 @component
 class DecodeMetrics:
-    """Bounded-window aggregator for decode samples."""
+    """Bounded-window aggregator for decode samples; its API mirrors
+    ``ServingMetrics``."""
 
     #: Samples retained per series; percentiles are over this window.
     window: int = Field(4096)
 
-    def _state(self) -> dict:
-        state = getattr(self, "_obs_state", None)
-        if state is None:
-            state = {
-                "lock": threading.Lock(),
-                "counters": dict.fromkeys(_COUNTER_NAMES, 0),
-                "gauges": {
-                    "active_slots": 0.0, "slot_occupancy": 0.0, "queue_depth": 0.0,
-                    "kv_pages_in_use": 0.0, "kv_pool_free_pages": -1.0,
-                    "prefix_cache_hit_rate": -1.0, "spec_acceptance_rate": -1.0,
-                    "weights_step": -1.0,
-                },
-                "accept_lengths": {},
-                "windows": {},
-            }
-            object.__setattr__(self, "_obs_state", state)
-        return state
+    def _obs(self) -> dict:
+        return _get_or_build_obs(self, self._build_obs)
 
-    def _count(self, name: str, n: int = 1) -> None:
-        state = self._state()
-        with state["lock"]:
-            state["counters"][name] += int(n)
+    def _build_obs(self) -> dict:
+        registry = MetricsRegistry()
+        counters = {name: registry.counter(_PREFIX + name, help=f"lifetime decode {name}")
+                    for name in _COUNTER_NAMES}
+        counters.update({name: registry.counter(series, help=text)
+                         for name, series, text in _FEATURE_COUNTERS})
+
+        def gauge(name, text, initial=0.0):
+            return registry.gauge(name, help=text, initial=initial)
+
+        return {
+            "registry": registry,
+            "counters": counters,
+            "gauges": {
+                "active_slots": gauge(_PREFIX + "active_slots",
+                                      "sequence slots currently decoding"),
+                "slot_occupancy": gauge(
+                    _PREFIX + "slot_occupancy",
+                    "active slots / total slots (1.0 = the slot array is the "
+                    "bottleneck when the queue is nonempty)"),
+                "queue_depth": gauge(_PREFIX + "queue_depth", "requests waiting for a slot"),
+                "kv_pages_in_use": gauge(_PREFIX + "kv_pages_in_use",
+                                         "KV pages holding live tokens across active slots"),
+                "weights_step": gauge(
+                    _PREFIX + "serving_weights_step",
+                    "training step whose weights are live (-1 = bind-time weights)", -1),
+                "spec_acceptance_rate": gauge(
+                    "zk_spec_acceptance_rate",
+                    "lifetime accepted/proposed draft-token fraction (-1 = no "
+                    "speculative window yet)", -1),
+                "kv_pool_free_pages": gauge(
+                    "zk_kv_pool_free_pages",
+                    "free pages in the shared KV page pool (-1 = slot layout, no pool)", -1),
+                "prefix_cache_hit_rate": gauge(
+                    "zk_prefix_cache_hit_rate",
+                    "lifetime prompt-token fraction served from prefix-cache-shared "
+                    "pages (-1 = no lookup yet or prefix cache off)", -1),
+            },
+            "hist": {
+                "transfer_ms": registry.histogram(
+                    "zk_transfer_ms", buckets=DEFAULT_MS_BUCKETS,
+                    help="one page handoff: export gather + device-to-device (or "
+                    "host-bounce) move + import scatter"),
+                "ttft_ms": registry.histogram(
+                    _PREFIX + "ttft_ms", buckets=DEFAULT_MS_BUCKETS,
+                    help="submit-to-first-token wall time"),
+                "token_ms": registry.histogram(
+                    _PREFIX + "token_ms", buckets=DEFAULT_MS_BUCKETS,
+                    help="one decode dispatch (one token per active slot)"),
+                "prefill_ms": registry.histogram(
+                    _PREFIX + "prefill_ms", buckets=DEFAULT_MS_BUCKETS,
+                    help="one prefill dispatch (KV write + first token)"),
+                "spec_accept_length": registry.histogram(
+                    "zk_spec_accept_length", buckets=_SPEC_ACCEPT_BUCKETS,
+                    help="accepted drafts per verify window per slot (0..k; mass at k "
+                    "means raise k, mass at 0 means the draft disagrees with the "
+                    "teacher)"),
+                "itl_ms": registry.histogram(
+                    _PREFIX + "itl_ms", buckets=DEFAULT_MS_BUCKETS,
+                    help="inter-token latency: wall time between consecutive "
+                    "delivered tokens of one stream"),
+                "prefill_stall_ms": registry.histogram(
+                    "zk_prefill_stall_ms", buckets=DEFAULT_MS_BUCKETS,
+                    help="per-request admission-to-first-token wall time under "
+                    "chunked prefill"),
+            },
+            "windows": {},
+            # Exact per-length counts behind ``spec_accept_lengths`` (the
+            # histogram's buckets merge lengths past 4).
+            "accept_lengths": {},
+            "lock": threading.Lock(),
+        }
+
+    @property
+    def registry(self) -> MetricsRegistry:
+        """The instrument registry: attach it to an ``ObservabilityServer``
+        to scrape every ``zk_decode_*`` series."""
+        return self._obs()["registry"]
 
     def _observe(self, name: str, value: float) -> None:
-        state = self._state()
-        with state["lock"]:
-            series = state["windows"].setdefault(
-                name, deque(maxlen=max(1, int(self.window)))
-            )
-            series.append(float(value))
+        _observe_sample(self, self._obs(), name, value)
 
-    def _set(self, **gauges: float) -> None:
-        state = self._state()
-        with state["lock"]:
-            state["gauges"].update({k: float(v) for k, v in gauges.items()})
+    def _inc(self, name: str, n: int = 1) -> None:
+        self._obs()["counters"][name].inc(int(n))
 
     # -- recorders (called by DecodeScheduler) ---------------------------
 
@@ -112,18 +191,18 @@ class DecodeMetrics:
 
     def record_prefill(self, prefill_ms: float, requests: int) -> None:
         self._observe("prefill_ms", prefill_ms)
-        self._count("prefills_total")
-        self._count("requests_total", requests)
+        self._inc("prefills_total")
+        self._inc("requests_total", requests)
 
     def record_decode_step(self, step_ms: float, tokens: int) -> None:
         """One decode dispatch delivered ``tokens`` stream tokens."""
         self._observe("token_ms", step_ms)
-        self._count("decode_steps_total")
-        self._count("tokens_total", tokens)
+        self._inc("decode_steps_total")
+        self._inc("tokens_total", tokens)
 
     def record_first_tokens(self, n: int) -> None:
         """Prefill-emitted tokens count toward the token total too."""
-        self._count("tokens_total", n)
+        self._inc("tokens_total", n)
 
     def record_itl(self, gap_ms: float) -> None:
         self._observe("itl_ms", gap_ms)
@@ -131,16 +210,16 @@ class DecodeMetrics:
     def record_prefill_chunks(self, chunks: int, dispatch_ms: float) -> None:
         """One chunked-prefill dispatch of ``chunks`` lanes (one slot's
         chunk each); its wall time joins the prefill series."""
-        self._count("prefill_chunks_total", chunks)
-        self._count("prefills_total")
+        self._inc("prefill_chunks_total", chunks)
+        self._inc("prefills_total")
         self._observe("prefill_ms", dispatch_ms)
 
     def record_prefill_finish(self, requests: int, stall_ms) -> None:
         """``requests`` prompts' final chunks landed: admitted requests
         now, each with its admission-to-first-token wall time."""
-        self._count("requests_total", requests)
+        self._inc("requests_total", requests)
         for ms in stall_ms:
-            self._observe("prefill_stall_ms", ms)
+            self._observe("prefill_stall_ms", float(ms))
 
     def record_spec_window(self, proposed: int, accepted: int, accept_lengths,
                            window_ms: float, delivered: int) -> None:
@@ -148,84 +227,92 @@ class DecodeMetrics:
         drafts over its slots, each slot's accepted count, the window's
         wall time in the decode series (a window is the speculative
         path's decode dispatch) and ``delivered`` stream tokens."""
-        state = self._state()
-        with state["lock"]:
-            counters = state["counters"]
-            counters["spec_draft_tokens_total"] += int(proposed)
-            counters["spec_accepted_tokens_total"] += int(accepted)
-            counters["tokens_total"] += int(delivered)
-            counters["decode_steps_total"] += 1
+        obs = self._obs()
+        counters = obs["counters"]
+        counters["spec_draft_tokens_total"].inc(int(proposed))
+        counters["spec_accepted_tokens_total"].inc(int(accepted))
+        counters["tokens_total"].inc(int(delivered))
+        counters["decode_steps_total"].inc()
+        self._observe("token_ms", float(window_ms))
+        with obs["lock"]:
             for a in accept_lengths:
-                state["accept_lengths"][int(a)] = state["accept_lengths"].get(int(a), 0) + 1
-            total = counters["spec_draft_tokens_total"]
-            state["gauges"]["spec_acceptance_rate"] = (
-                counters["spec_accepted_tokens_total"] / total if total else -1.0)
-        self._observe("token_ms", window_ms)
+                obs["accept_lengths"][int(a)] = obs["accept_lengths"].get(int(a), 0) + 1
+        for a in accept_lengths:
+            obs["hist"]["spec_accept_length"].observe(float(a))
+        total_p = counters["spec_draft_tokens_total"].value
+        total_a = counters["spec_accepted_tokens_total"].value
+        obs["gauges"]["spec_acceptance_rate"].set(total_a / total_p if total_p else -1.0)
 
     def record_occupancy(self, active: int, slots: int, queue_depth: int,
                          kv_pages: int) -> None:
-        self._set(active_slots=active, slot_occupancy=active / slots if slots else 0.0,
-                  queue_depth=queue_depth, kv_pages_in_use=kv_pages)
+        gauges = self._obs()["gauges"]
+        gauges["active_slots"].set(int(active))
+        gauges["slot_occupancy"].set(active / slots if slots else 0.0)
+        gauges["queue_depth"].set(int(queue_depth))
+        gauges["kv_pages_in_use"].set(int(kv_pages))
 
     def record_pool(self, free_pages: int, hit_rate: float) -> None:
-        self._set(kv_pool_free_pages=free_pages, prefix_cache_hit_rate=hit_rate)
+        """The pool's real free-page count and the prefix cache's
+        lifetime token hit rate."""
+        gauges = self._obs()["gauges"]
+        gauges["kv_pool_free_pages"].set(int(free_pages))
+        gauges["prefix_cache_hit_rate"].set(float(hit_rate))
 
     def record_transfer(self, pages: int, nbytes: int, transfer_ms: float) -> None:
         """One completed page handoff: ``pages`` real pages and ``nbytes``
         real bytes moved from the prefill role to the decode role, in
         ``transfer_ms`` wall milliseconds."""
-        state = self._state()
-        with state["lock"]:
-            counters = state["counters"]
-            counters["transfer_handoffs_total"] += 1
-            counters["transfer_pages_total"] += int(pages)
-            counters["transfer_bytes"] += int(nbytes)
-        self._observe("transfer_ms", transfer_ms)
+        self._inc("transfer_handoffs_total")
+        self._inc("transfer_pages_total", pages)
+        self._inc("transfer_bytes", nbytes)
+        self._observe("transfer_ms", float(transfer_ms))
 
-    def record_weight_swap(self, step=None) -> None:
+    def record_weight_swap(self, step: Optional[int] = None) -> None:
         """A staged weight swap applied (``step``: the training step now
         live, when known)."""
-        self._count("weight_swaps_total")
+        self._inc("weight_swaps_total")
         if step is not None:
-            self._set(weights_step=int(step))
+            self._obs()["gauges"]["weights_step"].set(int(step))
 
     def record_rejected(self) -> None:
-        self._count("rejected_total")
+        self._inc("rejected_total")
 
     def record_deadline_expired(self) -> None:
-        self._count("deadline_expired_total")
+        self._inc("deadline_expired_total")
 
     def record_worker_restart(self) -> None:
-        self._count("worker_restarts_total")
+        self._inc("worker_restarts_total")
 
     # -- reduction -------------------------------------------------------
 
     @property
+    def weights_step(self) -> int:
+        """The live training step (-1: the bind-time weights); stamped
+        onto RequestLog summaries."""
+        return int(self._obs()["gauges"]["weights_step"].value)
+
+    @property
     def totals(self) -> Dict[str, int]:
-        state = self._state()
-        with state["lock"]:
-            return dict(state["counters"])
+        counters = self._obs()["counters"]
+        return {name: int(counters[name].value)
+                for name in _COUNTER_NAMES + tuple(n for n, _, _ in _FEATURE_COUNTERS)}
 
     @property
     def spec_accept_lengths(self) -> Dict[int, int]:
         """Speculative windows by accepted drafts (per slot and window)."""
-        state = self._state()
-        with state["lock"]:
-            return dict(sorted(state["accept_lengths"].items()))
+        obs = self._obs()
+        with obs["lock"]:
+            return dict(sorted(obs["accept_lengths"].items()))
 
     @property
     def gauges(self) -> Dict[str, float]:
-        state = self._state()
-        with state["lock"]:
-            return dict(state["gauges"])
+        return {name: float(g.value) for name, g in self._obs()["gauges"].items()}
 
     def snapshot(self) -> Dict[str, float]:
         """Counters plus p50/p99/mean of every non-empty window, as a flat
         ``{name: float}`` mapping."""
-        state = self._state()
-        with state["lock"]:
-            windows = {k: list(v) for k, v in state["windows"].items()}
-            out: Dict[str, float] = {k: float(v) for k, v in state["counters"].items()}
+        windows = self._obs()["windows"]
+        out: Dict[str, float] = {k: float(v) for k, v in self.totals.items()}
         if out["spec_draft_tokens_total"]:
             out["spec_acceptance_rate"] = (out["spec_accepted_tokens_total"]
                                            / out["spec_draft_tokens_total"])
@@ -237,3 +324,12 @@ class DecodeMetrics:
                 out[f"{name[:-3]}_p99_ms"] = float(np.percentile(arr, 99))
                 out[f"{name[:-3]}_mean_ms"] = float(arr.mean())
         return out
+
+    def reset(self) -> None:
+        """Zero every series IN PLACE (a live ``/metrics`` server keeps
+        rendering)."""
+        _reset_obs(self)
+        obs = getattr(self, "_obs_state", None)
+        if obs is not None:
+            with obs["lock"]:
+                obs["accept_lengths"].clear()

@@ -51,9 +51,23 @@ invalidated (its pages hold the old weights' K/V). Every stream runs
 wholly on the weights it started with. Under speculation only the
 teacher is swapped, never the draft: a stale draft lowers acceptance,
 never correctness. ``FaultPlan.decode_worker_crash`` crashes the loop
-at the top of an iteration (the crash path above). Not ported yet
-(ROADMAP.md): the overload guard and brown-out, the RequestLog and
-tracing.
+at the top of an iteration (the crash path above).
+
+Observability (``observability``): each stream gets a rid at
+``submit()`` (before the shed check) and one terminal summary in the
+scheduler's ``RequestLog("decode")`` (``request_log``: outcome, tokens,
+slot, the live weights' step; an ok stream's finish reason, and under
+speculation its accepted/proposed drafts, in ``detail``). With tracing on, the
+rid-tagged ``decode_request_enqueue`` / ``decode_request_shed`` /
+``decode_request_dispatch`` / ``decode_stream_finish`` /
+``decode_stream_fail`` (a deadline expiry, a crash, a shed) and
+``spec_accept`` events draw each stream's flow, the speculative window
+runs in ``spec_draft`` and ``spec_verify`` spans beside the engine's
+dispatch spans (a chunk is a ``prefill_chunk_dispatch``), and a staged
+swap and a crash are ``decode_weight_swap`` and ``decode_worker_crash``
+events. A loop crash notifies the flight recorder, outside the lock,
+after the victims are failed. Not ported yet (ROADMAP.md): the overload
+guard and brown-out.
 """
 
 import logging
@@ -65,11 +79,15 @@ from typing import Any, List, Optional
 import numpy as np
 
 from zookeeper_tpu_torch.core import Field, component
+from zookeeper_tpu_torch.observability import recorder as _recorder
+from zookeeper_tpu_torch.observability import trace as _trace
+from zookeeper_tpu_torch.observability.requests import RequestLog, next_rid
 from zookeeper_tpu_torch.parallel.distributed import refuse_clock_driven
 from zookeeper_tpu_torch.serving.batcher import (
     DeadlineExpiredError,
     RejectedError,
     WorkerCrashedError,
+    outcome_of,
 )
 
 __all__ = ["DecodeScheduler", "DecodeStream"]
@@ -85,7 +103,7 @@ class DecodeStream:
 
     def __init__(self, scheduler: "DecodeScheduler", prompt: np.ndarray,
                  max_new_tokens: int, deadline_at: Optional[float],
-                 eos_token: Optional[int]) -> None:
+                 eos_token: Optional[int], rid: Optional[int] = None) -> None:
         self._scheduler = scheduler
         self.prompt = prompt
         self._max_new = int(max_new_tokens)
@@ -103,6 +121,12 @@ class DecodeStream:
         self._spec_proposed = 0
         self._spec_accepted = 0
         self._slot: Optional[int] = None
+        #: The request id minted at submit (its trace records and its
+        #: RequestLog summary carry it).
+        self.rid = rid
+        self._t_dispatch_ns: Optional[int] = None
+        # The serving role that last dispatched it ("" until admission).
+        self._role = ""
         self._cond = threading.Condition()
 
     @property
@@ -149,6 +173,12 @@ class DecodeStream:
             self._done = True
             self._finish_reason = reason
             self._cond.notify_all()
+        # Outside the condition; the first transition wins above, so one
+        # terminal summary per stream.
+        detail = reason
+        if self._spec_proposed:
+            detail = f"{reason} spec={self._spec_accepted}/{self._spec_proposed}"
+        self._scheduler._log_terminal(self, "ok", detail=detail)
 
     def _fail(self, error: BaseException) -> bool:
         with self._cond:
@@ -157,6 +187,7 @@ class DecodeStream:
             self._done = True
             self._error = error
             self._cond.notify_all()
+        self._scheduler._log_terminal(self, outcome_of(error), detail=type(error).__name__)
         return True
 
     def _expire(self) -> bool:
@@ -252,6 +283,7 @@ class DecodeScheduler:
         set_ = lambda name, value: object.__setattr__(self, name, value)  # noqa: E731
         set_("_engine", engine)
         set_("_metrics", metrics)
+        set_("_request_log", RequestLog("decode"))
         set_("_queue", deque())
         set_("_slot_stream", [None] * n)
         set_("_slot_lengths", np.zeros(n, np.int64))
@@ -283,6 +315,28 @@ class DecodeScheduler:
                 "DecodeScheduler is not bound: call scheduler.bind(engine) "
                 "before submit()."
             )
+
+    @property
+    def request_log(self) -> Optional[RequestLog]:
+        """This scheduler's terminal-request ring (None before bind)."""
+        return getattr(self, "_request_log", None)
+
+    def _log_terminal(self, stream: DecodeStream, outcome: str, detail: Optional[str]) -> None:
+        """One summary per terminal stream (its first-wins finish or fail
+        calls this)."""
+        log = getattr(self, "_request_log", None)
+        if log is None or stream.rid is None:
+            return
+        if outcome != "ok" and _trace.enabled():
+            # An ok stream's terminus is its decode_stream_finish event.
+            _trace.event("decode_stream_fail", rid=stream.rid,
+                         attrs={"outcome": outcome, "detail": detail})
+        log.append(
+            stream.rid, outcome, enqueue_ns=int(stream._t_submit * 1e9),
+            dispatch_ns=stream._t_dispatch_ns, complete_ns=time.perf_counter_ns(),
+            tokens=len(stream._tokens), slot=stream._slot,
+            weights_step=self._metrics.weights_step if self._metrics is not None else None,
+            detail=detail, role=stream._role or None)
 
     # -- submission ------------------------------------------------------
 
@@ -327,11 +381,17 @@ class DecodeScheduler:
         eos = eos_token if eos_token is not None else (
             int(self.eos_token) if int(self.eos_token) >= 0 else None
         )
-        stream = DecodeStream(self, prompt, new, self._deadline_at(deadline_ms), eos)
+        # Minted before admission control: a shed stream is traceable too.
+        rid = next_rid()
+        stream = DecodeStream(self, prompt, new, self._deadline_at(deadline_ms), eos, rid=rid)
         with self._lock:
             if self.shed_above > 0 and self._queue and len(self._queue) + 1 > self.shed_above:
                 if self._metrics is not None:
                     self._metrics.record_rejected()
+                if _trace.enabled():
+                    _trace.event("decode_request_shed", rid=rid,
+                                 attrs={"queue_depth": len(self._queue)})
+                self._log_terminal(stream, "shed", detail="RejectedError")
                 raise RejectedError(
                     f"decode queue at {len(self._queue)} requests; admitting one "
                     f"more would exceed shed_above={self.shed_above} — request "
@@ -340,6 +400,10 @@ class DecodeScheduler:
             backpressure = len(self._queue) + 1 > self.max_queue
             if not backpressure:
                 self._queue.append(stream)
+                if _trace.enabled():
+                    _trace.event("decode_request_enqueue", rid=rid, attrs={
+                        "prompt_tokens": int(prompt.shape[0]),
+                        "queue_depth": len(self._queue)})
         if backpressure:
             if self.synchronous:
                 self.drain()
@@ -400,8 +464,10 @@ class DecodeScheduler:
         self._engine.swap_weights(params, model_state)
         # Cached prefix pages hold K/V of the old weights: a warm hit after
         # the swap would splice them into a new-weights stream.
-        self._engine.invalidate_prefix_cache()
+        dropped = self._engine.invalidate_prefix_cache()
         object.__setattr__(self, "_swap_pending", None)
+        _trace.event("decode_weight_swap", step=step,
+                     attrs={"deferred": True, "prefix_nodes_dropped": dropped})
         if self._metrics is not None:
             self._metrics.record_weight_swap(step)
         logger.info("decode weights hot-swapped%s (slot array drained)",
@@ -449,6 +515,9 @@ class DecodeScheduler:
         if reason is not None:
             stream._finish(reason)
             self._free_slot(slot)
+            if _trace.enabled():
+                _trace.event("decode_stream_finish", rid=stream.rid, attrs={
+                    "slot": slot, "reason": reason, "tokens": len(stream._tokens)})
 
     def _expire_queued(self) -> None:
         now = time.perf_counter()
@@ -500,11 +569,20 @@ class DecodeScheduler:
                     slots.append(free[len(group) - 1])
                 if not group:
                     continue
+                t0_ns = time.perf_counter_ns()
                 for stream, slot in zip(group, slots):
                     self._slot_stream[slot] = stream
                     self._slot_lengths[slot] = int(stream.prompt.shape[0])
                     self._slot_last_emit[slot] = 0.0
+                    # Attributed before the device work: a crash mid-prefill
+                    # still shows the stream reached dispatch.
                     stream._slot = slot
+                    stream._role = "decode"
+                    if stream._t_dispatch_ns is None:
+                        stream._t_dispatch_ns = t0_ns
+                    if _trace.enabled() and stream.rid is not None:
+                        _trace.event("decode_request_dispatch", rid=stream.rid,
+                                     attrs={"slot": slot})
                 # Page allocation and the prefix lookup (the slot layout's
                 # plans are cold). A stream the pool cannot hold goes back
                 # to the queue head while other streams can free pages,
@@ -723,27 +801,31 @@ class DecodeScheduler:
             ctokens, counts = self._draft_catchup_window(active, cur)
         t0 = time.perf_counter()
         proposals = np.zeros((n, k), np.int32)
-        # 1. The catch-up brings the draft level with the teacher and
-        # consumes the current token; its last real position's argmax is
-        # the first proposal.
-        out = draft.verify(ctokens, dlengths)
-        step_lengths = dlengths.copy()
-        for i in active:
-            proposals[i, 0] = int(out[i, int(counts[i]) - 1])
-            step_lengths[i] += int(counts[i])
-        # 2. k - 1 draft steps propose the rest.
-        step_tokens = proposals[:, 0].copy()
-        for t in range(1, k):
-            step_tokens = draft.decode(step_tokens, step_lengths)
+        traced = _trace.enabled()
+        with _trace.span("spec_draft", attrs={"slots": len(active), "k": k} if traced else None):
+            # 1. The catch-up brings the draft level with the teacher and
+            # consumes the current token; its last real position's argmax
+            # is the first proposal.
+            out = draft.verify(ctokens, dlengths)
+            step_lengths = dlengths.copy()
             for i in active:
-                proposals[i, t] = int(step_tokens[i])
-                step_lengths[i] += 1
+                proposals[i, 0] = int(out[i, int(counts[i]) - 1])
+                step_lengths[i] += int(counts[i])
+            # 2. k - 1 draft steps propose the rest.
+            step_tokens = proposals[:, 0].copy()
+            for t in range(1, k):
+                step_tokens = draft.decode(step_tokens, step_lengths)
+                for i in active:
+                    proposals[i, t] = int(step_tokens[i])
+                    step_lengths[i] += 1
         # 3. One teacher dispatch scores [current, d_1..d_k].
         vtokens = np.zeros((n, k + 1), np.int32)
         for i in active:
             vtokens[i, 0] = int(cur[i])
             vtokens[i, 1:] = proposals[i]
-        scored = engine.verify(vtokens, lengths)
+        with _trace.span("spec_verify",
+                         attrs={"slots": len(active), "window": k + 1} if traced else None):
+            scored = engine.verify(vtokens, lengths)
         dt_ms = (time.perf_counter() - t0) * 1e3
         # 4. Greedy acceptance and the commit.
         with self._lock:
@@ -775,6 +857,9 @@ class DecodeScheduler:
                 proposed_total += k
                 accepted_total += a
                 accept_lengths.append(a)
+                if traced and stream.rid is not None:
+                    _trace.event("spec_accept", rid=stream.rid,
+                                 attrs={"proposed": k, "accepted": a})
             if accept_lengths:
                 spec.record_window(proposed_total, accepted_total)
                 if self._metrics is not None:
@@ -926,6 +1011,8 @@ class DecodeScheduler:
                 self._draft_pending[i] = []
             self._chunk_state.clear()
             object.__setattr__(self, "_worker", None)
+            _trace.event("decode_worker_crash", attrs={"error": type(error).__name__,
+                                                       "failed_streams": len(streams)})
             if self._metrics is not None:
                 self._metrics.record_worker_restart()
             wrapped = WorkerCrashedError(
@@ -937,6 +1024,11 @@ class DecodeScheduler:
             for stream in streams:
                 stream._fail(wrapped)
             self._update_occupancy()
+        # After the fails (the bundle's RequestLog tail carries the crashed
+        # summaries) and outside the lock (a bundle write must not stall
+        # submit() or status()).
+        _recorder.notify("decode_worker_crash", attrs={"error": type(error).__name__,
+                                                       "failed_streams": len(streams)})
 
     # -- driving ---------------------------------------------------------
 
@@ -1084,10 +1176,14 @@ class DecodeScheduler:
                 "queue_depth": len(self._queue),
                 "kv_pages_in_use": engine.kv_pages_in_use(active_lengths),
                 "kv_capacity_tokens": engine.capacity,
+                "kv_cache_mb": round(engine.kv_cache_nbytes / 2**20, 2),
                 "kv_cache_bytes": int(engine.kv_cache_nbytes),
+                "kv_bytes_per_slot": int(engine.kv_cache_nbytes // max(1, int(engine.slots))),
                 "decode_attention": engine.decode_attention_flavor,
                 "kv_layout": str(engine.kv_layout),
                 "decode_mbu": round(engine.decode_mbu, 4),
+                "compiles": engine.compile_count,
+                "recompiles_detected": engine.recompiles_detected,
                 "swap_pending": self.swap_pending,
             }
             if engine.paged:

@@ -36,6 +36,19 @@ serves the draft/verify schedule with ``speculative.draft_model``
 (weights from ``speculative.draft_checkpoint`` or the seed); a draft
 that cannot be loaded or bound falls back to plain decode with a
 warning, and the line says ``"speculative": false``.
+
+**Observability**, off by default, as ``ServingConfig`` has it:
+``metrics_port`` >= 0 starts the endpoint (``/metrics``: every
+``zk_decode_*``, ``zk_spec_*``, ``zk_prefill_*``, ``zk_kv_pool_*``,
+``zk_prefix_cache_*`` and ``zk_transfer_*`` series of ``metrics``, the
+engine's ``zk_decode_kv_bytes`` and ``zk_decode_mbu``, the device
+probe's ``zk_hbm_*``; ``/statusz``: the ``decode`` section
+(``scheduler.status()``), the ``requests`` RequestLog tail and the
+``programs`` ledger; ``/trace``; ``POST /debugz``), and
+``flight_recorder_dir`` arms the recorder (``flight_recorder_interval_s``
+apart). ``run()`` keeps them up until its report is printed; every exit
+path tears down through ``run_teardown_steps``. The overload guard's
+``guardrails`` section waits for the guard (ROADMAP.md).
 """
 
 import json
@@ -55,6 +68,7 @@ from zookeeper_tpu_torch.serving.decode.engine import DecodeEngine
 from zookeeper_tpu_torch.serving.decode.metrics import DecodeMetrics
 from zookeeper_tpu_torch.serving.decode.scheduler import DecodeScheduler
 from zookeeper_tpu_torch.serving.decode.speculative import SpeculativeDecoding
+from zookeeper_tpu_torch.serving.service import ObservedService, run_teardown_steps
 
 logger = logging.getLogger(__name__)
 
@@ -62,7 +76,7 @@ __all__ = ["LMServingConfig"]
 
 
 @task
-class LMServingConfig:
+class LMServingConfig(ObservedService):
     """Stream tokens for a seeded synthetic prompt stream through the
     decode engine and scheduler, and report tokens/s and latencies."""
 
@@ -102,6 +116,13 @@ class LMServingConfig:
     verbose: bool = Field(True)
     #: Where the model runs: "cuda" (raises without a card) or "cpu".
     device: str = Field("cuda")
+    #: The live endpoint's port: -1 off, 0 an ephemeral port
+    #: (``obs_server.port``).
+    metrics_port: int = Field(-1)
+    #: Where the flight recorder writes its bundles; None: off.
+    flight_recorder_dir: Optional[str] = Field(None)
+    #: Least seconds between two bundles (``POST /debugz`` bypasses it).
+    flight_recorder_interval_s: float = Field(30.0)
 
     def build_service(self):
         """Build the model, load or initialize its weights, bind and warm
@@ -121,7 +142,22 @@ class LMServingConfig:
             self.engine.warmup()
         self.scheduler.bind(self.engine, metrics=self.metrics,
                             speculative=self._resolve_speculative())
+        self._start_observability()
         return self.engine, self.scheduler
+
+    def _request_log(self):
+        return self.scheduler.request_log
+
+    def _status_providers(self):
+        """The ``/statusz`` (and bundle) sections: ``decode`` and
+        ``requests``."""
+        return {"decode": self.scheduler.status, "requests": self._request_log_status}
+
+    def _teardown_service(self, *, suppress: bool = False) -> None:
+        """Every exit path's teardown (``run_teardown_steps``): the
+        endpoint and its probe, the recorder, the scheduler."""
+        run_teardown_steps(self._obs_teardown_steps() + [self.scheduler.close],
+                           suppress=suppress)
 
     def _build_module(self):
         """The model's module with its weights loaded or initialized."""
@@ -195,48 +231,53 @@ class LMServingConfig:
             scheduler.drain()
             dt = time.perf_counter() - t0
             outputs = [s.result() for s in streams]
-        finally:
-            scheduler.close()
-        for out in outputs:
-            if out.ndim != 1 or not 1 <= out.shape[0] <= self.new_tokens or (
-                out.size and (out.min() < 0 or out.max() >= self.vocab_size)
-            ):
-                raise RuntimeError(f"bad stream output: {out!r}")
-        object.__setattr__(self, "outputs", outputs)
-        tokens = sum(int(o.shape[0]) for o in outputs)
-        device = engine.device
-        spec = scheduler._speculative
-        result = {
-            **{k: round(float(v), 4) for k, v in self.metrics.snapshot().items()},
-            "model": type(self.model).__name__,
-            "device": (torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"),
-            "slots": int(engine.slots),
-            "seq_buckets": [int(s) for s in engine.seq_buckets],
-            "kv_capacity": engine.capacity,
-            "decode_attention": engine.decode_attention_flavor,
-            "decode_mbu": round(engine.decode_mbu, 4),
-            "kv_layout": str(engine.kv_layout),
-            **({"kv_pool_fill": round(engine.page_pool.used_pages
-                                      / engine.page_pool.num_pages, 4),
-                "prefix_cache_hit_rate": round(engine.page_pool.prefix_hit_rate, 4)}
-               if engine.paged else {}),
-            # What served: a speculative config whose draft fell back says
-            # false here.
-            "speculative": spec is not None,
-            "spec_k": int(spec.k) if spec is not None else 0,
-            **({"spec_acceptance_rate": round(spec.acceptance_rate, 4)}
-               if spec is not None else {}),
-            "requests": self.requests,
-            "generated_tokens": tokens,
-            "tokens_per_sec": round(tokens / dt, 1) if dt > 0 else 0.0,
-            "partitioner": type(self.partitioner).__name__,
-            "cache_replicated": engine.cache_replicated,
-        }
+            for out in outputs:
+                if out.ndim != 1 or not 1 <= out.shape[0] <= self.new_tokens or (
+                    out.size and (out.min() < 0 or out.max() >= self.vocab_size)
+                ):
+                    raise RuntimeError(f"bad stream output: {out!r}")
+            object.__setattr__(self, "outputs", outputs)
+            tokens = sum(int(o.shape[0]) for o in outputs)
+            device = engine.device
+            spec = scheduler._speculative
+            result = {
+                **{k: round(float(v), 4) for k, v in self.metrics.snapshot().items()},
+                "model": type(self.model).__name__,
+                "device": (torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"),
+                "slots": int(engine.slots),
+                "seq_buckets": [int(s) for s in engine.seq_buckets],
+                "kv_capacity": engine.capacity,
+                "decode_attention": engine.decode_attention_flavor,
+                "decode_mbu": round(engine.decode_mbu, 4),
+                "kv_layout": str(engine.kv_layout),
+                **({"kv_pool_fill": round(engine.page_pool.used_pages
+                                          / engine.page_pool.num_pages, 4),
+                    "prefix_cache_hit_rate": round(engine.page_pool.prefix_hit_rate, 4)}
+                   if engine.paged else {}),
+                # What served: a speculative config whose draft fell back says
+                # false here.
+                "speculative": spec is not None,
+                "spec_k": int(spec.k) if spec is not None else 0,
+                **({"spec_acceptance_rate": round(spec.acceptance_rate, 4)}
+                   if spec is not None else {}),
+                "requests": self.requests,
+                "generated_tokens": tokens,
+                "tokens_per_sec": round(tokens / dt, 1) if dt > 0 else 0.0,
+                "partitioner": type(self.partitioner).__name__,
+                "cache_replicated": engine.cache_replicated,
+            }
+        except BaseException:
+            self._teardown_service(suppress=True)
+            raise
         return self.finish_report(result)
 
     def finish_report(self, result: Dict[str, Any]) -> Dict[str, Any]:
-        """Print ``result`` as one JSON line (the chief, when verbose) and
-        return it; a subclass adds its keys here."""
-        if self.verbose and self.partitioner.is_chief:
-            print(json.dumps(result), flush=True)
+        """Print ``result`` as one JSON line (the chief, when verbose),
+        tear the service down and return it; a subclass adds its keys
+        here."""
+        try:
+            if self.verbose and self.partitioner.is_chief:
+                print(json.dumps(result), flush=True)
+        finally:
+            self._teardown_service()
         return result

@@ -152,5 +152,7 @@ class SpeculativeDecoding:
             "acceptance_rate": round(self.acceptance_rate, 4),
             "proposed_tokens": int(self._proposed_total),
             "accepted_tokens": int(self._accepted_total),
+            "draft_compiles": self._draft_engine.compile_count,
+            "draft_recompiles_detected": self._draft_engine.recompiles_detected,
             "draft_decode_attention": self._draft_engine.decode_attention_flavor,
         }

@@ -35,8 +35,14 @@ role at the N-th handoff: its pool and lanes are lost (reset, nothing
 leaked), every stream on the prefill side fails cleanly with its
 partial tokens readable, and the decode role keeps serving its slots.
 
-Not ported yet (ROADMAP.md): the RequestLog, the trace events and the
-flight recorder's notice of a prefill-role crash.
+Observability: a stream's RequestLog summary (the base scheduler's)
+carries the role it ended on ("prefill" for one finished at its first
+token, "transfer" while parked, "decode"), and with tracing on the
+rid-tagged ``disagg_prefill_dispatch``, ``disagg_prefill_park``,
+``page_transfer`` (the move's span) and ``disagg_decode_admit`` draw the
+handoff; a prefill-role crash is a ``disagg_prefill_role_crash`` event
+and a flight-recorder trigger. Not ported yet (ROADMAP.md): per-role
+``/statusz`` sections and a RequestLog per role.
 """
 
 import time
@@ -46,6 +52,8 @@ from typing import List, Optional, Tuple
 import numpy as np
 
 from zookeeper_tpu_torch.core import component
+from zookeeper_tpu_torch.observability import recorder as _recorder
+from zookeeper_tpu_torch.observability import trace as _trace
 from zookeeper_tpu_torch.serving.batcher import RejectedError, WorkerCrashedError
 from zookeeper_tpu_torch.serving.decode.scheduler import DecodeScheduler, DecodeStream
 from zookeeper_tpu_torch.serving.disagg.transfer import PageTransfer, PageTransferError
@@ -151,8 +159,15 @@ class DisaggScheduler(DecodeScheduler):
                     lanes.append(free[len(group) - 1])
                 if not group:
                     continue
+                t0_ns = time.perf_counter_ns()
                 for stream, lane in zip(group, lanes):
                     self._lane_stream[lane] = stream
+                    stream._role = "prefill"
+                    if stream._t_dispatch_ns is None:
+                        stream._t_dispatch_ns = t0_ns
+                    if _trace.enabled() and stream.rid is not None:
+                        _trace.event("disagg_prefill_dispatch", rid=stream.rid,
+                                     attrs={"lane": lane})
             # Pages on the prefill pool. A stream the pool cannot hold goes
             # back to the queue head while anything anywhere is in flight
             # (busy lanes, parked handoffs and decoding slots all free
@@ -236,8 +251,15 @@ class DisaggScheduler(DecodeScheduler):
                     if reason is not None:
                         stream._finish(reason)
                         self._free_lane(lane)
+                        if _trace.enabled() and stream.rid is not None:
+                            _trace.event("decode_stream_finish", rid=stream.rid, attrs={
+                                "lane": lane, "reason": reason, "tokens": len(stream._tokens)})
                     else:
+                        stream._role = "transfer"
                         self._parked.append((stream, lane, token, prompt_len, now))
+                        if _trace.enabled() and stream.rid is not None:
+                            _trace.event("disagg_prefill_park", rid=stream.rid,
+                                         attrs={"lane": lane, "parked": len(self._parked)})
                 if self._metrics is not None:
                     self._metrics.record_prefill(dt_ms, delivered)
                     self._metrics.record_first_tokens(delivered)
@@ -293,7 +315,7 @@ class DisaggScheduler(DecodeScheduler):
                 self._on_prefill_crash(stream, lane, slot)
                 continue
             try:
-                self._transfer.move(src_pages, pages)
+                self._transfer.move(src_pages, pages, rid=stream.rid)
             except PageTransferError as e:
                 # Only the victim fails: its adopted pages and its lane are
                 # released, both pools stay leak-free.
@@ -325,6 +347,10 @@ class DisaggScheduler(DecodeScheduler):
                     self._draft_lengths[slot] = prompt_len
                     self._draft_pending[slot] = []
                 self._slot_tokens[slot] = int(token)
+                stream._role = "decode"
+                if _trace.enabled() and stream.rid is not None:
+                    _trace.event("disagg_decode_admit", rid=stream.rid,
+                                 attrs={"slot": slot, "pages": len(pages)})
                 # Token 2's gap runs from the first token: it holds the handoff.
                 self._slot_last_emit[slot] = t_first
 
@@ -360,6 +386,8 @@ class DisaggScheduler(DecodeScheduler):
                 v._fail(wrapped)
             if self._metrics is not None:
                 self._metrics.record_worker_restart()
+            _trace.event("disagg_prefill_role_crash", attrs={"failed_streams": len(victims)})
+        _recorder.notify("disagg_prefill_role_crash", attrs={"failed_streams": len(victims)})
 
     def _on_crash(self, error: BaseException) -> None:
         """A crash of the whole loop: the prefill side's streams fail with

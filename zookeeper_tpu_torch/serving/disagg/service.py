@@ -118,6 +118,7 @@ class DisaggServingConfig(LMServingConfig):
         self.transfer.bind(self.prefill_engine, self.engine, metrics=self.metrics)
         self.scheduler.bind(self.prefill_engine, self.engine, self.transfer,
                             metrics=self.metrics, speculative=self._resolve_speculative())
+        self._start_observability()
         return self.engine, self.scheduler
 
     def finish_report(self, result: Dict[str, Any]) -> Dict[str, Any]:

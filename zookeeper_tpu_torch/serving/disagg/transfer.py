@@ -27,12 +27,13 @@ host wall time; it does not wait for the card.
 
 import time
 from collections import deque
-from typing import Sequence
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
 from zookeeper_tpu_torch.core import Field, component
+from zookeeper_tpu_torch.observability import trace as _trace
 
 __all__ = ["PageTransfer", "PageTransferError"]
 
@@ -92,9 +93,11 @@ class PageTransfer:
 
     # -- the handoff -----------------------------------------------------
 
-    def move(self, src_page_ids: Sequence[int], dst_page_ids: Sequence[int]) -> float:
+    def move(self, src_page_ids: Sequence[int], dst_page_ids: Sequence[int],
+             rid: Optional[int] = None) -> float:
         """Move ``src_page_ids``'s pages into ``dst_page_ids`` (equal
-        lengths; the destination ids come from ``PagePool.adopt_slot``).
+        lengths; the destination ids come from ``PagePool.adopt_slot``)
+        inside a ``page_transfer`` span tagged with the stream's ``rid``.
         Returns the host wall milliseconds. Raises
         :class:`PageTransferError` on an injected
         ``FaultPlan.fail_page_transfer`` before touching either pool, and
@@ -115,9 +118,11 @@ class PageTransfer:
             )
         n = len(src_page_ids)
         t0 = time.perf_counter()
-        block = self._src.export_pages(src_page_ids)
-        moved = self._place(block)
-        self._dst.import_pages(moved, dst_page_ids)
+        with _trace.span("page_transfer", rid=rid,
+                         attrs={"pages": n} if _trace.enabled() else None):
+            block = self._src.export_pages(src_page_ids)
+            moved = self._place(block)
+            self._dst.import_pages(moved, dst_page_ids)
         dt_ms = (time.perf_counter() - t0) * 1e3
         nbytes = self._block_bytes(block)
         stats = self._stats

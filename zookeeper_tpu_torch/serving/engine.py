@@ -32,8 +32,22 @@ is served wholly by one weight version. :class:`CheckpointWatcher`
 (``training.checkpoint.finalized_steps``) and swaps each one in,
 loaded as a service's first load is (``load_inference_model``).
 
-Not ported yet (ROADMAP.md): sequence buckets, and the program ledger /
-MFU gauges.
+**Programs and the ledger.** A ``(bucket, mesh)`` pair's first forward
+is its "program" (``observability.ledger``): it runs under forward hooks
+that count ``2*M*N*K`` for every conv and dense layer (packed, int8 or
+float alike), ends in a device synchronisation, and lands one
+``serve_forward`` ledger row with the counted FLOPs, the bytes (weights,
+input and output once) and its wall time. After ``warmup()`` a first
+forward at an unwarmed pair is a serving stall: it counts
+``zk_serving_recompiles_total``, emits ``recompile_detected`` and
+notifies the flight recorder. ``observe_dispatch(rows, seconds)`` (the
+``MicroBatcher``, after each readback) feeds the ``serve_dispatch``
+watchdog and publishes ``zk_serve_dispatch_ms``,
+``zk_serve_dispatch_rows``, ``zk_serve_mfu`` (the bucket's counted FLOPs
+over the wall time over the card's bf16 peak) and ``zk_serve_mfu_int8``
+(over the int8 peak; -1 unless the deployment is packed). A warmed
+pair's forward adds host arithmetic only: no synchronisation, no
+launch. Not ported yet (ROADMAP.md): sequence buckets.
 """
 
 import contextlib
@@ -48,10 +62,58 @@ import torch
 from torch import nn
 
 from zookeeper_tpu_torch.core import Field, component
+from zookeeper_tpu_torch.observability import ledger as _ledger
+from zookeeper_tpu_torch.observability import peaks as _peaks
+from zookeeper_tpu_torch.observability import recorder as _recorder
+from zookeeper_tpu_torch.observability import trace as _trace
+from zookeeper_tpu_torch.observability.registry import default_registry
 from zookeeper_tpu_torch.parallel import distributed
 from zookeeper_tpu_torch.serving import weights as _weights
 
 logger = logging.getLogger(__name__)
+
+
+class _ContractionFlops:
+    """Forward hooks counting ``2*M*N*K`` over ``module``'s contraction
+    layers while the context is open: a conv (``Conv``, ``QuantConv``,
+    ``QuantConvND``) contributes ``2 * out.numel() * prod(kernel_size) *
+    (in_channels / groups)``, a dense layer (``Dense``, ``QuantDense``,
+    the LM's ``_Linear``) ``2 * out.numel() * in_features``, whatever path
+    (packed, int8, float) computes it. ``flops`` holds the sum."""
+
+    def __init__(self, module: nn.Module) -> None:
+        from zookeeper_tpu_torch.models.transformer import _Linear
+        from zookeeper_tpu_torch.ops.layers import Conv, Dense, QuantConv, QuantConvND, QuantDense
+
+        self.flops = 0
+        self._module = module
+        self._convs = (Conv, QuantConv, QuantConvND)
+        self._denses = (Dense, QuantDense, _Linear)
+        self._handles = []
+
+    def _hook(self, layer, inputs, out) -> None:
+        x = inputs[0]
+        if isinstance(layer, self._convs):
+            k = int(np.prod(layer.kernel_size)) * (int(x.shape[-1]) // int(layer.groups))
+        else:
+            k = int(x.shape[-1])
+        self.flops += 2 * int(out.numel()) * k
+
+    def __enter__(self) -> "_ContractionFlops":
+        self._handles = [m.register_forward_hook(self._hook)
+                         for m in self._module.modules()
+                         if isinstance(m, self._convs + self._denses)]
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        for handle in self._handles:
+            handle.remove()
+        self._handles = []
+        return False
+
+
+def _dtype_name(dtype: torch.dtype) -> str:
+    return str(dtype).replace("torch.", "")
 
 
 @component
@@ -105,6 +167,34 @@ MicroBatcher`."""
         object.__setattr__(self, "_dtype", dtype)
         object.__setattr__(self, "_device", device)
         object.__setattr__(self, "_warmed", set())
+        # Ledger rows by (bucket, mesh); warmup() ends the warm-up window.
+        object.__setattr__(self, "_programs", {})
+        object.__setattr__(self, "_warm_done", False)
+        object.__setattr__(self, "_recompiles_detected", 0)
+        object.__setattr__(self, "_last_program", None)
+        _ledger.recompile_counter()
+        # The dispatch gauges render from the first scrape (-1 = unknown);
+        # handles, since observe_dispatch sets them once a dispatch. The
+        # peaks resolve once: the card and the packing (a swap keeps the
+        # structure) do not change under a bound engine.
+        reg = default_registry()
+        object.__setattr__(self, "_dispatch_gauges", (
+            reg.gauge("zk_serve_dispatch_ms",
+                      help="last coalesced dispatch wall time (readback-bounded)"),
+            reg.gauge("zk_serve_dispatch_rows",
+                      help="occupied (pre-padding) rows of the last coalesced dispatch — "
+                      "goodput context for the padded-bucket MFU"),
+            reg.gauge("zk_serve_mfu", initial=-1,
+                      help="last dispatch: counted FLOPs / wall time / bf16 peak (-1 = "
+                      "unknown)"),
+            reg.gauge("zk_serve_mfu_int8", initial=-1,
+                      help="last packed-deployment dispatch: counted FLOPs / wall time / "
+                      "int8 peak (-1 = not a packed deployment, or unknown)"),
+        ))
+        kind = torch.cuda.get_device_name(device) if device.type == "cuda" else None
+        object.__setattr__(self, "_mfu_peaks", (
+            _peaks.reference_peak_flops(kind)[0],
+            _peaks.reference_int8_peak_flops(kind)[0] if self.packed_deployment else None))
         return self
 
     @property
@@ -142,7 +232,7 @@ MicroBatcher`."""
             object.__setattr__(self, "_swap_layout",
                                _weights.weight_layout(self._module, self._plan))
         _weights.check_swap(self._swap_layout, params, model_state, "warmed buckets")
-        with self._swap_lock:
+        with self._swap_lock, _trace.span("weight_swap"):
             _weights.load_weights(self._module, self._plan, params, model_state)
 
     def watch_checkpoints(self, directory: str, *, weights: str = "ema",
@@ -195,6 +285,19 @@ MicroBatcher`."""
         """Buckets run at least once (by ``warmup()`` or traffic)."""
         return len(getattr(self, "_warmed", ()))
 
+    @property
+    def recompiles_detected(self) -> int:
+        """First forwards at an unwarmed ``(bucket, mesh)`` after
+        ``warmup()`` (each one stalled its requests), mirrored to
+        ``zk_serving_recompiles_total`` and a ``recompile_detected``
+        event as they happen."""
+        return getattr(self, "_recompiles_detected", 0)
+
+    @property
+    def programs(self) -> dict:
+        """This engine's ledger rows by ``(bucket, mesh)``."""
+        return dict(getattr(self, "_programs", {}))
+
     def bucket_for(self, n: int) -> int:
         """Smallest batch bucket holding ``n`` rows."""
         if n < 1:
@@ -217,7 +320,81 @@ MicroBatcher`."""
             self.infer(np.zeros((int(bucket), *self._input_shape), np.float32))
         if self._device.type == "cuda":
             torch.cuda.synchronize(self._device)
+        # From here on, a first forward on the request path is a stall.
+        object.__setattr__(self, "_warm_done", True)
         return self.warmed_buckets
+
+    def _note_recompile(self, bucket: int) -> None:
+        """A post-warm-up first forward on the request path: counted,
+        traced, logged and handed to the flight recorder."""
+        object.__setattr__(self, "_recompiles_detected", self._recompiles_detected + 1)
+        _ledger.recompile_counter().inc()
+        attrs = {"bucket": bucket, "seq_bucket": None, "dtype": _dtype_name(self._dtype)}
+        _trace.event("recompile_detected", attrs=attrs)
+        _recorder.notify("recompile_detected", attrs=attrs)
+        logger.warning(
+            "post-warmup first forward on the request path (bucket=%d, dtype=%s): "
+            "requests are stalling on it — widen or rewarm the bucket ladder",
+            bucket, _dtype_name(self._dtype))
+
+    def _first_run(self, bucket: int, x: torch.Tensor, forward) -> torch.Tensor:
+        """A program's first forward: counted (FLOPs from the layers,
+        bytes from the shapes), synchronised, timed and ledgered."""
+        during_dispatch = self._warm_done
+        gathered = set() if self._plan is None else set(self._plan.gathered)
+        weight_bytes = sum(
+            (self._plan.numel(name, p) if name in gathered else p.numel()) * p.element_size()
+            for name, p in self._module.named_parameters())
+        weight_bytes += sum(b.numel() * b.element_size() for b in self._module.buffers())
+        counter = _ContractionFlops(self._module)
+        t0 = time.perf_counter()
+        with counter:
+            out = forward()
+        if self._device.type == "cuda":
+            torch.cuda.synchronize(self._device)
+        compile_ms = (time.perf_counter() - t0) * 1e3
+        nbytes = weight_bytes + x.numel() * x.element_size() + out.numel() * out.element_size()
+        mesh = "x".join(f"{k}:{v}" for k, v in self._mesh_key) or "1"
+        record = _ledger.default_ledger().record(
+            "serve_forward",
+            f"{type(self._partitioner).__name__}/mesh={mesh}/b{bucket}/{_dtype_name(self._dtype)}",
+            flops=counter.flops, bytes_accessed=nbytes, compile_ms=compile_ms,
+            attrs={"bucket": bucket, "seq_bucket": None, "during_dispatch": during_dispatch},
+        )
+        self._programs[(bucket, self._mesh_key)] = record
+        return out
+
+    def observe_dispatch(self, rows: int, seconds: float) -> None:
+        """Record one completed, readback-bounded dispatch (the
+        ``MicroBatcher`` calls this after its ``.cpu()``; ``infer``
+        returns before the card finishes): feed the ``serve_dispatch``
+        watchdog and publish ``zk_serve_dispatch_ms``,
+        ``zk_serve_dispatch_rows`` (occupied rows before padding),
+        ``zk_serve_mfu`` and ``zk_serve_mfu_int8``. The FLOPs are the last
+        dispatched bucket's ledger row: the card runs the padded bucket,
+        so bucket FLOPs over wall time is the hardware's utilization, and
+        the rows gauge says how far request goodput sits from it.
+        ``zk_serve_mfu_int8`` divides by the int8 peak and is -1 unless
+        the deployment is packed; both render always (-1 = unknown)."""
+        if seconds <= 0:
+            return
+        dog = getattr(self, "_dispatch_watchdog", None)
+        if dog is None:
+            from zookeeper_tpu_torch.observability.watchdog import StepTimeWatchdog
+
+            # A 5 ms excess floor: host jitter on a sub-ms cadence is no
+            # anomaly.
+            dog = StepTimeWatchdog("serve_dispatch", min_excess_s=0.005)
+            object.__setattr__(self, "_dispatch_watchdog", dog)
+        dog.observe(seconds)
+        ms, dispatch_rows, gauge, gauge8 = self._dispatch_gauges
+        ms.set(seconds * 1e3)
+        dispatch_rows.set(max(0, int(rows)))
+        peak, peak8 = self._mfu_peaks
+        flops = _ledger.cost_flops(self._last_program)
+        for g, value in ((gauge, _ledger.mfu(flops, seconds, peak)),
+                         (gauge8, _ledger.mfu(flops, seconds, peak8))):
+            g.set(value if value is not None else -1)
 
     def infer(self, x: Any) -> torch.Tensor:
         """Forward one batch ``[n, *input_shape]`` (n <= ``max_batch``):
@@ -240,12 +417,26 @@ MicroBatcher`."""
         plan = self.forward_plan(bucket)
         weights = (contextlib.nullcontext() if self._plan is None
                    else self._plan.gathered_weights(self._module))
-        with torch.inference_mode(), self._swap_lock:
+
+        def forward():
             with weights, plan.activation_scope():
-                out = self._module(plan.take(x).to(self._device))
-            out = plan.assemble(out)[:n]
+                return self._module(plan.take(x).to(self._device))
+
         # Keyed by bucket and mesh, as the JAX engine's compile cache is.
-        self._warmed.add((bucket, self._mesh_key))
+        key = (bucket, self._mesh_key)
+        first = key not in self._warmed
+        if first and self._warm_done:
+            self._note_recompile(bucket)
+        with torch.inference_mode(), self._swap_lock, _trace.span(
+                "engine_infer", attrs={"rows": int(n), "bucket": bucket}
+                if _trace.enabled() else None):
+            out = self._first_run(bucket, x, forward) if first else forward()
+            out = plan.assemble(out)[:n]
+        self._warmed.add(key)
+        record = self._programs.get(key)
+        if record is not None:
+            record.dispatches += 1
+        object.__setattr__(self, "_last_program", record)
         return out
 
     def __call__(self, x: Any) -> torch.Tensor:
@@ -344,6 +535,7 @@ class CheckpointWatcher:
         swap_ms = (time.perf_counter() - t0) * 1e3
         self._current_step = newest
         self._swaps += 1
+        _trace.event("ckpt_hot_swap", step=newest, attrs={"swap_ms": round(swap_ms, 3)})
         if self._metrics is not None:
             self._metrics.record_weight_swap(swap_ms, newest)
         logger.info("serving weights hot-swapped to training step %d (%.1f ms)",

@@ -44,6 +44,20 @@ follows the run. At world size > 1 each rank's watcher would poll by its
 own clock, so ``watch=True`` raises (a chief-led dispatch is queued in
 ROADMAP.md); a ``swap_weights`` that every rank calls at the same point
 stays allowed.
+
+**Observability** (``observability``), off by default. ``metrics_port``
+>= 0 starts an ``ObservabilityServer`` (0: an ephemeral port, read back
+as ``obs_server.port``) serving ``/metrics`` (every ``zk_serving_*``
+series, the engine's ``zk_serve_*`` gauges, the ``zk_hbm_*`` gauges of a
+``DeviceProbe`` started with it), ``/statusz`` (the ``serving`` section
+of :meth:`status`, the ``requests`` RequestLog tail and the ``programs``
+ledger), ``/trace`` and ``POST /debugz``. ``flight_recorder_dir`` arms a
+``FlightRecorder`` there (at most one bundle every
+``flight_recorder_interval_s`` seconds) for the service's lifetime. A
+bind failure (a busy port) tears down what was started. Every exit path
+tears down through :func:`run_teardown_steps`: each step runs, and the
+first failure is re-raised unless suppressed. Nothing here decides a
+dispatch, so these run at any world size.
 """
 
 import json
@@ -63,8 +77,110 @@ from zookeeper_tpu_torch.serving.metrics import ServingMetrics
 from zookeeper_tpu_torch.training.metrics import CompositeMetricsWriter, MetricsWriter
 
 
+def run_teardown_steps(steps, *, suppress: bool = False) -> None:
+    """The service-teardown contract ``ServingConfig`` and
+    ``LMServingConfig`` share: every step runs even when an earlier one
+    raises (a failed watcher stop must not leak the ``/metrics`` port or
+    the worker thread), and the FIRST failure is re-raised at the end
+    unless ``suppress`` (error paths, where a cleanup failure must not
+    mask the original exception)."""
+    first: Optional[BaseException] = None
+    for step in steps:
+        try:
+            step()
+        except BaseException as e:
+            if first is None:
+                first = e
+    if first is not None and not suppress:
+        raise first
+
+
+class ObservedService:
+    """The observability wiring both service configs share: the
+    endpoint with its device probe, the flight recorder, and their
+    teardown. A subclass has the ``metrics``, ``metrics_port``,
+    ``flight_recorder_dir``, ``flight_recorder_interval_s`` and
+    ``verbose`` fields, and gives ``_request_log()`` (its RequestLog),
+    ``_status_providers()`` and ``_teardown_service(suppress=)``."""
+
+    def _start_observability(self) -> None:
+        """Start what the fields ask for, once the service is bound; on a
+        failure (a busy port) tear the whole service down (a caller
+        catching the error must not inherit live threads), then raise."""
+        if self.metrics_port < 0 and not self.flight_recorder_dir:
+            return
+        try:
+            if self.flight_recorder_dir:
+                self._start_flight_recorder()
+            if self.metrics_port >= 0:
+                self._start_obs_server()
+        except BaseException:
+            self._teardown_service(suppress=True)
+            raise
+
+    def _obs_registries(self):
+        from zookeeper_tpu_torch.observability.registry import default_registry
+
+        return [default_registry(), self.metrics.registry]
+
+    def _request_log_status(self) -> Dict[str, Any]:
+        """The ``requests`` section: the recent terminal-request tail."""
+        log = self._request_log()
+        return log.as_status() if log is not None else {}
+
+    def _start_flight_recorder(self):
+        from zookeeper_tpu_torch.observability import recorder as _recorder
+
+        log = self._request_log()
+        rec = _recorder.arm(
+            self.flight_recorder_dir, registries=self._obs_registries(),
+            status_providers=self._status_providers(), request_logs={log.name: log},
+            min_interval_s=self.flight_recorder_interval_s,
+        )
+        object.__setattr__(self, "flight_recorder", rec)
+        if self.verbose:
+            print(f"flight recorder armed: {self.flight_recorder_dir} (>= "
+                  f"{self.flight_recorder_interval_s:.0f}s between bundles; POST /debugz "
+                  "for a manual one)", flush=True)
+        return rec
+
+    def _start_obs_server(self):
+        from zookeeper_tpu_torch.observability import DeviceProbe, ObservabilityServer
+
+        server = ObservabilityServer(self._obs_registries(), port=self.metrics_port,
+                                     status_providers=self._status_providers())
+        server.start()
+        object.__setattr__(self, "obs_server", server)
+        # An eager first poll: the zk_hbm_* gauges render from the first
+        # scrape.
+        probe = DeviceProbe()
+        probe.poll_once()
+        probe.start()
+        object.__setattr__(self, "obs_probe", probe)
+        if self.verbose:
+            print(f"observability endpoint: {server.url}/metrics", flush=True)
+        return server
+
+    def _obs_teardown_steps(self):
+        """Idempotent stops of the endpoint (it holds an OS port: every
+        exit path must release it), the probe and the recorder."""
+        from zookeeper_tpu_torch.observability import recorder as _recorder
+
+        steps = []
+        for name in ("obs_server", "obs_probe"):
+            obj = getattr(self, name, None)
+            if obj is not None:
+                object.__setattr__(self, name, None)
+                steps.append(obj.stop)
+        rec = getattr(self, "flight_recorder", None)
+        if rec is not None:
+            object.__setattr__(self, "flight_recorder", None)
+            steps.append(lambda: _recorder.disarm(rec))
+        return steps
+
+
 @task
-class ServingConfig:
+class ServingConfig(ObservedService):
     """Serve a seeded synthetic request stream through the engine and
     batcher, and report latency percentiles, bucket fill and qps."""
 
@@ -111,6 +227,13 @@ class ServingConfig:
     requests: int = Field(64)
     max_request: int = Field(8)
     verbose: bool = Field(True)
+    #: The live endpoint's port: -1 off, 0 an ephemeral port
+    #: (``obs_server.port``).
+    metrics_port: int = Field(-1)
+    #: Where the flight recorder writes its bundles; None: off.
+    flight_recorder_dir: Optional[str] = Field(None)
+    #: Least seconds between two bundles (``POST /debugz`` bypasses it).
+    flight_recorder_interval_s: float = Field(30.0)
 
     @property
     def input_shape(self):
@@ -170,27 +293,37 @@ class ServingConfig:
             object.__setattr__(self, "watcher", self.engine.watch_checkpoints(
                 self.checkpoint, weights=self.weights, poll_interval_s=self.watch_poll_s,
                 metrics=self.metrics, initial_step=watch_baseline))
+        self._start_observability()
         return self.engine, self.batcher
 
-    def _teardown_service(self) -> None:
-        """Stop the watcher (when one runs) and close the batcher: every
-        exit path's teardown."""
+    def _request_log(self):
+        return self.batcher.request_log
+
+    def _status_providers(self):
+        return {"serving": self.status, "requests": self._request_log_status}
+
+    def _teardown_service(self, *, suppress: bool = False) -> None:
+        """Every exit path's teardown (``run_teardown_steps``): the
+        watcher, the endpoint and its probe, the recorder, the batcher."""
         watcher = getattr(self, "watcher", None)
-        try:
-            if watcher is not None:
-                watcher.stop()
-        finally:
-            self.batcher.close()
+        steps = [watcher.stop] if watcher is not None else []
+        run_teardown_steps(steps + self._obs_teardown_steps() + [self.batcher.close],
+                           suppress=suppress)
 
     def status(self) -> Dict[str, Any]:
         """The serving vitals an operator checks before trusting the
-        metrics: the live weights' step and whether the watcher still
-        follows the run (None without one)."""
+        metrics (the ``/statusz`` ``serving`` section): warmed buckets
+        and post-warm-up first forwards, the queue, the live weights'
+        step and whether the watcher still follows the run (None without
+        one)."""
         watcher = getattr(self, "watcher", None)
         return {
             "model": type(self.model).__name__,
             "weights": self.weights,
             "batch_buckets": [int(b) for b in self.engine.batch_buckets],
+            "compiles": self.engine.warmed_buckets,
+            "recompiles_detected": self.engine.recompiles_detected,
+            "queue_rows": self.batcher.queue_rows,
             "packed_deployment": self.engine.packed_deployment,
             "watcher_alive": watcher.alive if watcher is not None else None,
             "serving_weights_step": self.metrics.weights_step,
@@ -277,7 +410,7 @@ class ServingConfig:
                         f"finite={bool(np.isfinite(out).all())}"
                     )
         except BaseException:
-            self._teardown_service()
+            self._teardown_service(suppress=True)
             raise
         rows_per_sec = rows / dt if dt > 0 else 0.0
         return self.finish_report(

@@ -52,7 +52,9 @@ with a ``model`` axis, ``SequenceParallelPartitioner.tp``) each rank
 holds its blocks of the sharded state (``parallel.shards``); the eval,
 the checkpoints and the export gather them. Without a launcher there is
 no group and no collective: the run is the single-card run, to the bit.
-Observability is not ported yet (ROADMAP.md).
+The ``observability`` package is not wired into training yet: the
+training half (spans, MFU, the step watchdog, checkpoint and resilience
+hooks) waits (ROADMAP.md).
 """
 
 import json

@@ -22,8 +22,9 @@ go, and is it compute or bandwidth?") without a UI:
   ``bytes`` argument on the kernel event itself wins); every event
   without either goes to ``unattributed_ms_per_step``, as the JAX reader
   does for ops without stats. Peaks are the card's data-sheet numbers
-  (``PEAKS``, matched on the trace's ``deviceProperties`` name) unless
-  the caller passes its own.
+  (``PEAKS``, from ``observability.peaks``' tables, matched on the
+  trace's ``deviceProperties`` name as the live gauges match the card's
+  name) unless the caller passes its own.
 
 ``python -m zookeeper_tpu_torch.training.profiling TRACE [--steps N]
 [--device cuda:0] [--top K] [--category SUBSTR] [--min-ms MS]`` prints
@@ -39,6 +40,8 @@ import time
 from collections import defaultdict
 from typing import Dict, List, Optional
 
+from zookeeper_tpu_torch.observability import peaks as _peak_tables
+
 __all__ = [
     "PEAKS",
     "ProfileWindow",
@@ -52,8 +55,9 @@ __all__ = [
 TRACE_SUFFIX = ".pt.trace.json"
 
 #: (device-name substring, dense bf16 FLOP/s, HBM bytes/s) from the data
-#: sheet: the roofline's default peaks.
-PEAKS = (("H100", 989.4e12, 3.35e12),)
+#: sheet (``observability.peaks``): the roofline's default peaks.
+PEAKS = tuple((key, flops, _peak_tables.NVIDIA_DATASHEET_HBM_BYTES[key])
+              for key, flops in _peak_tables.NVIDIA_DATASHEET_BF16_FLOPS.items())
 
 _DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 
@@ -135,9 +139,9 @@ def _find_trace_files(trace_dir: str) -> List[str]:
 def _peaks(trace: dict):
     for props in trace.get("deviceProperties") or ():
         name = str(props.get("name", ""))
-        for key, flops, nbytes in PEAKS:
-            if key in name:
-                return flops, nbytes
+        flops = _peak_tables.datasheet_bf16_peak(name)
+        if flops is not None:
+            return flops, _peak_tables.datasheet_hbm_bandwidth(name)
     return None, None
 
 
