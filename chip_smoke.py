@@ -470,7 +470,34 @@ CUDA card and ``nvcc``. In order:
    bucket 8 was dropped from its cache of run programs (a private seam):
    the recompile counter reads 1 and one ``recompile_detected`` bundle
    is written.
-26. One JSON line of the kernels (14 rows; K1, K3, K4, K6 and K7 also
+26. Observability on the training paths (``obs_train_phase``;
+   deterministic mode where bits are compared): (a) ``TrainLM`` at phase
+   13's full width (4 layers, 8 steps, no validation) with async saves
+   every 4 steps, run with everything off and with ``trace_export``,
+   ``metrics_port=0``, a flight recorder and ``log_every=1``: the final
+   states equal bit for bit, K9-lse, K10 and K11 launched 32 times each
+   in both runs; ``/metrics`` and ``/statusz`` scraped over HTTP at each
+   save, every exposition line valid, ``zk_train_step_time_ms > 0``,
+   ``0 < zk_train_mfu <= 1.05``, ``zk_prefetch_occupancy``,
+   ``zk_train_steps_total``, ``zk_ckpt_queue_depth`` and ``zk_hbm_*``
+   served, ``/statusz["programs"]`` one ``train_step`` row; the exported
+   trace holds ``data_wait``, ``dispatch``, ``readback`` and
+   ``checkpoint`` spans and a ``ckpt_write`` span and ``ckpt_finalized``
+   event a save; the ``train_step`` watchdog counts no anomaly. (c) The
+   same run's step time (the median of its readback-to-readback steps at
+   ``log_every=1``), three runs a side in turns (printed, no threshold),
+   and the ``torch.profiler`` count of one steady iteration's host
+   operators and kernels, off and on: the kernels equal. (b) Phase 18's
+   QuickNet-Large leg (int8, packed residuals, batch 128) at ``unroll``
+   4 over 12 steps, off and on: the states equal bit for bit, K6-K8
+   launched equally, one ``multi_step`` ledger row of 4 steps,
+   ``zk_train_mfu`` and ``zk_train_mfu_int8`` in (0, 1.05]. (d) A
+   2-layer ``TrainLM`` with ``nan_policy=halt`` under ``FaultPlan(
+   nan_at_step=3)`` and ``run_with_recovery``, the recorder armed: one
+   restart, exactly one ``nan_halt`` and one ``supervisor_restart``
+   bundle, and the trace ring holds ``fault_injected{kind=nan_at_step}``
+   and ``restore_done``.
+27. One JSON line of the kernels (14 rows; K1, K3, K4, K6 and K7 also
    with their sums on Bi-Real-Net's path under ``bireal``; K1, K3 and K4
    under ``densenet`` and ``melius``, K1 and K3 under ``xnor_train`` per
    DenseNet training step, K2 under ``xnor_train`` per BinaryAlexNet
@@ -488,8 +515,8 @@ CUDA card and ``nvcc``. In order:
    phase 23's launches in the supervised run; K9, K12 and K13 under
    ``disagg``, phase 24's launches on each path, and K1 and K3 under
    ``hot_swap``, its watched service's; K9, K13, K1 and K3 under ``obs``,
-   phase 25's launches with observability off and on), then the result
-   line.
+   phase 25's launches with observability off and on; K6-K11 under
+   ``obs_train``, phase 26's), then the result line.
 """
 
 import contextlib
@@ -7172,14 +7199,31 @@ OBS_REQUIRED = (
 )
 
 
+def _http_get(port, path):
+    """GET ``http://127.0.0.1:<port><path>`` as text."""
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=10) as r:
+        return r.read().decode()
+
+
+def _exposition(body):
+    """{series: value} of a Prometheus exposition, and its invalid lines."""
+    import re
+
+    line_re = re.compile(r"^[a-zA-Z_:][a-zA-Z0-9_:]*(\{[^{}]*\})? [^ ]+$")
+    samples = [ln for ln in body.splitlines() if ln and not ln.startswith("#")]
+    bad = [ln for ln in samples if not line_re.match(ln)]
+    return {ln.rsplit(" ", 1)[0]: float(ln.rsplit(" ", 1)[1]) for ln in samples
+            if line_re.match(ln)}, bad
+
+
 def obs_phase(torch, bc, A, smi):
     """Phase 25 (see the module docstring). Returns ({path: K9/K13
     launches}, {path: K1/K3 launches}, stats)."""
-    import re
     import shutil
     import tempfile
     import threading
-    import urllib.request
 
     import numpy as np
 
@@ -7191,20 +7235,9 @@ def obs_phase(torch, bc, A, smi):
     from zookeeper_tpu_torch.serving import InferenceEngine, ServingConfig, WorkerCrashedError
 
     t_phase = time.perf_counter()
-    line_re = re.compile(r"^[a-zA-Z_:][a-zA-Z0-9_:]*(\{[^{}]*\})? [^ ]+$")
     tmp = tempfile.mkdtemp(prefix="obs_phase_")
     launches_lm, launches_cnn, stats = {}, {}, {}
-
-    def get(port, path):
-        with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=10) as r:
-            return r.read().decode()
-
-    def parse(body):
-        """{series: value} of an exposition, and its invalid lines."""
-        samples = [ln for ln in body.splitlines() if ln and not ln.startswith("#")]
-        bad = [ln for ln in samples if not line_re.match(ln)]
-        return {ln.rsplit(" ", 1)[0]: float(ln.rsplit(" ", 1)[1]) for ln in samples
-                if line_re.match(ln)}, bad
+    get, parse = _http_get, _exposition
 
     def recompiles():
         return sum(i.value for i in default_registry().collect()
@@ -7476,6 +7509,297 @@ def obs_phase(torch, bc, A, smi):
     return launches_lm, launches_cnn, stats
 
 
+#: Phase 26: the training half of observability. (a) TrainLM at full
+#: width (LM_TRAIN_CONFIG: 4 layers, 8 steps) with async saves every 4
+#: steps; (c) its step time, off and on in turns; (b) the fused
+#: QuickNet-Large leg; (d) a NaN halt under run_with_recovery.
+OBS_TRAIN_ORDER = ("off", "on", "on", "off", "off", "on")
+OBS_TRAIN_LM = {**LM_TRAIN_CONFIG, "validate": False, "checkpointer.mode": "async",
+                "checkpointer.save_every_steps": 4}
+#: (b): phase 18's QuickNet-Large leg at unroll 4, 12 steps (a warm-up
+#: slab, the 4-step graph captured, one replay).
+OBS_TRAIN_CNN_STEPS = 12
+#: (d): a 2-layer TrainLM, NaN at step counter 3, saves every 2 steps.
+OBS_TRAIN_NAN = {**LM_TRAIN_CONFIG, "model.num_layers": 2, "validate": False,
+                 "nan_policy": "halt", "log_every": 1, "checkpointer.save_every_steps": 2}
+OBS_TRAIN_NAN_AT = 3
+#: Series every scrape of a training run must carry at its end.
+OBS_TRAIN_REQUIRED = (
+    "zk_train_step_time_ms", "zk_train_mfu", "zk_prefetch_occupancy", "zk_train_steps_total",
+    "zk_ckpt_queue_depth", "zk_hbm_bytes_in_use", "zk_hbm_peak_bytes_in_use",
+    "zk_hbm_bytes_limit", "zk_compiles_total",
+)
+
+
+def obs_train_phase(torch, bc, A, smi):
+    """Phase 26 (see the module docstring). Returns ({leg: launches},
+    stats)."""
+    import shutil
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from zookeeper_tpu_torch.core import configure
+    from zookeeper_tpu_torch.observability import recorder, trace
+    from zookeeper_tpu_torch.observability.ledger import default_ledger
+    from zookeeper_tpu_torch.resilience import FaultPlan, faults, run_with_recovery
+    from zookeeper_tpu_torch.training.imagenet import TrainImageNet
+    from zookeeper_tpu_torch.training.lm import TrainLM
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="obs_train_phase_")
+    launches, stats = {}, {}
+    counter = itertools.count()
+    get, parse = _http_get, _exposition
+
+    def make(cls, conf, on, extra=None):
+        """An experiment over a fresh checkpoint directory; ``on`` adds the
+        trace export, the endpoint, the flight recorder and log_every=1."""
+        run = os.path.join(tmp, f"run{next(counter)}")
+        os.makedirs(run)
+        obs = ({"trace_export": os.path.join(run, "trace.json"), "metrics_port": 0,
+                "flight_recorder_dir": os.path.join(run, "bundles"), "log_every": 1}
+               if on else {})
+        exp = cls()
+        configure(exp, {**conf, "checkpointer.directory": os.path.join(run, "ckpt"), **obs,
+                        **(extra or {})}, name="experiment")
+        return exp, run
+
+    def scraping(exp, scrapes):
+        """Scrape /metrics and /statusz over HTTP at each save."""
+        real = exp.checkpointer.save
+
+        def save(*a, **k):
+            server = getattr(exp, "obs_server", None)
+            if server is not None:
+                scrapes.append((get(server.port, "/metrics"),
+                                json.loads(get(server.port, "/statusz"))))
+            return real(*a, **k)
+
+        object.__setattr__(exp.checkpointer, "save", save)
+
+    # (a) TrainLM at full width, everything off, then on; the pair in
+    # deterministic mode, held to bit equality.
+    finals, scrapes, runs = {}, [], {}
+    for label in ("off", "on"):
+        exp, run = make(TrainLM, OBS_TRAIN_LM, label == "on")
+        if label == "on":
+            default_ledger().clear()  # /statusz then lists this run's program
+            scraping(exp, scrapes)
+        A.reset_launches()
+        t0 = time.perf_counter()
+        with deterministic(torch):
+            exp.run()
+            torch.cuda.synchronize()
+        stats[f"a_{label}_run_s"] = time.perf_counter() - t0
+        launches[f"lm_{label}"] = dict(A.LAUNCHES)
+        finals[label] = _flat_state(torch, exp.final_state)
+        runs[label] = (exp, run)
+    bad = _same_state(torch, finals["on"], finals["off"])
+    check(not bad, f"obs train (a): the final state differs with observability on: {bad[:5]}")
+    for name in LM_TRAIN_KERNELS:
+        want = LM_LAYERS * LM_TRAIN_STEPS
+        check(launches["lm_off"][name] == launches["lm_on"][name] == want,
+              f"obs train (a): {name} launched {launches['lm_off'][name]} (off), "
+              f"{launches['lm_on'][name]} (on), want {want}")
+    exp, run = runs["on"]
+    check(len(scrapes) >= 2, f"obs train (a): {len(scrapes)} scrapes at the saves, want 2")
+    for body, status in scrapes:
+        _, bad_lines = parse(body)
+        check(not bad_lines, f"obs train (a): invalid exposition lines {bad_lines[:5]}")
+    values, _ = parse(scrapes[-1][0])
+    status = scrapes[-1][1]
+    missing = [n for n in OBS_TRAIN_REQUIRED if n not in scrapes[-1][0]]
+    check(not missing, f"obs train (a): series missing from the last scrape: {missing}")
+    mfu, step_ms = values["zk_train_mfu"], values["zk_train_step_time_ms"]
+    rows = status["programs"]["programs"]
+    anomalies = exp.obs_registry.counter("zk_step_time_anomalies_total",
+                                         labels={"stream": "train_step"}).value
+    with open(os.path.join(run, "trace.json")) as f:
+        events = json.load(f)["traceEvents"]
+    names = {}
+    for ev in events:
+        if ev["ph"] in ("X", "i"):
+            names[ev["name"]] = names.get(ev["name"], 0) + 1
+    saves = 2  # step 4 (the step cadence) and 8 (the epoch's)
+    stats["a"] = {
+        "zk_train_step_time_ms": step_ms, "zk_train_mfu": mfu,
+        "zk_train_steps_total": values["zk_train_steps_total"],
+        "zk_ckpt_queue_depth": values["zk_ckpt_queue_depth"],
+        "zk_hbm_bytes_in_use": next((v for k, v in values.items()
+                                     if k.startswith("zk_hbm_bytes_in_use")), None),
+        "scrapes": len(scrapes), "series": len(values),
+        "programs": [{k: r.get(k) for k in ("kind", "key", "flops", "compile_ms", "dispatches")}
+                     for r in rows],
+        "trace_counts": names, "train_step_anomalies": anomalies,
+    }
+    check(step_ms > 0 and 0 < mfu <= 1.05,
+          f"obs train (a): zk_train_step_time_ms {step_ms}, zk_train_mfu {mfu}")
+    check(values["zk_train_steps_total"] == LM_TRAIN_STEPS,
+          f"obs train (a): zk_train_steps_total {values['zk_train_steps_total']}")
+    check([r["kind"] for r in rows] == ["train_step"] and rows[0]["dispatches"] >= LM_TRAIN_STEPS,
+          f"obs train (a): /statusz programs {rows}")
+    for name, n in (("data_wait", LM_TRAIN_STEPS), ("dispatch", LM_TRAIN_STEPS),
+                    ("readback", LM_TRAIN_STEPS), ("checkpoint", saves),
+                    ("ckpt_write", saves), ("ckpt_finalized", saves)):
+        check(names.get(name, 0) >= n, f"obs train (a): {names.get(name, 0)} {name} records in "
+                                       f"the exported trace, want >= {n}")
+    check(anomalies == 0, f"obs train (a): {anomalies} train_step anomalies")
+    print(f"obs train (a) on {smi}: states equal off/on, launches {launches['lm_off']} (off) "
+          f"{launches['lm_on']} (on); {json.dumps(stats['a'])}", flush=True)
+    del runs, exp, finals
+    gc.collect()
+
+    # (c) Leg (a)'s step time, three runs a side in turns (default
+    # settings), both at log_every=1: the median of the steps' clean
+    # readback-to-readback times. One steady iteration (dispatch 5 to
+    # dispatch 6) is profiled in the first run of each side.
+    real_step_fn = TrainLM._train_step_fn
+    counts = {}
+
+    def step_fn(self):
+        step = real_step_fn(self)
+        calls = itertools.count()
+        window = {}
+
+        def profiled(st, b):
+            i = next(calls)
+            if i == 5 and "prof" in window:
+                torch.cuda.synchronize()
+                window["prof"].__exit__(None, None, None)
+                ev = window["prof"].key_averages()
+                counts[self._obs_label] = {
+                    "host_ops": sum(e.count for e in ev
+                                    if e.device_type == torch.autograd.DeviceType.CPU),
+                    "kernels": sum(e.count for e in ev
+                                   if e.device_type == torch.autograd.DeviceType.CUDA)}
+            if i == 4 and self._obs_label not in counts:
+                torch.cuda.synchronize()
+                window["prof"] = profile(activities=[ProfilerActivity.CPU,
+                                                     ProfilerActivity.CUDA])
+                window["prof"].__enter__()
+            return step(st, b)
+
+        return profiled
+
+    per_run = []
+    with mock.patch.object(TrainLM, "_train_step_fn", step_fn):
+        for label in OBS_TRAIN_ORDER:
+            exp, _ = make(TrainLM, OBS_TRAIN_LM, label == "on", {"log_every": 1})
+            object.__setattr__(exp, "_obs_label", label)
+            steps = []
+            real_publish = exp._publish_mfu
+
+            def publish(per_step, program, real_publish=real_publish, steps=steps):
+                steps.append(per_step * 1e3)
+                return real_publish(per_step, program)
+
+            object.__setattr__(exp, "_publish_mfu", publish)
+            exp.run()
+            per_run.append({"obs": label, "step_ms": statistics.median(steps),
+                            "samples": len(steps)})
+            del exp
+    stats["c"] = {label: [r["step_ms"] for r in per_run if r["obs"] == label]
+                  for label in ("off", "on")}
+    stats["c"]["order"] = list(OBS_TRAIN_ORDER)
+    stats["c"]["one_iteration"] = counts
+    check(set(counts) == {"off", "on"} and counts["off"]["kernels"] == counts["on"]["kernels"],
+          f"obs train (c): one steady iteration launched {counts}")
+    print(f"obs train (c) step ms on {smi}: {json.dumps(stats['c'])}", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) Phase 18's QuickNet-Large leg at unroll 4, off and on.
+    conf, _ = UNROLL_LEGS["TrainImageNet"]
+    conf = {**conf, "loader.dataset.num_train_examples": OBS_TRAIN_CNN_STEPS * TRAIN_BATCH,
+            "epochs": 1, "steps_per_epoch": OBS_TRAIN_CNN_STEPS, "validate": False, "seed": 0,
+            "device": "cuda", "verbose": False, "unroll": UNROLL,
+            "checkpointer.save_every_epochs": 0}
+    sources, finals = {}, {}
+    for label in ("off", "on"):
+        exp, _ = make(TrainImageNet, conf, label == "on", {"log_every": UNROLL})
+        _shared_source(exp, sources)
+        if label == "on":
+            default_ledger().clear()
+        bc.reset_launches()
+        with deterministic(torch):
+            exp.run()
+            torch.cuda.synchronize()
+        launches[f"cnn_{label}"] = dict(bc.LAUNCHES)
+        finals[label] = _flat_state(torch, exp.final_state)
+        if label == "on":
+            rows = [r for r in default_ledger().entries() if r.kind == "multi_step"]
+            reg = exp.obs_registry
+            stats["b"] = {"zk_train_mfu": reg.gauge("zk_train_mfu").value,
+                          "zk_train_mfu_int8": reg.gauge("zk_train_mfu_int8").value,
+                          "zk_train_step_time_ms": reg.gauge("zk_train_step_time_ms").value,
+                          "rows": [{"key": r.key, "steps": r.attrs.get("steps"),
+                                    "flops": r.flops, "compile_ms": r.compile_ms,
+                                    "dispatches": r.dispatches} for r in rows]}
+        del exp
+    bad = _same_state(torch, finals["on"], finals["off"])
+    check(not bad, f"obs train (b): the final state differs with observability on: {bad[:5]}")
+    for name in RESID_KERNELS:
+        check(launches["cnn_off"][name] == launches["cnn_on"][name] > 0,
+              f"obs train (b): {name} launched {launches['cnn_off'][name]} (off), "
+              f"{launches['cnn_on'][name]} (on)")
+    b = stats["b"]
+    check([r["steps"] for r in b["rows"]] == [UNROLL],
+          f"obs train (b): multi_step rows {b['rows']}")
+    check(0 < b["zk_train_mfu"] <= 1.05 and 0 < b["zk_train_mfu_int8"] <= 1.05,
+          f"obs train (b): zk_train_mfu {b['zk_train_mfu']}, _int8 {b['zk_train_mfu_int8']}")
+    print(f"obs train (b) on {smi}: states equal off/on, launches {launches['cnn_off']} (off) "
+          f"{launches['cnn_on']} (on); {json.dumps(b)}", flush=True)
+    del finals, sources
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) A NaN halt under run_with_recovery with the recorder armed and
+    # the trace ring on.
+    exp, run = make(TrainLM, OBS_TRAIN_NAN, False, {
+        "flight_recorder_dir": os.path.join(tmp, "nan_bundles"),
+        "flight_recorder_interval_s": 0.0})
+    prior = recorder.get_recorder()
+    tracer = trace.Tracer()
+    trace.install(tracer)
+    A.reset_launches()
+    try:
+        with faults.injected(FaultPlan(nan_at_step=OBS_TRAIN_NAN_AT)):
+            result = run_with_recovery(exp, max_restarts=1, backoff_s=0.0, sleep=lambda s: None)
+        torch.cuda.synchronize()
+        launches["nan_halt"] = dict(A.LAUNCHES)
+        kinds = []
+        for path in exp.flight_recorder.bundles():
+            with open(os.path.join(path, "manifest.json")) as f:
+                kinds.append(json.load(f)["trigger"]["kind"])
+        ring = tracer.snapshot()
+    finally:
+        trace.install(None)
+        recorder.uninstall()
+        if prior is not None:
+            recorder.install(prior)
+    nan_marks = [r for r in ring if r["name"] == "fault_injected"
+                 and (r["attrs"] or {}).get("kind") == "nan_at_step"]
+    done = [r for r in ring if r["name"] == "restore_done"]
+    stats["d"] = {"restarts": result.restarts, "bundles": kinds,
+                  "cause": type(result.causes[0]).__name__ if result.causes else None,
+                  "nan_marks": len(nan_marks), "restore_done_steps": [r["step"] for r in done]}
+    check(result.restarts == 1 and stats["d"]["cause"] == "NonFiniteLossError",
+          f"obs train (d): {stats['d']}")
+    check(kinds.count("nan_halt") == 1 and kinds.count("supervisor_restart") == 1,
+          f"obs train (d): bundles {kinds}")
+    check(nan_marks and done, f"obs train (d): the trace ring's marks {stats['d']}")
+    print(f"obs train (d) on {smi}: {json.dumps(stats['d'])}, launches {launches['nan_halt']}",
+          flush=True)
+    del exp
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(tmp, ignore_errors=True)
+    stats["phase_s"] = time.perf_counter() - t_phase
+    print(f"obs train phase: {stats['phase_s']:.1f} s", flush=True)
+    return launches, stats
+
+
 def main() -> None:
     if not os.path.isdir(os.path.join(ROOT, "zookeeper_tpu_torch", "csrc")):
         fail("run from a checkout: zookeeper_tpu_torch/ is not beside this script")
@@ -7587,6 +7911,8 @@ def main() -> None:
     elapsed("disaggregated serving, hot swaps")
     obs_lm, obs_cnn, _ = obs_phase(torch, bc, A, smi)
     elapsed("observability")
+    obs_train, _ = obs_train_phase(torch, bc, A, smi)
+    elapsed("training observability")
     served_rows = {}
     for name in ("pack_rows", "conv_gemm_popcount", "packed_weight_matmul", *LM_KERNELS):
         lm = name in LM_KERNELS
@@ -7755,6 +8081,11 @@ def main() -> None:
                 "path": f"ServingConfig(watch=True) on slice {WATCH_SLICE}: "
                         f"{WATCH_REQUESTS} requests, a step swapped in between their halves",
                 "launches": launches_watch["watch"][name]}
+        if name in RESID_KERNELS:
+            rows[-1]["obs_train"] = {
+                "path": f"TrainImageNet QuickNet-Large at unroll {UNROLL}, "
+                        f"{OBS_TRAIN_CNN_STEPS} steps, observability off and on",
+                "launches": {label: obs_train[f"cnn_{label}"][name] for label in ("off", "on")}}
         if name in ("mask_mul_resid", "xnor_matmul_packed_scaled"):
             # K8 has no work on Bi-Real's step; K2 runs in XNORNet's dense stage.
             rows[-1]["zoo_launches"] = (launches_bt[name] if name == "mask_mul_resid"
@@ -7845,6 +8176,11 @@ def main() -> None:
                     f"{GROUP_STEPS}",
             "launches": launches_group[name],
         }
+        rows[-1]["obs_train"] = {
+            "path": f"TrainLM at full width, {LM_TRAIN_STEPS} steps with async saves, "
+                    "observability off and on; the 2-layer NaN halt under run_with_recovery",
+            "launches": {label: obs_train[key][name] for label, key in
+                         (("off", "lm_off"), ("on", "lm_on"), ("nan_halt", "nan_halt"))}}
     print(smi, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({

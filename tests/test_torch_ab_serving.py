@@ -35,6 +35,7 @@ def test_a_leg_serves_both_paths_and_hashes_equal_answers(tmp_path):
     assert all(run["tokens_per_sec"] > 0 for run in leg["lm"])
     assert all(ms > 0 for ms in leg["forward_ms"])
     assert leg["forward_ops"] > 0 and leg["forward_kernels"] == 0  # no card here
+    assert leg["decode_ops"] > 0 and leg["decode_kernels"] == 0
     assert len(leg["decode_step_ms"]) == ab.DECODE_REPS
     assert all(ms > 0 for ms in leg["decode_step_ms"])
     # Three runs of each path (one unmeasured) give one answer each.

@@ -12,8 +12,8 @@ checkpoint directory's steps. The port's run starts from JAX's built
 state; its final parameters are held to JAX's final state at the
 tolerances of ``tests/test_torch_resume_vs_jax.py`` (the same run: its
 ``ADAM_RUN``) and equal the port's uninterrupted run bit for bit. The
-trace events, gauges, counter and flight recorder that JAX's cases also
-read are not ported.
+trace events, gauges, counter and flight-recorder bundle that JAX's cases
+also read are compared in ``test_torch_obs_recovery.py``.
 """
 
 import torch_threads  # noqa: F401,I001  (one intra-op thread a process)

@@ -17,7 +17,8 @@ A leg serves, ``--runs`` times after one unmeasured run:
   ``LMServingConfig.run()``: tokens/s, inter-token p50/p99, TTFT p50;
   and, at the middle decode step of the unmeasured run (its tokens,
   lengths and page table), the wall ms of a ``DecodeEngine.decode`` call
-  (the median of each of 5 batches of 100 calls);
+  (the median of each of 5 batches of 100 calls), and the host operator
+  calls and card kernels of one such call (``torch.profiler``);
 - ``cnn``: slice A (QuickNet-Large, bf16, packed ``xnor_popcount``, 224x224,
   buckets (1, 8)) through ``ServingConfig.run()`` on 64 requests of 1-8
   rows: requests/s and latency p50/p99; then 20 batch-8 forwards through
@@ -120,6 +121,8 @@ def run_leg(lm: dict, cnn: dict, runs: int) -> dict:
             out["lm"].append({k: result[k] for k in LM_KEYS})
         else:
             out["decode_step_ms"] = _decode_step_ms(cfg.engine, *steps[len(steps) // 2])
+            out["decode_ops"], out["decode_kernels"] = _profiled_ops(
+                torch, lambda: cfg.engine.decode(*steps[len(steps) // 2][:2]), sync)
         del cfg
         if cuda:
             torch.cuda.empty_cache()
@@ -141,7 +144,8 @@ def run_leg(lm: dict, cnn: dict, runs: int) -> dict:
             sync()
             out["forward_ms"].append((time.perf_counter() - t1) / FORWARDS * 1e3)
         if i == runs:
-            out["forward_ops"], out["forward_kernels"] = _forward_ops(torch, engine, x, sync)
+            out["forward_ops"], out["forward_kernels"] = _profiled_ops(
+                torch, lambda: engine.infer(x), sync)
         del cfg, engine
         if cuda:
             torch.cuda.empty_cache()
@@ -168,18 +172,20 @@ def _decode_step_ms(engine, tokens, lengths, table) -> list:
     return out
 
 
-def _forward_ops(torch, engine, x, sync):
-    """Operator calls on the host and kernels on the card of one batch-8
-    forward, under ``torch.profiler``: the work the two checkouts issue,
-    beside their times."""
+def _profiled_ops(torch, call, sync):
+    """Operator calls on the host and kernels on the card of one ``call()``
+    (a batch-8 forward, or a decode step at the fixed mid-run state, whose
+    page table ``_decode_step_ms`` left in place), under
+    ``torch.profiler``, after one unprofiled call: the work the two
+    checkouts issue, beside their times."""
     from torch.profiler import ProfilerActivity, profile
 
-    cuda = engine.device.type == "cuda"
-    engine.infer(x)
+    cuda = torch.cuda.is_available() and torch.cuda.is_initialized()
+    call()
     sync()
     with profile(activities=[ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])) \
             as prof:
-        engine.infer(x)
+        call()
         sync()
     events = prof.key_averages()
     device = torch.autograd.DeviceType
@@ -262,8 +268,15 @@ def main() -> None:
     hashes = {what: {side: sorted({h for s, leg in legs if s == side for h in leg[what]})
                      for side in ("other", "change")} for what in ("lm_tokens", "cnn_logits")}
     same = all(len({h for hs in sides.values() for h in hs}) == 1 for sides in hashes.values())
+    # The host operators and kernels of one forward and one fixed-state
+    # decode step: counts, the same in every leg of a checkout.
+    work = {f"{what}_{unit}": {side: sorted({leg.get(f"{what}_{unit}") for s, leg in legs
+                                             if s == side})
+                               for side in ("other", "change")}
+            for what in ("forward", "decode") for unit in ("ops", "kernels")}
     summary = {"card": smi, "order": [side for side, _ in legs],
-               "answers_equal": same, "answers": hashes, "metrics": _summary(legs, "change", "other")}
+               "answers_equal": same, "answers": hashes, "work": work,
+               "metrics": _summary(legs, "change", "other")}
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:

@@ -41,6 +41,7 @@ from zookeeper_tpu_torch.core import ComponentField, Field, component
 from zookeeper_tpu_torch.data.dataset import Dataset
 from zookeeper_tpu_torch.data.preprocessing import Preprocessing
 from zookeeper_tpu_torch.data.source import DataSource
+from zookeeper_tpu_torch.observability.registry import default_registry
 
 Batch = Dict[str, np.ndarray]
 
@@ -336,14 +337,20 @@ def _stage_inline(iterator: Iterator[Batch], device: torch.device):
 
 
 def prefetch_to_device(
-    iterator: Iterator[Batch], device: Any, *, size: int = 2
+    iterator: Iterator[Batch], device: Any, *, size: int = 2, split: Optional[str] = None
 ) -> Iterator[Dict[str, torch.Tensor]]:
     """Stage host batches (or slabs) on ``device`` from a background
     thread, up to ``size`` staged and waiting while the caller runs on
     the one it holds (``DataLoader.prefetch``). The caller's stream waits
     on each one's copy before it is handed over, so no host
     synchronisation is paid. ``size=0`` stages inline on the calling
-    thread, with no thread and nothing in flight."""
+    thread, with no thread and nothing in flight.
+
+    The gauge ``zk_prefetch_occupancy{split}`` (default registry) is the
+    queue's fill after every put and get: pinned at ``size`` while the
+    card is the bottleneck, at 0 when the loop waits on its data (the
+    trace's ``data_wait`` spans say the same); 0 again once the loop
+    ends."""
     device = torch.device(device)
     if size <= 0:
         yield from _stage_inline(iterator, device)
@@ -352,6 +359,11 @@ def prefetch_to_device(
     q: "queue.Queue[Any]" = queue.Queue(maxsize=size)
     stop = threading.Event()
     err: list = []
+    occupancy = default_registry().gauge(
+        "zk_prefetch_occupancy",
+        help="device-prefetch queue fill (staged batches ready)",
+        labels={"split": split} if split else None,
+    )
 
     def put_or_stop(item) -> bool:
         while not stop.is_set():
@@ -367,6 +379,7 @@ def prefetch_to_device(
             for batch in iterator:
                 if not put_or_stop(_stage(batch, device, stream)):
                     return
+                occupancy.set(q.qsize())
         except BaseException as e:  # propagate into the consumer
             err.append(e)
         finally:
@@ -377,12 +390,15 @@ def prefetch_to_device(
     try:
         while True:
             item = q.get()
+            occupancy.set(q.qsize())
             if item is _END:
                 if err:
                     raise err[0]
                 return
             yield _hand_over(item, device)
     finally:
+        # A dead loop's last fill must not read as a live queue.
+        occupancy.set(0)
         stop.set()
         thread.join()
 
@@ -493,7 +509,7 @@ class DataLoader:
             it = slab_iterator(it, unroll, max_batches=cap)
         elif cap is not None:
             it = itertools.islice(it, cap)
-        return prefetch_to_device(it, device, size=self.prefetch)
+        return prefetch_to_device(it, device, size=self.prefetch, split=split)
 
     def steps_per_epoch(self, split: str = "train") -> int:
         source = self._source(split)

@@ -23,9 +23,11 @@ The device-side half:
 
 - ``ledger`` — the process-global program ledger: each program a
   serving engine warms (a bucket's forward, a prefill bucket, the
-  decode step, a verify window), its FLOPs and bytes counted from the
+  decode step, a verify window) or a training run first runs (a step
+  shape, a fused slab shape), its FLOPs and bytes counted from the
   layer shapes, its first-run wall time; feeds ``zk_serve_mfu`` /
-  ``zk_decode_mbu`` and the ``/statusz`` ``programs`` section.
+  ``zk_decode_mbu`` / ``zk_train_mfu`` and the ``/statusz``
+  ``programs`` section.
 - ``watchdog`` — EWMA+MAD step-time anomaly detection over the
   dispatch duration stream (``step_time_anomaly`` events + counters).
 - ``device`` — the ``zk-device-probe`` poller of the caching

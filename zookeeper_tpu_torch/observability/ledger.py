@@ -11,7 +11,11 @@ The port's "program" is what a serving engine's warm-up makes ready:
   under speculation, the copy-on-write page copy (``copy_page``) and
   the transfer gather and scatter (``gather_pages``, ``scatter_pages``);
   a speculative draft engine's programs carry its ``ledger_prefix``
-  (``draft_decode_step``...).
+  (``draft_decode_step``...);
+- a ``TrainingExperiment`` step at one batch shape (``train_step``) and
+  a fused slab at one slab shape (``multi_step``, ``attrs["steps"]`` its
+  number of steps), made per run, as the JAX loop compiles its steps
+  per run.
 
 A program's "compile ms" is the wall time of its FIRST run, ended by a
 device synchronisation: the kernel build and load, cuDNN's algorithm
@@ -19,7 +23,8 @@ choice and the caching allocator's growth all land there. Its FLOPs and
 bytes are COUNTED from the layer shapes once, at that first run, never
 timed: ``2*M*N*K`` for every conv, dense layer and matmul (packed, int8
 or float alike), ``4 * head_dim`` per (query, key) pair and head for
-attention; bytes are the weights read once plus the inputs, outputs
+attention (:class:`ContractionFlops`; a train step three times its
+forward); bytes are the weights read once plus the inputs, outputs
 and KV rows the program touches. A first run after the engine's
 ``warmup()`` is a serving stall the bucket ladder was meant to prevent:
 the engines count it (``zk_serving_recompiles_total``).
@@ -46,10 +51,13 @@ import time
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional
 
+import numpy as np
+
 from zookeeper_tpu_torch.observability import trace as _trace
 from zookeeper_tpu_torch.observability.registry import default_registry
 
 __all__ = [
+    "ContractionFlops",
     "ProgramLedger",
     "ProgramRecord",
     "cost_bytes",
@@ -236,6 +244,70 @@ def recompile_counter():
         help="post-warmup first runs of a program on the request path (each one is "
         "a serving stall)",
     )
+
+
+class ContractionFlops:
+    """Forward hooks counting ``2*M*N*K`` over ``module``'s contraction
+    layers while the context is open: a conv (``Conv``, ``QuantConv``,
+    ``QuantConvND``) contributes ``2 * out.numel() * prod(kernel_size) *
+    (in_channels / groups)``, a dense layer (``Dense``, ``QuantDense``,
+    the LM's ``_Linear``) ``2 * out.numel() * in_features``, whatever path
+    (packed, int8, float) computes it, and the LM's weight-tied head ``2 *
+    logits.numel() * d_model``. ``flops`` holds the sum. ``pair_flops``
+    counts each LM block's causal attention: ``4 * head_dim`` per (query,
+    key) pair with the key at or before the query, per head.
+
+    A train step's FLOPs (:meth:`train_step_flops`) are the forward's
+    contractions times 3 (the backward computes two products of each
+    forward one's size: the input's gradient and the weight's) plus the
+    attention at ``12 * head_dim`` a pair and head (4 forward, 8
+    backward: the flash backward recomputes the scores and takes dV, dP,
+    dQ and dK)."""
+
+    def __init__(self, module: Any) -> None:
+        from zookeeper_tpu_torch.models.transformer import TransformerLMModule, _Block, _Linear
+        from zookeeper_tpu_torch.ops.layers import Conv, Dense, QuantConv, QuantConvND, QuantDense
+
+        self.flops = 0
+        self.pair_flops = 0
+        self._module = module
+        self._convs = (Conv, QuantConv, QuantConvND)
+        self._denses = (Dense, QuantDense, _Linear)
+        self._blocks = _Block
+        self._heads = TransformerLMModule
+        self._handles = []
+
+    def _hook(self, layer, inputs, out) -> None:
+        x = inputs[0]
+        if isinstance(layer, self._blocks):
+            b, s = int(x.shape[0]), int(x.shape[1])
+            heads = layer.num_heads // (layer._tp_attn.size if layer._tp_attn is not None else 1)
+            self.pair_flops += 4 * layer.head_dim * heads * b * (s * (s + 1) // 2)
+            return
+        if isinstance(layer, self._heads):
+            k = int(layer.d_model)
+        elif isinstance(layer, self._convs):
+            k = int(np.prod(layer.kernel_size)) * (int(x.shape[-1]) // int(layer.groups))
+        else:
+            k = int(x.shape[-1])
+        self.flops += 2 * int(out.numel()) * k
+
+    def train_step_flops(self) -> int:
+        """The counted forward as a train step: ``3 * flops + 3 *
+        pair_flops`` (see the class docstring)."""
+        return 3 * self.flops + 3 * self.pair_flops
+
+    def __enter__(self) -> "ContractionFlops":
+        kinds = self._convs + self._denses + (self._blocks, self._heads)
+        self._handles = [m.register_forward_hook(self._hook)
+                         for m in self._module.modules() if isinstance(m, kinds)]
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        for handle in self._handles:
+            handle.remove()
+        self._handles = []
+        return False
 
 
 def cost_flops(program: Any) -> Optional[float]:

@@ -7,15 +7,16 @@ evicted the bad request's spans and the gauges have moved on. The
 ``FlightRecorder`` closes that gap: trigger sources fire
 :func:`notify` the moment something goes wrong —
 
-- ``StepTimeWatchdog`` anomalies (the serving dispatch watchdog),
+- ``StepTimeWatchdog`` anomalies (the serving dispatch watchdog, the
+  training loop's ``train_step`` and ``train_dispatch`` streams),
 - ``recompile_detected`` (both serving engines: a program first run
   after ``warmup()``),
 - ``worker_crash`` / ``decode_worker_crash`` (batcher + scheduler
   crash cleanup),
+- ``nan_halt`` (``nan_policy="halt"`` at its readback),
+  ``fault_injected`` (a ``FaultPlan`` training leg that fired),
+  ``supervisor_restart`` and ``group_restart`` (``run_with_recovery``),
 - manual ``POST /debugz`` (``ObservabilityServer``),
-
-(the training half's triggers, NaN-halts, fault injections and
-supervisor restarts, are wired with the training loop's observability)
 
 — and the recorder writes a self-contained BUNDLE directory joining
 every observability layer into one artifact:

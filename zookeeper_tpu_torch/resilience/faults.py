@@ -28,6 +28,12 @@ one ``None`` check.
 - The multi-host legs key on the host's logical process index: a
   several-process run installs the same plan in every process and each
   host fires only its own faults.
+- Every training leg that fires marks the trace with
+  ``fault_injected{kind}`` (the ``FaultPlan`` field's name) and notifies
+  the flight recorder, as the JAX package's legs do; ``nan_at_step`` is
+  marked by the experiment when it dispatches the step
+  (:meth:`FaultPlan.mark_nan_dispatch`), which the JAX package does not
+  mark. The serving legs raise no such notice here.
 
 The serving legs cover the worker and decode-scheduler crashes and the
 disaggregated page handoff; the fleet's legs and ``delay_forward_ms``
@@ -39,6 +45,17 @@ import os
 import threading
 from dataclasses import dataclass, field
 from typing import Dict, Iterator, Optional
+
+from zookeeper_tpu_torch.observability import recorder as _recorder
+from zookeeper_tpu_torch.observability import trace as _trace
+
+
+def _injection_event(kind: str, step: Optional[int] = None) -> None:
+    """A training leg's fault fired: an instant ``fault_injected{kind}``
+    on the trace, where the recovery it triggers starts its spans, and a
+    flight-recorder notice (one global read when none is installed)."""
+    _trace.event("fault_injected", step=step, attrs={"kind": kind})
+    _recorder.notify("fault_injected", step=step, attrs={"kind": kind})
 
 
 class Preempted(Exception):
@@ -175,8 +192,18 @@ class FaultPlan:
         with self._lock:
             if not self._killed and int(step) >= int(min(candidates)):
                 self._killed = True
+                _injection_event("kill_at_step", step=int(step))
                 return True
         return False
+
+    def mark_nan_dispatch(self, step: int, steps: int = 1) -> None:
+        """A dispatch of ``steps`` train steps from the counter ``step``
+        is about to run: when ``nan_at_step`` falls in them, mark the
+        fault (the step computes its NaN on the card, where the host
+        cannot see it). The JAX package reads the fault when it traces
+        the step and never marks it."""
+        if self.nan_at_step is not None and step <= self.nan_at_step < step + steps:
+            _injection_event("nan_at_step", step=int(self.nan_at_step))
 
     def take_host_finalize_failure(self, process_index: int) -> bool:
         """Consume the injected per-host finalize death when it names
@@ -187,6 +214,7 @@ class FaultPlan:
             if (not self._host_finalize_failed
                     and int(process_index) == int(self.fail_host_finalize)):
                 self._host_finalize_failed = True
+                _injection_event("fail_host_finalize")
                 return True
         return False
 
@@ -195,6 +223,7 @@ class FaultPlan:
         with self._lock:
             if self.coordinator_loss > 0:
                 self.coordinator_loss -= 1
+                _injection_event("coordinator_loss")
                 return True
         return False
 
@@ -242,6 +271,7 @@ class FaultPlan:
         with self._lock:
             if self.fail_save_io > 0:
                 self.fail_save_io -= 1
+                _injection_event("fail_save_io")
                 return True
         return False
 
@@ -251,6 +281,7 @@ class FaultPlan:
         with self._lock:
             if self.fail_async_finalize > 0:
                 self.fail_async_finalize -= 1
+                _injection_event("fail_async_finalize")
                 return True
         return False
 
@@ -262,6 +293,7 @@ class FaultPlan:
         with self._lock:
             if not self._async_killed and int(step) == self.kill_during_async_write:
                 self._async_killed = True
+                _injection_event("kill_during_async_write", step=int(step))
                 return True
         return False
 
@@ -273,6 +305,7 @@ class FaultPlan:
         with self._lock:
             if not self._corrupted and int(step) == self.corrupt_checkpoint_step:
                 self._corrupted = True
+                _injection_event("corrupt_checkpoint_step", step=int(step))
                 return True
         return False
 

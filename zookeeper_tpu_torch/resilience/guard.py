@@ -13,7 +13,10 @@ the save happens on the training thread at the next boundary.
 and a real SIGTERM take one code path. The fused loop
 (``TrainingExperiment.unroll > 1``) checks the flag at slab ends: the
 state is an exact resume point only between slabs, so a signal during a
-slab takes effect, and saves, at its end.
+slab takes effect, and saves, at its end. A trip marks the trace with
+``preemption_requested`` (its signal and origin host), and the boundary's
+drain and save are the spans ``preemption_drain`` and
+``preemption_save``.
 """
 
 import logging
@@ -22,6 +25,7 @@ import threading
 from typing import Any, Optional, Sequence, Tuple
 
 from zookeeper_tpu_torch.core import Field, component
+from zookeeper_tpu_torch.observability import trace as _trace
 
 logger = logging.getLogger(__name__)
 
@@ -81,6 +85,7 @@ class PreemptionGuard:
         if origin is not None:
             st["origin"] = int(origin)
         st["flag"].set()
+        _trace.event("preemption_requested", attrs={"signal": signum, "origin": origin})
 
     def _signals(self) -> Sequence[int]:
         sigs = [signal.SIGTERM]
@@ -134,13 +139,15 @@ class PreemptionGuard:
         if checkpointer.enabled:
             supersede = (checkpointer.queue_policy == "supersede"
                          and checkpointer.keep_best_metric is None)
-            wait_ms = checkpointer.wait(supersede=supersede)
+            with _trace.span("preemption_drain", step=global_step):
+                wait_ms = checkpointer.wait(supersede=supersede)
             if checkpointer.keep_best_metric is not None:
                 saved = checkpointer.latest_step() is not None
             elif checkpointer.latest_step() == global_step:
                 saved = True  # a cadence save landed on this step
             else:
-                saved = bool(checkpointer.save(state, sync=True))
+                with _trace.span("preemption_save", step=global_step):
+                    saved = bool(checkpointer.save(state, sync=True))
         return saved, wait_ms
 
     def uninstall(self) -> "PreemptionGuard":

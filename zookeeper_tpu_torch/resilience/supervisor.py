@@ -18,6 +18,15 @@ check, so any host's preemption drains and saves every host at one
 agreed step; after every exit the hosts exchange a restart verdict and
 restart together, or raise :class:`GroupPeerFailure` when a peer exited
 unrecoverably or the coordinator was lost.
+
+Observability: a restart of one process marks the trace with
+``supervisor_restart`` (attempt, cause, backoff) and asks the installed
+flight recorder for a bundle of the state the run died in; a group
+restart marks ``group_restart`` (with the host that started the drain,
+``origin``), counts ``zk_group_restarts_total`` and bundles with
+``origin`` in the manifest; a group's resumed run publishes
+``zk_group_restore_ms``; a run that completes after restarts marks
+``supervisor_recovered``.
 """
 
 import logging
@@ -26,6 +35,9 @@ import time
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional, Tuple, Type
 
+from zookeeper_tpu_torch.observability import recorder as _recorder
+from zookeeper_tpu_torch.observability import trace as _trace
+from zookeeper_tpu_torch.observability.registry import default_registry
 from zookeeper_tpu_torch.resilience import faults
 from zookeeper_tpu_torch.resilience.coordination import (
     CoordinatorLostError,
@@ -133,7 +145,13 @@ def run_with_recovery(
                 # wait in the exchange.
                 cause = e
                 outcome = "stop"
+            n_restore = len(restore_ms)
             _record_restore_ms(experiment, attempt, t_start, restore_ms)
+            if group and len(restore_ms) > n_restore:
+                default_registry().gauge(
+                    "zk_group_restore_ms",
+                    help="latest group restart -> first post-resume train step, ms",
+                ).set(restore_ms[-1])
             origin = getattr(getattr(experiment, "guard", None), "preemption_origin", None)
             try:
                 verdicts = coord.exchange(
@@ -155,6 +173,8 @@ def run_with_recovery(
                     "host's run succeeded but the group cannot re-form"
                 )
             if "recoverable" not in outcomes:
+                if attempt > 0:
+                    _trace.event("supervisor_recovered", attrs={"restarts": attempt})
                 return RecoveryResult(history=history, restarts=attempt, causes=causes,
                                       restore_ms=restore_ms, save_wait_ms=save_wait_ms)
             if cause is not None:
@@ -174,6 +194,26 @@ def run_with_recovery(
                 "recoverable exit (origin host %s, cause %s); restart %d/%d after "
                 "%.1fs backoff", origin_pid, cause_name, attempt + 1, max_restarts, delay,
             )
+            if group:
+                _trace.event("group_restart", attrs={"attempt": attempt + 1, "cause": cause_name,
+                                                     "origin": origin_pid, "backoff_s": delay})
+                default_registry().counter(
+                    "zk_group_restarts_total",
+                    help="coordinated whole-process-group restarts",
+                ).inc()
+                # The manifest names the host that started the drain.
+                _recorder.notify("group_restart", step=getattr(cause, "step", None),
+                                 attrs={"attempt": attempt + 1, "cause": cause_name,
+                                        "origin": origin_pid,
+                                        "process_index": coordinator.process_index})
+            else:
+                _trace.event("supervisor_restart", attrs={
+                    "attempt": attempt + 1, "cause": type(cause).__name__, "backoff_s": delay})
+                # A bundle of the state the run died in, before the rerun
+                # overwrites it.
+                _recorder.notify("supervisor_restart", step=getattr(cause, "step", None),
+                                 attrs={"attempt": attempt + 1,
+                                        "cause": type(cause).__name__})
             if delay > 0:
                 sleep(delay)
         raise AssertionError("unreachable")  # pragma: no cover

@@ -73,45 +73,6 @@ from zookeeper_tpu_torch.serving import weights as _weights
 logger = logging.getLogger(__name__)
 
 
-class _ContractionFlops:
-    """Forward hooks counting ``2*M*N*K`` over ``module``'s contraction
-    layers while the context is open: a conv (``Conv``, ``QuantConv``,
-    ``QuantConvND``) contributes ``2 * out.numel() * prod(kernel_size) *
-    (in_channels / groups)``, a dense layer (``Dense``, ``QuantDense``,
-    the LM's ``_Linear``) ``2 * out.numel() * in_features``, whatever path
-    (packed, int8, float) computes it. ``flops`` holds the sum."""
-
-    def __init__(self, module: nn.Module) -> None:
-        from zookeeper_tpu_torch.models.transformer import _Linear
-        from zookeeper_tpu_torch.ops.layers import Conv, Dense, QuantConv, QuantConvND, QuantDense
-
-        self.flops = 0
-        self._module = module
-        self._convs = (Conv, QuantConv, QuantConvND)
-        self._denses = (Dense, QuantDense, _Linear)
-        self._handles = []
-
-    def _hook(self, layer, inputs, out) -> None:
-        x = inputs[0]
-        if isinstance(layer, self._convs):
-            k = int(np.prod(layer.kernel_size)) * (int(x.shape[-1]) // int(layer.groups))
-        else:
-            k = int(x.shape[-1])
-        self.flops += 2 * int(out.numel()) * k
-
-    def __enter__(self) -> "_ContractionFlops":
-        self._handles = [m.register_forward_hook(self._hook)
-                         for m in self._module.modules()
-                         if isinstance(m, self._convs + self._denses)]
-        return self
-
-    def __exit__(self, *exc) -> bool:
-        for handle in self._handles:
-            handle.remove()
-        self._handles = []
-        return False
-
-
 def _dtype_name(dtype: torch.dtype) -> str:
     return str(dtype).replace("torch.", "")
 
@@ -346,7 +307,7 @@ MicroBatcher`."""
             (self._plan.numel(name, p) if name in gathered else p.numel()) * p.element_size()
             for name, p in self._module.named_parameters())
         weight_bytes += sum(b.numel() * b.element_size() for b in self._module.buffers())
-        counter = _ContractionFlops(self._module)
+        counter = _ledger.ContractionFlops(self._module)
         t0 = time.perf_counter()
         with counter:
             out = forward()

@@ -29,6 +29,12 @@ A write that fails retries on this thread with the checkpointer's
 backoff and is then logged and dropped: the training thread never sees
 checkpoint IO errors. ``FaultPlan.kill_during_async_write`` models the
 process dying mid-write (a torn remnant, the write abandoned).
+
+Observability: the gauge ``zk_ckpt_queue_depth`` (the snapshot queued
+plus the write in flight), the events ``ckpt_queued``,
+``ckpt_superseded``, ``ckpt_killed``, ``ckpt_finalized`` and
+``ckpt_dropped``, and a ``ckpt_write`` span around each write, all
+keyed by the step.
 """
 
 import logging
@@ -36,6 +42,8 @@ import threading
 import time
 from typing import Any, Dict, Optional
 
+from zookeeper_tpu_torch.observability import trace as _trace
+from zookeeper_tpu_torch.observability.registry import default_registry
 from zookeeper_tpu_torch.resilience import faults
 
 logger = logging.getLogger(__name__)
@@ -64,8 +72,18 @@ class AsyncCheckpointWriter:
             "submitted": 0, "finalized": 0, "dropped": 0, "superseded": 0,
             "killed": 0, "last_write_ms": 0.0,
         }
+        # Process-wide (one writer a process in practice): is the writer
+        # keeping up with the save cadence.
+        self._queue_gauge = default_registry().gauge(
+            "zk_ckpt_queue_depth",
+            help="async checkpoint snapshots queued + being written",
+        )
         self._thread = threading.Thread(target=self._loop, name="zk-async-ckpt", daemon=True)
         self._thread.start()
+
+    def _update_queue_gauge(self) -> None:
+        """The caller holds ``_cv``."""
+        self._queue_gauge.set((self._pending is not None) + (self._writing_step is not None))
 
     # -- training-thread API ---------------------------------------------
 
@@ -82,6 +100,7 @@ class AsyncCheckpointWriter:
             if self._pending is not None:
                 if self._policy == "supersede":
                     self.stats["superseded"] += 1
+                    _trace.event("ckpt_superseded", step=self._pending[0])
                     logger.info(
                         "async checkpoint of step %d superseded by step %d "
                         "before its write began", self._pending[0], step,
@@ -94,6 +113,8 @@ class AsyncCheckpointWriter:
                     if self._stopping:
                         return False
             self._pending = (int(step), host_tree, metrics, ready)
+            self._update_queue_gauge()
+            _trace.event("ckpt_queued", step=step)
             self._cv.notify_all()
         return True
 
@@ -111,7 +132,9 @@ class AsyncCheckpointWriter:
         with self._cv:
             if supersede and self._pending is not None:
                 self.stats["superseded"] += 1
+                _trace.event("ckpt_superseded", step=self._pending[0])
                 self._pending = None
+                self._update_queue_gauge()
                 self._cv.notify_all()
             while self._pending is not None or self._writing_step is not None:
                 if not self._thread.is_alive():
@@ -138,6 +161,7 @@ class AsyncCheckpointWriter:
                 step, host_tree, metrics, ready = self._pending
                 self._pending = None
                 self._writing_step = step
+                self._update_queue_gauge()
                 self._cv.notify_all()
             t0 = time.perf_counter()
             try:
@@ -149,21 +173,28 @@ class AsyncCheckpointWriter:
                     # nothing retries; restore walks back past it.
                     self._ckpt._leave_unfinalized_remnant(step)
                     self.stats["killed"] += 1
+                    _trace.event("ckpt_killed", step=step)
                     logger.warning(
                         "async write of step %d killed mid-write (injected): "
                         "unfinalized remnant left on disk; restore walks back "
                         "to the previous finalized step", step,
                     )
-                elif self._ckpt._run_with_save_retries(
-                    step, lambda: self._ckpt._attempt_async_write(step, host_tree, metrics)
-                ):
-                    self.stats["finalized"] += 1
-                    self.stats["last_write_ms"] = (time.perf_counter() - t0) * 1e3
                 else:
-                    self.stats["dropped"] += 1
+                    with _trace.span("ckpt_write", step=step):
+                        finalized = self._ckpt._run_with_save_retries(
+                            step,
+                            lambda: self._ckpt._attempt_async_write(step, host_tree, metrics))
+                    if finalized:
+                        self.stats["finalized"] += 1
+                        self.stats["last_write_ms"] = (time.perf_counter() - t0) * 1e3
+                        _trace.event("ckpt_finalized", step=step)
+                    else:
+                        self.stats["dropped"] += 1
+                        _trace.event("ckpt_dropped", step=step)
             except BaseException as e:
                 # Nothing the writer hits reaches the training thread.
                 self.stats["dropped"] += 1
+                _trace.event("ckpt_dropped", step=step)
                 logger.error(
                     "async checkpoint write of step %d failed outside the "
                     "retry loop; dropping this save", step, exc_info=e,
@@ -172,4 +203,5 @@ class AsyncCheckpointWriter:
                 del host_tree
                 with self._cv:
                     self._writing_step = None
+                    self._update_queue_gauge()
                     self._cv.notify_all()

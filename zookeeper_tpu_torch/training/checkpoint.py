@@ -59,6 +59,15 @@ shape, so every block is a box; readers that need the global tensor
 (a one-process restore of a group's step, ``load_inference_model``)
 fold it back in the order ``ShardPlan.gather`` gives. At
 ``process_count == 1`` the mode is the layout above, byte for byte.
+
+Observability (``observability.trace``, one flag check each while
+tracing is off), keyed by the step as the JAX package's: the spans
+``ckpt_snapshot`` (the async snapshot, or the per-host extraction) and
+``ckpt_sync_save`` around a save, ``restore_step`` around each read;
+the events ``restore_skip{tier, reason}`` and ``restore_done{tier}`` of
+the restore walk; under the per-host protocol the gauge
+``zk_ckpt_host_finalized{pid}`` and the events ``ckpt_host_finalized``,
+``ckpt_group_committed`` and ``ckpt_group_commit_abandoned``.
 """
 
 import itertools
@@ -87,6 +96,8 @@ from zookeeper_tpu_torch.models.convert import (
     to_flax_variables,
     unflatten_tree,
 )
+from zookeeper_tpu_torch.observability import trace as _trace
+from zookeeper_tpu_torch.observability.registry import default_registry
 from zookeeper_tpu_torch.resilience import faults
 
 logger = logging.getLogger(__name__)
@@ -169,6 +180,11 @@ def save_model(path: str, params: Mapping[str, torch.Tensor],
     torch.save({"params": cpu(params), "model_state": cpu(model_state)}, tmp)
     os.replace(tmp, target)
     return target
+
+
+def _restore_skip(step: int, tier: str, reason: str) -> None:
+    """The restore walk passed over ``step``: the ``restore_skip`` event."""
+    _trace.event("restore_skip", step=step, attrs={"tier": tier, "reason": reason})
 
 
 def _step_names(path: str) -> List[str]:
@@ -1101,6 +1117,12 @@ class Checkpointer:
             return False
         os.replace(tmp, host_dir)
         _fsync_dir(step_root)
+        default_registry().gauge(
+            "zk_ckpt_host_finalized",
+            help="newest step this host finalized its sharded checkpoint half for",
+            labels={"pid": str(pid)},
+        ).set(int(step))
+        _trace.event("ckpt_host_finalized", step=int(step), attrs={"pid": pid})
         return True
 
     def _commit_sharded_step(self, step_root: str, step: int, count: int) -> bool:
@@ -1124,10 +1146,13 @@ class Checkpointer:
                     "restore on every host", step, len(hosts), count,
                     self.host_commit_timeout_s,
                 )
+                _trace.event("ckpt_group_commit_abandoned", step=int(step),
+                             attrs={"hosts": len(hosts), "expected": count})
                 return False
             time.sleep(0.01)
         _atomic_write_json(os.path.join(step_root, "COMMIT.json"),
                            {"step": int(step), "process_count": int(count), "hosts": hosts})
+        _trace.event("ckpt_group_committed", step=int(step), attrs={"hosts": count})
         return True
 
     def _maybe_promote_sharded_durable(self, step: int, step_root: str) -> None:
@@ -1189,14 +1214,17 @@ class Checkpointer:
         step = int(state.step) if step is None else int(step)
         asynchronous = self.mode == "async" and not sync
         if self._sharded_active:
-            # Every rank writes its own blocks: no gather, no barrier.
-            payload, ready = self._extract_host_shards(state)
+            # Every rank writes its own blocks: no gather, no barrier. The
+            # extraction is both modes' snapshot.
+            with _trace.span("ckpt_snapshot", step=step):
+                payload, ready = self._extract_host_shards(state)
             if asynchronous:
                 return self._writer().submit(step, payload, metrics, ready=ready)
-            if ready is not None:
-                ready.synchronize()
-            return self._run_with_save_retries(
-                step, lambda: self._write_state(payload, step, metrics))
+            with _trace.span("ckpt_sync_save", step=step):
+                if ready is not None:
+                    ready.synchronize()
+                return self._run_with_save_retries(
+                    step, lambda: self._write_state(payload, step, metrics))
         tree = _state_tree(state)
         if state.shards is not None:
             tree = state.shards.gather_tree(tree)  # every rank takes part
@@ -1204,12 +1232,16 @@ class Checkpointer:
             if not asynchronous:
                 self._barrier()  # the chief's write has landed
             return True
-        tree, ready = host_snapshot(tree)
         if asynchronous:
+            with _trace.span("ckpt_snapshot", step=step):
+                tree, ready = host_snapshot(tree)
             return self._writer().submit(step, tree, metrics, ready=ready)
-        if ready is not None:
-            ready.synchronize()
-        saved = self._run_with_save_retries(step, lambda: self._write_state(tree, step, metrics))
+        with _trace.span("ckpt_sync_save", step=step):
+            tree, ready = host_snapshot(tree)
+            if ready is not None:
+                ready.synchronize()
+            saved = self._run_with_save_retries(
+                step, lambda: self._write_state(tree, step, metrics))
         self._barrier()
         return saved
 
@@ -1359,10 +1391,12 @@ class Checkpointer:
     def _restore_entry(self, step: int, tier: str, state: Any):
         """One restore attempt: ``(tree, None)``, or ``(None, error)``."""
         try:
-            if tier in ("hosts", "hosts-durable"):
-                with self._io_lock():
-                    return self._restore_host_sharded(step, state, self._tier_root(tier)), None
-            return self._read_checked(step, tier, state), None
+            with _trace.span("restore_step", step=step):
+                if tier in ("hosts", "hosts-durable"):
+                    with self._io_lock():
+                        return (self._restore_host_sharded(step, state, self._tier_root(tier)),
+                                None)
+                return self._read_checked(step, tier, state), None
         except Exception as e:
             return None, e
 
@@ -1422,8 +1456,10 @@ class Checkpointer:
                     logger.warning(
                         "%s checkpoint step %d is restorable here but torn on a peer "
                         "host; skipped on EVERY host for group agreement", tier, step)
+                    _restore_skip(step, tier, "peer_torn")
                     continue
             if not valid:
+                _restore_skip(step, tier, "unfinalized")
                 logger.warning(
                     "%s checkpoint step %d is not finalized (crash mid-save, or host "
                     "data GC'd since listing?); falling back to an earlier step",
@@ -1441,9 +1477,11 @@ class Checkpointer:
                 if ok and not all(oks):
                     logger.warning("a peer host failed to read %s step %d; skipped on every "
                                    "host for group agreement", tier, step)
+                    _restore_skip(step, tier, "peer_unreadable")
                     continue
             if not ok:
                 last_err = err
+                _restore_skip(step, tier, "unreadable")
                 logger.warning(
                     "%s checkpoint step %d failed to restore (%s); falling back to an "
                     "earlier retained step", tier, step, err,
@@ -1455,6 +1493,7 @@ class Checkpointer:
                     "step(s) were corrupt/unreadable — work since step %d will be "
                     "retrained", tier, step, entries[0][0], step,
                 )
+            _trace.event("restore_done", step=step, attrs={"tier": tier})
             if tier in ("hosts", "hosts-durable"):
                 self._load_tree(state, tree)
             else:

@@ -52,9 +52,32 @@ with a ``model`` axis, ``SequenceParallelPartitioner.tp``) each rank
 holds its blocks of the sharded state (``parallel.shards``); the eval,
 the checkpoints and the export gather them. Without a launcher there is
 no group and no collective: the run is the single-card run, to the bit.
-The ``observability`` package is not wired into training yet: the
-training half (spans, MFU, the step watchdog, checkpoint and resilience
-hooks) waits (ROADMAP.md).
+
+Observability (``observability``), as the JAX loop wires it: with
+``trace_export`` set the run records host spans (``data_wait``,
+``dispatch``, ``readback``, ``checkpoint``, with their step and slab,
+beside the checkpointer's, the async writer's and the guard's) and
+writes them as Chrome trace-event JSON at teardown, also when the run
+raises; ``metrics_port >= 0`` serves ``/metrics`` and ``/statusz`` over
+the default and the experiment's registry (``obs_registry``) with the
+``zk_hbm_*`` probe, for the run's lifetime; ``flight_recorder_dir`` arms
+a flight recorder, left installed after the run so the supervisor's
+restarts bundle too. Always on: each epoch publishes
+``zk_train_steps_total``, ``zk_train_epoch``, ``zk_train_<metric>`` and
+``zk_val_<metric>``; each step shape (``train_step``) or slab shape
+(``multi_step``, ``attrs["steps"]`` its size) is a ledger program,
+counted and synchronised at its first run; each readback feeds the
+``train_step`` watchdog and ``zk_train_step_time_ms``, ``zk_train_mfu``
+(the program's FLOPs a step over the measured step time over the bf16
+peak; -1 while unknown) and, for ``binary_compute="int8"`` models,
+``zk_train_mfu_int8``; each iteration feeds the ``train_dispatch``
+watchdog. Checkpoint saves, profiler windows and validation are marked
+as stalls, so neither watchdog reads them as stragglers. A NaN halt
+notifies the flight recorder before it raises. With all of it off, a
+would-be span costs one flag check: no torch operator, no
+synchronisation. The one synchronisation a run adds is at its first
+step (the step program's first run; ``run_with_recovery`` reads the
+same mark as the restore latency).
 """
 
 import json
@@ -69,6 +92,13 @@ import torch
 from zookeeper_tpu_torch.core import ComponentField, Field, component, pretty_print
 from zookeeper_tpu_torch.data.pipeline import DataLoader
 from zookeeper_tpu_torch.models.base import Model
+from zookeeper_tpu_torch.observability import DeviceProbe, ObservabilityServer
+from zookeeper_tpu_torch.observability import ledger as _ledger
+from zookeeper_tpu_torch.observability import peaks as _peaks
+from zookeeper_tpu_torch.observability import recorder as _recorder
+from zookeeper_tpu_torch.observability import trace as _trace
+from zookeeper_tpu_torch.observability.registry import MetricsRegistry, default_registry
+from zookeeper_tpu_torch.observability.watchdog import StepTimeWatchdog
 from zookeeper_tpu_torch.ops.layers import BINARY_KERNEL_PATTERN
 from zookeeper_tpu_torch.parallel import DistributedRuntime, Partitioner, SingleDevicePartitioner
 from zookeeper_tpu_torch.parallel.distributed import local_device
@@ -109,6 +139,73 @@ class Experiment:
 
     def run(self) -> Any:
         raise NotImplementedError("Experiment subclasses must implement run().")
+
+
+def _data_wait_iter(iterable, name: str = "data_wait"):
+    """Each ``next()`` of a batch or slab iterator as a ``data_wait``
+    span: the time the training thread waited on the input pipeline
+    (near zero when the loop is compute-bound). One flag check and a
+    generator hop a batch while tracing is off."""
+    it = iter(iterable)
+    while True:
+        with _trace.span(name):
+            try:
+                item = next(it)
+            except StopIteration:
+                return
+        yield item
+
+
+class _StepProgram:
+    """A train step (``kind="train_step"``) or a fused slab
+    (``"multi_step"``) as ledger programs: the first call at each input
+    shape runs under the FLOP-counting hooks
+    (``observability.ledger.ContractionFlops``: a step's FLOPs are its
+    forward's contractions times 3 plus ``12 * head_dim`` per causal
+    attention pair and head), ends in a device synchronisation and lands
+    one ledger row with its wall time (for a slab, ``attrs["steps"]`` is
+    its number of steps: the FLOPs divisor of ``zk_train_mfu``). Later
+    calls at a known shape count a dispatch. ``ledger_entry`` is the row
+    of the last call's shape. On the card the first slab of a
+    ``MultiStep`` is its eager warm-up, so that row's wall time is the
+    warm-up's; the capture follows at the next slab of the shape
+    (``MultiStep.graphs[...].capture_s``)."""
+
+    def __init__(self, fn, kind: str, prefix: str):
+        self.fn = fn
+        self.kind = kind
+        self.prefix = prefix
+        self.programs: Dict[tuple, Any] = {}
+        self.ledger_entry = None
+
+    def __call__(self, state: TrainState, batch):
+        key = tuple(v.shape for v in batch.values())
+        entry = self.programs.get(key)
+        if entry is None:
+            return self._first_run(state, batch, key)
+        entry.dispatches += 1
+        self.ledger_entry = entry
+        return self.fn(state, batch)
+
+    def _first_run(self, state: TrainState, batch, key):
+        first = next(iter(batch.values()))
+        counter = _ledger.ContractionFlops(state.module)
+        t0 = time.perf_counter()
+        with counter:
+            out = self.fn(state, batch)
+        if first.device.type == "cuda":
+            torch.cuda.synchronize(first.device)
+        compile_ms = (time.perf_counter() - t0) * 1e3
+        shape = "x".join(str(d) for d in first.shape)
+        attrs = {"steps": int(first.shape[0])} if self.kind == "multi_step" else {}
+        entry = _ledger.default_ledger().record(
+            self.kind, f"{self.prefix}/{shape}/{str(first.dtype).replace('torch.', '')}",
+            flops=counter.train_step_flops(), compile_ms=compile_ms,
+            attrs={"partitioner": self.prefix, **attrs})
+        entry.dispatches += 1
+        self.programs[key] = entry
+        self.ledger_entry = entry
+        return out
 
 
 def _host_means(accum: List[Dict[str, torch.Tensor]]) -> Dict[str, float]:
@@ -247,6 +344,24 @@ class TrainingExperiment(Experiment):
     #: boundary skew (one slab, bounded by the boundary's device sync)
     #: plus the shared storage's flag-visibility lag; 0 = 4 x ``unroll``.
     group_drain_margin_steps: int = Field(0)
+    #: Host span tracing: the run's spans and events (the loop's
+    #: ``data_wait``/``dispatch``/``readback``/``checkpoint`` and every
+    #: subsystem's) are written here as Chrome trace-event JSON at
+    #: teardown, to open in Perfetto beside ``profile_dir``'s device
+    #: trace. None = tracing stays off (one flag check a would-be span).
+    trace_export: Optional[str] = Field(None)
+    #: ``/metrics`` (Prometheus text), ``/statusz`` and ``/trace`` on this
+    #: port while the run is alive: -1 = off, 0 = an ephemeral port
+    #: (logged, and ``self.obs_server.port``).
+    metrics_port: int = Field(-1)
+    #: A ``FlightRecorder`` writing here is installed for the run: watchdog
+    #: anomalies, NaN halts, fault injections and supervisor restarts
+    #: each dump a bundle (trace ring, metrics text, program ledger,
+    #: statusz, manifest). It stays installed after the run, so the
+    #: restarts of ``run_with_recovery`` bundle too. None = off.
+    flight_recorder_dir: Optional[str] = Field(None)
+    #: The least seconds between two bundles (``POST /debugz`` bypasses it).
+    flight_recorder_interval_s: float = Field(30.0)
 
     @Field
     def num_classes(self) -> int:
@@ -271,7 +386,200 @@ class TrainingExperiment(Experiment):
         leave the profiler running)."""
         window = getattr(self, "_profile_window", None)
         if window is not None:
+            self._profile_window = None
             window.abort()
+
+    def _open_profile(self, device: torch.device) -> None:
+        self._profile_window = ProfileWindow(self.profile_dir, device)
+        self._profile_window.start()
+        self._obs_mark_stall()
+
+    def _close_profile(self, steps: int) -> None:
+        window, self._profile_window = self._profile_window, None
+        window.stop()
+        self._obs_mark_stall()
+        self._log_profile_breakdown(steps)
+
+    # -- observability ----------------------------------------------------
+
+    @property
+    def obs_registry(self) -> MetricsRegistry:
+        """The experiment's registry (the epoch mirrors, the watchdogs, the
+        live gauges), rendered at ``/metrics`` when ``metrics_port`` is
+        set."""
+        reg = getattr(self, "_obs_registry", None)
+        if reg is None:
+            reg = MetricsRegistry()
+            self._obs_registry = reg
+        return reg
+
+    def _publish_epoch_observability(self, epoch: int, steps_trained: int,
+                                     epoch_metrics: Dict[str, float],
+                                     vmetrics: Optional[Dict[str, float]]) -> None:
+        """The epoch's metrics as gauges for a live scrape. Never raises: a
+        metric name colliding with an instrument of another type loses its
+        mirror with a warning, not the run."""
+        reg = self.obs_registry
+        try:
+            reg.counter("zk_train_steps_total", help="train steps completed this run"
+                        ).inc(steps_trained)
+            reg.gauge("zk_train_epoch", help="last completed epoch").set(epoch + 1)
+            for k, v in epoch_metrics.items():
+                reg.gauge(f"zk_train_{k}").set(v)
+            for k, v in (vmetrics or {}).items():
+                reg.gauge(f"zk_val_{k}").set(v)
+        except Exception as e:
+            logger.warning("epoch observability mirror skipped: %s", e)
+
+    def _obs_status(self) -> Dict[str, Any]:
+        """The run's ``/statusz`` section."""
+        return {"model": type(self.model).__name__, "epochs": int(self.epochs),
+                "batch_size": int(self.batch_size), "unroll": int(self.unroll)}
+
+    def _setup_observability(self) -> None:
+        """Start what the fields ask for: tracing, the endpoint with the
+        device probe, the flight recorder (kept installed after the run;
+        the same experiment rerun by ``run_with_recovery`` reuses it)."""
+        if self.trace_export:
+            # A tracer enabled by someone else outlives this run.
+            self._trace_enabled_here = not _trace.enabled()
+            _trace.enable()
+        if self.metrics_port >= 0:
+            server = ObservabilityServer([default_registry(), self.obs_registry],
+                                         port=self.metrics_port,
+                                         status_providers={"training": self._obs_status})
+            server.start()
+            self.obs_server = server
+            # An eager first poll: zk_hbm_* render from the first scrape.
+            probe = DeviceProbe()
+            probe.poll_once()
+            probe.start()
+            self.obs_probe = probe
+            self._log(f"observability endpoint: {server.url}/metrics")
+        if self.flight_recorder_dir:
+            rec = getattr(self, "flight_recorder", None)
+            if rec is None or rec.directory != self.flight_recorder_dir:
+                rec = _recorder.arm(
+                    self.flight_recorder_dir,
+                    registries=[default_registry(), self.obs_registry],
+                    status_providers={"training": self._obs_status},
+                    min_interval_s=self.flight_recorder_interval_s,
+                )
+                self.flight_recorder = rec
+            _recorder.install(rec)
+
+    def _finish_host_trace(self) -> None:
+        """Write the Chrome trace and put tracing back as it was."""
+        if self.trace_export and _trace.enabled():
+            n = _trace.export_chrome_trace(self.trace_export)
+            self._log(f"host trace: {n} events -> {self.trace_export} (open in Perfetto)")
+            if self.profile_dir is not None:
+                self._log(
+                    f"paired trace artifacts: host spans {self.trace_export} (Chrome JSON) "
+                    f"+ device trace {self.profile_dir} (torch.profiler Chrome JSON) — "
+                    "load both in Perfetto and align on wall time")
+            if getattr(self, "_trace_enabled_here", False):
+                _trace.disable()
+
+    def _stop_obs_server(self) -> None:
+        server = getattr(self, "obs_server", None)
+        if server is not None:
+            self.obs_server = None
+            server.stop()
+        probe = getattr(self, "obs_probe", None)
+        if probe is not None:
+            self.obs_probe = None
+            probe.stop()
+
+    def _watchdog(self, stream: str):
+        """The stream's anomaly watchdog (made at its first use, counting
+        in ``obs_registry``; a 5 ms excess floor: host jitter on a fast
+        step is no anomaly)."""
+        dogs = getattr(self, "_watchdogs", None)
+        if dogs is None:
+            dogs = self._watchdogs = {}
+        dog = dogs.get(stream)
+        if dog is None:
+            dog = dogs[stream] = StepTimeWatchdog(stream, min_excess_s=0.005,
+                                                  registry=self.obs_registry)
+        return dog
+
+    def _obs_reset_timers(self) -> None:
+        self._obs_timer = {"iter_t": None, "iter_dirty": False, "sync_t": None,
+                           "sync_step": None, "sync_dirty": False}
+        self._mfu_peaks = None
+
+    def _obs_mark_stall(self, sync: bool = True) -> None:
+        """The current intervals hold a deliberate stall (a save, a
+        profiler window, validation): the watchdogs skip them.
+        ``sync=False`` marks only the dispatch stream (a readback inflates
+        its iteration but is the sync stream's clean boundary)."""
+        timer = getattr(self, "_obs_timer", None)
+        if timer is not None:
+            timer["iter_dirty"] = True
+            if sync:
+                timer["sync_dirty"] = True
+
+    def _obs_iteration_end(self, k: int, global_step: int) -> None:
+        """An iteration (``k`` steps dispatched) ended: its wall time a
+        step feeds the ``train_dispatch`` watchdog (data wait and host
+        dispatch; the card runs behind)."""
+        timer = self._obs_timer
+        t = time.perf_counter()
+        prev, timer["iter_t"] = timer["iter_t"], t
+        if timer["iter_dirty"]:
+            timer["iter_dirty"] = False
+            return
+        if prev is not None:
+            self._watchdog("train_dispatch").observe((t - prev) / max(1, k), step=global_step)
+
+    def _obs_sync_point(self, global_step: int, program: Any) -> None:
+        """A readback just completed every step up to ``global_step``: the
+        time a step since the previous one feeds the ``train_step``
+        watchdog and the live gauges."""
+        timer = getattr(self, "_obs_timer", None)
+        if timer is None:
+            return
+        t = time.perf_counter()
+        prev_t, prev_step = timer["sync_t"], timer["sync_step"]
+        timer["sync_t"], timer["sync_step"] = t, global_step
+        if timer["sync_dirty"]:
+            timer["sync_dirty"] = False
+            return
+        if prev_t is None or prev_step is None or global_step <= prev_step:
+            return
+        per_step = (t - prev_t) / (global_step - prev_step)
+        self._watchdog("train_step").observe(per_step, step=global_step)
+        self._publish_mfu(per_step, program)
+
+    def _publish_mfu(self, per_step_seconds: float, program: Any) -> None:
+        """``zk_train_step_time_ms``, ``zk_train_mfu`` and, for int8
+        models, ``zk_train_mfu_int8``: the program's counted FLOPs a step
+        (a ``multi_step`` row's over its own ``steps``, the slab it was
+        counted on, not the configured ``unroll``) over the step time over
+        the reference peak; -1 while unknown."""
+        reg = self.obs_registry
+        reg.gauge("zk_train_step_time_ms",
+                  help="measured steady-state seconds/step (readback-bounded)"
+                  ).set(per_step_seconds * 1e3)
+        entry = getattr(program, "ledger_entry", None)
+        flops = getattr(entry, "flops", None)
+        if flops is not None and entry.kind == "multi_step":
+            flops = flops / max(1, int(entry.attrs.get("steps", self.unroll)))
+        peaks = getattr(self, "_mfu_peaks", None)
+        if peaks is None:
+            peaks = self._mfu_peaks = (
+                _peaks.reference_peak_flops()[0],
+                _peaks.reference_int8_peak_flops()[0]
+                if getattr(self.model, "binary_compute", None) == "int8" else None)
+        value = _ledger.mfu(flops, per_step_seconds, peaks[0])
+        reg.gauge("zk_train_mfu", help="ledger FLOPs / measured step time / reference bf16 "
+                  "peak (-1 = count or timing unavailable)", initial=-1
+                  ).set(value if value is not None else -1)
+        if peaks[1] is not None:
+            value8 = _ledger.mfu(flops, per_step_seconds, peaks[1])
+            reg.gauge("zk_train_mfu_int8", help="the same step against the int8 peak",
+                      initial=-1).set(value8 if value8 is not None else -1)
 
     def _steps_per_epoch(self) -> int:
         spe = self.loader.steps_per_epoch("train")
@@ -370,14 +678,20 @@ class TrainingExperiment(Experiment):
         epoch_save_fires = ck.save_every_epochs > 0 and (epoch + 1) % ck.save_every_epochs == 0
         return step_idx + 1 < spe or not epoch_save_fires
 
-    def _mark_first_step(self, metrics: Dict[str, torch.Tensor]) -> None:
-        """Time the end of this run's first train step, or slab (one
-        readback, once a run, and only with a checkpointer, the one way a
-        run resumes): ``run_with_recovery`` reads it as the restore
-        latency."""
-        if self.first_step_at is None and self.checkpointer.enabled:
-            float(metrics["loss"].reshape(-1)[-1])
+    def _mark_first_step(self, global_step: int) -> None:
+        """Time the end of this run's first train step, or slab, which is
+        its step program's first run and so ended in the run's one added
+        device synchronisation (``_StepProgram``): ``run_with_recovery``
+        reads it as the restore latency, and it starts the step-time
+        stream, so a ``log_every=0`` run still publishes ``zk_train_mfu``
+        at its epoch's readback."""
+        if self.first_step_at is None:
             self.first_step_at = time.perf_counter()
+            timer = getattr(self, "_obs_timer", None)
+            if timer is not None:
+                timer["sync_t"] = self.first_step_at
+                timer["sync_step"] = int(global_step)
+                timer["sync_dirty"] = False
 
     def _group_process_index(self) -> int:
         """This host's index for the fault legs: the group coordinator's
@@ -460,8 +774,9 @@ class TrainingExperiment(Experiment):
 
     def _teardown(self) -> None:
         """Uninstall the guard, close an open profiler window, wait on the
-        checkpoint writer and flush the metrics writer (flush, not close:
-        ``run()`` may be called again). Every step runs; a failure while
+        checkpoint writer, flush the metrics writer (flush, not close:
+        ``run()`` may be called again), write the host trace and stop the
+        endpoint. Every step runs; a failure while
         an exception is already in flight is logged and suppressed, so the
         original error propagates; with none in flight the first failure
         propagates."""
@@ -472,6 +787,8 @@ class TrainingExperiment(Experiment):
             ("profiler.stop", self._abort_profile),
             ("checkpointer.wait", self.checkpointer.wait),
             ("writer.flush", self.writer.flush),
+            ("trace.export", self._finish_host_trace),
+            ("obs_server.stop", self._stop_obs_server),
         ):
             try:
                 fn()
@@ -498,9 +815,13 @@ class TrainingExperiment(Experiment):
 
     def _check_halt(self, host: Dict[str, float], global_step: int) -> None:
         """``nan_policy="halt"``: raise when a step of the metrics just read
-        back was skipped."""
+        back was skipped, after a ``nan_halt`` notice to the flight
+        recorder (the trace ring around the NaN step is the evidence the
+        supervisor's restore discards)."""
         if self.nan_policy == "halt" and host.get("skipped_steps", 0.0) > 0:
-            raise NonFiniteLossError(global_step, int(host["skipped_steps"]))
+            skipped = int(host["skipped_steps"])
+            _recorder.notify("nan_halt", step=global_step, attrs={"skipped_steps": skipped})
+            raise NonFiniteLossError(global_step, skipped)
 
     def _print_summary(self) -> None:
         from zookeeper_tpu_torch.models.summary import meta_module, model_summary
@@ -541,6 +862,10 @@ class TrainingExperiment(Experiment):
         self.checkpointer.set_replicas(
             partitioner.replicas() if self.checkpointer.enabled else None, partitioner.is_chief)
         try:
+            # Up before the state is built, so the build and the restore
+            # can be scraped; inside the try, so a half-failed setup (a
+            # busy port) is torn down.
+            self._setup_observability()
             state = partitioner.shard_state(self.build_state(device))
             state = self.checkpointer.restore_state(state)
             partitioner.check_same_step(state.step)
@@ -563,25 +888,32 @@ class TrainingExperiment(Experiment):
         for step_idx, batch in enumerate(batches, start=start_b):
             global_step = epoch * spe + step_idx + 1
             if profiling and step_idx == p_start:
-                self._profile_window = ProfileWindow(self.profile_dir, device)
-                self._profile_window.start()
-            state, metrics = train_step(state, batch)
+                self._open_profile(device)
+            plan = faults.active()
+            if plan is not None:
+                plan.mark_nan_dispatch(global_step - 1)
+            with _trace.span("dispatch", step=global_step - 1):
+                state, metrics = train_step(state, batch)
             accum.append(metrics)
-            self._mark_first_step(metrics)
+            self._mark_first_step(global_step)
             if profiling and step_idx == p_stop:
-                window, self._profile_window = self._profile_window, None
-                window.stop()
                 profiling = False
-                self._log_profile_breakdown(p_stop - p_start + 1)
+                self._close_profile(p_stop - p_start + 1)
             if self._step_save_due(epoch, step_idx, spe):
-                ck.save(state)
+                with _trace.span("checkpoint", step=global_step):
+                    ck.save(state)
+                self._obs_mark_stall()
             if self.log_every and (step_idx + 1) % self.log_every == 0:
                 # The step's scalars ride the readback log_every already
                 # pays for.
-                row = _host_means([metrics])
+                with _trace.span("readback", step=global_step):
+                    row = _host_means([metrics])
+                self._obs_mark_stall(sync=False)
+                self._obs_sync_point(global_step, train_step)
                 self._check_halt(row, global_step)
                 self._log_step_scalars(step_idx, spe, global_step, row)
             self._boundary_check(state, global_step)
+            self._obs_iteration_end(1, global_step)
         return state, len(accum)
 
     def _run_fused_epoch(self, multi_step, state, slabs, accum, epoch, spe, start_b,
@@ -598,53 +930,66 @@ class TrainingExperiment(Experiment):
         step, preemption (and ``FaultPlan.kill_at_step``) is checked
         there, and the profiler window covers whole slabs, from the first
         slab starting at or after ``p_start`` (or the epoch's last slab)
-        to the one holding ``p_stop``."""
+        to the one holding ``p_stop``. The ``dispatch``, ``checkpoint``
+        and ``readback`` spans carry the slab's index."""
         step_idx = start_b
         trace_first = start_b
         for slab_idx, slab in enumerate(slabs):
             k = int(next(iter(slab.values())).shape[0])
+            first = epoch * spe + step_idx
             if profiling and self._profile_window is None and (
                     step_idx >= p_start or step_idx + k >= spe):
-                self._profile_window = ProfileWindow(self.profile_dir, device)
-                self._profile_window.start()
+                self._open_profile(device)
                 trace_first = step_idx
-            with slab_annotation(slab_idx, num_steps=k):
+            plan = faults.active()
+            if plan is not None:
+                plan.mark_nan_dispatch(first, k)
+            with slab_annotation(slab_idx, num_steps=k), _trace.span(
+                    "dispatch", step=first, slab=slab_idx):
                 state, metrics = multi_step(state, slab)
             accum.append(metrics)
-            self._mark_first_step(metrics)
+            self._mark_first_step(first + k)
             if profiling and self._profile_window is not None and step_idx + k > p_stop:
-                window, self._profile_window = self._profile_window, None
-                window.stop()
                 profiling = False
-                self._log_profile_breakdown(step_idx + k - trace_first)
+                self._close_profile(step_idx + k - trace_first)
             if any(self._step_save_due(epoch, s, spe) for s in range(step_idx, step_idx + k)):
-                self.checkpointer.save(state)
+                with _trace.span("checkpoint", step=first + k, slab=slab_idx):
+                    self.checkpointer.save(state)
+                self._obs_mark_stall()
             bounds = [s for s in range(step_idx, step_idx + k)
                       if self.log_every and (s + 1) % self.log_every == 0]
             if bounds:
                 # One readback for the slab; each step's values are the
                 # ones the eager loop logs.
-                host = {name: v.to(torch.float32).to(torch.float64).cpu()
-                        for name, v in metrics.items()}
+                with _trace.span("readback", step=first + k, slab=slab_idx):
+                    host = {name: v.to(torch.float32).to(torch.float64).cpu()
+                            for name, v in metrics.items()}
+                self._obs_mark_stall(sync=False)
+                self._obs_sync_point(first + k, multi_step)
                 self._check_halt({"skipped_steps": float(host["skipped_steps"].sum())}
-                                 if "skipped_steps" in host else {},
-                                 epoch * spe + step_idx + k)
+                                 if "skipped_steps" in host else {}, first + k)
                 for s in bounds:
                     self._log_step_scalars(s, spe, epoch * spe + s + 1,
                                            {name: float(v[s - step_idx])
                                             for name, v in host.items()})
             step_idx += k
             self._boundary_check(state, epoch * spe + step_idx)
+            self._obs_iteration_end(k, epoch * spe + step_idx)
         return state, step_idx - start_b
 
     def _train(self, state: TrainState, device: torch.device):
         """The epochs from the restored ``state``; returns ``(state,
         history)``."""
-        train_step = self._train_step_fn()
+        step_fn = self._train_step_fn()
         # Built per run, after the restore: a graph captures the state's
         # tensors as they are now.
-        multi_step = build_multi_step(train_step) if self.unroll > 1 else None
-        self.multi_step = multi_step
+        self.multi_step = build_multi_step(step_fn) if self.unroll > 1 else None
+        # The ledger's programs, per run as the JAX loop compiles its step.
+        prefix = type(self.partitioner).__name__
+        if self.multi_step is None:
+            program = _StepProgram(step_fn, "train_step", prefix)
+        else:
+            program = _StepProgram(self.multi_step, "multi_step", prefix)
         eval_step = make_eval_step(
             smoothed_softmax_cross_entropy(self.label_smoothing),
             use_ema=self.ema_decay > 0, top5=self.track_top5,
@@ -669,6 +1014,7 @@ class TrainingExperiment(Experiment):
             and "loss" in self.early_stop_metric
         )
         ck = self.checkpointer
+        self._obs_reset_timers()
         # From here to teardown, SIGTERM/SIGINT mean "save and exit at the
         # next step boundary".
         self.guard.install()
@@ -684,14 +1030,15 @@ class TrainingExperiment(Experiment):
                          and self.partitioner.is_chief)
             p_start = min(start_b + 4, spe - 1)
             p_stop = min(start_b + 14, spe - 1)
-            run_epoch = self._run_eager_epoch if multi_step is None else self._run_fused_epoch
+            run_epoch = (self._run_eager_epoch if self.multi_step is None
+                         else self._run_fused_epoch)
             batches = self.loader.batches(
                 "train", device=device, epoch=epoch, start_batch=start_b, max_batches=spe,
                 unroll=self.unroll, sharding=self.partitioner.batch_sharding(),
             )
             try:
                 state, steps_trained = run_epoch(
-                    multi_step or train_step, state, batches, accum, epoch, spe, start_b,
+                    program, state, _data_wait_iter(batches), accum, epoch, spe, start_b,
                     profiling, p_start, p_stop, device)
             finally:
                 # A preemption drops the batch in flight with the loader
@@ -699,8 +1046,12 @@ class TrainingExperiment(Experiment):
                 close = getattr(batches, "close", None)
                 if close is not None:
                     close()
-            epoch_metrics = _host_means(accum)  # the epoch's one readback
-            self._check_halt(epoch_metrics, epoch * spe + start_b + steps_trained)
+            end_step = epoch * spe + start_b + steps_trained
+            with _trace.span("readback", step=end_step):
+                epoch_metrics = _host_means(accum)  # the epoch's one readback
+            self._obs_mark_stall(sync=False)
+            self._obs_sync_point(end_step, program)
+            self._check_halt(epoch_metrics, end_step)
             dt = time.perf_counter() - t0
             epoch_metrics["examples_per_sec"] = (
                 steps_trained * self.loader.batch_size / dt if dt > 0 else 0.0
@@ -723,6 +1074,7 @@ class TrainingExperiment(Experiment):
                     sharding=self.partitioner.batch_sharding(),
                     replicas=self.partitioner.replicas(),
                 ) or None
+                self._obs_mark_stall()  # validation is a pause, not step time
                 if vmetrics is not None:
                     history["validation"].append(vmetrics)
                     line += (
@@ -745,6 +1097,7 @@ class TrainingExperiment(Experiment):
                 scalars.update({f"val/{k}": v for k, v in vmetrics.items()})
             if self.partitioner.is_chief:
                 self.writer.write_scalars((epoch + 1) * spe, scalars)
+            self._publish_epoch_observability(epoch, steps_trained, epoch_metrics, vmetrics)
             # Scored: fresh validation when the dataset has a split, else
             # the train epoch (not a partial one: its aggregates are not
             # comparable); None on an epoch that was not validated.
@@ -755,7 +1108,9 @@ class TrainingExperiment(Experiment):
                     and (epoch + 1) % ck.save_every_epochs == 0
                     and not (ck.keep_best_metric is not None and scored is None)):
                 # Best-ranking saves only on epochs with fresh metrics.
-                ck.save(state, metrics=scored)
+                with _trace.span("checkpoint", step=(epoch + 1) * spe):
+                    ck.save(state, metrics=scored)
+                self._obs_mark_stall()
             if self.early_stop_metric is not None and scored is not None:
                 if self.early_stop_metric not in scored:
                     raise ValueError(
