@@ -486,8 +486,12 @@ CUDA card and ``nvcc``. In order:
    event a save; the ``train_step`` watchdog counts no anomaly. (c) The
    same run's step time (the median of its readback-to-readback steps at
    ``log_every=1``), three runs a side in turns (printed, no threshold),
-   and the ``torch.profiler`` count of one steady iteration's host
-   operators and kernels, off and on: the kernels equal. (b) Phase 18's
+   and the ``torch.profiler`` counts of three steady iterations' host
+   operators and device events (one profiler, a warm-up iteration before
+   each window), off and on: each event's largest count over the three
+   windows, host-to-device copies apart (the prefetch thread's land in
+   any window), equal off and on, device-to-host copies and fills
+   included. (b) Phase 18's
    QuickNet-Large leg (int8, packed residuals, batch 128) at ``unroll``
    4 over 12 steps, off and on: the states equal bit for bit, K6-K8
    launched equally, one ``multi_step`` ledger row of 4 steps,
@@ -497,7 +501,42 @@ CUDA card and ``nvcc``. In order:
    restart, exactly one ``nan_halt`` and one ``supervisor_restart``
    bundle, and the trace ring holds ``fault_injected{kind=nan_at_step}``
    and ``restore_done``.
-27. One JSON line of the kernels (14 rows; K1, K3, K4, K6 and K7 also
+27. Serving under overload and across replicas (``guard_fleet_phase``):
+   (a) phase 10's LM (paged, no prefix cache) behind an async
+   ``DecodeScheduler``: a seeded ``loadgen.poisson_burst`` trace of 64
+   requests (prompts 64-2048 tokens, 64 new) replayed open-loop with the
+   guard off gives the sustained rate, the reference tokens and the
+   median per-request service time; the same requests, their rates scaled
+   to 0.5x and 3x the sustained rate, are replayed at ``time_scale=1.0``
+   through ``LMServingConfig`` with ``guard.enabled``, ``brownout_after``
+   4, ``brownout_release`` 16 and ``default_deadline_ms`` 6x the service
+   time: at 0.5x nothing is shed or late and the tokens equal the
+   reference; at 3x some are shed, every request is terminal, each
+   finished stream's tokens equal the reference; the brown-out engages,
+   is applied at the drain and is released by 17 admissions into the
+   empty queue (the first capped at 8 tokens, a prefix of the
+   reference, the last whole); K9 = 4 x the prefill dispatches and K13 =
+   4 x the decode steps; the pool's pages all free. Each run's
+   ``SLOReport`` (TTFT and latency p50/p99, goodput, outcomes) is
+   printed. (b) Two worker processes on the card (``spawn_fleet_workers``
+   through ``python chip_smoke.py --fleet-worker``, which also writes each
+   worker's K9/K13 launches and dispatch counts), the prefix cache on,
+   behind a ``FleetRouter`` under affinity: a ``session_mix`` trace (4
+   sessions x 3 turns, a 1024-token shared prefix, 128 tokens a turn, 32
+   new) all ok, >= 8 affinity hits, every later turn warm, the tokens
+   equal an in-process ``LMServingConfig`` oracle's that serves each
+   replica's requests in its order (so each takes its warm or cold path).
+   (c) The kill leg on (b)'s fleet: ``fleet_replica_kill_at=5`` SIGKILLs
+   a worker; every request terminal, the retried ones equal the oracle,
+   the victim's breaker open, the survivor's pages free or the prefix
+   cache's. The gray leg on a fresh fleet under round-robin whose w0
+   stalls its first forward 1.5 s (``delay_forward_ms``): w0 stays
+   healthy, its breaker opens, one half-open probe, closed; the tokens
+   equal the affinity run's and the oracle's. Counted from the end of its
+   warm-up, each worker's K9 = 4 x its prefills and K13 = 4 x its decode
+   steps, at least one of them where it served a request; a worker that
+   served none launched and dispatched nothing.
+28. One JSON line of the kernels (14 rows; K1, K3, K4, K6 and K7 also
    with their sums on Bi-Real-Net's path under ``bireal``; K1, K3 and K4
    under ``densenet`` and ``melius``, K1 and K3 under ``xnor_train`` per
    DenseNet training step, K2 under ``xnor_train`` per BinaryAlexNet
@@ -516,7 +555,8 @@ CUDA card and ``nvcc``. In order:
    ``disagg``, phase 24's launches on each path, and K1 and K3 under
    ``hot_swap``, its watched service's; K9, K13, K1 and K3 under ``obs``,
    phase 25's launches with observability off and on; K6-K11 under
-   ``obs_train``, phase 26's), then the result line.
+   ``obs_train``, phase 26's; K9 and K13 under ``guard_fleet``, phase 27's
+   guarded service's and each worker's), then the result line.
 """
 
 import contextlib
@@ -3457,6 +3497,17 @@ def _plain_gap(torch, A, module, prompt, plain_tokens, t):
     """Top-two logit gap of the plain path where it emitted token ``t``
     of a stream: the plain decode path's logits, recomputed by feeding
     the stream's own tokens to a fresh plain slot engine."""
+    logits = _plain_logits(torch, A, module, prompt, plain_tokens, t)
+    top2 = torch.topk(logits, 2)
+    check(int(top2.indices[0]) == int(plain_tokens[t]),
+          f"lm parity: the recomputed plain logits do not give the plain token {t}")
+    return float(top2.values[0] - top2.values[1])
+
+
+def _plain_logits(torch, A, module, prompt, tokens, t):
+    """The plain decode path's fp32 logits for token ``t`` of a stream of
+    ``prompt`` whose first ``t`` tokens are ``tokens[:t]``, from a fresh
+    plain slot engine."""
     import numpy as np
 
     from zookeeper_tpu_torch.core import configure
@@ -3477,24 +3528,21 @@ def _plain_gap(torch, A, module, prompt, plain_tokens, t):
     with torch.inference_mode(), _plain_attention(A):
         if t == 0:  # the prefill's logits, at the engine's padded bucket
             dev = engine.device
-            tokens = np.zeros((1, engine.seq_bucket_for(prompt.shape[0])), np.int32)
-            tokens[0, : prompt.shape[0]] = prompt
-            last, _ = module.prefill(torch.from_numpy(tokens).to(dev),
+            padded = np.zeros((1, engine.seq_bucket_for(prompt.shape[0])), np.int32)
+            padded[0, : prompt.shape[0]] = prompt
+            last, _ = module.prefill(torch.from_numpy(padded).to(dev),
                                      torch.tensor([prompt.shape[0]], device=dev))
             logits = last[0].float()
         else:
             engine.prefill([prompt], [0])
-            tokens = np.zeros(LM_SLOTS, np.int32)
+            feed = np.zeros(LM_SLOTS, np.int32)
             lengths = np.zeros(LM_SLOTS, np.int32)
             with mock.patch.object(module, "decode_step", spy):
                 for j in range(t):
-                    tokens[0], lengths[0] = plain_tokens[j], prompt.shape[0] + j
-                    engine.decode(tokens, lengths)
+                    feed[0], lengths[0] = tokens[j], prompt.shape[0] + j
+                    engine.decode(feed, lengths)
             logits = seen[-1]
-    top2 = torch.topk(logits, 2)
-    check(int(top2.indices[0]) == int(plain_tokens[t]),
-          f"lm parity: the recomputed plain logits do not give the plain token {t}")
-    return float(top2.values[0] - top2.values[1])
+    return logits
 
 
 #: The LM training slice: the long-context line of examples/lm_experiment.py
@@ -7652,32 +7700,62 @@ def obs_train_phase(torch, bc, A, smi):
 
     # (c) Leg (a)'s step time, three runs a side in turns (default
     # settings), both at log_every=1: the median of the steps' clean
-    # readback-to-readback times. One steady iteration (dispatch 5 to
-    # dispatch 6) is profiled in the first run of each side.
+    # readback-to-readback times. Three steady iterations (dispatches 3,
+    # 5 and 7, the card idle at each edge) are profiled in the first run
+    # of each side, by one profiler whose schedule runs a warm-up
+    # iteration before each: a window opened cold has lost its first
+    # ~40 kernel records on the card. The loader's prefetch thread copies
+    # batches to the card whenever its queue has room, so host-to-device
+    # copies are left out (and counted apart); an iteration's events are
+    # each other event's largest count over the three windows. A readback
+    # or a fill that observability added would show here.
     real_step_fn = TrainLM._train_step_fn
     counts = {}
+    windows_of = {}
 
     def step_fn(self):
         step = real_step_fn(self)
         calls = itertools.count()
         window = {}
+        label = self._obs_label
+        seen = windows_of.setdefault(label, [])
+
+        def ready(prof):
+            ev = prof.key_averages()
+            seen.append({
+                "host_ops": sum(e.count for e in ev
+                                if e.device_type == torch.autograd.DeviceType.CPU),
+                "device": {e.key: e.count for e in ev
+                           if e.device_type == torch.autograd.DeviceType.CUDA}})
+            # Copies and fills by name (the host-to-device ones vary).
+            seen[-1]["copies"] = {k: n for k, n in seen[-1]["device"].items()
+                                  if k.startswith(("Memcpy", "Memset"))}
 
         def profiled(st, b):
             i = next(calls)
-            if i == 5 and "prof" in window:
+            if label not in counts and 1 <= i <= 7:
                 torch.cuda.synchronize()
-                window["prof"].__exit__(None, None, None)
-                ev = window["prof"].key_averages()
-                counts[self._obs_label] = {
-                    "host_ops": sum(e.count for e in ev
-                                    if e.device_type == torch.autograd.DeviceType.CPU),
-                    "kernels": sum(e.count for e in ev
-                                   if e.device_type == torch.autograd.DeviceType.CUDA)}
-            if i == 4 and self._obs_label not in counts:
-                torch.cuda.synchronize()
-                window["prof"] = profile(activities=[ProfilerActivity.CPU,
-                                                     ProfilerActivity.CUDA])
-                window["prof"].__enter__()
+                if i == 1:
+                    window["prof"] = profile(
+                        activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                        schedule=torch.profiler.schedule(wait=0, warmup=1, active=1,
+                                                         repeat=3),
+                        on_trace_ready=ready)
+                    window["prof"].__enter__()
+                else:
+                    window["prof"].step()
+                if i == 7:
+                    window.pop("prof").__exit__(None, None, None)
+                    events = {}
+                    for w in seen:
+                        for name, n in w["device"].items():
+                            if not name.startswith("Memcpy HtoD"):
+                                events[name] = max(events.get(name, 0), n)
+                    counts[label] = {
+                        "host_ops": [w["host_ops"] for w in seen],
+                        "device_events": [sum(w["device"].values()) for w in seen],
+                        "copies": [w["copies"] for w in seen],
+                        "events": sum(events.values()), "by_name": events}
             return step(st, b)
 
         return profiled
@@ -7702,9 +7780,16 @@ def obs_train_phase(torch, bc, A, smi):
     stats["c"] = {label: [r["step_ms"] for r in per_run if r["obs"] == label]
                   for label in ("off", "on")}
     stats["c"]["order"] = list(OBS_TRAIN_ORDER)
-    stats["c"]["one_iteration"] = counts
-    check(set(counts) == {"off", "on"} and counts["off"]["kernels"] == counts["on"]["kernels"],
-          f"obs train (c): one steady iteration launched {counts}")
+    stats["c"]["one_iteration"] = {label: {k: v for k, v in c.items() if k != "by_name"}
+                                   for label, c in counts.items()}
+    check(set(counts) == {"off", "on"}, f"obs train (c): profiled {sorted(counts)}")
+    names = set(counts["off"]["by_name"]) | set(counts["on"]["by_name"])
+    stats["c"]["differ"] = {n: [counts[label]["by_name"].get(n, 0) for label in ("off", "on")]
+                            for n in sorted(names)
+                            if counts["off"]["by_name"].get(n) != counts["on"]["by_name"].get(n)}
+    check(counts["off"]["by_name"] == counts["on"]["by_name"],
+          f"obs train (c): a steady iteration's events differ off/on: {stats['c']['differ']} "
+          f"({stats['c']['one_iteration']})")
     print(f"obs train (c) step ms on {smi}: {json.dumps(stats['c'])}", flush=True)
     gc.collect()
     torch.cuda.empty_cache()
@@ -7798,6 +7883,533 @@ def obs_train_phase(torch, bc, A, smi):
     stats["phase_s"] = time.perf_counter() - t_phase
     print(f"obs train phase: {stats['phase_s']:.1f} s", flush=True)
     return launches, stats
+
+
+#: Phase 27 (a): phase 10's LM (paged, no prefix cache) behind an async
+#: scheduler; the guard-off run and the guarded runs replay one
+#: ``poisson_burst`` trace of GUARD_REQUESTS requests (prompts 64-2048
+#: tokens, 64 new). Its rates and phase lengths are scaled together, so
+#: the requests are the same at every offered rate.
+GUARD_SEED = 27
+GUARD_REQUESTS = 64
+GUARD_TRACE = {"base_rate_rps": 25.0, "burst_rate_rps": 40.0, "base_s": 1.0, "burst_s": 0.8,
+               "cooldown_s": 1.5, "vocab": 1024, "prompt_len": 64, "max_prompt_len": 2048,
+               "new_tokens": 64, "max_new_tokens": 64}
+#: The offered rates, as multiples of the rate the guard-off run sustains.
+GUARD_LOADS = (0.5, 3.0)
+#: The deadline, as a multiple of the guard-off run's median per-request
+#: service time (dispatch to completion).
+GUARD_DEADLINE_X = 6.0
+#: The guard: the brown-out engages after 4 predicted-miss sheds in a row
+#: and releases after 16 admits in a row (more than the overloaded run's
+#: tail admits, so the drain that ends it applies the brown-out).
+GUARD = {"guard.enabled": True, "guard.brownout_after": 4, "guard.brownout_release": 16,
+         "guard.brownout_max_new_tokens": 8}
+#: Phase 27 (b), (c): the fleet's workers serve phase 10's LM on the paged
+#: pool with the radix prefix cache on; a session_mix trace (4 sessions x
+#: 3 turns over a 1024-token shared prefix, 128 tokens a turn, 32 new).
+FLEET_WORKER = {**LM_CONFIG, "model.max_seq_len": LM_CONFIG["seq_len"],
+                "engine.kv_layout": "paged", "engine.prefix_cache": True, "requests": 0,
+                "metrics_port": 0}
+FLEET_TRACE = {"sessions": 4, "turns": 3, "shared_prefix_len": 1024, "turn_tokens": 128,
+               "vocab": 1024, "new_tokens": 32, "max_new_tokens": 32}
+FLEET_KILL_AT = 5
+#: (c)'s gray leg: w0 of the round-robin fleet stalls its first forward
+#: this long; its breaker trips past the threshold and probes after the
+#: cooldown.
+GRAY_STALL_MS, GRAY_THRESHOLD_MS, GRAY_COOLDOWN_S = 1500, 1000.0, 1.0
+
+
+def fleet_worker_main(argv) -> None:
+    """``python chip_smoke.py --fleet-worker ID READY WORKDIR CONFIG``: one
+    fleet worker (``serving.fleet_worker.run_fleet_worker``) that also
+    writes its kernel launches and its engine's dispatch counts since the
+    service was built (its warm-up left out) to ``WORKDIR/launches_ID.json``
+    every 0.2 s and at exit (the counters are process-local)."""
+    import threading
+
+    sys.path.insert(0, ROOT)
+    from zookeeper_tpu_torch.ops import attention as A
+    from zookeeper_tpu_torch.serving.decode import LMServingConfig
+    from zookeeper_tpu_torch.serving.fleet_worker import run_fleet_worker
+
+    worker_id, ready, workdir, config_json = argv
+    path = os.path.join(workdir, f"launches_{worker_id}.json")
+    served = {}
+    build = LMServingConfig.build_service
+
+    def build_service(self):
+        engine, scheduler = build(self)
+        # The counts start here, before the worker answers: the warm-up's
+        # launches and dispatches are not the served path's.
+        A.reset_launches()
+        served.update(engine=engine, baseline=dict(engine.dispatches))
+        return engine, scheduler
+
+    def write():
+        if "engine" not in served:
+            return
+        base = served["baseline"]
+        doc = {"launches": dict(A.LAUNCHES),
+               "dispatches": {k: n - base.get(k, 0)
+                              for k, n in served["engine"].dispatches.items()}}
+        with open(path + ".tmp", "w") as f:
+            json.dump(doc, f)
+        os.replace(path + ".tmp", path)
+
+    stop = threading.Event()
+
+    def loop():
+        while not stop.wait(0.2):
+            write()
+
+    thread = threading.Thread(target=loop, name="launch-writer", daemon=True)
+    thread.start()
+    try:
+        with mock.patch.object(LMServingConfig, "build_service", build_service):
+            run_fleet_worker(worker_id, ready, workdir, config_json)
+    finally:
+        stop.set()
+        thread.join(timeout=5)
+        write()
+
+
+def _worker_counts(workdir, worker_id, served):
+    """A worker's launches and dispatches since its warm-up, and how many
+    of the ``served`` entries it answered."""
+    with open(os.path.join(workdir, f"launches_{worker_id}.json")) as f:
+        doc = json.load(f)
+    return {"flash_forward": doc["launches"]["flash_forward"],
+            "pool_paged_decode_attention": doc["launches"]["pool_paged_decode_attention"],
+            "prefill": doc["dispatches"].get("prefill", 0),
+            "prefill_warm": doc["dispatches"].get("prefill_warm", 0),
+            "decode": doc["dispatches"].get("decode", 0),
+            "requests": sum(e["worker"] == worker_id for e in served)}
+
+
+def _counts_match(counts, served=True) -> bool:
+    """K9 = layers x prefill dispatches, K13 = layers x decode steps; a
+    path that ``served`` requests took at least one decode step, and one
+    that served none dispatched and launched nothing."""
+    if not served:
+        return not any(counts.values())
+    return (counts["flash_forward"] == LM_LAYERS * counts["prefill"]
+            and counts["pool_paged_decode_attention"] == LM_LAYERS * counts["decode"]
+            and counts["decode"] > 0)
+
+
+def _slo_summary(report):
+    import numpy as np
+
+    ok = [o for o in report.results if o.outcome == "ok"]
+    pct = lambda xs, q: round(float(np.percentile(xs, q)), 3) if xs else None  # noqa: E731
+    ttft = [o.ttft_ms for o in ok if o.ttft_ms is not None]
+    lat = [o.latency_ms for o in ok]
+    return {"outcomes": dict(report.outcomes), "ok_tokens": report.ok_tokens,
+            "goodput_tokens_per_sec": round(report.goodput_tokens_per_sec, 3),
+            "wall_s": round(report.wall_s, 3), "ttft_p50_ms": pct(ttft, 50),
+            "ttft_p99_ms": pct(ttft, 99), "latency_p50_ms": pct(lat, 50),
+            "latency_p99_ms": pct(lat, 99)}
+
+
+class _StreamTarget:
+    """A stream-scheduler replay target that keeps each admitted stream by
+    rid (the report keeps only token counts)."""
+
+    def __init__(self, scheduler):
+        self.scheduler = scheduler
+        self.request_log = scheduler.request_log
+        self.streams = {}
+
+    def submit(self, prompt, **kw):
+        stream = self.scheduler.submit(prompt, **kw)
+        self.streams[stream.rid] = stream
+        return stream
+
+    def drain(self):
+        self.scheduler.drain()
+
+
+def _guard_trace(loadgen, rate_rps=None):
+    """The guard's trace, its rates scaled so that its mean rate over the
+    kept requests is ``rate_rps`` (None: as configured)."""
+    base = loadgen.poisson_burst(GUARD_SEED, **GUARD_TRACE)
+    check(len(base.requests) >= GUARD_REQUESTS,
+          f"guard: the trace has {len(base.requests)} < {GUARD_REQUESTS} requests")
+    mean = GUARD_REQUESTS / (base.requests[GUARD_REQUESTS - 1].at_ms / 1e3)
+    c = 1.0 if rate_rps is None else rate_rps / mean
+    scaled = {**GUARD_TRACE, "base_rate_rps": GUARD_TRACE["base_rate_rps"] * c,
+              "burst_rate_rps": GUARD_TRACE["burst_rate_rps"] * c,
+              "base_s": GUARD_TRACE["base_s"] / c, "burst_s": GUARD_TRACE["burst_s"] / c,
+              "cooldown_s": GUARD_TRACE["cooldown_s"] / c}
+    trace = loadgen.poisson_burst(GUARD_SEED, **scaled)
+    keep = trace.requests[:GUARD_REQUESTS]
+    check(len(keep) == GUARD_REQUESTS
+          and [r.prompt for r in keep] == [r.prompt for r in base.requests[:GUARD_REQUESTS]],
+          "guard: the scaled trace's requests differ from the base trace's")
+    return loadgen.Trace(name=f"{trace.name}@{rate_rps or mean:.2f}rps", seed=GUARD_SEED,
+                         requests=keep), mean
+
+
+def _serve_in_order(svc, entries):
+    """``[(prompt, max_new)]`` one at a time through ``svc``'s scheduler,
+    as a fleet worker serves them; the tokens as lists."""
+    import numpy as np
+
+    out = []
+    for prompt, new in entries:
+        stream = svc.scheduler.submit(np.asarray(prompt, np.int32), max_new_tokens=new)
+        out.append([int(t) for t in stream.result(timeout=300.0)])
+    return out
+
+
+def _oracle_by_replica(svc, served):
+    """The in-process oracle of a fleet run: each replica's requests, in
+    the order it served them, through ``svc`` with its prefix cache
+    emptied first, so every request takes the path (warm or cold) it took
+    on its worker. Returns the entries whose tokens differ."""
+    by_worker = {}
+    for entry in served:
+        by_worker.setdefault(entry["worker"], []).append(entry)
+    wrong = []
+    for worker, entries in by_worker.items():
+        svc.engine.invalidate_prefix_cache()
+        want = _serve_in_order(svc, [(e["prompt"], e["new"]) for e in entries])
+        wrong += [(worker, e["index"]) for e, w in zip(entries, want) if w != e["tokens"]]
+    return wrong
+
+
+class _RouterTarget:
+    """A callable replay target over a router, keeping each response."""
+
+    def __init__(self, router, served):
+        self.router = router
+        self.served = served
+        self.by_index = {}
+
+    def __call__(self, req):
+        import numpy as np
+
+        resp = self.router.submit(np.asarray(req.prompt, np.int32), session=req.session,
+                                  max_new_tokens=req.max_new_tokens)
+        entry = {"index": req.index, "phase": req.phase, "worker": resp.worker_id,
+                 "prompt": list(req.prompt), "new": req.max_new_tokens,
+                 "tokens": [int(t) for t in resp.tokens], "shared": resp.shared_tokens,
+                 "affinity_hit": resp.affinity_hit, "rid": resp.rid}
+        self.served.append(entry)
+        self.by_index[req.index] = entry
+        return len(entry["tokens"]), resp.ttft_ms
+
+
+def _pool_idle(worker):
+    """The worker's pool holds no page for a stream: free pages plus the
+    prefix cache's equal the pool, none leaked, and the scraped
+    ``zk_kv_pool_free_pages`` agrees. Returns (ok, the numbers)."""
+    pool = json.loads(_http_get(worker["metrics_port"], "/statusz"))["decode"]["kv_pool"]
+    values, _ = _exposition(_http_get(worker["metrics_port"], "/metrics"))
+    free = values.get("zk_kv_pool_free_pages")
+    nums = {k: pool[k] for k in ("num_pages", "free_pages", "prefix_nodes", "leaked")}
+    nums["zk_kv_pool_free_pages"] = free
+    return (pool["leaked"] == 0 and pool["free_pages"] + pool["prefix_nodes"]
+            == pool["num_pages"] and free == pool["free_pages"]), nums
+
+
+def guard_fleet_phase(torch, A, smi):
+    """Phase 27 (see the module docstring). Returns ({"guard": K9/K13
+    launches of (a)'s guarded runs, "fleet": {worker: counts}}, stats)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from zookeeper_tpu_torch import loadgen
+    from zookeeper_tpu_torch.resilience import FaultPlan
+    from zookeeper_tpu_torch.serving import FleetRouter, ReplicaHandle
+    from zookeeper_tpu_torch.serving.fleet import _http_transport
+    from zookeeper_tpu_torch.serving.fleet_worker import spawn_fleet_workers, stop_fleet_workers
+
+    t_phase = time.perf_counter()
+    stats, launches = {}, {"fleet": {}}
+
+    # (a) The guard. The guard-off run: every request at once (the open
+    # loop at time_scale 0), its sustained rate and reference tokens.
+    base_trace, _ = _guard_trace(loadgen)
+    stats["trace"] = base_trace.stats()
+    off = _lm_config({**PAGED, "scheduler.synchronous": False})
+    off.build_service()
+    target = _StreamTarget(off.scheduler)
+    report = loadgen.replay(base_trace, target)
+    check(report.outcomes == {"ok": GUARD_REQUESTS}, f"guard: off-run outcomes {report.outcomes}")
+    reference = {o.index: [int(t) for t in target.streams[o.rid].result()]
+                 for o in report.results}
+    sustained = GUARD_REQUESTS / report.wall_s
+    service_ms = float(np.median([(r["complete_ns"] - r["dispatch_ns"]) / 1e6
+                                  for r in off.scheduler.request_log.tail(GUARD_REQUESTS)]))
+    deadline_ms = GUARD_DEADLINE_X * service_ms
+    stats["off"] = {**_slo_summary(report), "sustained_rps": round(sustained, 3),
+                    "service_p50_ms": round(service_ms, 3), "deadline_ms": round(deadline_ms, 3)}
+    off._teardown_service()
+    print(f"guard (a) off on {smi}: {json.dumps(stats['off'])}", flush=True)
+
+    on = _lm_config({**PAGED, **GUARD, "scheduler.synchronous": False,
+                     "scheduler.default_deadline_ms": deadline_ms})
+    on.build_service()
+    engine, sched = on.engine, on.scheduler
+    before = dict(engine.dispatches)
+    A.reset_launches()
+    runs = {}
+    for load in GUARD_LOADS:
+        trace, _ = _guard_trace(loadgen, load * sustained)
+        target = _StreamTarget(sched)
+        report = loadgen.replay(trace, target, time_scale=1.0)
+        runs[load] = report
+        st = sched.status()["guardrails"]
+        stats[f"x{load}"] = {**_slo_summary(report), "offered_rps": round(load * sustained, 3),
+                             "guard": st["guard"], "brownout_active": st["brownout_active"]}
+        print(f"guard (a) {load}x on {smi}: {json.dumps(stats[f'x{load}'])}", flush=True)
+        check(report.total == GUARD_REQUESTS, f"guard {load}x: {report.total} outcomes")
+        for o in report.results:
+            check(o.outcome in ("ok", "shed", "deadline_expired"),
+                  f"guard {load}x: request {o.index} ended {o.outcome} ({o.error})")
+        # Each admitted stream that finished: the guard-off run's tokens, or
+        # their first brownout_max_new_tokens where the brown-out capped it.
+        cap = int(on.guard.brownout_max_new_tokens)
+        for o in report.results:
+            if o.outcome != "ok":
+                continue
+            got, want = [int(t) for t in target.streams[o.rid].result()], reference[o.index]
+            capped = got == want[:len(got)] and len(got) == cap and load != GUARD_LOADS[0]
+            check(got == want or capped,
+                  f"guard {load}x: request {o.index}'s tokens differ from the guard-off run's")
+    low, high = (runs[load] for load in GUARD_LOADS)
+    check(low.outcomes == {"ok": GUARD_REQUESTS}, f"guard {GUARD_LOADS[0]}x: {low.outcomes}")
+    check(high.outcomes.get("shed", 0) > 0, f"guard {GUARD_LOADS[1]}x: nothing shed")
+    engaged = sched.status()["guardrails"]["guard"]["brownout"]
+    check(engaged["engaged_total"] >= 1, f"guard: the brown-out never engaged: {engaged}")
+    # The drain: admissions into the empty queue release the brown-out,
+    # the first of them capped while it is still applied.
+    release = []
+    for r in base_trace.requests[:int(on.guard.brownout_release) + 1]:
+        stream = sched.submit(np.asarray(r.prompt, np.int32), max_new_tokens=r.max_new_tokens)
+        release.append((r.index, [int(t) for t in stream.result(timeout=300.0)]))
+    sched.drain()
+    st = sched.status()["guardrails"]
+    values, _ = _exposition(_render_registry(on.guard.registry))
+    stats["release"] = {"tokens": [len(t) for _, t in release], "guard": st["guard"],
+                        "brownout_active": st["brownout_active"],
+                        "zk_guard_brownouts_total": values.get("zk_guard_brownouts_total")}
+    print(f"guard (a) release on {smi}: {json.dumps(stats['release'])}", flush=True)
+    check(not st["brownout_active"] and not on.guard.brownout_engaged,
+          f"guard: the brown-out was not released: {st}")
+    check(values.get("zk_guard_brownouts_total", 0) >= 1,
+          "guard: the brown-out was never applied at a drained boundary")
+    for index, got in release:
+        want = reference[index]
+        check(got == want[:len(got)], f"guard release: request {index}'s tokens")
+    check(len(release[0][1]) == int(on.guard.brownout_max_new_tokens)
+          and release[-1][1] == reference[release[-1][0]],
+          f"guard release: lengths {[len(t) for _, t in release]}")
+    delta = {k: engine.dispatches.get(k, 0) - before.get(k, 0)
+             for k in ("prefill", "prefill_warm", "decode")}
+    launches["guard"] = {"flash_forward": A.LAUNCHES["flash_forward"],
+                         "pool_paged_decode_attention": A.LAUNCHES["pool_paged_decode_attention"],
+                         **delta}
+    check(_counts_match(launches["guard"]), f"guard: launches {launches['guard']}")
+    pool = engine.page_pool
+    check(pool.free_pages == pool.num_pages and pool.leak_check() == 0,
+          f"guard: pages held after the drain: {pool.free_pages} free of {pool.num_pages}")
+    on._teardown_service()
+    stats["a_s"] = time.perf_counter() - t_phase
+    print(f"guard (a) launches on {smi}: {json.dumps(launches['guard'])} "
+          f"in {stats['a_s']:.1f} s", flush=True)
+
+    # (b) The fleet: 2 worker processes on this card behind the affinity
+    # router, the session trace replayed in arrival order.
+    t_b = time.perf_counter()
+    fleet_trace = loadgen.session_mix(GUARD_SEED, **FLEET_TRACE)
+    entry = [sys.executable, os.path.join(ROOT, "chip_smoke.py"), "--fleet-worker"]
+    tmp = tempfile.mkdtemp(prefix="guard_fleet_")
+    dirs = {"a": os.path.join(tmp, "a"), "b": os.path.join(tmp, "b")}
+    for d in dirs.values():
+        os.makedirs(d)
+    oracle = _lm_config({**FLEET_WORKER, "metrics_port": -1})
+    oracle.build_service()
+    fleet_a, fleet_b, routers = [], [], []
+    try:
+        fleet_a = spawn_fleet_workers(dirs["a"], 2, config=FLEET_WORKER, command=entry)
+        stats["spawn_a_s"] = time.perf_counter() - t_b
+        router = FleetRouter([ReplicaHandle.from_worker(w) for w in fleet_a],
+                             page_size=LM_PAGE, policy="affinity")
+        routers.append(router)
+        served_a = []
+        target = _RouterTarget(router, served_a)
+        report = loadgen.replay(fleet_trace, target, concurrency=1)
+        stats["b"] = {**_slo_summary(report), "affinity_hits": router.affinity_hits_total,
+                      "routed": [e["worker"] for e in served_a],
+                      "shared": [e["shared"] for e in served_a]}
+        print(f"fleet (b) affinity on {smi}: {json.dumps(stats['b'])}", flush=True)
+        check(report.outcomes == {"ok": len(fleet_trace.requests)},
+              f"fleet (b): outcomes {report.outcomes}")
+        check(router.affinity_hits_total >= 8, f"fleet (b): {router.affinity_hits_total} "
+              "affinity hits")
+        check(all(e["shared"] > 0 for e in served_a if e["phase"] != "turn0"),
+              f"fleet (b): a later turn was served cold: {stats['b']['shared']}")
+        wrong = _oracle_by_replica(oracle, served_a)
+        check(not wrong, f"fleet (b): tokens differ from the in-process oracle at {wrong}")
+        time.sleep(0.5)  # the workers idle: their counts settle
+        for w in fleet_a:
+            counts = _worker_counts(dirs["a"], w["worker_id"], served_a)
+            launches["fleet"][f"a_{w['worker_id']}_b"] = counts
+            check(_counts_match(counts, counts["requests"] > 0),
+                  f"fleet (b): {w['worker_id']}'s launches {counts}")
+        router.close()
+
+        # (c) The kill leg on (b)'s fleet: the replica chosen for the 5th
+        # routed request is SIGKILLed; retries land on the survivor.
+        router = FleetRouter([ReplicaHandle.from_worker(w) for w in fleet_a],
+                             page_size=LM_PAGE, policy="affinity", max_retries=2,
+                             retry_backoff_s=0.05, breaker_failures=1, breaker_cooldown_s=600.0)
+        routers.append(router)
+        served_c = []
+        target = _RouterTarget(router, served_c)
+        report = loadgen.replay(fleet_trace, target,
+                                fault_plan=FaultPlan(fleet_replica_kill_at=FLEET_KILL_AT),
+                                concurrency=1)
+        dead = [r for r in router.replicas if not r.healthy]
+        live = [r for r in router.replicas if r.healthy]
+        retried = [rid for rid in (e["rid"] for e in served_c)
+                   if "retried=" in ((router.request_log.find(rid) or {}).get("detail") or "")]
+        stats["c_kill"] = {**_slo_summary(report), "retried": len(retried),
+                           "dead": [r.worker_id for r in dead],
+                           "breakers": {r.worker_id: r.breaker.status()
+                                        for r in router.replicas}}
+        check(report.total == len(fleet_trace.requests)
+              and sum(report.outcomes.values()) == report.total,
+              f"fleet (c): not every request is terminal: {report.outcomes}")
+        check(len(dead) == 1 and dead[0].breaker.state == "open" and len(live) == 1
+              and live[0].breaker.state == "closed",
+              f"fleet (c): replicas after the kill: {stats['c_kill']['breakers']}")
+        check(len(retried) >= 1, "fleet (c): no request was retried")
+        wrong = _oracle_by_replica(oracle, served_a + served_c)
+        check(not wrong, f"fleet (c): tokens differ from the in-process oracle at {wrong}")
+        survivor = next(w for w in fleet_a if w["worker_id"] == live[0].worker_id)
+        idle, nums = _pool_idle(survivor)
+        stats["c_kill"]["survivor_pool"] = nums
+        print(f"fleet (c) kill on {smi}: {json.dumps(stats['c_kill'])}", flush=True)
+        check(idle, f"fleet (c): the survivor's pool after the leg: {nums}")
+        router.close()
+        stop_fleet_workers(fleet_a)
+        counts = _worker_counts(dirs["a"], survivor["worker_id"], served_a + served_c)
+        launches["fleet"][f"a_{survivor['worker_id']}_exit"] = counts
+        check(_counts_match(counts, counts["requests"] > 0),
+              f"fleet (c): the survivor's launches {counts}")
+        fleet_a = []
+
+        # (b) again under round_robin, on a fresh fleet whose w0 stalls its
+        # first forward (the gray leg of (c)): the breaker opens, probes,
+        # closes; the tokens equal the affinity run's and the oracle's.
+        fleet_b = spawn_fleet_workers(dirs["b"], 2, config={
+            **FLEET_WORKER, "faults": {"delay_forward_ms": {"w0": GRAY_STALL_MS}}},
+            command=entry)
+        seen = []
+
+        def transport(replica, payload, timeout_s):
+            seen.append((replica.worker_id, replica.breaker.state))
+            return _http_transport(replica, payload, timeout_s)
+
+        router = FleetRouter([ReplicaHandle.from_worker(w) for w in fleet_b],
+                             page_size=LM_PAGE, policy="round_robin", transport=transport,
+                             breaker_latency_ms=GRAY_THRESHOLD_MS, breaker_latency_window=1,
+                             breaker_cooldown_s=GRAY_COOLDOWN_S, breaker_jitter_frac=0.0)
+        routers.append(router)
+        served_b = []
+        target = _RouterTarget(router, served_b)
+        b0 = router._by_id["w0"].breaker
+        healthy, states = [], []
+        for req in fleet_trace.requests:
+            target(req)
+            states.append(b0.state)
+            healthy.append(router.check_health()["w0"])
+        by_index_b = dict(target.by_index)
+        if b0.probes_total == 0:
+            # Every session is pinned to the healthy replica by now: once the
+            # cooldown ends, a request of no session carries the probe.
+            deadline = time.monotonic() + 30.0
+            while not b0.routable() and time.monotonic() < deadline:
+                time.sleep(0.05)
+            first = fleet_trace.requests[0]
+            resp = router.submit(np.asarray(first.prompt, np.int32),
+                                 max_new_tokens=first.max_new_tokens)
+            served_b.append({"index": first.index, "worker": resp.worker_id,
+                             "prompt": list(first.prompt), "new": first.max_new_tokens,
+                             "tokens": [int(t) for t in resp.tokens]})
+            states.append(b0.state)
+        w0_states = [s for w, s in seen if w == "w0"]
+        stats["c_gray"] = {"w0_states_at_forward": w0_states, "states_after": states,
+                           "breaker": b0.status(), "healthy": all(healthy),
+                           "routed": [e["worker"] for e in served_b]}
+        print(f"fleet (c) gray on {smi}: {json.dumps(stats['c_gray'])}", flush=True)
+        check(all(healthy), "fleet (c) gray: the stalled replica failed its health probe")
+        check("open" in states and w0_states.count("half_open") == 1
+              and b0.state == "closed" and b0.opened_total == 1 and b0.probes_total == 1,
+              f"fleet (c) gray: the breaker did not open, probe and close: {stats['c_gray']}")
+        # Round-robin against affinity: equal where both served a request
+        # by the same path; where one served it warm (the fp32 window over
+        # cached pages) and the other cold (K9), bf16 may part them, but
+        # only at a near-tie: the plain path's logits of the two tokens
+        # where they first differ lie within 0.05 of each other and of the
+        # top (phase 10's bf16 rule).
+        affinity = {e["index"]: e for e in served_a}
+        mismatch = {}
+        for i, e in sorted(by_index_b.items()):
+            a_tok, b_tok = affinity[i]["tokens"], e["tokens"]
+            if a_tok == b_tok:
+                continue
+            check(affinity[i]["shared"] != e["shared"],
+                  f"fleet: request {i} took one path under both policies, and its tokens differ")
+            t = next(j for j, (x, y) in enumerate(zip(a_tok, b_tok)) if x != y)
+            logits = _plain_logits(torch, A, oracle.engine._module,
+                                   np.asarray(fleet_trace.requests[i].prompt, np.int32),
+                                   a_tok, t)
+            top = float(logits.max())
+            gap = abs(float(logits[a_tok[t]] - logits[b_tok[t]]))
+            mismatch[i] = {"shared": [affinity[i]["shared"], e["shared"]], "at": t,
+                           "gap": gap, "below_top": top - max(float(logits[a_tok[t]]),
+                                                               float(logits[b_tok[t]]))}
+            check(gap < 0.05 and top - min(float(logits[a_tok[t]]), float(logits[b_tok[t]]))
+                  < 0.05, f"fleet: request {i}'s tokens part at {t} where the plain logits "
+                          f"are not tied: {mismatch[i]}")
+        same = sum(affinity[i]["tokens"] == e["tokens"] for i, e in by_index_b.items())
+        stats["round_robin_vs_affinity"] = {"equal": same, "of": len(by_index_b),
+                                            "parted": mismatch}
+        print(f"fleet round_robin vs affinity on {smi}: "
+              f"{json.dumps(stats['round_robin_vs_affinity'])}", flush=True)
+        wrong = _oracle_by_replica(oracle, served_b)
+        check(not wrong, f"fleet (b) round_robin: tokens differ from the oracle at {wrong}")
+        router.close()
+        stop_fleet_workers(fleet_b)
+        for w in fleet_b:
+            counts = _worker_counts(dirs["b"], w["worker_id"], served_b)
+            launches["fleet"][f"b_{w['worker_id']}_exit"] = counts
+            check(_counts_match(counts, counts["requests"] > 0),
+                  f"fleet: {w['worker_id']}'s launches {counts}")
+        fleet_b = []
+    finally:
+        for router in routers:
+            router.close()
+        stop_fleet_workers(fleet_a + fleet_b)
+        oracle._teardown_service(suppress=True)
+        shutil.rmtree(tmp, ignore_errors=True)
+    stats["phase_s"] = time.perf_counter() - t_phase
+    print(f"guard_fleet launches on {smi}: {json.dumps(launches)}; phase "
+          f"{stats['phase_s']:.1f} s", flush=True)
+    return launches, stats
+
+
+def _render_registry(registry) -> str:
+    from zookeeper_tpu_torch.observability.export import render_prometheus
+
+    return render_prometheus([registry])
 
 
 def main() -> None:
@@ -7913,6 +8525,8 @@ def main() -> None:
     elapsed("observability")
     obs_train, _ = obs_train_phase(torch, bc, A, smi)
     elapsed("training observability")
+    guard_fleet, _ = guard_fleet_phase(torch, A, smi)
+    elapsed("overload guard and fleet")
     served_rows = {}
     for name in ("pack_rows", "conv_gemm_popcount", "packed_weight_matmul", *LM_KERNELS):
         lm = name in LM_KERNELS
@@ -8134,6 +8748,14 @@ def main() -> None:
         rows[-1]["features"] = {path: n[name] for path, n in features.items()}
         rows[-1]["disagg"] = {path: n[name] for path, n in launches_disagg.items()}
         if name != "paged_decode_attention":
+            rows[-1]["guard_fleet"] = {
+                "path": f"LMServingConfig paged behind the overload guard: a {GUARD_REQUESTS}-"
+                        f"request poisson_burst at {GUARD_LOADS} x the sustained rate "
+                        "(guard); a FleetRouter over 2 worker processes, a 4 x 3 session_mix "
+                        "under affinity then the kill leg (a_*), and under round_robin with a "
+                        "gray worker (b_*): each worker's own counts",
+                "launches": {"guard": guard_fleet["guard"][name],
+                             **{label: n[name] for label, n in guard_fleet["fleet"].items()}}}
             rows[-1]["obs"] = {
                 "path": "LMServingConfig paged (phase 10's model and stream), built and "
                         "served with observability off and on",
@@ -8191,4 +8813,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--fleet-worker"]:
+        fleet_worker_main(sys.argv[2:])
+    else:
+        main()

@@ -50,6 +50,9 @@ def test_importing_the_port_loads_no_jax():
         "import zookeeper_tpu_torch.training.convert_packed, zookeeper_tpu_torch.native\n"
         "import zookeeper_tpu_torch.serving.classifier, zookeeper_tpu_torch.serving.latency\n"
         "import zookeeper_tpu_torch.observability\n"
+        "import zookeeper_tpu_torch.loadgen, zookeeper_tpu_torch.serving.guardrails\n"
+        "import zookeeper_tpu_torch.serving.fleet, zookeeper_tpu_torch.serving.fleet_worker\n"
+        "import zookeeper_tpu_torch.serving.serve_fleet\n"
         "from zookeeper_tpu_torch.observability import device, ledger, peaks, recorder\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
         "assert not bad, bad\n"
@@ -89,3 +92,16 @@ def test_chip_smoke_fails_without_the_package(tmp_path):
     )
     assert proc.returncode != 0
     assert '"ok": true' not in proc.stdout
+
+
+def test_fleet_worker_asked_for_the_card_fails_without_one(tmp_path, monkeypatch):
+    """A fleet worker runs on the card unless its config says "cpu": with
+    no card it dies before it is ready, and the spawn raises with its log
+    tail. The worker inherits this environment, so hiding every card makes
+    the test the same on a host that has one."""
+    from zookeeper_tpu_torch.serving.fleet_worker import spawn_fleet_workers
+
+    monkeypatch.setenv("CUDA_VISIBLE_DEVICES", "")
+    with pytest.raises(RuntimeError, match="died before ready") as err:
+        spawn_fleet_workers(str(tmp_path), 1, config={"model.d_model": 16}, timeout_s=120)
+    assert "no CUDA card" in str(err.value)

@@ -33,11 +33,13 @@ one ``None`` check.
   the flight recorder, as the JAX package's legs do; ``nan_at_step`` is
   marked by the experiment when it dispatches the step
   (:meth:`FaultPlan.mark_nan_dispatch`), which the JAX package does not
-  mark. The serving legs raise no such notice here.
+  mark. Of the serving legs, only the fleet's raise that notice here,
+  as in the JAX package; the others raise none.
 
-The serving legs cover the worker and decode-scheduler crashes and the
-disaggregated page handoff; the fleet's legs and ``delay_forward_ms``
-are not ported yet (ROADMAP.md).
+The serving legs cover the worker and decode-scheduler crashes, the
+disaggregated page handoff and the fleet: a replica killed before a
+routed request is forwarded, the harness's router restart, and a
+replica whose forward path stalls while its liveness probe passes.
 """
 
 import contextlib
@@ -152,6 +154,21 @@ class FaultPlan:
     - ``fail_page_transfer``: the next N page transfers fail at the move
       itself: the victim fails cleanly, both pools unwind their half of
       the handoff and every other stream proceeds.
+
+    The fleet legs, keyed on the N-th routed request:
+
+    - ``fleet_replica_kill_at``: the replica chosen for the N-th routed
+      request (1 = the first) is killed before the request is forwarded:
+      the request fails cleanly with ``WorkerCrashedError`` (or is
+      retried under the same rid), the replica goes unhealthy and its
+      pinned sessions re-route cold on their next turn.
+    - ``fleet_router_restart_at``: after the N-th routed request the
+      harness (the router cannot restart itself) tears the router down
+      and rebuilds it from its ``state_path``; the session pins survive.
+    - ``delay_forward_ms``: ``{worker_id: ms}``, a gray failure: the named
+      worker's next forward stalls ``ms`` instead of dying (one-shot per
+      worker), while its ``/healthz`` keeps answering; only the router's
+      latency-tripped circuit breaker sees it.
     """
 
     kill_at_step: Optional[int] = None
@@ -167,6 +184,9 @@ class FaultPlan:
     decode_worker_crash: int = 0
     prefill_role_crash_at: Optional[int] = None
     fail_page_transfer: int = 0
+    fleet_replica_kill_at: Optional[int] = None
+    fleet_router_restart_at: Optional[int] = None
+    delay_forward_ms: Optional[Dict[str, int]] = None
 
     _lock: threading.Lock = field(default_factory=threading.Lock, repr=False, compare=False)
     _killed: bool = field(default=False, repr=False, compare=False)
@@ -175,6 +195,12 @@ class FaultPlan:
     _host_finalize_failed: bool = field(default=False, repr=False, compare=False)
     _handoffs_seen: int = field(default=0, repr=False, compare=False)
     _prefill_role_crashed: bool = field(default=False, repr=False, compare=False)
+    _fleet_kill_seen: int = field(default=0, repr=False, compare=False)
+    _fleet_replica_killed: bool = field(default=False, repr=False, compare=False)
+    _fleet_restart_seen: int = field(default=0, repr=False, compare=False)
+    _fleet_router_restarted: bool = field(default=False, repr=False, compare=False)
+    _delay_forward_fired: Dict[str, bool] = field(default_factory=dict, repr=False,
+                                                  compare=False)
 
     def kill_due(self, step: int, process_index: int = 0) -> bool:
         """One-shot: True at the first query with ``step >=
@@ -256,6 +282,51 @@ class FaultPlan:
                 self._prefill_role_crashed = True
                 return True
         return False
+
+    def take_fleet_replica_kill(self) -> bool:
+        """One-shot, keyed on routed requests: True when this routed
+        request (the N-th, counting from 1) should find its chosen replica
+        killed before the forward."""
+        if self.fleet_replica_kill_at is None:
+            return False
+        with self._lock:
+            self._fleet_kill_seen += 1
+            if (not self._fleet_replica_killed
+                    and self._fleet_kill_seen >= int(self.fleet_replica_kill_at)):
+                self._fleet_replica_killed = True
+                _injection_event("fleet_replica_kill_at")
+                return True
+        return False
+
+    def take_fleet_router_restart(self) -> bool:
+        """One-shot, keyed on routed requests: True after the N-th, when
+        the harness should rebuild the router from its persisted state."""
+        if self.fleet_router_restart_at is None:
+            return False
+        with self._lock:
+            self._fleet_restart_seen += 1
+            if (not self._fleet_router_restarted
+                    and self._fleet_restart_seen >= int(self.fleet_router_restart_at)):
+                self._fleet_router_restarted = True
+                _injection_event("fleet_router_restart_at")
+                return True
+        return False
+
+    def take_delay_forward(self, worker_id: str) -> int:
+        """One-shot per worker: the forward stall in ms for ``worker_id``
+        (0: not named, or fired already). The worker sleeps that long in
+        its forward path and stays alive."""
+        if not self.delay_forward_ms:
+            return 0
+        ms = self.delay_forward_ms.get(str(worker_id))
+        if ms is None:
+            return 0
+        with self._lock:
+            if self._delay_forward_fired.get(str(worker_id)):
+                return 0
+            self._delay_forward_fired[str(worker_id)] = True
+        _injection_event("delay_forward_ms")
+        return int(ms)
 
     def take_fail_page_transfer(self) -> bool:
         """Consume one injected page-transfer failure (False when

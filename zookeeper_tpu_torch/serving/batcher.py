@@ -40,8 +40,15 @@ event. A worker crash notifies the flight recorder, outside the lock,
 after the victims' summaries are logged. After each dispatch's readback
 the engine's ``observe_dispatch(rows, seconds)`` feeds its watchdog and
 MFU gauges: the wall time is the readback's own, so nothing adds a
-device synchronisation. Not ported yet (ROADMAP.md): the overload
-guard.
+device synchronisation.
+
+The overload guard (``serving.guardrails.OverloadGuard``, bound with
+``bind(engine, guard=...)``) adds predicted-miss admission on top of
+``shed_above_rows``: at both submit sites a request the guard predicts
+to miss its deadline behind the queued rows is shed with
+``PredictedMissError`` (its summary's ``detail`` carries the
+prediction), and every served request feeds the guard its
+dispatch-to-completion time per row and its queue wait.
 """
 
 import logging
@@ -204,7 +211,7 @@ class MicroBatcher:
     #: flush()/result().
     synchronous: bool = Field(True)
 
-    def bind(self, engine, metrics=None) -> "MicroBatcher":
+    def bind(self, engine, metrics=None, guard=None) -> "MicroBatcher":
         if self.max_queue_rows < 1:
             raise ValueError(f"max_queue_rows={self.max_queue_rows} must be >= 1.")
         if self.max_delay_ms < 0:
@@ -220,6 +227,8 @@ class MicroBatcher:
             refuse_clock_driven(engine, "MicroBatcher.default_deadline_ms")
         object.__setattr__(self, "_engine", engine)
         object.__setattr__(self, "_metrics", metrics)
+        # Predicted-miss admission on top of shed_above_rows (None: off).
+        object.__setattr__(self, "_guard", guard)
         # One compact summary per request that reached an outcome.
         object.__setattr__(self, "_request_log", RequestLog("serving"))
         # Queue of (request, x, lo, hi): row slice [lo, hi) still owed.
@@ -255,6 +264,14 @@ class MicroBatcher:
                 detail=error)
         if self._metrics is not None and req._error is None:
             self._metrics.record_request(latency_ms, req._rows)
+        guard = getattr(self, "_guard", None)
+        if (guard is not None and guard.enabled and req._error is None
+                and req._t_dispatch_ns is not None):
+            # Successes only: a failure's timings describe the failure,
+            # not the service rate.
+            now_ns = time.perf_counter_ns()
+            guard.observe_service((now_ns - req._t_dispatch_ns) / 1e6, max(1, req._rows))
+            guard.observe_wait((req._t_dispatch_ns - req._t_submit * 1e9) / 1e6)
 
     def _record_deadline_expired(self) -> None:
         _trace.event("request_deadline_expired")
@@ -302,6 +319,37 @@ class MicroBatcher:
                 f"exceed shed_above_rows={self.shed_above_rows}."
             )
 
+    def _guard_check(self, n: int, rid: int, deadline_at: Optional[float]) -> None:
+        """Predicted-miss admission after the static check, with the same
+        empty-queue rule (caller holds the lock in async mode)."""
+        guard = getattr(self, "_guard", None)
+        if guard is None or not guard.enabled:
+            return
+        # Deferred: guardrails imports RejectedError from this module.
+        from zookeeper_tpu_torch.serving.guardrails import PredictedMissError
+
+        deadline_ms = ((deadline_at - time.perf_counter()) * 1e3
+                       if deadline_at is not None else None)
+        ok, predicted = guard.admit(queued_units=self._queue_rows, request_units=n,
+                                    deadline_ms=deadline_ms)
+        if ok:
+            return
+        if self._metrics is not None:
+            self._metrics.record_rejected()
+        if _trace.enabled():
+            _trace.event("request_shed", rid=rid, attrs={
+                "rows": n, "queue_rows": self._queue_rows, "reason": "predicted_miss",
+                "predicted_ms": round(predicted, 3)})
+        now_ns = time.perf_counter_ns()
+        self._request_log.append(rid, "shed", enqueue_ns=now_ns, complete_ns=now_ns, rows=n,
+                                 weights_step=self._weights_step(),
+                                 detail=f"PredictedMissError predicted_ms={predicted:.1f}")
+        raise PredictedMissError(
+            f"predicted completion in {predicted:.1f}ms exceeds the {deadline_ms:.1f}ms "
+            f"deadline with {self._queue_rows} rows queued: shed at admission rather than "
+            "served late."
+        )
+
     def _enqueue(self, req: PendingResult, x: np.ndarray, n: int) -> None:
         self._queue.append((req, x, 0, n))
         object.__setattr__(self, "_queue_rows", self._queue_rows + n)
@@ -327,6 +375,7 @@ class MicroBatcher:
         rid = next_rid()
         if self.synchronous:
             self._shed_check(n, rid)
+            self._guard_check(n, rid, deadline_at)
             if self._queue and self._queue_rows + n > self.max_queue_rows:
                 self.flush()  # backpressure: drain the backlog inline
             req = PendingResult(self, n, event=None, deadline_at=deadline_at, rid=rid)
@@ -335,6 +384,7 @@ class MicroBatcher:
         req = PendingResult(self, n, event=threading.Event(), deadline_at=deadline_at, rid=rid)
         with self._cv:
             self._shed_check(n, rid)
+            self._guard_check(n, rid, deadline_at)
             while (
                 self._queue
                 and self._queue_rows + n > self.max_queue_rows

@@ -66,8 +66,22 @@ runs in ``spec_draft`` and ``spec_verify`` spans beside the engine's
 dispatch spans (a chunk is a ``prefill_chunk_dispatch``), and a staged
 swap and a crash are ``decode_weight_swap`` and ``decode_worker_crash``
 events. A loop crash notifies the flight recorder, outside the lock,
-after the victims are failed. Not ported yet (ROADMAP.md): the overload
-guard and brown-out.
+after the victims are failed. ``submit(rid=...)`` adopts a rid minted
+elsewhere (the fleet router's), so one request reads the same in the
+router's log and the worker's.
+
+The overload guard (``serving.guardrails.OverloadGuard``, bound with
+``bind(..., guard=...)``) sheds at submit with ``PredictedMissError``
+when its EWMA estimate of the tokens still owed by the queue (plus, under
+chunked prefill, the prompt chunks still owed, queued and mid-prefill)
+says the stream would miss its deadline; each ok stream feeds it its
+dispatch-to-completion time per token and its queue wait. Its brown-out
+is applied only at the boundary with no stream in flight (the swap's):
+while applied, newly admitted streams get ``brownout_max_new_tokens`` at
+most and the speculative window is skipped (the draft keeps up through
+its width-2 verify, so speculation resumes cleanly on release). The
+``guardrails`` section of ``status()`` shows both the guard and the
+applied posture.
 """
 
 import logging
@@ -249,7 +263,7 @@ class DecodeScheduler:
     #: squeezes prefill harder, down to one token an iteration.
     token_budget: int = Field(0)
 
-    def bind(self, engine, metrics=None, speculative=None) -> "DecodeScheduler":
+    def bind(self, engine, metrics=None, speculative=None, guard=None) -> "DecodeScheduler":
         if self.max_new_tokens < 1:
             raise ValueError(
                 f"max_new_tokens={self.max_new_tokens} must be >= 1 (prefill "
@@ -289,6 +303,10 @@ class DecodeScheduler:
         set_("_slot_lengths", np.zeros(n, np.int64))
         set_("_slot_tokens", np.zeros(n, np.int32))
         set_("_speculative", speculative)
+        # The overload guard (None: off) and the brown-out posture applied
+        # at the drain boundary, which may lag the guard's intent.
+        set_("_guard", guard)
+        set_("_brownout_active", False)
         # The draft cache's rows per slot, and the (at most one) committed
         # token it has not consumed yet (after a fully accepted window).
         set_("_draft_lengths", np.zeros(n, np.int64))
@@ -331,12 +349,20 @@ class DecodeScheduler:
             # An ok stream's terminus is its decode_stream_finish event.
             _trace.event("decode_stream_fail", rid=stream.rid,
                          attrs={"outcome": outcome, "detail": detail})
+        complete_ns = time.perf_counter_ns()
         log.append(
             stream.rid, outcome, enqueue_ns=int(stream._t_submit * 1e9),
-            dispatch_ns=stream._t_dispatch_ns, complete_ns=time.perf_counter_ns(),
+            dispatch_ns=stream._t_dispatch_ns, complete_ns=complete_ns,
             tokens=len(stream._tokens), slot=stream._slot,
             weights_step=self._metrics.weights_step if self._metrics is not None else None,
             detail=detail, role=stream._role or None)
+        guard = getattr(self, "_guard", None)
+        if (guard is not None and guard.enabled and outcome == "ok"
+                and stream._t_dispatch_ns is not None):
+            # Successes only: a failure's timings describe the failure.
+            dispatch_ns = stream._t_dispatch_ns
+            guard.observe_service((complete_ns - dispatch_ns) / 1e6, max(1, len(stream._tokens)))
+            guard.observe_wait((dispatch_ns - stream._t_submit * 1e9) / 1e6)
 
     # -- submission ------------------------------------------------------
 
@@ -351,10 +377,13 @@ class DecodeScheduler:
 
     def submit(self, prompt: Any, *, max_new_tokens: Optional[int] = None,
                deadline_ms: Optional[float] = None,
-               eos_token: Optional[int] = None) -> DecodeStream:
+               eos_token: Optional[int] = None,
+               rid: Optional[int] = None) -> DecodeStream:
         """Enqueue one prompt (1-D int tokens); returns its
         :class:`DecodeStream`. An explicit ``deadline_ms=0`` is already
-        expired. Raises ``RejectedError`` past the shed threshold."""
+        expired. Raises ``RejectedError`` past the shed threshold (a
+        ``PredictedMissError`` from the guard). ``rid`` adopts a request id
+        minted elsewhere (the fleet router's); None mints one here."""
         self._require_bound()
         prompt = np.asarray(prompt, np.int32)
         if prompt.ndim != 1 or prompt.shape[0] < 1:
@@ -382,7 +411,7 @@ class DecodeScheduler:
             int(self.eos_token) if int(self.eos_token) >= 0 else None
         )
         # Minted before admission control: a shed stream is traceable too.
-        rid = next_rid()
+        rid = next_rid() if rid is None else int(rid)
         stream = DecodeStream(self, prompt, new, self._deadline_at(deadline_ms), eos, rid=rid)
         with self._lock:
             if self.shed_above > 0 and self._queue and len(self._queue) + 1 > self.shed_above:
@@ -397,6 +426,7 @@ class DecodeScheduler:
                     f"more would exceed shed_above={self.shed_above} — request "
                     "shed (service overloaded, retry with backoff)."
                 )
+            self._guard_check(stream, new)
             backpressure = len(self._queue) + 1 > self.max_queue
             if not backpressure:
                 self._queue.append(stream)
@@ -427,6 +457,45 @@ class DecodeScheduler:
             with self._cv:
                 self._cv.notify_all()
         return stream
+
+    def _guard_check(self, stream: DecodeStream, new: int) -> None:
+        """Predicted-miss admission: queued work is the tokens each queued
+        stream may still ask for plus its prompt chunks owed, and the
+        chunks owed by the slots mid-prefill. Caller holds the lock."""
+        guard = getattr(self, "_guard", None)
+        if guard is None or not guard.enabled:
+            return
+        # Imported here, as the batcher imports it (guardrails imports the batcher).
+        from zookeeper_tpu_torch.serving.guardrails import PredictedMissError
+
+        deadline_ms = ((stream._deadline_at - time.perf_counter()) * 1e3
+                       if stream._deadline_at is not None else None)
+        queued = sum(s._max_new + self._chunk_units(int(s.prompt.shape[0]))
+                     for s in self._queue)
+        if self._chunked:
+            for slot, st in self._chunk_state.items():
+                s = self._slot_stream[slot]
+                if s is not None:
+                    queued += self._chunk_units(int(s.prompt.shape[0]) - int(st["pos"]))
+        ok, predicted = guard.admit(
+            queued_units=queued,
+            request_units=new + self._chunk_units(int(stream.prompt.shape[0])),
+            deadline_ms=deadline_ms)
+        if ok:
+            return
+        if self._metrics is not None:
+            self._metrics.record_rejected()
+        if _trace.enabled():
+            _trace.event("decode_request_shed", rid=stream.rid, attrs={
+                "queue_depth": len(self._queue), "reason": "predicted_miss",
+                "predicted_ms": round(predicted, 3)})
+        self._log_terminal(stream, "shed",
+                           detail=f"PredictedMissError predicted_ms={predicted:.1f}")
+        raise PredictedMissError(
+            f"predicted completion in {predicted:.1f}ms exceeds the {deadline_ms:.1f}ms "
+            f"deadline with {queued} tokens queued ahead: shed at admission rather than "
+            "served late."
+        )
 
     def generate(self, prompt: Any, **kwargs) -> np.ndarray:
         """Submit and block for the whole generation."""
@@ -473,6 +542,30 @@ class DecodeScheduler:
         logger.info("decode weights hot-swapped%s (slot array drained)",
                     f" to training step {step}" if step is not None else "")
 
+    def _maybe_apply_brownout(self) -> None:
+        """Follow the guard's brown-out intent at the swap's boundary: the
+        posture flips only with the slot array empty, so no stream in
+        flight has its budget or its speculation changed. Caller holds
+        ``_lock``."""
+        guard = getattr(self, "_guard", None)
+        if guard is None or not guard.enabled:
+            return
+        want = bool(guard.brownout_engaged)
+        if want == self._brownout_active or any(s is not None for s in self._slot_stream):
+            return
+        object.__setattr__(self, "_brownout_active", want)
+        guard.record_brownout_applied(want)
+        cap = int(guard.brownout_max_new_tokens)
+        _trace.event("decode_brownout", attrs={"engaged": want, "max_new_tokens_cap": cap})
+        if want:
+            logger.warning(
+                "BROWN-OUT ENGAGED: decode degrading, max_new_tokens capped at %d and "
+                "speculation off for newly admitted streams (sustained predicted-miss "
+                "pressure; releases when admissions stop shedding).", cap)
+        else:
+            logger.warning("brown-out released: decode back to full token budgets and "
+                           "speculation.")
+
     # -- the scheduling loop ---------------------------------------------
 
     def _has_work(self) -> bool:
@@ -481,9 +574,9 @@ class DecodeScheduler:
 
     def _chunk_units(self, prompt_tokens: int) -> int:
         """Prefill work still owed in budget units: the chunk dispatches
-        for ``prompt_tokens`` uncommitted tokens (0 without chunking). The
-        overload guard's admission estimate counts it (not ported yet,
-        ROADMAP.md)."""
+        for ``prompt_tokens`` uncommitted tokens (0 without chunking, where
+        the guard counts a prefill as free). The guard's admission
+        estimate counts it beside the tokens owed."""
         if not self._chunked or prompt_tokens <= 0:
             return 0
         return -(-int(prompt_tokens) // int(self._engine.prefill_chunk_tokens))
@@ -565,6 +658,11 @@ class DecodeScheduler:
                         if stream._expire() and self._metrics is not None:
                             self._metrics.record_deadline_expired()
                         continue
+                    if self._brownout_active:
+                        # Capped at admission only: a budget in flight is
+                        # never rewritten.
+                        stream._max_new = min(stream._max_new,
+                                              int(self._guard.brownout_max_new_tokens))
                     group.append(stream)
                     slots.append(free[len(group) - 1])
                 if not group:
@@ -715,7 +813,9 @@ class DecodeScheduler:
         if spec is not None:
             with self._lock:
                 active = self._decoding(self._slot_stream)
-                eligible = bool(active) and all(
+                # The brown-out skips the window; the plain step's width-2
+                # draft catch-up keeps the draft cache in step.
+                eligible = bool(active) and not self._brownout_active and all(
                     int(self._slot_lengths[i]) + spec.window <= self._engine.token_limit
                     for i in active)
             if not active:
@@ -978,6 +1078,7 @@ class DecodeScheduler:
                         "injected decode scheduler crash (FaultPlan.decode_worker_crash)"
                     )
                 self._maybe_apply_swap()
+                self._maybe_apply_brownout()
                 self._expire_queued()
                 self._expire_active()
             self._admit()
@@ -985,6 +1086,7 @@ class DecodeScheduler:
             self._prefill_chunks(spent)
             with self._lock:
                 self._maybe_apply_swap()
+                self._maybe_apply_brownout()
                 self._update_occupancy()
         with self._cv:
             self._cv.notify_all()
@@ -1198,5 +1300,10 @@ class DecodeScheduler:
                 "pending_prefill_tokens": sum(
                     int(self._slot_stream[i].prompt.shape[0]) - int(st["pos"])
                     for i, st in self._chunk_state.items() if self._slot_stream[i] is not None),
+            }
+            guard = getattr(self, "_guard", None)
+            out["guardrails"] = {
+                "guard": guard.status() if guard is not None else {"enabled": False},
+                "brownout_active": bool(getattr(self, "_brownout_active", False)),
             }
             return out

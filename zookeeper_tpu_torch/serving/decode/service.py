@@ -47,8 +47,21 @@ probe's ``zk_hbm_*``; ``/statusz``: the ``decode`` section
 ``programs`` ledger; ``/trace``; ``POST /debugz``), and
 ``flight_recorder_dir`` arms the recorder (``flight_recorder_interval_s``
 apart). ``run()`` keeps them up until its report is printed; every exit
-path tears down through ``run_teardown_steps``. The overload guard's
-``guardrails`` section waits for the guard (ROADMAP.md).
+path tears down through ``run_teardown_steps``.
+
+**Overload guardrails**, off by default: ``guard.enabled=True`` binds
+``guard`` (``serving.guardrails.OverloadGuard``) into the scheduler, so a
+request predicted to miss its deadline (``scheduler.default_deadline_ms``
+or the submit's ``deadline_ms``) is shed at submit with
+``PredictedMissError``, and ``guard.brownout_after>0`` adds the
+brown-out (capped ``max_new_tokens``, speculation off, applied only with
+the slot array drained). Its ``zk_guard_*`` series render at
+``/metrics`` and its state in the ``guardrails`` section of
+``/statusz``::
+
+    python -m zookeeper_tpu_torch.serving.decode LMServingConfig device=cpu \
+        ... guard.enabled=True guard.brownout_after=4 \
+        scheduler.default_deadline_ms=500
 """
 
 import json
@@ -68,6 +81,7 @@ from zookeeper_tpu_torch.serving.decode.engine import DecodeEngine
 from zookeeper_tpu_torch.serving.decode.metrics import DecodeMetrics
 from zookeeper_tpu_torch.serving.decode.scheduler import DecodeScheduler
 from zookeeper_tpu_torch.serving.decode.speculative import SpeculativeDecoding
+from zookeeper_tpu_torch.serving.guardrails import OverloadGuard
 from zookeeper_tpu_torch.serving.service import ObservedService, run_teardown_steps
 
 logger = logging.getLogger(__name__)
@@ -93,6 +107,10 @@ class LMServingConfig(ObservedService):
     #: speculative.draft_checkpoint=DIR``. A draft that cannot be loaded or
     #: bound falls back to plain decode, loudly.
     speculative: SpeculativeDecoding = ComponentField(SpeculativeDecoding)
+    #: Overload guardrails: ``guard.enabled=True`` sheds requests
+    #: predicted to miss their deadline at submit, ``guard.brownout_after``
+    #: > 0 adds the brown-out. Off by default.
+    guard: OverloadGuard = ComponentField(OverloadGuard)
 
     #: The deployment artifact: a ``save_model`` export or a
     #: ``Checkpointer`` directory (its latest step). None serves weights
@@ -140,8 +158,10 @@ class LMServingConfig(ObservedService):
         self.engine.bind(module, partitioner=self.partitioner, device=self.device)
         if self.warmup:
             self.engine.warmup()
+        self.guard.bind()
         self.scheduler.bind(self.engine, metrics=self.metrics,
-                            speculative=self._resolve_speculative())
+                            speculative=self._resolve_speculative(),
+                            guard=self.guard if self.guard.enabled else None)
         self._start_observability()
         return self.engine, self.scheduler
 
@@ -149,9 +169,13 @@ class LMServingConfig(ObservedService):
         return self.scheduler.request_log
 
     def _status_providers(self):
-        """The ``/statusz`` (and bundle) sections: ``decode`` and
-        ``requests``."""
-        return {"decode": self.scheduler.status, "requests": self._request_log_status}
+        """The ``/statusz`` (and bundle) sections: ``decode``, ``requests``
+        and ``guardrails``."""
+        return {"decode": self.scheduler.status, "requests": self._request_log_status,
+                "guardrails": self.guard.status}
+
+    def _obs_registries(self):
+        return super()._obs_registries() + [self.guard.registry]
 
     def _teardown_service(self, *, suppress: bool = False) -> None:
         """Every exit path's teardown (``run_teardown_steps``): the
