@@ -536,7 +536,31 @@ CUDA card and ``nvcc``. In order:
    warm-up, each worker's K9 = 4 x its prefills and K13 = 4 x its decode
    steps, at least one of them where it served a request; a worker that
    served none launched and dispatched nothing.
-28. One JSON line of the kernels (14 rows; K1, K3, K4, K6 and K7 also
+28. Sequence buckets, the public binary GEMMs, the disaggregated
+   roles' status and chief-led dispatch (``seq_ops_phase``): (a) phase
+   10's ``TransformerLM`` (4 layers, d 512, 8 x 64, bf16, vocab 1024) in
+   an ``InferenceEngine`` with int32 tokens, batch buckets (1, 4, 8) and
+   sequence buckets (512, 2048): the warm-up runs 6 pairs; 24 requests of
+   6 lengths from 64 to 2048 tokens (1-3 rows), one length a flush,
+   through the ``MicroBatcher``: no recompile, K9 = 4 x the dispatches,
+   every real position's logits against the exact-length forward (bit
+   for bit, or within K9's bf16 limit; the line says which). (b)
+   ``xnor_matmul`` and ``int8_matmul`` at M 8 and 128, with (K, N) (4096,
+   4096), (4000, 4096) and (4001, 4093) (K padded with +1 by the one, K
+   and N with zeros by the other), exact against the float64 product of
+   the +-1 operands; each ``xnor_matmul`` call launches K1 twice and K5
+   once; their times beside ``torch._int_mm`` on the same operands where
+   it takes their shape. (c) Phase 24's disaggregated
+   bf16 run's status sections: ``prefill``, ``transfer``, ``topology``
+   and the ``disagg`` RequestLog. (d) On a world-size-1 NCCL group with
+   chief-led dispatch engaged (the protocol's seam: one card cannot show
+   two ranks), a threaded ``MicroBatcher`` with deadlines over (a)'s
+   engine and a threaded ``DecodeScheduler`` with deadlines over the
+   paged decode engine (K13): the answers and tokens equal the
+   synchronous runs', a request sent already expired fails with the
+   deadline error, and the launches from the end of each warm-up follow
+   the served dispatches (both kernels of the decode leg at least once).
+29. One JSON line of the kernels (14 rows; K1, K3, K4, K6 and K7 also
    with their sums on Bi-Real-Net's path under ``bireal``; K1, K3 and K4
    under ``densenet`` and ``melius``, K1 and K3 under ``xnor_train`` per
    DenseNet training step, K2 under ``xnor_train`` per BinaryAlexNet
@@ -556,7 +580,8 @@ CUDA card and ``nvcc``. In order:
    ``hot_swap``, its watched service's; K9, K13, K1 and K3 under ``obs``,
    phase 25's launches with observability off and on; K6-K11 under
    ``obs_train``, phase 26's; K9 and K13 under ``guard_fleet``, phase 27's
-   guarded service's and each worker's), then the result line.
+   guarded service's and each worker's; K1, K5, K9 and K13 under
+   ``seq_ops``, phase 28's), then the result line.
 """
 
 import contextlib
@@ -6933,6 +6958,10 @@ def disagg_phase(torch, bc, A, smi):
         torch.cuda.synchronize()
         pre, dec = cfg.prefill_engine, cfg.engine
         launches[f"run_{label}"] = _role_launches(A, f"run {label}", dict(A.LAUNCHES), pre, dec)
+        if label == "bf16":
+            # Phase 28 (c) reads this run's /statusz sections.
+            stats["statusz"] = json.loads(json.dumps(
+                {name: fn() for name, fn in cfg._status_providers().items()}, default=str))
         requests = int(cfg.requests)
         check(result["transfer_handoffs"] == requests and result["disjoint_roles"] is False,
               f"disagg {label}: {result['transfer_handoffs']} handoffs for {requests} requests")
@@ -7519,7 +7548,7 @@ def obs_phase(torch, bc, A, smi):
             configure(eng, {"batch_buckets": (1, BATCH)}, name="engine")
             eng.bind(engine._module, cfg.input_shape, dtype=cfg.model.dtype(), device="cuda")
             eng.warmup()
-            eng._warmed.discard((BATCH, eng._mesh_key))
+            eng._warmed.discard(eng._key(BATCH, None))
             x = np.random.default_rng(25).normal(size=(BATCH, *cfg.input_shape))
             eng.infer(x.astype(np.float32))
             torch.cuda.synchronize()
@@ -8406,6 +8435,256 @@ def guard_fleet_phase(torch, A, smi):
     return launches, stats
 
 
+#: Phase 28 (a): the scoring engine's sequence buckets, and the request
+#: lengths (one flush each) with each length's requests' rows (7 rows: one
+#: batch-8 dispatch a length).
+SEQ_OPS_SEQ = (512, 2048)
+SEQ_OPS_LENGTHS = (64, 300, 512, 777, 1500, 2048)
+SEQ_OPS_ROWS = (1, 2, 1, 3)
+#: (b): the (M, K, N) of the public GEMMs: K a multiple of 32, a multiple
+#: of 8 but not of 32 (xnor_matmul's +1 pad), and with N neither a multiple
+#: of 8 (int8_matmul's zero pads for _int_mm).
+SEQ_OPS_GEMMS = tuple((m, k, n) for m in (8, 128)
+                      for k, n in ((4096, 4096), (4000, 4096), (4001, 4093)))
+#: (d): the threaded batcher's requests (rows), whole batches of 8 so its
+#: plans are the synchronous flush's whatever the timing, their length,
+#: and the decode leg's prompts.
+CHIEF_GROUPS = ((3, 5), (2, 6), (4, 4))
+CHIEF_LENGTH = 777
+CHIEF_PROMPTS = 8
+CHIEF_PROMPT_MAX = 512
+
+
+def seq_ops_phase(torch, bc, A, smi, disagg_stats):
+    """Phase 28 (see the module docstring). Returns {path: {kernel:
+    launches}}."""
+    import socket
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from zookeeper_tpu_torch.core import configure
+    from zookeeper_tpu_torch.ops import int8_matmul, xnor_matmul
+    from zookeeper_tpu_torch.parallel import distributed as D
+    from zookeeper_tpu_torch.serving import DeadlineExpiredError, InferenceEngine, MicroBatcher
+    from zookeeper_tpu_torch.serving.decode import DecodeEngine, DecodeScheduler
+
+    t_phase = time.perf_counter()
+    launches = {}
+    module = _feature_module(torch, "bfloat16")
+    rng = np.random.default_rng(28)
+
+    def lm_engine():
+        engine = InferenceEngine()
+        configure(engine, {"batch_buckets": (1, 4, BATCH), "seq_buckets": SEQ_OPS_SEQ},
+                  name="engine")
+        engine.bind(module, (LM_CAP,), dtype=torch.int32, device="cuda")
+        return engine
+
+    # (a) Sequence-bucketed scoring through the MicroBatcher.
+    engine = lm_engine()
+    warm = engine.warmup()
+    pairs = 3 * len(SEQ_OPS_SEQ)
+    check(warm == engine.compile_count == pairs,
+          f"seq_ops (a): the warm-up ran {warm} pairs, compile_count "
+          f"{engine.compile_count}, want {pairs}")
+    requests = [[rng.integers(1, 1024, size=(r, n)).astype(np.int32) for r in SEQ_OPS_ROWS]
+                for n in SEQ_OPS_LENGTHS]
+    batcher = MicroBatcher()
+    configure(batcher, {}, name="batcher")
+    batcher.bind(engine)
+    torch.cuda.synchronize()
+    A.reset_launches()
+    flush_ms, answers = [], []
+    for group in requests:
+        t0 = time.perf_counter()
+        handles = [batcher.submit(x) for x in group]
+        batcher.flush()
+        answers.append([h.result() for h in handles])
+        flush_ms.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    got = {name: A.LAUNCHES.get(name, 0) for name in LM_KERNELS}
+    dispatches = len(SEQ_OPS_LENGTHS)
+    check(got == {**dict.fromkeys(LM_KERNELS, 0), "flash_forward": LM_LAYERS * dispatches},
+          f"seq_ops (a): launched {got} for {dispatches} dispatches of {LM_LAYERS} layers")
+    check(engine.recompiles_detected == 0 and engine.compile_count == warm,
+          f"seq_ops (a): {engine.recompiles_detected} recompiles, {engine.compile_count} "
+          "programs")
+    launches["scoring"] = {"flash_forward": got["flash_forward"]}
+    bitwise, max_err, use = True, 0.0, 0.0
+    with torch.inference_mode():
+        for group, outs in zip(requests, answers):
+            for x, out in zip(group, outs):
+                want = module(torch.from_numpy(x).cuda()).float().cpu()
+                out = torch.from_numpy(out)
+                check(out.shape == want.shape, f"seq_ops (a): logits {tuple(out.shape)} "
+                                               f"against {tuple(want.shape)}")
+                bitwise = bitwise and torch.equal(out, want)
+                max_err = max(max_err, float((out - want).abs().max()))
+                use = max(use, _bf16_flash_use(torch, out, want))
+    check(bitwise or use <= 1.0,
+          f"seq_ops (a): the bucketed logits part from the exact-length forward (max abs "
+          f"{max_err}, {use} of K9's bf16 limit)")
+    rec = {"warm_pairs": warm, "recompiles": engine.recompiles_detected,
+           "dispatches": dispatches, "k9_launches": got["flash_forward"],
+           "bitwise_vs_exact_length": bitwise, "max_abs_err": max_err,
+           "k9_bf16_limit_use": use, "flush_ms": flush_ms,
+           "out_tracks_seq": dict(engine._out_tracks_seq)}
+    print(f"seq_ops (a) on {smi}: {json.dumps(rec)}", flush=True)
+    batcher.close()
+    del engine, batcher, answers
+
+    # (b) The public binary GEMMs against the float64 product and _int_mm.
+    gemm_launches = dict.fromkeys(("pack_rows", "xnor_matmul_packed"), 0)
+    for m, k, n in SEQ_OPS_GEMMS:
+        g = torch.Generator().manual_seed(m * 7 + k)
+        a = torch.where(torch.rand(m, k, generator=g) < 0.5, -1.0, 1.0).cuda()
+        b = torch.where(torch.rand(k, n, generator=g) < 0.5, -1.0, 1.0).cuda()
+        want = (a.double() @ b.double()).float()
+        torch.cuda.synchronize()
+        bc.reset_launches()
+        xm = xnor_matmul(a, b)
+        torch.cuda.synchronize()
+        counted = {name: c for name, c in bc.LAUNCHES.items() if c}
+        check(counted == {"pack_rows": 2, "xnor_matmul_packed": 1},
+              f"seq_ops (b): xnor_matmul {(m, k, n)} launched {counted}")
+        for name in gemm_launches:
+            gemm_launches[name] += counted.get(name, 0)
+        im = int8_matmul(a, b)
+        check(torch.equal(xm, want) and torch.equal(im, want),
+              f"seq_ops (b): {(m, k, n)} not exact (xnor {float((xm - want).abs().max())}, "
+              f"int8 {float((im - want).abs().max())})")
+        library, lib_rows = _int_mm_yardstick(torch, m, k, n, "cuda", g)
+        rec = {"xnor_matmul_ms": time_ms(torch, lambda: xnor_matmul(a, b)),
+               "int8_matmul_ms": time_ms(torch, lambda: int8_matmul(a, b)),
+               "int_mm_ms": time_ms(torch, library) if library is not None else None,
+               "int_mm_rows": lib_rows, "exact": True}
+        print(f"seq_ops (b) {(m, k, n)} on {smi}: {json.dumps(rec)}", flush=True)
+    launches["gemms"] = gemm_launches
+
+    # (c) Phase 24's disaggregated run's status sections.
+    st = disagg_stats.get("statusz", {})
+    check({"prefill", "transfer", "topology", "requests", "decode"} <= set(st),
+          f"seq_ops (c): phase 24's status has {sorted(st)}")
+    check(st["requests"].get("service") == "disagg" and "compiles" in st["prefill"],
+          f"seq_ops (c): requests {st['requests'].get('service')}, prefill {sorted(st['prefill'])}")
+    print("seq_ops (c): phase 24's /statusz sections: " + json.dumps(
+        {"prefill": {k: v for k, v in st["prefill"].items() if k != "kv_pool"},
+         "transfer": st["transfer"], "topology": st["topology"],
+         "requests": {k: st["requests"][k] for k in ("service", "recorded_total",
+                                                     "by_outcome")}}), flush=True)
+
+    # (d) Chief-led dispatch on a world-size-1 NCCL group.
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    launcher = {"MASTER_ADDR": "localhost", "MASTER_PORT": str(port), "RANK": "0",
+                "WORLD_SIZE": "1", "LOCAL_RANK": "0"}
+    chief_x = [rng.integers(1, 1024, size=(r, CHIEF_LENGTH)).astype(np.int32)
+               for group in CHIEF_GROUPS for r in group]
+    doomed_x = rng.integers(1, 1024, size=(1, CHIEF_LENGTH)).astype(np.int32)
+    prompts = [rng.integers(1, 1024, size=int(n)).astype(np.int32)
+               for n in rng.integers(16, CHIEF_PROMPT_MAX + 1, size=CHIEF_PROMPTS)]
+
+    def lead(obj, engine, led):
+        if led:
+            with D.forced_chief_led():
+                obj.bind(engine)
+            check(obj._led.link is not None, "seq_ops (d): chief-led dispatch not engaged")
+        else:
+            obj.bind(engine)
+
+    def batcher_leg(led):
+        engine = lm_engine()
+        engine.warmup()
+        b = MicroBatcher()
+        configure(b, {"synchronous": not led, "max_delay_ms": 2000.0,
+                      "default_deadline_ms": 60000.0 if led else 0.0}, name="batcher")
+        lead(b, engine, led)
+        torch.cuda.synchronize()
+        A.reset_launches()
+        doomed = b.submit(doomed_x, deadline_ms=0)
+        handles = [b.submit(x) for x in chief_x]
+        outs = [h.result(timeout=120) for h in handles]
+        try:
+            doomed.result(timeout=120)
+            fail("seq_ops (d): the request sent expired was served")
+        except DeadlineExpiredError:
+            pass
+        torch.cuda.synchronize()
+        got = A.LAUNCHES.get("flash_forward", 0)
+        check(got == LM_LAYERS * len(CHIEF_GROUPS),
+              f"seq_ops (d): the batcher (led={led}) launched K9 {got} times")
+        b.close()
+        return outs, got
+
+    def decode_leg(led):
+        engine = DecodeEngine()
+        configure(engine, {**FEATURE_ENGINE, "prefix_cache": False, "prefill_buckets": (1,)},
+                  name="engine")
+        engine.bind(module, device="cuda")
+        engine.warmup()
+        sched = DecodeScheduler()
+        configure(sched, {"synchronous": not led,
+                          "default_deadline_ms": 60000.0 if led else 0.0}, name="sched")
+        lead(sched, engine, led)
+        # The counts and the dispatches from here: the served run alone.
+        torch.cuda.synchronize()
+        A.reset_launches()
+        before = dict(engine.dispatches)
+        streams = [sched.submit(p, max_new_tokens=8) for p in prompts]
+        doomed = sched.submit(prompts[0], max_new_tokens=8, deadline_ms=0)
+        tokens = [s.result(timeout=300) for s in streams]
+        try:
+            doomed.result(timeout=300)
+            fail("seq_ops (d): the stream sent expired was served")
+        except DeadlineExpiredError:
+            pass
+        sched.close()
+        torch.cuda.synchronize()
+        served = {k: engine.dispatches.get(k, 0) - before.get(k, 0)
+                  for k in ("prefill", "decode")}
+        got = {name: A.LAUNCHES.get(name, 0) for name in LM_KERNELS}
+        want = {**dict.fromkeys(LM_KERNELS, 0),
+                "flash_forward": LM_LAYERS * served["prefill"],
+                "pool_paged_decode_attention": LM_LAYERS * served["decode"]}
+        check(engine.paged and served["prefill"] > 0 and served["decode"] > 0 and got == want,
+              f"seq_ops (d): the scheduler (led={led}) launched {got} for its served "
+              f"dispatches {served} (want {want})")
+        check(all(A.LAUNCHES.get(n, 0) == 0 for n in LM_TRAIN_KERNELS),
+              f"seq_ops (d): serving launched training kernels {dict(A.LAUNCHES)}")
+        return tokens, {"flash_forward": got["flash_forward"],
+                        "pool_paged_decode_attention": got["pool_paged_decode_attention"],
+                        "served": served}
+
+    with mock.patch.dict(os.environ, launcher):
+        D.initialize_distributed(device="cuda")
+        check(dist.get_backend() == "nccl" and dist.get_world_size() == 1,
+              "seq_ops: no world-size-1 NCCL group")
+        print("seq_ops (d): one card cannot show two ranks: chief-led dispatch runs engaged "
+              "through its seam on a world-size-1 NCCL group, its records broadcast over the "
+              "gloo control group to no follower (two ranks run in the CPU tests)", flush=True)
+        outs = {led: batcher_leg(led) for led in (False, True)}
+        toks = {led: decode_leg(led) for led in (False, True)}
+        D.shutdown_distributed()
+    check(not D.is_distributed_initialized(), "seq_ops: the group outlived the phase")
+    check(all(np.array_equal(x, y) for x, y in zip(outs[False][0], outs[True][0])),
+          "seq_ops (d): the chief-led batcher's answers differ from the synchronous run's")
+    check(all(np.array_equal(x, y) for x, y in zip(toks[False][0], toks[True][0])),
+          "seq_ops (d): the chief-led scheduler's tokens differ from the synchronous run's")
+    launches["chief_batcher"] = {"flash_forward": outs[True][1]}
+    launches["chief_decode"] = toks[True][1]
+    print(f"seq_ops (d) on {smi}: the threaded batcher's {len(chief_x)} answers and the "
+          f"threaded scheduler's {sum(len(t) for t in toks[True][0])} tokens equal the "
+          f"synchronous runs' bit for bit; the expired request and stream failed with "
+          f"DeadlineExpiredError; launches {json.dumps(launches)}", flush=True)
+    del module
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"seq_ops: phase 28 in {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches
+
+
 def _render_registry(registry) -> str:
     from zookeeper_tpu_torch.observability.export import render_prometheus
 
@@ -8519,7 +8798,7 @@ def main() -> None:
     elapsed("serving features")
     launches_group, _ = group_phase(torch, A, smi)
     elapsed("group recovery")
-    launches_disagg, launches_watch, _ = disagg_phase(torch, bc, A, smi)
+    launches_disagg, launches_watch, disagg_stats = disagg_phase(torch, bc, A, smi)
     elapsed("disaggregated serving, hot swaps")
     obs_lm, obs_cnn, _ = obs_phase(torch, bc, A, smi)
     elapsed("observability")
@@ -8527,6 +8806,8 @@ def main() -> None:
     elapsed("training observability")
     guard_fleet, _ = guard_fleet_phase(torch, A, smi)
     elapsed("overload guard and fleet")
+    seq_ops = seq_ops_phase(torch, bc, A, smi, disagg_stats)
+    elapsed("sequence buckets, public GEMMs, chief-led dispatch")
     served_rows = {}
     for name in ("pack_rows", "conv_gemm_popcount", "packed_weight_matmul", *LM_KERNELS):
         lm = name in LM_KERNELS
@@ -8700,6 +8981,11 @@ def main() -> None:
                 "path": f"TrainImageNet QuickNet-Large at unroll {UNROLL}, "
                         f"{OBS_TRAIN_CNN_STEPS} steps, observability off and on",
                 "launches": {label: obs_train[f"cnn_{label}"][name] for label in ("off", "on")}}
+        if name in seq_ops["gemms"]:
+            rows[-1]["seq_ops"] = {
+                "path": "xnor_matmul at (M, K, N) " + ", ".join(map(str, SEQ_OPS_GEMMS))
+                        + ", one call each",
+                "launches": seq_ops["gemms"][name]}
         if name in ("mask_mul_resid", "xnor_matmul_packed_scaled"):
             # K8 has no work on Bi-Real's step; K2 runs in XNORNet's dense stage.
             rows[-1]["zoo_launches"] = (launches_bt[name] if name == "mask_mul_resid"
@@ -8746,6 +9032,14 @@ def main() -> None:
             rows[-1]["int8_bound_ms"] = LM_LAYERS * int8["bound_ms"]
         rows[-1]["served_sharded"] = served_rows[name]
         rows[-1]["features"] = {path: n[name] for path, n in features.items()}
+        if name != "paged_decode_attention":
+            rows[-1]["seq_ops"] = {
+                "path": f"TransformerLM scoring at sequence buckets {SEQ_OPS_SEQ}, "
+                        f"{len(SEQ_OPS_LENGTHS) * len(SEQ_OPS_ROWS)} requests (scoring); the "
+                        "chief-led threaded MicroBatcher and DecodeScheduler on a "
+                        "world-size-1 NCCL group (chief_*)",
+                "launches": {path: n.get(name, 0) for path, n in seq_ops.items()
+                             if path != "gemms"}}
         rows[-1]["disagg"] = {path: n[name] for path, n in launches_disagg.items()}
         if name != "paged_decode_attention":
             rows[-1]["guard_fleet"] = {

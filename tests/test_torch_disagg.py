@@ -508,3 +508,73 @@ def test_disagg_serving_config_run_reports_the_transfer(lm):
     assert result["transfer_handoffs"] == 6 == result["transfer_handoffs_total"]
     assert result["transfer_host_bounces"] == 0 and result["prefill_lanes"] == 4
     assert cfg.scheduler.prefill_engine.dispatches.get("prefill_chunk", 0) == 0
+
+
+# -- the service's observability --------------------------------------------------
+
+
+def _statusz(port):
+    import json
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}/statusz", timeout=10) as r:
+        return json.loads(r.read().decode())
+
+
+def _series(registries, render):
+    """The exposition's sample names with their labels, values dropped."""
+    return sorted(ln.rsplit(" ", 1)[0] for ln in render(registries).splitlines()
+                  if ln and not ln.startswith("#"))
+
+
+def test_service_statusz_sections_and_request_log_equal_jax():
+    """Both packages' ``DisaggServingConfig`` with ``metrics_port=0``,
+    three prompts served: ``/statusz`` has the same sections (``prefill``,
+    ``transfer`` and ``topology`` beside the decode role's), the same
+    keys in each and the same values where time and device names play no
+    part; the RequestLog is ``"disagg"`` in both, with the same outcomes;
+    the service's series carry the same names and labels."""
+    from zookeeper_tpu.observability.export import render_prometheus as jax_render
+    from zookeeper_tpu.serving import DisaggServingConfig as JaxConfig
+    from zookeeper_tpu_torch.observability.export import render_prometheus
+
+    conf = {"model.num_layers": 1, "model.d_model": 32, "model.num_heads": 4,
+            "seq_len": 64, "vocab_size": 61, "engine.slots": 2, "engine.seq_buckets": (8,),
+            "engine.page_size": 4, "prefill_engine.slots": 2,
+            "prefill_engine.seq_buckets": (8,), "prefill_engine.page_size": 4,
+            "prefill_engine.prefill_buckets": (1, 2), "requests": 0, "max_prompt": 6,
+            "new_tokens": 3, "warmup": False, "verbose": False, "metrics_port": 0}
+    prompts = [np.arange(1, n + 1, dtype=np.int32) for n in (3, 7, 5)]
+    seen = {}
+    for side, cls, conf_fn, extra in (
+            ("port", DisaggServingConfig, configure, {"device": "cpu"}),
+            ("jax", JaxConfig, jax_configure, {"model.attention": "dense"})):
+        cfg = cls()
+        conf_fn(cfg, {**conf, **extra}, name=f"disagg_{side}")
+        _, sched = cfg.build_service()
+        try:
+            streams = [sched.submit(p, max_new_tokens=3) for p in prompts]
+            sched.drain()
+            assert all(s.result().shape == (3,) for s in streams)
+            render = render_prometheus if side == "port" else jax_render
+            seen[side] = (_statusz(cfg.obs_server.port), sched.request_log,
+                          _series([cfg.metrics.registry, cfg.guard.registry], render))
+        finally:
+            cfg._teardown_service(suppress=True)
+    (got, log, series), (want, jax_log, jax_series) = seen["port"], seen["jax"]
+    assert set(got) == set(want) >= {"decode", "requests", "guardrails", "prefill",
+                                     "transfer", "topology", "programs"}
+    for section in ("prefill", "transfer", "topology"):
+        assert set(got[section]) == set(want[section]), section
+    for key in ("lanes", "parked_handoffs", "kv_pool", "recompiles_detected"):
+        assert got["prefill"][key] == want["prefill"][key], key
+    assert got["prefill"]["decode_attention"] in ("kernel", "reference")
+    for key in ("handoffs_total", "pages_total", "bytes_total", "host_bounces",
+                "transfer_width"):
+        assert got["transfer"][key] == want["transfer"][key], key
+    assert got["topology"]["disjoint"] is False  # one CPU device: the roles overlap
+    assert log.name == jax_log.name == "disagg"
+    for name in ("service", "recorded_total", "by_outcome"):
+        assert got["requests"][name] == want["requests"][name], name
+    assert [r["outcome"] for r in log.tail()] == [r["outcome"] for r in jax_log.tail()]
+    assert series == jax_series

@@ -123,14 +123,14 @@ def test_counted_flops_of_a_small_model_match_a_hand_count():
     weights = sum(p.numel() * 4 for p in module.parameters())
     for b in (1, 4):
         hand = 2 * (b * 6 * 6 * 8 * 9 * 3 + b * 3 * 3 * 16 * 9 * 8 + b * 10 * 144 + b * 4 * 10)
-        row = engine.programs[(b, ())]
+        row = engine.programs[(b, None, "float32", ())]
         assert row.kind == "serve_forward" and row.flops == hand
         assert row.bytes_accessed == weights + b * 6 * 6 * 3 * 4 + b * 4 * 4
         assert row.compile_ms > 0 and row.attrs == {
             "bucket": b, "seq_bucket": None, "during_dispatch": False}
         assert row in ledger.default_ledger().entries()
     engine.infer(np.zeros((3, 6, 6, 3), np.float32))
-    assert engine.programs[(4, ())].dispatches == 2 and engine.recompiles_detected == 0
+    assert engine.programs[(4, None, "float32", ())].dispatches == 2 and engine.recompiles_detected == 0
 
 
 def test_counted_flops_of_the_lm_programs_match_a_hand_count():

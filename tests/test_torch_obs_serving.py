@@ -287,7 +287,7 @@ def test_recompile_is_detected_bundled_and_reported(tmp_path):
         assert engine.recompiles_detected == 0
         # A bucket the warm-up never covered, as the JAX test reaches it:
         # through the engine's private cache seam.
-        engine._warmed.discard((4, engine._mesh_key))
+        engine._warmed.discard(engine._key(4, None))
         engine.infer(np.zeros((3, 16, 16, 3), np.float32))
         assert engine.recompiles_detected == 1 and counter.value == base + 1
         events = [r for r in tracer.snapshot() if r["name"] == "recompile_detected"]
@@ -306,7 +306,7 @@ def test_observe_dispatch_publishes_the_gauges():
     engine, _ = cfg.build_service()
     reg = default_registry()
     engine.infer(np.zeros((4, 16, 16, 3), np.float32))
-    flops = engine.programs[(4, ())].flops
+    flops = engine.programs[engine._key(4, None)].flops
     engine.observe_dispatch(3, 0.05)
     assert reg.gauge("zk_serve_dispatch_ms").value == pytest.approx(50.0)
     assert reg.gauge("zk_serve_dispatch_rows").value == 3

@@ -23,7 +23,15 @@
   packed forward (``test_torch_quicknet.py``'s tolerance) and equal bit
   for bit to the port's own unsharded forward, each packed conv holding
   its ``co`` block.
-- The refusals of the clock-driven modes at world size 2.
+- Chief-led dispatch at world size 2: the threaded batcher and the
+  threaded decode scheduler with deadlines serve JAX's answers and the
+  greedy oracle's tokens with the same dispatches on both ranks, an
+  expiry and a staged swap land alike on both, a follower that lacks a
+  request fails that dispatch everywhere, the threaded batcher in front
+  of a data-parallel engine with sequence buckets serves JAX's LM logits,
+  ``ServingConfig(watch=True)`` swaps a step in at the same dispatch on
+  both ranks; the speculative draft and disaggregated serving still
+  refuse.
 """
 
 import torch_threads  # noqa: F401,I001  (one intra-op thread a process)
@@ -196,6 +204,16 @@ def _mlp():
     return module, params, {k: v.clone() for k, v in state_dict.items()}
 
 
+@functools.lru_cache(maxsize=1)
+def _mlp_b():
+    """A second weight set of the Mlp (every parameter negated): (the JAX
+    params, the port's state_dict)."""
+    from zookeeper_tpu_torch.models.convert import from_flax_variables
+
+    params = jax.tree.map(lambda v: -np.asarray(v), _mlp()[1])
+    return params, {k: v.clone() for k, v in from_flax_variables(params, {}).items()}
+
+
 def _batches(shape):
     rng = np.random.default_rng(3)
     return [rng.normal(size=(n, *shape)).astype(np.float32) for n in (1, 3, 8, 5, 4)]
@@ -220,7 +238,7 @@ def _infer_legs():
 
 
 def _all_legs(rank, world, out_dir, lm, stream, decode, infer, qn_batches, mlp_batches,
-              features):
+              features, chief):
     serving_workers.decode_legs(rank, world, out_dir, lm, *stream, decode)
     if features:
         serving_workers.decode_legs(rank, world, out_dir + "/features", lm, *features)
@@ -230,7 +248,7 @@ def _all_legs(rank, world, out_dir, lm, stream, decode, infer, qn_batches, mlp_b
         serving_workers.infer_legs(rank, world, out_dir + "/mlp", mlp, mlp_batches)
         serving_workers.infer_legs(rank, world, out_dir + "/qn", qn, qn_batches)
     if world == 2:
-        serving_workers.refusals(rank, world, out_dir, lm)
+        serving_workers.chief_led(rank, world, out_dir, lm, *chief)
 
 
 @pytest.fixture(scope="module")
@@ -244,8 +262,9 @@ def ranks(tmp_path_factory):
             (out_dir / sub).mkdir()
         infer = _infer_legs() if world == 4 else []
         features = (*_feature_stream(), FEATURE_LEGS) if world == 2 else None
+        chief = (_mlp()[2], _mlp_b()[1], _batches(MLP_SHAPE), *_stream())
         workers.spawn(_all_legs, world, str(out_dir), lm, _stream(), _legs(world), infer,
-                      _batches(QN_SHAPE), _batches(MLP_SHAPE), features, timeout=240)
+                      _batches(QN_SHAPE), _batches(MLP_SHAPE), features, chief, timeout=240)
         out[world] = {"decode": workers.load(str(out_dir), "decode", world)}
         if features:
             out[world]["features"] = workers.load(str(out_dir / "features"), "decode", world)
@@ -253,7 +272,7 @@ def ranks(tmp_path_factory):
             out[world]["mlp"] = workers.load(str(out_dir / "mlp"), "infer", world)
             out[world]["qn"] = workers.load(str(out_dir / "qn"), "infer", world)
         if world == 2:
-            out[world]["refusals"] = workers.load(str(out_dir), "refusals", world)
+            out[world]["chief"] = workers.load(str(out_dir), "chief_led", world)
     return out
 
 
@@ -666,9 +685,106 @@ def test_packed_layers_compute_their_channel_blocks_bitwise(layer, mode, monkeyp
         assert torch.equal(got, want[..., r * n:(r + 1) * n]), r
 
 
-def test_clock_driven_modes_refused_at_world_size_two(ranks):
-    for messages in ranks[2]["refusals"]:
-        assert set(messages) == {"scheduler async", "scheduler deadline", "batcher async",
-                                 "batcher deadline", "scheduler submit", "batcher submit"}
+def _jax_mlp(params, x):
+    return np.asarray(_mlp()[0].apply({"params": params}, x.reshape(x.shape[0], -1)))
+
+
+def test_chief_led_threaded_batcher_serves_jax_answers_with_one_expiry(ranks):
+    """The threaded batcher with deadlines at world size 2: chief-led, the
+    same dispatches on both ranks, JAX's answers, and the request sent
+    already expired fails with the deadline error on both ranks."""
+    _, params, _ = _mlp()
+    results = [r["batcher"] for r in ranks[2]["chief"]]
+    assert all(r["led"] for r in results)
+    assert results[0]["dispatches"] == results[1]["dispatches"] and results[0]["dispatches"]
+    for res in results:
+        for i, (x, got) in enumerate(zip(_batches(MLP_SHAPE), res["outcomes"])):
+            if i == 2:
+                assert got == "DeadlineExpiredError"
+                continue
+            np.testing.assert_allclose(np.asarray(got), _jax_mlp(params, x), rtol=1e-5,
+                                       atol=1e-6)
+
+
+def test_chief_led_seq_bucketed_batcher_serves_jax_logits_on_both_ranks(ranks):
+    """The threaded batcher in front of a data-parallel ``InferenceEngine``
+    with sequence buckets (8, 16) at world size 2: chief-led, every pair
+    warmed once and none recompiled, the same dispatches (the pair checked
+    by the dispatch guard) on both ranks, and the LM's logits on the real
+    positions equal JAX's exact-length forward on both."""
+    jmod, params, _ = _lm()
+    results = [r["seq"] for r in ranks[2]["chief"]]
+    assert all(r["led"] for r in results)
+    assert results[0]["dispatches"] == results[1]["dispatches"] and results[0]["dispatches"]
+    requests = [x for group in serving_workers.seq_requests(VOCAB) for x in group]
+    for res in results:
+        assert res["warm"] == res["compile_count"] == 4 and res["recompiles"] == 0
+        for x, got in zip(requests, res["outcomes"]):
+            want = np.asarray(jmod.apply({"params": params}, x, training=False))
+            np.testing.assert_allclose(np.asarray(got), want, rtol=2e-5, atol=2e-5)
+
+
+def test_chief_led_dispatch_fails_on_every_rank_when_a_follower_lacks_a_request(ranks):
+    """Rank 1 never submits the chief's second request: after the bounded
+    wait that dispatch fails with ``ChiefLedError`` (on the chief, the
+    request rank 1 lacks), and neither rank hangs."""
+    chief, follower = (r["lost"] for r in ranks[2]["chief"])
+    assert chief[1] == "ChiefLedError" and len(follower) == 1
+    assert chief[0] == follower[0]  # the first request's fate is shared
+
+
+def test_chief_led_threaded_scheduler_streams_jax_tokens_with_expiry_and_swap(ranks):
+    """The threaded decode scheduler with deadlines at world size 2:
+    the greedy oracle's tokens on both ranks, the stream sent already
+    expired failed on both, the staged swap applied at the same boundary
+    (the same prefill groups before it), and the same dispatches."""
+    oracle = _oracles()["float"]
+    results = [r["decode"] for r in ranks[2]["chief"]]
+    assert all(r["led"] for r in results)
+    assert results[0]["dispatches"] == results[1]["dispatches"]
+    assert ("swap_weights",) in [d[:1] for d in results[0]["dispatches"]]
+    assert results[0]["counts"] == results[1]["counts"]
+    for res in results:
+        assert res["weights_step"] == 7
+        for i, (got, want) in enumerate(zip(res["outcomes"], oracle)):
+            if i == 3:
+                assert got == "DeadlineExpiredError"
+            else:
+                np.testing.assert_array_equal(got, want)
+
+
+def test_chief_led_synchronous_scheduler_with_a_deadline_streams_jax_tokens(ranks):
+    """The synchronous scheduler with ``default_deadline_ms`` at world size
+    2 runs chief-led: the oracle's tokens on both ranks, the stream sent
+    expired failed on both."""
+    oracle = _oracles()["float"]
+    for res in (r["decode_sync"] for r in ranks[2]["chief"]):
+        assert res["led"]
+        np.testing.assert_array_equal(res["outcomes"][0], oracle[0])
+        np.testing.assert_array_equal(res["outcomes"][1], oracle[1])
+        assert res["outcomes"][2] == "DeadlineExpiredError"
+
+
+def test_watched_swap_lands_at_the_same_dispatch_on_both_ranks(ranks):
+    """``ServingConfig(watch=True)`` at world size 2: both ranks load the
+    chief's baseline step, the step rank 0 saves while they serve swaps
+    in on both before the next dispatch, and the answers are JAX's with
+    each step's weights."""
+    _, params, _ = _mlp()
+    params_b = _mlp_b()[0]
+    for res in (r["watch"] for r in ranks[2]["chief"]):
+        assert res["step"] == 2 and res["swaps"] == 1
+        assert res["status"]["serving_weights_step"] == 2 and res["status"]["watcher_alive"]
+        for x, got_a, got_b in zip(_batches(MLP_SHAPE), res["before"], res["after"]):
+            np.testing.assert_allclose(np.asarray(got_a), _jax_mlp(params, x), rtol=1e-5,
+                                       atol=1e-6)
+            np.testing.assert_allclose(np.asarray(got_b), _jax_mlp(params_b, x), rtol=1e-5,
+                                       atol=1e-6)
+
+
+def test_speculative_and_disaggregated_refusals_stay_at_world_size_two(ranks):
+    for res in ranks[2]["chief"]:
+        messages = res["refusals"]
+        assert set(messages) == {"speculative", "disagg"}
         for label, message in messages.items():
-            assert message is not None and "ROADMAP.md" in message, label
+            assert message is not None and "Queue 1 item 4" in message, label

@@ -20,14 +20,53 @@ from zookeeper_tpu_torch.core import (
     task,
 )
 
+
+def _resolve_version() -> str:
+    """The version in the ``pyproject.toml`` beside the package (this
+    checkout's), else the installed distribution's, else a sentinel that
+    no release carries."""
+    try:
+        import os
+        import tomllib
+
+        pyproject = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..",
+                                 "pyproject.toml")
+        with open(pyproject, "rb") as f:
+            project = tomllib.load(f)["project"]
+        if project["name"] == "zookeeper-tpu":
+            return project["version"]
+    except (OSError, KeyError, ImportError, ValueError):
+        pass
+    try:
+        from importlib.metadata import version
+
+        return version("zookeeper-tpu")
+    except Exception:
+        return "0.0.0+unknown"
+
+
+__version__ = _resolve_version()
+
+
+def __getattr__(name):
+    # ``cli`` needs click: loaded on first use, as ``core`` loads it.
+    if name == "cli":
+        from zookeeper_tpu_torch import core
+
+        return core.cli
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
 __all__ = [
     "ComponentField",
     "ConfigurationError",
     "Field",
     "PartialComponent",
+    "cli",
     "component",
     "configure",
     "factory",
     "pretty_print",
     "task",
+    "__version__",
 ]

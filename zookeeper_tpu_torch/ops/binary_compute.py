@@ -707,6 +707,55 @@ def xnor_matmul_packed_scaled(
     return out
 
 
+def xnor_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Binary GEMM of float ±1 operands through bit packing, ``[M, K] @
+    [K, N]`` as float32 exact integers (the JAX package's
+    ``xnor_matmul``). K pads to a multiple of 32 with +1 on both
+    operands, whose bits match and so cancel, and ``k_true`` stays the
+    original K. On the card: K1 on ``a`` and on ``b``'s transpose, then
+    K5; on the CPU their plain versions (``pack_bits``, then the plain
+    K5), bit for bit the same."""
+    _require(a.dim() == 2 and b.dim() == 2, "xnor_matmul", "expected a [M, K] and b [K, N]")
+    k, k2 = a.shape[1], b.shape[0]
+    if k != k2:
+        raise ValueError(f"Inner dims mismatch: {k} vs {k2}.")
+    k_pad = _round_up(k, 32)
+    if k_pad != k:
+        a = F.pad(a, (0, k_pad - k), value=1.0)
+        b = F.pad(b, (0, 0, 0, k_pad - k), value=1.0)
+    # K1 reads float32/bfloat16; any other dtype keeps its signs in float32.
+    if a.dtype not in (torch.float32, torch.bfloat16):
+        a = a.to(torch.float32)
+    if b.dtype not in (torch.float32, torch.bfloat16):
+        b = b.to(torch.float32)
+    a_packed = pack_rows(a.contiguous())
+    b_packed = pack_rows(b.t().contiguous()).t().contiguous()
+    return xnor_matmul_packed(a_packed, b_packed, k_true=k).to(torch.float32)
+
+
+def int8_matmul(a_sign: torch.Tensor, b_sign: torch.Tensor) -> torch.Tensor:
+    """Binary GEMM on int8 operands with int32 accumulation, float32 out
+    (the JAX package's ``int8_matmul``, which XLA computes outside any
+    Pallas kernel): both operands round half to even to int8, so a
+    literal 0 stays 0. On the card this is ``torch._int_mm``, with M, K
+    and N padded by zeros (which add nothing to the sums) to the shapes
+    it takes, then sliced back; on the CPU an int32 matmul."""
+    _require(a_sign.dim() == 2 and b_sign.dim() == 2, "int8_matmul",
+             "expected a_sign [M, K] and b_sign [K, N]")
+    (m, k), (k2, n) = a_sign.shape, b_sign.shape
+    if k != k2:
+        raise ValueError(f"Inner dims mismatch: {k} vs {k2}.")
+    a8 = torch.round(a_sign).to(torch.int8)
+    b8 = torch.round(b_sign).to(torch.int8)
+    if _cuda_device("int8_matmul", a8, b8) is None:
+        return (a8.to(torch.int32) @ b8.to(torch.int32)).to(torch.float32)
+    # _int_mm takes M > 16 and K, N multiples of 8; b column-major.
+    mp, kp, np_ = max(m, 17), _round_up(max(k, 16), 8), _round_up(max(n, 8), 8)
+    a8 = F.pad(a8, (0, kp - k, 0, mp - m))
+    b8 = F.pad(b8, (0, np_ - n, 0, kp - k)).t().contiguous().t()
+    return torch._int_mm(a8, b8)[:m, :n].to(torch.float32)
+
+
 # -- packed conv schedules --------------------------------------------------
 
 

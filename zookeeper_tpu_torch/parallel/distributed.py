@@ -20,15 +20,35 @@ of two ways:
 With neither, no group is formed and the world size is 1: the port's
 single-card path, on which no collective is ever called. A run asked
 for the card that finds none raises; nothing falls back to gloo.
+
+**Chief-led dispatch.** A serving engine whose partitioner spans several
+ranks is collective: every rank must make the same dispatches. The
+synchronous batcher and scheduler on the same request stream make them
+by construction. A clock-driven mode (a worker thread, deadlines, a
+checkpoint watcher) would decide by each rank's clock, so there rank 0
+decides and the others follow: :class:`ChiefLink` carries the chief's
+decisions as small int64 records over a gloo group made beside the
+card's group (never the NCCL group, which the engine's own collectives
+use from the same thread), and :meth:`ChiefLink.agree` lets a follower
+that lacks a request the record names fail that dispatch on every rank,
+after a bounded wait (:data:`FOLLOWER_WAIT_S`), instead of hanging.
+Requests are named by their submission ordinal on the batcher or
+scheduler, so every rank must submit the same requests in the same
+order, as the synchronous mode already asks.
 """
 
+import contextlib
+import logging
 import os
-from typing import Optional
+import time
+from typing import Callable, Dict, Iterable, List, Optional, Sequence, Set
 
 import torch
 import torch.distributed as dist
 
 from zookeeper_tpu_torch.core import Field, component
+
+logger = logging.getLogger(__name__)
 
 #: The variables ``torch.distributed.run`` sets for every rank.
 _LAUNCHER_ENV = ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")
@@ -157,18 +177,201 @@ def dispatch_checksum(*arrays) -> int:
     return total
 
 
-def refuse_clock_driven(engine, what: str) -> None:
-    """Raise for a clock-driven serving mode in front of a collective
-    ``engine`` (one whose partitioner spans several ranks): a threaded
-    scheduler or batcher, or a request deadline, decides by each rank's
-    own clock, so the ranks' dispatches would diverge."""
-    if getattr(engine, "collective", False):
-        raise ValueError(
-            f"{what} decides by each rank's own clock, so at world size "
-            f"{world_size()} the ranks' dispatches would diverge; serve with "
-            "synchronous=True and no deadlines (a chief-led dispatch is queued in "
-            "ROADMAP.md)."
-        )
+#: How long a follower waits for a request (or a staged swap) that the
+#: chief's record names before the dispatch fails on every rank.
+FOLLOWER_WAIT_S = 30.0
+
+#: Record kinds (the first int of every record).
+RECORD_STOP, RECORD_STEP, RECORD_CRASH, RECORD_END = 0, 1, 2, 3
+
+#: The seam that engages chief-led dispatch in front of an engine that
+#: spans one rank (tests, and the card's one-rank check); no
+#: configuration sets it.
+_FORCED = False
+
+
+@contextlib.contextmanager
+def forced_chief_led():
+    """Engage chief-led dispatch for the batchers and schedulers bound
+    inside the block, whatever their engine spans."""
+    global _FORCED
+    saved, _FORCED = _FORCED, True
+    try:
+        yield
+    finally:
+        _FORCED = saved
+
+
+def chief_led(engine) -> bool:
+    """Whether a clock-driven mode in front of ``engine`` must be led by
+    rank 0: the engine is collective (or the seam is engaged)."""
+    return _FORCED or bool(getattr(engine, "collective", False))
+
+
+class ChiefLedError(RuntimeError):
+    """A follower rank lacked a request the chief's dispatch named (the
+    ranks did not submit the same requests in the same order): the
+    dispatch failed on every rank."""
+
+
+class ChiefLink:
+    """The control channel of chief-led dispatch: rank 0's records, one
+    int64 list each, broadcast over a gloo group of every rank, and a
+    one-int agreement. A link is made by every rank at the same point
+    (the group's creation is collective) and used by one thread on each
+    rank, the thread that then issues the engine's collectives, so every
+    rank posts the same collectives in the same order. Without a process
+    group (the seam at world size 1) records pass through unsent."""
+
+    #: Ints a record's first broadcast carries (its length first); a
+    #: longer record takes a second broadcast.
+    _HEAD = 32
+
+    def __init__(self) -> None:
+        self.rank = rank()
+        self.world = world_size()
+        self._group = dist.new_group(backend="gloo") if is_distributed_initialized() else None
+
+    @property
+    def is_chief(self) -> bool:
+        return self.rank == 0
+
+    def exchange(self, record: Optional[Sequence[int]] = None) -> List[int]:
+        """The chief sends ``record``; a follower passes nothing and gets
+        the chief's. Blocks a follower until the chief sends."""
+        if self._group is None:
+            return [int(v) for v in record]
+        head = torch.zeros(self._HEAD, dtype=torch.int64)
+        if self.is_chief:
+            values = [int(v) for v in record]
+            head[0] = len(values)
+            first = values[:self._HEAD - 1]
+            head[1:1 + len(first)] = torch.tensor(first, dtype=torch.int64)
+        dist.broadcast(head, src=0, group=self._group)
+        n = int(head[0])
+        if n <= self._HEAD - 1:
+            return head[1:1 + n].tolist()
+        rest = torch.zeros(n - (self._HEAD - 1), dtype=torch.int64)
+        if self.is_chief:
+            rest[:] = torch.tensor(values[self._HEAD - 1:], dtype=torch.int64)
+        dist.broadcast(rest, src=0, group=self._group)
+        return head[1:].tolist() + rest.tolist()
+
+    def agree(self, ok: bool) -> bool:
+        """True when every rank says ``ok``."""
+        if self._group is None:
+            return bool(ok)
+        flag = torch.tensor([1 if ok else 0], dtype=torch.int64)
+        dist.all_reduce(flag, op=dist.ReduceOp.MIN, group=self._group)
+        return bool(flag.item())
+
+
+class ChiefLed:
+    """The follower machinery one batcher or scheduler keeps for chief-led
+    dispatch, from its bind on: the submission ordinals that name its
+    requests (counted before the protocol engages, so the ranks agree on
+    them whenever it does), the chief's decisions about requests a
+    follower has not received yet, and the :class:`ChiefLink` once
+    engaged. The owner supplies its records' encoding and how it applies
+    one; ``unit`` ("request", "stream") names its requests in errors and
+    ``crash_error(ordinals)`` is what the chief's crash record raises on
+    a follower."""
+
+    def __init__(self, unit: str, crash_error: Callable[[List[int]], BaseException]) -> None:
+        self.unit = unit
+        self._crash_error = crash_error
+        self.link: Optional[ChiefLink] = None
+        self.next_ordinal = 0
+        self._decided: Dict[int, BaseException] = {}
+
+    def engage(self, refused: Sequence[str] = ()) -> bool:
+        """Make the link (every rank at the same point) unless it is made;
+        returns whether this call made it. ``refused`` names the
+        submit-time policies in force (shedding, the overload guard):
+        they decide by one rank's queue, so they raise instead."""
+        if self.link is not None:
+            return False
+        if refused:
+            raise ValueError(
+                f"{' and '.join(refused)} decide at submit by one rank's queue, so under "
+                "chief-led dispatch (a collective engine with a clock-driven mode) the "
+                f"ranks' {self.unit}s would diverge; serve without them.")
+        self.link = ChiefLink()
+        return True
+
+    def mint(self, item) -> Optional[BaseException]:
+        """Give ``item`` the next ordinal (``item.ordinal``); returns the
+        chief's decision about it when that came first (a follower fails
+        it on arrival), else None."""
+        item.ordinal = self.next_ordinal
+        self.next_ordinal += 1
+        return self._decided.pop(item.ordinal, None)
+
+    def decide(self, ordinal: int, error: BaseException) -> None:
+        """Fail request ``ordinal`` with ``error`` when it arrives (the
+        first decision holds)."""
+        self._decided.setdefault(ordinal, error)
+
+    def lost_error(self, what: str, when: str) -> "ChiefLedError":
+        """The error of a dispatch a follower could not follow: it had not
+        received ``what`` by the bounded wait after the chief's ``when``."""
+        return ChiefLedError(
+            f"chief-led dispatch: rank {self.link.rank} had not received {what} within "
+            f"{FOLLOWER_WAIT_S:.0f} s of the chief's {when}; every rank must submit the "
+            f"same {self.unit}s in the same order.")
+
+    @staticmethod
+    def wait(cv, ready: Callable[[], bool], t_end: float) -> bool:
+        """Wait on ``cv`` (held by the caller) until ``ready()`` or the
+        clock passes ``t_end`` (see :data:`FOLLOWER_WAIT_S`); returns
+        ``ready()``."""
+        while not ready():
+            remaining = t_end - time.perf_counter()
+            if remaining <= 0:
+                return False
+            cv.wait(min(remaining, 0.05))
+        return True
+
+    def follow(self, apply: Callable[[List[int]], None], end: int) -> None:
+        """A follower: ``apply`` the chief's records as they come, until
+        its ``end`` record (:data:`RECORD_STOP` for a worker thread,
+        :data:`RECORD_END` for a synchronous entry point). The chief's
+        crash record raises ``crash_error`` with the ordinals it failed."""
+        while True:
+            record = self.link.exchange()
+            if record[0] == end:
+                return
+            if record[0] == RECORD_CRASH:
+                raise self._crash_error(record[1:])
+            apply(record)
+
+    def send_crash(self, ordinals: Iterable[int]) -> None:
+        """The chief's side of a crash: the followers fail ``ordinals``."""
+        try:
+            self.link.exchange([RECORD_CRASH, *ordinals])
+        except Exception:
+            logger.warning("chief-led crash record not sent", exc_info=True)
+
+    def crashed(self, error, present: Iterable[int]) -> Set[int]:
+        """A follower's side of the chief's crash ``error``: the ordinals it
+        names; of those, the ones not ``present`` fail with it on
+        arrival."""
+        named = set(error.ordinals)
+        for ordinal in named - set(present):
+            self.decide(ordinal, error)
+        return named
+
+
+def broadcast_from_chief(value: Optional[int]) -> Optional[int]:
+    """Rank 0's ``value`` (an int or None) on every rank of the group, as
+    it is without one; a collective of the default group."""
+    if not is_distributed_initialized():
+        return value
+    box = [value]
+    device = (torch.device("cuda", torch.cuda.current_device())
+              if dist.get_backend() == "nccl" else None)
+    dist.broadcast_object_list(box, src=0, device=device)
+    return box[0]
 
 
 def shutdown_distributed() -> None:

@@ -19,11 +19,24 @@ slices come back out of ONE ``.cpu()`` readback per dispatch.
 queue until ``flush()`` or ``result()``. Async mode adds one worker that
 dispatches when the largest bucket fills or the oldest request has
 waited ``max_delay_ms``. Inference is row-independent, so a request's
-result does not depend on how it was coalesced or split. In front of
-an engine whose partitioner spans several ranks every rank runs its own
-batcher before a collective engine, so only the synchronous mode without deadlines is
-allowed (the async worker and deadlines decide by each rank's clock and
-raise ``ValueError``).
+result does not depend on how it was coalesced or split.
+
+**Chief-led dispatch.** In front of an engine whose partitioner spans
+several ranks every rank runs its own batcher, and each dispatch is a
+collective. The synchronous mode without deadlines plans the same
+dispatches on every rank by itself. The async worker, deadlines and a
+followed checkpoint watcher (``follow``) would decide by each rank's
+clock, so there rank 0 decides (``parallel.distributed.ChiefLink``):
+before each dispatch its worker (or its ``flush()``) broadcasts one
+record, the requests it expired since the last one and the plan (each
+request's submission ordinal and row slice, the bucket and the sequence
+bucket), and the step a watched swap applies at; the other ranks apply
+it, never consulting their own clock. A deadline therefore expires a
+request at the chief's next dispatch decision after it, on every rank
+alike, and a follower's ``result()`` waits for that decision. Every rank
+must submit the same requests in the same order. Shedding and the
+overload guard decide at submit by one rank's queue and are refused
+there. At world size 1 nothing of this runs.
 
 ``FaultPlan.serving_worker_crash`` crashes the async worker at the top
 of an iteration (the chaos seam of the crash path above).
@@ -62,7 +75,8 @@ from zookeeper_tpu_torch.core import Field, component
 from zookeeper_tpu_torch.observability import recorder as _recorder
 from zookeeper_tpu_torch.observability import trace as _trace
 from zookeeper_tpu_torch.observability.requests import RequestLog, next_rid
-from zookeeper_tpu_torch.parallel.distributed import refuse_clock_driven
+from zookeeper_tpu_torch.parallel import distributed
+from zookeeper_tpu_torch.parallel.distributed import ChiefLedError
 
 logger = logging.getLogger(__name__)
 
@@ -95,6 +109,16 @@ def outcome_of(error: Optional[BaseException]) -> str:
     return "error"
 
 
+class _ChiefCrashed(WorkerCrashedError):
+    """Under chief-led dispatch a follower's worker (or decode loop) ends
+    as the chief's did: ``ordinals`` are the requests the chief failed."""
+
+    def __init__(self, ordinals) -> None:
+        super().__init__(f"the chief rank's worker crashed; requests {list(ordinals)} "
+                         "failed there")
+        self.ordinals = list(ordinals)
+
+
 class PendingResult:
     """Handle for one submitted request; ``result()`` yields its
     ``[n, ...]`` output rows as a numpy array. ``rid`` is the request id
@@ -115,6 +139,10 @@ class PendingResult:
         self.rid = rid
         self._t_dispatch_ns: Optional[int] = None
         self._bucket: Optional[int] = None
+        # The submission ordinal (names the request in chief-led records)
+        # and the rows dispatched so far.
+        self.ordinal: Optional[int] = None
+        self._taken = 0
         # Completion can race between the worker, a crash handler and a
         # deadline expiry: the first transition wins.
         self._lock = threading.Lock()
@@ -168,19 +196,22 @@ class PendingResult:
 
     def result(self, timeout: Optional[float] = None) -> np.ndarray:
         """Block for the rows (async) or flush and return them (sync).
-        Never blocks past the request's deadline."""
+        Never blocks past the request's deadline; under chief-led
+        dispatch the chief's next decision after it expires the request,
+        on every rank."""
+        led = self._batcher._led.link is not None
         if not self._done:
             if self._event is None:
                 self._batcher.flush()
-                if not self._done and self.expired():
+                if not self._done and not led and self.expired():
                     self._expire()
             else:
                 wait_s = timeout
-                if self._deadline_at is not None:
+                if self._deadline_at is not None and not led:
                     remaining = self._deadline_at - time.perf_counter()
                     wait_s = remaining if timeout is None else min(timeout, remaining)
                 if not self._event.wait(None if wait_s is None else max(0.0, wait_s)):
-                    if self.expired():
+                    if not led and self.expired():
                         self._expire()
                     else:
                         raise TimeoutError(
@@ -221,10 +252,6 @@ class MicroBatcher:
                 "shed_above_rows and default_deadline_ms must be >= 0 "
                 "(0 disables)."
             )
-        if not self.synchronous:
-            refuse_clock_driven(engine, "MicroBatcher(synchronous=False)")
-        if self.default_deadline_ms > 0:
-            refuse_clock_driven(engine, "MicroBatcher.default_deadline_ms")
         object.__setattr__(self, "_engine", engine)
         object.__setattr__(self, "_metrics", metrics)
         # Predicted-miss admission on top of shed_above_rows (None: off).
@@ -239,7 +266,163 @@ class MicroBatcher:
         object.__setattr__(self, "_inflight", None)
         object.__setattr__(self, "_force_drain", False)
         object.__setattr__(self, "_stop", threading.Event())
+        # Chief-led dispatch (see the module docstring): the ordinals and
+        # the link, the chief's expiries not yet sent, the followed watcher
+        # and the step it proposed.
+        object.__setattr__(self, "_led", distributed.ChiefLed("request", _ChiefCrashed))
+        object.__setattr__(self, "_expired_unsent", [])
+        object.__setattr__(self, "_watcher", None)
+        object.__setattr__(self, "_proposed_step", None)
+        if distributed.chief_led(engine) and (not self.synchronous
+                                              or self.default_deadline_ms > 0):
+            self._engage()
         return self
+
+    # -- chief-led dispatch ------------------------------------------------
+
+    def _engage(self) -> None:
+        """Make the link (every rank at the same point: bind, the first
+        request deadline in synchronous mode, ``follow``) and, in async
+        mode, start every rank's worker, so a chief's record always has a
+        receiver."""
+        refused = [name for name, on in (("shed_above_rows", self.shed_above_rows > 0),
+                                         ("the overload guard", self._guard is not None)) if on]
+        if self._led.engage(refused) and not self.synchronous:
+            with self._cv:
+                self._ensure_worker()
+
+    def follow(self, watcher) -> None:
+        """Serve a :class:`~zookeeper_tpu_torch.serving.engine.\
+CheckpointWatcher` under chief-led dispatch: the chief's watcher proposes
+        each new step, and every rank loads it and swaps it in at the same
+        dispatch boundary (``watcher.apply_step``). Every rank calls it."""
+        self._require_bound()
+        self._engage()
+        object.__setattr__(self, "_watcher", watcher)
+        watcher._follow(self, propose=self._led.link.is_chief)
+
+    def _propose_step(self, step: int) -> None:
+        """The chief's watcher found ``step``: sent with the next record
+        (async mode wakes the worker for it)."""
+        with self._cv:
+            object.__setattr__(self, "_proposed_step", int(step))
+            self._cv.notify_all()
+
+    def _lead(self, plan) -> list:
+        """The chief's side of one dispatch: send the record (expiries,
+        plan, swap step), agree, swap. Returns the plan to run (empty when
+        a follower lacked one of its requests: then it failed
+        everywhere)."""
+        with self._cv:
+            expired, swap = list(self._expired_unsent), self._proposed_step
+            self._expired_unsent.clear()
+            object.__setattr__(self, "_proposed_step", None)
+        bucket, seq_bucket = self._buckets(plan)
+        record = [distributed.RECORD_STEP, len(expired), *expired, len(plan)]
+        for req, part in plan:
+            record += [req.ordinal, req._taken - part.shape[0], req._taken]
+        record += [bucket, seq_bucket, -1 if swap is None else swap]
+        self._led.link.exchange(record)
+        return self._settle(plan, True, swap)
+
+    def _follow_record(self, record) -> list:
+        """A follower's side of one dispatch: apply the chief's expiries,
+        take the plan's rows off its own queue (waiting a bounded time for
+        requests it has not received), agree, swap. Returns the plan to
+        run."""
+        it = iter(record[1:])
+        expired = [next(it) for _ in range(next(it))]
+        entries = [(next(it), next(it), next(it)) for _ in range(next(it))]
+        bucket, seq_bucket, swap = next(it), next(it), next(it)
+        plan, ok = [], True
+        with self._cv:
+            for ordinal in expired:
+                self._decide(ordinal, DeadlineExpiredError(
+                    "request deadline expired (the chief rank's decision)"))
+            t_end = time.perf_counter() + distributed.FOLLOWER_WAIT_S
+            for ordinal, lo, hi in entries:
+                ok = self._led.wait(self._cv, lambda: bool(
+                    self._queue and self._queue[0][0].ordinal >= ordinal), t_end)
+                if not ok:
+                    break
+                req, x, qlo, qhi = self._queue[0]
+                if req.ordinal != ordinal or qlo != lo or hi > qhi:
+                    ok = False
+                    break
+                plan.append((req, x[lo:hi]))
+                if hi == qhi:
+                    self._queue.pop(0)
+                else:
+                    self._queue[0] = (req, x, hi, qhi)
+                object.__setattr__(self, "_queue_rows", self._queue_rows - (hi - lo))
+            if ok:
+                ok = self._buckets(plan) == (bucket, seq_bucket)
+            if not ok:
+                missing = {o for o, _, _ in entries} - {r.ordinal for r, _ in plan}
+                for ordinal in missing:
+                    self._decide(ordinal, self._lost_error(ordinal))
+        return self._settle(plan, ok, None if swap < 0 else swap)
+
+    def _buckets(self, plan) -> tuple:
+        """The plan's batch bucket and sequence bucket (-1: none; 0, -1 for
+        an empty plan), as the record carries them."""
+        rows = sum(part.shape[0] for _, part in plan)
+        if not rows:
+            return 0, -1
+        seq = -1
+        if getattr(self._engine, "seq_buckets", ()):
+            seq = self._engine._seq_bucket_for(int(plan[0][1].shape[1]))
+        return self._engine.bucket_for(rows), seq
+
+    def _lost_error(self, ordinal: int) -> ChiefLedError:
+        return self._led.lost_error(f"request #{ordinal}", "dispatch naming it")
+
+    def _settle(self, plan, ok: bool, swap: Optional[int]) -> list:
+        """Both sides: agree on the plan (a failed one fails its requests
+        on every rank), then apply a proposed swap, so it lands at the
+        same boundary everywhere."""
+        link = self._led.link
+        if not link.agree(ok):
+            for req, _ in plan:
+                req._fail(self._lost_error(req.ordinal))
+            plan = []
+        if swap is not None:
+            if self._watcher is not None:
+                self._watcher.apply_step(swap, link)
+            else:
+                link.agree(False)  # a rank that follows no watcher: nobody swaps
+        return plan
+
+    def _decide(self, ordinal: int, error: BaseException) -> None:
+        """Fail request ``ordinal`` with ``error`` on a follower: now, if it
+        is queued, else when it arrives. Caller holds ``_cv``."""
+        for i, (req, _, lo, hi) in enumerate(self._queue):
+            if req.ordinal == ordinal:
+                del self._queue[i]
+                object.__setattr__(self, "_queue_rows", self._queue_rows - (hi - lo))
+                self._fail_decided(req, error)
+                return
+        self._led.decide(ordinal, error)
+
+    def _fail_decided(self, req: "PendingResult", error: BaseException) -> None:
+        if isinstance(error, DeadlineExpiredError):
+            req._expire()
+        else:
+            req._fail(error)
+
+    def _apply_record(self, record) -> None:
+        """A follower's async worker applies one of the chief's records."""
+        plan = self._follow_record(record)
+        with self._cv:
+            object.__setattr__(self, "_inflight", plan)
+        try:
+            self._run_plan(plan)
+        except Exception:
+            pass  # the requests carry the error; the worker survives
+        finally:
+            with self._cv:
+                object.__setattr__(self, "_inflight", None)
+                self._cv.notify_all()
 
     def _require_bound(self) -> None:
         if getattr(self, "_engine", None) is None:
@@ -351,6 +534,11 @@ class MicroBatcher:
         )
 
     def _enqueue(self, req: PendingResult, x: np.ndarray, n: int) -> None:
+        # The ordinal names the request in the chief's records.
+        decided = self._led.mint(req)
+        if decided is not None:
+            self._fail_decided(req, decided)
+            return
         self._queue.append((req, x, 0, n))
         object.__setattr__(self, "_queue_rows", self._queue_rows + n)
         if self._metrics is not None:
@@ -368,8 +556,8 @@ class MicroBatcher:
         if x.ndim < 1 or x.shape[0] < 1:
             raise ValueError(f"request must have at least one row, got shape {x.shape}.")
         n = int(x.shape[0])
-        if deadline_ms is not None:
-            refuse_clock_driven(self._engine, "a request deadline (deadline_ms)")
+        if deadline_ms is not None and distributed.chief_led(self._engine):
+            self._engage()  # every rank submits alike, so every rank engages here
         deadline_at = self._deadline_at(deadline_ms)
         # Minted before the shed check: every outcome has a rid.
         rid = next_rid()
@@ -411,6 +599,8 @@ class MicroBatcher:
             if req.expired(now):
                 dropped += hi - lo
                 req._expire()
+                if self._led.link is not None:
+                    self._expired_unsent.append(req.ordinal)
             else:
                 kept.append(entry)
         self._queue[:] = kept
@@ -427,6 +617,7 @@ class MicroBatcher:
             req, x, lo, hi = self._queue[0]
             take = min(room - taken, hi - lo)
             plan.append((req, x[lo : lo + take]))
+            req._taken = lo + take
             taken += take
             if lo + take == hi:
                 self._queue.pop(0)
@@ -489,6 +680,8 @@ class MicroBatcher:
         mode: wait until the worker drained the queue)."""
         self._require_bound()
         if self.synchronous:
+            if self._led.link is not None:
+                return self._flush_led()
             while self._queue:
                 plan = self._take_plan()
                 if plan:
@@ -505,6 +698,36 @@ class MicroBatcher:
                     self._cv.wait(0.01)
             finally:
                 object.__setattr__(self, "_force_drain", False)
+
+    def _flush_led(self) -> None:
+        """Synchronous ``flush()`` under chief-led dispatch: the chief plans
+        and sends a record per dispatch, then an end record; a follower
+        applies records until that end. Every rank flushes at the same
+        point."""
+        link = self._led.link
+        if not link.is_chief:
+            # Records until the end, even past a failed dispatch (the chief
+            # sends its end record after one), then that failure.
+            failures = []
+
+            def apply(record):
+                try:
+                    self._run_plan(self._follow_record(record))
+                except Exception as e:
+                    failures.append(e)
+
+            self._led.follow(apply, distributed.RECORD_END)
+            if failures:
+                raise failures[0]
+            return
+        try:
+            while True:
+                plan = self._take_plan() if self._queue else []
+                if not plan and not self._expired_unsent and self._proposed_step is None:
+                    break
+                self._run_plan(self._lead(plan))
+        finally:
+            link.exchange([distributed.RECORD_END])
 
     # -- async worker ----------------------------------------------------
 
@@ -526,11 +749,16 @@ class MicroBatcher:
     def _worker_body(self) -> None:
         from zookeeper_tpu_torch.resilience import faults
 
+        link = self._led.link
+        if link is not None and not link.is_chief:
+            return self._led.follow(self._apply_record, distributed.RECORD_STOP)
         max_batch = self._engine.max_batch
         delay_s = self.max_delay_ms / 1e3
         while not self._stop.is_set():
             with self._cv:
-                while not self._queue and not self._stop.is_set():
+                # The chief also wakes for a proposed swap with nothing queued.
+                while not self._queue and not self._stop.is_set() and (
+                        link is None or self._proposed_step is None):
                     self._cv.wait(0.05)
                 if self._stop.is_set():
                     break
@@ -539,9 +767,10 @@ class MicroBatcher:
                     raise WorkerCrashedError(
                         "injected worker crash (FaultPlan.serving_worker_crash)"
                     )
-                oldest = self._queue[0][0]._t_submit
+                oldest = self._queue[0][0]._t_submit if self._queue else 0.0
                 while (
-                    self._queue_rows < max_batch
+                    self._queue
+                    and self._queue_rows < max_batch
                     and not self._stop.is_set()
                     and not self._force_drain
                 ):
@@ -551,6 +780,8 @@ class MicroBatcher:
                     self._cv.wait(remaining)
                 plan = self._take_plan()
                 object.__setattr__(self, "_inflight", plan)
+            if link is not None:
+                plan = self._lead(plan)  # a broken link crashes the worker
             try:
                 self._run_plan(plan)
             except Exception:
@@ -559,13 +790,27 @@ class MicroBatcher:
                 with self._cv:
                     object.__setattr__(self, "_inflight", None)
                     self._cv.notify_all()
+        if link is not None:
+            link.exchange([distributed.RECORD_STOP])  # the followers' workers end
 
     def _on_worker_crash(self, error: BaseException) -> None:
         with self._cv:
             failed = [req for req, _ in (self._inflight or [])]
             failed += [req for req, _, _, _ in self._queue]
-            del self._queue[:]
-            object.__setattr__(self, "_queue_rows", 0)
+            link = self._led.link
+            if isinstance(error, _ChiefCrashed):
+                # A follower fails what the chief failed: the rest of its
+                # queue stays, and what it has not received fails on arrival.
+                named = self._led.crashed(error, [req.ordinal for req in failed])
+                failed = [req for req in failed if req.ordinal in named]
+                kept = [e for e in self._queue if e[0].ordinal not in named]
+                self._queue[:] = kept
+                object.__setattr__(self, "_queue_rows", sum(hi - lo for _, _, lo, hi in kept))
+            elif link is not None and link.is_chief:
+                self._led.send_crash([req.ordinal for req in failed])
+            if not isinstance(error, _ChiefCrashed):
+                del self._queue[:]
+                object.__setattr__(self, "_queue_rows", 0)
             object.__setattr__(self, "_inflight", None)
             object.__setattr__(self, "_worker", None)
             _trace.event("worker_crash", attrs={"error": type(error).__name__,

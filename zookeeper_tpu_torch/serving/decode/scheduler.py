@@ -37,10 +37,24 @@ it. In the paged layout an admission the pool cannot serve waits at the
 queue head for pages, or is shed when nothing is in flight to free any.
 ``synchronous=True`` (the default) is thread- and clock-free: the caller
 drives with ``drain()``/``result()``; otherwise one ``zk-decode-
-scheduler`` daemon thread runs the loop. In front of an engine whose
-partitioner spans several ranks each rank runs its own scheduler
-before a collective engine, so the threaded mode and deadlines, which decide by each rank's
-clock, raise ``ValueError``.
+scheduler`` daemon thread runs the loop.
+
+**Chief-led dispatch.** In front of an engine whose partitioner spans
+several ranks each rank runs its own scheduler, and every dispatch is a
+collective. The synchronous mode without deadlines keeps the ranks in
+step by itself; the threaded mode and deadlines would decide by each
+rank's clock, so there rank 0 leads (``parallel.distributed.
+ChiefLink``): each iteration starts with its record, the admission
+cutoff (the streams submitted so far, by submission ordinal, which may
+be admitted), the queued and active streams it expired, and the staged
+swaps it has seen. Every rank applies the record, then runs the same
+deterministic iteration: the same admissions into the same slots, the
+same retirements, the swap at the same boundary. A follower never
+consults its own clock; one that lacks a stream below the cutoff after a
+bounded wait fails those streams on every rank (``ChiefLedError``).
+Every rank must submit the same streams, and stage the same swaps, in
+the same order. ``shed_above`` and the overload guard decide at submit
+by one rank's queue and are refused there.
 
 Weight swaps go through :meth:`request_swap`, which keeps one weight
 version per sequence (a stream spans many dispatches, so the engine's
@@ -96,11 +110,12 @@ from zookeeper_tpu_torch.core import Field, component
 from zookeeper_tpu_torch.observability import recorder as _recorder
 from zookeeper_tpu_torch.observability import trace as _trace
 from zookeeper_tpu_torch.observability.requests import RequestLog, next_rid
-from zookeeper_tpu_torch.parallel.distributed import refuse_clock_driven
+from zookeeper_tpu_torch.parallel import distributed
 from zookeeper_tpu_torch.serving.batcher import (
     DeadlineExpiredError,
     RejectedError,
     WorkerCrashedError,
+    _ChiefCrashed,
     outcome_of,
 )
 
@@ -142,6 +157,8 @@ class DecodeStream:
         # The serving role that last dispatched it ("" until admission).
         self._role = ""
         self._cond = threading.Condition()
+        # The submission ordinal: names the stream in chief-led records.
+        self.ordinal: Optional[int] = None
 
     @property
     def done(self) -> bool:
@@ -263,7 +280,8 @@ class DecodeScheduler:
     #: squeezes prefill harder, down to one token an iteration.
     token_budget: int = Field(0)
 
-    def bind(self, engine, metrics=None, speculative=None, guard=None) -> "DecodeScheduler":
+    def bind(self, engine, metrics=None, speculative=None, guard=None,
+             request_log: Optional[RequestLog] = None) -> "DecodeScheduler":
         if self.max_new_tokens < 1:
             raise ValueError(
                 f"max_new_tokens={self.max_new_tokens} must be >= 1 (prefill "
@@ -288,16 +306,12 @@ class DecodeScheduler:
                     "the speculative binding mirrors another teacher engine; bind the "
                     "scheduler and the speculative config to the same DecodeEngine."
                 )
-        if not self.synchronous:
-            refuse_clock_driven(engine, "DecodeScheduler(synchronous=False)")
-        if self.default_deadline_ms > 0:
-            refuse_clock_driven(engine, "DecodeScheduler.default_deadline_ms")
         engine._require_bound()
         n = int(engine.slots)
         set_ = lambda name, value: object.__setattr__(self, name, value)  # noqa: E731
         set_("_engine", engine)
         set_("_metrics", metrics)
-        set_("_request_log", RequestLog("decode"))
+        set_("_request_log", request_log if request_log is not None else RequestLog("decode"))
         set_("_queue", deque())
         set_("_slot_stream", [None] * n)
         set_("_slot_lengths", np.zeros(n, np.int64))
@@ -325,7 +339,126 @@ class DecodeScheduler:
         set_("_worker", None)
         set_("_stop", threading.Event())
         set_("_swap_pending", None)
+        # Chief-led dispatch (see the module docstring): the ordinals and
+        # the link, the staged swaps and how many of them records made
+        # pending.
+        set_("_led", distributed.ChiefLed("stream", _ChiefCrashed))
+        set_("_swaps_staged", [])
+        set_("_swaps_sent", 0)
+        if distributed.chief_led(engine) and (not self.synchronous
+                                              or self.default_deadline_ms > 0):
+            self._engage()
         return self
+
+    # -- chief-led dispatch ------------------------------------------------
+
+    def _engage(self) -> None:
+        """Make the link (every rank at the same point) and, threaded,
+        start every rank's loop, so a chief's record always has a
+        receiver."""
+        refused = [name for name, on in (("shed_above", self.shed_above > 0),
+                                         ("the overload guard", self._guard is not None)) if on]
+        if self._led.engage(refused) and not self.synchronous:
+            self._ensure_worker()
+
+    def _enqueue(self, stream: DecodeStream) -> None:
+        """Append ``stream`` with its ordinal (a follower fails one the
+        chief already decided). Caller holds ``_lock``."""
+        decided = self._led.mint(stream)
+        if decided is not None:
+            self._fail_decided(stream, decided)
+        else:
+            self._queue.append(stream)
+
+    def _fail_decided(self, stream: DecodeStream, error: BaseException) -> None:
+        if isinstance(error, DeadlineExpiredError):
+            if stream._expire() and self._metrics is not None:
+                self._metrics.record_deadline_expired()
+        else:
+            stream._fail(error)
+
+    def _iteration_record(self, record: Optional[list]) -> int:
+        """The record that opens an iteration: the chief makes and sends
+        it (``record`` None), a follower passes the one it received and
+        waits a bounded time for what it names. Both agree, then apply it.
+        Returns the admission cutoff. Caller holds ``_step_lock``."""
+        led = self._led
+        if led.link.is_chief:
+            with self._lock:
+                now = time.perf_counter()
+                queued = [s.ordinal for s in self._queue if s.expired(now)]
+                active = [s.ordinal for s in self._slot_stream
+                          if s is not None and s.expired(now)]
+                record = [distributed.RECORD_STEP, led.next_ordinal, len(self._swaps_staged),
+                          len(queued), *queued, len(active), *active]
+            led.link.exchange(record)
+        it = iter(record[1:])
+        cutoff, swaps = next(it), next(it)
+        queued = [next(it) for _ in range(next(it))]
+        active = set(next(it) for _ in range(next(it)))
+        t_end = time.perf_counter() + distributed.FOLLOWER_WAIT_S
+        with self._cv:
+            have = led.wait(self._cv, lambda: led.next_ordinal >= cutoff
+                            and len(self._swaps_staged) >= swaps, t_end)
+        ok = led.link.agree(have)
+        with self._lock:
+            if not ok:
+                error = led.lost_error(f"every stream below #{cutoff}",
+                                       "iteration admitting them")
+                kept = deque()
+                for stream in self._queue:
+                    if stream.ordinal < cutoff:
+                        stream._fail(error)
+                    else:
+                        kept.append(stream)
+                object.__setattr__(self, "_queue", kept)
+                for ordinal in range(led.next_ordinal, cutoff):
+                    led.decide(ordinal, error)
+            for ordinal in queued:
+                stream = next((s for s in self._queue if s.ordinal == ordinal), None)
+                if stream is None:
+                    led.decide(ordinal, DeadlineExpiredError(
+                        "generation deadline expired (the chief rank's decision)"))
+                    continue
+                self._queue.remove(stream)
+                self._fail_decided(stream, DeadlineExpiredError(
+                    "generation deadline expired (the chief rank's decision)"))
+            for slot, stream in enumerate(self._slot_stream):
+                if stream is not None and stream.ordinal in active:
+                    self._fail_decided(stream, DeadlineExpiredError(
+                        "generation deadline expired (the chief rank's decision)"))
+                    self._free_slot(slot)
+            if ok and swaps > self._swaps_sent:
+                object.__setattr__(self, "_swap_pending", self._swaps_staged[swaps - 1])
+                object.__setattr__(self, "_swaps_sent", swaps)
+        return cutoff
+
+    def _run_led(self, pump_once: bool = False, until=None) -> None:
+        """A synchronous entry point under chief-led dispatch: the chief
+        runs its iterations (until ``until()`` or the work runs out; one
+        for ``pump_once``) and then sends an end record; a follower runs
+        the chief's records until that end. A crash on the chief reaches
+        the followers as its crash record. Every rank calls the same
+        entry points in the same order."""
+        link = self._led.link
+        if not link.is_chief:
+            try:
+                self._led.follow(self._pump, distributed.RECORD_END)
+            except _ChiefCrashed as error:
+                self._on_crash(error)
+                raise
+            return
+        # A crash inside sends the crash record instead of the end record.
+        while self._has_work() or self._swaps_unsent():
+            if until is not None and until():
+                break
+            self._pump()
+            if pump_once:
+                break
+        link.exchange([distributed.RECORD_END])
+
+    def _swaps_unsent(self) -> bool:
+        return self._led.link is not None and len(self._swaps_staged) > self._swaps_sent
 
     def _require_bound(self) -> None:
         if getattr(self, "_engine", None) is None:
@@ -402,8 +535,8 @@ class DecodeScheduler:
                 f"prompt of {prompt.shape[0]} tokens leaves no room to generate "
                 f"within token_limit={engine.token_limit}."
             )
-        if deadline_ms is not None:
-            refuse_clock_driven(self._engine, "a request deadline (deadline_ms)")
+        if deadline_ms is not None and distributed.chief_led(engine):
+            self._engage()  # every rank submits alike, so every rank engages here
         new = int(max_new_tokens if max_new_tokens is not None else self.max_new_tokens)
         if new < 1:
             raise ValueError(f"max_new_tokens={new} must be >= 1.")
@@ -429,7 +562,7 @@ class DecodeScheduler:
             self._guard_check(stream, new)
             backpressure = len(self._queue) + 1 > self.max_queue
             if not backpressure:
-                self._queue.append(stream)
+                self._enqueue(stream)
                 if _trace.enabled():
                     _trace.event("decode_request_enqueue", rid=rid, attrs={
                         "prompt_tokens": int(prompt.shape[0]),
@@ -438,12 +571,12 @@ class DecodeScheduler:
             if self.synchronous:
                 self.drain()
                 with self._lock:
-                    self._queue.append(stream)
+                    self._enqueue(stream)
             else:
                 while True:
                     with self._lock:
                         if len(self._queue) + 1 <= self.max_queue:
-                            self._queue.append(stream)
+                            self._enqueue(stream)
                             break
                     if self._stop.is_set():
                         raise RuntimeError(
@@ -454,6 +587,9 @@ class DecodeScheduler:
                         self._cv.wait(0.01)
         if not self.synchronous:
             self._ensure_worker()
+            with self._cv:
+                self._cv.notify_all()
+        elif self._led.link is not None:
             with self._cv:
                 self._cv.notify_all()
         return stream
@@ -513,7 +649,15 @@ class DecodeScheduler:
         self._require_bound()
         self._engine.check_swap(params, model_state)
         with self._lock:
-            object.__setattr__(self, "_swap_pending", (params, model_state, step))
+            if self._led.link is not None:
+                # Staged: the chief's next record makes it pending on every
+                # rank at once.
+                self._swaps_staged.append((params, model_state, step))
+            else:
+                object.__setattr__(self, "_swap_pending", (params, model_state, step))
+        if self._led.link is not None:
+            with self._cv:
+                self._cv.notify_all()
         if not self.synchronous:
             self._ensure_worker()
             with self._cv:
@@ -521,7 +665,8 @@ class DecodeScheduler:
 
     @property
     def swap_pending(self) -> bool:
-        return getattr(self, "_swap_pending", None) is not None
+        return getattr(self, "_swap_pending", None) is not None or (
+            getattr(self, "_led", None) is not None and self._swaps_unsent())
 
     def _maybe_apply_swap(self) -> None:
         """Apply the pending swap once the slot array is empty. Caller
@@ -633,7 +778,7 @@ class DecodeScheduler:
                     self._metrics.record_deadline_expired()
                 self._free_slot(slot)
 
-    def _admit(self) -> None:
+    def _admit(self, cutoff: Optional[int] = None) -> None:
         """Refill free slots from the queue head, one prefill dispatch per
         admitted group (a cold ``prefill`` and a warm ``prefill_warm``
         when both kinds are in it; under chunked prefill none: the
@@ -642,9 +787,13 @@ class DecodeScheduler:
         into the slot array first, so ``close()`` and a crash see
         them)."""
         engine = self._engine
+        # Under chief-led dispatch the record's cutoff bounds admission and
+        # only records expire streams.
+        below = (lambda: True) if cutoff is None else (
+            lambda: self._queue[0].ordinal < cutoff)
         while True:
             with self._lock:
-                if self._swap_pending is not None or not self._queue:
+                if self._swap_pending is not None or not self._queue or not below():
                     return  # a pending swap drains the slot array first
                 free = [i for i, s in enumerate(self._slot_stream) if s is None]
                 if not free:
@@ -652,9 +801,9 @@ class DecodeScheduler:
                 group: List[DecodeStream] = []
                 slots: List[int] = []
                 cap = min(len(free), max(engine._prefill_buckets))
-                while self._queue and len(group) < cap:
+                while self._queue and len(group) < cap and below():
                     stream = self._queue.popleft()
-                    if stream.expired():
+                    if cutoff is None and stream.expired():
                         if stream._expire() and self._metrics is not None:
                             self._metrics.record_deadline_expired()
                         continue
@@ -1063,25 +1212,34 @@ class DecodeScheduler:
         if pool is not None:
             self._metrics.record_pool(pool.free_pages, pool.prefix_hit_rate)
 
-    def _step_once(self) -> bool:
-        """One iteration: the swap boundary, deadline sweeps, admit
-        (prefill), decode, then prompt chunks under what decode left of
-        the budget, and the swap boundary again (the slot array may have
-        drained). Returns whether work remains."""
+    def _step_once(self, record: Optional[list] = None) -> bool:
+        """One iteration: the swap boundary, deadline sweeps (under
+        chief-led dispatch: the record that opens the iteration, a
+        follower's ``record``), admit (prefill), decode, then prompt chunks
+        under what decode left of the budget, and the swap boundary again
+        (the slot array may have drained). Returns whether work remains."""
         from zookeeper_tpu_torch.resilience import faults
 
         with self._step_lock:
+            link = self._led.link
+            if link is None or link.is_chief:
+                with self._lock:
+                    plan = faults.active()
+                    if plan is not None and plan.take_decode_worker_crash():
+                        raise WorkerCrashedError(
+                            "injected decode scheduler crash (FaultPlan.decode_worker_crash)"
+                        )
+            cutoff = self._iteration_record(record) if link is not None else None
             with self._lock:
-                plan = faults.active()
-                if plan is not None and plan.take_decode_worker_crash():
-                    raise WorkerCrashedError(
-                        "injected decode scheduler crash (FaultPlan.decode_worker_crash)"
-                    )
                 self._maybe_apply_swap()
                 self._maybe_apply_brownout()
-                self._expire_queued()
-                self._expire_active()
-            self._admit()
+                if link is None:
+                    self._expire_queued()
+                    self._expire_active()
+            if cutoff is None:
+                self._admit()
+            else:
+                self._admit(cutoff)
             spent = self._decode()
             self._prefill_chunks(spent)
             with self._lock:
@@ -1092,19 +1250,32 @@ class DecodeScheduler:
             self._cv.notify_all()
         return self._has_work()
 
-    def _pump(self) -> bool:
+    def _pump(self, record: Optional[list] = None) -> bool:
         """``_step_once`` with the crash contract: any failure of the loop
         fails every queued and in-flight stream, then re-raises."""
         try:
-            return self._step_once()
+            return self._step_once(record)
         except BaseException as e:
             self._on_crash(e)
             raise
 
     def _on_crash(self, error: BaseException) -> None:
         with self._lock:
-            streams = [s for s in self._slot_stream if s is not None] + list(self._queue)
-            self._queue.clear()
+            link = self._led.link
+            active = [s for s in self._slot_stream if s is not None]
+            if isinstance(error, _ChiefCrashed):
+                # A follower fails what the chief failed: the rest of its
+                # queue stays, and what it has not received fails on arrival.
+                named = self._led.crashed(
+                    error, [s.ordinal for s in active + list(self._queue)])
+                streams = active + [s for s in self._queue if s.ordinal in named]
+                object.__setattr__(self, "_queue",
+                                   deque(s for s in self._queue if s.ordinal not in named))
+            else:
+                streams = active + list(self._queue)
+                self._queue.clear()
+                if link is not None and link.is_chief:
+                    self._led.send_crash([s.ordinal for s in streams])
             for i in range(len(self._slot_stream)):
                 self._slot_stream[i] = None
                 self._engine.release_slot(i)
@@ -1139,8 +1310,11 @@ class DecodeScheduler:
         array are empty (sync), or wait for the worker to (async)."""
         self._require_bound()
         if self.synchronous:
-            while self._has_work():
-                self._pump()
+            if self._led.link is not None:
+                self._run_led()
+            else:
+                while self._has_work():
+                    self._pump()
             with self._lock:
                 self._maybe_apply_swap()
             return
@@ -1161,7 +1335,11 @@ class DecodeScheduler:
     def _drive(self, stream: DecodeStream, timeout: Optional[float]) -> None:
         """Block (or drive) until ``stream`` completes, never past its
         deadline."""
+        led = self._led.link is not None
         if self.synchronous:
+            if led:
+                self._run_led(until=lambda: stream._done)
+                return
             while not stream._done and self._has_work():
                 self._pump()
             if not stream._done and stream.expired():
@@ -1170,7 +1348,8 @@ class DecodeScheduler:
         self._ensure_worker()
         with self._cv:
             self._cv.notify_all()
-        deadline = stream._deadline_at
+        # Chief-led: the chief's records expire streams, never this clock.
+        deadline = None if led else stream._deadline_at
         t_end = time.perf_counter() + timeout if timeout is not None else None
         with stream._cond:
             while not stream._done:
@@ -1182,7 +1361,7 @@ class DecodeScheduler:
                 waits = [0.05] + [t - now for t in (deadline, t_end) if t is not None]
                 stream._cond.wait(max(0.0, min(waits)))
         if not stream._done:
-            if stream.expired():
+            if not led and stream.expired():
                 self._expire_stream(stream)
             else:
                 raise TimeoutError(
@@ -1192,8 +1371,12 @@ class DecodeScheduler:
 
     def _advance(self, stream: DecodeStream) -> None:
         """One increment of progress for an iterating consumer."""
+        led = self._led.link is not None
         if self.synchronous:
-            if not stream._done and self._has_work():
+            if led:
+                if not stream._done:
+                    self._run_led(pump_once=True)
+            elif not stream._done and self._has_work():
                 self._pump()
             elif not stream._done and stream.expired():
                 self._expire_stream(stream)
@@ -1201,7 +1384,7 @@ class DecodeScheduler:
         with stream._cond:
             if not stream._done:
                 stream._cond.wait(0.05)
-        if not stream._done and stream.expired():
+        if not led and not stream._done and stream.expired():
             self._expire_stream(stream)
 
     def _ensure_worker(self) -> None:
@@ -1214,6 +1397,9 @@ class DecodeScheduler:
                 thread.start()
 
     def _worker_loop(self) -> None:
+        link = self._led.link
+        if link is not None and not link.is_chief:
+            return self._follower_loop()
         while not self._stop.is_set():
             if not self._has_work() and not self.swap_pending:
                 with self._cv:
@@ -1223,6 +1409,18 @@ class DecodeScheduler:
                 self._pump()
             except BaseException:
                 return  # streams already failed; the next submit restarts
+        if link is not None:
+            link.exchange([distributed.RECORD_STOP])  # the followers' loops end
+
+    def _follower_loop(self) -> None:
+        """A follower's threaded loop: run the chief's iterations as their
+        records come, until its stop record (or its crash record)."""
+        try:
+            self._led.follow(self._pump, distributed.RECORD_STOP)
+        except _ChiefCrashed as error:
+            self._on_crash(error)
+        except BaseException:
+            return  # streams already failed; the next submit restarts
 
     def close(self, drain: bool = False) -> None:
         """Stop the scheduler. ``drain=True`` serves everything first;

@@ -18,7 +18,9 @@ warms the engine on ``device`` under ``partitioner`` and binds the
 scheduler. Under ``torchrun`` (``runtime`` forms the group) every rank
 runs the same ``run()`` on the same seeded stream and holds its share of
 the weights and the KV cache (``DecodeEngine.bind(partitioner=...)``);
-only the chief prints::
+the threaded scheduler (``scheduler.synchronous=False``) and deadlines
+serve there chief-led (rank 0 decides each iteration, see
+``DecodeScheduler``); only the chief prints::
 
     python -m torch.distributed.run --nproc-per-node 2 \
         -m zookeeper_tpu_torch.serving.decode LMServingConfig ... \

@@ -41,8 +41,10 @@ token, "transfer" while parked, "decode"), and with tracing on the
 rid-tagged ``disagg_prefill_dispatch``, ``disagg_prefill_park``,
 ``page_transfer`` (the move's span) and ``disagg_decode_admit`` draw the
 handoff; a prefill-role crash is a ``disagg_prefill_role_crash`` event
-and a flight-recorder trigger. Not ported yet (ROADMAP.md): per-role
-``/statusz`` sections and a RequestLog per role.
+and a flight-recorder trigger. The summaries land in the scheduler's
+``RequestLog("disagg")`` (``bind(request_log=...)`` takes another), and
+``status()`` adds the ``prefill`` and ``transfer`` sections to the
+decode role's keys.
 """
 
 import time
@@ -54,6 +56,7 @@ import numpy as np
 from zookeeper_tpu_torch.core import component
 from zookeeper_tpu_torch.observability import recorder as _recorder
 from zookeeper_tpu_torch.observability import trace as _trace
+from zookeeper_tpu_torch.observability.requests import RequestLog
 from zookeeper_tpu_torch.serving.batcher import RejectedError, WorkerCrashedError
 from zookeeper_tpu_torch.serving.decode.scheduler import DecodeScheduler, DecodeStream
 from zookeeper_tpu_torch.serving.disagg.transfer import PageTransfer, PageTransferError
@@ -72,11 +75,13 @@ class DisaggScheduler(DecodeScheduler):
     :class:`DecodeScheduler` field applies."""
 
     def bind(self, prefill_engine, decode_engine, transfer: PageTransfer, metrics=None,
+             request_log: Optional[RequestLog] = None,
              speculative=None) -> "DisaggScheduler":
         """Bind both roles. The decode engine is the base's ``_engine``
         (slots, decode loop, capacity); the prefill engine gives lanes
         and the wide prefill; ``transfer`` must be bound to exactly this
-        (prefill, decode) pair."""
+        (prefill, decode) pair. ``request_log`` defaults to
+        ``RequestLog("disagg")``."""
         prefill_engine._require_bound()
         decode_engine._require_bound()
         if not prefill_engine.paged or not decode_engine.paged:
@@ -96,12 +101,20 @@ class DisaggScheduler(DecodeScheduler):
                 f"the decode role admits prompts up to {decode_engine.max_prompt} — "
                 "widen the prefill engine's seq_buckets."
             )
-        super().bind(decode_engine, metrics=metrics, speculative=speculative)
+        super().bind(decode_engine, metrics=metrics, speculative=speculative,
+                     request_log=request_log if request_log is not None
+                     else RequestLog("disagg"))
         object.__setattr__(self, "_prefill_engine", prefill_engine)
         object.__setattr__(self, "_transfer", transfer)
         object.__setattr__(self, "_lane_stream", [None] * int(prefill_engine.slots))
         object.__setattr__(self, "_parked", deque())
         return self
+
+    def _engage(self) -> None:
+        raise ValueError(
+            "chief-led dispatch of disaggregated serving is not ported (ROADMAP.md Queue 1 "
+            "item 4): serve it synchronously without deadlines, on one rank."
+        )
 
     @property
     def prefill_engine(self):
@@ -491,6 +504,8 @@ class DisaggScheduler(DecodeScheduler):
                 "lanes": int(pe.slots),
                 "busy_lanes": sum(1 for s in self._lane_stream if s is not None),
                 "parked_handoffs": len(self._parked),
+                "compiles": pe.compile_count,
+                "recompiles_detected": pe.recompiles_detected,
                 "kv_pool": pe.pool_status(),
             }
             out["transfer"] = self._transfer.status()

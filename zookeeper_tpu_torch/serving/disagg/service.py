@@ -21,6 +21,12 @@ already removes: a role configured with ``prefill_chunk_tokens`` runs
 monolithic prefill, with a warning. A group of several ranks raises: a
 role spans one device of one process in the port (ROADMAP.md).
 
+Observability adds three ``/statusz`` sections (and bundle sections) to
+``LMServingConfig``'s: ``prefill`` (the prefill role's lanes, parked
+handoffs, programs, recompiles, decode attention and pool), ``transfer``
+(``PageTransfer.status()``) and ``topology`` (the partitioner's
+``describe()``); the RequestLog is the scheduler's ``"disagg"`` one.
+
 CLI (the counterpart of ``examples/serve_lm.py --disagg``)::
 
     python -m zookeeper_tpu_torch.serving.decode DisaggServingConfig \\
@@ -120,6 +126,33 @@ class DisaggServingConfig(LMServingConfig):
                             metrics=self.metrics, speculative=self._resolve_speculative())
         self._start_observability()
         return self.engine, self.scheduler
+
+    def _prefill_status(self) -> Dict[str, Any]:
+        """The ``/statusz`` ``prefill`` section: the prefill role."""
+        pe = self.prefill_engine
+        sched = self.scheduler
+        return {
+            "lanes": int(pe.slots),
+            "parked_handoffs": sched.parked if hasattr(sched, "parked") else 0,
+            "compiles": pe.compile_count,
+            "recompiles_detected": pe.recompiles_detected,
+            "decode_attention": pe.decode_attention_flavor,
+            "kv_pool": pe.pool_status(),
+        }
+
+    def _topology_status(self) -> Dict[str, Any]:
+        """The ``/statusz`` ``topology`` section: the roles' devices."""
+        p = self.partitioner
+        return p.describe() if hasattr(p, "describe") else {}
+
+    def _status_providers(self):
+        """``LMServingConfig``'s sections plus ``prefill``, ``transfer``
+        and ``topology``."""
+        out = super()._status_providers()
+        out["prefill"] = self._prefill_status
+        out["transfer"] = self.transfer.status
+        out["topology"] = self._topology_status
+        return out
 
     def finish_report(self, result: Dict[str, Any]) -> Dict[str, Any]:
         """``LMServingConfig``'s line with ``role="disagg"``, the prefill

@@ -33,7 +33,8 @@ is served wholly by one weight version. :class:`CheckpointWatcher`
 loaded as a service's first load is (``load_inference_model``).
 
 **Programs and the ledger.** A ``(bucket, mesh)`` pair's first forward
-is its "program" (``observability.ledger``): it runs under forward hooks
+(``(bucket, sequence bucket, dtype, mesh)`` with sequence buckets) is
+its "program" (``observability.ledger``): it runs under forward hooks
 that count ``2*M*N*K`` for every conv and dense layer (packed, int8 or
 float alike), ends in a device synchronisation, and lands one
 ``serve_forward`` ledger row with the counted FLOPs, the bytes (weights,
@@ -47,7 +48,24 @@ watchdog and publishes ``zk_serve_dispatch_ms``,
 over the wall time over the card's bf16 peak) and ``zk_serve_mfu_int8``
 (over the int8 peak; -1 unless the deployment is packed). A warmed
 pair's forward adds host arithmetic only: no synchronisation, no
-launch. Not ported yet (ROADMAP.md): sequence buckets.
+launch.
+
+**Sequence buckets** (``seq_buckets``, for token models bound with an
+integer ``dtype``): axis 1 of a request is right-padded with zeros to
+the smallest sequence bucket holding it, so the card sees ``(batch
+bucket, sequence bucket)`` pairs only, and ``warmup()`` runs every pair
+(``compile_count`` is then ``len(batch_buckets) * len(seq_buckets)``).
+Padding keeps the real positions' answers only under causal attention;
+a model that attends both ways serves at exact lengths. The ledger rows,
+the warmed set, the FLOPs behind ``zk_serve_mfu`` and the dispatch guard
+are keyed by the pair (with the dtype and the mesh). Whether output
+axis 1 follows the sequence, so that ``infer`` slices it back to the
+request's length, is decided once per sequence bucket by the shapes of
+the pair's first forward and of one more forward at batch 1 one
+position shorter (the JAX engine traces both abstractly; the kernel
+wrappers cannot run on meta tensors). A pooled ``[batch, classes]``
+head whose class count equals a sequence bucket therefore keeps every
+class.
 """
 
 import contextlib
@@ -87,6 +105,10 @@ MicroBatcher`."""
     #: Padded batch sizes, ascending. The largest is the engine's max
     #: dispatch size (the batcher splits bigger requests).
     batch_buckets: Sequence[int] = Field((1, 8, 32, 128))
+    #: Sequence-length buckets for token inputs (empty: no sequence
+    #: padding). Right-padding keeps the answers only under causal
+    #: attention; a model that attends both ways serves at exact lengths.
+    seq_buckets: Sequence[int] = Field(())
 
     def bind(
         self,
@@ -99,7 +121,8 @@ MicroBatcher`."""
     ) -> "InferenceEngine":
         """Attach the model to serve: moved to ``device`` and put in eval
         mode. ``input_shape`` is the per-example shape (no batch dim);
-        ``dtype`` the dtype inputs are sent to the card in.
+        ``dtype`` the dtype inputs are sent to the card in (token models
+        pass ``torch.int32``).
         ``partitioner`` (default: one card) serves under a training
         layout; every rank binds the same weights."""
         buckets = tuple(int(b) for b in self.batch_buckets)
@@ -110,6 +133,9 @@ MicroBatcher`."""
                 f"batch_buckets={self.batch_buckets!r} must be a non-empty, "
                 "strictly-ascending tuple of positive sizes."
             )
+        seq_buckets = tuple(int(s) for s in self.seq_buckets)
+        if seq_buckets and list(seq_buckets) != sorted(set(seq_buckets)):
+            raise ValueError(f"seq_buckets={self.seq_buckets!r} must be strictly ascending.")
         if partitioner is None:
             from zookeeper_tpu_torch.parallel.partitioner import SingleDevicePartitioner
 
@@ -128,7 +154,10 @@ MicroBatcher`."""
         object.__setattr__(self, "_dtype", dtype)
         object.__setattr__(self, "_device", device)
         object.__setattr__(self, "_warmed", set())
-        # Ledger rows by (bucket, mesh); warmup() ends the warm-up window.
+        # Whether output axis 1 follows the sequence, by sequence bucket.
+        object.__setattr__(self, "_out_tracks_seq", {})
+        # Ledger rows by (bucket, seq bucket, dtype, mesh); warmup() ends
+        # the warm-up window.
         object.__setattr__(self, "_programs", {})
         object.__setattr__(self, "_warm_done", False)
         object.__setattr__(self, "_recompiles_detected", 0)
@@ -242,9 +271,15 @@ MicroBatcher`."""
         return max(int(b) for b in self.batch_buckets)
 
     @property
-    def warmed_buckets(self) -> int:
-        """Buckets run at least once (by ``warmup()`` or traffic)."""
+    def compile_count(self) -> int:
+        """Programs run so far (the JAX engine's compile-cache misses):
+        after ``warmup()`` exactly ``len(batch_buckets) * max(1,
+        len(seq_buckets))``, and serving warmed pairs does not move it."""
         return len(getattr(self, "_warmed", ()))
+
+    #: The port's earlier name of ``compile_count``: the pairs run at least
+    #: once (by ``warmup()`` or traffic).
+    warmed_buckets = compile_count
 
     @property
     def recompiles_detected(self) -> int:
@@ -256,7 +291,8 @@ MicroBatcher`."""
 
     @property
     def programs(self) -> dict:
-        """This engine's ledger rows by ``(bucket, mesh)``."""
+        """This engine's ledger rows by ``(bucket, seq_bucket, dtype,
+        mesh)`` (``seq_bucket`` None without sequence buckets)."""
         return dict(getattr(self, "_programs", {}))
 
     def bucket_for(self, n: int) -> int:
@@ -272,33 +308,85 @@ MicroBatcher`."""
             "batch_buckets."
         )
 
+    def _seq_bucket_for(self, seq: int) -> int:
+        """Smallest sequence bucket holding ``seq`` positions."""
+        for s in self.seq_buckets:
+            if int(s) >= seq:
+                return int(s)
+        raise ValueError(
+            f"sequence length {seq} exceeds the largest seq bucket "
+            f"{max(int(s) for s in self.seq_buckets)}; widen seq_buckets."
+        )
+
+    def buckets_of(self, x: Any) -> tuple:
+        """``(bucket, seq_bucket)`` a batch ``x`` runs at (``seq_bucket``
+        None without sequence buckets)."""
+        shape = np.shape(x)
+        seq_bucket = None
+        if self.seq_buckets:
+            if len(shape) < 2:
+                raise ValueError(
+                    "seq_buckets configured but the input has no sequence "
+                    f"axis (shape {tuple(shape)})."
+                )
+            seq_bucket = self._seq_bucket_for(int(shape[1]))
+        return self.bucket_for(int(shape[0])), seq_bucket
+
+    def _bucket_shape(self, bucket: int, seq_bucket: Optional[int]) -> tuple:
+        if seq_bucket is None:
+            return (bucket, *self._input_shape)
+        return (bucket, seq_bucket, *self._input_shape[1:])
+
     def warmup(self) -> int:
-        """Run every bucket once on zeros so no request pays a first-shape
-        cost (kernel build and load, cuDNN algorithm choice, allocator
-        growth). Returns the number of warmed buckets."""
+        """Run every bucket (every ``(bucket, seq_bucket)`` pair) once on
+        zeros so no request pays a first-shape cost (kernel build and
+        load, cuDNN algorithm choice, allocator growth). Returns the
+        number of warmed pairs."""
         self._require_bound()
+        seqs = tuple(int(s) for s in self.seq_buckets) or (None,)
         for bucket in self.batch_buckets:
-            self.infer(np.zeros((int(bucket), *self._input_shape), np.float32))
+            for seq in seqs:
+                self.infer(np.zeros(self._bucket_shape(int(bucket), seq), np.float32))
         if self._device.type == "cuda":
             torch.cuda.synchronize(self._device)
         # From here on, a first forward on the request path is a stall.
         object.__setattr__(self, "_warm_done", True)
         return self.warmed_buckets
 
-    def _note_recompile(self, bucket: int) -> None:
+    def _note_recompile(self, bucket: int, seq_bucket: Optional[int]) -> None:
         """A post-warm-up first forward on the request path: counted,
         traced, logged and handed to the flight recorder."""
         object.__setattr__(self, "_recompiles_detected", self._recompiles_detected + 1)
         _ledger.recompile_counter().inc()
-        attrs = {"bucket": bucket, "seq_bucket": None, "dtype": _dtype_name(self._dtype)}
+        attrs = {"bucket": bucket, "seq_bucket": seq_bucket, "dtype": _dtype_name(self._dtype)}
         _trace.event("recompile_detected", attrs=attrs)
         _recorder.notify("recompile_detected", attrs=attrs)
         logger.warning(
-            "post-warmup first forward on the request path (bucket=%d, dtype=%s): "
+            "post-warmup first forward on the request path (bucket=%d, seq=%s, dtype=%s): "
             "requests are stalling on it — widen or rewarm the bucket ladder",
-            bucket, _dtype_name(self._dtype))
+            bucket, seq_bucket, _dtype_name(self._dtype))
 
-    def _first_run(self, bucket: int, x: torch.Tensor, forward) -> torch.Tensor:
+    def _tracks_seq(self, seq_bucket: int, out: torch.Tensor) -> bool:
+        """Whether output axis 1 follows the sequence: ``out`` (the pair's
+        first forward) against one forward at batch 1 and ``seq_bucket -
+        1`` positions, made once per sequence bucket. Every rank makes it
+        at the same dispatch, so a collective forward stays in step."""
+        tracks = self._out_tracks_seq.get(seq_bucket)
+        if tracks is None:
+            probe_seq = max(1, seq_bucket - 1)
+            plan = self.forward_plan(1)
+            x = torch.zeros(self._bucket_shape(1, probe_seq), dtype=self._dtype)
+            weights = (contextlib.nullcontext() if self._plan is None
+                       else self._plan.gathered_weights(self._module))
+            with weights, plan.activation_scope():
+                probe = plan.assemble(self._module(plan.take(x).to(self._device)))
+            a, b = tuple(out.shape), tuple(probe.shape)
+            tracks = len(a) >= 2 and len(b) >= 2 and a[1] != b[1]
+            self._out_tracks_seq[seq_bucket] = tracks
+        return tracks
+
+    def _first_run(self, bucket: int, seq_bucket: Optional[int], x: torch.Tensor,
+                   forward) -> torch.Tensor:
         """A program's first forward: counted (FLOPs from the layers,
         bytes from the shapes), synchronised, timed and ledgered."""
         during_dispatch = self._warm_done
@@ -316,14 +404,21 @@ MicroBatcher`."""
         compile_ms = (time.perf_counter() - t0) * 1e3
         nbytes = weight_bytes + x.numel() * x.element_size() + out.numel() * out.element_size()
         mesh = "x".join(f"{k}:{v}" for k, v in self._mesh_key) or "1"
+        seq = f"s{seq_bucket}" if seq_bucket is not None else ""
         record = _ledger.default_ledger().record(
             "serve_forward",
-            f"{type(self._partitioner).__name__}/mesh={mesh}/b{bucket}/{_dtype_name(self._dtype)}",
+            f"{type(self._partitioner).__name__}/mesh={mesh}/b{bucket}{seq}/"
+            f"{_dtype_name(self._dtype)}",
             flops=counter.flops, bytes_accessed=nbytes, compile_ms=compile_ms,
-            attrs={"bucket": bucket, "seq_bucket": None, "during_dispatch": during_dispatch},
+            attrs={"bucket": bucket, "seq_bucket": seq_bucket,
+                   "during_dispatch": during_dispatch},
         )
-        self._programs[(bucket, self._mesh_key)] = record
+        self._programs[self._key(bucket, seq_bucket)] = record
         return out
+
+    def _key(self, bucket: int, seq_bucket: Optional[int]) -> tuple:
+        """A program's key, as the JAX engine's compile cache keys it."""
+        return (bucket, seq_bucket, _dtype_name(self._dtype), self._mesh_key)
 
     def observe_dispatch(self, rows: int, seconds: float) -> None:
         """Record one completed, readback-bounded dispatch (the
@@ -359,22 +454,30 @@ MicroBatcher`."""
 
     def infer(self, x: Any) -> torch.Tensor:
         """Forward one batch ``[n, *input_shape]`` (n <= ``max_batch``):
-        pad with zero rows to the bucket, run, slice the padding off.
+        pad with zero rows to the bucket (and, with sequence buckets, axis
+        1 with zeros to the sequence bucket), run, slice the padding off.
         Returns a tensor on the engine's device; the caller decides when
         to pay the readback (the batcher does one per dispatch)."""
         self._require_bound()
         x = torch.as_tensor(np.asarray(x)).to(self._dtype)
-        if tuple(x.shape[1:]) != self._input_shape:
+        bucket, seq_bucket = self.buckets_of(x)
+        # The per-example shape, but for the sequence axis a bucket pads.
+        fixed = 2 if seq_bucket is not None else 1
+        if tuple(x.shape[fixed:]) != self._input_shape[fixed - 1:]:
             raise ValueError(
                 f"request rows have shape {tuple(x.shape[1:])}, the engine "
                 f"serves {self._input_shape}."
             )
         n = x.shape[0]
-        bucket = self.bucket_for(n)
+        orig_seq = x.shape[1] if seq_bucket is not None else None
         if self.collective:
-            distributed.check_same_dispatch((0, bucket, n, 0), "InferenceEngine")
+            distributed.check_same_dispatch(
+                (0, bucket, n, 0) if seq_bucket is None else (0, bucket, n, seq_bucket, orig_seq),
+                "InferenceEngine")
+        if seq_bucket is not None and seq_bucket != orig_seq:
+            x = torch.cat([x, x.new_zeros((n, seq_bucket - orig_seq, *x.shape[2:]))], dim=1)
         if bucket != n:
-            x = torch.cat([x, x.new_zeros((bucket - n, *self._input_shape))])
+            x = torch.cat([x, x.new_zeros((bucket - n, *x.shape[1:]))])
         plan = self.forward_plan(bucket)
         weights = (contextlib.nullcontext() if self._plan is None
                    else self._plan.gathered_weights(self._module))
@@ -383,16 +486,24 @@ MicroBatcher`."""
             with weights, plan.activation_scope():
                 return self._module(plan.take(x).to(self._device))
 
-        # Keyed by bucket and mesh, as the JAX engine's compile cache is.
-        key = (bucket, self._mesh_key)
+        # Keyed as the JAX engine's compile cache is: the bucket pair, the
+        # dtype and the mesh.
+        key = self._key(bucket, seq_bucket)
         first = key not in self._warmed
         if first and self._warm_done:
-            self._note_recompile(bucket)
-        with torch.inference_mode(), self._swap_lock, _trace.span(
-                "engine_infer", attrs={"rows": int(n), "bucket": bucket}
-                if _trace.enabled() else None):
-            out = self._first_run(bucket, x, forward) if first else forward()
-            out = plan.assemble(out)[:n]
+            self._note_recompile(bucket, seq_bucket)
+        attrs = None
+        if _trace.enabled():
+            attrs = {"rows": int(n), "bucket": bucket}
+            if seq_bucket is not None:
+                attrs["seq_bucket"] = seq_bucket
+        with torch.inference_mode(), self._swap_lock, _trace.span("engine_infer", attrs=attrs):
+            out = plan.assemble(self._first_run(bucket, seq_bucket, x, forward) if first
+                                else forward())
+            if seq_bucket is not None and self._tracks_seq(seq_bucket, out) \
+                    and orig_seq != seq_bucket:
+                out = out[:, :orig_seq]
+            out = out[:n]
         self._warmed.add(key)
         record = self._programs.get(key)
         if record is not None:
@@ -415,7 +526,12 @@ class CheckpointWatcher:
     configuration error (a structure mismatch, ``weights="ema"`` without
     an EMA) stops the watcher and counts ``watcher_stopped``.
     ``poll_once()`` is the deterministic unit; ``start()`` runs it on a
-    daemon thread every ``poll_interval_s``; ``stop()`` is idempotent."""
+    daemon thread every ``poll_interval_s``; ``stop()`` is idempotent.
+
+    Under chief-led dispatch (``MicroBatcher.follow``) the chief's watcher
+    only proposes each new step to its batcher, and every rank's
+    dispatch thread loads it and swaps it in at the same dispatch
+    boundary (``apply_step``); a follower's watcher never polls."""
 
     def __init__(self, engine: InferenceEngine, directory: str, *, weights: str = "ema",
                  poll_interval_s: float = 2.0, metrics: Any = None,
@@ -437,6 +553,15 @@ class CheckpointWatcher:
         self._thread: Optional[threading.Thread] = None
         self._swaps = 0
         self._poll_lock = threading.Lock()
+        # Chief-led dispatch: the batcher followed, whether this rank's
+        # polls propose (the chief) and the step last proposed.
+        self._dispatcher: Any = None
+        self._proposes = False
+        self._proposed: Optional[int] = None
+
+    def _follow(self, dispatcher, *, propose: bool) -> None:
+        self._dispatcher = dispatcher
+        self._proposes = bool(propose)
 
     @property
     def current_step(self) -> Optional[int]:
@@ -452,8 +577,12 @@ class CheckpointWatcher:
     def alive(self) -> bool:
         """Whether the daemon poller still follows the directory (False
         after ``stop()`` or a fatal error)."""
+        if self._stop.is_set():
+            return False
+        if self._dispatcher is not None and not self._proposes:
+            return True  # a follower follows through its batcher
         thread = self._thread
-        return thread is not None and thread.is_alive() and not self._stop.is_set()
+        return thread is not None and thread.is_alive()
 
     def poll_once(self) -> Optional[int]:
         """One poll: when a finalized step newer than ``current_step``
@@ -465,11 +594,18 @@ class CheckpointWatcher:
     def _poll_once_locked(self) -> Optional[int]:
         from zookeeper_tpu_torch.training import checkpoint as ckpt
 
+        if self._dispatcher is not None and not self._proposes:
+            return None  # a follower: the chief's records carry the steps
         steps = ckpt.finalized_steps(self._directory)
         if not steps:
             return None
         newest = steps[-1]
         if self._current_step is not None and newest <= self._current_step:
+            return None
+        if self._dispatcher is not None:
+            if self._proposed is None or newest > self._proposed:
+                self._proposed = newest
+                self._dispatcher._propose_step(newest)
             return None
         t0 = time.perf_counter()
         try:
@@ -486,22 +622,52 @@ class CheckpointWatcher:
             logger.warning("checkpoint watcher: step %d could not be loaded (%s); "
                            "retrying at the next poll", newest, e)
             return None
+        return self._swap_in(newest, (params, model_state), t0)
+
+    def apply_step(self, step: int, link) -> Optional[int]:
+        """Chief-led dispatch: load ``step`` and swap it in, on every rank
+        from its dispatch thread at the boundary the chief's record names.
+        The ranks agree over ``link`` that every load succeeded, so all
+        swap or none does (the chief's watcher then proposes the step
+        again at its next poll). Returns the newly live step or None."""
+        from zookeeper_tpu_torch.training import checkpoint as ckpt
+
+        t0 = time.perf_counter()
+        trees = None
         try:
-            self._engine.swap_weights(params, model_state)
+            trees = ckpt.load_inference_model(self._directory, weights=self._weights, step=step)
+        except Exception as e:
+            logger.warning("checkpoint watcher: step %d could not be loaded (%s); the "
+                           "chief proposes it again at its next poll", step, e)
+        if not link.agree(trees is not None):
+            self._proposed = None
+            return None
+        try:
+            return self._swap_in(int(step), trees, t0, ", chief-led")
+        except ValueError as e:
+            logger.error("checkpoint watcher stopped: %s", e)
+            return None
+
+    def _swap_in(self, step: int, trees, t0: float, how: str = "") -> int:
+        """Swap the loaded ``trees`` in as ``step`` (a configuration error
+        stops the watcher and raises), then time, trace, count and log the
+        swap from ``t0``, the start of its load. Returns ``step``."""
+        try:
+            self._engine.swap_weights(*trees)
         except ValueError:
             self._record_fatal_stop()
             raise
         if self._engine.device.type == "cuda":
             torch.cuda.synchronize(self._engine.device)
         swap_ms = (time.perf_counter() - t0) * 1e3
-        self._current_step = newest
+        self._current_step = step
         self._swaps += 1
-        _trace.event("ckpt_hot_swap", step=newest, attrs={"swap_ms": round(swap_ms, 3)})
+        _trace.event("ckpt_hot_swap", step=step, attrs={"swap_ms": round(swap_ms, 3)})
         if self._metrics is not None:
-            self._metrics.record_weight_swap(swap_ms, newest)
-        logger.info("serving weights hot-swapped to training step %d (%.1f ms)",
-                    newest, swap_ms)
-        return newest
+            self._metrics.record_weight_swap(swap_ms, step)
+        logger.info("serving weights hot-swapped to training step %d (%.1f ms%s)",
+                    step, swap_ms, how)
+        return step
 
     def _record_fatal_stop(self) -> None:
         """Stop over a configuration error; the metric lands before the

@@ -40,10 +40,10 @@ listed before the first load is the watcher's baseline, and its first
 poll runs at once: a step that finalized during the load and warm-up is
 swapped in then. Teardown stops the watcher; the report's
 ``watcher_alive`` and ``serving_weights_step`` say whether it still
-follows the run. At world size > 1 each rank's watcher would poll by its
-own clock, so ``watch=True`` raises (a chief-led dispatch is queued in
-ROADMAP.md); a ``swap_weights`` that every rank calls at the same point
-stays allowed.
+follows the run. At world size > 1 the chief's watcher leads
+(``MicroBatcher.follow``): every rank loads the step the chief listed
+before the first load, and each step the chief's watcher finds is
+loaded and swapped in by every rank at the same dispatch boundary.
 
 **Observability** (``observability``), off by default. ``metrics_port``
 >= 0 starts an ``ObservabilityServer`` (0: an ephemeral port, read back
@@ -69,7 +69,8 @@ import torch
 
 from zookeeper_tpu_torch.core import ComponentField, Field, pretty_print, task
 from zookeeper_tpu_torch.models.base import Model
-from zookeeper_tpu_torch.parallel.distributed import DistributedRuntime, refuse_clock_driven
+from zookeeper_tpu_torch.parallel import distributed
+from zookeeper_tpu_torch.parallel.distributed import DistributedRuntime
 from zookeeper_tpu_torch.parallel.partitioner import Partitioner, SingleDevicePartitioner
 from zookeeper_tpu_torch.serving.batcher import MicroBatcher
 from zookeeper_tpu_torch.serving.engine import InferenceEngine
@@ -249,16 +250,18 @@ class ServingConfig(ObservedService):
                 f"requests={self.requests} must be >= 0 and "
                 f"max_request={self.max_request} >= 1."
             )
+        self.runtime.initialize(self.device)
         module = self.model.build(self.input_shape, self.num_classes)
         # The watcher's baseline, listed before the load: the load binds at
         # least this step, so a step finalizing meanwhile stays newer and
-        # the first poll swaps it in.
+        # the first poll swaps it in. In a group every rank takes the
+        # chief's and loads that step.
         watch_baseline = None
         if self.watch and self.checkpoint:
             from zookeeper_tpu_torch.training.checkpoint import finalized_steps
 
             steps = finalized_steps(self.checkpoint)
-            watch_baseline = steps[-1] if steps else None
+            watch_baseline = distributed.broadcast_from_chief(steps[-1] if steps else None)
         if self.checkpoint:
             from zookeeper_tpu_torch.training.checkpoint import (
                 export_trees,
@@ -270,11 +273,12 @@ class ServingConfig(ObservedService):
             params, model_state = load_inference_model(
                 self.checkpoint, weights=self.weights,
                 params_like=params_like, model_state_like=state_like,
+                **({"step": watch_baseline}
+                   if watch_baseline is not None and distributed.world_size() > 1 else {}),
             )
             load_into_module(module, params, model_state)
         else:
             self.model.initialize(module, seed=self.seed)
-        self.runtime.initialize(self.device)
         self.partitioner.setup()
         self.engine.bind(
             module, self.input_shape, dtype=self.model.dtype(), device=self.device,
@@ -289,10 +293,17 @@ class ServingConfig(ObservedService):
                     "watch=True needs checkpoint= pointing at a live Checkpointer "
                     "directory to stream steps from."
                 )
-            refuse_clock_driven(self.engine, "ServingConfig.watch (the checkpoint watcher)")
-            object.__setattr__(self, "watcher", self.engine.watch_checkpoints(
+            led = distributed.chief_led(self.engine)
+            watcher = self.engine.watch_checkpoints(
                 self.checkpoint, weights=self.weights, poll_interval_s=self.watch_poll_s,
-                metrics=self.metrics, initial_step=watch_baseline))
+                metrics=self.metrics, initial_step=watch_baseline, start=not led)
+            if led:
+                # Every rank follows; only the chief's watcher polls.
+                self.batcher.follow(watcher)
+                if self.partitioner.is_chief:
+                    watcher.poll_once()
+                    watcher.start()
+            object.__setattr__(self, "watcher", watcher)
         self._start_observability()
         return self.engine, self.batcher
 
